@@ -6,22 +6,31 @@ NVIDIA card.
 
 Phases, each printing one JSON line:
 
-1. build — compile both Hopper kernels (``flex_fwd``, ``paged_decode``) from
-   the sources in ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a,
-   and print the card's name and power limit as nvidia-smi reports them;
+1. build — compile the four Hopper kernels (``flex_fwd``, ``flex_dq``,
+   ``flex_dkv``, ``paged_decode``) from the sources in
+   ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once, and
+   print the card's name and power limit as nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
-   bf16 at head_dim 128 with 4 q heads per kv head, on the mask families and
-   ragged lengths below, each with its stated tolerance; then the kernels'
-   times at the serving path's shapes beside the plain version's, a
-   PyTorch ``scaled_dot_product_attention`` yardstick and the card's bound;
+   bf16 at head_dim 128, on the mask families and ragged lengths below
+   (the backward with 4 and with 2 q heads per kv head and a random lse
+   cotangent, and twice, for the same bits), each with its stated
+   tolerance; then the kernels' times at their main path's shapes beside
+   the plain version's, a PyTorch ``scaled_dot_product_attention``
+   yardstick and the card's bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs), run
    64 decode steps over the batch, and hold prefill outputs (prompts up to
-   4096 tokens) and every 8th decode step against the plain versions.
+   4096 tokens) and every 8th decode step against the plain versions;
+4. training — the port's Llama trainer at the widths of the repo's
+   ``LlamaConfig`` (vocab 32000, dim 2048, 16 q / 8 kv heads, head_dim 128,
+   ffn 5632, bf16 compute, fp32 masters), cut from 16 to 4 layers, on one
+   8192-token stream packed as documents [4096, 2048, 2048]: 6 AdamW steps
+   on a fixed batch from ``--seed``, one layer's attention call of the
+   first step held against the plain forward and backward.
 
-The line before the last lists both kernels with their launches on the
-serving path, errors and times; the last line is
+The line before the last lists the four kernels with their launches on the
+main paths, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
 """
@@ -29,6 +38,7 @@ line; nothing falls back to a plain version. Needs one card and no network.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -37,6 +47,7 @@ import sys
 import time
 
 HQ, HK, D = 32, 8, 128  # Llama-3.1-8B attention widths
+TRAIN_HQ, TRAIN_HK = 16, 8  # the repo's LlamaConfig
 PAGE = 128
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -45,8 +56,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # come from f32 accumulations in another summation order
 OUT_ATOL, OUT_RTOL = 1e-2, 1e-2
 LSE_ATOL = 2e-4
-# the largest out error of each kernel over every comparison of this run
-MAX_ERR = {"flex_fwd": 0.0, "paged_decode": 0.0}
+# the backward kernels' dq/dk/dv vs the plain f32 backward: the kernels
+# round P and dS to bf16 before their products (as the TPU kernels do), so
+# each tensor's error scales with its largest entry
+GRAD_RTOL, GRAD_ATOL = 2e-2, 1e-3
+# the largest out (or gradient) error of each kernel over every comparison
+MAX_ERR = {"flex_fwd": 0.0, "flex_dq": 0.0, "flex_dkv": 0.0, "paged_decode": 0.0}
+SERVING_KERNELS = ("flex_fwd", "paged_decode")
+TRAINING_KERNELS = ("flex_fwd", "flex_dq", "flex_dkv")
 
 
 class SmokeFailure(Exception):
@@ -89,6 +106,22 @@ def compare(kernel, name, out, ref_out, lse=None, ref_lse=None, extra=None):
         check(e <= LSE_ATOL, f"{name}: {key} max abs err {e} > {LSE_ATOL}")
     emit({"phase": "kernels", "kernel": kernel, **rec})
     MAX_ERR[kernel] = max(MAX_ERR[kernel], max_err)
+
+
+def compare_grads(kernel, name, pairs) -> None:
+    """Each (what, got, ref) within GRAD_RTOL * max|ref| + GRAD_ATOL."""
+    import torch
+
+    rec = {"case": name}
+    for what, got, ref in pairs:
+        got, ref = got.float(), ref.float()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {what}")
+        err = float((got - ref).abs().max())
+        tol = GRAD_RTOL * float(ref.abs().max()) + GRAD_ATOL
+        rec[f"{what}_max_abs_err"], rec[f"{what}_tol"] = err, tol
+        check(err <= tol, f"{name}: {what} max abs err {err} > {tol}")
+        MAX_ERR[kernel] = max(MAX_ERR[kernel], err)
+    emit({"phase": "kernels", "kernel": kernel, **rec})
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -153,6 +186,56 @@ class Flex:
             has_sink=sink is not None, out_dtype=torch.bfloat16,
         )
         self.tables = fa.fwd_tables(self.meta, "cuda:0")
+        self.btables = fa.bwd_tables(self.meta, "cuda:0")
+        self.do = rand(tq, hq, tqp)
+        self.dlse = torch.randn((hq, tqp), generator=gen, device="cuda")
+        self._bwd = None
+
+    def bwd_inputs(self):
+        """(q, k, v, dout, lse, delta_eff) as the autograd Function hands
+        them to the backward: lse from the forward kernel, delta_eff = sum
+        dout * out - dlse with a random lse cotangent."""
+        if self._bwd is None:
+            out, lse, _ = self.kernel()
+            delta = (self.do.float() * out.float()).sum(-1) - self.dlse
+            self._bwd = (self.q, self.k, self.v, self.do, lse, delta)
+        return self._bwd
+
+    def dq_kernel(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dq_kernel(*self.bwd_inputs(), self.tables, self.params)
+
+    def dkv_kernel(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dkv_kernel(*self.bwd_inputs(), self.btables, self.params)
+
+    def dq_plain(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dq_torch(*self.bwd_inputs(), self.tables, self.params)
+
+    def dkv_plain(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dkv_torch(*self.bwd_inputs(), self.btables, self.params)
+
+    def check_bwd(self, name) -> None:
+        """Both backward kernels against the plain backward, and against
+        themselves: a second run gives the same bits (no atomics)."""
+        import torch
+
+        dq, (dk, dv) = self.dq_kernel(), self.dkv_kernel()
+        torch.cuda.synchronize()
+        dq2, (dk2, dv2) = self.dq_kernel(), self.dkv_kernel()
+        check(torch.equal(dq, dq2), f"{name}: flex_dq differs between two runs")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"{name}: flex_dkv differs between two runs")
+        tq = self.tq
+        compare_grads("flex_dq", name, [("dq", dq[:, :tq], self.dq_plain()[:, :tq])])
+        ref_dk, ref_dv = self.dkv_plain()
+        compare_grads("flex_dkv", name, [("dk", dk, ref_dk), ("dv", dv, ref_dv)])
 
     def kernel(self):
         from magiattention_tpu_torch.ops import flex_attn as fa
@@ -176,8 +259,9 @@ class Flex:
 
 
 def flex_cases(gen) -> None:
+    """The forward with 4 q heads per kv head, the backward with 4 and 2."""
     C, F, I, B = 1, 0, 2, 3
-    hq, hk = 8, 2  # 4 q heads per kv head
+    hq = 8
     cases = [
         ("flex_causal_whole", 2048, 2048, [(0, 2048)], [(0, 2048)], [C], {}),
         ("flex_varlen_causal", 2000, 2000, [(0, 700), (700, 1500), (1500, 2000)],
@@ -191,7 +275,10 @@ def flex_cases(gen) -> None:
         ("flex_uncovered_rows", 1000, 1000, [(100, 600)], [(0, 500)], [F], {}),
     ]
     for name, tq, tk, qr, kr, ty, kw in cases:
-        Flex(gen, tq, tk, hq, hk, qr, kr, ty, **kw).check(name)
+        p = Flex(gen, tq, tk, hq, 2, qr, kr, ty, **kw)
+        p.check(name)
+        p.check_bwd(f"{name}_bwd_g4")
+        Flex(gen, tq, tk, hq, 4, qr, kr, ty, **kw).check_bwd(f"{name}_bwd_g2")
 
 
 def flex_timing(gen, t: int) -> dict:
@@ -216,6 +303,49 @@ def flex_timing(gen, t: int) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     return {"ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def bwd_timing(gen, t: int) -> dict:
+    """Both backward kernels and their plain versions on one causal
+    sequence at the training widths, each kernel's bound from its own work,
+    and the backward of PyTorch's ``scaled_dot_product_attention`` on the
+    same problem (fwd+bwd minus fwd) as a yardstick for the pair."""
+    import torch
+    import torch.nn.functional as Fn
+
+    hq, hk = TRAIN_HQ, TRAIN_HK
+    p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1])
+    p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
+    dq_ms = cuda_ms(p.dq_kernel, reps=10)
+    dkv_ms = cuda_ms(p.dkv_kernel, reps=10)
+    dq_plain_ms = cuda_ms(p.dq_plain, reps=2, warmup=1)
+    dkv_plain_ms = cuda_ms(p.dkv_plain, reps=2, warmup=1)
+    q, k, v = (x[:, :t].unsqueeze(0).detach().requires_grad_() for x in (p.q, p.k, p.v))
+    do = p.do[:, :t].unsqueeze(0)
+
+    def fwd():
+        return Fn.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), do)
+
+    fwd_ms = cuda_ms(p.kernel, reps=10)
+    sdpa_fwd_ms = cuda_ms(fwd, reps=10)
+    sdpa_bwd_ms = cuda_ms(fwd_bwd, reps=10) - sdpa_fwd_ms
+    area = p.meta.total_area
+    in_bytes = 2 * (2 * t * hq * D + 2 * t * hk * D) + 4 * 2 * t * hq  # q, do, k, v; lse, delta
+    dq_bound = bound(6.0 * area * D * hq, in_bytes + 4 * t * hq * D)
+    dkv_bound = bound(8.0 * area * D * hq, in_bytes + 4 * 2 * t * hk * D)
+    return {
+        "tokens": t, "hq": hq, "hk": hk, "area": area,
+        "flex_dq": {"ms": dq_ms, "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
+                    "bound_by": dq_bound[1], "library_ms": sdpa_bwd_ms},
+        "flex_dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound[0],
+                     "bound_by": dkv_bound[1], "library_ms": None},
+        "sdpa_bwd_ms_for_the_pair": sdpa_bwd_ms,
+        "flex_fwd_ms_same_problem": fwd_ms,
+        "sdpa_fwd_ms_same_problem": sdpa_fwd_ms,
+    }
 
 
 # -- paged decode: kernel vs plain ------------------------------------------
@@ -367,7 +497,7 @@ def serving(gen) -> tuple[dict, object, list[int]]:
             compare("paged_decode", f"serving_decode_step{step}", out, ref_out, lse, ref_lse)
     lengths = [engine.length(s) for s in slots]
     check(lengths == [t + steps for t in prompts], f"final lengths {lengths}")
-    launches = dict(csrc.launches)
+    launches = {n: csrc.launches[n] for n in SERVING_KERNELS}
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     decode_s = sum(step_ms) / 1e3
     summary = {
@@ -384,6 +514,166 @@ def serving(gen) -> tuple[dict, object, list[int]]:
         "pages_in_use": engine.allocator.pages_in_use,
     }
     return summary, engine, slots
+
+
+# -- the training path ---------------------------------------------------------
+
+
+TRAIN_LAYERS = 4  # cut from the config's 16 to keep the smoke within its time
+TRAIN_DOCS = [4096, 2048, 2048]  # one 8192-token stream, three documents
+TRAIN_STEPS = 6
+ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)  # optax.adamw's
+
+
+def attention_check(model, cap) -> None:
+    """One layer's attention call from the first step against the plain
+    forward and backward on the card: its q, k, v, the forward's out and lse,
+    the dout that reached it and the dq, dk, dv it gave back."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    meta, cfg = model.meta, model.cfg
+    tqp, tkp = meta.num_q_blocks * meta.block_q, meta.num_k_blocks * meta.block_k
+    t = cap["q"].shape[0]
+
+    def head_major(x, tp):
+        return fa._pad_tokens(x.transpose(0, 1), tp)
+
+    q, out, do = (head_major(cap[n], tqp) for n in ("q", "out", "dout"))
+    k, v = (head_major(cap[n], tkp) for n in ("k", "v"))
+    params = fa.FlexAttnParams(meta.block_q, meta.block_k, 1.0 / math.sqrt(cfg.head_dim),
+                               0.0, False, cfg.torch_dtype)
+    ftab, btab = fa.fwd_tables(meta, "cuda:0"), fa.bwd_tables(meta, "cuda:0")
+    sink = torch.zeros((q.shape[0],), device="cuda")
+    ref_out, ref_lse, _ = fa._fwd_torch(q, k, v, sink, ftab, params)
+    compare("flex_fwd", "training_layer0_step0", cap["out"], ref_out[:, :t].transpose(0, 1),
+            cap["lse"], ref_lse[:, :t].transpose(0, 1))
+    # the model does not use lse: its cotangent is 0, delta_eff = sum dout * out
+    lse = head_major(cap["lse"], tqp)
+    delta = (do.float() * out.float()).sum(-1)
+    ref_dq = fa._dq_torch(q, k, v, do, lse, delta, ftab, params)[:, :t].transpose(0, 1)
+    compare_grads("flex_dq", "training_layer0_step0", [("dq", cap["dq"], ref_dq)])
+    ref_dk, ref_dv = fa._dkv_torch(q, k, v, do, lse, delta, btab, params)
+    compare_grads("flex_dkv", "training_layer0_step0",
+                  [("dk", cap["dk"], ref_dk[:, :t].transpose(0, 1)),
+                   ("dv", cap["dv"], ref_dv[:, :t].transpose(0, 1))])
+
+
+KERNEL_GROUPS = (  # kernel-name fragments -> the layer a step's device time goes to
+    ("attention kernels", ("flex_fwd_kernel", "flex_dq_kernel", "flex_dkv_kernel")),
+    ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("optimizer", ("multi_tensor", "adam")),
+)
+
+
+def profile_step(step, batch) -> dict:
+    """One more train step under ``torch.profiler``: device time by kernel
+    group, the step's host-clock time, and the device's idle share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a GPU user annotation (e.g. "Optimizer.step#AdamW.step")
+    # spans kernels that are counted on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other kernels"] = 0.0
+    for e in kernels:
+        ms = e.self_device_time_total / 1e3
+        group = next((n for n, frags in KERNEL_GROUPS
+                      if any(f in e.key.lower() for f in frags)), "other kernels")
+        groups[group] += ms
+    device_ms = sum(groups.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms if device_ms else None,
+        "device_ms_by_group": groups,
+        "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+    }
+
+
+def training(seed: int) -> dict:
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+    from magiattention_tpu_torch.ops import flex_attn_with_meta
+
+    full = LlamaConfig()
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    total = sum(TRAIN_DOCS)
+    qr, kr, ts = infer_varlen_mask_from_batch(TRAIN_DOCS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed)  # the card, by default
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1)  # the next token
+    pos = torch.arange(total, device="cuda")  # global position ids
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+
+    cap = {}
+
+    def capture(q, k, v):
+        """The model's attention, holding on to the first call's operands,
+        results and gradients (no extra launch)."""
+        out, lse = flex_attn_with_meta(q, k, v, model.meta, out_dtype=cfg.torch_dtype)
+        if not cap:
+            cap.update(q=q.detach(), k=k.detach(), v=v.detach(), out=out.detach(), lse=lse.detach())
+            for name, x in (("dq", q), ("dk", k), ("dv", v), ("dout", out)):
+                x.register_hook(lambda g, name=name: cap.__setitem__(name, g))
+        return out
+
+    losses, step_ms = [], []
+    csrc.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            model.attention = capture  # shadows the method for the first step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(tokens, labels, pos))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            del model.attention
+    launches = {n: csrc.launches[n] for n in TRAINING_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    expected = TRAIN_LAYERS * TRAIN_STEPS
+    check(all(n == expected for n in launches.values()),
+          f"training launches {launches}, expected {expected} of each")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall on a fixed batch: {losses}")
+    check(set(cap) == {"q", "k", "v", "out", "lse", "dq", "dk", "dv", "dout"},
+          f"the first step's attention call captured only {sorted(cap)}")
+    attention_check(model, cap)
+    # a seventh step, after the six counted ones, under the profiler
+    profile = profile_step(step, (tokens, labels, pos))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    return {
+        "phase": "training",
+        "config": {**dataclasses.asdict(cfg), "n_layers_full": full.n_layers},
+        "cut": f"n_layers {full.n_layers} -> {TRAIN_LAYERS} (depth only; every width as configured)",
+        "docs": TRAIN_DOCS,
+        "tokens_per_step": total,
+        "optimizer": {"AdamW": {**ADAMW, "betas": list(ADAMW["betas"])}},
+        "losses": losses,
+        "step_ms": step_ms,
+        "median_step_ms_steps_2_to_6": med,
+        "tokens_per_s": total / (med / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "launches": launches,
+        "profiled_extra_step": profile,
+    }
 
 
 def main(argv=None) -> int:
@@ -420,27 +710,39 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     flex_cases(gen)
     flex_t = flex_timing(gen, 4096)
+    bwd_t = bwd_timing(gen, sum(TRAIN_DOCS))
+    emit({"phase": "bwd_timing", **bwd_t})
     decode_cases(gen)
 
     summary, engine, slots = serving(gen)
     emit(summary)
     dec_t = decode_timing(engine, slots, gen)
     emit({"phase": "decode_timing", **dec_t})
+    del engine
 
-    kernels = [
-        {"name": "flex_fwd", "route": "cuda",
-         "source": "magiattention_tpu_torch/csrc/flex_fwd.cu",
-         "replaces": "magiattention_tpu/ops/flex_attn.py:543",
-         "launches": summary["launches"]["flex_fwd"],
-         "max_abs_err": MAX_ERR["flex_fwd"],
-         **{k: flex_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
-        {"name": "paged_decode", "route": "cuda",
-         "source": "magiattention_tpu_torch/csrc/decode.cu",
-         "replaces": "magiattention_tpu/serving/decode_attn.py:284",
-         "launches": summary["launches"]["paged_decode"],
-         "max_abs_err": MAX_ERR["paged_decode"],
-         **{k: dec_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
-    ]
+    train = training(args.seed)
+    emit(train)
+
+    # launches on the main paths: each path's counts were zeroed just before it
+    by_path = {"serving": summary["launches"], "training": train["launches"]}
+    times = {"flex_fwd": flex_t, "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
+             "paged_decode": dec_t}
+    sources = {
+        "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
+        "flex_dq": ("flex_dq.cu", "magiattention_tpu/ops/flex_attn.py:1168"),
+        "flex_dkv": ("flex_dkv.cu", "magiattention_tpu/ops/flex_attn.py:1397"),
+        "paged_decode": ("decode.cu", "magiattention_tpu/serving/decode_attn.py:284"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"magiattention_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": MAX_ERR[name],
+            **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

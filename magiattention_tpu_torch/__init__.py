@@ -5,16 +5,19 @@ subpackage at a time, so every module here has a twin at the same
 relative path there. It imports ``torch`` and never ``jax`` or the JAX
 package: what it needs from there it keeps as its own copy.
 
-Layering of the serving slice:
+Layering of the serving and single-device training slices:
 
-- ``common/``  : the mask-type int ABI and dense-mask semantics
-- ``ops/``     : host kernel tables, LSE correction, flex-attention forward
-  (the ``flex_fwd`` Hopper kernel + its plain PyTorch version)
+- ``common/``  : the mask-type int ABI, dense-mask semantics, range algebra
+- ``api/``     : mask and padding helpers
+- ``ops/``     : host kernel tables, LSE correction, flex attention forward
+  and backward under ``torch.autograd`` (the ``flex_fwd``, ``flex_dq`` and
+  ``flex_dkv`` Hopper kernels + their plain PyTorch versions)
 - ``csrc/``    : the hand-written CUDA kernels, built with nvcc on first use
 - ``serving/`` : paged KV cache, split-KV decode (the ``paged_decode``
   kernel + its plain version), the continuous-batching engine
+- ``models/``  : the single-device Llama decoder and its train step
 - ``testing/`` : the fp64 dense oracle
-- ``convert``  : cache and plan state to and from numpy arrays
+- ``convert``  : cache, plan and Llama parameters to and from numpy arrays
 
 A function that takes tensors runs where its tensors are: CUDA tensors
 launch the Hopper kernel (or raise), CPU tensors take the plain version.
@@ -29,17 +32,19 @@ def __getattr__(name):
     import importlib
 
     if name in (
-        "common", "convert", "csrc", "env", "ops", "serving", "testing",
+        "api", "common", "convert", "csrc", "env", "models", "ops", "serving", "testing",
     ):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)
 
 
 __all__ = [
+    "api",
     "common",
     "convert",
     "csrc",
     "env",
+    "models",
     "ops",
     "serving",
     "testing",

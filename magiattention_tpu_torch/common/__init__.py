@@ -1,6 +1,17 @@
-"""Common host-side types: the mask-type enum and dense-mask semantics."""
+"""Common host-side types: the mask-type enum, dense-mask semantics, and
+the range algebra."""
 
 from .enum import AttnMaskType
 from .mask import make_attn_mask_from_ranges, slice_mask
+from .range import AttnRange, NaiveRange, RangeError
+from .ranges import AttnRanges
 
-__all__ = ["AttnMaskType", "make_attn_mask_from_ranges", "slice_mask"]
+__all__ = [
+    "AttnMaskType",
+    "AttnRange",
+    "AttnRanges",
+    "NaiveRange",
+    "RangeError",
+    "make_attn_mask_from_ranges",
+    "slice_mask",
+]

@@ -1,11 +1,12 @@
 """State to and from numpy arrays.
 
-The system has no weights: its state is the paged KV cache (``k_pages``,
-``v_pages``, ``block_tables``, ``seq_lens``) and the kernel plan (the arrays
-of a ``FlexAttnBlockMeta``). These functions carry that state across as
-numpy arrays, so that the JAX package and the port can be handed the same
-state and compute the same thing — numpy is the only common currency; this
-module imports nothing of JAX.
+The attention library has no weights of its own: its state is the paged KV
+cache (``k_pages``, ``v_pages``, ``block_tables``, ``seq_lens``) and the
+kernel plan (the arrays of a ``FlexAttnBlockMeta``); the Llama trainer adds
+its parameter tree. These functions carry that state across as numpy
+arrays, so that the JAX package and the port can be handed the same state
+and compute the same thing — numpy is the only common currency; this module
+imports nothing of JAX.
 
 bfloat16 arrays from JAX come as numpy arrays of the ``bfloat16`` extension
 dtype; they are read through their 16-bit pattern, with no conversion.
@@ -18,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.llama import LAYER_KEYS
 from .ops.block_meta import FlexAttnBlockMeta
 from .serving.kv_cache import PagedKVCache
 
@@ -89,3 +91,37 @@ def block_meta_from_numpy(meta) -> FlexAttnBlockMeta:
 def block_meta_to_numpy(meta: FlexAttnBlockMeta) -> dict:
     """The plan's fields as a dict (numpy arrays and ints)."""
     return {f.name: getattr(meta, f.name) for f in dataclasses.fields(meta)}
+
+
+def llama_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
+    """The port's Llama parameter tree from the JAX package's (its
+    ``init_params(PRNGKey, cfg)`` through ``np.asarray``): float32 tensors
+    on ``device``, for ``models.build_magi_llama(params=...)``. The weight
+    layout stays the JAX one, ``[in, out]`` applied as ``x @ w``, so every
+    array carries across unchanged."""
+
+    def conv(a):
+        return tensor_from_numpy(a, device, torch.float32)
+
+    return {
+        "embed": conv(tree["embed"]),
+        "layers": [{n: conv(layer[n]) for n in LAYER_KEYS} for layer in tree["layers"]],
+        "final_norm": conv(tree["final_norm"]),
+        "lm_head": conv(tree["lm_head"]),
+    }
+
+
+def llama_params_to_numpy(model, *, grad: bool = False) -> dict:
+    """A ``MagiLlama``'s parameters (or, with ``grad``, their gradients) as
+    numpy arrays in the JAX package's tree."""
+    tree = model.param_tree()
+
+    def conv(p):
+        return tensor_to_numpy(p.grad if grad else p)
+
+    return {
+        "embed": conv(tree["embed"]),
+        "layers": [{n: conv(layer[n]) for n in LAYER_KEYS} for layer in tree["layers"]],
+        "final_norm": conv(tree["final_norm"]),
+        "lm_head": conv(tree["lm_head"]),
+    }

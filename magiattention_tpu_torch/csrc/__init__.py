@@ -2,17 +2,18 @@
 
 Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
-``int``; the return value is the ``cudaError_t`` of the launch). On first
-use :func:`build` compiles the sources for ``sm_90a``, all at once (one
-nvcc process per source), into ``build/`` beside this file; the library
-name carries a hash of its source, so an edited kernel is rebuilt and an
+``int``; the return value is the ``cudaError_t`` of the launch); the three
+flex-attention kernels share ``flex_tile.cuh``. On first use :func:`build`
+compiles the sources for ``sm_90a``, all at once (one nvcc process per
+source), into ``build/`` beside this file; the library name carries a hash
+of its source and the shared header, so an edited kernel is rebuilt and an
 unchanged one is reused. Nothing here runs at import: the CPU tests import
 every module of the package, and a machine without a card may have no nvcc.
 
 ``launches`` counts the launches of each kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (``chip_smoke.py`` zeroes the counts before the
-serving path and reads them after it).
+went through the kernels (``chip_smoke.py`` zeroes the counts before each
+main path, serving and training, and reads them after it).
 """
 
 from __future__ import annotations
@@ -40,6 +41,26 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         + [_I] * 8
         # scale softcap has_sink out_f32 stream
         + [_F, _F, _I, _I, _P],
+    ),
+    "flex_dq": (
+        "flex_dq.cu",
+        "magi_flex_dq",
+        # q k v dout lse delta | kblk sid runs bounds rs rc | dq
+        [_P] * 6 + [_P] * 6 + [_P]
+        # hq hk tqp tkp head_dim nq block_q block_k
+        + [_I] * 8
+        # scale softcap stream
+        + [_F, _F, _P],
+    ),
+    "flex_dkv": (
+        "flex_dkv.cu",
+        "magi_flex_dkv",
+        # q k v dout lse delta | qblk sid runs bounds rs rc | dk dv
+        [_P] * 6 + [_P] * 6 + [_P] * 2
+        # hq hk tqp tkp head_dim nk block_q block_k
+        + [_I] * 8
+        # scale softcap stream
+        + [_F, _F, _P],
     ),
     "paged_decode": (
         "decode.cu",
@@ -91,9 +112,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(_DIR, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [KERNELS[name][0], *sorted(f for f in os.listdir(_DIR) if f.endswith(".cuh"))]:
+        with open(os.path.join(_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -26,70 +26,11 @@
 // loop over entries rs[i] .. rs[i]+rc[i] takes the place of the TPU's
 // sequential grid axis. K/V come from kv head h / group.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flex_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per thread block
-constexpr int BK = 64;                 // keys per tile
-constexpr int NWARPS = 4;              // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;                 // bf16 of padding per shared-memory row
-constexpr int RUN_FIELDS = 7;          // ops/block_meta.py RUN_FIELDS
-constexpr int SLICE_FIELDS = 5;        // ops/block_meta.py SLICE_FIELDS
-constexpr int BIG = 1 << 30;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way: lanes 8m..8m+7 give the
-// row addresses of matrix m, register m receives it.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const bf16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// rows [0, nrows) x D of a head-major [tokens, D] array -> shared, 16 B a thread
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int nrows) {
-  constexpr int LDS = D + PAD;
-  constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < nrows * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    *reinterpret_cast<uint4*>(dst + r * LDS + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + cc * 8);
-  }
-}
+using namespace flex;
 
 template <int D, typename OutT>
 __global__ void __launch_bounds__(NTHREADS)
@@ -122,13 +63,7 @@ flex_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = warp * 16 + g;
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p = sQ + r0 * LDS + kk * 16 + 2 * t4;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
-  }
+  for (int kk = 0; kk < D / 16; ++kk) load_a<LDS>(qf[kk], sQ, r0, kk * 16 + 2 * t4);
 
   float o[D / 8][4];
 #pragma unroll
@@ -150,23 +85,9 @@ flex_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // the entry's mask as a k-interval [lo, hi) per row (_entry_interval_mask)
-    const int* ru = runs + (size_t)e * RUN_FIELDS;
-    const int* bo = bounds + (size_t)sid[e] * SLICE_FIELDS;
-    const int ql0 = ru[0], ql1 = ru[1], kl0 = ru[2], kl1 = ru[3];
-    const int qoff = ru[4], koff = ru[5];
-    const int q0 = bo[0], q1 = bo[1], k0 = bo[2], k1 = bo[3], typ = bo[4];
     int lo[2], hi[2];
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int rl = row[rr];
-      const bool ok = rl >= ql0 && rl < ql1 && rl + qoff >= q0 && rl + qoff < q1;
-      int a = max(kl0, k0 - koff);
-      if (typ & 2) a = max(a, rl + (qoff - q0 + k0 - koff));
-      int b = min(kl1, k1 - koff);
-      if (typ & 1) b = min(b, rl + (qoff - q1 + k1 - koff + 1));
-      lo[rr] = ok ? a : BIG;
-      hi[rr] = ok ? b : -BIG;
-    }
+    for (int rr = 0; rr < 2; ++rr) entry_interval(runs, bounds, sid[e], e, row[rr], lo[rr], hi[rr]);
 
     // S = Q K^T for this warp's 16 rows x BK keys
     float s[BK / 8][4];
@@ -176,8 +97,7 @@ flex_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const bf16* p = sK + (j * 8 + g) * LDS + kk * 16 + 2 * t4;
-        mma_16816(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(p),
-                  *reinterpret_cast<const uint32_t*>(p + 8));
+        mma_16816(s[j], qf[kk], ld32(p), ld32(p + 8));
       }
     }
 
@@ -190,8 +110,7 @@ flex_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int rr = c >> 1;
         const int col = col0 + j * 8 + (c & 1);
-        float z = s[j][c] * scale;
-        if (softcap > 0.f) z = softcap * tanhf(z / softcap);
+        float z = logit(s[j][c], scale, softcap);
         z = (col >= lo[rr] && col < hi[rr]) ? z : -INFINITY;
         s[j][c] = z;
         mcur[rr] = fmaxf(mcur[rr], z);
@@ -233,22 +152,7 @@ flex_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V, P cast to bf16 (V's type) as the TPU kernel does
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3,
-                          sV + (kk * 16 + (lane & 15)) * LDS + (j + (lane >> 4)) * 8);
-        mma_16816(o[j], a, b0, b1);
-        mma_16816(o[j + 1], a, b2, b3);
-      }
-    }
+    mma_a_tile<D, LDS>(o, s, sV, lane);
   }
 
   // epilogue: sink fold, uncovered rows (out=0, lse=-inf or sink), outputs

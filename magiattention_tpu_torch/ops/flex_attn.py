@@ -1,23 +1,24 @@
-"""Flex-flash-attention forward over attention slices, on Hopper.
+"""Flex-flash-attention over attention slices, forward and backward, on Hopper.
 
-The counterpart of the JAX package's ``ops/flex_attn.py`` forward:
-attention over an arbitrary list of (q_range, k_range, mask_type) slices
-with GQA, softcap, attention sink, and LSE + per-row max-logit outputs. The
-host builds an entry table per unique mask (``ops/block_meta.py``); the
-``flex_fwd`` kernel (``csrc/flex_fwd.cu``) walks one q block's entries per
-thread block.
+The counterpart of the JAX package's ``ops/flex_attn.py``: attention over
+an arbitrary list of (q_range, k_range, mask_type) slices with GQA,
+softcap, attention sink, and LSE + per-row max-logit outputs,
+differentiable in q, k, v and sink. The host builds an entry table per
+unique mask in both orientations (``ops/block_meta.py``); three kernels
+walk it: ``flex_fwd`` (``csrc/flex_fwd.cu``) one q block's entries per
+thread block, ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq, and
+``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
+table for dk/dv. :class:`_FlexAttnCore` is the ``torch.autograd.Function``
+around them, the counterpart of the JAX ``_flex_attn_core`` custom vjp.
 
-Where it runs follows its tensors: CUDA tensors launch the kernel (or
-raise), CPU tensors take the plain version :func:`_fwd_torch` — dense
-attention over the mask the table encodes, the counterpart of the JAX
-package's ``_fwd_jnp`` with its epilogue contract: an uncovered row gives
-out=0 and lse=-inf (lse=sink when a sink is set), and rowmax excludes the
-sink.
-
-Forward only: the backward kernels (``_dq_pallas``/``_dkv_pallas``) are the
-training slice's work. Layout inside the kernel is head-major
-[heads, tokens, head_dim]; the public functions take [tokens, heads,
-head_dim].
+Where it runs follows its tensors: CUDA tensors launch the kernels (or
+raise), CPU tensors take the plain versions — :func:`_fwd_torch`, dense
+attention over the mask the table encodes (the JAX ``_fwd_jnp`` with its
+epilogue contract: an uncovered row gives out=0 and lse=-inf, lse=sink when
+a sink is set, and rowmax excludes the sink), and :func:`_dq_torch` /
+:func:`_dkv_torch`, the dense backward step for step as the JAX
+``_bwd_p_ds``. Layout inside the kernels is head-major [heads, tokens,
+head_dim]; the public functions take [tokens, heads, head_dim].
 """
 
 from __future__ import annotations
@@ -44,13 +45,6 @@ GRID_KINDS = ("row_major", "sparse")
 HOPPER_TILES: dict[int, tuple[int, int]] = {64: (64, 64), 128: (64, 64)}
 KERNEL_DTYPES = (torch.bfloat16,)
 
-TRAINING_SLICE = (
-    "the flex-attention backward (_dq/_dkv kernels and an autograd "
-    "Function) is the port's training slice (ROADMAP queue B items 5-8); "
-    "this forward-only kernel does not run under autograd"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class FlexAttnParams:
     """Static parameters of one flex-attention forward.
@@ -70,19 +64,32 @@ class FlexAttnParams:
     grid: str = "row_major"
 
 
-@functools.lru_cache(maxsize=256)
-def fwd_tables(meta: FlexAttnBlockMeta, device: str) -> tuple[torch.Tensor, ...]:
-    """The plan's forward tables as int32 tensors on ``device``, copied once
-    per (plan, device): (qblk, kblk, sid, runs, bounds, rs, rc), where
-    rs/rc are the per-q-block [start, count] over the sorted entries."""
-    rs, rc = row_tables(meta.fwd_q_block, meta.num_q_blocks)
-    arrays = (
-        meta.fwd_q_block, meta.fwd_k_block, meta.fwd_slice_id, meta.fwd_runs,
-        meta.slice_bounds, rs, rc,
-    )
+def _device_tables(major, minor, sid, runs, bounds, num_major: int, device: str):
+    rs, rc = row_tables(major, num_major)
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
-        for a in arrays
+        for a in (major, minor, sid, runs, bounds, rs, rc)
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_tables(meta: FlexAttnBlockMeta, device: str) -> tuple[torch.Tensor, ...]:
+    """The plan's forward (q-major) tables as int32 tensors on ``device``,
+    copied once per (plan, device): (qblk, kblk, sid, runs, bounds, rs, rc),
+    where rs/rc are the per-q-block [start, count] over the sorted entries."""
+    return _device_tables(
+        meta.fwd_q_block, meta.fwd_k_block, meta.fwd_slice_id, meta.fwd_runs,
+        meta.slice_bounds, meta.num_q_blocks, device,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_tables(meta: FlexAttnBlockMeta, device: str) -> tuple[torch.Tensor, ...]:
+    """The k-major twin of :func:`fwd_tables` for the dk/dv walk: (kblk,
+    qblk, sid, runs, bounds, rs, rc), rs/rc per k block."""
+    return _device_tables(
+        meta.bwd_k_block, meta.bwd_q_block, meta.bwd_slice_id, meta.bwd_runs,
+        meta.slice_bounds, meta.num_k_blocks, device,
     )
 
 
@@ -161,35 +168,40 @@ def _fwd_torch(q, k, v, sink, tables, params: FlexAttnParams):
     return out, lse, m.float()
 
 
+def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams) -> None:
+    """Raise on what the flex kernels do not take: the variant, the dtype,
+    the head dim and tile, the GQA ratio."""
+    hq, d, hk = q.shape[0], q.shape[2], k.shape[0]
+    if params.grid != "row_major" or params.head_block != 1:
+        raise NotImplementedError(
+            f"{name} runs grid='row_major' with head_block=1; grid="
+            f"{params.grid!r}, head_block={params.head_block} are the "
+            "head-batched and compact sparse-grid kernels still to port "
+            "(ROADMAP queue B items 2-4, 6, 8)"
+        )
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{name} takes {KERNEL_DTYPES} q/k/v of one dtype; got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if HOPPER_TILES.get(d) != (params.block_q, params.block_k):
+        raise ValueError(
+            f"{name} is built for head_dim in {sorted(HOPPER_TILES)} with the "
+            f"tile {HOPPER_TILES.get(d)}; got head_dim {d}, tile "
+            f"({params.block_q}, {params.block_k})"
+        )
+    if hq % hk:
+        raise ValueError(f"{name}: hq {hq} is not a multiple of hk {hk}")
+
+
 def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
     """The ``flex_fwd`` Hopper kernel on CUDA tensors, same contract as
     :func:`_fwd_torch`. Raises on what the kernel does not take."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
-    if any(t.requires_grad for t in (q, k, v, sink)):
-        raise NotImplementedError(TRAINING_SLICE)
-    if params.grid != "row_major" or params.head_block != 1:
-        raise NotImplementedError(
-            f"flex_fwd runs grid='row_major' with head_block=1; grid="
-            f"{params.grid!r}, head_block={params.head_block} are the "
-            "head-batched and compact sparse-grid kernels still to port "
-            "(ROADMAP queue B items 2-4)"
-        )
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flex_fwd takes {KERNEL_DTYPES} q/k/v of one dtype; got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
-        )
+    _check_kernel_args("flex_fwd", q, k, v, params)
     if params.out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"flex_fwd writes out in {q.dtype} or float32, not {params.out_dtype}")
-    if HOPPER_TILES.get(d) != (params.block_q, params.block_k):
-        raise ValueError(
-            f"flex_fwd is built for head_dim in {sorted(HOPPER_TILES)} with the "
-            f"tile {HOPPER_TILES.get(d)}; got head_dim {d}, tile "
-            f"({params.block_q}, {params.block_k})"
-        )
-    if hq % hk:
-        raise ValueError(f"flex_fwd: hq {hq} is not a multiple of hk {hk}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
     lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
@@ -210,6 +222,158 @@ def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
     return out, lse, rowmax
 
 
+# -- backward ------------------------------------------------------------------
+
+
+def _bwd_p_ds(q, k, v, do, lse, delta, mask, params: FlexAttnParams):
+    """Plain backward core, the JAX ``_bwd_p_ds`` on the dense mask: p from
+    the stored lse (0 where lse=-inf) and the masked logits, then ds = p (dp
+    - delta_eff), times the softcap derivative 1 - (s/cap)^2 and 0 off the
+    mask. Returns (p, ds [hq, tqp, tkp], kf [hq, tkp, d]) in float32
+    (float64 for float64 inputs)."""
+    group = q.shape[0] // k.shape[0]
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(acc_t).repeat_interleave(group, dim=0)
+    vf = v.to(acc_t).repeat_interleave(group, dim=0)
+    z = torch.einsum("hqd,hkd->hqk", q.to(acc_t), kf) * params.scale
+    if params.softcap > 0.0:
+        z = params.softcap * torch.tanh(z / params.softcap)
+    s = z.masked_fill(~mask[None], NEG_INF)
+    del z
+    lse = lse.to(acc_t)
+    lse_safe = torch.where(torch.isneginf(lse), 0.0, lse)
+    p = torch.exp(s - lse_safe[..., None])
+    dp = torch.einsum("hqd,hkd->hqk", do.to(acc_t), vf)
+    ds = p * (dp - delta.to(acc_t)[..., None])
+    del dp
+    if params.softcap > 0.0:
+        ds = ds * (1.0 - (s / params.softcap) ** 2)
+        ds = torch.where(torch.isneginf(s), 0.0, ds)  # nan guard off the mask
+    return p, ds, kf
+
+
+def _dq_torch(q, k, v, do, lse, delta, ftab, params: FlexAttnParams):
+    """Plain version of ``flex_dq``: dq [hq, tqp, d] = scale ds k over the
+    mask of the forward table."""
+    mask = _dense_mask_from_tables(ftab, q.shape[1], k.shape[1], params.block_q, params.block_k)
+    _, ds, kf = _bwd_p_ds(q, k, v, do, lse, delta, mask, params)
+    return params.scale * torch.einsum("hqk,hkd->hqd", ds, kf)
+
+
+def _dkv_torch(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
+    """Plain version of ``flex_dkv``: (dk, dv) [hk, tkp, d], summed over the
+    q heads of each kv head, over the mask of the backward table."""
+    kblk, qblk = btab[:2]
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    mask = _dense_mask_from_tables(
+        (qblk, kblk, *btab[2:5]), tqp, tkp, params.block_q, params.block_k
+    )
+    p, ds, _ = _bwd_p_ds(q, k, v, do, lse, delta, mask, params)
+    acc_t = p.dtype
+    dv = torch.einsum("hqk,hqd->hkd", p, do.to(acc_t))
+    dk = params.scale * torch.einsum("hqk,hqd->hkd", ds, q.to(acc_t))
+    return (dk.view(hk, hq // hk, tkp, d).sum(1), dv.view(hk, hq // hk, tkp, d).sum(1))
+
+
+def _bwd_kernel_args(name, q, k, v, do, lse, delta, params):
+    _check_kernel_args(name, q, k, v, params)
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise TypeError(f"{name}: dout {do.dtype}{tuple(do.shape)} must match q {q.dtype}{tuple(q.shape)}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (
+        q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+        lse.to(**f32).contiguous(), delta.to(**f32).contiguous(),
+    )
+
+
+def _dq_kernel(q, k, v, do, lse, delta, ftab, params: FlexAttnParams):
+    """The ``flex_dq`` Hopper kernel on CUDA tensors, same contract as
+    :func:`_dq_torch` (dq in float32). Raises on what it does not take."""
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq", q, k, v, do, lse, delta, params)
+    dq = torch.empty((hq, tqp, d), dtype=torch.float32, device=q.device)
+    _qblk, kblk, sid, runs, bounds, rs, rc = ftab
+    csrc.launch(
+        "flex_dq",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), dq.data_ptr(),
+        hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
+        params.block_k, float(params.scale), float(params.softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dq
+
+
+def _dkv_kernel(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
+    """The ``flex_dkv`` Hopper kernel on CUDA tensors, same contract as
+    :func:`_dkv_torch` (dk, dv in float32). Raises on what it does not
+    take."""
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dkv", q, k, v, do, lse, delta, params)
+    dk = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
+    _kblk, qblk, sid, runs, bounds, rs, rc = btab
+    csrc.launch(
+        "flex_dkv",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        qblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        hq, hk, tqp, tkp, d, tkp // params.block_k, params.block_q,
+        params.block_k, float(params.scale), float(params.softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dk, dv
+
+
+class _FlexAttnCore(torch.autograd.Function):
+    """Head-major, padded flex attention with its backward: the counterpart
+    of the JAX ``_flex_attn_core`` custom vjp (``_flex_attn_core_fwd`` /
+    ``_bwd``). Returns (out, lse, rowmax); rowmax is not differentiable.
+    CUDA tensors run ``flex_fwd`` / ``flex_dq`` / ``flex_dkv``, CPU tensors
+    their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sink1d, ftab, btab, params: FlexAttnParams):
+        ctx.kernel = on_card(q, k, v)
+        fwd = _fwd_kernel if ctx.kernel else _fwd_torch
+        out, lse, rowmax = fwd(q, k, v, sink1d, ftab, params)
+        ctx.save_for_backward(q, k, v, sink1d, out, lse)
+        ctx.btab, ctx.ftab, ctx.params = btab, ftab, params
+        ctx.mark_non_differentiable(rowmax)
+        return out, lse, rowmax
+
+    @staticmethod
+    def backward(ctx, dout, dlse, _drowmax):
+        q, k, v, sink1d, out, lse = ctx.saved_tensors
+        params = ctx.params
+        # The lse cotangent is first-class: with out = softmax(s) v and
+        # lse = logsumexp(s), dL/ds = p (dp - (delta - dlse)), so dlse folds
+        # into the delta term (an unused output's cotangent arrives as 0).
+        acc_t = torch.promote_types(out.dtype, torch.float32)
+        delta = (dout.to(acc_t) * out.to(acc_t)).sum(-1) - dlse.to(acc_t)
+        do = dout.to(q.dtype).contiguous()
+        if ctx.kernel:
+            dq = _dq_kernel(q, k, v, do, lse, delta, ctx.ftab, params)
+            dk, dv = _dkv_kernel(q, k, v, do, lse, delta, ctx.btab, params)
+        else:
+            dq = _dq_torch(q, k, v, do, lse, delta, ctx.ftab, params)
+            dk, dv = _dkv_torch(q, k, v, do, lse, delta, ctx.btab, params)
+        dsink = None
+        if params.has_sink:
+            # dL/dsink_h = -sum_q exp(sink_h - lse_hq) delta_eff_hq
+            w = torch.where(
+                torch.isneginf(lse), 0.0, torch.exp(sink1d.to(lse.dtype)[:, None] - lse)
+            )
+            dsink = -(w * delta.to(lse.dtype)).sum(dim=1).to(sink1d.dtype)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsink, None, None, None
+
+
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (kernel path), False on
     the CPU (plain path). Raises for mixed devices and for any other device
@@ -228,17 +392,18 @@ def on_card(*tensors: torch.Tensor) -> bool:
     )
 
 
-def flex_attn_headmajor(q, k, v, tables, params: FlexAttnParams, sink=None):
-    """Head-major core: q [hq, tqp, d], k/v [hk, tkp, d] (block-multiple
-    padded); returns (out [hq, tqp, d], lse [hq, tqp], rowmax [hq, tqp])."""
+def flex_attn_headmajor(q, k, v, ftab, btab, params: FlexAttnParams, sink=None):
+    """Head-major differentiable core: q [hq, tqp, d], k/v [hk, tkp, d]
+    (block-multiple padded), the plan's forward and backward tables;
+    returns (out [hq, tqp, d], lse [hq, tqp], rowmax [hq, tqp]).
+    Differentiable in q, k, v and sink (rowmax is not)."""
     hq = q.shape[0]
+    acc_t = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
     if sink is not None:
-        sink1d = sink.to(device=q.device, dtype=torch.float32).reshape(hq)
+        sink1d = sink.to(device=q.device, dtype=acc_t).reshape(hq)
     else:
-        sink1d = torch.zeros((hq,), dtype=torch.float32, device=q.device)
-    if on_card(q, k, v):
-        return _fwd_kernel(q, k, v, sink1d, tables, params)
-    return _fwd_torch(q, k, v, sink1d, tables, params)
+        sink1d = torch.zeros((hq,), dtype=acc_t, device=q.device)
+    return _FlexAttnCore.apply(q, k, v, sink1d, ftab, btab, params)
 
 
 def _pad_tokens(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -263,12 +428,14 @@ def flex_attn_with_meta(
     grid: str = "row_major",
     return_max_logits: bool = False,
 ):
-    """Flex attention with a prebuilt block plan.
+    """Flex attention with a prebuilt block plan. Differentiable in q/k/v/sink.
 
     Transposes to head-major, pads the tokens to block multiples (the ragged
-    tail is dropped after the call), and runs the kernel or the plain
-    version. Returns (out [tq, hq, d], lse [tq, hq]) plus max_logits [hq]
-    when ``return_max_logits``."""
+    tail is dropped after the call), and runs the kernels or the plain
+    versions; the transposes and pads stay ordinary autograd ops around the
+    core, as the JAX package keeps them outside its custom vjp. Returns
+    (out [tq, hq, d], lse [tq, hq]) plus max_logits [hq] when
+    ``return_max_logits`` (max_logits is not differentiable)."""
     tq, hq, d = q.shape
     tk, hk, _ = k.shape
     if meta.total_q != tq or meta.total_k != tk:
@@ -296,8 +463,10 @@ def flex_attn_with_meta(
     qh = _pad_tokens(q.transpose(0, 1), tqp)
     kh = _pad_tokens(k.transpose(0, 1), tkp)
     vh = _pad_tokens(v.transpose(0, 1), tkp)
-    tables = fwd_tables(meta, str(q.device))
-    out_h, lse_h, rowmax_h = flex_attn_headmajor(qh, kh, vh, tables, params, sink=sink)
+    dev = str(q.device)
+    out_h, lse_h, rowmax_h = flex_attn_headmajor(
+        qh, kh, vh, fwd_tables(meta, dev), bwd_tables(meta, dev), params, sink=sink
+    )
     out = out_h.transpose(0, 1)[:tq]
     lse = lse_h.transpose(0, 1)[:tq]
     if return_max_logits:
@@ -359,7 +528,7 @@ def flex_flash_attn_func(
     grid: str | None = None,
     return_max_logits: bool = False,
 ):
-    """Single-device flex-flash-attention, forward only.
+    """Single-device flex-flash-attention, differentiable in q/k/v/sink.
 
     The ranges are host values: the kernel plan is built once per unique
     (mask, shape, blocking) and cached. ``head_block``/``grid`` resolve to

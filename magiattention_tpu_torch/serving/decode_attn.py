@@ -26,7 +26,7 @@ import torch
 
 from .. import csrc
 from ..ops.correction import merge_partials
-from ..ops.flex_attn import TRAINING_SLICE, on_card
+from ..ops.flex_attn import on_card
 from .kv_cache import PagedKVCache
 
 NEG_INF = float("-inf")
@@ -111,7 +111,11 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     b, hq, d = q.shape
     hk = cache.num_kv_heads
     if q.requires_grad:
-        raise NotImplementedError(TRAINING_SLICE)
+        raise NotImplementedError(
+            "paged_decode has no backward, as the TPU decode kernel has none: "
+            "decode serves, it does not train; pass a tensor that does not "
+            "require grad"
+        )
     if cache.k_pages.dtype not in KERNEL_DTYPES or q.dtype != cache.k_pages.dtype:
         raise TypeError(
             f"paged_decode takes q and pages of one dtype in {KERNEL_DTYPES}; "

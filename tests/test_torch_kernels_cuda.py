@@ -5,7 +5,9 @@ CPU has no nvcc and no card). On a machine with an H100 run
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``; ``chip_smoke.py``
 holds the same kernels against the same plain versions at the serving
 widths. bf16 tolerances as in ``chip_smoke.py``: out within 1e-2 + 1e-2 *
-|ref| (P and the output are rounded to bf16), lse within 2e-4."""
+|ref| (P and the output are rounded to bf16), lse within 2e-4; dq, dk and
+dv within 2e-2 max|ref| + 1e-3 of the plain f32 backward (the kernels round
+P and dS to bf16 before their products)."""
 
 import math
 
@@ -58,6 +60,77 @@ def test_flex_fwd_matches_plain(card, d, types):
     assert torch.equal(torch.isneginf(rowmax[:, :tq]), torch.isneginf(ref_rowmax[:, :tq]))
 
 
+def _bwd_problem(gen, tq, tk, hq, hk, d, q_ranges, k_ranges, types, softcap=0.0, sink=False):
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    meta = fa.build_block_meta(q_ranges, k_ranges, types, tq, tk, block_q=64, block_k=64)
+    tqp, tkp = meta.num_q_blocks * 64, meta.num_k_blocks * 64
+
+    def rand(h, t, tp):
+        return fa._pad_tokens(
+            torch.randn((h, t, d), generator=gen, device="cuda").bfloat16(), tp)
+
+    q, k, v, do = rand(hq, tq, tqp), rand(hk, tk, tkp), rand(hk, tk, tkp), rand(hq, tq, tqp)
+    sink_t = torch.randn((hq,), generator=gen, device="cuda")
+    params = fa.FlexAttnParams(64, 64, 1.0 / math.sqrt(d), softcap, sink, torch.bfloat16)
+    ftab, btab = fa.fwd_tables(meta, "cuda:0"), fa.bwd_tables(meta, "cuda:0")
+    out, lse, _ = fa._fwd_torch(q, k, v, sink_t, ftab, params)
+    dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+    delta = (do.float() * out.float()).sum(-1) - dlse
+    return fa, (q, k, v, do, lse, delta), ftab, btab, params
+
+
+def _bwd_close(got, ref):
+    ref = ref.float()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max() + 1e-3
+
+
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "case",
+    [
+        ("causal", [(0, 700)], [(0, 700)], [C], 0.0, False),
+        ("varlen_softcap", [(0, 300), (300, 700)], [(0, 300), (300, 700)], [C, C], 30.0, False),
+        ("full_inv_bi", [(0, 200), (200, 450), (450, 700)], [(0, 700), (0, 500), (100, 700)],
+         [F, I, B], 0.0, False),
+        ("uncovered_sink", [(100, 400)], [(0, 350)], [C], 0.0, True),
+    ],
+    ids=lambda c: c[0],
+)
+def test_flex_bwd_matches_plain(card, case, d, group):
+    _, qr, kr, ty, softcap, sink = case
+    fa, args, ftab, btab, params = _bwd_problem(card, 700, 700, 4 * group, 4, d, qr, kr, ty,
+                                                softcap, sink)
+    dq = fa._dq_kernel(*args, ftab, params)
+    dk, dv = fa._dkv_kernel(*args, btab, params)
+    torch.cuda.synchronize()
+    _bwd_close(dq, fa._dq_torch(*args, ftab, params))
+    ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+    _bwd_close(dk, ref_dk)
+    _bwd_close(dv, ref_dv)
+    # no atomics: a second run gives the same bits
+    assert torch.equal(dq, fa._dq_kernel(*args, ftab, params))
+    dk2, dv2 = fa._dkv_kernel(*args, btab, params)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_autograd_runs_the_kernels(card):
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.ops import flex_flash_attn_func
+
+    q = torch.randn((300, 8, 128), generator=card, device="cuda").bfloat16().requires_grad_()
+    k = torch.randn((300, 2, 128), generator=card, device="cuda").bfloat16().requires_grad_()
+    v = torch.randn((300, 2, 128), generator=card, device="cuda").bfloat16().requires_grad_()
+    csrc.reset_launch_counts()
+    out, lse = flex_flash_attn_func(q, k, v, [(0, 300)], [(0, 300)], [C])
+    (out.float().sum() + lse.sum()).backward()
+    assert q.grad.dtype == torch.bfloat16 and torch.isfinite(q.grad.float()).all()
+    assert {n: csrc.launches[n] for n in ("flex_fwd", "flex_dq", "flex_dkv")} == {
+        "flex_fwd": 1, "flex_dq": 1, "flex_dkv": 1}
+
+
 def test_flex_fwd_refuses_what_it_does_not_implement(card):
     from magiattention_tpu_torch.ops import flex_flash_attn_func
 
@@ -67,8 +140,8 @@ def test_flex_fwd_refuses_what_it_does_not_implement(card):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="sparse")
     with pytest.raises(TypeError):
         flex_flash_attn_func(q.float(), k.float(), k.float(), [(0, 64)], [(0, 64)], [C])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flex_flash_attn_func(q.requires_grad_(), k, k, [(0, 64)], [(0, 64)], [C])
+    with pytest.raises(ValueError, match="tile"):
+        flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], block_q=32)
 
 
 @pytest.mark.parametrize("splits", [1, 3, 4])
