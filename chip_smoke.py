@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    bf16 at head_dim 128, on the mask families and ragged lengths below
    (the backward with 4 and with 2 q heads per kv head and a random lse
    cotangent, and twice, for the same bits), each with its stated
-   tolerance; then the kernels' times at their main path's shapes beside
+   tolerance; faults planted in the backward kernels' walks, which the
+   gradient checks must catch; then the kernels' times at their main path's shapes beside
    the plain version's, a PyTorch ``scaled_dot_product_attention``
    yardstick and the card's bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
@@ -58,8 +59,16 @@ OUT_ATOL, OUT_RTOL = 1e-2, 1e-2
 LSE_ATOL = 2e-4
 # the backward kernels' dq/dk/dv vs the plain f32 backward: the kernels
 # round P and dS to bf16 before their products (as the TPU kernels do), so
-# each tensor's error scales with its largest entry
-GRAD_RTOL, GRAD_ATOL = 2e-2, 1e-3
+# an entry's error scales with the terms that make it up. Three checks per
+# tensor: the largest error within GRAD_RTOL of the largest entry (plus
+# GRAD_ATOL); the relative L2 error within GRAD_L2 (bf16 rounding of P and
+# dS alone gives a few 1e-3); and, since on a long causal walk the first
+# rows and keys of a document are far larger than the rest and would hide a
+# wrong tail from the first two, each 64-row (or 64-key) block of each head
+# within GRAD_RTOL of that block's own largest entry, plus GRAD_BLOCK_ATOL
+# of the tensor's largest entry (f32 summation-order noise)
+GRAD_RTOL, GRAD_ATOL, GRAD_L2, GRAD_BLOCK_ATOL = 2e-2, 1e-3, 1e-2, 1e-5
+GRAD_BLOCK = 64
 # the largest out (or gradient) error of each kernel over every comparison
 MAX_ERR = {"flex_fwd": 0.0, "flex_dq": 0.0, "flex_dkv": 0.0, "paged_decode": 0.0}
 SERVING_KERNELS = ("flex_fwd", "paged_decode")
@@ -108,19 +117,48 @@ def compare(kernel, name, out, ref_out, lse=None, ref_lse=None, extra=None):
     MAX_ERR[kernel] = max(MAX_ERR[kernel], max_err)
 
 
-def compare_grads(kernel, name, pairs) -> None:
-    """Each (what, got, ref) within GRAD_RTOL * max|ref| + GRAD_ATOL."""
+def grad_errors(got, ref) -> tuple[dict, list[str]]:
+    """The three gradient checks of one head-major [h, t, d] tensor against
+    its plain version: the errors measured, and the checks that failed."""
     import torch
+    import torch.nn.functional as Fn
 
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        return {}, ["finite"]
+    diff = (got - ref).abs()
+    ref_max = float(ref.abs().max())
+    ref_l2 = float(ref.norm())
+    pad = (0, 0, 0, (-ref.shape[1]) % GRAD_BLOCK)
+
+    def block_max(x):  # [h, t, d] -> [h, t / GRAD_BLOCK], the max of each block
+        x = Fn.pad(x, pad)
+        return x.reshape(x.shape[0], -1, GRAD_BLOCK * x.shape[2]).amax(-1)
+
+    blk_err, blk_ref = block_max(diff), block_max(ref.abs())
+    blk_tol = GRAD_RTOL * blk_ref + GRAD_BLOCK_ATOL * ref_max
+    errs = {
+        "max_abs_err": float(diff.max()),
+        "max_tol": GRAD_RTOL * ref_max + GRAD_ATOL,
+        "rel_l2": float((got - ref).norm()) / ref_l2 if ref_l2 else float(diff.max()),
+        # the largest block error as a share of its tolerance (<= 1 passes)
+        "block_err_over_tol": float((blk_err / blk_tol.clamp_min(1e-30)).max()),
+    }
+    failed = [c for c, ok in (("max", errs["max_abs_err"] <= errs["max_tol"]),
+                              ("rel_l2", errs["rel_l2"] <= GRAD_L2),
+                              ("blocks", bool((blk_err <= blk_tol).all()))) if not ok]
+    return errs, failed
+
+
+def compare_grads(kernel, name, pairs) -> None:
+    """Each (what, got, ref), head-major [h, t, d], passes the three checks
+    of :func:`grad_errors`."""
     rec = {"case": name}
     for what, got, ref in pairs:
-        got, ref = got.float(), ref.float()
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {what}")
-        err = float((got - ref).abs().max())
-        tol = GRAD_RTOL * float(ref.abs().max()) + GRAD_ATOL
-        rec[f"{what}_max_abs_err"], rec[f"{what}_tol"] = err, tol
-        check(err <= tol, f"{name}: {what} max abs err {err} > {tol}")
-        MAX_ERR[kernel] = max(MAX_ERR[kernel], err)
+        errs, failed = grad_errors(got, ref)
+        rec.update({f"{what}_{k}": x for k, x in errs.items()})
+        check(not failed, f"{name}: {what} fails the {failed} check(s): {errs}")
+        MAX_ERR[kernel] = max(MAX_ERR[kernel], errs["max_abs_err"])
     emit({"phase": "kernels", "kernel": kernel, **rec})
 
 
@@ -165,7 +203,7 @@ class Flex:
         import torch
         from magiattention_tpu_torch.ops import flex_attn as fa
 
-        self.tq = tq
+        self.tq, self.tk = tq, tk
         bq, bk = fa.resolve_tile(D, None, None)
         self.meta = fa.build_block_meta(q_ranges, k_ranges, types, tq, tk,
                                         block_q=bq, block_k=bk)
@@ -232,10 +270,48 @@ class Flex:
         check(torch.equal(dq, dq2), f"{name}: flex_dq differs between two runs")
         check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"{name}: flex_dkv differs between two runs")
-        tq = self.tq
+        tq, tk = self.tq, self.tk
         compare_grads("flex_dq", name, [("dq", dq[:, :tq], self.dq_plain()[:, :tq])])
         ref_dk, ref_dv = self.dkv_plain()
-        compare_grads("flex_dkv", name, [("dk", dk, ref_dk), ("dv", dv, ref_dv)])
+        compare_grads("flex_dkv", name, [("dk", dk[:, :tk], ref_dk[:, :tk]),
+                                         ("dv", dv[:, :tk], ref_dv[:, :tk])])
+
+    def planted_faults(self) -> dict:
+        """The gradient checks on three faults planted in the kernels'
+        work: the last entry of each q-major walk skipped (dq), the last
+        entry of each k-major walk skipped (dk, dv), and the last k block's
+        dk and dv zeroed. Returns, per fault and tensor, which checks catch
+        it; a fault that the three checks together let through fails the
+        smoke. Nothing here is counted as a main-path launch."""
+        import torch
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        def skip_last(tab):
+            return (*tab[:6], (tab[6] - 1).clamp_min(0).contiguous())
+
+        tq, tk = self.tq, self.tk
+        ref_dq = self.dq_plain()[:, :tq]
+        ref_dk, ref_dv = (x[:, :tk] for x in self.dkv_plain())
+        dq_skip = fa._dq_kernel(*self.bwd_inputs(), skip_last(self.tables), self.params)
+        dk_skip, dv_skip = fa._dkv_kernel(*self.bwd_inputs(), skip_last(self.btables),
+                                          self.params)
+        dk, dv = (x[:, :tk].clone() for x in self.dkv_kernel())
+        last = (tk - 1) // GRAD_BLOCK * GRAD_BLOCK
+        dk[:, last:], dv[:, last:] = 0.0, 0.0
+        torch.cuda.synchronize()
+        plants = {
+            "skip_last_q_walk_entry": [("dq", dq_skip[:, :tq], ref_dq)],
+            "skip_last_k_walk_entry": [("dk", dk_skip[:, :tk], ref_dk),
+                                       ("dv", dv_skip[:, :tk], ref_dv)],
+            "zero_last_k_block": [("dk", dk, ref_dk), ("dv", dv, ref_dv)],
+        }
+        caught = {}
+        for plant, pairs in plants.items():
+            for what, got, ref in pairs:
+                errs, failed = grad_errors(got, ref)
+                caught[f"{plant}:{what}"] = {"failed_checks": failed, **errs}
+                check(bool(failed), f"planted fault {plant} passes the {what} checks: {errs}")
+        return caught
 
     def kernel(self):
         from magiattention_tpu_torch.ops import flex_attn as fa
@@ -316,6 +392,8 @@ def bwd_timing(gen, t: int) -> dict:
     hq, hk = TRAIN_HQ, TRAIN_HK
     p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1])
     p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
+    emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
+          "caught": p.planted_faults()})
     dq_ms = cuda_ms(p.dq_kernel, reps=10)
     dkv_ms = cuda_ms(p.dkv_kernel, reps=10)
     dq_plain_ms = cuda_ms(p.dq_plain, reps=2, warmup=1)
@@ -551,12 +629,13 @@ def attention_check(model, cap) -> None:
     # the model does not use lse: its cotangent is 0, delta_eff = sum dout * out
     lse = head_major(cap["lse"], tqp)
     delta = (do.float() * out.float()).sum(-1)
-    ref_dq = fa._dq_torch(q, k, v, do, lse, delta, ftab, params)[:, :t].transpose(0, 1)
-    compare_grads("flex_dq", "training_layer0_step0", [("dq", cap["dq"], ref_dq)])
+    ref_dq = fa._dq_torch(q, k, v, do, lse, delta, ftab, params)
+    compare_grads("flex_dq", "training_layer0_step0",
+                  [("dq", cap["dq"].transpose(0, 1), ref_dq[:, :t])])
     ref_dk, ref_dv = fa._dkv_torch(q, k, v, do, lse, delta, btab, params)
     compare_grads("flex_dkv", "training_layer0_step0",
-                  [("dk", cap["dk"], ref_dk[:, :t].transpose(0, 1)),
-                   ("dv", cap["dv"], ref_dv[:, :t].transpose(0, 1))])
+                  [("dk", cap["dk"].transpose(0, 1), ref_dk[:, :t]),
+                   ("dv", cap["dv"].transpose(0, 1), ref_dv[:, :t])])
 
 
 KERNEL_GROUPS = (  # kernel-name fragments -> the layer a step's device time goes to

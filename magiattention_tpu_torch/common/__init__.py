@@ -1,5 +1,5 @@
 """Common host-side types: the mask-type enum, dense-mask semantics, and
-the range algebra."""
+the range types the mask helpers return."""
 
 from .enum import AttnMaskType
 from .mask import make_attn_mask_from_ranges, slice_mask

@@ -6,9 +6,10 @@ Each ``.cu`` file in this directory is one kernel with a plain C entry point
 flex-attention kernels share ``flex_tile.cuh``. On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
-of its source and the shared header, so an edited kernel is rebuilt and an
-unchanged one is reused. Nothing here runs at import: the CPU tests import
-every module of the package, and a machine without a card may have no nvcc.
+of its source and of the headers it includes, so an edited kernel is
+rebuilt and an unchanged one is reused. Nothing here runs at import: the
+CPU tests import every module of the package, and a machine without a card
+may have no nvcc.
 
 ``launches`` counts the launches of each kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -25,14 +26,23 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
 
-# kernel name -> (source file, C entry point, argtypes)
+
+class Kernel(NamedTuple):
+    source: str  # the .cu file
+    entry: str  # its C entry point
+    argtypes: list
+    headers: tuple[str, ...] = ()  # the headers of this directory it includes
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNELS: dict[str, tuple[str, str, list]] = {
-    "flex_fwd": (
+_FLEX_HEADERS = ("flex_tile.cuh",)
+KERNELS: dict[str, Kernel] = {
+    "flex_fwd": Kernel(
         "flex_fwd.cu",
         "magi_flex_fwd",
         # q k v sink | kblk sid runs bounds rs rc | out lse rowmax
@@ -41,8 +51,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         + [_I] * 8
         # scale softcap has_sink out_f32 stream
         + [_F, _F, _I, _I, _P],
+        _FLEX_HEADERS,
     ),
-    "flex_dq": (
+    "flex_dq": Kernel(
         "flex_dq.cu",
         "magi_flex_dq",
         # q k v dout lse delta | kblk sid runs bounds rs rc | dq
@@ -51,8 +62,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         + [_I] * 8
         # scale softcap stream
         + [_F, _F, _P],
+        _FLEX_HEADERS,
     ),
-    "flex_dkv": (
+    "flex_dkv": Kernel(
         "flex_dkv.cu",
         "magi_flex_dkv",
         # q k v dout lse delta | qblk sid runs bounds rs rc | dk dv
@@ -61,8 +73,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         + [_I] * 8
         # scale softcap stream
         + [_F, _F, _P],
+        _FLEX_HEADERS,
     ),
-    "paged_decode": (
+    "paged_decode": Kernel(
         "decode.cu",
         "magi_paged_decode",
         # q k_pages v_pages block_table seq_lens | out_parts lse_parts
@@ -113,7 +126,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [KERNELS[name][0], *sorted(f for f in os.listdir(_DIR) if f.endswith(".cuh"))]:
+    kernel = KERNELS[name]
+    for src in (kernel.source, *kernel.headers):
         with open(os.path.join(_DIR, src), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
@@ -138,7 +152,7 @@ def build(names=None, *, ptxas_verbose: bool = False) -> dict[str, dict]:
             result[name] = {"path": out, "seconds": 0.0, "log": ""}
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(_DIR, KERNELS[name][0])]
+        cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(_DIR, KERNELS[name].source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -165,8 +179,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build([name])[name]["path"]
             lib = ctypes.CDLL(path)
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
+            fn = getattr(lib, KERNELS[name].entry)
+            fn.argtypes = KERNELS[name].argtypes
             fn.restype = ctypes.c_int
             lib.magi_error_string.argtypes = [ctypes.c_int]
             lib.magi_error_string.restype = ctypes.c_char_p
@@ -178,7 +192,7 @@ def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point; raise :class:`KernelLaunchError`
     on a non-zero CUDA error, else count the launch."""
     lib = load(name)
-    code = getattr(lib, KERNELS[name][1])(*args)
+    code = getattr(lib, KERNELS[name].entry)(*args)
     if code != 0:
         msg = lib.magi_error_string(code).decode()
         raise KernelLaunchError(f"{name}: CUDA error {code} ({msg})")

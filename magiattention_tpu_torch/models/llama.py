@@ -206,8 +206,6 @@ def build_magi_llama(
     params: dict | None = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
-    block_q: int | None = None,
-    block_k: int | None = None,
 ) -> MagiLlama:
     """Plan the attention for one mask (once) and bundle the model on
     ``device``: the cp=1 counterpart of the JAX ``build_magi_llama``, which
@@ -230,7 +228,7 @@ def build_magi_llama(
         )
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"n_heads {cfg.n_heads} is not a multiple of n_kv_heads {cfg.n_kv_heads}")
-    bq, bk = resolve_tile(cfg.head_dim, block_q, block_k)
+    bq, bk = resolve_tile(cfg.head_dim, None, None)
     meta = build_block_meta(
         _naive(q_ranges), _naive(k_ranges), [int(t) for t in attn_type_map],
         total_seqlen, total_seqlen, block_q=bq, block_k=bk,

@@ -6,8 +6,11 @@ CPU has no nvcc and no card). On a machine with an H100 run
 holds the same kernels against the same plain versions at the serving
 widths. bf16 tolerances as in ``chip_smoke.py``: out within 1e-2 + 1e-2 *
 |ref| (P and the output are rounded to bf16), lse within 2e-4; dq, dk and
-dv within 2e-2 max|ref| + 1e-3 of the plain f32 backward (the kernels round
-P and dS to bf16 before their products)."""
+dv against the plain f32 backward (the kernels round P and dS to bf16
+before their products): the largest error within 2e-2 max|ref| + 1e-3, the
+relative L2 error within 1e-2, and each 64-row (or 64-key) block of each
+head within 2e-2 of its own largest entry plus 1e-5 max|ref|, so that the
+large first rows and keys of a causal walk cannot hide a wrong tail."""
 
 import math
 
@@ -80,10 +83,29 @@ def _bwd_problem(gen, tq, tk, hq, hk, d, q_ranges, k_ranges, types, softcap=0.0,
     return fa, (q, k, v, do, lse, delta), ftab, btab, params
 
 
+def _bwd_failures(got, ref):
+    """The gradient checks (head-major [h, t, d]) that ``got`` fails."""
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        return ["finite"]
+    diff = (got - ref).abs()
+    ref_max = ref.abs().max()
+    pad = (0, 0, 0, (-ref.shape[1]) % 64)
+
+    def block_max(x):
+        x = torch.nn.functional.pad(x, pad)
+        return x.reshape(x.shape[0], -1, 64 * x.shape[2]).amax(-1)
+
+    checks = {
+        "max": diff.max() <= 2e-2 * ref_max + 1e-3,
+        "rel_l2": (got - ref).norm() <= 1e-2 * ref.norm(),
+        "blocks": (block_max(diff) <= 2e-2 * block_max(ref.abs()) + 1e-5 * ref_max).all(),
+    }
+    return [name for name, ok in checks.items() if not bool(ok)]
+
+
 def _bwd_close(got, ref):
-    ref = ref.float()
-    assert torch.isfinite(got).all()
-    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max() + 1e-3
+    assert _bwd_failures(got, ref) == []
 
 
 @pytest.mark.parametrize("group", [2, 4])
@@ -114,6 +136,26 @@ def test_flex_bwd_matches_plain(card, case, d, group):
     assert torch.equal(dq, fa._dq_kernel(*args, ftab, params))
     dk2, dv2 = fa._dkv_kernel(*args, btab, params)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_grad_checks_catch_planted_faults(card):
+    """A long causal walk whose last entries are skipped: the first rows
+    and keys set the tensor's largest entry, the late ones are small, and
+    the checks must still see the fault."""
+    fa, args, ftab, btab, params = _bwd_problem(card, 4096, 4096, 8, 4, 128,
+                                                [(0, 4096)], [(0, 4096)], [C])
+
+    def skip_last(tab):
+        return (*tab[:6], (tab[6] - 1).clamp_min(0).contiguous())
+
+    ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+    dk, dv = fa._dkv_kernel(*args, skip_last(btab), params)
+    assert _bwd_failures(dk, ref_dk) and _bwd_failures(dv, ref_dv)
+    assert _bwd_failures(fa._dq_kernel(*args, skip_last(ftab), params),
+                         fa._dq_torch(*args, ftab, params))
+    dk, dv = fa._dkv_kernel(*args, btab, params)
+    dk[:, -64:], dv[:, -64:] = 0.0, 0.0
+    assert _bwd_failures(dk, ref_dk) and _bwd_failures(dv, ref_dv)
 
 
 def test_autograd_runs_the_kernels(card):
