@@ -6,18 +6,24 @@ NVIDIA card.
 
 Phases, each printing one JSON line:
 
-1. build — compile the four Hopper kernels (``flex_fwd``, ``flex_dq``,
-   ``flex_dkv``, ``paged_decode``) from the sources in
-   ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once, and
-   print the card's name and power limit as nvidia-smi reports them;
+1. build — compile the eight Hopper kernels (the row-major ``flex_fwd``,
+   ``flex_dq``, ``flex_dkv``, the sparse-grid ``flex_fwd_sparse``,
+   ``flex_fwd_sparse_hb``, ``flex_dq_sparse``, ``flex_dkv_sparse``, and
+   ``paged_decode``) from the sources in ``magiattention_tpu_torch/csrc/``
+   with nvcc for sm_90a, all at once, and print the card's name and power
+   limit as nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
-   bf16 at head_dim 128, on the mask families and ragged lengths below
-   (the backward with 4 and with 2 q heads per kv head and a random lse
-   cotangent, and twice, for the same bits), each with its stated
-   tolerance; faults planted in the backward kernels' walks, which the
-   gradient checks must catch; then the kernels' times at their main path's shapes beside
-   the plain version's, a PyTorch ``scaled_dot_product_attention``
-   yardstick and the card's bound;
+   bf16 at head_dim 128 (and 64 for the sparse grid), on the mask families
+   and ragged lengths below (the backward with 4 and with 2 q heads per kv
+   head and a random lse cotangent; the sparse grid at 1, 2 and 4 q heads
+   per kv head and one, G and 2G heads per work item, softcap and sink on
+   one case), each kernel run twice for the same bits, each with its
+   stated tolerance; faults planted in the kernels (the backward walks cut
+   short, the AMLA rescale skipped once per row in a mutated copy of the
+   sparse forward), which the checks must catch; then the row-major
+   kernels' times at their main path's shapes beside the plain version's,
+   a PyTorch ``scaled_dot_product_attention`` yardstick and the card's
+   bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs), run
@@ -28,9 +34,18 @@ Phases, each printing one JSON line:
    ffn 5632, bf16 compute, fp32 masters), cut from 16 to 4 layers, on one
    8192-token stream packed as documents [4096, 2048, 2048]: 6 AdamW steps
    on a fixed batch from ``--seed``, one layer's attention call of the
-   first step held against the plain forward and backward.
+   first step held against the plain forward and backward;
+5. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
+   backward, on the 16384-token varlen block-causal mask (12 documents),
+   once at the ``LlamaConfig`` attention widths (16 q / 8 kv heads) and
+   once at 8 / 8: the automatic choice must take the sparse grid (head_block
+   2, then 1) and launch only the sparse-grid kernels; out, lse and the
+   gradients held against the plain versions; each kernel's time beside its
+   own with the work list in index order (not longest walk first), the
+   row-major kernel's on the same problem, the plain version's, a PyTorch
+   varlen (or SDPA) yardstick and the card's bound.
 
-The line before the last lists the four kernels with their launches on the
+The line before the last lists the eight kernels with their launches on the
 main paths, errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -69,10 +84,13 @@ LSE_ATOL = 2e-4
 # of the tensor's largest entry (f32 summation-order noise)
 GRAD_RTOL, GRAD_ATOL, GRAD_L2, GRAD_BLOCK_ATOL = 2e-2, 1e-3, 1e-2, 1e-5
 GRAD_BLOCK = 64
+ROW_MAJOR = ("flex_fwd", "flex_dq", "flex_dkv")
+SPARSE = ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")
+FLEX_KERNELS = ROW_MAJOR + SPARSE
 # the largest out (or gradient) error of each kernel over every comparison
-MAX_ERR = {"flex_fwd": 0.0, "flex_dq": 0.0, "flex_dkv": 0.0, "paged_decode": 0.0}
+MAX_ERR = {name: 0.0 for name in (*FLEX_KERNELS, "paged_decode")}
 SERVING_KERNELS = ("flex_fwd", "paged_decode")
-TRAINING_KERNELS = ("flex_fwd", "flex_dq", "flex_dkv")
+TRAINING_KERNELS = ROW_MAJOR
 
 
 class SmokeFailure(Exception):
@@ -88,33 +106,40 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def compare(kernel, name, out, ref_out, lse=None, ref_lse=None, extra=None):
-    """Out within OUT_ATOL + OUT_RTOL*|ref|, lse (and ``extra`` pairs)
-    within LSE_ATOL with -inf exactly where the plain version has it."""
+def out_errors(out, ref_out, pairs) -> tuple[dict, list[str]]:
+    """The forward checks: out within OUT_ATOL + OUT_RTOL*|ref|, and each
+    (key, got, ref) of ``pairs`` (lse, rowmax) within LSE_ATOL with -inf
+    exactly where the plain version has it. Returns the errors measured and
+    the checks that failed."""
     import torch
 
     out, ref_out = out.float(), ref_out.float()
-    check(bool(torch.isfinite(out).all()), f"{name}: non-finite out")
+    if not bool(torch.isfinite(out).all()):
+        return {}, ["finite"]
     err = (out - ref_out).abs()
-    bad = err > OUT_ATOL + OUT_RTOL * ref_out.abs()
-    max_err = float(err.max()) if err.numel() else 0.0
-    rec = {"case": name, "out_max_abs_err": max_err}
-    check(not bool(bad.any()), f"{name}: out max abs err {max_err} over tolerance")
-    pairs = [("lse", lse, ref_lse)] + [(k, g, r) for k, (g, r) in (extra or {}).items()]
+    errs = {"out_max_abs_err": float(err.max()) if err.numel() else 0.0}
+    failed = ["out"] if bool((err > OUT_ATOL + OUT_RTOL * ref_out.abs()).any()) else []
     for key, got, ref in pairs:
-        if got is None:
-            continue
         got, ref = got.float(), ref.float()
-        check(
-            bool((torch.isneginf(got) == torch.isneginf(ref)).all()),
-            f"{name}: {key} -inf rows differ",
-        )
+        if not bool((torch.isneginf(got) == torch.isneginf(ref)).all()):
+            failed.append(f"{key}_neginf")
+            continue
         fin = torch.isfinite(ref)
         e = float((got[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
-        rec[f"{key}_max_abs_err"] = e
-        check(e <= LSE_ATOL, f"{name}: {key} max abs err {e} > {LSE_ATOL}")
-    emit({"phase": "kernels", "kernel": kernel, **rec})
-    MAX_ERR[kernel] = max(MAX_ERR[kernel], max_err)
+        errs[f"{key}_max_abs_err"] = e
+        if e > LSE_ATOL:
+            failed.append(key)
+    return errs, failed
+
+
+def compare(kernel, name, out, ref_out, lse=None, ref_lse=None, extra=None):
+    """Out within OUT_ATOL + OUT_RTOL*|ref|, lse (and ``extra`` pairs)
+    within LSE_ATOL with -inf exactly where the plain version has it."""
+    pairs = [("lse", lse, ref_lse)] + [(k, g, r) for k, (g, r) in (extra or {}).items()]
+    errs, failed = out_errors(out, ref_out, [p for p in pairs if p[1] is not None])
+    check(not failed, f"{name}: {kernel} fails the {failed} check(s): {errs}")
+    emit({"phase": "kernels", "kernel": kernel, "case": name, **errs})
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], errs["out_max_abs_err"])
 
 
 def grad_errors(got, ref) -> tuple[dict, list[str]]:
@@ -199,19 +224,19 @@ class Flex:
     plain version."""
 
     def __init__(self, gen, tq, tk, hq, hk, q_ranges, k_ranges, types, *,
-                 softcap=0.0, sink=None):
+                 softcap=0.0, sink=None, d=D, head_block=None):
         import torch
         from magiattention_tpu_torch.ops import flex_attn as fa
 
         self.tq, self.tk = tq, tk
-        bq, bk = fa.resolve_tile(D, None, None)
+        bq, bk = fa.resolve_tile(d, None, None)
         self.meta = fa.build_block_meta(q_ranges, k_ranges, types, tq, tk,
                                         block_q=bq, block_k=bk)
         tqp = self.meta.num_q_blocks * bq
         tkp = self.meta.num_k_blocks * bk
 
         def rand(t, h, tp):
-            x = torch.randn((h, t, D), generator=gen, device="cuda")
+            x = torch.randn((h, t, d), generator=gen, device="cuda")
             return fa._pad_tokens(x.to(torch.bfloat16), tp)
 
         self.q, self.k, self.v = rand(tq, hq, tqp), rand(tk, hk, tkp), rand(tk, hk, tkp)
@@ -220,7 +245,7 @@ class Flex:
             else torch.as_tensor(sink, dtype=torch.float32, device="cuda")
         )
         self.params = fa.FlexAttnParams(
-            block_q=bq, block_k=bk, scale=1.0 / math.sqrt(D), softcap=softcap,
+            block_q=bq, block_k=bk, scale=1.0 / math.sqrt(d), softcap=softcap,
             has_sink=sink is not None, out_dtype=torch.bfloat16,
         )
         self.tables = fa.fwd_tables(self.meta, "cuda:0")
@@ -228,6 +253,11 @@ class Flex:
         self.do = rand(tq, hq, tqp)
         self.dlse = torch.randn((hq, tqp), generator=gen, device="cuda")
         self._bwd = None
+        # the sparse grid, head_block q heads per forward work item (default G)
+        self.hb = hq // hk if head_block is None else head_block
+        self.sparse_params = dataclasses.replace(self.params, head_block=self.hb, grid="sparse")
+        self.work = fa.sparse_work(self.meta, "cuda:0", hq, hk, self.hb)
+        self.fwd_sparse_name = "flex_fwd_sparse_hb" if self.hb > 1 else "flex_fwd_sparse"
 
     def bwd_inputs(self):
         """(q, k, v, dout, lse, delta_eff) as the autograd Function hands
@@ -333,6 +363,176 @@ class Flex:
         compare("flex_fwd", name, out[:, :tq], ref_out[:, :tq], lse[:, :tq],
                        ref_lse[:, :tq], {"rowmax": (rowmax[:, :tq], ref_rowmax[:, :tq])})
 
+    # -- the sparse grid ------------------------------------------------------
+
+    def sparse_kernel(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        fwd = fa._fwd_sparse_hb_kernel if self.hb > 1 else fa._fwd_sparse_kernel
+        return fwd(self.q, self.k, self.v, self.sink, self.tables, self.work, self.sparse_params)
+
+    def sparse_plain(self):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._fwd_torch_sparse(self.q, self.k, self.v, self.sink, self.tables,
+                                    self.sparse_params)
+
+    def dq_sparse_kernel(self, tables=None):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dq_sparse_kernel(*self.bwd_inputs(), tables or self.tables, self.work,
+                                    self.sparse_params)
+
+    def dkv_sparse_kernel(self, tables=None):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._dkv_sparse_kernel(*self.bwd_inputs(), tables or self.btables, self.work,
+                                     self.sparse_params)
+
+    def sparse_fwd_pairs(self, got):
+        """(out, [(lse...), (rowmax...)]) of a sparse forward against the
+        plain sparse forward, cut to the real rows."""
+        out, lse, rowmax = got
+        ref_out, ref_lse, ref_rowmax = self.sparse_plain()
+        tq = self.tq
+        return (out[:, :tq], ref_out[:, :tq],
+                [("lse", lse[:, :tq], ref_lse[:, :tq]),
+                 ("rowmax", rowmax[:, :tq], ref_rowmax[:, :tq])])
+
+    def check_sparse(self, name) -> None:
+        """The sparse forward of this head_block against its plain version,
+        and the sparse dq/dkv against the plain backward; each kernel twice,
+        for the same bits."""
+        import torch
+
+        got = self.sparse_kernel()
+        torch.cuda.synchronize()
+        again = self.sparse_kernel()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: {self.fwd_sparse_name} differs between two runs")
+        out, ref_out, pairs = self.sparse_fwd_pairs(got)
+        compare(self.fwd_sparse_name, name, out, ref_out, extra={k: (g, r) for k, g, r in pairs})
+        dq, (dk, dv) = self.dq_sparse_kernel(), self.dkv_sparse_kernel()
+        torch.cuda.synchronize()
+        dq2, (dk2, dv2) = self.dq_sparse_kernel(), self.dkv_sparse_kernel()
+        check(torch.equal(dq, dq2), f"{name}: flex_dq_sparse differs between two runs")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"{name}: flex_dkv_sparse differs between two runs")
+        tq, tk = self.tq, self.tk
+        compare_grads("flex_dq_sparse", name, [("dq", dq[:, :tq], self.dq_plain()[:, :tq])])
+        ref_dk, ref_dv = self.dkv_plain()
+        compare_grads("flex_dkv_sparse", name, [("dk", dk[:, :tk], ref_dk[:, :tk]),
+                                                ("dv", dv[:, :tk], ref_dv[:, :tk])])
+
+
+# -- planted faults in the sparse grid's kernels ---------------------------------
+
+# The AMLA forward with its rescale skipped once per row: at the first entry
+# where a row's quantized max grows, l and the accumulator keep their old
+# scale. Planted into a copy of flex_fwd_sparse.cuh built beside the real
+# kernels; the checks of ``check_sparse`` must catch it.
+PLANT_SKIP_RESCALE = [
+    ("      float l[2] = {0.f, 0.f};\n",
+     "      float l[2] = {0.f, 0.f};\n      bool planted[2] = {false, false};\n"),
+    ("          m[rr] = mnew;\n",
+     "          m[rr] = mnew;\n"
+     "          if (delta[rr] != 0 && !planted[rr]) { planted[rr] = true; delta[rr] = 0; }\n"),
+]
+
+
+def start_planted_build():
+    """nvcc of both sparse forwards over the mutated header, started now
+    and collected by :func:`planted_libraries`. Nothing of it is counted as
+    a main-path launch."""
+    import shutil as sh
+
+    from magiattention_tpu_torch import csrc
+
+    out_dir = os.path.join(csrc.BUILD_DIR, "planted")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in ("flex_tile.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu"):
+        sh.copyfile(os.path.join(csrc._DIR, name), os.path.join(out_dir, name))
+    with open(os.path.join(csrc._DIR, "flex_fwd_sparse.cuh")) as f:
+        src = f.read()
+    for old, new in PLANT_SKIP_RESCALE:
+        check(src.count(old) == 1, f"planted fault: {old.strip()!r} is not in the source once")
+        src = src.replace(old, new)
+    with open(os.path.join(out_dir, "flex_fwd_sparse.cuh"), "w") as f:
+        f.write(src)
+    procs = {}
+    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb"):
+        lib = os.path.join(out_dir, f"lib{name}_planted.so")
+        cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    return procs
+
+
+def planted_libraries(procs) -> dict:
+    import ctypes
+
+    from magiattention_tpu_torch import csrc
+
+    libs = {}
+    for name, (proc, path) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"planted {name} did not build:\n{log}")
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, csrc.KERNELS[name].entry)
+        fn.argtypes, fn.restype = csrc.KERNELS[name].argtypes, ctypes.c_int
+        lib.magi_error_string.argtypes = [ctypes.c_int]
+        lib.magi_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def sparse_planted_faults(p, planted) -> dict:
+    """The checks on one fault planted in each sparse-grid kernel, on
+    problem ``p``: the AMLA rescale skipped once per row (both forwards,
+    through the mutated build), the last entry of each q-major walk skipped
+    (``flex_dq_sparse``), the last entry of each k-major walk skipped
+    (``flex_dkv_sparse``). Returns which checks catch each; a fault that
+    passes them all fails the smoke."""
+    import dataclasses as dc
+
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    def skip_last(tab):
+        return (*tab[:6], (tab[6] - 1).clamp_min(0).contiguous())
+
+    caught = {}
+    for name, lib in planted.items():
+        hq, hk = p.q.shape[0], p.k.shape[0]
+        p.hb = hq // hk if name.endswith("_hb") else 1
+        p.sparse_params = dc.replace(p.sparse_params, head_block=p.hb)
+        p.work = fa.sparse_work(p.meta, "cuda:0", hq, hk, p.hb)
+        real, launched = csrc._libs[name], csrc.launches[name]
+        csrc._libs[name] = lib
+        try:
+            got = p.sparse_kernel()
+            torch.cuda.synchronize()
+        finally:
+            csrc._libs[name], csrc.launches[name] = real, launched
+        out, ref_out, pairs = p.sparse_fwd_pairs(got)
+        errs, failed = out_errors(out, ref_out, pairs)
+        caught[f"skip_rescale_once_per_row:{name}"] = {"failed_checks": failed, **errs}
+        check(bool(failed), f"planted fault in {name} passes the forward checks: {errs}")
+    tq, tk = p.tq, p.tk
+    ref_dq = p.dq_plain()[:, :tq]
+    ref_dk, ref_dv = (x[:, :tk] for x in p.dkv_plain())
+    dq = p.dq_sparse_kernel(skip_last(p.tables))
+    dk, dv = p.dkv_sparse_kernel(skip_last(p.btables))
+    torch.cuda.synchronize()
+    for plant, what, got, ref in (("skip_last_q_walk_entry:flex_dq_sparse", "dq", dq[:, :tq], ref_dq),
+                                  ("skip_last_k_walk_entry:flex_dkv_sparse", "dk", dk[:, :tk], ref_dk),
+                                  ("skip_last_k_walk_entry:flex_dkv_sparse", "dv", dv[:, :tk], ref_dv)):
+        errs, failed = grad_errors(got, ref)
+        caught[f"{plant}:{what}"] = {"failed_checks": failed, **errs}
+        check(bool(failed), f"planted fault {plant} passes the {what} checks: {errs}")
+    return caught
+
 
 def flex_cases(gen) -> None:
     """The forward with 4 q heads per kv head, the backward with 4 and 2."""
@@ -355,6 +555,42 @@ def flex_cases(gen) -> None:
         p.check(name)
         p.check_bwd(f"{name}_bwd_g4")
         Flex(gen, tq, tk, hq, 4, qr, kr, ty, **kw).check_bwd(f"{name}_bwd_g2")
+
+
+def sparse_cases(gen) -> None:
+    """The sparse-grid kernels against their plain versions: every mask
+    family with 4 q heads per kv head at d 128 (a work item of G heads,
+    packed two at a time, and of one head), and the heterogeneous masks
+    also at G 2 / d 64 and G 1 / d 128 (a work item of two kv heads)."""
+    from magiattention_tpu_torch.testing.workloads import (
+        shared_question_q_overlap, split_slices, varlen_block_causal,
+    )
+
+    C, F, I, B = 1, 0, 2, 3
+    hetero = [
+        ("sparse_varlen_block_causal", 4096, 4096, *split_slices(varlen_block_causal(4096)), {}),
+        ("sparse_shared_question", 4096, 4096, *split_slices(shared_question_q_overlap(4096)),
+         {}),
+    ]
+    cases = [
+        ("sparse_causal_whole", 2048, 2048, [(0, 2048)], [(0, 2048)], [C], {}),
+        ("sparse_varlen_causal_softcap_sink", 2000, 2000,
+         [(0, 700), (700, 1500), (1500, 2000)], [(0, 700), (700, 1500), (1500, 2000)],
+         [C, C, C], {"softcap": 30.0, "sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
+        ("sparse_full", 512, 768, [(0, 512)], [(0, 768)], [F], {}),
+        ("sparse_invcausal", 768, 768, [(0, 768)], [(0, 768)], [I], {}),
+        ("sparse_bicausal", 512, 768, [(0, 512)], [(0, 768)], [B], {}),
+        ("sparse_uncovered_rows", 1000, 1000, [(100, 600)], [(0, 500)], [F], {}),
+        *hetero,
+    ]
+    for name, tq, tk, qr, kr, ty, kw in cases:
+        for hb in (4, 1):
+            Flex(gen, tq, tk, 8, 2, qr, kr, ty, head_block=hb, **kw).check_sparse(
+                f"{name}_g4_hb{hb}")
+    for name, tq, tk, qr, kr, ty, kw in hetero:
+        Flex(gen, tq, tk, 4, 2, qr, kr, ty, d=64, **kw).check_sparse(f"{name}_g2_d64_hb2")
+        Flex(gen, tq, tk, 4, 4, qr, kr, ty, head_block=2, **kw).check_sparse(
+            f"{name}_g1_hb2")
 
 
 def flex_timing(gen, t: int) -> dict:
@@ -381,7 +617,7 @@ def flex_timing(gen, t: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def bwd_timing(gen, t: int) -> dict:
+def bwd_timing(gen, t: int, planted) -> dict:
     """Both backward kernels and their plain versions on one causal
     sequence at the training widths, each kernel's bound from its own work,
     and the backward of PyTorch's ``scaled_dot_product_attention`` on the
@@ -394,6 +630,8 @@ def bwd_timing(gen, t: int) -> dict:
     p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
     emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
           "caught": p.planted_faults()})
+    emit({"phase": "planted_faults", "case": f"sparse_grid_causal_{t}_training_widths",
+          "caught": sparse_planted_faults(p, planted)})
     dq_ms = cuda_ms(p.dq_kernel, reps=10)
     dkv_ms = cuda_ms(p.dkv_kernel, reps=10)
     dq_plain_ms = cuda_ms(p.dq_plain, reps=2, warmup=1)
@@ -577,6 +815,8 @@ def serving(gen) -> tuple[dict, object, list[int]]:
     check(lengths == [t + steps for t in prompts], f"final lengths {lengths}")
     launches = {n: csrc.launches[n] for n in SERVING_KERNELS}
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    sparse = {n: csrc.launches[n] for n in SPARSE if csrc.launches[n]}
+    check(not sparse, f"the serving path launched sparse-grid kernels: {sparse}")
     decode_s = sum(step_ms) / 1e3
     summary = {
         "phase": "serving",
@@ -726,6 +966,8 @@ def training(seed: int) -> dict:
         if i == 0:
             del model.attention
     launches = {n: csrc.launches[n] for n in TRAINING_KERNELS}
+    sparse = {n: csrc.launches[n] for n in SPARSE if csrc.launches[n]}
+    check(not sparse, f"the training path launched sparse-grid kernels: {sparse}")
     peak = torch.cuda.max_memory_allocated()
     expected = TRAIN_LAYERS * TRAIN_STEPS
     check(all(n == expected for n in launches.values()),
@@ -755,6 +997,225 @@ def training(seed: int) -> dict:
     }
 
 
+# -- the heterogeneous-mask path ---------------------------------------------------
+
+HETERO_T = 16384  # testing/workloads.py::varlen_block_causal(16384): 12 documents, seed 7
+HETERO_RUNS = ((TRAIN_HQ, TRAIN_HK, 2), (8, 8, 1))  # (hq, hk, the head_block the choice must give)
+
+
+def library_attention(q, k, v, cu, max_len):
+    """One PyTorch call computing the same causal-per-document attention
+    ([t, h, d] bf16), a yardstick only: ``torch.nn.attention.varlen.varlen_attn``
+    where the installed torch has it, else ``scaled_dot_product_attention``
+    over the boolean block-diagonal causal mask with k/v repeated to hq
+    heads on the memory-efficient backend. Returns (fn, what ran)."""
+    import inspect
+
+    import torch
+    import torch.nn.functional as Fn
+
+    hq, hk = q.shape[1], k.shape[1]
+
+    def rep(x):  # k/v repeated to hq heads, inside the call so autograd sees it
+        return x.repeat_interleave(hq // hk, 1)
+
+    try:
+        from torch.nn.attention import varlen
+
+        params = inspect.signature(varlen.varlen_attn).parameters
+        kw = {"is_causal": True} if "is_causal" in params else {"window_size": (-1, 0)}
+        gqa = hq != hk and "enable_gqa" in params
+        if gqa:
+            kw["enable_gqa"] = True
+
+        def fn():
+            kv = (k, v) if gqa or hq == hk else (rep(k), rep(v))
+            return varlen.varlen_attn(q, *kv, cu, cu, max_len, max_len, **kw)
+
+        fn()
+        return fn, f"torch.nn.attention.varlen.varlen_attn({', '.join(sorted(kw))})"
+    except (ImportError, AttributeError, RuntimeError, TypeError) as exc:
+        reason = f"{type(exc).__name__}: {str(exc)[:120]}"
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    t = q.shape[0]
+    doc = torch.repeat_interleave(torch.arange(cu.numel() - 1, device=q.device), torch.diff(cu))
+    pos = torch.arange(t, device=q.device)
+    mask = (doc[:, None] == doc[None]) & (pos[None] <= pos[:, None])
+
+    def fn():
+        qs, ks, vs = (x.transpose(0, 1).unsqueeze(0) for x in (q, rep(k), rep(v)))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        return out.squeeze(0).transpose(0, 1)
+
+    fn()
+    return fn, f"scaled_dot_product_attention(EFFICIENT_ATTENTION, boolean mask) [varlen: {reason}]"
+
+
+def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, dict]:
+    """One default-argument forward and backward through
+    ``flex_flash_attn_func`` on the varlen mask: the resolved choice, the
+    launches, the results against the plain versions, and (``timed``) each
+    kernel's time with the row-major one's, the plain one's, the bound and
+    the library yardstick. Returns (summary, launches, per-kernel times)."""
+    import dataclasses as dc
+
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.tuning import exact_mask_area
+
+    t = HETERO_T
+    bq, bk, hb, grid = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, head_dim=D)
+    check((grid, hb) == ("sparse", expect_hb),
+          f"hq {hq} / hk {hk}: the choice is grid={grid!r} head_block={hb}, not sparse/{expect_hb}")
+    p = Flex(gen, t, t, hq, hk, qr, kr, ty, head_block=hb)
+    q, k, v = (x[:, :t].transpose(0, 1).contiguous().requires_grad_() for x in (p.q, p.k, p.v))
+    dout = p.do[:, :t].transpose(0, 1).contiguous()
+    dlse = p.dlse[:, :t].transpose(0, 1).contiguous()
+
+    torch.cuda.synchronize()
+    csrc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, lse = fa.flex_flash_attn_func(q, k, v, qr, kr, ty)  # every choice left to the port
+    dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v), (dout, dlse))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS}
+    fwd_name = "flex_fwd_sparse_hb" if hb > 1 else "flex_fwd_sparse"
+    want = {n: int(n in (fwd_name, "flex_dq_sparse", "flex_dkv_sparse")) for n in FLEX_KERNELS}
+    check(launches == want, f"hq {hq} / hk {hk}: launches {launches}, expected {want}")
+
+    # the plain versions on the same inputs: the sparse forward on every
+    # head at once, the dense backward one kv head's group at a time
+    ref_out, ref_lse, _ = p.sparse_plain()
+    compare(fwd_name, f"hetero_{hq}_{hk}", out.transpose(0, 1), ref_out[:, :t],
+            lse.transpose(0, 1), ref_lse[:, :t])
+    g = hq // hk
+    ftab, btab, params = p.tables, p.btables, p.sparse_params
+    tqp = p.q.shape[1]
+
+    def head_major(x):
+        return fa._pad_tokens(x.detach().transpose(0, 1), tqp)
+
+    lse_h = head_major(lse)
+    delta = (head_major(dout).float() * head_major(out).float()).sum(-1) - head_major(dlse)
+    groups = range(hk) if timed else range(1)
+
+    def plain_dq():
+        return torch.cat([fa._dq_torch(p.q[j * g:(j + 1) * g], p.k[j:j + 1], p.v[j:j + 1],
+                                       p.do[j * g:(j + 1) * g], lse_h[j * g:(j + 1) * g],
+                                       delta[j * g:(j + 1) * g], ftab, params)
+                          for j in groups])
+
+    def plain_dkv():
+        pairs = [fa._dkv_torch(p.q[j * g:(j + 1) * g], p.k[j:j + 1], p.v[j:j + 1],
+                               p.do[j * g:(j + 1) * g], lse_h[j * g:(j + 1) * g],
+                               delta[j * g:(j + 1) * g], btab, params) for j in groups]
+        return torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs])
+
+    nh, nk = len(groups) * g, len(groups)
+    compare_grads("flex_dq_sparse", f"hetero_{hq}_{hk}",
+                  [("dq", dq.transpose(0, 1)[:nh], plain_dq()[:, :t])])
+    ref_dk, ref_dv = plain_dkv()
+    compare_grads("flex_dkv_sparse", f"hetero_{hq}_{hk}",
+                  [("dk", dk.transpose(0, 1)[:nk], ref_dk[:, :t]),
+                   ("dv", dv.transpose(0, 1)[:nk], ref_dv[:, :t])])
+    area = exact_mask_area(qr, kr, ty)
+    summary = {"hq": hq, "hk": hk, "choice": {"block_q": bq, "block_k": bk, "head_block": hb,
+                                              "grid": grid},
+               "launches": launches, "fwd_bwd_wall_ms": wall_ms, "pairs": area,
+               "plain_checked_heads": nh}
+    if not timed:
+        return summary, launches, {}
+
+    # times on the same problem: the sparse kernels (through the wrappers,
+    # with the backward's own inputs), the row-major ones, the plain ones
+    rm = dc.replace(params, head_block=1, grid="row_major")
+    bwd_args = (p.q, p.k, p.v, p.do, lse_h, delta)
+    fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
+    ms = {
+        fwd_name: cuda_ms(lambda: fwd(p.q, p.k, p.v, p.sink, ftab, p.work, params), reps=20),
+        "flex_dq_sparse": cuda_ms(lambda: fa._dq_sparse_kernel(*bwd_args, ftab, p.work, params),
+                                  reps=20),
+        "flex_dkv_sparse": cuda_ms(lambda: fa._dkv_sparse_kernel(*bwd_args, btab, p.work, params),
+                                   reps=20),
+    }
+    # the same kernels with their work lists in index order (head group,
+    # then block): what taking the longest walks first buys
+    in_order = fa.SparseWork(*(torch.sort(w).values for w in p.work))
+    index_order_ms = {
+        fwd_name: cuda_ms(lambda: fwd(p.q, p.k, p.v, p.sink, ftab, in_order, params), reps=20),
+        "flex_dq_sparse": cuda_ms(lambda: fa._dq_sparse_kernel(*bwd_args, ftab, in_order, params),
+                                  reps=20),
+        "flex_dkv_sparse": cuda_ms(
+            lambda: fa._dkv_sparse_kernel(*bwd_args, btab, in_order, params), reps=20),
+    }
+    row_major_ms = {
+        "flex_fwd": cuda_ms(lambda: fa._fwd_kernel(p.q, p.k, p.v, p.sink, ftab, rm), reps=20),
+        "flex_dq": cuda_ms(lambda: fa._dq_kernel(*bwd_args, ftab, rm), reps=20),
+        "flex_dkv": cuda_ms(lambda: fa._dkv_kernel(*bwd_args, btab, rm), reps=20),
+    }
+    plain_ms = {
+        fwd_name: cuda_ms(p.sparse_plain, reps=1, warmup=1),
+        "flex_dq_sparse": cuda_ms(plain_dq, reps=1, warmup=1),
+        "flex_dkv_sparse": cuda_ms(plain_dkv, reps=1, warmup=1),
+    }
+    docs = sorted({a for a, _ in qr} | {b for _, b in qr})
+    cu = torch.tensor(docs, dtype=torch.int32, device="cuda")
+    qb, kb_, vb = (x.detach().to(torch.bfloat16) for x in (q, k, v))
+    lib_fwd, lib_name = library_attention(qb, kb_, vb, cu, int(torch.diff(cu).max()))
+    lib_ms = cuda_ms(lib_fwd, reps=10)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qb, kb_, vb))
+    lib_train, _ = library_attention(ql, kl, vl, cu, int(torch.diff(cu).max()))
+    try:  # fwd + bwd minus fwd: the library's backward, dq, dk and dv together
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_train(), (ql, kl, vl), dout),
+                             reps=10) - lib_ms
+        lib_bwd_note = None
+    except RuntimeError as exc:  # a yardstick only: its absence fails nothing
+        lib_bwd_ms, lib_bwd_note = None, f"{type(exc).__name__}: {str(exc)[:120]}"
+    in_bytes = 2 * (2 * t * hq * D + 2 * t * hk * D)  # q, dout (or out), k, v in bf16
+    bounds = {
+        fwd_name: bound(4.0 * area * D * hq, 2 * (t * hq * D + 2 * t * hk * D)
+                        + 2 * t * hq * D + 4 * 2 * t * hq),
+        "flex_dq_sparse": bound(6.0 * area * D * hq, in_bytes + 4 * 2 * t * hq + 4 * t * hq * D),
+        "flex_dkv_sparse": bound(8.0 * area * D * hq, in_bytes + 4 * 2 * t * hq
+                                 + 4 * 2 * t * hk * D),
+    }
+    times = {
+        name: {"ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+               "bound_by": bounds[name][1],
+               "library_ms": {fwd_name: lib_ms, "flex_dq_sparse": lib_bwd_ms}.get(name)}
+        for name in ms
+    }
+    summary.update({"ms": ms, "index_order_ms": index_order_ms,
+                    "row_major_ms_same_problem": row_major_ms, "plain_ms": plain_ms,
+                    "bound_ms": {n: b[0] for n, b in bounds.items()},
+                    "library": lib_name, "library_fwd_ms": lib_ms,
+                    "library_bwd_ms_for_dq_dk_dv": lib_bwd_ms, "library_bwd_note": lib_bwd_note})
+    return summary, launches, times
+
+
+def hetero(gen) -> tuple[dict, dict]:
+    """The slice's path: ``flex_flash_attn_func`` with its defaults on the
+    16k varlen block-causal mask at the LlamaConfig attention widths and at
+    8 / 8 heads. Returns (the phase's line, the kernels' times)."""
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    qr, kr, ty = split_slices(varlen_block_causal(HETERO_T))
+    runs, launches, times = [], {}, {}
+    for hq, hk, expect_hb in HETERO_RUNS:
+        summary, counts, t = hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed=True)
+        runs.append(summary)
+        times.update({n: x for n, x in t.items() if n not in times})
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+    check(runs[0]["pairs"] == 18_758_257, f"the 16k varlen mask has {runs[0]['pairs']} pairs")
+    return {"phase": "hetero", "tokens": HETERO_T, "documents": len(qr), "head_dim": D,
+            "runs": runs, "launches": launches}, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -771,9 +1232,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    planted_procs = start_planted_build()  # nvcc runs beside the real build
     built = csrc.build(ptxas_verbose=True)
     for name in csrc.KERNELS:
         csrc.load(name)
+    planted = planted_libraries(planted_procs)
     emit({
         "phase": "build",
         "torch": torch.__version__,
@@ -788,8 +1251,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     flex_cases(gen)
+    sparse_cases(gen)
     flex_t = flex_timing(gen, 4096)
-    bwd_t = bwd_timing(gen, sum(TRAIN_DOCS))
+    bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
     decode_cases(gen)
 
@@ -801,20 +1265,30 @@ def main(argv=None) -> int:
 
     train = training(args.seed)
     emit(train)
+    torch.cuda.empty_cache()
+
+    hetero_line, hetero_t = hetero(gen)
+    emit(hetero_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
-    by_path = {"serving": summary["launches"], "training": train["launches"]}
+    by_path = {"serving": summary["launches"], "training": train["launches"],
+               "hetero": hetero_line["launches"]}
     times = {"flex_fwd": flex_t, "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
-             "paged_decode": dec_t}
+             "paged_decode": dec_t, **hetero_t}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
+        "flex_fwd_sparse": ("flex_fwd_sparse.cu", "magiattention_tpu/ops/flex_attn.py:772"),
+        "flex_fwd_sparse_hb": ("flex_fwd_sparse_hb.cu", "magiattention_tpu/ops/flex_attn.py:938"),
         "flex_dq": ("flex_dq.cu", "magiattention_tpu/ops/flex_attn.py:1168"),
+        "flex_dq_sparse": ("flex_dq_sparse.cu", "magiattention_tpu/ops/flex_attn.py:1127"),
         "flex_dkv": ("flex_dkv.cu", "magiattention_tpu/ops/flex_attn.py:1397"),
+        "flex_dkv_sparse": ("flex_dkv_sparse.cu", "magiattention_tpu/ops/flex_attn.py:1347"),
         "paged_decode": ("decode.cu", "magiattention_tpu/serving/decode_attn.py:284"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
+        check(bool(paths), f"{name} was launched on no main path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"magiattention_tpu_torch/csrc/{src}", "replaces": replaces,

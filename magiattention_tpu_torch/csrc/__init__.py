@@ -2,8 +2,10 @@
 
 Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
-``int``; the return value is the ``cudaError_t`` of the launch); the three
-flex-attention kernels share ``flex_tile.cuh``. On first use :func:`build`
+``int``; the return value is the ``cudaError_t`` of the launch); the seven
+flex-attention kernels share ``flex_tile.cuh``, the backward ones the
+per-item bodies of ``flex_bwd.cuh`` and the two sparse-grid forwards
+``flex_fwd_sparse.cuh``. On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
 of its source and of the headers it includes, so an edited kernel is
@@ -41,6 +43,12 @@ class Kernel(NamedTuple):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLEX_HEADERS = ("flex_tile.cuh",)
+_BWD_HEADERS = ("flex_tile.cuh", "flex_bwd.cuh")
+_FWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_fwd_sparse.cuh")
+# the sparse-grid forwards: q k v sink | kblk sid runs bounds rs rc | work
+# counter | out lse rowmax; hq hk tqp tkp head_dim nq block_q block_k n_items
+# heads_per_item; scale softcap has_sink out_f32 stream
+_FWD_SPARSE_ARGS = [_P] * 4 + [_P] * 6 + [_P] * 2 + [_P] * 3 + [_I] * 10 + [_F, _F, _I, _I, _P]
 KERNELS: dict[str, Kernel] = {
     "flex_fwd": Kernel(
         "flex_fwd.cu",
@@ -62,7 +70,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap stream
         + [_F, _F, _P],
-        _FLEX_HEADERS,
+        _BWD_HEADERS,
     ),
     "flex_dkv": Kernel(
         "flex_dkv.cu",
@@ -73,7 +81,36 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap stream
         + [_F, _F, _P],
-        _FLEX_HEADERS,
+        _BWD_HEADERS,
+    ),
+    "flex_fwd_sparse": Kernel(
+        "flex_fwd_sparse.cu", "magi_flex_fwd_sparse", _FWD_SPARSE_ARGS, _FWD_SPARSE_HEADERS,
+    ),
+    "flex_fwd_sparse_hb": Kernel(
+        "flex_fwd_sparse_hb.cu", "magi_flex_fwd_sparse_hb", _FWD_SPARSE_ARGS,
+        _FWD_SPARSE_HEADERS,
+    ),
+    "flex_dq_sparse": Kernel(
+        "flex_dq_sparse.cu",
+        "magi_flex_dq_sparse",
+        # q k v dout lse delta | kblk sid runs bounds rs rc | work counter | dq
+        [_P] * 6 + [_P] * 6 + [_P] * 2 + [_P]
+        # hq hk tqp tkp head_dim nq block_q block_k n_items
+        + [_I] * 9
+        # scale softcap stream
+        + [_F, _F, _P],
+        _BWD_HEADERS,
+    ),
+    "flex_dkv_sparse": Kernel(
+        "flex_dkv_sparse.cu",
+        "magi_flex_dkv_sparse",
+        # q k v dout lse delta | qblk sid runs bounds rs rc | work counter | dk dv
+        [_P] * 6 + [_P] * 6 + [_P] * 2 + [_P] * 2
+        # hq hk tqp tkp head_dim nk block_q block_k n_items
+        + [_I] * 9
+        # scale softcap stream
+        + [_F, _F, _P],
+        _BWD_HEADERS,
     ),
     "paged_decode": Kernel(
         "decode.cu",

@@ -31,7 +31,7 @@
 // Grid: (k blocks, kv heads). A k block with no entry to walk still writes
 // its (zero) rows.
 
-#include "flex_tile.cuh"
+#include "flex_bwd.cuh"
 
 namespace {
 
@@ -47,105 +47,9 @@ flex_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const int* __restrict__ rs, const int* __restrict__ rc,
                 float* __restrict__ dk, float* __restrict__ dv, int group,
                 int tqp, int tkp, float scale, float softcap) {
-  constexpr int LDS = D + PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LDS;
-  bf16* sQ = sV + BK * LDS;
-  bf16* sO = sQ + BQ * LDS;  // dO
-  float* sLse = reinterpret_cast<float*>(sO + BQ * LDS);  // lse, -inf -> 0
-  float* sDelta = sLse + BQ;
-  int* sLo = reinterpret_cast<int*>(sDelta + BQ);  // the entry's k-interval per query row
-  int* sHi = sLo + BQ;
-
-  const int i = blockIdx.x;   // k block
-  const int hk = blockIdx.y;  // kv head
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  load_tile<D>(sK, k + ((size_t)hk * tkp + (size_t)i * BK) * D, BK);
-  load_tile<D>(sV, v + ((size_t)hk * tkp + (size_t)i * BK) * D, BK);
-
-  const int r0 = warp * 16 + g;  // this thread's key rows: r0 and r0 + 8
-  const int key[2] = {i * BK + r0, i * BK + r0 + 8};
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  }
-
-  const int e_begin = rs[i], e_end = rs[i] + rc[i];
-  for (int e = e_begin; e < e_end; ++e) {
-    const int qb = qblk[e];
-    for (int gi = 0; gi < group; ++gi) {
-      const int h = hk * group + gi;
-      const size_t q0 = (size_t)h * tqp + (size_t)qb * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO/lse tiles
-      load_tile<D>(sQ, q + q0 * D, BQ);
-      load_tile<D>(sO, dout + q0 * D, BQ);
-      if (threadIdx.x < BQ) {
-        const int t = threadIdx.x;
-        const float L = lse[q0 + t];
-        sLse[t] = L == -INFINITY ? 0.f : L;
-        sDelta[t] = delta[q0 + t];
-        if (gi == 0) entry_interval(runs, bounds, sid[e], e, qb * BQ + t, sLo[t], sHi[t]);
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = dpt[j][0] = dpt[j][1] =
-            dpt[j][2] = dpt[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<LDS>(ka, sK, r0, kk * 16 + 2 * t4);
-        load_a<LDS>(va, sV, r0, kk * 16 + 2 * t4);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const int off = (j * 8 + g) * LDS + kk * 16 + 2 * t4;
-          mma_16816(st[j], ka, ld32(sQ + off), ld32(sQ + off + 8));
-          mma_16816(dpt[j], va, ld32(sO + off), ld32(sO + off + 8));
-        }
-      }
-
-      // P^T in place of S^T, dS^T in place of dP^T
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int t = j * 8 + 2 * t4 + (c & 1);  // query row in the tile
-          const int col = key[c >> 1];
-          float p, ds;
-          p_ds(logit(st[j][c], scale, softcap), col >= sLo[t] && col < sHi[t],
-               sLse[t], dpt[j][c], sDelta[t], softcap, p, ds);
-          st[j][c] = p;
-          dpt[j][c] = ds;
-        }
-      }
-
-      // dV += P^T dO (P rounded to bf16, dO's type); dK += dS^T Q (dS
-      // rounded to bf16, Q's type)
-      mma_a_tile<D, LDS>(dv_acc, st, sO, lane);
-      mma_a_tile<D, LDS>(dk_acc, dpt, sQ, lane);
-    }
-  }
-
-  const size_t k0 = (size_t)hk * tkp;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float* pk = dk + (k0 + key[rr]) * D + 2 * t4;
-    float* pv = dv + (k0 + key[rr]) * D + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      store2(pk + j * 8, dk_acc[j][2 * rr] * scale, dk_acc[j][2 * rr + 1] * scale);
-      store2(pv + j * 8, dv_acc[j][2 * rr], dv_acc[j][2 * rr + 1]);
-    }
-  }
+  dkv_item<D>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, dk, dv, group,
+              tqp, tkp, scale, softcap, /*hk=*/blockIdx.y, /*i=*/blockIdx.x, smem_raw);
 }
 
 template <int D>
@@ -155,8 +59,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    const void* rs, const void* rc, void* dk, void* dv, int hq,
                    int hk, int tqp, int tkp, int nk, float scale, float softcap,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BK + 2 * BQ) * (D + PAD) * sizeof(bf16) +
-                      (size_t)4 * BQ * sizeof(float);
+  const size_t smem = dkv_smem<D>();
   auto kernel = flex_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,8 +1,11 @@
-// Shared pieces of the flex-attention kernels (flex_fwd, flex_dq, flex_dkv):
-// the 64x64 tile, the bf16 tensor-core product (mma.sync m16n8k16, f32
-// accumulators), tile loads into padded shared memory, and the per-entry
-// mask of the host-built entry table (ops/block_meta.py) as a k-interval per
-// query row — the JAX package's ops/flex_attn.py::_entry_interval_mask.
+// Shared pieces of the flex-attention kernels (the row-major flex_fwd,
+// flex_dq, flex_dkv and the sparse-grid flex_fwd_sparse(_hb),
+// flex_dq_sparse, flex_dkv_sparse): the 64x64 tile, the bf16 tensor-core
+// product (mma.sync m16n8k16, f32 accumulators), tile loads into padded
+// shared memory, the per-entry mask of the host-built entry table
+// (ops/block_meta.py) as a k-interval per query row — the JAX package's
+// ops/flex_attn.py::_entry_interval_mask — and the persistent kernels'
+// work-list scheduling.
 //
 // Fragment layout of mma m16n8k16 (lane = 4 g + t4): A holds rows g and g+8,
 // columns 2 t4 (+1) and 2 t4 + 8 (+1); B holds column g, rows 2 t4 (+1) and
@@ -104,12 +107,13 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// rows [0, nrows) x D of a head-major [tokens, D] array -> shared, 16 B a thread
-template <int D>
+// rows [0, nrows) x D of a head-major [tokens, D] array -> shared, 16 B a
+// thread, by a block of NT threads
+template <int D, int NT = NTHREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int nrows) {
   constexpr int LDS = D + PAD;
   constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < nrows * CHUNKS; c += NTHREADS) {
+  for (int c = threadIdx.x; c < nrows * CHUNKS; c += NT) {
     const int r = c / CHUNKS, cc = c % CHUNKS;
     *reinterpret_cast<uint4*>(dst + r * LDS + cc * 8) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * D + cc * 8);
@@ -157,6 +161,44 @@ __device__ __forceinline__ void p_ds(float z, bool on, float lse_safe, float dp,
     const float t = z / softcap;
     ds = on ? ds * (1.f - t * t) : 0.f;
   }
+}
+
+// The persistent kernels take the items of a longest-walk-first work list
+// (ops/block_sparse.py::work_list) through one counter per launch, zeroed
+// on the launch's stream: a block that finishes an item takes the next one
+// not yet taken, so the long walks start first and the short ones fill the
+// tail. Each item is computed whole by one block, so which block took it
+// does not change a bit of the result.
+//
+// The next item for the whole block: thread 0 takes it, shared memory
+// broadcasts it. The barrier in front also means every warp is done with
+// the previous item's shared memory.
+__device__ __forceinline__ int next_item(int* counter, int* s_item) {
+  __syncthreads();
+  if (threadIdx.x == 0) *s_item = atomicAdd(counter, 1);
+  __syncthreads();
+  return *s_item;
+}
+
+// The launch of a persistent kernel: as many blocks as fit on the card at
+// once (or one per item, if fewer), and its counter zeroed on the stream.
+template <typename Kernel>
+inline cudaError_t persistent_launch_dims(Kernel kernel, int threads, size_t smem,
+                                          int n_items, int* counter,
+                                          cudaStream_t stream, int& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  const int fit = sms * (per_sm > 0 ? per_sm : 1);
+  grid = n_items < fit ? (n_items > 0 ? n_items : 1) : fit;
+  return err;
 }
 
 }  // namespace flex

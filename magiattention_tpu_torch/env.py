@@ -1,4 +1,4 @@
-"""Environment-variable flags read by the serving slice.
+"""Environment-variable flags read by the port.
 
 Same ``MAGI_ATTENTION_*`` names and defaults as the JAX package's
 ``env.py`` for the accessors this slice reads; the TPU-only flags
@@ -69,3 +69,25 @@ def decode_splits() -> int | None:
     through ``resolve_num_splits``'s Hopper heuristic."""
     v = _env_str("MAGI_ATTENTION_DECODE_SPLITS", "auto").strip().lower()
     return None if v in ("", "auto") else int(v)
+
+
+def grid_override() -> str | None:
+    """Pinned flex-kernel grid, or None (auto: ``auto_kernel_config``'s
+    density rule). 'row_major' keeps the (heads, q blocks) walk, 'sparse'
+    forces the compact sparse-grid kernels (``ops/flex_attn.py``
+    GRID_KINDS)."""
+    v = _env_str("MAGI_ATTENTION_GRID", "auto").strip().lower()
+    if v in ("", "auto"):
+        return None
+    if v not in ("row_major", "sparse"):
+        raise ValueError(
+            f"MAGI_ATTENTION_GRID={v!r} must be 'auto', 'row_major', or 'sparse'"
+        )
+    return v
+
+
+def head_block_override() -> int | None:
+    """Explicitly-set head_block (q heads per kernel work item), or None
+    when the flag is unset."""
+    v = os.environ.get("MAGI_ATTENTION_HEAD_BLOCK")
+    return int(v) if v else None

@@ -1,4 +1,5 @@
-"""Host kernel planning, LSE correction and the flex-attention forward."""
+"""Host kernel planning, LSE correction and flex attention (forward and
+backward, row-major and sparse grids)."""
 
 from .block_meta import FlexAttnBlockMeta, build_block_meta
 from .correction import (
@@ -8,11 +9,17 @@ from .correction import (
     merge_partials,
     safe_lse_merge,
 )
-from .flex_attn import FlexAttnParams, flex_attn_with_meta, flex_flash_attn_func
+from .flex_attn import (
+    FlexAttnParams,
+    auto_kernel_config,
+    flex_attn_with_meta,
+    flex_flash_attn_func,
+)
 
 __all__ = [
     "FlexAttnBlockMeta",
     "FlexAttnParams",
+    "auto_kernel_config",
     "build_block_meta",
     "correct_attn_lse",
     "correct_attn_out",

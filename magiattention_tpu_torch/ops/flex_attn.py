@@ -4,21 +4,33 @@ The counterpart of the JAX package's ``ops/flex_attn.py``: attention over
 an arbitrary list of (q_range, k_range, mask_type) slices with GQA,
 softcap, attention sink, and LSE + per-row max-logit outputs,
 differentiable in q, k, v and sink. The host builds an entry table per
-unique mask in both orientations (``ops/block_meta.py``); three kernels
-walk it: ``flex_fwd`` (``csrc/flex_fwd.cu``) one q block's entries per
-thread block, ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq, and
-``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
-table for dk/dv. :class:`_FlexAttnCore` is the ``torch.autograd.Function``
-around them, the counterpart of the JAX ``_flex_attn_core`` custom vjp.
+unique mask in both orientations (``ops/block_meta.py``); the kernels walk
+it. Two grids, as in the JAX package:
+
+- ``row_major``: ``flex_fwd`` (``csrc/flex_fwd.cu``) one q block's entries
+  per thread block, ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
+  ``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
+  table for dk/dv;
+- ``sparse``, the compact grid for heterogeneous masks: persistent kernels
+  that take (heads, block) items from a longest-walk-first work list
+  (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
+  AMLA base-2 softmax, one q head or ``head_block`` q heads per item) and
+  ``flex_dq_sparse`` / ``flex_dkv_sparse``.
+
+:class:`_FlexAttnCore` is the ``torch.autograd.Function`` around them, the
+counterpart of the JAX ``_flex_attn_core`` custom vjp, and
+:func:`auto_kernel_config` picks the grid as the JAX package does.
 
 Where it runs follows its tensors: CUDA tensors launch the kernels (or
 raise), CPU tensors take the plain versions — :func:`_fwd_torch`, dense
 attention over the mask the table encodes (the JAX ``_fwd_jnp`` with its
 epilogue contract: an uncovered row gives out=0 and lse=-inf, lse=sink when
-a sink is set, and rowmax excludes the sink), and :func:`_dq_torch` /
+a sink is set, and rowmax excludes the sink), :func:`_fwd_torch_sparse`,
+the sparse grid's entry walk with the AMLA softmax, and :func:`_dq_torch` /
 :func:`_dkv_torch`, the dense backward step for step as the JAX
-``_bwd_p_ds``. Layout inside the kernels is head-major [heads, tokens,
-head_dim]; the public functions take [tokens, heads, head_dim].
+``_bwd_p_ds`` (both grids' backward kernels compute it). Layout inside the
+kernels is head-major [heads, tokens, head_dim]; the public functions take
+[tokens, heads, head_dim].
 """
 
 from __future__ import annotations
@@ -26,16 +38,19 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import csrc
 from .block_meta import RUN_FIELDS, SLICE_FIELDS, FlexAttnBlockMeta, build_block_meta
-from .block_sparse import row_tables
+from .block_sparse import row_tables, work_list
 
 NEG_INF = float("-inf")
 GRID_KINDS = ("row_major", "sparse")
+LOG2E = math.log2(math.e)  # the sparse grid's base-2 softmax (AMLA rescaling)
+LN2 = math.log(2.0)
 
 # Hopper tile table: head_dim -> (block_q, block_k). A first guess, not a
 # tuned table: 64 query rows are the four 16-row warps of one flex_fwd
@@ -49,10 +64,12 @@ KERNEL_DTYPES = (torch.bfloat16,)
 class FlexAttnParams:
     """Static parameters of one flex-attention forward.
 
-    ``head_block`` (q heads per kernel step) and ``grid`` (``row_major`` or
-    the compact ``sparse`` entry walk) name the JAX kernel's variants; the
-    Hopper kernel runs ``row_major`` with ``head_block=1`` only, and a CUDA
-    call asking for another raises (ROADMAP queue B items 2-4)."""
+    ``head_block`` (q heads per kernel work item: 1, or a multiple of the
+    GQA group that divides hq) and ``grid`` (``row_major`` or the compact
+    ``sparse`` entry walk) name the JAX kernel's variants. On the card
+    ``sparse`` runs with any valid ``head_block`` and ``row_major`` with
+    ``head_block=1``; the head-batched row-major forward is still to port,
+    and a CUDA call asking for it raises (ROADMAP queue B item 2)."""
 
     block_q: int
     block_k: int
@@ -93,34 +110,70 @@ def bwd_tables(meta: FlexAttnBlockMeta, device: str) -> tuple[torch.Tensor, ...]
     )
 
 
+class SparseWork(NamedTuple):
+    """The sparse-grid kernels' work lists (``block_sparse.work_list``
+    items, int32 on the device), longest walk first."""
+
+    fwd: torch.Tensor  # (group of head_block q heads, q block)
+    dq: torch.Tensor  # (q head, q block)
+    dkv: torch.Tensor  # (kv head, k block), over the k-major walk
+
+
+@functools.lru_cache(maxsize=256)
+def sparse_work(meta: FlexAttnBlockMeta, device: str, hq: int, hk: int,
+                head_block: int) -> SparseWork:
+    """The plan's work lists for ``hq``/``hk`` heads and ``head_block``,
+    built on the host and copied once per (plan, device, heads,
+    head_block)."""
+    _, rc_q = row_tables(meta.fwd_q_block, meta.num_q_blocks)
+    _, rc_k = row_tables(meta.bwd_k_block, meta.num_k_blocks)
+
+    def dev(items):
+        return torch.from_numpy(items).to(device)
+
+    return SparseWork(
+        dev(work_list(rc_q, hq // head_block)), dev(work_list(rc_q, hq)),
+        dev(work_list(rc_k, hk)),
+    )
+
+
 _BIG = 1 << 30
+
+
+def _entry_tiles(tables, e: torch.Tensor, bq: int, bk: int) -> torch.Tensor:
+    """[len(e), bq, bk] boolean tiles of entries ``e``: each entry's mask in
+    the per-row k-interval form of the JAX package's
+    ``_entry_interval_mask`` (the same predicate as ``_entry_mask``).
+    ``tables`` are the (major, minor, sid, runs, bounds) tables as int64,
+    either orientation; rows index the q side, columns the k side. Dummy
+    entries point at the all-zero sentinel slice and mask everything."""
+    qblk, kblk, sid, runs, bounds = tables[:5]
+    dev = qblk.device
+    n = e.shape[0]
+    r = runs.view(-1, RUN_FIELDS)[e]
+    b = bounds.view(-1, SLICE_FIELDS)[sid[e]]
+    ql0, ql1, kl0, kl1, qoff, koff = (r[:, c : c + 1] for c in range(6))
+    q0, q1, k0, k1, typ = (b[:, c : c + 1] for c in range(5))
+    rl = qblk[e, None] * bq + torch.arange(bq, device=dev)[None]  # [n, bq]
+    row_ok = (rl >= ql0) & (rl < ql1) & (rl + qoff >= q0) & (rl + qoff < q1)
+    lo = torch.maximum(kl0, k0 - koff).expand(n, bq)
+    lo = torch.where((typ & 2) == 2, torch.maximum(lo, rl + (qoff - q0 + k0 - koff)), lo)
+    hi = torch.minimum(kl1, k1 - koff).expand(n, bq)
+    hi = torch.where((typ & 1) == 1, torch.minimum(hi, rl + (qoff - q1 + k1 - koff + 1)), hi)
+    lo = torch.where(row_ok, lo, _BIG)
+    hi = torch.where(row_ok, hi, -_BIG)
+    cl = kblk[e, None] * bk + torch.arange(bk, device=dev)[None]  # [n, bk]
+    return (cl[:, None, :] >= lo[:, :, None]) & (cl[:, None, :] < hi[:, :, None])
 
 
 def _dense_mask_from_tables(tables, tqp: int, tkp: int, bq: int, bk: int) -> torch.Tensor:
     """The [tqp, tkp] boolean mask the forward entry table describes: each
-    entry's tile from the per-row k-interval form of the JAX package's
-    ``_entry_interval_mask`` (the same predicate as ``_entry_mask``),
-    OR-ed over entries. Dummy entries point at the all-zero sentinel
-    slice and contribute nothing."""
-    qblk, kblk, sid, runs, bounds = (t.long() for t in tables[:5])
-    dev = qblk.device
-    E = qblk.shape[0]
-    r = runs.view(E, RUN_FIELDS)
-    b = bounds.view(-1, SLICE_FIELDS)[sid]
-    ql0, ql1, kl0, kl1, qoff, koff = (r[:, c : c + 1] for c in range(6))
-    q0, q1, k0, k1, typ = (b[:, c : c + 1] for c in range(5))
-    rl = qblk[:, None] * bq + torch.arange(bq, device=dev)[None]  # [E, bq]
-    row_ok = (rl >= ql0) & (rl < ql1) & (rl + qoff >= q0) & (rl + qoff < q1)
-    lo = torch.maximum(kl0, k0 - koff).expand(E, bq)
-    lo = torch.where((typ & 2) == 2, torch.maximum(lo, rl + (qoff - q0 + k0 - koff)), lo)
-    hi = torch.minimum(kl1, k1 - koff).expand(E, bq)
-    hi = torch.where((typ & 1) == 1, torch.minimum(hi, rl + (qoff - q1 + k1 - koff + 1)), hi)
-    lo = torch.where(row_ok, lo, _BIG)
-    hi = torch.where(row_ok, hi, -_BIG)
-    cl = kblk[:, None] * bk + torch.arange(bk, device=dev)[None]  # [E, bk]
-    tiles = (cl[:, None, :] >= lo[:, :, None]) & (cl[:, None, :] < hi[:, :, None])
+    entry's tile (:func:`_entry_tiles`), OR-ed over entries."""
+    tabs = tuple(t.long() for t in tables[:5])
+    qblk, kblk = tabs[:2]
+    tiles = _entry_tiles(tabs, torch.arange(qblk.shape[0], device=qblk.device), bq, bk)
     nq, nk = tqp // bq, tkp // bk
-    dense = torch.zeros((nq, nk, bq, bk), dtype=torch.int32, device=dev)
+    dense = torch.zeros((nq, nk, bq, bk), dtype=torch.int32, device=qblk.device)
     dense.index_put_((qblk, kblk), tiles.to(torch.int32), accumulate=True)
     return (dense > 0).permute(0, 2, 1, 3).reshape(tqp, tkp)
 
@@ -168,17 +221,141 @@ def _fwd_torch(q, k, v, sink, tables, params: FlexAttnParams):
     return out, lse, m.float()
 
 
-def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams) -> None:
-    """Raise on what the flex kernels do not take: the variant, the dtype,
-    the head dim and tile, the GQA ratio."""
-    hq, d, hk = q.shape[0], q.shape[2], k.shape[0]
-    if params.grid != "row_major" or params.head_block != 1:
-        raise NotImplementedError(
-            f"{name} runs grid='row_major' with head_block=1; grid="
-            f"{params.grid!r}, head_block={params.head_block} are the "
-            "head-batched and compact sparse-grid kernels still to port "
-            "(ROADMAP queue B items 2-4, 6, 8)"
+# -- the sparse grid's forward: entry walk with AMLA rescaling ----------------
+
+
+def _amla_rescale(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``x * 2**delta`` (delta an int32 tensor, <= 0) as an integer add on
+    the exponent field, bit for bit the JAX ``_amla_rescale``: with the
+    running max quantized to integers in base 2, the online softmax's
+    rescale is an exact power of two. Exact for normal floats; a value
+    whose exponent would leave the normal range (and every zero or
+    subnormal, even at delta 0) becomes 0. The int32 add wraps as in JAX;
+    the wrapped lanes are the ones ``ok`` zeroes. A float64 ``x`` (the
+    plain version's oracle precision) is multiplied by ``2**delta``."""
+    if x.dtype != torch.float32:
+        return x * torch.exp2(delta.to(x.dtype))
+    bits = x.view(torch.int32)
+    wide = bits.long() + delta.long() * (1 << 23)
+    wrapped = (wide + (1 << 31)) % (1 << 32) - (1 << 31)  # int32 wrap, made explicit
+    shifted = wrapped.to(torch.int32).view(torch.float32)
+    exp_field = (bits >> 23) & 0xFF  # the sign bit shifts out under the mask
+    ok = (exp_field + delta) > 0
+    return torch.where(ok, shifted, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _amla_update(s, m_prev, l_prev, acc_prev, contract):
+    """One AMLA online-softmax step (the JAX ``_amla_update``): ``s`` are
+    natural-scale masked logits (-inf off the mask), reduced over their
+    last axis; the running max ``m`` lives in base 2, quantized to
+    integers (-inf until the row meets a live entry), so the rescale of
+    ``l`` and ``acc`` is :func:`_amla_rescale`. ``contract(p)`` is P V.
+    Returns ``(m_new, l_new, acc_new)``."""
+    s2 = s * LOG2E
+    m_cur = torch.ceil(s2.amax(dim=-1))
+    m_new = torch.maximum(m_prev, m_cur)
+    m_safe = torch.where(m_new == NEG_INF, 0.0, m_new)
+    # fresh rows (m_prev = -inf) carry zero state: rescale by 2^0
+    delta = (torch.where(m_prev == NEG_INF, m_safe, m_prev) - m_safe).to(torch.int32)
+    p = torch.exp2(s2 - m_safe[..., None])
+    l_new = _amla_rescale(l_prev, delta) + p.sum(dim=-1)
+    acc_new = _amla_rescale(acc_prev, delta[..., None]) + contract(p)
+    return m_new, l_new, acc_new
+
+
+def _amla_finalize(m2, l, acc, sink, has_sink: bool):
+    """The sparse forward's epilogue (the JAX ``_amla_finalize``): fold the
+    base-2 quantized max back to the natural-scale reference ``mu = m2
+    ln2``, fold in the optional sink (broadcastable to ``m2``), and give
+    ``(out, lse)`` under the uncovered convention (out=0, lse=-inf)."""
+    mu = m2 * LN2
+    if has_sink:
+        m_tot = torch.maximum(mu, sink)
+        m_tot_safe = torch.where(m_tot == NEG_INF, 0.0, m_tot)
+        resc = torch.exp(torch.where(mu == NEG_INF, NEG_INF, mu - m_tot_safe))
+        l_tot = l * resc + torch.exp(sink - m_tot_safe)
+        acc = acc * resc[..., None]
+    else:
+        m_tot_safe = torch.where(mu == NEG_INF, 0.0, mu)
+        l_tot = l
+    covered = l_tot > 0.0
+    inv = torch.where(covered, 1.0 / torch.where(covered, l_tot, 1.0), 0.0)
+    lse = torch.where(covered, m_tot_safe + torch.log(torch.where(covered, l_tot, 1.0)), NEG_INF)
+    return acc * inv[..., None], lse
+
+
+def _fwd_torch_sparse(q, k, v, sink, tables, params: FlexAttnParams):
+    """Plain version of the sparse-grid forwards (``flex_fwd_sparse`` and
+    ``flex_fwd_sparse_hb``), the TPU kernels' algorithm rather than the
+    dense softmax: each q block walks its entries ``rs[i] ..
+    rs[i]+rc[i]-1`` in order with the AMLA online softmax, P rounded to V's
+    type before P V, the exact natural-scale row max tracked apart for
+    ``rowmax``, and :func:`_amla_finalize` as the epilogue. Vectorised over
+    heads and q blocks: step j takes entry ``rs[i]+j`` of every q block
+    that has one. Same contract as :func:`_fwd_torch`."""
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    group = hq // hk
+    bq, bk = params.block_q, params.block_k
+    nq = tqp // bq
+    dev = q.device
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    tabs = tuple(t.long() for t in tables[:5])
+    rs, rc = tables[5].long(), tables[6].long()
+    qb = q.view(hq, nq, bq, d)
+    kb = k.view(hk, tkp // bk, bk, d)
+    vb = v.view(hk, tkp // bk, bk, d)
+    m = torch.full((hq, nq, bq), NEG_INF, dtype=acc_t, device=dev)
+    mx = torch.full((hq, nq, bq), NEG_INF, dtype=acc_t, device=dev)
+    l = torch.zeros((hq, nq, bq), dtype=acc_t, device=dev)
+    acc = torch.zeros((hq, nq, bq, d), dtype=acc_t, device=dev)
+    steps = int(rc.max()) if rc.numel() else 0
+    for j in range(steps):
+        blk = torch.nonzero(rc > j).squeeze(1)  # q blocks with a j-th entry
+        e = rs[blk] + j
+        n = blk.shape[0]
+        kbj, vbj = kb[:, tabs[1][e]].to(acc_t), vb[:, tabs[1][e]]  # [hk, n, bk, d]
+        qa = qb[:, blk].to(acc_t).view(hk, group, n, bq, d)
+        z = torch.einsum("hgnqd,hnkd->hgnqk", qa, kbj).reshape(hq, n, bq, bk) * params.scale
+        if params.softcap > 0.0:
+            z = params.softcap * torch.tanh(z / params.softcap)
+        s = z.masked_fill(~_entry_tiles(tabs, e, bq, bk)[None], NEG_INF)
+        del z
+
+        def contract(p):
+            p = p.to(v.dtype).to(acc_t).view(hk, group, n, bq, bk)
+            return torch.einsum("hgnqk,hnkd->hgnqd", p, vbj.to(acc_t)).reshape(hq, n, bq, d)
+
+        m_new, l_new, acc_new = _amla_update(s, m[:, blk], l[:, blk], acc[:, blk], contract)
+        m[:, blk], l[:, blk], acc[:, blk] = m_new, l_new, acc_new
+        mx[:, blk] = torch.maximum(mx[:, blk], s.amax(dim=-1))
+    sink_b = sink.to(acc_t).view(hq, 1, 1)
+    out, lse = _amla_finalize(m, l, acc, sink_b, params.has_sink)
+    return (
+        out.reshape(hq, tqp, d).to(params.out_dtype),
+        lse.reshape(hq, tqp),
+        mx.reshape(hq, tqp).float(),
+    )
+
+
+def _check_variant(params: FlexAttnParams, hq: int, hk: int) -> None:
+    """Raise on a grid or head_block that no kernel (and no plain version)
+    takes: ``head_block`` is 1 or a multiple of the GQA group that divides
+    hq, as the JAX launchers assert."""
+    if params.grid not in GRID_KINDS:
+        raise ValueError(f"grid={params.grid!r} must be one of {GRID_KINDS}")
+    hb, group = params.head_block, hq // hk
+    if hb < 1 or (hb > 1 and (hb % group or hq % hb)):
+        raise ValueError(
+            f"head_block {hb} must be 1, or a multiple of the GQA group {group} "
+            f"that divides hq {hq}"
         )
+
+
+def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams) -> None:
+    """Raise on what the flex kernels do not take: the dtype, the head dim
+    and tile, the GQA ratio."""
+    hq, d, hk = q.shape[0], q.shape[2], k.shape[0]
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"{name} takes {KERNEL_DTYPES} q/k/v of one dtype; got "
@@ -220,6 +397,52 @@ def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse, rowmax
+
+
+def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
+                       params: FlexAttnParams):
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    _check_kernel_args(name, q, k, v, params)
+    if params.out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"{name} writes out in {q.dtype} or float32, not {params.out_dtype}")
+    if items.numel() != (hq // heads_per_item) * (tqp // params.block_q):
+        raise ValueError(f"{name}: the work list has {items.numel()} items, not one per "
+                         f"(group of {heads_per_item} q heads, q block)")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
+    lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
+    rowmax = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=q.device)
+    sink = sink.to(device=q.device, dtype=torch.float32).contiguous()
+    _qblk, kblk, sid, runs, bounds, rs, rc = tables
+    csrc.launch(
+        name,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sink.data_ptr(),
+        kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), items.data_ptr(), counter.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), rowmax.data_ptr(),
+        hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
+        params.block_k, items.numel(), heads_per_item, float(params.scale),
+        float(params.softcap), int(params.has_sink),
+        int(params.out_dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return out, lse, rowmax
+
+
+def _fwd_sparse_kernel(q, k, v, sink, tables, work: SparseWork, params: FlexAttnParams):
+    """The ``flex_fwd_sparse`` Hopper kernel (one q head per work item) on
+    CUDA tensors, same contract as :func:`_fwd_torch_sparse`."""
+    return _launch_fwd_sparse("flex_fwd_sparse", q, k, v, sink, tables, work.fwd, 1, params)
+
+
+def _fwd_sparse_hb_kernel(q, k, v, sink, tables, work: SparseWork, params: FlexAttnParams):
+    """The ``flex_fwd_sparse_hb`` Hopper kernel (``head_block`` q heads per
+    work item, the GQA group's rows packed into one thread block) on CUDA
+    tensors, same contract as :func:`_fwd_torch_sparse`."""
+    return _launch_fwd_sparse("flex_fwd_sparse_hb", q, k, v, sink, tables, work.fwd,
+                              params.head_block, params)
 
 
 # -- backward ------------------------------------------------------------------
@@ -331,20 +554,90 @@ def _dkv_kernel(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
     return dk, dv
 
 
+def _dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work: SparseWork,
+                      params: FlexAttnParams):
+    """The ``flex_dq_sparse`` Hopper kernel on CUDA tensors: ``flex_dq``'s
+    math over the (q head, q block) items of the work list. Same contract
+    as :func:`_dq_torch`."""
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq_sparse", q, k, v, do, lse, delta, params)
+    dq = torch.empty((hq, tqp, d), dtype=torch.float32, device=q.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=q.device)
+    _qblk, kblk, sid, runs, bounds, rs, rc = ftab
+    csrc.launch(
+        "flex_dq_sparse",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), work.dq.data_ptr(), counter.data_ptr(),
+        dq.data_ptr(),
+        hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
+        params.block_k, work.dq.numel(), float(params.scale), float(params.softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dq
+
+
+def _dkv_sparse_kernel(q, k, v, do, lse, delta, btab, work: SparseWork,
+                       params: FlexAttnParams):
+    """The ``flex_dkv_sparse`` Hopper kernel on CUDA tensors: ``flex_dkv``'s
+    math over the (kv head, k block) items of the work list. Same contract
+    as :func:`_dkv_torch`."""
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dkv_sparse", q, k, v, do, lse, delta,
+                                               params)
+    dk = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
+    counter = torch.empty((1,), dtype=torch.int32, device=q.device)
+    _kblk, qblk, sid, runs, bounds, rs, rc = btab
+    csrc.launch(
+        "flex_dkv_sparse",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        qblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), work.dkv.data_ptr(), counter.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        hq, hk, tqp, tkp, d, tkp // params.block_k, params.block_q,
+        params.block_k, work.dkv.numel(), float(params.scale), float(params.softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return dk, dv
+
+
 class _FlexAttnCore(torch.autograd.Function):
     """Head-major, padded flex attention with its backward: the counterpart
     of the JAX ``_flex_attn_core`` custom vjp (``_flex_attn_core_fwd`` /
     ``_bwd``). Returns (out, lse, rowmax); rowmax is not differentiable.
-    CUDA tensors run ``flex_fwd`` / ``flex_dq`` / ``flex_dkv``, CPU tensors
-    their plain versions."""
+    CUDA tensors run the kernels of ``params.grid`` (the forward picked by
+    ``(grid, head_block)`` as the JAX ``_fwd_dispatch`` picks, the sparse
+    dq/dkv whenever the grid is sparse, as JAX ``_dq_pallas`` /
+    ``_dkv_pallas`` do), CPU tensors their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sink1d, ftab, btab, params: FlexAttnParams):
+    def forward(ctx, q, k, v, sink1d, ftab, btab, params: FlexAttnParams, work=None):
         ctx.kernel = on_card(q, k, v)
-        fwd = _fwd_kernel if ctx.kernel else _fwd_torch
-        out, lse, rowmax = fwd(q, k, v, sink1d, ftab, params)
+        sparse = params.grid == "sparse"
+        if not ctx.kernel:
+            fwd = _fwd_torch_sparse if sparse else _fwd_torch
+            out, lse, rowmax = fwd(q, k, v, sink1d, ftab, params)
+        elif sparse:
+            if work is None:
+                raise ValueError("grid='sparse' on the card needs the plan's work lists "
+                                 "(sparse_work)")
+            fwd = _fwd_sparse_hb_kernel if params.head_block > 1 else _fwd_sparse_kernel
+            out, lse, rowmax = fwd(q, k, v, sink1d, ftab, work, params)
+        elif params.head_block > 1:
+            raise NotImplementedError(
+                f"grid='row_major' with head_block={params.head_block} is the "
+                "head-batched row-major forward (_fwd_pallas_hb), still to port "
+                "(ROADMAP queue B item 2); use head_block=1 or grid='sparse'"
+            )
+        else:
+            out, lse, rowmax = _fwd_kernel(q, k, v, sink1d, ftab, params)
         ctx.save_for_backward(q, k, v, sink1d, out, lse)
-        ctx.btab, ctx.ftab, ctx.params = btab, ftab, params
+        ctx.btab, ctx.ftab, ctx.params, ctx.work = btab, ftab, params, work
         ctx.mark_non_differentiable(rowmax)
         return out, lse, rowmax
 
@@ -358,12 +651,16 @@ class _FlexAttnCore(torch.autograd.Function):
         acc_t = torch.promote_types(out.dtype, torch.float32)
         delta = (dout.to(acc_t) * out.to(acc_t)).sum(-1) - dlse.to(acc_t)
         do = dout.to(q.dtype).contiguous()
-        if ctx.kernel:
-            dq = _dq_kernel(q, k, v, do, lse, delta, ctx.ftab, params)
-            dk, dv = _dkv_kernel(q, k, v, do, lse, delta, ctx.btab, params)
+        args = (q, k, v, do, lse, delta)
+        if not ctx.kernel:
+            dq = _dq_torch(*args, ctx.ftab, params)
+            dk, dv = _dkv_torch(*args, ctx.btab, params)
+        elif params.grid == "sparse":
+            dq = _dq_sparse_kernel(*args, ctx.ftab, ctx.work, params)
+            dk, dv = _dkv_sparse_kernel(*args, ctx.btab, ctx.work, params)
         else:
-            dq = _dq_torch(q, k, v, do, lse, delta, ctx.ftab, params)
-            dk, dv = _dkv_torch(q, k, v, do, lse, delta, ctx.btab, params)
+            dq = _dq_kernel(*args, ctx.ftab, params)
+            dk, dv = _dkv_kernel(*args, ctx.btab, params)
         dsink = None
         if params.has_sink:
             # dL/dsink_h = -sum_q exp(sink_h - lse_hq) delta_eff_hq
@@ -371,7 +668,7 @@ class _FlexAttnCore(torch.autograd.Function):
                 torch.isneginf(lse), 0.0, torch.exp(sink1d.to(lse.dtype)[:, None] - lse)
             )
             dsink = -(w * delta.to(lse.dtype)).sum(dim=1).to(sink1d.dtype)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsink, None, None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsink, None, None, None, None
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -392,18 +689,21 @@ def on_card(*tensors: torch.Tensor) -> bool:
     )
 
 
-def flex_attn_headmajor(q, k, v, ftab, btab, params: FlexAttnParams, sink=None):
+def flex_attn_headmajor(q, k, v, ftab, btab, params: FlexAttnParams, sink=None,
+                        work: SparseWork | None = None):
     """Head-major differentiable core: q [hq, tqp, d], k/v [hk, tkp, d]
-    (block-multiple padded), the plan's forward and backward tables;
+    (block-multiple padded), the plan's forward and backward tables, and
+    for ``grid="sparse"`` on the card its work lists (:func:`sparse_work`);
     returns (out [hq, tqp, d], lse [hq, tqp], rowmax [hq, tqp]).
     Differentiable in q, k, v and sink (rowmax is not)."""
     hq = q.shape[0]
+    _check_variant(params, hq, k.shape[0])
     acc_t = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
     if sink is not None:
         sink1d = sink.to(device=q.device, dtype=acc_t).reshape(hq)
     else:
         sink1d = torch.zeros((hq,), dtype=acc_t, device=q.device)
-    return _FlexAttnCore.apply(q, k, v, sink1d, ftab, btab, params)
+    return _FlexAttnCore.apply(q, k, v, sink1d, ftab, btab, params, work)
 
 
 def _pad_tokens(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -431,8 +731,9 @@ def flex_attn_with_meta(
     """Flex attention with a prebuilt block plan. Differentiable in q/k/v/sink.
 
     Transposes to head-major, pads the tokens to block multiples (the ragged
-    tail is dropped after the call), and runs the kernels or the plain
-    versions; the transposes and pads stay ordinary autograd ops around the
+    tail is dropped after the call), and runs the kernels of ``grid`` (with
+    the plan's :func:`sparse_work` lists for the sparse grid on the card)
+    or the plain versions; the transposes and pads stay ordinary autograd ops around the
     core, as the JAX package keeps them outside its custom vjp. Returns
     (out [tq, hq, d], lse [tq, hq]) plus max_logits [hq] when
     ``return_max_logits`` (max_logits is not differentiable)."""
@@ -444,8 +745,6 @@ def flex_attn_with_meta(
         )
     if hq % hk:
         raise ValueError(f"hq {hq} is not a multiple of hk {hk}")
-    if grid not in GRID_KINDS:
-        raise ValueError(f"grid={grid!r} must be one of {GRID_KINDS}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     params = FlexAttnParams(
@@ -464,8 +763,12 @@ def flex_attn_with_meta(
     kh = _pad_tokens(k.transpose(0, 1), tkp)
     vh = _pad_tokens(v.transpose(0, 1), tkp)
     dev = str(q.device)
+    work = None
+    if params.grid == "sparse" and q.device.type == "cuda":
+        work = sparse_work(meta, dev, hq, hk, params.head_block)
     out_h, lse_h, rowmax_h = flex_attn_headmajor(
-        qh, kh, vh, fwd_tables(meta, dev), bwd_tables(meta, dev), params, sink=sink
+        qh, kh, vh, fwd_tables(meta, dev), bwd_tables(meta, dev), params, sink=sink,
+        work=work,
     )
     out = out_h.transpose(0, 1)[:tq]
     lse = lse_h.transpose(0, 1)[:tq]
@@ -510,6 +813,67 @@ def resolve_tile(head_dim: int, block_q: int | None, block_k: int | None) -> tup
     return int(block_q), int(block_k)
 
 
+def _auto_head_block(pref: int, hq: int, group: int) -> int:
+    """Largest head_block <= pref that divides hq and is a multiple of the
+    GQA group (the group itself when none is; pref <= 1 gives 1): the JAX
+    ``_auto_head_block``."""
+    if pref <= 1:
+        return 1
+    best = group if hq % group == 0 else 1
+    c = group
+    while c <= min(pref, hq):
+        if hq % c == 0:
+            best = c
+        c += group
+    return best
+
+
+def auto_kernel_config(
+    q_ranges,
+    k_ranges,
+    hq: int,
+    hk: int,
+    *,
+    fixed_block_q: int | None = None,
+    fixed_block_k: int | None = None,
+    attn_type_map=None,
+    head_dim: int = 128,
+    dtype: str = "bfloat16",
+    grid: str | None = None,
+) -> tuple[int, int, int, str]:
+    """(block_q, block_k, head_block, grid) for a mask, the counterpart of
+    the JAX ``auto_kernel_config`` sized for Hopper.
+
+    The tile comes from :func:`resolve_tile` (the caller's, the env's, or
+    ``HOPPER_TILES``). ``grid``: the caller's pin, else
+    ``MAGI_ATTENTION_GRID``, else ``"sparse"`` when the mask covers less
+    than ``SPARSE_DENSITY_THRESHOLD`` of its dense extent (the reference's
+    heterogeneous regime, where its cost model takes the sparse grid),
+    else ``"row_major"``. ``head_block``: ``MAGI_ATTENTION_HEAD_BLOCK``
+    snapped by :func:`_auto_head_block`, else the GQA group on the sparse
+    grid (one work item per kv head covers its G q heads), else 1. The
+    TPU cost model's rung tables do not carry over; ``dtype`` is accepted
+    for the reference's signature and not read."""
+    from .. import env
+    from ..tuning import SPARSE_DENSITY_THRESHOLD, mask_density
+
+    block_q, block_k = resolve_tile(head_dim, fixed_block_q, fixed_block_k)
+    group = max(hq // max(hk, 1), 1)
+    if grid is None:
+        grid = env.grid_override()
+    if grid is None:
+        dense = mask_density(q_ranges, k_ranges, attn_type_map) >= SPARSE_DENSITY_THRESHOLD
+        grid = "row_major" if dense else "sparse"
+    if grid not in GRID_KINDS:
+        raise ValueError(f"grid={grid!r} must be one of {GRID_KINDS}")
+    hb_env = env.head_block_override()
+    if hb_env is not None:
+        head_block = _auto_head_block(hb_env, hq, group)
+    else:
+        head_block = group if grid == "sparse" else 1
+    return block_q, block_k, head_block, grid
+
+
 def flex_flash_attn_func(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -531,12 +895,20 @@ def flex_flash_attn_func(
     """Single-device flex-flash-attention, differentiable in q/k/v/sink.
 
     The ranges are host values: the kernel plan is built once per unique
-    (mask, shape, blocking) and cached. ``head_block``/``grid`` resolve to
-    1/``"row_major"`` (the variant the Hopper kernel implements)."""
+    (mask, shape, blocking) and cached. ``block_q``/``block_k``/
+    ``head_block``/``grid`` left unset resolve through
+    :func:`auto_kernel_config`, as in the JAX package: heterogeneous masks
+    take the compact sparse grid, dense ones the row-major grid."""
     q_arr = np.ascontiguousarray(np.asarray(q_ranges, dtype=np.int64).reshape(-1, 2))
     k_arr = np.ascontiguousarray(np.asarray(k_ranges, dtype=np.int64).reshape(-1, 2))
     t_arr = np.ascontiguousarray(np.asarray(attn_type_map, dtype=np.int64).reshape(-1))
-    block_q, block_k = resolve_tile(q.shape[2], block_q, block_k)
+    if None in (block_q, block_k, head_block, grid):
+        block_q, block_k, auto_hb, grid = auto_kernel_config(
+            q_arr, k_arr, int(q.shape[1]), int(k.shape[1]),
+            fixed_block_q=block_q, fixed_block_k=block_k, attn_type_map=t_arr,
+            head_dim=int(q.shape[2]), grid=grid,
+        )
+        head_block = auto_hb if head_block is None else head_block
     meta = _cached_meta(
         q_arr.tobytes(),
         k_arr.tobytes(),
@@ -544,8 +916,8 @@ def flex_flash_attn_func(
         int(t_arr.shape[0]),
         int(q.shape[0]),
         int(k.shape[0]),
-        block_q,
-        block_k,
+        int(block_q),
+        int(block_k),
     )
     return flex_attn_with_meta(
         q,
@@ -556,7 +928,7 @@ def flex_flash_attn_func(
         softcap=softcap,
         sink=sink,
         out_dtype=out_dtype,
-        head_block=1 if head_block is None else head_block,
-        grid="row_major" if grid is None else grid,
+        head_block=head_block,
+        grid=grid,
         return_max_logits=return_max_logits,
     )

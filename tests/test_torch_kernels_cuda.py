@@ -3,8 +3,8 @@
 Marked ``cuda``: each test skips without ``torch.cuda.is_available()`` (the
 CPU has no nvcc and no card). On a machine with an H100 run
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``; ``chip_smoke.py``
-holds the same kernels against the same plain versions at the serving
-widths. bf16 tolerances as in ``chip_smoke.py``: out within 1e-2 + 1e-2 *
+holds the same kernels against the same plain versions at their main
+paths' widths. bf16 tolerances as in ``chip_smoke.py``: out within 1e-2 + 1e-2 *
 |ref| (P and the output are rounded to bf16), lse within 2e-4; dq, dk and
 dv against the plain f32 backward (the kernels round P and dS to bf16
 before their products): the largest error within 2e-2 max|ref| + 1e-3, the
@@ -178,12 +178,94 @@ def test_flex_fwd_refuses_what_it_does_not_implement(card):
 
     q = torch.randn((64, 4, 128), generator=card, device="cuda").bfloat16()
     k = q[:, :2].contiguous()
-    with pytest.raises(NotImplementedError, match="queue B"):
-        flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="sparse")
+    out, lse = flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="sparse")
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    with pytest.raises(NotImplementedError, match="queue B item 2"):
+        flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major", head_block=2)
     with pytest.raises(TypeError):
         flex_flash_attn_func(q.float(), k.float(), k.float(), [(0, 64)], [(0, 64)], [C])
     with pytest.raises(ValueError, match="tile"):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], block_q=32)
+
+
+# the sparse grid: each kernel against its plain version, twice for the same bits
+
+
+def _sparse_masks():
+    from magiattention_tpu_torch.testing.workloads import (
+        shared_question_q_overlap, split_slices, varlen_block_causal,
+    )
+
+    return {
+        "varlen_block_causal": split_slices(varlen_block_causal(1500, 6, 3)),
+        "shared_question": split_slices(shared_question_q_overlap(1500, 4)),
+        "full_inv_bi": ([(0, 500), (500, 1000), (1000, 1500)],
+                        [(0, 1500), (0, 1200), (300, 1500)], [F, I, B]),
+    }
+
+
+@pytest.mark.parametrize("hb_of_group", [1, 0, 2], ids=["hbG", "hb1", "hb2G"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", ["varlen_block_causal", "shared_question", "full_inv_bi"])
+def test_sparse_kernels_match_plain(card, mask, d, group, hb_of_group):
+    import dataclasses
+
+    qr, kr, ty = _sparse_masks()[mask]
+    hk = 2
+    hq = hk * group
+    hb = {1: group, 0: 1, 2: 2 * group}[hb_of_group]
+    fa, args, ftab, btab, params = _bwd_problem(card, 1500, 1500, hq, hk, d, qr, kr, ty,
+                                                softcap=30.0 if d == 64 else 0.0,
+                                                sink=mask == "shared_question")
+    params = dataclasses.replace(params, head_block=hb, grid="sparse")
+    meta = fa.build_block_meta(qr, kr, ty, 1500, 1500, block_q=64, block_k=64)
+    work = fa.sparse_work(meta, "cuda:0", hq, hk, hb)
+    q, k, v = args[:3]
+    sink = torch.randn((hq,), generator=card, device="cuda")
+    fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
+    out, lse, rowmax = fwd(q, k, v, sink, ftab, work, params)
+    ref, ref_lse, ref_rowmax = fa._fwd_torch_sparse(q, k, v, sink, ftab, params)
+    _close(out[:, :1500], ref[:, :1500], lse[:, :1500], ref_lse[:, :1500])
+    _close(out[:, :1500], ref[:, :1500], rowmax[:, :1500], ref_rowmax[:, :1500])
+    again = fwd(q, k, v, sink, ftab, work, params)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), again))
+
+    dq = fa._dq_sparse_kernel(*args, ftab, work, params)
+    dk, dv = fa._dkv_sparse_kernel(*args, btab, work, params)
+    torch.cuda.synchronize()
+    _bwd_close(dq, fa._dq_torch(*args, ftab, params))
+    ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+    _bwd_close(dk, ref_dk)
+    _bwd_close(dv, ref_dv)
+    assert torch.equal(dq, fa._dq_sparse_kernel(*args, ftab, work, params))
+    dk2, dv2 = fa._dkv_sparse_kernel(*args, btab, work, params)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("heads", [(8, 2), (4, 4)], ids=["hq8_hk2", "hq4_hk4"])
+def test_autograd_on_the_sparse_grid_runs_the_sparse_kernels(card, heads, monkeypatch):
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.ops import flex_flash_attn_func
+
+    monkeypatch.delenv("MAGI_ATTENTION_GRID", raising=False)
+    monkeypatch.delenv("MAGI_ATTENTION_HEAD_BLOCK", raising=False)
+    hq, hk = heads
+    qr, kr, ty = _sparse_masks()["varlen_block_causal"]
+
+    def rand(h):
+        return torch.randn((1500, h, 128), generator=card, device="cuda").bfloat16().requires_grad_()
+
+    q, k, v = rand(hq), rand(hk), rand(hk)
+    csrc.reset_launch_counts()
+    out, lse = flex_flash_attn_func(q, k, v, qr, kr, ty)  # the default choice: the sparse grid
+    (out.float().sum() + lse.sum()).backward()
+    assert torch.isfinite(q.grad.float()).all() and torch.isfinite(k.grad.float()).all()
+    fwd = "flex_fwd_sparse_hb" if hq > hk else "flex_fwd_sparse"
+    names = ("flex_fwd", "flex_dq", "flex_dkv", "flex_fwd_sparse", "flex_fwd_sparse_hb",
+             "flex_dq_sparse", "flex_dkv_sparse")
+    assert {n: csrc.launches[n] for n in names} == {
+        n: int(n in (fwd, "flex_dq_sparse", "flex_dkv_sparse")) for n in names}
 
 
 @pytest.mark.parametrize("splits", [1, 3, 4])
