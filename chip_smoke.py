@@ -6,36 +6,55 @@ NVIDIA card.
 
 Phases, each printing one JSON line:
 
-1. build — compile the eight Hopper kernels (the row-major ``flex_fwd``,
-   ``flex_dq``, ``flex_dkv``, the sparse-grid ``flex_fwd_sparse``,
-   ``flex_fwd_sparse_hb``, ``flex_dq_sparse``, ``flex_dkv_sparse``, and
-   ``paged_decode``) from the sources in ``magiattention_tpu_torch/csrc/``
-   with nvcc for sm_90a, all at once, and print the card's name and power
-   limit as nvidia-smi reports them;
+1. build — compile the nine Hopper kernels (the row-major ``flex_fwd``,
+   ``flex_fwd_hb``, ``flex_dq``, ``flex_dkv``, the sparse-grid
+   ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
+   ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
+   ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
+   (with two mutated copies for the planted faults), and print the card's
+   name and power limit as nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
-   bf16 at head_dim 128 (and 64 for the sparse grid), on the mask families
-   and ragged lengths below (the backward with 4 and with 2 q heads per kv
-   head and a random lse cotangent; the sparse grid at 1, 2 and 4 q heads
-   per kv head and one, G and 2G heads per work item, softcap and sink on
-   one case), each kernel run twice for the same bits, each with its
-   stated tolerance; faults planted in the kernels (the backward walks cut
-   short, the AMLA rescale skipped once per row in a mutated copy of the
-   sparse forward), which the checks must catch; then the row-major
-   kernels' times at their main path's shapes beside the plain version's,
-   a PyTorch ``scaled_dot_product_attention`` yardstick and the card's
-   bound;
+   bf16 at head_dim 128 (and 64 for the head-batched and sparse-grid
+   forwards), on the mask families and ragged lengths below (the backward
+   with 4 and with 2 q heads per kv head and a random lse cotangent; the
+   head-batched row-major forward at 1, 2 and 4 q heads per kv head and G
+   and 2G heads per block, and whether it equals ``flex_fwd`` bit for bit;
+   the sparse grid at 1, 2 and 4 q heads per kv head and one, G and 2G
+   heads per work item; softcap and sink on one case each), each kernel
+   run twice for the same bits, each with its stated tolerance; faults
+   planted in the kernels (the backward walks cut short, the AMLA rescale
+   skipped once per row in a mutated copy of the sparse forward, every head
+   of a head-batched item reading the first head's kv head in a mutated
+   copy of ``flex_fwd_hb``), which the checks must catch; then the
+   row-major kernels' times at their main path's shapes (``flex_fwd`` and
+   ``flex_fwd_hb`` at head_block G and 2G on the serving prefill) beside the
+   plain version's, a PyTorch ``scaled_dot_product_attention`` yardstick and
+   the card's bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
-   requests, prefill them (one chunked, so the continuation path runs), run
-   64 decode steps over the batch, and hold prefill outputs (prompts up to
-   4096 tokens) and every 8th decode step against the plain versions;
-4. training — the port's Llama trainer at the widths of the repo's
+   requests, prefill them (one chunked, so the continuation path runs) with
+   the automatic kernel choice (row-major, head_block 4: ``flex_fwd_hb``),
+   run 64 decode steps over the batch, and hold prefill outputs (prompts up
+   to 4096 tokens) and every 8th decode step against the plain versions;
+   then the same at multi-head widths (32 q / 32 kv heads), where the
+   choice is head_block 1 and the prefill runs ``flex_fwd``;
+4. prefix — shared-prefix serving at the same widths: a 4000-token prompt
+   (31 full pages and a 32-token tail), then 7 requests that begin with it
+   (``admit(tokens=)`` forks onto its pages; the first write of each splits
+   the shared tail page) and add 300-2000 tokens each, one prefilled in
+   512-token chunks; each suffix's rows held against the plain causal
+   attention over its whole prompt; 32 decode steps of the 8 with cascade
+   decode (one group on the 31 shared pages), the first step's cascade
+   ``auto`` and ``on`` held against the flat path and the plain decode; the
+   pages in use against a flat engine's;
+5. training — the port's Llama trainer at the widths of the repo's
    ``LlamaConfig`` (vocab 32000, dim 2048, 16 q / 8 kv heads, head_dim 128,
    ffn 5632, bf16 compute, fp32 masters), cut from 16 to 4 layers, on one
    8192-token stream packed as documents [4096, 2048, 2048]: 6 AdamW steps
-   on a fixed batch from ``--seed``, one layer's attention call of the
-   first step held against the plain forward and backward;
-5. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
+   on a fixed batch from ``--seed`` with the harness's blocking (row-major,
+   head_block 2: ``flex_fwd_hb``), one layer's attention call of the first
+   step held against the plain forward and backward;
+6. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
    backward, on the 16384-token varlen block-causal mask (12 documents),
    once at the ``LlamaConfig`` attention widths (16 q / 8 kv heads) and
    once at 8 / 8: the automatic choice must take the sparse grid (head_block
@@ -45,8 +64,8 @@ Phases, each printing one JSON line:
    row-major kernel's on the same problem, the plain version's, a PyTorch
    varlen (or SDPA) yardstick and the card's bound.
 
-The line before the last lists the eight kernels with their launches on the
-main paths, errors and times; the last line is
+The line before the last lists the nine kernels with their launches on the
+main paths (and which paths launched them), errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
 """
@@ -84,13 +103,12 @@ LSE_ATOL = 2e-4
 # of the tensor's largest entry (f32 summation-order noise)
 GRAD_RTOL, GRAD_ATOL, GRAD_L2, GRAD_BLOCK_ATOL = 2e-2, 1e-3, 1e-2, 1e-5
 GRAD_BLOCK = 64
-ROW_MAJOR = ("flex_fwd", "flex_dq", "flex_dkv")
+ROW_MAJOR = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv")
 SPARSE = ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")
 FLEX_KERNELS = ROW_MAJOR + SPARSE
 # the largest out (or gradient) error of each kernel over every comparison
 MAX_ERR = {name: 0.0 for name in (*FLEX_KERNELS, "paged_decode")}
-SERVING_KERNELS = ("flex_fwd", "paged_decode")
-TRAINING_KERNELS = ROW_MAJOR
+TRAINING_KERNELS = ("flex_fwd_hb", "flex_dq", "flex_dkv")
 
 
 class SmokeFailure(Exception):
@@ -363,6 +381,41 @@ class Flex:
         compare("flex_fwd", name, out[:, :tq], ref_out[:, :tq], lse[:, :tq],
                        ref_lse[:, :tq], {"rowmax": (rowmax[:, :tq], ref_rowmax[:, :tq])})
 
+    # -- the head-batched row-major forward -------------------------------------
+
+    def hb_kernel(self, hb):
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        return fa._fwd_hb_kernel(self.q, self.k, self.v, self.sink, self.tables,
+                                 dataclasses.replace(self.params, head_block=hb))
+
+    def hb_errors(self, got):
+        """(errors, failed checks) of a head-batched forward's results
+        against the plain forward, cut to the real rows."""
+        out, lse, rowmax = got
+        ref_out, ref_lse, ref_rowmax = self.plain()
+        tq = self.tq
+        return out_errors(out[:, :tq], ref_out[:, :tq],
+                          [("lse", lse[:, :tq], ref_lse[:, :tq]),
+                           ("rowmax", rowmax[:, :tq], ref_rowmax[:, :tq])])
+
+    def check_hb(self, name, hb) -> bool:
+        """``flex_fwd_hb`` at head_block ``hb`` against the plain forward,
+        twice for the same bits. Returns whether it equals ``flex_fwd`` on
+        the same inputs bit for bit."""
+        import torch
+
+        got = self.hb_kernel(hb)
+        torch.cuda.synchronize()
+        again = self.hb_kernel(hb)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: flex_fwd_hb differs between two runs")
+        errs, failed = self.hb_errors(got)
+        check(not failed, f"{name}: flex_fwd_hb fails the {failed} check(s): {errs}")
+        emit({"phase": "kernels", "kernel": "flex_fwd_hb", "case": name, "head_block": hb, **errs})
+        MAX_ERR["flex_fwd_hb"] = max(MAX_ERR["flex_fwd_hb"], errs["out_max_abs_err"])
+        return all(torch.equal(a, b) for a, b in zip(got, self.kernel()))
+
     # -- the sparse grid ------------------------------------------------------
 
     def sparse_kernel(self):
@@ -425,7 +478,7 @@ class Flex:
                                                 ("dv", dv[:, :tk], ref_dv[:, :tk])])
 
 
-# -- planted faults in the sparse grid's kernels ---------------------------------
+# -- planted faults in mutated copies of the forward kernels ----------------------
 
 # The AMLA forward with its rescale skipped once per row: at the first entry
 # where a row's quantized max grows, l and the accumulator keep their old
@@ -440,27 +493,39 @@ PLANT_SKIP_RESCALE = [
 ]
 
 
+# The head-batched row-major forward with the head-mapping bug that head
+# batching invites: every head of a work item reads the kv head of the
+# item's first head. Planted into a copy of flex_fwd_hb.cu; the checks of
+# ``check_hb`` must catch it where an item spans two kv heads.
+PLANT_FIRST_KV_HEAD = [
+    ("    const int kvh = (h_item + c) / group;\n", "    const int kvh = h_item / group;\n"),
+]
+
+
 def start_planted_build():
-    """nvcc of both sparse forwards over the mutated header, started now
-    and collected by :func:`planted_libraries`. Nothing of it is counted as
-    a main-path launch."""
+    """nvcc of both sparse forwards over the mutated header and of the
+    mutated head-batched forward, started now and collected by
+    :func:`planted_libraries`. Nothing of it is counted as a main-path
+    launch."""
     import shutil as sh
 
     from magiattention_tpu_torch import csrc
 
     out_dir = os.path.join(csrc.BUILD_DIR, "planted")
     os.makedirs(out_dir, exist_ok=True)
-    for name in ("flex_tile.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu"):
+    for name in ("flex_tile.cuh", "flex_fwd.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu"):
         sh.copyfile(os.path.join(csrc._DIR, name), os.path.join(out_dir, name))
-    with open(os.path.join(csrc._DIR, "flex_fwd_sparse.cuh")) as f:
-        src = f.read()
-    for old, new in PLANT_SKIP_RESCALE:
-        check(src.count(old) == 1, f"planted fault: {old.strip()!r} is not in the source once")
-        src = src.replace(old, new)
-    with open(os.path.join(out_dir, "flex_fwd_sparse.cuh"), "w") as f:
-        f.write(src)
+    for source, plants in (("flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
+                           ("flex_fwd_hb.cu", PLANT_FIRST_KV_HEAD)):
+        with open(os.path.join(csrc._DIR, source)) as f:
+            src = f.read()
+        for old, new in plants:
+            check(src.count(old) == 1, f"planted fault: {old.strip()!r} is not in {source} once")
+            src = src.replace(old, new)
+        with open(os.path.join(out_dir, source), "w") as f:
+            f.write(src)
     procs = {}
-    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb"):
+    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_fwd_hb"):
         lib = os.path.join(out_dir, f"lib{name}_planted.so")
         cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -503,7 +568,8 @@ def sparse_planted_faults(p, planted) -> dict:
         return (*tab[:6], (tab[6] - 1).clamp_min(0).contiguous())
 
     caught = {}
-    for name, lib in planted.items():
+    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb"):
+        lib = planted[name]
         hq, hk = p.q.shape[0], p.k.shape[0]
         p.hb = hq // hk if name.endswith("_hb") else 1
         p.sparse_params = dc.replace(p.sparse_params, head_block=p.hb)
@@ -557,6 +623,61 @@ def flex_cases(gen) -> None:
         Flex(gen, tq, tk, hq, 4, qr, kr, ty, **kw).check_bwd(f"{name}_bwd_g2")
 
 
+def hb_planted_fault(gen, planted) -> dict:
+    """The checks of ``check_hb`` on the mutated ``flex_fwd_hb`` (every
+    head of an item on the first head's kv head), on a causal 2048 case at
+    G = 2 whose head_block 4 spans two kv heads. Returns which checks catch
+    it; a fault that passes them fails the smoke."""
+    import torch
+    from magiattention_tpu_torch import csrc
+
+    p = Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1])
+    real, launched = csrc._libs["flex_fwd_hb"], csrc.launches["flex_fwd_hb"]
+    csrc._libs["flex_fwd_hb"] = planted["flex_fwd_hb"]
+    try:
+        got = p.hb_kernel(4)
+        torch.cuda.synchronize()
+    finally:
+        csrc._libs["flex_fwd_hb"], csrc.launches["flex_fwd_hb"] = real, launched
+    errs, failed = p.hb_errors(got)
+    check(bool(failed), f"planted fault in flex_fwd_hb passes the forward checks: {errs}")
+    return {"first_kv_head_for_every_head:flex_fwd_hb": {"failed_checks": failed, **errs}}
+
+
+def hb_cases(gen) -> dict:
+    """``flex_fwd_hb`` against the plain forward on the mask families of
+    ``flex_cases`` (softcap on one, sink on another) at 8 q heads with G
+    q heads per kv head, G in {1, 2, 4}, head_block G and 2G (2 at G = 1:
+    an item of two kv heads), d 128 and 64. Returns how many cases equal
+    ``flex_fwd`` bit for bit."""
+    C, F, I, B = 1, 0, 2, 3
+    cases = [
+        ("hb_causal_whole", 2048, 2048, [(0, 2048)], [(0, 2048)], [C], {}),
+        ("hb_varlen_causal_softcap", 2000, 2000, [(0, 700), (700, 1500), (1500, 2000)],
+         [(0, 700), (700, 1500), (1500, 2000)], [C, C, C], {"softcap": 30.0}),
+        ("hb_full", 512, 768, [(0, 512)], [(0, 768)], [F], {}),
+        ("hb_invcausal", 768, 768, [(0, 768)], [(0, 768)], [I], {}),
+        ("hb_bicausal", 512, 768, [(0, 512)], [(0, 768)], [B], {}),
+        ("hb_continuation", 512, 2560, [(0, 512)], [(0, 2560)], [C], {}),
+        ("hb_uncovered_rows_sink", 1000, 1000, [(0, 600)], [(0, 600)], [C],
+         {"sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
+        ("hb_uncovered_rows", 1000, 1000, [(100, 600)], [(0, 500)], [F], {}),
+    ]
+    equal, differ = 0, []
+    for name, tq, tk, qr, kr, ty, kw in cases:
+        for g in (1, 2, 4):
+            for d in (128, 64):
+                p = Flex(gen, tq, tk, 8, 8 // g, qr, kr, ty, d=d, **kw)
+                for hb in ((2,) if g == 1 else (g, 2 * g)):
+                    case = f"{name}_g{g}_d{d}"
+                    if p.check_hb(case, hb):
+                        equal += 1
+                    else:
+                        differ.append(f"{case}_hb{hb}")
+    return {"cases": equal + len(differ), "bitwise_equal_to_flex_fwd": equal,
+            "differ_from_flex_fwd": differ}
+
+
 def sparse_cases(gen) -> None:
     """The sparse-grid kernels against their plain versions: every mask
     family with 4 q heads per kv head at d 128 (a work item of G heads,
@@ -594,14 +715,25 @@ def sparse_cases(gen) -> None:
 
 
 def flex_timing(gen, t: int) -> dict:
-    """Kernel, plain version and SDPA on one causal prefill at the serving
-    widths, plus the card's bound for that work."""
-    import torch
+    """The serving prefill's forward on one causal prompt at the serving
+    widths: ``flex_fwd`` (head_block 1) and ``flex_fwd_hb`` at head_block G
+    and 2G, timed in turns (each twice, in mirrored order), each checked at
+    this shape first; the plain version, SDPA and the card's bound for
+    that work. Returns one timing record per kernel (``flex_fwd_hb`` at G,
+    the automatic choice) and the 2G time."""
     import torch.nn.functional as Fn
 
     p = Flex(gen, t, t, HQ, HK, [(0, t)], [(0, t)], [1])
+    g = HQ // HK
     p.check(f"flex_causal_{t}_serving_widths")
-    ms = cuda_ms(p.kernel, reps=20)
+    bitwise = {hb: p.check_hb(f"flex_causal_{t}_serving_widths", hb) for hb in (g, 2 * g)}
+    runs = {"flex_fwd": p.kernel, f"hb{g}": lambda: p.hb_kernel(g),
+            f"hb{2 * g}": lambda: p.hb_kernel(2 * g)}
+    order = list(runs) + list(reversed(runs))
+    samples = {name: [] for name in runs}
+    for name in order:
+        samples[name].append(cuda_ms(runs[name], reps=20))
+    ms = {name: sum(x) / len(x) for name, x in samples.items()}
     plain_ms = cuda_ms(p.plain, reps=3, warmup=1)
     q = p.q[:, :t].unsqueeze(0)
     k = p.k[:, :t].unsqueeze(0)
@@ -613,8 +745,16 @@ def flex_timing(gen, t: int) -> dict:
     flops = 4.0 * p.meta.total_area * D * HQ
     nbytes = 2 * (2 * t * HQ * D + 2 * t * HK * D) + 4 * 2 * t * HQ
     bound_ms, bound_by = bound(flops, nbytes)
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+    def record(kernel_ms):
+        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms}
+
+    emit({"phase": "fwd_timing", "tokens": t, "hq": HQ, "hk": HK,
+          "ms_in_turns": samples, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+          "bound_ms": bound_ms, "bitwise_equal_to_flex_fwd": bitwise})
+    return {"flex_fwd": record(ms["flex_fwd"]), "flex_fwd_hb": record(ms[f"hb{g}"]),
+            "flex_fwd_hb_2g_ms": ms[f"hb{2 * g}"]}
 
 
 def bwd_timing(gen, t: int, planted) -> dict:
@@ -628,6 +768,7 @@ def bwd_timing(gen, t: int, planted) -> dict:
     hq, hk = TRAIN_HQ, TRAIN_HK
     p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1])
     p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
+    p.check_hb(f"flex_causal_{t}_training_widths", hq // hk)
     emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
           "caught": p.planted_faults()})
     emit({"phase": "planted_faults", "case": f"sparse_grid_causal_{t}_training_widths",
@@ -646,6 +787,9 @@ def bwd_timing(gen, t: int, planted) -> dict:
         torch.autograd.grad(fwd(), (q, k, v), do)
 
     fwd_ms = cuda_ms(p.kernel, reps=10)
+    g = hq // hk
+    hb_ms = cuda_ms(lambda: p.hb_kernel(g), reps=10)  # the trainer's forward, head_block G
+    fwd_ms = (fwd_ms + cuda_ms(p.kernel, reps=10)) / 2
     sdpa_fwd_ms = cuda_ms(fwd, reps=10)
     sdpa_bwd_ms = cuda_ms(fwd_bwd, reps=10) - sdpa_fwd_ms
     area = p.meta.total_area
@@ -660,6 +804,7 @@ def bwd_timing(gen, t: int, planted) -> dict:
                      "bound_by": dkv_bound[1], "library_ms": None},
         "sdpa_bwd_ms_for_the_pair": sdpa_bwd_ms,
         "flex_fwd_ms_same_problem": fwd_ms,
+        f"flex_fwd_hb_head_block_{g}_ms_same_problem": hb_ms,
         "sdpa_fwd_ms_same_problem": sdpa_fwd_ms,
     }
 
@@ -743,40 +888,53 @@ def decode_timing(engine, slots, gen) -> dict:
 
 
 def plain_causal_prefill(q, k, v):
-    """The plain version of a one-shot causal prefill ([t, h, d] layout)."""
+    """The plain version of a causal prefill ([t, h, d] layout): the rows of
+    ``q`` are the last ``len(q)`` positions of the prompt whose keys are
+    ``k`` (bottom-right aligned causal, as a continued prefill attends)."""
     from magiattention_tpu_torch.ops import flex_attn as fa
 
-    t = q.shape[0]
+    t, tk = q.shape[0], k.shape[0]
     bq, bk = fa.resolve_tile(D, None, None)
-    meta = fa.build_block_meta([(0, t)], [(0, t)], [1], t, t, block_q=bq, block_k=bk)
-    tp = meta.num_q_blocks * bq
+    meta = fa.build_block_meta([(0, t)], [(0, tk)], [1], t, tk, block_q=bq, block_k=bk)
     params = fa.FlexAttnParams(bq, bk, 1.0 / math.sqrt(D), 0.0, False, q.dtype)
     sink = q.new_zeros((q.shape[1],), dtype=q.dtype).float()
     out, lse, _ = fa._fwd_torch(
-        fa._pad_tokens(q.transpose(0, 1), tp), fa._pad_tokens(k.transpose(0, 1), tp),
-        fa._pad_tokens(v.transpose(0, 1), tp), sink, fa.fwd_tables(meta, str(q.device)),
-        params,
+        fa._pad_tokens(q.transpose(0, 1), meta.num_q_blocks * bq),
+        fa._pad_tokens(k.transpose(0, 1), meta.num_k_blocks * bk),
+        fa._pad_tokens(v.transpose(0, 1), meta.num_k_blocks * bk), sink,
+        fa.fwd_tables(meta, str(q.device)), params,
     )
     return out.transpose(0, 1)[:t], lse.transpose(0, 1)[:t]
 
 
-def serving(gen) -> tuple[dict, object, list[int]]:
+def serving(gen, hq=None, hk=None, prompts=(1000, 1733, 2048, 2900, 4096, 5120, 6500, 8000),
+            chunked=3, steps=64, phase="serving") -> tuple[dict, object, list[int]]:
+    """The serving path at ``hq`` / ``hk`` heads: admit the prompts, prefill
+    them (prompt ``chunked`` in 2048-token chunks) with the automatic kernel
+    choice, run ``steps`` decode steps over the batch; every forward must
+    launch the chosen kernel (``flex_fwd_hb`` at head_block G > 1,
+    ``flex_fwd`` at G = 1) and no other flex kernel."""
     import torch
     from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.ops import flex_attn as fa
     from magiattention_tpu_torch.serving import ServingEngine, decode_reference
 
-    prompts = [1000, 1733, 2048, 2900, 4096, 5120, 6500, 8000]
-    chunked = 3  # the 2900-token prompt is prefilled in 2048-token chunks
-    steps = 64
-    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+    hq, hk = hq or HQ, hk or HK
+    g = hq // hk
+    choice = fa.auto_kernel_config([(0, prompts[0])], [(0, prompts[0])], hq, hk,
+                                   attn_type_map=[1], head_dim=D)
+    check(choice == (64, 64, g, "row_major"),
+          f"{phase}: the causal prefill's choice is {choice}, not (64, 64, {g}, 'row_major')")
+    fwd = "flex_fwd_hb" if g > 1 else "flex_fwd"
+    engine = ServingEngine(num_pages=1024, num_kv_heads=hk, head_dim=D, page_size=PAGE,
                            max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
     csrc.reset_launch_counts()
     slots, prefill_ms, checked = [], [], []
     for i, t in enumerate(prompts):
         res = engine.admit(t)
         check(res.admitted, f"admission of a {t}-token prompt refused: {res.reason}")
-        q = torch.randn((t, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
-        kv = torch.randn((2, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn((t, hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+        kv = torch.randn((2, t, hk, D), generator=gen, device="cuda").to(torch.bfloat16)
         if i == chunked:
             os.environ["MAGI_ATTENTION_PREFILL_CHUNK"] = "2048"
         try:
@@ -787,19 +945,19 @@ def serving(gen) -> tuple[dict, object, list[int]]:
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
         finally:
             os.environ.pop("MAGI_ATTENTION_PREFILL_CHUNK", None)
-        check(out.shape == (t, HQ, D) and bool(torch.isfinite(out).all()),
+        check(out.shape == (t, hq, D) and bool(torch.isfinite(out).all()),
               f"prefill {t}: bad output")
         if t <= 4096:
             ref_out, ref_lse = plain_causal_prefill(q, kv[0], kv[1])
-            compare("flex_fwd", f"serving_prefill_{t}" + ("_chunked" if i == chunked else ""),
+            compare(fwd, f"{phase}_prefill_{t}" + ("_chunked" if i == chunked else ""),
                     out, ref_out, lse, ref_lse)
             checked.append(t)
         slots.append(res.slot)
 
     step_ms = []
     for step in range(steps):
-        q = torch.randn((len(slots), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
-        kv = torch.randn((2, len(slots), HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn((len(slots), hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+        kv = torch.randn((2, len(slots), hk, D), generator=gen, device="cuda").to(torch.bfloat16)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, lse = engine.decode_step(q, kv[0], kv[1], slots)
@@ -810,17 +968,21 @@ def serving(gen) -> tuple[dict, object, list[int]]:
             idx = torch.as_tensor(slots, device="cuda")
             ref_out, ref_lse = decode_reference(
                 q, engine.cache, engine.cache.block_tables[idx], engine.cache.seq_lens[idx])
-            compare("paged_decode", f"serving_decode_step{step}", out, ref_out, lse, ref_lse)
+            compare("paged_decode", f"{phase}_decode_step{step}", out, ref_out, lse, ref_lse)
     lengths = [engine.length(s) for s in slots]
     check(lengths == [t + steps for t in prompts], f"final lengths {lengths}")
-    launches = {n: csrc.launches[n] for n in SERVING_KERNELS}
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    sparse = {n: csrc.launches[n] for n in SPARSE if csrc.launches[n]}
-    check(not sparse, f"the serving path launched sparse-grid kernels: {sparse}")
+    launches = {n: csrc.launches[n] for n in (*FLEX_KERNELS, "paged_decode") if csrc.launches[n]}
+    forwards = len(prompts) + math.ceil(prompts[chunked] / 2048) - 1
+    check(launches.get("paged_decode", 0) > 0 and launches.get(fwd) == forwards
+          and set(launches) == {fwd, "paged_decode"},
+          f"{phase} launches {launches}: expected {forwards} of {fwd} (one per forward), "
+          "paged_decode, and no other kernel")
     decode_s = sum(step_ms) / 1e3
     summary = {
-        "phase": "serving",
-        "prompts": prompts,
+        "phase": phase,
+        "heads": {"hq": hq, "hk": hk, "head_dim": D},
+        "choice": dict(zip(("block_q", "block_k", "head_block", "grid"), choice)),
+        "prompts": list(prompts),
         "prefill_ms": prefill_ms,
         "prefill_checked_tokens": checked,
         "decode_steps": steps,
@@ -832,6 +994,168 @@ def serving(gen) -> tuple[dict, object, list[int]]:
         "pages_in_use": engine.allocator.pages_in_use,
     }
     return summary, engine, slots
+
+
+# -- shared-prefix serving ----------------------------------------------------------
+
+PREFIX_LEN = 4000  # 31 full pages of 128 tokens and a 32-token tail
+PREFIX_SUFFIXES = (300, 512, 777, 1024, 1500, 1800, 2000)
+PREFIX_CHUNKED = 4  # the 1500-token suffix is prefilled in 512-token chunks
+PREFIX_CHUNK = 512
+PREFIX_STEPS = 32
+VOCAB = 128256  # Llama-3.1-8B's vocabulary: the token ids the trie hashes
+
+
+def prefix(gen) -> dict:
+    """Shared-prefix serving through ``ServingEngine``'s defaults: one
+    registrant prompt, 7 requests forking onto its pages, cascade decode.
+    Every prefill row is held against the plain causal attention over its
+    whole prompt, the first decode step's cascade ``auto`` and ``on``
+    against the flat path and the plain decode."""
+    import torch
+    from magiattention_tpu_torch import csrc, env
+    from magiattention_tpu_torch.serving import (
+        ServingEngine, cascade_decode_attn, decode_attn_paged, decode_reference,
+        plan_cascade_groups,
+    )
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    full = PREFIX_LEN // PAGE
+    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+    ids = torch.randint(0, VOCAB, (PREFIX_LEN + sum(PREFIX_SUFFIXES),), generator=gen,
+                        device="cuda").tolist()
+    system, rest = ids[:PREFIX_LEN], ids[PREFIX_LEN:]
+    k_sys, v_sys = rand(PREFIX_LEN, HK, D), rand(PREFIX_LEN, HK, D)
+    csrc.reset_launch_counts()
+
+    def timed_prefill(q, k, v, slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lse = engine.prefill(q, k, v, slot)
+        torch.cuda.synchronize()
+        return out, lse, (time.perf_counter() - t0) * 1e3
+
+    res = engine.admit(PREFIX_LEN, tokens=system)
+    check(res.admitted and res.prefix_len == 0, f"prefix: registrant admission {res}")
+    q = rand(PREFIX_LEN, HQ, D)
+    out, lse, registrant_ms = timed_prefill(q, k_sys, v_sys, res.slot)
+    ref_out, ref_lse = plain_causal_prefill(q, k_sys, v_sys)
+    compare("flex_fwd_hb", f"prefix_registrant_{PREFIX_LEN}", out, ref_out, lse, ref_lse)
+    slots, suffix_ms = [res.slot], []
+    tail_page = engine.allocator.slot_pages(res.slot)[full]
+    for i, n in enumerate(PREFIX_SUFFIXES):
+        toks, rest = system + rest[:n], rest[n:]
+        res = engine.admit(len(toks), tokens=toks)
+        check(res.admitted and res.prefix_len == PREFIX_LEN,
+              f"prefix: request {i} admitted as {res}, not with prefix_len {PREFIX_LEN}")
+        q, k, v = rand(n, HQ, D), rand(n, HK, D), rand(n, HK, D)
+        if i == PREFIX_CHUNKED:
+            os.environ["MAGI_ATTENTION_PREFILL_CHUNK"] = str(PREFIX_CHUNK)
+        try:
+            out, lse, ms = timed_prefill(q, k, v, res.slot)
+        finally:
+            os.environ.pop("MAGI_ATTENTION_PREFILL_CHUNK", None)
+        suffix_ms.append(ms)
+        ref_out, ref_lse = plain_causal_prefill(q, torch.cat([k_sys, k]), torch.cat([v_sys, v]))
+        compare("flex_fwd_hb", f"prefix_suffix_{n}" + ("_chunked" if i == PREFIX_CHUNKED else ""),
+                out, ref_out, lse, ref_lse)
+        pages = engine.allocator.slot_pages(res.slot)
+        check(pages[:full] == engine.allocator.slot_pages(slots[0])[:full]
+              and pages[full] != tail_page,
+              f"prefix: request {i} does not share the 31 full pages or kept the shared tail")
+        slots.append(res.slot)
+    # the copy-on-write splits left the registrant's tail page as it wrote it
+    tail = PREFIX_LEN - full * PAGE
+    check(torch.equal(engine.cache.k_pages[tail_page, :tail], k_sys[full * PAGE:])
+          and torch.equal(engine.cache.v_pages[tail_page, :tail], v_sys[full * PAGE:]),
+          "prefix: a fork's write changed the registrant's tail page")
+    pages_after_prefill = engine.allocator.pages_in_use
+    lengths = [PREFIX_LEN + n for n in (0, *PREFIX_SUFFIXES)]
+    flat_pages = sum(engine.allocator.pages_needed(t) for t in lengths)
+    check(flat_pages - pages_after_prefill >= len(PREFIX_SUFFIXES) * full,
+          f"prefix: {pages_after_prefill} pages in use, a flat engine's {flat_pages}: "
+          f"fewer than {len(PREFIX_SUFFIXES) * full} saved")
+    groups = plan_cascade_groups(engine._slot_prefix, slots)
+    check(len(groups) == 1 and len(groups[0].members) == len(slots)
+          and len(groups[0].shared_pages) == full,
+          f"prefix: cascade groups {[(len(g.shared_pages), g.members) for g in groups]}")
+
+    # the first step three ways on one state: cascade auto, on, and flat
+    seq_lens, host_lens = engine.cache.seq_lens.clone(), dict(engine._lengths)
+    q, k, v = rand(len(slots), HQ, D), rand(len(slots), HK, D), rand(len(slots), HK, D)
+    first = {}
+    for mode in ("auto", "on", "off"):
+        engine.cache.seq_lens.copy_(seq_lens)
+        engine._lengths.update(host_lens)
+        first[mode] = engine.decode_step(q, k, v, slots, cascade=mode)
+    torch.cuda.synchronize()
+    idx = torch.as_tensor(slots, device="cuda")
+    ref_out, ref_lse = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
+                                        engine.cache.seq_lens[idx])
+    for mode, (out, lse) in first.items():
+        compare("paged_decode", f"prefix_decode_step0_cascade_{mode}", out, ref_out, lse, ref_lse)
+    for mode in ("auto", "on"):
+        compare("paged_decode", f"prefix_decode_step0_cascade_{mode}_vs_flat", first[mode][0],
+                first["off"][0], first[mode][1], first["off"][1])
+    step_ms = []
+    for step in range(1, PREFIX_STEPS):
+        q, k, v = rand(len(slots), HQ, D), rand(len(slots), HK, D), rand(len(slots), HK, D)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lse = engine.decode_step(q, k, v, slots)  # MAGI_ATTENTION_CASCADE, default auto
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step % 8 == 0:
+            ref_out, ref_lse = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
+                                                engine.cache.seq_lens[idx])
+            compare("paged_decode", f"prefix_decode_step{step}", out, ref_out, lse, ref_lse)
+    check([engine.length(s) for s in slots] == [t + PREFIX_STEPS for t in lengths],
+          f"prefix: final lengths {[engine.length(s) for s in slots]}")
+    launches = {n: csrc.launches[n] for n in (*FLEX_KERNELS, "paged_decode") if csrc.launches[n]}
+    forwards = 1 + len(PREFIX_SUFFIXES) + math.ceil(PREFIX_SUFFIXES[PREFIX_CHUNKED] / PREFIX_CHUNK) - 1
+    check(launches.get("flex_fwd_hb") == forwards and launches.get("paged_decode", 0) > 0
+          and set(launches) == {"flex_fwd_hb", "paged_decode"},
+          f"prefix launches {launches}: expected {forwards} of flex_fwd_hb, paged_decode, "
+          "and no other kernel")
+    # the decode attention alone on the final state, cascade against flat,
+    # in turns (host clock, synchronised: what a decode step pays for it)
+    attn = {"cascade": lambda: cascade_decode_attn(q, engine.cache, slots, groups),
+            "flat": lambda: decode_attn_paged(q, engine.cache, idx)}
+    attn_ms = {name: [] for name in attn}
+    for name in ("cascade", "flat", "flat", "cascade"):
+        attn[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            attn[name]()
+        torch.cuda.synchronize()
+        attn_ms[name].append((time.perf_counter() - t0) * 1e2)
+    decode_s = sum(step_ms) / 1e3
+    return {
+        "phase": "prefix",
+        "card": nvidia_smi_line(),
+        "heads": {"hq": HQ, "hk": HK, "head_dim": D, "page_size": PAGE},
+        "prefix_tokens": PREFIX_LEN, "shared_full_pages": full, "suffixes": list(PREFIX_SUFFIXES),
+        "chunked_suffix": {"tokens": PREFIX_SUFFIXES[PREFIX_CHUNKED], "chunk": PREFIX_CHUNK},
+        "registrant_prefill_ms": registrant_ms,
+        "suffix_prefill_ms": suffix_ms,
+        "pages_in_use_after_prefill": pages_after_prefill,
+        "flat_engine_pages": flat_pages,
+        "pages_saved": flat_pages - pages_after_prefill,
+        "pages_in_use_after_decode": engine.allocator.pages_in_use,
+        "cascade_mode": env.cascade_mode(),
+        "cascade_groups": [{"members": len(g.members), "shared_pages": len(g.shared_pages)}
+                           for g in groups],
+        "decode_steps": PREFIX_STEPS,
+        "decode_batch": len(slots),
+        "decode_ms_per_step_cascade_auto_steps_2_to_32": sum(step_ms) / len(step_ms),
+        "decode_tokens_per_s": len(slots) * len(step_ms) / decode_s,
+        "decode_attention_ms_final_state_in_turns": attn_ms,
+        "launches": launches,
+    }
 
 
 # -- the training path ---------------------------------------------------------
@@ -864,7 +1188,7 @@ def attention_check(model, cap) -> None:
     ftab, btab = fa.fwd_tables(meta, "cuda:0"), fa.bwd_tables(meta, "cuda:0")
     sink = torch.zeros((q.shape[0],), device="cuda")
     ref_out, ref_lse, _ = fa._fwd_torch(q, k, v, sink, ftab, params)
-    compare("flex_fwd", "training_layer0_step0", cap["out"], ref_out[:, :t].transpose(0, 1),
+    compare("flex_fwd_hb", "training_layer0_step0", cap["out"], ref_out[:, :t].transpose(0, 1),
             cap["lse"], ref_lse[:, :t].transpose(0, 1))
     # the model does not use lse: its cotangent is 0, delta_eff = sum dout * out
     lse = head_major(cap["lse"], tqp)
@@ -879,7 +1203,8 @@ def attention_check(model, cap) -> None:
 
 
 KERNEL_GROUPS = (  # kernel-name fragments -> the layer a step's device time goes to
-    ("attention kernels", ("flex_fwd_kernel", "flex_dq_kernel", "flex_dkv_kernel")),
+    ("attention kernels", ("flex_fwd_kernel", "flex_fwd_hb_kernel", "flex_dq_kernel",
+                           "flex_dkv_kernel")),
     ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
     ("optimizer", ("multi_tensor", "adam")),
 )
@@ -934,6 +1259,9 @@ def training(seed: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed)  # the card, by default
+    choice = (model.meta.block_q, model.meta.block_k, model.head_block)
+    check(choice == (64, 64, cfg.n_heads // cfg.n_kv_heads),
+          f"training: the harness's blocking is {choice}, not (64, 64, G)")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
     labels = torch.roll(tokens, -1)  # the next token
@@ -945,7 +1273,8 @@ def training(seed: int) -> dict:
     def capture(q, k, v):
         """The model's attention, holding on to the first call's operands,
         results and gradients (no extra launch)."""
-        out, lse = flex_attn_with_meta(q, k, v, model.meta, out_dtype=cfg.torch_dtype)
+        out, lse = flex_attn_with_meta(q, k, v, model.meta, out_dtype=cfg.torch_dtype,
+                                       head_block=model.head_block)
         if not cap:
             cap.update(q=q.detach(), k=k.detach(), v=v.detach(), out=out.detach(), lse=lse.detach())
             for name, x in (("dq", q), ("dk", k), ("dv", v), ("dout", out)):
@@ -965,13 +1294,12 @@ def training(seed: int) -> dict:
         losses.append(loss)
         if i == 0:
             del model.attention
-    launches = {n: csrc.launches[n] for n in TRAINING_KERNELS}
-    sparse = {n: csrc.launches[n] for n in SPARSE if csrc.launches[n]}
-    check(not sparse, f"the training path launched sparse-grid kernels: {sparse}")
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
     peak = torch.cuda.max_memory_allocated()
     expected = TRAIN_LAYERS * TRAIN_STEPS
-    check(all(n == expected for n in launches.values()),
-          f"training launches {launches}, expected {expected} of each")
+    check(launches == {n: expected for n in TRAINING_KERNELS},
+          f"training launches {launches}, expected {expected} of each of {TRAINING_KERNELS} "
+          "and no other flex kernel")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall on a fixed batch: {losses}")
     check(set(cap) == {"q", "k", "v", "out", "lse", "dq", "dk", "dv", "dout"},
@@ -984,6 +1312,8 @@ def training(seed: int) -> dict:
         "phase": "training",
         "config": {**dataclasses.asdict(cfg), "n_layers_full": full.n_layers},
         "cut": f"n_layers {full.n_layers} -> {TRAIN_LAYERS} (depth only; every width as configured)",
+        "choice": {"block_q": choice[0], "block_k": choice[1], "head_block": choice[2],
+                   "grid": "row_major"},
         "docs": TRAIN_DOCS,
         "tokens_per_step": total,
         "optimizer": {"AdamW": {**ADAMW, "betas": list(ADAMW["betas"])}},
@@ -1251,8 +1581,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     flex_cases(gen)
+    hb_line = hb_cases(gen)
+    emit({"phase": "kernels", "kernel": "flex_fwd_hb", **hb_line})
+    emit({"phase": "planted_faults", "case": "hb_causal_2048_g2_head_block_4",
+          "caught": hb_planted_fault(gen, planted)})
     sparse_cases(gen)
-    flex_t = flex_timing(gen, 4096)
+    fwd_t = flex_timing(gen, 4096)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
     decode_cases(gen)
@@ -1262,6 +1596,15 @@ def main(argv=None) -> int:
     dec_t = decode_timing(engine, slots, gen)
     emit({"phase": "decode_timing", **dec_t})
     del engine
+    torch.cuda.empty_cache()
+    # multi-head widths (G = 1): the choice is head_block 1, the prefill flex_fwd
+    mha, engine, _ = serving(gen, hq=HQ, hk=HQ, prompts=(2048, 3000), chunked=1, steps=8,
+                             phase="serving_mha")
+    emit(mha)
+    del engine
+    prefix_line = prefix(gen)
+    emit(prefix_line)
+    torch.cuda.empty_cache()
 
     train = training(args.seed)
     emit(train)
@@ -1271,12 +1614,15 @@ def main(argv=None) -> int:
     emit(hetero_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
-    by_path = {"serving": summary["launches"], "training": train["launches"],
+    by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
+               "prefix": prefix_line["launches"], "training": train["launches"],
                "hetero": hetero_line["launches"]}
-    times = {"flex_fwd": flex_t, "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
+    times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
+             "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
+        "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),
         "flex_fwd_sparse": ("flex_fwd_sparse.cu", "magiattention_tpu/ops/flex_attn.py:772"),
         "flex_fwd_sparse_hb": ("flex_fwd_sparse_hb.cu", "magiattention_tpu/ops/flex_attn.py:938"),
         "flex_dq": ("flex_dq.cu", "magiattention_tpu/ops/flex_attn.py:1168"),
@@ -1285,6 +1631,7 @@ def main(argv=None) -> int:
         "flex_dkv_sparse": ("flex_dkv_sparse.cu", "magiattention_tpu/ops/flex_attn.py:1347"),
         "paged_decode": ("decode.cu", "magiattention_tpu/serving/decode_attn.py:284"),
     }
+    check(set(sources) == set(csrc.KERNELS), f"the kernels line misses {set(csrc.KERNELS) - set(sources)}")
     kernels = []
     for name, (src, replaces) in sources.items():
         paths = {p: n[name] for p, n in by_path.items() if n.get(name)}

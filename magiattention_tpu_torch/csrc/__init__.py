@@ -2,10 +2,11 @@
 
 Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
-``int``; the return value is the ``cudaError_t`` of the launch); the seven
-flex-attention kernels share ``flex_tile.cuh``, the backward ones the
-per-item bodies of ``flex_bwd.cuh`` and the two sparse-grid forwards
-``flex_fwd_sparse.cuh``. On first use :func:`build`
+``int``; the return value is the ``cudaError_t`` of the launch); the eight
+flex-attention kernels share ``flex_tile.cuh``, the two row-major forwards
+the walk of ``flex_fwd.cuh``, the backward ones the per-item bodies of
+``flex_bwd.cuh`` and the two sparse-grid forwards ``flex_fwd_sparse.cuh``.
+On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
 of its source and of the headers it includes, so an edited kernel is
@@ -16,7 +17,7 @@ may have no nvcc.
 ``launches`` counts the launches of each kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes the counts before each
-main path, serving and training, and reads them after it).
+main path and reads them after it).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class Kernel(NamedTuple):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FLEX_HEADERS = ("flex_tile.cuh",)
+_FWD_HEADERS = ("flex_tile.cuh", "flex_fwd.cuh")
 _BWD_HEADERS = ("flex_tile.cuh", "flex_bwd.cuh")
 _FWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_fwd_sparse.cuh")
 # the sparse-grid forwards: q k v sink | kblk sid runs bounds rs rc | work
@@ -59,7 +60,18 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap has_sink out_f32 stream
         + [_F, _F, _I, _I, _P],
-        _FLEX_HEADERS,
+        _FWD_HEADERS,
+    ),
+    "flex_fwd_hb": Kernel(
+        "flex_fwd_hb.cu",
+        "magi_flex_fwd_hb",
+        # q k v sink | kblk sid runs bounds rs rc | out lse rowmax
+        [_P] * 4 + [_P] * 6 + [_P] * 3
+        # hq hk tqp tkp head_dim nq block_q block_k head_block
+        + [_I] * 9
+        # scale softcap has_sink out_f32 stream
+        + [_F, _F, _I, _I, _P],
+        _FWD_HEADERS,
     ),
     "flex_dq": Kernel(
         "flex_dq.cu",

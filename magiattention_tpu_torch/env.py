@@ -91,3 +91,39 @@ def head_block_override() -> int | None:
     when the flag is unset."""
     v = os.environ.get("MAGI_ATTENTION_HEAD_BLOCK")
     return int(v) if v else None
+
+
+AUTOTUNE_MODES = ("off", "model", "measure")
+
+
+def autotune_mode() -> str:
+    """Kernel blocking mode of the model harness
+    (``models/_common.resolve_harness_blocking``), validated here: 'off' =
+    the legacy harness blocking (the env's tile, head_block 1 unless
+    ``MAGI_ATTENTION_HEAD_BLOCK`` is set); 'model' (default) and 'measure'
+    both take the port's Hopper rule (``ops.auto_kernel_config`` on the
+    row-major grid). The reference's modes rank its rungs with a TPU cost
+    model or TPU timings; neither carries over to Hopper, so the port reads
+    only 'off'."""
+    v = _env_str("MAGI_ATTENTION_AUTOTUNE", "model").strip().lower()
+    if v not in AUTOTUNE_MODES:
+        raise ValueError(f"MAGI_ATTENTION_AUTOTUNE={v!r} must be one of {AUTOTUNE_MODES}")
+    return v
+
+
+CASCADE_MODES = ("auto", "on", "off")
+
+
+def cascade_mode() -> str:
+    """Cascade (two-level shared-prefix) decode attention mode
+    (``serving/prefix.py``), validated here: 'auto' (default) = cascade
+    whenever two or more decode-batch members share a resident full-page
+    prefix, flat split-KV otherwise; 'on' = cascade for every
+    prefix-carrying sequence, singleton groups included; 'off' = always
+    the flat path (prefix pages are still shared for memory). The paths
+    agree within the dtype's tolerance, so the mode is a performance
+    choice, not a semantic one."""
+    v = _env_str("MAGI_ATTENTION_CASCADE", "auto").strip().lower()
+    if v not in CASCADE_MODES:
+        raise ValueError(f"MAGI_ATTENTION_CASCADE={v!r} must be one of {CASCADE_MODES}")
+    return v

@@ -2,7 +2,7 @@
 Llama decoder; ``llama_pp`` and ``dit`` are still to port (ROADMAP queue A
 item 16)."""
 
-from ._common import make_model_train_step, masked_ce_sums
+from ._common import make_model_train_step, masked_ce_sums, resolve_harness_blocking
 from .llama import (
     LlamaConfig,
     MagiLlama,
@@ -17,4 +17,5 @@ __all__ = [
     "init_params",
     "make_model_train_step",
     "masked_ce_sums",
+    "resolve_harness_blocking",
 ]

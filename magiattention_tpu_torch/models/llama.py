@@ -11,7 +11,8 @@ unchanged (``convert.llama_params_from_numpy``).
 What differs from the JAX model, on purpose:
 
 - attention calls flex attention directly (``ops.flex_attn_with_meta`` on
-  a plan built once per mask by :func:`build_magi_llama`) in place of the
+  a plan built once per mask by :func:`build_magi_llama`, at the head_block
+  it resolves: G by default) in place of the
   JAX model's ``parallel.dist_attn.dist_attn_local``. At cp=1 that
   function's degree-0 plan is one flex-attention call over the whole mask
   with an identity dispatch, so both compute the same loss and gradients;
@@ -21,9 +22,13 @@ What differs from the JAX model, on purpose:
   rematerialisation are out of scope for this slice: ``cfg.remat`` is kept
   so that configurations carry across, and the builder refuses it.
 
-On CUDA tensors every attention forward and backward runs the ``flex_fwd``,
-``flex_dq`` and ``flex_dkv`` Hopper kernels; on CPU tensors their plain
-versions.
+The builder resolves ``(block_q, block_k, head_block)`` once through
+``_common.resolve_harness_blocking``, as the JAX builder does: by default
+the row-major grid at head_block G (``n_heads / n_kv_heads``), which the
+model passes to every attention call. On CUDA tensors every attention
+forward then runs ``flex_fwd_hb`` (``flex_fwd`` at G = 1, or under a
+``MAGI_ATTENTION_HEAD_BLOCK=1`` pin) and every backward ``flex_dq`` and
+``flex_dkv``; on CPU tensors their plain versions.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ import torch
 from torch import nn
 
 from ..ops.block_meta import FlexAttnBlockMeta, build_block_meta
-from ..ops.flex_attn import flex_attn_with_meta, resolve_tile
-from ._common import masked_ce_sums
+from ..ops.flex_attn import flex_attn_with_meta
+from ._common import masked_ce_sums, resolve_harness_blocking
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "mlp_norm")
 
@@ -145,12 +150,15 @@ class MagiLlama(nn.Module):
 
     ``tokens``, ``labels`` and ``pos`` are [t] (one stream) or [b, t]
     (streams of one mask, as the JAX model's batch axis); ``pos`` holds the
-    global position ids RoPE reads."""
+    global position ids RoPE reads. ``head_block`` (q heads per forward
+    work item) is the builder's resolved choice."""
 
-    def __init__(self, cfg: LlamaConfig, meta: FlexAttnBlockMeta, params: dict):
+    def __init__(self, cfg: LlamaConfig, meta: FlexAttnBlockMeta, params: dict,
+                 head_block: int = 1):
         super().__init__()
         self.cfg = cfg
         self.meta = meta
+        self.head_block = int(head_block)
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(LlamaLayer(p) for p in params["layers"])
         self.final_norm = nn.Parameter(params["final_norm"])
@@ -167,7 +175,8 @@ class MagiLlama(nn.Module):
 
     def attention(self, q, k, v):
         """q [t, hq, d], k/v [t, hk, d] -> out [t, hq, d] over the plan."""
-        out, _ = flex_attn_with_meta(q, k, v, self.meta, out_dtype=self.cfg.torch_dtype)
+        out, _ = flex_attn_with_meta(q, k, v, self.meta, out_dtype=self.cfg.torch_dtype,
+                                     head_block=self.head_block)
         return out
 
     def _forward_one(self, tokens, pos):
@@ -205,6 +214,8 @@ def build_magi_llama(
     *,
     params: dict | None = None,
     seed: int = 0,
+    block_q: int | None = None,
+    block_k: int | None = None,
     device: str | torch.device = "cuda",
 ) -> MagiLlama:
     """Plan the attention for one mask (once) and bundle the model on
@@ -215,7 +226,8 @@ def build_magi_llama(
     by ``convert.llama_params_from_numpy``); without it the weights are
     drawn from ``seed`` on ``device``. The default device is the card;
     ``device="cpu"`` runs the plain versions. Raises without a card when
-    asked for one."""
+    asked for one. ``block_q``/``block_k`` pin the tile; the blocking and
+    head_block resolve through ``resolve_harness_blocking``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -228,11 +240,9 @@ def build_magi_llama(
         )
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"n_heads {cfg.n_heads} is not a multiple of n_kv_heads {cfg.n_kv_heads}")
-    bq, bk = resolve_tile(cfg.head_dim, None, None)
-    meta = build_block_meta(
-        _naive(q_ranges), _naive(k_ranges), [int(t) for t in attn_type_map],
-        total_seqlen, total_seqlen, block_q=bq, block_k=bk,
-    )
+    qn, kn, types = _naive(q_ranges), _naive(k_ranges), [int(t) for t in attn_type_map]
+    bq, bk, hb = resolve_harness_blocking(cfg, qn, kn, types, total_seqlen, block_q, block_k)
+    meta = build_block_meta(qn, kn, types, total_seqlen, total_seqlen, block_q=bq, block_k=bk)
     if params is None:
         params = init_params(torch.Generator(device=device).manual_seed(seed), cfg)
 
@@ -245,4 +255,4 @@ def build_magi_llama(
         "final_norm": to_dev(params["final_norm"]),
         "lm_head": to_dev(params["lm_head"]),
     }
-    return MagiLlama(cfg, meta, params)
+    return MagiLlama(cfg, meta, params, head_block=hb)

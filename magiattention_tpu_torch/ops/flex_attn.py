@@ -8,7 +8,9 @@ unique mask in both orientations (``ops/block_meta.py``); the kernels walk
 it. Two grids, as in the JAX package:
 
 - ``row_major``: ``flex_fwd`` (``csrc/flex_fwd.cu``) one q block's entries
-  per thread block, ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
+  per thread block, or ``flex_fwd_hb`` (``csrc/flex_fwd_hb.cu``) the same
+  walk for ``head_block`` q heads per block (a kv head's q heads packed in
+  pairs), ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
   ``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
   table for dk/dv;
 - ``sparse``, the compact grid for heterogeneous masks: persistent kernels
@@ -66,10 +68,10 @@ class FlexAttnParams:
 
     ``head_block`` (q heads per kernel work item: 1, or a multiple of the
     GQA group that divides hq) and ``grid`` (``row_major`` or the compact
-    ``sparse`` entry walk) name the JAX kernel's variants. On the card
-    ``sparse`` runs with any valid ``head_block`` and ``row_major`` with
-    ``head_block=1``; the head-batched row-major forward is still to port,
-    and a CUDA call asking for it raises (ROADMAP queue B item 2)."""
+    ``sparse`` entry walk) name the JAX kernel's variants, and on the card
+    pick the forward kernel as the JAX ``_fwd_dispatch`` does: ``flex_fwd``
+    or ``flex_fwd_hb`` on the row-major grid, ``flex_fwd_sparse`` or
+    ``flex_fwd_sparse_hb`` on the sparse one (head_block 1, or more)."""
 
     block_q: int
     block_k: int
@@ -371,14 +373,14 @@ def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams) -> None:
         raise ValueError(f"{name}: hq {hq} is not a multiple of hk {hk}")
 
 
-def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
-    """The ``flex_fwd`` Hopper kernel on CUDA tensors, same contract as
-    :func:`_fwd_torch`. Raises on what the kernel does not take."""
+def _launch_fwd(name, q, k, v, sink, tables, params: FlexAttnParams, *head_block):
+    """Launch one of the row-major forwards (``head_block`` is the extra
+    argument of ``flex_fwd_hb``); same contract as :func:`_fwd_torch`."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
-    _check_kernel_args("flex_fwd", q, k, v, params)
+    _check_kernel_args(name, q, k, v, params)
     if params.out_dtype not in (q.dtype, torch.float32):
-        raise TypeError(f"flex_fwd writes out in {q.dtype} or float32, not {params.out_dtype}")
+        raise TypeError(f"{name} writes out in {q.dtype} or float32, not {params.out_dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
     lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
@@ -386,17 +388,33 @@ def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
     sink = sink.to(device=q.device, dtype=torch.float32).contiguous()
     _qblk, kblk, sid, runs, bounds, rs, rc = tables
     csrc.launch(
-        "flex_fwd",
+        name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sink.data_ptr(),
         kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
         rs.data_ptr(), rc.data_ptr(),
         out.data_ptr(), lse.data_ptr(), rowmax.data_ptr(),
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
-        params.block_k, float(params.scale), float(params.softcap),
+        params.block_k, *head_block, float(params.scale), float(params.softcap),
         int(params.has_sink), int(params.out_dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse, rowmax
+
+
+def _fwd_kernel(q, k, v, sink, tables, params: FlexAttnParams):
+    """The ``flex_fwd`` Hopper kernel (one q head per thread block) on CUDA
+    tensors, same contract as :func:`_fwd_torch`. Raises on what the kernel
+    does not take."""
+    return _launch_fwd("flex_fwd", q, k, v, sink, tables, params)
+
+
+def _fwd_hb_kernel(q, k, v, sink, tables, params: FlexAttnParams):
+    """The ``flex_fwd_hb`` Hopper kernel (``params.head_block`` q heads per
+    thread block, a kv head's q heads packed two at a time) on CUDA
+    tensors, same contract as :func:`_fwd_torch`: head_block does not
+    change the function. Raises on what the kernel does not take."""
+    _check_variant(params, q.shape[0], k.shape[0])
+    return _launch_fwd("flex_fwd_hb", q, k, v, sink, tables, params, params.head_block)
 
 
 def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
@@ -628,14 +646,9 @@ class _FlexAttnCore(torch.autograd.Function):
                                  "(sparse_work)")
             fwd = _fwd_sparse_hb_kernel if params.head_block > 1 else _fwd_sparse_kernel
             out, lse, rowmax = fwd(q, k, v, sink1d, ftab, work, params)
-        elif params.head_block > 1:
-            raise NotImplementedError(
-                f"grid='row_major' with head_block={params.head_block} is the "
-                "head-batched row-major forward (_fwd_pallas_hb), still to port "
-                "(ROADMAP queue B item 2); use head_block=1 or grid='sparse'"
-            )
         else:
-            out, lse, rowmax = _fwd_kernel(q, k, v, sink1d, ftab, params)
+            fwd = _fwd_hb_kernel if params.head_block > 1 else _fwd_kernel
+            out, lse, rowmax = fwd(q, k, v, sink1d, ftab, params)
         ctx.save_for_backward(q, k, v, sink1d, out, lse)
         ctx.btab, ctx.ftab, ctx.params, ctx.work = btab, ftab, params, work
         ctx.mark_non_differentiable(rowmax)
@@ -850,10 +863,20 @@ def auto_kernel_config(
     than ``SPARSE_DENSITY_THRESHOLD`` of its dense extent (the reference's
     heterogeneous regime, where its cost model takes the sparse grid),
     else ``"row_major"``. ``head_block``: ``MAGI_ATTENTION_HEAD_BLOCK``
-    snapped by :func:`_auto_head_block`, else the GQA group on the sparse
-    grid (one work item per kv head covers its G q heads), else 1. The
-    TPU cost model's rung tables do not carry over; ``dtype`` is accepted
-    for the reference's signature and not read."""
+    snapped by :func:`_auto_head_block`, else the GQA group G on either
+    grid: one work item per kv head covers its G q heads, so each K/V tile
+    is read once per pair of them (``flex_fwd_hb`` or
+    ``flex_fwd_sparse_hb``; at G = 1 that is head_block 1, ``flex_fwd``).
+    The reference's choice on a causal or near-full mask is ``(128, 512,
+    8)``, the first rung of its ``_AUTO_BLOCK_CONFIGS``: a tile sized to
+    the v5e's VMEM, where 8 heads a grid step amortise the TPU's per-step
+    cost. Neither carries over to Hopper, where a block holds at most two
+    heads' rows at d = 128 and walks an item's further heads in turn
+    (head_block 2G measured no faster than G on the serving prefill,
+    PERF.md §6); so the head-batched forward runs where the reference runs
+    it, at G heads an item. The TPU cost model's rung tables do not carry
+    over; ``dtype`` is accepted for the reference's signature and not
+    read."""
     from .. import env
     from ..tuning import SPARSE_DENSITY_THRESHOLD, mask_density
 
@@ -867,10 +890,7 @@ def auto_kernel_config(
     if grid not in GRID_KINDS:
         raise ValueError(f"grid={grid!r} must be one of {GRID_KINDS}")
     hb_env = env.head_block_override()
-    if hb_env is not None:
-        head_block = _auto_head_block(hb_env, hq, group)
-    else:
-        head_block = group if grid == "sparse" else 1
+    head_block = group if hb_env is None else _auto_head_block(hb_env, hq, group)
     return block_q, block_k, head_block, grid
 
 
@@ -898,7 +918,8 @@ def flex_flash_attn_func(
     (mask, shape, blocking) and cached. ``block_q``/``block_k``/
     ``head_block``/``grid`` left unset resolve through
     :func:`auto_kernel_config`, as in the JAX package: heterogeneous masks
-    take the compact sparse grid, dense ones the row-major grid."""
+    take the compact sparse grid, dense ones the row-major grid, both at
+    head_block G."""
     q_arr = np.ascontiguousarray(np.asarray(q_ranges, dtype=np.int64).reshape(-1, 2))
     k_arr = np.ascontiguousarray(np.asarray(k_ranges, dtype=np.int64).reshape(-1, 2))
     t_arr = np.ascontiguousarray(np.asarray(attn_type_map, dtype=np.int64).reshape(-1))

@@ -4,6 +4,8 @@
   host-side :class:`PageAllocator`
 - :mod:`.decode_attn` — split-KV decode (the ``paged_decode`` kernel on
   CUDA, its plain version on the CPU)
+- :mod:`.prefix`      — the shared-prefix trie :class:`PrefixCache`,
+  cascade decode (``plan_cascade_groups``, ``cascade_decode_attn``)
 - :mod:`.engine`      — :class:`DecodeBatch`, ``magi_attn_decode``,
   ``prefill_into_cache`` / ``continue_prefill_into_cache``, the
   :class:`ServingEngine`
@@ -32,8 +34,17 @@ from .kv_cache import (  # noqa: F401
     PageShareError,
     append_kv,
     assign_block_table,
+    copy_page,
     gather_kv,
     make_paged_kv_cache,
     reset_slot,
+    swap_block_table_page,
     write_prefill_kv,
+)
+from .prefix import (  # noqa: F401
+    CascadeGroup,
+    PrefixCache,
+    PrefixMatch,
+    cascade_decode_attn,
+    plan_cascade_groups,
 )

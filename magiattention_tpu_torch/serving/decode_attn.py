@@ -170,9 +170,13 @@ def resolve_num_splits(
     num_splits: int | None,
     cache: PagedKVCache,
     batch: int,
+    *,
+    mpp: int | None = None,
 ) -> int:
     """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > a Hopper heuristic,
-    clamped to a divisor of the table width ``max_pages_per_seq``.
+    clamped to a divisor of the table width: ``max_pages_per_seq``, or an
+    explicit ``mpp`` (the cascade resolves each phase on its own table:
+    the shared prefix's pages, then each member's suffix pages).
 
     The heuristic, a first guess in place of the JAX package's tuner: the
     kernel runs one thread block per (sequence, split, kv head), so ask for
@@ -187,7 +191,7 @@ def resolve_num_splits(
     if num_splits is None:
         blocks = max(int(batch), 1) * cache.num_kv_heads
         num_splits = -(-2 * HOPPER_SMS // blocks)
-    return _clamp_splits(num_splits, cache.max_pages_per_seq)
+    return _clamp_splits(num_splits, cache.max_pages_per_seq if mpp is None else mpp)
 
 
 def _check_q(q, cache: PagedKVCache, where: str) -> None:

@@ -4,8 +4,10 @@ Prefill runs through the flex-attention forward and writes its KV into
 pages; decode steps run the split-KV kernel over the same pool — a
 sequence's lifetime (admit -> prefill -> N decode steps -> free)
 round-trips through ONE cache with no re-layout. The counterpart of the JAX
-package's ``serving/engine.py`` for tokenless admissions, one-shot and
-chunked prefill, and flat split-KV decode.
+package's ``serving/engine.py`` for admissions with or without token ids,
+shared prefixes (fork onto resident pages, copy-on-write split of a shared
+tail page, automatic registration of a finished prompt), one-shot, chunked
+and continued prefill, and flat or cascade split-KV decode.
 
 - :class:`DecodeBatch` — per-sequence cache slots of one decode step; the
   lengths live in the cache's ``seq_lens``.
@@ -13,8 +15,9 @@ chunked prefill, and flat split-KV decode.
 - :func:`prefill_into_cache` / :func:`continue_prefill_into_cache` — causal
   prefill (one shot, or one chunk against the written history) + the paged
   KV write.
-- :class:`ServingEngine` — host-side admission, reservation growth,
-  prefill, decode steps and slot recycling.
+- :class:`ServingEngine` — host-side admission (with the prefix trie of
+  ``prefix.py``), reservation growth, copy-on-write, prefill, decode steps
+  and slot recycling.
 
 Cache updates are in place (see ``kv_cache.py``), so these functions return
 attention outputs only, where the JAX ones also return a new cache.
@@ -23,6 +26,7 @@ attention outputs only, where the JAX ones also return a new cache.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -35,11 +39,14 @@ from .kv_cache import (
     PagedKVCache,
     append_kv,
     assign_block_table,
+    copy_page,
     gather_kv,
     make_paged_kv_cache,
     reset_slot,
+    swap_block_table_page,
     write_prefill_kv,
 )
+from .prefix import PrefixCache, cascade_decode_attn, plan_cascade_groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +59,17 @@ class AdmissionResult:
       ``"too_long"`` | ``"alloc_error"``.
     - ``evicted``: slots freed by the bounded evict-lowest-priority-then-
       retry policy on the way to this verdict.
+    - ``prefix_len``: tokens of the prompt already resident as a shared
+      prefix (0 without prefix sharing or on a miss). The caller prefills
+      only rows ``prefix_len:``; the slot's ``seq_lens`` already stands
+      there.
     """
 
     admitted: bool
     slot: int | None
     reason: str = "ok"
     evicted: tuple[int, ...] = ()
+    prefix_len: int = 0
 
     def __bool__(self) -> bool:
         return self.admitted
@@ -175,9 +187,13 @@ def continue_prefill_into_cache(
 class ServingEngine:
     """Continuous-batching host loop over one paged cache on ``device``.
 
-    Owns the allocator and the cache; exposes admit / prefill / decode_step /
-    free. ``device`` defaults to ``"cuda"``, where prefill and decode run
-    the Hopper kernels; ``device="cpu"`` runs their plain versions.
+    Owns the allocator, the cache and (``prefix_sharing``, the default)
+    the shared-prefix trie; exposes admit / prefill / commit_prefix /
+    decode_step / free. ``device`` defaults to ``"cuda"``, where prefill
+    and decode run the Hopper kernels; ``device="cpu"`` runs their plain
+    versions. ``cascade_override`` (``"auto"``/``"on"``/``"off"``, or None
+    for ``MAGI_ATTENTION_CASCADE``) picks the decode path when a
+    ``decode_step`` caller does not.
     """
 
     def __init__(
@@ -191,6 +207,7 @@ class ServingEngine:
         max_pages_per_seq: int | None = None,
         dtype: torch.dtype = torch.bfloat16,
         max_admission_evictions: int = 4,
+        prefix_sharing: bool = True,
         device: str | torch.device = "cuda",
     ):
         from .. import env
@@ -216,38 +233,75 @@ class ServingEngine:
             device=self.device,
         )
         self.allocator = PageAllocator(num_pages, page_size, max_seqs, max_pages_per_seq)
+        # inert until an admission carries token ids
+        self.prefix: PrefixCache | None = PrefixCache(page_size) if prefix_sharing else None
         self._lengths: dict[int, int] = {}
         self._priorities: dict[int, int] = {}
+        self._tokens: dict[int, tuple[int, ...]] = {}
+        # slot -> (shared FULL prefix pages, their tokens): the cascade
+        # group key, set on a fork or when a registrant commits its prompt
+        self._slot_prefix: dict[int, tuple[tuple[int, ...], int]] = {}
         self.max_admission_evictions = int(max_admission_evictions)
+        self.cascade_override: str | None = None
 
     # -- admission / retirement (host) --
 
-    def admit(self, num_tokens: int, *, priority: int = 0) -> AdmissionResult:
+    def admit(self, num_tokens: int, *, priority: int = 0,
+              tokens: Sequence[int] | None = None) -> AdmissionResult:
         """Reserve a slot + pages for a sequence of ``num_tokens`` prompt
         tokens (decode growth comes later through :meth:`reserve_growth`).
 
-        Never raises on resource pressure: under pressure, live sequences
-        whose ``priority`` is strictly below the incoming one are evicted
-        (lowest first, at most ``max_admission_evictions``) and admission
-        retried; if it still does not fit the verdict is backpressure."""
+        ``tokens``: the prompt's token ids. With prefix sharing, the longest
+        resident prefix is installed by reference (``PageAllocator.fork``,
+        no copy; ``seq_lens`` preset to the match) and only the rest needs
+        pages and prefill; ``AdmissionResult.prefix_len`` says how much
+        matched. Tokenless admissions never touch the trie.
+
+        Never raises on resource pressure. Under pressure, prefix pages no
+        sequence holds go first (least recently used, when pages are what
+        is short), then live sequences whose ``priority`` is strictly below
+        the incoming one (lowest first, at most
+        ``max_admission_evictions``); if it still does not fit the verdict
+        is backpressure."""
         need = max(self.allocator.pages_needed(num_tokens), 1)
         if need > self.allocator.max_pages_per_seq:
             return AdmissionResult(False, None, "too_long")
+        tokens = tuple(int(t) for t in tokens) if tokens is not None else None
         evicted: list[int] = []
         while True:
-            if self.allocator.can_admit(num_tokens):
+            # re-match every round: an eviction below may have released
+            # pages an earlier match pointed at
+            match = (
+                self.prefix.match(tokens)
+                if self.prefix is not None and tokens is not None
+                else None
+            )
+            if match is not None and match.hit:
+                if self.allocator.can_fork(match.pages, num_tokens):
+                    try:
+                        slot, pages = self.allocator.fork(match.pages, num_tokens)
+                    except PageAllocatorError:
+                        return AdmissionResult(False, None, "alloc_error", tuple(evicted))
+                    self._install(slot, pages, keep_len=match.length)
+                    shared_full = (match.pages[: match.full_pages],
+                                   match.full_pages * self.allocator.page_size)
+                    return self._finish_admit(slot, priority, tokens, evicted,
+                                              prefix_len=match.length, shared_full=shared_full)
+            elif self.allocator.can_admit(num_tokens):
                 try:
                     slot, pages = self.allocator.allocate(num_tokens)
                 except PageAllocatorError:
                     return AdmissionResult(False, None, "alloc_error", tuple(evicted))
-                try:
-                    assign_block_table(self.cache, slot, pages)
-                except Exception:
-                    # the device-side install failed: give the pages back
-                    self.allocator.free(slot)
-                    raise
-                self._priorities[slot] = int(priority)
-                return AdmissionResult(True, slot, "ok", tuple(evicted))
+                self._install(slot, pages)
+                return self._finish_admit(slot, priority, tokens, evicted)
+            # cached prefix pages go first, but only when pages are what is
+            # short: dropping them cannot cure a slot shortage
+            shared = len(match.pages) if match is not None else 0
+            deficit = need - shared - (self.allocator.num_pages - self.allocator.pages_in_use)
+            if (deficit > 0 and self.prefix is not None
+                    and self.allocator.active_seqs < self.allocator.max_seqs):
+                if self.prefix.evict(self.allocator, deficit) > 0:
+                    continue
             if len(evicted) >= self.max_admission_evictions:
                 break
             victim = self._eviction_candidate(int(priority))
@@ -262,6 +316,27 @@ class ServingEngine:
         )
         return AdmissionResult(False, None, reason, tuple(evicted))
 
+    def _install(self, slot: int, pages, *, keep_len: bool | int = False) -> None:
+        """The device-side block-table install of a fresh admission; if it
+        fails, the allocator takes the pages back before the error goes on."""
+        try:
+            assign_block_table(self.cache, slot, pages, keep_len=keep_len)
+        except Exception:
+            self.allocator.free(slot)
+            raise
+
+    def _finish_admit(self, slot: int, priority: int, tokens, evicted: list[int], *,
+                      prefix_len: int = 0, shared_full=None) -> AdmissionResult:
+        """The bookkeeping both admission paths share."""
+        self._priorities[slot] = int(priority)
+        if tokens is not None:
+            self._tokens[slot] = tokens
+        if prefix_len:
+            self._lengths[slot] = prefix_len
+        if shared_full is not None and shared_full[0]:
+            self._slot_prefix[slot] = (tuple(shared_full[0]), shared_full[1])
+        return AdmissionResult(True, slot, "ok", tuple(evicted), prefix_len=prefix_len)
+
     def _eviction_candidate(self, incoming_priority: int) -> int | None:
         """Lowest-priority live slot strictly below the incoming priority
         (ties -> lowest slot id); None when nothing is evictable."""
@@ -274,13 +349,14 @@ class ServingEngine:
         assign_block_table(self.cache, slot, pages, keep_len=True)
 
     def free(self, slot: int) -> None:
-        """Retire a sequence: pages back to the pool, slot reusable. A double
-        free raises the allocator's ``InvalidFreeError`` before anything
-        changes."""
+        """Retire a sequence: one reference dropped per page (a prefix page
+        the trie or a sibling fork still holds stays resident), slot
+        reusable. A double free raises the allocator's ``InvalidFreeError``
+        before anything changes."""
         self.allocator.free(slot)
         reset_slot(self.cache, slot)
-        self._lengths.pop(slot, None)
-        self._priorities.pop(slot, None)
+        for book in (self._lengths, self._priorities, self._tokens, self._slot_prefix):
+            book.pop(slot, None)
 
     def _ensure_reserved(self, slot: int, total_tokens: int) -> None:
         """Grow the reservation to cover ``total_tokens`` before any write
@@ -289,24 +365,54 @@ class ServingEngine:
         if self.allocator.pages_needed(total_tokens) > self.allocator.reserved_pages(slot):
             self.reserve_growth(slot, total_tokens)
 
+    def _ensure_writable(self, slot: int, start: int) -> None:
+        """Copy-on-write split before a write at position ``start``: when
+        the write lands mid-page and that page is shared (a fork's partial
+        tail, or the registrant's own tail once the trie pinned it), the
+        slot gets a private copy first. A write that starts on a page
+        boundary lands on a page of the slot's own, so full prefix pages
+        are never copied. ``cow_page`` refuses (pool exhausted) before any
+        bookkeeping moves."""
+        ps = self.allocator.page_size
+        if start <= 0 or start % ps == 0 or start >= self.cache.max_seq_len:
+            return
+        idx = start // ps
+        pages = self.allocator.slot_pages(slot)
+        if idx >= len(pages) or self.allocator.page_ref(pages[idx]) <= 1:
+            return  # not reserved yet (growth installs a fresh page), or private
+        old, new = self.allocator.cow_page(slot, idx)
+        copy_page(self.cache, old, new)
+        swap_block_table_page(self.cache, slot, idx, new)
+
     # -- device steps --
 
     def prefill(self, q, k, v, slot: int, *, length: int | None = None, **kw):
         """Prefill prompt rows into ``slot``; returns the prefill (out, lse).
 
-        A slot with committed tokens (a prior chunk) takes the continuation
-        path; prompts longer than ``MAGI_ATTENTION_PREFILL_CHUNK`` are split
-        into chunk-sized steps, each attending to the whole written history
-        (unset = one shot). ``length`` (a padded prompt) is supported on the
-        one-shot path only. A failure mid prefill releases the slot before
-        re-raising, so its pages are not leaked."""
+        A slot with committed tokens (a shared-prefix fork, or a prior
+        chunk) takes the continuation path: the rows attend the whole
+        written history; prompts longer than ``MAGI_ATTENTION_PREFILL_CHUNK``
+        are split into chunk-sized steps (unset = one shot). ``t == 0`` is
+        a prompt the prefix covered whole. When the admission's token ids
+        are all written, the prompt is registered as a shareable prefix
+        (:meth:`commit_prefix`). ``length`` (a padded prompt) is supported
+        on the one-shot path only. A failure mid prefill releases the slot
+        before re-raising, so its pages are not leaked; a refused
+        reservation growth or copy-on-write split changes nothing."""
         from .. import env
 
         t = q.shape[0]
-        wrote = t if length is None else int(length)
         start = self._lengths.get(slot, 0)
+        if t == 0 and length is None:
+            toks = self._tokens.get(slot)
+            if toks is not None and start >= len(toks):
+                self.commit_prefix(slot)
+            return q.new_zeros((0, q.shape[1], q.shape[2])), q.new_zeros(
+                (0, q.shape[1]), dtype=torch.float32)
+        wrote = t if length is None else int(length)
         chunk = env.prefill_chunk()
         self._ensure_reserved(slot, start + wrote)
+        self._ensure_writable(slot, start)
         try:
             if start == 0 and (chunk is None or t <= chunk):
                 out, lse = prefill_into_cache(q, k, v, self.cache, slot, length=length, **kw)
@@ -321,6 +427,9 @@ class ServingEngine:
             self.free(slot)
             raise
         self._lengths[slot] = start + wrote
+        toks = self._tokens.get(slot)
+        if toks is not None and self._lengths[slot] >= len(toks):
+            self.commit_prefix(slot)
         return out, lse
 
     def _chunked_prefill(self, q, k, v, slot, start, chunk, **kw):
@@ -344,18 +453,65 @@ class ServingEngine:
             lses.append(l)
         return torch.cat(outs, dim=0), torch.cat(lses, dim=0)
 
-    def decode_step(self, q, k_new, v_new, slots, *, num_splits: int | None = None, **kw):
+    def commit_prefix(self, slot: int) -> int:
+        """Register the slot's prefilled pages as a shareable prefix (trie
+        nodes + one allocator reference per newly recorded page). Called by
+        :meth:`prefill` when the admission's token ids are all written.
+        Returns the pages newly pinned."""
+        if self.prefix is None:
+            return 0
+        toks = self._tokens.get(slot)
+        n = min(self._lengths.get(slot, 0), len(toks) if toks else 0)
+        if not toks or n == 0:
+            return 0
+        pages = self.allocator.slot_pages(slot)
+        newly = self.prefix.register(toks[:n], pages, self.allocator)
+        full = n // self.allocator.page_size
+        if full and slot not in self._slot_prefix:
+            # a fresh registrant: its own leading full pages ARE the trie's
+            # resident copy (a fork keeps the key it shares with its siblings)
+            self._slot_prefix[slot] = (tuple(pages[:full]), full * self.allocator.page_size)
+        return newly
+
+    def decode_step(self, q, k_new, v_new, slots, *, num_splits: int | None = None,
+                    cascade: bool | str | None = None, **kw):
         """One continuous-batching decode step: append each sequence's new
         KV, then attend over the whole history (the new token included).
         Reservations grow automatically when a sequence crosses into an
-        unreserved page. Returns ``(out [b, hq, d], lse [b, hq])``."""
+        unreserved page, and a sequence appending into a still-shared tail
+        page gets its copy-on-write split first.
+
+        ``cascade``: None follows ``cascade_override``, else
+        ``MAGI_ATTENTION_CASCADE`` (``auto`` = cascade decode whenever two
+        or more batch members share a resident full-page prefix); True or
+        ``"on"`` cascades every prefix-carrying sequence (singleton groups
+        too); False or ``"off"`` takes the flat split-KV path. Returns
+        ``(out [b, hq, d], lse [b, hq])``."""
+        from .. import env
+
         slot_list = [int(s) for s in slots]
         for s in slot_list:
             self._ensure_reserved(s, self._lengths.get(s, 0) + 1)
+            self._ensure_writable(s, self._lengths.get(s, 0))
+        if cascade is None:
+            mode = self.cascade_override if self.cascade_override is not None else env.cascade_mode()
+        elif isinstance(cascade, str):
+            mode = cascade
+        else:
+            mode = "on" if cascade else "off"
+        if mode not in env.CASCADE_MODES:
+            raise ValueError(f"cascade={mode!r} must be one of {env.CASCADE_MODES}")
+        groups = []
+        if mode != "off" and self._slot_prefix:
+            groups = plan_cascade_groups(self._slot_prefix, slot_list,
+                                         min_group=1 if mode == "on" else 2)
         batch = DecodeBatch.of(slot_list, self.device)
         append_kv(self.cache, batch.slots, k_new, v_new)
         for s in slot_list:
             self._lengths[s] = self._lengths.get(s, 0) + 1
+        if groups:
+            return cascade_decode_attn(q, self.cache, slot_list, groups,
+                                       num_splits=num_splits, **kw)
         num_splits = resolve_num_splits(num_splits, self.cache, batch.batch_size)
         return magi_attn_decode(q, self.cache, batch, num_splits=num_splits, **kw)
 

@@ -214,6 +214,20 @@ def assign_block_table(
     cache.block_tables[slot] = row.to(cache.device)
 
 
+def copy_page(cache: PagedKVCache, src_page: int, dst_page: int) -> None:
+    """The data half of a copy-on-write split, in place: ``dst_page``'s K/V
+    become a bit copy of ``src_page``'s. Pair it with
+    :func:`swap_block_table_page` to point the writing slot at its copy."""
+    cache.k_pages[dst_page] = cache.k_pages[src_page]
+    cache.v_pages[dst_page] = cache.v_pages[src_page]
+
+
+def swap_block_table_page(cache: PagedKVCache, slot: int, page_idx: int, new_page: int) -> None:
+    """The table half of a copy-on-write split, in place: entry ``page_idx``
+    of ``slot``'s block table now names ``new_page`` (lengths untouched)."""
+    cache.block_tables[slot, page_idx] = int(new_page)
+
+
 def reset_slot(cache: PagedKVCache, slot: int) -> None:
     """Logical free of a slot's stored tokens, in place (page recycling is
     the allocator's job; stale page contents are never read at length 0)."""

@@ -233,7 +233,7 @@ def test_auto_kernel_config_grid_matches_jax(mask, heads, monkeypatch):
     bq, bk, hb, grid = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty)
     assert grid == jax_grid
     assert (bq, bk) == fa.HOPPER_TILES[128]
-    assert hb == (hq // hk if grid == "sparse" else 1)
+    assert hb == hq // hk  # G on either grid: one kv head's q heads an item
 
 
 def test_auto_kernel_config_env_pins(monkeypatch):
@@ -241,7 +241,7 @@ def test_auto_kernel_config_env_pins(monkeypatch):
     cqr, ckr, cty = split(workloads.dense_causal(4096))
     monkeypatch.delenv("MAGI_ATTENTION_HEAD_BLOCK", raising=False)
     monkeypatch.setenv("MAGI_ATTENTION_GRID", "row_major")
-    assert fa.auto_kernel_config(qr, kr, 16, 8, attn_type_map=ty)[2:] == (1, "row_major")
+    assert fa.auto_kernel_config(qr, kr, 16, 8, attn_type_map=ty)[2:] == (2, "row_major")
     monkeypatch.setenv("MAGI_ATTENTION_GRID", "sparse")
     assert fa.auto_kernel_config(cqr, ckr, 16, 8, attn_type_map=cty)[2:] == (2, "sparse")
     # the caller's pin goes before the env's

@@ -63,6 +63,42 @@ def test_flex_fwd_matches_plain(card, d, types):
     assert torch.equal(torch.isneginf(rowmax[:, :tq]), torch.isneginf(ref_rowmax[:, :tq]))
 
 
+@pytest.mark.parametrize("hb_of_group", [1, 2], ids=["hbG", "hb2G"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "case",
+    [
+        ("causal", [(0, 700)], [(0, 700)], [C], 0.0, False),
+        ("varlen_softcap", [(0, 300), (300, 700)], [(0, 300), (300, 700)], [C, C], 30.0, False),
+        ("full_inv_bi", [(0, 200), (200, 450), (450, 700)], [(0, 700), (0, 500), (100, 700)],
+         [F, I, B], 0.0, False),
+        ("uncovered_sink", [(100, 400)], [(0, 350)], [C], 0.0, True),
+    ],
+    ids=lambda c: c[0],
+)
+def test_flex_fwd_hb_matches_plain(card, case, d, group, hb_of_group):
+    """``flex_fwd_hb`` (head_block G or 2G; 2 at G = 1, an item of two kv
+    heads) against the plain forward, and bit for bit against ``flex_fwd``:
+    a row's walk does not depend on the heads a block holds."""
+    import dataclasses
+
+    _, qr, kr, ty, softcap, sink = case
+    hk = 2
+    hq = hk * group
+    fa, args, ftab, _, params = _bwd_problem(card, 700, 700, hq, hk, d, qr, kr, ty, softcap, sink)
+    q, k, v = args[:3]
+    sink_t = torch.randn((hq,), generator=card, device="cuda")
+    hb = group * 2 if hb_of_group == 2 or group == 1 else group
+    hb_params = dataclasses.replace(params, head_block=hb)
+    out, lse, rowmax = fa._fwd_hb_kernel(q, k, v, sink_t, ftab, hb_params)
+    ref, ref_lse, ref_rowmax = fa._fwd_torch(q, k, v, sink_t, ftab, params)
+    _close(out[:, :700], ref[:, :700], lse[:, :700], ref_lse[:, :700])
+    _close(out[:, :700], ref[:, :700], rowmax[:, :700], ref_rowmax[:, :700])
+    one = fa._fwd_kernel(q, k, v, sink_t, ftab, params)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), one))
+
+
 def _bwd_problem(gen, tq, tk, hq, hk, d, q_ranges, k_ranges, types, softcap=0.0, sink=False):
     from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -166,11 +202,15 @@ def test_autograd_runs_the_kernels(card):
     k = torch.randn((300, 2, 128), generator=card, device="cuda").bfloat16().requires_grad_()
     v = torch.randn((300, 2, 128), generator=card, device="cuda").bfloat16().requires_grad_()
     csrc.reset_launch_counts()
+    # the default choice on a causal mask at G = 4: the row-major grid, head_block 4
     out, lse = flex_flash_attn_func(q, k, v, [(0, 300)], [(0, 300)], [C])
     (out.float().sum() + lse.sum()).backward()
     assert q.grad.dtype == torch.bfloat16 and torch.isfinite(q.grad.float()).all()
-    assert {n: csrc.launches[n] for n in ("flex_fwd", "flex_dq", "flex_dkv")} == {
-        "flex_fwd": 1, "flex_dq": 1, "flex_dkv": 1}
+    names = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv")
+    assert {n: csrc.launches[n] for n in names} == {
+        "flex_fwd": 0, "flex_fwd_hb": 1, "flex_dq": 1, "flex_dkv": 1}
+    flex_flash_attn_func(q, k, v, [(0, 300)], [(0, 300)], [C], head_block=1)
+    assert csrc.launches["flex_fwd"] == 1
 
 
 def test_flex_fwd_refuses_what_it_does_not_implement(card):
@@ -180,8 +220,11 @@ def test_flex_fwd_refuses_what_it_does_not_implement(card):
     k = q[:, :2].contiguous()
     out, lse = flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="sparse")
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major", head_block=2)
+    out, lse = flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major",
+                                    head_block=4)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    with pytest.raises(ValueError, match="head_block 3"):
+        flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major", head_block=3)
     with pytest.raises(TypeError):
         flex_flash_attn_func(q.float(), k.float(), k.float(), [(0, 64)], [(0, 64)], [C])
     with pytest.raises(ValueError, match="tile"):
@@ -289,3 +332,39 @@ def test_paged_decode_matches_plain(card, splits, dtype):
     ref, ref_lse = decode_reference(q, cache, cache.block_tables, cache.seq_lens)
     _close(out, ref, lse, ref_lse)
     assert (out[0] == 0).all()
+
+
+def test_cascade_decode_on_card_matches_flat(card):
+    """Shared-prefix serving on the card: three forks of a 2.5-page prompt
+    (each first write a copy-on-write split), then a decode step through
+    cascade decode and through the flat path on the same state."""
+    from magiattention_tpu_torch.serving import ServingEngine, decode_reference
+
+    eng = ServingEngine(num_pages=64, num_kv_heads=2, head_dim=128, page_size=128,
+                        max_seqs=4, max_pages_per_seq=8)
+    prefix = list(range(320))
+    slots = []
+    for i, extra in enumerate((0, 40, 200, 7)):
+        toks = prefix + [1000 + i] * extra
+        res = eng.admit(len(toks), tokens=toks)
+        assert res.admitted and res.prefix_len == (len(prefix) if i else 0)
+        n = len(toks) - res.prefix_len
+        q, kv = (torch.randn((n, h, 128), generator=card, device="cuda").bfloat16()
+                 for h in (8, 4))
+        eng.prefill(q, kv[:, :2], kv[:, 2:], res.slot)
+        slots.append(res.slot)
+    lens = eng.cache.seq_lens.clone()
+    q = torch.randn((4, 8, 128), generator=card, device="cuda").bfloat16()
+    kv = torch.randn((4, 4, 128), generator=card, device="cuda").bfloat16()
+    out_c, lse_c = eng.decode_step(q, kv[:, :2], kv[:, 2:], slots, cascade="on",
+                                   out_dtype=torch.float32)
+    idx = torch.as_tensor(slots, device="cuda")
+    ref, ref_lse = decode_reference(q, eng.cache, eng.cache.block_tables[idx],
+                                    eng.cache.seq_lens[idx])
+    _close(out_c, ref, lse_c, ref_lse)
+    eng.cache.seq_lens.copy_(lens)  # rewind the append: the flat path on the same state
+    for s in slots:
+        eng._lengths[s] -= 1
+    out_f, lse_f = eng.decode_step(q, kv[:, :2], kv[:, 2:], slots, cascade="off",
+                                   out_dtype=torch.float32)
+    assert ((out_c - out_f).abs() <= 1e-3).all() and ((lse_c - lse_f).abs() <= 2e-4).all()

@@ -109,6 +109,8 @@ def test_weights_round_trip_exactly(jax_run):
 
 def test_loss_and_every_gradient_match_jax(jax_run):
     model = _port_model(jax_run["params"])
+    # the harness's default: the row-major grid at head_block G (flex_fwd_hb on the card)
+    assert model.head_block == FIELDS["n_heads"] // FIELDS["n_kv_heads"]
     loss = model.loss(*_batch())
     loss.backward()
     np.testing.assert_allclose(float(loss), jax_run["loss"], rtol=RTOL, atol=ATOL)
@@ -162,3 +164,32 @@ def test_builder_on_cuda_raises_without_a_card():
     qr, kr, ts = infer_attn_mask_from_cu_seqlens(CU)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_magi_llama(LlamaConfig(**FIELDS), TOTAL, qr, kr, ts)
+
+
+def test_builder_resolves_head_block_and_passes_it(jax_run, monkeypatch):
+    """``build_magi_llama`` resolves the blocking once through
+    ``resolve_harness_blocking`` and every attention call carries its
+    head_block: G by default, the env's pin snapped, 1 under the legacy
+    harness (a caller's tile)."""
+    from magiattention_tpu_torch.models import llama
+
+    seen = []
+    real = llama.flex_attn_with_meta
+    monkeypatch.setattr(llama, "flex_attn_with_meta",
+                        lambda *a, **k: seen.append(k["head_block"]) or real(*a, **k))
+    qr, kr, ts = infer_attn_mask_from_cu_seqlens(CU)
+    params = convert.llama_params_from_numpy(jax_run["params"])
+    cfg = LlamaConfig(**FIELDS)
+    tokens, _, pos = _batch()
+    for env_pin, tile, want in ((None, None, 2), ("1", None, 1), (None, 32, 1), ("8", 32, 4)):
+        if env_pin is None:
+            monkeypatch.delenv("MAGI_ATTENTION_HEAD_BLOCK", raising=False)
+        else:
+            monkeypatch.setenv("MAGI_ATTENTION_HEAD_BLOCK", env_pin)
+        model = build_magi_llama(cfg, TOTAL, qr, kr, ts, params=params, block_q=tile,
+                                 block_k=tile, device="cpu")
+        assert model.head_block == want and model.meta.block_q == (tile or 64)
+        seen.clear()
+        with torch.no_grad():
+            model(tokens[0], pos[0])
+        assert seen == [want] * FIELDS["n_layers"]
