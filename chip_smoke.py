@@ -11,12 +11,17 @@ Phases, each printing one JSON line:
    ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
    ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
    ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
-   (with two mutated copies for the planted faults), and print the card's
-   name and power limit as nvidia-smi reports them;
+   (with three mutated copies for the planted faults and the previous,
+   pre-TMA row-major backward walk as a yardstick library), print ptxas's
+   registers and spills and, for ``flex_dq`` and ``flex_dkv``, the count of
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   ``cuobjdump -sass``, and print the card's name and power limit as
+   nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
    bf16 at head_dim 128 (and 64 for the head-batched and sparse-grid
    forwards), on the mask families and ragged lengths below (the backward
-   with 4 and with 2 q heads per kv head and a random lse cotangent; the
+   at head_dim 128 and 64 with 4, 2 and 1 q heads per kv head and a random
+   lse cotangent; the
    head-batched row-major forward at 1, 2 and 4 q heads per kv head and G
    and 2G heads per block, and whether it equals ``flex_fwd`` bit for bit;
    the sparse grid at 1, 2 and 4 q heads per kv head and one, G and 2G
@@ -25,11 +30,14 @@ Phases, each printing one JSON line:
    planted in the kernels (the backward walks cut short, the AMLA rescale
    skipped once per row in a mutated copy of the sparse forward, every head
    of a head-batched item reading the first head's kv head in a mutated
-   copy of ``flex_fwd_hb``), which the checks must catch; then the
-   row-major kernels' times at their main path's shapes (``flex_fwd`` and
-   ``flex_fwd_hb`` at head_block G and 2G on the serving prefill) beside the
-   plain version's, a PyTorch ``scaled_dot_product_attention`` yardstick and
-   the card's bound;
+   copy of ``flex_fwd_hb``, the second consumer warpgroup's dK partial
+   dropped before the final sum in a mutated copy of ``flex_dkv``), which
+   the checks must catch; then the row-major kernels' times at their main
+   path's shapes (``flex_fwd`` and ``flex_fwd_hb`` at head_block G and 2G on
+   the serving prefill; ``flex_dq`` and ``flex_dkv`` on causal 8192 at the
+   training widths, in turns with the previous walk) beside the plain
+   version's, a PyTorch ``scaled_dot_product_attention`` yardstick and the
+   card's bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -84,6 +92,7 @@ import time
 HQ, HK, D = 32, 8, 128  # Llama-3.1-8B attention widths
 TRAIN_HQ, TRAIN_HK = 16, 8  # the repo's LlamaConfig
 PAGE = 128
+BLOCK = 64  # the flex kernels' tile (ops/flex_attn.py HOPPER_TILES)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # bf16 outputs vs the plain f32 computation rounded to bf16: the kernels
@@ -225,6 +234,21 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def sass_counts(path: str) -> dict | None:
+    """The wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions, and the
+    1-D bulk copies (``UBLKCP``), in a library's SASS, from the toolkit's
+    ``cuobjdump``; None where the toolkit has none."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -324,14 +348,17 @@ class Flex:
         compare_grads("flex_dkv", name, [("dk", dk[:, :tk], ref_dk[:, :tk]),
                                          ("dv", dv[:, :tk], ref_dv[:, :tk])])
 
-    def planted_faults(self) -> dict:
-        """The gradient checks on three faults planted in the kernels'
+    def planted_faults(self, planted) -> dict:
+        """The gradient checks on four faults planted in the kernels'
         work: the last entry of each q-major walk skipped (dq), the last
-        entry of each k-major walk skipped (dk, dv), and the last k block's
-        dk and dv zeroed. Returns, per fault and tensor, which checks catch
-        it; a fault that the three checks together let through fails the
-        smoke. Nothing here is counted as a main-path launch."""
+        entry of each k-major walk skipped (dk, dv), the last k block's
+        dk and dv zeroed, and ``flex_dkv`` built with its second consumer
+        warpgroup's dK partial dropped (dk). Returns, per fault and tensor,
+        which checks catch it; a fault that the three checks together let
+        through fails the smoke. Nothing here is counted as a main-path
+        launch."""
         import torch
+        from magiattention_tpu_torch import csrc
         from magiattention_tpu_torch.ops import flex_attn as fa
 
         def skip_last(tab):
@@ -346,12 +373,19 @@ class Flex:
         dk, dv = (x[:, :tk].clone() for x in self.dkv_kernel())
         last = (tk - 1) // GRAD_BLOCK * GRAD_BLOCK
         dk[:, last:], dv[:, last:] = 0.0, 0.0
-        torch.cuda.synchronize()
+        real, launched = csrc._libs["flex_dkv"], csrc.launches["flex_dkv"]
+        csrc._libs["flex_dkv"] = planted["flex_dkv"]
+        try:
+            dk_drop = self.dkv_kernel()[0]
+            torch.cuda.synchronize()
+        finally:
+            csrc._libs["flex_dkv"], csrc.launches["flex_dkv"] = real, launched
         plants = {
             "skip_last_q_walk_entry": [("dq", dq_skip[:, :tq], ref_dq)],
             "skip_last_k_walk_entry": [("dk", dk_skip[:, :tk], ref_dk),
                                        ("dv", dv_skip[:, :tk], ref_dv)],
             "zero_last_k_block": [("dk", dk, ref_dk), ("dv", dv, ref_dv)],
+            "drop_second_warpgroup_dk_partial:flex_dkv": [("dk", dk_drop[:, :tk], ref_dk)],
         }
         caught = {}
         for plant, pairs in plants.items():
@@ -502,21 +536,92 @@ PLANT_FIRST_KV_HEAD = [
 ]
 
 
+# The warp-specialised dk/dv with the second consumer warpgroup's dK partial
+# dropped before the final sum (each warpgroup takes every other (entry, q
+# head) item of the walk). Planted into a copy of flex_bwd_sm90.cuh; the
+# backward checks must catch it.
+PLANT_DROP_WG1_DK = [
+    ("    add_stashed<0, J>(dka, sib_k, tid);\n", ""),
+]
+
+# The row-major backward walk before TMA and wgmma (flex_bwd.cuh's per-item
+# bodies, mma.sync, one warpgroup, one (head, block) item per thread block
+# on the (blocks, heads) grid), built beside the kernels as the yardstick of
+# ``bwd_timing``. Never launched on a main path.
+MMA_SYNC_WALK_SOURCE = r"""
+#include "flex_bwd.cuh"
+using namespace flex;
+#define ARGS const bf16 *q, const bf16 *k, const bf16 *v, const bf16 *dout, const float *lse, \
+    const float *delta, const int *blk, const int *sid, const int *runs, const int *bounds, \
+    const int *rs, const int *rc
+#define PASS q, k, v, dout, lse, delta, blk, sid, runs, bounds, rs, rc
+template <int D> __global__ void __launch_bounds__(NTHREADS)
+dq_walk(ARGS, float *dq, int group, int tqp, int tkp, float scale, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dq_item<D>(PASS, dq, group, tqp, tkp, scale, softcap, blockIdx.y, blockIdx.x, smem);
+}
+template <int D> __global__ void __launch_bounds__(NTHREADS)
+dkv_walk(ARGS, float *dk, float *dv, int group, int tqp, int tkp, float scale, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dkv_item<D>(PASS, dk, dv, group, tqp, tkp, scale, softcap, blockIdx.y, blockIdx.x, smem);
+}
+template <typename K> cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int mma_sync_flex_dq(ARGS, float *dq, int hq, int hk, int tqp, int tkp, int d, int nq,
+                     float scale, float softcap, cudaStream_t st) {
+  const dim3 grid(nq, hq);
+  cudaError_t err = d == 64 ? prepare(dq_walk<64>, dq_smem<64>())
+                            : prepare(dq_walk<128>, dq_smem<128>());
+  if (err != cudaSuccess) return err;
+  if (d == 64)
+    dq_walk<64><<<grid, NTHREADS, dq_smem<64>(), st>>>(PASS, dq, hq / hk, tqp, tkp, scale,
+                                                       softcap);
+  else
+    dq_walk<128><<<grid, NTHREADS, dq_smem<128>(), st>>>(PASS, dq, hq / hk, tqp, tkp, scale,
+                                                         softcap);
+  return cudaGetLastError();
+}
+int mma_sync_flex_dkv(ARGS, float *dk, float *dv, int hq, int hk, int tqp, int tkp, int d,
+                      int nk, float scale, float softcap, cudaStream_t st) {
+  const dim3 grid(nk, hk);
+  cudaError_t err = d == 64 ? prepare(dkv_walk<64>, dkv_smem<64>())
+                            : prepare(dkv_walk<128>, dkv_smem<128>());
+  if (err != cudaSuccess) return err;
+  if (d == 64)
+    dkv_walk<64><<<grid, NTHREADS, dkv_smem<64>(), st>>>(PASS, dk, dv, hq / hk, tqp, tkp, scale,
+                                                         softcap);
+  else
+    dkv_walk<128><<<grid, NTHREADS, dkv_smem<128>(), st>>>(PASS, dk, dv, hq / hk, tqp, tkp,
+                                                           scale, softcap);
+  return cudaGetLastError();
+}
+}
+"""
+
+
 def start_planted_build():
-    """nvcc of both sparse forwards over the mutated header and of the
-    mutated head-batched forward, started now and collected by
-    :func:`planted_libraries`. Nothing of it is counted as a main-path
-    launch."""
+    """nvcc of both sparse forwards over the mutated header, of the mutated
+    head-batched forward, of ``flex_dkv`` over the mutated
+    ``flex_bwd_sm90.cuh`` and of the previous backward walk, started now and
+    collected by :func:`planted_libraries`. Nothing of it is counted as a
+    main-path launch."""
     import shutil as sh
 
     from magiattention_tpu_torch import csrc
 
     out_dir = os.path.join(csrc.BUILD_DIR, "planted")
     os.makedirs(out_dir, exist_ok=True)
-    for name in ("flex_tile.cuh", "flex_fwd.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu"):
+    for name in ("flex_tile.cuh", "flex_fwd.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu",
+                 "flex_sm90.cuh", "flex_dkv.cu", "flex_bwd.cuh"):
         sh.copyfile(os.path.join(csrc._DIR, name), os.path.join(out_dir, name))
+    with open(os.path.join(out_dir, "mma_sync_walk.cu"), "w") as f:
+        f.write(MMA_SYNC_WALK_SOURCE)
     for source, plants in (("flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
-                           ("flex_fwd_hb.cu", PLANT_FIRST_KV_HEAD)):
+                           ("flex_fwd_hb.cu", PLANT_FIRST_KV_HEAD),
+                           ("flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK)):
         with open(os.path.join(csrc._DIR, source)) as f:
             src = f.read()
         for old, new in plants:
@@ -525,7 +630,8 @@ def start_planted_build():
         with open(os.path.join(out_dir, source), "w") as f:
             f.write(src)
     procs = {}
-    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_fwd_hb"):
+    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_fwd_hb", "flex_dkv",
+                 "mma_sync_walk"):
         lib = os.path.join(out_dir, f"lib{name}_planted.so")
         cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -539,12 +645,18 @@ def planted_libraries(procs) -> dict:
     from magiattention_tpu_torch import csrc
 
     libs = {}
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, (proc, path) in procs.items():
         log, _ = proc.communicate()
         check(proc.returncode == 0, f"planted {name} did not build:\n{log}")
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, csrc.KERNELS[name].entry)
-        fn.argtypes, fn.restype = csrc.KERNELS[name].argtypes, ctypes.c_int
+        if name == "mma_sync_walk":
+            # q k v dout lse delta | 6 tables | outputs | 6 ints | scale softcap stream
+            for fn, outs in ((lib.mma_sync_flex_dq, 1), (lib.mma_sync_flex_dkv, 2)):
+                fn.argtypes, fn.restype = [P] * 12 + [P] * outs + [I] * 6 + [F, F, P], ctypes.c_int
+        else:
+            fn = getattr(lib, csrc.KERNELS[name].entry)
+            fn.argtypes, fn.restype = csrc.KERNELS[name].argtypes, ctypes.c_int
         lib.magi_error_string.argtypes = [ctypes.c_int]
         lib.magi_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -601,7 +713,10 @@ def sparse_planted_faults(p, planted) -> dict:
 
 
 def flex_cases(gen) -> None:
-    """The forward with 4 q heads per kv head, the backward with 4 and 2."""
+    """The forward with 4 q heads per kv head; the backward at head_dim 128
+    and 64 with 4, 2 and 1 q heads per kv head (``flex_dq`` on a head pair
+    per block at G 4 and 2, on one head with its walk split between the two
+    consumer warpgroups at G 1)."""
     C, F, I, B = 1, 0, 2, 3
     hq = 8
     cases = [
@@ -620,7 +735,9 @@ def flex_cases(gen) -> None:
         p = Flex(gen, tq, tk, hq, 2, qr, kr, ty, **kw)
         p.check(name)
         p.check_bwd(f"{name}_bwd_g4")
-        Flex(gen, tq, tk, hq, 4, qr, kr, ty, **kw).check_bwd(f"{name}_bwd_g2")
+        for d, g in ((128, 2), (128, 1), (64, 4), (64, 2), (64, 1)):
+            Flex(gen, tq, tk, hq, hq // g, qr, kr, ty, d=d, **kw).check_bwd(
+                f"{name}_bwd_g{g}_d{d}")
 
 
 def hb_planted_fault(gen, planted) -> dict:
@@ -757,11 +874,50 @@ def flex_timing(gen, t: int) -> dict:
             "flex_fwd_hb_2g_ms": ms[f"hb{2 * g}"]}
 
 
+def mma_sync_walk(lib, p):
+    """Launchers of the previous backward walk (the ``mma_sync_walk`` side
+    library) on ``p``'s backward inputs, checked once against the plain
+    backward. A yardstick only: nothing here is counted as a launch."""
+    import torch
+
+    q, k, v, do, lse, delta = p.bwd_inputs()
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    f32 = dict(dtype=torch.float32, device="cuda")
+    dq, dk, dv = torch.empty((hq, tqp, d), **f32), *(torch.empty((hk, tkp, d), **f32)
+                                                     for _ in range(2))
+    head = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+
+    def run(fn, tables, outs, blocks):
+        code = fn(*head, *(x.data_ptr() for x in tables[1:7]), *(o.data_ptr() for o in outs),
+                  hq, hk, tqp, tkp, d, blocks, p.params.scale, p.params.softcap,
+                  torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous backward walk: CUDA error {code}")
+
+    def run_dq():
+        run(lib.mma_sync_flex_dq, p.tables, (dq,), tqp // BLOCK)
+
+    def run_dkv():
+        run(lib.mma_sync_flex_dkv, p.btables, (dk, dv), tkp // BLOCK)
+
+    run_dq()
+    run_dkv()
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = p.dkv_plain()
+    for what, got, ref, t in (("dq", dq, p.dq_plain(), p.tq), ("dk", dk, ref_dk, p.tk),
+                              ("dv", dv, ref_dv, p.tk)):
+        _, failed = grad_errors(got[:, :t], ref[:, :t])
+        check(not failed, f"the previous backward walk's {what} fails the {failed} check(s)")
+    return run_dq, run_dkv
+
+
 def bwd_timing(gen, t: int, planted) -> dict:
     """Both backward kernels and their plain versions on one causal
     sequence at the training widths, each kernel's bound from its own work,
-    and the backward of PyTorch's ``scaled_dot_product_attention`` on the
-    same problem (fwd+bwd minus fwd) as a yardstick for the pair."""
+    each kernel timed in turns with the previous walk on the same problem
+    (new, old, old, new), and the backward of PyTorch's
+    ``scaled_dot_product_attention`` on the same problem (fwd+bwd minus fwd)
+    as a yardstick for the pair."""
     import torch
     import torch.nn.functional as Fn
 
@@ -770,11 +926,18 @@ def bwd_timing(gen, t: int, planted) -> dict:
     p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
     p.check_hb(f"flex_causal_{t}_training_widths", hq // hk)
     emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
-          "caught": p.planted_faults()})
+          "caught": p.planted_faults(planted)})
     emit({"phase": "planted_faults", "case": f"sparse_grid_causal_{t}_training_widths",
           "caught": sparse_planted_faults(p, planted)})
-    dq_ms = cuda_ms(p.dq_kernel, reps=10)
-    dkv_ms = cuda_ms(p.dkv_kernel, reps=10)
+    old_dq, old_dkv = mma_sync_walk(planted["mma_sync_walk"], p)
+    runs = {"flex_dq": p.dq_kernel, "mma_sync_dq": old_dq,
+            "flex_dkv": p.dkv_kernel, "mma_sync_dkv": old_dkv}
+    samples = {name: [] for name in runs}
+    for new, old in (("flex_dq", "mma_sync_dq"), ("flex_dkv", "mma_sync_dkv")):
+        for name in (new, old, old, new):
+            samples[name].append(cuda_ms(runs[name], reps=10))
+    ms = {name: sum(x) / len(x) for name, x in samples.items()}
+    dq_ms, dkv_ms = ms["flex_dq"], ms["flex_dkv"]
     dq_plain_ms = cuda_ms(p.dq_plain, reps=2, warmup=1)
     dkv_plain_ms = cuda_ms(p.dkv_plain, reps=2, warmup=1)
     q, k, v = (x[:, :t].unsqueeze(0).detach().requires_grad_() for x in (p.q, p.k, p.v))
@@ -797,7 +960,12 @@ def bwd_timing(gen, t: int, planted) -> dict:
     dq_bound = bound(6.0 * area * D * hq, in_bytes + 4 * t * hq * D)
     dkv_bound = bound(8.0 * area * D * hq, in_bytes + 4 * 2 * t * hk * D)
     return {
-        "tokens": t, "hq": hq, "hk": hk, "area": area,
+        "tokens": t, "hq": hq, "hk": hk, "area": area, "card": nvidia_smi_line(),
+        "ms_in_turns": samples,
+        "previous_walk_ms": {"flex_dq": ms["mma_sync_dq"], "flex_dkv": ms["mma_sync_dkv"]},
+        "speedup_over_previous_walk": {"flex_dq": ms["mma_sync_dq"] / dq_ms,
+                                       "flex_dkv": ms["mma_sync_dkv"] / dkv_ms},
+        "share_of_bound": {"flex_dq": dq_bound[0] / dq_ms, "flex_dkv": dkv_bound[0] / dkv_ms},
         "flex_dq": {"ms": dq_ms, "plain_ms": dq_plain_ms, "bound_ms": dq_bound[0],
                     "bound_by": dq_bound[1], "library_ms": sdpa_bwd_ms},
         "flex_dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_bound[0],
@@ -1574,7 +1742,9 @@ def main(argv=None) -> int:
         "wall_s": time.perf_counter() - t0,
         "nvcc_s": {n: r["seconds"] for n, r in built.items()},
         "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
-                      if "registers" in ln or "spill" in ln] for n, r in built.items()},
+                      if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+                  for n, r in built.items()},
+        "sass": {n: sass_counts(built[n]["path"]) for n in ("flex_dq", "flex_dkv")},
     })
     print(nvidia_smi_line(), flush=True)
 

@@ -2,10 +2,15 @@
 
 Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
-``int``; the return value is the ``cudaError_t`` of the launch); the eight
-flex-attention kernels share ``flex_tile.cuh``, the two row-major forwards
-the walk of ``flex_fwd.cuh``, the backward ones the per-item bodies of
-``flex_bwd.cuh`` and the two sparse-grid forwards ``flex_fwd_sparse.cuh``.
+``int``; the return value is the ``cudaError_t`` of the launch). The
+headers they share: all eight flex-attention kernels ``flex_tile.cuh`` (the
+tile, the per-entry mask, the per-logit core); the two row-major forwards
+(``flex_fwd``, ``flex_fwd_hb``) the walk of ``flex_fwd.cuh``; the two
+row-major backward kernels (``flex_dq``, ``flex_dkv``) the
+warp-specialised TMA + wgmma walks of ``flex_bwd_sm90.cuh`` over the Hopper
+primitives of ``flex_sm90.cuh``; the two sparse-grid backward kernels
+(``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item bodies of
+``flex_bwd.cuh``; the two sparse-grid forwards ``flex_fwd_sparse.cuh``.
 On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
@@ -44,7 +49,8 @@ class Kernel(NamedTuple):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_HEADERS = ("flex_tile.cuh", "flex_fwd.cuh")
-_BWD_HEADERS = ("flex_tile.cuh", "flex_bwd.cuh")
+_BWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_bwd_sm90.cuh")
+_BWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_bwd.cuh")
 _FWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_fwd_sparse.cuh")
 # the sparse-grid forwards: q k v sink | kblk sid runs bounds rs rc | work
 # counter | out lse rowmax; hq hk tqp tkp head_dim nq block_q block_k n_items
@@ -76,8 +82,8 @@ KERNELS: dict[str, Kernel] = {
     "flex_dq": Kernel(
         "flex_dq.cu",
         "magi_flex_dq",
-        # q k v dout lse delta | kblk sid runs bounds rs rc | dq
-        [_P] * 6 + [_P] * 6 + [_P]
+        # q k v dout lse delta | kblk sid runs bounds rs rc | order | dq
+        [_P] * 6 + [_P] * 6 + [_P] + [_P]
         # hq hk tqp tkp head_dim nq block_q block_k
         + [_I] * 8
         # scale softcap stream
@@ -87,8 +93,8 @@ KERNELS: dict[str, Kernel] = {
     "flex_dkv": Kernel(
         "flex_dkv.cu",
         "magi_flex_dkv",
-        # q k v dout lse delta | qblk sid runs bounds rs rc | dk dv
-        [_P] * 6 + [_P] * 6 + [_P] * 2
+        # q k v dout lse delta | qblk sid runs bounds rs rc | order | dk dv
+        [_P] * 6 + [_P] * 6 + [_P] + [_P] * 2
         # hq hk tqp tkp head_dim nk block_q block_k
         + [_I] * 8
         # scale softcap stream
@@ -111,7 +117,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 9
         # scale softcap stream
         + [_F, _F, _P],
-        _BWD_HEADERS,
+        _BWD_SPARSE_HEADERS,
     ),
     "flex_dkv_sparse": Kernel(
         "flex_dkv_sparse.cu",
@@ -122,7 +128,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 9
         # scale softcap stream
         + [_F, _F, _P],
-        _BWD_HEADERS,
+        _BWD_SPARSE_HEADERS,
     ),
     "paged_decode": Kernel(
         "decode.cu",

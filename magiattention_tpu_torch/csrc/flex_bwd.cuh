@@ -1,8 +1,10 @@
-// The per-item bodies of the flex-attention backward kernels, shared by the
-// row-major flex_dq.cu / flex_dkv.cu (one item per thread block, from the
-// block index) and the sparse-grid flex_dq_sparse.cu / flex_dkv_sparse.cu
-// (persistent blocks taking items from a work list). The math, the design
-// and what bounds it are described in flex_dq.cu and flex_dkv.cu.
+// The per-item bodies of the sparse-grid flex-attention backward kernels
+// flex_dq_sparse.cu / flex_dkv_sparse.cu (persistent blocks taking items
+// from a work list): mma.sync, loads by the threads, no pipeline. The
+// row-major flex_dq.cu / flex_dkv.cu ran them too until they moved onto the
+// TMA + wgmma walks of flex_bwd_sm90.cuh; the sparse twins follow them there
+// in ROADMAP.md's slice 8, and until then this header serves only them. The
+// math is the one flex_dq.cu and flex_dkv.cu describe.
 #pragma once
 
 #include "flex_tile.cuh"

@@ -12,7 +12,8 @@ it. Two grids, as in the JAX package:
   walk for ``head_block`` q heads per block (a kv head's q heads packed in
   pairs), ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
   ``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
-  table for dk/dv;
+  table for dk/dv (both warp-specialised TMA + wgmma kernels, their blocks
+  launched longest walk first: :func:`walk_order`);
 - ``sparse``, the compact grid for heterogeneous masks: persistent kernels
   that take (heads, block) items from a longest-walk-first work list
   (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
@@ -528,20 +529,42 @@ def _bwd_kernel_args(name, q, k, v, do, lse, delta, params):
     )
 
 
+def walk_order(rc: torch.Tensor) -> torch.Tensor:
+    """The launch order of the row-major backward kernels' blocks: block
+    indices by the length of their walk (``rc``), longest first, ties in
+    index order (int32, on ``rc``'s device). The card dispatches blocks in
+    launch order, so the long walks start first and the short ones fill the
+    tail: on a causal mask the q blocks last to first for dq, the k blocks
+    first to last for dkv."""
+    return torch.sort(rc, descending=True, stable=True).indices.to(torch.int32)
+
+
+def _check_tma_aligned(name, tensors) -> None:
+    """The row-major backward kernels load q, k, v and dout through TMA
+    tensor maps and lse / delta with bulk copies: each base must be 16-byte
+    aligned (their row strides, 2 d and 4 bytes x 64, are)."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} at {t.data_ptr():#x} is not 16-byte aligned "
+                             "(TMA needs it)")
+
+
 def _dq_kernel(q, k, v, do, lse, delta, ftab, params: FlexAttnParams):
     """The ``flex_dq`` Hopper kernel on CUDA tensors, same contract as
     :func:`_dq_torch` (dq in float32). Raises on what it does not take."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq", q, k, v, do, lse, delta, params)
+    _check_tma_aligned("flex_dq", dict(q=q, k=k, v=v, dout=do))
     dq = torch.empty((hq, tqp, d), dtype=torch.float32, device=q.device)
     _qblk, kblk, sid, runs, bounds, rs, rc = ftab
+    order = walk_order(rc)
     csrc.launch(
         "flex_dq",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
-        rs.data_ptr(), rc.data_ptr(), dq.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), order.data_ptr(), dq.data_ptr(),
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, float(params.scale), float(params.softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -556,15 +579,17 @@ def _dkv_kernel(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     q, k, v, do, lse, delta = _bwd_kernel_args("flex_dkv", q, k, v, do, lse, delta, params)
+    _check_tma_aligned("flex_dkv", dict(q=q, k=k, v=v, dout=do, lse=lse, delta=delta))
     dk = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
     dv = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
     _kblk, qblk, sid, runs, bounds, rs, rc = btab
+    order = walk_order(rc)
     csrc.launch(
         "flex_dkv",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         qblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
-        rs.data_ptr(), rc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), order.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         hq, hk, tqp, tkp, d, tkp // params.block_k, params.block_q,
         params.block_k, float(params.scale), float(params.softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
