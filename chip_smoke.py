@@ -11,17 +11,17 @@ Phases, each printing one JSON line:
    ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
    ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
    ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
-   (with three mutated copies for the planted faults and the previous,
-   pre-TMA row-major backward walk as a yardstick library), print ptxas's
-   registers and spills and, for ``flex_dq`` and ``flex_dkv``, the count of
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   (with mutated copies for the planted faults and the previous, pre-TMA
+   row-major forward and backward walks as yardstick libraries), print
+   ptxas's registers and spills and, for the four row-major kernels, the
+   count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
    ``cuobjdump -sass``, and print the card's name and power limit as
    nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
    bf16 at head_dim 128 (and 64 for the head-batched and sparse-grid
-   forwards), on the mask families and ragged lengths below (the backward
-   at head_dim 128 and 64 with 4, 2 and 1 q heads per kv head and a random
-   lse cotangent; the
+   forwards), on the mask families and ragged lengths below (``flex_fwd``
+   and the backward at head_dim 128 and 64 with 4, 2 and 1 q heads per kv
+   head, the backward with a random lse cotangent; the
    head-batched row-major forward at 1, 2 and 4 q heads per kv head and G
    and 2G heads per block, and whether it equals ``flex_fwd`` bit for bit;
    the sparse grid at 1, 2 and 4 q heads per kv head and one, G and 2G
@@ -30,14 +30,16 @@ Phases, each printing one JSON line:
    planted in the kernels (the backward walks cut short, the AMLA rescale
    skipped once per row in a mutated copy of the sparse forward, every head
    of a head-batched item reading the first head's kv head in a mutated
-   copy of ``flex_fwd_hb``, the second consumer warpgroup's dK partial
-   dropped before the final sum in a mutated copy of ``flex_dkv``), which
-   the checks must catch; then the row-major kernels' times at their main
-   path's shapes (``flex_fwd`` and ``flex_fwd_hb`` at head_block G and 2G on
-   the serving prefill; ``flex_dq`` and ``flex_dkv`` on causal 8192 at the
-   training widths, in turns with the previous walk) beside the plain
-   version's, a PyTorch ``scaled_dot_product_attention`` yardstick and the
-   card's bound;
+   copy of ``flex_fwd_hb``, the second consumer warpgroup's partial dropped
+   from the odd-G merge in a mutated copy of ``flex_fwd``, the second
+   consumer warpgroup's dK partial dropped before the final sum in a
+   mutated copy of ``flex_dkv``), which the checks must catch; then the
+   row-major kernels' times at their main path's shapes, each in turns with
+   the previous walk (``flex_fwd`` and ``flex_fwd_hb`` at head_block G and
+   2G on the serving prefill and on causal 8192 at the training widths;
+   ``flex_dq`` and ``flex_dkv`` on the latter) beside the plain version's,
+   a PyTorch ``scaled_dot_product_attention`` yardstick and the card's
+   bound;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -266,7 +268,7 @@ class Flex:
     plain version."""
 
     def __init__(self, gen, tq, tk, hq, hk, q_ranges, k_ranges, types, *,
-                 softcap=0.0, sink=None, d=D, head_block=None):
+                 softcap=0.0, sink=None, d=D, head_block=None, out_dtype=None):
         import torch
         from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -288,7 +290,7 @@ class Flex:
         )
         self.params = fa.FlexAttnParams(
             block_q=bq, block_k=bk, scale=1.0 / math.sqrt(d), softcap=softcap,
-            has_sink=sink is not None, out_dtype=torch.bfloat16,
+            has_sink=sink is not None, out_dtype=out_dtype or torch.bfloat16,
         )
         self.tables = fa.fwd_tables(self.meta, "cuda:0")
         self.btables = fa.bwd_tables(self.meta, "cuda:0")
@@ -406,10 +408,13 @@ class Flex:
         return fa._fwd_torch(self.q, self.k, self.v, self.sink, self.tables, self.params)
 
     def check(self, name) -> None:
+        """``flex_fwd`` against the plain forward, twice for the same bits."""
         import torch
 
         out, lse, rowmax = self.kernel()
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), self.kernel())),
+              f"{name}: flex_fwd differs between two runs")
         ref_out, ref_lse, ref_rowmax = self.plain()
         tq = self.tq
         compare("flex_fwd", name, out[:, :tq], ref_out[:, :tq], lse[:, :tq],
@@ -529,10 +534,20 @@ PLANT_SKIP_RESCALE = [
 
 # The head-batched row-major forward with the head-mapping bug that head
 # batching invites: every head of a work item reads the kv head of the
-# item's first head. Planted into a copy of flex_fwd_hb.cu; the checks of
-# ``check_hb`` must catch it where an item spans two kv heads.
+# item's first head. Planted into a copy of flex_fwd_sm90.cuh's producer,
+# built as flex_fwd_hb; the checks of ``check_hb`` must catch it where an
+# item spans two kv heads.
 PLANT_FIRST_KV_HEAD = [
-    ("    const int kvh = (h_item + c) / group;\n", "    const int kvh = h_item / group;\n"),
+    ("    const int kvh = h0 / group;\n", "    const int kvh = h_item / group;\n"),
+]
+
+# The warp-specialised forward with the second consumer warpgroup's
+# (reference, l, O) partial dropped from the merge that ends an odd-G walk
+# (the two warpgroups split a head's walk by k block). Planted into a copy of
+# flex_fwd_sm90.cuh, built as flex_fwd; the forward checks must catch it.
+PLANT_DROP_WG1_PARTIAL = [
+    ("    const float w1 = ref1 == -INFINITY ? 0.f : expf(ref1 - rs);\n",
+     "    const float w1 = 0.f;\n"),
 ]
 
 
@@ -543,6 +558,16 @@ PLANT_FIRST_KV_HEAD = [
 PLANT_DROP_WG1_DK = [
     ("    add_stashed<0, J>(dka, sib_k, tid);\n", ""),
 ]
+
+# Each mutated build: (the kernel source compiled, the source mutated, its
+# plants), in a directory of its own beside the kernels.
+PLANTED = {
+    "flex_fwd_sparse": ("flex_fwd_sparse.cu", "flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
+    "flex_fwd_sparse_hb": ("flex_fwd_sparse_hb.cu", "flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
+    "flex_fwd_hb": ("flex_fwd_hb.cu", "flex_fwd_sm90.cuh", PLANT_FIRST_KV_HEAD),
+    "flex_fwd_drop_partial": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_DROP_WG1_PARTIAL),
+    "flex_dkv": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK),
+}
 
 # The row-major backward walk before TMA and wgmma (flex_bwd.cuh's per-item
 # bodies, mma.sync, one warpgroup, one (head, block) item per thread block
@@ -601,39 +626,118 @@ int mma_sync_flex_dkv(ARGS, float *dk, float *dv, int hq, int hk, int tqp, int t
 }
 """
 
+# The row-major forward walk before TMA and wgmma (flex_fwd.cuh's fwd_rows:
+# mma.sync, synchronous tile loads), in both launch shapes it had: one q
+# head per thread block on the (q blocks, q heads) grid, and head_block q
+# heads (a kv head's heads two at a time where G is even) on the (head
+# groups, q blocks) grid with the q blocks last first. bf16 out. Built
+# beside the kernels as the forward's yardstick; never launched on a main
+# path.
+MMA_SYNC_FWD_SOURCE = r"""
+#include "flex_fwd.cuh"
+using namespace flex;
+#define ARGS const bf16 *q, const bf16 *k, const bf16 *v, const float *sink, const int *kblk, \
+    const int *sid, const int *runs, const int *bounds, const int *rs, const int *rc, bf16 *out, \
+    float *lse, float *rowmax
+#define PASS q, k, v, sink, kblk, sid, runs, bounds, rs, rc, out, lse, rowmax
+template <int D> __global__ void __launch_bounds__(NTHREADS)
+fwd_walk(ARGS, int group, int tqp, int tkp, float scale, float softcap, int has_sink) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.y;
+  fwd_rows<D, 1, bf16>(PASS, h, h / group, blockIdx.x, tqp, tkp, scale, softcap, has_sink, smem);
+}
+template <int D, int NH> __global__ void __launch_bounds__(NH * NTHREADS)
+fwd_hb_walk(ARGS, int group, int tqp, int tkp, int nq, int head_block, float scale,
+            float softcap, int has_sink) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h_item = blockIdx.x * head_block;
+  const int i = nq - 1 - blockIdx.y;
+  for (int c = 0; c < head_block; c += NH) {
+    if (c > 0) __syncthreads();
+    fwd_rows<D, NH, bf16>(PASS, h_item + c, (h_item + c) / group, i, tqp, tkp, scale, softcap,
+                          has_sink, smem);
+  }
+}
+template <typename K> cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+#define LAUNCH(KERNEL, SMEM, THREADS, ...)                          \
+  do {                                                              \
+    cudaError_t err = prepare(KERNEL, SMEM);                        \
+    if (err != cudaSuccess) return err;                             \
+    KERNEL<<<grid, THREADS, SMEM, st>>>(PASS, __VA_ARGS__);         \
+    return cudaGetLastError();                                      \
+  } while (0)
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int mma_sync_flex_fwd(ARGS, int hq, int hk, int tqp, int tkp, int d, int nq, float scale,
+                      float softcap, int has_sink, cudaStream_t st) {
+  const dim3 grid(nq, hq);
+  if (d == 64) {
+    auto kernel = fwd_walk<64>;
+    LAUNCH(kernel, (fwd_smem_bytes<64, 1>()), NTHREADS, hq / hk, tqp, tkp, scale, softcap,
+           has_sink);
+  }
+  auto kernel = fwd_walk<128>;
+  LAUNCH(kernel, (fwd_smem_bytes<128, 1>()), NTHREADS, hq / hk, tqp, tkp, scale, softcap,
+         has_sink);
+}
+#define LAUNCH_HB(DIM, NH)                                                                      \
+  do {                                                                                         \
+    auto kernel = fwd_hb_walk<DIM, NH>;                                                        \
+    LAUNCH(kernel, (fwd_smem_bytes<DIM, NH>()), NH * NTHREADS, hq / hk, tqp, tkp, nq,          \
+           head_block, scale, softcap, has_sink);                                              \
+  } while (0)
+int mma_sync_flex_fwd_hb(ARGS, int hq, int hk, int tqp, int tkp, int d, int nq, int head_block,
+                         float scale, float softcap, int has_sink, cudaStream_t st) {
+  const dim3 grid(hq / head_block, nq);
+  const bool pairs = (hq / hk) % 2 == 0;
+  if (d == 64 && pairs) LAUNCH_HB(64, 2);
+  if (d == 64) LAUNCH_HB(64, 1);
+  if (pairs) LAUNCH_HB(128, 2);
+  LAUNCH_HB(128, 1);
+}
+}
+"""
 
-def start_planted_build():
-    """nvcc of both sparse forwards over the mutated header, of the mutated
-    head-batched forward, of ``flex_dkv`` over the mutated
-    ``flex_bwd_sm90.cuh`` and of the previous backward walk, started now and
-    collected by :func:`planted_libraries`. Nothing of it is counted as a
-    main-path launch."""
+# the previous walks, yardsticks built beside the kernels
+YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE}
+
+
+def start_planted_build(names=None):
+    """nvcc of each mutated build of ``PLANTED`` and each yardstick of
+    ``YARDSTICKS`` (default: all), each in a directory of its own under
+    ``csrc/build/planted/``, started now and collected by
+    :func:`planted_libraries`. Nothing of it is counted as a main-path
+    launch."""
     import shutil as sh
 
     from magiattention_tpu_torch import csrc
 
-    out_dir = os.path.join(csrc.BUILD_DIR, "planted")
-    os.makedirs(out_dir, exist_ok=True)
-    for name in ("flex_tile.cuh", "flex_fwd.cuh", "flex_fwd_sparse.cu", "flex_fwd_sparse_hb.cu",
-                 "flex_sm90.cuh", "flex_dkv.cu", "flex_bwd.cuh"):
-        sh.copyfile(os.path.join(csrc._DIR, name), os.path.join(out_dir, name))
-    with open(os.path.join(out_dir, "mma_sync_walk.cu"), "w") as f:
-        f.write(MMA_SYNC_WALK_SOURCE)
-    for source, plants in (("flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
-                           ("flex_fwd_hb.cu", PLANT_FIRST_KV_HEAD),
-                           ("flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK)):
-        with open(os.path.join(csrc._DIR, source)) as f:
-            src = f.read()
-        for old, new in plants:
-            check(src.count(old) == 1, f"planted fault: {old.strip()!r} is not in {source} once")
-            src = src.replace(old, new)
-        with open(os.path.join(out_dir, source), "w") as f:
-            f.write(src)
+    names = [*PLANTED, *YARDSTICKS] if names is None else list(names)
     procs = {}
-    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_fwd_hb", "flex_dkv",
-                 "mma_sync_walk"):
+    for name in names:
+        out_dir = os.path.join(csrc.BUILD_DIR, "planted", name)
+        os.makedirs(out_dir, exist_ok=True)
+        for f in os.listdir(csrc._DIR):
+            if f.endswith((".cu", ".cuh")):
+                sh.copyfile(os.path.join(csrc._DIR, f), os.path.join(out_dir, f))
+        if name in YARDSTICKS:
+            source = f"{name}.cu"
+            with open(os.path.join(out_dir, source), "w") as f:
+                f.write(YARDSTICKS[name])
+        else:
+            source, mutated, plants = PLANTED[name]
+            with open(os.path.join(csrc._DIR, mutated)) as f:
+                src = f.read()
+            for old, new in plants:
+                check(src.count(old) == 1,
+                      f"planted fault: {old.strip()!r} is not in {mutated} once")
+                src = src.replace(old, new)
+            with open(os.path.join(out_dir, mutated), "w") as f:
+                f.write(src)
         lib = os.path.join(out_dir, f"lib{name}_planted.so")
-        cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{name}.cu")]
+        cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
     return procs
@@ -654,9 +758,14 @@ def planted_libraries(procs) -> dict:
             # q k v dout lse delta | 6 tables | outputs | 6 ints | scale softcap stream
             for fn, outs in ((lib.mma_sync_flex_dq, 1), (lib.mma_sync_flex_dkv, 2)):
                 fn.argtypes, fn.restype = [P] * 12 + [P] * outs + [I] * 6 + [F, F, P], ctypes.c_int
+        elif name == "mma_sync_fwd":
+            # q k v sink | 6 tables | out lse rowmax | 6 (7) ints | scale softcap has_sink stream
+            for fn, ints in ((lib.mma_sync_flex_fwd, 6), (lib.mma_sync_flex_fwd_hb, 7)):
+                fn.argtypes, fn.restype = [P] * 13 + [I] * ints + [F, F, I, P], ctypes.c_int
         else:
-            fn = getattr(lib, csrc.KERNELS[name].entry)
-            fn.argtypes, fn.restype = csrc.KERNELS[name].argtypes, ctypes.c_int
+            kernel = next(k for k in csrc.KERNELS.values() if k.source == PLANTED[name][0])
+            fn = getattr(lib, kernel.entry)
+            fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
         lib.magi_error_string.argtypes = [ctypes.c_int]
         lib.magi_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -713,10 +822,10 @@ def sparse_planted_faults(p, planted) -> dict:
 
 
 def flex_cases(gen) -> None:
-    """The forward with 4 q heads per kv head; the backward at head_dim 128
-    and 64 with 4, 2 and 1 q heads per kv head (``flex_dq`` on a head pair
-    per block at G 4 and 2, on one head with its walk split between the two
-    consumer warpgroups at G 1)."""
+    """``flex_fwd`` and the backward at head_dim 128 and 64 with 4, 2 and 1
+    q heads per kv head (a head pair per block at G 4 and 2, one head with
+    its walk split between the two consumer warpgroups at G 1), and
+    ``flex_fwd`` with its out in float32."""
     C, F, I, B = 1, 0, 2, 3
     hq = 8
     cases = [
@@ -731,34 +840,54 @@ def flex_cases(gen) -> None:
          {"sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
         ("flex_uncovered_rows", 1000, 1000, [(100, 600)], [(0, 500)], [F], {}),
     ]
+    import torch
+
     for name, tq, tk, qr, kr, ty, kw in cases:
         p = Flex(gen, tq, tk, hq, 2, qr, kr, ty, **kw)
         p.check(name)
         p.check_bwd(f"{name}_bwd_g4")
+        for d, g in ((128, 4), (64, 1)):  # out in float32
+            Flex(gen, tq, tk, hq, hq // g, qr, kr, ty, d=d, out_dtype=torch.float32,
+                 **kw).check(f"{name}_g{g}_d{d}_f32_out")
         for d, g in ((128, 2), (128, 1), (64, 4), (64, 2), (64, 1)):
-            Flex(gen, tq, tk, hq, hq // g, qr, kr, ty, d=d, **kw).check_bwd(
-                f"{name}_bwd_g{g}_d{d}")
+            pg = Flex(gen, tq, tk, hq, hq // g, qr, kr, ty, d=d, **kw)
+            pg.check(f"{name}_g{g}_d{d}")
+            pg.check_bwd(f"{name}_bwd_g{g}_d{d}")
 
 
-def hb_planted_fault(gen, planted) -> dict:
-    """The checks of ``check_hb`` on the mutated ``flex_fwd_hb`` (every
-    head of an item on the first head's kv head), on a causal 2048 case at
-    G = 2 whose head_block 4 spans two kv heads. Returns which checks catch
-    it; a fault that passes them fails the smoke."""
+def fwd_planted_faults(gen, planted) -> dict:
+    """The forward checks on two faults planted in mutated builds of the
+    forward walk: every head of a ``flex_fwd_hb`` item on the first head's
+    kv head (a causal 2048 case at G = 2 whose head_block 4 spans two kv
+    heads), and, at G = 1, the second consumer warpgroup's partial dropped
+    from the merge of ``flex_fwd`` (causal 2048 at 8 / 8 heads). Returns
+    which checks catch each; a fault that passes them fails the smoke."""
     import torch
     from magiattention_tpu_torch import csrc
 
+    def planted_run(kernel, lib, fn):
+        real, launched = csrc._libs[kernel], csrc.launches[kernel]
+        csrc._libs[kernel] = lib
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+        finally:
+            csrc._libs[kernel], csrc.launches[kernel] = real, launched
+        return got
+
+    caught = {}
     p = Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1])
-    real, launched = csrc._libs["flex_fwd_hb"], csrc.launches["flex_fwd_hb"]
-    csrc._libs["flex_fwd_hb"] = planted["flex_fwd_hb"]
-    try:
-        got = p.hb_kernel(4)
-        torch.cuda.synchronize()
-    finally:
-        csrc._libs["flex_fwd_hb"], csrc.launches["flex_fwd_hb"] = real, launched
-    errs, failed = p.hb_errors(got)
-    check(bool(failed), f"planted fault in flex_fwd_hb passes the forward checks: {errs}")
-    return {"first_kv_head_for_every_head:flex_fwd_hb": {"failed_checks": failed, **errs}}
+    p1 = Flex(gen, 2048, 2048, 8, 8, [(0, 2048)], [(0, 2048)], [1])
+    for plant, q, got in (
+        ("first_kv_head_for_every_head:flex_fwd_hb", p,
+         planted_run("flex_fwd_hb", planted["flex_fwd_hb"], lambda: p.hb_kernel(4))),
+        ("drop_second_warpgroup_partial:flex_fwd", p1,
+         planted_run("flex_fwd", planted["flex_fwd_drop_partial"], p1.kernel)),
+    ):
+        errs, failed = q.hb_errors(got)
+        caught[plant] = {"failed_checks": failed, **errs}
+        check(bool(failed), f"planted fault {plant} passes the forward checks: {errs}")
+    return caught
 
 
 def hb_cases(gen) -> dict:
@@ -831,26 +960,74 @@ def sparse_cases(gen) -> None:
             f"{name}_g1_hb2")
 
 
-def flex_timing(gen, t: int) -> dict:
+def mma_sync_fwd(lib, p, head_block=None):
+    """A launcher of the previous forward walk (the ``mma_sync_fwd`` side
+    library) on ``p``'s inputs, in ``flex_fwd``'s launch shape or, with a
+    ``head_block``, ``flex_fwd_hb``'s; checked once against the plain
+    forward. A yardstick only: nothing here is counted as a launch."""
+    import torch
+
+    q, k, v = p.q, p.k, p.v
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    out = torch.empty((hq, tqp, d), dtype=torch.bfloat16, device="cuda")
+    lse, rowmax = (torch.empty((hq, tqp), device="cuda") for _ in range(2))
+    ptrs = [x.data_ptr() for x in (q, k, v, p.sink, *p.tables[1:7], out, lse, rowmax)]
+    shape = [hq, hk, tqp, tkp, d, tqp // BLOCK] + ([] if head_block is None else [head_block])
+    fn = lib.mma_sync_flex_fwd if head_block is None else lib.mma_sync_flex_fwd_hb
+    prm = p.params
+
+    def run():
+        code = fn(*ptrs, *shape, prm.scale, prm.softcap, int(prm.has_sink),
+                  torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous forward walk: CUDA error {code}")
+
+    run()
+    torch.cuda.synchronize()
+    _, failed = p.hb_errors((out, lse, rowmax))
+    check(not failed, f"the previous forward walk fails the {failed} check(s)")
+    return run
+
+
+def fwd_in_turns(p, planted, g, reps) -> dict:
+    """``flex_fwd`` and ``flex_fwd_hb`` at head_block ``g`` (and 2g where
+    given) on problem ``p``, each timed in turns with the previous walk in
+    the same launch shape (new, old, old, new). Returns the samples and the
+    means under ``name`` and ``previous:name``."""
+    old = planted["mma_sync_fwd"]
+    runs = {"flex_fwd": (p.kernel, mma_sync_fwd(old, p))}
+    for hb in g:
+        runs[f"hb{hb}"] = (lambda hb=hb: p.hb_kernel(hb), mma_sync_fwd(old, p, hb))
+    samples = {}
+    for name, (new, prev) in runs.items():
+        for which, fn in (("", new), ("previous:", prev), ("previous:", prev), ("", new)):
+            samples.setdefault(which + name, []).append(cuda_ms(fn, reps=reps))
+    return {"samples": samples, "ms": {n: sum(x) / len(x) for n, x in samples.items()}}
+
+
+def fwd_bound(p, t, hq, hk) -> tuple[float, str]:
+    """The forward's bound on a t-token problem: 4 d FLOPs per unmasked
+    pair and q head; q, k, v read and out, lse written once."""
+    flops = 4.0 * p.meta.total_area * D * hq
+    nbytes = 2 * (2 * t * hq * D + 2 * t * hk * D) + 4 * 2 * t * hq
+    return bound(flops, nbytes)
+
+
+def flex_timing(gen, t: int, planted) -> dict:
     """The serving prefill's forward on one causal prompt at the serving
     widths: ``flex_fwd`` (head_block 1) and ``flex_fwd_hb`` at head_block G
-    and 2G, timed in turns (each twice, in mirrored order), each checked at
-    this shape first; the plain version, SDPA and the card's bound for
-    that work. Returns one timing record per kernel (``flex_fwd_hb`` at G,
-    the automatic choice) and the 2G time."""
+    and 2G, each checked at this shape first and timed in turns with the
+    previous walk in its launch shape; the plain version, SDPA and the
+    card's bound for that work. Returns one timing record per kernel
+    (``flex_fwd_hb`` at G, the automatic choice) and the 2G times."""
     import torch.nn.functional as Fn
 
     p = Flex(gen, t, t, HQ, HK, [(0, t)], [(0, t)], [1])
     g = HQ // HK
     p.check(f"flex_causal_{t}_serving_widths")
     bitwise = {hb: p.check_hb(f"flex_causal_{t}_serving_widths", hb) for hb in (g, 2 * g)}
-    runs = {"flex_fwd": p.kernel, f"hb{g}": lambda: p.hb_kernel(g),
-            f"hb{2 * g}": lambda: p.hb_kernel(2 * g)}
-    order = list(runs) + list(reversed(runs))
-    samples = {name: [] for name in runs}
-    for name in order:
-        samples[name].append(cuda_ms(runs[name], reps=20))
-    ms = {name: sum(x) / len(x) for name, x in samples.items()}
+    turns = fwd_in_turns(p, planted, (g, 2 * g), reps=20)
+    ms = turns["ms"]
     plain_ms = cuda_ms(p.plain, reps=3, warmup=1)
     q = p.q[:, :t].unsqueeze(0)
     k = p.k[:, :t].unsqueeze(0)
@@ -859,17 +1036,20 @@ def flex_timing(gen, t: int) -> dict:
         lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         reps=20,
     )
-    flops = 4.0 * p.meta.total_area * D * HQ
-    nbytes = 2 * (2 * t * HQ * D + 2 * t * HK * D) + 4 * 2 * t * HQ
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = fwd_bound(p, t, HQ, HK)
+    names = {"flex_fwd": "flex_fwd", "flex_fwd_hb": f"hb{g}", "flex_fwd_hb_2g": f"hb{2 * g}"}
 
     def record(kernel_ms):
         return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms}
 
-    emit({"phase": "fwd_timing", "tokens": t, "hq": HQ, "hk": HK,
-          "ms_in_turns": samples, "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
-          "bound_ms": bound_ms, "bitwise_equal_to_flex_fwd": bitwise})
+    emit({"phase": "fwd_timing", "tokens": t, "hq": HQ, "hk": HK, "card": nvidia_smi_line(),
+          "ms_in_turns": turns["samples"], "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms,
+          "bound_ms": bound_ms, "bitwise_equal_to_flex_fwd": bitwise,
+          "previous_walk_ms": {k: ms[f"previous:{n}"] for k, n in names.items()},
+          "speedup_over_previous_walk": {k: ms[f"previous:{n}"] / ms[n]
+                                         for k, n in names.items()},
+          "share_of_bound": {k: bound_ms / ms[n] for k, n in names.items()}})
     return {"flex_fwd": record(ms["flex_fwd"]), "flex_fwd_hb": record(ms[f"hb{g}"]),
             "flex_fwd_hb_2g_ms": ms[f"hb{2 * g}"]}
 
@@ -924,6 +1104,7 @@ def bwd_timing(gen, t: int, planted) -> dict:
     hq, hk = TRAIN_HQ, TRAIN_HK
     p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1])
     p.check_bwd(f"flex_bwd_causal_{t}_training_widths")
+    p.check(f"flex_causal_{t}_training_widths")
     p.check_hb(f"flex_causal_{t}_training_widths", hq // hk)
     emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
           "caught": p.planted_faults(planted)})
@@ -949,10 +1130,11 @@ def bwd_timing(gen, t: int, planted) -> dict:
     def fwd_bwd():
         torch.autograd.grad(fwd(), (q, k, v), do)
 
-    fwd_ms = cuda_ms(p.kernel, reps=10)
     g = hq // hk
-    hb_ms = cuda_ms(lambda: p.hb_kernel(g), reps=10)  # the trainer's forward, head_block G
-    fwd_ms = (fwd_ms + cuda_ms(p.kernel, reps=10)) / 2
+    # the trainer's forward is flex_fwd_hb at head_block G
+    turns = fwd_in_turns(p, planted, (g,), reps=10)
+    fwd_ms, hb_ms = turns["ms"]["flex_fwd"], turns["ms"][f"hb{g}"]
+    fwd_b = fwd_bound(p, t, hq, hk)[0]
     sdpa_fwd_ms = cuda_ms(fwd, reps=10)
     sdpa_bwd_ms = cuda_ms(fwd_bwd, reps=10) - sdpa_fwd_ms
     area = p.meta.total_area
@@ -974,6 +1156,14 @@ def bwd_timing(gen, t: int, planted) -> dict:
         "flex_fwd_ms_same_problem": fwd_ms,
         f"flex_fwd_hb_head_block_{g}_ms_same_problem": hb_ms,
         "sdpa_fwd_ms_same_problem": sdpa_fwd_ms,
+        "fwd_ms_in_turns": turns["samples"],
+        "fwd_bound_ms": fwd_b,
+        "fwd_previous_walk_ms": {"flex_fwd": turns["ms"]["previous:flex_fwd"],
+                                 "flex_fwd_hb": turns["ms"][f"previous:hb{g}"]},
+        "fwd_speedup_over_previous_walk": {
+            "flex_fwd": turns["ms"]["previous:flex_fwd"] / fwd_ms,
+            "flex_fwd_hb": turns["ms"][f"previous:hb{g}"] / hb_ms},
+        "fwd_share_of_bound": {"flex_fwd": fwd_b / fwd_ms, "flex_fwd_hb": fwd_b / hb_ms},
     }
 
 
@@ -1744,7 +1934,7 @@ def main(argv=None) -> int:
         "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
                       if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
                   for n, r in built.items()},
-        "sass": {n: sass_counts(built[n]["path"]) for n in ("flex_dq", "flex_dkv")},
+        "sass": {n: sass_counts(built[n]["path"]) for n in ROW_MAJOR},
     })
     print(nvidia_smi_line(), flush=True)
 
@@ -1753,10 +1943,10 @@ def main(argv=None) -> int:
     flex_cases(gen)
     hb_line = hb_cases(gen)
     emit({"phase": "kernels", "kernel": "flex_fwd_hb", **hb_line})
-    emit({"phase": "planted_faults", "case": "hb_causal_2048_g2_head_block_4",
-          "caught": hb_planted_fault(gen, planted)})
+    emit({"phase": "planted_faults", "case": "fwd_causal_2048",
+          "caught": fwd_planted_faults(gen, planted)})
     sparse_cases(gen)
-    fwd_t = flex_timing(gen, 4096)
+    fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
     decode_cases(gen)

@@ -4,13 +4,15 @@ Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
 ``int``; the return value is the ``cudaError_t`` of the launch). The
 headers they share: all eight flex-attention kernels ``flex_tile.cuh`` (the
-tile, the per-entry mask, the per-logit core); the two row-major forwards
-(``flex_fwd``, ``flex_fwd_hb``) the walk of ``flex_fwd.cuh``; the two
-row-major backward kernels (``flex_dq``, ``flex_dkv``) the
-warp-specialised TMA + wgmma walks of ``flex_bwd_sm90.cuh`` over the Hopper
-primitives of ``flex_sm90.cuh``; the two sparse-grid backward kernels
+tile, the per-entry mask, the per-logit core); the four row-major kernels
+the Hopper primitives and warp-specialised block of ``flex_sm90.cuh`` — the
+two forwards (``flex_fwd``, ``flex_fwd_hb``) the TMA + wgmma walk of
+``flex_fwd_sm90.cuh``, the two backward kernels (``flex_dq``, ``flex_dkv``)
+those of ``flex_bwd_sm90.cuh``; the two sparse-grid backward kernels
 (``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item bodies of
 ``flex_bwd.cuh``; the two sparse-grid forwards ``flex_fwd_sparse.cuh``.
+``flex_fwd.cuh``, the previous forward walk, is no kernel's: it is the
+source of ``chip_smoke.py``'s yardstick.
 On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
@@ -48,7 +50,7 @@ class Kernel(NamedTuple):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_HEADERS = ("flex_tile.cuh", "flex_fwd.cuh")
+_FWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_fwd_sm90.cuh")
 _BWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_bwd_sm90.cuh")
 _BWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_bwd.cuh")
 _FWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_fwd_sparse.cuh")
@@ -60,8 +62,8 @@ KERNELS: dict[str, Kernel] = {
     "flex_fwd": Kernel(
         "flex_fwd.cu",
         "magi_flex_fwd",
-        # q k v sink | kblk sid runs bounds rs rc | out lse rowmax
-        [_P] * 4 + [_P] * 6 + [_P] * 3
+        # q k v sink | kblk sid runs bounds rs rc | order | out lse rowmax
+        [_P] * 4 + [_P] * 6 + [_P] + [_P] * 3
         # hq hk tqp tkp head_dim nq block_q block_k
         + [_I] * 8
         # scale softcap has_sink out_f32 stream
@@ -71,8 +73,8 @@ KERNELS: dict[str, Kernel] = {
     "flex_fwd_hb": Kernel(
         "flex_fwd_hb.cu",
         "magi_flex_fwd_hb",
-        # q k v sink | kblk sid runs bounds rs rc | out lse rowmax
-        [_P] * 4 + [_P] * 6 + [_P] * 3
+        # q k v sink | kblk sid runs bounds rs rc | order | out lse rowmax
+        [_P] * 4 + [_P] * 6 + [_P] + [_P] * 3
         # hq hk tqp tkp head_dim nq block_q block_k head_block
         + [_I] * 9
         # scale softcap has_sink out_f32 stream

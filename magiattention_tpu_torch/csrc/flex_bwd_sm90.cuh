@@ -33,18 +33,7 @@
 namespace flex {
 namespace sm90 {
 
-constexpr int CONSUMERS = 2;  // consumer warpgroups a block
-constexpr int BWD_THREADS = (CONSUMERS + 1) * WG_THREADS;  // and one producer warpgroup
-constexpr int STAGES = 4;  // ring depth: two stages in flight per consumer warpgroup
-// 128 x 24 + 256 x 240 registers: the 64 K of an SM, one block per SM
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr int BAR_CONSUMERS = 1;  // named barrier over both consumer warpgroups
-constexpr int BAR_WG = 2;         // + wg: one consumer warpgroup alone
-
-template <int D>
-constexpr int tile_bytes() {
-  return BQ * D * 2;  // 64 rows of D bf16
-}
+constexpr int BAR_WG = 2;  // + wg: one consumer warpgroup alone
 
 // flex_dq's shared memory, from a 1024-byte aligned base: the Q and dO tiles
 // of its NH resident q heads, then K and V per ring stage, then the barriers.
@@ -93,35 +82,6 @@ __device__ __forceinline__ void init_bars(const Bars& b, int empty_arrivals) {
   fence_barrier_init();
 }
 
-// A consumer warp is done with a stage: its lanes' reads (and, after a
-// wgmma wait, its products') are complete; one lane arrives for the warp.
-__device__ __forceinline__ void release_stage(uint32_t empty_bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty_bar);
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-template <int J>
-__device__ __forceinline__ void zero(float (&d)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
-}
-
-// A 64 x 64 accumulator tile, rounded to bf16, as the A fragments of its
-// four 16-column k slices.
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[BK / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
 // s = A B^T and t = C E^T over the D columns of four 64-row tiles at
 // shared-memory addresses a, b, c, e. Issued, not committed or waited for.
 template <int D>
@@ -134,26 +94,8 @@ __device__ __forceinline__ void two_scores(float (&s)[BK / 8][4], float (&t)[BK 
   }
 }
 
-// acc[64 x D] += A[64 x 64] tile[64 rows x D]: A from registers, the tile
-// as an MN-major B operand. Issued, not waited for.
-template <int J>
-__device__ __forceinline__ void acc_product(float (&acc)[J][4], const uint32_t (&a)[4][4],
-                                            uint32_t tile) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn_major(tile, kk));
-}
-
-// Accumulator columns J0 .. J0+N-1 (of 8) into / out of a thread-major
-// shared-memory buffer: the hand-over of a partial sum between the two
-// consumer warpgroups, whose threads hold the same (row, column) places.
-template <int J0, int N, int J>
-__device__ __forceinline__ void stash(float* buf, const float (&acc)[J][4], int tid) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) buf[(j * 4 + c) * WG_THREADS + tid] = acc[J0 + j][c];
-}
-
+// Accumulator columns J0 .. J0+N-1 plus the same columns that the other
+// warpgroup stashed (flex_sm90.cuh's stash).
 template <int J0, int N, int J>
 __device__ __forceinline__ void add_stashed(float (&acc)[J][4], const float* buf, int tid) {
 #pragma unroll

@@ -45,7 +45,7 @@ using namespace flex;
 using namespace flex::sm90;
 
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
 flex_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                 const float* __restrict__ lse, const float* __restrict__ delta,
@@ -93,7 +93,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(hk, nk);
-  kernel<<<grid, BWD_THREADS, smem, stream>>>(
+  kernel<<<grid, WS_THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, (const float*)lse, (const float*)delta, (const int*)qblk,
       (const int*)sid, (const int*)runs, (const int*)bounds, (const int*)rs, (const int*)rc,
       (const int*)order, (float*)dk, (float*)dv, hq / hk, tqp, tkp, scale, softcap);

@@ -1,31 +1,20 @@
-// The row-major flex-attention forward for Hopper (sm_90a), shared by
-// flex_fwd.cu (one q head per thread block) and flex_fwd_hb.cu (head_block
-// q heads per thread block, GQA rows packed two heads at a time).
+// The previous row-major flex-attention forward walk (the port's first
+// design: mma.sync, synchronous tile loads, no TMA, pipeline or warp
+// specialisation), kept only as the yardstick that chip_smoke.py builds
+// beside the kernels and times in turns with them. No kernel of the port
+// includes it: flex_fwd.cu and flex_fwd_hb.cu run flex_fwd_sm90.cuh.
 //
-// Replaces the body of the TPU kernels magiattention_tpu/ops/flex_attn.py::
-// _fwd_kernel and _fwd_kernel_hb: for one q block and NH q heads of one kv
-// head it walks that block's entries rs[i] .. rs[i]+rc[i]-1 — (k block,
-// slice, run window) tiles from ops/block_meta.py — and runs scores ->
-// scale -> softcap -> the entry's per-row k-interval mask -> the natural-exp
-// online softmax, then folds in the optional per-head sink. Outputs: out
-// [hq, tqp, d] (bf16 or f32), lse and rowmax [hq, tqp] f32 (rowmax without
-// the sink; the TPU's 128-lane broadcast of lse/rowmax was a tiling
-// artefact and is dropped).
+// What it computes is the body of the TPU kernels magiattention_tpu/ops/
+// flex_attn.py::_fwd_kernel and _fwd_kernel_hb: for one q block and NH q
+// heads of one kv head it walks that block's entries rs[i] .. rs[i]+rc[i]-1
+// and runs scores -> scale -> softcap -> the entry's per-row k-interval
+// mask -> the natural-exp online softmax, then folds in the optional
+// per-head sink. Outputs: out [hq, tqp, d] (bf16 or f32), lse and rowmax
+// [hq, tqp] f32 (rowmax without the sink).
 //
-// What bounds it on the card: a causal prefill at d=128 does ~4 d FLOPs per
-// unmasked (q, k) pair and q head against 2 bytes of K/V per key that a q
-// block re-reads from L2, so it is bound by tensor-core operations (989
-// TFLOP/s bf16 dense on an H100 SXM), not by memory.
-//
-// What the design does about it, and what it does not yet: the products run
-// on the tensor cores (mma.sync m16n8k16 bf16 -> f32), the score tile and
-// the online-softmax state never leave registers, and a K/V tile is loaded
-// once per distinct k block of the walk — once for the NH heads of a block.
 // NH x 4 warps: warp w serves head w / 4, rows 16 (w % 4) .. +16 of the q
-// block; each warp computes its rows' k-intervals (a few integer operations
-// a row). A row's arithmetic does not depend on NH, so both kernels give the
-// same bits. No wgmma, TMA, cp.async pipeline or warp specialisation yet, so
-// loads and products do not overlap; that is the work of a later change.
+// block; a K/V tile is loaded once per distinct k block of the walk, with
+// __syncthreads() around each load, so loads and products do not overlap.
 #pragma once
 
 #include "flex_tile.cuh"

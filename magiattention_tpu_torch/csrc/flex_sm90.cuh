@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks of the warp-specialised flex-attention
-// backward (flex_bwd_sm90.cuh): mbarriers, TMA tile loads and 1-D bulk
-// copies into shared memory, wgmma descriptors and instructions, register
-// rebalancing between warpgroups (setmaxnreg), named barriers, and the
-// host-side tensor-map encoding.
+// Hopper (sm_90a) building blocks of the warp-specialised row-major
+// flex-attention kernels (the forward walk of flex_fwd_sm90.cuh, the
+// backward walks of flex_bwd_sm90.cuh): mbarriers, TMA tile loads and 1-D
+// bulk copies into shared memory, wgmma descriptors and instructions,
+// register rebalancing between warpgroups (setmaxnreg), named barriers, the
+// shape of a warp-specialised block (two consumer warpgroups and a producer
+// warpgroup around a ring of shared-memory stages) with the pieces its
+// consumers share, and the host-side tensor-map encoding.
 //
 // Tiles are 64 rows of a head-major [rows, d] bf16 array, d in {64, 128},
 // loaded by TMA with 128-byte swizzle as d / 64 "chunks" of 64 rows x 128
@@ -29,6 +32,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flex_tile.cuh"
 
 namespace flex {
 namespace sm90 {
@@ -206,6 +211,42 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the A
+// fragment), B from shared memory, K-major (128-byte swizzle); scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[8][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// The A fragments of a warpgroup's 64-row tile, K-major in shared memory
+// with 128-byte swizzle (see the top): warp w's 16 rows, the 16-wide k
+// slice kk, by ldmatrix (lanes 0-15 rows 0-15 of the slice's first 8
+// columns, lanes 16-31 of its second 8).
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t tile, int kk, int warp,
+                                            int lane) {
+  const int r = warp * 16 + (lane & 15);
+  const int unit = (kk & 3) * 2 + (lane >> 4);  // 16-byte unit of the 128-byte row
+  const uint32_t addr = tile + (kk >> 2) * CHUNK_BYTES + r * 128 + ((unit ^ (r & 7)) << 4);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the A fragment),
 // B from shared memory, MN-major (transposed; 128-byte swizzle).
 __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
@@ -256,6 +297,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- warp-specialised blocks ---------------------------------------------------------
+
+// A block is three warpgroups: two consumers, then the producer. After giving
+// up its registers (setmaxnreg) one producer thread issues every TMA load of
+// the block — its resident tiles, then the streamed tiles of the walk
+// through a ring of STAGES stages, each gated by a "full" mbarrier (the TMA
+// bytes landed) and an "empty" one (its readers are done).
+constexpr int CONSUMERS = 2;  // consumer warpgroups a block
+constexpr int WS_THREADS = (CONSUMERS + 1) * WG_THREADS;  // and one producer warpgroup
+constexpr int STAGES = 4;  // ring depth: two stages in flight per consumer warpgroup
+// 128 x 24 + 256 x 240 registers: the 64 K of an SM, one block per SM
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int BAR_CONSUMERS = 1;  // named barrier over both consumer warpgroups
+
+template <int D>
+constexpr int tile_bytes() {
+  return BQ * D * 2;  // 64 rows of D bf16
+}
+
+// A consumer warp is done with a stage: its lanes' reads (and, after a
+// wgmma wait, its products') are complete; one lane arrives for the warp.
+__device__ __forceinline__ void release_stage(uint32_t empty_bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty_bar);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <int J>
+__device__ __forceinline__ void zero(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+}
+
+// A 64 x 64 accumulator tile, rounded to bf16, as the A fragments of its
+// four 16-column k slices.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[BK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] tile[64 rows x D]: A from registers, the tile
+// as an MN-major B operand. Issued, not waited for.
+template <int J>
+__device__ __forceinline__ void acc_product(float (&acc)[J][4], const uint32_t (&a)[4][4],
+                                            uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn_major(tile, kk));
+}
+
+// Accumulator columns J0 .. J0+N-1 into a thread-major shared-memory
+// buffer: the hand-over of a partial between the two consumer warpgroups,
+// whose threads hold the same (row, column) places.
+template <int J0, int N, int J>
+__device__ __forceinline__ void stash(float* buf, const float (&acc)[J][4], int tid) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) buf[(j * 4 + c) * WG_THREADS + tid] = acc[J0 + j][c];
 }
 
 // -- host ---------------------------------------------------------------------------

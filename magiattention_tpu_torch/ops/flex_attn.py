@@ -12,8 +12,8 @@ it. Two grids, as in the JAX package:
   walk for ``head_block`` q heads per block (a kv head's q heads packed in
   pairs), ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
   ``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
-  table for dk/dv (both warp-specialised TMA + wgmma kernels, their blocks
-  launched longest walk first: :func:`walk_order`);
+  table for dk/dv (all four warp-specialised TMA + wgmma kernels, their
+  blocks launched longest walk first: :func:`walk_order`);
 - ``sparse``, the compact grid for heterogeneous masks: persistent kernels
   that take (heads, block) items from a longest-walk-first work list
   (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
@@ -56,10 +56,10 @@ LOG2E = math.log2(math.e)  # the sparse grid's base-2 softmax (AMLA rescaling)
 LN2 = math.log(2.0)
 
 # Hopper tile table: head_dim -> (block_q, block_k). A first guess, not a
-# tuned table: 64 query rows are the four 16-row warps of one flex_fwd
-# thread block, and a 64-key K/V tile keeps the block's shared memory at
-# 52 KB for d=128 (Q + K + V tiles), so several blocks fit on one SM. The
-# kernel is compiled for these head dims and this one tile only.
+# tuned table: 64 query rows are the M of one wgmma (a consumer
+# warpgroup's rows), and a 64-key K/V tile keeps a ring stage of K and V at
+# 32 KB for d=128, so four stages and the resident tiles fit one SM. The
+# kernels are compiled for these head dims and this one tile only.
 HOPPER_TILES: dict[int, tuple[int, int]] = {64: (64, 64), 128: (64, 64)}
 KERNEL_DTYPES = (torch.bfloat16,)
 
@@ -383,16 +383,18 @@ def _launch_fwd(name, q, k, v, sink, tables, params: FlexAttnParams, *head_block
     if params.out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"{name} writes out in {q.dtype} or float32, not {params.out_dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_tma_aligned(name, dict(q=q, k=k, v=v))
     out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
     lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
     rowmax = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
     sink = sink.to(device=q.device, dtype=torch.float32).contiguous()
     _qblk, kblk, sid, runs, bounds, rs, rc = tables
+    order = walk_order(rc)
     csrc.launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sink.data_ptr(),
         kblk.data_ptr(), sid.data_ptr(), runs.data_ptr(), bounds.data_ptr(),
-        rs.data_ptr(), rc.data_ptr(),
+        rs.data_ptr(), rc.data_ptr(), order.data_ptr(),
         out.data_ptr(), lse.data_ptr(), rowmax.data_ptr(),
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, *head_block, float(params.scale), float(params.softcap),
@@ -530,19 +532,19 @@ def _bwd_kernel_args(name, q, k, v, do, lse, delta, params):
 
 
 def walk_order(rc: torch.Tensor) -> torch.Tensor:
-    """The launch order of the row-major backward kernels' blocks: block
-    indices by the length of their walk (``rc``), longest first, ties in
-    index order (int32, on ``rc``'s device). The card dispatches blocks in
-    launch order, so the long walks start first and the short ones fill the
-    tail: on a causal mask the q blocks last to first for dq, the k blocks
-    first to last for dkv."""
+    """The launch order of the row-major kernels' blocks: block indices by
+    the length of their walk (``rc``), longest first, ties in index order
+    (int32, on ``rc``'s device). The card dispatches blocks in launch
+    order, so the long walks start first and the short ones fill the tail:
+    on a causal mask the q blocks last to first for the forwards and dq,
+    the k blocks first to last for dkv."""
     return torch.sort(rc, descending=True, stable=True).indices.to(torch.int32)
 
 
 def _check_tma_aligned(name, tensors) -> None:
-    """The row-major backward kernels load q, k, v and dout through TMA
-    tensor maps and lse / delta with bulk copies: each base must be 16-byte
-    aligned (their row strides, 2 d and 4 bytes x 64, are)."""
+    """The row-major kernels load q, k, v (and the backward's dout) through
+    TMA tensor maps and lse / delta with bulk copies: each base must be
+    16-byte aligned (their row strides, 2 d and 4 bytes x 64, are)."""
     for what, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} at {t.data_ptr():#x} is not 16-byte aligned "
@@ -884,7 +886,10 @@ def auto_kernel_config(
 
     The tile comes from :func:`resolve_tile` (the caller's, the env's, or
     ``HOPPER_TILES``). ``grid``: the caller's pin, else
-    ``MAGI_ATTENTION_GRID``, else ``"sparse"`` when the mask covers less
+    ``MAGI_ATTENTION_GRID``; else, with a caller-fixed ``block_q`` or
+    ``block_k`` or under ``MAGI_ATTENTION_AUTOTUNE=off``, ``"row_major"``
+    (the reference returns its static table on the row-major grid there);
+    else ``"sparse"`` when the mask covers less
     than ``SPARSE_DENSITY_THRESHOLD`` of its dense extent (the reference's
     heterogeneous regime, where its cost model takes the sparse grid),
     else ``"row_major"``. ``head_block``: ``MAGI_ATTENTION_HEAD_BLOCK``
@@ -910,7 +915,10 @@ def auto_kernel_config(
     if grid is None:
         grid = env.grid_override()
     if grid is None:
-        dense = mask_density(q_ranges, k_ranges, attn_type_map) >= SPARSE_DENSITY_THRESHOLD
+        static = (fixed_block_q is not None or fixed_block_k is not None
+                  or env.autotune_mode() == "off")
+        dense = static or (
+            mask_density(q_ranges, k_ranges, attn_type_map) >= SPARSE_DENSITY_THRESHOLD)
         grid = "row_major" if dense else "sparse"
     if grid not in GRID_KINDS:
         raise ValueError(f"grid={grid!r} must be one of {GRID_KINDS}")
@@ -941,20 +949,25 @@ def flex_flash_attn_func(
 
     The ranges are host values: the kernel plan is built once per unique
     (mask, shape, blocking) and cached. ``block_q``/``block_k``/
-    ``head_block``/``grid`` left unset resolve through
-    :func:`auto_kernel_config`, as in the JAX package: heterogeneous masks
-    take the compact sparse grid, dense ones the row-major grid, both at
-    head_block G."""
+    ``head_block`` left unset resolve through :func:`auto_kernel_config`,
+    as in the JAX package: heterogeneous masks take the compact sparse
+    grid, dense ones the row-major grid, both at head_block G. With all
+    three given, ``grid`` is the caller's, else ``MAGI_ATTENTION_GRID``,
+    else ``"row_major"``, as the reference takes it."""
+    from .. import env
+
     q_arr = np.ascontiguousarray(np.asarray(q_ranges, dtype=np.int64).reshape(-1, 2))
     k_arr = np.ascontiguousarray(np.asarray(k_ranges, dtype=np.int64).reshape(-1, 2))
     t_arr = np.ascontiguousarray(np.asarray(attn_type_map, dtype=np.int64).reshape(-1))
-    if None in (block_q, block_k, head_block, grid):
+    if None in (block_q, block_k, head_block):
         block_q, block_k, auto_hb, grid = auto_kernel_config(
             q_arr, k_arr, int(q.shape[1]), int(k.shape[1]),
             fixed_block_q=block_q, fixed_block_k=block_k, attn_type_map=t_arr,
             head_dim=int(q.shape[2]), grid=grid,
         )
         head_block = auto_hb if head_block is None else head_block
+    elif grid is None:
+        grid = env.grid_override() or "row_major"
     meta = _cached_meta(
         q_arr.tobytes(),
         k_arr.tobytes(),

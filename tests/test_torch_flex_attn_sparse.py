@@ -236,6 +236,81 @@ def test_auto_kernel_config_grid_matches_jax(mask, heads, monkeypatch):
     assert hb == hq // hk  # G on either grid: one kv head's q heads an item
 
 
+def _windows(total, window, rows=256):
+    """Causal sliding windows in ``rows``-row chunks: each chunk of queries
+    sees the ``window`` keys that end at its last row."""
+    return [(s, s + rows, max(0, s + rows - window), s + rows, 1) for s in range(0, total, rows)]
+
+
+def _fixed_blocking_masks():
+    """The masks of the grid-precedence fault (the varlen and sliding-window
+    masks where the density rule and the reference's static choice part),
+    and three where they agree."""
+    return {
+        "varlen_block_causal_16k": workloads.varlen_block_causal(16384),
+        "varlen_block_causal_4k": workloads.varlen_block_causal(4096),
+        "window_1024_8k": _windows(8192, 1024),
+        "window_2048_8k": _windows(8192, 2048),
+        "window_4096_16k": _windows(16384, 4096),
+        "window_3072_8k": _windows(8192, 3072),
+        "causal_16k": workloads.dense_causal(16384),
+        "shared_question_16k": workloads.shared_question_q_overlap(16384),
+    }
+
+
+def _launched_grid(module, q, k, qr, kr, ty, monkeypatch, **kw):
+    """The grid a ``flex_flash_attn_func`` (JAX's or the port's) hands to
+    its ``flex_attn_with_meta``, with the plan and the kernels stubbed
+    out."""
+    seen = {}
+    monkeypatch.setattr(module, "_cached_meta", lambda *a: None)
+    monkeypatch.setattr(module, "flex_attn_with_meta", lambda *a, **kw: seen.update(kw))
+    module.flex_flash_attn_func(q, k, k, qr, kr, ty, **kw)
+    return seen["grid"]
+
+
+@pytest.mark.parametrize("condition", ["unpinned", "fixed_tile", "autotune_off", "all_blocking_given"])
+@pytest.mark.parametrize("heads", [(16, 8), (32, 8), (8, 8)], ids=lambda h: f"hq{h[0]}_hk{h[1]}")
+@pytest.mark.parametrize("mask", sorted(_fixed_blocking_masks()))
+def test_grid_under_fixed_blocking_matches_jax(mask, heads, condition, monkeypatch):
+    """The grid under a caller-fixed 64x64 tile, under
+    ``MAGI_ATTENTION_AUTOTUNE=off``, and with block_q, block_k and
+    head_block all given to ``flex_flash_attn_func`` (the reference then
+    skips its automatic choice) is the one the JAX package takes; the
+    unpinned choice still agrees."""
+    import magiattention_tpu.ops.flex_attn as jax_fa
+
+    for name in ("MAGI_ATTENTION_GRID", "MAGI_ATTENTION_HEAD_BLOCK", "MAGI_ATTENTION_BLOCK_Q",
+                 "MAGI_ATTENTION_BLOCK_K", "MAGI_ATTENTION_AUTOTUNE",
+                 "MAGI_ATTENTION_AUTO_RANGE_MERGE"):
+        monkeypatch.delenv(name, raising=False)
+    hq, hk = heads
+    qr, kr, ty = split(_fixed_blocking_masks()[mask])
+    if condition == "all_blocking_given":
+        total = max(r[1] for r in qr)
+        kw = dict(block_q=64, block_k=64, head_block=hq // hk)
+        q_np = np.broadcast_to(np.zeros((), np.float32), (total, hq, 128))
+        k_np = np.broadcast_to(np.zeros((), np.float32), (total, hk, 128))
+        jax_grid = _launched_grid(jax_fa, q_np, k_np, qr, kr, ty, monkeypatch, **kw)
+        q_t, k_t = torch.zeros(()).expand(total, hq, 128), torch.zeros(()).expand(total, hk, 128)
+        assert _launched_grid(fa, q_t, k_t, qr, kr, ty, monkeypatch, **kw) == jax_grid == "row_major"
+        monkeypatch.setenv("MAGI_ATTENTION_GRID", "sparse")
+        assert _launched_grid(fa, q_t, k_t, qr, kr, ty, monkeypatch, **kw) == "sparse"
+        assert _launched_grid(jax_fa, q_np, k_np, qr, kr, ty, monkeypatch, **kw) == "sparse"
+        return
+    kw = dict(fixed_block_q=64, fixed_block_k=64) if condition == "fixed_tile" else {}
+    if condition == "autotune_off":
+        monkeypatch.setenv("MAGI_ATTENTION_AUTOTUNE", "off")
+    *_, jax_grid = jax_auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, **kw)
+    assert fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, **kw)[3] == jax_grid
+    if condition != "unpinned":
+        assert jax_grid == "row_major"
+        # a grid pin still goes first, on either side
+        monkeypatch.setenv("MAGI_ATTENTION_GRID", "sparse")
+        assert fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, **kw)[3] == "sparse"
+        assert jax_auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, **kw)[3] == "sparse"
+
+
 def test_auto_kernel_config_env_pins(monkeypatch):
     qr, kr, ty = split(workloads.varlen_block_causal(4096))
     cqr, ckr, cty = split(workloads.dense_causal(4096))

@@ -40,12 +40,18 @@ def _close(out, ref, lse, ref_lse):
     assert ((lse[fin] - ref_lse[fin]).abs() <= 2e-4).all()
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("types", [[C], [F], [I], [B]], ids=["causal", "full", "inv", "bi"])
-def test_flex_fwd_matches_plain(card, d, types):
+def test_flex_fwd_matches_plain(card, d, types, group, out_dtype):
+    """``flex_fwd`` (a head pair per block at even G, one head with its
+    walk split between two consumer warpgroups at G = 1) against the plain
+    forward, out in bf16 or float32, and two runs bit for bit."""
     from magiattention_tpu_torch.ops import flex_attn as fa
 
-    tq, tk, hq, hk = 300, 500, 8, 2
+    tq, tk, hq = 300, 500, 8
+    hk = hq // group
     meta = fa.build_block_meta([(0, tq)], [(0, tk)], types, tq, tk, block_q=64, block_k=64)
     tqp, tkp = meta.num_q_blocks * 64, meta.num_k_blocks * 64
 
@@ -55,12 +61,15 @@ def test_flex_fwd_matches_plain(card, d, types):
 
     q, k, v = rand(hq, tq, tqp), rand(hk, tk, tkp), rand(hk, tk, tkp)
     sink = torch.randn((hq,), generator=card, device="cuda")
-    params = fa.FlexAttnParams(64, 64, 1.0 / math.sqrt(d), 0.0, True, torch.bfloat16)
+    params = fa.FlexAttnParams(64, 64, 1.0 / math.sqrt(d), 0.0, True, out_dtype)
     tables = fa.fwd_tables(meta, "cuda:0")
     out, lse, rowmax = fa._fwd_kernel(q, k, v, sink, tables, params)
+    assert out.dtype == out_dtype
     ref, ref_lse, ref_rowmax = fa._fwd_torch(q, k, v, sink, tables, params)
     _close(out[:, :tq], ref[:, :tq], lse[:, :tq], ref_lse[:, :tq])
     assert torch.equal(torch.isneginf(rowmax[:, :tq]), torch.isneginf(ref_rowmax[:, :tq]))
+    again = fa._fwd_kernel(q, k, v, sink, tables, params)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), again))
 
 
 @pytest.mark.parametrize("hb_of_group", [1, 2], ids=["hbG", "hb2G"])
@@ -79,8 +88,9 @@ def test_flex_fwd_matches_plain(card, d, types):
 )
 def test_flex_fwd_hb_matches_plain(card, case, d, group, hb_of_group):
     """``flex_fwd_hb`` (head_block G or 2G; 2 at G = 1, an item of two kv
-    heads) against the plain forward, and bit for bit against ``flex_fwd``:
-    a row's walk does not depend on the heads a block holds."""
+    heads) against the plain forward, twice for the same bits, and bit for
+    bit against ``flex_fwd``: a row's walk does not depend on the heads a
+    block holds."""
     import dataclasses
 
     _, qr, kr, ty, softcap, sink = case
@@ -95,8 +105,26 @@ def test_flex_fwd_hb_matches_plain(card, case, d, group, hb_of_group):
     ref, ref_lse, ref_rowmax = fa._fwd_torch(q, k, v, sink_t, ftab, params)
     _close(out[:, :700], ref[:, :700], lse[:, :700], ref_lse[:, :700])
     _close(out[:, :700], ref[:, :700], rowmax[:, :700], ref_rowmax[:, :700])
+    again = fa._fwd_hb_kernel(q, k, v, sink_t, ftab, hb_params)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), again))
     one = fa._fwd_kernel(q, k, v, sink_t, ftab, params)
     assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), one))
+
+
+def test_forward_checks_catch_planted_faults(card):
+    """The smoke's forward checks on mutated builds of the forward walk:
+    every head of a ``flex_fwd_hb`` item on its first head's kv head, and
+    the second consumer warpgroup's partial dropped from the odd-G merge of
+    ``flex_fwd``. Each must fail a check."""
+    import chip_smoke
+    from magiattention_tpu_torch import csrc
+
+    csrc.load("flex_fwd")
+    csrc.load("flex_fwd_hb")
+    planted = chip_smoke.planted_libraries(
+        chip_smoke.start_planted_build(["flex_fwd_hb", "flex_fwd_drop_partial"]))
+    caught = chip_smoke.fwd_planted_faults(card, planted)
+    assert len(caught) == 2 and all(c["failed_checks"] for c in caught.values())
 
 
 def _bwd_problem(gen, tq, tk, hq, hk, d, q_ranges, k_ranges, types, softcap=0.0, sink=False):
