@@ -11,11 +11,13 @@ Phases, each printing one JSON line:
    ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
    ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
    ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
-   (with mutated copies for the planted faults and the previous, pre-TMA
-   row-major forward and backward walks as yardstick libraries), print
-   ptxas's registers and spills and, for the four row-major kernels, the
-   count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   ``cuobjdump -sass``, and print the card's name and power limit as
+   (with mutated copies for the planted faults, and the previous, pre-TMA
+   row-major forward and backward walks and the previous CUDA-core decode
+   walk as yardstick libraries), print ptxas's registers and spills and,
+   for the four row-major kernels, the count of ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass``, for
+   ``paged_decode`` its ``HMMA`` (mma.sync), ``LDGSTS`` (cp.async) and
+   ``LDSM`` (ldmatrix), and print the card's name and power limit as
    nvidia-smi reports them;
 2. kernels — each kernel against its plain PyTorch version on the card, in
    bf16 at head_dim 128 (and 64 for the head-batched and sparse-grid
@@ -39,13 +41,22 @@ Phases, each printing one JSON line:
    2G on the serving prefill and on causal 8192 at the training widths;
    ``flex_dq`` and ``flex_dkv`` on the latter) beside the plain version's,
    a PyTorch ``scaled_dot_product_attention`` yardstick and the card's
-   bound;
+   bound; ``paged_decode`` at d 128 / 64, bf16 / f32, 1-16 q heads per kv
+   head, pages of 16, 64 and 128 tokens and 1, 3, 4 and 16 splits, each
+   launch twice for the same bits, NaN past the lengths changing no bit,
+   and its shared mode (the cascade's level 1) at 1, 3 and 8 members, with
+   two planted faults (each split's last chunk dropped; every member on
+   member 0's q);
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
    the automatic kernel choice (row-major, head_block 4: ``flex_fwd_hb``),
    run 64 decode steps over the batch, and hold prefill outputs (prompts up
    to 4096 tokens) and every 8th decode step against the plain versions;
+   on the final batch ``paged_decode``'s time in turns with the previous
+   walk, the split sweep (kernel alone, and with the merge in device time)
+   there and on one 32K-token sequence, the plain version, SDPA and the
+   bound (``decode_timing``);
    then the same at multi-head widths (32 q / 32 kv heads), where the
    choice is head_block 1 and the prefill runs ``flex_fwd``;
 4. prefix — shared-prefix serving at the same widths: a 4000-token prompt
@@ -54,9 +65,11 @@ Phases, each printing one JSON line:
    the shared tail page) and add 300-2000 tokens each, one prefilled in
    512-token chunks; each suffix's rows held against the plain causal
    attention over its whole prompt; 32 decode steps of the 8 with cascade
-   decode (one group on the 31 shared pages), the first step's cascade
-   ``auto`` and ``on`` held against the flat path and the plain decode; the
-   pages in use against a flat engine's;
+   decode (one group on the 31 shared pages, its level 1 in the kernel's
+   shared mode, counted), the first step's cascade ``auto`` and ``on`` held
+   against the flat path and the plain decode; the pages in use against a
+   flat engine's; cascade against flat decode attention on the final state,
+   on the host clock and in device time;
 5. training — the port's Llama trainer at the widths of the repo's
    ``LlamaConfig`` (vocab 32000, dim 2048, 16 q / 8 kv heads, head_dim 128,
    ffn 5632, bf16 compute, fp32 masters), cut from 16 to 4 layers, on one
@@ -236,10 +249,16 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def sass_counts(path: str) -> dict | None:
-    """The wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions, and the
-    1-D bulk copies (``UBLKCP``), in a library's SASS, from the toolkit's
-    ``cuobjdump``; None where the toolkit has none."""
+# the row-major kernels' wgmma (HGMMA), TMA loads (UTMALDG) and 1-D bulk
+# copies (UBLKCP); paged_decode's mma.sync (HMMA), cp.async (LDGSTS) and
+# ldmatrix (LDSM)
+ROW_MAJOR_SASS = ("HGMMA", "UTMALDG", "UBLKCP")
+DECODE_SASS = ("HMMA", "LDGSTS", "LDSM")
+
+
+def sass_counts(path: str, ops=ROW_MAJOR_SASS) -> dict | None:
+    """The count of each instruction of ``ops`` in a library's SASS, from
+    the toolkit's ``cuobjdump``; None where the toolkit has none."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -248,7 +267,7 @@ def sass_counts(path: str) -> dict | None:
         return None
     sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    return {op: sass.count(op) for op in ops}
 
 
 def nvidia_smi_line() -> str:
@@ -559,6 +578,19 @@ PLANT_DROP_WG1_DK = [
     ("    add_stashed<0, J>(dka, sib_k, tid);\n", ""),
 ]
 
+# Each split's last chunk dropped from the tensor-core walk; and, in the
+# shared mode, every member reading member 0's q. Planted into copies of
+# decode_sm90.cuh; the checks of ``decode_planted_faults`` must catch both.
+PLANT_DROP_LAST_CHUNK = [
+    ("  const int nchunks = (n + CH - 1) / CH;\n",
+     "  const int nchunks = max(0, (n + CH - 1) / CH - 1);\n"),
+]
+PLANT_MEMBER0_Q = [
+    ("      const int qm = i / group;  // the member whose q this row is\n",
+     "      const int qm = shared ? 0 : i / group;\n"),
+]
+
+
 # Each mutated build: (the kernel source compiled, the source mutated, its
 # plants), in a directory of its own beside the kernels.
 PLANTED = {
@@ -567,6 +599,8 @@ PLANTED = {
     "flex_fwd_hb": ("flex_fwd_hb.cu", "flex_fwd_sm90.cuh", PLANT_FIRST_KV_HEAD),
     "flex_fwd_drop_partial": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_DROP_WG1_PARTIAL),
     "flex_dkv": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK),
+    "paged_decode_drop_last_chunk": ("decode.cu", "decode_sm90.cuh", PLANT_DROP_LAST_CHUNK),
+    "paged_decode_member0_q": ("decode.cu", "decode_sm90.cuh", PLANT_MEMBER0_Q),
 }
 
 # The row-major backward walk before TMA and wgmma (flex_bwd.cuh's per-item
@@ -700,8 +734,29 @@ int mma_sync_flex_fwd_hb(ARGS, int hq, int hk, int tqp, int tkp, int d, int nq, 
 }
 """
 
+# The previous decode walk (decode_simt.cuh at bf16: CUDA cores, one page at
+# a time, nothing in flight while the block computes), built beside the
+# kernels as the yardstick of ``decode_timing``. Never launched on a main path.
+DECODE_SIMT_SOURCE = r"""
+#include "decode_simt.cuh"
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int simt_paged_decode(const void *q, const void *kp, const void *vp, const void *bt,
+                      const void *sl, void *out, void *lse, int b, int hq, int hk, int d,
+                      int ps, int mpp, int splits, float scale, float softcap, cudaStream_t st) {
+  if (d == 64)
+    return decode_simt::launch<__nv_bfloat16, 64>(q, kp, vp, bt, sl, out, lse, b, hq, hk, ps,
+                                                  mpp, splits, 0, scale, softcap, st);
+  return decode_simt::launch<__nv_bfloat16, 128>(q, kp, vp, bt, sl, out, lse, b, hq, hk, ps,
+                                                 mpp, splits, 0, scale, softcap, st);
+}
+}
+"""
+
+
 # the previous walks, yardsticks built beside the kernels
-YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE}
+YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE,
+              "decode_simt": DECODE_SIMT_SOURCE}
 
 
 def start_planted_build(names=None):
@@ -758,6 +813,10 @@ def planted_libraries(procs) -> dict:
             # q k v dout lse delta | 6 tables | outputs | 6 ints | scale softcap stream
             for fn, outs in ((lib.mma_sync_flex_dq, 1), (lib.mma_sync_flex_dkv, 2)):
                 fn.argtypes, fn.restype = [P] * 12 + [P] * outs + [I] * 6 + [F, F, P], ctypes.c_int
+        elif name == "decode_simt":
+            # q k v bt sl | out lse | b hq hk d ps mpp splits | scale softcap stream
+            fn = lib.simt_paged_decode
+            fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [F, F, P], ctypes.c_int
         elif name == "mma_sync_fwd":
             # q k v sink | 6 tables | out lse rowmax | 6 (7) ints | scale softcap has_sink stream
             for fn, ints in ((lib.mma_sync_flex_fwd, 6), (lib.mma_sync_flex_fwd_hb, 7)):
@@ -1169,8 +1228,13 @@ def bwd_timing(gen, t: int, planted) -> dict:
 
 # -- paged decode: kernel vs plain ------------------------------------------
 
+DECODE_MPP = 48  # the kernel cases' table width: divisible by every split count below
+DECODE_SPLITS = (1, 3, 4, 16)
+DECODE_SHARED_PAGES = 12  # the shared-mode cases' prefix pages: divisible by 1, 3 and 4
+DECODE_SWEEP = (1, 2, 4, 8, 16)
 
-def decode_cache(gen, lengths):
+
+def decode_cache(gen, lengths, mpp=64):
     """A bf16 cache at the serving widths holding one random sequence per
     slot, every slot owning max_pages_per_seq pages (page 0 unused)."""
     import torch
@@ -1178,7 +1242,6 @@ def decode_cache(gen, lengths):
         assign_block_table, make_paged_kv_cache, write_prefill_kv,
     )
 
-    mpp = 64
     cache = make_paged_kv_cache(len(lengths) * mpp + 1, PAGE, HK, D,
                                 max_seqs=len(lengths), max_pages_per_seq=mpp)
     for slot, n in enumerate(lengths):
@@ -1188,8 +1251,73 @@ def decode_cache(gen, lengths):
     return cache
 
 
-def decode_cases(gen) -> None:
+def decode_problem(gen, d, dtype, hq, hk, ps, lengths):
+    """A ``dtype`` cache holding one random sequence per slot on a random
+    permutation of the pool's pages (page 0 unused), DECODE_MPP pages a
+    slot, and a random query per slot."""
     import torch
+    from magiattention_tpu_torch.serving import (
+        assign_block_table, make_paged_kv_cache, write_prefill_kv,
+    )
+
+    b = len(lengths)
+    cache = make_paged_kv_cache(b * DECODE_MPP + 1, ps, hk, d, max_seqs=b,
+                                max_pages_per_seq=DECODE_MPP, dtype=dtype)
+    pages = (torch.randperm(b * DECODE_MPP, generator=gen, device="cuda") + 1).tolist()
+    for slot, n in enumerate(lengths):
+        assign_block_table(cache, slot, pages[slot * DECODE_MPP:(slot + 1) * DECODE_MPP])
+        kv = torch.randn((2, n, hk, d), generator=gen, device="cuda").to(dtype)
+        write_prefill_kv(cache, slot, kv[0], kv[1])
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    return cache, q
+
+
+def decode_parts(q, cache, bt, sl, splits, softcap=0.0, shared=False):
+    """The kernel's per-split partials (out_parts, lse_parts), one launch."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    params = da.DecodeParams(1.0 / math.sqrt(q.shape[2]), softcap, splits, torch.float32)
+    return da._decode_partials_kernel(q, cache, bt, sl, params, shared=shared)
+
+
+def bitwise(a, b) -> bool:
+    """Each tensor of ``a`` equal, bit for bit, to its partner in ``b``."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def nan_past_lengths(cache, lengths):
+    """A copy of ``cache`` whose every position past a slot's length in the
+    slot's own pages (the rest of its last page, and the pages after it)
+    holds NaN in K and V."""
+    import torch
+
+    dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                v_pages=cache.v_pages.clone())
+    ps = cache.page_size
+    for slot, n in enumerate(lengths):
+        pos = torch.arange(n, cache.max_pages_per_seq * ps, device="cuda")
+        page = cache.block_tables[slot].long()[pos // ps]
+        dirty.k_pages[page, pos % ps] = float("nan")
+        dirty.v_pages[page, pos % ps] = float("nan")
+    return dirty
+
+
+def decode_cases(gen) -> dict:
+    """``paged_decode`` against its plain version (``decode_reference``, one
+    f32 split) on the card. The serving widths on ragged lengths through the
+    public entry; then d 128 / 64, bf16 / f32, G 1, 2, 4, 8 (and 16 at
+    bf16), pages of 16, 64 and 128 tokens, 1, 3, 4 and 16 splits, softcap on
+    one case, ragged and zero lengths on shuffled pages, each launch run
+    twice for the same bits; positions past each length set to NaN in a
+    copy of the cache (same bits as on the clean cache); and the shared mode
+    (the cascade's level 1) at 1, 3 and 8 members, against the plain
+    version and the flat mode over the broadcast table. Returns the summary
+    line."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
     from magiattention_tpu_torch.serving import decode_attn_paged, decode_reference
 
     lengths = [0, 1, PAGE, PAGE + 1, 1000, 4096, 4097, 8000]
@@ -1204,10 +1332,243 @@ def decode_cases(gen) -> None:
         check(bool((out[0] == 0).all()), "decode: zero-length slot out is not 0")
         compare("paged_decode", f"decode_ragged_splits{splits}", out, ref_out, lse, ref_lse)
 
+    worst = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+    shared_vs_flat = dict(worst)
+    counts = {"flat": 0, "shared": 0, "nan_tail": 0}
 
-def decode_timing(engine, slots, gen) -> dict:
-    """Kernel, plain version and SDPA over the gathered KV, on the serving
-    path's final batch state, plus the card's bound for that work."""
+    def held(name, parts, ref):
+        out, lse = da._merge_splits(*parts)
+        errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+        check(not failed, f"{name}: paged_decode fails the {failed} check(s): {errs}")
+        for k in worst:
+            worst[k] = max(worst[k], errs.get(k, 0.0))
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+
+    def twice(name, *args, **kw):
+        first = decode_parts(*args, **kw)
+        again = decode_parts(*args, **kw)
+        torch.cuda.synchronize()
+        check(bitwise(first, again), f"{name}: two runs of paged_decode differ")
+        return first
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    hk = 2
+    for d in (128, 64):
+        for dtype in (bf16, f32):
+            for g in (1, 2, 4, 8) + ((16,) if dtype == bf16 else ()):
+                for ps in (16, 64, 128):
+                    full = DECODE_MPP * ps
+                    lens = [0, 1, ps - 1, ps + 1, 5 * ps + 3, full // 2 + 7, full - 1, full]
+                    cache, q = decode_problem(gen, d, dtype, g * hk, hk, ps, lens)
+                    bt, sl = cache.block_tables, cache.seq_lens
+                    softcap = 4.0 if (d, dtype, g, ps) == (128, bf16, 4, 64) else 0.0
+                    ref = decode_reference(q, cache, bt, sl, softcap=softcap)
+                    tag = f"d{d}_{str(dtype)[6:]}_g{g}_ps{ps}" + ("_softcap" if softcap else "")
+                    for splits in DECODE_SPLITS:
+                        parts = twice(f"{tag}_splits{splits}", q, cache, bt, sl, splits, softcap)
+                        held(f"{tag}_splits{splits}", parts, ref)
+                        counts["flat"] += 1
+                    if g == 4 and ps == 64:
+                        dirty = nan_past_lengths(cache, lens)
+                        for splits in (1, 4):
+                            check(bitwise(decode_parts(q, cache, bt, sl, splits, softcap),
+                                          decode_parts(q, dirty, bt, sl, splits, softcap)),
+                                  f"{tag}_splits{splits}: NaN past the lengths changes the output")
+                            counts["nan_tail"] += 1
+
+    # the shared mode: every member reads one table row and one length
+    w = DECODE_SHARED_PAGES
+    for d in (128, 64):
+        for dtype in (bf16, f32):
+            for ps in (16, 128):
+                cache = da.PagedKVCache(
+                    *(torch.randn((4 * w + 1, ps, hk, d), generator=gen, device="cuda").to(dtype)
+                      for _ in range(2)),
+                    torch.zeros((1, w), dtype=torch.int32, device="cuda"),
+                    torch.zeros((1,), dtype=torch.int32, device="cuda"))
+                pages = (torch.randperm(4 * w, generator=gen, device="cuda")[:w] + 1).int()
+                for g in (1, 2, 4, 8):
+                    for members in (1, 3, 8):
+                        # a partial last page at 3 members: the mask and the NaN tail
+                        plen = w * ps - (5 if members == 3 else 0)
+                        q = torch.randn((members, g * hk, d), generator=gen,
+                                        device="cuda").to(dtype)
+                        bt_b = pages[None].expand(members, w).contiguous()
+                        sl_b = torch.full((members,), plen, dtype=torch.int32, device="cuda")
+                        sl_1 = sl_b[:1]
+                        ref = decode_reference(q, cache, bt_b, sl_b)
+                        tag = f"shared_d{d}_{str(dtype)[6:]}_ps{ps}_g{g}_m{members}"
+                        for splits in (1, 3, 4):
+                            parts = twice(f"{tag}_splits{splits}", q, cache, pages[None], sl_1,
+                                          splits, shared=True)
+                            held(f"{tag}_splits{splits}", parts, ref)
+                            flat = da._merge_splits(*decode_parts(q, cache, bt_b, sl_b, splits))
+                            out, lse = da._merge_splits(*parts)
+                            errs, failed = out_errors(out, flat[0], [("lse", lse, flat[1])])
+                            check(not failed, f"{tag}_splits{splits}: the shared mode fails the "
+                                  f"{failed} check(s) against the flat mode: {errs}")
+                            for k in shared_vs_flat:
+                                shared_vs_flat[k] = max(shared_vs_flat[k], errs.get(k, 0.0))
+                            entry = da._decode_shared_prefix(q, cache, pages, plen,
+                                                             num_splits=splits)
+                            check(bitwise(entry, da._merge_splits(*parts)),
+                                  f"{tag}_splits{splits}: _decode_shared_prefix differs from "
+                                  "its kernel's merged partials")
+                            counts["shared"] += 1
+                        if members == 3:
+                            dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                                        v_pages=cache.v_pages.clone())
+                            last = pages[-1].long()
+                            dirty.k_pages[last, ps - 5:] = float("nan")
+                            dirty.v_pages[last, ps - 5:] = float("nan")
+                            clean = decode_parts(q, cache, pages[None], sl_1, 4, shared=True)
+                            check(bitwise(clean, decode_parts(q, dirty, pages[None], sl_1, 4,
+                                                              shared=True)),
+                                  f"{tag}: NaN past the prefix length changes the output")
+                            counts["nan_tail"] += 1
+    return {"phase": "kernels", "kernel": "paged_decode", "cases": counts,
+            "two_runs_bitwise_equal": True, **worst, "shared_vs_flat": shared_vs_flat}
+
+
+def decode_planted_faults(gen, planted) -> dict:
+    """The checks on the two faults planted in ``paged_decode``: each split's
+    last chunk dropped (a flat batch at the serving widths, 4 splits), and
+    every member on member 0's q (the shared mode, 3 members). Returns which
+    checks catch each; a fault that passes them all fails the smoke."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    lens = [1, 100, PAGE + 1, 1000, 3000, 6000]
+    cache, q = decode_problem(gen, D, torch.bfloat16, HQ, HK, PAGE, lens)
+    bt, sl = cache.block_tables, cache.seq_lens
+    pages, plen = bt[5, :DECODE_SHARED_PAGES], DECODE_SHARED_PAGES * PAGE
+    qs = q[:3]
+    runs = {
+        "paged_decode_drop_last_chunk": (
+            lambda: decode_parts(q, cache, bt, sl, 4), decode_reference(q, cache, bt, sl)),
+        "paged_decode_member0_q": (
+            lambda: decode_parts(qs, cache, pages[None], sl[5:6].clamp_max(plen), 4, shared=True),
+            decode_reference(qs, cache, pages[None].expand(3, -1),
+                             sl[5:6].clamp_max(plen).expand(3))),
+    }
+    caught = {}
+    for name, (run, (ref_out, ref_lse)) in runs.items():
+        real, launched = csrc._libs["paged_decode"], csrc.launches["paged_decode"]
+        csrc._libs["paged_decode"] = planted[name]
+        try:
+            out, lse = da._merge_splits(*run())
+            torch.cuda.synchronize()
+        finally:
+            csrc._libs["paged_decode"], csrc.launches["paged_decode"] = real, launched
+        errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
+        caught[name] = {"failed_checks": failed, **errs}
+        check(bool(failed), f"planted fault {name} passes the decode checks: {errs}")
+    return caught
+
+
+def simt_decode(lib, q, cache, bt, sl, splits):
+    """A launcher of the previous decode walk (the ``decode_simt`` side
+    library) on these inputs, checked once against the plain version. A
+    yardstick only: nothing here is counted as a launch."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    b, hq, d = q.shape
+    out = torch.empty((b, splits, hq, d), device="cuda")
+    lse = torch.empty((b, splits, hq), device="cuda")
+    bt, sl = bt.int().contiguous(), sl.int().contiguous()
+
+    def run():
+        code = lib.simt_paged_decode(
+            q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(), bt.data_ptr(),
+            sl.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq, cache.num_kv_heads, d,
+            cache.page_size, bt.shape[1], splits, 1.0 / math.sqrt(d), 0.0,
+            torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous decode walk: CUDA error {code}")
+
+    run()
+    torch.cuda.synchronize()
+    ref_out, ref_lse = decode_reference(q, cache, bt, sl)
+    got_out, got_lse = da._merge_splits(out, lse)
+    _, failed = out_errors(got_out, ref_out, [("lse", got_lse, ref_lse)])
+    check(not failed, f"the previous decode walk fails the {failed} check(s)")
+    return run
+
+
+def queued_ms(fn, reps: int = 1, repeats: int = 3) -> dict:
+    """Device time of ``fn`` with the host kept ahead of the card: a spin
+    kernel holds the stream while the host enqueues ``reps`` calls, so the
+    CUDA events around them time the device's work back to back, without
+    the host's launch gaps (a host-bound call timed with plain events times
+    the host). The median of ``repeats`` such windows. ``queue_prefilled``
+    says the spin outlasted the enqueueing in every window; where it is
+    False the time includes host gaps. Keep ``reps`` times the call's
+    kernels well under the launch queue's depth (about a thousand)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    times, enqueue, prefilled = [], [], True
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (2 * one_s * reps + 2e-3)))  # cycles, at most ~2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue.append((time.perf_counter() - t0) * 1e3 / reps)
+        prefilled = prefilled and not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return {"ms": sorted(times)[len(times) // 2],
+            "host_enqueue_ms": sorted(enqueue)[len(enqueue) // 2], "queue_prefilled": prefilled}
+
+
+def decode_bound(tokens: int, b: int, splits: int, table_entries: int) -> tuple[float, str]:
+    """The card's bound on one decode launch at the serving widths: 4 d
+    FLOPs per cached token and q head; each cached K/V row and q read once,
+    each partial written once."""
+    flops = 4.0 * tokens * HQ * D
+    nbytes = (2 * 2 * tokens * HK * D + 2 * b * HQ * D
+              + 4 * b * splits * HQ * (D + 1) + 4 * (table_entries + b))
+    return bound(flops, nbytes)
+
+
+def split_sweep(q, cache, bt, seq_lens) -> dict:
+    """The kernel alone (CUDA events) and the kernel with ``merge_partials``
+    as a decode step runs them (device time, queue pre-filled), at each
+    split count of DECODE_SWEEP that divides the table width."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    sweep = {}
+    for s in DECODE_SWEEP:
+        if bt.shape[1] % s:
+            continue
+        prm = da.DecodeParams(1.0 / math.sqrt(D), 0.0, s, torch.bfloat16)
+        sweep[s] = {
+            "kernel_ms": cuda_ms(lambda: da._decode_partials_kernel(q, cache, bt, seq_lens, prm),
+                                 reps=50),
+            "kernel_and_merge": queued_ms(lambda: da._decode(q, cache, bt, seq_lens, prm)),
+        }
+    return sweep
+
+
+def decode_timing(engine, slots, gen, planted) -> dict:
+    """On the serving path's final batch state: the kernel at the resolved
+    split count in turns with the previous walk at the split count its rule
+    gave (new, old, old, new), and both at that count; the split sweep on
+    this batch and on one 32K-token sequence; the plain version, SDPA over
+    the gathered KV, and the card's bound for that work."""
     import torch
     import torch.nn.functional as Fn
     from magiattention_tpu_torch.serving import decode_attn as da
@@ -1218,10 +1579,30 @@ def decode_timing(engine, slots, gen) -> dict:
     idx = torch.as_tensor(slots, device="cuda")
     bt, seq_lens = cache.block_tables[idx], cache.seq_lens[idx]
     splits = da.resolve_num_splits(None, cache, b)
-    params = da.DecodeParams(1.0 / math.sqrt(D), 0.0, splits, torch.bfloat16)
+    # the previous rule: enough splits for two thread blocks an SM
+    prev_splits = da._clamp_splits(-(-2 * 132 // (b * HK)), bt.shape[1])
+
+    def kernel(s):
+        prm = da.DecodeParams(1.0 / math.sqrt(D), 0.0, s, torch.bfloat16)
+        return lambda: da._decode_partials_kernel(q, cache, bt, seq_lens, prm)
+
     q = torch.randn((b, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
-    ms = cuda_ms(lambda: da._decode_partials_kernel(q, cache, bt, seq_lens, params), reps=50)
-    plain_ms = cuda_ms(lambda: da._decode_torch(q, cache, bt, seq_lens, params), reps=5, warmup=1)
+    old = simt_decode(planted["decode_simt"], q, cache, bt, seq_lens, prev_splits)
+    samples = {"new": [], "previous": [], f"new_at_{prev_splits}_splits": []}
+    for which, fn in (("new", kernel(splits)), ("previous", old),
+                      (f"new_at_{prev_splits}_splits", kernel(prev_splits)),
+                      (f"new_at_{prev_splits}_splits", kernel(prev_splits)),
+                      ("previous", old), ("new", kernel(splits))):
+        samples[which].append(cuda_ms(fn, reps=50))
+    mean = {k: sum(v) / len(v) for k, v in samples.items()}
+    ms, prev_ms = mean["new"], mean["previous"]
+    sweep = split_sweep(q, cache, bt, seq_lens)
+    long_cache = decode_cache(gen, [32 * 1024 - 64], mpp=256)
+    q1 = q[:1].contiguous()
+    long_sweep = split_sweep(q1, long_cache, long_cache.block_tables[:1], long_cache.seq_lens[:1])
+    plain_ms = cuda_ms(lambda: da._decode_torch(
+        q, cache, bt, seq_lens, da.DecodeParams(1.0 / math.sqrt(D), 0.0, splits, torch.bfloat16)),
+        reps=5, warmup=1)
     lens = [engine.length(s) for s in slots]
     lmax = max(lens)
     kv = [gather_kv(cache, s, max_len=lmax) for s in slots]
@@ -1234,12 +1615,18 @@ def decode_timing(engine, slots, gen) -> dict:
         reps=50,
     )
     tokens = sum(lens)
-    flops = 4.0 * tokens * HQ * D
-    nbytes = (2 * 2 * tokens * HK * D + 2 * b * HQ * D
-              + 4 * b * splits * HQ * (D + 1) + 4 * (bt.numel() + b))
-    bound_ms, bound_by = bound(flops, nbytes)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "splits": splits, "cached_tokens": tokens}
+    bound_ms, bound_by = decode_bound(tokens, b, splits, bt.numel())
+    return {"card": nvidia_smi_line(), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "splits": splits,
+            "cached_tokens": tokens, "ms_in_turns": samples,
+            "previous_walk": {"splits": prev_splits, "ms": prev_ms},
+            f"new_at_{prev_splits}_splits_ms": mean[f"new_at_{prev_splits}_splits"],
+            "speedup_over_previous_walk": prev_ms / ms, "share_of_bound": bound_ms / ms,
+            "split_sweep": sweep,
+            "split_sweep_one_sequence": {
+                "cached_tokens": int(long_cache.seq_lens[0]),
+                "bound_ms": decode_bound(int(long_cache.seq_lens[0]), 1, 1, 256)[0],
+                "sweep": long_sweep}}
 
 
 # -- the serving path ----------------------------------------------------------
@@ -1371,11 +1758,9 @@ def prefix(gen) -> dict:
     whole prompt, the first decode step's cascade ``auto`` and ``on``
     against the flat path and the plain decode."""
     import torch
-    from magiattention_tpu_torch import csrc, env
-    from magiattention_tpu_torch.serving import (
-        ServingEngine, cascade_decode_attn, decode_attn_paged, decode_reference,
-        plan_cascade_groups,
-    )
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import ServingEngine, plan_cascade_groups
+    from magiattention_tpu_torch.serving import decode_attn as da
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1441,6 +1826,41 @@ def prefix(gen) -> dict:
           and len(groups[0].shared_pages) == full,
           f"prefix: cascade groups {[(len(g.shared_pages), g.members) for g in groups]}")
 
+    # the kernel's shared-mode launches (the cascade's level 1), counted on
+    # their own beside csrc.launches
+    real_partials, shared_launches = da._decode_partials_kernel, [0]
+
+    def counting_partials(*args, shared=False, **kw):
+        shared_launches[0] += int(shared)
+        return real_partials(*args, shared=shared, **kw)
+
+    da._decode_partials_kernel = counting_partials
+    try:
+        return prefix_decode(gen, engine, slots, groups, lengths, rand, shared_launches, {
+            "registrant_prefill_ms": registrant_ms,
+            "suffix_prefill_ms": suffix_ms,
+            "pages_in_use_after_prefill": pages_after_prefill,
+            "flat_engine_pages": flat_pages,
+            "pages_saved": flat_pages - pages_after_prefill,
+        })
+    finally:
+        da._decode_partials_kernel = real_partials
+
+
+def prefix_decode(gen, engine, slots, groups, lengths, rand, shared_launches, line) -> dict:
+    """The prefix phase's decode: the first step three ways on one state
+    (cascade ``auto``, ``on`` and flat, each against the plain decode, the
+    cascade against the flat path), then the rest of the steps with cascade
+    ``auto``; the decode attention alone on the final state, cascade
+    against flat, on the host clock and in device time."""
+    import torch
+    from magiattention_tpu_torch import csrc, env
+    from magiattention_tpu_torch.serving import (
+        cascade_decode_attn, decode_attn_paged, decode_reference,
+    )
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    full = PREFIX_LEN // PAGE
     # the first step three ways on one state: cascade auto, on, and flat
     seq_lens, host_lens = engine.cache.seq_lens.clone(), dict(engine._lengths)
     q, k, v = rand(len(slots), HQ, D), rand(len(slots), HK, D), rand(len(slots), HK, D)
@@ -1478,6 +1898,11 @@ def prefix(gen) -> dict:
           and set(launches) == {"flex_fwd_hb", "paged_decode"},
           f"prefix launches {launches}: expected {forwards} of flex_fwd_hb, paged_decode, "
           "and no other kernel")
+    # cascade auto and on ran level 1 in the shared mode: the first step's
+    # two cascades and the PREFIX_STEPS - 1 steps after it, one group each
+    check(shared_launches[0] == PREFIX_STEPS + 1,
+          f"prefix: {shared_launches[0]} shared-mode launches, not {PREFIX_STEPS + 1}")
+    shared_on_main_path = shared_launches[0]
     # the decode attention alone on the final state, cascade against flat,
     # in turns (host clock, synchronised: what a decode step pays for it)
     attn = {"cascade": lambda: cascade_decode_attn(q, engine.cache, slots, groups),
@@ -1491,6 +1916,29 @@ def prefix(gen) -> dict:
             attn[name]()
         torch.cuda.synchronize()
         attn_ms[name].append((time.perf_counter() - t0) * 1e2)
+    device_ms = {name: [] for name in attn}
+    for name in ("cascade", "flat", "flat", "cascade"):
+        device_ms[name].append(queued_ms(attn[name], reps=3))
+    # level 1 alone on the final state: the kernel's shared mode against its
+    # flat mode over the broadcast table (what level 1 ran before the shared
+    # mode), one split, with the bytes each must read
+    g = groups[0]
+    pages = torch.as_tensor(g.shared_pages, dtype=torch.int32, device="cuda")[None]
+    qg = q[torch.as_tensor(g.members, device="cuda")]
+    members = len(g.members)
+    sl1 = torch.full((1,), g.prefix_len, dtype=torch.int32, device="cuda")
+    prm = da.DecodeParams(1.0 / math.sqrt(D), 0.0, 1, torch.bfloat16)
+    kv_bytes = 2 * 2 * g.prefix_len * HK * D
+    level1 = {
+        "shared_mode_ms": cuda_ms(lambda: da._decode_partials_kernel(
+            qg, engine.cache, pages, sl1, prm, shared=True), reps=50),
+        "broadcast_table_ms": cuda_ms(lambda: da._decode_partials_kernel(
+            qg, engine.cache, pages.expand(members, -1).contiguous(),
+            sl1.expand(members).contiguous(), prm), reps=50),
+        "shared_mode_kv_bytes": kv_bytes,
+        "broadcast_table_kv_bytes": members * kv_bytes,
+        "shared_mode_bound_ms": bound(4.0 * g.prefix_len * HQ * D * members, kv_bytes)[0],
+    }
     decode_s = sum(step_ms) / 1e3
     return {
         "phase": "prefix",
@@ -1498,11 +1946,7 @@ def prefix(gen) -> dict:
         "heads": {"hq": HQ, "hk": HK, "head_dim": D, "page_size": PAGE},
         "prefix_tokens": PREFIX_LEN, "shared_full_pages": full, "suffixes": list(PREFIX_SUFFIXES),
         "chunked_suffix": {"tokens": PREFIX_SUFFIXES[PREFIX_CHUNKED], "chunk": PREFIX_CHUNK},
-        "registrant_prefill_ms": registrant_ms,
-        "suffix_prefill_ms": suffix_ms,
-        "pages_in_use_after_prefill": pages_after_prefill,
-        "flat_engine_pages": flat_pages,
-        "pages_saved": flat_pages - pages_after_prefill,
+        **line,
         "pages_in_use_after_decode": engine.allocator.pages_in_use,
         "cascade_mode": env.cascade_mode(),
         "cascade_groups": [{"members": len(g.members), "shared_pages": len(g.shared_pages)}
@@ -1512,7 +1956,10 @@ def prefix(gen) -> dict:
         "decode_ms_per_step_cascade_auto_steps_2_to_32": sum(step_ms) / len(step_ms),
         "decode_tokens_per_s": len(slots) * len(step_ms) / decode_s,
         "decode_attention_ms_final_state_in_turns": attn_ms,
+        "decode_attention_device_ms_final_state_in_turns": device_ms,
+        "level1_kernel_final_state": level1,
         "launches": launches,
+        "paged_decode_shared_mode_launches": shared_on_main_path,
     }
 
 
@@ -1932,9 +2379,11 @@ def main(argv=None) -> int:
         "wall_s": time.perf_counter() - t0,
         "nvcc_s": {n: r["seconds"] for n, r in built.items()},
         "ptxas": {n: [ln.strip() for ln in r["log"].splitlines()
-                      if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+                      if "registers" in ln or "spill" in ln or "setmaxnreg" in ln
+                      or (n == "paged_decode" and "entry function" in ln)]
                   for n, r in built.items()},
-        "sass": {n: sass_counts(built[n]["path"]) for n in ROW_MAJOR},
+        "sass": {**{n: sass_counts(built[n]["path"]) for n in ROW_MAJOR},
+                 "paged_decode": sass_counts(built["paged_decode"]["path"], DECODE_SASS)},
     })
     print(nvidia_smi_line(), flush=True)
 
@@ -1949,11 +2398,13 @@ def main(argv=None) -> int:
     fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
-    decode_cases(gen)
+    emit(decode_cases(gen))
+    emit({"phase": "planted_faults", "case": "paged_decode",
+          "caught": decode_planted_faults(gen, planted)})
 
     summary, engine, slots = serving(gen)
     emit(summary)
-    dec_t = decode_timing(engine, slots, gen)
+    dec_t = decode_timing(engine, slots, gen, planted)
     emit({"phase": "decode_timing", **dec_t})
     del engine
     torch.cuda.empty_cache()

@@ -11,8 +11,12 @@ two forwards (``flex_fwd``, ``flex_fwd_hb``) the TMA + wgmma walk of
 those of ``flex_bwd_sm90.cuh``; the two sparse-grid backward kernels
 (``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item bodies of
 ``flex_bwd.cuh``; the two sparse-grid forwards ``flex_fwd_sparse.cuh``.
-``flex_fwd.cuh``, the previous forward walk, is no kernel's: it is the
-source of ``chip_smoke.py``'s yardstick.
+``paged_decode`` (``decode.cu``) takes the tensor-core walk of
+``decode_sm90.cuh`` for bf16 caches and the CUDA-core walk of
+``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``, the previous
+forward walk, is no kernel's: it is the source of one of ``chip_smoke.py``'s
+yardsticks (``decode_simt.cuh`` at bf16, the previous decode walk, is
+another).
 On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
@@ -137,10 +141,11 @@ KERNELS: dict[str, Kernel] = {
         "magi_paged_decode",
         # q k_pages v_pages block_table seq_lens | out_parts lse_parts
         [_P] * 5 + [_P] * 2
-        # b hq hk head_dim page_size mpp num_splits is_f32
-        + [_I] * 8
+        # b hq hk head_dim page_size mpp num_splits shared is_f32
+        + [_I] * 9
         # scale softcap stream
         + [_F, _F, _P],
+        ("decode_simt.cuh", "decode_sm90.cuh"),
     ),
 }
 

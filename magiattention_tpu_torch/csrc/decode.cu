@@ -4,225 +4,26 @@
 // Replaces the TPU kernel magiattention_tpu/serving/decode_attn.py::
 // _decode_pallas (kernel body _decode_kernel): one query token per sequence
 // attends over its paged history; each of num_splits KV splits walks its
-// share of the block table page by page, masks positions >= seq_len, runs
-// an online softmax over the group of q heads that share one kv head, and
-// writes its partial (out, lse) in f32. The splits merge outside the kernel
-// through ops/correction.py::merge_partials, as on the TPU.
+// share of the block table, masks positions >= seq_len, runs an online
+// softmax over the q heads that share one kv head, and writes its partial
+// (out, lse) in f32. The splits merge outside the kernel through
+// ops/correction.py::merge_partials, as on the TPU.
 //
-// What bounds it on the card: memory. Each cached K/V byte is used for one
-// multiply-add per q head of its group (4 at Llama-3.1-8B widths), far below
-// the ~295 FLOP/byte an H100 needs before the tensor cores are the limit.
+// Bound by bytes (each cached K/V byte feeds one multiply-add per q head of
+// its group). bf16 caches take the tensor-core walk of decode_sm90.cuh
+// (per-warp cp.async rings, mma.sync; its note says how it meets that
+// bound), float32 caches the CUDA-core walk of decode_simt.cuh, which keeps
+// the f32 arithmetic of the plain version.
 //
-// What this design does about it: one thread block per (sequence, split, kv
-// head) reads each live K/V row of its split exactly once (16 B a thread,
-// consecutive threads on consecutive addresses) and serves all G q heads of
-// the kv head from shared memory; pages past the sequence's end are never
-// read (an unreserved block-table entry reads 0, a live page of another
-// sequence), nor the tokens past seq_len in its last page. Splits give the
-// card enough thread blocks at small batch. Not yet: overlap of the next
-// page's load with this page's compute (cp.async or TMA), which is what a
-// later change has to add to approach the memory rate.
-//
-// Grid: (kv heads, splits, sequences); 128 threads.
+// shared = 0: row b of q reads table row b and length b (flat decode).
+// shared = 1: every row reads table row 0 and length 0, the cascade's shared
+// prefix, and one block serves several members' q heads from each load.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include <cuda_runtime.h>
 
-namespace {
-
-constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;  // q heads per kv head this kernel serves
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-// p rounded to the cache's type before P.V, as the TPU kernel does
-__device__ __forceinline__ float round_to(bf16*, float p) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-__device__ __forceinline__ float round_to(float*, float p) { return p; }
-
-// q [b, hq, D]; k_pages/v_pages [P, ps, hk, D] (T); bt [b, mpp]; sl [b];
-// out_parts [b, splits, hq, D] f32; lse_parts [b, splits, hq] f32.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ bt,
-                    const int* __restrict__ sl, float* __restrict__ out_parts,
-                    float* __restrict__ lse_parts, int hq, int hk, int group,
-                    int ps, int mpp, int splits, float scale, float softcap) {
-  // K/V rows in shared memory with a row stride of an odd number of 32-bit
-  // words, so that threads reading one row each hit distinct banks
-  constexpr int ROW_WORDS = D * (int)sizeof(T) / 4 + 1;
-  constexpr int EPW = 4 / (int)sizeof(T);  // elements per 32-bit word
-  constexpr int CHUNKS = D * (int)sizeof(T) / 16;  // 16 B chunks per row
-  constexpr int MAXOUT = (MAXG * D + NTHREADS - 1) / NTHREADS;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* sK = reinterpret_cast<uint32_t*>(smem_raw);
-  uint32_t* sV = sK + ps * ROW_WORDS;
-  float* sQ = reinterpret_cast<float*>(sV + ps * ROW_WORDS);  // [G][D]
-  float* sP = sQ + group * D;                                 // [G][ps]
-  float* sM = sP + group * ps;                                // [G]
-  float* sL = sM + group;
-  float* sA = sL + group;
-
-  const int h = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int seq_len = sl[b];
-  const int pps = mpp / splits;
-
-  for (int x = tid; x < group * D; x += NTHREADS)
-    sQ[x] = to_f(q[((size_t)b * hq + h * group) * D + x]);
-  for (int x = tid; x < group; x += NTHREADS) {
-    sM[x] = -INFINITY;
-    sL[x] = 0.f;
-  }
-  float acc[MAXOUT];
-#pragma unroll
-  for (int r = 0; r < MAXOUT; ++r) acc[r] = 0.f;
-  __syncthreads();
-
-  for (int p = 0; p < pps; ++p) {
-    const int base = (s * pps + p) * ps;  // first position of this page
-    if (base >= seq_len) break;           // pages past the sequence: not read
-    const int ntok = min(ps, seq_len - base);
-    const int page = bt[(size_t)b * mpp + s * pps + p];
-
-    const size_t row0 = ((size_t)page * ps * hk + h) * D;  // token 0 of head h
-    for (int c = tid; c < ntok * CHUNKS; c += NTHREADS) {
-      const int tok = c / CHUNKS, cc = c % CHUNKS;
-      const size_t off = row0 + (size_t)tok * hk * D + cc * (16 / sizeof(T));
-      const uint4 kv = *reinterpret_cast<const uint4*>(kp + off);
-      const uint4 vv = *reinterpret_cast<const uint4*>(vp + off);
-      uint32_t* dk = sK + tok * ROW_WORDS + cc * 4;
-      uint32_t* dv = sV + tok * ROW_WORDS + cc * 4;
-      dk[0] = kv.x; dk[1] = kv.y; dk[2] = kv.z; dk[3] = kv.w;
-      dv[0] = vv.x; dv[1] = vv.y; dv[2] = vv.z; dv[3] = vv.w;
-    }
-    __syncthreads();
-
-    // scores: one thread per token, all G heads
-    for (int tok = tid; tok < ntok; tok += NTHREADS) {
-      float dot[MAXG];
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
-      const T* krow = reinterpret_cast<const T*>(sK + tok * ROW_WORDS);
-#pragma unroll 4
-      for (int w = 0; w < D / EPW; ++w) {
-        float kx[EPW];
-#pragma unroll
-        for (int u = 0; u < EPW; ++u) kx[u] = to_f(krow[w * EPW + u]);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < group) {
-#pragma unroll
-            for (int u = 0; u < EPW; ++u) dot[g] += sQ[g * D + w * EPW + u] * kx[u];
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < group) {
-          float z = dot[g] * scale;
-          if (softcap > 0.f) z = softcap * tanhf(z / softcap);
-          sP[g * ps + tok] = z;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online-softmax update, one warp per q head
-    for (int g = warp; g < group; g += NWARPS) {
-      float* row = sP + g * ps;
-      float mcur = -INFINITY;
-      for (int tok = lane; tok < ntok; tok += 32) mcur = fmaxf(mcur, row[tok]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, o));
-      const float mprev = sM[g];
-      const float mnew = fmaxf(mprev, mcur);
-      const float msafe = mnew == -INFINITY ? 0.f : mnew;
-      const float alpha = mprev == -INFINITY ? 0.f : expf(mprev - msafe);
-      float lsum = 0.f;
-      for (int tok = lane; tok < ntok; tok += 32) {
-        const float z = row[tok];
-        const float pe = z == -INFINITY ? 0.f : expf(z - msafe);
-        lsum += pe;
-        row[tok] = round_to((T*)nullptr, pe);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
-      __syncwarp();
-      if (lane == 0) {
-        sM[g] = mnew;
-        sL[g] = sL[g] * alpha + lsum;
-        sA[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc[g][d] = acc * alpha + sum_tok p[g][tok] * V[tok][d]
-#pragma unroll
-    for (int r = 0; r < MAXOUT; ++r) {
-      const int x = tid + r * NTHREADS;
-      if (x < group * D) {
-        const int g = x / D, d = x % D;
-        const float* pg = sP + g * ps;
-        const T* vcol = reinterpret_cast<const T*>(sV) + d;
-        float a = acc[r] * sA[g];
-        for (int tok = 0; tok < ntok; ++tok)
-          a += pg[tok] * to_f(vcol[(size_t)tok * ROW_WORDS * EPW]);
-        acc[r] = a;
-      }
-    }
-    __syncthreads();  // before the next page overwrites sK/sV/sP
-  }
-
-  // finalize: (0, -inf) for a split with no coverage
-  const size_t obase = ((size_t)b * splits + s) * hq + (size_t)h * group;
-#pragma unroll
-  for (int r = 0; r < MAXOUT; ++r) {
-    const int x = tid + r * NTHREADS;
-    if (x < group * D) {
-      const float lg = sL[x / D];
-      out_parts[obase * D + x] = lg > 0.f ? acc[r] / lg : 0.f;
-    }
-  }
-  for (int g = tid; g < group; g += NTHREADS) {
-    const float lg = sL[g], mg = sM[g];
-    const float msafe = mg == -INFINITY ? 0.f : mg;
-    lse_parts[obase + g] = lg > 0.f ? msafe + logf(lg) : -INFINITY;
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt,
-                   const void* sl, void* out_parts, void* lse_parts, int b,
-                   int hq, int hk, int ps, int mpp, int splits, float scale,
-                   float softcap, cudaStream_t stream) {
-  const int group = hq / hk;
-  const size_t row_bytes = (size_t)(D * sizeof(T) / 4 + 1) * 4;
-  const size_t smem = 2 * ps * row_bytes +
-                      sizeof(float) * ((size_t)group * D + (size_t)group * ps + 3 * group);
-  auto kernel = paged_decode_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(hk, splits, b);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (const int*)bt, (const int*)sl,
-      (float*)out_parts, (float*)lse_parts, hq, hk, group, ps, mpp, splits,
-      scale, softcap);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "decode_simt.cuh"
+#include "decode_sm90.cuh"
 
 extern "C" {
 
@@ -234,18 +35,19 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                       const void* block_table, const void* seq_lens,
                       void* out_parts, void* lse_parts, int b, int hq, int hk,
                       int head_dim, int page_size, int mpp, int num_splits,
-                      int is_f32, float scale, float softcap, void* stream) {
-  if (b <= 0 || hk <= 0 || hq % hk != 0 || hq / hk > MAXG || num_splits <= 0 ||
-      mpp % num_splits != 0 || page_size <= 0)
+                      int shared, int is_f32, float scale, float softcap, void* stream) {
+  if (b <= 0 || hk <= 0 || hq % hk != 0 || num_splits <= 0 || mpp % num_splits != 0 ||
+      page_size <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MAGI_DECODE_LAUNCH(D)                                                    \
-  return is_f32 ? launch<float, D>(q, k_pages, v_pages, block_table, seq_lens,   \
-                                   out_parts, lse_parts, b, hq, hk, page_size,   \
-                                   mpp, num_splits, scale, softcap, st)          \
-                : launch<bf16, D>(q, k_pages, v_pages, block_table, seq_lens,    \
-                                  out_parts, lse_parts, b, hq, hk, page_size,    \
-                                  mpp, num_splits, scale, softcap, st)
+#define MAGI_DECODE_LAUNCH(D)                                                              \
+  return is_f32 ? decode_simt::launch<float, D>(q, k_pages, v_pages, block_table,          \
+                                                seq_lens, out_parts, lse_parts, b, hq, hk,  \
+                                                page_size, mpp, num_splits, shared, scale,  \
+                                                softcap, st)                                \
+                : decode_sm90::launch<D>(q, k_pages, v_pages, block_table, seq_lens,        \
+                                         out_parts, lse_parts, b, hq, hk, page_size, mpp,   \
+                                         num_splits, shared, scale, softcap, st)
   switch (head_dim) {
     case 64: MAGI_DECODE_LAUNCH(64);
     case 128: MAGI_DECODE_LAUNCH(128);

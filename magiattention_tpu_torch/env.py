@@ -66,7 +66,7 @@ def prefill_chunk() -> int | None:
 def decode_splits() -> int | None:
     """Split-KV decode split count (``serving/decode_attn.py``): an integer
     pins the number of KV splits per sequence; 'auto' (default) resolves
-    through ``resolve_num_splits``'s Hopper heuristic."""
+    through ``resolve_num_splits``'s Hopper rule."""
     v = _env_str("MAGI_ATTENTION_DECODE_SPLITS", "auto").strip().lower()
     return None if v in ("", "auto") else int(v)
 

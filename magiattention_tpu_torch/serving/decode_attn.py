@@ -11,10 +11,14 @@ Where it runs follows its tensors: on CUDA the ``paged_decode`` kernel
 CPU the plain version :func:`_decode_torch` gathers each split's pages and
 computes the same partials densely. A split with no coverage (the sequence
 ends before it starts) reports ``(out=0, lse=-inf)`` and merges as a no-op.
+:func:`_decode_shared_prefix` is the cascade's level 1: every query of a
+group attends over the same shared pages, which the kernel's shared mode
+reads once for up to 32 q rows (8 on the float32 walk; the plain version:
+the broadcast table).
 
 Split-count resolution: explicit argument > ``MAGI_ATTENTION_DECODE_SPLITS``
-> the Hopper heuristic of :func:`resolve_num_splits`, always clamped to a
-divisor of the block-table width.
+> the Hopper rule of :func:`resolve_num_splits` (one split), always clamped
+to a divisor of the block-table width.
 """
 
 from __future__ import annotations
@@ -31,12 +35,11 @@ from .kv_cache import PagedKVCache
 
 NEG_INF = float("-inf")
 
-# the kernel's build and limits (csrc/decode.cu)
+# the kernel's build and limits (csrc/decode.cu): q heads per kv head at
+# most one m16 tile on the tensor-core walk (bf16), 8 on the f32 walk
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_MAX_GROUP = 8
-# SMs of an H100 SXM: the split heuristic's target parallelism
-HOPPER_SMS = 132
+KERNEL_MAX_GROUP = {torch.bfloat16: 16, torch.float32: 8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +107,13 @@ def _decode_torch(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     return merge_partials(outs, lses)
 
 
-def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
+def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams,
+                            *, shared: bool = False):
     """The ``paged_decode`` Hopper kernel: every split's partial in one
-    launch. Returns (out_parts [b, s, hq, d] f32, lse_parts [b, s, hq] f32).
-    Raises on what the kernel does not take."""
+    launch. ``shared``: ``bt`` [1, W] and ``seq_lens`` [1] hold one table
+    row and length that every query reads (the kernel's shared mode).
+    Returns (out_parts [b, s, hq, d] f32, lse_parts [b, s, hq] f32). Raises
+    on what the kernel does not take."""
     b, hq, d = q.shape
     hk = cache.num_kv_heads
     if q.requires_grad:
@@ -121,11 +127,19 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
             f"paged_decode takes q and pages of one dtype in {KERNEL_DTYPES}; "
             f"got q {q.dtype}, pages {cache.k_pages.dtype}"
         )
-    if d not in KERNEL_HEAD_DIMS or hq // hk > KERNEL_MAX_GROUP:
+    max_group = KERNEL_MAX_GROUP[q.dtype]
+    if d not in KERNEL_HEAD_DIMS or hq // hk > max_group:
         raise ValueError(
             f"paged_decode is built for head_dim in {KERNEL_HEAD_DIMS} and at "
-            f"most {KERNEL_MAX_GROUP} q heads per kv head; got head_dim {d}, "
-            f"{hq // hk}"
+            f"most {max_group} q heads per kv head at {q.dtype}; got head_dim "
+            f"{d}, {hq // hk}"
+        )
+    rows = 1 if shared else b
+    if bt.shape[0] != rows or seq_lens.shape[0] != rows:
+        raise ValueError(
+            f"paged_decode: {rows} table row(s) and length(s) expected "
+            f"({'shared' if shared else 'flat'} mode, {b} queries); got "
+            f"{tuple(bt.shape)} and {tuple(seq_lens.shape)}"
         )
     s = params.num_splits
     mpp = bt.shape[1]
@@ -139,22 +153,57 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
         q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
         bt.data_ptr(), seq_lens.data_ptr(),
         out_parts.data_ptr(), lse_parts.data_ptr(),
-        b, hq, hk, d, cache.page_size, mpp, s,
+        b, hq, hk, d, cache.page_size, mpp, s, int(shared),
         int(q.dtype == torch.float32), float(params.scale), float(params.softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out_parts, lse_parts
 
 
+def _merge_splits(out_parts, lse_parts):
+    """The kernel's per-split partials merged: f32 (out [b, hq, d], lse [b, hq])."""
+    s = out_parts.shape[1]
+    return merge_partials(
+        [out_parts[:, i] for i in range(s)], [lse_parts[:, i] for i in range(s)]
+    )
+
+
 def _decode(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     """Split-KV decode where the tensors are: f32 (out [b, hq, d], lse [b, hq])."""
     if not on_card(q, cache.k_pages, bt):
         return _decode_torch(q, cache, bt, seq_lens, params)
-    out_parts, lse_parts = _decode_partials_kernel(q, cache, bt, seq_lens, params)
-    s = params.num_splits
-    return merge_partials(
-        [out_parts[:, i] for i in range(s)], [lse_parts[:, i] for i in range(s)]
+    return _merge_splits(*_decode_partials_kernel(q, cache, bt, seq_lens, params))
+
+
+def _decode_shared_prefix(
+    q: torch.Tensor,  # [m, hq, head_dim] the group's queries
+    cache: PagedKVCache,
+    shared_pages: torch.Tensor,  # [W] the page ids every member starts with
+    prefix_len: int,  # tokens those pages hold
+    *,
+    num_splits: int = 1,
+    scale: float | None = None,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each query's attention over ONE shared page row (the cascade's level
+    1): the function :func:`decode_partials_for_tables` computes over the
+    table that repeats ``shared_pages`` for every query. On CUDA the
+    kernel's shared mode reads each shared page once for up to 32 q rows
+    across members (8 on the float32 walk); on the CPU the plain version
+    runs over the broadcast table. Returns f32 ``(out [m, hq, d], lse [m, hq])``."""
+    _check_q(q, cache, "_decode_shared_prefix")
+    m, _, d = q.shape
+    params = DecodeParams(
+        scale=float(scale if scale is not None else 1.0 / math.sqrt(d)),
+        softcap=float(softcap),
+        num_splits=_clamp_splits(num_splits, shared_pages.shape[0]),
+        out_dtype=torch.float32,
     )
+    bt = shared_pages.to(torch.int32)[None]  # [1, W]
+    sl = torch.full((1,), int(prefix_len), dtype=torch.int32, device=bt.device)
+    if not on_card(q, cache.k_pages, bt):
+        return _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
+    return _merge_splits(*_decode_partials_kernel(q, cache, bt, sl, params, shared=True))
 
 
 def _clamp_splits(num_splits: int, width: int) -> int:
@@ -173,24 +222,26 @@ def resolve_num_splits(
     *,
     mpp: int | None = None,
 ) -> int:
-    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > a Hopper heuristic,
+    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > the Hopper rule,
     clamped to a divisor of the table width: ``max_pages_per_seq``, or an
     explicit ``mpp`` (the cascade resolves each phase on its own table:
     the shared prefix's pages, then each member's suffix pages).
 
-    The heuristic, a first guess in place of the JAX package's tuner: the
-    kernel runs one thread block per (sequence, split, kv head), so ask for
-    enough splits that ``batch * kv_heads * splits`` covers the card's 132
-    SMs twice. It cannot see the sequences' lengths; splits past a
-    sequence's end cost one empty thread block each and merge as no-ops.
+    The rule, in place of the JAX package's tuner, is one split, whatever
+    the batch: measured on the H100 (``chip_smoke.py``'s ``decode_timing``
+    split sweep, the kernel alone and with the merge, on the serving batch
+    of 8 sequences and on one 32K-token sequence, 8 kv heads each). The
+    kernel spreads each (sequence, kv head) walk over a cluster of up to 8
+    thread blocks itself, so splits add no parallelism it lacks, and each
+    extra split costs a ``merge_partials`` round of small elementwise
+    kernels that takes longer on the card than the split saves.
     """
     from .. import env
 
     if num_splits is None:
         num_splits = env.decode_splits()
     if num_splits is None:
-        blocks = max(int(batch), 1) * cache.num_kv_heads
-        num_splits = -(-2 * HOPPER_SMS // blocks)
+        num_splits = 1
     return _clamp_splits(num_splits, cache.max_pages_per_seq if mpp is None else mpp)
 
 

@@ -19,7 +19,10 @@ of requests instead of once per request.
   full-page prefix partial runs ONCE over the group's rows of the shared
   page table, each member's suffix partial over its own pages, and the two
   merge with ``ops/correction.correct_attn_out_lse``. Both levels run the
-  ``paged_decode`` kernel (``decode_partials_for_tables``) on CUDA tensors.
+  ``paged_decode`` kernel on CUDA tensors: the prefix in its shared mode
+  (``decode_attn._decode_shared_prefix``: each shared page read once for
+  up to 32 q rows of the group), the suffixes through
+  ``decode_partials_for_tables``.
 
 Sharing is read sharing: the one shared page that can be written is a
 partial tail page (a fork's first write, or the registrant's own next
@@ -40,7 +43,9 @@ import numpy as np
 import torch
 
 from ..ops.correction import correct_attn_out_lse
-from .decode_attn import decode_partials_for_tables, resolve_num_splits
+from .decode_attn import (
+    _decode_shared_prefix, decode_partials_for_tables, resolve_num_splits,
+)
 from .kv_cache import PagedKVCache, PageAllocator
 
 _ROOT = b"root"
@@ -229,6 +234,17 @@ class PrefixCache:
 # -- cascade decode -----------------------------------------------------------
 
 
+def _device_index(values: Sequence[int], dtype: torch.dtype,
+                  dev: torch.device) -> torch.Tensor:
+    """Host integers as a tensor on ``dev``. To a card through pinned memory
+    and a non-blocking copy: a copy from pageable memory would wait for
+    every kernel queued before it, stalling the host once per index."""
+    t = torch.tensor(list(values), dtype=dtype)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 @dataclasses.dataclass(frozen=True)
 class CascadeGroup:
     """One shared-prefix decode group: ``shared_pages`` are the group's
@@ -267,7 +283,7 @@ def cascade_decode_attn(
         scale = 1.0 / math.sqrt(d)
     out_dtype = out_dtype if out_dtype is not None else q.dtype
     dev = cache.device
-    slots_dev = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    slots_dev = _device_index(slots, torch.long, dev)
     bt_all = cache.block_tables[slots_dev]  # [b, MPP]
     sl_all = cache.seq_lens[slots_dev]  # [b]
     mpp = cache.max_pages_per_seq
@@ -296,15 +312,14 @@ def cascade_decode_attn(
                 f"({cache.page_size}) = {n_shared * cache.page_size} and cover at "
                 "least one page — the level-1 partial reads whole shared pages only"
             )
-        idx_dev = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        idx_dev = _device_index(idx, torch.long, dev)
         qg = q[idx_dev]
-        # level 1: the shared prefix, once per group, fully covered
-        bt_shared = torch.as_tensor(g.shared_pages, dtype=torch.int32, device=dev)
-        bt_shared = bt_shared[None].expand(len(idx), n_shared)
-        sl_shared = torch.full((len(idx),), g.prefix_len, dtype=torch.int32, device=dev)
+        # level 1: the shared prefix, once per group, fully covered; the
+        # kernel reads each shared page once for the group's q rows
+        shared = _device_index(g.shared_pages, torch.int32, dev)
         s_prefix = resolve_num_splits(num_splits, cache, len(idx), mpp=n_shared)
-        o_g, l_g = decode_partials_for_tables(qg, cache, bt_shared, sl_shared,
-                                              num_splits=s_prefix, **kw)
+        o_g, l_g = _decode_shared_prefix(qg, cache, shared, g.prefix_len,
+                                         num_splits=s_prefix, **kw)
         # level 2: each member's own pages past the prefix (table-relative lengths)
         suffix_w = mpp - n_shared
         if suffix_w > 0:
@@ -317,7 +332,7 @@ def cascade_decode_attn(
         out[idx_dev], lse[idx_dev] = o_g, l_g
 
     if rest:
-        idx_dev = torch.as_tensor(rest, dtype=torch.long, device=dev)
+        idx_dev = _device_index(rest, torch.long, dev)
         s_flat = resolve_num_splits(num_splits, cache, len(rest))
         out[idx_dev], lse[idx_dev] = decode_partials_for_tables(
             q[idx_dev], cache, bt_all[idx_dev], sl_all[idx_dev], num_splits=s_flat, **kw)

@@ -3,7 +3,11 @@ package's ``decode_attn_paged`` in Pallas interpret mode (the path that
 reaches ``_decode_pallas``) and under the jnp backend: same cache state
 (carried across with ``convert.cache_from_numpy``) and queries, split
 counts 1/2/4, ragged and zero lengths; out and lse within the float32 row
-of ``telemetry.numerics.DEFAULT_BUDGETS``."""
+of ``telemetry.numerics.DEFAULT_BUDGETS``. The cascade's level-1 entry
+``_decode_shared_prefix`` (the kernel's shared mode on the card) against
+JAX ``decode_partials_for_tables`` over the broadcast table."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +28,9 @@ from magiattention_tpu.telemetry.numerics import (
     divergence_report,
 )
 from magiattention_tpu_torch.convert import cache_from_numpy
+from magiattention_tpu_torch.serving.decode_attn import _decode_shared_prefix
 from magiattention_tpu_torch.serving import (
+    PagedKVCache,
     decode_attn_paged,
     decode_partials_for_tables,
     decode_reference,
@@ -107,12 +113,45 @@ def test_resolve_num_splits(monkeypatch):
     monkeypatch.setenv("MAGI_ATTENTION_DECODE_SPLITS", "3")
     assert resolve_num_splits(None, cache, 4) == 3
     monkeypatch.setenv("MAGI_ATTENTION_DECODE_SPLITS", "auto")
-    # heuristic: batch * kv_heads * splits >= 2 * 132 thread blocks
-    assert resolve_num_splits(None, cache, 1) == 12
-    assert resolve_num_splits(None, cache, 64) == 3
+    # the Hopper rule: one split at any batch (the kernel spreads each walk
+    # over a cluster of thread blocks; a split costs a merge round)
+    assert resolve_num_splits(None, cache, 1) == 1
+    assert resolve_num_splits(None, cache, 64) == 1
+    assert resolve_num_splits(None, cache, 4, mpp=7) == 1
 
 
 def test_incompatible_q_raises():
     _, cache, q = _state()
     with pytest.raises(ValueError, match="incompatible"):
         decode_attn_paged(torch.from_numpy(q[:, :3]), cache, torch.arange(len(LENGTHS)))
+
+
+@pytest.mark.parametrize("softcap", [0.0, 4.0])
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("members", [1, 3, 8])
+def test_shared_prefix_matches_jax_partials_over_broadcast_table(members, group, ps, softcap):
+    """Every member's query over one shared page row (a partial last page at
+    page 16, so the mask runs), against JAX ``decode_partials_for_tables``
+    in interpret mode on the table that repeats the row for each member."""
+    rng = np.random.default_rng(members * 100 + group * 10 + ps + int(softcap))
+    hk, w = 2, (4 if ps == 16 else 2)
+    num_pages = 3 * w + 1
+    k = rng.standard_normal((num_pages, ps, hk, D)).astype(np.float32)
+    v = rng.uniform(0.5, 1.5, (num_pages, ps, hk, D)).astype(np.float32)
+    jcache = jax_make_cache(num_pages, ps, hk, D, max_seqs=1, max_pages_per_seq=w,
+                            dtype=jnp.float32)
+    jcache = dataclasses.replace(jcache, k_pages=jnp.asarray(k), v_pages=jnp.asarray(v))
+    cache = PagedKVCache(torch.from_numpy(k), torch.from_numpy(v),
+                         torch.zeros((1, w), dtype=torch.int32),
+                         torch.zeros((1,), dtype=torch.int32))
+    pages = rng.permutation(np.arange(1, num_pages))[:w].astype(np.int32)
+    prefix_len = w * ps - (3 if ps == 16 else 0)
+    q = rng.standard_normal((members, group * hk, D)).astype(np.float32)
+    splits = 2 if w % 2 == 0 else 1
+    jo, jl = jax_partials(jnp.asarray(q), jcache, jnp.asarray(np.tile(pages, (members, 1))),
+                          jnp.full((members,), prefix_len, jnp.int32), num_splits=splits,
+                          softcap=softcap, interpret=True)
+    out, lse = _decode_shared_prefix(torch.from_numpy(q), cache, torch.from_numpy(pages),
+                                     prefix_len, num_splits=splits, softcap=softcap)
+    _check(jo, jl, out, lse)

@@ -402,3 +402,160 @@ def test_cascade_decode_on_card_matches_flat(card):
     out_f, lse_f = eng.decode_step(q, kv[:, :2], kv[:, 2:], slots, cascade="off",
                                    out_dtype=torch.float32)
     assert ((out_c - out_f).abs() <= 1e-3).all() and ((lse_c - lse_f).abs() <= 2e-4).all()
+
+
+def _decode_problem(gen, d, dtype, hq, hk, ps, lengths, mpp):
+    """One random sequence per slot on a shuffled run of the pool's pages."""
+    from magiattention_tpu_torch.serving import (
+        assign_block_table, make_paged_kv_cache, write_prefill_kv,
+    )
+
+    b = len(lengths)
+    cache = make_paged_kv_cache(b * mpp + 1, ps, hk, d, max_seqs=b, max_pages_per_seq=mpp,
+                                dtype=dtype)
+    pages = (torch.randperm(b * mpp, generator=gen, device="cuda") + 1).tolist()
+    for slot, n in enumerate(lengths):
+        assign_block_table(cache, slot, pages[slot * mpp:(slot + 1) * mpp])
+        kv = torch.randn((2, n, hk, d), generator=gen, device="cuda").to(dtype)
+        write_prefill_kv(cache, slot, kv[0], kv[1])
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+    return cache, q
+
+
+def _decode_parts(q, cache, bt, sl, splits, softcap=0.0, shared=False):
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    params = da.DecodeParams(1.0 / math.sqrt(q.shape[2]), softcap, splits, torch.float32)
+    return da._decode_partials_kernel(q, cache, bt, sl, params, shared=shared)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+_DECODE_CASES = [(d, dt, g, ps) for d in (64, 128) for dt in (torch.bfloat16, torch.float32)
+                 for g in (1, 2, 4, 8) + ((16,) if dt == torch.bfloat16 else ())
+                 for ps in (16, 64, 128)]
+
+
+@pytest.mark.parametrize("d,dtype,group,ps", _DECODE_CASES,
+                         ids=[f"d{d}-{str(dt)[6:]}-g{g}-ps{ps}" for d, dt, g, ps in _DECODE_CASES])
+def test_paged_decode_cases_match_plain(card, d, dtype, group, ps):
+    """Ragged and zero lengths on shuffled pages, splits 1/3/4/16, softcap on
+    one page size; every launch run twice for the same bits."""
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    mpp, hk = 48, 2
+    full = mpp * ps
+    lens = [0, 1, ps - 1, ps + 1, 5 * ps + 3, full // 2 + 7, full - 1, full]
+    cache, q = _decode_problem(card, d, dtype, group * hk, hk, ps, lens, mpp)
+    bt, sl = cache.block_tables, cache.seq_lens
+    softcap = 4.0 if ps == 64 else 0.0
+    ref, ref_lse = decode_reference(q, cache, bt, sl, softcap=softcap)
+    for splits in (1, 3, 4, 16):
+        parts = _decode_parts(q, cache, bt, sl, splits, softcap)
+        assert _same_bits(parts, _decode_parts(q, cache, bt, sl, splits, softcap))
+        out, lse = da._merge_splits(*parts)
+        _close(out, ref, lse, ref_lse)
+        assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_never_reads_past_the_lengths(card, dtype):
+    """NaN in every position past each sequence's length, in its last page
+    and the pages after it, leaves every output bit as it was."""
+    import dataclasses
+
+    mpp, ps = 12, 64
+    lens = [0, 1, 63, 65, 300, 700]
+    cache, q = _decode_problem(card, 128, dtype, 8, 2, ps, lens, mpp)
+    dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                v_pages=cache.v_pages.clone())
+    for slot, n in enumerate(lens):
+        pos = torch.arange(n, mpp * ps, device="cuda")
+        page = cache.block_tables[slot].long()[pos // ps]
+        dirty.k_pages[page, pos % ps] = float("nan")
+        dirty.v_pages[page, pos % ps] = float("nan")
+    for splits in (1, 4):
+        clean = _decode_parts(q, cache, cache.block_tables, cache.seq_lens, splits)
+        assert _same_bits(clean, _decode_parts(q, dirty, cache.block_tables, cache.seq_lens,
+                                               splits))
+
+
+@pytest.mark.parametrize("members", [1, 3, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_shared_mode_matches_flat_and_plain(card, d, dtype, group, members):
+    """The cascade's level 1: every member on one shared page row (a partial
+    last page), through ``_decode_shared_prefix`` and the kernel's shared
+    mode, against the plain version and the flat mode over the broadcast
+    table; two runs give the same bits."""
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    hk, w, ps = 2, 12, 64
+    cache = da.PagedKVCache(
+        *(torch.randn((3 * w + 1, ps, hk, d), generator=card, device="cuda").to(dtype)
+          for _ in range(2)),
+        torch.zeros((1, w), dtype=torch.int32, device="cuda"),
+        torch.zeros((1,), dtype=torch.int32, device="cuda"))
+    pages = (torch.randperm(3 * w, generator=card, device="cuda")[:w] + 1).int()
+    plen = w * ps - 5
+    q = torch.randn((members, group * hk, d), generator=card, device="cuda").to(dtype)
+    bt_b = pages[None].expand(members, w).contiguous()
+    sl_b = torch.full((members,), plen, dtype=torch.int32, device="cuda")
+    ref, ref_lse = decode_reference(q, cache, bt_b, sl_b)
+    for splits in (1, 3, 4):
+        parts = _decode_parts(q, cache, pages[None], sl_b[:1], splits, shared=True)
+        assert _same_bits(parts, _decode_parts(q, cache, pages[None], sl_b[:1], splits,
+                                               shared=True))
+        out, lse = da._decode_shared_prefix(q, cache, pages, plen, num_splits=splits)
+        assert _same_bits((out, lse), da._merge_splits(*parts))
+        _close(out, ref, lse, ref_lse)
+        flat, flat_lse = da._merge_splits(*_decode_parts(q, cache, bt_b, sl_b, splits))
+        _close(out, flat, lse, flat_lse)
+
+
+def test_cascade_level1_runs_the_shared_mode(card, monkeypatch):
+    """``cascade_decode_attn`` launches the kernel's shared mode once per
+    group for the prefix and the flat mode for the suffixes, every launch
+    counted under ``paged_decode``."""
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import CascadeGroup, cascade_decode_attn
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    lens = [300, 420, 256 + 7]
+    cache, q = _decode_problem(card, 128, torch.bfloat16, 8, 2, 64, lens, 8)
+    shared = cache.block_tables[0, :4].tolist()
+    for slot in (1, 2):  # members 1 and 2 start with slot 0's first 4 pages
+        cache.block_tables[slot, :4] = cache.block_tables[0, :4]
+    modes = []
+    real = da._decode_partials_kernel
+
+    def counting(*args, shared=False, **kw):
+        modes.append(shared)
+        return real(*args, shared=shared, **kw)
+
+    monkeypatch.setattr(da, "_decode_partials_kernel", counting)
+    csrc.reset_launch_counts()
+    group = CascadeGroup(tuple(shared), 256, (0, 1, 2))
+    out, lse = cascade_decode_attn(q, cache, [0, 1, 2], [group], out_dtype=torch.float32)
+    assert modes == [True, False] and csrc.launches["paged_decode"] == 2
+    ref, ref_lse = decode_reference(q, cache, cache.block_tables, cache.seq_lens)
+    _close(out, ref, lse, ref_lse)
+
+
+def test_paged_decode_refuses_what_it_does_not_implement(card):
+    from magiattention_tpu_torch.serving import decode_attn_paged, make_paged_kv_cache
+
+    cache = make_paged_kv_cache(5, 16, 1, 64, max_seqs=1, max_pages_per_seq=4,
+                                dtype=torch.float32)
+    with pytest.raises(ValueError, match="at most 8"):  # the f32 walk takes G <= 8
+        decode_attn_paged(torch.zeros((1, 16, 64), device="cuda"), cache,
+                          torch.zeros(1, dtype=torch.long, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        decode_attn_paged(torch.zeros((1, 4, 64), device="cuda", requires_grad=True), cache,
+                          torch.zeros(1, dtype=torch.long, device="cuda"))

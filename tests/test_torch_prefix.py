@@ -24,9 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from magiattention_tpu.serving import CascadeGroup as JaxCascadeGroup
 from magiattention_tpu.serving import PageAllocator as JaxAllocator
 from magiattention_tpu.serving import PrefixCache as JaxPrefixCache
 from magiattention_tpu.serving import ServingEngine as JaxEngine
+from magiattention_tpu.serving import cascade_decode_attn as jax_cascade_decode_attn
+from magiattention_tpu.serving import make_paged_kv_cache as jax_make_cache
 from magiattention_tpu.serving import plan_cascade_groups as jax_plan_cascade_groups
 from magiattention_tpu.telemetry.numerics import (
     DEFAULT_BUDGETS,
@@ -34,6 +37,7 @@ from magiattention_tpu.telemetry.numerics import (
     divergence_report,
 )
 from magiattention_tpu_torch import env
+from magiattention_tpu_torch.convert import cache_from_numpy
 from magiattention_tpu_torch.serving import (
     CascadeGroup,
     PageAllocator,
@@ -185,6 +189,40 @@ def test_cascade_misaligned_prefix_raises_value_error():
     for bad in (CascadeGroup((1,), PS + 3, (0, 1)), CascadeGroup((), 0, (0, 1))):
         with pytest.raises(ValueError, match="misaligned cascade group"):
             cascade_decode_attn(q, cache, [0, 1], [bad])
+
+
+@pytest.mark.parametrize("softcap", [0.0, 4.0])
+@pytest.mark.parametrize("members", [1, 3, 8])
+def test_cascade_decode_attn_matches_jax_interpret(members, softcap):
+    """``cascade_decode_attn`` (its level 1 through ``_decode_shared_prefix``)
+    against JAX's in Pallas interpret mode on one cache state: a group of
+    ``members`` rows on 3 shared pages with suffixes of their own, and one
+    row outside the group on the flat path."""
+    rng = np.random.default_rng(members * 10 + int(softcap))
+    b, mpp, shared = members + 1, 6, 3
+    num_pages = b * mpp + 1
+    k = rng.standard_normal((num_pages, PS, HK, D)).astype(np.float32)
+    v = rng.uniform(0.5, 1.5, (num_pages, PS, HK, D)).astype(np.float32)
+    tables = 1 + rng.permutation(num_pages - 1).reshape(b, mpp).astype(np.int32)
+    tables[:members, :shared] = tables[0, :shared]
+    lens = rng.integers(shared * PS, mpp * PS + 1, b).astype(np.int32)
+    lens[-1] = int(rng.integers(1, mpp * PS))
+    q = rng.standard_normal((b, HQ, D)).astype(np.float32)
+    slots = np.arange(b)
+    jcache = jax_make_cache(num_pages, PS, HK, D, max_seqs=b, max_pages_per_seq=mpp,
+                            dtype=jnp.float32)
+    jcache = type(jcache)(jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+                          jnp.asarray(lens))
+    cache = cache_from_numpy(k, v, tables, lens)
+    pages = tuple(int(p) for p in tables[0, :shared])
+    members_ = tuple(range(members))
+    jo, jl = jax_cascade_decode_attn(
+        jnp.asarray(q), jcache, slots, [JaxCascadeGroup(pages, shared * PS, members_)],
+        num_splits=2, softcap=softcap, interpret=True)
+    po, pl = cascade_decode_attn(torch.from_numpy(q), cache, slots.tolist(),
+                                 [CascadeGroup(pages, shared * PS, members_)],
+                                 num_splits=2, softcap=softcap)
+    _within(np.asarray(jo), po.numpy(), "cascade vs jax", np.asarray(jl), pl.numpy())
 
 
 def test_copy_page_and_swap_are_in_place():
