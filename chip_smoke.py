@@ -12,10 +12,11 @@ Phases, each printing one JSON line:
    ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
    ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
    (with mutated copies for the planted faults, and the previous, pre-TMA
-   row-major forward and backward walks and the previous CUDA-core decode
-   walk as yardstick libraries), print ptxas's registers and spills and,
-   for the four row-major kernels, the count of ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass``, for
+   row-major forward and backward walks, the previous sparse-grid backward
+   walk and the previous CUDA-core decode walk as yardstick libraries),
+   print ptxas's registers and spills and, for the four row-major kernels
+   and the two sparse-grid backward kernels, the count of ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass``, for
    ``paged_decode`` its ``HMMA`` (mma.sync), ``LDGSTS`` (cp.async) and
    ``LDSM`` (ldmatrix), and print the card's name and power limit as
    nvidia-smi reports them;
@@ -27,15 +28,22 @@ Phases, each printing one JSON line:
    head-batched row-major forward at 1, 2 and 4 q heads per kv head and G
    and 2G heads per block, and whether it equals ``flex_fwd`` bit for bit;
    the sparse grid at 1, 2 and 4 q heads per kv head and one, G and 2G
-   heads per work item; softcap and sink on one case each), each kernel
-   run twice for the same bits, each with its stated tolerance; faults
+   heads per work item; softcap and sink on one case each; the sparse-grid
+   backward again at d 128 and 64 and 1, 2, 3, 4 and 8 q heads per kv head
+   on the heterogeneous masks and one of short walks, with softcap on one
+   case and uncovered rows on another, bit for bit equal to ``flex_dq`` /
+   ``flex_dkv`` on the same tables), each kernel run twice for the same
+   bits, each with its stated tolerance; faults
    planted in the kernels (the backward walks cut short, the AMLA rescale
    skipped once per row in a mutated copy of the sparse forward, every head
    of a head-batched item reading the first head's kv head in a mutated
    copy of ``flex_fwd_hb``, the second consumer warpgroup's partial dropped
    from the odd-G merge in a mutated copy of ``flex_fwd``, the second
    consumer warpgroup's dK partial dropped before the final sum in a
-   mutated copy of ``flex_dkv``), which the checks must catch; then the
+   mutated copy of ``flex_dkv``, and in mutated copies of the persistent
+   sparse backward each dq item after a block's first reusing the previous
+   item's resident Q and dO, and the dK/dV partials not zeroed between a
+   block's items), which the checks must catch; then the
    row-major kernels' times at their main path's shapes, each in turns with
    the previous walk (``flex_fwd`` and ``flex_fwd_hb`` at head_block G and
    2G on the serving prefill and on causal 8192 at the training widths;
@@ -85,7 +93,9 @@ Phases, each printing one JSON line:
    gradients held against the plain versions; each kernel's time beside its
    own with the work list in index order (not longest walk first), the
    row-major kernel's on the same problem, the plain version's, a PyTorch
-   varlen (or SDPA) yardstick and the card's bound.
+   varlen (or SDPA) yardstick and the card's bound, the backward kernels in
+   turns with the previous sparse walk, and the slice's forward + backward
+   in device time.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them), errors and times; the last line is
@@ -230,12 +240,22 @@ def compare_grads(kernel, name, pairs) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``reps`` calls after
+    ``warmup``, with a spin kernel holding the stream while the host
+    enqueues them (as :func:`queued_ms`), so that a wrapper whose host work
+    outlasts its kernels is not timed by the host's launch gaps."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * one_s * reps + 2e-3)))  # cycles, at most ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -572,10 +592,36 @@ PLANT_DROP_WG1_PARTIAL = [
 
 # The warp-specialised dk/dv with the second consumer warpgroup's dK partial
 # dropped before the final sum (each warpgroup takes every other (entry, q
-# head) item of the walk). Planted into a copy of flex_bwd_sm90.cuh; the
+# head) step of the walk). Planted into a copy of flex_bwd_sm90.cuh; the
 # backward checks must catch it.
 PLANT_DROP_WG1_DK = [
-    ("    add_stashed<0, J>(dka, sib_k, tid);\n", ""),
+    ("      add_stashed<0, J>(dka, sib_k, tid);\n", ""),
+]
+
+# The persistent dq with the next item reusing the previous item's resident
+# tiles: after a block's first item the producer loads no Q and dO and only
+# arrives on the resident buffer's barrier. Planted into a copy of
+# flex_bwd_sm90.cuh, built as flex_dq_sparse; the gradient checks must catch
+# it.
+PLANT_STALE_RESIDENT = [
+    ("  mbar_expect_tx(bars.res_full(r), L::RESIDENT);\n",
+     "  if (n > 0) {  // planted: the previous item's Q and dO stay\n"
+     "    mbar_arrive(bars.res_full(r));\n"
+     "    return;\n"
+     "  }\n"
+     "  mbar_expect_tx(bars.res_full(r), L::RESIDENT);\n"),
+]
+
+# The persistent dk/dv with the dK and dV partials zeroed only before a
+# block's first item, so that each later item adds to the last one's.
+# Planted into a copy of flex_dkv_sparse.cu; the gradient checks must catch
+# it.
+PLANT_KEEP_PARTIALS = [
+    ("      zero(dka);\n      zero(dva);\n",
+     "      if (n == 0) {  // planted: the partials carried from item to item\n"
+     "        zero(dka);\n"
+     "        zero(dva);\n"
+     "      }\n"),
 ]
 
 # Each split's last chunk dropped from the tensor-core walk; and, in the
@@ -599,6 +645,10 @@ PLANTED = {
     "flex_fwd_hb": ("flex_fwd_hb.cu", "flex_fwd_sm90.cuh", PLANT_FIRST_KV_HEAD),
     "flex_fwd_drop_partial": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_DROP_WG1_PARTIAL),
     "flex_dkv": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK),
+    "flex_dq_sparse_stale_resident": ("flex_dq_sparse.cu", "flex_bwd_sm90.cuh",
+                                      PLANT_STALE_RESIDENT),
+    "flex_dkv_sparse_unzeroed": ("flex_dkv_sparse.cu", "flex_dkv_sparse.cu",
+                                 PLANT_KEEP_PARTIALS),
     "paged_decode_drop_last_chunk": ("decode.cu", "decode_sm90.cuh", PLANT_DROP_LAST_CHUNK),
     "paged_decode_member0_q": ("decode.cu", "decode_sm90.cuh", PLANT_MEMBER0_Q),
 }
@@ -754,9 +804,68 @@ int simt_paged_decode(const void *q, const void *kp, const void *vp, const void 
 """
 
 
+# The sparse-grid backward before TMA and wgmma (flex_bwd.cuh's per-item
+# bodies, mma.sync, one warpgroup, in persistent blocks that take one (q
+# head, q block) or (kv head, k block) item after another from a work list
+# through flex_tile.cuh::next_item's __syncthreads), built beside the
+# kernels as the yardstick of the ``hetero`` phase. Never launched on a main
+# path.
+MMA_SYNC_SPARSE_SOURCE = r"""
+#include "flex_bwd.cuh"
+using namespace flex;
+#define ARGS const bf16 *q, const bf16 *k, const bf16 *v, const bf16 *dout, const float *lse, \
+    const float *delta, const int *blk, const int *sid, const int *runs, const int *bounds, \
+    const int *rs, const int *rc, const int *work, int *counter
+#define PASS q, k, v, dout, lse, delta, blk, sid, runs, bounds, rs, rc
+template <int D> __global__ void __launch_bounds__(NTHREADS)
+dq_sparse_walk(ARGS, float *dq, int group, int tqp, int tkp, int nq, int n_items, float scale,
+               float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_item;
+  for (int item = next_item(counter, &s_item); item < n_items; item = next_item(counter, &s_item))
+    dq_item<D>(PASS, dq, group, tqp, tkp, scale, softcap, work[item] / nq, work[item] % nq, smem);
+}
+template <int D> __global__ void __launch_bounds__(NTHREADS)
+dkv_sparse_walk(ARGS, float *dk, float *dv, int group, int tqp, int tkp, int nk, int n_items,
+                float scale, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_item;
+  for (int item = next_item(counter, &s_item); item < n_items; item = next_item(counter, &s_item))
+    dkv_item<D>(PASS, dk, dv, group, tqp, tkp, scale, softcap, work[item] / nk, work[item] % nk,
+                smem);
+}
+#define LAUNCH(KERNEL, SMEM, ...)                                                        \
+  do {                                                                                   \
+    auto kernel = KERNEL;                                                                \
+    int grid = 0;                                                                        \
+    cudaError_t err = persistent_launch_dims(kernel, NTHREADS, SMEM, n_items, counter, st, \
+                                             grid);                                      \
+    if (err != cudaSuccess) return err;                                                  \
+    kernel<<<grid, NTHREADS, SMEM, st>>>(PASS, work, counter, __VA_ARGS__);              \
+    return cudaGetLastError();                                                           \
+  } while (0)
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int mma_sync_flex_dq_sparse(ARGS, float *dq, int hq, int hk, int tqp, int tkp, int d, int nq,
+                            int n_items, float scale, float softcap, cudaStream_t st) {
+  if (d == 64)
+    LAUNCH(dq_sparse_walk<64>, dq_smem<64>(), dq, hq / hk, tqp, tkp, nq, n_items, scale, softcap);
+  LAUNCH(dq_sparse_walk<128>, dq_smem<128>(), dq, hq / hk, tqp, tkp, nq, n_items, scale, softcap);
+}
+int mma_sync_flex_dkv_sparse(ARGS, float *dk, float *dv, int hq, int hk, int tqp, int tkp, int d,
+                             int nk, int n_items, float scale, float softcap, cudaStream_t st) {
+  if (d == 64)
+    LAUNCH(dkv_sparse_walk<64>, dkv_smem<64>(), dk, dv, hq / hk, tqp, tkp, nk, n_items, scale,
+           softcap);
+  LAUNCH(dkv_sparse_walk<128>, dkv_smem<128>(), dk, dv, hq / hk, tqp, tkp, nk, n_items, scale,
+         softcap);
+}
+}
+"""
+
 # the previous walks, yardsticks built beside the kernels
 YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE,
-              "decode_simt": DECODE_SIMT_SOURCE}
+              "mma_sync_sparse": MMA_SYNC_SPARSE_SOURCE, "decode_simt": DECODE_SIMT_SOURCE}
 
 
 def start_planted_build(names=None):
@@ -813,6 +922,11 @@ def planted_libraries(procs) -> dict:
             # q k v dout lse delta | 6 tables | outputs | 6 ints | scale softcap stream
             for fn, outs in ((lib.mma_sync_flex_dq, 1), (lib.mma_sync_flex_dkv, 2)):
                 fn.argtypes, fn.restype = [P] * 12 + [P] * outs + [I] * 6 + [F, F, P], ctypes.c_int
+        elif name == "mma_sync_sparse":
+            # q k v dout lse delta | 6 tables | work counter | outputs | 7 ints | scale softcap stream
+            for fn, outs in ((lib.mma_sync_flex_dq_sparse, 1), (lib.mma_sync_flex_dkv_sparse, 2)):
+                fn.argtypes = [P] * 12 + [P] * 2 + [P] * outs + [I] * 7 + [F, F, P]
+                fn.restype = ctypes.c_int
         elif name == "decode_simt":
             # q k v bt sl | out lse | b hq hk d ps mpp splits | scale softcap stream
             fn = lib.simt_paged_decode
@@ -832,12 +946,15 @@ def planted_libraries(procs) -> dict:
 
 
 def sparse_planted_faults(p, planted) -> dict:
-    """The checks on one fault planted in each sparse-grid kernel, on
-    problem ``p``: the AMLA rescale skipped once per row (both forwards,
-    through the mutated build), the last entry of each q-major walk skipped
+    """The checks on faults planted in each sparse-grid kernel, on problem
+    ``p``: the AMLA rescale skipped once per row (both forwards, through the
+    mutated build), the last entry of each q-major walk skipped
     (``flex_dq_sparse``), the last entry of each k-major walk skipped
-    (``flex_dkv_sparse``). Returns which checks catch each; a fault that
-    passes them all fails the smoke."""
+    (``flex_dkv_sparse``), and two faults of the persistent pipeline in
+    mutated builds: each dq item after a block's first reusing the previous
+    item's resident Q and dO, and the dK/dV partials not zeroed between a
+    block's items. Returns which checks catch each; a fault that passes them
+    all fails the smoke."""
     import dataclasses as dc
 
     import torch
@@ -871,9 +988,30 @@ def sparse_planted_faults(p, planted) -> dict:
     dq = p.dq_sparse_kernel(skip_last(p.tables))
     dk, dv = p.dkv_sparse_kernel(skip_last(p.btables))
     torch.cuda.synchronize()
+
+    def planted_run(kernel, lib, fn):
+        real, launched = csrc._libs[kernel], csrc.launches[kernel]
+        csrc._libs[kernel] = lib
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+        finally:
+            csrc._libs[kernel], csrc.launches[kernel] = real, launched
+        return got
+
+    dq_stale = planted_run("flex_dq_sparse", planted["flex_dq_sparse_stale_resident"],
+                           p.dq_sparse_kernel)
+    dk_kept, dv_kept = planted_run("flex_dkv_sparse", planted["flex_dkv_sparse_unzeroed"],
+                                   p.dkv_sparse_kernel)
     for plant, what, got, ref in (("skip_last_q_walk_entry:flex_dq_sparse", "dq", dq[:, :tq], ref_dq),
                                   ("skip_last_k_walk_entry:flex_dkv_sparse", "dk", dk[:, :tk], ref_dk),
-                                  ("skip_last_k_walk_entry:flex_dkv_sparse", "dv", dv[:, :tk], ref_dv)):
+                                  ("skip_last_k_walk_entry:flex_dkv_sparse", "dv", dv[:, :tk], ref_dv),
+                                  ("previous_item_resident_tiles:flex_dq_sparse", "dq",
+                                   dq_stale[:, :tq], ref_dq),
+                                  ("partials_not_zeroed_between_items:flex_dkv_sparse", "dk",
+                                   dk_kept[:, :tk], ref_dk),
+                                  ("partials_not_zeroed_between_items:flex_dkv_sparse", "dv",
+                                   dv_kept[:, :tk], ref_dv)):
         errs, failed = grad_errors(got, ref)
         caught[f"{plant}:{what}"] = {"failed_checks": failed, **errs}
         check(bool(failed), f"planted fault {plant} passes the {what} checks: {errs}")
@@ -1017,6 +1155,76 @@ def sparse_cases(gen) -> None:
         Flex(gen, tq, tk, 4, 2, qr, kr, ty, d=64, **kw).check_sparse(f"{name}_g2_d64_hb2")
         Flex(gen, tq, tk, 4, 4, qr, kr, ty, head_block=2, **kw).check_sparse(
             f"{name}_g1_hb2")
+
+
+SPARSE_BWD_GROUPS = (1, 2, 3, 4, 8)  # q heads per kv head of the sparse backward cases
+SHORT_DOCS = (64, 128, 64, 192, 128, 64, 64, 128)  # the short-walk mask's document lengths
+
+
+def short_walk_docs(t):
+    """Documents of ``SHORT_DOCS`` tokens in turn (whole tiles), packed back
+    to back over t tokens, each causal over itself: each q (and k) block
+    walks one to three tiles, most one or two, so a work list of many short
+    items."""
+    bounds, a, j = [], 0, 0
+    while a < t:
+        b = min(t, a + SHORT_DOCS[j % len(SHORT_DOCS)])
+        bounds.append((a, b))
+        a, j = b, j + 1
+    return bounds, bounds, [1] * len(bounds)
+
+
+def sparse_bwd_cases(gen) -> dict:
+    """``flex_dq_sparse`` and ``flex_dkv_sparse`` against the plain backward
+    at d 128 and 64 and G 1, 2, 3, 4 and 8 (2 kv heads) on the two
+    heterogeneous masks and the short-walk one, plus softcap on one case
+    and uncovered rows on another: each kernel twice for the same bits, and
+    against ``flex_dq`` / ``flex_dkv`` on the same inputs and tables, which
+    they must equal bit for bit (the same per-item walk in the same order).
+    Returns the line's summary, with the short-walk mask's walk lengths."""
+    import numpy as np
+    import torch
+    from magiattention_tpu_torch.ops.block_sparse import row_tables
+    from magiattention_tpu_torch.testing.workloads import (
+        shared_question_q_overlap, split_slices, varlen_block_causal,
+    )
+
+    masks = [
+        ("varlen_block_causal", 4096, *split_slices(varlen_block_causal(4096))),
+        ("shared_question", 4096, *split_slices(shared_question_q_overlap(4096))),
+        ("short_walks", 4096, *short_walk_docs(4096)),
+    ]
+    cases = [(f"{m}_g{g}_d{d}", t, qr, kr, ty, g, d, {})
+             for m, t, qr, kr, ty in masks for d in (128, 64) for g in SPARSE_BWD_GROUPS]
+    cases += [("varlen_block_causal_softcap_g4_d128", *masks[0][1:], 4, 128, {"softcap": 30.0}),
+              ("uncovered_rows_g3_d64", 1000, [(100, 600)], [(0, 500)], [0], 3, 64, {})]
+    walks = {}
+    for name, t, qr, kr, ty, g, d, kw in cases:
+        p = Flex(gen, t, t, 2 * g, 2, qr, kr, ty, d=d, **kw)
+        if name.startswith("short_walks") and not walks:
+            for side, major, nb in (("q", p.meta.fwd_q_block, p.meta.num_q_blocks),
+                                    ("k", p.meta.bwd_k_block, p.meta.num_k_blocks)):
+                rc = row_tables(major, nb)[1]
+                walks[side] = {"blocks": int(nb), "median": float(np.median(rc)),
+                               "max": int(rc.max()), "share_one_or_two": float((rc <= 2).mean())}
+        dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+        torch.cuda.synchronize()
+        dq2, (dk2, dv2) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+        check(torch.equal(dq, dq2), f"{name}: flex_dq_sparse differs between two runs")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"{name}: flex_dkv_sparse differs between two runs")
+        rm_dq, (rm_dk, rm_dv) = p.dq_kernel(), p.dkv_kernel()
+        check(torch.equal(dq, rm_dq), f"{name}: flex_dq_sparse differs from flex_dq")
+        check(torch.equal(dk, rm_dk) and torch.equal(dv, rm_dv),
+              f"{name}: flex_dkv_sparse differs from flex_dkv")
+        compare_grads("flex_dq_sparse", f"sparse_bwd_{name}",
+                      [("dq", dq[:, :t], p.dq_plain()[:, :t])])
+        ref_dk, ref_dv = p.dkv_plain()
+        compare_grads("flex_dkv_sparse", f"sparse_bwd_{name}",
+                      [("dk", dk[:, :t], ref_dk[:, :t]), ("dv", dv[:, :t], ref_dv[:, :t])])
+    return {"phase": "kernels", "kernel": "flex_dq_sparse+flex_dkv_sparse", "cases": len(cases),
+            "twice_bitwise_equal": len(cases), "bitwise_equal_to_row_major": len(cases),
+            "short_walks": walks}
 
 
 def mma_sync_fwd(lib, p, head_block=None):
@@ -2188,12 +2396,55 @@ def library_attention(q, k, v, cu, max_len):
     return fn, f"scaled_dot_product_attention(EFFICIENT_ATTENTION, boolean mask) [varlen: {reason}]"
 
 
-def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, dict]:
+def mma_sync_sparse(lib, p, bwd_args, refs):
+    """Launchers of the previous sparse-grid backward (the ``mma_sync_sparse``
+    yardstick library) on ``bwd_args`` over per-head dq items and the dkv
+    work list, checked once against the plain backward's (dq, dk, dv)
+    ``refs``. A yardstick only: nothing here is counted as a launch."""
+    import torch
+    from magiattention_tpu_torch.ops.block_sparse import row_tables, work_list
+
+    q, k, v, do, lse, delta = bwd_args
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    nq, nk = tqp // BLOCK, tkp // BLOCK
+    dq_items = torch.from_numpy(work_list(row_tables(p.meta.fwd_q_block, nq)[1], hq)).cuda()
+    counter = torch.empty((1,), dtype=torch.int32, device="cuda")
+    f32 = dict(dtype=torch.float32, device="cuda")
+    dq, dk, dv = torch.empty((hq, tqp, d), **f32), *(torch.empty((hk, tkp, d), **f32)
+                                                     for _ in range(2))
+    head = [x.data_ptr() for x in bwd_args]
+
+    def run(fn, tables, items, outs, blocks):
+        code = fn(*head, *(x.data_ptr() for x in tables[1:7]), items.data_ptr(),
+                  counter.data_ptr(), *(o.data_ptr() for o in outs), hq, hk, tqp, tkp, d, blocks,
+                  items.numel(), p.params.scale, p.params.softcap,
+                  torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous sparse backward walk: CUDA error {code}")
+
+    def run_dq():
+        run(lib.mma_sync_flex_dq_sparse, p.tables, dq_items, (dq,), nq)
+
+    def run_dkv():
+        run(lib.mma_sync_flex_dkv_sparse, p.btables, p.work.dkv, (dk, dv), nk)
+
+    run_dq()
+    run_dkv()
+    torch.cuda.synchronize()
+    for what, got, ref, t in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, (p.tq, p.tk, p.tk)):
+        _, failed = grad_errors(got[:, :t], ref[:, :t])
+        check(not failed, f"the previous sparse walk's {what} fails the {failed} check(s)")
+    return run_dq, run_dkv
+
+
+def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed) -> tuple[dict, dict, dict]:
     """One default-argument forward and backward through
     ``flex_flash_attn_func`` on the varlen mask: the resolved choice, the
     launches, the results against the plain versions, and (``timed``) each
     kernel's time with the row-major one's, the plain one's, the bound and
-    the library yardstick. Returns (summary, launches, per-kernel times)."""
+    the library yardstick, the backward kernels in turns with the previous
+    sparse walk, and the slice's forward + backward in device time. Returns
+    (summary, launches, per-kernel times)."""
     import dataclasses as dc
 
     import torch
@@ -2251,8 +2502,9 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, d
         return torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs])
 
     nh, nk = len(groups) * g, len(groups)
+    ref_dq = plain_dq()
     compare_grads("flex_dq_sparse", f"hetero_{hq}_{hk}",
-                  [("dq", dq.transpose(0, 1)[:nh], plain_dq()[:, :t])])
+                  [("dq", dq.transpose(0, 1)[:nh], ref_dq[:, :t])])
     ref_dk, ref_dv = plain_dkv()
     compare_grads("flex_dkv_sparse", f"hetero_{hq}_{hk}",
                   [("dk", dk.transpose(0, 1)[:nk], ref_dk[:, :t]),
@@ -2270,13 +2522,27 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, d
     rm = dc.replace(params, head_block=1, grid="row_major")
     bwd_args = (p.q, p.k, p.v, p.do, lse_h, delta)
     fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
-    ms = {
-        fwd_name: cuda_ms(lambda: fwd(p.q, p.k, p.v, p.sink, ftab, p.work, params), reps=20),
-        "flex_dq_sparse": cuda_ms(lambda: fa._dq_sparse_kernel(*bwd_args, ftab, p.work, params),
-                                  reps=20),
-        "flex_dkv_sparse": cuda_ms(lambda: fa._dkv_sparse_kernel(*bwd_args, btab, p.work, params),
-                                   reps=20),
-    }
+    # the backward kernels in turns with the previous sparse walk (new, old,
+    # old, new)
+    old = dict(zip(("flex_dq_sparse", "flex_dkv_sparse"),
+                   mma_sync_sparse(planted["mma_sync_sparse"], p, bwd_args,
+                                   (ref_dq, ref_dk, ref_dv))))
+    new = {"flex_dq_sparse": lambda: fa._dq_sparse_kernel(*bwd_args, ftab, p.work, params),
+           "flex_dkv_sparse": lambda: fa._dkv_sparse_kernel(*bwd_args, btab, p.work, params)}
+    turns = {}
+    for name in new:
+        for which, fn in (("", new[name]), ("previous:", old[name]), ("previous:", old[name]),
+                          ("", new[name])):
+            turns.setdefault(which + name, []).append(cuda_ms(fn, reps=20))
+    mean = {n: sum(x) / len(x) for n, x in turns.items()}
+    ms = {fwd_name: cuda_ms(lambda: fwd(p.q, p.k, p.v, p.sink, ftab, p.work, params), reps=20),
+          **{n: mean[n] for n in new}}
+
+    def fwd_bwd():  # the slice as a user calls it, plans and lists cached
+        o, l = fa.flex_flash_attn_func(q, k, v, qr, kr, ty)
+        torch.autograd.grad((o, l), (q, k, v), (dout, dlse))
+
+    fwd_bwd_event_ms = cuda_ms(fwd_bwd, reps=5)
     # the same kernels with their work lists in index order (head group,
     # then block): what taking the longest walks first buys
     in_order = fa.SparseWork(*(torch.sort(w).values for w in p.work))
@@ -2324,7 +2590,15 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, d
                "library_ms": {fwd_name: lib_ms, "flex_dq_sparse": lib_bwd_ms}.get(name)}
         for name in ms
     }
-    summary.update({"ms": ms, "index_order_ms": index_order_ms,
+    rm_twin = {"flex_dq_sparse": "flex_dq", "flex_dkv_sparse": "flex_dkv"}
+    summary.update({"card": nvidia_smi_line(), "ms": ms, "ms_in_turns": turns,
+                    "previous_walk_ms": {n: mean[f"previous:{n}"] for n in new},
+                    "speedup_over_previous_walk": {n: mean[f"previous:{n}"] / ms[n] for n in new},
+                    "over_row_major_same_problem": {n: ms[n] / row_major_ms[rm_twin[n]]
+                                                    for n in new},
+                    "share_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
+                    "kernels_ms_sum": sum(ms.values()), "fwd_bwd_event_ms": fwd_bwd_event_ms,
+                    "index_order_ms": index_order_ms,
                     "row_major_ms_same_problem": row_major_ms, "plain_ms": plain_ms,
                     "bound_ms": {n: b[0] for n, b in bounds.items()},
                     "library": lib_name, "library_fwd_ms": lib_ms,
@@ -2332,7 +2606,7 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed) -> tuple[dict, dict, d
     return summary, launches, times
 
 
-def hetero(gen) -> tuple[dict, dict]:
+def hetero(gen, planted) -> tuple[dict, dict]:
     """The slice's path: ``flex_flash_attn_func`` with its defaults on the
     16k varlen block-causal mask at the LlamaConfig attention widths and at
     8 / 8 heads. Returns (the phase's line, the kernels' times)."""
@@ -2341,7 +2615,7 @@ def hetero(gen) -> tuple[dict, dict]:
     qr, kr, ty = split_slices(varlen_block_causal(HETERO_T))
     runs, launches, times = [], {}, {}
     for hq, hk, expect_hb in HETERO_RUNS:
-        summary, counts, t = hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, timed=True)
+        summary, counts, t = hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed=True)
         runs.append(summary)
         times.update({n: x for n, x in t.items() if n not in times})
         for n, c in counts.items():
@@ -2382,7 +2656,8 @@ def main(argv=None) -> int:
                       if "registers" in ln or "spill" in ln or "setmaxnreg" in ln
                       or (n == "paged_decode" and "entry function" in ln)]
                   for n, r in built.items()},
-        "sass": {**{n: sass_counts(built[n]["path"]) for n in ROW_MAJOR},
+        "sass": {**{n: sass_counts(built[n]["path"])
+                    for n in (*ROW_MAJOR, "flex_dq_sparse", "flex_dkv_sparse")},
                  "paged_decode": sass_counts(built["paged_decode"]["path"], DECODE_SASS)},
     })
     print(nvidia_smi_line(), flush=True)
@@ -2395,6 +2670,7 @@ def main(argv=None) -> int:
     emit({"phase": "planted_faults", "case": "fwd_causal_2048",
           "caught": fwd_planted_faults(gen, planted)})
     sparse_cases(gen)
+    emit(sparse_bwd_cases(gen))
     fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
@@ -2421,7 +2697,7 @@ def main(argv=None) -> int:
     emit(train)
     torch.cuda.empty_cache()
 
-    hetero_line, hetero_t = hetero(gen)
+    hetero_line, hetero_t = hetero(gen, planted)
     emit(hetero_line)
 
     # launches on the main paths: each path's counts were zeroed just before it

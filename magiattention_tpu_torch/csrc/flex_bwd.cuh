@@ -1,10 +1,11 @@
-// The per-item bodies of the sparse-grid flex-attention backward kernels
-// flex_dq_sparse.cu / flex_dkv_sparse.cu (persistent blocks taking items
-// from a work list): mma.sync, loads by the threads, no pipeline. The
-// row-major flex_dq.cu / flex_dkv.cu ran them too until they moved onto the
-// TMA + wgmma walks of flex_bwd_sm90.cuh; the sparse twins follow them there
-// in ROADMAP.md's slice 8, and until then this header serves only them. The
-// math is the one flex_dq.cu and flex_dkv.cu describe.
+// The previous per-item bodies of the flex-attention backward: mma.sync,
+// loads by the threads, no pipeline. The row-major flex_dq.cu / flex_dkv.cu
+// and then the sparse-grid flex_dq_sparse.cu / flex_dkv_sparse.cu ran them
+// until all four moved onto the TMA + wgmma walks of flex_bwd_sm90.cuh. No
+// kernel includes this header any more: it serves only chip_smoke.py's
+// yardsticks of the backward (the row-major grid's and the persistent
+// sparse grid's previous walks). The math is the one flex_dq.cu and
+// flex_dkv.cu describe.
 #pragma once
 
 #include "flex_tile.cuh"

@@ -29,9 +29,9 @@
 // products overlap the other's softmax core, and each keeps its own dK/dV
 // partial in registers (2 x 64 x d f32 over 128 threads: 128 registers a
 // thread at d = 128, of the 240 the producer's setmaxnreg leaves them). The
-// partials are added once, in shared memory, at the end: a fixed split and
-// no atomics, so the result is the same bits on every run (the reference's
-// deterministic mode).
+// partials are added once, through shared memory, at the end: a fixed split
+// and no atomics, so the result is the same bits on every run (the
+// reference's deterministic mode).
 //
 // Grid: (kv heads, k blocks), the k blocks in the host's launch order
 // (longest walk first, ops/flex_attn.py::walk_order). A k block with no
@@ -60,17 +60,21 @@ flex_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int i = order[blockIdx.y];  // k block
   const int hk = blockIdx.x;
   const int e_begin = rs[i], e_end = rs[i] + rc[i];
-  if (threadIdx.x == 0) init_bars(Bars{base + DkvLayout<D>::BARS}, WG_THREADS / 32);
+  if (threadIdx.x == 0) init_bars(Bars{base + DkvLayout<D, 1>::BARS}, WG_THREADS / 32);
   __syncthreads();
+  // the block's one item: n = 0, the ring from fill 0
   if (threadIdx.x >= CONSUMERS * WG_THREADS) {
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS * WG_THREADS)
-      dkv_producer<D>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, qblk, e_begin, e_end, group, hk,
-                      i, tqp, tkp, base);
+      dkv_producer<D, 1>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, qblk, e_begin, e_end, group,
+                         hk, i, tqp, tkp, base, 0, 0);
   } else {
     reg_alloc<CONSUMER_REGS>();
-    dkv_consumer<D>(threadIdx.x / WG_THREADS, smem, base, qblk, sid, runs, bounds, e_begin,
-                    e_end, dk, dv, group, hk, i, tkp, scale, softcap);
+    float dka[D / 8][4], dva[D / 8][4];
+    zero(dka);
+    zero(dva);
+    dkv_consumer<D, 1>(threadIdx.x / WG_THREADS, smem, base, qblk, sid, runs, bounds, e_begin,
+                       e_end, dk, dv, group, hk, i, tkp, scale, softcap, 0, 0, dka, dva);
   }
 }
 
@@ -88,7 +92,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (err == cudaSuccess) err = encode_tile_map(&tm_v, v, hk * tkp, D);
   if (err == cudaSuccess) err = encode_tile_map(&tm_do, dout, hq * tqp, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = DkvLayout<D>::ALLOC;
+  constexpr int smem = DkvLayout<D, 1>::ALLOC;
   auto kernel = flex_dkv_kernel<D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -56,17 +56,19 @@ flex_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const int i = order[blockIdx.y];  // q block
   const int h0 = blockIdx.x * NH;   // first q head
   const int e_begin = rs[i], e_end = rs[i] + rc[i];
-  if (threadIdx.x == 0) init_bars(Bars{base + DqLayout<D, NH>::BARS}, NH * WG_THREADS / 32);
+  if (threadIdx.x == 0)
+    init_bars(Bars{base + DqLayout<D, NH, 1>::BARS}, NH * WG_THREADS / 32);
   __syncthreads();
+  // the block's one item: n = 0, the ring from fill 0
   if (threadIdx.x >= CONSUMERS * WG_THREADS) {
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMERS * WG_THREADS)
-      dq_producer<D, NH>(&tm_q, &tm_k, &tm_v, &tm_do, kblk, e_begin, e_end, h0, h0 / group, i,
-                         tqp, tkp, base);
+      dq_producer<D, NH, 1>(&tm_q, &tm_k, &tm_v, &tm_do, kblk, e_begin, e_end, h0, h0 / group,
+                            i, tqp, tkp, base, 0, 0);
   } else {
     reg_alloc<CONSUMER_REGS>();
-    dq_consumer<D, NH>(threadIdx.x / WG_THREADS, smem, base, lse, delta, kblk, sid, runs, bounds,
-                       e_begin, e_end, dq, h0, i, tqp, scale, softcap);
+    dq_consumer<D, NH, 1>(threadIdx.x / WG_THREADS, smem, base, lse, delta, kblk, sid, runs,
+                          bounds, e_begin, e_end, dq, h0, i, tqp, scale, softcap, 0, 0);
   }
 }
 
@@ -82,7 +84,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (err == cudaSuccess) err = encode_tile_map(&tm_v, v, hk * tkp, D);
   if (err == cudaSuccess) err = encode_tile_map(&tm_do, dout, hq * tqp, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = DqLayout<D, NH>::ALLOC;
+  constexpr int smem = DqLayout<D, NH, 1>::ALLOC;
   auto kernel = flex_dq_kernel<D, NH>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

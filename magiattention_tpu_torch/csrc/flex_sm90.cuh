@@ -137,6 +137,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting: the writes before it are
+// seen by the threads that wait there with named_sync (same count).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -- wgmma -----------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {

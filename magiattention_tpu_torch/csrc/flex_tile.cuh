@@ -170,9 +170,11 @@ __device__ __forceinline__ void p_ds(float z, bool on, float lse_safe, float dp,
 // tail. Each item is computed whole by one block, so which block took it
 // does not change a bit of the result.
 //
-// The next item for the whole block: thread 0 takes it, shared memory
-// broadcasts it. The barrier in front also means every warp is done with
-// the previous item's shared memory.
+// The next item for the whole block (the sparse forwards): thread 0 takes
+// it, shared memory broadcasts it. The barrier in front also means every
+// warp is done with the previous item's shared memory. (The warp-specialised
+// sparse backward, whose warpgroups cannot meet at __syncthreads, hands its
+// items over through mbarriers: flex_bwd_sm90.cuh.)
 __device__ __forceinline__ int next_item(int* counter, int* s_item) {
   __syncthreads();
   if (threadIdx.x == 0) *s_item = atomicAdd(counter, 1);

@@ -18,7 +18,9 @@ it. Two grids, as in the JAX package:
   that take (heads, block) items from a longest-walk-first work list
   (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
   AMLA base-2 softmax, one q head or ``head_block`` q heads per item) and
-  ``flex_dq_sparse`` / ``flex_dkv_sparse``.
+  ``flex_dq_sparse`` / ``flex_dkv_sparse`` (the row-major backward walks,
+  persistent over their lists: a head pair of one kv head per dq item at
+  even G).
 
 :class:`_FlexAttnCore` is the ``torch.autograd.Function`` around them, the
 counterpart of the JAX ``_flex_attn_core`` custom vjp, and
@@ -118,8 +120,15 @@ class SparseWork(NamedTuple):
     items, int32 on the device), longest walk first."""
 
     fwd: torch.Tensor  # (group of head_block q heads, q block)
-    dq: torch.Tensor  # (q head, q block)
+    dq: torch.Tensor  # (group of dq_heads_per_item q heads, q block)
     dkv: torch.Tensor  # (kv head, k block), over the k-major walk
+
+
+def dq_heads_per_item(hq: int, hk: int) -> int:
+    """The q heads of one ``flex_dq_sparse`` item (as of one ``flex_dq``
+    block): a pair of one kv head's heads where the GQA group is even, so
+    that each K/V tile is loaded once for both, else one head."""
+    return 2 if (hq // hk) % 2 == 0 else 1
 
 
 @functools.lru_cache(maxsize=256)
@@ -127,7 +136,8 @@ def sparse_work(meta: FlexAttnBlockMeta, device: str, hq: int, hk: int,
                 head_block: int) -> SparseWork:
     """The plan's work lists for ``hq``/``hk`` heads and ``head_block``,
     built on the host and copied once per (plan, device, heads,
-    head_block)."""
+    head_block); the dq list's items hold :func:`dq_heads_per_item` q
+    heads."""
     _, rc_q = row_tables(meta.fwd_q_block, meta.num_q_blocks)
     _, rc_k = row_tables(meta.bwd_k_block, meta.num_k_blocks)
 
@@ -135,8 +145,8 @@ def sparse_work(meta: FlexAttnBlockMeta, device: str, hq: int, hk: int,
         return torch.from_numpy(items).to(device)
 
     return SparseWork(
-        dev(work_list(rc_q, hq // head_block)), dev(work_list(rc_q, hq)),
-        dev(work_list(rc_k, hk)),
+        dev(work_list(rc_q, hq // head_block)),
+        dev(work_list(rc_q, hq // dq_heads_per_item(hq, hk))), dev(work_list(rc_k, hk)),
     )
 
 
@@ -420,6 +430,13 @@ def _fwd_hb_kernel(q, k, v, sink, tables, params: FlexAttnParams):
     return _launch_fwd("flex_fwd_hb", q, k, v, sink, tables, params, params.head_block)
 
 
+def _check_work_items(name, items: torch.Tensor, groups: int, blocks: int) -> None:
+    """Raise unless a work list holds one item per (head group, block)."""
+    if items.numel() != groups * blocks:
+        raise ValueError(f"{name}: the work list has {items.numel()} items, not one per "
+                         f"({groups} head groups x {blocks} blocks)")
+
+
 def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
                        params: FlexAttnParams):
     hq, tqp, d = q.shape
@@ -427,9 +444,7 @@ def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
     _check_kernel_args(name, q, k, v, params)
     if params.out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"{name} writes out in {q.dtype} or float32, not {params.out_dtype}")
-    if items.numel() != (hq // heads_per_item) * (tqp // params.block_q):
-        raise ValueError(f"{name}: the work list has {items.numel()} items, not one per "
-                         f"(group of {heads_per_item} q heads, q block)")
+    _check_work_items(name, items, hq // heads_per_item, tqp // params.block_q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
     lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
@@ -542,9 +557,10 @@ def walk_order(rc: torch.Tensor) -> torch.Tensor:
 
 
 def _check_tma_aligned(name, tensors) -> None:
-    """The row-major kernels load q, k, v (and the backward's dout) through
-    TMA tensor maps and lse / delta with bulk copies: each base must be
-    16-byte aligned (their row strides, 2 d and 4 bytes x 64, are)."""
+    """The warp-specialised kernels load q, k, v (and the backward's dout)
+    through TMA tensor maps and the dk/dv walks lse / delta with bulk
+    copies: each base must be 16-byte aligned (their row strides, 2 d and 4
+    bytes x 64, are)."""
     for what, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} at {t.data_ptr():#x} is not 16-byte aligned "
@@ -602,11 +618,15 @@ def _dkv_kernel(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
 def _dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work: SparseWork,
                       params: FlexAttnParams):
     """The ``flex_dq_sparse`` Hopper kernel on CUDA tensors: ``flex_dq``'s
-    math over the (q head, q block) items of the work list. Same contract
-    as :func:`_dq_torch`."""
+    walk, persistent over the (head pair or q head, q block) items of the
+    work list. Same contract as :func:`_dq_torch`, and ``flex_dq``'s bits.
+    Raises on what it does not take."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq_sparse", q, k, v, do, lse, delta, params)
+    _check_tma_aligned("flex_dq_sparse", dict(q=q, k=k, v=v, dout=do))
+    _check_work_items("flex_dq_sparse", work.dq, hq // dq_heads_per_item(hq, hk),
+                      tqp // params.block_q)
     dq = torch.empty((hq, tqp, d), dtype=torch.float32, device=q.device)
     counter = torch.empty((1,), dtype=torch.int32, device=q.device)
     _qblk, kblk, sid, runs, bounds, rs, rc = ftab
@@ -627,12 +647,15 @@ def _dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work: SparseWork,
 def _dkv_sparse_kernel(q, k, v, do, lse, delta, btab, work: SparseWork,
                        params: FlexAttnParams):
     """The ``flex_dkv_sparse`` Hopper kernel on CUDA tensors: ``flex_dkv``'s
-    math over the (kv head, k block) items of the work list. Same contract
-    as :func:`_dkv_torch`."""
+    walk, persistent over the (kv head, k block) items of the work list.
+    Same contract as :func:`_dkv_torch`, and ``flex_dkv``'s bits. Raises on
+    what it does not take."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     q, k, v, do, lse, delta = _bwd_kernel_args("flex_dkv_sparse", q, k, v, do, lse, delta,
                                                params)
+    _check_tma_aligned("flex_dkv_sparse", dict(q=q, k=k, v=v, dout=do, lse=lse, delta=delta))
+    _check_work_items("flex_dkv_sparse", work.dkv, hk, tkp // params.block_k)
     dk = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
     dv = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)
     counter = torch.empty((1,), dtype=torch.int32, device=q.device)

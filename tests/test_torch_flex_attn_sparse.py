@@ -412,7 +412,38 @@ def test_sparse_work_is_cached_per_plan_and_head_block():
     meta = build_block_meta(qr, kr, ty, 512, 512, block_q=64, block_k=64)
     w = fa.sparse_work(meta, "cpu", 8, 2, 4)
     assert fa.sparse_work(meta, "cpu", 8, 2, 4) is w
-    assert (w.fwd.numel(), w.dq.numel(), w.dkv.numel()) == (2 * 8, 8 * 8, 2 * 8)
+    # G = 4: the dq items are head pairs
+    assert (w.fwd.numel(), w.dq.numel(), w.dkv.numel()) == (2 * 8, 4 * 8, 2 * 8)
+
+
+@pytest.mark.parametrize("hq,hk,pair", [(4, 4, False), (8, 4, True), (6, 2, False),
+                                        (8, 2, True), (16, 2, True)],
+                         ids=["g1", "g2", "g3", "g4", "g8"])
+def test_sparse_work_lists_every_item_once_longest_first(hq, hk, pair):
+    """Each of ``sparse_work``'s lists holds every (head group, block)
+    item once, longest walk first (ties by group, then block): the dq list
+    in head pairs of one kv head at even G, in q heads at odd G, the dkv
+    list in kv heads over the k-major walks, the forward's in head_block
+    groups."""
+    qr, kr, ty = split(workloads.varlen_block_causal(4096))
+    meta = build_block_meta(qr, kr, ty, 4096, 4096, block_q=64, block_k=64)
+    group = hq // hk
+    assert fa.dq_heads_per_item(hq, hk) == (2 if pair else 1)
+    w = fa.sparse_work(meta, "cpu", hq, hk, group)
+    _, rc_q = row_tables(meta.fwd_q_block, meta.num_q_blocks)
+    _, rc_k = row_tables(meta.bwd_k_block, meta.num_k_blocks)
+    dq_groups = hq // 2 if pair else hq
+    for items, groups, rc in ((w.fwd, hk, rc_q), (w.dq, dq_groups, rc_q), (w.dkv, hk, rc_k)):
+        items = items.numpy()
+        n = rc.shape[0]
+        assert items.dtype == np.int32
+        assert sorted(items.tolist()) == list(range(groups * n))
+        grp, row = items // n, items % n
+        key = list(zip(-rc[row], grp, row))
+        assert key == sorted(key)
+    if pair:  # a pair's two heads share one kv head
+        first = (w.dq.numpy() // meta.num_q_blocks) * 2
+        assert (first // group == (first + 1) // group).all()
 
 
 # -- (g) the slice as a whole -----------------------------------------------------------

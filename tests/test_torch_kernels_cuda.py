@@ -320,6 +320,108 @@ def test_sparse_kernels_match_plain(card, mask, d, group, hb_of_group):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+def _one_tile_docs(t):
+    """Documents of one 64-token tile each: every q and k block walks one
+    tile, so the persistent kernels take many one-tile items."""
+    docs = [(a, min(a + 64, t)) for a in range(0, t, 64)]
+    return docs, docs, [C] * len(docs)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "mask", ["varlen_block_causal", "shared_question", "full_inv_bi", "one_tile_walks"])
+def test_sparse_backward_matches_plain_and_row_major(card, mask, d, group):
+    """``flex_dq_sparse`` (persistent; head pairs at even G, a walk split
+    between the two warpgroups at odd G) and ``flex_dkv_sparse`` against
+    the plain backward, two runs bit for bit, and bit for bit ``flex_dq`` /
+    ``flex_dkv`` on the same tables: each item is the row-major kernel's
+    per-block walk, in its order."""
+    qr, kr, ty = _one_tile_docs(1500) if mask == "one_tile_walks" else _sparse_masks()[mask]
+    hk = 2
+    hq = hk * group
+    fa, args, ftab, btab, params = _bwd_problem(card, 1500, 1500, hq, hk, d, qr, kr, ty,
+                                                softcap=30.0 if d == 64 else 0.0,
+                                                sink=mask == "shared_question")
+    meta = fa.build_block_meta(qr, kr, ty, 1500, 1500, block_q=64, block_k=64)
+    if mask == "one_tile_walks":
+        assert (ftab[6] == 1).all() and (btab[6] == 1).all()
+    work = fa.sparse_work(meta, "cuda:0", hq, hk, group)
+    dq = fa._dq_sparse_kernel(*args, ftab, work, params)
+    dk, dv = fa._dkv_sparse_kernel(*args, btab, work, params)
+    torch.cuda.synchronize()
+    _bwd_close(dq, fa._dq_torch(*args, ftab, params))
+    ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+    _bwd_close(dk, ref_dk)
+    _bwd_close(dv, ref_dv)
+    assert torch.equal(dq, fa._dq_sparse_kernel(*args, ftab, work, params))
+    dk2, dv2 = fa._dkv_sparse_kernel(*args, btab, work, params)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, fa._dq_kernel(*args, ftab, params))
+    rm_dk, rm_dv = fa._dkv_kernel(*args, btab, params)
+    assert torch.equal(dk, rm_dk) and torch.equal(dv, rm_dv)
+
+
+@pytest.mark.parametrize("what", ["q", "k", "dout", "lse"])
+def test_sparse_backward_refuses_misaligned_inputs(card, what):
+    """A base that TMA (or a bulk copy) cannot load raises before any
+    launch, on the card as on the CPU: no fallback."""
+    from magiattention_tpu_torch import csrc
+
+    qr, kr, ty = _sparse_masks()["varlen_block_causal"]
+    fa, args, ftab, btab, params = _bwd_problem(card, 1500, 1500, 4, 2, 128, qr, kr, ty)
+    meta = fa.build_block_meta(qr, kr, ty, 1500, 1500, block_q=64, block_k=64)
+    work = fa.sparse_work(meta, "cuda:0", 4, 2, 2)
+    index = ["q", "k", "v", "dout", "lse", "delta"].index(what)
+    x = args[index]
+    shifted = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    args = (*args[:index], shifted, *args[index + 1:])
+    csrc.reset_launch_counts()
+    if what != "lse":
+        with pytest.raises(ValueError, match="not 16-byte aligned"):
+            fa._dq_sparse_kernel(*args, ftab, work, params)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        fa._dkv_sparse_kernel(*args, btab, work, params)
+    assert csrc.launches["flex_dq_sparse"] == csrc.launches["flex_dkv_sparse"] == 0
+
+
+def test_sparse_backward_checks_catch_planted_faults(card):
+    """The gradient checks on mutated builds of the persistent sparse
+    backward, on a problem of many items a block: each dq item after a
+    block's first reusing the previous item's resident Q and dO, and the
+    dK/dV partials not zeroed between a block's items. Each must fail."""
+    import chip_smoke
+    from magiattention_tpu_torch import csrc
+
+    fa, args, ftab, btab, params = _bwd_problem(card, 4096, 4096, 8, 4, 128,
+                                                *_sparse_masks_at(4096))
+    meta = fa.build_block_meta(*_sparse_masks_at(4096), 4096, 4096, block_q=64, block_k=64)
+    work = fa.sparse_work(meta, "cuda:0", 8, 4, 2)
+    csrc.load("flex_dq_sparse")
+    csrc.load("flex_dkv_sparse")
+    planted = chip_smoke.planted_libraries(chip_smoke.start_planted_build(
+        ["flex_dq_sparse_stale_resident", "flex_dkv_sparse_unzeroed"]))
+    real = {n: csrc._libs[n] for n in ("flex_dq_sparse", "flex_dkv_sparse")}
+    try:
+        csrc._libs["flex_dq_sparse"] = planted["flex_dq_sparse_stale_resident"]
+        csrc._libs["flex_dkv_sparse"] = planted["flex_dkv_sparse_unzeroed"]
+        dq = fa._dq_sparse_kernel(*args, ftab, work, params)
+        dk, dv = fa._dkv_sparse_kernel(*args, btab, work, params)
+        torch.cuda.synchronize()
+    finally:
+        csrc._libs.update(real)
+    ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+    assert _bwd_failures(dq, fa._dq_torch(*args, ftab, params))
+    assert _bwd_failures(dk, ref_dk) and _bwd_failures(dv, ref_dv)
+
+
+def _sparse_masks_at(t):
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    return split_slices(varlen_block_causal(t))
+
+
 @pytest.mark.parametrize("heads", [(8, 2), (4, 4)], ids=["hq8_hk2", "hq4_hk4"])
 def test_autograd_on_the_sparse_grid_runs_the_sparse_kernels(card, heads, monkeypatch):
     from magiattention_tpu_torch import csrc
