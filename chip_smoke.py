@@ -11,11 +11,12 @@ Phases, each printing one JSON line:
    ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
    ``flex_dkv_sparse``, and ``paged_decode``) from the sources in
    ``magiattention_tpu_torch/csrc/`` with nvcc for sm_90a, all at once
-   (with mutated copies for the planted faults, and the previous, pre-TMA
-   row-major forward and backward walks, the previous sparse-grid backward
-   walk and the previous CUDA-core decode walk as yardstick libraries),
-   print ptxas's registers and spills and, for the four row-major kernels
-   and the two sparse-grid backward kernels, the count of ``HGMMA`` (wgmma)
+   (with mutated copies for the planted faults and the sparse forwards'
+   every-rise AMLA variant, and the previous, pre-TMA row-major forward and
+   backward walks, the previous sparse-grid forward and backward walks and
+   the previous CUDA-core decode walk as yardstick libraries), print
+   ptxas's registers and spills and, for the eight flex kernels, the count
+   of ``HGMMA`` (wgmma)
    and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass``, for
    ``paged_decode`` its ``HMMA`` (mma.sync), ``LDGSTS`` (cp.async) and
    ``LDSM`` (ldmatrix), and print the card's name and power limit as
@@ -32,10 +33,13 @@ Phases, each printing one JSON line:
    backward again at d 128 and 64 and 1, 2, 3, 4 and 8 q heads per kv head
    on the heterogeneous masks and one of short walks, with softcap on one
    case and uncovered rows on another, bit for bit equal to ``flex_dq`` /
-   ``flex_dkv`` on the same tables), each kernel run twice for the same
-   bits, each with its stated tolerance; faults
+   ``flex_dkv`` on the same tables; the sparse-grid forwards at the same
+   widths on the same masks and one whose keys grow along the sequence, so
+   that AMLA's reference moves, at head_block 1 and G), each kernel run
+   twice for the same bits, each with its stated tolerance; faults
    planted in the kernels (the backward walks cut short, the AMLA rescale
-   skipped once per row in a mutated copy of the sparse forward, every head
+   of O skipped once per row in mutated copies of both sparse forwards, on
+   rising logits, every head
    of a head-batched item reading the first head's kv head in a mutated
    copy of ``flex_fwd_hb``, the second consumer warpgroup's partial dropped
    from the odd-G merge in a mutated copy of ``flex_fwd``, the second
@@ -93,9 +97,10 @@ Phases, each printing one JSON line:
    gradients held against the plain versions; each kernel's time beside its
    own with the work list in index order (not longest walk first), the
    row-major kernel's on the same problem, the plain version's, a PyTorch
-   varlen (or SDPA) yardstick and the card's bound, the backward kernels in
-   turns with the previous sparse walk, and the slice's forward + backward
-   in device time.
+   varlen (or SDPA) yardstick and the card's bound, each kernel in turns
+   with the previous sparse walk, the forward also in turns with its
+   variant that moves AMLA's reference on every rise, and the slice's
+   forward + backward in device time.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them), errors and times; the last line is
@@ -156,6 +161,23 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def with_library(kernel, lib, fn):
+    """``fn`` (launches of ``kernel`` through its wrapper) on the library
+    ``lib`` in place of the kernel's own: a mutated build, a variant or
+    another checkout's build. Its launches are not counted."""
+    from magiattention_tpu_torch import csrc
+
+    def run():
+        real, launched = csrc._libs[kernel], csrc.launches[kernel]
+        csrc._libs[kernel] = lib
+        try:
+            return fn()
+        finally:
+            csrc._libs[kernel], csrc.launches[kernel] = real, launched
+
+    return run
 
 
 def out_errors(out, ref_out, pairs) -> tuple[dict, list[str]]:
@@ -269,14 +291,14 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-# the row-major kernels' wgmma (HGMMA), TMA loads (UTMALDG) and 1-D bulk
+# the flex kernels' wgmma (HGMMA), TMA loads (UTMALDG) and 1-D bulk
 # copies (UBLKCP); paged_decode's mma.sync (HMMA), cp.async (LDGSTS) and
 # ldmatrix (LDSM)
-ROW_MAJOR_SASS = ("HGMMA", "UTMALDG", "UBLKCP")
+FLEX_SASS = ("HGMMA", "UTMALDG", "UBLKCP")
 DECODE_SASS = ("HMMA", "LDGSTS", "LDSM")
 
 
-def sass_counts(path: str, ops=ROW_MAJOR_SASS) -> dict | None:
+def sass_counts(path: str, ops=FLEX_SASS) -> dict | None:
     """The count of each instruction of ``ops`` in a library's SASS, from
     the toolkit's ``cuobjdump``; None where the toolkit has none."""
     import shutil
@@ -307,7 +329,7 @@ class Flex:
     plain version."""
 
     def __init__(self, gen, tq, tk, hq, hk, q_ranges, k_ranges, types, *,
-                 softcap=0.0, sink=None, d=D, head_block=None, out_dtype=None):
+                 softcap=0.0, sink=None, d=D, head_block=None, out_dtype=None, k_ramp=None):
         import torch
         from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -323,6 +345,9 @@ class Flex:
             return fa._pad_tokens(x.to(torch.bfloat16), tp)
 
         self.q, self.k, self.v = rand(tq, hq, tqp), rand(tk, hk, tkp), rand(tk, hk, tkp)
+        if k_ramp is not None:  # keys scaled from 1 to k_ramp along the sequence
+            ramp = torch.linspace(1.0, k_ramp, tk, device="cuda")[None, :, None]
+            self.k[:, :tk] = (self.k[:, :tk].float() * ramp).to(torch.bfloat16)
         self.sink = (
             torch.full((hq,), 0.0, device="cuda") if sink is None
             else torch.as_tensor(sink, dtype=torch.float32, device="cuda")
@@ -337,10 +362,8 @@ class Flex:
         self.dlse = torch.randn((hq, tqp), generator=gen, device="cuda")
         self._bwd = None
         # the sparse grid, head_block q heads per forward work item (default G)
-        self.hb = hq // hk if head_block is None else head_block
-        self.sparse_params = dataclasses.replace(self.params, head_block=self.hb, grid="sparse")
-        self.work = fa.sparse_work(self.meta, "cuda:0", hq, hk, self.hb)
-        self.fwd_sparse_name = "flex_fwd_sparse_hb" if self.hb > 1 else "flex_fwd_sparse"
+        self.sparse_params = dataclasses.replace(self.params, grid="sparse")
+        self.set_head_block(hq // hk if head_block is None else head_block)
 
     def bwd_inputs(self):
         """(q, k, v, dout, lse, delta_eff) as the autograd Function hands
@@ -399,7 +422,6 @@ class Flex:
         through fails the smoke. Nothing here is counted as a main-path
         launch."""
         import torch
-        from magiattention_tpu_torch import csrc
         from magiattention_tpu_torch.ops import flex_attn as fa
 
         def skip_last(tab):
@@ -414,13 +436,8 @@ class Flex:
         dk, dv = (x[:, :tk].clone() for x in self.dkv_kernel())
         last = (tk - 1) // GRAD_BLOCK * GRAD_BLOCK
         dk[:, last:], dv[:, last:] = 0.0, 0.0
-        real, launched = csrc._libs["flex_dkv"], csrc.launches["flex_dkv"]
-        csrc._libs["flex_dkv"] = planted["flex_dkv"]
-        try:
-            dk_drop = self.dkv_kernel()[0]
-            torch.cuda.synchronize()
-        finally:
-            csrc._libs["flex_dkv"], csrc.launches["flex_dkv"] = real, launched
+        dk_drop = with_library("flex_dkv", planted["flex_dkv"], self.dkv_kernel)()[0]
+        torch.cuda.synchronize()
         plants = {
             "skip_last_q_walk_entry": [("dq", dq_skip[:, :tq], ref_dq)],
             "skip_last_k_walk_entry": [("dk", dk_skip[:, :tk], ref_dk),
@@ -496,6 +513,16 @@ class Flex:
 
     # -- the sparse grid ------------------------------------------------------
 
+    def set_head_block(self, hb) -> None:
+        """The sparse grid at ``hb`` q heads per forward work item."""
+        from magiattention_tpu_torch.ops import flex_attn as fa
+
+        hq, hk = self.q.shape[0], self.k.shape[0]
+        self.hb = hb
+        self.sparse_params = dataclasses.replace(self.sparse_params, head_block=hb)
+        self.work = fa.sparse_work(self.meta, "cuda:0", hq, hk, hb)
+        self.fwd_sparse_name = "flex_fwd_sparse_hb" if hb > 1 else "flex_fwd_sparse"
+
     def sparse_kernel(self):
         from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -558,16 +585,19 @@ class Flex:
 
 # -- planted faults in mutated copies of the forward kernels ----------------------
 
-# The AMLA forward with its rescale skipped once per row: at the first entry
-# where a row's quantized max grows, l and the accumulator keep their old
-# scale. Planted into a copy of flex_fwd_sparse.cuh built beside the real
-# kernels; the checks of ``check_sparse`` must catch it.
+# The AMLA forward with its rescale of O skipped once per row: at the first
+# tile where a row's integer base-2 reference rises, the accumulator keeps
+# its old scale while l takes the new one. Planted into a copy of
+# flex_fwd_sm90.cuh's AMLA mode, built as each sparse-grid forward; the
+# checks of ``check_sparse`` must catch it.
 PLANT_SKIP_RESCALE = [
-    ("      float l[2] = {0.f, 0.f};\n",
-     "      float l[2] = {0.f, 0.f};\n      bool planted[2] = {false, false};\n"),
-    ("          m[rr] = mnew;\n",
-     "          m[rr] = mnew;\n"
-     "          if (delta[rr] != 0 && !planted[rr]) { planted[rr] = true; delta[rr] = 0; }\n"),
+    ("    float m[2] = {-INFINITY, -INFINITY}, ref[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};\n",
+     "    float m[2] = {-INFINITY, -INFINITY}, ref[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};\n"
+     "    bool planted[2] = {false, false};\n"),
+    ("        if (__any_sync(0xffffffffu, delta[0] != 0 || delta[1] != 0)) {\n",
+     "        for (int rr = 0; rr < 2; ++rr)\n"
+     "          if (delta[rr] != 0 && !planted[rr]) { planted[rr] = true; delta[rr] = 0; }\n"
+     "        if (__any_sync(0xffffffffu, delta[0] != 0 || delta[1] != 0)) {\n"),
 ]
 
 
@@ -640,8 +670,8 @@ PLANT_MEMBER0_Q = [
 # Each mutated build: (the kernel source compiled, the source mutated, its
 # plants), in a directory of its own beside the kernels.
 PLANTED = {
-    "flex_fwd_sparse": ("flex_fwd_sparse.cu", "flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
-    "flex_fwd_sparse_hb": ("flex_fwd_sparse_hb.cu", "flex_fwd_sparse.cuh", PLANT_SKIP_RESCALE),
+    "flex_fwd_sparse": ("flex_fwd_sparse.cu", "flex_fwd_sm90.cuh", PLANT_SKIP_RESCALE),
+    "flex_fwd_sparse_hb": ("flex_fwd_sparse_hb.cu", "flex_fwd_sm90.cuh", PLANT_SKIP_RESCALE),
     "flex_fwd_hb": ("flex_fwd_hb.cu", "flex_fwd_sm90.cuh", PLANT_FIRST_KV_HEAD),
     "flex_fwd_drop_partial": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_DROP_WG1_PARTIAL),
     "flex_dkv": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_DROP_WG1_DK),
@@ -651,6 +681,19 @@ PLANTED = {
                                  PLANT_KEEP_PARTIALS),
     "paged_decode_drop_last_chunk": ("decode.cu", "decode_sm90.cuh", PLANT_DROP_LAST_CHUNK),
     "paged_decode_member0_q": ("decode.cu", "decode_sm90.cuh", PLANT_MEMBER0_Q),
+}
+
+# Variants of the kernels, timed beside them and never launched on a main
+# path: the sparse-grid forwards with AMLA's integer reference moved on every
+# rise of a row's max (the TPU kernel's rule) instead of only past
+# AMLA_MOVE_AT, in mutated copies of flex_fwd_sm90.cuh.
+AMLA_EVERY_RISE = [
+    ("top > ref[rr] + AMLA_MOVE_AT;", "top > ref[rr];"),
+]
+VARIANTS = {
+    "flex_fwd_sparse_every_rise": ("flex_fwd_sparse.cu", "flex_fwd_sm90.cuh", AMLA_EVERY_RISE),
+    "flex_fwd_sparse_hb_every_rise": ("flex_fwd_sparse_hb.cu", "flex_fwd_sm90.cuh",
+                                      AMLA_EVERY_RISE),
 }
 
 # The row-major backward walk before TMA and wgmma (flex_bwd.cuh's per-item
@@ -863,22 +906,54 @@ int mma_sync_flex_dkv_sparse(ARGS, float *dk, float *dv, int hq, int hk, int tqp
 }
 """
 
+# The sparse-grid forward before TMA and wgmma (flex_fwd_sparse.cuh:
+# mma.sync, synchronous tile loads, persistent blocks of NH x 4 warps taking
+# items through flex_tile.cuh::next_item), with the kernels' C signature,
+# built beside them as the yardstick of the ``hetero`` phase. Never launched
+# on a main path.
+MMA_SYNC_FWD_SPARSE_SOURCE = r"""
+#include "flex_fwd_sparse.cuh"
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int mma_sync_flex_fwd_sparse(const void *q, const void *k, const void *v, const void *sink,
+                             const void *kblk, const void *sid, const void *runs,
+                             const void *bounds, const void *rs, const void *rc,
+                             const void *work, void *counter, void *out, void *lse, void *rowmax,
+                             int hq, int hk, int tqp, int tkp, int head_dim, int nq, int block_q,
+                             int block_k, int n_items, int heads_per_item, float scale,
+                             float softcap, int has_sink, int out_f32, void *stream) {
+  if (hk <= 0 || hq % hk != 0) return cudaErrorInvalidValue;
+  if (heads_per_item > 1 && (hq / hk) % 2 == 0)  // a head pair of one kv head at a time
+    return flex::dispatch_fwd_sparse<2>(q, k, v, sink, kblk, sid, runs, bounds, rs, rc, work,
+                                        counter, out, lse, rowmax, hq, hk, tqp, tkp, head_dim, nq,
+                                        block_q, block_k, n_items, heads_per_item, scale, softcap,
+                                        has_sink, out_f32, stream);
+  return flex::dispatch_fwd_sparse<1>(q, k, v, sink, kblk, sid, runs, bounds, rs, rc, work,
+                                      counter, out, lse, rowmax, hq, hk, tqp, tkp, head_dim, nq,
+                                      block_q, block_k, n_items, heads_per_item, scale, softcap,
+                                      has_sink, out_f32, stream);
+}
+}
+"""
+
 # the previous walks, yardsticks built beside the kernels
 YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE,
-              "mma_sync_sparse": MMA_SYNC_SPARSE_SOURCE, "decode_simt": DECODE_SIMT_SOURCE}
+              "mma_sync_sparse": MMA_SYNC_SPARSE_SOURCE,
+              "mma_sync_fwd_sparse": MMA_SYNC_FWD_SPARSE_SOURCE,
+              "decode_simt": DECODE_SIMT_SOURCE}
 
 
 def start_planted_build(names=None):
-    """nvcc of each mutated build of ``PLANTED`` and each yardstick of
-    ``YARDSTICKS`` (default: all), each in a directory of its own under
-    ``csrc/build/planted/``, started now and collected by
+    """nvcc of each mutated build of ``PLANTED`` and ``VARIANTS`` and each
+    yardstick of ``YARDSTICKS`` (default: all), each in a directory of its
+    own under ``csrc/build/planted/``, started now and collected by
     :func:`planted_libraries`. Nothing of it is counted as a main-path
     launch."""
     import shutil as sh
 
     from magiattention_tpu_torch import csrc
 
-    names = [*PLANTED, *YARDSTICKS] if names is None else list(names)
+    names = [*PLANTED, *VARIANTS, *YARDSTICKS] if names is None else list(names)
     procs = {}
     for name in names:
         out_dir = os.path.join(csrc.BUILD_DIR, "planted", name)
@@ -891,7 +966,7 @@ def start_planted_build(names=None):
             with open(os.path.join(out_dir, source), "w") as f:
                 f.write(YARDSTICKS[name])
         else:
-            source, mutated, plants = PLANTED[name]
+            source, mutated, plants = {**PLANTED, **VARIANTS}[name]
             with open(os.path.join(csrc._DIR, mutated)) as f:
                 src = f.read()
             for old, new in plants:
@@ -931,12 +1006,16 @@ def planted_libraries(procs) -> dict:
             # q k v bt sl | out lse | b hq hk d ps mpp splits | scale softcap stream
             fn = lib.simt_paged_decode
             fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [F, F, P], ctypes.c_int
+        elif name == "mma_sync_fwd_sparse":  # the sparse forwards' C signature
+            fn = lib.mma_sync_flex_fwd_sparse
+            fn.argtypes, fn.restype = csrc.KERNELS["flex_fwd_sparse"].argtypes, ctypes.c_int
         elif name == "mma_sync_fwd":
             # q k v sink | 6 tables | out lse rowmax | 6 (7) ints | scale softcap has_sink stream
             for fn, ints in ((lib.mma_sync_flex_fwd, 6), (lib.mma_sync_flex_fwd_hb, 7)):
                 fn.argtypes, fn.restype = [P] * 13 + [I] * ints + [F, F, I, P], ctypes.c_int
         else:
-            kernel = next(k for k in csrc.KERNELS.values() if k.source == PLANTED[name][0])
+            source = {**PLANTED, **VARIANTS}[name][0]
+            kernel = next(k for k in csrc.KERNELS.values() if k.source == source)
             fn = getattr(lib, kernel.entry)
             fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
         lib.magi_error_string.argtypes = [ctypes.c_int]
@@ -945,40 +1024,31 @@ def planted_libraries(procs) -> dict:
     return libs
 
 
-def sparse_planted_faults(p, planted) -> dict:
-    """The checks on faults planted in each sparse-grid kernel, on problem
-    ``p``: the AMLA rescale skipped once per row (both forwards, through the
-    mutated build), the last entry of each q-major walk skipped
+def sparse_planted_faults(gen, p, planted) -> dict:
+    """The checks on faults planted in each sparse-grid kernel: the AMLA
+    rescale of O skipped once per row (both forwards, through the mutated
+    builds, at p's widths on causal 4096 with rising logits, so that the
+    reference moves), and on problem ``p`` the last entry of each q-major
+    walk skipped
     (``flex_dq_sparse``), the last entry of each k-major walk skipped
     (``flex_dkv_sparse``), and two faults of the persistent pipeline in
     mutated builds: each dq item after a block's first reusing the previous
     item's resident Q and dO, and the dK/dV partials not zeroed between a
     block's items. Returns which checks catch each; a fault that passes them
     all fails the smoke."""
-    import dataclasses as dc
-
     import torch
-    from magiattention_tpu_torch import csrc
-    from magiattention_tpu_torch.ops import flex_attn as fa
 
     def skip_last(tab):
         return (*tab[:6], (tab[6] - 1).clamp_min(0).contiguous())
 
     caught = {}
+    hq, hk = p.q.shape[0], p.k.shape[0]
+    rising = Flex(gen, 4096, 4096, hq, hk, [(0, 4096)], [(0, 4096)], [1], k_ramp=RISING_K)
     for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb"):
-        lib = planted[name]
-        hq, hk = p.q.shape[0], p.k.shape[0]
-        p.hb = hq // hk if name.endswith("_hb") else 1
-        p.sparse_params = dc.replace(p.sparse_params, head_block=p.hb)
-        p.work = fa.sparse_work(p.meta, "cuda:0", hq, hk, p.hb)
-        real, launched = csrc._libs[name], csrc.launches[name]
-        csrc._libs[name] = lib
-        try:
-            got = p.sparse_kernel()
-            torch.cuda.synchronize()
-        finally:
-            csrc._libs[name], csrc.launches[name] = real, launched
-        out, ref_out, pairs = p.sparse_fwd_pairs(got)
+        rising.set_head_block(hq // hk if name.endswith("_hb") else 1)
+        got = with_library(name, planted[name], rising.sparse_kernel)()
+        torch.cuda.synchronize()
+        out, ref_out, pairs = rising.sparse_fwd_pairs(got)
         errs, failed = out_errors(out, ref_out, pairs)
         caught[f"skip_rescale_once_per_row:{name}"] = {"failed_checks": failed, **errs}
         check(bool(failed), f"planted fault in {name} passes the forward checks: {errs}")
@@ -987,22 +1057,11 @@ def sparse_planted_faults(p, planted) -> dict:
     ref_dk, ref_dv = (x[:, :tk] for x in p.dkv_plain())
     dq = p.dq_sparse_kernel(skip_last(p.tables))
     dk, dv = p.dkv_sparse_kernel(skip_last(p.btables))
+    dq_stale = with_library("flex_dq_sparse", planted["flex_dq_sparse_stale_resident"],
+                            p.dq_sparse_kernel)()
+    dk_kept, dv_kept = with_library("flex_dkv_sparse", planted["flex_dkv_sparse_unzeroed"],
+                                    p.dkv_sparse_kernel)()
     torch.cuda.synchronize()
-
-    def planted_run(kernel, lib, fn):
-        real, launched = csrc._libs[kernel], csrc.launches[kernel]
-        csrc._libs[kernel] = lib
-        try:
-            got = fn()
-            torch.cuda.synchronize()
-        finally:
-            csrc._libs[kernel], csrc.launches[kernel] = real, launched
-        return got
-
-    dq_stale = planted_run("flex_dq_sparse", planted["flex_dq_sparse_stale_resident"],
-                           p.dq_sparse_kernel)
-    dk_kept, dv_kept = planted_run("flex_dkv_sparse", planted["flex_dkv_sparse_unzeroed"],
-                                   p.dkv_sparse_kernel)
     for plant, what, got, ref in (("skip_last_q_walk_entry:flex_dq_sparse", "dq", dq[:, :tq], ref_dq),
                                   ("skip_last_k_walk_entry:flex_dkv_sparse", "dk", dk[:, :tk], ref_dk),
                                   ("skip_last_k_walk_entry:flex_dkv_sparse", "dv", dv[:, :tk], ref_dv),
@@ -1060,27 +1119,17 @@ def fwd_planted_faults(gen, planted) -> dict:
     from the merge of ``flex_fwd`` (causal 2048 at 8 / 8 heads). Returns
     which checks catch each; a fault that passes them fails the smoke."""
     import torch
-    from magiattention_tpu_torch import csrc
-
-    def planted_run(kernel, lib, fn):
-        real, launched = csrc._libs[kernel], csrc.launches[kernel]
-        csrc._libs[kernel] = lib
-        try:
-            got = fn()
-            torch.cuda.synchronize()
-        finally:
-            csrc._libs[kernel], csrc.launches[kernel] = real, launched
-        return got
 
     caught = {}
     p = Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1])
     p1 = Flex(gen, 2048, 2048, 8, 8, [(0, 2048)], [(0, 2048)], [1])
     for plant, q, got in (
         ("first_kv_head_for_every_head:flex_fwd_hb", p,
-         planted_run("flex_fwd_hb", planted["flex_fwd_hb"], lambda: p.hb_kernel(4))),
+         with_library("flex_fwd_hb", planted["flex_fwd_hb"], lambda: p.hb_kernel(4))()),
         ("drop_second_warpgroup_partial:flex_fwd", p1,
-         planted_run("flex_fwd", planted["flex_fwd_drop_partial"], p1.kernel)),
+         with_library("flex_fwd", planted["flex_fwd_drop_partial"], p1.kernel)()),
     ):
+        torch.cuda.synchronize()
         errs, failed = q.hb_errors(got)
         caught[plant] = {"failed_checks": failed, **errs}
         check(bool(failed), f"planted fault {plant} passes the forward checks: {errs}")
@@ -1225,6 +1274,52 @@ def sparse_bwd_cases(gen) -> dict:
     return {"phase": "kernels", "kernel": "flex_dq_sparse+flex_dkv_sparse", "cases": len(cases),
             "twice_bitwise_equal": len(cases), "bitwise_equal_to_row_major": len(cases),
             "short_walks": walks}
+
+
+RISING_K = 12.0  # the rising-logits cases' last key scale: late tiles pass a row's reference
+
+
+def sparse_fwd_cases(gen) -> dict:
+    """``flex_fwd_sparse`` (head_block 1) and ``flex_fwd_sparse_hb``
+    (head_block G; 2 at G = 1, an item of two kv heads) against the plain
+    sparse forward at d 128 and 64 and G 1, 2, 3, 4 and 8 (2 kv heads) on
+    the two heterogeneous masks, the short-walk one and a causal one whose
+    keys grow along the sequence (so that AMLA's reference moves and O's
+    exponent-add rescale runs), plus softcap and sink on one case and
+    uncovered rows on another: each kernel twice for the same bits. Returns
+    the line's summary."""
+    import torch
+    from magiattention_tpu_torch.testing.workloads import (
+        shared_question_q_overlap, split_slices, varlen_block_causal,
+    )
+
+    vbc = split_slices(varlen_block_causal(4096))
+    masks = [
+        ("varlen_block_causal", 4096, *vbc, {}),
+        ("shared_question", 4096, *split_slices(shared_question_q_overlap(4096)), {}),
+        ("short_walks", 4096, *short_walk_docs(4096), {}),
+        ("rising_logits_causal", 2048, [(0, 2048)], [(0, 2048)], [1], {"k_ramp": RISING_K}),
+    ]
+    cases = [(f"{m}_g{g}_d{d}", t, qr, kr, ty, g, d, kw)
+             for m, t, qr, kr, ty, kw in masks for d in (128, 64) for g in SPARSE_BWD_GROUPS]
+    cases += [("varlen_block_causal_softcap_sink_g4_d128", 4096, *vbc, 4, 128,
+               {"softcap": 30.0, "sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
+              ("uncovered_rows_g3_d64", 1000, [(100, 600)], [(0, 500)], [0], 3, 64, {})]
+    n = 0
+    for name, t, qr, kr, ty, g, d, kw in cases:
+        p = Flex(gen, t, t, 2 * g, 2, qr, kr, ty, d=d, **kw)
+        for hb in (1, max(g, 2)):
+            p.set_head_block(hb)
+            got = p.sparse_kernel()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, p.sparse_kernel())),
+                  f"{name}: {p.fwd_sparse_name} differs between two runs")
+            out, ref_out, pairs = p.sparse_fwd_pairs(got)
+            compare(p.fwd_sparse_name, f"sparse_fwd_{name}_hb{hb}", out, ref_out,
+                    extra={k: (x, y) for k, x, y in pairs})
+            n += 1
+    return {"phase": "kernels", "kernel": "flex_fwd_sparse+flex_fwd_sparse_hb", "cases": n,
+            "twice_bitwise_equal": n}
 
 
 def mma_sync_fwd(lib, p, head_block=None):
@@ -1376,7 +1471,7 @@ def bwd_timing(gen, t: int, planted) -> dict:
     emit({"phase": "planted_faults", "case": f"flex_bwd_causal_{t}_training_widths",
           "caught": p.planted_faults(planted)})
     emit({"phase": "planted_faults", "case": f"sparse_grid_causal_{t}_training_widths",
-          "caught": sparse_planted_faults(p, planted)})
+          "caught": sparse_planted_faults(gen, p, planted)})
     old_dq, old_dkv = mma_sync_walk(planted["mma_sync_walk"], p)
     runs = {"flex_dq": p.dq_kernel, "mma_sync_dq": old_dq,
             "flex_dkv": p.dkv_kernel, "mma_sync_dkv": old_dkv}
@@ -1644,7 +1739,6 @@ def decode_planted_faults(gen, planted) -> dict:
     every member on member 0's q (the shared mode, 3 members). Returns which
     checks catch each; a fault that passes them all fails the smoke."""
     import torch
-    from magiattention_tpu_torch import csrc
     from magiattention_tpu_torch.serving import decode_attn as da
     from magiattention_tpu_torch.serving import decode_reference
 
@@ -1663,13 +1757,8 @@ def decode_planted_faults(gen, planted) -> dict:
     }
     caught = {}
     for name, (run, (ref_out, ref_lse)) in runs.items():
-        real, launched = csrc._libs["paged_decode"], csrc.launches["paged_decode"]
-        csrc._libs["paged_decode"] = planted[name]
-        try:
-            out, lse = da._merge_splits(*run())
-            torch.cuda.synchronize()
-        finally:
-            csrc._libs["paged_decode"], csrc.launches["paged_decode"] = real, launched
+        out, lse = da._merge_splits(*with_library("paged_decode", planted[name], run)())
+        torch.cuda.synchronize()
         errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
         caught[name] = {"failed_checks": failed, **errs}
         check(bool(failed), f"planted fault {name} passes the decode checks: {errs}")
@@ -2437,6 +2526,37 @@ def mma_sync_sparse(lib, p, bwd_args, refs):
     return run_dq, run_dkv
 
 
+def mma_sync_fwd_sparse(lib, p):
+    """A launcher of the previous sparse forward (the ``mma_sync_fwd_sparse``
+    yardstick library) on ``p``'s inputs and forward work list, checked once
+    against the plain sparse forward. A yardstick only: nothing here is
+    counted as a launch."""
+    import torch
+
+    q, k, v = p.q, p.k, p.v
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    out = torch.empty((hq, tqp, d), dtype=torch.bfloat16, device="cuda")
+    lse, rowmax = (torch.empty((hq, tqp), device="cuda") for _ in range(2))
+    counter = torch.empty((1,), dtype=torch.int32, device="cuda")
+    ptrs = [x.data_ptr() for x in (q, k, v, p.sink, *p.tables[1:7], p.work.fwd, counter, out,
+                                   lse, rowmax)]
+    prm = p.sparse_params
+
+    def run():
+        code = lib.mma_sync_flex_fwd_sparse(
+            *ptrs, hq, hk, tqp, tkp, d, tqp // BLOCK, BLOCK, BLOCK, p.work.fwd.numel(), p.hb,
+            prm.scale, prm.softcap, int(prm.has_sink), 0, torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous sparse forward walk: CUDA error {code}")
+
+    run()
+    torch.cuda.synchronize()
+    o, r, pairs = p.sparse_fwd_pairs((out, lse, rowmax))
+    _, failed = out_errors(o, r, pairs)
+    check(not failed, f"the previous sparse forward walk fails the {failed} check(s)")
+    return run
+
+
 def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed) -> tuple[dict, dict, dict]:
     """One default-argument forward and backward through
     ``flex_flash_attn_func`` on the varlen mask: the resolved choice, the
@@ -2522,21 +2642,29 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed) -> tuple[dict
     rm = dc.replace(params, head_block=1, grid="row_major")
     bwd_args = (p.q, p.k, p.v, p.do, lse_h, delta)
     fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
-    # the backward kernels in turns with the previous sparse walk (new, old,
-    # old, new)
+    # each kernel in turns with the previous sparse walk (new, old, old, new)
     old = dict(zip(("flex_dq_sparse", "flex_dkv_sparse"),
                    mma_sync_sparse(planted["mma_sync_sparse"], p, bwd_args,
                                    (ref_dq, ref_dk, ref_dv))))
-    new = {"flex_dq_sparse": lambda: fa._dq_sparse_kernel(*bwd_args, ftab, p.work, params),
+    old[fwd_name] = mma_sync_fwd_sparse(planted["mma_sync_fwd_sparse"], p)
+    new = {fwd_name: lambda: fwd(p.q, p.k, p.v, p.sink, ftab, p.work, params),
+           "flex_dq_sparse": lambda: fa._dq_sparse_kernel(*bwd_args, ftab, p.work, params),
            "flex_dkv_sparse": lambda: fa._dkv_sparse_kernel(*bwd_args, btab, p.work, params)}
+    # and the forward in turns with its variant that moves AMLA's reference
+    # on every rise of a row's max
+    every_rise = with_library(fwd_name, planted[f"{fwd_name}_every_rise"], new[fwd_name])
+    every_rise_errs, failed = out_errors(*p.sparse_fwd_pairs(every_rise()))
+    check(not failed, f"the every-rise variant of {fwd_name} fails the {failed} check(s)")
     turns = {}
     for name in new:
         for which, fn in (("", new[name]), ("previous:", old[name]), ("previous:", old[name]),
                           ("", new[name])):
             turns.setdefault(which + name, []).append(cuda_ms(fn, reps=20))
+    for which, fn in (("", new[fwd_name]), ("every_rise:", every_rise),
+                      ("every_rise:", every_rise), ("", new[fwd_name])):
+        turns.setdefault(which + fwd_name, []).append(cuda_ms(fn, reps=20))
     mean = {n: sum(x) / len(x) for n, x in turns.items()}
-    ms = {fwd_name: cuda_ms(lambda: fwd(p.q, p.k, p.v, p.sink, ftab, p.work, params), reps=20),
-          **{n: mean[n] for n in new}}
+    ms = {n: mean[n] for n in new}
 
     def fwd_bwd():  # the slice as a user calls it, plans and lists cached
         o, l = fa.flex_flash_attn_func(q, k, v, qr, kr, ty)
@@ -2555,6 +2683,9 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed) -> tuple[dict
     }
     row_major_ms = {
         "flex_fwd": cuda_ms(lambda: fa._fwd_kernel(p.q, p.k, p.v, p.sink, ftab, rm), reps=20),
+        **({"flex_fwd_hb": cuda_ms(lambda: fa._fwd_hb_kernel(
+            p.q, p.k, p.v, p.sink, ftab, dc.replace(rm, head_block=hb)), reps=20)}
+           if hb > 1 else {}),
         "flex_dq": cuda_ms(lambda: fa._dq_kernel(*bwd_args, ftab, rm), reps=20),
         "flex_dkv": cuda_ms(lambda: fa._dkv_kernel(*bwd_args, btab, rm), reps=20),
     }
@@ -2590,13 +2721,17 @@ def hetero_run(gen, qr, kr, ty, hq, hk, expect_hb, planted, timed) -> tuple[dict
                "library_ms": {fwd_name: lib_ms, "flex_dq_sparse": lib_bwd_ms}.get(name)}
         for name in ms
     }
-    rm_twin = {"flex_dq_sparse": "flex_dq", "flex_dkv_sparse": "flex_dkv"}
+    rm_twin = {fwd_name: "flex_fwd_hb" if hb > 1 else "flex_fwd", "flex_dq_sparse": "flex_dq",
+               "flex_dkv_sparse": "flex_dkv"}
     summary.update({"card": nvidia_smi_line(), "ms": ms, "ms_in_turns": turns,
                     "previous_walk_ms": {n: mean[f"previous:{n}"] for n in new},
                     "speedup_over_previous_walk": {n: mean[f"previous:{n}"] / ms[n] for n in new},
                     "over_row_major_same_problem": {n: ms[n] / row_major_ms[rm_twin[n]]
                                                     for n in new},
                     "share_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
+                    "amla_every_rise_ms": {fwd_name: mean[f"every_rise:{fwd_name}"]},
+                    "amla_every_rise_errs": every_rise_errs,
+                    "fwd_over_library": ms[fwd_name] / lib_ms,
                     "kernels_ms_sum": sum(ms.values()), "fwd_bwd_event_ms": fwd_bwd_event_ms,
                     "index_order_ms": index_order_ms,
                     "row_major_ms_same_problem": row_major_ms, "plain_ms": plain_ms,
@@ -2656,8 +2791,7 @@ def main(argv=None) -> int:
                       if "registers" in ln or "spill" in ln or "setmaxnreg" in ln
                       or (n == "paged_decode" and "entry function" in ln)]
                   for n, r in built.items()},
-        "sass": {**{n: sass_counts(built[n]["path"])
-                    for n in (*ROW_MAJOR, "flex_dq_sparse", "flex_dkv_sparse")},
+        "sass": {**{n: sass_counts(built[n]["path"]) for n in FLEX_KERNELS},
                  "paged_decode": sass_counts(built["paged_decode"]["path"], DECODE_SASS)},
     })
     print(nvidia_smi_line(), flush=True)
@@ -2670,6 +2804,7 @@ def main(argv=None) -> int:
     emit({"phase": "planted_faults", "case": "fwd_causal_2048",
           "caught": fwd_planted_faults(gen, planted)})
     sparse_cases(gen)
+    emit(sparse_fwd_cases(gen))
     emit(sparse_bwd_cases(gen))
     fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)

@@ -4,19 +4,20 @@ Each ``.cu`` file in this directory is one kernel with a plain C entry point
 (every pointer and the CUDA stream passed as ``void*``, every size as
 ``int``; the return value is the ``cudaError_t`` of the launch). The
 headers they share: all eight flex-attention kernels ``flex_tile.cuh`` (the
-tile, the per-entry mask, the per-logit core); the six warp-specialised
-ones the Hopper primitives and block shape of ``flex_sm90.cuh`` — the two
-row-major forwards (``flex_fwd``, ``flex_fwd_hb``) the TMA + wgmma walk of
-``flex_fwd_sm90.cuh``, the four backward kernels (the row-major
-``flex_dq``, ``flex_dkv`` and the persistent sparse-grid
+tile, the per-entry mask, the per-logit core, AMLA's rescale) and the
+Hopper primitives, block shape and item hand-over of ``flex_sm90.cuh`` —
+the four forwards (the row-major ``flex_fwd``, ``flex_fwd_hb`` and the
+persistent sparse-grid ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``) the
+TMA + wgmma walk of ``flex_fwd_sm90.cuh``, the four backward kernels (the
+row-major ``flex_dq``, ``flex_dkv`` and the persistent sparse-grid
 ``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item walks of
-``flex_bwd_sm90.cuh``; the two sparse-grid forwards
-``flex_fwd_sparse.cuh``. ``paged_decode`` (``decode.cu``) takes the
+``flex_bwd_sm90.cuh``. ``paged_decode`` (``decode.cu``) takes the
 tensor-core walk of ``decode_sm90.cuh`` for bf16 caches and the CUDA-core
-walk of ``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh`` and
-``flex_bwd.cuh``, the previous forward and backward walks, are no kernel's:
-they are the sources of ``chip_smoke.py``'s yardsticks (``decode_simt.cuh``
-at bf16, the previous decode walk, is another).
+walk of ``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``,
+``flex_fwd_sparse.cuh`` and ``flex_bwd.cuh``, the previous forward and
+backward walks, are no kernel's: they are the sources of ``chip_smoke.py``'s
+yardsticks (``decode_simt.cuh`` at bf16, the previous decode walk, is
+another).
 On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
@@ -56,7 +57,6 @@ class Kernel(NamedTuple):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_fwd_sm90.cuh")
 _BWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_bwd_sm90.cuh")
-_FWD_SPARSE_HEADERS = ("flex_tile.cuh", "flex_fwd_sparse.cuh")
 # the sparse-grid forwards: q k v sink | kblk sid runs bounds rs rc | work
 # counter | out lse rowmax; hq hk tqp tkp head_dim nq block_q block_k n_items
 # heads_per_item; scale softcap has_sink out_f32 stream
@@ -107,11 +107,10 @@ KERNELS: dict[str, Kernel] = {
         _BWD_HEADERS,
     ),
     "flex_fwd_sparse": Kernel(
-        "flex_fwd_sparse.cu", "magi_flex_fwd_sparse", _FWD_SPARSE_ARGS, _FWD_SPARSE_HEADERS,
+        "flex_fwd_sparse.cu", "magi_flex_fwd_sparse", _FWD_SPARSE_ARGS, _FWD_HEADERS,
     ),
     "flex_fwd_sparse_hb": Kernel(
-        "flex_fwd_sparse_hb.cu", "magi_flex_fwd_sparse_hb", _FWD_SPARSE_ARGS,
-        _FWD_SPARSE_HEADERS,
+        "flex_fwd_sparse_hb.cu", "magi_flex_fwd_sparse_hb", _FWD_SPARSE_ARGS, _FWD_HEADERS,
     ),
     "flex_dq_sparse": Kernel(
         "flex_dq_sparse.cu",

@@ -75,15 +75,13 @@ namespace sm90 {
 constexpr int BAR_WG = 2;  // + wg: one consumer warpgroup alone
 constexpr int BAR_HANDOFF = 4, BAR_HANDOFF_BACK = 5;  // dk, dv: one warpgroup to the other
 constexpr int CONSUMER_WARPS = CONSUMERS * WG_THREADS / 32;
-constexpr int ITEM_SLOTS = 2;  // items handed from the producer to the consumers in flight
 
 // The barriers, from an 8-byte aligned offset: full[STAGES] and
 // empty[STAGES] for the ring, res_full[2] and res_empty[2] for the resident
-// buffers, item_full[2] and item_empty[2] for the item slots; then the item
-// slots themselves (an Item each, padded to 8 ints).
+// buffers, item_full[2] and item_empty[2] for the item slots
+// (flex_sm90.cuh's ITEM_SLOTS); then the item slots themselves.
 constexpr int BAR_BYTES = 8 * (2 * STAGES + 2 * 2 + 2 * ITEM_SLOTS);
-constexpr int SLOT_INTS = 8;
-constexpr int SCHED_BYTES = BAR_BYTES + ITEM_SLOTS * SLOT_INTS * 4;
+constexpr int SCHED_BYTES = BAR_BYTES + ITEM_SLOTS * ITEM_INTS * 4;
 
 struct Bars {
   uint32_t base;
@@ -156,53 +154,15 @@ __device__ __forceinline__ void init_bars(const Bars& b, int empty_arrivals) {
 
 // -- the persistent kernels' items ------------------------------------------------------
 
-// One work item as the producer decoded it: its index in the work list
-// (>= the list's length: no item left, the block stops), its first q head
-// (dq) or kv head (dk, dv), its block and its walk's entries.
-struct Item {
-  int idx, head, i, e_begin, e_end;
-};
-
 // The producer hands the block's n-th item to the consumers.
 __device__ __forceinline__ void publish_item(const Bars& bars, int* slots, int n,
                                              const Item& it) {
-  const int x = n % ITEM_SLOTS;
-  mbar_wait(bars.item_empty(x), ((n / ITEM_SLOTS) & 1) ^ 1);
-  volatile int* s = slots + x * SLOT_INTS;
-  s[0] = it.idx;
-  s[1] = it.head;
-  s[2] = it.i;
-  s[3] = it.e_begin;
-  s[4] = it.e_end;
-  mbar_arrive(bars.item_full(x));  // release: the consumers that acquire it see the writes
+  publish_item(bars.item_full(0), bars.item_empty(0), slots, n, it);
 }
 
 // A consumer warp takes the block's n-th item.
 __device__ __forceinline__ Item take_item(const Bars& bars, const int* slots, int n) {
-  const int x = n % ITEM_SLOTS;
-  mbar_wait(bars.item_full(x), (n / ITEM_SLOTS) & 1);
-  const volatile int* s = slots + x * SLOT_INTS;
-  const Item it{s[0], s[1], s[2], s[3], s[4]};
-  release_stage(bars.item_empty(x));
-  return it;
-}
-
-// The producer's next item from the work list (ops/block_sparse.py::
-// work_list, longest walk first): group * nb + block, the group's first head
-// group * heads.
-__device__ __forceinline__ Item claim_item(int* counter, const int* __restrict__ work,
-                                           const int* __restrict__ rs,
-                                           const int* __restrict__ rc, int n_items, int nb,
-                                           int heads) {
-  Item it{atomicAdd(counter, 1), 0, 0, 0, 0};
-  if (it.idx < n_items) {
-    const int w = work[it.idx];
-    it.head = w / nb * heads;
-    it.i = w % nb;
-    it.e_begin = rs[it.i];
-    it.e_end = it.e_begin + rc[it.i];
-  }
-  return it;
+  return take_item(bars.item_full(0), bars.item_empty(0), slots, n);
 }
 
 // s = A B^T and t = C E^T over the D columns of four 64-row tiles at

@@ -1,57 +1,32 @@
-// The sparse-grid flex-attention forward for Hopper (sm_90a), shared by
-// flex_fwd_sparse.cu (one q head per work item) and flex_fwd_sparse_hb.cu
-// (head_block q heads per work item, GQA rows packed into one block).
+// The previous sparse-grid flex-attention forward walk (the port's first
+// design: mma.sync from padded shared memory, synchronous tile loads with a
+// __syncthreads() on every new k block, no TMA, pipeline or warp
+// specialisation), kept only as the yardstick that chip_smoke.py builds
+// beside the kernels and times in turns with them. No kernel of the port
+// includes it: flex_fwd_sparse.cu and flex_fwd_sparse_hb.cu run the
+// persistent walk of flex_fwd_sm90.cuh.
 //
-// Replaces the TPU kernels magiattention_tpu/ops/flex_attn.py::
-// _fwd_pallas_sparse and _fwd_pallas_hb_sparse (kernel bodies
-// _fwd_kernel_sparse, _fwd_kernel_hb_sparse). On the TPU the compact grid
-// (heads, entries) exists to drop the dead steps of the static
-// (heads, q blocks, steps) grid. The row-major Hopper kernel already walks
-// only live entries; what a heterogeneous mask costs it is balance: walks
-// of 1 to 70+ entries launched in block order, so a long walk can start in
-// the last wave. So the Hopper counterpart is a persistent kernel: as many
-// blocks as fit on the card take (heads, q block) items from the
-// longest-walk-first work list (flex_tile.cuh::next_item).
-//
-// Per item, per q head: the entry walk rs[i] .. rs[i]+rc[i]-1 of flex_fwd
-// (scores -> scale -> softcap -> the entry's per-row k-interval mask), with
-// the online softmax of the TPU kernel, AMLA's: in base 2, with the running
-// max quantized up to an integer, s2 = s log2(e), m = max(m, ceil(max s2)),
-// p = exp2(s2 - m), so that the rescale of l and of the f32 accumulator by
-// 2^(m_old - m_new) is an integer add on the exponent bits (amla_rescale,
-// _amla_rescale). The exact natural-scale row max is tracked apart for the
-// rowmax output; the epilogue is _amla_finalize (sink fold, uncovered rows
-// out=0 and lse=-inf or the sink, rowmax -inf). P is rounded to bf16 before
-// P V, as on the TPU.
+// What it computes is the body of the TPU kernels magiattention_tpu/ops/
+// flex_attn.py::_fwd_kernel_sparse and _fwd_kernel_hb_sparse: persistent
+// blocks take (heads, q block) items from the longest-walk-first work list
+// (flex_tile.cuh::next_item); per item and q head the entry walk
+// rs[i] .. rs[i]+rc[i]-1 (scores -> scale -> softcap -> the entry's per-row
+// k-interval mask) with AMLA's online softmax: in base 2, the running max
+// quantized up to an integer, s2 = s log2(e), m = max(m, ceil(max s2)),
+// p = exp2(s2 - m), the rescale of l and of the f32 accumulator by
+// 2^(m_old - m_new) an integer add on the exponent bits (amla_rescale). The
+// exact natural-scale row max is tracked apart for rowmax; the epilogue is
+// _amla_finalize. P is rounded to bf16 before P V.
 //
 // NH (1 or 2) q heads of one kv head go through a block at once: NH x 4
-// warps, warp w serving head w / 4, rows 16 (w % 4) .. +16 of the q block.
-// A K/V tile is loaded once for the NH heads; each warp computes its rows'
-// k-intervals (a few integer operations a row). An item of more heads than
-// NH walks its entries once per chunk of NH heads. What bounds it on the
-// card: ~4 d FLOPs per unmasked (q, k) pair and q head on the tensor cores
-// (989 TFLOP/s bf16 dense), with K/V re-read from L2 once per chunk; no
-// wgmma, TMA or pipelining yet.
+// warps, warp w serving head w / 4, rows 16 (w % 4) .. +16 of the q block;
+// an item of more heads than NH walks its entries once per chunk of NH
+// heads, Q reloaded per chunk.
 #pragma once
 
 #include "flex_tile.cuh"
 
 namespace flex {
-
-constexpr float LOG2E_F = 1.4426950408889634f;  // the JAX package's float32(LOG2E)
-constexpr float LN2_F = 0.6931471805599453f;
-
-// x * 2^delta for delta <= 0, as an integer add on the exponent field:
-// exact for normal floats; 0 where the exponent would leave the normal
-// range, and for zeros and subnormals. Bit for bit the JAX _amla_rescale
-// (its int32 add wraps; here the add is unsigned, so the same bits without
-// signed overflow).
-__device__ __forceinline__ float amla_rescale(float x, int delta) {
-  const uint32_t bits = __float_as_uint(x);
-  const int exp_field = (int)((bits >> 23) & 0xFFu);
-  const uint32_t shifted = bits + ((uint32_t)delta << 23);
-  return exp_field + delta > 0 ? __uint_as_float(shifted) : 0.f;
-}
 
 template <int D, int NH, typename OutT>
 __global__ void __launch_bounds__(NH * NTHREADS)

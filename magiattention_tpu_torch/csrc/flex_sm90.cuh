@@ -373,6 +373,67 @@ __device__ __forceinline__ void stash(float* buf, const float (&acc)[J][4], int 
     for (int c = 0; c < 4; ++c) buf[(j * 4 + c) * WG_THREADS + tid] = acc[J0 + j][c];
 }
 
+// -- persistent blocks' items ---------------------------------------------------------
+
+// A persistent block's producer thread claims the items of a work list
+// (ops/block_sparse.py::work_list, longest walk first) and hands each to
+// the block's other warps through a ring of ITEM_SLOTS slots in shared
+// memory, ITEM_INTS ints each, slot x guarded by the mbarriers full0 + 8 x
+// (the producer's one arrival) and empty0 + 8 x (one arrival from each warp
+// that takes items). No __syncthreads: the warpgroups have split their
+// registers.
+constexpr int ITEM_SLOTS = 2;  // items handed over in flight
+constexpr int ITEM_INTS = 8;
+
+// One work item as the producer decoded it: its index in the work list
+// (>= the list's length: no item left, the block stops), its first head,
+// its block and its walk's entries.
+struct Item {
+  int idx, head, i, e_begin, e_end;
+};
+
+// The producer's next item: group * nb + block, the group's first head
+// group * heads.
+__device__ __forceinline__ Item claim_item(int* counter, const int* __restrict__ work,
+                                           const int* __restrict__ rs,
+                                           const int* __restrict__ rc, int n_items, int nb,
+                                           int heads) {
+  Item it{atomicAdd(counter, 1), 0, 0, 0, 0};
+  if (it.idx < n_items) {
+    const int w = work[it.idx];
+    it.head = w / nb * heads;
+    it.i = w % nb;
+    it.e_begin = rs[it.i];
+    it.e_end = it.e_begin + rc[it.i];
+  }
+  return it;
+}
+
+// The producer hands the block's n-th item over.
+__device__ __forceinline__ void publish_item(uint32_t full0, uint32_t empty0, int* slots, int n,
+                                             const Item& it) {
+  const int x = n % ITEM_SLOTS;
+  mbar_wait(empty0 + 8 * x, ((n / ITEM_SLOTS) & 1) ^ 1);
+  volatile int* s = slots + x * ITEM_INTS;
+  s[0] = it.idx;
+  s[1] = it.head;
+  s[2] = it.i;
+  s[3] = it.e_begin;
+  s[4] = it.e_end;
+  mbar_arrive(full0 + 8 * x);  // release: the warps that acquire it see the writes
+}
+
+// A warp takes the block's n-th item.
+__device__ __forceinline__ Item take_item(uint32_t full0, uint32_t empty0, const int* slots,
+                                          int n) {
+  const int x = n % ITEM_SLOTS;
+  mbar_wait(full0 + 8 * x, (n / ITEM_SLOTS) & 1);
+  const volatile int* s = slots + x * ITEM_INTS;
+  const Item it{s[0], s[1], s[2], s[3], s[4]};
+  release_stage(empty0 + 8 * x);
+  return it;
+}
+
 // -- host ---------------------------------------------------------------------------
 
 // A 2-D tensor map over a head-major [rows, d] bf16 array (d in {64, 128},

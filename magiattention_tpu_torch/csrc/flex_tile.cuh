@@ -4,8 +4,8 @@
 // product (mma.sync m16n8k16, f32 accumulators), tile loads into padded
 // shared memory, the per-entry mask of the host-built entry table
 // (ops/block_meta.py) as a k-interval per query row — the JAX package's
-// ops/flex_attn.py::_entry_interval_mask — and the persistent kernels'
-// work-list scheduling.
+// ops/flex_attn.py::_entry_interval_mask —, AMLA's exponent-add rescale
+// and the persistent kernels' work-list scheduling.
 //
 // Fragment layout of mma m16n8k16 (lane = 4 g + t4): A holds rows g and g+8,
 // columns 2 t4 (+1) and 2 t4 + 8 (+1); B holds column g, rows 2 t4 (+1) and
@@ -140,6 +140,22 @@ __device__ __forceinline__ void entry_interval(const int* runs, const int* bound
   if (typ & 1) b = min(b, rl + (qoff - q1 + k1 - koff + 1));
   lo = ok ? a : BIG;
   hi = ok ? b : -BIG;
+}
+
+constexpr float LOG2E_F = 1.4426950408889634f;  // the JAX package's float32(LOG2E)
+constexpr float LN2_F = 0.6931471805599453f;
+
+// x * 2^delta for delta <= 0, as an integer add on the exponent field: the
+// rescale of the sparse forwards' AMLA softmax, whose running max is an
+// integer in base 2. Exact for normal floats; 0 where the exponent would
+// leave the normal range, and for zeros and subnormals. Bit for bit the JAX
+// _amla_rescale (its int32 add wraps; here the add is unsigned, so the same
+// bits without signed overflow).
+__device__ __forceinline__ float amla_rescale(float x, int delta) {
+  const uint32_t bits = __float_as_uint(x);
+  const int exp_field = (int)((bits >> 23) & 0xFFu);
+  const uint32_t shifted = bits + ((uint32_t)delta << 23);
+  return exp_field + delta > 0 ? __uint_as_float(shifted) : 0.f;
 }
 
 // Scale, then the optional softcap cap * tanh(z / cap): the logit the

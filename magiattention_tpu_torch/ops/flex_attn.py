@@ -17,10 +17,10 @@ it. Two grids, as in the JAX package:
 - ``sparse``, the compact grid for heterogeneous masks: persistent kernels
   that take (heads, block) items from a longest-walk-first work list
   (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
-  AMLA base-2 softmax, one q head or ``head_block`` q heads per item) and
-  ``flex_dq_sparse`` / ``flex_dkv_sparse`` (the row-major backward walks,
-  persistent over their lists: a head pair of one kv head per dq item at
-  even G).
+  row-major forward walk with the AMLA base-2 softmax, one q head or
+  ``head_block`` q heads per item) and ``flex_dq_sparse`` /
+  ``flex_dkv_sparse`` (the row-major backward walks, persistent over their
+  lists: a head pair of one kv head per dq item at even G).
 
 :class:`_FlexAttnCore` is the ``torch.autograd.Function`` around them, the
 counterpart of the JAX ``_flex_attn_core`` custom vjp, and
@@ -439,13 +439,22 @@ def _check_work_items(name, items: torch.Tensor, groups: int, blocks: int) -> No
 
 def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
                        params: FlexAttnParams):
+    """Launch one of the sparse-grid forwards (persistent over ``items``, a
+    work list of (group of ``heads_per_item`` q heads, q block) items);
+    same contract as :func:`_fwd_torch_sparse`. Raises on what the kernel
+    does not take: the dtype, head dim, tile and head_block, a work list
+    that is not one item per (head group, q block), and q/k/v that TMA
+    cannot load."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     _check_kernel_args(name, q, k, v, params)
+    if heads_per_item > 1:
+        _check_variant(params, hq, hk)
     if params.out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"{name} writes out in {q.dtype} or float32, not {params.out_dtype}")
     _check_work_items(name, items, hq // heads_per_item, tqp // params.block_q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_tma_aligned(name, dict(q=q, k=k, v=v))
     out = torch.empty((hq, tqp, d), dtype=params.out_dtype, device=q.device)
     lse = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
     rowmax = torch.empty((hq, tqp), dtype=torch.float32, device=q.device)
@@ -475,8 +484,8 @@ def _fwd_sparse_kernel(q, k, v, sink, tables, work: SparseWork, params: FlexAttn
 
 def _fwd_sparse_hb_kernel(q, k, v, sink, tables, work: SparseWork, params: FlexAttnParams):
     """The ``flex_fwd_sparse_hb`` Hopper kernel (``head_block`` q heads per
-    work item, the GQA group's rows packed into one thread block) on CUDA
-    tensors, same contract as :func:`_fwd_torch_sparse`."""
+    work item, taken a head pair of one kv head at a time where G is even)
+    on CUDA tensors, same contract as :func:`_fwd_torch_sparse`."""
     return _launch_fwd_sparse("flex_fwd_sparse_hb", q, k, v, sink, tables, work.fwd,
                               params.head_block, params)
 

@@ -136,3 +136,85 @@ def test_sparse_backward_launchers_refuse_what_tma_cannot_load(what, monkeypatch
             fa._dq_sparse_kernel(*args, ftab, work, params)
     with pytest.raises(ValueError, match=f"flex_dkv_sparse: {what} at .* not 16-byte aligned"):
         fa._dkv_sparse_kernel(*args, btab, work, params)
+
+
+@pytest.mark.parametrize("hq,hk", [(4, 4), (8, 4), (6, 2), (8, 2), (16, 2)],
+                         ids=["g1", "g2", "g3", "g4", "g8"])
+@pytest.mark.parametrize("head_block", ["1", "G"])
+def test_sparse_forward_launchers_pass_what_the_entry_points_take(hq, hk, head_block,
+                                                                   monkeypatch):
+    """``_fwd_sparse_kernel`` (head_block 1) and ``_fwd_sparse_hb_kernel``
+    (head_block G) with the launch recorded instead of run: as many
+    arguments as the entry point's argtypes, each of the kind declared, and
+    the item count and heads per item the entry points accept (one item per
+    (group of heads_per_item q heads, q block))."""
+    import dataclasses
+    import types
+
+    import torch
+
+    fa, args, ftab, _, _, params = _sparse_backward_problem(hq, hk)
+    hb = 1 if head_block == "1" else hq // hk
+    params = dataclasses.replace(params, head_block=hb)
+    meta_work = fa.sparse_work(_plan(hq, hk), "cpu", hq, hk, hb)
+    calls = []
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v = args[:3]
+    fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
+    fwd(q, k, v, torch.zeros(hq), ftab, meta_work, params)
+    name, a = calls[0]
+    assert name == ("flex_fwd_sparse_hb" if hb > 1 else "flex_fwd_sparse")
+    kinds = [KINDS[t] for t in csrc.KERNELS[name].argtypes]
+    python_kind = {"pointer": int, "int": int, "float": float}
+    assert len(a) == len(kinds)
+    assert all(type(x) is python_kind[kind] for x, kind in zip(a, kinds))
+    first = kinds.index("int")  # hq hk tqp tkp head_dim nq block_q block_k n_items heads_per_item
+    n_items, heads_per_item = a[first + 8], a[first + 9]
+    assert heads_per_item == hb
+    assert n_items == hq // hb * (q.shape[1] // 64) == meta_work.fwd.numel()
+
+
+def _plan(hq, hk, t=640):
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.testing import workloads
+
+    qr, kr, ty = workloads.split_slices(workloads.varlen_block_causal(t, 4, 3))
+    return fa.build_block_meta(qr, kr, ty, t, t, block_q=64, block_k=64)
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v"])
+def test_sparse_forward_launchers_refuse_what_tma_cannot_load(what, monkeypatch):
+    """The sparse forwards load q, k and v through TMA tensor maps: a base
+    that is not 16-byte aligned raises before any launch, in both."""
+    import dataclasses
+
+    import torch
+
+    fa, args, ftab, _, _, params = _sparse_backward_problem(8, 2)
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: pytest.fail(f"{name} launched"))
+    qkv = dict(zip("qkv", args[:3]))
+    x = qkv[what]
+    qkv[what] = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    for hb, name, fwd in ((1, "flex_fwd_sparse", fa._fwd_sparse_kernel),
+                          (4, "flex_fwd_sparse_hb", fa._fwd_sparse_hb_kernel)):
+        work = fa.sparse_work(_plan(8, 2), "cpu", 8, 2, hb)
+        with pytest.raises(ValueError, match=f"{name}: {what} at .* not 16-byte aligned"):
+            fwd(qkv["q"], qkv["k"], qkv["v"], torch.zeros(8), ftab, work,
+                dataclasses.replace(params, head_block=hb))
+
+
+def test_sparse_hb_forward_refuses_a_head_block_off_the_group(monkeypatch):
+    """``flex_fwd_sparse_hb`` takes a head_block that is a multiple of the
+    GQA group dividing hq, as ``_launch_fwd``'s head-batched path checks."""
+    import dataclasses
+
+    import torch
+
+    fa, args, ftab, _, _, params = _sparse_backward_problem(8, 2)
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: pytest.fail(f"{name} launched"))
+    work = fa.sparse_work(_plan(8, 2), "cpu", 8, 2, 4)
+    with pytest.raises(ValueError, match="head_block 2 must be"):
+        fa._fwd_sparse_hb_kernel(*args[:3], torch.zeros(8), ftab, work,
+                                 dataclasses.replace(params, head_block=2))

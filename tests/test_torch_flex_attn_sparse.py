@@ -1,6 +1,12 @@
 """The port's sparse grid (CPU plain versions) against the JAX package's.
 
 - ``_amla_rescale`` bit for bit against the JAX function.
+- A plain model of the Hopper sparse forwards' softmax order
+  (``csrc/flex_fwd_sm90.cuh`` in its AMLA mode: the integer base-2
+  reference moved only past ``AMLA_MOVE_AT``, the exponent-add rescale,
+  each head's walk whole in entry order) against JAX ``_fwd_pallas_sparse``
+  / ``_fwd_pallas_hb_sparse`` in interpret mode and against
+  ``_fwd_torch_sparse``.
 - The plain sparse forward ``_fwd_torch_sparse`` against JAX
   ``flex_flash_attn_func(..., grid="sparse", head_block=hb)`` in Pallas
   interpret mode (``_fwd_pallas_sparse`` / ``_fwd_pallas_hb_sparse``) at
@@ -155,6 +161,156 @@ def test_sparse_forward_matches_dense_plain_version_in_float64():
     b = fa.flex_flash_attn_func(q, k, v, qr, kr, ty, grid="row_major", return_max_logits=True)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, atol=1e-12, rtol=1e-10)
+
+
+# -- (b') the Hopper sparse forwards' softmax order -----------------------------------
+
+AMLA_MOVE_AT = 8.0  # csrc/flex_fwd_sm90.cuh: AMLA's reference moves past it, in base 2
+
+
+def _sm90_order_fwd_sparse(q, k, v, sink, ftab, params, round_to, bq=64, bk=64):
+    """``csrc/flex_fwd_sm90.cuh``'s AMLA walk in plain float32, per (q head,
+    q block) and entry tile in walk order (the sparse kernels never split a
+    head's walk: a head pair's warpgroups walk one head each, a single
+    head's walk is one warpgroup's): the tile's natural row max, the
+    integer reference ceil(max z log2 e) moved only when it passes the
+    reference by more than ``AMLA_MOVE_AT`` (a fresh row takes it with
+    delta 0), P = exp2(z log2 e - ref) rounded to ``round_to`` before P V,
+    l and O rescaled by ``_amla_rescale`` (the exponent add). The epilogue
+    is ``_amla_finalize``. Returns (out, lse, rowmax, the number of nonzero
+    deltas: rescales taken)."""
+    from magiattention_tpu_torch.ops.flex_attn import (
+        LOG2E, _amla_finalize, _amla_rescale, _entry_tiles,
+    )
+
+    hq, tqp, d = q.shape
+    group = hq // k.shape[0]
+    tabs = tuple(t.long() for t in ftab[:5])
+    rs, rc = ftab[5].tolist(), ftab[6].tolist()
+    tiles = _entry_tiles(tabs, torch.arange(tabs[0].shape[0]), bq, bk)
+    neg = torch.tensor(float("-inf"))
+    out = torch.zeros((hq, tqp, d))
+    lse, rowmax = torch.zeros((hq, tqp)), torch.zeros((hq, tqp))
+    moves = 0
+    for h in range(hq):
+        kf, vf = k[h // group].float(), v[h // group].float()
+        for i in range(tqp // bq):
+            rows = slice(i * bq, (i + 1) * bq)
+            st = dict(ref=torch.full((bq,), neg), m=torch.full((bq,), neg), l=torch.zeros(bq),
+                      o=torch.zeros((bq, d)))
+            for e in range(rs[i], rs[i] + rc[i]):
+                kb = int(tabs[1][e])
+                keys = slice(kb * bk, (kb + 1) * bk)
+                z = q[h, rows].float() @ kf[keys].T * params.scale
+                if params.softcap > 0.0:
+                    z = params.softcap * torch.tanh(z / params.softcap)
+                z = torch.where(tiles[e], z, neg)
+                tile_max = z.amax(-1)
+                st["m"] = torch.maximum(st["m"], tile_max)
+                top = torch.ceil(tile_max * LOG2E)
+                fresh = torch.isneginf(st["ref"])
+                move = torch.where(fresh, ~torch.isneginf(top), top > st["ref"] + AMLA_MOVE_AT)
+                delta = torch.where(move & ~fresh, st["ref"] - top, 0.0).to(torch.int32)
+                moves += int((delta != 0).sum())
+                st["ref"] = torch.where(move, top, st["ref"])
+                ref_safe = torch.where(torch.isneginf(st["ref"]), 0.0, st["ref"])
+                p = torch.exp2(z * LOG2E - ref_safe[:, None])
+                st["l"] = _amla_rescale(st["l"], delta) + p.sum(-1)
+                st["o"] = (_amla_rescale(st["o"], delta[:, None])
+                           + p.to(round_to).float() @ vf[keys].to(round_to).float())
+            o, lrow = _amla_finalize(st["ref"], st["l"], st["o"], sink[h].float(),
+                                     params.has_sink)
+            out[h, rows], lse[h, rows], rowmax[h, rows] = o, lrow, st["m"]
+    return out, lse, rowmax, moves
+
+
+# (mask, hq, hk, head_block, d, softcap, sink, rising keys)
+_ORDER_CASES = {
+    "varlen_causal_g1_hb1": ("varlen_causal", 4, 4, 1, 64, 0.0, False, False),
+    "block_causal_g2_hb2": ("block_causal", 4, 2, 2, 64, 0.0, False, False),
+    "block_causal_g2_hb1": ("block_causal", 4, 2, 1, 64, 0.0, False, False),
+    "shared_question_g4_softcap_sink": ("shared_question", 8, 2, 4, 64, 5.0, True, False),
+    "train_docs_g4_hb1_d128": ("train_docs", 8, 2, 1, 128, 0.0, False, False),
+    "swa_causal_g1_hb2_d128": ("swa_causal", 2, 2, 2, 128, 0.0, False, False),
+    "uncovered_rows_g2_sink": ("uncovered", 4, 2, 2, 64, 0.0, True, False),
+    "rising_keys_g2_hb2": ("causal", 4, 2, 2, 64, 0.0, False, True),
+    "rising_keys_g1_hb1": ("causal", 2, 2, 1, 64, 0.0, False, True),
+}
+_ORDER_MASKS = {**MASKS, "uncovered": [(0, 300, 0, 300, 1)], "causal": [(0, 512, 0, 512, 1)]}
+
+
+def _order_case(case, dtype):
+    """The case's inputs (numpy, seeded; keys scaled from 1 to 12 along the
+    sequence for the rising cases, so that the reference moves), as the
+    port's head-major padded tensors in ``dtype``, with its plan."""
+    mask, hq, hk, hb, d, softcap, sink, rising = _ORDER_CASES[case]
+    qr, kr, ty = split(_ORDER_MASKS[mask])
+    t = 512
+    q, k, v = _inputs(hq * 11 + hk, t, t, hq, hk, d)
+    if rising:
+        k = (k * np.linspace(1.0, 12.0, t, dtype=np.float32)[:, None, None]).astype(np.float32)
+    sink_np = (np.linspace(-1.0, 2.0, hq).astype(np.float32) if sink
+               else np.zeros(hq, np.float32))
+    meta = build_block_meta(qr, kr, ty, t, t, block_q=64, block_k=64)
+    tp = meta.num_q_blocks * 64
+
+    def head_major(x):
+        return fa._pad_tokens(torch.from_numpy(x).to(dtype).transpose(0, 1), tp)
+
+    params = fa.FlexAttnParams(64, 64, d ** -0.5, softcap, sink, dtype, hb, "sparse")
+    return ((q, k, v, sink_np, qr, kr, ty), (head_major(q), head_major(k), head_major(v)),
+            torch.from_numpy(sink_np), fa.fwd_tables(meta, "cpu"), params)
+
+
+@pytest.mark.parametrize("case", sorted(_ORDER_CASES))
+def test_sm90_sparse_forward_order_matches_jax_pallas(case):
+    """The model on float32 inputs (nothing rounded: P stays in V's type, as
+    in the TPU kernel) against JAX ``flex_flash_attn_func(grid="sparse")``
+    in Pallas interpret mode (``_fwd_pallas_sparse`` at head_block 1,
+    ``_fwd_pallas_hb_sparse`` above) and against the port's
+    ``_fwd_torch_sparse``: out and lse within the float32 row of
+    ``DEFAULT_BUDGETS`` (v positive), rowmax (exact, not quantized) to
+    1e-6. The rising-keys cases must take the rescale."""
+    (qn, kn, vn, sink_np, qr, kr, ty), (q, k, v), sink, ftab, params = _order_case(
+        case, torch.float32)
+    mask, hq, hk, hb, d, softcap, has_sink, rising = _ORDER_CASES[case]
+    out, lse, mx, moves = _sm90_order_fwd_sparse(q, k, v, sink, ftab, params, torch.float32)
+    assert moves > 0 if rising else True
+    t = qn.shape[0]
+    jo, jl, jm = jax_flex(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), qr, kr, ty, block_q=64, block_k=64,
+        head_block=hb, grid="sparse", interpret=True, softcap=softcap,
+        sink=jnp.asarray(sink_np) if has_sink else None, return_max_logits=True)
+    got_out, got_lse = out[:, :t].transpose(0, 1).numpy(), lse[:, :t].transpose(0, 1).numpy()
+    report = divergence_report(np.asarray(jo), got_out, ref_lse=np.asarray(jl), test_lse=got_lse)
+    assert_within_budget(report, BUDGET, where=f"{case} vs JAX")
+    jm, tm = np.asarray(jm), mx[:, :t].amax(dim=1).numpy()
+    np.testing.assert_array_equal(np.isneginf(jm), np.isneginf(tm))
+    np.testing.assert_allclose(tm[np.isfinite(jm)], jm[np.isfinite(jm)], atol=1e-6, rtol=1e-6)
+    ref_out, ref_lse, ref_mx = fa._fwd_torch_sparse(q, k, v, sink, ftab, params)
+    report = divergence_report(ref_out[:, :t].numpy(), out[:, :t].numpy(),
+                               ref_lse=ref_lse[:, :t].numpy(), test_lse=lse[:, :t].numpy())
+    assert_within_budget(report, BUDGET, where=f"{case} vs _fwd_torch_sparse")
+    torch.testing.assert_close(mx, ref_mx, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(_ORDER_CASES))
+def test_sm90_sparse_forward_order_in_bf16_matches_plain(case):
+    """The model on bf16 inputs, P rounded to bf16 before P V as the Hopper
+    kernels and ``_fwd_torch_sparse`` round it, against
+    ``_fwd_torch_sparse``, with the tolerances ``chip_smoke.py`` holds the
+    kernels to on the card: out within 1e-2 + 1e-2 |ref| (the bf16 rounding
+    of P and of the output), lse and rowmax within 2e-4, -inf in the same
+    places."""
+    _, (q, k, v), sink, ftab, params = _order_case(case, torch.bfloat16)
+    out, lse, mx, _ = _sm90_order_fwd_sparse(q, k, v, sink, ftab, params, torch.bfloat16)
+    ref_out, ref_lse, ref_mx = fa._fwd_torch_sparse(q, k, v, sink, ftab, params)
+    out = out.to(torch.bfloat16).float()
+    assert ((out - ref_out.float()).abs() <= 1e-2 + 1e-2 * ref_out.float().abs()).all()
+    for got, ref in ((lse, ref_lse), (mx, ref_mx)):
+        assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+        fin = torch.isfinite(ref)
+        assert ((got[fin] - ref[fin]).abs() <= 2e-4).all()
 
 
 # -- (c) gradients through the sparse grid --------------------------------------

@@ -282,7 +282,7 @@ def _sparse_masks():
 
 
 @pytest.mark.parametrize("hb_of_group", [1, 0, 2], ids=["hbG", "hb1", "hb2G"])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("mask", ["varlen_block_causal", "shared_question", "full_inv_bi"])
 def test_sparse_kernels_match_plain(card, mask, d, group, hb_of_group):
@@ -318,6 +318,109 @@ def test_sparse_kernels_match_plain(card, mask, d, group, hb_of_group):
     assert torch.equal(dq, fa._dq_sparse_kernel(*args, ftab, work, params))
     dk2, dv2 = fa._dkv_sparse_kernel(*args, btab, work, params)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def _rising_keys(k, t, top=12.0):
+    """k with its first t keys scaled from 1 to ``top`` along the sequence:
+    later tiles' logits pass a row's AMLA reference, so that it moves."""
+    ramp = torch.linspace(1.0, top, t, device=k.device)[None, :, None]
+    k = k.clone()
+    k[:, :t] = (k[:, :t].float() * ramp).to(k.dtype)
+    return k
+
+
+@pytest.mark.parametrize("hb_of_group", [0, 1], ids=["hb1", "hbG"])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", ["varlen_block_causal", "shared_question", "full_inv_bi",
+                                  "one_tile_walks", "rising_logits", "uncovered_rows"])
+def test_sparse_forward_matches_plain(card, mask, d, group, hb_of_group):
+    """``flex_fwd_sparse`` (head_block 1: one q head an item, each consumer
+    warpgroup taking items of its own) and ``flex_fwd_sparse_hb`` (head_block
+    G, 2 at G = 1: head pairs of one kv head at even G) against
+    the plain AMLA forward: out within 1e-2 + 1e-2 |ref|, lse and rowmax
+    within 2e-4, two runs bit for bit. Softcap at d 64, a sink on the
+    shared-question mask; on rising logits the AMLA reference moves, so the
+    exponent-add rescale runs."""
+    import dataclasses
+
+    t = 1500
+    if mask == "one_tile_walks":
+        qr, kr, ty = _one_tile_docs(t)
+    elif mask == "rising_logits":
+        qr, kr, ty = [(0, t)], [(0, t)], [C]
+    elif mask == "uncovered_rows":
+        qr, kr, ty = [(100, 900)], [(0, 800)], [C]
+    else:
+        qr, kr, ty = _sparse_masks()[mask]
+    hk = 2
+    hq = hk * group
+    hb = max(group, 2) if hb_of_group else 1
+    fa, args, ftab, _, params = _bwd_problem(card, t, t, hq, hk, d, qr, kr, ty,
+                                             softcap=30.0 if d == 64 else 0.0,
+                                             sink=mask == "shared_question")
+    params = dataclasses.replace(params, head_block=hb, grid="sparse")
+    meta = fa.build_block_meta(qr, kr, ty, t, t, block_q=64, block_k=64)
+    work = fa.sparse_work(meta, "cuda:0", hq, hk, hb)
+    q, k, v = args[:3]
+    if mask == "rising_logits":
+        k = _rising_keys(k, t)
+    sink = torch.randn((hq,), generator=card, device="cuda")
+    fwd = fa._fwd_sparse_hb_kernel if hb > 1 else fa._fwd_sparse_kernel
+    out, lse, rowmax = fwd(q, k, v, sink, ftab, work, params)
+    ref, ref_lse, ref_rowmax = fa._fwd_torch_sparse(q, k, v, sink, ftab, params)
+    _close(out[:, :t], ref[:, :t], lse[:, :t], ref_lse[:, :t])
+    _close(out[:, :t], ref[:, :t], rowmax[:, :t], ref_rowmax[:, :t])
+    again = fwd(q, k, v, sink, ftab, work, params)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, rowmax), again))
+
+
+@pytest.mark.parametrize("what", ["q", "k", "v"])
+def test_sparse_forward_refuses_misaligned_inputs(card, what):
+    """q, k and v load through TMA tensor maps in the sparse forwards: a base
+    off 16 bytes raises before any launch."""
+    import dataclasses
+
+    from magiattention_tpu_torch import csrc
+
+    qr, kr, ty = _sparse_masks()["varlen_block_causal"]
+    fa, args, ftab, _, params = _bwd_problem(card, 1500, 1500, 4, 2, 128, qr, kr, ty)
+    meta = fa.build_block_meta(qr, kr, ty, 1500, 1500, block_q=64, block_k=64)
+    q, k, v = args[:3]
+    x = {"q": q, "k": k, "v": v}[what]
+    shifted = torch.zeros(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    qkv = {"q": q, "k": k, "v": v, what: shifted}
+    sink = torch.zeros((4,), device="cuda")
+    csrc.reset_launch_counts()
+    for hb, fwd in ((1, fa._fwd_sparse_kernel), (2, fa._fwd_sparse_hb_kernel)):
+        work = fa.sparse_work(meta, "cuda:0", 4, 2, hb)
+        prm = dataclasses.replace(params, head_block=hb, grid="sparse")
+        with pytest.raises(ValueError, match="not 16-byte aligned"):
+            fwd(qkv["q"], qkv["k"], qkv["v"], sink, ftab, work, prm)
+    assert csrc.launches["flex_fwd_sparse"] == csrc.launches["flex_fwd_sparse_hb"] == 0
+
+
+def test_sparse_forward_checks_catch_planted_faults(card):
+    """The forward checks on mutated builds of both sparse forwards whose
+    AMLA rescale of O is skipped once per row, on causal 4096 with rising
+    logits (so that the reference moves). Each must fail a check."""
+    import chip_smoke
+    from magiattention_tpu_torch import csrc
+
+    for name in ("flex_fwd_sparse", "flex_fwd_sparse_hb"):
+        csrc.load(name)
+    planted = chip_smoke.planted_libraries(chip_smoke.start_planted_build(
+        ["flex_fwd_sparse", "flex_fwd_sparse_hb"]))
+    hq, hk = 8, 4
+    p = chip_smoke.Flex(card, 4096, 4096, hq, hk, [(0, 4096)], [(0, 4096)], [C],
+                        k_ramp=chip_smoke.RISING_K)
+    for name, hb in (("flex_fwd_sparse", 1), ("flex_fwd_sparse_hb", 2)):
+        p.set_head_block(hb)
+        got = chip_smoke.with_library(name, planted[name], p.sparse_kernel)()
+        torch.cuda.synchronize()
+        _, failed = chip_smoke.out_errors(*p.sparse_fwd_pairs(got))
+        assert failed, name
 
 
 def _one_tile_docs(t):
