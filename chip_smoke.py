@@ -100,7 +100,28 @@ Phases, each printing one JSON line:
    varlen (or SDPA) yardstick and the card's bound, each kernel in turns
    with the previous sparse walk, the forward also in turns with its
    variant that moves AMLA's reference on every rise, and the slice's
-   forward + backward in device time.
+   forward + backward in device time;
+7. cp_attn — context parallelism through the keyed API
+   (``magi_attn_flex_key`` -> ``dispatch`` -> ``calc_attn`` ->
+   ``undispatch``), forward and backward in bf16 at d 128 on the hetero
+   mask with chunks of 512, 16 / 8 heads (head_block 2: ``flex_fwd_hb``)
+   and 8 / 8 (``flex_fwd``), at cp=2 with overlap degree 0 and cp=4 with
+   degree 2 (auto group-collective impl). The cp ranks are processes
+   (``testing.dist.RankPool``) sharing ``cuda:0`` over a gloo group, which
+   takes CUDA tensors for its all-to-all, all-gather and all-reduce and
+   stages its send/recv through pinned host buffers (printed with the
+   backend); their times are not cp speeds. Rank 0 holds the gathered out,
+   lse, dq, dk, dv against single-card ``flex_flash_attn_func`` pinned to
+   the row-major grid on the same inputs; each rank holds one kernel call
+   of its plan (its tables, received rows and kv_pad) against the plain
+   versions; a cast whose backward skips the dK/dV reduce, planted in the
+   ranks, must fail the dk and dv checks;
+8. cp_training — the training phase's trainer (same weights, batch and
+   optimizer from ``--seed``) at cp=2 (degree 0) and cp=4 (degree 2), 6
+   AdamW steps each: every step's loss against the training phase's cp=1
+   loss and the first step's gradients (summed over the ranks) against
+   cp=1's, within ``CP_LOSS_ATOL`` / ``CP_GRAD_REL_L2``; the step times and
+   peak memory per rank, labelled as ranks sharing one card.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them), errors and times; the last line is
@@ -115,6 +136,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2347,7 +2369,7 @@ def profile_step(step, batch) -> dict:
     }
 
 
-def training(seed: int) -> dict:
+def training(seed: int, grads_path: str) -> dict:
     import torch
     from magiattention_tpu_torch import csrc
     from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
@@ -2396,6 +2418,8 @@ def training(seed: int) -> dict:
         losses.append(loss)
         if i == 0:
             del model.attention
+            # the first step's gradients, for the cp_training phase to hold its own against
+            torch.save([p.grad.detach().cpu() for p in model.parameters()], grads_path)
     launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
     peak = torch.cuda.max_memory_allocated()
     expected = TRAIN_LAYERS * TRAIN_STEPS
@@ -2760,6 +2784,341 @@ def hetero(gen, planted) -> tuple[dict, dict]:
             "runs": runs, "launches": launches}, times
 
 
+# -- context parallelism: cp ranks as processes sharing the card ------------------
+
+CP_ATTN_T = HETERO_T  # varlen_block_causal(16384), the hetero mask
+CP_CHUNK = 512
+CP_ATTN_HEADS = ((TRAIN_HQ, TRAIN_HK), (8, 8))  # head_block 2 -> flex_fwd_hb; G = 1 -> flex_fwd
+CP_RUNS = ((2, 0), (4, 2))  # (cp ranks, overlap degree)
+CP_KERNELS = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv")
+CP_OPS = ("all_to_all_single", "batch_isend_irecv", "all_gather", "all_reduce")
+# cp vs cp=1 training on one seed, both in bf16 with fp32 masters: the
+# attention sums its keys in another order and tile split (degree 0: own
+# rows then received rows in one buffer; degree 2: three partials merged
+# in f32), and the gradients are summed over the ranks; each bf16 product
+# rounds at ~4e-3 relative, averaged over the 8192 tokens of the loss. So a
+# step's loss may move by a few 1e-3 of its ~10.4 and each parameter's
+# gradient by ~1e-2 relative L2; a lost dK/dV reduce or a wrong shard moves
+# the attention weights' gradients by O(1).
+CP_LOSS_ATOL = 2e-2
+CP_GRAD_REL_L2 = 5e-2
+
+
+def cp_rank_setup():
+    """A cp rank's process: the card, and the plain versions in full f32."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def cp_comm_facts(group) -> dict:
+    """The group's backend and which collectives it stages through host
+    buffers for CUDA tensors (``comm.group_collective.staging``)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch.comm.group_collective import staging
+
+    dev = torch.device("cuda", 0)
+    return {"backend": dist.get_backend(group),
+            "staged_through_host": [op for op in CP_OPS if staging(group, dev, op)]}
+
+
+def _cp_stage_check(cap) -> dict:
+    """The captured kernel call of this rank's plan (its tables, run
+    translation, received rows and kv_pad) against the plain versions on
+    the same inputs, one kv head's q heads at a time: the forward, and the
+    backward kernels on the cotangents that reached the call."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    qh, kh, vh, ftab, btab, params, sink = cap["args"]
+    out, lse = cap["out"], cap["lse"]
+    hq, hk = qh.shape[0], kh.shape[0]
+    g = hq // hk
+    fwd_name = "flex_fwd_hb" if params.head_block > 1 else "flex_fwd"
+    sink1d = torch.zeros((hq,), device=qh.device) if sink is None else sink.float()
+    dout = cap["dout"]
+    dlse = cap.get("dlse", torch.zeros_like(lse))
+    do = dout.to(qh.dtype)
+    delta = (dout.float() * out.float()).sum(-1) - dlse.float()
+    dq = fa._dq_kernel(qh, kh, vh, do, lse, delta, ftab, params)
+    dk, dv = fa._dkv_kernel(qh, kh, vh, do, lse, delta, btab, params)
+    errs = {}
+    for j in range(hk):
+        hs = slice(j * g, (j + 1) * g)
+        ks = slice(j, j + 1)
+        ref_out, ref_lse, _ = fa._fwd_torch(qh[hs], kh[ks], vh[ks], sink1d[hs], ftab, params)
+        e, failed = out_errors(out[hs], ref_out, [("lse", lse[hs], ref_lse)])
+        check(not failed, f"cp stage call: {fwd_name} kv head {j} fails {failed}: {e}")
+        errs[fwd_name] = max(errs.get(fwd_name, 0.0), e["out_max_abs_err"])
+        args = (qh[hs], kh[ks], vh[ks], do[hs], lse[hs], delta[hs])
+        ref_dq = fa._dq_torch(*args, ftab, params)
+        ref_dk, ref_dv = fa._dkv_torch(*args, btab, params)
+        for kernel, what, got, ref in (("flex_dq", "dq", dq[hs], ref_dq),
+                                       ("flex_dkv", "dk", dk[ks], ref_dk),
+                                       ("flex_dkv", "dv", dv[ks], ref_dv)):
+            e, failed = grad_errors(got, ref)
+            check(not failed, f"cp stage call: {what} kv head {j} fails {failed}: {e}")
+            errs[kernel] = max(errs.get(kernel, 0.0), e["max_abs_err"])
+    return {"kernel_max_abs_err": errs, "kv_pad": int(kh.shape[1]),
+            "q_pad": int(qh.shape[1])}
+
+
+def in_rank(fn):
+    """A rank task that hands its cached device memory back when it ends:
+    the ranks share the card, and one task's cached blocks (the plain
+    versions' dense scores, a model and its optimizer state) would starve
+    the next task's ranks."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args):
+        import gc
+
+        import torch
+
+        try:
+            return fn(*args)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    return run
+
+
+@in_rank
+def cp_attn_rank(group, hq: int, hk: int, degree: int, seed: int, stage_check: bool,
+                 skip_reduce: bool = False) -> dict:
+    """One rank of the keyed cp API on the card: ``magi_attn_varlen_key``'s
+    flex twin on the hetero mask -> ``dispatch`` -> ``calc_attn`` ->
+    ``undispatch``, forward and backward (bf16, d 128, random out and lse
+    cotangents); its kernel launches; a second, timed run; on rank 0 the
+    gathered out, lse, dq, dk, dv against single-card
+    ``flex_flash_attn_func`` pinned to the row-major grid on the same
+    inputs; with ``stage_check`` its last kernel call against the plain
+    versions. ``skip_reduce`` plants the fault of a cast whose backward
+    drops the received rows' dK/dV (rank 0 then returns the failed checks
+    instead of raising)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.comm import group_collective as gc
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.ops.flex_attn import flex_flash_attn_func
+    from magiattention_tpu_torch.parallel import dist_attn
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cp_rank_setup()
+    rank, t = dist.get_rank(group), CP_ATTN_T
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    gen = torch.Generator(device="cuda").manual_seed(seed)  # the same inputs on every rank
+    q, k, v, g_out = (torch.randn((t, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+                      for h in (hq, hk, hk, hq))
+    g_lse = torch.randn((t, hq), generator=gen, device="cuda")
+    key = api.magi_attn_flex_key(
+        qr, kr, ty, t, t, group, num_heads=(hq, hk), head_dim=D, chunk_size=CP_CHUNK,
+        dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=degree)),
+    )  # the card, by default
+    plan = api.get_runtime_mgr(key).plan
+
+    def run():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out_l, meta = api.calc_attn(*(api.dispatch(x, key) for x in (qg, kg, vg)), key)
+        out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+        loss = (out.float() * g_out.float()).sum() + torch.where(
+            torch.isfinite(lse), lse * g_lse, 0.0).sum()
+        loss.backward()
+        return out.detach(), lse.detach(), qg.grad, kg.grad, vg.grad
+
+    cap = {}
+    real_core, real_bwd = dist_attn.flex_attn_headmajor, gc.GroupCast.backward
+
+    def capture(qh, kh, vh, ftab, btab, params, sink=None):
+        out_h, lse_h, rowmax = real_core(qh, kh, vh, ftab, btab, params, sink=sink)
+        cap.clear()  # keep the last call of the plan
+        cap.update(args=tuple(x.detach() if torch.is_tensor(x) else x
+                              for x in (qh, kh, vh, ftab, btab, params, sink)),
+                   out=out_h.detach(), lse=lse_h.detach())
+        out_h.register_hook(lambda g: cap.__setitem__("dout", g))
+        lse_h.register_hook(lambda g: cap.__setitem__("dlse", g))
+        return out_h, lse_h, rowmax
+
+    if skip_reduce:
+        gc.GroupCast.backward = staticmethod(
+            lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
+    if stage_check:
+        dist_attn.flex_attn_headmajor = capture
+    try:
+        torch.cuda.synchronize()
+        csrc.reset_launch_counts()
+        out, lse, dq, dk, dv = run()
+        torch.cuda.synchronize()
+        launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    finally:
+        dist_attn.flex_attn_headmajor, gc.GroupCast.backward = real_core, real_bwd
+    res = {"rank": rank, "launches": launches, **cp_comm_facts(group),
+           "overlap_degree": plan.overlap_degree, "impls": [c.impl for c in plan.comms()],
+           "recv_rows": [list(c.recv_total) for c in plan.comms()],
+           "shard_rows": plan.shard_q_len}
+    if stage_check:
+        res["stage_check"] = _cp_stage_check(cap)
+    if not skip_reduce:  # a second run, timed (the ranks share the card)
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        res["fwd_bwd_ms_ranks_sharing_one_card"] = (time.perf_counter() - t0) * 1e3
+        res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:  # the gathered results against the single-card kernel path
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        ro, rl = flex_flash_attn_func(qs, ks, vs, qr, kr, ty, block_q=BLOCK, block_k=BLOCK,
+                                      head_block=hq // hk, grid="row_major")
+        loss = (ro.float() * g_out.float()).sum() + torch.where(
+            torch.isfinite(rl), rl * g_lse, 0.0).sum()
+        loss.backward()
+        errs, failed = out_errors(out, ro.detach(), [("lse", lse, rl.detach())])
+        for what, got, ref in (("dq", dq, qs.grad), ("dk", dk, ks.grad), ("dv", dv, vs.grad)):
+            e, f = grad_errors(got.transpose(0, 1), ref.transpose(0, 1))
+            errs.update({f"{what}_{n}": x for n, x in e.items()})
+            failed += [f"{what}:{c}" for c in f]
+        res.update(vs_single_card=errs, failed=failed)
+        if not skip_reduce:
+            check(not failed, f"cp={dist.get_world_size(group)} degree {degree} heads "
+                  f"{hq}/{hk}: the gathered results fail {failed}: {errs}")
+    return res
+
+
+def cp_attn(pools, seed: int) -> dict:
+    """The keyed cp API at cp=2 (degree 0) and cp=4 (degree 2), 16 / 8 and
+    8 / 8 heads, auto group-collective impl; one stage call per rank held
+    against the plain versions (cp=2 at 16 / 8, cp=4 at 8 / 8); the planted
+    skip of the dK/dV reduce must fail the dk / dv checks."""
+    runs, launches = [], {}
+    for cp, degree in CP_RUNS:
+        for hq, hk in CP_ATTN_HEADS:
+            check_stage = (cp == 2) == (hq != hk)
+            res = pools[cp].run(cp_attn_rank, hq, hk, degree, seed, check_stage)
+            for r in res:
+                for n, c in r["launches"].items():
+                    launches[n] = launches.get(n, 0) + c
+                for n, e in r.get("stage_check", {}).get("kernel_max_abs_err", {}).items():
+                    MAX_ERR[n] = max(MAX_ERR[n], e)
+            fwd = "flex_fwd_hb" if hq > hk else "flex_fwd"
+            for r in res:
+                check(set(r["launches"]) == {fwd, "flex_dq", "flex_dkv"},
+                      f"cp={cp} heads {hq}/{hk} rank {r['rank']}: launches {r['launches']}")
+            runs.append({"cp": cp, "overlap_degree": res[0]["overlap_degree"], "heads": [hq, hk],
+                         "impls": res[0]["impls"], "recv_rows": res[0]["recv_rows"],
+                         "backend": res[0]["backend"],
+                         "staged_through_host": res[0]["staged_through_host"],
+                         "launches_per_rank": [r["launches"] for r in res],
+                         "vs_single_card": res[0]["vs_single_card"],
+                         "stage_checks": [r["stage_check"] for r in res if "stage_check" in r],
+                         "fwd_bwd_ms_ranks_sharing_one_card": [
+                             r["fwd_bwd_ms_ranks_sharing_one_card"] for r in res],
+                         "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                                        for r in res]})
+            check(res[0]["overlap_degree"] == degree,
+                  f"cp={cp}: the plan has degree {res[0]['overlap_degree']}, not {degree}")
+    planted = pools[2].run(cp_attn_rank, 8, 8, 0, seed, False, True)[0]
+    caught = {c.split(":")[0] for c in planted["failed"]}
+    check({"dk", "dv"} <= caught and not caught - {"dk", "dv"},
+          f"the planted skip of the dK/dV reduce: failed checks {planted['failed']}, "
+          "expected dk and dv only")
+    return {"phase": "cp_attn", "tokens": CP_ATTN_T, "chunk": CP_CHUNK, "head_dim": D,
+            "dtype": "bfloat16", "note": "times with the cp ranks sharing one card: not cp speeds",
+            "runs": runs, "launches": launches,
+            "planted_skip_dkv_reduce": {"caught": sorted(caught), "failed": planted["failed"]}}
+
+
+@in_rank
+def cp_training_rank(group, degree: int, seed: int, cp1_grads: str, steps: int) -> dict:
+    """One rank of the Llama trainer under cp on the card: the ``training``
+    phase's model, batch and weights from ``seed``, this rank's shard,
+    ``steps`` AdamW steps; rank 0 holds the first step's gradients (summed
+    over the ranks) against cp=1's, saved by the ``training`` phase."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+
+    cp_rank_setup()
+    cfg = dataclasses.replace(LlamaConfig(), n_layers=TRAIN_LAYERS)
+    total = sum(TRAIN_DOCS)
+    qr, kr, ts = infer_varlen_mask_from_batch(TRAIN_DOCS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed, cp_group=group,
+                             chunk_size=CP_CHUNK, overlap_config=OverlapConfig(degree=degree))
+    gen = torch.Generator(device="cuda").manual_seed(seed)  # the training phase's batch
+    tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1)
+    tok, lab = model.shard(tokens), model.shard(labels)
+    pos = model.position_ids().cuda()
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+    losses, step_ms, grad_rel_l2 = [], [], None
+    csrc.reset_launch_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tok, lab, pos)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and dist.get_rank(group) == 0:
+            ref = torch.load(cp1_grads)
+            grad_rel_l2 = [float((p.grad - r.cuda()).norm() / r.norm())
+                           for p, r in zip(model.parameters(), ref)]
+            del ref
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    return {"rank": dist.get_rank(group), "losses": losses, "step_ms": step_ms,
+            "launches": launches, "grad_rel_l2": grad_rel_l2,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "head_block": model.head_block, "overlap_degree": model.plan.overlap_degree,
+            "impls": [c.impl for c in model.plan.comms()], **cp_comm_facts(group)}
+
+
+def cp_training(pools, seed: int, cp1: dict) -> dict:
+    """The training phase's trainer at cp=2 (degree 0) and cp=4 (degree 2):
+    every step's loss within CP_LOSS_ATOL of cp=1's, the first step's
+    gradients of every parameter within CP_GRAD_REL_L2 relative L2."""
+    runs, launches = [], {}
+    for cp, degree in CP_RUNS:
+        res = pools[cp].run(cp_training_rank, degree, seed, cp1["grads_path"], TRAIN_STEPS)
+        for r in res:
+            check(r["losses"] == res[0]["losses"], f"cp={cp}: the ranks report other losses")
+            check(set(r["launches"]) == set(TRAINING_KERNELS),
+                  f"cp={cp} rank {r['rank']}: launches {r['launches']}, expected "
+                  f"{TRAINING_KERNELS}")
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        diffs = [abs(a - b) for a, b in zip(res[0]["losses"], cp1["losses"])]
+        check(max(diffs) <= CP_LOSS_ATOL,
+              f"cp={cp}: losses {res[0]['losses']} vs cp=1 {cp1['losses']}")
+        worst = max(res[0]["grad_rel_l2"])
+        check(worst <= CP_GRAD_REL_L2,
+              f"cp={cp}: a first-step gradient is {worst} relative L2 from cp=1's")
+        runs.append({"cp": cp, "overlap_degree": res[0]["overlap_degree"],
+                     "impls": res[0]["impls"], "head_block": res[0]["head_block"],
+                     "backend": res[0]["backend"],
+                     "staged_through_host": res[0]["staged_through_host"],
+                     "losses": res[0]["losses"], "loss_abs_diff_vs_cp1": diffs,
+                     "grad_rel_l2_vs_cp1_max": worst,
+                     "step_ms_ranks_sharing_one_card": [r["step_ms"] for r in res],
+                     "max_memory_allocated_bytes_per_rank": [r["max_memory_allocated_bytes"]
+                                                             for r in res],
+                     "launches_per_rank": [r["launches"] for r in res]})
+    return {"phase": "cp_training", "docs": TRAIN_DOCS, "chunk": CP_CHUNK,
+            "layers": TRAIN_LAYERS, "steps": TRAIN_STEPS, "cp1_losses": cp1["losses"],
+            "tolerance": {"loss_abs": CP_LOSS_ATOL, "grad_rel_l2": CP_GRAD_REL_L2},
+            "note": "times with the cp ranks sharing one card: not cp speeds",
+            "runs": runs, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2828,17 +3187,39 @@ def main(argv=None) -> int:
     emit(prefix_line)
     torch.cuda.empty_cache()
 
-    train = training(args.seed)
+    import tempfile
+
+    from magiattention_tpu_torch.testing.dist import RankPool
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    grads_path = os.path.join(scratch, "cp1_grads.pt")
+    train = training(args.seed, grads_path)
     emit(train)
     torch.cuda.empty_cache()
 
     hetero_line, hetero_t = hetero(gen, planted)
     emit(hetero_line)
+    torch.cuda.empty_cache()
+
+    # context parallelism: the ranks are processes sharing cuda:0 over gloo,
+    # spawned after the kernels above were built (each loads the libraries)
+    pools = {cp: RankPool(cp, backend="gloo") for cp, _ in CP_RUNS}
+    try:
+        cp_attn_line = cp_attn(pools, args.seed)
+        emit(cp_attn_line)
+        cp_train_line = cp_training(pools, args.seed,
+                                    {"losses": train["losses"], "grads_path": grads_path})
+        emit(cp_train_line)
+    finally:
+        for pool in pools.values():
+            pool.close()
+        shutil.rmtree(scratch, ignore_errors=True)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
                "prefix": prefix_line["launches"], "training": train["launches"],
-               "hetero": hetero_line["launches"]}
+               "hetero": hetero_line["launches"], "cp_attn": cp_attn_line["launches"],
+               "cp_training": cp_train_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

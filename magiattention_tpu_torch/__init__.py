@@ -5,11 +5,19 @@ subpackage at a time, so every module here has a twin at the same
 relative path there. It imports ``torch`` and never ``jax`` or the JAX
 package: what it needs from there it keeps as its own copy.
 
-Layering of the serving, single-device training, sparse-grid and
-shared-prefix slices:
+Layering of the serving, training, sparse-grid, shared-prefix and
+context-parallel slices:
 
-- ``common/``  : the mask-type int ABI, dense-mask semantics, range algebra
-- ``api/``     : mask and padding helpers
+- ``common/``  : the mask-type int ABI, dense-mask semantics and areas, the
+  range algebra and rectangles
+- ``meta/``    : the dispatch containers, the dispatch meta, and the
+  dispatch and overlap solvers
+- ``comm/``    : GroupCast / GroupReduce and variable-size collectives over
+  ``torch.distributed``
+- ``parallel/``: dispatch / undispatch and the distributed flex-attention
+  plan and runtime (``dist_attn_local``)
+- ``api/``     : mask and padding helpers, and the keyed cp runtime
+  (``magi_attn_flex_key`` -> ``dispatch`` -> ``calc_attn`` -> ``undispatch``)
 - ``ops/``     : host kernel tables, LSE correction, flex attention forward
   and backward under ``torch.autograd`` on two grids (the row-major
   ``flex_fwd``, ``flex_fwd_hb``, ``flex_dq``, ``flex_dkv`` and the sparse-grid
@@ -21,8 +29,9 @@ shared-prefix slices:
 - ``serving/`` : paged KV cache, split-KV decode (the ``paged_decode``
   kernel + its plain version), shared prefixes (copy-on-write pages and
   cascade decode), the continuous-batching engine
-- ``models/``  : the single-device Llama decoder and its train step
-- ``testing/`` : the fp64 dense oracle and the reference mask workloads
+- ``models/``  : the Llama decoder (cp=1 and under cp) and its train step
+- ``testing/`` : the fp64 dense oracle, the reference mask workloads, and
+  the rank spawner of multi-rank runs
 - ``convert``  : cache, plan and Llama parameters to and from numpy arrays
 
 A function that takes tensors runs where its tensors are: CUDA tensors
@@ -38,8 +47,8 @@ def __getattr__(name):
     import importlib
 
     if name in (
-        "api", "common", "convert", "csrc", "env", "models", "ops", "serving", "testing",
-        "tuning",
+        "api", "comm", "common", "config", "convert", "csrc", "env", "meta", "models", "ops",
+        "parallel", "serving", "testing", "tuning",
     ):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)
@@ -47,12 +56,16 @@ def __getattr__(name):
 
 __all__ = [
     "api",
+    "comm",
     "common",
+    "config",
     "convert",
     "csrc",
     "env",
+    "meta",
     "models",
     "ops",
+    "parallel",
     "serving",
     "testing",
     "tuning",

@@ -1,17 +1,23 @@
-"""Common host-side types: the mask-type enum, dense-mask semantics, and
-the range types the mask helpers return."""
+"""Common host-side types: the mask-type enum, dense-mask semantics and
+slice areas, the range algebra and the rectangles the planners cut."""
 
-from .enum import AttnMaskType
-from .mask import make_attn_mask_from_ranges, slice_mask
+from .enum import AttnMaskType, DispatchAlgType, OverlapAlgType
+from .mask import make_attn_mask_from_ranges, slice_area, slice_mask
 from .range import AttnRange, NaiveRange, RangeError
 from .ranges import AttnRanges
+from .rectangle import AttnRectangle, AttnRectangles
 
 __all__ = [
     "AttnMaskType",
     "AttnRange",
     "AttnRanges",
+    "AttnRectangle",
+    "AttnRectangles",
+    "DispatchAlgType",
     "NaiveRange",
+    "OverlapAlgType",
     "RangeError",
     "make_attn_mask_from_ranges",
+    "slice_area",
     "slice_mask",
 ]

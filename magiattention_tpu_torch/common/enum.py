@@ -34,3 +34,27 @@ class AttnMaskType(enum.IntEnum):
     @property
     def is_inv_causal_bound(self) -> bool:
         return bool(self.value & 2)
+
+
+class DispatchAlgType(enum.Enum):
+    """Load-balancing algorithms of the dispatch solver
+    (``meta/solver/dispatch_solver.py``)."""
+
+    LOWER_BOUND = "lower_bound"
+    DYNAMIC_PROGRAMMING = "dynamic_programming"
+    BINARY_SEARCH = "binary_search"
+    MIN_HEAP = "min_heap"
+    BACKTRACK_PRUNING = "backtrack_pruning"
+    TOPP_HEAP = "topp_heap"
+    RANDOM_SELECT = "random_select"
+    SEQUENTIAL_SELECT = "sequential_select"
+    BATCH_TOPP_HEAP = "batch_topp_heap"
+    SORTED_SEQUENTIAL_SELECT = "sorted_sequential_select"
+
+
+class OverlapAlgType(enum.Enum):
+    """Stage-assignment algorithms of the overlap solver
+    (``meta/solver/overlap_solver.py``)."""
+
+    UNIFORM = "uniform"
+    GREEDY = "greedy"

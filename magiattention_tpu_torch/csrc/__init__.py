@@ -35,6 +35,7 @@ main path and reads them after it).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -200,9 +201,19 @@ def build(names=None, *, ptxas_verbose: bool = False) -> dict[str, dict]:
     Returns ``{name: {"path", "seconds", "log"}}`` (``seconds`` 0.0 and an
     empty log for a library that was already built). Raises
     :class:`KernelBuildError` with nvcc's output if any source fails.
+
+    Processes that build at once (the ranks of a context-parallel run
+    reaching their first launch together) take turns on a file lock in
+    ``BUILD_DIR``: the first compiles, the others find its libraries.
     """
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(names, ptxas_verbose)
+
+
+def _build_locked(names, ptxas_verbose: bool) -> dict[str, dict]:
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if ptxas_verbose else [])
     result: dict[str, dict] = {}
     procs = []

@@ -1,7 +1,7 @@
 """Environment-variable flags read by the port.
 
 Same ``MAGI_ATTENTION_*`` names and defaults as the JAX package's
-``env.py`` for the accessors this slice reads; the TPU-only flags
+``env.py`` for the accessors the port reads; the TPU-only flags
 (compile caches, generation, SMEM budgets) have no counterpart here.
 """
 
@@ -127,3 +127,79 @@ def cascade_mode() -> str:
     if v not in CASCADE_MODES:
         raise ValueError(f"MAGI_ATTENTION_CASCADE={v!r} must be one of {CASCADE_MODES}")
     return v
+
+
+# -- context parallelism (the same names, defaults and validation as the JAX
+# package's env.py) -------------------------------------------------------------
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+GROUP_COLL_IMPLS = ("a2a", "hops", "auto")
+
+
+def group_coll_impl() -> str:
+    """Group-collective realization (``comm/group_collective.py``):
+    'a2a' = one globally-padded ``all_to_all_single`` per cast, 'hops' =
+    hop-scheduled exact-size exchanges (one ``batch_isend_irecv`` per hop;
+    hop k pads only to that hop's max pair size, zero-volume hops are
+    skipped), 'auto' (default) = pick per collective by predicted wire
+    volume at plan-build time. Validated at use (``GroupCollectiveMeta.build``)."""
+    return _env_str("MAGI_ATTENTION_GROUP_COLL_IMPL", "auto").strip().lower()
+
+
+def comm_pad_to() -> int:
+    """Row-count rung of the group-collective buffers
+    (``MAGI_ATTENTION_COMM_PAD_TO``): every padded send/recv extent is
+    rounded up to a multiple of this power of two."""
+    v = _env_int("MAGI_ATTENTION_COMM_PAD_TO", 8)
+    if v < 1 or (v & (v - 1)) != 0:
+        raise ValueError(f"MAGI_ATTENTION_COMM_PAD_TO={v} must be a power of two >= 1")
+    return v
+
+
+def overlap_degree_default() -> int | None:
+    """Default multi-stage-overlap degree when no overlap config is given:
+    an integer (default 0: one merged cast and one kernel call), or 'auto'
+    for the degree=None cost-model search."""
+    v = _env_str("MAGI_ATTENTION_OVERLAP_DEGREE", "0").strip().lower()
+    return None if v == "auto" else int(v)
+
+
+def min_stage_rows() -> int:
+    return _env_int("MAGI_ATTENTION_MIN_STAGE_ROWS", 512)
+
+
+def dynamic_max_degree() -> int:
+    """Auto-degree search cap (``OverlapConfig.dynamic_max_degree``)."""
+    return _env_int("MAGI_ATTENTION_DYNAMIC_MAX_DEGREE", 8)
+
+
+def is_forward_high_precision_reduce() -> bool:
+    """Keep the staged out/lse merge accumulator in fp32
+    (``MAGI_ATTENTION_FORWARD_HIGH_PRECISION_REDUCE``; default on)."""
+    return _env_bool("MAGI_ATTENTION_FORWARD_HIGH_PRECISION_REDUCE", True)
+
+
+def is_backward_high_precision_reduce() -> bool:
+    """Carry the KV cast payload in fp32 so that the dK/dV reduce of its
+    backward accumulates in fp32, at twice the comm volume
+    (``MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE``; default off)."""
+    return _env_bool("MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE", False)
+
+
+def min_chunks_per_rank() -> int:
+    """Auto chunk size of the keyed API: total / (this x cp), floored to
+    128 (``MAGI_ATTENTION_MIN_CHUNKS_PER_RANK``)."""
+    return _env_int("MAGI_ATTENTION_MIN_CHUNKS_PER_RANK", 8)
+
+
+def runtime_dict_size() -> int:
+    """LRU capacity of the keyed API's runtime cache
+    (``MAGI_ATTENTION_RUNTIME_DICT_SIZE``)."""
+    return _env_int("MAGI_ATTENTION_RUNTIME_DICT_SIZE", 100)

@@ -1,8 +1,14 @@
-"""Models trained with flex attention. This slice has the single-device
-Llama decoder; ``llama_pp`` and ``dit`` are still to port (ROADMAP queue A
-item 16)."""
+"""Models trained with flex attention: the Llama decoder at cp=1 and under
+context parallelism; ``llama_pp`` and ``dit`` are still to port (ROADMAP
+queue A item 16)."""
 
-from ._common import make_model_train_step, masked_ce_sums, resolve_harness_blocking
+from ._common import (
+    make_model_train_step,
+    masked_ce_sums,
+    plan_flex_attn,
+    resolve_harness_blocking,
+    sum_grads_over_group,
+)
 from .llama import (
     LlamaConfig,
     MagiLlama,
@@ -17,5 +23,7 @@ __all__ = [
     "init_params",
     "make_model_train_step",
     "masked_ce_sums",
+    "plan_flex_attn",
     "resolve_harness_blocking",
+    "sum_grads_over_group",
 ]

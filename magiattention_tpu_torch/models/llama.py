@@ -1,26 +1,32 @@
-"""Llama-style decoder trained with flex attention, on one device.
+"""Llama-style decoder trained with context-parallel flex attention.
 
-The counterpart of the JAX package's ``models/llama.py`` at dp=1, cp=1: the
-same configuration, parameter tree and initialisation scheme, the same
-layer (RMSNorm, RoPE on global position ids, GQA attention, SwiGLU MLP),
-each fp32 master weight cast to ``cfg.dtype`` at its product, and the same
+The counterpart of the JAX package's ``models/llama.py`` at dp=1: the same
+configuration, parameter tree and initialisation scheme, the same layer
+(RMSNorm, RoPE on global position ids, GQA attention, SwiGLU MLP), each
+fp32 master weight cast to ``cfg.dtype`` at its product, and the same
 masked next-token loss. Weights keep the JAX layout ``[in, out]`` and are
 applied as ``x @ w`` (no ``nn.Linear``), so a parameter tree carries across
 unchanged (``convert.llama_params_from_numpy``).
 
-What differs from the JAX model, on purpose:
+Two layouts:
 
-- attention calls flex attention directly (``ops.flex_attn_with_meta`` on
-  a plan built once per mask by :func:`build_magi_llama`, at the head_block
-  it resolves: G by default) in place of the
-  JAX model's ``parallel.dist_attn.dist_attn_local``. At cp=1 that
-  function's degree-0 plan is one flex-attention call over the whole mask
-  with an identity dispatch, so both compute the same loss and gradients;
-  the context-parallel slice puts ``dist_attn_local`` back over
-  ``torch.distributed``;
-- tensor parallelism, pipeline parallelism (``llama_pp``) and
-  rematerialisation are out of scope for this slice: ``cfg.remat`` is kept
-  so that configurations carry across, and the builder refuses it.
+- cp=1 (no ``cp_group``): attention calls flex attention directly
+  (``ops.flex_attn_with_meta`` on a plan built once per mask). The JAX
+  model's ``dist_attn_local`` at cp=1 is one flex-attention call over the
+  whole mask with an identity dispatch, so both compute the same loss and
+  gradients;
+- cp > 1 (``cp_group``: one process per rank, parameters replicated):
+  each rank feeds its dispatched shard of the tokens (:meth:`MagiLlama.shard`,
+  RoPE on :meth:`MagiLlama.position_ids`), every layer's attention runs
+  ``parallel.dist_attn.dist_attn_local`` on the plan of
+  ``_common.plan_flex_attn``, :meth:`MagiLlama.loss` is this rank's masked
+  CE sum over the global token count, and ``make_model_train_step`` sums
+  the parameter gradients over the group after the backward (the psums of
+  the JAX model's ``shard_map``).
+
+Data, tensor and pipeline parallelism (``llama_pp``) and rematerialisation
+are not ported yet: ``cfg.remat`` is kept so that configurations carry
+across, and the builder refuses it.
 
 The builder resolves ``(block_q, block_k, head_block)`` once through
 ``_common.resolve_harness_blocking``, as the JAX builder does: by default
@@ -28,7 +34,7 @@ the row-major grid at head_block G (``n_heads / n_kv_heads``), which the
 model passes to every attention call. On CUDA tensors every attention
 forward then runs ``flex_fwd_hb`` (``flex_fwd`` at G = 1, or under a
 ``MAGI_ATTENTION_HEAD_BLOCK=1`` pin) and every backward ``flex_dq`` and
-``flex_dkv``; on CPU tensors their plain versions.
+``flex_dkv``, at any cp size; on CPU tensors their plain versions.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from torch import nn
 
 from ..ops.block_meta import FlexAttnBlockMeta, build_block_meta
 from ..ops.flex_attn import flex_attn_with_meta
-from ._common import masked_ce_sums, resolve_harness_blocking
+from ._common import masked_ce_sums, plan_flex_attn, resolve_harness_blocking
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "mlp_norm")
 
@@ -149,16 +155,22 @@ class MagiLlama(nn.Module):
     """The decoder over one packed token stream and its flex plan.
 
     ``tokens``, ``labels`` and ``pos`` are [t] (one stream) or [b, t]
-    (streams of one mask, as the JAX model's batch axis); ``pos`` holds the
+    (streams of one mask, as the JAX model's batch axis): the whole stream
+    at cp=1, this rank's dispatched shard under cp; ``pos`` holds the
     global position ids RoPE reads. ``head_block`` (q heads per forward
-    work item) is the builder's resolved choice."""
+    work item) is the builder's resolved choice. Under cp, ``plan``,
+    ``attn_params``, ``dispatch_meta`` and ``group`` are the rank's
+    distributed plan and process group (``meta`` is then None)."""
 
-    def __init__(self, cfg: LlamaConfig, meta: FlexAttnBlockMeta, params: dict,
-                 head_block: int = 1):
+    def __init__(self, cfg: LlamaConfig, meta: FlexAttnBlockMeta | None, params: dict,
+                 head_block: int = 1, *, plan=None, attn_params=None, dispatch_meta=None,
+                 group=None):
         super().__init__()
         self.cfg = cfg
         self.meta = meta
         self.head_block = int(head_block)
+        self.plan, self.attn_params = plan, attn_params
+        self.dispatch_meta, self.group = dispatch_meta, group
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(LlamaLayer(p) for p in params["layers"])
         self.final_norm = nn.Parameter(params["final_norm"])
@@ -174,10 +186,33 @@ class MagiLlama(nn.Module):
         }
 
     def attention(self, q, k, v):
-        """q [t, hq, d], k/v [t, hk, d] -> out [t, hq, d] over the plan."""
+        """q [t, hq, d], k/v [t, hk, d] -> out [t, hq, d] over the plan
+        (this rank's shard and the cp plan under cp)."""
+        if self.group is not None:
+            from ..parallel.dist_attn import dist_attn_local
+
+            return dist_attn_local(q, k, v, self.plan, self.attn_params, self.group)[0]
         out, _ = flex_attn_with_meta(q, k, v, self.meta, out_dtype=self.cfg.torch_dtype,
                                      head_block=self.head_block)
         return out
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's dispatched rows of a global [..., total] token-axis
+        tensor (tokens or labels; the last axis is the token axis); the
+        tensor itself at cp=1."""
+        if self.group is None:
+            return x
+        return x[..., self.position_ids().to(x.device)]
+
+    def position_ids(self) -> torch.Tensor:
+        """Global positions of this rank's dispatched tokens [shard] (int64,
+        on the CPU): RoPE's ``pos`` under cp."""
+        import torch.distributed as dist
+
+        from ..parallel.dispatch import position_ids
+
+        rank = dist.get_rank(self.group)
+        return torch.from_numpy(position_ids(self.dispatch_meta, rank).astype(np.int64))
 
     def _forward_one(self, tokens, pos):
         dt = self.cfg.torch_dtype
@@ -195,9 +230,16 @@ class MagiLlama(nn.Module):
 
     def loss(self, tokens, labels, pos):
         """Mean next-token CE over the positions with label >= 0 (of all
-        streams, as the JAX model sums over its batch axis)."""
+        streams, as the JAX model sums over its batch axis). Under cp, this
+        rank's share: its CE sum over the count of every rank's positions,
+        so that the shares sum to the global mean."""
         logits = self.forward(tokens, pos)
         loss_sum, count = masked_ce_sums(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+        if self.group is not None:
+            import torch.distributed as dist
+
+            count = count.detach().clone()
+            dist.all_reduce(count, group=self.group)
         return loss_sum / torch.clamp(count, min=1.0)
 
 
@@ -217,10 +259,20 @@ def build_magi_llama(
     block_q: int | None = None,
     block_k: int | None = None,
     device: str | torch.device = "cuda",
+    cp_group=None,
+    chunk_size: int | None = None,
+    overlap_config=None,
 ) -> MagiLlama:
     """Plan the attention for one mask (once) and bundle the model on
-    ``device``: the cp=1 counterpart of the JAX ``build_magi_llama``, which
-    also returns a dispatch meta (there is none to return at cp=1).
+    ``device``: the counterpart of the JAX ``build_magi_llama``, whose
+    dispatch meta is ``model.dispatch_meta`` here (None at cp=1).
+
+    With ``cp_group`` (a ``torch.distributed`` group of the cp ranks, one
+    process each, every rank calling this with the same arguments and
+    weights) the plan is ``_common.plan_flex_attn``'s at ``chunk_size``
+    (required) and ``overlap_config`` (default degree 0); feed each rank
+    ``model.shard(tokens)``, ``model.shard(labels)`` and
+    ``model.position_ids()``.
 
     ``params`` is a tree as :func:`init_params` returns (e.g. carried over
     by ``convert.llama_params_from_numpy``); without it the weights are
@@ -241,8 +293,24 @@ def build_magi_llama(
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"n_heads {cfg.n_heads} is not a multiple of n_kv_heads {cfg.n_kv_heads}")
     qn, kn, types = _naive(q_ranges), _naive(k_ranges), [int(t) for t in attn_type_map]
-    bq, bk, hb = resolve_harness_blocking(cfg, qn, kn, types, total_seqlen, block_q, block_k)
-    meta = build_block_meta(qn, kn, types, total_seqlen, total_seqlen, block_q=bq, block_k=bk)
+    cp = {}
+    if cp_group is not None:
+        import torch.distributed as dist
+
+        if chunk_size is None:
+            raise ValueError("build_magi_llama(cp_group=...) needs a chunk_size")
+        plan, attn_params, mq = plan_flex_attn(
+            cfg, total_seqlen, qn, kn, types, chunk_size=chunk_size,
+            cp_size=dist.get_world_size(cp_group), block_q=block_q, block_k=block_k,
+            overlap_config=overlap_config,
+        )
+        meta, hb = None, attn_params.head_block
+        cp = dict(plan=plan, attn_params=attn_params, dispatch_meta=mq, group=cp_group)
+    else:
+        bq, bk, hb = resolve_harness_blocking(cfg, qn, kn, types, total_seqlen, 1, block_q,
+                                              block_k)
+        meta = build_block_meta(qn, kn, types, total_seqlen, total_seqlen, block_q=bq,
+                                block_k=bk)
     if params is None:
         params = init_params(torch.Generator(device=device).manual_seed(seed), cfg)
 
@@ -255,4 +323,4 @@ def build_magi_llama(
         "final_norm": to_dev(params["final_norm"]),
         "lm_head": to_dev(params["lm_head"]),
     }
-    return MagiLlama(cfg, meta, params, head_block=hb)
+    return MagiLlama(cfg, meta, params, head_block=hb, **cp)

@@ -20,8 +20,11 @@ entry pointing at the sentinel slice — so every output tile is written
 (out=0 / lse=-inf for uncovered rows).
 
 The tables are byte-identical to the JAX package's ``ops/block_meta.py``
-(held so by ``tests/test_torch_block_meta.py``); this is its pure
-Python/numpy path.
+(held so by ``tests/test_torch_block_meta.py``, and per cp rank by
+``tests/test_torch_dist_plan.py``); this is its pure Python/numpy path.
+The distributed plan builder (``parallel/dist_attn.py``) describes a rank's
+buffers by :func:`runs_from_position_ids` and levels the per-rank tables
+to one length with :func:`pad_block_meta`.
 """
 
 from __future__ import annotations
@@ -67,6 +70,21 @@ class Run:
         return self.global_start - self.local_start
 
 
+def runs_from_position_ids(position_ids: np.ndarray) -> list[Run]:
+    """Compress a local->global id map into maximal contiguous runs: run
+    boundaries are where the id does not advance by 1."""
+    pos = np.asarray(position_ids, dtype=np.int64).reshape(-1)
+    n = pos.shape[0]
+    if n == 0:
+        return []
+    starts = np.concatenate(([0], np.flatnonzero(np.diff(pos) != 1) + 1))
+    ends = np.concatenate((starts[1:], [n]))
+    return [
+        Run(local_start=int(s), global_start=int(pos[s]), length=int(e - s))
+        for s, e in zip(starts, ends)
+    ]
+
+
 def identity_runs(total: int) -> list[Run]:
     return [Run(0, 0, total)] if total > 0 else []
 
@@ -102,6 +120,14 @@ class FlexAttnBlockMeta:
     bwd_runs: np.ndarray  # [E2 * RUN_FIELDS]
 
     slice_bounds: np.ndarray  # [(num_slices+1) * SLICE_FIELDS]
+
+    @property
+    def num_fwd_entries(self) -> int:
+        return int(self.fwd_q_block.shape[0])
+
+    @property
+    def num_bwd_entries(self) -> int:
+        return int(self.bwd_k_block.shape[0])
 
     @property
     def fwd_steps(self) -> int:
@@ -251,6 +277,34 @@ def _distribute_pad_majors(
     return out
 
 
+def _append_pads_leveled(
+    major: np.ndarray,
+    minor: np.ndarray,
+    sid: np.ndarray,
+    runs: np.ndarray,
+    extra: int,
+    num_major: int,
+    sentinel: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Append ``extra`` inert (sentinel-slice, all-masked) pad entries with
+    leveled major assignment, then stable-resort by major so each major's
+    entries stay contiguous (the row-major kernels require it)."""
+    pad_major = _distribute_pad_majors(major, extra, num_major)
+    pad_runs = np.zeros((extra, RUN_FIELDS), np.int32)
+    pad_runs[:, 6] = 1  # diagnostic flag: sentinel-slice pads are all-masked
+    major = np.concatenate([major, pad_major])
+    minor = np.concatenate([minor, np.zeros(extra, np.int32)])
+    sid = np.concatenate([sid, np.full(extra, sentinel, np.int32)])
+    runs2 = np.concatenate([runs.reshape(-1, RUN_FIELDS), pad_runs], axis=0)
+    order = np.argsort(major, kind="stable")
+    return (
+        np.ascontiguousarray(major[order]),
+        np.ascontiguousarray(minor[order]),
+        np.ascontiguousarray(sid[order]),
+        np.ascontiguousarray(runs2[order].reshape(-1)),
+    )
+
+
 def _build_table(
     entries: np.ndarray,  # [E, 9] entry tuples
     num_major_blocks: int,
@@ -319,6 +373,9 @@ def build_block_meta_general(
     block_q: int = 128,
     block_k: int = 128,
     entry_pad: int = 8,
+    pad_entries_to: int | None = None,  # uniform E across ranks
+    pad_bwd_entries_to: int | None = None,
+    num_slices_padded: int | None = None,
 ) -> FlexAttnBlockMeta:
     """Build entry tables for one local attention problem.
 
@@ -327,15 +384,14 @@ def build_block_meta_general(
     """
     slices = np.asarray(slices, dtype=np.int64).reshape(-1, SLICE_FIELDS)
     S = slices.shape[0]
-    nq = max(_cdiv(total_q, block_q), 1)
-    nk = max(_cdiv(total_k, block_k), 1)
 
     ent = _emit_entries(slices, list(q_runs), list(k_runs), block_q, block_k)
     entries = (
         np.asarray(ent, dtype=np.int64) if ent else np.empty((0, 9), np.int64)
     )
 
-    # exact area: intersect each slice with the runs
+    # exact area: intersect each slice with the runs (a slice may reference
+    # global rows/cols these buffers do not hold)
     area = 0
     for sid in range(S):
         qs, qe, ks, ke, mt = (int(x) for x in slices[sid])
@@ -350,14 +406,51 @@ def build_block_meta_general(
                     continue
                 area += _sub_area(a, b, c, d, qs, qe, ks, ke, mt)
 
-    fwd = _build_table(
-        entries.copy(), nq, S, entry_pad, 0, slices, block_q, block_k
+    return assemble_block_meta(
+        entries, slices, total_q, total_k, block_q, block_k, int(area),
+        entry_pad=entry_pad, pad_entries_to=pad_entries_to,
+        pad_bwd_entries_to=pad_bwd_entries_to, num_slices_padded=num_slices_padded,
     )
-    bwd = _build_table(
-        entries.copy(), nk, S, entry_pad, 1, slices, block_q, block_k
-    )
-    bounds = np.zeros((S + 1, SLICE_FIELDS), dtype=np.int32)
-    bounds[:S] = slices  # row S stays all-zero: the sentinel (all-masked)
+
+
+def assemble_block_meta(
+    entries: np.ndarray,  # [E, 9] (qblk, kblk, sid, ql0, ql1, kl0, kl1, qoff, koff)
+    slices: np.ndarray,  # [S, SLICE_FIELDS]
+    total_q: int,
+    total_k: int,
+    block_q: int,
+    block_k: int,
+    total_area: int,
+    *,
+    entry_pad: int = 8,
+    pad_entries_to: int | None = None,
+    pad_bwd_entries_to: int | None = None,
+    num_slices_padded: int | None = None,
+) -> FlexAttnBlockMeta:
+    """Entries + slices -> FlexAttnBlockMeta: sort both orientations, add
+    dummies and pads, assemble the bounds."""
+    S = slices.shape[0]
+    nq = max(_cdiv(total_q, block_q), 1)
+    nk = max(_cdiv(total_k, block_k), 1)
+    fwd = _build_table(entries.copy(), nq, S, entry_pad, 0, slices, block_q, block_k)
+    bwd = _build_table(entries.copy(), nk, S, entry_pad, 1, slices, block_q, block_k)
+
+    def _pad_table(table, target, num_major):
+        e = table[0].shape[0]
+        if target is None or target <= e:
+            if target is not None and target != e:
+                raise ValueError(f"table length {e} exceeds the requested pad {target}")
+            return table
+        return _append_pads_leveled(*table, target - e, num_major, S)
+
+    fwd = _pad_table(fwd, pad_entries_to, nq)
+    bwd = _pad_table(bwd, pad_bwd_entries_to, nk)
+
+    n_slices_store = S if num_slices_padded is None else num_slices_padded
+    if n_slices_store < S:
+        raise ValueError(f"num_slices_padded {n_slices_store} < {S} slices")
+    bounds = np.zeros((n_slices_store + 1, SLICE_FIELDS), dtype=np.int32)
+    bounds[:S] = slices  # rows S.. stay all-zero: sentinels (all-masked)
 
     return FlexAttnBlockMeta(
         total_q=total_q,
@@ -366,8 +459,8 @@ def build_block_meta_general(
         block_k=block_k,
         num_q_blocks=nq,
         num_k_blocks=nk,
-        num_slices=S,
-        total_area=int(area),
+        num_slices=n_slices_store,
+        total_area=int(total_area),
         fwd_q_block=fwd[0],
         fwd_k_block=fwd[1],
         fwd_slice_id=fwd[2],
@@ -377,6 +470,52 @@ def build_block_meta_general(
         bwd_slice_id=bwd[2],
         bwd_runs=bwd[3],
         slice_bounds=bounds.reshape(-1),
+    )
+
+
+def pad_block_meta(
+    meta: FlexAttnBlockMeta,
+    pad_entries_to: int,
+    pad_bwd_entries_to: int,
+    num_slices_padded: int,
+) -> FlexAttnBlockMeta:
+    """Pad a built meta's tables to uniform lengths across cp ranks: pad
+    entries take the sentinel slice (all-masked, inert) on the shortest
+    major blocks; extra bounds rows are zeros (further sentinels)."""
+    S = meta.num_slices
+    if num_slices_padded < S:
+        raise ValueError(f"num_slices_padded {num_slices_padded} < {S} slices")
+
+    def pad_tab(table, target, num_major):
+        e = table[0].shape[0]
+        if target < e:
+            raise ValueError(f"table length {e} exceeds the pad target {target}")
+        if target == e:
+            return table
+        return _append_pads_leveled(*table, target - e, num_major, S)
+
+    fq, fk, fs, fr = pad_tab(
+        (meta.fwd_q_block, meta.fwd_k_block, meta.fwd_slice_id, meta.fwd_runs),
+        pad_entries_to, meta.num_q_blocks,
+    )
+    bk, bq, bs, br = pad_tab(
+        (meta.bwd_k_block, meta.bwd_q_block, meta.bwd_slice_id, meta.bwd_runs),
+        pad_bwd_entries_to, meta.num_k_blocks,
+    )
+    bounds = np.zeros(((num_slices_padded + 1) * SLICE_FIELDS,), np.int32)
+    bounds[: meta.slice_bounds.shape[0]] = meta.slice_bounds
+    return dataclasses.replace(
+        meta,
+        num_slices=num_slices_padded,
+        fwd_q_block=fq,
+        fwd_k_block=fk,
+        fwd_slice_id=fs,
+        fwd_runs=fr,
+        bwd_k_block=bk,
+        bwd_q_block=bq,
+        bwd_slice_id=bs,
+        bwd_runs=br,
+        slice_bounds=bounds,
     )
 
 

@@ -1,5 +1,6 @@
-"""Testing library: the fp64 dense oracle and the reference mask workloads
-(``testing.workloads``)."""
+"""Testing library: the fp64 dense oracle, the reference mask workloads
+(``testing.workloads``) and the rank spawner of multi-rank runs
+(``testing.dist``)."""
 
 from .ref_attn import ref_attn, ref_attn_from_ranges
 

@@ -213,7 +213,7 @@ def test_harness_blocking_matches_jax_with_autotune_off(hb_pin, pinned_tile, cal
     bq, bk = caller if caller is not None else (None, None)
     ref = jax_harness_blocking(JaxLlamaConfig(**HARNESS_CFG), None, None, qr, kr, ty, 8192, 1,
                                bq, bk)
-    got = resolve_harness_blocking(LlamaConfig(**HARNESS_CFG), qr, kr, ty, 8192, bq, bk)
+    got = resolve_harness_blocking(LlamaConfig(**HARNESS_CFG), qr, kr, ty, 8192, 1, bq, bk)
     if pinned_tile or caller is not None:
         assert got == ref
     else:  # the env's default tile is each package's own: 128 on the TPU, Hopper's here
@@ -223,16 +223,16 @@ def test_harness_blocking_matches_jax_with_autotune_off(hb_pin, pinned_tile, cal
 def test_harness_blocking_defaults_to_the_row_major_choice(monkeypatch):
     qr, kr, ty = split(TRAIN_DOCS)
     cfg = LlamaConfig(**HARNESS_CFG)
-    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, None, None) == (64, 64, 2)
+    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, 1, None, None) == (64, 64, 2)
     monkeypatch.setenv("MAGI_ATTENTION_AUTOTUNE", "measure")
-    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, None, None) == (64, 64, 2)
+    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, 1, None, None) == (64, 64, 2)
     monkeypatch.setenv("MAGI_ATTENTION_HEAD_BLOCK", "1")
-    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, None, None) == (64, 64, 1)
+    assert resolve_harness_blocking(cfg, qr, kr, ty, 8192, 1, None, None) == (64, 64, 1)
     # a varlen mask the density rule would send to the sparse grid stays row-major
     vqr, vkr, vty = split(workloads.varlen_block_causal(8192))
     monkeypatch.delenv("MAGI_ATTENTION_HEAD_BLOCK")
-    assert resolve_harness_blocking(cfg, vqr, vkr, vty, 8192, None, None) == (64, 64, 2)
+    assert resolve_harness_blocking(cfg, vqr, vkr, vty, 8192, 1, None, None) == (64, 64, 2)
     monkeypatch.setenv("MAGI_ATTENTION_AUTOTUNE", "fast")
     with pytest.raises(ValueError, match="MAGI_ATTENTION_AUTOTUNE"):
-        resolve_harness_blocking(cfg, qr, kr, ty, 8192, None, None)
+        resolve_harness_blocking(cfg, qr, kr, ty, 8192, 1, None, None)
 

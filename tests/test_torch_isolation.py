@@ -54,7 +54,9 @@ def test_every_module_is_mirrored_by_a_jax_twin():
     assert "magiattention_tpu_torch.models.llama" in names
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
-        if rel == "convert":  # the port's own: state to and from numpy
+        # the port's own: state to and from numpy; and the process spawner of
+        # the multi-rank tests (the JAX package's ranks are one process's mesh)
+        if rel in ("convert", os.path.join("testing", "dist")):
             continue
         assert os.path.exists(os.path.join(jax_root, rel + ".py")) or os.path.isdir(
             os.path.join(jax_root, rel)), rel
@@ -67,6 +69,23 @@ def test_engine_on_cuda_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(num_pages=8, num_kv_heads=2, head_dim=64)
+
+
+@pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key"])
+def test_keyed_cp_entry_points_raise_without_a_card(entry):
+    """Without ``device="cpu"`` the keyed context-parallel API runs on the
+    card, and without one it raises before planning, never running on the
+    CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be observed here")
+    from magiattention_tpu_torch import api
+
+    args = {
+        "magi_attn_flex_key": ([(0, 256)], [(0, 256)], [1], 256, 256, None),
+        "magi_attn_varlen_key": ([0, 128, 256], 256, None),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(api, entry)(*args, num_heads=(4, 2), head_dim=64, chunk_size=64)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):

@@ -1,0 +1,168 @@
+"""Rank-side functions of the port's multi-rank tests, run through
+``magiattention_tpu_torch.testing.dist.RankPool``. This module imports the
+port and torch only: the ranks import no JAX."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def keyed_attention(group, case: dict, inputs: dict) -> dict:
+    """``magi_attn_flex_key`` -> ``dispatch`` -> ``calc_attn`` ->
+    ``undispatch`` on the CPU (float32, or ``case["dtype"]``), forward and
+    backward of sum(out * g_out) + sum(lse * g_lse) over the covered rows.
+    Returns the global out, lse and the gradients (rank 0's; every rank
+    holds them) and the dtypes the cast's backward reduced in.
+    ``case["high_precision_backward"]`` sets
+    ``MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE`` for this call;
+    ``case["skip_reduce"]`` plants a cast whose backward drops the dK/dV of
+    received rows (left in place: the caller replaces the pool)."""
+    from magiattention_tpu_torch.comm import group_collective as gc
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    if case.get("high_precision_backward"):
+        os.environ["MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE"] = "1"
+    if case.get("skip_reduce"):
+        gc.GroupCast.backward = staticmethod(
+            lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
+    reduce_dtypes = set()
+    real_reduce = gc.group_reduce_sum
+
+    def recording_reduce(y, rt, grp):
+        reduce_dtypes.add(str(y.dtype))
+        return real_reduce(y, rt, grp)
+
+    gc.group_reduce_sum = recording_reduce
+    try:
+        return {**_keyed_attention(group, case, inputs), "reduce_dtypes": sorted(reduce_dtypes)}
+    finally:
+        gc.group_reduce_sum = real_reduce
+        os.environ.pop("MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE", None)
+
+
+def _keyed_attention(group, case: dict, inputs: dict) -> dict:
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    q, k, v = (torch.from_numpy(inputs[n]).to(dtype).requires_grad_() for n in ("q", "k", "v"))
+    sink = inputs.get("sink")
+    sink = None if sink is None else torch.from_numpy(sink).requires_grad_()
+    key = api.magi_attn_flex_key(
+        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"], group,
+        num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size=case["chunk"],
+        sink=sink, out_dtype=dtype, device="cpu",
+        dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(
+            degree=case["degree"], min_stage_rows=case["min_stage_rows"])),
+    )
+    mgr = api.get_runtime_mgr(key)
+    out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key), api.dispatch(v, key),
+                                key, sink=sink)
+    out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+    finite = torch.isfinite(lse)
+    g_out, g_lse = torch.from_numpy(inputs["g_out"]), torch.from_numpy(inputs["g_lse"])
+    loss = (out.float() * g_out).sum() + torch.where(finite, lse * g_lse, 0.0).sum()
+    loss.backward()
+    res = {
+        "out": out.detach().float().numpy(), "lse": lse.detach().numpy(),
+        "dq": q.grad.float().numpy(), "dk": k.grad.float().numpy(),
+        "dv": v.grad.float().numpy(),
+        "degree": mgr.plan.overlap_degree, "impls": [c.impl for c in mgr.plan.comms()],
+        "max_logits": meta.max_logits.numpy(), "partitions": mgr.dispatch_meta.partitions,
+    }
+    if sink is not None:
+        res["dsink"] = sink.grad.numpy()
+    return res
+
+
+def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict,
+             tokens: np.ndarray, labels: np.ndarray, degree: int, impl: str, steps: int,
+             adamw: dict) -> dict:
+    """The port's Llama under cp on the CPU: this rank's share of the loss,
+    the gradients summed over the group, then ``steps`` AdamW steps of
+    ``make_model_train_step``. Returns the loss, the gradients (numpy, the
+    ``init_params`` tree) and the steps' losses."""
+    from magiattention_tpu_torch import convert
+    from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.models import (
+        LlamaConfig,
+        build_magi_llama,
+        make_model_train_step,
+        sum_grads_over_group,
+    )
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
+    qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu)
+    model = build_magi_llama(
+        LlamaConfig(**fields), total, qr, kr, ts, params=convert.llama_params_from_numpy(params),
+        device="cpu", cp_group=group, chunk_size=chunk,
+        overlap_config=OverlapConfig(degree=degree, min_stage_rows=chunk),
+    )
+    tok, lab = (model.shard(torch.from_numpy(a).long()) for a in (tokens, labels))
+    pos = model.position_ids().expand(tok.shape[0], -1)
+    share = model.loss(tok, lab, pos)
+    share.backward()
+    sum_grads_over_group(model, group)
+    loss = share.detach().clone()
+    dist.all_reduce(loss, group=group)
+    grads = convert.llama_params_to_numpy(model, grad=True)
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **adamw))
+    losses = [float(step(tok, lab, pos)) for _ in range(steps)]
+    return {"loss": float(loss), "grads": grads, "losses": losses,
+            "degree": model.plan.overlap_degree, "head_block": model.head_block,
+            "impls": [c.impl for c in model.plan.comms()]}
+
+
+def comm_primitives(group, impl: str, seed: int) -> dict:
+    """The comm layer on its own: ``all_gather_v`` / ``scatter_v`` /
+    ``all2all_v`` on uneven sizes, ``replicated``'s summed gradient, and a
+    random send map's ``group_cast`` with ``group_reduce_sum`` (its
+    transpose: <cast(x), y> = <x, reduce(y)> on every rank's rows)."""
+    from magiattention_tpu_torch.comm import (
+        GroupCollectiveMeta,
+        all2all_v,
+        all_gather_v,
+        group_cast,
+        group_reduce_sum,
+        rank_routing,
+        replicated,
+        scatter_v,
+    )
+
+    cp, rank = dist.get_world_size(group), dist.get_rank(group)
+    sizes = [3 + 2 * r for r in range(cp)]
+    x = torch.full((max(sizes), 2), float(rank))
+    gathered = all_gather_v(x, sizes, group)
+    scattered = scatter_v(torch.arange(sum(sizes), dtype=torch.float32), sizes, group)
+    send = torch.arange(cp * 4, dtype=torch.float32).view(cp, 4) + 100 * rank
+    recv = all2all_v(send, [[4] * cp for _ in range(cp)], group)
+    s = torch.ones(3, requires_grad=True)
+    (replicated(s, group) * (rank + 1)).sum().backward()
+
+    rng = np.random.default_rng(seed)  # the same map on every rank
+    rows = 40
+    send_map = [[np.sort(rng.choice(rows, int(rng.integers(0, 12)), replace=False))
+                 if src != dst else np.empty(0, np.int64) for dst in range(cp)]
+                for src in range(cp)]
+    meta = GroupCollectiveMeta.build(send_map, [rows] * cp, impl=impl)
+    rt = rank_routing(meta, rank, rows, "cpu")
+    xs = torch.from_numpy(np.random.default_rng(seed + rank).standard_normal((rows, 3)))
+    ys = torch.from_numpy(np.random.default_rng(seed + 10 + rank).standard_normal(
+        (meta.max_recv, 3)))
+    cast = group_cast(xs, rt, group)
+    red = group_reduce_sum(ys, rt, group)
+    expect = [xs_row for src in range(cp) for xs_row in send_map[src][rank]]
+    lhs = torch.tensor([float((cast * ys).sum())], dtype=torch.float64)
+    rhs = torch.tensor([float((xs * red).sum())], dtype=torch.float64)
+    dist.all_reduce(lhs, group=group)
+    dist.all_reduce(rhs, group=group)
+    return {"gathered": gathered.numpy(), "scattered": scattered.numpy(), "a2a": recv.numpy(),
+            "sink_grad": s.grad.numpy(), "impl": meta.impl, "n_recv": len(expect),
+            "cast_tail_zero": bool((cast[meta.recv_total[rank]:] == 0).all()),
+            "adjoint": (float(lhs), float(rhs))}
