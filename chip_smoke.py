@@ -116,7 +116,21 @@ Phases, each printing one JSON line:
    of its plan (its tables, received rows and kv_pad) against the plain
    versions; a cast whose backward skips the dK/dV reduce, planted in the
    ranks, must fail the dk and dv checks;
-8. cp_training — the training phase's trainer (same weights, batch and
+8. cp_qo_attn — qo-comm through the keyed API (``MAGI_ATTENTION_QO_COMM=1``,
+   set for the rank tasks only): the dynamic solver cuts the hetero mask's
+   attention plane into cp regions, Q and K/V rows are cast to each
+   region's owner, one ``flex_fwd`` call there (head_block 1 at every G, as
+   the JAX package's qo branch), and the partial (out, lse) rows are
+   LSE-reduced back to their owners; forward and backward at cp=2 (16 / 8
+   heads, auto impl, a trainable sink folded in after the merge) and cp=4
+   (8 / 8, a2a). Rank 0 holds the gathered out, lse, dq, dk, dv and dsink
+   against single-card ``flex_flash_attn_func`` with the same sink; each
+   rank must launch ``flex_fwd``, ``flex_dq`` and ``flex_dkv`` once; each
+   rank's kernel call of the first run is held against the plain versions; an
+   O-return reduce that drops the remote partials, planted in the ranks,
+   must fail the out and lse checks; the plan (impls, received rows,
+   buffers, region areas) and the first key's host ms are printed;
+9. cp_training — the training phase's trainer (same weights, batch and
    optimizer from ``--seed``) at cp=2 (degree 0) and cp=4 (degree 2), 6
    AdamW steps each: every step's loss against the training phase's cp=1
    loss and the first step's gradients (summed over the ranks) against
@@ -3035,6 +3049,214 @@ def cp_attn(pools, seed: int) -> dict:
             "planted_skip_dkv_reduce": {"caught": sorted(caught), "failed": planted["failed"]}}
 
 
+CP_QO_RUNS = (  # (cp ranks, hq, hk, group-collective impl, with a sink)
+    (2, TRAIN_HQ, TRAIN_HK, "auto", True),
+    (4, 8, 8, "a2a", False),
+)
+CP_QO_KERNELS = ("flex_fwd", "flex_dq", "flex_dkv")  # head_block 1 at every G, as JAX's qo branch
+
+
+def drop_remote_partials():
+    """Plant an O-return reduce that loses every partial computed on another
+    rank: each such row arrives as (0, -inf). Returns a function that puts
+    the real reduce back."""
+    import torch
+    from magiattention_tpu_torch.comm import group_collective as gc
+
+    real = gc.return_rows
+
+    def dropping(y, rt, group, fill=0.0):
+        parts = real(y, rt, group, fill)
+        if rt.impl == "hops":
+            remote = [torch.full((rows.shape[0],), bool(h.shift % rt.cp_size), device=rows.device)
+                      for h, (rows, _) in zip(rt.hops, parts)]
+        else:  # a2a: block i of the returned buffer came from rank i
+            remote = [(rt.back_pos // rt.max_send) != rt.rank]
+        return [(torch.where(m.view((-1,) + (1,) * (rows.ndim - 1)), torch.full_like(rows, fill),
+                             rows), seg) for (rows, seg), m in zip(parts, remote)]
+
+    gc.return_rows = dropping
+
+    def restore():
+        gc.return_rows = real
+
+    return restore
+
+
+@in_rank
+def cp_qo_attn_rank(group, hq: int, hk: int, impl: str, with_sink: bool, seed: int,
+                    stage_check: bool, drop_remote: bool = False) -> dict:
+    """One rank of qo-comm through the keyed API on the card:
+    ``MAGI_ATTENTION_QO_COMM=1`` -> ``magi_attn_flex_key`` on the hetero mask
+    -> ``dispatch`` -> ``calc_attn`` -> ``undispatch``, forward and backward
+    (bf16, d 128, random out and lse cotangents, and with ``with_sink`` a
+    trainable [hq] f32 sink from the seed); the plan's facts and the first
+    key's host ms; its kernel launches; a second, timed run; on rank 0 the
+    gathered out, lse, dq, dk, dv (and dsink) against single-card
+    ``flex_flash_attn_func`` pinned to the row-major grid with the same
+    sink; with ``stage_check`` its kernel call against the plain versions.
+    ``drop_remote`` plants an O-return reduce that drops every remote
+    partial (rank 0 then returns the failed checks instead of raising). The
+    flags are set for this task only."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.ops.flex_attn import flex_flash_attn_func
+    from magiattention_tpu_torch.parallel import QoCommPlan, qo_comm
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cp_rank_setup()
+    saved = {n: os.environ.get(n) for n in ("MAGI_ATTENTION_QO_COMM",
+                                            "MAGI_ATTENTION_GROUP_COLL_IMPL")}
+    os.environ["MAGI_ATTENTION_QO_COMM"] = "1"
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
+    restore = drop_remote_partials() if drop_remote else None
+    real_core = qo_comm.flex_attn_headmajor
+    try:
+        rank, t = dist.get_rank(group), CP_ATTN_T
+        qr, kr, ty = split_slices(varlen_block_causal(t))
+        gen = torch.Generator(device="cuda").manual_seed(seed)  # the same inputs on every rank
+        q, k, v, g_out = (torch.randn((t, h, D), generator=gen, device="cuda",
+                                      dtype=torch.bfloat16) for h in (hq, hk, hk, hq))
+        g_lse = torch.randn((t, hq), generator=gen, device="cuda")
+        sink = torch.randn((hq,), generator=gen, device="cuda") if with_sink else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key = api.magi_attn_flex_key(qr, kr, ty, t, t, group, num_heads=(hq, hk), head_dim=D,
+                                     chunk_size=CP_CHUNK, sink=sink)  # the card, by default
+        key_ms = (time.perf_counter() - t0) * 1e3
+        plan = api.get_runtime_mgr(key).plan
+        check(isinstance(plan, QoCommPlan), f"MAGI_ATTENTION_QO_COMM=1 planned {type(plan)}")
+
+        def run():
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            sg = None if sink is None else sink.detach().requires_grad_()
+            out_l, meta = api.calc_attn(*(api.dispatch(x, key) for x in (qg, kg, vg)), key,
+                                        sink=sg)
+            out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+            loss = (out.float() * g_out.float()).sum() + torch.where(
+                torch.isfinite(lse), lse * g_lse, 0.0).sum()
+            loss.backward()
+            return (out.detach(), lse.detach(), qg.grad, kg.grad, vg.grad,
+                    None if sg is None else sg.grad)
+
+        cap = {}
+
+        def capture(qh, kh, vh, ftab, btab, params, sink=None):
+            out_h, lse_h, rowmax = real_core(qh, kh, vh, ftab, btab, params, sink=sink)
+            cap.update(args=tuple(x.detach() if torch.is_tensor(x) else x
+                                  for x in (qh, kh, vh, ftab, btab, params, sink)),
+                       out=out_h.detach(), lse=lse_h.detach())
+            out_h.register_hook(lambda g: cap.__setitem__("dout", g))
+            lse_h.register_hook(lambda g: cap.__setitem__("dlse", g))
+            return out_h, lse_h, rowmax
+
+        if stage_check:
+            qo_comm.flex_attn_headmajor = capture
+        torch.cuda.synchronize()
+        csrc.reset_launch_counts()
+        out, lse, dq, dk, dv, dsink = run()
+        torch.cuda.synchronize()
+        launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+        qo_comm.flex_attn_headmajor = real_core
+        res = {"rank": rank, "launches": launches, **cp_comm_facts(group),
+               "key_host_ms": key_ms, "impls": [plan.comm_q.impl, plan.comm_kv.impl],
+               "recv_total": {"q": plan.comm_q.recv_total[rank],
+                              "kv": plan.comm_kv.recv_total[rank]},
+               "q_buf_pad": plan.q_buf_pad, "kv_buf_pad": plan.kv_buf_pad,
+               "rank_areas": list(plan.rank_areas), "shard_rows": plan.shard_len,
+               "q_remote_rows": plan.comm_q.true_rows_total - plan.comm_q.local_rows_total}
+        if stage_check:
+            res["stage_check"] = _cp_stage_check(cap)
+        if not drop_remote:  # a second run, timed (the ranks share the card)
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            res["fwd_bwd_ms_ranks_sharing_one_card"] = (time.perf_counter() - t0) * 1e3
+            res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        if rank == 0:  # the gathered results against the single-card kernel path
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            ss = None if sink is None else sink.detach().requires_grad_()
+            ro, rl = flex_flash_attn_func(qs, ks, vs, qr, kr, ty, sink=ss, block_q=BLOCK,
+                                          block_k=BLOCK, head_block=hq // hk, grid="row_major")
+            loss = (ro.float() * g_out.float()).sum() + torch.where(
+                torch.isfinite(rl), rl * g_lse, 0.0).sum()
+            loss.backward()
+            errs, failed = out_errors(out, ro.detach(), [("lse", lse, rl.detach())])
+            pairs = [("dq", dq.transpose(0, 1), qs.grad.transpose(0, 1)),
+                     ("dk", dk.transpose(0, 1), ks.grad.transpose(0, 1)),
+                     ("dv", dv.transpose(0, 1), vs.grad.transpose(0, 1))]
+            if sink is not None:  # [hq] as one [1, hq, 1] tensor
+                pairs.append(("dsink", dsink.view(1, -1, 1), ss.grad.view(1, -1, 1)))
+            for what, got, ref in pairs:
+                e, f = grad_errors(got, ref)
+                errs.update({f"{what}_{n}": x for n, x in e.items()})
+                failed += [f"{what}:{c}" for c in f]
+            res.update(vs_single_card=errs, failed=failed)
+            if not drop_remote:
+                check(not failed, f"qo cp={dist.get_world_size(group)} heads {hq}/{hk} "
+                      f"{impl}: the gathered results fail {failed}: {errs}")
+        return res
+    finally:
+        qo_comm.flex_attn_headmajor = real_core
+        if restore is not None:
+            restore()
+        for n, val in saved.items():
+            if val is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = val
+
+
+def cp_qo_attn(pools, seed: int) -> dict:
+    """qo-comm through the keyed API: cp=2 at 16 / 8 heads with the auto
+    group-collective impl and a trainable sink, cp=4 at 8 / 8 on a2a; each
+    rank launches ``flex_fwd``, ``flex_dq`` and ``flex_dkv`` once per
+    forward + backward; each rank's kernel call of the first run against
+    the plain versions; a planted O-return reduce that drops the remote
+    partials must fail out and lse."""
+    runs, launches = [], {}
+    for i, (cp, hq, hk, impl, with_sink) in enumerate(CP_QO_RUNS):
+        res = pools[cp].run(cp_qo_attn_rank, hq, hk, impl, with_sink, seed, i == 0)
+        for r in res:
+            check(r["launches"] == {n: 1 for n in CP_QO_KERNELS},
+                  f"qo cp={cp} heads {hq}/{hk} rank {r['rank']}: launches {r['launches']}, "
+                  f"expected one each of {CP_QO_KERNELS}")
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+            for n, e in r.get("stage_check", {}).get("kernel_max_abs_err", {}).items():
+                MAX_ERR[n] = max(MAX_ERR[n], e)
+        check(res[0]["q_remote_rows"] > 0, f"qo cp={cp}: the plan moves no Q rows, so the "
+              "LSE reduce carries no remote partial")
+        runs.append({"cp": cp, "heads": [hq, hk], "impl_flag": impl, "sink": with_sink,
+                     "impls": res[0]["impls"], "backend": res[0]["backend"],
+                     "staged_through_host": res[0]["staged_through_host"],
+                     "recv_total_per_rank": [r["recv_total"] for r in res],
+                     "q_buf_pad": res[0]["q_buf_pad"], "kv_buf_pad": res[0]["kv_buf_pad"],
+                     "rank_areas": res[0]["rank_areas"], "q_remote_rows": res[0]["q_remote_rows"],
+                     "key_host_ms_per_rank": [r["key_host_ms"] for r in res],
+                     "launches_per_rank": [r["launches"] for r in res],
+                     "vs_single_card": res[0]["vs_single_card"],
+                     "stage_checks": [r["stage_check"] for r in res if "stage_check" in r],
+                     "fwd_bwd_ms_ranks_sharing_one_card": [
+                         r["fwd_bwd_ms_ranks_sharing_one_card"] for r in res],
+                     "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                                    for r in res]})
+    cp, hq, hk, impl, _ = CP_QO_RUNS[1]
+    planted = pools[cp].run(cp_qo_attn_rank, hq, hk, impl, False, seed, False, True)[0]
+    caught = {c.split(":")[0] for c in planted["failed"]}
+    check("out" in caught and any(c.startswith("lse") for c in caught),
+          f"the planted drop of remote partials: failed checks {planted['failed']}, "
+          "expected out and lse among them")
+    return {"phase": "cp_qo_attn", "tokens": CP_ATTN_T, "chunk": CP_CHUNK, "head_dim": D,
+            "dtype": "bfloat16", "note": "ranks sharing one card: not cp speeds",
+            "runs": runs, "launches": launches,
+            "planted_drop_remote_partials": {"caught": sorted(caught),
+                                             "failed": planted["failed"]}}
+
+
 @in_rank
 def cp_training_rank(group, degree: int, seed: int, cp1_grads: str, steps: int) -> dict:
     """One rank of the Llama trainer under cp on the card: the ``training``
@@ -3207,6 +3429,8 @@ def main(argv=None) -> int:
     try:
         cp_attn_line = cp_attn(pools, args.seed)
         emit(cp_attn_line)
+        cp_qo_line = cp_qo_attn(pools, args.seed)
+        emit(cp_qo_line)
         cp_train_line = cp_training(pools, args.seed,
                                     {"losses": train["losses"], "grads_path": grads_path})
         emit(cp_train_line)
@@ -3219,7 +3443,7 @@ def main(argv=None) -> int:
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
                "prefix": prefix_line["launches"], "training": train["launches"],
                "hetero": hetero_line["launches"], "cp_attn": cp_attn_line["launches"],
-               "cp_training": cp_train_line["launches"]}
+               "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

@@ -18,8 +18,14 @@ path is a dictionary lookup and the rank's kernels and casts::
 Every rank holds the global tensors and calls the same sequence. Entry
 points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"`` (the kernels' plain versions); without a card they raise.
-Not ported yet: cross-attention keys, the bucketed runtime manager, plan
-reuse and ``roll`` (ROADMAP queue A).
+
+Flags: ``MAGI_ATTENTION_QO_COMM`` plans qo-comm (``parallel/qo_comm.py``)
+in place of the K/V-comm plan; ``MAGI_ATTENTION_SANITY_CHECK`` checks the
+slices for overlapping coverage first; ``MAGI_ATTENTION_AUTO_RANGE_MERGE``
+and ``MAGI_ATTENTION_HIERARCHICAL_COMM`` are not ported and make the key
+raise (:func:`check_flag_comb`), so that no flag is taken and then
+ignored. Not ported yet: cross-attention keys, the bucketed runtime
+manager, plan reuse and ``roll`` (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..parallel.dist_attn import (
     dist_attn_local,
     make_attn_params,
 )
+from ..parallel.qo_comm import QoCommPlan, build_qo_comm_plan, qo_comm_attn_local
 from .functools import compute_pad_size, pad_at_dim
 
 GeneralAttnMaskType = str | AttnMaskType | Sequence[str | AttnMaskType]
@@ -82,7 +89,32 @@ def flags_fingerprint() -> tuple:
         env.is_backward_high_precision_reduce(),
         env.group_coll_impl(),
         env.comm_pad_to(),
+        env.is_auto_range_merge_enable(),
+        env.is_qo_comm_enable(),
+        env.is_hierarchical_comm_enable(),
+        env.is_sanity_check_enabled(),
     )
+
+
+def check_flag_comb(*, uneven_shard: bool = False) -> None:
+    """Refuse the flags and flag combinations the port does not run, with
+    a ``ValueError`` that says why, before any planning: the JAX package's
+    ``check_flag_comb`` for qo-comm, and the flags whose JAX path is not
+    ported yet."""
+    qo = env.is_qo_comm_enable()
+    hier = env.is_hierarchical_comm_enable()
+    if env.is_auto_range_merge_enable():
+        raise ValueError("MAGI_ATTENTION_AUTO_RANGE_MERGE is set, and the port has no range "
+                         "merge yet (ROADMAP A.4/A.5): unset it or merge the ranges first")
+    if qo and hier:
+        raise ValueError("qo-comm cannot be combined with hierarchical comm "
+                         "(MAGI_ATTENTION_QO_COMM x MAGI_ATTENTION_HIERARCHICAL_COMM)")
+    if hier:
+        raise ValueError("MAGI_ATTENTION_HIERARCHICAL_COMM is set, and the port has no "
+                         "hierarchical comm yet (ROADMAP A.7/A.8): unset it")
+    if qo and uneven_shard:
+        raise ValueError("qo-comm requires an even shard (uneven_shard=False): the dynamic "
+                         "plane partition is built over equal per-rank token shards")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,10 +146,11 @@ class DistAttnRuntimeKey:
 
 class DistAttnRuntimeMgr:
     """Everything planned for one key on this rank: the dispatch meta, the
-    plan, the kernels' parameters and the sink."""
+    plan (a K/V-comm ``DistAttnPlan``, or a ``QoCommPlan`` under
+    ``MAGI_ATTENTION_QO_COMM``), the kernels' parameters and the sink."""
 
     def __init__(self, key: DistAttnRuntimeKey, group, dispatch_meta: DispatchMeta,
-                 plan: DistAttnPlan, params, sink: torch.Tensor | None,
+                 plan: DistAttnPlan | QoCommPlan, params, sink: torch.Tensor | None,
                  dist_attn_config: DistAttnConfig):
         self.key = key
         self.group = group
@@ -152,8 +185,9 @@ class DistAttnRuntimeMgr:
         """Distributed flex attention on this rank's dispatched shards (q
         [shard, hq, d], k/v [shard, hk, d]). Returns ``(out,
         AttnForwardMeta(lse, max_logits))`` in the same layout;
-        ``max_logits`` [hq] is max-reduced over the group. ``sink``
-        overrides the key's sink (a trainable sink gets its gradient)."""
+        ``max_logits`` [hq] is max-reduced over the group (None on a
+        qo-comm plan, as in the JAX package). ``sink`` overrides the key's
+        sink (a trainable sink gets its gradient)."""
         import torch.distributed as dist
 
         from ..comm.primitives import replicated
@@ -163,6 +197,9 @@ class DistAttnRuntimeMgr:
             raise ValueError("a sink override needs a key made with a sink")
         if s is not None and s.requires_grad:
             s = replicated(s, self.group)  # every rank's rows add to its gradient
+        if isinstance(self.plan, QoCommPlan):
+            out, lse = qo_comm_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
+            return out, AttnForwardMeta(lse=lse, max_logits=None)
         out, lse, mx = dist_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
         mx = mx.detach().clone()
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
@@ -284,7 +321,9 @@ def magi_attn_flex_key(
     The sequence is padded so that chunks divide evenly over the ranks. The
     overlap degree comes from ``dist_attn_config.overlap_config``, else
     ``MAGI_ATTENTION_OVERLAP_DEGREE`` (default 0: one merged cast and one
-    kernel call). ``device`` defaults to the card."""
+    kernel call). Under ``MAGI_ATTENTION_QO_COMM`` the plan is qo-comm's
+    (the dispatch meta's ownership, the key's tile, one kernel call, no
+    overlap stages). ``device`` defaults to the card."""
     import torch.distributed as dist
 
     global _most_recent_key
@@ -301,6 +340,11 @@ def magi_attn_flex_key(
     if not isinstance(k_ranges, AttnRanges):
         k_ranges = AttnRanges.from_ranges(k_ranges)
     types = _coerce_mask_types(attn_type_map, len(q_ranges))
+    check_flag_comb(uneven_shard=dispatch_config.uneven_shard)
+    if env.is_sanity_check_enabled():
+        from ..common.sanity import check_slices_non_overlapping
+
+        check_slices_non_overlapping(q_ranges, k_ranges, types)
     cp_size = dist.get_world_size(cp_group)
     rank = dist.get_rank(cp_group)
     if chunk_size is None:
@@ -345,9 +389,18 @@ def magi_attn_flex_key(
             chunk_size=chunk_size, cp_size=cp_size, dispatch_config=dispatch_config,
         )
         bq, bk, hb = block_config
-        plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk, overlap_config=oc)
-        params = make_attn_params(plan, head_dim, softcap=softcap, has_sink=has_sink,
-                                  out_dtype=out_dtype, head_block=hb)
+        if env.is_qo_comm_enable():
+            # the plane partition over the dispatch meta's ownership; the
+            # sink is folded in after the merge, so the kernels take none
+            slices = np.array([(qr.start, qr.end, kr.start, kr.end, t)
+                               for qr, kr, t in zip(q_ranges, k_ranges, types)], dtype=np.int64)
+            plan = build_qo_comm_plan(slices, total_seqlen_q + pad, cp_size, block_q=bq,
+                                      block_k=bk, dispatch_meta=mq)
+            params = make_attn_params(plan, head_dim, softcap=softcap, out_dtype=out_dtype)
+        else:
+            plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk, overlap_config=oc)
+            params = make_attn_params(plan, head_dim, softcap=softcap, has_sink=has_sink,
+                                      out_dtype=out_dtype, head_block=hb)
         sink_t = None if sink is None else sink.detach().to(device=device, dtype=torch.float32)
         _runtime_dict.put(key, DistAttnRuntimeMgr(key, cp_group, mq, plan, params, sink_t,
                                                   dist_attn_config))

@@ -24,6 +24,10 @@ exchanges them and selects the received rows, :func:`group_reduce_sum` is
 its transpose (index ops for the local pack and unpack), and
 :class:`GroupCast` is the ``torch.autograd.Function`` whose backward is
 that reduce, so that the dK/dV of rows another rank received come home.
+:func:`group_reduce_lse` is the GroupReduce with the LSE op, which brings
+partial (out, lse) rows back to their owners and merges them there
+(qo-comm): the transport is :class:`ReturnRows`, whose backward is a cast
+of the cotangent rows, and the merge runs as torch ops under autograd.
 
 Which buffers an exchange takes follows the group's backend, never a
 caught error: NCCL exchanges the CUDA tensors as they are; gloo takes
@@ -41,6 +45,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..ops.correction import exp_where_finite
 
 NEG_INF = float("-inf")
 
@@ -556,3 +562,112 @@ class GroupCast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return group_reduce_sum(g.contiguous(), ctx.rt, ctx.group), None, None
+
+
+class ReturnRows(torch.autograd.Function):
+    """The transport of a GroupReduce: partial rows ``y`` [R, ...] in the
+    cast's output layout go back to the ranks that own them. Returns one
+    tensor per part of the routing (a2a: one; hops: one per active hop, in
+    hop order): the rows that arrive at this rank, in its send order, the
+    pads of the wire buffers filled with ``fill`` (-inf for an lse
+    payload, so that a pad would never add to a denominator). Linear in
+    ``y``: the backward casts the cotangent rows back the way they came."""
+
+    @staticmethod
+    def forward(ctx, y, rt: RankRouting, group, fill: float):
+        ctx.rt, ctx.group, ctx.n = rt, group, y.shape[0]
+        tail = tuple(y.shape[1:])
+        if rt.impl == "hops":
+            parts = []
+            for h in rt.hops:
+                back = y.new_full((h.size,) + tail, fill)
+                back[: h.recv_pos.shape[0]] = y.index_select(0, h.recv_pos)
+                if h.shift % rt.cp_size:
+                    back = exchange(back, (rt.rank - h.shift) % rt.cp_size,
+                                    (rt.rank + h.shift) % rt.cp_size, group)
+                parts.append(back[: h.seg.shape[0]])
+            return tuple(parts)
+        back = y.new_full((rt.cp_size * rt.max_send,) + tail, fill)
+        back.index_copy_(0, rt.recv_sel, y[: rt.recv_sel.shape[0]])
+        return (all_to_all_rows(back, group).index_select(0, rt.back_pos),)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rt, group = ctx.rt, ctx.group
+        g0 = grads[0]
+        gy = g0.new_zeros((ctx.n,) + tuple(g0.shape[1:]))
+        if rt.impl == "hops":
+            for h, g in zip(rt.hops, grads):
+                buf = g.new_zeros((h.size,) + tuple(g.shape[1:]))
+                buf[: g.shape[0]] = g
+                if h.shift % rt.cp_size:
+                    buf = exchange(buf, (rt.rank + h.shift) % rt.cp_size,
+                                   (rt.rank - h.shift) % rt.cp_size, group)
+                gy.index_add_(0, h.recv_pos, buf[: h.recv_pos.shape[0]])
+            return gy, None, None, None
+        back = g0.new_zeros((rt.cp_size * rt.max_send,) + tuple(g0.shape[1:]))
+        back.index_copy_(0, rt.back_pos, g0)
+        back = all_to_all_rows(back, group)
+        gy[: rt.recv_sel.shape[0]] = back.index_select(0, rt.recv_sel)
+        return gy, None, None, None
+
+
+def return_rows(y: torch.Tensor, rt: RankRouting, group,
+                fill: float = 0.0) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """:class:`ReturnRows` with the owner row of each arriving row: a list
+    of (rows, owner rows) per part of the routing."""
+    if rt.impl == "hops":
+        if not rt.hops:
+            return []
+        segs = [h.seg for h in rt.hops]
+    else:
+        segs = [rt.back_rows]
+    return list(zip(ReturnRows.apply(y, rt, group, fill), segs))
+
+
+def group_reduce_lse(
+    out_partial: torch.Tensor,  # [R, h, d] partial outputs, the cast's output layout
+    lse_partial: torch.Tensor,  # [R, h] their lse (-inf where a row has no keys)
+    out_acc: torch.Tensor,  # [T, h, d] this rank's own partial out
+    lse_acc: torch.Tensor,  # [T, h] and its lse
+    rt: RankRouting,
+    group,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GroupReduce with the LSE op: the partial (out, lse) rows go back to
+    their owners and merge there with the accumulator as one more
+    contribution, lse = log sum exp(lse_i), out = sum exp(lse_i - lse)
+    out_i. Rows nobody contributed to keep (out_acc, lse_acc). The port's
+    counterpart of the JAX package's ``group_reduce_lse`` (a2a),
+    ``hop_reduce_lse`` (hops, merged hop by hop in hop order) and
+    ``group_reduce_lse_m``, with the same two-pass segment logsumexp; a
+    row's running max is held out of the gradient (the result does not
+    depend on it). Differentiable in all four tensors; rows covered by no
+    one get finite (zero) gradients. Returns (out in ``out_acc``'s dtype,
+    lse in f32 or wider)."""
+    parts_out = return_rows(out_partial, rt, group, 0.0)
+    if not parts_out:
+        return out_acc, lse_acc
+    parts_lse = return_rows(lse_partial, rt, group, NEG_INF)
+    acc_t = torch.promote_types(lse_partial.dtype, torch.float32)
+    # pass 1: each owner row's max over every contribution, its own included
+    m = lse_acc.detach().to(acc_t).clone()
+    for lse_k, seg in parts_lse:
+        idx = seg.view(-1, 1).expand(-1, lse_k.shape[1])
+        m.scatter_reduce_(0, idx, lse_k.detach().to(acc_t), "amax", include_self=True)
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    # pass 2: weights and weighted sums, accumulated part by part
+    l_remote = torch.zeros(lse_acc.shape, dtype=acc_t, device=lse_acc.device)
+    out_remote = torch.zeros(out_acc.shape, dtype=acc_t, device=out_acc.device)
+    for (out_k, seg), (lse_k, _) in zip(parts_out, parts_lse):
+        w = exp_where_finite(lse_k, lse_k.to(acc_t) - m_safe.index_select(0, seg))
+        l_remote = l_remote + torch.zeros_like(l_remote).index_add(0, seg, w)
+        out_remote = out_remote + torch.zeros_like(out_remote).index_add(
+            0, seg, w[..., None] * out_k.to(acc_t))
+    l_local = exp_where_finite(lse_acc, lse_acc.to(acc_t) - m_safe)
+    l_tot = l_remote + l_local
+    covered = l_tot > 0
+    lse_new = torch.where(covered, m_safe + torch.log(l_tot.clamp_min(1e-38)),
+                          torch.full_like(l_tot, NEG_INF))
+    out_new = out_remote + l_local[..., None] * out_acc.to(acc_t)
+    denom = torch.where(covered, l_tot, torch.ones_like(l_tot))[..., None]
+    return (out_new / denom).to(out_acc.dtype), lse_new

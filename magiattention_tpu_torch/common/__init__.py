@@ -1,7 +1,7 @@
 """Common host-side types: the mask-type enum, dense-mask semantics and
 slice areas, the range algebra and the rectangles the planners cut."""
 
-from .enum import AttnMaskType, DispatchAlgType, OverlapAlgType
+from .enum import AttnMaskType, DispatchAlgType, DynamicAttnAlgType, OverlapAlgType
 from .mask import make_attn_mask_from_ranges, slice_area, slice_mask
 from .range import AttnRange, NaiveRange, RangeError
 from .ranges import AttnRanges
@@ -14,6 +14,7 @@ __all__ = [
     "AttnRectangle",
     "AttnRectangles",
     "DispatchAlgType",
+    "DynamicAttnAlgType",
     "NaiveRange",
     "OverlapAlgType",
     "RangeError",

@@ -58,3 +58,15 @@ class OverlapAlgType(enum.Enum):
 
     UNIFORM = "uniform"
     GREEDY = "greedy"
+
+
+class DynamicAttnAlgType(enum.Enum):
+    """Partitions of the attention plane for qo-comm
+    (``meta/solver/dynamic_attn_solver.py::dynamic_solver_for``)."""
+
+    BINARY_GREEDY_PARALLEL = "binary_greedy_parallel"
+    BINARY_GREEDY = "binary_greedy"
+    FAST_SIMPLEX_NETWORK_FLOW = "fast_simplex_network_flow"
+    SIMPLEX_NETWORK_FLOW = "simplex_network_flow"
+    GREEDY_RANDOM_GRID = "greedy_random_grid"
+    NON_COMMUNICATION_QO = "non_communication_qo"

@@ -203,3 +203,36 @@ def runtime_dict_size() -> int:
     """LRU capacity of the keyed API's runtime cache
     (``MAGI_ATTENTION_RUNTIME_DICT_SIZE``)."""
     return _env_int("MAGI_ATTENTION_RUNTIME_DICT_SIZE", 100)
+
+
+# -- flags that pick a planner or check its inputs (the same names as the JAX
+# package's; the keyed API honours or refuses each one, never ignores it) -------
+
+
+def is_qo_comm_enable() -> bool:
+    """Route ``magi_attn_flex_key`` through the qo-comm runtime
+    (``parallel/qo_comm.py``: a dynamic partition of the attention plane,
+    Q/O moving as well as K/V; ``MAGI_ATTENTION_QO_COMM``, default off).
+    Refused with hierarchical comm and with an uneven shard
+    (``api/interface.py::check_flag_comb``)."""
+    return _env_bool("MAGI_ATTENTION_QO_COMM", False)
+
+
+def is_sanity_check_enabled() -> bool:
+    """Check a key's slices for overlapping (q, k) coverage before planning
+    (``common/sanity.py``; ``MAGI_ATTENTION_SANITY_CHECK``, default off)."""
+    return _env_bool("MAGI_ATTENTION_SANITY_CHECK", False)
+
+
+def is_auto_range_merge_enable() -> bool:
+    """Merge overlapping k-ranges before planning
+    (``MAGI_ATTENTION_AUTO_RANGE_MERGE``, default off). Not ported: the keyed
+    API and ``flex_flash_attn_func`` raise when it is set."""
+    return _env_bool("MAGI_ATTENTION_AUTO_RANGE_MERGE", False)
+
+
+def is_hierarchical_comm_enable() -> bool:
+    """Two-level (inter, intra) group collectives
+    (``MAGI_ATTENTION_HIERARCHICAL_COMM``, default off). Not ported: the
+    keyed API raises when it is set."""
+    return _env_bool("MAGI_ATTENTION_HIERARCHICAL_COMM", False)

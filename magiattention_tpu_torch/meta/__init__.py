@@ -1,6 +1,7 @@
 """Host-side planning: the dispatch containers, the dispatch meta and the
-solvers (``meta/solver``) that balance chunks over cp ranks and split
-remote work into overlap stages."""
+solvers (``meta/solver``) that balance chunks over cp ranks, split
+remote work into overlap stages and, for qo-comm, cut the attention plane
+into cp regions."""
 
 from .containers import AttnBucket, AttnChunk, AttnSlice
 from .dispatch_meta import (
@@ -8,12 +9,34 @@ from .dispatch_meta import (
     make_dispatch_meta_from_qk_ranges,
     make_global_bucket_from_qk_ranges,
 )
+from .solver.dynamic_attn_solver import (
+    AutoDynamicSolver,
+    DynamicAttnSolution,
+    DynamicAttnSolver,
+    GridLocalitySolver,
+    LocalityGreedySolver,
+    NCQDynamicSolver,
+    dynamic_solver_for,
+    modeled_step_cost,
+    rank_comm_rows,
+)
+from .solver.snf_solver import SNFDynamicSolver
 
 __all__ = [
     "AttnBucket",
     "AttnChunk",
     "AttnSlice",
+    "AutoDynamicSolver",
     "DispatchMeta",
+    "DynamicAttnSolution",
+    "DynamicAttnSolver",
+    "GridLocalitySolver",
+    "LocalityGreedySolver",
+    "NCQDynamicSolver",
+    "SNFDynamicSolver",
+    "dynamic_solver_for",
     "make_dispatch_meta_from_qk_ranges",
     "make_global_bucket_from_qk_ranges",
+    "modeled_step_cost",
+    "rank_comm_rows",
 ]

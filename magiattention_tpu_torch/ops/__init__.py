@@ -4,8 +4,11 @@ backward, row-major and sparse grids)."""
 from .block_meta import FlexAttnBlockMeta, build_block_meta
 from .correction import (
     correct_attn_lse,
+    correct_attn_lse_with_sink,
     correct_attn_out,
     correct_attn_out_lse,
+    correct_attn_out_lse_with_sink,
+    correct_attn_out_with_sink,
     merge_partials,
     safe_lse_merge,
 )
@@ -22,8 +25,11 @@ __all__ = [
     "auto_kernel_config",
     "build_block_meta",
     "correct_attn_lse",
+    "correct_attn_lse_with_sink",
     "correct_attn_out",
     "correct_attn_out_lse",
+    "correct_attn_out_lse_with_sink",
+    "correct_attn_out_with_sink",
     "flex_attn_with_meta",
     "flex_flash_attn_func",
     "merge_partials",

@@ -1,9 +1,11 @@
 """Out/LSE correction math: merging partial attention results.
 
 Numerically-safe log-sum-exp merging of partial attention outputs computed
-over disjoint KV subsets. Plain torch elementwise ops, as the JAX package's
-are plain jnp: the split-KV decode merges its splits through
-:func:`merge_partials`.
+over disjoint KV subsets, and the fold of attention sinks into a merged
+result. Plain torch elementwise ops, as the JAX package's are plain jnp:
+the split-KV decode merges its splits through :func:`merge_partials`, the
+qo-comm runtime folds its sink in after the merge through
+:func:`correct_attn_out_lse_with_sink`.
 
 Convention: a partial result is (out, lse) where out rows with no coverage
 are 0 and their lse is -inf; merging is associative and commutative. The
@@ -13,6 +15,8 @@ payload is garbage (NaN/inf).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -99,3 +103,72 @@ def merge_partials(
             next_l.append(lses[-1])
         outs, lses = next_o, next_l
     return outs[0], lses[0]
+
+
+SINK_LAYOUTS = ("sh", "ssh", "shd")
+
+
+def exp_where_finite(x: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
+    """exp(arg), 0 where ``x`` is -inf; the masked entries' ``arg`` (which
+    may be NaN there) never reaches the exp or its gradient."""
+    return torch.exp(torch.where(torch.isneginf(x), torch.full_like(arg, NEG_INF), arg))
+
+
+def _sink_lse(sink: torch.Tensor, sink_layout: str, tq: int) -> torch.Tensor:
+    """Per-(row, head) log-denominator contribution of the sink tokens:
+    ``sh`` = [S, hq] logits shared by every q row; ``ssh`` = [tq, S, hq]
+    per-row logits; ``shd`` = [S, hq, head_dim] sinks with logit 0 that
+    carry a value (each adds log(S) to the denominator, whatever q is)."""
+    s = sink.float()
+    if sink_layout == "sh":
+        if s.ndim != 2:
+            raise ValueError(f"sh sink must be [S, hq], got {tuple(s.shape)}")
+        return torch.logsumexp(s, dim=0)[None, :]  # [1, hq]
+    if sink_layout == "ssh":
+        if s.ndim != 3 or s.shape[0] != tq:
+            raise ValueError(f"ssh sink must be [tq, S, hq], got {tuple(s.shape)} (tq={tq})")
+        return torch.logsumexp(s, dim=1)  # [tq, hq]
+    if sink_layout == "shd":
+        if s.ndim != 3:
+            raise ValueError(f"shd sink must be [S, hq, d], got {tuple(s.shape)}")
+        n = s.shape[0]
+        return torch.full((1, s.shape[1]), math.log(n) if n else NEG_INF, device=s.device)
+    raise ValueError(f"sink_layout={sink_layout!r}: expected one of {SINK_LAYOUTS}")
+
+
+def correct_attn_lse_with_sink(
+    lse: torch.Tensor, sink: torch.Tensor, sink_layout: str = "sh"
+) -> torch.Tensor:
+    """lse' = logaddexp(lse, the sink's lse)."""
+    return safe_lse_merge(lse, _sink_lse(sink, sink_layout, lse.shape[0]).expand(lse.shape))
+
+
+def correct_attn_out_with_sink(
+    out: torch.Tensor, lse: torch.Tensor, sink: torch.Tensor, sink_layout: str = "sh"
+) -> torch.Tensor:
+    """out' = out * exp(lse - lse'): the sink joins the softmax denominator
+    exactly once; uncovered rows (lse = -inf) stay 0. An ``shd`` sink's
+    values also join the numerator."""
+    return correct_attn_out_lse_with_sink(out, lse, sink, sink_layout)[0]
+
+
+def correct_attn_out_lse_with_sink(
+    out: torch.Tensor,  # [t, h, d]
+    lse: torch.Tensor,  # [t, h]
+    sink: torch.Tensor,
+    sink_layout: str = "sh",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out', lse') with the sink folded in once. ``sh`` / ``ssh`` sinks are
+    pure logits: they rescale ``out`` by exp(lse - lse'). ``shd`` sinks carry
+    values: each of the S sink tokens attends with logit 0 and value
+    sink[s, h, :], so out' = exp(lse - lse') * out + exp(-lse') * sum_s
+    sink[s]. Differentiable in out, lse and sink, with finite gradients on
+    uncovered rows."""
+    lse_tot = correct_attn_lse_with_sink(lse, sink, sink_layout)
+    w = exp_where_finite(lse, lse - lse_tot)
+    out32 = out.float() * w[..., None]
+    if sink_layout == "shd":
+        # lse' = -inf only when S = 0 and the row is uncovered: it stays 0
+        w_sink = exp_where_finite(lse_tot, -lse_tot)
+        out32 = out32 + w_sink[..., None] * sink.float().sum(dim=0)[None]
+    return out32.to(out.dtype), lse_tot

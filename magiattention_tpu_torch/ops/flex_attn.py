@@ -720,9 +720,15 @@ class _FlexAttnCore(torch.autograd.Function):
         # The lse cotangent is first-class: with out = softmax(s) v and
         # lse = logsumexp(s), dL/ds = p (dp - (delta - dlse)), so dlse folds
         # into the delta term (an unused output's cotangent arrives as 0).
-        acc_t = torch.promote_types(out.dtype, torch.float32)
-        delta = (dout.to(acc_t) * out.to(acc_t)).sum(-1) - dlse.to(acc_t)
+        # delta is taken from the dO the kernels read (rounded to q's dtype),
+        # so that dp - delta cancels exactly where the two agree: a partial's
+        # f32 cotangent (a cp stage, a qo-comm region) rounded for dp but not
+        # for delta would leave its rounding error times sum_k p k in dq. The
+        # JAX package takes delta from the unrounded cotangent; the two agree
+        # whenever dO already has q's dtype (f32, or a bf16 loss gradient).
         do = dout.to(q.dtype).contiguous()
+        acc_t = torch.promote_types(out.dtype, torch.float32)
+        delta = (do.to(acc_t) * out.to(acc_t)).sum(-1) - dlse.to(acc_t)
         args = (q, k, v, do, lse, delta)
         if not ctx.kernel:
             dq = _dq_torch(*args, ctx.ftab, params)
@@ -988,6 +994,9 @@ def flex_flash_attn_func(
     else ``"row_major"``, as the reference takes it."""
     from .. import env
 
+    if env.is_auto_range_merge_enable():
+        raise ValueError("MAGI_ATTENTION_AUTO_RANGE_MERGE is set, and the port has no range "
+                         "merge yet (ROADMAP A.4/A.5): unset it or merge the ranges first")
     q_arr = np.ascontiguousarray(np.asarray(q_ranges, dtype=np.int64).reshape(-1, 2))
     k_arr = np.ascontiguousarray(np.asarray(k_ranges, dtype=np.int64).reshape(-1, 2))
     t_arr = np.ascontiguousarray(np.asarray(attn_type_map, dtype=np.int64).reshape(-1))

@@ -1,5 +1,6 @@
-"""Context parallelism over ``torch.distributed``: dispatch / undispatch
-and the distributed flex-attention plan and runtime."""
+"""Context parallelism over ``torch.distributed``: dispatch / undispatch,
+the distributed flex-attention plan and runtime (K/V comm), and qo-comm
+(a dynamic partition of the attention plane, Q/O moving as well)."""
 
 from .dispatch import dispatch, position_ids, undispatch
 from .dist_attn import (
@@ -11,16 +12,21 @@ from .dist_attn import (
     make_attn_params,
     rank_tables,
 )
+from .qo_comm import QoCommPlan, build_qo_comm_plan, qo_comm_attn_local, qo_rank_tables
 
 __all__ = [
     "DistAttnPlan",
+    "QoCommPlan",
     "StagePlan",
     "StageTables",
     "build_dist_attn_plan",
+    "build_qo_comm_plan",
     "dispatch",
     "dist_attn_local",
     "make_attn_params",
     "position_ids",
+    "qo_comm_attn_local",
+    "qo_rank_tables",
     "rank_tables",
     "undispatch",
 ]

@@ -562,7 +562,7 @@ def build_dist_attn_plan(
 
 
 def make_attn_params(
-    plan: DistAttnPlan,
+    plan,  # DistAttnPlan or parallel.qo_comm.QoCommPlan: only its tile is read
     head_dim: int,
     *,
     scale: float | None = None,
@@ -573,7 +573,9 @@ def make_attn_params(
 ) -> FlexAttnParams:
     """The kernels' static parameters for a plan: its tile, the row-major
     grid (the distributed tables are row-major walks, as in the JAX
-    package), and ``head_block`` (> 1 launches ``flex_fwd_hb``)."""
+    package), and ``head_block`` (> 1 launches ``flex_fwd_hb``; a qo-comm
+    plan keeps 1, as the JAX package's qo branch does, so it launches
+    ``flex_fwd`` at every G)."""
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     return FlexAttnParams(

@@ -1,14 +1,21 @@
 """The port's LSE correction (torch) against the JAX package's (jnp) on the
 same partials, including the all--inf hardening that
 ``tests/test_serving/test_correction_neginf.py`` pins: uncovered rows stay
-(0, -inf) and garbage (NaN/inf) payloads on them never leak into a merge."""
+(0, -inf) and garbage (NaN/inf) payloads on them never leak into a merge.
+Then the sink fold in its three layouts (``sh``, ``ssh``, ``shd``), forward
+and gradient against ``jax.grad``, on covered and uncovered rows."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 from magiattention_tpu.ops.correction import (
+    correct_attn_lse_with_sink as jax_lse_with_sink,
+    correct_attn_out_lse_with_sink as jax_out_lse_with_sink,
+    correct_attn_out_with_sink as jax_out_with_sink,
     correct_attn_out as jax_correct_out,
     correct_attn_out_lse as jax_correct_out_lse,
     merge_partials as jax_merge,
@@ -16,6 +23,9 @@ from magiattention_tpu.ops.correction import (
 )
 from magiattention_tpu_torch.ops.correction import (
     correct_attn_lse,
+    correct_attn_lse_with_sink,
+    correct_attn_out_lse_with_sink,
+    correct_attn_out_with_sink,
     correct_attn_out,
     correct_attn_out_lse,
     merge_partials,
@@ -113,3 +123,73 @@ def test_correct_attn_out_with_merged_lse_matches_jax():
 def test_merge_partials_rejects_empty():
     with pytest.raises(ValueError):
         merge_partials([], [])
+
+
+# (layout, sink tokens): shd with no sink token leaves an uncovered row at -inf
+SINK_CASES = [("sh", 1), ("sh", 3), ("ssh", 2), ("shd", 2), ("shd", 0)]
+
+
+def _sink(rng, layout, n, t, h, d):
+    shape = {"sh": (n, h), "ssh": (t, n, h), "shd": (n, h, d)}[layout]
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("layout,n", SINK_CASES, ids=[f"{lay}{n}" for lay, n in SINK_CASES])
+def test_sink_fold_matches_jax_with_gradients(layout, n):
+    rng = np.random.default_rng(41 + n)
+    t, h, d = 12, 3, 8
+    out, lse, unc = _partial(rng, t, h, d, garbage=False)
+    sink = _sink(rng, layout, n, t, h, d)
+    g_out = rng.standard_normal((t, h, d)).astype(np.float32)
+    g_lse = rng.standard_normal((t, h)).astype(np.float32)
+
+    def jloss(o, l, s):
+        o2, l2 = jax_out_lse_with_sink(o, l, s, layout)
+        return (o2 * g_out).sum() + jnp.where(jnp.isfinite(l2), l2 * g_lse, 0.0).sum()
+
+    jargs = tuple(map(jnp.asarray, (out, lse, sink)))
+    jo, jl = jax_out_lse_with_sink(*jargs, layout)
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
+    ts = [torch.from_numpy(a.copy()).requires_grad_() for a in (out, lse, sink)]
+    po, pl = correct_attn_out_lse_with_sink(*ts, layout)
+    ((po * torch.from_numpy(g_out)).sum()
+     + torch.where(torch.isfinite(pl), pl * torch.from_numpy(g_lse), 0.0).sum()).backward()
+    jl = np.asarray(jl)
+    np.testing.assert_array_equal(np.isneginf(pl.detach().numpy()), np.isneginf(jl))
+    if n == 0:
+        assert np.isneginf(jl[unc]).all()
+    fin = np.isfinite(jl)
+    np.testing.assert_allclose(pl.detach().numpy()[fin], jl[fin], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(po.detach().numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
+    for name, x, g in zip(("dout", "dlse", "dsink"), ts, jg):
+        got, g = x.grad.numpy(), np.asarray(g)
+        assert np.isfinite(got).all(), name
+        if layout == "shd" and n == 0 and name == "dlse":
+            # JAX's gradient is NaN on the rows that stay at -inf (its
+            # exp(lse - lse') evaluates -inf - -inf under the where); the
+            # port's is 0 there, as on every other uncovered row
+            assert np.isnan(g[unc]).all() and not got[unc].any()
+            got, g = got[~unc], g[~unc]
+        np.testing.assert_allclose(got, g, rtol=1e-5, atol=1e-6, err_msg=name)
+    # the two single-output spellings agree with the pair
+    np.testing.assert_array_equal(
+        correct_attn_out_with_sink(*(x.detach() for x in ts), layout).numpy(),
+        po.detach().numpy())
+    np.testing.assert_array_equal(
+        correct_attn_lse_with_sink(ts[1].detach(), ts[2].detach(), layout).numpy(),
+        pl.detach().numpy())
+    np.testing.assert_allclose(
+        np.asarray(jax_out_with_sink(*jargs, layout)), np.asarray(jo), rtol=0, atol=0)
+    np.testing.assert_allclose(
+        np.asarray(jax_lse_with_sink(jargs[1], jargs[2], layout)), jl, rtol=0, atol=0)
+
+
+def test_sink_layout_shapes_are_checked():
+    lse = torch.zeros((4, 2))
+    out = torch.zeros((4, 2, 8))
+    with pytest.raises(ValueError, match="sh sink"):
+        correct_attn_out_lse_with_sink(out, lse, torch.zeros(2), "sh")
+    with pytest.raises(ValueError, match="ssh sink"):
+        correct_attn_out_lse_with_sink(out, lse, torch.zeros((3, 1, 2)), "ssh")
+    with pytest.raises(ValueError, match="expected"):
+        correct_attn_out_lse_with_sink(out, lse, torch.zeros((1, 2)), "hs")

@@ -5,8 +5,9 @@ dq / dk / dv (and the sink's gradient) of ``magi_attn_flex_key`` ->
 ``dispatch`` -> ``calc_attn`` -> ``undispatch`` within rtol 2e-4 / atol
 2e-5, the bound the JAX package holds its own cp layouts to against cp=1
 (``tests/test_models/test_llama.py``). cp 2 and 4, overlap degree 0 and
-2, the a2a and hops group collectives, G 1 and 2, a sink, and a mask that
-leaves rows uncovered; both plans at the 64 x 64 tile. The ranks are
+2, the a2a and hops group collectives, G 1 and 2, a sink, a mask that
+leaves rows uncovered, and an uneven shard; both plans at the 64 x 64
+tile. The ranks are
 spawned once per cp size (``testing.dist.RankPool``) and run every case.
 
 A planted fault (the cast's backward skipping the dK/dV reduce) must fail
@@ -23,6 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from magiattention_tpu.common.ranges import AttnRanges as JaxRanges
 from magiattention_tpu.meta.dispatch_meta import make_dispatch_meta_from_qk_ranges
+from magiattention_tpu.meta.solver.dispatch_solver import DispatchConfig as JaxDispatchConfig
 from magiattention_tpu.meta.solver.overlap_solver import OverlapConfig as JaxOverlapConfig
 from magiattention_tpu.ops.correction import correct_attn_out_lse as jax_correct
 from magiattention_tpu.parallel.dispatch import dispatch, undispatch
@@ -47,6 +49,9 @@ MASKS = {
     "uncovered": ([(0, 256), (384, TOTAL), (384, TOTAL)], [(0, 256), (0, 128), (256, TOTAL)],
                   [1, 0, 1]),
 }
+UNEVEN_TOTAL = 17 * CHUNK  # 17 chunks: an uneven shard at cp 2 and 4
+UNEVEN_DOCS = [(0, 200), (200, 520), (520, 704), (704, UNEVEN_TOTAL)]
+MASKS["uneven_varlen_causal"] = (UNEVEN_DOCS, UNEVEN_DOCS, [1] * len(UNEVEN_DOCS))
 # (cp, mask, degree, impl, (hq, hk), sink)
 CASES = [
     (2, "varlen_causal", 0, "a2a", (4, 4), False),
@@ -63,19 +68,19 @@ def _case_id(c):
     return f"cp{cp}_{mask}_d{degree}_{impl}_g{hq // hk}" + ("_sink" if sink else "")
 
 
-def _inputs(hq, hk, sink, seed=0):
+def _inputs(hq, hk, sink, seed=0, total=TOTAL):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    out = dict(q=f(TOTAL, hq, D), k=f(TOTAL, hk, D), v=f(TOTAL, hk, D),
-               g_out=f(TOTAL, hq, D), g_lse=f(TOTAL, hq))
+    out = dict(q=f(total, hq, D), k=f(total, hk, D), v=f(total, hk, D),
+               g_out=f(total, hq, D), g_lse=f(total, hq))
     if sink:
         out["sink"] = f(hq)
     return out
 
 
-def _case(cp, mask, degree, impl, **extra):
+def _case(cp, mask, degree, impl, total=TOTAL, **extra):
     qr, kr, ty = MASKS[mask]
-    return dict(cp=cp, q_ranges=qr, k_ranges=kr, types=ty, total=TOTAL, chunk=CHUNK,
+    return dict(cp=cp, q_ranges=qr, k_ranges=kr, types=ty, total=total, chunk=CHUNK,
                 degree=degree, impl=impl, min_stage_rows=MIN_STAGE_ROWS, **extra)
 
 
@@ -84,11 +89,12 @@ def _jax_run(case, inputs, monkeypatch):
     same tile, the jnp kernel backend, forward and ``jax.grad``."""
     monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", case["impl"])
-    cp = case["cp"]
+    cp, total = case["cp"], case["total"]
     mesh = Mesh(np.array(jax.devices()[:cp]), ("cp",))
     mq, _, bucket = make_dispatch_meta_from_qk_ranges(
         JaxRanges.from_ranges(case["q_ranges"]), JaxRanges.from_ranges(case["k_ranges"]),
-        case["types"], TOTAL, TOTAL, chunk_size=CHUNK, cp_size=cp)
+        case["types"], total, total, chunk_size=CHUNK, cp_size=cp,
+        dispatch_config=JaxDispatchConfig(uneven_shard=case.get("uneven", False)))
     plan = build_dist_attn_plan(mq, bucket, block_q=64, block_k=64, overlap_config=JaxOverlapConfig(
         degree=case["degree"], min_stage_rows=MIN_STAGE_ROWS))
     has_sink = "sink" in inputs
@@ -142,6 +148,21 @@ def test_keyed_cp_attention_matches_jax(c, pools, monkeypatch):
         np.testing.assert_allclose(got[0][name], ref[name], rtol=RTOL, atol=ATOL, err_msg=name)
         for r in range(1, cp):  # every rank holds the same global result
             np.testing.assert_array_equal(got[r][name], got[0][name], err_msg=f"{name} rank {r}")
+
+
+@pytest.mark.parametrize("cp,degree,impl", [(4, 0, "hops"), (2, 2, "a2a")])
+def test_uneven_shard_matches_jax(cp, degree, impl, pools, monkeypatch):
+    """``DispatchConfig(uneven_shard=True)`` on 17 chunks: the ranks hold
+    unequal numbers of valid rows (pad slots past them), through
+    ``dispatch`` -> ``calc_attn`` -> ``undispatch``."""
+    inputs = _inputs(4, 2, False, total=UNEVEN_TOTAL)
+    case = _case(cp, "uneven_varlen_causal", degree, impl, total=UNEVEN_TOTAL, uneven=True)
+    got = pools[cp].run(workers.keyed_attention, case, inputs)
+    ref = _jax_run(case, inputs, monkeypatch)
+    assert got[0]["partitions"] == ref["partitions"]
+    assert len({len(p) for p in got[0]["partitions"]}) > 1, "the shard must be uneven"
+    for name in ("out", "lse", "dq", "dk", "dv"):
+        np.testing.assert_allclose(got[0][name], ref[name], rtol=RTOL, atol=ATOL, err_msg=name)
 
 
 @pytest.mark.parametrize("cp,impl", [(2, "a2a"), (4, "hops")])

@@ -4,14 +4,19 @@ partitions, every per-rank stage table (``StageTables.arrays()``), every
 cast's ``GroupCollectiveMeta`` routing arrays with its resolved impl, and
 the overlap degree, over mask families x cp {2, 4} x overlap degree {0, 1,
 2, auto} x group-collective impl {a2a, hops, auto}, both plans built at the
-port kernels' 64 x 64 tile. Then the range and rectangle algebra the
+port kernels' 64 x 64 tile; then every partition-returning dispatch
+algorithm over the masks at cp {2, 4} x degree {0, 2}, the uneven shard
+(17 chunks), and the two bound-only algorithms raising in both packages. Then the range and rectangle algebra the
 planners call, on the random inputs of ``tests/test_common/``: every
 operation's result equal to the JAX package's."""
+
+import random
 
 import numpy as np
 import pytest
 
 from magiattention_tpu.common import AttnMaskType as JaxMaskType
+from magiattention_tpu.common.enum import DispatchAlgType as JaxAlgType
 from magiattention_tpu.common.range import AttnRange as JaxRange
 from magiattention_tpu.common.ranges import AttnRanges as JaxRanges
 from magiattention_tpu.common.rectangle import AttnRectangle as JaxRect
@@ -19,17 +24,21 @@ from magiattention_tpu.common.rectangle import AttnRectangles as JaxRects
 from magiattention_tpu.meta.dispatch_meta import (
     make_dispatch_meta_from_qk_ranges as jax_dispatch_meta,
 )
+from magiattention_tpu.meta.solver.dispatch_solver import DispatchAlg as JaxDispatchAlg
+from magiattention_tpu.meta.solver.dispatch_solver import DispatchConfig as JaxDispatchConfig
 from magiattention_tpu.meta.solver.overlap_solver import OverlapConfig as JaxOverlapConfig
 from magiattention_tpu.parallel.dist_attn import build_dist_attn_plan as jax_build_plan
 from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
-from magiattention_tpu_torch.common import AttnMaskType, AttnRange, AttnRanges
+from magiattention_tpu_torch.common import AttnMaskType, AttnRange, AttnRanges, DispatchAlgType
 from magiattention_tpu_torch.common.rectangle import AttnRectangle, AttnRectangles
 from magiattention_tpu_torch.meta import make_dispatch_meta_from_qk_ranges
+from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchAlg, DispatchConfig
 from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
 from magiattention_tpu_torch.parallel import build_dist_attn_plan
 
 TOTAL, CHUNK, BLOCK = 2048, 128, 64
 MIN_STAGE_ROWS = 64  # small enough that degree 2 splits this size's remote rows
+SEED = 0
 
 
 def _window_with_global():
@@ -56,15 +65,25 @@ MASKS = {
 }
 
 
-def _plans(mask, cp, degree):
-    qr, kr, ty = MASKS[mask]
+def _plans(mask, cp, degree, alg=None, uneven=False, masks=None, total=TOTAL):
+    """Both packages' dispatch metas and plans; ``alg`` (a ``DispatchAlgType``
+    name) and ``uneven`` set the ``DispatchConfig`` (default: MinHeap, even)."""
+    qr, kr, ty = (masks or MASKS)[mask]
     oc = dict(degree=degree, min_stage_rows=MIN_STAGE_ROWS)
+    jcfg = pcfg = None
+    if alg is not None or uneven:
+        alg = alg or "MIN_HEAP"
+        jcfg = JaxDispatchConfig(uneven_shard=uneven, alg=JaxDispatchAlg(JaxAlgType[alg]))
+        pcfg = DispatchConfig(uneven_shard=uneven, alg=DispatchAlg(DispatchAlgType[alg]))
+    random.seed(SEED)  # RANDOM_SELECT draws from the process's random module, in both
     jm, _, jb = jax_dispatch_meta(JaxRanges.from_ranges(qr), JaxRanges.from_ranges(kr),
-                                  [JaxMaskType(t) for t in ty], TOTAL, TOTAL, CHUNK, cp)
+                                  [JaxMaskType(t) for t in ty], total, total, CHUNK, cp,
+                                  dispatch_config=jcfg)
+    random.seed(SEED)
     pm, _, pb = make_dispatch_meta_from_qk_ranges(AttnRanges.from_ranges(qr),
                                                   AttnRanges.from_ranges(kr),
-                                                  [AttnMaskType(t) for t in ty], TOTAL, TOTAL,
-                                                  CHUNK, cp)
+                                                  [AttnMaskType(t) for t in ty], total, total,
+                                                  CHUNK, cp, dispatch_config=pcfg)
     jp = jax_build_plan(jm, jb, block_q=BLOCK, block_k=BLOCK,
                         overlap_config=JaxOverlapConfig(**oc))
     pp = build_dist_attn_plan(pm, pb, block_q=BLOCK, block_k=BLOCK,
@@ -107,7 +126,12 @@ def _same_tables(jt, pt, what):
 @pytest.mark.parametrize("mask", sorted(MASKS))
 def test_plan_is_byte_identical_to_jax(mask, cp, degree, impl, monkeypatch):
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)
-    jm, pm, jp, pp = _plans(mask, cp, degree)
+    _same_plans(*_plans(mask, cp, degree), degree)
+    if impl != "auto":
+        assert all(c.impl == impl for c in _plans(mask, cp, degree)[3].comms())
+
+
+def _same_plans(jm, pm, jp, pp, degree):
     assert pm.partitions == jm.partitions
     for f in ("cp_size", "shard_q_len", "shard_q_pad", "block_q", "block_k", "overlap_degree",
               "total_area", "max_rank_area", "host_max_rank_area"):
@@ -123,8 +147,54 @@ def test_plan_is_byte_identical_to_jax(mask, cp, degree, impl, monkeypatch):
             assert ps.max_rank_area == js.max_rank_area
             _same_tables(js.tables, ps.tables, f"stage{i}")
             _same_comm(js.comm, ps.comm, f"stage{i}.comm")
-    if impl != "auto":
-        assert all(c.impl == impl for c in pp.comms())
+
+
+# -- dispatch coverage: every dispatch algorithm, and the uneven shard --------------------------
+
+PARTITIONING_ALGS = [a.name for a in DispatchAlgType
+                     if a.name not in ("LOWER_BOUND", "DYNAMIC_PROGRAMMING")]
+UNEVEN_TOTAL = 17 * CHUNK  # 17 chunks: no cp size here divides them
+UNEVEN_DOCS = [(0, 300), (300, 1100), (1100, 1500), (1500, UNEVEN_TOTAL)]
+UNEVEN_MASKS = {
+    "full": ([(0, UNEVEN_TOTAL)], [(0, UNEVEN_TOTAL)], [0]),
+    "causal": ([(0, UNEVEN_TOTAL)], [(0, UNEVEN_TOTAL)], [1]),
+    "varlen_block_causal": (UNEVEN_DOCS, UNEVEN_DOCS, [1] * len(UNEVEN_DOCS)),
+}
+
+
+@pytest.mark.parametrize("degree", [0, 2], ids=["d0", "d2"])
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("mask", sorted(MASKS))
+@pytest.mark.parametrize("alg", PARTITIONING_ALGS)
+def test_every_dispatch_algorithm_is_byte_identical_to_jax(alg, mask, cp, degree):
+    _same_plans(*_plans(mask, cp, degree, alg=alg), degree)
+
+
+@pytest.mark.parametrize("degree", [0, 2], ids=["d0", "d2"])
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("mask", sorted(UNEVEN_MASKS))
+def test_uneven_shard_is_byte_identical_to_jax(mask, cp, degree):
+    jm, pm, jp, pp = _plans(mask, cp, degree, uneven=True, masks=UNEVEN_MASKS,
+                            total=UNEVEN_TOTAL)
+    assert pm.is_uneven and jm.is_uneven
+    assert pm.rank_valid_lens == jm.rank_valid_lens
+    _same_plans(jm, pm, jp, pp, degree)
+
+
+@pytest.mark.parametrize("alg", ["LOWER_BOUND", "DYNAMIC_PROGRAMMING"])
+def test_bound_only_algorithms_raise_in_both(alg):
+    for pkg in ("jax", "port"):
+        with pytest.raises(ValueError, match="does not return partitions"):
+            if pkg == "jax":
+                jax_dispatch_meta(JaxRanges.from_ranges([(0, TOTAL)]),
+                                  JaxRanges.from_ranges([(0, TOTAL)]), [JaxMaskType(1)], TOTAL,
+                                  TOTAL, CHUNK, 2, dispatch_config=JaxDispatchConfig(
+                                      alg=JaxDispatchAlg(JaxAlgType[alg])))
+            else:
+                make_dispatch_meta_from_qk_ranges(
+                    AttnRanges.from_ranges([(0, TOTAL)]), AttnRanges.from_ranges([(0, TOTAL)]),
+                    [AttnMaskType(1)], TOTAL, TOTAL, CHUNK, 2,
+                    dispatch_config=DispatchConfig(alg=DispatchAlg(DispatchAlgType[alg])))
 
 
 def test_degree_two_stages_remote_rows():

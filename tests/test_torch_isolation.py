@@ -88,6 +88,19 @@ def test_keyed_cp_entry_points_raise_without_a_card(entry):
         getattr(api, entry)(*args, num_heads=(4, 2), head_dim=64, chunk_size=64)
 
 
+def test_qo_comm_key_raises_without_a_card(monkeypatch):
+    """Under ``MAGI_ATTENTION_QO_COMM`` too, the keyed API runs on the card
+    by default and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be observed here")
+    from magiattention_tpu_torch import api
+
+    monkeypatch.setenv("MAGI_ATTENTION_QO_COMM", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.magi_attn_flex_key([(0, 256)], [(0, 256)], [1], 256, 256, None, num_heads=(4, 2),
+                               head_dim=64, chunk_size=64)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch):
     from magiattention_tpu_torch import csrc
 

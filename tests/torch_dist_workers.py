@@ -47,6 +47,7 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
 def _keyed_attention(group, case: dict, inputs: dict) -> dict:
     from magiattention_tpu_torch import api
     from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchConfig
     from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
 
     dtype = getattr(torch, case.get("dtype", "float32"))
@@ -57,8 +58,10 @@ def _keyed_attention(group, case: dict, inputs: dict) -> dict:
         case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"], group,
         num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size=case["chunk"],
         sink=sink, out_dtype=dtype, device="cpu",
-        dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(
-            degree=case["degree"], min_stage_rows=case["min_stage_rows"])),
+        dist_attn_config=DistAttnConfig(
+            dispatch_config=DispatchConfig(uneven_shard=case.get("uneven", False)),
+            overlap_config=OverlapConfig(degree=case["degree"],
+                                         min_stage_rows=case["min_stage_rows"])),
     )
     mgr = api.get_runtime_mgr(key)
     out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key), api.dispatch(v, key),
@@ -166,3 +169,179 @@ def comm_primitives(group, impl: str, seed: int) -> dict:
             "sink_grad": s.grad.numpy(), "impl": meta.impl, "n_recv": len(expect),
             "cast_tail_zero": bool((cast[meta.recv_total[rank]:] == 0).all()),
             "adjoint": (float(lhs), float(rhs))}
+
+
+def _drop_remote_partials(gc):
+    """A planted fault in the O-return reduce: every partial row that comes
+    back from another rank arrives as (0, -inf), as if it had been lost.
+    Returns the real ``return_rows`` (the caller puts it back)."""
+    real = gc.return_rows
+
+    def dropping(y, rt, group, fill=0.0):
+        parts = real(y, rt, group, fill)
+        if rt.impl == "hops":
+            remote = [torch.full((rows.shape[0],), bool(h.shift % rt.cp_size))
+                      for h, (rows, _) in zip(rt.hops, parts)]
+        else:  # a2a: block i of the returned buffer came from rank i
+            remote = [(rt.back_pos // rt.max_send) != rt.rank]
+        return [(torch.where(m.view((-1,) + (1,) * (rows.ndim - 1)), torch.full_like(rows, fill),
+                             rows), seg) for (rows, seg), m in zip(parts, remote)]
+
+    gc.return_rows = dropping
+    return real
+
+
+def _solver(kind):
+    from magiattention_tpu_torch import meta
+
+    return {"kd": meta.DynamicAttnSolver, "ncq": meta.NCQDynamicSolver,
+            "grid": meta.GridLocalitySolver, "snf": meta.SNFDynamicSolver,
+            "auto": meta.AutoDynamicSolver}[kind]()
+
+
+def qo_attention(group, case: dict, inputs: dict) -> dict:
+    """qo-comm on the CPU in float32, forward and backward of sum(out *
+    g_out) + sum(lse * g_lse) over the covered rows; returns the global
+    out, lse and gradients (every rank holds them) and the plan's facts.
+
+    ``case["keyed"]``: the keyed API under ``MAGI_ATTENTION_QO_COMM=1``
+    (``dispatch`` -> ``calc_attn`` -> ``undispatch``, the auto solver over
+    the MinHeap dispatch). Else ``qo_comm_attn_local`` on the contiguous
+    shard of a plan built with ``case["solver"]`` (and
+    ``case["dispatch_meta"]``'s ownership when set), the gradients summed
+    over the ranks. ``case["drop_remote"]`` plants an O-return reduce that
+    drops every remote partial."""
+    from magiattention_tpu_torch.comm import group_collective as gc
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    real = _drop_remote_partials(gc) if case.get("drop_remote") else None
+    try:
+        return (_qo_keyed if case.get("keyed") else _qo_local)(group, case, inputs)
+    finally:
+        if real is not None:
+            gc.return_rows = real
+        os.environ.pop("MAGI_ATTENTION_QO_COMM", None)
+
+
+def _loss(out, lse, inputs, rows=slice(None)):
+    g_out = torch.from_numpy(inputs["g_out"])[rows]
+    g_lse = torch.from_numpy(inputs["g_lse"])[rows]
+    return (out * g_out).sum() + torch.where(torch.isfinite(lse), lse * g_lse, 0.0).sum()
+
+
+def _qo_facts(plan) -> dict:
+    return {"impls": [plan.comm_q.impl, plan.comm_kv.impl],
+            "q_remote_rows": plan.comm_q.true_rows_total - plan.comm_q.local_rows_total,
+            "rank_areas": list(plan.rank_areas)}
+
+
+def _qo_keyed(group, case, inputs):
+    from magiattention_tpu_torch import api
+
+    os.environ["MAGI_ATTENTION_QO_COMM"] = "1"
+    q, k, v = (torch.from_numpy(inputs[n]).requires_grad_() for n in ("q", "k", "v"))
+    sink = inputs.get("sink")
+    sink = None if sink is None else torch.from_numpy(sink).requires_grad_()
+    key = api.magi_attn_flex_key(
+        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"], group,
+        num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size=case["chunk"],
+        sink=sink, out_dtype=torch.float32, device="cpu")
+    os.environ.pop("MAGI_ATTENTION_QO_COMM")
+    kv_key = api.magi_attn_flex_key(
+        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"], group,
+        num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size=case["chunk"],
+        sink=sink, out_dtype=torch.float32, device="cpu")
+    mgr = api.get_runtime_mgr(key)
+    out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key), api.dispatch(v, key),
+                                key, sink=sink)
+    out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+    _loss(out, lse, inputs).backward()
+    res = {"out": out.detach().numpy(), "lse": lse.detach().numpy(), "dq": q.grad.numpy(),
+           "dk": k.grad.numpy(), "dv": v.grad.numpy(), "plan": type(mgr.plan).__name__,
+           "kv_plan": type(api.get_runtime_mgr(kv_key).plan).__name__,
+           "keys_differ": key != kv_key, "max_logits": meta.max_logits,
+           "partitions": mgr.dispatch_meta.partitions, **_qo_facts(mgr.plan)}
+    if sink is not None:
+        res["dsink"] = sink.grad.numpy()
+    return res
+
+
+def _qo_local(group, case, inputs):
+    from magiattention_tpu_torch.meta import make_dispatch_meta_from_qk_ranges
+    from magiattention_tpu_torch.parallel import (
+        build_qo_comm_plan,
+        dispatch,
+        make_attn_params,
+        qo_comm_attn_local,
+        undispatch,
+    )
+
+    cp, rank, total = dist.get_world_size(group), dist.get_rank(group), case["total"]
+    slices = np.asarray([(*qr, *kr, t) for qr, kr, t in
+                         zip(case["q_ranges"], case["k_ranges"], case["types"])], np.int64)
+    mq = None
+    if case.get("dispatch_chunk"):
+        from magiattention_tpu_torch.common import AttnMaskType, AttnRanges
+
+        mq, _, _ = make_dispatch_meta_from_qk_ranges(
+            AttnRanges.from_ranges(case["q_ranges"]), AttnRanges.from_ranges(case["k_ranges"]),
+            [AttnMaskType(t) for t in case["types"]], total, total, case["dispatch_chunk"], cp)
+    plan = build_qo_comm_plan(slices, total, cp, block_q=64, block_k=64,
+                              solver=_solver(case["solver"]), dispatch_meta=mq)
+    params = make_attn_params(plan, inputs["q"].shape[2], out_dtype=torch.float32)
+    q, k, v = (torch.from_numpy(inputs[n]).requires_grad_() for n in ("q", "k", "v"))
+    sink = inputs.get("sink")
+    sink = None if sink is None else torch.from_numpy(sink).requires_grad_()
+    n = plan.shard_len
+    grads_local = mq is None  # each rank's backward then gives its own rows' gradients only
+    if grads_local:
+        shard = lambda x: x[rank * n:(rank + 1) * n]  # noqa: E731
+        out_l, lse_l = qo_comm_attn_local(shard(q), shard(k), shard(v), plan, params, group,
+                                          sink=sink)
+        outs = [torch.empty_like(out_l) for _ in range(cp)]
+        lses = [torch.empty_like(lse_l) for _ in range(cp)]
+        dist.all_gather(outs, out_l.detach(), group=group)
+        dist.all_gather(lses, lse_l.detach(), group=group)
+        out, lse = torch.cat(outs), torch.cat(lses)
+        _loss(out_l, lse_l, inputs, slice(rank * n, (rank + 1) * n)).backward()
+    else:  # dispatch's backward gathers the shards' gradients; the sink's is summed
+        from magiattention_tpu_torch.comm import replicated
+
+        out_l, lse_l = qo_comm_attn_local(
+            *(dispatch(x, mq, group) for x in (q, k, v)), plan, params, group,
+            sink=None if sink is None else replicated(sink, group))
+        out, lse = undispatch(out_l, mq, group), undispatch(lse_l, mq, group)
+        _loss(out, lse, inputs).backward()
+        out, lse = out.detach(), lse.detach()
+    grads = {"dq": q.grad, "dk": k.grad, "dv": v.grad}
+    if sink is not None:
+        grads["dsink"] = sink.grad
+    if grads_local:
+        for g in grads.values():
+            dist.all_reduce(g, group=group)
+    return {"out": out.numpy(), "lse": lse.numpy(), **{n: g.numpy() for n, g in grads.items()},
+            **_qo_facts(plan)}
+
+
+def reduce_lse(group, impl: str, ops: dict, send_map, rows: int) -> dict:
+    """``group_reduce_lse`` on its own: this rank's row of the stacked
+    partials and accumulators in ``ops``, the reduce over ``send_map``'s
+    routing and the gradients of sum(out**2) + sum(lse) over the finite
+    lse entries, for every input. ``ops["drop_remote"]`` plants the reduce
+    that drops the partials of other ranks."""
+    from magiattention_tpu_torch.comm import GroupCollectiveMeta, rank_routing
+    from magiattention_tpu_torch.comm import group_collective as gc
+
+    rank = dist.get_rank(group)
+    meta = GroupCollectiveMeta.build(send_map, [rows] * len(send_map), impl=impl)
+    rt = rank_routing(meta, rank, rows, "cpu")
+    xs = [torch.from_numpy(ops[n][rank]).requires_grad_() for n in ("op", "lp", "oa", "la")]
+    real = _drop_remote_partials(gc) if ops.get("drop_remote") else None
+    try:
+        out, lse = gc.group_reduce_lse(*xs, rt, group)
+    finally:
+        if real is not None:
+            gc.return_rows = real
+    ((out ** 2).sum() + torch.where(torch.isfinite(lse), lse, 0.0).sum()).backward()
+    return {"out": out.detach().numpy(), "lse": lse.detach().numpy(), "impl": meta.impl,
+            **{f"d{n}": x.grad.numpy() for n, x in zip(("op", "lp", "oa", "la"), xs)}}
