@@ -135,7 +135,29 @@ Phases, each printing one JSON line:
    AdamW steps each: every step's loss against the training phase's cp=1
    loss and the first step's gradients (summed over the ranks) against
    cp=1's, within ``CP_LOSS_ATOL`` / ``CP_GRAD_REL_L2``; the step times and
-   peak memory per rank, labelled as ranks sharing one card.
+   peak memory per rank, labelled as ranks sharing one card;
+10. cp_hier_attn — hierarchical two-level comm through the keyed API: the
+   four cp ranks as 2 nodes x 2 (``comm.make_hier_cp_groups``), the
+   cp_attn mask at 16 / 8 heads, degree 0, a2a (run A), at 8 / 8, degree
+   2, hops on the intra level (run B), and on run A's key
+   ``make_varlen_key_for_new_mask_after_dispatch`` with a 1024-token
+   sliding window per document (run C, which must inherit the
+   hierarchical plan); the gathered results against single-card
+   ``flex_flash_attn_func``, rank 0's kernel call against the plain
+   versions, the plan's rows that cross between nodes against the flat
+   plan's (both printed), ``roll`` of dispatched integer labels by 1, -1
+   and 4097 exactly equal to the dispatch of ``torch.roll``, and two
+   planted hierarchical reduces (pad slots summed onto row 0; the
+   gateway's pre-reduce skipped) that must fail dk and dv only;
+11. cp_hier_training — the cp_training trainer at cp=4 as 2 x 2 over the
+   hierarchical groups, degree 0, 6 AdamW steps, against cp=1's losses and
+   first-step gradients;
+12. cp_xattn — ``magi_attn_cross_key`` at cp=2 and cp=4, 16 / 8 heads:
+   8192 queries as documents [4096, 2048, 2048] attending FULL to their
+   own span of a 3000-row memory [1500, 750, 750] (padded to the chunk
+   multiple), forward and backward against single-card
+   ``flex_flash_attn_func`` with tq != tk, and a planted skip of the
+   memory's dK/dV reduce that must fail dk and dv only.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them), errors and times; the last line is
@@ -2854,7 +2876,9 @@ def _cp_stage_check(cap) -> dict:
     fwd_name = "flex_fwd_hb" if params.head_block > 1 else "flex_fwd"
     sink1d = torch.zeros((hq,), device=qh.device) if sink is None else sink.float()
     dout = cap["dout"]
-    dlse = cap.get("dlse", torch.zeros_like(lse))
+    dlse = cap.get("dlse")
+    if dlse is None:  # an lse that reaches no loss gets no cotangent
+        dlse = torch.zeros_like(lse)
     do = dout.to(qh.dtype)
     delta = (dout.float() * out.float()).sum(-1) - dlse.float()
     dq = fa._dq_kernel(qh, kh, vh, do, lse, delta, ftab, params)
@@ -2878,6 +2902,75 @@ def _cp_stage_check(cap) -> dict:
             errs[kernel] = max(errs.get(kernel, 0.0), e["max_abs_err"])
     return {"kernel_max_abs_err": errs, "kv_pad": int(kh.shape[1]),
             "q_pad": int(qh.shape[1])}
+
+
+def capturing(real_core, cap: dict):
+    """A stand-in for ``flex_attn_headmajor`` that calls ``real_core`` and
+    keeps the last call's operands, results and the cotangents that reach
+    them in ``cap`` (no extra launch), for ``_cp_stage_check``. Only the
+    kept call's cotangents are kept: an earlier call (a model's earlier
+    layer) gets its cotangent later in the backward."""
+    import torch
+
+    def capture(qh, kh, vh, ftab, btab, params, sink=None):
+        out_h, lse_h, rowmax = real_core(qh, kh, vh, ftab, btab, params, sink=sink)
+        cap.clear()
+        call = object()
+        cap.update(call=call, args=tuple(x.detach() if torch.is_tensor(x) else x
+                                         for x in (qh, kh, vh, ftab, btab, params, sink)),
+                   out=out_h.detach(), lse=lse_h.detach())
+
+        def keep(name):
+            def hook(g):
+                if cap.get("call") is call:
+                    cap[name] = g
+            return hook
+
+        out_h.register_hook(keep("dout"))
+        lse_h.register_hook(keep("dlse"))
+        return out_h, lse_h, rowmax
+
+    return capture
+
+
+def vs_single_card(got, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk) -> tuple[dict, list]:
+    """The gathered (out, lse, dq, dk, dv) of a cp run against single-card
+    ``flex_flash_attn_func`` pinned to the row-major grid on the same
+    inputs and cotangents: (errors, failed checks)."""
+    import torch
+    from magiattention_tpu_torch.ops.flex_attn import flex_flash_attn_func
+
+    out, lse, dq, dk, dv = got
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    ro, rl = flex_flash_attn_func(qs, ks, vs, qr, kr, ty, block_q=BLOCK, block_k=BLOCK,
+                                  head_block=hq // hk, grid="row_major")
+    loss = (ro.float() * g_out.float()).sum() + torch.where(
+        torch.isfinite(rl), rl * g_lse, 0.0).sum()
+    loss.backward()
+    errs, failed = out_errors(out, ro.detach(), [("lse", lse, rl.detach())])
+    for what, g, ref in (("dq", dq, qs.grad), ("dk", dk, ks.grad), ("dv", dv, vs.grad)):
+        e, f = grad_errors(g.transpose(0, 1), ref.transpose(0, 1))
+        errs.update({f"{what}_{n}": x for n, x in e.items()})
+        failed += [f"{what}:{c}" for c in f]
+    return errs, failed
+
+
+def keyed_fwd_bwd(key, q, k, v, g_out, g_lse, cross=False):
+    """``dispatch`` (``dispatch_kv`` for a cross key's memory) ->
+    ``calc_attn`` -> ``undispatch``, and the backward of sum(out * g_out) +
+    sum(lse * g_lse) over the covered rows: the gathered (out, lse, dq, dk,
+    dv)."""
+    import torch
+    from magiattention_tpu_torch import api
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    kv = api.dispatch_kv if cross else api.dispatch
+    out_l, meta = api.calc_attn(api.dispatch(qg, key), kv(kg, key), kv(vg, key), key)
+    out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+    loss = (out.float() * g_out.float()).sum() + torch.where(
+        torch.isfinite(lse), lse * g_lse, 0.0).sum()
+    loss.backward()
+    return out.detach(), lse.detach(), qg.grad, kg.grad, vg.grad
 
 
 def in_rank(fn):
@@ -2921,7 +3014,6 @@ def cp_attn_rank(group, hq: int, hk: int, degree: int, seed: int, stage_check: b
     from magiattention_tpu_torch.comm import group_collective as gc
     from magiattention_tpu_torch.config import DistAttnConfig
     from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
-    from magiattention_tpu_torch.ops.flex_attn import flex_flash_attn_func
     from magiattention_tpu_torch.parallel import dist_attn
     from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
 
@@ -2937,38 +3029,17 @@ def cp_attn_rank(group, hq: int, hk: int, degree: int, seed: int, stage_check: b
         dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=degree)),
     )  # the card, by default
     plan = api.get_runtime_mgr(key).plan
-
-    def run():
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        out_l, meta = api.calc_attn(*(api.dispatch(x, key) for x in (qg, kg, vg)), key)
-        out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
-        loss = (out.float() * g_out.float()).sum() + torch.where(
-            torch.isfinite(lse), lse * g_lse, 0.0).sum()
-        loss.backward()
-        return out.detach(), lse.detach(), qg.grad, kg.grad, vg.grad
-
     cap = {}
     real_core, real_bwd = dist_attn.flex_attn_headmajor, gc.GroupCast.backward
-
-    def capture(qh, kh, vh, ftab, btab, params, sink=None):
-        out_h, lse_h, rowmax = real_core(qh, kh, vh, ftab, btab, params, sink=sink)
-        cap.clear()  # keep the last call of the plan
-        cap.update(args=tuple(x.detach() if torch.is_tensor(x) else x
-                              for x in (qh, kh, vh, ftab, btab, params, sink)),
-                   out=out_h.detach(), lse=lse_h.detach())
-        out_h.register_hook(lambda g: cap.__setitem__("dout", g))
-        lse_h.register_hook(lambda g: cap.__setitem__("dlse", g))
-        return out_h, lse_h, rowmax
-
     if skip_reduce:
         gc.GroupCast.backward = staticmethod(
             lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
     if stage_check:
-        dist_attn.flex_attn_headmajor = capture
+        dist_attn.flex_attn_headmajor = capturing(real_core, cap)
     try:
         torch.cuda.synchronize()
         csrc.reset_launch_counts()
-        out, lse, dq, dk, dv = run()
+        got = keyed_fwd_bwd(key, q, k, v, g_out, g_lse)
         torch.cuda.synchronize()
         launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
     finally:
@@ -2983,22 +3054,12 @@ def cp_attn_rank(group, hq: int, hk: int, degree: int, seed: int, stage_check: b
         dist.barrier(group)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        keyed_fwd_bwd(key, q, k, v, g_out, g_lse)
         torch.cuda.synchronize()
         res["fwd_bwd_ms_ranks_sharing_one_card"] = (time.perf_counter() - t0) * 1e3
         res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     if rank == 0:  # the gathered results against the single-card kernel path
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        ro, rl = flex_flash_attn_func(qs, ks, vs, qr, kr, ty, block_q=BLOCK, block_k=BLOCK,
-                                      head_block=hq // hk, grid="row_major")
-        loss = (ro.float() * g_out.float()).sum() + torch.where(
-            torch.isfinite(rl), rl * g_lse, 0.0).sum()
-        loss.backward()
-        errs, failed = out_errors(out, ro.detach(), [("lse", lse, rl.detach())])
-        for what, got, ref in (("dq", dq, qs.grad), ("dk", dk, ks.grad), ("dv", dv, vs.grad)):
-            e, f = grad_errors(got.transpose(0, 1), ref.transpose(0, 1))
-            errs.update({f"{what}_{n}": x for n, x in e.items()})
-            failed += [f"{what}:{c}" for c in f]
+        errs, failed = vs_single_card(got, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk)
         res.update(vs_single_card=errs, failed=failed)
         if not skip_reduce:
             check(not failed, f"cp={dist.get_world_size(group)} degree {degree} heads "
@@ -3141,18 +3202,8 @@ def cp_qo_attn_rank(group, hq: int, hk: int, impl: str, with_sink: bool, seed: i
                     None if sg is None else sg.grad)
 
         cap = {}
-
-        def capture(qh, kh, vh, ftab, btab, params, sink=None):
-            out_h, lse_h, rowmax = real_core(qh, kh, vh, ftab, btab, params, sink=sink)
-            cap.update(args=tuple(x.detach() if torch.is_tensor(x) else x
-                                  for x in (qh, kh, vh, ftab, btab, params, sink)),
-                       out=out_h.detach(), lse=lse_h.detach())
-            out_h.register_hook(lambda g: cap.__setitem__("dout", g))
-            lse_h.register_hook(lambda g: cap.__setitem__("dlse", g))
-            return out_h, lse_h, rowmax
-
         if stage_check:
-            qo_comm.flex_attn_headmajor = capture
+            qo_comm.flex_attn_headmajor = capturing(real_core, cap)
         torch.cuda.synchronize()
         csrc.reset_launch_counts()
         out, lse, dq, dk, dv, dsink = run()
@@ -3258,24 +3309,31 @@ def cp_qo_attn(pools, seed: int) -> dict:
 
 
 @in_rank
-def cp_training_rank(group, degree: int, seed: int, cp1_grads: str, steps: int) -> dict:
+def cp_training_rank(group, degree: int, seed: int, cp1_grads: str, steps: int,
+                     hier: tuple | None = None) -> dict:
     """One rank of the Llama trainer under cp on the card: the ``training``
     phase's model, batch and weights from ``seed``, this rank's shard,
     ``steps`` AdamW steps; rank 0 holds the first step's gradients (summed
-    over the ranks) against cp=1's, saved by the ``training`` phase."""
+    over the ranks) against cp=1's, saved by the ``training`` phase, and
+    the first step's last kernel call against the plain versions.
+    ``hier`` = (n_inter, n_intra) builds the model over the hierarchical
+    groups of that layout."""
     import torch
     import torch.distributed as dist
     from magiattention_tpu_torch import csrc
     from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
     from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
     from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+    from magiattention_tpu_torch.parallel import dist_attn
 
     cp_rank_setup()
+    rank = dist.get_rank(group)
     cfg = dataclasses.replace(LlamaConfig(), n_layers=TRAIN_LAYERS)
     total = sum(TRAIN_DOCS)
     qr, kr, ts = infer_varlen_mask_from_batch(TRAIN_DOCS)
     torch.cuda.reset_peak_memory_stats()
-    model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed, cp_group=group,
+    cp_group = hier_cp_groups(group, hier) if hier else group
+    model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed, cp_group=cp_group,
                              chunk_size=CP_CHUNK, overlap_config=OverlapConfig(degree=degree))
     gen = torch.Generator(device="cuda").manual_seed(seed)  # the training phase's batch
     tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
@@ -3283,34 +3341,49 @@ def cp_training_rank(group, degree: int, seed: int, cp1_grads: str, steps: int) 
     tok, lab = model.shard(tokens), model.shard(labels)
     pos = model.position_ids().cuda()
     step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
-    losses, step_ms, grad_rel_l2 = [], [], None
+    losses, step_ms, grad_rel_l2, cap = [], [], None, {}
+    real_core = dist_attn.flex_attn_headmajor
+    if rank == 0:  # keep the first step's last kernel call (no extra launch)
+        dist_attn.flex_attn_headmajor = capturing(real_core, cap)
     csrc.reset_launch_counts()
-    for i in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(float(step(tok, lab, pos)))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == 0 and dist.get_rank(group) == 0:
-            ref = torch.load(cp1_grads)
-            grad_rel_l2 = [float((p.grad - r.cuda()).norm() / r.norm())
-                           for p, r in zip(model.parameters(), ref)]
-            del ref
+    try:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(tok, lab, pos)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            dist_attn.flex_attn_headmajor = real_core
+            if i == 0 and rank == 0:
+                ref = torch.load(cp1_grads)
+                grad_rel_l2 = [float((p.grad - r.cuda()).norm() / r.norm())
+                               for p, r in zip(model.parameters(), ref)]
+                del ref
+    finally:
+        dist_attn.flex_attn_headmajor = real_core
     launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
-    return {"rank": dist.get_rank(group), "losses": losses, "step_ms": step_ms,
+    stage = _cp_stage_check(cap) if rank == 0 else None
+    cap.clear()
+    return {"rank": rank, "losses": losses, "step_ms": step_ms, "stage_check": stage,
             "launches": launches, "grad_rel_l2": grad_rel_l2,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "head_block": model.head_block, "overlap_degree": model.plan.overlap_degree,
-            "impls": [c.impl for c in model.plan.comms()], **cp_comm_facts(group)}
+            "impls": [c.impl for c in model.plan.comms()], "hier": model.plan.hier,
+            **cp_comm_facts(group)}
 
 
-def cp_training(pools, seed: int, cp1: dict) -> dict:
-    """The training phase's trainer at cp=2 (degree 0) and cp=4 (degree 2):
+def cp_training(pools, seed: int, cp1: dict, runs_of=CP_RUNS, hier=None,
+                phase="cp_training") -> dict:
+    """The training phase's trainer at cp=2 (degree 0) and cp=4 (degree 2),
+    or over ``hier``'s two-level groups at the (cp, degree) of ``runs_of``:
     every step's loss within CP_LOSS_ATOL of cp=1's, the first step's
-    gradients of every parameter within CP_GRAD_REL_L2 relative L2."""
+    gradients of every parameter within CP_GRAD_REL_L2 relative L2, rank
+    0's first-step kernel call against the plain versions."""
     runs, launches = [], {}
-    for cp, degree in CP_RUNS:
-        res = pools[cp].run(cp_training_rank, degree, seed, cp1["grads_path"], TRAIN_STEPS)
+    for cp, degree in runs_of:
+        res = pools[cp].run(cp_training_rank, degree, seed, cp1["grads_path"], TRAIN_STEPS, hier)
+        check(res[0]["hier"] == (tuple(hier) if hier else None),
+              f"cp={cp}: the plan's layout is {res[0]['hier']}, not {hier}")
         for r in res:
             check(r["losses"] == res[0]["losses"], f"cp={cp}: the ranks report other losses")
             check(set(r["launches"]) == set(TRAINING_KERNELS),
@@ -3324,21 +3397,403 @@ def cp_training(pools, seed: int, cp1: dict) -> dict:
         worst = max(res[0]["grad_rel_l2"])
         check(worst <= CP_GRAD_REL_L2,
               f"cp={cp}: a first-step gradient is {worst} relative L2 from cp=1's")
-        runs.append({"cp": cp, "overlap_degree": res[0]["overlap_degree"],
+        for n, e in res[0]["stage_check"]["kernel_max_abs_err"].items():
+            MAX_ERR[n] = max(MAX_ERR[n], e)
+        runs.append({"cp": cp, "hier": res[0]["hier"], "overlap_degree": res[0]["overlap_degree"],
                      "impls": res[0]["impls"], "head_block": res[0]["head_block"],
                      "backend": res[0]["backend"],
                      "staged_through_host": res[0]["staged_through_host"],
                      "losses": res[0]["losses"], "loss_abs_diff_vs_cp1": diffs,
-                     "grad_rel_l2_vs_cp1_max": worst,
+                     "grad_rel_l2_vs_cp1_max": worst, "stage_check": res[0]["stage_check"],
                      "step_ms_ranks_sharing_one_card": [r["step_ms"] for r in res],
                      "max_memory_allocated_bytes_per_rank": [r["max_memory_allocated_bytes"]
                                                              for r in res],
                      "launches_per_rank": [r["launches"] for r in res]})
-    return {"phase": "cp_training", "docs": TRAIN_DOCS, "chunk": CP_CHUNK,
+    return {"phase": phase, "docs": TRAIN_DOCS, "chunk": CP_CHUNK,
             "layers": TRAIN_LAYERS, "steps": TRAIN_STEPS, "cp1_losses": cp1["losses"],
             "tolerance": {"loss_abs": CP_LOSS_ATOL, "grad_rel_l2": CP_GRAD_REL_L2},
             "note": "times with the cp ranks sharing one card: not cp speeds",
             "runs": runs, "launches": launches}
+
+
+# -- hierarchical cp, cross-attention keys -------------------------------------------
+
+CP_HIER = (2, 2)  # cp=4 as 2 nodes x 2 ranks
+CP_HIER_RUNS = (  # (run, hq, hk, overlap degree, group-collective impl, new mask)
+    ("A", TRAIN_HQ, TRAIN_HK, 0, "a2a", False),
+    ("B", 8, 8, 2, "hops", False),
+    ("C", TRAIN_HQ, TRAIN_HK, 0, "a2a", True),
+)
+CP_HIER_WINDOW = 1024  # run C: a causal sliding window of 1024 keys per document
+ROLL_SHIFTS = (1, -1, 4097)
+HIER_PLANTS = ("pad_rows", "no_pre_reduce")
+
+
+_HIER_CP_GROUPS = {}
+
+
+def hier_cp_groups(group, shape):
+    """This rank process's ``make_hier_cp_groups(group, *shape)``, made on
+    its first call for ``(group, shape)`` and reused by every later task:
+    each call would create and keep new subgroups, and a cached key keeps
+    the runtime of the groups it was planned with."""
+    from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+    key = (id(group), tuple(shape))
+    if key not in _HIER_CP_GROUPS:
+        _HIER_CP_GROUPS[key] = make_hier_cp_groups(group, *shape)
+    return _HIER_CP_GROUPS[key]
+
+
+def plant_hier_reduce(kind: str):
+    """Plant a faulty backward of the hierarchical cast in this rank
+    (``comm.hier.group_reduce_hier``): ``"pad_rows"``, an inter-level
+    reduce built from ``send_idx`` alone, whose sent-back buffer is filled
+    pair by pair without the pair counts and whose every slot is summed
+    onto its ``send_idx`` row, so the pads land on row 0; or
+    ``"no_pre_reduce"``, a gateway that keeps one consumer's partial of a
+    row where the real reduce sums them. Returns a function that puts the
+    real reduce back."""
+    import torch
+    from magiattention_tpu_torch.comm import hier
+    from magiattention_tpu_torch.comm.group_collective import (
+        all_to_all_rows,
+        exchange,
+        group_reduce_sum,
+    )
+
+    def pad_rows(y, rt, group):
+        w, s = rt.cp_size, rt.max_send
+        counts = torch.bincount(torch.div(rt.recv_sel, s, rounding_mode="floor"), minlength=w)
+        off = torch.cumsum(counts, 0) - counts
+        idx = (off[:, None] + torch.arange(s, device=y.device)[None, :]).reshape(-1)
+        recv = all_to_all_rows(y.index_select(0, idx.clamp(max=y.shape[0] - 1)), group)
+        acc = y.new_zeros((rt.num_local_rows,) + tuple(y.shape[1:]))
+        return acc.index_add_(0, rt.send_idx, recv)
+
+    def keep_one(y, rt, group):
+        acc = y.new_zeros((rt.num_local_rows,) + tuple(y.shape[1:]))
+        if rt.impl == "hops":
+            for h in rt.hops:
+                back = y.new_zeros((h.size,) + tuple(y.shape[1:]))
+                back[: h.recv_pos.shape[0]] = y.index_select(0, h.recv_pos)
+                if h.shift % rt.cp_size:
+                    back = exchange(back, (rt.rank - h.shift) % rt.cp_size,
+                                    (rt.rank + h.shift) % rt.cp_size, group)
+                acc.index_copy_(0, h.seg, back[: h.seg.shape[0]])
+            return acc
+        back = y.new_zeros((rt.cp_size * rt.max_send,) + tuple(y.shape[1:]))
+        back.index_copy_(0, rt.recv_sel, y[: rt.recv_sel.shape[0]])
+        recv = all_to_all_rows(back, group)
+        return acc.index_copy_(0, rt.back_rows, recv.index_select(0, rt.back_pos))
+
+    real = hier.group_reduce_hier
+
+    def planted(y, hr, groups):
+        if kind == "pad_rows":
+            return pad_rows(group_reduce_sum(y, hr.intra, groups.intra), hr.inter, groups.inter)
+        return group_reduce_sum(keep_one(y, hr.intra, groups.intra), hr.inter, groups.inter)
+
+    hier.group_reduce_hier = planted
+
+    def restore():
+        hier.group_reduce_hier = real
+
+    return restore
+
+
+@in_rank
+def cp_hier_attn_rank(group, hq: int, hk: int, degree: int, impl: str, new_mask: bool,
+                      seed: int, plant: str | None = None) -> dict:
+    """One rank of the keyed API over the hierarchical groups on the card:
+    the cp_attn mask at (hq, hk), overlap ``degree``, ``impl`` pinned for
+    this task; with ``new_mask`` the attention runs on
+    ``make_varlen_key_for_new_mask_after_dispatch``'s sliding-window key
+    over the first key's dispatch. Forward and backward, its launches and
+    the plan's facts (the layout, impls, received rows, the rows that
+    cross between nodes, and on rank 0 those of the flat plan of the same
+    mask and dispatch); rank 0's kernel call against the plain versions;
+    a second, timed run; on run A ``roll`` of dispatched labels; rank 0's
+    gathered results against single-card ``flex_flash_attn_func``.
+    ``plant`` plants a faulty hierarchical reduce (rank 0 then returns the
+    failed checks instead of raising)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.comm import node_crossing_rows
+    from magiattention_tpu_torch.common import AttnMaskType, AttnRanges
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta import make_global_bucket_from_qk_ranges
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.parallel import build_dist_attn_plan, dist_attn
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cp_rank_setup()
+    saved = os.environ.get("MAGI_ATTENTION_GROUP_COLL_IMPL")
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
+    restore = plant_hier_reduce(plant) if plant else None
+    real_core = dist_attn.flex_attn_headmajor
+    try:
+        rank, t = dist.get_rank(group), CP_ATTN_T
+        slices = varlen_block_causal(t)
+        qr, kr, ty = split_slices(slices)
+        gen = torch.Generator(device="cuda").manual_seed(seed)  # the same inputs on every rank
+        q, k, v, g_out = (torch.randn((t, h, D), generator=gen, device="cuda",
+                                      dtype=torch.bfloat16) for h in (hq, hk, hk, hq))
+        g_lse = torch.randn((t, hq), generator=gen, device="cuda")
+        groups = hier_cp_groups(group, CP_HIER)
+        oc = OverlapConfig(degree=degree)
+        key = api.magi_attn_flex_key(qr, kr, ty, t, t, groups, num_heads=(hq, hk), head_dim=D,
+                                     chunk_size=CP_CHUNK,
+                                     dist_attn_config=DistAttnConfig(overlap_config=oc))
+        if new_mask:
+            cu = [s[0] for s in slices] + [t]
+            key = api.make_varlen_key_for_new_mask_after_dispatch(
+                cu, key, causal=False, window_size=(CP_HIER_WINDOW, 0))
+            wq, wk, wt = infer_attn_mask_from_cu_seqlens(cu, causal=False,
+                                                         window_size=(CP_HIER_WINDOW, 0))
+            qr, kr, ty = ([r.to_naive_range() for r in wq], [r.to_naive_range() for r in wk],
+                          [int(x) for x in wt])
+        mgr = api.get_runtime_mgr(key)
+        plan = mgr.plan
+        check(plan.hier == CP_HIER and key.hier == CP_HIER,
+              f"hier run: the plan's layout is {plan.hier}, the key's {key.hier}")
+        cap = {}
+        stage_check = rank == 0 and plant is None
+        if stage_check:
+            dist_attn.flex_attn_headmajor = capturing(real_core, cap)
+        torch.cuda.synchronize()
+        csrc.reset_launch_counts()
+        got = keyed_fwd_bwd(key, q, k, v, g_out, g_lse)
+        torch.cuda.synchronize()
+        launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+        dist_attn.flex_attn_headmajor = real_core
+        res = {"rank": rank, "launches": launches, **cp_comm_facts(group),
+               "hier": list(plan.hier), "overlap_degree": plan.overlap_degree,
+               "stages": len(plan.stages), "impls": [c.impl for c in plan.comms()],
+               "recv_rows": [list(c.recv_total) for c in plan.comms()],
+               "node_crossing_rows": sum(node_crossing_rows(c, *CP_HIER) for c in plan.comms())}
+        if stage_check:
+            res["stage_check"] = _cp_stage_check(cap)
+        if rank == 0:  # the flat plan of the same mask on the same dispatch
+            meta = mgr.dispatch_meta
+            bucket = make_global_bucket_from_qk_ranges(
+                AttnRanges.from_ranges(qr), AttnRanges.from_ranges(kr),
+                [AttnMaskType(x) for x in ty], t, meta.chunk_size)
+            flat = build_dist_attn_plan(meta, bucket, block_q=plan.block_q, block_k=plan.block_k,
+                                        overlap_config=oc)
+            res["flat_node_crossing_rows"] = sum(node_crossing_rows(c, *CP_HIER)
+                                                 for c in flat.comms())
+            res["flat_recv_rows"] = [list(c.recv_total) for c in flat.comms()]
+        if plant is None:  # a second run, timed (the ranks share the card)
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keyed_fwd_bwd(key, q, k, v, g_out, g_lse)
+            torch.cuda.synchronize()
+            res["fwd_bwd_ms_ranks_sharing_one_card"] = (time.perf_counter() - t0) * 1e3
+            res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        if plant is None and not new_mask:  # roll of dispatched labels, exact
+            labels = torch.randint(0, 128256, (t,), generator=gen, device="cuda")
+            local = api.dispatch(labels, key)
+            res["roll_exact"] = {
+                s: bool(torch.equal(api.roll(local, key, s),
+                                    api.dispatch(torch.roll(labels, s), key)))
+                for s in ROLL_SHIFTS}
+        if rank == 0:
+            errs, failed = vs_single_card(got, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk)
+            res.update(vs_single_card=errs, failed=failed)
+            if plant is None:
+                check(not failed, f"hier cp heads {hq}/{hk} degree {degree} {impl} new_mask="
+                      f"{new_mask}: the gathered results fail {failed}: {errs}")
+        return res
+    finally:
+        dist_attn.flex_attn_headmajor = real_core
+        if restore is not None:
+            restore()
+        if saved is None:
+            os.environ.pop("MAGI_ATTENTION_GROUP_COLL_IMPL", None)
+        else:
+            os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = saved
+
+
+def cp_hier_attn(pools, seed: int) -> dict:
+    """The keyed API at cp=4 as 2 x 2: runs A, B, C (``CP_HIER_RUNS``);
+    each rank launches its forward, ``flex_dq`` and ``flex_dkv`` once per
+    kernel call of its plan (one at degree 0, one per stage and the host
+    stage at degree 2); run A's rows that cross between nodes must be
+    fewer than the flat plan's; run C must inherit the layout; ``roll`` on
+    run A exact; the planted hierarchical reduces (on run A) must fail dk
+    and dv only."""
+    runs, launches = [], {}
+    for name, hq, hk, degree, impl, new_mask in CP_HIER_RUNS:
+        res = pools[4].run(cp_hier_attn_rank, hq, hk, degree, impl, new_mask, seed)
+        r0 = res[0]
+        fwd = "flex_fwd_hb" if hq > hk else "flex_fwd"
+        calls = 1 + r0["stages"] if degree else 1
+        for r in res:
+            check(r["launches"] == {fwd: calls, "flex_dq": calls, "flex_dkv": calls},
+                  f"hier run {name} rank {r['rank']}: launches {r['launches']}, expected "
+                  f"{calls} each of {fwd}, flex_dq, flex_dkv")
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+            for n, e in r.get("stage_check", {}).get("kernel_max_abs_err", {}).items():
+                MAX_ERR[n] = max(MAX_ERR[n], e)
+            if "roll_exact" in r:
+                check(all(r["roll_exact"].values()),
+                      f"hier run {name} rank {r['rank']}: roll not exact {r['roll_exact']}")
+        check(r0["overlap_degree"] == degree and set(r0["impls"]) == {impl},
+              f"hier run {name}: degree {r0['overlap_degree']}, impls {r0['impls']}")
+        if name == "A":
+            check(0 < r0["node_crossing_rows"] < r0["flat_node_crossing_rows"],
+                  f"hier run A: {r0['node_crossing_rows']} rows cross between nodes, the flat "
+                  f"plan's {r0['flat_node_crossing_rows']}")
+        runs.append({"run": name, "heads": [hq, hk], "overlap_degree": degree,
+                     "impl_flag": impl, "new_mask": new_mask, "hier": r0["hier"],
+                     "impls": r0["impls"], "recv_rows": r0["recv_rows"],
+                     "node_crossing_rows": r0["node_crossing_rows"],
+                     "flat_node_crossing_rows": r0["flat_node_crossing_rows"],
+                     "flat_recv_rows": r0["flat_recv_rows"],
+                     "backend": r0["backend"], "staged_through_host": r0["staged_through_host"],
+                     "roll_exact": [r.get("roll_exact") for r in res] if name == "A" else None,
+                     "launches_per_rank": [r["launches"] for r in res],
+                     "vs_single_card": r0["vs_single_card"],
+                     "stage_check": r0["stage_check"],
+                     "fwd_bwd_ms_ranks_sharing_one_card": [
+                         r["fwd_bwd_ms_ranks_sharing_one_card"] for r in res],
+                     "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                                    for r in res]})
+    planted = {}
+    _, hq, hk, degree, impl, _ = CP_HIER_RUNS[0]
+    for plant in HIER_PLANTS:
+        got = pools[4].run(cp_hier_attn_rank, hq, hk, degree, impl, False, seed, plant)[0]
+        caught = {c.split(":")[0] for c in got["failed"]}
+        check({"dk", "dv"} <= caught and not caught - {"dk", "dv"},
+              f"the planted hier reduce {plant}: failed checks {got['failed']}, expected dk "
+              "and dv only")
+        planted[plant] = {"caught": sorted(caught), "failed": got["failed"]}
+    return {"phase": "cp_hier_attn", "tokens": CP_ATTN_T, "chunk": CP_CHUNK, "head_dim": D,
+            "dtype": "bfloat16", "layout": list(CP_HIER), "window": CP_HIER_WINDOW,
+            "roll_shifts": list(ROLL_SHIFTS),
+            "note": "ranks sharing one card: not cp speeds", "runs": runs,
+            "launches": launches, "planted_hier_reduce": planted}
+
+
+CP_XATTN_Q_DOCS = (4096, 2048, 2048)
+CP_XATTN_K_DOCS = (1500, 750, 750)  # 3000 memory rows: not a chunk multiple, so the K side pads
+CP_XATTN_CHUNKS = (512, 256)  # (chunk_size_q, chunk_size_k)
+CP_XATTN_RUNS = (2, 4)
+
+
+def cross_mask():
+    """(q_ranges, k_ranges, types): each query document attends FULL to its
+    own span of the memory."""
+    import itertools
+
+    qb = list(itertools.accumulate(CP_XATTN_Q_DOCS, initial=0))
+    kb = list(itertools.accumulate(CP_XATTN_K_DOCS, initial=0))
+    return list(zip(qb, qb[1:])), list(zip(kb, kb[1:])), [0] * len(CP_XATTN_Q_DOCS)
+
+
+@in_rank
+def cp_xattn_rank(group, seed: int, skip_reduce: bool = False) -> dict:
+    """One rank of ``magi_attn_cross_key`` on the card at the training
+    widths (16 / 8 heads, d 128, bf16): queries and memory from the seed,
+    ``dispatch`` / ``dispatch_kv`` -> ``calc_attn`` -> ``undispatch``,
+    forward and backward; its launches and the key's padding; rank 0's
+    kernel call (its q shard, the padded memory buffer and kv_pad) against
+    the plain versions, and its gathered results against single-card
+    ``flex_flash_attn_func`` with tq != tk. ``skip_reduce`` plants a cast
+    whose backward drops the memory rows' dK/dV (rank 0 then returns the
+    failed checks)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.comm import group_collective as gc
+    from magiattention_tpu_torch.parallel import dist_attn
+
+    cp_rank_setup()
+    rank = dist.get_rank(group)
+    hq, hk = TRAIN_HQ, TRAIN_HK
+    tq, tk = sum(CP_XATTN_Q_DOCS), sum(CP_XATTN_K_DOCS)
+    qr, kr, ty = cross_mask()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, g_out = (torch.randn((tq, hq, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+    k, v = (torch.randn((tk, hk, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    g_lse = torch.randn((tq, hq), generator=gen, device="cuda")
+    key = api.magi_attn_cross_key(qr, kr, ty, tq, tk, group, num_heads=(hq, hk), head_dim=D,
+                                  chunk_size_q=CP_XATTN_CHUNKS[0], chunk_size_k=CP_XATTN_CHUNKS[1])
+    mgr = api.get_runtime_mgr(key)
+    cap = {}
+    stage_check = rank == 0 and not skip_reduce
+    real_bwd, real_core = gc.GroupCast.backward, dist_attn.flex_attn_headmajor
+    if skip_reduce:
+        gc.GroupCast.backward = staticmethod(
+            lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
+    if stage_check:
+        dist_attn.flex_attn_headmajor = capturing(real_core, cap)
+    try:
+        torch.cuda.synchronize()
+        csrc.reset_launch_counts()
+        got = keyed_fwd_bwd(key, q, k, v, g_out, g_lse, cross=True)
+        torch.cuda.synchronize()
+        launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    finally:
+        gc.GroupCast.backward, dist_attn.flex_attn_headmajor = real_bwd, real_core
+    args = api.get_xattn_args(key)
+    res = {"rank": rank, "launches": launches, **cp_comm_facts(group),
+           "pad_size_k": mgr.pad_size_k, "pad_size_q": key.pad_size,
+           "shards": [args.shard_q_len, args.shard_k_len],
+           "impls": [c.impl for c in mgr.plan.comms()],
+           "recv_rows": [list(c.recv_total) for c in mgr.plan.comms()]}
+    if stage_check:
+        res["stage_check"] = _cp_stage_check(cap)
+    if rank == 0:
+        errs, failed = vs_single_card(got, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk)
+        res.update(vs_single_card=errs, failed=failed)
+        if not skip_reduce:
+            check(not failed, f"xattn cp={dist.get_world_size(group)}: the gathered results "
+                  f"fail {failed}: {errs}")
+    return res
+
+
+def cp_xattn(pools, seed: int) -> dict:
+    """Cross-attention keys at cp=2 and cp=4: one ``flex_fwd_hb``,
+    ``flex_dq`` and ``flex_dkv`` per rank; the memory padded; rank 0's
+    kernel call against the plain versions; a planted
+    skip of the memory's dK/dV reduce (cp=2) must fail dk and dv only."""
+    runs, launches = [], {}
+    for cp in CP_XATTN_RUNS:
+        res = pools[cp].run(cp_xattn_rank, seed)
+        for r in res:
+            check(r["launches"] == {n: 1 for n in TRAINING_KERNELS},
+                  f"xattn cp={cp} rank {r['rank']}: launches {r['launches']}")
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        check(res[0]["pad_size_k"] > 0, f"xattn cp={cp}: the memory was not padded")
+        for n, e in res[0]["stage_check"]["kernel_max_abs_err"].items():
+            MAX_ERR[n] = max(MAX_ERR[n], e)
+        runs.append({"cp": cp, "pad_size_q": res[0]["pad_size_q"],
+                     "pad_size_k": res[0]["pad_size_k"], "shards": res[0]["shards"],
+                     "impls": res[0]["impls"], "recv_rows": res[0]["recv_rows"],
+                     "backend": res[0]["backend"],
+                     "launches_per_rank": [r["launches"] for r in res],
+                     "vs_single_card": res[0]["vs_single_card"],
+                     "stage_check": res[0]["stage_check"]})
+    got = pools[2].run(cp_xattn_rank, seed, True)[0]
+    caught = {c.split(":")[0] for c in got["failed"]}
+    check({"dk", "dv"} <= caught and not caught - {"dk", "dv"},
+          f"the planted skip of the memory's dK/dV reduce: failed checks {got['failed']}, "
+          "expected dk and dv only")
+    return {"phase": "cp_xattn", "q_docs": CP_XATTN_Q_DOCS, "k_docs": CP_XATTN_K_DOCS,
+            "chunks": CP_XATTN_CHUNKS, "heads": [TRAIN_HQ, TRAIN_HK], "head_dim": D,
+            "dtype": "bfloat16", "note": "ranks sharing one card: not cp speeds",
+            "runs": runs, "launches": launches,
+            "planted_skip_memory_dkv_reduce": {"caught": sorted(caught),
+                                               "failed": got["failed"]}}
 
 
 def main(argv=None) -> int:
@@ -3431,9 +3886,16 @@ def main(argv=None) -> int:
         emit(cp_attn_line)
         cp_qo_line = cp_qo_attn(pools, args.seed)
         emit(cp_qo_line)
-        cp_train_line = cp_training(pools, args.seed,
-                                    {"losses": train["losses"], "grads_path": grads_path})
+        cp1 = {"losses": train["losses"], "grads_path": grads_path}
+        cp_train_line = cp_training(pools, args.seed, cp1)
         emit(cp_train_line)
+        cp_hier_line = cp_hier_attn(pools, args.seed)
+        emit(cp_hier_line)
+        cp_hier_train_line = cp_training(pools, args.seed, cp1, runs_of=((4, 0),), hier=CP_HIER,
+                                         phase="cp_hier_training")
+        emit(cp_hier_train_line)
+        cp_xattn_line = cp_xattn(pools, args.seed)
+        emit(cp_xattn_line)
     finally:
         for pool in pools.values():
             pool.close()
@@ -3443,7 +3905,10 @@ def main(argv=None) -> int:
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
                "prefix": prefix_line["launches"], "training": train["launches"],
                "hetero": hetero_line["launches"], "cp_attn": cp_attn_line["launches"],
-               "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"]}
+               "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
+               "cp_hier_attn": cp_hier_line["launches"],
+               "cp_hier_training": cp_hier_train_line["launches"],
+               "cp_xattn": cp_xattn_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

@@ -19,13 +19,28 @@ Every rank holds the global tensors and calls the same sequence. Entry
 points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"`` (the kernels' plain versions); without a card they raise.
 
+The plan variants:
+
+- hierarchical two-level comm: pass ``comm.make_hier_cp_groups(group,
+  n_inter, n_intra)`` as ``cp_group`` (the JAX package's ``cp_axis=(inter,
+  intra)``); each cast then sends a row that several ranks of a node need
+  across nodes once. Dispatch, undispatch and the max-logit all-reduce run
+  over the flat group;
+- cross-attention (:func:`magi_attn_cross_key`): queries and memory are
+  different sequences, dispatched by ``dispatch`` and ``dispatch_kv``;
+- a new mask on an existing dispatch
+  (:func:`make_flex_key_for_new_mask_after_dispatch` and its varlen twin):
+  hybrid layer stacks share one token permutation;
+- :func:`roll` shifts a dispatched tensor along the global sequence.
+
 Flags: ``MAGI_ATTENTION_QO_COMM`` plans qo-comm (``parallel/qo_comm.py``)
 in place of the K/V-comm plan; ``MAGI_ATTENTION_SANITY_CHECK`` checks the
-slices for overlapping coverage first; ``MAGI_ATTENTION_AUTO_RANGE_MERGE``
-and ``MAGI_ATTENTION_HIERARCHICAL_COMM`` are not ported and make the key
-raise (:func:`check_flag_comb`), so that no flag is taken and then
-ignored. Not ported yet: cross-attention keys, the bucketed runtime
-manager, plan reuse and ``roll`` (ROADMAP queue A).
+slices for overlapping coverage first; ``MAGI_ATTENTION_HIERARCHICAL_COMM``
+requires the two-level groups; ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` is not
+ported and makes the key raise. :func:`check_flag_comb` refuses the
+combinations the JAX package refuses, so that no flag is taken and then
+ignored. Not ported yet: the bucketed runtime manager and plan reuse
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -41,12 +56,19 @@ from .. import env
 from ..common.enum import AttnMaskType
 from ..common.forward_meta import AttnForwardMeta
 from ..common.ranges import AttnRanges
+from ..comm.hier import HierCpGroups
 from ..config import DistAttnConfig
-from ..meta.dispatch_meta import DispatchMeta, make_dispatch_meta_from_qk_ranges
+from ..meta.dispatch_meta import (
+    DispatchMeta,
+    make_cross_attn_dispatch_meta,
+    make_dispatch_meta_from_qk_ranges,
+    make_global_bucket_from_qk_ranges,
+)
 from ..meta.solver.dispatch_solver import DispatchConfig
 from ..meta.solver.overlap_solver import OverlapConfig
 from ..parallel.dispatch import dispatch as _dispatch_op
 from ..parallel.dispatch import position_ids as _position_ids
+from ..parallel.dispatch import roll as _roll_op
 from ..parallel.dispatch import undispatch as _undispatch_op
 from ..parallel.dist_attn import (
     DistAttnPlan,
@@ -76,6 +98,26 @@ def _coerce_mask_types(attn_type_map, n_slices: int) -> tuple:
     return tuple(_one_mask_type(t) for t in attn_type_map)
 
 
+def _coerce_mask(q_ranges, k_ranges, attn_type_map) -> tuple[AttnRanges, AttnRanges, tuple]:
+    """(q_ranges, k_ranges, types) of a key's mask in any spelling the JAX
+    API takes, checked for overlapping slices under
+    ``MAGI_ATTENTION_SANITY_CHECK``."""
+    if not isinstance(q_ranges, AttnRanges):
+        q_ranges = AttnRanges.from_ranges(q_ranges)
+    if not isinstance(k_ranges, AttnRanges):
+        k_ranges = AttnRanges.from_ranges(k_ranges)
+    types = _coerce_mask_types(attn_type_map, len(q_ranges))
+    if env.is_sanity_check_enabled():
+        from ..common.sanity import check_slices_non_overlapping
+
+        check_slices_non_overlapping(q_ranges, k_ranges, types)
+    return q_ranges, k_ranges, types
+
+
+def _default_chunk_size(total: int, cp_size: int) -> int:
+    return max(total // (env.min_chunks_per_rank() * cp_size), 128)
+
+
 def flags_fingerprint() -> tuple:
     """The flags that change a plan or a kernel call, folded into the key."""
     return (
@@ -96,25 +138,40 @@ def flags_fingerprint() -> tuple:
     )
 
 
-def check_flag_comb(*, uneven_shard: bool = False) -> None:
+def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = False) -> None:
     """Refuse the flags and flag combinations the port does not run, with
     a ``ValueError`` that says why, before any planning: the JAX package's
-    ``check_flag_comb`` for qo-comm, and the flags whose JAX path is not
-    ported yet."""
+    ``check_flag_comb`` for the cp layout (``cp_group`` a
+    :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
+    pair), qo-comm and cross-attention (``xattn``), and the flag whose JAX
+    path is not ported yet."""
     qo = env.is_qo_comm_enable()
-    hier = env.is_hierarchical_comm_enable()
+    hier_flag = env.is_hierarchical_comm_enable()
+    hier_groups = isinstance(cp_group, HierCpGroups)
     if env.is_auto_range_merge_enable():
         raise ValueError("MAGI_ATTENTION_AUTO_RANGE_MERGE is set, and the port has no range "
                          "merge yet (ROADMAP A.4/A.5): unset it or merge the ranges first")
-    if qo and hier:
+    if hier_flag and not hier_groups:
+        raise ValueError("MAGI_ATTENTION_HIERARCHICAL_COMM=1 requires a two-level cp group: "
+                         "hierarchical comm is selected by the groups, so pass "
+                         "comm.make_hier_cp_groups(cp_group, n_inter, n_intra) as cp_group")
+    if qo and hier_groups:
         raise ValueError("qo-comm cannot be combined with hierarchical comm "
-                         "(MAGI_ATTENTION_QO_COMM x MAGI_ATTENTION_HIERARCHICAL_COMM)")
-    if hier:
-        raise ValueError("MAGI_ATTENTION_HIERARCHICAL_COMM is set, and the port has no "
-                         "hierarchical comm yet (ROADMAP A.7/A.8): unset it")
+                         "(MAGI_ATTENTION_QO_COMM x a HierCpGroups cp_group)")
     if qo and uneven_shard:
         raise ValueError("qo-comm requires an even shard (uneven_shard=False): the dynamic "
                          "plane partition is built over equal per-rank token shards")
+    if xattn and (qo or hier_groups or uneven_shard):
+        raise ValueError("cross-attention keys support the flat group-cast runtime only: "
+                         "qo-comm, hierarchical cp groups and uneven_shard are all "
+                         "self-attention features")
+
+
+def _split_cp_group(cp_group):
+    """(the flat group, (n_inter, n_intra) or None) of a key's cp group."""
+    if isinstance(cp_group, HierCpGroups):
+        return cp_group.flat, cp_group.shape
+    return cp_group, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,23 +199,56 @@ class DistAttnRuntimeKey:
     device: str
     flags: tuple
     block_config: tuple[int, int, int]  # (block_q, block_k, head_block)
+    # (n_inter, n_intra) of a hierarchical key, None for a flat one: a flat
+    # and a hierarchical key on the same ranks never share a runtime
+    hier: tuple[int, int] | None = None
+    # the (q_ranges, k_ranges, attn_type_map) whose dispatch a new-mask key
+    # inherits, None for a key with its own dispatch: a key for mask W on
+    # mask A's dispatch never shares a runtime with W's own key, nor with W's
+    # key on the dispatch of another mask
+    dispatch_of: tuple | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class XAttnArgs:
+    """What a cross-attention module needs about a planned key: the padded
+    totals, the per-rank shard lengths, and the global positions of this
+    rank's dispatched query and memory slots (int64 on the key's device)."""
+
+    total_seqlen_q: int  # padded q length
+    total_seqlen_k: int  # padded kv length
+    shard_q_len: int  # per-rank q rows
+    shard_k_len: int  # per-rank kv rows
+    q_position_ids: torch.Tensor  # [shard_q_len]
+    k_position_ids: torch.Tensor  # [shard_k_len]
 
 
 class DistAttnRuntimeMgr:
-    """Everything planned for one key on this rank: the dispatch meta, the
-    plan (a K/V-comm ``DistAttnPlan``, or a ``QoCommPlan`` under
-    ``MAGI_ATTENTION_QO_COMM``), the kernels' parameters and the sink."""
+    """Everything planned for one key on this rank: the dispatch meta (and
+    the memory side's, for a cross-attention key), the plan (a K/V-comm
+    ``DistAttnPlan``, flat or hierarchical, or a ``QoCommPlan`` under
+    ``MAGI_ATTENTION_QO_COMM``), the kernels' parameters and the sink.
+    ``cp_group`` is the group the key was made with (a flat group or a
+    ``HierCpGroups``), ``group`` the flat group of its ranks."""
 
-    def __init__(self, key: DistAttnRuntimeKey, group, dispatch_meta: DispatchMeta,
+    def __init__(self, key: DistAttnRuntimeKey, cp_group, dispatch_meta: DispatchMeta,
                  plan: DistAttnPlan | QoCommPlan, params, sink: torch.Tensor | None,
-                 dist_attn_config: DistAttnConfig):
+                 dist_attn_config: DistAttnConfig, kv_dispatch_meta: DispatchMeta | None = None,
+                 pad_size_k: int = 0):
         self.key = key
-        self.group = group
+        self.cp_group = cp_group
+        self.group = _split_cp_group(cp_group)[0]
         self.dispatch_meta = dispatch_meta
+        self.kv_dispatch_meta = kv_dispatch_meta  # cross-attention only
+        self.pad_size_k = pad_size_k
         self.plan = plan
         self.params = params
         self.sink = sink
         self.dist_attn_config = dist_attn_config
+
+    @property
+    def is_cross_attn(self) -> bool:
+        return self.kv_dispatch_meta is not None
 
     def dispatch(self, x: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
         """Global natural-order [total, ...] -> this rank's shard (padded to
@@ -181,6 +271,42 @@ class DistAttnRuntimeMgr:
         ids = _position_ids(self.dispatch_meta, self.key.cp_rank)
         return torch.from_numpy(ids.astype(np.int64)).to(self.key.device)
 
+    def _need_cross(self, what: str) -> None:
+        if not self.is_cross_attn:
+            raise ValueError(f"{what} needs a cross-attn key (magi_attn_cross_key)")
+
+    def dispatch_kv(self, x: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
+        """Cross-attention: global natural-order memory [total_k, ...] ->
+        this rank's memory shard, the layout ``calc_attn``'s k / v take."""
+        self._need_cross("dispatch_kv")
+        if self.pad_size_k:
+            x = pad_at_dim(x, 0, self.pad_size_k, pad_value)
+        return _dispatch_op(x, self.kv_dispatch_meta, self.group, pad_value)
+
+    def undispatch_kv(self, y: torch.Tensor) -> torch.Tensor:
+        """Cross-attention: this rank's memory shard -> the global natural
+        order (pad rows dropped), on every rank."""
+        self._need_cross("undispatch_kv")
+        out = _undispatch_op(y, self.kv_dispatch_meta, self.group)
+        if self.pad_size_k:
+            out = out[: self.key.total_seqlen_k - self.pad_size_k]
+        return out
+
+    def get_xattn_args(self) -> XAttnArgs:
+        """The cross-attention call arguments of this key."""
+        self._need_cross("get_xattn_args")
+        rank, dev = self.key.cp_rank, self.key.device
+
+        def ids(meta):
+            return torch.from_numpy(_position_ids(meta, rank).astype(np.int64)).to(dev)
+
+        return XAttnArgs(
+            total_seqlen_q=self.key.total_seqlen_q, total_seqlen_k=self.key.total_seqlen_k,
+            shard_q_len=self.dispatch_meta.shard_seqlen,
+            shard_k_len=self.kv_dispatch_meta.shard_seqlen,
+            q_position_ids=ids(self.dispatch_meta), k_position_ids=ids(self.kv_dispatch_meta),
+        )
+
     def calc_attn(self, q, k, v, sink=None):
         """Distributed flex attention on this rank's dispatched shards (q
         [shard, hq, d], k/v [shard, hk, d]). Returns ``(out,
@@ -200,7 +326,7 @@ class DistAttnRuntimeMgr:
         if isinstance(self.plan, QoCommPlan):
             out, lse = qo_comm_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
             return out, AttnForwardMeta(lse=lse, max_logits=None)
-        out, lse, mx = dist_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
+        out, lse, mx = dist_attn_local(q, k, v, self.plan, self.params, self.cp_group, sink=s)
         mx = mx.detach().clone()
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
         return out, AttnForwardMeta(lse=lse, max_logits=mx)
@@ -323,7 +449,9 @@ def magi_attn_flex_key(
     ``MAGI_ATTENTION_OVERLAP_DEGREE`` (default 0: one merged cast and one
     kernel call). Under ``MAGI_ATTENTION_QO_COMM`` the plan is qo-comm's
     (the dispatch meta's ownership, the key's tile, one kernel call, no
-    overlap stages). ``device`` defaults to the card."""
+    overlap stages). A ``HierCpGroups`` ``cp_group`` plans hierarchical
+    two-level comm over its (n_inter, n_intra) layout. ``device`` defaults
+    to the card."""
     import torch.distributed as dist
 
     global _most_recent_key
@@ -335,20 +463,13 @@ def magi_attn_flex_key(
     if dispatch_config is None:
         dispatch_config = dist_attn_config.dispatch_config if dist_attn_config else DispatchConfig()
     dist_attn_config = DistAttnConfig(dispatch_config=dispatch_config, overlap_config=oc)
-    if not isinstance(q_ranges, AttnRanges):
-        q_ranges = AttnRanges.from_ranges(q_ranges)
-    if not isinstance(k_ranges, AttnRanges):
-        k_ranges = AttnRanges.from_ranges(k_ranges)
-    types = _coerce_mask_types(attn_type_map, len(q_ranges))
-    check_flag_comb(uneven_shard=dispatch_config.uneven_shard)
-    if env.is_sanity_check_enabled():
-        from ..common.sanity import check_slices_non_overlapping
-
-        check_slices_non_overlapping(q_ranges, k_ranges, types)
-    cp_size = dist.get_world_size(cp_group)
-    rank = dist.get_rank(cp_group)
+    check_flag_comb(cp_group=cp_group, uneven_shard=dispatch_config.uneven_shard)
+    q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map)
+    flat, hier = _split_cp_group(cp_group)
+    cp_size = dist.get_world_size(flat)
+    rank = dist.get_rank(flat)
     if chunk_size is None:
-        chunk_size = max(total_seqlen_q // (env.min_chunks_per_rank() * cp_size), 128)
+        chunk_size = _default_chunk_size(total_seqlen_q, cp_size)
     pad = compute_pad_size(total_seqlen_q, 1 if dispatch_config.uneven_shard else cp_size,
                            chunk_size)
     has_sink = has_sink or sink is not None
@@ -369,7 +490,7 @@ def magi_attn_flex_key(
         chunk_size=chunk_size,
         cp_size=cp_size,
         cp_rank=rank,
-        group_id=id(cp_group),
+        group_id=id(flat),
         num_heads_q=hq,
         num_heads_kv=hkv,
         head_dim=head_dim,
@@ -381,6 +502,7 @@ def magi_attn_flex_key(
         device=str(device),
         flags=flags_fingerprint(),
         block_config=block_config,
+        hier=hier,
     )
     if key not in _runtime_dict:
         mq, _, bucket = make_dispatch_meta_from_qk_ranges(
@@ -398,7 +520,8 @@ def magi_attn_flex_key(
                                       block_k=bk, dispatch_meta=mq)
             params = make_attn_params(plan, head_dim, softcap=softcap, out_dtype=out_dtype)
         else:
-            plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk, overlap_config=oc)
+            plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk, overlap_config=oc,
+                                        cp_mesh_shape=hier)
             params = make_attn_params(plan, head_dim, softcap=softcap, has_sink=has_sink,
                                       out_dtype=out_dtype, head_block=hb)
         sink_t = None if sink is None else sink.detach().to(device=device, dtype=torch.float32)
@@ -432,6 +555,186 @@ def magi_attn_varlen_key(
                               **kwargs)
 
 
+def magi_attn_cross_key(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_type_map: GeneralAttnMaskType,
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    cp_group,
+    *,
+    num_heads: tuple[int, int],  # (hq, hkv)
+    head_dim: int,
+    chunk_size_q: int | None = None,
+    chunk_size_k: int | None = None,
+    softcap: float = 0.0,
+    out_dtype: torch.dtype = torch.bfloat16,
+    dispatch_config: DispatchConfig | None = None,
+    overlap_config: OverlapConfig | None = None,
+    device=None,
+) -> DistAttnRuntimeKey:
+    """Plan (or fetch) this rank's CROSS-attention runtime: queries and
+    memory are different sequences (``total_seqlen_q`` != ``total_seqlen_k``
+    allowed; ``k_ranges`` index the memory). Queries are chunk-balanced by
+    mask area, the memory gets its own sequential partition, and the group
+    cast routes the remote memory rows. Each side is padded to its own
+    chunk multiple over the ranks. Use the key with ``dispatch`` /
+    ``dispatch_kv`` / ``calc_attn`` / ``undispatch`` (and ``undispatch_kv``,
+    ``get_xattn_args``).
+
+    No sink, qo-comm, hierarchical groups or uneven shard: those are
+    self-attention features (``check_flag_comb(xattn=True)``)."""
+    import torch.distributed as dist
+
+    global _most_recent_key
+    device = _resolve_device(device)
+    if dispatch_config is None:
+        dispatch_config = DispatchConfig()
+    hq, hkv = num_heads
+    overlap_config = _resolve_overlap_config(overlap_config)
+    check_flag_comb(cp_group=cp_group, uneven_shard=dispatch_config.uneven_shard, xattn=True)
+    q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map)
+    cp_size = dist.get_world_size(cp_group)
+    rank = dist.get_rank(cp_group)
+    if chunk_size_q is None:
+        chunk_size_q = _default_chunk_size(total_seqlen_q, cp_size)
+    if chunk_size_k is None:
+        chunk_size_k = _default_chunk_size(total_seqlen_k, cp_size)
+    pad_q = compute_pad_size(total_seqlen_q, cp_size, chunk_size_q)
+    pad_k = compute_pad_size(total_seqlen_k, cp_size, chunk_size_k)
+    block_config = resolve_blocking(hq, hkv, head_dim)
+    if chunk_size_q % block_config[0]:
+        raise ValueError(f"chunk_size_q {chunk_size_q} must be a multiple of the kernels' "
+                         f"block_q {block_config[0]}")
+    key = DistAttnRuntimeKey(
+        q_ranges=tuple(q_ranges.to_naive_ranges()),
+        k_ranges=tuple(k_ranges.to_naive_ranges()),
+        attn_type_map=types,
+        total_seqlen_q=total_seqlen_q + pad_q,
+        total_seqlen_k=total_seqlen_k + pad_k,
+        pad_size=pad_q,
+        chunk_size=chunk_size_q,
+        cp_size=cp_size,
+        cp_rank=rank,
+        group_id=id(cp_group),
+        num_heads_q=hq,
+        num_heads_kv=hkv,
+        head_dim=head_dim,
+        softcap=float(softcap),
+        has_sink=False,
+        sink_fingerprint=0,
+        out_dtype=str(out_dtype),
+        # pad_k keys the cache: two memory totals that pad to the same
+        # multiple would otherwise share a runtime with a stale pad_size_k
+        dispatch_config_repr=repr(("xattn", chunk_size_k, pad_k, dispatch_config,
+                                   overlap_config)),
+        device=str(device),
+        flags=flags_fingerprint(),
+        block_config=block_config,
+    )
+    if key not in _runtime_dict:
+        mq, mk, bucket = make_cross_attn_dispatch_meta(
+            q_ranges, k_ranges, [AttnMaskType(t) for t in types],
+            total_seqlen_q + pad_q, total_seqlen_k + pad_k,
+            chunk_size_q=chunk_size_q, chunk_size_k=chunk_size_k, cp_size=cp_size,
+            dispatch_config=dispatch_config,
+        )
+        bq, bk, hb = block_config
+        plan = build_dist_attn_plan(mq, bucket, kv_dispatch_meta=mk, block_q=bq, block_k=bk,
+                                    overlap_config=overlap_config)
+        params = make_attn_params(plan, head_dim, softcap=softcap, out_dtype=out_dtype,
+                                  head_block=hb)
+        _runtime_dict.put(key, DistAttnRuntimeMgr(
+            key, cp_group, mq, plan, params, None,
+            DistAttnConfig(dispatch_config=dispatch_config, overlap_config=overlap_config),
+            kv_dispatch_meta=mk, pad_size_k=pad_k))
+    _most_recent_key = key
+    return key
+
+
+def make_flex_key_for_new_mask_after_dispatch(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_type_map: GeneralAttnMaskType,
+    old_key: DistAttnRuntimeKey,
+) -> DistAttnRuntimeKey:
+    """Plan a NEW self-attention mask on the EXISTING dispatch of
+    ``old_key`` (hybrid layer stacks, e.g. dense causal + sliding window:
+    several masks share one token permutation, so dispatched activations
+    are shared and only the attention plan differs). The chunk -> rank
+    partition (dispatch, undispatch, position ids) and the cp group, with
+    a hierarchical key's layout, are inherited; the comm routing and the
+    kernel tables are planned for the new mask.
+
+    Refused: a key with a sink (re-key with the sink instead), a qo-comm
+    key (its plane partition is mask-specific) and a cross-attention key
+    (its memory has a dispatch of its own)."""
+    global _most_recent_key
+    old_mgr = get_runtime_mgr(old_key)
+    if old_key.has_sink:
+        raise ValueError(
+            "key reuse with an attention sink is not supported: re-key with "
+            f"magi_attn_flex_key(sink=...) instead (old_key has sink_fingerprint="
+            f"{old_key.sink_fingerprint})")
+    if isinstance(old_mgr.plan, QoCommPlan):
+        raise ValueError(
+            "key reuse is not supported for qo-comm keys: the dynamic plane partition is "
+            "mask-specific, so there is no dispatch to share — create a fresh key with "
+            "magi_attn_flex_key")
+    if old_mgr.is_cross_attn:
+        raise ValueError(
+            "key reuse after dispatch plans self-attention on the query dispatch; a "
+            "cross-attention key's memory has a dispatch of its own — create a fresh key "
+            "with magi_attn_cross_key")
+    q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map)
+    new_key = dataclasses.replace(
+        old_key,
+        q_ranges=tuple(q_ranges.to_naive_ranges()),
+        k_ranges=tuple(k_ranges.to_naive_ranges()),
+        attn_type_map=types,
+        dispatch_of=old_key.dispatch_of or (old_key.q_ranges, old_key.k_ranges,
+                                            old_key.attn_type_map),
+    )
+    if new_key not in _runtime_dict:
+        meta = old_mgr.dispatch_meta
+        bucket = make_global_bucket_from_qk_ranges(
+            q_ranges, k_ranges, [AttnMaskType(t) for t in types], new_key.total_seqlen_q,
+            meta.chunk_size)
+        bq, bk, hb = new_key.block_config
+        old_plan, old_params = old_mgr.plan, old_mgr.params
+        plan = build_dist_attn_plan(
+            meta, bucket, block_q=bq, block_k=bk,
+            overlap_config=old_mgr.dist_attn_config.overlap_config,
+            cp_mesh_shape=old_plan.hier)
+        params = make_attn_params(plan, new_key.head_dim, softcap=new_key.softcap,
+                                  out_dtype=old_params.out_dtype, head_block=hb)
+        _runtime_dict.put(new_key, DistAttnRuntimeMgr(
+            new_key, old_mgr.cp_group, meta, plan, params, None, old_mgr.dist_attn_config))
+    _most_recent_key = new_key
+    return new_key
+
+
+def make_varlen_key_for_new_mask_after_dispatch(
+    cu_seqlens: Sequence[int],
+    old_key: DistAttnRuntimeKey,
+    *,
+    causal: bool = True,
+    window_size: tuple[int, int] = (-1, -1),
+    global_window_size: int = 0,
+) -> DistAttnRuntimeKey:
+    """Varlen flavour of :func:`make_flex_key_for_new_mask_after_dispatch`:
+    the new packed-batch mask described by ``cu_seqlens`` (``causal``,
+    ``window_size`` and ``global_window_size`` as in
+    :func:`magi_attn_varlen_key`) on the existing dispatch of ``old_key``."""
+    from .functools import infer_attn_mask_from_cu_seqlens
+
+    q_ranges, k_ranges, types = infer_attn_mask_from_cu_seqlens(
+        list(cu_seqlens), causal=causal, window_size=tuple(window_size),
+        global_window_size=global_window_size,
+    )
+    return make_flex_key_for_new_mask_after_dispatch(q_ranges, k_ranges, types, old_key)
+
+
 def dispatch(x: torch.Tensor, key: DistAttnRuntimeKey, pad_value: float = 0.0):
     """This rank's shard of the global ``x`` [total, ...]."""
     return get_runtime_mgr(key).dispatch(x, pad_value)
@@ -451,3 +754,36 @@ def calc_attn(q, k, v, key: DistAttnRuntimeKey, sink=None):
 def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:
     """Global positions of this rank's dispatched slots."""
     return get_runtime_mgr(key).get_position_ids()
+
+
+def dispatch_kv(x: torch.Tensor, key: DistAttnRuntimeKey, pad_value: float = 0.0):
+    """Cross-attention: this rank's shard of the global memory ``x``."""
+    return get_runtime_mgr(key).dispatch_kv(x, pad_value)
+
+
+def undispatch_kv(y: torch.Tensor, key: DistAttnRuntimeKey):
+    """Cross-attention: every rank's memory shard back in natural order."""
+    return get_runtime_mgr(key).undispatch_kv(y)
+
+
+def get_xattn_args(key: DistAttnRuntimeKey) -> XAttnArgs:
+    """The cross-attention call arguments of a cross key."""
+    return get_runtime_mgr(key).get_xattn_args()
+
+
+def roll(x: torch.Tensor, key: DistAttnRuntimeKey, shift: int, axis: int = 0) -> torch.Tensor:
+    """Roll this rank's dispatched ``x`` along the global sequence by
+    ``shift`` (multi-token prediction's label shift): in global order y[i]
+    = x[(i - shift) mod total], over the padded total. Rows that stay on
+    their rank are gathered locally; the rank-crossing rows move in one
+    group cast over the key's flat group. Pad slots of an uneven shard
+    keep their value."""
+    mgr = get_runtime_mgr(key)
+    return _roll_op(x, mgr.dispatch_meta, shift, mgr.group, axis=axis)
+
+
+def roll_simple(x: torch.Tensor, key: DistAttnRuntimeKey, shift: int,
+                axis: int = 0) -> torch.Tensor:
+    """Alias of :func:`roll` (the reference's variant differs only in the
+    order it issues its point-to-point sends)."""
+    return roll(x, key, shift, axis=axis)

@@ -475,14 +475,18 @@ class RankRouting:
 
 @functools.lru_cache(maxsize=512)
 def rank_routing(meta: GroupCollectiveMeta, rank: int, num_local_rows: int,
-                 device: str) -> RankRouting:
+                 device: str, group_rank: int | None = None) -> RankRouting:
     """``rank``'s routing row of ``meta`` as int64 tensors on ``device``,
-    built once per (meta, rank, device)."""
+    built once per (meta, rank, device). ``group_rank`` is the rank's
+    position in the group the collective runs over, where that group is
+    not the one the rows are indexed by (a level of a hierarchical cast:
+    row = cp rank, group = its inter or intra subgroup); default ``rank``."""
 
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
 
     cp, R = meta.cp_size, meta.max_recv
+    me = rank if group_rank is None else group_rank
     if meta.impl == "hops":
         hops = []
         for h in meta.hops:
@@ -492,13 +496,13 @@ def rank_routing(meta: GroupCollectiveMeta, rank: int, num_local_rows: int,
                 shift=h.shift, size=h.size, send_idx=t(h.send_idx[rank]),
                 recv_pos=t(recv_pos[recv_pos < R]), seg=t(seg[seg < num_local_rows]),
             ))
-        return RankRouting("hops", cp, rank, num_local_rows, meta.max_send, R,
+        return RankRouting("hops", cp, me, num_local_rows, meta.max_send, R,
                            None, None, None, None, tuple(hops))
     n_recv = int(meta.recv_valid[rank].sum())
     seg = meta.seg_ids[rank].reshape(-1)
     pos = np.flatnonzero(seg < num_local_rows)
     return RankRouting(
-        "a2a", cp, rank, num_local_rows, meta.max_send, R,
+        "a2a", cp, me, num_local_rows, meta.max_send, R,
         t(meta.send_idx[rank].reshape(-1)), t(meta.recv_sel[rank, :n_recv]),
         t(pos), t(seg[pos]),
     )

@@ -1,4 +1,5 @@
-"""Host-side planning: the dispatch containers, the dispatch meta and the
+"""Host-side planning: the dispatch containers, the dispatch metas
+(self-attention, and cross-attention's two roles) and the
 solvers (``meta/solver``) that balance chunks over cp ranks, split
 remote work into overlap stages and, for qo-comm, cut the attention plane
 into cp regions."""
@@ -6,6 +7,7 @@ into cp regions."""
 from .containers import AttnBucket, AttnChunk, AttnSlice
 from .dispatch_meta import (
     DispatchMeta,
+    make_cross_attn_dispatch_meta,
     make_dispatch_meta_from_qk_ranges,
     make_global_bucket_from_qk_ranges,
 )
@@ -35,6 +37,7 @@ __all__ = [
     "NCQDynamicSolver",
     "SNFDynamicSolver",
     "dynamic_solver_for",
+    "make_cross_attn_dispatch_meta",
     "make_dispatch_meta_from_qk_ranges",
     "make_global_bucket_from_qk_ranges",
     "modeled_step_cost",

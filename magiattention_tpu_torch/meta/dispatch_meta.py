@@ -1,11 +1,12 @@
 """DispatchMeta + the global-bucket slicer + meta builder.
 
-The port's own copy of the self-attention part of the JAX package's
-``meta/dispatch_meta.py``: cut the global mask into per-chunk AttnSlices
-with exact areas, solve the chunk->rank assignment, and record the
-resulting sequence permutation (position ids / perm indices) that
-dispatch/undispatch apply. The cross-attention builder
-(``make_cross_attn_dispatch_meta``) is not ported yet (ROADMAP queue A).
+The port's own copy of the JAX package's ``meta/dispatch_meta.py``: cut
+the global mask into per-chunk AttnSlices with exact areas, solve the
+chunk->rank assignment, and record the resulting sequence permutation
+(position ids / perm indices) that dispatch/undispatch apply; for
+cross-attention (``make_cross_attn_dispatch_meta``) the queries are
+balanced by area and the memory keys get a sequential partition of their
+own.
 """
 
 from __future__ import annotations
@@ -214,6 +215,77 @@ def _solve_q_partitions(
     return partitions
 
 
+def make_cross_attn_dispatch_meta(
+    q_ranges: AttnRanges,
+    k_ranges: AttnRanges,
+    attn_mask_type: Sequence[AttnMaskType],
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    chunk_size_q: int,
+    chunk_size_k: int,
+    cp_size: int,
+    dispatch_config: DispatchConfig | None = None,
+) -> tuple[DispatchMeta, DispatchMeta, AttnBucket]:
+    """Cross-attention dispatch (the reference's dispatch_qo/dispatch_kv
+    split): queries are chunk-balanced by mask area; keys/values get their
+    own sequential partition over [0, total_seqlen_k) — the memory side has
+    no per-row cost imbalance to solve, only ownership for the group cast.
+    """
+    if dispatch_config is None:
+        dispatch_config = DispatchConfig()
+    num_chunks_k = total_seqlen_k // chunk_size_k
+    if total_seqlen_k % chunk_size_k != 0:
+        raise ValueError(
+            f"total_seqlen_k {total_seqlen_k} must be a chunk_size_k "
+            f"{chunk_size_k} multiple (apply k-side padding first)"
+        )
+    if num_chunks_k % cp_size != 0:
+        raise ValueError(
+            f"k chunks {num_chunks_k} (total_seqlen_k {total_seqlen_k} / "
+            f"chunk_size_k {chunk_size_k}) must be divisible by cp_size "
+            f"{cp_size}"
+        )
+    num_chunks_q = total_seqlen_q // chunk_size_q
+    if total_seqlen_q % chunk_size_q != 0:
+        raise ValueError(
+            f"total_seqlen_q {total_seqlen_q} must be a chunk_size_q "
+            f"{chunk_size_q} multiple (apply q-side padding first)"
+        )
+    if num_chunks_q % cp_size != 0:
+        raise ValueError(
+            f"q chunks {num_chunks_q} (total_seqlen_q {total_seqlen_q} / "
+            f"chunk_size_q {chunk_size_q}) must be divisible by cp_size "
+            f"{cp_size}"
+        )
+
+    bucket = make_global_bucket_from_qk_ranges(
+        q_ranges, k_ranges, attn_mask_type, total_seqlen_q, chunk_size_q
+    )
+    partitions = _solve_q_partitions(
+        bucket, num_chunks_q, cp_size, dispatch_config
+    )
+
+    meta_q = DispatchMeta(
+        total_seqlen=total_seqlen_q,
+        chunk_size=chunk_size_q,
+        num_chunks=num_chunks_q,
+        cp_size=cp_size,
+        partitions=tuple(tuple(p) for p in partitions),
+    )
+    per_rank_k = num_chunks_k // cp_size
+    meta_k = DispatchMeta(
+        total_seqlen=total_seqlen_k,
+        chunk_size=chunk_size_k,
+        num_chunks=num_chunks_k,
+        cp_size=cp_size,
+        partitions=tuple(
+            tuple(range(r * per_rank_k, (r + 1) * per_rank_k))
+            for r in range(cp_size)
+        ),
+    )
+    return meta_q, meta_k, bucket
+
+
 def make_dispatch_meta_from_qk_ranges(
     q_ranges: AttnRanges,
     k_ranges: AttnRanges,
@@ -234,7 +306,7 @@ def make_dispatch_meta_from_qk_ranges(
             f"self-attention dispatch requires equal q/k seqlens, got "
             f"total_seqlen_q={total_seqlen_q} != total_seqlen_k="
             f"{total_seqlen_k} (cross-attention dispatches roles "
-            "separately, which the port does not have yet)"
+            "separately via make_cross_attn_dispatch_meta)"
         )
     if dispatch_config is None:
         dispatch_config = DispatchConfig()

@@ -98,13 +98,15 @@ def resolve_harness_blocking(cfg, q_naive, k_naive, attn_type_map, total_seqlen,
 
 def plan_flex_attn(cfg, total_seqlen, q_ranges, k_ranges, attn_type_map, *, chunk_size: int,
                    cp_size: int, block_q: int | None = None, block_k: int | None = None,
-                   overlap_config=None):
+                   overlap_config=None, cp_mesh_shape: tuple[int, int] | None = None):
     """Shared builder tail of the context-parallel model bundles: the
     dispatch meta and the cp plan for one self-attention mask, and the
     kernels' parameters at the harness's blocking. Returns (plan,
     attn_params, dispatch_meta), as the JAX ``plan_flex_attn``.
     ``overlap_config`` forces the overlap degree (default: degree 0, one
-    merged cast and one kernel call per layer)."""
+    merged cast and one kernel call per layer). ``cp_mesh_shape`` (n_inter,
+    n_intra) plans hierarchical two-level comm over that layout of the
+    ranks (the JAX ``cp_axis`` pair)."""
     from ..common.enum import AttnMaskType
     from ..common.ranges import AttnRanges
     from ..meta.dispatch_meta import make_dispatch_meta_from_qk_ranges
@@ -120,6 +122,6 @@ def plan_flex_attn(cfg, total_seqlen, q_ranges, k_ranges, attn_type_map, *, chun
     bq, bk, hb = resolve_harness_blocking(cfg, qr.to_naive_ranges(), kr.to_naive_ranges(), types,
                                           total_seqlen, cp_size, block_q, block_k)
     plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk,
-                                overlap_config=overlap_config)
+                                overlap_config=overlap_config, cp_mesh_shape=cp_mesh_shape)
     attn_params = make_attn_params(plan, cfg.head_dim, out_dtype=cfg.torch_dtype, head_block=hb)
     return plan, attn_params, mq

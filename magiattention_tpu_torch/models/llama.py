@@ -22,7 +22,10 @@ Two layouts:
   ``_common.plan_flex_attn``, :meth:`MagiLlama.loss` is this rank's masked
   CE sum over the global token count, and ``make_model_train_step`` sums
   the parameter gradients over the group after the backward (the psums of
-  the JAX model's ``shard_map``).
+  the JAX model's ``shard_map``). A ``comm.HierCpGroups`` ``cp_group``
+  (the JAX model's ``cp_axis=(inter, intra)``) plans hierarchical
+  two-level comm for the attention; the loss count, the gradient sum and
+  the shards use its flat group.
 
 Data, tensor and pipeline parallelism (``llama_pp``) and rematerialisation
 are not ported yet: ``cfg.remat`` is kept so that configurations carry
@@ -160,17 +163,20 @@ class MagiLlama(nn.Module):
     global position ids RoPE reads. ``head_block`` (q heads per forward
     work item) is the builder's resolved choice. Under cp, ``plan``,
     ``attn_params``, ``dispatch_meta`` and ``group`` are the rank's
-    distributed plan and process group (``meta`` is then None)."""
+    distributed plan and flat process group, and ``cp_group`` the group
+    the attention's casts run over (``group``, or a hierarchical plan's
+    ``HierCpGroups``); ``meta`` is then None."""
 
     def __init__(self, cfg: LlamaConfig, meta: FlexAttnBlockMeta | None, params: dict,
                  head_block: int = 1, *, plan=None, attn_params=None, dispatch_meta=None,
-                 group=None):
+                 group=None, cp_group=None):
         super().__init__()
         self.cfg = cfg
         self.meta = meta
         self.head_block = int(head_block)
         self.plan, self.attn_params = plan, attn_params
         self.dispatch_meta, self.group = dispatch_meta, group
+        self.cp_group = group if cp_group is None else cp_group
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(LlamaLayer(p) for p in params["layers"])
         self.final_norm = nn.Parameter(params["final_norm"])
@@ -191,7 +197,7 @@ class MagiLlama(nn.Module):
         if self.group is not None:
             from ..parallel.dist_attn import dist_attn_local
 
-            return dist_attn_local(q, k, v, self.plan, self.attn_params, self.group)[0]
+            return dist_attn_local(q, k, v, self.plan, self.attn_params, self.cp_group)[0]
         out, _ = flex_attn_with_meta(q, k, v, self.meta, out_dtype=self.cfg.torch_dtype,
                                      head_block=self.head_block)
         return out
@@ -272,7 +278,10 @@ def build_magi_llama(
     weights) the plan is ``_common.plan_flex_attn``'s at ``chunk_size``
     (required) and ``overlap_config`` (default degree 0); feed each rank
     ``model.shard(tokens)``, ``model.shard(labels)`` and
-    ``model.position_ids()``.
+    ``model.position_ids()``. A ``comm.HierCpGroups`` (from
+    ``comm.make_hier_cp_groups``) plans hierarchical two-level comm over
+    its (n_inter, n_intra) layout, the counterpart of JAX ``build_magi_llama``'s
+    ``cp_axis=(inter, intra)``.
 
     ``params`` is a tree as :func:`init_params` returns (e.g. carried over
     by ``convert.llama_params_from_numpy``); without it the weights are
@@ -297,15 +306,20 @@ def build_magi_llama(
     if cp_group is not None:
         import torch.distributed as dist
 
+        from ..comm.hier import HierCpGroups
+
         if chunk_size is None:
             raise ValueError("build_magi_llama(cp_group=...) needs a chunk_size")
+        hier = isinstance(cp_group, HierCpGroups)
+        flat = cp_group.flat if hier else cp_group
         plan, attn_params, mq = plan_flex_attn(
             cfg, total_seqlen, qn, kn, types, chunk_size=chunk_size,
-            cp_size=dist.get_world_size(cp_group), block_q=block_q, block_k=block_k,
-            overlap_config=overlap_config,
+            cp_size=dist.get_world_size(flat), block_q=block_q, block_k=block_k,
+            overlap_config=overlap_config, cp_mesh_shape=cp_group.shape if hier else None,
         )
         meta, hb = None, attn_params.head_block
-        cp = dict(plan=plan, attn_params=attn_params, dispatch_meta=mq, group=cp_group)
+        cp = dict(plan=plan, attn_params=attn_params, dispatch_meta=mq, group=flat,
+                  cp_group=cp_group)
     else:
         bq, bk, hb = resolve_harness_blocking(cfg, qn, kn, types, total_seqlen, 1, block_q,
                                               block_k)

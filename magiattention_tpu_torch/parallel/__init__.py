@@ -1,8 +1,10 @@
-"""Context parallelism over ``torch.distributed``: dispatch / undispatch,
-the distributed flex-attention plan and runtime (K/V comm), and qo-comm
-(a dynamic partition of the attention plane, Q/O moving as well)."""
+"""Context parallelism over ``torch.distributed``: dispatch / undispatch
+and roll, the distributed flex-attention plan and runtime (K/V comm, flat
+or hierarchical over (inter, intra) subgroups, self- or cross-attention),
+and qo-comm (a dynamic partition of the attention plane, Q/O moving as
+well)."""
 
-from .dispatch import dispatch, position_ids, undispatch
+from .dispatch import dispatch, position_ids, roll, roll_plan, undispatch
 from .dist_attn import (
     DistAttnPlan,
     StagePlan,
@@ -28,5 +30,7 @@ __all__ = [
     "qo_comm_attn_local",
     "qo_rank_tables",
     "rank_tables",
+    "roll",
+    "roll_plan",
     "undispatch",
 ]

@@ -8,14 +8,22 @@ communication; its backward all-gathers the shards' gradients, so that
 each rank holds the whole gradient of the replicated input), and
 :func:`undispatch` all-gathers the shards and un-permutes them (its
 backward takes this rank's rows). The token axis is axis 0.
+
+:func:`roll` shifts a dispatched tensor along the global sequence (the
+labels of multi-token prediction): a local gather for the rows that stay
+on their rank, and one ``GroupCast`` of the rank-crossing rows, so that
+its gradient takes the reverse route.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..comm.group_collective import GroupCast, GroupCollectiveMeta, rank_routing
 from ..comm.primitives import all_gather_v
 from ..meta.dispatch_meta import DispatchMeta
 
@@ -91,3 +99,66 @@ def position_ids(meta: DispatchMeta, rank: int) -> np.ndarray:
         perm = np.where(perm < meta.total_seqlen, perm, 0).astype(np.int32)
     shard = meta.shard_seqlen
     return perm[rank * shard : (rank + 1) * shard]
+
+
+def _roll_src_slots(meta: DispatchMeta, shift: int) -> np.ndarray:
+    """Dispatch-space source slot feeding every output slot of a global
+    roll by ``shift``; pad slots source themselves (keep their value)."""
+    perm = meta.perm_idx.astype(np.int64)
+    unperm = meta.unperm_idx.astype(np.int64)
+    total = meta.total_seqlen
+    slots = np.arange(perm.shape[0], dtype=np.int64)
+    valid = perm < total
+    src_global = (np.where(valid, perm, 0) - shift) % total
+    return np.where(valid, unperm[src_global], slots)
+
+
+@functools.lru_cache(maxsize=64)
+def roll_plan(meta: DispatchMeta, shift: int):
+    """The host plan of a roll by ``shift``: (per rank, the local source
+    row of each of its slots, 0 where the row comes from another rank;
+    per rank, its slots filled from other ranks, in receive order; the
+    ``GroupCollectiveMeta`` of the rank-crossing rows). Sender and receiver
+    order each (src, dst) pair's rows by destination slot, so the receive
+    order at rank d is (src rank asc, destination slot asc). Cached per
+(meta, shift)."""
+    cp, shard = meta.cp_size, meta.shard_seqlen
+    src_slot = _roll_src_slots(meta, shift)
+    slots = np.arange(cp * shard, dtype=np.int64)
+    src_rank, dst_rank = src_slot // shard, slots // shard
+    local = src_rank == dst_rank
+    local_src = np.where(local, src_slot % shard, 0).reshape(cp, shard)
+    send_map = [[np.empty(0, np.int64) for _ in range(cp)] for _ in range(cp)]
+    recv_slots = []
+    for d in range(cp):
+        parts = []
+        for s in range(cp):
+            if s == d:
+                continue
+            sel = np.flatnonzero(~local & (dst_rank == d) & (src_rank == s))  # slot order
+            send_map[s][d] = src_slot[sel] % shard
+            parts.append(sel % shard)
+        recv_slots.append(np.concatenate(parts) if parts else np.empty(0, np.int64))
+    comm = GroupCollectiveMeta.build(send_map, [shard] * cp)
+    return local_src, recv_slots, comm
+
+
+def roll(x: torch.Tensor, meta: DispatchMeta, shift: int, group, axis: int = 0) -> torch.Tensor:
+    """Distributed roll along the *global* sequence of this rank's
+    dispatched shard ``x``: in global order y[i] = x[(i - shift) mod
+    total], computed in dispatch space. Rows that stay on their rank are a
+    local gather; only the rank-crossing rows move, in one ``GroupCast``
+    (its backward sends their gradient home). Pad slots of an uneven shard
+    keep their own value."""
+    local_src, recv_slots, comm = roll_plan(meta, int(shift))
+    rank = dist.get_rank(group)
+    xm = x.movedim(axis, 0)
+    dev = x.device
+    out = xm.index_select(0, torch.from_numpy(local_src[rank]).to(dev))
+    if sum(comm.send_total):  # the same on every rank: all join the cast or none
+        rt = rank_routing(comm, rank, meta.shard_seqlen, str(dev))
+        recv = GroupCast.apply(xm.contiguous(), rt, group)
+        n = len(recv_slots[rank])
+        if n:
+            out = out.index_copy(0, torch.from_numpy(recv_slots[rank]).to(dev), recv[:n])
+    return out.movedim(0, axis)

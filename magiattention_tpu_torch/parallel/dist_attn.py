@@ -4,10 +4,13 @@ The port's counterpart of the JAX package's ``parallel/dist_attn.py``, over
 ``torch.distributed`` with one process per cp rank. Per rank, on the host
 (once per unique mask, cached under the runtime key):
 
-1. host q/k ranges from the dispatch partition (chunked permutable shard),
+1. host q/k ranges from the dispatch partition (chunked permutable shard;
+   for cross-attention the K side's own partition, ``kv_dispatch_meta``),
 2. ``remote_k = needed_k \\ host_k`` (the exact remote set),
 3. GroupCollectiveMeta(s) routing K/V rows owner -> consumer, one per
-   overlap stage,
+   overlap stage; over an (n_inter, n_intra) layout of the ranks
+   (``cp_mesh_shape``) the two-level ``HierGroupCollectiveMeta`` instead,
+   which sends a row several ranks of one node need across nodes once,
 4. per-rank entry tables over the rank-local KV buffers, built directly in
    global mask coordinates via run translation (ops/block_meta.py).
 
@@ -28,8 +31,9 @@ Execution modes (:func:`dist_attn_local`):
 The kernels are the row-major ``flex_fwd_hb`` (head_block > 1) or
 ``flex_fwd`` forward and the ``flex_dq`` / ``flex_dkv`` backward, through
 ``ops.flex_attn.flex_attn_headmajor`` (CPU tensors take their plain
-versions). The cast is ``comm.GroupCast``, whose backward sums the dK/dV
-of received rows back onto their owners.
+versions). The cast is ``comm.GroupCast`` (a hierarchical plan:
+``comm.GroupCastHier`` over the ``HierCpGroups`` subgroups), whose
+backward sums the dK/dV of received rows back onto their owners.
 """
 
 from __future__ import annotations
@@ -50,6 +54,13 @@ from ..comm.group_collective import (
     RankRouting,
     predicted_volume_ratio,
     rank_routing,
+)
+from ..comm.hier import (
+    GroupCastHier,
+    HierCpGroups,
+    HierGroupCollectiveMeta,
+    HierRouting,
+    hier_rank_routing,
 )
 from ..meta.containers import AttnBucket
 from ..meta.dispatch_meta import DispatchMeta
@@ -129,7 +140,7 @@ class StageTables:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class StagePlan:
-    comm: GroupCollectiveMeta
+    comm: GroupCollectiveMeta | HierGroupCollectiveMeta
     tables: StageTables
     max_rank_area: int = 0  # mask area of the heaviest rank's work in this stage
 
@@ -148,15 +159,22 @@ class DistAttnPlan:
     max_rank_area: int
 
     # degree-0 (merged) path
-    merged_comm: GroupCollectiveMeta | None
+    merged_comm: GroupCollectiveMeta | HierGroupCollectiveMeta | None
     merged_tables: StageTables | None
 
     # staged path (degree >= 1)
     host_tables: StageTables | None
     stages: tuple[StagePlan, ...]
 
+    # hierarchical two-level comm over an (n_inter, n_intra) layout of the
+    # ranks; None = flat group collectives
+    hier: tuple[int, int] | None = None
+
     # heaviest rank's host-stage (own-shard) mask area; 0 on the merged path
     host_max_rank_area: int = 0
+
+    # K/V rows per rank (the K side's shard; = shard_q_len in self-attention)
+    shard_k_len: int = 0
 
     def table_sets(self) -> tuple[StageTables, ...]:
         """Every StageTables the plan hands the kernels, in call order."""
@@ -164,7 +182,7 @@ class DistAttnPlan:
             return (self.merged_tables,)
         return (self.host_tables, *(sp.tables for sp in self.stages))
 
-    def comms(self) -> tuple[GroupCollectiveMeta, ...]:
+    def comms(self) -> tuple[GroupCollectiveMeta | HierGroupCollectiveMeta, ...]:
         """Every cast of the plan, in call order."""
         if self.overlap_degree == 0:
             return (self.merged_comm,)
@@ -242,12 +260,18 @@ def _choose_overlap_degree(
     recv_rows,
     config: OverlapConfig,
     block_k: int,
+    inter_frac: float | None = None,
     comm_volume_ratio: float = 1.0,
 ) -> int:
     """Auto overlap degree: simulate the staged pipeline per candidate
     degree with the config's cost factors and return the argmin over the
     slowest rank (ties -> fewer stages). Mirrors the UNIFORM contiguous
     row split the staged builder will actually apply.
+
+    ``inter_frac``: for hierarchical plans, the fraction of recv rows that
+    also cross the slow inter hop after dedup — comm is then priced as
+    one intra hop per row plus inter_frac of an inter hop (when the config
+    has ``comm_cost_factor_inter``).
 
     ``comm_volume_ratio``: scheduled / true rows of the selected
     group-collective impl on the full send map
@@ -257,6 +281,8 @@ def _choose_overlap_degree(
     plan-level ratio; the built stages' metas record the exact figure)."""
     cf = config.calc_cost_factor
     cmf = config.comm_cost_factor * max(comm_volume_ratio, 1e-9)
+    if inter_frac is not None and config.comm_cost_factor_inter is not None:
+        cmf = cmf + inter_frac * config.comm_cost_factor_inter
     per_rank: list[tuple[float, float, int]] = []  # (host_s, remote_s, rows)
     for r in range(cp):
         own = [
@@ -312,21 +338,34 @@ def build_dist_attn_plan(
     dispatch_meta: DispatchMeta,
     bucket: AttnBucket,
     *,
+    kv_dispatch_meta: DispatchMeta | None = None,
     block_q: int = 64,
     block_k: int = 64,
     overlap_config: OverlapConfig | None = None,
+    cp_mesh_shape: tuple[int, int] | None = None,
 ) -> DistAttnPlan:
-    """Plan the distributed attention for one dispatched self-attention
-    mask (K/V follow the Q partition) at the kernels' tile (64 x 64 on
-    Hopper; the JAX builder's default is 128 x 128, so parity tests build
-    both at one blocking). The stacked per-rank arrays are byte-identical
-    to the JAX ``build_dist_attn_plan``'s for the same inputs."""
+    """Plan the distributed attention for one dispatched mask at the
+    kernels' tile (64 x 64 on Hopper; JAX's ``build_dist_attn_plan``
+    defaults to 128 x 128, so parity tests build both at one blocking). The
+    stacked per-rank arrays are byte-identical to the JAX
+    ``build_dist_attn_plan``'s for the same inputs.
+
+    Self-attention by default (K/V follow the Q partition); pass the K
+    side's own ``kv_dispatch_meta`` for cross-attention. ``cp_mesh_shape``
+    (n_inter, n_intra) plans hierarchical two-level comm over that layout
+    of the ranks (rank = inter * n_intra + intra): every cast, merged or
+    staged, becomes a ``HierGroupCollectiveMeta``."""
     cp = dispatch_meta.cp_size
     shard_len = dispatch_meta.shard_seqlen
-    kv_meta = dispatch_meta
+    kv_meta = kv_dispatch_meta or dispatch_meta
+    assert kv_meta.cp_size == cp
     shard_k_len = kv_meta.shard_seqlen
     overlap_config = overlap_config or OverlapConfig()
     degree = overlap_config.degree
+    if cp_mesh_shape is not None:
+        assert cp_mesh_shape[0] * cp_mesh_shape[1] == cp, (
+            f"cp_mesh_shape {cp_mesh_shape} != cp {cp}"
+        )
 
     pos_ids = [dispatch_meta.position_ids(r) for r in range(cp)]
     pos_ids_k = [kv_meta.position_ids(r) for r in range(cp)]
@@ -390,8 +429,20 @@ def build_dist_attn_plan(
         recv_rows = [
             sum(len(g) for _, g in recv_segments[r]) for r in range(cp)
         ]
+        inter_frac = None
+        if cp_mesh_shape is not None:
+            tot = sum(recv_rows)
+            inter_frac = (
+                HierGroupCollectiveMeta.inter_crossing_rows(
+                    send_map, *cp_mesh_shape
+                )
+                / tot
+                if tot
+                else 0.0
+            )
         # price comm at the volume the selected impl will schedule (the
-        # a2a's global pad, or the hop sums)
+        # a2a's global pad, or the hop sums — for hier plans the flat
+        # ratio approximates the intra level's skew)
         vol_ratio, _ = predicted_volume_ratio(send_map)
         degree = _choose_overlap_degree(
             cp,
@@ -400,16 +451,23 @@ def build_dist_attn_plan(
             recv_rows,
             overlap_config,
             block_k,
+            inter_frac=inter_frac,
             comm_volume_ratio=vol_ratio,
         )
 
     def _build_comm(smap):
-        """(comm meta, per-rank recv-order global k ids) for one send map."""
-        comm = GroupCollectiveMeta.build(smap, [shard_k_len] * cp)
-        sources = [
-            [(s, smap[s][d]) for s in range(cp) if len(smap[s][d])]
-            for d in range(cp)
-        ]
+        """(comm meta, per-rank recv-order global k ids) for one send map —
+        flat single-level or hierarchical two-hop routing."""
+        if cp_mesh_shape is None:
+            comm = GroupCollectiveMeta.build(smap, [shard_k_len] * cp)
+            sources = [
+                [(s, smap[s][d]) for s in range(cp) if len(smap[s][d])]
+                for d in range(cp)
+            ]
+        else:
+            comm, sources = HierGroupCollectiveMeta.build(
+                smap, [shard_k_len] * cp, cp_mesh_shape[0], cp_mesh_shape[1]
+            )
         gids = []
         for d in range(cp):
             parts = [pos_ids_k[s][rows] for s, rows in sources[d]]
@@ -463,6 +521,8 @@ def build_dist_attn_plan(
             merged_tables=tables,
             host_tables=None,
             stages=(),
+            hier=cp_mesh_shape,
+            shard_k_len=shard_k_len,
         )
 
     # ---- staged path -----------------------------------------------------
@@ -546,6 +606,8 @@ def build_dist_attn_plan(
         block_q=block_q,
         block_k=block_k,
         overlap_degree=num_stages,
+        hier=cp_mesh_shape,
+        shard_k_len=shard_k_len,
         total_area=total_area,
         max_rank_area=max(rank_area),
         host_max_rank_area=max(m.total_area for m in host_metas),
@@ -596,7 +658,7 @@ class RankTables:
     backward tables for each kernel call and the routing of each cast."""
 
     kernel: tuple[tuple[tuple, tuple, int], ...]  # (ftab, btab, kv_pad) per call
-    casts: tuple[RankRouting, ...]  # per cast, in call order
+    casts: tuple[RankRouting | HierRouting, ...]  # per cast, in call order
 
 
 def _rank_kernel_tables(st: StageTables, r: int, q_pad: int, block_q: int, block_k: int,
@@ -612,13 +674,13 @@ def _rank_kernel_tables(st: StageTables, r: int, q_pad: int, block_q: int, block
 def rank_tables(plan: DistAttnPlan, rank: int, device: str) -> RankTables:
     """``rank``'s tables and routing of ``plan`` on ``device``, copied once
     per (plan, rank, device)."""
-    shard_k = plan.shard_q_len  # self-attention: K/V shards are the Q shards
+    routing = rank_routing if plan.hier is None else hier_rank_routing
     return RankTables(
         kernel=tuple(
             _rank_kernel_tables(st, rank, plan.shard_q_pad, plan.block_q, plan.block_k, device)
             for st in plan.table_sets()
         ),
-        casts=tuple(rank_routing(c, rank, shard_k, device) for c in plan.comms()),
+        casts=tuple(routing(c, rank, plan.shard_k_len, device) for c in plan.comms()),
     )
 
 
@@ -651,6 +713,14 @@ def _seq(out_h, lse_h, n):
     return out_h.transpose(0, 1)[:n], lse_h.transpose(0, 1)[:n]
 
 
+def _cast(payload, rt, group):
+    """One cast of the plan: flat (``GroupCast`` over the cp group) or
+    hierarchical (``GroupCastHier`` over the ``HierCpGroups``' levels)."""
+    if isinstance(rt, HierRouting):
+        return GroupCastHier.apply(payload, rt, group)
+    return GroupCast.apply(payload, rt, group)
+
+
 class _Stream:
     """The side stream a stage's cast runs on, ordered after the work that
     made its payload and before the kernel that reads it (CUDA tensors);
@@ -663,18 +733,34 @@ class _Stream:
 
     def cast(self, payload, rt, group):
         if self.side is None:
-            return GroupCast.apply(payload, rt, group)
+            return _cast(payload, rt, group)
         main = torch.cuda.current_stream(payload.device)
         with torch.cuda.stream(self.side):
-            recv = GroupCast.apply(payload, rt, group)
+            recv = _cast(payload, rt, group)
         main.wait_stream(self.side)
         recv.record_stream(main)
         return recv
 
 
+def _cast_groups(plan: DistAttnPlan, group):
+    """(the flat cp group, the group the plan's casts run over): a
+    hierarchical plan needs the ``HierCpGroups`` of its layout, a flat plan
+    a flat group; any other pairing raises, so that a plan never runs over
+    a layout it was not built for."""
+    if plan.hier is None:
+        if isinstance(group, HierCpGroups):
+            raise ValueError(f"a flat plan was given the {group.shape} hierarchical groups: "
+                             "plan with cp_mesh_shape, or pass the flat group")
+        return group, group
+    if not isinstance(group, HierCpGroups) or group.shape != tuple(plan.hier):
+        raise ValueError(f"a hierarchical {tuple(plan.hier)} plan needs the HierCpGroups of that "
+                         f"layout (comm.make_hier_cp_groups), got {group!r}")
+    return group.flat, group
+
+
 def dist_attn_local(
     q: torch.Tensor,  # [shard_q_len, hq, d] this rank's dispatched q
-    k: torch.Tensor,  # [shard_q_len, hk, d]
+    k: torch.Tensor,  # [shard_k_len, hk, d]
     v: torch.Tensor,
     plan: DistAttnPlan,
     params: FlexAttnParams,
@@ -683,7 +769,8 @@ def dist_attn_local(
     sink: torch.Tensor | None = None,
 ):
     """The context-parallel hot path, one call per rank (each process
-    passes its own shard and the process group of the cp ranks).
+    passes its own shards and the process group of the cp ranks, or for a
+    hierarchical plan its ``HierCpGroups``).
 
     Returns (out [shard_q_len, hq, d], lse [shard_q_len, hq] f32, and the
     rank-local per-head max logit [hq]: all-reduce it with MAX across the
@@ -694,12 +781,13 @@ def dist_attn_local(
 
     if params.has_sink != (sink is not None):
         raise ValueError("params.has_sink must match whether a sink is given")
-    rank = dist.get_rank(group)
+    flat, group = _cast_groups(plan, group)
+    rank = dist.get_rank(flat)
     tabs = rank_tables(plan, rank, str(q.device))
-    n = plan.shard_q_len
-    if q.shape[0] != n or k.shape[0] != n or v.shape[0] != n:
-        raise ValueError(f"this plan's shards hold {n} rows, got q/k/v with "
-                         f"{q.shape[0]}/{k.shape[0]}/{v.shape[0]}")
+    n, nk = plan.shard_q_len, plan.shard_k_len
+    if q.shape[0] != n or k.shape[0] != nk or v.shape[0] != nk:
+        raise ValueError(f"this plan's shards hold {n} q rows and {nk} k/v rows, got q/k/v "
+                         f"with {q.shape[0]}/{k.shape[0]}/{v.shape[0]}")
     qh = _hm(q, plan.shard_q_pad)
     kv = torch.stack([k, v], dim=1)  # one payload for K and V: [n, 2, hk, d]
     if env.is_backward_high_precision_reduce():

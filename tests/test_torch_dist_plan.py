@@ -30,6 +30,7 @@ from magiattention_tpu.meta.solver.overlap_solver import OverlapConfig as JaxOve
 from magiattention_tpu.parallel.dist_attn import build_dist_attn_plan as jax_build_plan
 from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
 from magiattention_tpu_torch.common import AttnMaskType, AttnRange, AttnRanges, DispatchAlgType
+from magiattention_tpu_torch.comm import HierGroupCollectiveMeta
 from magiattention_tpu_torch.common.rectangle import AttnRectangle, AttnRectangles
 from magiattention_tpu_torch.meta import make_dispatch_meta_from_qk_ranges
 from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchAlg, DispatchConfig
@@ -97,7 +98,28 @@ def _same(a, b, what):
     assert a.tobytes() == b.tobytes(), what
 
 
+def same_hier_meta(jm, pm, what):
+    """Every field of a JAX hierarchical meta, byte for byte, and its
+    volume accounting."""
+    for f in ("n_inter", "n_intra", "recv_total", "inter_rows_total", "send_total", "pad_to",
+              "impl", "impl_reason", "intra_true_rows", "intra_local_rows", "max_recv",
+              "padded_rows_per_rank", "scheduled_rows_per_rank", "true_rows_total",
+              "scheduled_rows_total", "padding_overhead_ratio"):
+        assert getattr(pm, f) == getattr(jm, f), (what, f)
+    for f in ("inter_send_idx", "inter_recv_sel", "inter_recv_valid", "intra_send_idx",
+              "intra_recv_sel", "intra_recv_valid"):
+        _same(getattr(jm, f), getattr(pm, f), f"{what}.{f}")
+    assert len(pm.intra_hops) == len(jm.intra_hops), what
+    for i, (jh, ph) in enumerate(zip(jm.intra_hops, pm.intra_hops)):
+        assert (ph.shift, ph.size) == (jh.shift, jh.size), (what, i)
+        for f in ("send_idx", "recv_pos", "seg_ids"):
+            _same(getattr(jh, f), getattr(ph, f), f"{what}.hop{i}.{f}")
+
+
 def _same_comm(jc, pc, what):
+    if isinstance(pc, HierGroupCollectiveMeta):
+        same_hier_meta(jc, pc, what)
+        return
     assert pc.impl == jc.impl and pc.impl_reason == jc.impl_reason, (what, pc.impl, jc.impl)
     for f in ("cp_size", "max_send", "max_recv", "send_total", "recv_total", "pad_to",
               "local_rows_total"):
@@ -132,9 +154,12 @@ def test_plan_is_byte_identical_to_jax(mask, cp, degree, impl, monkeypatch):
 
 
 def _same_plans(jm, pm, jp, pp, degree):
-    assert pm.partitions == jm.partitions
+    """Two plans byte for byte (and, when given, their dispatch metas'
+    partitions); flat or hierarchical comm."""
+    if jm is not None:
+        assert pm.partitions == jm.partitions
     for f in ("cp_size", "shard_q_len", "shard_q_pad", "block_q", "block_k", "overlap_degree",
-              "total_area", "max_rank_area", "host_max_rank_area"):
+              "total_area", "max_rank_area", "host_max_rank_area", "hier"):
         assert getattr(pp, f) == getattr(jp, f), f
     if degree == 0:
         assert pp.overlap_degree == 0
@@ -294,3 +319,95 @@ def test_rectangle_algebra_matches_jax(mt, seed):
         assert rp.area_left_of_q(pos) == rj.area_left_of_q(pos)
         assert [len(x) for x in rp.cut_k(pos)] == [len(x) for x in rj.cut_k(pos)]
     np.testing.assert_array_equal(rp.to_array(), rj.to_array())
+
+
+# -- hierarchical plans and cross-attention plans ----------------------------------------
+
+
+def _hier_plans(mask, shape, degree, total=TOTAL):
+    """Both packages' plans of ``mask`` over cp_mesh_shape ``shape``."""
+    qr, kr, ty = MASKS[mask]
+    cp = shape[0] * shape[1]
+    oc = dict(degree=degree, min_stage_rows=MIN_STAGE_ROWS)
+    jm, _, jb = jax_dispatch_meta(JaxRanges.from_ranges(qr), JaxRanges.from_ranges(kr),
+                                  [JaxMaskType(t) for t in ty], total, total, CHUNK, cp)
+    pm, _, pb = make_dispatch_meta_from_qk_ranges(AttnRanges.from_ranges(qr),
+                                                  AttnRanges.from_ranges(kr),
+                                                  [AttnMaskType(t) for t in ty], total, total,
+                                                  CHUNK, cp)
+    jp = jax_build_plan(jm, jb, block_q=BLOCK, block_k=BLOCK, cp_mesh_shape=shape,
+                        overlap_config=JaxOverlapConfig(**oc))
+    pp = build_dist_attn_plan(pm, pb, block_q=BLOCK, block_k=BLOCK, cp_mesh_shape=shape,
+                              overlap_config=OverlapConfig(**oc))
+    return jm, pm, jp, pp
+
+
+@pytest.mark.parametrize("impl", ["a2a", "hops", "auto"])
+@pytest.mark.parametrize("degree", [0, 2, None], ids=["d0", "d2", "dauto"])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4), (4, 2)], ids=["2x2", "2x4", "4x2"])
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_hier_plan_is_byte_identical_to_jax(mask, shape, degree, impl, monkeypatch):
+    """cp_mesh_shape plans: every merged and staged cast a
+    ``HierGroupCollectiveMeta`` byte-identical to JAX's (2 x 4 and 4 x 2
+    are host-only: eight ranks)."""
+    monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)
+    jm, pm, jp, pp = _hier_plans(mask, shape, degree)
+    assert pp.hier == jp.hier == shape
+    assert all(isinstance(c, HierGroupCollectiveMeta) for c in pp.comms())
+    assert pp.shard_k_len == pm.shard_seqlen
+    _same_plans(jm, pm, jp, pp, degree)
+
+
+def _cross_masks():
+    """(q_ranges, k_ranges, types, tq, tk): queries over tq rows attending
+    to a memory of tk rows, both chunk multiples over the ranks."""
+    tq, tk = 1536, 2560
+    return {
+        "docs_full": ([(0, 512), (512, 1024), (1024, tq)], [(0, 1280), (1280, 1920), (1920, tk)],
+                      [0, 0, 0], tq, tk),
+        "shared_prefix_causal": ([(0, 768), (768, tq)], [(0, 1536), (512, tk)], [0, 1], tq, tk),
+    }
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2], ids=["d0", "d1", "d2"])
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("mask", sorted(_cross_masks()))
+def test_cross_plan_is_byte_identical_to_jax(mask, cp, degree):
+    """``make_cross_attn_dispatch_meta`` (both roles) and the plan over the
+    K side's own ``kv_dispatch_meta``."""
+    from magiattention_tpu.meta.dispatch_meta import make_cross_attn_dispatch_meta as jax_cross
+    from magiattention_tpu_torch.meta import make_cross_attn_dispatch_meta
+
+    qr, kr, ty, tq, tk = _cross_masks()[mask]
+    chunk_q, chunk_k = 128, 64
+    jq, jk, jb = jax_cross(JaxRanges.from_ranges(qr), JaxRanges.from_ranges(kr),
+                           [JaxMaskType(t) for t in ty], tq, tk, chunk_q, chunk_k, cp)
+    pq, pk, pb = make_cross_attn_dispatch_meta(AttnRanges.from_ranges(qr),
+                                               AttnRanges.from_ranges(kr),
+                                               [AttnMaskType(t) for t in ty], tq, tk, chunk_q,
+                                               chunk_k, cp)
+    for j, p in ((jq, pq), (jk, pk)):
+        assert (p.total_seqlen, p.chunk_size, p.num_chunks, p.cp_size, p.partitions) == (
+            j.total_seqlen, j.chunk_size, j.num_chunks, j.cp_size, j.partitions)
+        _same(j.perm_idx, p.perm_idx, "perm_idx")
+    oc = dict(degree=degree, min_stage_rows=MIN_STAGE_ROWS)
+    jp = jax_build_plan(jq, jb, kv_dispatch_meta=jk, block_q=BLOCK, block_k=BLOCK,
+                        overlap_config=JaxOverlapConfig(**oc))
+    pp = build_dist_attn_plan(pq, pb, kv_dispatch_meta=pk, block_q=BLOCK, block_k=BLOCK,
+                              overlap_config=OverlapConfig(**oc))
+    assert (pp.shard_q_len, pp.shard_k_len) == (tq // cp, tk // cp)
+    _same_plans(jq, pq, jp, pp, degree)
+
+
+def test_cross_dispatch_meta_refuses_what_jax_refuses():
+    from magiattention_tpu.meta.dispatch_meta import make_cross_attn_dispatch_meta as jax_cross
+    from magiattention_tpu_torch.meta import make_cross_attn_dispatch_meta
+
+    for tq, tk, cq, ck in ((1536, 2500, 128, 64), (1536, 64 * 6, 128, 64), (1000, 2560, 128, 64)):
+        msgs = []
+        for fn, ranges in ((jax_cross, JaxRanges), (make_cross_attn_dispatch_meta, AttnRanges)):
+            with pytest.raises(ValueError) as e:
+                fn(ranges.from_ranges([(0, tq)]), ranges.from_ranges([(0, tk)]), [0], tq, tk, cq,
+                   ck, 4)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]

@@ -5,12 +5,15 @@ or refuses it, never takes it and plans something else.
 accepts and raises where the JAX package's does (random slice sets and a
 dense brute force, as ``tests/test_common/test_sanity.py`` draws them), and
 the keyed API runs it before planning. ``MAGI_ATTENTION_AUTO_RANGE_MERGE``
-and ``MAGI_ATTENTION_HIERARCHICAL_COMM`` (not ported) make the keyed API
-raise, the first also ``flex_flash_attn_func``; qo-comm refuses an uneven
-shard and hierarchical comm, as JAX's ``check_flag_comb`` does. Each flag
-is in ``flags_fingerprint``, so that a qo key and a K/V-comm key never
-share a cache entry. The refusals come before any process-group call, so
-these tests need no ranks."""
+(not ported) makes the keyed API raise, and ``flex_flash_attn_func``.
+``check_flag_comb`` raises where JAX's does (``tests/test_api/
+test_interface.py``): ``MAGI_ATTENTION_HIERARCHICAL_COMM`` with a flat
+group, qo-comm with an uneven shard or hierarchical groups, and a
+cross-attention key with qo-comm, hierarchical groups or an uneven shard.
+Each flag is in ``flags_fingerprint``, so that a qo key and a K/V-comm key
+never share a cache entry. The refusals come before any process-group
+call, so they need no ranks; one test spawns four to show that the flag
+with ``HierCpGroups`` plans the hierarchical comm."""
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from magiattention_tpu.common.mask import slice_mask
 from magiattention_tpu.common.sanity import check_slices_non_overlapping as jax_check
 from magiattention_tpu_torch import api
 from magiattention_tpu_torch.api import interface
+from magiattention_tpu_torch.comm import HierCpGroups
 from magiattention_tpu_torch.common.sanity import check_slices_non_overlapping
 from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchConfig
 from magiattention_tpu_torch.ops import flex_flash_attn_func
@@ -54,10 +58,10 @@ def test_sanity_check_is_jax_check(seed):
     assert (got is not None) == bool((acc > 1).any())
 
 
-def _key(**kw):
+def _key(cp_group=None, **kw):
     """A cp key on the CPU; ``cp_group`` is never reached by these cases."""
     return api.magi_attn_flex_key([(0, 256), (64, 192)], [(0, 256), (0, 64)], [1, 0], 256, 256,
-                                  None, num_heads=(4, 2), head_dim=64, chunk_size=64,
+                                  cp_group, num_heads=(4, 2), head_dim=64, chunk_size=64,
                                   device="cpu", **kw)
 
 
@@ -67,8 +71,7 @@ def test_sanity_flag_checks_the_keys_slices(monkeypatch):
         _key()  # (64..192) x (0..64) full lies inside the causal slice
 
 
-@pytest.mark.parametrize("flag,item", [("MAGI_ATTENTION_AUTO_RANGE_MERGE", "A.4/A.5"),
-                                       ("MAGI_ATTENTION_HIERARCHICAL_COMM", "A.7/A.8")])
+@pytest.mark.parametrize("flag,item", [("MAGI_ATTENTION_AUTO_RANGE_MERGE", "A.4/A.5")])
 def test_unported_flags_make_the_key_raise(flag, item, monkeypatch):
     monkeypatch.setenv(flag, "1")
     with pytest.raises(ValueError, match=item):
@@ -82,11 +85,71 @@ def test_qo_comm_refuses_an_uneven_shard_and_hierarchical_comm(monkeypatch):
     monkeypatch.setenv("MAGI_ATTENTION_HIERARCHICAL_COMM", "1")
     with pytest.raises(ValueError, match="hierarchical"):
         interface.check_flag_comb()
+    with pytest.raises(ValueError, match="hierarchical"):
+        interface.check_flag_comb(cp_group=HIER)
     monkeypatch.delenv("MAGI_ATTENTION_QO_COMM")
-    with pytest.raises(ValueError, match="A.7/A.8"):
+    with pytest.raises(ValueError, match="two-level cp group"):
         interface.check_flag_comb()
     monkeypatch.delenv("MAGI_ATTENTION_HIERARCHICAL_COMM")
     interface.check_flag_comb(uneven_shard=True)  # legal without qo-comm
+
+
+# the holder alone: check_flag_comb reads only its type
+HIER = HierCpGroups(flat=None, inter=None, intra=None, n_inter=2, n_intra=2)
+
+
+def test_hierarchical_flag_with_a_flat_group_makes_the_key_raise(monkeypatch):
+    monkeypatch.setenv("MAGI_ATTENTION_HIERARCHICAL_COMM", "1")
+    with pytest.raises(ValueError, match="make_hier_cp_groups"):
+        _key()
+
+
+@pytest.mark.parametrize("flag", [None, "MAGI_ATTENTION_HIERARCHICAL_COMM"])
+def test_hierarchical_groups_pass_the_check_with_or_without_the_flag(flag, monkeypatch):
+    """As in JAX, the layout is chosen by the groups (the ``cp_axis`` pair
+    there); the flag only insists on it."""
+    if flag:
+        monkeypatch.setenv(flag, "1")
+    interface.check_flag_comb(cp_group=HIER)
+    interface.check_flag_comb(cp_group=HIER, uneven_shard=True)
+
+
+def test_qo_comm_with_hierarchical_groups_raises(monkeypatch):
+    monkeypatch.setenv("MAGI_ATTENTION_QO_COMM", "1")
+    with pytest.raises(ValueError, match="qo-comm cannot be combined with hierarchical"):
+        interface.check_flag_comb(cp_group=HIER)
+    with pytest.raises(ValueError, match="qo-comm cannot be combined with hierarchical"):
+        _key(cp_group=HIER)
+
+
+@pytest.mark.parametrize("what", ["qo", "hier", "uneven"])
+def test_cross_attention_refuses_self_attention_features(what, monkeypatch):
+    kw = {}
+    if what == "qo":
+        monkeypatch.setenv("MAGI_ATTENTION_QO_COMM", "1")
+    elif what == "hier":
+        kw["cp_group"] = HIER
+    else:
+        kw["uneven_shard"] = True
+    with pytest.raises(ValueError, match="cross-attention keys support the flat"):
+        interface.check_flag_comb(xattn=True, **kw)
+    interface.check_flag_comb(**kw)  # legal for a self-attention key
+    with pytest.raises(ValueError, match="cross-attention keys support the flat"):
+        api.magi_attn_cross_key(
+            [(0, 256)], [(0, 512)], [0], 256, 512, kw.get("cp_group"), num_heads=(2, 2),
+            head_dim=64, chunk_size_q=64, chunk_size_k=128, device="cpu",
+            dispatch_config=DispatchConfig(uneven_shard=what == "uneven"))
+
+
+def test_the_flag_with_hierarchical_groups_plans_hierarchical_comm():
+    from magiattention_tpu_torch.testing.dist import RankPool
+
+    from . import torch_dist_workers as workers
+
+    with RankPool(4) as pool:
+        got = pool.run(workers.hier_flag_key)
+    for r in got:
+        assert r == {"plan_hier": (2, 2), "key_hier": (2, 2), "flat_plan_hier": None}
 
 
 def test_flex_flash_attn_func_refuses_auto_range_merge(monkeypatch):

@@ -71,7 +71,8 @@ def test_engine_on_cuda_raises_without_a_card():
         ServingEngine(num_pages=8, num_kv_heads=2, head_dim=64)
 
 
-@pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key"])
+@pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key",
+                                   "magi_attn_cross_key"])
 def test_keyed_cp_entry_points_raise_without_a_card(entry):
     """Without ``device="cpu"`` the keyed context-parallel API runs on the
     card, and without one it raises before planning, never running on the
@@ -80,12 +81,15 @@ def test_keyed_cp_entry_points_raise_without_a_card(entry):
         pytest.skip("a card is present: the no-card contract cannot be observed here")
     from magiattention_tpu_torch import api
 
-    args = {
-        "magi_attn_flex_key": ([(0, 256)], [(0, 256)], [1], 256, 256, None),
-        "magi_attn_varlen_key": ([0, 128, 256], 256, None),
+    args, chunks = {
+        "magi_attn_flex_key": (([(0, 256)], [(0, 256)], [1], 256, 256, None),
+                               dict(chunk_size=64)),
+        "magi_attn_varlen_key": (([0, 128, 256], 256, None), dict(chunk_size=64)),
+        "magi_attn_cross_key": (([(0, 256)], [(0, 512)], [0], 256, 512, None),
+                                dict(chunk_size_q=64, chunk_size_k=128)),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(api, entry)(*args, num_heads=(4, 2), head_dim=64, chunk_size=64)
+        getattr(api, entry)(*args, num_heads=(4, 2), head_dim=64, **chunks)
 
 
 def test_qo_comm_key_raises_without_a_card(monkeypatch):

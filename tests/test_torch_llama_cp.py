@@ -8,7 +8,10 @@ gradient (summed over the ranks), and the losses of three AdamW steps with
 optax's hyperparameters, within rtol 2e-4 / atol 2e-5 (the bound of the
 JAX package's own cp layouts, ``tests/test_models/test_llama.py``), at
 overlap degree 0 (a2a) and 2 (hops); and the same against the port's own
-cp=1 trainer."""
+cp=1 trainer. Then cp=4 as 2 x 2 (``comm.make_hier_cp_groups``: the
+hierarchical two-level plan) against JAX ``build_magi_llama`` over
+``cp_axis=("dcn", "ici")`` on a (dp=1, dcn=2, ici=2) mesh, at degree 0
+(a2a) and 2 (hops), at the same tolerances."""
 
 import jax
 import jax.numpy as jnp
@@ -43,17 +46,16 @@ def _tokens():
     return tokens, np.roll(tokens, -1, axis=1)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX oracle at (dp=1, cp=2): params, loss, grads, and the losses
-    of STEPS AdamW steps."""
+def _jax_oracle(mesh, cp_axis="cp", overlap_config=None):
+    """The JAX model on ``mesh``: params, loss, grads, and the losses of
+    STEPS AdamW steps."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
         cfg = jax_models.LlamaConfig(**FIELDS)
-        mesh = Mesh(np.array(jax.devices()[:CP]).reshape(1, CP), ("dp", "cp"))
         qr, kr, ts = jax_mask(CU)
         model, meta = jax_models.build_magi_llama(
-            cfg, mesh, TOTAL, qr, kr, ts, chunk_size=CHUNK, block_q=BLOCK, block_k=BLOCK)
+            cfg, mesh, TOTAL, qr, kr, ts, chunk_size=CHUNK, block_q=BLOCK, block_k=BLOCK,
+            cp_axis=cp_axis, overlap_config=overlap_config)
         # float32 masters (the test session's x64 would promote the init)
         params = jax.tree.map(lambda a: a.astype(jnp.float32),
                               jax_models.init_params(jax.random.PRNGKey(0), cfg))
@@ -71,7 +73,14 @@ def jax_run():
         for _ in range(STEPS):  # the step donates its parameters
             p, state, step_loss = step(p, state, tokens, labels, pos)
             losses.append(float(step_loss))
-        return {**out, "loss": float(out["loss"]), "losses": losses}
+        return {**out, "loss": float(out["loss"]), "losses": losses,
+                "hier": model.plan.hier, "degree": model.plan.overlap_degree}
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX oracle at (dp=1, cp=2)."""
+    return _jax_oracle(Mesh(np.array(jax.devices()[:CP]).reshape(1, CP), ("dp", "cp")))
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +134,45 @@ def test_cp2_loss_gradients_and_steps_match(run, against, jax_run, port_runs, cp
         np.testing.assert_allclose(got[r]["losses"], ref["losses"], rtol=RTOL, atol=ATOL)
         grads = dict(_leaves(got[r]["grads"]))
         want = dict(_leaves(ref["grads"]))
+        assert grads.keys() == want.keys()
+        for name, g in want.items():
+            np.testing.assert_allclose(grads[name], g, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+HIER = (2, 2)
+
+
+@pytest.fixture(scope="module")
+def hier_runs(jax_run):
+    """The JAX model and the port's at cp=4 as 2 x 2, degree 0 (a2a) and 2
+    (hops), on the cp=2 oracle's weights."""
+    from magiattention_tpu.meta.solver.overlap_solver import OverlapConfig as JaxOverlapConfig
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, *HIER), ("dp", "dcn", "ici"))
+    tokens, labels = _tokens()
+    out = {}
+    with RankPool(4) as pool:
+        for degree, impl in ((0, "a2a"), (2, "hops")):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)
+                ref = _jax_oracle(mesh, ("dcn", "ici"),
+                                  JaxOverlapConfig(degree=degree, min_stage_rows=CHUNK))
+            got = pool.run(workers.llama_cp, FIELDS, TOTAL, CU, CHUNK, jax_run["params"], tokens,
+                           labels, degree, impl, STEPS, ADAMW, HIER)
+            out[(degree, impl)] = (got, ref)
+    return out
+
+
+@pytest.mark.parametrize("run", [(0, "a2a"), (2, "hops")], ids=["d0_a2a", "d2_hops"])
+def test_hier_2x2_loss_gradients_and_steps_match_jax(run, hier_runs):
+    got, ref = hier_runs[run]
+    assert ref["hier"] == HIER and ref["degree"] == run[0]
+    assert got[0]["hier"] == HIER and got[0]["degree"] == run[0]
+    assert set(got[0]["impls"]) == {run[1]}
+    for r in range(4):
+        np.testing.assert_allclose(got[r]["loss"], ref["loss"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got[r]["losses"], ref["losses"], rtol=RTOL, atol=ATOL)
+        grads, want = dict(_leaves(got[r]["grads"])), dict(_leaves(ref["grads"]))
         assert grads.keys() == want.keys()
         for name, g in want.items():
             np.testing.assert_allclose(grads[name], g, rtol=RTOL, atol=ATOL, err_msg=name)

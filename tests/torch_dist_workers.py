@@ -20,10 +20,17 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
     ``case["high_precision_backward"]`` sets
     ``MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE`` for this call;
     ``case["skip_reduce"]`` plants a cast whose backward drops the dK/dV of
-    received rows (left in place: the caller replaces the pool)."""
+    received rows (left in place: the caller replaces the pool).
+    ``case["hier"]`` = (n_inter, n_intra) makes the key over
+    ``make_hier_cp_groups`` (hierarchical comm), ``case["hier_plant"]``
+    plants a faulty hierarchical reduce (``plant_hier_reduce``) for this
+    call, and ``case["new_mask"]`` = (q_ranges, k_ranges, types) runs the
+    attention on ``make_flex_key_for_new_mask_after_dispatch``'s key for
+    that mask over the first key's dispatch."""
     from magiattention_tpu_torch.comm import group_collective as gc
 
     os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    restore = plant_hier_reduce(case["hier_plant"]) if case.get("hier_plant") else None
     if case.get("high_precision_backward"):
         os.environ["MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE"] = "1"
     if case.get("skip_reduce"):
@@ -42,6 +49,8 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
     finally:
         gc.group_reduce_sum = real_reduce
         os.environ.pop("MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE", None)
+        if restore is not None:
+            restore()
 
 
 def _keyed_attention(group, case: dict, inputs: dict) -> dict:
@@ -54,15 +63,22 @@ def _keyed_attention(group, case: dict, inputs: dict) -> dict:
     q, k, v = (torch.from_numpy(inputs[n]).to(dtype).requires_grad_() for n in ("q", "k", "v"))
     sink = inputs.get("sink")
     sink = None if sink is None else torch.from_numpy(sink).requires_grad_()
+    cp_group = group
+    if case.get("hier"):
+        from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+        cp_group = make_hier_cp_groups(group, *case["hier"])
     key = api.magi_attn_flex_key(
-        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"], group,
-        num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size=case["chunk"],
-        sink=sink, out_dtype=dtype, device="cpu",
+        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"],
+        cp_group, num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2],
+        chunk_size=case["chunk"], sink=sink, out_dtype=dtype, device="cpu",
         dist_attn_config=DistAttnConfig(
             dispatch_config=DispatchConfig(uneven_shard=case.get("uneven", False)),
             overlap_config=OverlapConfig(degree=case["degree"],
                                          min_stage_rows=case["min_stage_rows"])),
     )
+    if case.get("new_mask"):
+        key = api.make_flex_key_for_new_mask_after_dispatch(*case["new_mask"], key)
     mgr = api.get_runtime_mgr(key)
     out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key), api.dispatch(v, key),
                                 key, sink=sink)
@@ -77,7 +93,10 @@ def _keyed_attention(group, case: dict, inputs: dict) -> dict:
         "dv": v.grad.float().numpy(),
         "degree": mgr.plan.overlap_degree, "impls": [c.impl for c in mgr.plan.comms()],
         "max_logits": meta.max_logits.numpy(), "partitions": mgr.dispatch_meta.partitions,
+        "hier": mgr.plan.hier, "key_hier": key.hier,
     }
+    if case.get("return_plan") and dist.get_rank(group) == 0:
+        res["plan"] = mgr.plan
     if sink is not None:
         res["dsink"] = sink.grad.numpy()
     return res
@@ -85,11 +104,13 @@ def _keyed_attention(group, case: dict, inputs: dict) -> dict:
 
 def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict,
              tokens: np.ndarray, labels: np.ndarray, degree: int, impl: str, steps: int,
-             adamw: dict) -> dict:
+             adamw: dict, hier: tuple | None = None) -> dict:
     """The port's Llama under cp on the CPU: this rank's share of the loss,
     the gradients summed over the group, then ``steps`` AdamW steps of
     ``make_model_train_step``. Returns the loss, the gradients (numpy, the
-    ``init_params`` tree) and the steps' losses."""
+    ``init_params`` tree) and the steps' losses. ``hier`` = (n_inter,
+    n_intra) builds the model over ``make_hier_cp_groups`` (hierarchical
+    comm)."""
     from magiattention_tpu_torch import convert
     from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
     from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
@@ -102,9 +123,14 @@ def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict
 
     os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
     qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu)
+    cp_group = group
+    if hier:
+        from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+        cp_group = make_hier_cp_groups(group, *hier)
     model = build_magi_llama(
         LlamaConfig(**fields), total, qr, kr, ts, params=convert.llama_params_from_numpy(params),
-        device="cpu", cp_group=group, chunk_size=chunk,
+        device="cpu", cp_group=cp_group, chunk_size=chunk,
         overlap_config=OverlapConfig(degree=degree, min_stage_rows=chunk),
     )
     tok, lab = (model.shard(torch.from_numpy(a).long()) for a in (tokens, labels))
@@ -119,7 +145,7 @@ def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict
     losses = [float(step(tok, lab, pos)) for _ in range(steps)]
     return {"loss": float(loss), "grads": grads, "losses": losses,
             "degree": model.plan.overlap_degree, "head_block": model.head_block,
-            "impls": [c.impl for c in model.plan.comms()]}
+            "impls": [c.impl for c in model.plan.comms()], "hier": model.plan.hier}
 
 
 def comm_primitives(group, impl: str, seed: int) -> dict:
@@ -345,3 +371,265 @@ def reduce_lse(group, impl: str, ops: dict, send_map, rows: int) -> dict:
     ((out ** 2).sum() + torch.where(torch.isfinite(lse), lse, 0.0).sum()).backward()
     return {"out": out.detach().numpy(), "lse": lse.detach().numpy(), "impl": meta.impl,
             **{f"d{n}": x.grad.numpy() for n, x in zip(("op", "lp", "oa", "la"), xs)}}
+
+
+# -- hierarchical comm, cross-attention keys, new-mask keys and roll ------------------------
+
+
+def plant_hier_reduce(kind: str):
+    """The planted faults of the hierarchical reduce that ``chip_smoke.py``
+    plants on the card (``chip_smoke.plant_hier_reduce``: ``"pad_rows"``,
+    ``"no_pre_reduce"``), so that the CPU tests hold the same plants.
+    Returns a function that puts the real reduce back."""
+    import chip_smoke
+
+    return chip_smoke.plant_hier_reduce(kind)
+
+
+def hier_send_map(n: int, rows: int, seed: int):
+    """A random send map over n ranks (the same on every rank)."""
+    rng = np.random.default_rng(seed)
+    return [[np.sort(rng.choice(rows, int(rng.integers(0, rows // 2)), replace=False))
+             if s != d else np.empty(0, np.int64) for d in range(n)] for s in range(n)]
+
+
+def hier_comm(group, n_inter: int, n_intra: int, impl: str, seed: int, rows: int,
+              plant: str | None = None) -> dict:
+    """``group_cast_hier`` and ``group_reduce_hier`` on a random send map
+    over ``make_hier_cp_groups``: this rank's cast of its rows, its reduce
+    of random partials (float64), the global inner products <cast(x), y>
+    and <x, reduce(y)>, and ``GroupCastHier``'s gradient. ``plant`` swaps
+    in a planted reduce (``plant_hier_reduce``)."""
+    from magiattention_tpu_torch.comm import (
+        GroupCastHier,
+        HierGroupCollectiveMeta,
+        group_cast_hier,
+        hier_rank_routing,
+        make_hier_cp_groups,
+    )
+    from magiattention_tpu_torch.comm import hier
+
+    groups = make_hier_cp_groups(group, n_inter, n_intra)
+    rank, n = dist.get_rank(group), n_inter * n_intra
+    meta, _ = HierGroupCollectiveMeta.build(hier_send_map(n, rows, seed), [rows] * n, n_inter,
+                                            n_intra, impl=impl)
+    hr = hier_rank_routing(meta, rank, rows, "cpu")
+    x = torch.from_numpy(np.random.default_rng(seed + 1 + rank).standard_normal((rows, 3)))
+    y = torch.from_numpy(np.random.default_rng(seed + 100 + rank).standard_normal(
+        (meta.max_recv, 3)))
+    restore = plant_hier_reduce(plant) if plant else None
+    try:
+        cast = group_cast_hier(x, hr, groups)
+        red = hier.group_reduce_hier(y, hr, groups)
+        xg = x.clone().requires_grad_()
+        (GroupCastHier.apply(xg, hr, groups) * y).sum().backward()
+    finally:
+        if restore is not None:
+            restore()
+    sums = torch.tensor([float((cast * y).sum()), float((x * red).sum())], dtype=torch.float64)
+    dist.all_reduce(sums, group=group)
+    return {"impl": meta.impl, "cast": cast.numpy(), "reduce": red.numpy(), "x": x.numpy(),
+            "y": y.numpy(), "grad": xg.grad.numpy(), "adjoint": sums.tolist(),
+            "groups": (dist.get_world_size(groups.inter), dist.get_rank(groups.inter),
+                       dist.get_world_size(groups.intra), dist.get_rank(groups.intra))}
+
+
+def cross_attention(group, case: dict, inputs: dict) -> dict:
+    """``magi_attn_cross_key`` -> ``dispatch`` (queries), ``dispatch_kv``
+    (memory) -> ``calc_attn`` -> ``undispatch``, forward and backward of
+    sum(out * g_out) + sum(lse * g_lse) over the covered rows, in float32 on
+    the CPU. Returns the global out, lse and gradients, the plan (rank 0),
+    the key's padding and ``get_xattn_args``, and ``undispatch_kv``'s round
+    trip of the memory. ``case["skip_reduce"]`` plants a cast whose
+    backward drops the memory's dK/dV (left in place: the caller replaces
+    the pool)."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.comm import group_collective as gc
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    if case.get("skip_reduce"):
+        gc.GroupCast.backward = staticmethod(
+            lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
+    q, k, v = (torch.from_numpy(inputs[n]).requires_grad_() for n in ("q", "k", "v"))
+    key = api.magi_attn_cross_key(
+        case["q_ranges"], case["k_ranges"], case["types"], case["tq"], case["tk"], group,
+        num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2], chunk_size_q=case["chunk_q"],
+        chunk_size_k=case["chunk_k"], out_dtype=torch.float32, device="cpu",
+        overlap_config=OverlapConfig(degree=case["degree"], min_stage_rows=case["chunk_q"]))
+    mgr = api.get_runtime_mgr(key)
+    out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch_kv(k, key),
+                                api.dispatch_kv(v, key), key)
+    out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+    _loss(out, lse, inputs).backward()
+    args = api.get_xattn_args(key)
+    kv_round_trip = api.undispatch_kv(api.dispatch_kv(k.detach(), key), key)
+    res = {"out": out.detach().numpy(), "lse": lse.detach().numpy(), "dq": q.grad.numpy(),
+           "dk": k.grad.numpy(), "dv": v.grad.numpy(), "pad_size_k": mgr.pad_size_k,
+           "pad_size": key.pad_size, "degree": mgr.plan.overlap_degree,
+           "args": (args.total_seqlen_q, args.total_seqlen_k, args.shard_q_len, args.shard_k_len),
+           "q_pos": args.q_position_ids.numpy(), "k_pos": args.k_position_ids.numpy(),
+           "kv_round_trip_exact": bool(torch.equal(kv_round_trip, k.detach())),
+           "max_logits": meta.max_logits.numpy()}
+    if dist.get_rank(group) == 0:
+        res["plan"] = mgr.plan
+        res["q_partitions"] = mgr.dispatch_meta.partitions
+        res["k_partitions"] = mgr.kv_dispatch_meta.partitions
+    return res
+
+
+def roll_labels(group, case: dict, shifts: list, labels: np.ndarray, x: np.ndarray,
+                g: np.ndarray) -> dict:
+    """``api.roll`` on this rank's dispatched integer labels for each shift
+    (gathered back with ``undispatch``), and on a float tensor under
+    autograd: the gathered roll of ``x`` by ``shifts[0]`` and the gradient
+    of sum(roll(x) * g) with respect to the global ``x``."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchConfig
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    cp_group = group
+    if case.get("hier"):
+        from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+        cp_group = make_hier_cp_groups(group, *case["hier"])
+    key = api.magi_attn_flex_key(
+        case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"],
+        cp_group, num_heads=(2, 2), head_dim=16, chunk_size=case["chunk"], device="cpu",
+        dist_attn_config=DistAttnConfig(
+            dispatch_config=DispatchConfig(uneven_shard=case.get("uneven", False))))
+    lab = torch.from_numpy(labels)
+    local = api.dispatch(lab, key, pad_value=-7)
+    rolled = {}
+    for shift in shifts:
+        r = api.roll(local, key, shift)
+        rolled[shift] = {"global": api.undispatch(r, key).numpy(), "local": r.numpy(),
+                         "simple_equal": bool(torch.equal(api.roll_simple(local, key, shift), r))}
+    xs = torch.from_numpy(x).requires_grad_()
+    rx = api.undispatch(api.roll(api.dispatch(xs, key), key, shifts[0], axis=0), key)
+    (rx * torch.from_numpy(g)).sum().backward()
+    return {"rolled": rolled, "x_rolled": rx.detach().numpy(), "x_grad": xs.grad.numpy(),
+            "partitions": api.get_runtime_mgr(key).dispatch_meta.partitions,
+            "dispatched": local.numpy()}
+
+
+def new_mask_key_origin(group, masks: dict, inputs: dict) -> dict:
+    """Keys for the mask ``masks["w"]``: its own (planned first, so it is
+    cached), and on the dispatches of masks ``"a"`` and ``"b"``, directly
+    and through a key for ``"b"`` on ``"a"``'s dispatch. Returns which keys
+    are equal, which runtimes and dispatch metas are shared, each
+    dispatch's partitions, and the global out of a layer stack run as
+    hybrid stacks run it (activations dispatched under ``"a"``'s key,
+    attention on ``"w"``'s key over that dispatch) next to the out of
+    ``"w"``'s own key."""
+    from magiattention_tpu_torch import api
+
+    def flex(mask):
+        return api.magi_attn_flex_key(*mask, inputs["q"].shape[0], inputs["q"].shape[0], group,
+                                      num_heads=(4, 2), head_dim=inputs["q"].shape[2],
+                                      chunk_size=masks["chunk"], out_dtype=torch.float32,
+                                      device="cpu")
+
+    def out_of(attn_key, dispatch_key):
+        q, k, v = (api.dispatch(torch.from_numpy(inputs[n]), dispatch_key) for n in "qkv")
+        return api.undispatch(api.calc_attn(q, k, v, attn_key)[0], dispatch_key).numpy()
+
+    new = api.make_flex_key_for_new_mask_after_dispatch
+    mgr = api.get_runtime_mgr
+    own = flex(masks["w"])
+    ka, kb = flex(masks["a"]), flex(masks["b"])
+    on_a, on_b = new(*masks["w"], ka), new(*masks["w"], kb)
+    on_a_chained = new(*masks["w"], new(*masks["b"], ka))
+    return {
+        "own_vs_on_a_differ": own != on_a and mgr(own) is not mgr(on_a),
+        "on_a_vs_on_b_differ": on_a != on_b and mgr(on_a) is not mgr(on_b),
+        "chained_is_on_a": on_a_chained == on_a and mgr(on_a_chained) is mgr(on_a),
+        "dispatch_inherited": mgr(on_a).dispatch_meta is mgr(ka).dispatch_meta
+        and mgr(on_b).dispatch_meta is mgr(kb).dispatch_meta,
+        "partitions": {n: mgr(k).dispatch_meta.partitions
+                       for n, k in (("w", own), ("a", ka), ("b", kb))},
+        "out_own": out_of(own, own), "out_on_a": out_of(on_a, ka), "out_on_b": out_of(on_b, kb),
+    }
+
+
+def key_variants(group) -> dict:
+    """The keyed API's cache and refusals around the new key variants:
+    cross keys whose memory totals pad to the same multiple stay apart;
+    a flat and a hierarchical key on the same mask stay apart; the
+    after-dispatch re-key refuses a sink key, a qo-comm key and a cross
+    key, and inherits a hierarchical key's layout; ``get_xattn_args`` and
+    ``dispatch_kv`` refuse a self-attention key. Returns the facts and
+    the refusals' messages."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+    def cross(tk):
+        return api.magi_attn_cross_key([(0, 256)], [(0, 512)], [0], 256, tk, group,
+                                       num_heads=(2, 2), head_dim=16, chunk_size_q=64,
+                                       chunk_size_k=128, out_dtype=torch.float32, device="cpu")
+
+    def flex(cp_group, **kw):
+        return api.magi_attn_flex_key([(0, 512)], [(0, 512)], [1], 512, 512, cp_group,
+                                      num_heads=(2, 2), head_dim=16, chunk_size=64,
+                                      out_dtype=torch.float32, device="cpu", **kw)
+
+    def refusal(fn, *args):
+        try:
+            fn(*args)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    k960, k1024, k960b = cross(960), cross(1024), cross(960)
+    flat = flex(group)
+    hier_groups = make_hier_cp_groups(group, 2, dist.get_world_size(group) // 2)
+    hier = flex(hier_groups)
+    new_hier = api.make_varlen_key_for_new_mask_after_dispatch([0, 256, 512], hier)
+    sink = flex(group, sink=torch.zeros(2))
+    os.environ["MAGI_ATTENTION_QO_COMM"] = "1"
+    try:
+        qo = flex(group)
+    finally:
+        os.environ.pop("MAGI_ATTENTION_QO_COMM")
+    new = api.make_flex_key_for_new_mask_after_dispatch
+    return {
+        "cross_keys_differ": k960 != k1024, "cross_key_cached": k960 == k960b and
+        api.get_runtime_mgr(k960) is api.get_runtime_mgr(k960b),
+        "pad_size_k": (api.get_runtime_mgr(k960).pad_size_k,
+                       api.get_runtime_mgr(k1024).pad_size_k),
+        "is_cross": api.get_runtime_mgr(k960).is_cross_attn,
+        "flat_hier_differ": flat != hier, "hier_key": hier.hier,
+        "new_hier_plan": api.get_runtime_mgr(new_hier).plan.hier,
+        "new_hier_key": new_hier.hier,
+        "new_shares_dispatch": api.get_runtime_mgr(new_hier).dispatch_meta
+        is api.get_runtime_mgr(hier).dispatch_meta,
+        "refusals": {
+            "sink": refusal(new, [(0, 512)], [(0, 512)], [0], sink),
+            "qo": refusal(new, [(0, 512)], [(0, 512)], [0], qo),
+            "cross": refusal(new, [(0, 256)], [(0, 512)], [0], k960),
+            "xattn_args_self": refusal(api.get_xattn_args, flat),
+            "dispatch_kv_self": refusal(api.dispatch_kv, torch.zeros(512, 2), flat),
+        },
+    }
+
+
+def hier_flag_key(group) -> dict:
+    """Under ``MAGI_ATTENTION_HIERARCHICAL_COMM=1``, a key over
+    ``make_hier_cp_groups(group, 2, 2)`` plans the hierarchical comm; with
+    the flag unset, a key over the flat group plans flat comm."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.comm import make_hier_cp_groups
+
+    def key(cp_group):
+        return api.magi_attn_flex_key([(0, 512)], [(0, 512)], [1], 512, 512, cp_group,
+                                      num_heads=(2, 2), head_dim=16, chunk_size=64,
+                                      out_dtype=torch.float32, device="cpu")
+
+    os.environ["MAGI_ATTENTION_HIERARCHICAL_COMM"] = "1"
+    try:
+        k = key(make_hier_cp_groups(group, 2, 2))
+    finally:
+        os.environ.pop("MAGI_ATTENTION_HIERARCHICAL_COMM")
+    return {"plan_hier": api.get_runtime_mgr(k).plan.hier, "key_hier": k.hier,
+            "flat_plan_hier": api.get_runtime_mgr(key(group)).plan.hier}
