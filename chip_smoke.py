@@ -157,7 +157,23 @@ Phases, each printing one JSON line:
    own span of a 3000-row memory [1500, 750, 750] (padded to the chunk
    multiple), forward and backward against single-card
    ``flex_flash_attn_func`` with tq != tk, and a planted skip of the
-   memory's dK/dV reduce that must fail dk and dv only.
+   memory's dK/dV reduce that must fail dk and dv only;
+13. cp_plan_reuse — a new mask every call under
+   ``MAGI_ATTENTION_PLAN_REUSE=bucket`` at cp=2, 16 / 8 heads, chunk 512:
+   six varlen block-causal requests (``CP_REUSE_STREAM``: a cold key whose
+   documents canonicalise onto the bucket grid, a bucket hit on its
+   canonical plan, an exact hit, a bucket hit through the tail extend, the
+   canonical mask itself, another bucket) through ``magi_attn_varlen_key``
+   -> ``dispatch`` -> ``calc_attn`` -> ``undispatch`` and the backward: each
+   request's tier as the JAX package resolves it, its key's host ms, the
+   rows padded, one ``flex_fwd_hb``, ``flex_dq`` and ``flex_dkv`` per rank;
+   rank 0's gathered results against single-card ``flex_flash_attn_func``
+   on the request's real mask, the exact hit bitwise its first call, the
+   first bucket hit's kernel call against the plain versions; a planted
+   bucketed runtime that pads only the tail (as an exact key does) instead
+   of each document's segment, which must fail out, lse and the gradients;
+   and a host-only tally of 12 packed batches of 16384 tokens
+   (``utils.pack_corpus``) through the keys: tiers and median host ms.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them), errors and times; the last line is
@@ -3796,6 +3812,255 @@ def cp_xattn(pools, seed: int) -> dict:
                                                "failed": got["failed"]}}
 
 
+CP_REUSE_STREAM = (  # (request, documents, the tier JAX's _try_plan_reuse resolves it through)
+    ("A", (3000, 5000, 1500, 6000), "cold"),  # canonical documents (3072, 5120, 1536, 6144)
+    ("B", (2900, 4700, 1400, 5900), "bucket"),
+    ("C", (2900, 4700, 1400, 5900), "exact"),  # B again, on B's inputs
+    ("D", (2900, 4700, 1400, 6000), "bucket"),  # B's last document grown: the tail extend
+    ("E", (3072, 5120, 1536, 6144), "exact"),  # on the grid: the canonical runtime's own key
+    ("F", (7000, 7000, 2000), "cold"),  # another bucket: (7168, 7168, 2048)
+)
+CP_REUSE_PATCHED = ("D",)  # bucket hits through try_incremental_update
+CP_PACKED_BATCHES = 12
+CP_PACKED_CAPACITY = 16384
+CP_PACKED_DOC_MEDIAN = 1500  # tokens; lognormal lengths, sigma 1, in [32, 32768]
+
+
+def key_tier(iface, make_key) -> tuple:
+    """``make_key()`` and the tier it resolved through: ``bucket`` (a
+    fingerprint hit), ``cold`` (a plan was solved: the canonical mask's, or
+    the mask's own where reuse does not apply) or ``exact`` (the key was
+    cached); with the host ms of the call and whether a bucket hit patched
+    its bucket's last row maps (the O(delta) tail extend). ``iface`` is the
+    port's ``api/interface.py`` (the tests pass the JAX package's too: its
+    caches have the same fields)."""
+    import torch
+
+    cache = iface._plan_reuse_cache
+    hits, misses, n = cache.hits, cache.misses, len(iface._runtime_dict)
+    maps_before = {id(e.last_maps) for e in cache._d.values()}
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    key = make_key()
+    ms = (time.perf_counter() - t0) * 1e3
+    if cache.hits > hits:
+        tier = "bucket"
+    elif cache.misses > misses or len(iface._runtime_dict) > n:
+        tier = "cold"
+    else:
+        tier = "exact"
+    mgr = iface.get_runtime_mgr(key)
+    patched = tier == "bucket" and any(
+        e.canonical_key == mgr.canonical_key and id(e.last_maps) in maps_before
+        for e in cache._d.values())
+    return key, tier, ms, patched
+
+
+def reuse_fallback(docs) -> str:
+    """Why a varlen-causal request is not served by a bucketed runtime, in
+    the JAX package's three cases."""
+    from magiattention_tpu_torch import env
+    from magiattention_tpu_torch.meta.plan_fingerprint import bucket_len
+
+    if env.is_qo_comm_enable():
+        return "qo-comm"
+    if all(bucket_len(d) == d for d in docs):
+        return "identity: every document on the bucket grid"
+    return "unbucketable"
+
+
+@in_rank
+def cp_plan_reuse_rank(group, seed: int, stream=CP_REUSE_STREAM, heads=(TRAIN_HQ, TRAIN_HK),
+                       head_dim=D, chunk=CP_CHUNK, packed=(CP_PACKED_BATCHES, CP_PACKED_CAPACITY),
+                       device="cuda") -> dict:
+    """One rank of the keyed API under ``MAGI_ATTENTION_PLAN_REUSE=bucket``
+    (set for this task only): each request of ``stream`` through
+    ``magi_attn_varlen_key`` -> ``dispatch`` -> ``calc_attn`` ->
+    ``undispatch``, forward and backward (bf16 on the card, inputs and
+    cotangents from the seed; a repeated mask reuses its inputs): its tier,
+    host ms, canonical and padded totals, launches; on rank 0 the gathered
+    out, lse, dq, dk, dv against single-card ``flex_flash_attn_func`` on
+    the request's REAL mask, C's bitwise against B's, and the kernel call of
+    the first bucket hit against the plain versions. Then the planted fault
+    (B's runtime rebuilt from row maps that pad only the tail, as an exact
+    key pads, instead of each document's segment), and the host-only tally
+    of a ``utils.pack_corpus`` stream of ``packed`` (batches, capacity)
+    through the keys, with no attention call."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.api import interface
+    from magiattention_tpu_torch.api.functools import compute_pad_size
+    from magiattention_tpu_torch.meta.plan_fingerprint import RowMaps, canonicalize_mask
+    from magiattention_tpu_torch.parallel import dist_attn
+    from magiattention_tpu_torch.utils import pack_corpus
+
+    if device == "cuda":
+        cp_rank_setup()
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    hq, hk = heads
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)  # the same inputs on every rank
+    inputs, by_name = {}, {}  # a repeated mask reuses its inputs
+
+    def key_of(cu):
+        return api.magi_attn_varlen_key(cu, cu[-1], group, num_heads=(hq, hk), head_dim=head_dim,
+                                        chunk_size=chunk, out_dtype=dtype, device=device)
+
+    def launched():
+        return {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+
+    os.environ["MAGI_ATTENTION_PLAN_REUSE"] = "bucket"
+    api.clear_cache()
+    try:
+        requests, outs, keys = [], {}, {}
+        csrc.reset_launch_counts()
+        for name, docs, _ in stream:
+            t = sum(docs)
+            if docs not in inputs:
+                inputs[docs] = tuple(
+                    torch.randn((t, h, head_dim), generator=gen, device=device, dtype=dtype)
+                    for h in (hq, hk, hk, hq)) + (
+                    torch.randn((t, hq), generator=gen, device=device),)
+            q, k, v, g_out, g_lse = by_name[name] = inputs[docs]
+            cu = np.concatenate([[0], np.cumsum(docs)]).astype(int).tolist()
+            key, tier, ms, patched = key_tier(interface, lambda: key_of(cu))
+            keys[name] = key
+            mgr = api.get_runtime_mgr(key)
+            bucketed = isinstance(mgr, api.BucketedDistAttnRuntimeMgr)
+            canon = canonicalize_mask(key.q_ranges, key.k_ranges, key.attn_type_map, t)
+            cap, before = {}, launched()
+            # the first bucket hit's kernel call (the kernels alone run on the card)
+            stage = (device == "cuda" and rank == 0 and tier == "bucket"
+                     and not any(r["tier"] == "bucket" for r in requests))
+            real_core = dist_attn.flex_attn_headmajor
+            if stage:
+                dist_attn.flex_attn_headmajor = capturing(real_core, cap)
+            try:
+                got = keyed_fwd_bwd(key, q, k, v, g_out, g_lse)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            finally:
+                dist_attn.flex_attn_headmajor = real_core
+            after = launched()
+            req = {"request": name, "docs": list(docs), "tokens": t, "tier": tier,
+                   "key_host_ms": ms, "patched": patched, "bucketed": bucketed,
+                   "fallback": None if bucketed else reuse_fallback(docs),
+                   "canonical_total": None if canon is None else canon.total_seqlen,
+                   "dispatched_total": mgr.dispatch_meta.total_seqlen,
+                   "exact_key_total": t + compute_pad_size(t, cp, chunk),
+                   "rows_padded": mgr.dispatch_meta.total_seqlen - t,
+                   "launches": {n: c - before.get(n, 0) for n, c in after.items()
+                                if c - before.get(n, 0)}}
+            if stage:
+                req["stage_check"] = _cp_stage_check(cap)
+            if rank == 0:
+                qr, kr, ty = (list(key.q_ranges), list(key.k_ranges), list(key.attn_type_map))
+                errs, failed = vs_single_card(got, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk)
+                req["vs_single_card"] = errs
+                check(not failed, f"cp_plan_reuse request {name} ({tier}): the gathered results "
+                      f"fail {failed}: {errs}")
+                outs[name] = got
+            requests.append(req)
+        launches = {}  # the stream's own: no reference or stage-check launch
+        for req in requests:
+            for n, c in req["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        res = {"rank": rank, "requests": requests, "launches": launches}
+        if rank == 0 and "B" in outs and "C" in outs:
+            res["c_bitwise_b"] = all(torch.equal(a, b) for a, b in zip(outs["C"], outs["B"]))
+
+        # the planted fault: B's request on row maps that pad the tail only
+        kb = keys["B"]
+        mgr_b = api.get_runtime_mgr(kb)
+        t = kb.total_seqlen_q - kb.pad_size
+        canon_total = canonicalize_mask(kb.q_ranges, kb.k_ranges, kb.attn_type_map, t).total_seqlen
+        tail_maps = RowMaps.from_segments([(0, t, canon_total - t)], t, canon_total)
+        planted = dataclasses.replace(kb, flags=kb.flags + ("planted_tail_only_pad",))
+        interface._runtime_dict.put(planted, interface._make_bucketed_mgr(
+            planted, api.get_runtime_mgr(mgr_b.canonical_key), tail_maps))
+        q, k, v, g_out, g_lse = by_name["B"]
+        got = keyed_fwd_bwd(planted, q, k, v, g_out, g_lse)
+        if rank == 0:
+            errs, failed = vs_single_card(got, q, k, v, g_out, g_lse, list(kb.q_ranges),
+                                          list(kb.k_ranges), list(kb.attn_type_map), hq, hk)
+            res["planted_tail_only_pad"] = {"failed": failed, "vs_single_card": errs}
+
+        # the host-only tally: packed batches of a fixed capacity
+        n_batches, capacity = packed
+        rng = np.random.default_rng(seed)
+        lens = np.clip(rng.lognormal(np.log(CP_PACKED_DOC_MEDIAN), 1.0, 4 * n_batches * capacity
+                                     // CP_PACKED_DOC_MEDIAN), 32, 32768).astype(int)
+        batches = pack_corpus((np.zeros(n, np.int64) for n in lens), capacity,
+                              flush_incomplete=False)
+        tally = []
+        for _, (_, cu) in zip(range(n_batches), batches):
+            _, tier, ms, patched = key_tier(interface, lambda: key_of(cu))  # cu[-1] == capacity
+            tally.append({"docs": len(cu) - 1, "tier": tier, "key_host_ms": ms,
+                          "patched": patched})
+        res["packed"] = tally
+        return res
+    finally:
+        os.environ.pop("MAGI_ATTENTION_PLAN_REUSE", None)
+        api.clear_cache()
+
+
+def cp_plan_reuse(pools, seed: int) -> dict:
+    """Bucketed plan reuse at cp=2 (16 / 8 heads, d 128, chunk 512): the
+    request stream's tiers as the JAX package resolves them, each request
+    within the ``cp_attn`` bounds of single-card attention on its real
+    mask, C bitwise B, one ``flex_fwd_hb``, ``flex_dq`` and ``flex_dkv``
+    per request and rank, the first bucket hit's kernel call against the
+    plain versions; the planted tail-only pad must fail out, lse and the
+    gradients; the packed stream's tiers and host ms tallied."""
+    import statistics
+
+    res = pools[2].run(cp_plan_reuse_rank, seed)
+    launches = {}
+    for r in res:
+        for req in r["requests"]:
+            name, tier = req["request"], req["tier"]
+            expect = dict((n, x) for n, _, x in CP_REUSE_STREAM)[name]
+            check(tier == expect, f"cp_plan_reuse rank {r['rank']} request {name}: tier {tier}, "
+                  f"the JAX package resolves it as {expect}")
+            check(req["patched"] == (name in CP_REUSE_PATCHED),
+                  f"cp_plan_reuse request {name}: patched {req['patched']}")
+            check(req["launches"] == {n: 1 for n in TRAINING_KERNELS},
+                  f"cp_plan_reuse rank {r['rank']} request {name}: launches {req['launches']}")
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    r0 = res[0]
+    check(r0.get("c_bitwise_b") is True, "cp_plan_reuse: C (an exact hit on B's runtime) is not "
+          "bitwise B")
+    for req in r0["requests"]:
+        for n, e in req.get("stage_check", {}).get("kernel_max_abs_err", {}).items():
+            MAX_ERR[n] = max(MAX_ERR[n], e)
+    check(any("stage_check" in req for req in r0["requests"]),
+          "cp_plan_reuse: no bucket hit's kernel call was held against the plain versions")
+    caught = {c.split(":")[0] for c in r0["planted_tail_only_pad"]["failed"]}
+    check({"out", "lse", "dq", "dk", "dv"} <= caught,
+          f"the planted tail-only pad: failed checks {r0['planted_tail_only_pad']['failed']}, "
+          "expected out, lse, dq, dk and dv")
+    tally = {}
+    for tier in ("cold", "bucket", "exact"):
+        ms = [b["key_host_ms"] for r in res for b in r["packed"] if b["tier"] == tier]
+        tally[tier] = {"keys": len(ms), "median_host_ms": statistics.median(ms) if ms else None}
+    return {"phase": "cp_plan_reuse", "cp": 2, "chunk": CP_CHUNK, "heads": [TRAIN_HQ, TRAIN_HK],
+            "head_dim": D, "dtype": "bfloat16", "mode": "MAGI_ATTENTION_PLAN_REUSE=bucket",
+            "note": "ranks sharing one card over gloo: host ms per rank, not cp speeds",
+            "requests": [{**req, "key_host_ms_per_rank": [r["requests"][i]["key_host_ms"]
+                                                         for r in res]}
+                         for i, req in enumerate(r0["requests"])],
+            "launches": launches,
+            "planted_tail_only_pad": {"caught": sorted(caught),
+                                      **r0["planted_tail_only_pad"]},
+            "packed_stream": {"batches": CP_PACKED_BATCHES, "capacity": CP_PACKED_CAPACITY,
+                              "doc_median": CP_PACKED_DOC_MEDIAN, "by_tier": tally,
+                              "per_batch_rank0": res[0]["packed"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3896,6 +4161,8 @@ def main(argv=None) -> int:
         emit(cp_hier_train_line)
         cp_xattn_line = cp_xattn(pools, args.seed)
         emit(cp_xattn_line)
+        cp_reuse_line = cp_plan_reuse(pools, args.seed)
+        emit(cp_reuse_line)
     finally:
         for pool in pools.values():
             pool.close()
@@ -3908,7 +4175,8 @@ def main(argv=None) -> int:
                "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
                "cp_hier_attn": cp_hier_line["launches"],
                "cp_hier_training": cp_hier_train_line["launches"],
-               "cp_xattn": cp_xattn_line["launches"]}
+               "cp_xattn": cp_xattn_line["launches"],
+               "cp_plan_reuse": cp_reuse_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

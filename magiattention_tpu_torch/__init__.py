@@ -10,8 +10,8 @@ context-parallel slices:
 
 - ``common/``  : the mask-type int ABI, dense-mask semantics and areas, the
   range algebra and rectangles
-- ``meta/``    : the dispatch containers, the dispatch meta, and the
-  dispatch and overlap solvers
+- ``meta/``    : the dispatch containers, the dispatch meta, the dispatch
+  and overlap solvers, and the plan fingerprints of bucketed plan reuse
 - ``comm/``    : GroupCast / GroupReduce and variable-size collectives over
   ``torch.distributed``
 - ``parallel/``: dispatch / undispatch and the distributed flex-attention
@@ -32,6 +32,8 @@ context-parallel slices:
 - ``models/``  : the Llama decoder (cp=1 and under cp) and its train step
 - ``testing/`` : the fp64 dense oracle, the reference mask workloads, and
   the rank spawner of multi-rank runs
+- ``telemetry/``: the numerics oracle (error budgets, divergence reports)
+- ``utils/``   : sample packing (documents -> fixed-capacity streams)
 - ``convert``  : cache, plan and Llama parameters to and from numpy arrays
 
 A function that takes tensors runs where its tensors are: CUDA tensors
@@ -48,7 +50,7 @@ def __getattr__(name):
 
     if name in (
         "api", "comm", "common", "config", "convert", "csrc", "env", "meta", "models", "ops",
-        "parallel", "serving", "testing", "tuning",
+        "parallel", "serving", "telemetry", "testing", "tuning", "utils",
     ):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)
@@ -67,7 +69,9 @@ __all__ = [
     "ops",
     "parallel",
     "serving",
+    "telemetry",
     "testing",
     "tuning",
+    "utils",
     "__version__",
 ]

@@ -2,11 +2,9 @@
 ``api/functools.py``.
 
 Pure host-side utilities that turn common training-data descriptions
-(batches, cu_seqlens, sliding windows) into (q_ranges, k_ranges, mask
-types), plus padding helpers on tensors for the chunked layout. This slice
-ports the mask helpers its trainer needs; the segment-id, padded-batch and
-sliding-window helpers and ``apply_padding``/``squash_batch_dim`` come with
-the keyed runtime (ROADMAP queue A item 9).
+(batches, cu_seqlens, segment ids, a right-padded [batch, seq] attention
+mask, sliding windows) into (q_ranges, k_ranges, mask types), plus padding
+helpers on tensors for the chunked layout.
 """
 
 from __future__ import annotations
@@ -40,6 +38,23 @@ def unpad_at_dim(x: torch.Tensor, dim: int, orig_size: int) -> torch.Tensor:
     return x.narrow(dim, 0, orig_size)
 
 
+def apply_padding(q_ranges: AttnRanges, k_ranges: AttnRanges,
+                  attn_mask_type: Sequence[AttnMaskType], total_seqlen: int, pad_size: int):
+    """The mask over ``pad_size`` appended tokens: pad rows attend nothing
+    (no new slices; the kernels give out=0 / lse=-inf there). Returns
+    (q_ranges, k_ranges, types, padded total)."""
+    return q_ranges, k_ranges, list(attn_mask_type), total_seqlen + pad_size
+
+
+def squash_batch_dim(x: torch.Tensor) -> torch.Tensor:
+    """[b, s, ...] -> [b * s, ...], token-major packing."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _host_array(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def full_attention_mask(total_seqlen: int):
     q = AttnRanges.from_ranges([(0, total_seqlen)])
     return q, q.clone(), [AttnMaskType.FULL]
@@ -49,6 +64,48 @@ def infer_varlen_mask_from_batch(batch_seqlens: Sequence[int], causal: bool = Tr
     """Per-sample (self-)attention ranges from a list of sample lengths."""
     cu = np.concatenate([[0], np.cumsum(np.asarray(batch_seqlens))])
     return infer_attn_mask_from_cu_seqlens(cu.tolist(), causal=causal)
+
+
+def infer_attn_mask_from_segment_ids(segment_ids, causal: bool = True):
+    """Slices of a segment-id vector [t] or batch [b, s] (the convention of
+    flash attention's ``segment_ids``): each maximal run of one id in a row
+    is a sample; ids < 0 mark pad rows that attend nothing. Runs never
+    merge across batch rows (row ``i`` is offset by ``i * s`` into the
+    squashed [b * s] coordinates)."""
+    seg = _host_array(segment_ids)
+    if seg.ndim not in (1, 2):
+        raise ValueError(f"segment_ids must be [t] or [b, s], got shape {seg.shape}")
+    rows = seg[None, :] if seg.ndim == 1 else seg
+    s = rows.shape[1]
+    ranges = []
+    for i, row in enumerate(rows):
+        if s == 0:
+            continue
+        starts = np.concatenate(([0], np.flatnonzero(np.diff(row) != 0) + 1, [s]))
+        ranges.extend((i * s + int(a), i * s + int(b)) for a, b in zip(starts, starts[1:])
+                      if row[a] >= 0)
+    q = AttnRanges.from_ranges(ranges)
+    mt = AttnMaskType.CAUSAL if causal else AttnMaskType.FULL
+    return q, q.clone(), [mt] * len(q)
+
+
+def infer_varlen_mask_from_padded_batch(attention_mask, causal: bool = True):
+    """Slices of a right-padded [batch, seq] 0/1 attention mask (the
+    Hugging Face convention), for use after :func:`squash_batch_dim`:
+    sample ``i`` holds rows ``[i * s, i * s + valid_i)``; pad rows attend
+    nothing. A row with a hole is refused: it is not one varlen sample."""
+    am = _host_array(attention_mask)
+    if am.ndim != 2:
+        raise ValueError(f"attention_mask must be [batch, seq], got shape {am.shape}")
+    b, s = am.shape
+    lens = am.astype(bool).sum(axis=1)
+    for i in range(b):
+        if not am[i, : lens[i]].all():
+            raise ValueError(f"attention_mask row {i} is not right-padded (holes are not "
+                             "expressible as one varlen sample); build explicit ranges instead")
+    q = AttnRanges.from_ranges([(i * s, i * s + int(n)) for i, n in enumerate(lens) if n > 0])
+    mt = AttnMaskType.CAUSAL if causal else AttnMaskType.FULL
+    return q, q.clone(), [mt] * len(q)
 
 
 def infer_window_mask_per_range(
@@ -180,3 +237,21 @@ def infer_attn_mask_from_cu_seqlens(
         AttnRanges.from_ranges(kr),
         ts,
     )
+
+
+def infer_attn_mask_from_sliding_window(total_seqlen: int, window_size: int, causal: bool = True,
+                                        global_tokens: int = 0):
+    """Causal sliding-window attention as slices: row q attends keys
+    [q - window_size + 1, q] (and the first ``global_tokens`` keys):
+    :func:`infer_window_mask_per_range` with ``window = (window_size - 1,
+    0)``, at most five slices. For a bidirectional window use that helper
+    or ``infer_attn_mask_from_cu_seqlens(window_size=(l, r))``."""
+    if not causal:
+        raise ValueError("for a bidirectional sliding window use infer_window_mask_per_range "
+                         "or infer_attn_mask_from_cu_seqlens(window_size=(l, r))")
+    if window_size < 1:
+        raise ValueError(f"window_size must be >= 1, got {window_size} (a 0-wide window would "
+                         "collide with the -1 'unbounded' sentinel)")
+    qr, kr, ts = infer_window_mask_per_range((0, total_seqlen), (0, total_seqlen),
+                                             (window_size - 1, 0), global_tokens)
+    return AttnRanges.from_ranges(qr), AttnRanges.from_ranges(kr), ts

@@ -31,16 +31,24 @@ The plan variants:
 - a new mask on an existing dispatch
   (:func:`make_flex_key_for_new_mask_after_dispatch` and its varlen twin):
   hybrid layer stacks share one token permutation;
-- :func:`roll` shifts a dispatched tensor along the global sequence.
+- :func:`roll` shifts a dispatched tensor along the global sequence;
+- a new mask every call (packed batches whose documents move, growing
+  shapes): under ``MAGI_ATTENTION_PLAN_REUSE=bucket`` an exact-key miss
+  canonicalises the mask onto length buckets
+  (``meta/plan_fingerprint.py``), and a request whose canonical mask was
+  planned before is served by a :class:`BucketedDistAttnRuntimeMgr`: the
+  canonical plan and kernel parameters, reached through three padded-index
+  tables, with no solver work. :func:`clear_cache` drops both cache levels.
 
 Flags: ``MAGI_ATTENTION_QO_COMM`` plans qo-comm (``parallel/qo_comm.py``)
-in place of the K/V-comm plan; ``MAGI_ATTENTION_SANITY_CHECK`` checks the
-slices for overlapping coverage first; ``MAGI_ATTENTION_HIERARCHICAL_COMM``
-requires the two-level groups; ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` is not
-ported and makes the key raise. :func:`check_flag_comb` refuses the
-combinations the JAX package refuses, so that no flag is taken and then
-ignored. Not ported yet: the bucketed runtime manager and plan reuse
-(ROADMAP queue A).
+in place of the K/V-comm plan; ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` merges
+the slices (``ops/range_merge.py``) and ``MAGI_ATTENTION_SANITY_CHECK``
+then checks them for overlapping coverage, both before the key is made;
+``MAGI_ATTENTION_HIERARCHICAL_COMM`` requires the two-level groups;
+``MAGI_ATTENTION_PLAN_REUSE`` picks the plan reuse above and
+``MAGI_ATTENTION_PLAN_CACHE_SIZE`` sizes its cache. :func:`check_flag_comb`
+refuses the combinations the JAX package refuses, so that no flag is taken
+and then ignored.
 """
 
 from __future__ import annotations
@@ -64,9 +72,22 @@ from ..meta.dispatch_meta import (
     make_dispatch_meta_from_qk_ranges,
     make_global_bucket_from_qk_ranges,
 )
+from ..meta.plan_fingerprint import (
+    PlanReuseCache,
+    ReuseEntry,
+    canonicalize_mask,
+    make_plan_fingerprint,
+    try_incremental_update,
+)
 from ..meta.solver.dispatch_solver import DispatchConfig
 from ..meta.solver.overlap_solver import OverlapConfig
+from ..parallel.dispatch import PaddedDispatch
 from ..parallel.dispatch import dispatch as _dispatch_op
+from ..parallel.dispatch import (
+    padded_dispatch_indices,
+    padded_position_ids,
+    padded_undispatch_indices,
+)
 from ..parallel.dispatch import position_ids as _position_ids
 from ..parallel.dispatch import roll as _roll_op
 from ..parallel.dispatch import undispatch as _undispatch_op
@@ -98,15 +119,27 @@ def _coerce_mask_types(attn_type_map, n_slices: int) -> tuple:
     return tuple(_one_mask_type(t) for t in attn_type_map)
 
 
-def _coerce_mask(q_ranges, k_ranges, attn_type_map) -> tuple[AttnRanges, AttnRanges, tuple]:
+def _coerce_mask(q_ranges, k_ranges, attn_type_map, *,
+                 merge: bool = True) -> tuple[AttnRanges, AttnRanges, tuple]:
     """(q_ranges, k_ranges, types) of a key's mask in any spelling the JAX
-    API takes, checked for overlapping slices under
+    API takes; with ``merge``, merged under
+    ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` (as JAX's flex and cross keys do;
+    its new-mask keys do not); then checked for overlapping slices under
     ``MAGI_ATTENTION_SANITY_CHECK``."""
     if not isinstance(q_ranges, AttnRanges):
         q_ranges = AttnRanges.from_ranges(q_ranges)
     if not isinstance(k_ranges, AttnRanges):
         k_ranges = AttnRanges.from_ranges(k_ranges)
     types = _coerce_mask_types(attn_type_map, len(q_ranges))
+    if merge and env.is_auto_range_merge_enable():
+        from ..ops.range_merge import merge_ranges
+
+        qa, ka, ta = merge_ranges(np.asarray(q_ranges.to_naive_ranges(), np.int64),
+                                  np.asarray(k_ranges.to_naive_ranges(), np.int64),
+                                  np.asarray(types, np.int64))
+        q_ranges = AttnRanges.from_ranges([tuple(r) for r in qa.tolist()])
+        k_ranges = AttnRanges.from_ranges([tuple(r) for r in ka.tolist()])
+        types = tuple(int(t) for t in ta)
     if env.is_sanity_check_enabled():
         from ..common.sanity import check_slices_non_overlapping
 
@@ -135,6 +168,7 @@ def flags_fingerprint() -> tuple:
         env.is_qo_comm_enable(),
         env.is_hierarchical_comm_enable(),
         env.is_sanity_check_enabled(),
+        env.plan_reuse_mode(),
     )
 
 
@@ -143,14 +177,10 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     a ``ValueError`` that says why, before any planning: the JAX package's
     ``check_flag_comb`` for the cp layout (``cp_group`` a
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
-    pair), qo-comm and cross-attention (``xattn``), and the flag whose JAX
-    path is not ported yet."""
+    pair), qo-comm and cross-attention (``xattn``)."""
     qo = env.is_qo_comm_enable()
     hier_flag = env.is_hierarchical_comm_enable()
     hier_groups = isinstance(cp_group, HierCpGroups)
-    if env.is_auto_range_merge_enable():
-        raise ValueError("MAGI_ATTENTION_AUTO_RANGE_MERGE is set, and the port has no range "
-                         "merge yet (ROADMAP A.4/A.5): unset it or merge the ranges first")
     if hier_flag and not hier_groups:
         raise ValueError("MAGI_ATTENTION_HIERARCHICAL_COMM=1 requires a two-level cp group: "
                          "hierarchical comm is selected by the groups, so pass "
@@ -332,6 +362,56 @@ class DistAttnRuntimeMgr:
         return out, AttnForwardMeta(lse=lse, max_logits=mx)
 
 
+class BucketedDistAttnRuntimeMgr(DistAttnRuntimeMgr):
+    """A runtime that serves a request's mask off a canonical
+    (bucket-padded) plan: the canonical manager's dispatch meta, plan,
+    kernel parameters and sink, with no solver work. Only the three
+    data-movement surfaces differ, each through a table built on the host
+    once from the canonical dispatch meta and the row maps
+    (``parallel/dispatch.py``'s padded-index adapters, held on the key's
+    device by :class:`~..parallel.dispatch.PaddedDispatch`):
+
+    - ``dispatch(x)``: this rank's slice of the dispatch gather, taken from
+      the REAL (unpadded) ``x`` [real_total, ...]; every pad slot (bucket
+      pad, chunk pad, uneven-shard pad) takes ``pad_value``. Its backward
+      brings every real row its cotangent and drops the pad rows';
+    - ``undispatch(y)``: the all-gather of the canonical shards, then a
+      gather of the real rows [real_total, ...];
+    - ``get_position_ids()``: this rank's slice of the real positions (pad
+      slots 0).
+
+    The dispatched shapes are the canonical ones (at least the request's
+    padded total): size buffers off ``dispatch``'s output, not the key.
+    ``roll`` and the new-mask keys refuse a bucketed key: both reason in
+    request coordinates, which the bucketed layout does not keep. The host
+    tables stay on the manager (``_bucket_*_idx``, int32, as the JAX
+    package's) for inspection."""
+
+    def __init__(self, key: DistAttnRuntimeKey, canonical_mgr: DistAttnRuntimeMgr,
+                 dispatch_idx: np.ndarray, undispatch_idx: np.ndarray,
+                 position_ids: np.ndarray):
+        super().__init__(key, canonical_mgr.cp_group, canonical_mgr.dispatch_meta,
+                         canonical_mgr.plan, canonical_mgr.params, canonical_mgr.sink,
+                         canonical_mgr.dist_attn_config)
+        self.canonical_key = canonical_mgr.key
+        self._bucket_dispatch_idx = np.asarray(dispatch_idx, np.int32)
+        self._bucket_undispatch_idx = np.asarray(undispatch_idx, np.int32)
+        self._bucket_position_ids = np.asarray(position_ids, np.int32)
+        self.tables = PaddedDispatch(
+            self._bucket_dispatch_idx, self._bucket_undispatch_idx, self._bucket_position_ids,
+            key.total_seqlen_q - key.pad_size, canonical_mgr.dispatch_meta.shard_seqlen,
+            key.cp_rank, key.device)
+
+    def dispatch(self, x: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
+        return self.tables.dispatch(x, self.group, pad_value)
+
+    def undispatch(self, y: torch.Tensor) -> torch.Tensor:
+        return self.tables.undispatch(y, self.group)
+
+    def get_position_ids(self) -> torch.Tensor:
+        return self.tables.position_ids
+
+
 class DistAttnRuntimeDict:
     """LRU key -> runtime manager cache."""
 
@@ -358,9 +438,25 @@ class DistAttnRuntimeDict:
     def __len__(self) -> int:
         return len(self._d)
 
+    def clear(self, group_id: Optional[int] = None) -> None:
+        """Drop every entry, or those planned over one group
+        (``DistAttnRuntimeKey.group_id``)."""
+        if group_id is None:
+            self._d.clear()
+            return
+        for k in [k for k in self._d if k.group_id == group_id]:
+            del self._d[k]
+
 
 _runtime_dict = DistAttnRuntimeDict()
 _most_recent_key: Optional[DistAttnRuntimeKey] = None
+# the second level of fingerprint-bucketed plan reuse, consulted between an
+# exact-key miss and the cold solver: PlanFingerprint -> the canonical key
+# whose runtime serves every mask of the bucket
+_plan_reuse_cache = PlanReuseCache()
+# set while a canonical mask is being planned: the nested key call must not
+# look the fingerprint up again
+_in_canonical_resolve = False
 
 
 def get_runtime_mgr(key: DistAttnRuntimeKey) -> DistAttnRuntimeMgr:
@@ -375,6 +471,24 @@ def get_most_recent_key() -> DistAttnRuntimeKey:
     if _most_recent_key is None:
         raise RuntimeError("no key has been created yet")
     return _most_recent_key
+
+
+def clear_cache(cp_group=None) -> None:
+    """Drop the planned runtimes and the plan-reuse cache: all of them, or
+    only those planned over ``cp_group`` (a flat group or a
+    ``HierCpGroups``). The most recent key is forgotten when it goes. A
+    key stays valid to plan again."""
+    global _most_recent_key
+    if cp_group is None:
+        _runtime_dict.clear()
+        _plan_reuse_cache.clear()
+        _most_recent_key = None
+        return
+    gid = id(_split_cp_group(cp_group)[0])
+    _runtime_dict.clear(group_id=gid)
+    _plan_reuse_cache.clear(group_id=gid)
+    if _most_recent_key is not None and _most_recent_key.group_id == gid:
+        _most_recent_key = None
 
 
 def _resolve_device(device) -> torch.device:
@@ -421,6 +535,79 @@ def resolve_blocking(hq: int, hk: int, head_dim: int) -> tuple[int, int, int]:
     return bq, bk, group if hb_env is None else _auto_head_block(hb_env, hq, group)
 
 
+def _make_bucketed_mgr(key: DistAttnRuntimeKey, canonical_mgr: DistAttnRuntimeMgr,
+                       maps) -> BucketedDistAttnRuntimeMgr:
+    """The request -> canonical adapter runtime: its three tables composed
+    on the host from the canonical dispatch meta and the row maps."""
+    meta = canonical_mgr.dispatch_meta
+    real_total = key.total_seqlen_q - key.pad_size
+    return BucketedDistAttnRuntimeMgr(
+        key, canonical_mgr,
+        padded_dispatch_indices(meta, maps.canon_to_real, real_total),
+        padded_undispatch_indices(meta, maps.real_to_canon),
+        padded_position_ids(meta, maps.canon_to_real))
+
+
+def _try_plan_reuse(key: DistAttnRuntimeKey, *, cp_group, sink, out_dtype, dispatch_config,
+                    dist_attn_config, device) -> bool:
+    """The fingerprint-bucketed second-level lookup, after an exact-key
+    miss (exact hits never come here). Installs a bucketed runtime under
+    ``key`` and returns True, either over a live canonical plan (a bucket
+    hit: no solver work; the row maps rebuilt, or on a tail extend of the
+    bucket's last request patched in O(delta)) or after planning the
+    canonical mask once (a fingerprint miss: one solve then serves the
+    whole bucket). Returns False when reuse is off or does not apply, as in
+    the JAX package: under qo-comm (its plane partition is exact to the
+    mask: no static table to adapt onto), and for a mask that
+    canonicalises to itself or not at all; the caller then plans
+    ``key`` itself."""
+    global _in_canonical_resolve
+    if _in_canonical_resolve or env.plan_reuse_mode() != "bucket":
+        return False
+    if env.is_qo_comm_enable():
+        return False
+    real_total = key.total_seqlen_q - key.pad_size
+    canon = canonicalize_mask(key.q_ranges, key.k_ranges, key.attn_type_map, real_total)
+    if canon is None:
+        return False
+    new_sig = (key.q_ranges, key.k_ranges, key.attn_type_map, real_total)
+    fp = make_plan_fingerprint(
+        canon, chunk_size=key.chunk_size, cp_size=key.cp_size, hier=key.hier,
+        num_heads_q=key.num_heads_q, num_heads_kv=key.num_heads_kv, head_dim=key.head_dim,
+        softcap=key.softcap, has_sink=key.has_sink, sink_fingerprint=key.sink_fingerprint,
+        out_dtype=key.out_dtype, dispatch_config_repr=key.dispatch_config_repr,
+        device=key.device, block_config=key.block_config, group_id=key.group_id,
+        flags=key.flags)
+    entry = _plan_reuse_cache.get(fp)
+    canonical_mgr = _runtime_dict.get(entry.canonical_key) if entry is not None else None
+    if canonical_mgr is not None:  # a bucket hit: the canonical plan is live
+        maps = None
+        if entry.last_sig is not None and entry.last_maps is not None:
+            if try_incremental_update(entry.last_sig, new_sig, entry.last_maps):
+                maps = entry.last_maps
+        if maps is None:
+            maps = canon.build_row_maps()
+        _runtime_dict.put(key, _make_bucketed_mgr(key, canonical_mgr, maps))
+        entry.last_sig, entry.last_maps = new_sig, maps
+        return True
+    # a fingerprint miss (or the canonical runtime was evicted): plan the
+    # canonical mask once, then adapt this request onto it
+    _in_canonical_resolve = True
+    try:
+        canonical_key = magi_attn_flex_key(
+            canon.q_ranges, canon.k_ranges, canon.attn_type_map, canon.total_seqlen,
+            canon.total_seqlen, cp_group, num_heads=(key.num_heads_q, key.num_heads_kv),
+            head_dim=key.head_dim, chunk_size=key.chunk_size, softcap=key.softcap,
+            has_sink=key.has_sink, sink=sink, out_dtype=out_dtype,
+            dispatch_config=dispatch_config, dist_attn_config=dist_attn_config, device=device)
+    finally:
+        _in_canonical_resolve = False
+    maps = canon.build_row_maps()
+    _runtime_dict.put(key, _make_bucketed_mgr(key, get_runtime_mgr(canonical_key), maps))
+    _plan_reuse_cache.put(fp, ReuseEntry(canonical_key, new_sig, maps))
+    return True
+
+
 def magi_attn_flex_key(
     q_ranges: AttnRanges | Sequence[Sequence[int]],
     k_ranges: AttnRanges | Sequence[Sequence[int]],
@@ -450,8 +637,10 @@ def magi_attn_flex_key(
     kernel call). Under ``MAGI_ATTENTION_QO_COMM`` the plan is qo-comm's
     (the dispatch meta's ownership, the key's tile, one kernel call, no
     overlap stages). A ``HierCpGroups`` ``cp_group`` plans hierarchical
-    two-level comm over its (n_inter, n_intra) layout. ``device`` defaults
-    to the card."""
+    two-level comm over its (n_inter, n_intra) layout. Under
+    ``MAGI_ATTENTION_PLAN_REUSE=bucket`` an exact-key miss goes through the
+    plan-reuse tier (:func:`_try_plan_reuse`) before it plans the mask
+    itself. ``device`` defaults to the card."""
     import torch.distributed as dist
 
     global _most_recent_key
@@ -504,7 +693,12 @@ def magi_attn_flex_key(
         block_config=block_config,
         hier=hier,
     )
-    if key not in _runtime_dict:
+    if key in _runtime_dict:
+        _most_recent_key = key
+        return key
+    if not _try_plan_reuse(key, cp_group=cp_group, sink=sink, out_dtype=out_dtype,
+                           dispatch_config=dispatch_config, dist_attn_config=dist_attn_config,
+                           device=device):
         mq, _, bucket = make_dispatch_meta_from_qk_ranges(
             q_ranges, k_ranges, [AttnMaskType(t) for t in types],
             total_seqlen_q + pad, total_seqlen_k + pad,
@@ -666,9 +860,11 @@ def make_flex_key_for_new_mask_after_dispatch(
     a hierarchical key's layout, are inherited; the comm routing and the
     kernel tables are planned for the new mask.
 
-    Refused: a key with a sink (re-key with the sink instead), a qo-comm
-    key (its plane partition is mask-specific) and a cross-attention key
-    (its memory has a dispatch of its own)."""
+    Refused: a key with a sink (re-key with the sink instead), a bucketed
+    key (its dispatch is the canonical plan's), a qo-comm key (its plane
+    partition is mask-specific) and a cross-attention key (its memory has
+    a dispatch of its own). The slices are not range-merged, as in the JAX
+    package."""
     global _most_recent_key
     old_mgr = get_runtime_mgr(old_key)
     if old_key.has_sink:
@@ -676,6 +872,13 @@ def make_flex_key_for_new_mask_after_dispatch(
             "key reuse with an attention sink is not supported: re-key with "
             f"magi_attn_flex_key(sink=...) instead (old_key has sink_fingerprint="
             f"{old_key.sink_fingerprint})")
+    if isinstance(old_mgr, BucketedDistAttnRuntimeMgr):
+        raise ValueError(
+            "key reuse after dispatch is not supported on a bucketed (plan-reuse) key: its "
+            "dispatch layout belongs to the canonical plan (canonical total="
+            f"{old_mgr.dispatch_meta.total_seqlen}, request total={old_key.total_seqlen_q}), so "
+            "a new mask in request coordinates cannot be planned on it — create a fresh key "
+            "with magi_attn_flex_key")
     if isinstance(old_mgr.plan, QoCommPlan):
         raise ValueError(
             "key reuse is not supported for qo-comm keys: the dynamic plane partition is "
@@ -686,7 +889,7 @@ def make_flex_key_for_new_mask_after_dispatch(
             "key reuse after dispatch plans self-attention on the query dispatch; a "
             "cross-attention key's memory has a dispatch of its own — create a fresh key "
             "with magi_attn_cross_key")
-    q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map)
+    q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map, merge=False)
     new_key = dataclasses.replace(
         old_key,
         q_ranges=tuple(q_ranges.to_naive_ranges()),
@@ -777,8 +980,16 @@ def roll(x: torch.Tensor, key: DistAttnRuntimeKey, shift: int, axis: int = 0) ->
     = x[(i - shift) mod total], over the padded total. Rows that stay on
     their rank are gathered locally; the rank-crossing rows move in one
     group cast over the key's flat group. Pad slots of an uneven shard
-    keep their value."""
+    keep their value. A bucketed key is refused: its dispatch is in the
+    canonical plan's coordinates."""
     mgr = get_runtime_mgr(key)
+    if isinstance(mgr, BucketedDistAttnRuntimeMgr):
+        raise ValueError(
+            "roll is not supported on a bucketed (plan-reuse) key: the shared canonical "
+            f"dispatch meta describes canonical coordinates (total="
+            f"{mgr.dispatch_meta.total_seqlen}), so a global roll of the request's "
+            f"{key.total_seqlen_q} rows would shift through bucket-pad slots — undispatch, "
+            "roll in natural order, and re-dispatch instead")
     return _roll_op(x, mgr.dispatch_meta, shift, mgr.group, axis=axis)
 
 
@@ -787,3 +998,88 @@ def roll_simple(x: torch.Tensor, key: DistAttnRuntimeKey, shift: int,
     """Alias of :func:`roll` (the reference's variant differs only in the
     order it issues its point-to-point sends)."""
     return roll(x, key, shift, axis=axis)
+
+
+def magi_attn_flex_dispatch(
+    x: torch.Tensor,
+    q_ranges,
+    k_ranges,
+    attn_type_map,
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    cp_group,
+    **kwargs,
+) -> tuple[torch.Tensor, DistAttnRuntimeKey]:
+    """Key and dispatch in one call: :func:`magi_attn_flex_key` on the mask
+    (``kwargs`` as there), then this rank's shard of ``x``. Returns
+    ``(local_x, key)``."""
+    key = magi_attn_flex_key(q_ranges, k_ranges, attn_type_map, total_seqlen_q,
+                             total_seqlen_k, cp_group, **kwargs)
+    return dispatch(x, key), key
+
+
+def magi_attn_varlen_dispatch(
+    x: torch.Tensor,
+    cu_seqlens: Sequence[int],
+    total_seqlen: int,
+    cp_group,
+    *,
+    causal: bool = True,
+    **kwargs,
+) -> tuple[torch.Tensor, DistAttnRuntimeKey]:
+    """Key and dispatch in one call, flash-attn-varlen style:
+    :func:`magi_attn_varlen_key`, then this rank's shard of ``x``."""
+    key = magi_attn_varlen_key(cu_seqlens, total_seqlen, cp_group, causal=causal, **kwargs)
+    return dispatch(x, key), key
+
+
+def init_dist_attn_runtime_key(
+    q_ranges,
+    k_ranges,
+    attn_mask_type,
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    num_heads_q: int,
+    num_heads_kv: int,
+    head_dim: int,
+    chunk_size: int,
+    cp_group,
+    *,
+    dist_attn_config: DistAttnConfig | None = None,
+    **kwargs,
+) -> DistAttnRuntimeKey:
+    """The low-level key constructor of the reference's signature: plan a
+    runtime key without the entry points' sugar. ``pad_size`` (the padding
+    is resolved here) and ``cp_mesh`` (the layout comes with ``cp_group``:
+    a ``HierCpGroups`` is hierarchical) are accepted and ignored; the rest
+    of ``kwargs`` (``device``, ``softcap``, ``sink``, ...) goes to
+    :func:`magi_attn_flex_key`."""
+    for ref_only in ("pad_size", "cp_mesh"):
+        kwargs.pop(ref_only, None)
+    return magi_attn_flex_key(
+        q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, cp_group,
+        num_heads=(num_heads_q, num_heads_kv), head_dim=head_dim, chunk_size=chunk_size,
+        dist_attn_config=dist_attn_config, **kwargs)
+
+
+def init_dist_attn_runtime_mgr(
+    q_ranges,
+    k_ranges,
+    attn_mask_type,
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    num_heads_q: int,
+    num_heads_kv: int,
+    head_dim: int,
+    chunk_size: int,
+    cp_group,
+    *,
+    dist_attn_config: DistAttnConfig | None = None,
+    **kwargs,
+) -> DistAttnRuntimeMgr:
+    """The low-level manager constructor: the planned manager of
+    :func:`init_dist_attn_runtime_key`'s key."""
+    return get_runtime_mgr(init_dist_attn_runtime_key(
+        q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, num_heads_q,
+        num_heads_kv, head_dim, chunk_size, cp_group, dist_attn_config=dist_attn_config,
+        **kwargs))

@@ -225,14 +225,51 @@ def is_sanity_check_enabled() -> bool:
 
 
 def is_auto_range_merge_enable() -> bool:
-    """Merge overlapping k-ranges before planning
-    (``MAGI_ATTENTION_AUTO_RANGE_MERGE``, default off). Not ported: the keyed
-    API and ``flex_flash_attn_func`` raise when it is set."""
+    """Merge duplicate slices and the overlapping k-ranges of FULL slices
+    before planning (``ops/range_merge.py``; ``MAGI_ATTENTION_AUTO_RANGE_MERGE``,
+    default off): the keyed API merges before it keys the mask,
+    ``flex_flash_attn_func`` before it builds its tables."""
     return _env_bool("MAGI_ATTENTION_AUTO_RANGE_MERGE", False)
 
 
 def is_hierarchical_comm_enable() -> bool:
     """Two-level (inter, intra) group collectives
-    (``MAGI_ATTENTION_HIERARCHICAL_COMM``, default off). Not ported: the
-    keyed API raises when it is set."""
+    (``MAGI_ATTENTION_HIERARCHICAL_COMM``, default off). The layout comes
+    from the cp group (``comm.make_hier_cp_groups``); with a flat group the
+    keyed API raises (``api/interface.py::check_flag_comb``)."""
     return _env_bool("MAGI_ATTENTION_HIERARCHICAL_COMM", False)
+
+
+PLAN_REUSE_MODES = ("off", "bucket")
+
+
+def plan_reuse_mode() -> str:
+    """Fingerprint-bucketed plan reuse (``meta/plan_fingerprint.py``;
+    ``MAGI_ATTENTION_PLAN_REUSE``, validated here):
+
+    - ``off`` (default): every new mask pays the full host solve;
+    - ``bucket``: on an exact-key miss, ``magi_attn_flex_key`` /
+      ``magi_attn_varlen_key`` canonicalise the mask onto length buckets
+      and look its fingerprint up in a second-level cache; a hit serves the
+      request through a padded-dispatch adapter over the canonical plan
+      instead of solving again.
+
+    Part of ``api/interface.py::flags_fingerprint``: for the same mask the
+    served runtime differs between the modes (the exact plan or the
+    adapter), so a change of mode re-keys."""
+    mode = _env_str("MAGI_ATTENTION_PLAN_REUSE", "off").lower()
+    if mode not in PLAN_REUSE_MODES:
+        raise ValueError(f"MAGI_ATTENTION_PLAN_REUSE={mode!r} is not one of {PLAN_REUSE_MODES}")
+    return mode
+
+
+def plan_cache_size() -> int:
+    """Capacity of the fingerprint -> canonical-plan cache
+    (``MAGI_ATTENTION_PLAN_CACHE_SIZE``; default: the runtime cache's).
+    Not in ``flags_fingerprint``: the capacity changes when an entry is
+    evicted, never what a plan holds."""
+    size = _env_int("MAGI_ATTENTION_PLAN_CACHE_SIZE", runtime_dict_size())
+    if size < 1:
+        raise ValueError(f"MAGI_ATTENTION_PLAN_CACHE_SIZE={size} must be >= 1 (the second-level "
+                         "plan cache cannot hold zero fingerprints)")
+    return size

@@ -991,15 +991,18 @@ def flex_flash_attn_func(
     as in the JAX package: heterogeneous masks take the compact sparse
     grid, dense ones the row-major grid, both at head_block G. With all
     three given, ``grid`` is the caller's, else ``MAGI_ATTENTION_GRID``,
-    else ``"row_major"``, as the reference takes it."""
+    else ``"row_major"``, as the reference takes it. Under
+    ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` the slices are merged first
+    (``ops/range_merge.py``)."""
     from .. import env
 
-    if env.is_auto_range_merge_enable():
-        raise ValueError("MAGI_ATTENTION_AUTO_RANGE_MERGE is set, and the port has no range "
-                         "merge yet (ROADMAP A.4/A.5): unset it or merge the ranges first")
     q_arr = np.ascontiguousarray(np.asarray(q_ranges, dtype=np.int64).reshape(-1, 2))
     k_arr = np.ascontiguousarray(np.asarray(k_ranges, dtype=np.int64).reshape(-1, 2))
     t_arr = np.ascontiguousarray(np.asarray(attn_type_map, dtype=np.int64).reshape(-1))
+    if env.is_auto_range_merge_enable():
+        from .range_merge import merge_ranges
+
+        q_arr, k_arr, t_arr = (np.ascontiguousarray(a) for a in merge_ranges(q_arr, k_arr, t_arr))
     if None in (block_q, block_k, head_block):
         block_q, block_k, auto_hb, grid = auto_kernel_config(
             q_arr, k_arr, int(q.shape[1]), int(k.shape[1]),

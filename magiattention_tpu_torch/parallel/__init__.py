@@ -1,10 +1,21 @@
 """Context parallelism over ``torch.distributed``: dispatch / undispatch
-and roll, the distributed flex-attention plan and runtime (K/V comm, flat
-or hierarchical over (inter, intra) subgroups, self- or cross-attention),
+and roll, the padded-index adapters of bucketed plan reuse, the
+distributed flex-attention plan and runtime (K/V comm, flat or
+hierarchical over (inter, intra) subgroups, self- or cross-attention),
 and qo-comm (a dynamic partition of the attention plane, Q/O moving as
 well)."""
 
-from .dispatch import dispatch, position_ids, roll, roll_plan, undispatch
+from .dispatch import (
+    PaddedDispatch,
+    dispatch,
+    padded_dispatch_indices,
+    padded_position_ids,
+    padded_undispatch_indices,
+    position_ids,
+    roll,
+    roll_plan,
+    undispatch,
+)
 from .dist_attn import (
     DistAttnPlan,
     StagePlan,
@@ -18,6 +29,7 @@ from .qo_comm import QoCommPlan, build_qo_comm_plan, qo_comm_attn_local, qo_rank
 
 __all__ = [
     "DistAttnPlan",
+    "PaddedDispatch",
     "QoCommPlan",
     "StagePlan",
     "StageTables",
@@ -26,6 +38,9 @@ __all__ = [
     "dispatch",
     "dist_attn_local",
     "make_attn_params",
+    "padded_dispatch_indices",
+    "padded_position_ids",
+    "padded_undispatch_indices",
     "position_ids",
     "qo_comm_attn_local",
     "qo_rank_tables",

@@ -13,6 +13,13 @@ backward takes this rank's rows). The token axis is axis 0.
 labels of multi-token prediction): a local gather for the rows that stay
 on their rank, and one ``GroupCast`` of the rank-crossing rows, so that
 its gradient takes the reverse route.
+
+The padded-index adapters (:func:`padded_dispatch_indices`,
+:func:`padded_undispatch_indices`, :func:`padded_position_ids`, host numpy
+byte-identical to the JAX package's) map a request's real rows onto a
+canonical (bucket-padded) plan's dispatch layout; :class:`PaddedDispatch`
+holds them on the device for one rank and moves tensors through them,
+with no host sync per call.
 """
 
 from __future__ import annotations
@@ -99,6 +106,115 @@ def position_ids(meta: DispatchMeta, rank: int) -> np.ndarray:
         perm = np.where(perm < meta.total_seqlen, perm, 0).astype(np.int32)
     shard = meta.shard_seqlen
     return perm[rank * shard : (rank + 1) * shard]
+
+
+def padded_dispatch_indices(meta: DispatchMeta, canon_to_real: np.ndarray,
+                            real_total: int) -> np.ndarray:
+    """The gather of a bucketed plan's dispatch: ``dispatched[slot] =
+    x[idx[slot]]`` maps a request's real rows straight into the canonical
+    plan's dispatch layout [cp * shard]. Bucket pad rows, the canonical
+    chunk pad and the pad slots of an uneven shard all carry the sentinel
+    ``real_total`` (they take the pad value). ``canon_to_real`` maps
+    canonical global positions to real ones (-1 on pad rows)."""
+    if canon_to_real.shape[0] > meta.total_seqlen:
+        raise ValueError(f"canon_to_real has {canon_to_real.shape[0]} rows but the canonical "
+                         f"dispatch meta covers total_seqlen={meta.total_seqlen}")
+    perm = meta.perm_idx.astype(np.int64)  # the sentinel total_seqlen on pad slots
+    c2r = np.full(meta.total_seqlen + 1, -1, np.int64)
+    c2r[: canon_to_real.shape[0]] = canon_to_real
+    src = c2r[np.minimum(perm, meta.total_seqlen)]
+    return np.where(src >= 0, src, real_total).astype(np.int32)
+
+
+def padded_undispatch_indices(meta: DispatchMeta, real_to_canon: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`padded_dispatch_indices`: ``x[t] =
+    dispatched[idx[t]]`` for every real row ``t`` (pad slots are never
+    read back)."""
+    bad = (real_to_canon < 0) | (real_to_canon >= meta.total_seqlen)
+    if bad.any():
+        t = int(np.flatnonzero(bad)[0])
+        raise ValueError(f"real_to_canon[{t}]={int(real_to_canon[t])} is outside the canonical "
+                         f"sequence [0, {meta.total_seqlen}): row maps and dispatch meta disagree")
+    unperm = meta.unperm_idx.astype(np.int64)
+    return unperm[real_to_canon.astype(np.int64)].astype(np.int32)
+
+
+def padded_position_ids(meta: DispatchMeta, canon_to_real: np.ndarray) -> np.ndarray:
+    """The real global position of each canonical dispatched slot (pad
+    slots read 0, as in :func:`position_ids`; their values are never
+    used)."""
+    perm = meta.perm_idx.astype(np.int64)
+    c2r = np.full(meta.total_seqlen + 1, -1, np.int64)
+    c2r[: canon_to_real.shape[0]] = canon_to_real
+    src = c2r[np.minimum(perm, meta.total_seqlen)]
+    return np.where(src >= 0, src, 0).astype(np.int32)
+
+
+class PaddedDispatch:
+    """One rank's view of the three padded-index tables, on its device
+    (built once): ``src`` / ``valid`` are this rank's [rank * shard,
+    (rank + 1) * shard) slice of the dispatch gather (the sentinel slots
+    invalid), ``undispatch`` the slot of every real row in the gathered
+    [cp * shard] layout, ``position_ids`` this rank's slice of the
+    position table. :meth:`dispatch` and :meth:`undispatch` are each
+    other's transposes, as the exact path's are."""
+
+    def __init__(self, dispatch_idx: np.ndarray, undispatch_idx: np.ndarray,
+                 position_ids: np.ndarray, real_total: int, shard: int, rank: int, device):
+        local = dispatch_idx[rank * shard : (rank + 1) * shard].astype(np.int64)
+        valid = local < real_total
+        self.real_total, self.shard = int(real_total), int(shard)
+        self.cp = dispatch_idx.shape[0] // shard
+        self.src = torch.from_numpy(np.where(valid, local, 0)).to(device)
+        self.valid = torch.from_numpy(valid).to(device)
+        self.undispatch_idx = torch.from_numpy(undispatch_idx.astype(np.int64)).to(device)
+        self.position_ids = torch.from_numpy(
+            position_ids[rank * shard : (rank + 1) * shard].astype(np.int64)).to(device)
+
+    def take(self, x: torch.Tensor, pad_value=0) -> torch.Tensor:
+        """This rank's canonical shard of the real ``x`` [real_total, ...]."""
+        if x.shape[0] != self.real_total:
+            raise ValueError(f"a bucketed key dispatches the request's {self.real_total} real "
+                             f"rows, got {x.shape[0]}")
+        out = x.index_select(0, self.src)
+        return out.masked_fill(~self.valid.view((-1,) + (1,) * (x.dim() - 1)), pad_value)
+
+    def gather(self, y: torch.Tensor, group) -> torch.Tensor:
+        """Every rank's canonical shard -> the real rows [real_total, ...]."""
+        flat = all_gather_v(y.contiguous(), [self.shard] * self.cp, group)
+        return flat.index_select(0, self.undispatch_idx)
+
+    def dispatch(self, x: torch.Tensor, group, pad_value=0) -> torch.Tensor:
+        return _PaddedDispatch.apply(x, self, group, pad_value)
+
+    def undispatch(self, y: torch.Tensor, group) -> torch.Tensor:
+        return _PaddedUndispatch.apply(y, self, group)
+
+
+class _PaddedDispatch(torch.autograd.Function):
+    """Its backward all-gathers the cotangent shards and takes each real
+    row's slot: the scatter-add of the gather, since each real row has one
+    slot; the pad slots' cotangents are dropped."""
+
+    @staticmethod
+    def forward(ctx, x, tables: PaddedDispatch, group, pad_value):
+        ctx.tables, ctx.group = tables, group
+        return tables.take(x, pad_value)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tables.gather(g, ctx.group), None, None, None
+
+
+class _PaddedUndispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, tables: PaddedDispatch, group):
+        ctx.tables = tables
+        return tables.gather(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tables.take(g, 0), None, None
 
 
 def _roll_src_slots(meta: DispatchMeta, shift: int) -> np.ndarray:

@@ -4,9 +4,9 @@ or refuses it, never takes it and plans something else.
 ``MAGI_ATTENTION_SANITY_CHECK``: ``common.sanity.check_slices_non_overlapping``
 accepts and raises where the JAX package's does (random slice sets and a
 dense brute force, as ``tests/test_common/test_sanity.py`` draws them), and
-the keyed API runs it before planning. ``MAGI_ATTENTION_AUTO_RANGE_MERGE``
-(not ported) makes the keyed API raise, and ``flex_flash_attn_func``.
-``check_flag_comb`` raises where JAX's does (``tests/test_api/
+the keyed API runs it before planning (``MAGI_ATTENTION_AUTO_RANGE_MERGE``,
+honoured since the range merge was ported, has its own tests:
+``tests/test_torch_range_merge.py``). ``check_flag_comb`` raises where JAX's does (``tests/test_api/
 test_interface.py``): ``MAGI_ATTENTION_HIERARCHICAL_COMM`` with a flat
 group, qo-comm with an uneven shard or hierarchical groups, and a
 cross-attention key with qo-comm, hierarchical groups or an uneven shard.
@@ -17,7 +17,6 @@ with ``HierCpGroups`` plans the hierarchical comm."""
 
 import numpy as np
 import pytest
-import torch
 
 from magiattention_tpu.common.mask import slice_mask
 from magiattention_tpu.common.sanity import check_slices_non_overlapping as jax_check
@@ -26,7 +25,6 @@ from magiattention_tpu_torch.api import interface
 from magiattention_tpu_torch.comm import HierCpGroups
 from magiattention_tpu_torch.common.sanity import check_slices_non_overlapping
 from magiattention_tpu_torch.meta.solver.dispatch_solver import DispatchConfig
-from magiattention_tpu_torch.ops import flex_flash_attn_func
 
 SPAN = 64
 
@@ -69,13 +67,6 @@ def test_sanity_flag_checks_the_keys_slices(monkeypatch):
     monkeypatch.setenv("MAGI_ATTENTION_SANITY_CHECK", "1")
     with pytest.raises(ValueError, match="double-count"):
         _key()  # (64..192) x (0..64) full lies inside the causal slice
-
-
-@pytest.mark.parametrize("flag,item", [("MAGI_ATTENTION_AUTO_RANGE_MERGE", "A.4/A.5")])
-def test_unported_flags_make_the_key_raise(flag, item, monkeypatch):
-    monkeypatch.setenv(flag, "1")
-    with pytest.raises(ValueError, match=item):
-        _key()
 
 
 def test_qo_comm_refuses_an_uneven_shard_and_hierarchical_comm(monkeypatch):
@@ -150,13 +141,6 @@ def test_the_flag_with_hierarchical_groups_plans_hierarchical_comm():
         got = pool.run(workers.hier_flag_key)
     for r in got:
         assert r == {"plan_hier": (2, 2), "key_hier": (2, 2), "flat_plan_hier": None}
-
-
-def test_flex_flash_attn_func_refuses_auto_range_merge(monkeypatch):
-    q = torch.zeros((64, 2, 64))
-    monkeypatch.setenv("MAGI_ATTENTION_AUTO_RANGE_MERGE", "1")
-    with pytest.raises(ValueError, match="A.4/A.5"):
-        flex_flash_attn_func(q, q, q, [(0, 64)], [(0, 64)], [1])
 
 
 @pytest.mark.parametrize("flag", ["MAGI_ATTENTION_QO_COMM", "MAGI_ATTENTION_SANITY_CHECK",

@@ -96,3 +96,74 @@ def test_range_validity():
     assert AttnRanges.from_cu_seqlens([0, 3, 3, 8], 8).to_naive_ranges() == [(0, 3), (3, 3), (3, 8)]
     with pytest.raises(ValueError, match="cu_seqlens"):
         AttnRanges.from_cu_seqlens([0, 3, 2], 2)
+
+
+def test_apply_padding_matches_jax():
+    q = AttnRanges.from_ranges([(0, 100), (100, 250)])
+    jq = JaxRanges.from_ranges([(0, 100), (100, 250)])
+    got = ft.apply_padding(q, q, ["causal", "full"], 250, 6)
+    ref = jax_ft.apply_padding(jq, jq, ["causal", "full"], 250, 6)
+    assert got[0].to_naive_ranges() == ref[0].to_naive_ranges()
+    assert got[2:] == ref[2:] == (["causal", "full"], 256)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 3), (3, 4), (1, 7, 2, 2)])
+def test_squash_batch_dim_matches_jax(shape):
+    x = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape)
+    got = ft.squash_batch_dim(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ft.squash_batch_dim(jnp.asarray(x))))
+
+
+SEGMENT_IDS = [
+    [0, 0, 0, 1, 1, 2, 2, 2, 2, -1, -1],
+    [5, 5, -1, 5, 7, 7],
+    [-1, -1, -1],
+    [[0, 0, 1, 1, 1, -1], [3, 3, 3, 3, 4, 4]],
+    [[1, 1, 1], [1, 1, 1]],  # runs never merge across rows
+    np.zeros((2, 0), np.int64),
+]
+
+
+@pytest.mark.parametrize("ids", range(len(SEGMENT_IDS)))
+@pytest.mark.parametrize("causal", [True, False])
+def test_segment_ids_mask_matches_jax(ids, causal):
+    seg = np.asarray(SEGMENT_IDS[ids])
+    _same(ft.infer_attn_mask_from_segment_ids(seg, causal=causal),
+          jax_ft.infer_attn_mask_from_segment_ids(seg, causal=causal))
+    _same(ft.infer_attn_mask_from_segment_ids(torch.from_numpy(seg), causal=causal),
+          jax_ft.infer_attn_mask_from_segment_ids(seg, causal=causal))
+
+
+@pytest.mark.parametrize("rows", [[[1, 1, 1, 0], [1, 0, 0, 0], [0, 0, 0, 0]], [[1] * 5] * 3,
+                                  [[True, True, False]]])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_batch_mask_matches_jax(rows, causal):
+    am = np.asarray(rows)
+    _same(ft.infer_varlen_mask_from_padded_batch(am, causal=causal),
+          jax_ft.infer_varlen_mask_from_padded_batch(am, causal=causal))
+
+
+def test_padded_batch_and_segment_ids_refuse_what_jax_refuses():
+    hole = np.asarray([[1, 0, 1, 0]])
+    with pytest.raises(ValueError, match="not right-padded"):
+        ft.infer_varlen_mask_from_padded_batch(hole)
+    with pytest.raises(ValueError, match="not right-padded"):
+        jax_ft.infer_varlen_mask_from_padded_batch(hole)
+    with pytest.raises(ValueError, match="batch, seq"):
+        ft.infer_varlen_mask_from_padded_batch(np.ones(4))
+    with pytest.raises(ValueError, match=r"\[t\] or \[b, s\]"):
+        ft.infer_attn_mask_from_segment_ids(np.zeros((1, 2, 3)))
+
+
+@pytest.mark.parametrize("total,window,g", [(100, 1, 0), (100, 16, 0), (100, 16, 4), (37, 200, 0),
+                                            (256, 64, 64), (64, 63, 1)])
+def test_sliding_window_mask_matches_jax(total, window, g):
+    _same(ft.infer_attn_mask_from_sliding_window(total, window, global_tokens=g),
+          jax_ft.infer_attn_mask_from_sliding_window(total, window, global_tokens=g))
+
+
+def test_sliding_window_refusals():
+    with pytest.raises(ValueError, match="bidirectional"):
+        ft.infer_attn_mask_from_sliding_window(64, 8, causal=False)
+    with pytest.raises(ValueError, match="window_size must be >= 1"):
+        ft.infer_attn_mask_from_sliding_window(64, 0)

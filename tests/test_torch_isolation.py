@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
-    assert int(count) >= 24, res.stdout
+    assert int(count) >= 30, res.stdout
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -52,6 +52,9 @@ def test_every_module_is_mirrored_by_a_jax_twin():
     names = [m.name for m in pkgutil.walk_packages(magiattention_tpu_torch.__path__, prefix)]
     assert "magiattention_tpu_torch.serving.engine" in names
     assert "magiattention_tpu_torch.models.llama" in names
+    for new in ("meta.plan_fingerprint", "ops.range_merge", "utils.packing",
+                "telemetry.numerics"):
+        assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
         # the port's own: state to and from numpy; and the process spawner of
@@ -72,7 +75,9 @@ def test_engine_on_cuda_raises_without_a_card():
 
 
 @pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key",
-                                   "magi_attn_cross_key"])
+                                   "magi_attn_cross_key", "magi_attn_flex_dispatch",
+                                   "magi_attn_varlen_dispatch", "init_dist_attn_runtime_key",
+                                   "init_dist_attn_runtime_mgr"])
 def test_keyed_cp_entry_points_raise_without_a_card(entry):
     """Without ``device="cpu"`` the keyed context-parallel API runs on the
     card, and without one it raises before planning, never running on the
@@ -81,15 +86,24 @@ def test_keyed_cp_entry_points_raise_without_a_card(entry):
         pytest.skip("a card is present: the no-card contract cannot be observed here")
     from magiattention_tpu_torch import api
 
-    args, chunks = {
+    x = torch.zeros(256, 4, 64)
+    heads = dict(num_heads=(4, 2), head_dim=64)
+    args, kw = {
         "magi_attn_flex_key": (([(0, 256)], [(0, 256)], [1], 256, 256, None),
-                               dict(chunk_size=64)),
-        "magi_attn_varlen_key": (([0, 128, 256], 256, None), dict(chunk_size=64)),
+                               dict(chunk_size=64, **heads)),
+        "magi_attn_varlen_key": (([0, 128, 256], 256, None), dict(chunk_size=64, **heads)),
         "magi_attn_cross_key": (([(0, 256)], [(0, 512)], [0], 256, 512, None),
-                                dict(chunk_size_q=64, chunk_size_k=128)),
+                                dict(chunk_size_q=64, chunk_size_k=128, **heads)),
+        "magi_attn_flex_dispatch": ((x, [(0, 256)], [(0, 256)], [1], 256, 256, None),
+                                    dict(chunk_size=64, **heads)),
+        "magi_attn_varlen_dispatch": ((x, [0, 128, 256], 256, None), dict(chunk_size=64, **heads)),
+        "init_dist_attn_runtime_key": (([(0, 256)], [(0, 256)], [1], 256, 256, 4, 2, 64, 64, None),
+                                       {}),
+        "init_dist_attn_runtime_mgr": (([(0, 256)], [(0, 256)], [1], 256, 256, 4, 2, 64, 64, None),
+                                       {}),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(api, entry)(*args, num_heads=(4, 2), head_dim=64, **chunks)
+        getattr(api, entry)(*args, **kw)
 
 
 def test_qo_comm_key_raises_without_a_card(monkeypatch):

@@ -26,10 +26,12 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
     plants a faulty hierarchical reduce (``plant_hier_reduce``) for this
     call, and ``case["new_mask"]`` = (q_ranges, k_ranges, types) runs the
     attention on ``make_flex_key_for_new_mask_after_dispatch``'s key for
-    that mask over the first key's dispatch."""
+    that mask over the first key's dispatch. ``case["env"]`` holds more
+    flags to set for this call (``{name: value}``)."""
     from magiattention_tpu_torch.comm import group_collective as gc
 
     os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    os.environ.update(case.get("env", {}))
     restore = plant_hier_reduce(case["hier_plant"]) if case.get("hier_plant") else None
     if case.get("high_precision_backward"):
         os.environ["MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE"] = "1"
@@ -49,6 +51,8 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
     finally:
         gc.group_reduce_sum = real_reduce
         os.environ.pop("MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE", None)
+        for name in case.get("env", {}):
+            os.environ.pop(name)
         if restore is not None:
             restore()
 
@@ -93,7 +97,8 @@ def _keyed_attention(group, case: dict, inputs: dict) -> dict:
         "dv": v.grad.float().numpy(),
         "degree": mgr.plan.overlap_degree, "impls": [c.impl for c in mgr.plan.comms()],
         "max_logits": meta.max_logits.numpy(), "partitions": mgr.dispatch_meta.partitions,
-        "hier": mgr.plan.hier, "key_hier": key.hier,
+        "hier": mgr.plan.hier, "key_hier": key.hier, "key_q_ranges": key.q_ranges,
+        "key_k_ranges": key.k_ranges, "key_types": key.attn_type_map,
     }
     if case.get("return_plan") and dist.get_rank(group) == 0:
         res["plan"] = mgr.plan
@@ -633,3 +638,126 @@ def hier_flag_key(group) -> dict:
         os.environ.pop("MAGI_ATTENTION_HIERARCHICAL_COMM")
     return {"plan_hier": api.get_runtime_mgr(k).plan.hier, "key_hier": k.hier,
             "flat_plan_hier": api.get_runtime_mgr(key(group)).plan.hier}
+
+
+def plan_reuse_stream(group, case: dict, requests: list, inputs: dict) -> dict:
+    """Under ``MAGI_ATTENTION_PLAN_REUSE=bucket`` (set for this task only),
+    each request's ``cu_seqlens`` through ``magi_attn_varlen_key`` (float32
+    on the CPU) -> ``dispatch`` -> ``calc_attn`` -> ``undispatch``, forward
+    and backward of sum(out * g_out) + sum(lse * g_lse) over the covered
+    rows: per request its tier, the gathered out / lse / dq / dk / dv, the
+    canonical total and, for a bucketed key, the three host tables (int32,
+    over all ranks). Then ``magi_attn_varlen_dispatch``,
+    ``magi_attn_flex_dispatch`` and ``init_dist_attn_runtime_mgr`` on
+    request 0's mask (its key, its dispatch, its manager), the typed
+    refusals of ``roll`` and both new-mask
+    keys on a bucketed key, the tier of request 1 under
+    ``MAGI_ATTENTION_QO_COMM`` (which opts out of reuse), and the sizes of both cache levels with a key
+    of a second group over the same ranks planned, after ``clear_cache``
+    of that group, and after ``clear_cache`` of this one."""
+    from chip_smoke import key_tier
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api import interface
+
+    os.environ["MAGI_ATTENTION_PLAN_REUSE"] = "bucket"
+    api.clear_cache()
+    try:
+        res, keys = {}, {}
+        for name, cu in requests:
+            x = {n: torch.from_numpy(inputs[name][n]).requires_grad_() for n in ("q", "k", "v")}
+            key, tier, _, patched = key_tier(interface, lambda: api.magi_attn_varlen_key(
+                cu, cu[-1], group, num_heads=(x["q"].shape[1], x["k"].shape[1]),
+                head_dim=x["q"].shape[2], chunk_size=case["chunk"], out_dtype=torch.float32,
+                device="cpu"))
+            keys[name] = key
+            mgr = api.get_runtime_mgr(key)
+            out_l, meta = api.calc_attn(*(api.dispatch(x[n], key) for n in "qkv"), key)
+            out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+            loss = _loss(out, lse, inputs[name])
+            loss.backward()
+            r = {"tier": tier, "patched": patched, "most_recent_is_key":
+                 api.get_most_recent_key() == key,
+                 "bucketed": isinstance(mgr, api.BucketedDistAttnRuntimeMgr),
+                 "canonical_total": mgr.dispatch_meta.total_seqlen,
+                 "local_rows": int(out_l.shape[0]), "mgr_id": id(mgr),
+                 "out": out.detach().numpy(), "lse": lse.detach().numpy(),
+                 **{f"d{n}": x[n].grad.numpy() for n in "qkv"}}
+            if r["bucketed"]:
+                r.update(dispatch_idx=mgr._bucket_dispatch_idx,
+                         undispatch_idx=mgr._bucket_undispatch_idx,
+                         position_ids=mgr._bucket_position_ids,
+                         local_position_ids=api.get_position_ids(key).numpy(),
+                         canonical_is_exact_key=api.get_runtime_mgr(mgr.canonical_key).plan
+                         is mgr.plan)
+            res[name] = r
+
+        # the one-call and low-level entry points on request 0's mask: its key
+        name, cu = requests[0]
+        q = torch.from_numpy(inputs[name]["q"])
+        kw = dict(num_heads=(q.shape[1], inputs[name]["k"].shape[1]), head_dim=q.shape[2],
+                  chunk_size=case["chunk"], out_dtype=torch.float32, device="cpu")
+        docs = list(zip(cu[:-1], cu[1:]))
+        local_v, key_v = api.magi_attn_varlen_dispatch(q, cu, cu[-1], group, **kw)
+        local_f, key_f = api.magi_attn_flex_dispatch(q, docs, docs, "causal", cu[-1], cu[-1],
+                                                     group, **kw)
+        mgr_i = api.init_dist_attn_runtime_mgr(
+            docs, docs, ["causal"] * len(docs), cu[-1], cu[-1], kw["num_heads"][0],
+            kw["num_heads"][1], kw["head_dim"], case["chunk"], group, pad_size=0, cp_mesh=None,
+            out_dtype=torch.float32, device="cpu")
+        want = api.dispatch(q, keys[name])
+        entry_points = {
+            "keys": key_v == key_f == keys[name],
+            "locals": bool(torch.equal(local_v, want) and torch.equal(local_f, want)),
+            "init_mgr": mgr_i is api.get_runtime_mgr(keys[name]),
+        }
+
+        def refusal(fn, *args):
+            try:
+                fn(*args)
+            except ValueError as e:
+                return str(e)
+            return None
+
+        bucketed = next(k for n, k in keys.items() if res[n]["bucketed"])
+        n_tok = bucketed.total_seqlen_q - bucketed.pad_size
+        local = api.dispatch(torch.zeros(n_tok, 1), bucketed)
+        refusals = {
+            "roll": refusal(api.roll, local, bucketed, 1),
+            "new_flex": refusal(api.make_flex_key_for_new_mask_after_dispatch,
+                                [(0, n_tok)], [(0, n_tok)], ["full"], bucketed),
+            "new_varlen": refusal(api.make_varlen_key_for_new_mask_after_dispatch,
+                                  [0, n_tok // 2, n_tok], bucketed),
+        }
+        os.environ["MAGI_ATTENTION_QO_COMM"] = "1"  # qo-comm plans the exact mask
+        try:
+            name, cu = requests[1]
+            key, tier, _, _ = key_tier(interface, lambda: api.magi_attn_varlen_key(
+                cu, cu[-1], group, num_heads=(x["q"].shape[1], x["k"].shape[1]),
+                head_dim=x["q"].shape[2], chunk_size=case["chunk"], out_dtype=torch.float32,
+                device="cpu"))
+            qo_opt_out = {"tier": tier, "bucketed": isinstance(api.get_runtime_mgr(key),
+                                                               api.BucketedDistAttnRuntimeMgr)}
+        finally:
+            os.environ.pop("MAGI_ATTENTION_QO_COMM")
+        # a second group over the same ranks, with one bucketed key of its own
+        other = dist.new_group(list(range(dist.get_world_size(group))))
+        name, cu = requests[0]
+        api.magi_attn_varlen_key(cu, cu[-1], other, num_heads=(x["q"].shape[1], x["k"].shape[1]),
+                                 head_dim=x["q"].shape[2], chunk_size=case["chunk"],
+                                 out_dtype=torch.float32, device="cpu")
+        sizes = [(len(interface._runtime_dict), len(interface._plan_reuse_cache))]
+        api.clear_cache(other)
+        sizes.append((len(interface._runtime_dict), len(interface._plan_reuse_cache)))
+        api.clear_cache(group)
+        sizes.append((len(interface._runtime_dict), len(interface._plan_reuse_cache)))
+        try:
+            api.get_most_recent_key()
+            recent_kept = True
+        except RuntimeError:
+            recent_kept = False
+        return {"requests": res, "refusals": refusals, "cache_sizes": sizes,
+                "most_recent_after_clear": recent_kept, "qo_opt_out": qo_opt_out,
+                "entry_points": entry_points}
+    finally:
+        os.environ.pop("MAGI_ATTENTION_PLAN_REUSE", None)
+        api.clear_cache()
