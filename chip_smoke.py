@@ -65,6 +65,8 @@ Phases, each printing one JSON line:
    the automatic kernel choice (row-major, head_block 4: ``flex_fwd_hb``),
    run 64 decode steps over the batch, and hold prefill outputs (prompts up
    to 4096 tokens) and every 8th decode step against the plain versions;
+   each prefill's host ms split into the plan build, the tables' upload
+   and the rest;
    on the final batch ``paged_decode``'s time in turns with the previous
    walk, the split sweep (kernel alone, and with the merge in device time)
    there and on one 32K-token sequence, the plain version, SDPA and the
@@ -101,7 +103,36 @@ Phases, each printing one JSON line:
    with the previous sparse walk, the forward also in turns with its
    variant that moves AMLA's reference on every rise, and the slice's
    forward + backward in device time;
-7. cp_attn — context parallelism through the keyed API
+7. block_sparse — the block-sparse entry points at the LlamaConfig
+   attention widths (16 q / 8 kv heads, d 128, bf16) on 16,384 tokens,
+   forward and backward: (a) ``dsa_attn_func`` through its indexer
+   (causal, the top 16 blocks of 128: 2,048 keys, DeepSeek-V3.2's index
+   top-k), (b) ``index_attn_func`` on (a)'s selection, which must give
+   (a)'s bits, (c) ``block_sparse_attn_func`` on a seeded ~10% block mask
+   at tq 8,192 != tk 16,384, (d) ``sparse_load_attn_func`` on 8 seeded
+   disjoint ranges of 4,096 keys, causal; each launches ``flex_fwd`` then
+   ``flex_dq`` + ``flex_dkv`` once (the plan built at the kernel's 64 x 64
+   tile from the callers' 128 x 128 blocking) and is held against dense
+   attention on the card over a mask built from the caller's selection; a
+   plan whose causal refinement marks the crossing tiles FULL, planted on
+   this side, must fail out and lse;
+8. sink — ``flash_attention_with_sink`` at gpt-oss-120b's attention widths
+   (64 q / 8 kv heads, head_dim 64, one learned sink logit per head),
+   bf16, batch 2 x 8,192 as one packed call, forward and backward with
+   dsink: its local layers' 128-token sliding window (the sparse grid at
+   head_block 8: ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
+   ``flex_dkv_sparse``) and full causal (``flex_fwd_hb``, ``flex_dq``,
+   ``flex_dkv``), against dense attention with the sink on the card; one
+   small ``ssh`` and one ``shd`` case (the kernels, then the sink folded
+   in) against the same call on the plain forward
+   (``MAGI_ATTENTION_KERNEL_BACKEND=torch``);
+9. planner_host — host ms of the plan builder with the native entry
+   emitter and with ``MAGI_ATTENTION_CPP_BACKEND=0`` (the hetero mask, the
+   serving 4096-token causal prefill, the cp_attn cold key's planning at
+   cp 2 and 4), and a 4096-token serving prefill split on the host clock
+   into plan, table upload and the rest, cold and warm: printed, not
+   claimed;
+10. cp_attn — context parallelism through the keyed API
    (``magi_attn_flex_key`` -> ``dispatch`` -> ``calc_attn`` ->
    ``undispatch``), forward and backward in bf16 at d 128 on the hetero
    mask with chunks of 512, 16 / 8 heads (head_block 2: ``flex_fwd_hb``)
@@ -116,7 +147,7 @@ Phases, each printing one JSON line:
    of its plan (its tables, received rows and kv_pad) against the plain
    versions; a cast whose backward skips the dK/dV reduce, planted in the
    ranks, must fail the dk and dv checks;
-8. cp_qo_attn — qo-comm through the keyed API (``MAGI_ATTENTION_QO_COMM=1``,
+11. cp_qo_attn — qo-comm through the keyed API (``MAGI_ATTENTION_QO_COMM=1``,
    set for the rank tasks only): the dynamic solver cuts the hetero mask's
    attention plane into cp regions, Q and K/V rows are cast to each
    region's owner, one ``flex_fwd`` call there (head_block 1 at every G, as
@@ -130,13 +161,13 @@ Phases, each printing one JSON line:
    O-return reduce that drops the remote partials, planted in the ranks,
    must fail the out and lse checks; the plan (impls, received rows,
    buffers, region areas) and the first key's host ms are printed;
-9. cp_training — the training phase's trainer (same weights, batch and
+12. cp_training — the training phase's trainer (same weights, batch and
    optimizer from ``--seed``) at cp=2 (degree 0) and cp=4 (degree 2), 6
    AdamW steps each: every step's loss against the training phase's cp=1
    loss and the first step's gradients (summed over the ranks) against
    cp=1's, within ``CP_LOSS_ATOL`` / ``CP_GRAD_REL_L2``; the step times and
    peak memory per rank, labelled as ranks sharing one card;
-10. cp_hier_attn — hierarchical two-level comm through the keyed API: the
+13. cp_hier_attn — hierarchical two-level comm through the keyed API: the
    four cp ranks as 2 nodes x 2 (``comm.make_hier_cp_groups``), the
    cp_attn mask at 16 / 8 heads, degree 0, a2a (run A), at 8 / 8, degree
    2, hops on the intra level (run B), and on run A's key
@@ -149,16 +180,16 @@ Phases, each printing one JSON line:
    and 4097 exactly equal to the dispatch of ``torch.roll``, and two
    planted hierarchical reduces (pad slots summed onto row 0; the
    gateway's pre-reduce skipped) that must fail dk and dv only;
-11. cp_hier_training — the cp_training trainer at cp=4 as 2 x 2 over the
+14. cp_hier_training — the cp_training trainer at cp=4 as 2 x 2 over the
    hierarchical groups, degree 0, 6 AdamW steps, against cp=1's losses and
    first-step gradients;
-12. cp_xattn — ``magi_attn_cross_key`` at cp=2 and cp=4, 16 / 8 heads:
+15. cp_xattn — ``magi_attn_cross_key`` at cp=2 and cp=4, 16 / 8 heads:
    8192 queries as documents [4096, 2048, 2048] attending FULL to their
    own span of a 3000-row memory [1500, 750, 750] (padded to the chunk
    multiple), forward and backward against single-card
    ``flex_flash_attn_func`` with tq != tk, and a planted skip of the
    memory's dK/dV reduce that must fail dk and dv only;
-13. cp_plan_reuse — a new mask every call under
+16. cp_plan_reuse — a new mask every call under
    ``MAGI_ATTENTION_PLAN_REUSE=bucket`` at cp=2, 16 / 8 heads, chunk 512:
    six varlen block-causal requests (``CP_REUSE_STREAM``: a cold key whose
    documents canonicalise onto the bucket grid, a bucket hit on its
@@ -176,7 +207,8 @@ Phases, each printing one JSON line:
    (``utils.pack_corpus``) through the keys: tiers and median host ms.
 
 The line before the last lists the nine kernels with their launches on the
-main paths (and which paths launched them), errors and times; the last line is
+main paths (and which paths launched them: ``block_sparse`` and ``sink``
+among them), errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
 """
@@ -184,6 +216,7 @@ line; nothing falls back to a plain version. Needs one card and no network.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -2045,7 +2078,7 @@ def serving(gen, hq=None, hk=None, prompts=(1000, 1733, 2048, 2900, 4096, 5120, 
     engine = ServingEngine(num_pages=1024, num_kv_heads=hk, head_dim=D, page_size=PAGE,
                            max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
     csrc.reset_launch_counts()
-    slots, prefill_ms, checked = [], [], []
+    slots, prefill_ms, prefill_split, checked = [], [], [], []
     for i, t in enumerate(prompts):
         res = engine.admit(t)
         check(res.admitted, f"admission of a {t}-token prompt refused: {res.reason}")
@@ -2056,9 +2089,12 @@ def serving(gen, hq=None, hk=None, prompts=(1000, 1733, 2048, 2900, 4096, 5120, 
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out, lse = engine.prefill(q, kv[0], kv[1], res.slot)
-            torch.cuda.synchronize()
+            with host_split() as spent:
+                out, lse = engine.prefill(q, kv[0], kv[1], res.slot)
+                torch.cuda.synchronize()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            prefill_split.append({**spent, "rest": prefill_ms[-1] - spent["plan"]
+                                  - spent["table_upload"]})
         finally:
             os.environ.pop("MAGI_ATTENTION_PREFILL_CHUNK", None)
         check(out.shape == (t, hq, D) and bool(torch.isfinite(out).all()),
@@ -2100,6 +2136,8 @@ def serving(gen, hq=None, hk=None, prompts=(1000, 1733, 2048, 2900, 4096, 5120, 
         "choice": dict(zip(("block_q", "block_k", "head_block", "grid"), choice)),
         "prompts": list(prompts),
         "prefill_ms": prefill_ms,
+        # each prefill's host ms in the plan builder, the tables' upload and the rest
+        "prefill_split_ms": prefill_split,
         "prefill_checked_tokens": checked,
         "decode_steps": steps,
         "decode_batch": len(slots),
@@ -2834,6 +2872,462 @@ def hetero(gen, planted) -> tuple[dict, dict]:
     check(runs[0]["pairs"] == 18_758_257, f"the 16k varlen mask has {runs[0]['pairs']} pairs")
     return {"phase": "hetero", "tokens": HETERO_T, "documents": len(qr), "head_dim": D,
             "runs": runs, "launches": launches}, times
+
+
+# -- block-sparse, index, sparse-load and DSA attention ------------------------------
+
+BS_T = 16384
+BS_BLOCK = 128  # the callers' blocking (the JAX package's default), not the kernel tile
+DSA_TOPK = 16  # blocks of 128: 2,048 keys a q block, DeepSeek-V3.2's index top-k
+BS_TQ = 8192  # (c): tq != tk
+BS_DENSITY = 0.10  # (c): the share of caller tiles selected
+SL_RANGES, SL_KEYS = 8, 4096  # (d): disjoint selected key ranges, keys in all
+BS_KERNELS = ("flex_fwd", "flex_dq", "flex_dkv")  # head_block 1, the row-major grid
+
+
+def plain_attention(q, k, v, mask, dout, dlse, sink=None) -> dict:
+    """The plain version of an attention entry point: dense masked attention
+    in f32 on the card over an independently built [tq, tk] bool ``mask``,
+    one kv head's q heads at a time (their [G, tq, tk] scores fit), forward
+    and backward by autograd. q [tq, hq, d], k/v [tk, hk, d]; ``sink`` [hq]
+    logits or None. Returns token-major f32 out, lse, dq, dk, dv (and dsink);
+    the lse cotangent is dropped on rows without a key, as the kernels'
+    backward drops it there."""
+    import torch
+
+    tq, hq, d = q.shape
+    tk, hk = k.shape[0], k.shape[1]
+    g = hq // hk
+    res = {n: [] for n in ("out", "lse", "dq", "dk", "dv", "dsink")}
+    for j in range(hk):
+        h = slice(j * g, (j + 1) * g)
+        qj = q[:, h].float().transpose(0, 1).contiguous().requires_grad_()  # [g, tq, d]
+        kj, vj = (x[:, j].float().contiguous().requires_grad_() for x in (k, v))  # [tk, d]
+        leaves = [qj, kj, vj]
+        s = torch.matmul(qj, kj.T).mul_(1.0 / math.sqrt(d)).masked_fill_(~mask, float("-inf"))
+        m = s.amax(-1).detach()
+        if sink is not None:
+            sj = sink[h].float().detach().clone().requires_grad_()
+            leaves.append(sj)
+            m = torch.maximum(m, sj.detach()[:, None])
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.exp(s - m[..., None])
+        del s
+        l = p.sum(-1)
+        if sink is not None:
+            l = l + torch.exp(sj[:, None] - m)
+        l_safe = torch.where(l > 0, l, 1.0)
+        out = torch.matmul(p, vj) / l_safe[..., None]
+        lse = torch.where(l > 0, m + torch.log(l_safe), float("-inf"))
+        dl = torch.where(torch.isfinite(lse), dlse[:, h].float().T, 0.0)
+        grads = torch.autograd.grad((out, lse), leaves,
+                                    (dout[:, h].float().transpose(0, 1), dl))
+        del p
+        res["out"].append(out.detach().transpose(0, 1))
+        res["lse"].append(lse.detach().T)
+        res["dq"].append(grads[0].transpose(0, 1))
+        res["dk"].append(grads[1][:, None])
+        res["dv"].append(grads[2][:, None])
+        if sink is not None:
+            res["dsink"].append(grads[3])
+    return {n: torch.cat(x, dim=0 if n == "dsink" else 1) for n, x in res.items() if x}
+
+
+def block_dense_mask(bm, tq, tk, bq, bk, causal):
+    """The [tq, tk] pairs a caller's block mask means, on the card: every
+    token pair of a selected tile, k <= q + tk - tq under ``causal``."""
+    import torch
+
+    bm = torch.as_tensor(bm, device="cuda")
+    qi, ki = torch.arange(tq, device="cuda"), torch.arange(tk, device="cuda")
+    mask = bm.index_select(0, qi // bq).index_select(1, ki // bk)
+    if causal:
+        mask &= ki[None] <= qi[:, None] + (tk - tq)
+    return mask
+
+
+def entry_fwd_bwd(fn, q, k, v, dout, dlse, extra=()):
+    """One forward and backward through an entry point ``fn(q, k, v,
+    *extra)`` -> (out, lse); the launches it made, its host wall ms (first
+    call: the plan included) and its results."""
+    import torch
+    from magiattention_tpu_torch import csrc
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, *extra)]
+    torch.cuda.synchronize()
+    csrc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, lse = fn(*leaves)
+    grads = torch.autograd.grad((out, lse), leaves, (dout, dlse))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c for n, c in csrc.launches.items() if c}
+    return {"out": out.detach(), "lse": lse.detach(), "grads": grads, "launches": launches,
+            "wall_ms": wall_ms}
+
+
+def check_against_plain(name, got, ref, fwd, dq="flex_dq", dkv="flex_dkv") -> dict:
+    """Out and lse against the plain version (the smoke's forward bounds),
+    dq, dk, dv against its gradients (the three gradient checks); dsink,
+    which the autograd Function computes from lse and delta rather than a
+    kernel, by the same three checks. Returns dsink's errors (or {})."""
+    compare(fwd, name, got["out"], ref["out"], got["lse"], ref["lse"])
+    dq_, dk_, dv_ = (g.transpose(0, 1) for g in got["grads"][:3])
+    compare_grads(dq, name, [("dq", dq_, ref["dq"].transpose(0, 1))])
+    compare_grads(dkv, name, [("dk", dk_, ref["dk"].transpose(0, 1)),
+                              ("dv", dv_, ref["dv"].transpose(0, 1))])
+    if "dsink" not in ref:
+        return {}
+    errs, failed = grad_errors(got["grads"][3].reshape(1, -1, 1), ref["dsink"].reshape(1, -1, 1))
+    check(not failed, f"{name}: dsink fails the {failed} check(s): {errs}")
+    return errs
+
+
+def sparse_load_ranges(rng, tk):
+    """SL_RANGES disjoint key ranges of SL_KEYS keys in all, one in each
+    SL_RANGES-th of [0, tk), at seeded lengths and offsets."""
+    import numpy as np
+
+    lengths = rng.integers(SL_KEYS // SL_RANGES // 2, SL_KEYS // SL_RANGES * 3 // 2,
+                           SL_RANGES)
+    lengths[-1] += SL_KEYS - lengths.sum()
+    span = tk // SL_RANGES
+    starts = [i * span + int(rng.integers(0, span - n + 1)) for i, n in enumerate(lengths)]
+    return np.asarray([(s, s + int(n)) for s, n in zip(starts, lengths)], np.int64)
+
+
+def block_sparse_phase(gen, seed) -> dict:
+    """The block-sparse entry points at the LlamaConfig attention widths
+    (16 q / 8 kv heads, d 128, bf16) on 16,384 tokens, forward and
+    backward: (a) ``dsa_attn_func`` through its indexer (causal, top-16
+    blocks of 128), (b) ``index_attn_func`` on (a)'s selection (must give
+    (a)'s bits), (c) ``block_sparse_attn_func`` on a seeded ~10% block mask
+    at tq 8192 != tk 16384, (d) ``sparse_load_attn_func`` on 8 seeded
+    disjoint ranges of 4,096 keys, causal. Each runs ``flex_fwd`` then
+    ``flex_dq`` + ``flex_dkv`` once and is held against
+    :func:`plain_attention` on a mask built from the caller's selection; a
+    plan whose causal refinement marks the crossing tiles FULL, planted on
+    this side, must fail out and lse."""
+    import numpy as np
+    import torch
+    from magiattention_tpu_torch.extensions import dsa_attn_func, dsa_topk_blocks
+    from magiattention_tpu_torch.ops import block_sparse as bs
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.ops import index_attn_func, sparse_load_attn_func
+
+    t, hq, hk = BS_T, TRAIN_HQ, TRAIN_HK
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.randn((t, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+                     for h in (hq, hk, hk, hq))
+    dlse = torch.randn((t, hq), generator=gen, device="cuda")
+    blk = dict(block_q=BS_BLOCK, block_k=BS_BLOCK)
+    want = {n: 1 for n in BS_KERNELS}
+    runs, launches = {}, {}
+
+    def record(name, got, **extra):
+        check(got["launches"] == want, f"block_sparse {name}: launches {got['launches']}, "
+              f"expected {want}")
+        for n, c in got["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        runs[name] = {"fwd_bwd_wall_ms": got["wall_ms"], **extra}
+
+    # (a) DSA through its indexer
+    t0 = time.perf_counter()
+    sel = dsa_topk_blocks(q, k, DSA_TOPK, **blk)
+    indexer_ms = (time.perf_counter() - t0) * 1e3
+    dsa = entry_fwd_bwd(lambda q, k, v: dsa_attn_func(q, k, v, topk=DSA_TOPK, **blk), q, k, v,
+                        dout, dlse)
+    bm_a = np.zeros((t // BS_BLOCK, t // BS_BLOCK), bool)
+    for i, row in enumerate(sel):
+        bm_a[i, row[row >= 0]] = True
+    mask_a = block_dense_mask(bm_a, t, t, BS_BLOCK, BS_BLOCK, True)
+    ref = plain_attention(q, k, v, mask_a, dout, dlse)
+    check_against_plain("block_sparse_dsa", dsa, ref, "flex_fwd")
+    record("dsa", dsa, indexer_host_ms=indexer_ms, selected_blocks=int(bm_a.sum()),
+           pairs=int(mask_a.sum()))
+
+    # (b) the same selection passed in: the same plan, the same bits
+    idx = entry_fwd_bwd(lambda q, k, v: index_attn_func(q, k, v, sel, causal=True, **blk), q, k,
+                        v, dout, dlse)
+    same = all(torch.equal(a, b) for a, b in zip((idx["out"], idx["lse"], *idx["grads"]),
+                                                  (dsa["out"], dsa["lse"], *dsa["grads"])))
+    check(same, "block_sparse: index_attn_func on the DSA selection is not bitwise dsa_attn_func")
+    record("index", idx, bitwise_dsa=same)
+
+    # the planted fault: the crossing tiles' causal slice made FULL
+    meta = bs.block_mask_meta(bm_a, t, t, D, causal=True, **blk)
+    bounds = meta.slice_bounds.copy().reshape(-1, 5)
+    bounds[1, 4] = 0
+    planted = dataclasses.replace(meta, slice_bounds=bounds.reshape(-1))
+    pout, plse = fa.flex_attn_with_meta(q, k, v, planted)
+    _, failed = out_errors(pout, ref["out"], [("lse", plse, ref["lse"])])
+    check({"out", "lse"} <= set(failed),
+          f"block_sparse: the planted FULL crossing tiles were caught by {failed} only")
+    del ref, mask_a
+
+    # (c) a ~10% block mask, tq != tk, not causal
+    bm_c = rng.random((BS_TQ // BS_BLOCK, t // BS_BLOCK)) < BS_DENSITY
+    bsp = entry_fwd_bwd(lambda q, k, v: bs.block_sparse_attn_func(q, k, v, bm_c, **blk),
+                        q[:BS_TQ], k, v, dout[:BS_TQ], dlse[:BS_TQ])
+    mask_c = block_dense_mask(bm_c, BS_TQ, t, BS_BLOCK, BS_BLOCK, False)
+    ref = plain_attention(q[:BS_TQ], k, v, mask_c, dout[:BS_TQ], dlse[:BS_TQ])
+    check_against_plain("block_sparse_tq8192_tk16384", bsp, ref, "flex_fwd")
+    record("block_sparse", bsp, selected_blocks=int(bm_c.sum()), pairs=int(mask_c.sum()))
+    del ref, mask_c
+
+    # (d) sparse load: 8 disjoint ranges, causal against global positions
+    ranges = sparse_load_ranges(rng, t)
+    sl = entry_fwd_bwd(lambda q, k, v: sparse_load_attn_func(q, k, v, ranges, causal=True),
+                       q, k, v, dout, dlse)
+    selected = torch.zeros(t, dtype=torch.bool, device="cuda")
+    for a, b in ranges.tolist():
+        selected[a:b] = True
+    ki = torch.arange(t, device="cuda")
+    mask_d = selected[None] & (ki[None] <= ki[:, None])
+    ref = plain_attention(q, k, v, mask_d, dout, dlse)
+    check_against_plain("sparse_load_8x4096", sl, ref, "flex_fwd")
+    record("sparse_load", sl, ranges=ranges.tolist(), pairs=int(mask_d.sum()))
+    del ref, mask_d
+    return {"phase": "block_sparse", "tokens": t, "heads": {"hq": hq, "hk": hk, "head_dim": D},
+            "caller_block": BS_BLOCK, "kernel_tile": list(fa.resolve_tile(D, None, None)),
+            "runs": runs, "launches": launches,
+            "planted_full_crossing_tiles_caught_by": failed}
+
+
+# -- attention sinks: gpt-oss-120b's attention widths -------------------------------
+
+SINK_B, SINK_T = 2, 8192
+SINK_HQ, SINK_HK, SINK_D = 64, 8, 64  # gpt-oss-120b: 64 q / 8 kv heads, head_dim 64
+SINK_WINDOW = 128  # its local layers' sliding window
+SINK_SMALL_T = 1024  # the correction-path cases (ssh, shd)
+
+
+def sink_phase(gen) -> dict:
+    """``flash_attention_with_sink`` at gpt-oss-120b's attention widths, bf16,
+    one learned sink logit per head (``sh``), batch 2 x 8,192 tokens,
+    forward and backward with dsink: the 128-token sliding window of its
+    local layers (the sparse grid at head_block 8: ``flex_fwd_sparse_hb``,
+    ``flex_dq_sparse``, ``flex_dkv_sparse``) and full causal (row-major:
+    ``flex_fwd_hb``, ``flex_dq``, ``flex_dkv``), one launch of each for the
+    packed batch, against :func:`plain_attention` per sequence; then one
+    small ``ssh`` and one ``shd`` case (the kernels without a sink, the
+    correction after) against the same call on the plain forward
+    (``MAGI_ATTENTION_KERNEL_BACKEND=torch``)."""
+    import torch
+    from magiattention_tpu_torch.api.functools import infer_attn_mask_from_sliding_window
+    from magiattention_tpu_torch.common.mask import make_attn_mask_from_ranges
+    from magiattention_tpu_torch.extensions import flash_attention_with_sink
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    b, t, hq, hk, d = SINK_B, SINK_T, SINK_HQ, SINK_HK, SINK_D
+    g = hq // hk
+
+    def rand(t, h):
+        return torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, dout = rand(t, hq), rand(t, hk), rand(t, hk), rand(t, hq)
+    dlse = torch.randn((b, t, hq), generator=gen, device="cuda")
+    logits = torch.randn((hq,), generator=gen, device="cuda")
+    runs, launches = {}, {}
+    kinds = {
+        "window": (dict(window=SINK_WINDOW), "sparse",
+                   ("flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")),
+        "causal": (dict(causal=True), "row_major", ("flex_fwd_hb", "flex_dq", "flex_dkv")),
+    }
+    for name, (kw, grid, kernels) in kinds.items():
+        if name == "window":
+            qr, kr, ts = infer_attn_mask_from_sliding_window(t, SINK_WINDOW)
+            qr, kr, ts = qr.to_naive_ranges(), kr.to_naive_ranges(), [int(x) for x in ts]
+        else:
+            qr, kr, ts = [(0, t)], [(0, t)], [1]
+        choice = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=d)
+        check(choice == (64, 64, g, grid), f"sink {name}: the choice is {choice}, not "
+              f"(64, 64, {g}, {grid!r})")
+        got = entry_fwd_bwd(
+            lambda q, k, v, s: flash_attention_with_sink(q, k, v, s, return_lse=True, **kw),
+            q, k, v, dout, dlse, extra=(logits,))
+        want = {n: 1 for n in kernels}
+        check(got["launches"] == want, f"sink {name}: launches {got['launches']}, expected {want}")
+        for n, c in got["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        mask = torch.from_numpy(make_attn_mask_from_ranges(qr, kr, ts, t, t)).to("cuda")
+        refs = [plain_attention(q[i], k[i], v[i], mask, dout[i], dlse[i], sink=logits)
+                for i in range(b)]
+        ref = {n: torch.stack([r[n] for r in refs]) for n in ("out", "lse", "dq", "dk", "dv")}
+        ref["dsink"] = sum(r["dsink"] for r in refs)
+        flat = {"out": got["out"].flatten(0, 1), "lse": got["lse"].flatten(0, 1),
+                "grads": tuple(x.flatten(0, 1) for x in got["grads"][:3]) + (got["grads"][3],)}
+        ref_flat = {n: (x if n == "dsink" else x.flatten(0, 1)) for n, x in ref.items()}
+        dsink = check_against_plain(f"sink_{name}_{b}x{t}", flat, ref_flat, *kernels)
+        runs[name] = {"choice": dict(zip(("block_q", "block_k", "head_block", "grid"), choice)),
+                      "fwd_bwd_wall_ms": got["wall_ms"], "pairs_per_sequence": int(mask.sum()),
+                      "dsink": dsink}
+        del refs, ref, mask
+
+    # the correction path: per-row logits and value-carrying sinks
+    ts_ = SINK_SMALL_T
+    qs, ks, vs, ds = rand(ts_, hq), rand(ts_, hk), rand(ts_, hk), rand(ts_, hq)
+    dls = torch.randn((b, ts_, hq), generator=gen, device="cuda")
+    small = {"ssh": torch.randn((b, ts_, 2, hq), generator=gen, device="cuda"),
+             "shd": torch.randn((2, hq, d), generator=gen, device="cuda")}
+    for layout, s in small.items():
+        def call(q, k, v, s, layout=layout):
+            return flash_attention_with_sink(q, k, v, s, sink_layout=layout, causal=True,
+                                             return_lse=True)
+
+        got = entry_fwd_bwd(call, qs, ks, vs, ds, dls, extra=(s,))
+        want = {n: 1 for n in ("flex_fwd_hb", "flex_dq", "flex_dkv")}
+        check(got["launches"] == want,
+              f"sink {layout}: launches {got['launches']}, expected {want}")
+        for n, c in got["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        os.environ["MAGI_ATTENTION_KERNEL_BACKEND"] = "torch"  # the plain forward, on the card
+        try:
+            plain = entry_fwd_bwd(call, qs, ks, vs, ds, dls, extra=(s,))
+        finally:
+            os.environ.pop("MAGI_ATTENTION_KERNEL_BACKEND")
+        check(not plain["launches"], f"sink {layout}: the plain run launched {plain['launches']}")
+        ref = {"out": plain["out"].flatten(0, 1), "lse": plain["lse"].flatten(0, 1),
+               **{n: x.flatten(0, 1) for n, x in zip(("dq", "dk", "dv"), plain["grads"])},
+               "dsink": plain["grads"][3]}
+        flat = {"out": got["out"].flatten(0, 1), "lse": got["lse"].flatten(0, 1),
+                "grads": tuple(x.flatten(0, 1) for x in got["grads"][:3]) + (got["grads"][3],)}
+        dsink = check_against_plain(f"sink_{layout}_{b}x{ts_}", flat, ref, "flex_fwd_hb")
+        runs[layout] = {"fwd_bwd_wall_ms": got["wall_ms"], "dsink": dsink}
+    return {"phase": "sink", "batch": b, "tokens": t,
+            "heads": {"hq": hq, "hk": hk, "head_dim": d}, "sink_layout": "sh",
+            "window": SINK_WINDOW, "runs": runs, "launches": launches}
+
+
+# -- the host planner's cost, native emitter against the Python loops ---------------
+
+PLAN_REPS = 9
+
+
+@contextlib.contextmanager
+def host_split():
+    """Host ms spent in the plan builder (``build_block_meta``, as the flex
+    entry points call it), in the part of it after the entries are emitted
+    (``assemble_block_meta``: sorts, dummies, pads, mask flags) and in the
+    tables' upload (``_device_tables``) while the block runs: yields the
+    dict that collects them (``plan`` includes ``plan_assemble``)."""
+    from magiattention_tpu_torch.ops import block_meta
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    where = {"plan": (fa, "build_block_meta"), "plan_assemble": (block_meta, "assemble_block_meta"),
+             "table_upload": (fa, "_device_tables")}
+    spent = {part: 0.0 for part in where}
+    real = {part: getattr(mod, name) for part, (mod, name) in where.items()}
+
+    def timed(part):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[part](*a, **kw)
+            finally:
+                spent[part] += (time.perf_counter() - t0) * 1e3
+        return fn
+
+    for part, (mod, name) in where.items():
+        setattr(mod, name, timed(part))
+    try:
+        yield spent
+    finally:
+        for part, (mod, name) in where.items():
+            setattr(mod, name, real[part])
+
+
+def planner_host() -> dict:
+    """Host ms (median and range of PLAN_REPS calls each, the two builders in
+    turns, on the card's host CPU) of building the plan with the native
+    emitter and with ``MAGI_ATTENTION_CPP_BACKEND=0``:
+    the 16k hetero mask's ``build_block_meta``, the serving path's
+    4096-token causal prefill's, and the cp_attn cold key's host planning
+    (dispatch meta + ``build_dist_attn_plan`` at cp 2 degree 0 and cp 4
+    degree 2, in this process: the ranks add their process-group calls and
+    uploads). Then a 4096-token serving prefill at the serving widths split
+    on the host clock into the plan, the table upload and the rest, cold
+    (plan and tables built) and warm (both cached). Printed, not claimed."""
+    import gc
+    import statistics
+
+    import torch
+    from magiattention_tpu_torch.common import AttnMaskType, AttnRanges
+    from magiattention_tpu_torch.meta import make_dispatch_meta_from_qk_ranges
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.parallel.dist_attn import build_dist_attn_plan
+    from magiattention_tpu_torch.serving import ServingEngine
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    qr, kr, ty = split_slices(varlen_block_causal(HETERO_T))
+
+    def cold_key(cp, degree):
+        mq, _, bucket = make_dispatch_meta_from_qk_ranges(
+            AttnRanges.from_ranges(qr), AttnRanges.from_ranges(kr),
+            [AttnMaskType(t) for t in ty], HETERO_T, HETERO_T, CP_CHUNK, cp)
+        build_dist_attn_plan(mq, bucket, block_q=BLOCK, block_k=BLOCK,
+                             overlap_config=OverlapConfig(degree=degree))
+
+    cases = {
+        "hetero_16k": lambda: fa.build_block_meta(qr, kr, ty, HETERO_T, HETERO_T,
+                                                  block_q=BLOCK, block_k=BLOCK),
+        "serving_prefill_4096": lambda: fa.build_block_meta([(0, 4096)], [(0, 4096)], [1], 4096,
+                                                            4096, block_q=BLOCK, block_k=BLOCK),
+        "cp_attn_cold_key_cp2": lambda: cold_key(2, 0),
+        "cp_attn_cold_key_cp4": lambda: cold_key(4, 2),
+    }
+
+    # the two builders in turns (native, Python, then Python, native, ...),
+    # each call after a garbage collection, so that neither inherits the
+    # other's garbage or a drift of the host
+    runs = {name: {"native": [], "python": []} for name in cases}
+    try:
+        for rep in range(PLAN_REPS):
+            turns = (("native", "1"), ("python", "0"))
+            for label, flag in turns if rep % 2 == 0 else turns[::-1]:
+                os.environ["MAGI_ATTENTION_CPP_BACKEND"] = flag
+                for name, fn in cases.items():
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    fn()
+                    runs[name][label].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        os.environ.pop("MAGI_ATTENTION_CPP_BACKEND")
+    plan_ms = {n: {lb: statistics.median(ts) for lb, ts in r.items()} for n, r in runs.items()}
+    plan_ms_range = {n: {lb: [min(ts), max(ts)] for lb, ts in r.items()} for n, r in runs.items()}
+
+    # the serving prefill, split into the plan, the table upload and the rest
+    engine = ServingEngine(num_pages=256, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=4, max_pages_per_seq=64, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t = 4096
+    q = torch.randn((t, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn((2, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+    split = {"cold": [], "warm": []}
+    for rep in range(2 * PLAN_REPS + 1):
+        which = "cold" if rep % 2 == 0 else "warm"
+        if which == "cold":
+            for cache in (fa._cached_meta, fa.fwd_tables, fa.bwd_tables):
+                cache.cache_clear()
+        slot = engine.admit(t).slot
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with host_split() as spent:
+            engine.prefill(q, kv[0], kv[1], slot)
+            torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        engine.free(slot)
+        if rep:  # the first call also loads the kernel library
+            split[which].append({"total": total, **spent,
+                                 "rest": total - spent["plan"] - spent["table_upload"]})
+    prefill_split = {w: {p: statistics.median(r[p] for r in rs) for p in rs[0]}
+                     for w, rs in split.items()}
+    return {"phase": "planner_host", "card": nvidia_smi_line(), "clock": "host",
+            "reps": PLAN_REPS, "plan_ms": plan_ms, "plan_ms_range": plan_ms_range,
+            "native_over_python": {n: x["native"] / x["python"] for n, x in plan_ms.items()},
+            "serving_prefill_4096_split_ms": prefill_split}
 
 
 # -- context parallelism: cp ranks as processes sharing the card ------------------
@@ -4142,6 +4636,13 @@ def main(argv=None) -> int:
     hetero_line, hetero_t = hetero(gen, planted)
     emit(hetero_line)
     torch.cuda.empty_cache()
+    block_sparse_line = block_sparse_phase(gen, args.seed)
+    emit(block_sparse_line)
+    torch.cuda.empty_cache()
+    sink_line = sink_phase(gen)
+    emit(sink_line)
+    torch.cuda.empty_cache()
+    emit(planner_host())
 
     # context parallelism: the ranks are processes sharing cuda:0 over gloo,
     # spawned after the kernels above were built (each loads the libraries)
@@ -4171,7 +4672,8 @@ def main(argv=None) -> int:
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
                "prefix": prefix_line["launches"], "training": train["launches"],
-               "hetero": hetero_line["launches"], "cp_attn": cp_attn_line["launches"],
+               "hetero": hetero_line["launches"], "block_sparse": block_sparse_line["launches"],
+               "sink": sink_line["launches"], "cp_attn": cp_attn_line["launches"],
                "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
                "cp_hier_attn": cp_hier_line["launches"],
                "cp_hier_training": cp_hier_train_line["launches"],

@@ -9,7 +9,8 @@ Layering of the serving, training, sparse-grid, shared-prefix and
 context-parallel slices:
 
 - ``common/``  : the mask-type int ABI, dense-mask semantics and areas, the
-  range algebra and rectangles
+  range algebra and rectangles, the cp spec's normaliser (``axes``) and the
+  planner's protocols
 - ``meta/``    : the dispatch containers, the dispatch meta, the dispatch
   and overlap solvers, and the plan fingerprints of bucketed plan reuse
 - ``comm/``    : GroupCast / GroupReduce and variable-size collectives over
@@ -23,15 +24,19 @@ context-parallel slices:
   ``flex_fwd``, ``flex_fwd_hb``, ``flex_dq``, ``flex_dkv`` and the sparse-grid
   ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
   ``flex_dkv_sparse`` Hopper kernels + their plain PyTorch versions), and
-  ``auto_kernel_config``, which picks the grid and the head_block
+  ``auto_kernel_config``, which picks the grid and the head_block; the
+  block-sparse, index and sparse-load entry points on the same kernels
 - ``tuning/``  : the mask area and density behind the grid choice
-- ``csrc/``    : the hand-written CUDA kernels, built with nvcc on first use
+- ``csrc/``    : the hand-written CUDA kernels, built with nvcc on first use,
+  and the host planner's native entry emitter, built with g++
+- ``extensions/``: attention with sinks, and DSA-style top-k attention
 - ``serving/`` : paged KV cache, split-KV decode (the ``paged_decode``
   kernel + its plain version), shared prefixes (copy-on-write pages and
   cascade decode), the continuous-batching engine
 - ``models/``  : the Llama decoder (cp=1 and under cp) and its train step
-- ``testing/`` : the fp64 dense oracle, the reference mask workloads, and
-  the rank spawner of multi-rank runs
+- ``testing/`` : the fp64 dense oracle and its online twin, precision
+  checks, the flag generator, the dispatch oracle, the reference mask
+  workloads, and the rank spawner of multi-rank runs
 - ``telemetry/``: the numerics oracle (error budgets, divergence reports)
 - ``utils/``   : sample packing (documents -> fixed-capacity streams)
 - ``convert``  : cache, plan and Llama parameters to and from numpy arrays
@@ -49,7 +54,8 @@ def __getattr__(name):
     import importlib
 
     if name in (
-        "api", "comm", "common", "config", "convert", "csrc", "env", "meta", "models", "ops",
+        "api", "comm", "common", "config", "convert", "csrc", "env", "extensions", "meta",
+        "models", "ops",
         "parallel", "serving", "telemetry", "testing", "tuning", "utils",
     ):
         return importlib.import_module(f".{name}", __name__)
@@ -64,6 +70,7 @@ __all__ = [
     "convert",
     "csrc",
     "env",
+    "extensions",
     "meta",
     "models",
     "ops",

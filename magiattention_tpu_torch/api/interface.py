@@ -46,7 +46,9 @@ the slices (``ops/range_merge.py``) and ``MAGI_ATTENTION_SANITY_CHECK``
 then checks them for overlapping coverage, both before the key is made;
 ``MAGI_ATTENTION_HIERARCHICAL_COMM`` requires the two-level groups;
 ``MAGI_ATTENTION_PLAN_REUSE`` picks the plan reuse above and
-``MAGI_ATTENTION_PLAN_CACHE_SIZE`` sizes its cache. :func:`check_flag_comb`
+``MAGI_ATTENTION_PLAN_CACHE_SIZE`` sizes its cache;
+``MAGI_ATTENTION_KERNEL_BACKEND`` picks the kernels or the plain forwards
+(``env.kernel_backend``) and is part of the key. :func:`check_flag_comb`
 refuses the combinations the JAX package refuses, so that no flag is taken
 and then ignored.
 """
@@ -64,7 +66,7 @@ from .. import env
 from ..common.enum import AttnMaskType
 from ..common.forward_meta import AttnForwardMeta
 from ..common.ranges import AttnRanges
-from ..comm.hier import HierCpGroups
+from ..common.axes import cp_axis_names, split_cp_group
 from ..config import DistAttnConfig
 from ..meta.dispatch_meta import (
     DispatchMeta,
@@ -154,6 +156,7 @@ def _default_chunk_size(total: int, cp_size: int) -> int:
 def flags_fingerprint() -> tuple:
     """The flags that change a plan or a kernel call, folded into the key."""
     return (
+        env.kernel_backend(),
         env.block_q(),
         env.block_k(),
         env.head_block_override(),
@@ -177,10 +180,12 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     a ``ValueError`` that says why, before any planning: the JAX package's
     ``check_flag_comb`` for the cp layout (``cp_group`` a
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
-    pair), qo-comm and cross-attention (``xattn``)."""
+    pair), qo-comm and cross-attention (``xattn``), and a kernel backend
+    that is not one of ``env.KERNEL_BACKENDS`` (a JAX name included)."""
+    env.kernel_backend()  # raises on an unknown or JAX backend name
     qo = env.is_qo_comm_enable()
     hier_flag = env.is_hierarchical_comm_enable()
-    hier_groups = isinstance(cp_group, HierCpGroups)
+    hier_groups = len(cp_axis_names(cp_group)) == 2
     if hier_flag and not hier_groups:
         raise ValueError("MAGI_ATTENTION_HIERARCHICAL_COMM=1 requires a two-level cp group: "
                          "hierarchical comm is selected by the groups, so pass "
@@ -195,13 +200,6 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
         raise ValueError("cross-attention keys support the flat group-cast runtime only: "
                          "qo-comm, hierarchical cp groups and uneven_shard are all "
                          "self-attention features")
-
-
-def _split_cp_group(cp_group):
-    """(the flat group, (n_inter, n_intra) or None) of a key's cp group."""
-    if isinstance(cp_group, HierCpGroups):
-        return cp_group.flat, cp_group.shape
-    return cp_group, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +265,7 @@ class DistAttnRuntimeMgr:
                  pad_size_k: int = 0):
         self.key = key
         self.cp_group = cp_group
-        self.group = _split_cp_group(cp_group)[0]
+        self.group = split_cp_group(cp_group)[0]
         self.dispatch_meta = dispatch_meta
         self.kv_dispatch_meta = kv_dispatch_meta  # cross-attention only
         self.pad_size_k = pad_size_k
@@ -484,7 +482,7 @@ def clear_cache(cp_group=None) -> None:
         _plan_reuse_cache.clear()
         _most_recent_key = None
         return
-    gid = id(_split_cp_group(cp_group)[0])
+    gid = id(split_cp_group(cp_group)[0])
     _runtime_dict.clear(group_id=gid)
     _plan_reuse_cache.clear(group_id=gid)
     if _most_recent_key is not None and _most_recent_key.group_id == gid:
@@ -654,7 +652,7 @@ def magi_attn_flex_key(
     dist_attn_config = DistAttnConfig(dispatch_config=dispatch_config, overlap_config=oc)
     check_flag_comb(cp_group=cp_group, uneven_shard=dispatch_config.uneven_shard)
     q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map)
-    flat, hier = _split_cp_group(cp_group)
+    flat, hier = split_cp_group(cp_group)
     cp_size = dist.get_world_size(flat)
     rank = dist.get_rank(flat)
     if chunk_size is None:

@@ -26,6 +26,22 @@ rebuilt and an unchanged one is reused. Nothing here runs at import: the
 CPU tests import every module of the package, and a machine without a card
 may have no nvcc.
 
+``entry_table.cpp`` is no kernel: it is the host planner's native library,
+the port's copy of the JAX package's ``csrc/entry_table.cpp`` (its C entry
+points carry the ``magi_torch_`` prefix, so both libraries load into one
+process): the entry emitter of ``ops/block_meta.build_block_meta_general``,
+its exact-area loop, and the dynamic solver's area-left and cut search
+(``meta/solver/dynamic_attn_solver.py``). It runs on the host, so unlike the
+kernels it builds wherever g++ is, the CPU tests' machine included:
+:func:`build_host` runs ``g++ -O3 -shared -fPIC -std=c++17`` into
+``build/``, the library name carrying a hash of the source and the flags,
+under the lock the kernels' build takes; :func:`load_host` loads it with
+ctypes, its argtypes declared. Under ``MAGI_ATTENTION_CPP_BACKEND``
+(default on) the planner calls it, and a build or load failure raises
+:class:`HostBuildError` with g++'s output; unlike the JAX package's loader,
+nothing falls back to Python quietly. With the flag off the planner runs its
+Python loops, which give the same bytes (``tests/test_torch_entry_table.py``).
+
 ``launches`` counts the launches of each kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes the counts before each
@@ -34,6 +50,7 @@ main path and reads them after it).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -43,6 +60,8 @@ import subprocess
 import threading
 import time
 from typing import NamedTuple
+
+import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
@@ -207,10 +226,19 @@ def build(names=None, *, ptxas_verbose: bool = False) -> dict[str, dict]:
     ``BUILD_DIR``: the first compiles, the others find its libraries.
     """
     names = list(KERNELS) if names is None else list(names)
+    with build_lock():
+        return _build_locked(names, ptxas_verbose)
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Hold the file lock of ``BUILD_DIR`` (made if missing) that every
+    build of this directory's sources takes, the kernels' and the host
+    library's (``host.py``)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        return _build_locked(names, ptxas_verbose)
+        yield
 
 
 def _build_locked(names, ptxas_verbose: bool) -> dict[str, dict]:
@@ -268,3 +296,144 @@ def launch(name: str, *args) -> None:
         msg = lib.magi_error_string(code).decode()
         raise KernelLaunchError(f"{name}: CUDA error {code} ({msg})")
     launches[name] += 1
+
+
+# -- the host planner's native library (entry_table.cpp, g++) -------------------
+
+HOST_SOURCE = os.path.join(_DIR, "entry_table.cpp")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I64 = ctypes.c_int64
+# the C entry points and their argtypes (all return int64)
+HOST_ENTRY_POINTS: dict[str, list] = {
+    # slices n | q_runs n | k_runs n | block_q block_k | out capacity
+    "magi_torch_emit_entries": [_I64P, _I64] * 3 + [_I64, _I64, _I64P, _I64],
+    # slices n | q_runs n | k_runs n
+    "magi_torch_slice_area_runs": [_I64P, _I64] * 3,
+    # rects n | axis_q pos
+    "magi_torch_area_left": [_I64P, _I64, _I64, _I64],
+    # rects n | axis_q frac
+    "magi_torch_cut_pos": [_I64P, _I64, _I64, ctypes.c_double],
+}
+
+_host_libs: dict[str, ctypes.CDLL] = {}
+# the first entry buffer holds at most 16 M rows (1.2 GB); a larger count is emitted again
+_EMIT_FIRST_CAP = 1 << 24
+
+
+class HostBuildError(RuntimeError):
+    """g++ is missing or refused the source, or the library does not load;
+    the message carries the compiler's (or the loader's) output."""
+
+
+def host_library_path() -> str:
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(HOST_SOURCE, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libentry_table-{digest.hexdigest()[:12]}.so")
+
+
+def build_host() -> str:
+    """Compile the library unless an up-to-date one exists; returns its
+    path. Raises :class:`HostBuildError` with g++'s output."""
+    out = host_library_path()
+    with build_lock():
+        if os.path.exists(out):
+            return out
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise HostBuildError("g++ not found on PATH: the host planner's native library "
+                                 "(csrc/entry_table.cpp) is built from source; set "
+                                 "MAGI_ATTENTION_CPP_BACKEND=0 to plan with the Python loops")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [gxx, *GXX_FLAGS, HOST_SOURCE, "-o", tmp]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise HostBuildError(f"g++ failed:\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded library (built first if needed), argtypes declared."""
+    path = host_library_path()
+    with _lock:
+        lib = _host_libs.get(path)
+        if lib is None:
+            build_host()
+            try:
+                lib = ctypes.CDLL(path)
+                for name, argtypes in HOST_ENTRY_POINTS.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = argtypes, _I64
+            except (OSError, AttributeError) as exc:
+                raise HostBuildError(f"{path} does not load: {exc}") from exc
+            _host_libs[path] = lib
+        return lib
+
+
+def host_enabled() -> bool:
+    """Whether the planner takes the native library
+    (``MAGI_ATTENTION_CPP_BACKEND``)."""
+    from .. import env
+
+    return env.is_cpp_backend_enabled()
+
+
+def _i64(arr, cols: int):
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.int64).reshape(-1, cols))
+    return a, a.ctypes.data_as(_I64P)
+
+
+def _runs_array(runs) -> np.ndarray:
+    """[n, 3] int64 (local_start, global_start, length) of a sequence of
+    ``ops.block_meta.Run`` or of such an array."""
+    if isinstance(runs, np.ndarray):
+        return runs.reshape(-1, 3).astype(np.int64)
+    return np.asarray([(r.local_start, r.global_start, r.length) for r in runs],
+                      dtype=np.int64).reshape(-1, 3)
+
+
+def emit_entries_native(slices, q_runs, k_runs, block_q: int, block_k: int) -> np.ndarray:
+    """[E, 9] int64 entries, in the order of ``ops.block_meta._emit_entries``
+    (an ``EntryEmitter``: runs as ``Run`` sequences or [n, 3] arrays)."""
+    lib = load_host()
+    s, sp = _i64(slices, 5)
+    q, qp = _i64(_runs_array(q_runs), 3)
+    k, kp = _i64(_runs_array(k_runs), 3)
+    # capacity from the block grid: per slice at most every (q-block,
+    # k-block) pair its runs touch; a count past it is retried at that size
+    nq_blocks = sum(int(-(-(r[0] + r[2]) // block_q) - r[0] // block_q) for r in q)
+    nk_blocks = sum(int(-(-(r[0] + r[2]) // block_k) - r[0] // block_k) for r in k)
+    cap = min(max(64, s.shape[0] * max(nq_blocks, 1) * max(nk_blocks, 1)), _EMIT_FIRST_CAP)
+    while True:
+        out = np.empty((cap, 9), dtype=np.int64)
+        n = lib.magi_torch_emit_entries(sp, s.shape[0], qp, q.shape[0], kp, k.shape[0],
+                                        int(block_q), int(block_k), out.ctypes.data_as(_I64P), cap)
+        if n <= cap:
+            return out[:n]
+        cap = int(n)
+
+
+def slice_area_runs_native(slices, q_runs, k_runs) -> int:
+    """Exact unmasked pairs of the slices restricted to (q_runs x k_runs)
+    (a ``SliceAreaFn``)."""
+    lib = load_host()
+    s, sp = _i64(slices, 5)
+    q, qp = _i64(_runs_array(q_runs), 3)
+    k, kp = _i64(_runs_array(k_runs), 3)
+    return int(lib.magi_torch_slice_area_runs(sp, s.shape[0], qp, q.shape[0], kp, k.shape[0]))
+
+
+def area_left_native(rects, axis_q: bool, pos: int) -> int:
+    """Area of [n, 5] rects left of the q=pos (``axis_q``) or k=pos line."""
+    r, rp = _i64(rects, 5)
+    return int(load_host().magi_torch_area_left(rp, r.shape[0], int(axis_q), int(pos)))
+
+
+def cut_pos_native(rects, frac: float, axis_q: bool) -> int:
+    """The dynamic solver's cut position for ``frac`` of the area, bit for
+    bit its Python probe loop."""
+    r, rp = _i64(rects, 5)
+    return int(load_host().magi_torch_cut_pos(rp, r.shape[0], int(axis_q), float(frac)))

@@ -273,3 +273,49 @@ def plan_cache_size() -> int:
         raise ValueError(f"MAGI_ATTENTION_PLAN_CACHE_SIZE={size} must be >= 1 (the second-level "
                          "plan cache cannot hold zero fingerprints)")
     return size
+
+
+# -- the kernel backend and the native planner ----------------------------------
+
+KERNEL_BACKENDS = ("cuda", "torch", "torch_online")
+# the JAX package's names for the same three paths
+_JAX_KERNEL_BACKENDS = {"pallas": "cuda", "jnp": "torch", "jnp_online": "torch_online"}
+
+
+def kernel_backend() -> str:
+    """What runs the flex and decode attention on CUDA tensors
+    (``MAGI_ATTENTION_KERNEL_BACKEND``, validated here; the JAX package's
+    ``pallas|jnp|jnp_online``):
+
+    - ``cuda`` (default): the hand-written kernels (``csrc/``); CPU tensors
+      take their plain versions under the same autograd Function;
+    - ``torch``: dense attention over the mask the entry table encodes, in
+      plain torch ops on the tensors' device, with a plain autograd backward
+      (``ops/flex_attn.py::_fwd_torch``; decode: ``_decode_torch``);
+    - ``torch_online``: the same over k blocks with a running (max, sum,
+      accumulator) and checkpointed steps (``_fwd_torch_online``; decode as
+      ``torch``).
+
+    A JAX name raises with the port's counterpart in the message. Part of
+    ``api/interface.py::flags_fingerprint``."""
+    v = _env_str("MAGI_ATTENTION_KERNEL_BACKEND", "cuda").strip().lower()
+    if v in _JAX_KERNEL_BACKENDS:
+        raise ValueError(f"MAGI_ATTENTION_KERNEL_BACKEND={v!r} is the JAX package's name: the "
+                         f"port calls it {_JAX_KERNEL_BACKENDS[v]!r} (one of {KERNEL_BACKENDS})")
+    if v not in KERNEL_BACKENDS:
+        raise ValueError(f"MAGI_ATTENTION_KERNEL_BACKEND={v!r} is not one of {KERNEL_BACKENDS}")
+    return v
+
+
+def is_cpp_backend_enabled() -> bool:
+    """Build the host tables with the native entry emitter
+    (``csrc/entry_table.cpp``, built with g++ on first use;
+    ``MAGI_ATTENTION_CPP_BACKEND``, default on: only 0/false/off/no turns
+    it off, as in the JAX package). Off, the Python loops run, which give
+    the same bytes. On, a build or load failure raises. Not in
+    ``flags_fingerprint``: it changes how a plan is built, not what it
+    holds."""
+    v = os.environ.get("MAGI_ATTENTION_CPP_BACKEND")
+    if v is None:
+        return True
+    return v.strip().lower() not in ("0", "false", "off", "no")

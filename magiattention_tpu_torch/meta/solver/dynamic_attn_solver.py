@@ -88,6 +88,13 @@ class DynamicAttnSolver:
         total = rects.area
         if total == 0 or len(rects) == 0:
             return rects, AttnRectangles()
+        from ... import csrc
+
+        if csrc.host_enabled():
+            # the native probe loop (csrc/entry_table.cpp), bit for bit the
+            # Python search below
+            pos = csrc.cut_pos_native(rects.to_array(), frac, axis_q)
+            return rects.cut_q(pos) if axis_q else rects.cut_k(pos)
         if axis_q:
             lo = min(r.q_range.start for r in rects)
             hi = max(r.q_range.end for r in rects)

@@ -304,18 +304,15 @@ def build_magi_llama(
     qn, kn, types = _naive(q_ranges), _naive(k_ranges), [int(t) for t in attn_type_map]
     cp = {}
     if cp_group is not None:
-        import torch.distributed as dist
-
-        from ..comm.hier import HierCpGroups
+        from ..common.axes import cp_axis_size, split_cp_group
 
         if chunk_size is None:
             raise ValueError("build_magi_llama(cp_group=...) needs a chunk_size")
-        hier = isinstance(cp_group, HierCpGroups)
-        flat = cp_group.flat if hier else cp_group
+        flat, shape = split_cp_group(cp_group)
         plan, attn_params, mq = plan_flex_attn(
             cfg, total_seqlen, qn, kn, types, chunk_size=chunk_size,
-            cp_size=dist.get_world_size(flat), block_q=block_q, block_k=block_k,
-            overlap_config=overlap_config, cp_mesh_shape=cp_group.shape if hier else None,
+            cp_size=cp_axis_size(cp_group), block_q=block_q, block_k=block_k,
+            overlap_config=overlap_config, cp_mesh_shape=shape,
         )
         meta, hb = None, attn_params.head_block
         cp = dict(plan=plan, attn_params=attn_params, dispatch_meta=mq, group=flat,

@@ -21,7 +21,10 @@ entry pointing at the sentinel slice — so every output tile is written
 
 The tables are byte-identical to the JAX package's ``ops/block_meta.py``
 (held so by ``tests/test_torch_block_meta.py``, and per cp rank by
-``tests/test_torch_dist_plan.py``); this is its pure Python/numpy path.
+``tests/test_torch_dist_plan.py``). The entry loop runs in the port's native
+emitter (``csrc/entry_table.cpp``, built with g++ on first use) unless
+``MAGI_ATTENTION_CPP_BACKEND=0``; its Python twin :func:`_emit_entries`
+gives the same bytes (``tests/test_torch_entry_table.py``).
 The distributed plan builder (``parallel/dist_attn.py``) describes a rank's
 buffers by :func:`runs_from_position_ids` and levels the per-rank tables
 to one length with :func:`pad_block_meta`.
@@ -363,6 +366,27 @@ def _sub_area(a, b, c, d, qs, qe, ks, ke, mt) -> int:
     return int(np.maximum(cnt, 0).sum())
 
 
+def _slice_area_runs(slices: np.ndarray, q_runs: Sequence[Run], k_runs: Sequence[Run]) -> int:
+    """Exact unmasked pairs of the slices restricted to (q_runs x k_runs):
+    each slice intersected with the runs (a slice may reference global
+    rows/cols these buffers do not hold). The Python twin of the native
+    ``magi_torch_slice_area_runs``."""
+    area = 0
+    for sid in range(slices.shape[0]):
+        qs, qe, ks, ke, mt = (int(x) for x in slices[sid])
+        for qr in q_runs:
+            a, b = max(qs, qr.global_start), min(qe, qr.global_end)
+            if a >= b:
+                continue
+            k_lo, k_hi = _slice_k_span(a, b, ks, ke, qs, qe, mt)
+            for kr in k_runs:
+                c, d = max(k_lo, kr.global_start), min(k_hi, kr.global_end)
+                if c >= d:
+                    continue
+                area += _sub_area(a, b, c, d, qs, qe, ks, ke, mt)
+    return area
+
+
 def build_block_meta_general(
     slices: np.ndarray,  # [S, 5] global (qs, qe, ks, ke, type)
     q_runs: Sequence[Run],
@@ -380,31 +404,22 @@ def build_block_meta_general(
     """Build entry tables for one local attention problem.
 
     Local buffers are described by runs (local<->global segment map); the
-    mask slices stay in global coordinates.
+    mask slices stay in global coordinates. The entries and the exact area
+    come from the native emitter (``csrc.emit_entries_native``) under
+    ``MAGI_ATTENTION_CPP_BACKEND`` (default on), else from
+    :func:`_emit_entries` / :func:`_slice_area_runs`: the same bytes.
     """
     slices = np.asarray(slices, dtype=np.int64).reshape(-1, SLICE_FIELDS)
-    S = slices.shape[0]
+    q_runs, k_runs = list(q_runs), list(k_runs)
+    from .. import csrc
 
-    ent = _emit_entries(slices, list(q_runs), list(k_runs), block_q, block_k)
-    entries = (
-        np.asarray(ent, dtype=np.int64) if ent else np.empty((0, 9), np.int64)
-    )
-
-    # exact area: intersect each slice with the runs (a slice may reference
-    # global rows/cols these buffers do not hold)
-    area = 0
-    for sid in range(S):
-        qs, qe, ks, ke, mt = (int(x) for x in slices[sid])
-        for qr in q_runs:
-            a, b = max(qs, qr.global_start), min(qe, qr.global_end)
-            if a >= b:
-                continue
-            k_lo, k_hi = _slice_k_span(a, b, ks, ke, qs, qe, mt)
-            for kr in k_runs:
-                c, d = max(k_lo, kr.global_start), min(k_hi, kr.global_end)
-                if c >= d:
-                    continue
-                area += _sub_area(a, b, c, d, qs, qe, ks, ke, mt)
+    if csrc.host_enabled():  # the native emitter (csrc/entry_table.cpp): the same bytes
+        entries = csrc.emit_entries_native(slices, q_runs, k_runs, block_q, block_k)
+        area = csrc.slice_area_runs_native(slices, q_runs, k_runs)
+    else:
+        ent = _emit_entries(slices, q_runs, k_runs, block_q, block_k)
+        entries = np.asarray(ent, dtype=np.int64) if ent else np.empty((0, 9), np.int64)
+        area = _slice_area_runs(slices, q_runs, k_runs)
 
     return assemble_block_meta(
         entries, slices, total_q, total_k, block_q, block_k, int(area),

@@ -27,7 +27,9 @@ counterpart of the JAX ``_flex_attn_core`` custom vjp, and
 :func:`auto_kernel_config` picks the grid as the JAX package does.
 
 Where it runs follows its tensors: CUDA tensors launch the kernels (or
-raise), CPU tensors take the plain versions — :func:`_fwd_torch`, dense
+raise) unless ``MAGI_ATTENTION_KERNEL_BACKEND`` asks for the plain
+forwards (``torch``, ``torch_online``: :func:`flex_attn_headmajor`), CPU
+tensors take the plain versions — :func:`_fwd_torch`, dense
 attention over the mask the table encodes (the JAX ``_fwd_jnp`` with its
 epilogue contract: an uncovered row gives out=0 and lse=-inf, lse=sink when
 a sink is set, and rowmax excludes the sink), :func:`_fwd_torch_sparse`,
@@ -196,7 +198,10 @@ def _fwd_torch(q, k, v, sink, tables, params: FlexAttnParams):
 
     q [hq, tqp, d]; k/v [hk, tkp, d]; sink [hq] f32. Returns (out [hq, tqp,
     d] in ``params.out_dtype``, lse [hq, tqp], rowmax [hq, tqp]) in the
-    kernel's contract; computes in float32 (float64 for float64 inputs)."""
+    kernel's contract; computes in float32 (float64 for float64 inputs).
+    Differentiable by plain autograd (the maxima enter as constants, as the
+    JAX ``_fwd_jnp``'s stop_gradient): the ``torch`` kernel backend runs it
+    that way, and ``_FlexAttnCore`` runs it as the kernels' plain version."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     group = hq // hk
@@ -209,16 +214,25 @@ def _fwd_torch(q, k, v, sink, tables, params: FlexAttnParams):
         z = params.softcap * torch.tanh(z / params.softcap)
     s = z.masked_fill(~mask[None], NEG_INF)
     del z
-    m = s.amax(dim=-1)  # [hq, tqp]; -inf where uncovered
+    m = s.amax(dim=-1).detach()  # [hq, tqp]; -inf where uncovered
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m_safe[..., None])  # masked: exp(-inf) = 0
     del s
     l = p.sum(dim=-1)
     acc = torch.einsum("hqk,hkd->hqd", p, vf)
     del p
+    return _torch_epilogue(m, m_safe, l, acc, sink, params)
+
+
+def _torch_epilogue(m, m_safe, l, acc, sink, params: FlexAttnParams):
+    """The dense and online plain forwards' epilogue (the JAX
+    ``_jnp_epilogue``): fold in the sink, give uncovered rows out=0 and
+    lse=-inf (lse=sink with a sink). ``m`` is the row max of the logits
+    (-inf where uncovered), ``l`` and ``acc`` are relative to ``m_safe``.
+    Returns (out, lse, rowmax)."""
     if params.has_sink:
-        sinkc = sink.to(acc_t)[:, None]  # [hq, 1]
-        m_tot = torch.maximum(m, sinkc)
+        sinkc = sink.to(acc.dtype)[:, None]  # [hq, 1]
+        m_tot = torch.maximum(m, sinkc.detach())
         m_tot_safe = torch.where(torch.isneginf(m_tot), 0.0, m_tot)
         resc = torch.where(torch.isneginf(m), 0.0, torch.exp(m_safe - m_tot_safe))
         l_tot = l * resc + torch.exp(sinkc - m_tot_safe)
@@ -232,6 +246,50 @@ def _fwd_torch(q, k, v, sink, tables, params: FlexAttnParams):
         covered, m_tot_safe + torch.log(torch.where(covered, l_tot, 1.0)), NEG_INF
     )
     return out, lse, m.float()
+
+
+def _fwd_torch_online(q, k, v, sink, tables, params: FlexAttnParams):
+    """Online-softmax plain version (the ``torch_online`` kernel backend;
+    the JAX ``_fwd_jnp_online``): a loop over the k blocks of
+    ``params.block_k`` keys with a running (max, sum, accumulator), GQA K/V
+    kept at hk heads, each step checkpointed so that the backward recomputes
+    its [hq, tqp, block_k] scores rather than keeping them. The rescale is
+    built from detached maxima only, so the weight of every score telescopes
+    to exp(s - m_final), as in the dense path. The block mask is still dense
+    ([tqp, tkp] bool). Same contract as :func:`_fwd_torch`; differentiable
+    by plain autograd."""
+    from torch.utils.checkpoint import checkpoint
+
+    hq, tqp, d = q.shape
+    hk, tkp = k.shape[0], k.shape[1]
+    group = hq // hk
+    bk = params.block_k
+    mask = _dense_mask_from_tables(tables, tqp, tkp, params.block_q, bk)
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc_t).reshape(hk, group, tqp, d)
+    kf, vf = k.to(acc_t), v.to(acc_t)
+
+    def step(m, l, acc, kb, vb, mb):
+        z = torch.einsum("hgqd,hkd->hgqk", qf, kb).reshape(hq, tqp, bk) * params.scale
+        if params.softcap > 0.0:
+            z = params.softcap * torch.tanh(z / params.softcap)
+        s = z.masked_fill(~mb[None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1).detach())
+        m_new_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        m_prev_safe = torch.where(torch.isneginf(m), 0.0, m)
+        resc = torch.where(torch.isneginf(m), 0.0, torch.exp(m_prev_safe - m_new_safe))
+        p = torch.exp(s - m_new_safe[..., None])
+        pv = torch.einsum("hgqk,hkd->hgqd", p.reshape(hk, group, tqp, bk), vb)
+        return m_new, l * resc + p.sum(dim=-1), acc * resc[..., None] + pv.reshape(hq, tqp, d)
+
+    m = torch.full((hq, tqp), NEG_INF, dtype=acc_t, device=q.device)
+    l = torch.zeros((hq, tqp), dtype=acc_t, device=q.device)
+    acc = torch.zeros((hq, tqp, d), dtype=acc_t, device=q.device)
+    for c0 in range(0, tkp, bk):
+        m, l, acc = checkpoint(step, m, l, acc, kf[:, c0:c0 + bk], vf[:, c0:c0 + bk],
+                               mask[:, c0:c0 + bk], use_reentrant=False)
+    # l and acc left the last step relative to its max, the global one
+    return _torch_epilogue(m, torch.where(torch.isneginf(m), 0.0, m), l, acc, sink, params)
 
 
 # -- the sparse grid's forward: entry walk with AMLA rescaling ----------------
@@ -773,15 +831,29 @@ def flex_attn_headmajor(q, k, v, ftab, btab, params: FlexAttnParams, sink=None,
     (block-multiple padded), the plan's forward and backward tables, and
     for ``grid="sparse"`` on the card its work lists (:func:`sparse_work`);
     returns (out [hq, tqp, d], lse [hq, tqp], rowmax [hq, tqp]).
-    Differentiable in q, k, v and sink (rowmax is not)."""
+    Differentiable in q, k, v and sink (rowmax is not).
+
+    ``MAGI_ATTENTION_KERNEL_BACKEND`` (``env.kernel_backend``) picks what
+    runs, as the JAX ``flex_attn_headmajor`` does: ``cuda`` the
+    :class:`_FlexAttnCore` (the kernels on CUDA tensors, their plain
+    versions on CPU ones), ``torch`` / ``torch_online`` the dense /
+    online plain forward (:func:`_fwd_torch` / :func:`_fwd_torch_online`)
+    on the tensors' device, under plain autograd, on the same tables."""
+    from .. import env
+
     hq = q.shape[0]
     _check_variant(params, hq, k.shape[0])
+    backend = env.kernel_backend()
     acc_t = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
     if sink is not None:
         sink1d = sink.to(device=q.device, dtype=acc_t).reshape(hq)
     else:
         sink1d = torch.zeros((hq,), dtype=acc_t, device=q.device)
-    return _FlexAttnCore.apply(q, k, v, sink1d, ftab, btab, params, work)
+    if backend == "cuda":
+        return _FlexAttnCore.apply(q, k, v, sink1d, ftab, btab, params, work)
+    on_card(q, k, v)  # the same device checks; either device runs the plain forward
+    fwd = _fwd_torch if backend == "torch" else _fwd_torch_online
+    return fwd(q, k, v, sink1d, tuple(ftab), params)
 
 
 def _pad_tokens(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -815,6 +887,8 @@ def flex_attn_with_meta(
     core, as the JAX package keeps them outside its custom vjp. Returns
     (out [tq, hq, d], lse [tq, hq]) plus max_logits [hq] when
     ``return_max_logits`` (max_logits is not differentiable)."""
+    from .. import env
+
     tq, hq, d = q.shape
     tk, hk, _ = k.shape
     if meta.total_q != tq or meta.total_k != tk:
@@ -842,7 +916,7 @@ def flex_attn_with_meta(
     vh = _pad_tokens(v.transpose(0, 1), tkp)
     dev = str(q.device)
     work = None
-    if params.grid == "sparse" and q.device.type == "cuda":
+    if params.grid == "sparse" and q.device.type == "cuda" and env.kernel_backend() == "cuda":
         work = sparse_work(meta, dev, hq, hk, params.head_block)
     out_h, lse_h, rowmax_h = flex_attn_headmajor(
         qh, kh, vh, fwd_tables(meta, dev), bwd_tables(meta, dev), params, sink=sink,

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import env
+from ..common.axes import split_cp_group
 from ..common.mask import slice_area
 from ..common.ranges import AttnRanges
 from ..comm.group_collective import (
@@ -57,7 +58,6 @@ from ..comm.group_collective import (
 )
 from ..comm.hier import (
     GroupCastHier,
-    HierCpGroups,
     HierGroupCollectiveMeta,
     HierRouting,
     hier_rank_routing,
@@ -747,15 +747,16 @@ def _cast_groups(plan: DistAttnPlan, group):
     hierarchical plan needs the ``HierCpGroups`` of its layout, a flat plan
     a flat group; any other pairing raises, so that a plan never runs over
     a layout it was not built for."""
+    flat, shape = split_cp_group(group)
     if plan.hier is None:
-        if isinstance(group, HierCpGroups):
-            raise ValueError(f"a flat plan was given the {group.shape} hierarchical groups: "
+        if shape is not None:
+            raise ValueError(f"a flat plan was given the {shape} hierarchical groups: "
                              "plan with cp_mesh_shape, or pass the flat group")
-        return group, group
-    if not isinstance(group, HierCpGroups) or group.shape != tuple(plan.hier):
+        return flat, flat
+    if shape != tuple(plan.hier):
         raise ValueError(f"a hierarchical {tuple(plan.hier)} plan needs the HierCpGroups of that "
                          f"layout (comm.make_hier_cp_groups), got {group!r}")
-    return group.flat, group
+    return flat, group
 
 
 def dist_attn_local(

@@ -9,8 +9,10 @@ LSE-corrected reduction of ``ops/correction.py`` — the JAX package's
 Where it runs follows its tensors: on CUDA the ``paged_decode`` kernel
 (``csrc/decode.cu``) computes every split's partial in one launch; on the
 CPU the plain version :func:`_decode_torch` gathers each split's pages and
-computes the same partials densely. A split with no coverage (the sequence
-ends before it starts) reports ``(out=0, lse=-inf)`` and merges as a no-op.
+computes the same partials densely (so does a CUDA tensor under
+``MAGI_ATTENTION_KERNEL_BACKEND=torch|torch_online``). A split with no
+coverage (the sequence ends before it starts) reports ``(out=0,
+lse=-inf)`` and merges as a no-op.
 :func:`_decode_shared_prefix` is the cascade's level 1: every query of a
 group attends over the same shared pages, which the kernel's shared mode
 reads once for up to 32 q rows (8 on the float32 walk; the plain version:
@@ -168,9 +170,18 @@ def _merge_splits(out_parts, lse_parts):
     )
 
 
+def _plain(q, cache: PagedKVCache, bt) -> bool:
+    """Whether decode takes its plain version: on CPU tensors, and on CUDA
+    ones under ``MAGI_ATTENTION_KERNEL_BACKEND=torch|torch_online`` (the
+    JAX package's jnp backends: both run the dense decode)."""
+    from .. import env
+
+    return not on_card(q, cache.k_pages, bt) or env.kernel_backend() != "cuda"
+
+
 def _decode(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     """Split-KV decode where the tensors are: f32 (out [b, hq, d], lse [b, hq])."""
-    if not on_card(q, cache.k_pages, bt):
+    if _plain(q, cache, bt):
         return _decode_torch(q, cache, bt, seq_lens, params)
     return _merge_splits(*_decode_partials_kernel(q, cache, bt, seq_lens, params))
 
@@ -201,7 +212,7 @@ def _decode_shared_prefix(
     )
     bt = shared_pages.to(torch.int32)[None]  # [1, W]
     sl = torch.full((1,), int(prefix_len), dtype=torch.int32, device=bt.device)
-    if not on_card(q, cache.k_pages, bt):
+    if _plain(q, cache, bt):
         return _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
     return _merge_splits(*_decode_partials_kernel(q, cache, bt, sl, params, shared=True))
 

@@ -82,3 +82,46 @@ def ref_attn_from_ranges(
         q_ranges, k_ranges, attn_type_map, q.shape[0], k.shape[0]
     )
     return ref_attn(q, k, v, mask, **kwargs)
+
+
+def ref_attn_online(
+    q: torch.Tensor,  # [tq, hq, d]
+    k: torch.Tensor,  # [tk, hk, d]
+    v: torch.Tensor,
+    mask,  # [tq, tk] bool (numpy or tensor)
+    *,
+    scale: float | None = None,
+    block: int = 128,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-wise online-softmax reference (the JAX ``ref_attn_online``):
+    the streaming-softmax recurrence over ``block`` keys at a time, a second
+    opinion on the kernels' math beside the dense :func:`ref_attn`, at
+    O(tq * block) scores. Returns (out [tq, hq, d], lse [tq, hq])."""
+    tq, hq, d = q.shape
+    tk, hk, _ = k.shape
+    group = hq // hk
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(d))
+    kf = k.to(compute_dtype).repeat_interleave(group, dim=1)
+    vf = v.to(compute_dtype).repeat_interleave(group, dim=1)
+    qf = q.to(compute_dtype)
+    mask_t = torch.as_tensor(np.asarray(mask), dtype=torch.bool).to(q.device)
+    m = torch.full((tq, hq), NEG_INF, dtype=compute_dtype, device=q.device)
+    l = torch.zeros((tq, hq), dtype=compute_dtype, device=q.device)
+    acc = torch.zeros((tq, hq, d), dtype=compute_dtype, device=q.device)
+    for s0 in range(0, tk, block):
+        s1 = min(s0 + block, tk)
+        sblk = torch.einsum("qhd,khd->qhk", qf, kf[s0:s1]) * scale
+        sblk = sblk.masked_fill(~mask_t[:, None, s0:s1], NEG_INF)
+        m_new = torch.maximum(m, sblk.amax(dim=-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        p = torch.exp(sblk - m_safe[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("qhk,khd->qhd", p, vf[s0:s1])
+        m = m_new
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    lse = torch.where(l > 0, m_safe + torch.log(l.clamp_min(1e-300)), NEG_INF)
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out, lse

@@ -26,6 +26,7 @@ from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
 from .test_torch_dist_plan import _same_plans
+from .torch_jax_backend import jax_backend
 
 RTOL, ATOL = 2e-4, 2e-5
 D, HQ, HK = 32, 4, 2
@@ -58,7 +59,8 @@ def _case(mask, degree, impl, **extra):
 def _jax_run(cp, case, inputs, monkeypatch):
     """JAX ``magi_attn_cross_key`` on the same inputs, forward and
     ``jax.grad``; its key's plan and dispatch metas."""
-    for name, val in (("MAGI_ATTENTION_KERNEL_BACKEND", "jnp"), ("MAGI_ATTENTION_BLOCK_Q", "64"),
+    jax_backend(monkeypatch)
+    for name, val in (("MAGI_ATTENTION_BLOCK_Q", "64"),
                       ("MAGI_ATTENTION_BLOCK_K", "64"),
                       ("MAGI_ATTENTION_GROUP_COLL_IMPL", case["impl"])):
         monkeypatch.setenv(name, val)

@@ -218,3 +218,28 @@ def test_sparse_hb_forward_refuses_a_head_block_off_the_group(monkeypatch):
     with pytest.raises(ValueError, match="head_block 2 must be"):
         fa._fwd_sparse_hb_kernel(*args[:3], torch.zeros(8), ftab, work,
                                  dataclasses.replace(params, head_block=2))
+
+
+_HOST_KINDS = {ctypes.POINTER(ctypes.c_int64): "int64*", ctypes.c_int64: "int64",
+               ctypes.c_double: "double"}
+
+
+@pytest.mark.parametrize("entry", sorted(csrc.HOST_ENTRY_POINTS))
+def test_host_entry_point_matches_argtypes(entry):
+    """The host planner's library (``entry_table.cpp``, g++): each of its
+    four C entry points against the argtypes ``csrc.HOST_ENTRY_POINTS``
+    declares (every one returns int64)."""
+    with open(csrc.HOST_SOURCE) as f:
+        text = f.read()
+    extern = text[text.index('extern "C"'):]
+    m = re.search(rf"\bint64_t\s+{entry}\s*\(([^)]*)\)\s*\{{", extern)
+    assert m, f"entry_table.cpp has no extern \"C\" definition of {entry}"
+
+    def kind(decl):
+        decl = decl.strip().replace("const ", "")
+        return {"int64_t*": "int64*", "int64_t": "int64", "double": "double"}.get(
+            decl.split()[0].rstrip("*") + ("*" if "*" in decl else ""), f"unknown: {decl}")
+
+    got = [kind(p) for p in m.group(1).split(",")]
+    assert got == [_HOST_KINDS[t] for t in csrc.HOST_ENTRY_POINTS[entry]]
+    assert set(re.findall(r"\bint64_t\s+(magi_\w+)\s*\(", extern)) == set(csrc.HOST_ENTRY_POINTS)

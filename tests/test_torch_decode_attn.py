@@ -37,6 +37,7 @@ from magiattention_tpu_torch.serving import (
     make_paged_kv_cache,
     resolve_num_splits,
 )
+from tests.torch_jax_backend import jax_backend
 
 HQ, HK, D, PS, MPP = 4, 2, 32, 16, 8
 LENGTHS = [0, 1, PS, 37, 100, MPP * PS]  # zero, one, a page boundary, ragged, full
@@ -80,7 +81,7 @@ def test_decode_matches_jax_pallas_interpret(splits):
 
 @pytest.mark.parametrize("softcap", [0.0, 4.0])
 def test_decode_matches_jax_jnp_backend(softcap, monkeypatch):
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     jcache, cache, q = _state(seed=1)
     slots = np.asarray([5, 2, 0, 3])
     jo, jl = jax_decode(jnp.asarray(q[:4]), jcache, jnp.asarray(slots), num_splits=2,

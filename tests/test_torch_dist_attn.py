@@ -37,6 +37,7 @@ from magiattention_tpu_torch.ops.correction import correct_attn_out_lse
 from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
+from .torch_jax_backend import jax_backend
 
 RTOL, ATOL = 2e-4, 2e-5
 TOTAL, CHUNK, D = 1024, 64, 32
@@ -87,7 +88,7 @@ def _case(cp, mask, degree, impl, total=TOTAL, **extra):
 def _jax_run(case, inputs, monkeypatch):
     """The JAX package's cp attention on the same inputs: its plan at the
     same tile, the jnp kernel backend, forward and ``jax.grad``."""
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", case["impl"])
     cp, total = case["cp"], case["total"]
     mesh = Mesh(np.array(jax.devices()[:cp]), ("cp",))

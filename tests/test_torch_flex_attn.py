@@ -20,6 +20,7 @@ from magiattention_tpu.testing import ref_attn_from_ranges as jax_ref
 from magiattention_tpu_torch.ops import flex_attn_with_meta, flex_flash_attn_func
 from magiattention_tpu_torch.ops.block_meta import Run, build_block_meta_general
 from magiattention_tpu_torch.testing import ref_attn_from_ranges
+from tests.torch_jax_backend import jax_backend
 
 F, C, I, B = 0, 1, 2, 3
 BUDGET = DEFAULT_BUDGETS["float32"]
@@ -69,7 +70,7 @@ def test_forward_matches_jax(case, backend, monkeypatch):
     sink = opts.get("sink")
     jax_kw = dict(block_q=64, block_k=64, head_block=1, grid="row_major")
     if backend == "jnp":
-        monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+        jax_backend(monkeypatch)
     else:
         jax_kw["interpret"] = True
     jo, jl, jm = jax_flex(

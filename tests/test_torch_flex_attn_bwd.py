@@ -37,6 +37,7 @@ from magiattention_tpu_torch.ops.block_meta import Run, build_block_meta_general
 from magiattention_tpu_torch.testing import ref_attn_from_ranges
 
 from tests.test_torch_flex_attn import CASES, _inputs
+from tests.torch_jax_backend import jax_backend
 
 BUDGET = DEFAULT_BUDGETS["float32"]
 ABS_ONLY = dataclasses.replace(BUDGET, max_rel=float("inf"), max_ulp=float("inf"))
@@ -67,7 +68,7 @@ def test_backward_matches_jax(case, backend, monkeypatch):
     sink = None if opts.get("sink") is None else np.asarray(opts["sink"], np.float32)
     jax_kw = dict(block_q=64, block_k=64, head_block=1, grid="row_major", softcap=softcap)
     if backend == "jnp":
-        monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+        jax_backend(monkeypatch)
     else:
         jax_kw["interpret"] = True
 

@@ -44,6 +44,7 @@ from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
 from .test_torch_dist_plan import _same, _same_plans, same_hier_meta
+from .torch_jax_backend import jax_backend
 
 ROWS = 12
 SHAPES = [(2, 2), (2, 4), (4, 2)]
@@ -205,7 +206,7 @@ def jax_hier_run(case, inputs, monkeypatch, mask=None):
     plan over cp_mesh_shape (2, 2) at the port's tile (for ``mask``: that
     mask over the dispatch of the case's), the jnp kernel backend, forward
     and ``jax.grad`` over a (dcn=2, ici=2) CPU mesh."""
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", case["impl"])
     from magiattention_tpu.common import AttnMaskType as JaxMaskType
     from magiattention_tpu.meta.dispatch_meta import make_global_bucket_from_qk_ranges

@@ -53,7 +53,9 @@ def test_every_module_is_mirrored_by_a_jax_twin():
     assert "magiattention_tpu_torch.serving.engine" in names
     assert "magiattention_tpu_torch.models.llama" in names
     for new in ("meta.plan_fingerprint", "ops.range_merge", "utils.packing",
-                "telemetry.numerics"):
+                "telemetry.numerics", "common.axes", "common.protocols", "ops.block_sparse",
+                "ops.index_attn", "extensions.dsa", "extensions.sink_attention",
+                "testing.precision", "testing.flag_generator", "testing.gt_dispatcher"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
@@ -63,6 +65,34 @@ def test_every_module_is_mirrored_by_a_jax_twin():
             continue
         assert os.path.exists(os.path.join(jax_root, rel + ".py")) or os.path.isdir(
             os.path.join(jax_root, rel)), rel
+
+
+_HOST_PROBE = """
+import sys
+import numpy as np
+from magiattention_tpu_torch import csrc
+from magiattention_tpu_torch.ops import block_sparse_attn_func, build_block_meta
+meta = build_block_meta([(0, 256)], [(0, 256)], [1], 256, 256, block_q=64, block_k=64)
+import torch
+out, _ = block_sparse_attn_func(*(torch.ones(256, 2, 32) for _ in range(3)),
+                                np.ones((2, 2), bool), causal=True)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "magiattention_tpu.")))
+print(csrc.HOST_SOURCE, sorted(csrc._host_libs), meta.total_area, bad)
+"""
+
+
+def test_host_library_builds_from_the_ports_own_source(tmp_path):
+    """The native planner library is built from the port's copy of the
+    source, into the port's build directory, in a process that never
+    imports JAX or the JAX package."""
+    res = subprocess.run([sys.executable, "-c", _HOST_PROBE], cwd=REPO, env=_no_card_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    src, libs, area, bad = res.stdout.strip().rsplit("\n", 1)[-1].split(" ", 3)
+    port_csrc = os.path.join(REPO, "magiattention_tpu_torch", "csrc")
+    assert src == os.path.join(port_csrc, "entry_table.cpp")
+    assert os.path.join(port_csrc, "build", "libentry_table-") in libs
+    assert int(area) == 256 * 257 // 2 and bad == "[]"
 
 
 def test_engine_on_cuda_raises_without_a_card():

@@ -30,6 +30,7 @@ from magiattention_tpu_torch.models import (
     init_params,
     make_model_train_step,
 )
+from tests.torch_jax_backend import jax_backend
 
 TOTAL, CHUNK, BATCH = 128, 16, 2
 CU = [0, 48, TOTAL]
@@ -51,7 +52,7 @@ def _tokens():
 def jax_run():
     """The JAX oracle: params, loss, grads and the losses of STEPS AdamW steps."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+        jax_backend(mp)
         cfg = jax_models.LlamaConfig(**FIELDS)
         mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "cp"))
         qr, kr, ts = jax_mask(CU)

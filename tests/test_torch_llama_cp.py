@@ -30,6 +30,7 @@ from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_m
 from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
+from .torch_jax_backend import jax_backend
 
 CP, TOTAL, CHUNK, BATCH, BLOCK = 2, 512, 64, 2, 64
 CU = [0, 192, TOTAL]
@@ -50,7 +51,7 @@ def _jax_oracle(mesh, cp_axis="cp", overlap_config=None):
     """The JAX model on ``mesh``: params, loss, grads, and the losses of
     STEPS AdamW steps."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+        jax_backend(mp)
         cfg = jax_models.LlamaConfig(**FIELDS)
         qr, kr, ts = jax_mask(CU)
         model, meta = jax_models.build_magi_llama(

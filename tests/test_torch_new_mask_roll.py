@@ -35,6 +35,7 @@ from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
 from .test_torch_dist_plan import _same_plans
+from .torch_jax_backend import jax_backend
 
 RTOL, ATOL = 2e-4, 2e-5
 TOTAL, CHUNK, D = 1024, 64, 32
@@ -59,7 +60,8 @@ def _inputs(seed=1):
 def _jax_new_mask_run(hier, degree, impl, inputs, monkeypatch):
     """JAX: the varlen-causal key, then the window mask's key on its
     dispatch, forward and ``jax.grad`` through the keyed path."""
-    for name, val in (("MAGI_ATTENTION_KERNEL_BACKEND", "jnp"), ("MAGI_ATTENTION_BLOCK_Q", "64"),
+    jax_backend(monkeypatch)
+    for name, val in (("MAGI_ATTENTION_BLOCK_Q", "64"),
                       ("MAGI_ATTENTION_BLOCK_K", "64"), ("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)):
         monkeypatch.setenv(name, val)
     devs = np.array(jax.devices()[:4])

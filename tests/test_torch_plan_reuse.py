@@ -46,6 +46,7 @@ from magiattention_tpu_torch.testing import ref_attn_from_ranges
 from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
+from .torch_jax_backend import jax_backend
 
 HQ, HK, D, CHUNK = 4, 2, 32, 64
 STREAM = [
@@ -126,8 +127,8 @@ def streams():
         port = pool.run(workers.plan_reuse_stream, {"chunk": CHUNK},
                         [(n, _cu(d)) for n, d in STREAM], inputs)
     with pytest.MonkeyPatch.context() as mp:
-        for name, val in (("MAGI_ATTENTION_KERNEL_BACKEND", "jnp"),
-                          ("MAGI_ATTENTION_BLOCK_Q", "64"), ("MAGI_ATTENTION_BLOCK_K", "64"),
+        jax_backend(mp)
+        for name, val in (("MAGI_ATTENTION_BLOCK_Q", "64"), ("MAGI_ATTENTION_BLOCK_K", "64"),
                           ("MAGI_ATTENTION_PLAN_REUSE", "bucket")):
             mp.setenv(name, val)
         jax_api.clear_cache()

@@ -50,6 +50,7 @@ from magiattention_tpu_torch.serving import (
     plan_cascade_groups,
     swap_block_table_page,
 )
+from tests.torch_jax_backend import jax_backend
 
 D, HK, HQ, PS = 16, 2, 4, 8
 VOCAB = 50
@@ -62,7 +63,7 @@ EMB_V = _rng0.uniform(0.5, 1.5, (VOCAB, HK, D)).astype(np.float32)
 
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_DECODE_SPLITS", "2")
     for name in ("MAGI_ATTENTION_CASCADE", "MAGI_ATTENTION_PREFILL_CHUNK"):
         monkeypatch.delenv(name, raising=False)

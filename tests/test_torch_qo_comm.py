@@ -42,6 +42,7 @@ from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
 from .test_torch_dist_plan import _same_comm, _same_tables
+from .torch_jax_backend import jax_backend
 
 RTOL, ATOL = 2e-4, 2e-5
 TOTAL, D, BLOCK = 512, 32, 64
@@ -154,7 +155,7 @@ def _jax_grads(fwd, inputs, has_sink):
 
 
 def _jax_local(slices, cp, solver, inputs, monkeypatch, impl):
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)
     plan = jax_build_qo_plan(np.asarray(slices, np.int64), TOTAL, cp, block_q=BLOCK,
                              block_k=BLOCK, solver=getattr(jax_meta, SOLVERS[solver])())
@@ -249,7 +250,7 @@ def test_keyed_qo_comm_matches_jax_keyed(cp, impl, sink, pools, monkeypatch):
     monkeypatch.setenv("MAGI_ATTENTION_QO_COMM", "1")
     monkeypatch.setenv("MAGI_ATTENTION_BLOCK_Q", str(BLOCK))
     monkeypatch.setenv("MAGI_ATTENTION_BLOCK_K", str(BLOCK))
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_GROUP_COLL_IMPL", impl)
     qr, kr, ts = _split(slices)
     key = jax_api.magi_attn_flex_key(

@@ -32,6 +32,7 @@ from magiattention_tpu_torch.telemetry.numerics import (
 from magiattention_tpu_torch.testing.dist import RankPool
 
 from . import torch_dist_workers as workers
+from .torch_jax_backend import jax_backend
 
 BUDGET = DEFAULT_BUDGETS["float32"]
 ABS_ONLY = dataclasses.replace(BUDGET, max_rel=float("inf"), max_ulp=float("inf"))
@@ -88,7 +89,7 @@ def test_flex_flash_attn_func_merges_under_the_flag(monkeypatch):
     # the split list planned nothing: it took the merged list's cached tables
     assert (after.hits - before.hits, after.misses - before.misses) == (1, 0)
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     ref_out, ref_lse = jax_flex(*(jnp.asarray(x[n]) for n in "qkv"), *SPLIT, block_q=64,
                                 block_k=64, head_block=1, grid="row_major")
     assert_within_budget(divergence_report(np.asarray(ref_out), out.numpy(),
@@ -97,7 +98,8 @@ def test_flex_flash_attn_func_merges_under_the_flag(monkeypatch):
 
 
 def _jax_keyed(inputs, monkeypatch):
-    for name, val in (("MAGI_ATTENTION_KERNEL_BACKEND", "jnp"), ("MAGI_ATTENTION_BLOCK_Q", "64"),
+    jax_backend(monkeypatch)
+    for name, val in (("MAGI_ATTENTION_BLOCK_Q", "64"),
                       ("MAGI_ATTENTION_BLOCK_K", "64"), ("MAGI_ATTENTION_AUTO_RANGE_MERGE", "1")):
         monkeypatch.setenv(name, val)
     mesh = Mesh(np.array(jax.devices()[:2]), ("cp",))

@@ -47,6 +47,7 @@ from magiattention_tpu_torch.serving import (
     reset_slot,
     write_prefill_kv,
 )
+from tests.torch_jax_backend import jax_backend
 
 HQ, HK, D, PS = 4, 2, 32, 16
 BUDGET = DEFAULT_BUDGETS["float32"]
@@ -55,7 +56,7 @@ BUDGET = DEFAULT_BUDGETS["float32"]
 @pytest.fixture(autouse=True)
 def _env(monkeypatch):
     # the JAX engine on its dense jnp backend, both engines on 2 splits
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "jnp")
+    jax_backend(monkeypatch)
     monkeypatch.setenv("MAGI_ATTENTION_DECODE_SPLITS", "2")
 
 
