@@ -204,11 +204,36 @@ Phases, each printing one JSON line:
    bucketed runtime that pads only the tail (as an exact key does) instead
    of each document's segment, which must fail out, lse and the gradients;
    and a host-only tally of 12 packed batches of 16384 tokens
-   (``utils.pack_corpus``) through the keys: tiers and median host ms.
+   (``utils.pack_corpus``) through the keys: tiers and median host ms;
+17. cp_decode — ``serving.cp_decode_attn`` at cp=2 and cp=4 (ranks sharing
+   the card over gloo): 8 histories of 4,096-32,768 tokens (32 / 8 heads,
+   d 128, bf16, page 128), each rank holding a contiguous shard of each in
+   its local cache (the last rank none of the first), one ``paged_decode``
+   a rank, the merge an all-gather and the LSE tree; rank 0's merged out
+   and lse against single-card ``decode_attn_paged`` over the whole
+   histories and against the plain version; the merge's host ms; a merge
+   that drops one rank's partial, planted, must fail;
+18. scheduler — ``serving.Scheduler`` at the serving widths (token budget
+   2048, chunks of 512): the 8 prompts of the serving phase and, once the
+   4096-token one has prefilled, 3 requests extending it by token ids
+   (forks, so cascade pairs ride in the ticks), 16 decode steps each, under
+   ``MAGI_ATTENTION_UNIFIED_TICK`` off, on and auto: the same schedule in
+   each, every request's outputs under on and auto within the kernel bound
+   of off's, at most one launch an on tick and one ``paged_decode`` a fused
+   tick; fused ticks (every 6th, each new largest, the first with cascade
+   pairs) against the plain version in blocks of rows, and on each new
+   largest one with prefill rows the planted off-by-one valid length
+   (``start + i``), which must fail; one launch of an 8000-token row beside
+   three short ones against the plain version; per mode each tick's wall
+   ms (host clock, synchronised), launches and kernel event ms, and for the
+   largest fused tick ``paged_decode``'s time alone and its bound beside
+   the per-request path's ``flex_fwd_hb`` + ``paged_decode`` event ms on
+   the same tick.
 
 The line before the last lists the nine kernels with their launches on the
-main paths (and which paths launched them: ``block_sparse`` and ``sink``
-among them), errors and times; the last line is
+main paths (and which paths launched them: ``block_sparse``, ``sink``,
+``cp_decode`` and ``scheduler`` among them; every path's launches must be
+in it), errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
 """
@@ -4555,6 +4580,528 @@ def cp_plan_reuse(pools, seed: int) -> dict:
                               "per_batch_rank0": res[0]["packed"]}}
 
 
+# -- the serving control layer: the scheduler in its three tick modes ------------------
+
+SCHED_PROMPTS = (1000, 1733, 2048, 2900, 4096, 5120, 6500, 8000)
+SCHED_STEPS = 16  # decode steps of every request
+SCHED_BASE = 4  # the 4096-token prompt: its token ids are registered, the forks extend it
+SCHED_FORK_SUFFIXES = (300, 700, 1100)  # submitted once the base has prefilled
+SCHED_BUDGET, SCHED_CHUNK = 2048, 512
+SCHED_MODES = ("off", "on", "auto")
+SCHED_CHECK_EVERY = 6  # every 6th fused tick of the `on` run against the plain version
+SCHED_ROW_BLOCK = 16  # the plain version's rows at a time (each gathers its whole prefix)
+
+
+def sched_requests(gen) -> tuple[list, list]:
+    """The trace: 8 requests of 1000-8000 tokens (the base carrying token
+    ids), and 3 higher-priority requests extending the base by token ids,
+    each with SCHED_STEPS decode steps. Made once, shared by the modes."""
+    import torch
+    from magiattention_tpu_torch.serving import Request
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def request(rid, t, tokens=None, priority=0, prefix=None):
+        q, k, v = rand(t, HQ, D), rand(t, HK, D), rand(t, HK, D)
+        if prefix is not None:  # a fork's prompt begins with the base's rows
+            q, k, v = (torch.cat([p, x]) for p, x in zip(prefix, (q, k, v)))
+        return Request(rid=rid, prompt_q=q, prompt_k=k, prompt_v=v, decode_q=rand(SCHED_STEPS, HQ, D),
+                       decode_k=rand(SCHED_STEPS, HK, D), decode_v=rand(SCHED_STEPS, HK, D),
+                       tokens=tokens, priority=priority)
+
+    ids = torch.randint(0, VOCAB, (SCHED_PROMPTS[SCHED_BASE] + sum(SCHED_FORK_SUFFIXES),),
+                        generator=gen, device="cuda").tolist()
+    base_ids, rest = ids[:SCHED_PROMPTS[SCHED_BASE]], ids[SCHED_PROMPTS[SCHED_BASE]:]
+    reqs = [request(i, t, tokens=base_ids if i == SCHED_BASE else None)
+            for i, t in enumerate(SCHED_PROMPTS)]
+    base = reqs[SCHED_BASE]
+    forks = []
+    for j, n in enumerate(SCHED_FORK_SUFFIXES):
+        toks, rest = base_ids + rest[:n], rest[n:]
+        forks.append(request(len(SCHED_PROMPTS) + j, n, tokens=toks, priority=1,
+                             prefix=(base.prompt_q, base.prompt_k, base.prompt_v)))
+    return reqs, forks
+
+
+def uncounted(fn):
+    """``fn()`` with the kernels' launch counts restored after it: a launch
+    made to compare or time a kernel is no main-path launch."""
+    from magiattention_tpu_torch import csrc
+
+    saved = dict(csrc.launches)
+    try:
+        return fn()
+    finally:
+        csrc.launches.update(saved)
+
+
+def merge_tick_pairs(tick, out, lse):
+    """Each cascade pair's prefix row merged into its main row, as
+    ``unified_tick_attn`` merges them."""
+    import torch
+    from magiattention_tpu_torch.ops import correct_attn_out_lse
+
+    k = tick.num_pairs
+    if not k:
+        return out, lse
+    pairs = torch.from_numpy(tick.merge_pairs()[:k]).to(out.device).long()
+    mains, prefs = pairs[:, 0], pairs[:, 1]
+    o_m, l_m = correct_attn_out_lse(out[prefs], lse[prefs], out[mains], lse[mains])
+    return out.index_copy(0, mains, o_m), lse.index_copy(0, mains, l_m)
+
+
+def tick_plain(cache, q_rows, tick):
+    """The plain version of a tick's real rows: ``decode_reference`` in
+    blocks of SCHED_ROW_BLOCK rows, each block over its longest prefix, the
+    cascade pairs merged. f32 (out, lse)."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_reference
+
+    n, ps = tick.num_rows, cache.page_size
+    bt = torch.from_numpy(tick.block_tables()).cuda()
+    valid = tick.valid_lens()
+    valid_t = torch.from_numpy(valid).cuda()
+    outs, lses = [], []
+    for r0 in range(0, n, SCHED_ROW_BLOCK):
+        r1 = min(n, r0 + SCHED_ROW_BLOCK)
+        w = max(1, -(-int(valid[r0:r1].max()) // ps))
+        o, l = decode_reference(q_rows[r0:r1], cache, bt[r0:r1, :w], valid_t[r0:r1])
+        outs.append(o)
+        lses.append(l)
+    return merge_tick_pairs(tick, torch.cat(outs), torch.cat(lses))
+
+
+def tick_facts(cache, tick) -> dict:
+    """A tick's geometry and the card's bound on its one launch: 4 d FLOPs
+    per (row, covered token, q head); bytes: each page the tick covers read
+    once, q read once, each row's partial written once. ``row_read_bytes``:
+    what the rows read without reuse (each its own prefix)."""
+    import numpy as np
+
+    valid = tick.valid_lens()
+    bt = tick.block_tables()
+    n, ps = tick.num_rows, cache.page_size
+    used = {int(p) for r in range(n) for p in bt[r, : -(-int(valid[r]) // ps)]}
+    rows, entries = tick.finalize()
+    page_bytes = ps * HK * D * 2 * 2  # K and V, bf16
+    tokens = int(np.asarray(valid, np.int64).sum())
+    nbytes = len(used) * page_bytes + rows * HQ * D * 2 + rows * HQ * (D + 1) * 4 + bt.nbytes
+    bound_ms, bound_by = bound(4.0 * tokens * HQ * D, nbytes)
+    return {"rows": n, "row_capacity": rows, "entry_capacity": entries,
+            "prefill_rows": sum(s.num_rows for s in tick.segments if s.kind == "prefill"),
+            "decode_rows": sum(1 for s in tick.segments if s.kind == "decode"),
+            "cascade_pairs": tick.num_pairs, "covered_tokens": tokens,
+            "pages_read": len(used), "bound_bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": bound_by, "row_read_bytes": tokens * HK * D * 2 * 2,
+            "row_read_ms_at_peak_bytes": tokens * HK * D * 2 * 2 / PEAK_BYTES * 1e3}
+
+
+class TickWatch:
+    """The instruments of a scheduler run: CUDA events around every kernel
+    launch (per tick, by kernel), and each fused tick's inputs and f32
+    result as ``ServingEngine.unified_tick`` hands them to and gets them
+    from ``unified_tick_attn``, for the checks after the tick."""
+
+    def __init__(self):
+        self.events, self.fused = [], None
+
+    def __enter__(self):
+        import torch
+        from magiattention_tpu_torch import csrc
+        from magiattention_tpu_torch.serving import engine as engine_mod
+
+        self._launch, self._tick_attn = csrc.launch, engine_mod.unified_tick_attn
+
+        def launch(name, *args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._launch(name, *args)
+            end.record()
+            self.events.append((name, start, end))
+
+        def tick_attn(q_rows, cache, tick, **kw):
+            out, lse = self._tick_attn(q_rows, cache, tick, **kw)
+            self.fused = (q_rows, tick, out, lse, kw["num_splits"])
+            return out, lse
+
+        csrc.launch, engine_mod.unified_tick_attn = launch, tick_attn
+        return self
+
+    def __exit__(self, *exc):
+        from magiattention_tpu_torch import csrc
+        from magiattention_tpu_torch.serving import engine as engine_mod
+
+        csrc.launch, engine_mod.unified_tick_attn = self._launch, self._tick_attn
+
+    def take(self) -> tuple[dict, object]:
+        """This tick's event ms by kernel (after a synchronise), and its
+        fused call if it made one."""
+        ms = {}
+        for name, start, end in self.events:
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        fused, self.events, self.fused = self.fused, [], None
+        return ms, fused
+
+
+def sched_check_tick(engine, fused, name, planted=False) -> dict:
+    """One fused tick's result (its rows after the cascade merge) against
+    the plain version; ``planted``: also the kernel on the tick's table
+    with every prefill row's valid length one short (off by one), which the
+    check must fail."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_partials_for_tables
+
+    q_rows, tick, out, lse, splits = fused
+    n = tick.num_rows
+    check(bool((out[n:] == 0).all()) and bool(torch.isneginf(lse[n:]).all()),
+          f"{name}: a padding row (valid 0) is not the exact (0, -inf)")
+    ref_o, ref_l = tick_plain(engine.cache, q_rows, tick)
+    errs, failed = out_errors(out[:n], ref_o, [("lse", lse[:n], ref_l)])
+    check(not failed, f"{name}: the fused tick fails the {failed} check(s) against the plain "
+          f"version: {errs}")
+    MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+    res = {"tick_vs_plain": errs}
+    if planted:
+        bad = tick.valid_lens().copy()
+        for s in tick.segments:
+            if s.kind == "prefill":
+                bad[s.row_lo:s.row_hi] -= 1  # valid = start + i
+        bt = torch.from_numpy(tick.block_tables()).cuda()
+        got_o, got_l = merge_tick_pairs(tick, *uncounted(lambda: decode_partials_for_tables(
+            q_rows, engine.cache, bt, torch.from_numpy(bad).cuda(), num_splits=splits)))
+        _, caught = out_errors(got_o[:n], ref_o, [("lse", got_l[:n], ref_l)])
+        check(bool(caught), f"{name}: the planted off-by-one prefill valid length passed")
+        res["planted_valid_off_by_one"] = {"caught": caught}
+    return res
+
+
+def sched_run(mode, reqs, forks) -> tuple[dict, dict]:
+    """One drain of the trace under ``MAGI_ATTENTION_UNIFIED_TICK=mode``:
+    per tick the report, the wall ms (host clock, synchronised), the kernel
+    launches and their event ms; under ``on`` every SCHED_CHECK_EVERY-th
+    fused tick, each new largest one (with the planted fault) and the first
+    with cascade pairs against the plain version, the largest also timed
+    alone. Returns the run's line and each request's outputs."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import Scheduler, ServingEngine
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving.scheduler import PREFILLING
+
+    os.environ["MAGI_ATTENTION_UNIFIED_TICK"] = mode
+    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+    sched = Scheduler(engine, token_budget=SCHED_BUDGET, chunk=SCHED_CHUNK)
+    for r in reqs:
+        sched.submit(r)
+    forked, ticks, checks, largest, n_fused = False, [], [], None, 0
+    try:
+        with TickWatch() as watch:
+            while not sched.done or not forked:
+                base = sched._active.get(SCHED_BASE)
+                if not forked and (SCHED_BASE in sched._finished
+                                   or (base is not None and base.status != PREFILLING)):
+                    for f in forks:
+                        sched.submit(f)
+                    forked = True
+                before = dict(csrc.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = sched.step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                ev_ms, fused = watch.take()
+                launched = {n: csrc.launches[n] - before[n] for n in csrc.launches
+                            if csrc.launches[n] != before[n]}
+                tick = {"step": rep.step, "decode_batch": rep.decode_batch,
+                        "prefill_chunks": [list(c) for c in rep.prefill_chunks],
+                        "tokens_used": rep.tokens_used, "admitted": list(rep.admitted),
+                        "finished": sorted(rep.finished), "wall_ms": wall,
+                        "programs": list(sched._tick_programs), "launches": launched,
+                        "kernel_event_ms": ev_ms}
+                if fused is not None:
+                    n_fused += 1
+                    facts = tick_facts(engine.cache, fused[1])
+                    tick["fused"] = facts
+                    check(launched == {"paged_decode": 1},
+                          f"scheduler {mode} tick {rep.step}: a fused tick launched {launched}, "
+                          "not paged_decode once")
+                    new_max = largest is None or facts["covered_tokens"] > largest["covered_tokens"]
+                    first_pairs = facts["cascade_pairs"] and not any(
+                        c["cascade_pairs"] for c in checks)
+                    if mode == "on" and (new_max or first_pairs
+                                         or n_fused % SCHED_CHECK_EVERY == 0):
+                        res = sched_check_tick(engine, fused, f"scheduler tick {rep.step}",
+                                               planted=new_max and facts["prefill_rows"] > 0)
+                        checks.append({"step": rep.step, **facts, **res})
+                    if mode == "on" and new_max:
+                        q_rows, t, _, _, splits = fused
+                        bt = torch.from_numpy(t.block_tables()).cuda()
+                        valid = torch.from_numpy(t.valid_lens()).cuda()
+                        ms = uncounted(lambda: cuda_ms(lambda: da.decode_partials_for_tables(
+                            q_rows, engine.cache, bt, valid, num_splits=splits), reps=5))
+                        largest = {"step": rep.step, **facts, "paged_decode_ms": ms,
+                                   "paged_decode_event_ms_in_run": ev_ms.get("paged_decode")}
+                    elif new_max:
+                        largest = {"step": rep.step, **facts}
+                if mode == "on":
+                    check(sum(launched.values()) <= 1,
+                          f"scheduler on tick {rep.step}: {launched} launches, more than one")
+                watch.events.clear()  # the checks' launches belong to no tick
+                ticks.append(tick)
+                check(len(ticks) < 400, f"scheduler {mode}: not drained in 400 ticks")
+    finally:
+        os.environ.pop("MAGI_ATTENTION_UNIFIED_TICK", None)
+    outs = {rid: (st.prefill_out_tail, st.decode_outs) for rid, st in sched._finished.items()}
+    check(len(outs) == len(reqs) + len(forks)
+          and all(st.status == "finished" and st.tokens_done == SCHED_STEPS
+                  for st in sched._finished.values()),
+          f"scheduler {mode}: not every request finished its {SCHED_STEPS} steps")
+    walls = sorted(t["wall_ms"] for t in ticks)
+    line = {"mode": mode, "ticks": len(ticks), "wall_ms_total": sum(walls),
+            "wall_ms_median": walls[len(walls) // 2], "wall_ms_max": walls[-1],
+            "fused_ticks": n_fused,
+            # each tick's wall less its kernels' event ms: the host's share
+            "wall_less_kernel_ms_total": sum(t["wall_ms"] - sum(t["kernel_event_ms"].values())
+                                             for t in ticks),
+            "launches_per_tick_max": max(sum(t["launches"].values()) for t in ticks),
+            "largest_fused_tick": largest, "checked_ticks": checks,
+            "per_tick": {"wall_ms": [t["wall_ms"] for t in ticks],
+                         "launches": [sum(t["launches"].values()) for t in ticks],
+                         "kernel_event_ms": [sum(t["kernel_event_ms"].values()) for t in ticks],
+                         "fused_rows": [t["fused"]["rows"] if "fused" in t else 0
+                                        for t in ticks]}}
+    del engine, sched
+    torch.cuda.empty_cache()
+    return line, outs, ticks
+
+
+def sched_long_short(gen) -> dict:
+    """One launch whose rows are one 8000-token history and three short
+    ones (1, 37 and 300 tokens) on a 64-page table (few walks: the kernel
+    spreads each over a cluster sized on the table width), and one with 31
+    short rows beside the long one (one block a walk); every row against
+    the plain version."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_partials_for_tables, decode_reference
+
+    res = {}
+    for lens in ([8000, 1, 37, 300], [8000] + [1 + 13 * i for i in range(31)]):
+        cache = decode_cache(gen, lens, mpp=64)
+        q = torch.randn((len(lens), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+        bt, sl = cache.block_tables[: len(lens)], cache.seq_lens[: len(lens)]
+        out, lse = uncounted(lambda: decode_partials_for_tables(q, cache, bt, sl))
+        ref_o, ref_l = decode_reference(q, cache, bt, sl)
+        errs, failed = out_errors(out, ref_o, [("lse", lse, ref_l)])
+        check(not failed, f"scheduler: the long-and-short launch of {len(lens)} rows fails "
+              f"{failed}: {errs}")
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+        res[f"rows_{len(lens)}"] = errs
+    return res
+
+
+def scheduler_phase(gen) -> dict:
+    """The serving control layer: the same trace under each tick mode; the
+    schedules identical, each request's outputs under ``on`` and ``auto``
+    within the kernel bound of ``off``'s, at most one launch an ``on`` tick
+    and one ``paged_decode`` a fused tick, sampled fused ticks and a
+    long-and-short launch against the plain version, the planted off-by-one
+    caught; per mode the tick wall ms and launches, and for the largest
+    fused tick its ``paged_decode`` ms and bound beside the per-request
+    path's ``flex_fwd_hb`` + ``paged_decode`` event ms on the same tick."""
+    from magiattention_tpu_torch import csrc
+
+    reqs, forks = sched_requests(gen)
+    csrc.reset_launch_counts()
+    runs, outs, ticks, launches = {}, {}, {}, {}
+    for mode in SCHED_MODES:
+        before = dict(csrc.launches)
+        runs[mode], outs[mode], ticks[mode] = sched_run(mode, reqs, forks)
+        launches[mode] = {n: csrc.launches[n] - before[n] for n in csrc.launches
+                          if csrc.launches[n] != before[n]}
+    total = {n: csrc.launches[n] for n in csrc.launches if csrc.launches[n]}
+    keys = ("step", "decode_batch", "prefill_chunks", "tokens_used", "admitted", "finished")
+    schedule = [[t[k] for k in keys] for t in ticks["off"]]
+    for mode in ("on", "auto"):
+        check([[t[k] for k in keys] for t in ticks[mode]] == schedule,
+              f"scheduler: the {mode} schedule differs from off's")
+    worst = {}
+    for mode in ("on", "auto"):
+        for rid, (tail, dec) in outs["off"].items():
+            tail_m, dec_m = outs[mode][rid]
+            pairs = list(zip(dec, dec_m)) + [(tail, tail_m)]
+            for ref, got in pairs:
+                errs, failed = out_errors(got, ref, [])
+                check(not failed, f"scheduler: request {rid} under {mode} differs from off's "
+                      f"beyond the kernel bound: {errs}")
+                worst[mode] = max(worst.get(mode, 0.0), errs["out_max_abs_err"])
+    check(any(c["cascade_pairs"] for c in runs["on"]["checked_ticks"]),
+          "scheduler: no checked on tick carried cascade pairs")
+    check(any("planted_valid_off_by_one" in c for c in runs["on"]["checked_ticks"]),
+          "scheduler: the planted off-by-one was never run")
+    big = runs["on"]["largest_fused_tick"]
+    off_tick = next(t for t in ticks["off"] if t["step"] == big["step"])
+    big["per_request_path_same_tick"] = {
+        "programs": off_tick["programs"], "launches": off_tick["launches"],
+        "kernel_event_ms": off_tick["kernel_event_ms"],
+        "flex_fwd_hb_plus_paged_decode_event_ms": sum(
+            off_tick["kernel_event_ms"].get(n, 0.0) for n in ("flex_fwd_hb", "paged_decode")),
+        "wall_ms": off_tick["wall_ms"]}
+    big["wall_ms"] = next(t["wall_ms"] for t in ticks["on"] if t["step"] == big["step"])
+    check(launches["off"].get("flex_fwd_hb", 0) > 0 and "flex_fwd_hb" not in launches["on"]
+          and set(total) == {"flex_fwd_hb", "paged_decode"},
+          f"scheduler launches {launches}: flex_fwd_hb on the per-request path only")
+    return {"phase": "scheduler", "heads": {"hq": HQ, "hk": HK, "head_dim": D},
+            "dtype": "bfloat16", "page": PAGE, "prompts": list(SCHED_PROMPTS),
+            "fork_suffixes": list(SCHED_FORK_SUFFIXES), "decode_steps": SCHED_STEPS,
+            "token_budget": SCHED_BUDGET, "chunk": SCHED_CHUNK, "card": nvidia_smi_line(),
+            "schedule_ticks": len(schedule), "on_auto_vs_off_out_max_abs_err": worst,
+            "long_and_short_launch": sched_long_short(gen),
+            "largest_fused_tick": big, "launches": total, "launches_by_mode": launches,
+            "modes": {m: runs[m] for m in SCHED_MODES}}
+
+
+# -- context-parallel decode -------------------------------------------------------
+
+CP_DECODE_LENS = (4096, 6000, 8192, 10000, 16384, 20000, 24576, 32768)
+CP_DECODE_RUNS = (2, 4)
+
+
+def cp_decode_shards(lens, cp):
+    """Each rank's contiguous [lo, hi) of every history; the last rank holds
+    none of the first sequence."""
+    out = []
+    for s, n in enumerate(lens):
+        cuts = [n * r // cp for r in range(cp + 1)]
+        if s == 0:
+            cuts[cp - 1] = n
+        out.append([(cuts[r], cuts[r + 1]) for r in range(cp)])
+    return out
+
+
+@in_rank
+def cp_decode_rank(group, seed: int, drop_rank: int | None = None) -> dict:
+    """One rank of ``cp_decode_attn`` on the card: the 8 histories (the
+    same on every rank, from ``seed``) cut into contiguous shards, this
+    rank's in a local bf16 cache; the local decode (``paged_decode``) and
+    the cross-rank merge over gloo; the merge alone on the host clock; on
+    rank 0 the merged out and lse against single-card ``decode_attn_paged``
+    over the whole histories and against the plain version. ``drop_rank``
+    plants a merge that drops that rank's partial (rank 0 then returns the
+    failed checks instead of raising)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import (
+        assign_block_table, cp_decode, cp_decode_attn, cp_merge_partials, decode_attn_paged,
+        decode_reference, make_paged_kv_cache, write_prefill_kv)
+
+    cp_rank_setup()
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((len(CP_DECODE_LENS), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    hist = [torch.randn((2, n, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for n in CP_DECODE_LENS]
+    shards = cp_decode_shards(CP_DECODE_LENS, cp)
+
+    def cache_of(spans):
+        need = [-(-(hi - lo) // PAGE) for lo, hi in spans]
+        mpp = max(max(need), 1)
+        cache = make_paged_kv_cache(len(spans) * mpp + 1, PAGE, HK, D, max_seqs=len(spans),
+                                    max_pages_per_seq=mpp, dtype=torch.bfloat16)
+        for s, (lo, hi) in enumerate(spans):
+            assign_block_table(cache, s, list(range(1 + s * mpp, 1 + (s + 1) * mpp)))
+            if hi > lo:
+                write_prefill_kv(cache, s, hist[s][0, lo:hi], hist[s][1, lo:hi])
+        return cache
+
+    cache = cache_of([sh[rank] for sh in shards])
+    slots = torch.arange(len(CP_DECODE_LENS), device="cuda")
+    real = cp_decode.all_gather_v
+    if drop_rank is not None:
+        def dropping(x, sizes, grp):
+            flat = real(x, sizes, grp)
+            b = sizes[drop_rank]
+            flat[drop_rank * b:(drop_rank + 1) * b] = 0.0 if x.dim() == 3 else float("-inf")
+            return flat
+
+        cp_decode.all_gather_v = dropping
+    try:
+        dist.barrier(group)
+        csrc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lse = cp_decode_attn(q, cache, slots, group=group, cp_size=cp)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: csrc.launches[n] for n in csrc.launches if csrc.launches[n]}
+    finally:
+        cp_decode.all_gather_v = real
+    res = {"rank": rank, "launches": launches, "first_call_host_ms": call_ms,
+           "shard_tokens": [hi - lo for lo, hi in (sh[rank] for sh in shards)]}
+    if drop_rank is None:
+        local = uncounted(lambda: decode_attn_paged(q, cache, slots, out_dtype=torch.float32))
+        merge_ms = []
+        for _ in range(3):
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp_merge_partials(*local, group=group, cp_size=cp)
+            torch.cuda.synchronize()
+            merge_ms.append((time.perf_counter() - t0) * 1e3)
+        res["merge_host_ms"] = merge_ms
+    if rank == 0:
+        whole = cache_of([(0, n) for n in CP_DECODE_LENS])
+        single = uncounted(lambda: decode_attn_paged(q, whole, slots))
+        plain_o, plain_l = [], []
+        for s, n in enumerate(CP_DECODE_LENS):  # one sequence at a time: each gathers its table
+            w = -(-n // PAGE)
+            o, l = decode_reference(q[s:s + 1], whole, whole.block_tables[s:s + 1, :w],
+                                    whole.seq_lens[s:s + 1])
+            plain_o.append(o)
+            plain_l.append(l)
+        failed = []
+        for what, (ro, rl) in (("single_card", single), ("plain", (torch.cat(plain_o),
+                                                                   torch.cat(plain_l)))):
+            errs, bad = out_errors(out, ro, [("lse", lse, rl)])
+            res[f"vs_{what}"] = errs
+            failed += [f"{b}:{what}" for b in bad]
+        res["failed"] = failed
+        if drop_rank is None:
+            check(not failed, f"cp_decode cp={cp}: the merged result fails {failed}: "
+                  f"{res['vs_single_card']} {res['vs_plain']}")
+    return res
+
+
+def cp_decode_phase(pools, seed: int) -> dict:
+    """``cp_decode_attn`` at cp=2 and cp=4 (ranks sharing one card over
+    gloo): one ``paged_decode`` launch per rank, the merged result against
+    single-card decode and the plain version; the planted drop of a rank's
+    partial must fail."""
+    runs, launches = [], {}
+    for cp in CP_DECODE_RUNS:
+        res = pools[cp].run(cp_decode_rank, seed)
+        for r in res:
+            check(r["launches"] == {"paged_decode": 1},
+                  f"cp_decode cp={cp} rank {r['rank']}: launches {r['launches']}")
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"],
+                                      res[0]["vs_plain"]["out_max_abs_err"])
+        runs.append({"cp": cp, "vs_single_card": res[0]["vs_single_card"],
+                     "vs_plain": res[0]["vs_plain"],
+                     "shard_tokens_per_rank": [r["shard_tokens"] for r in res],
+                     "first_call_host_ms_per_rank": [r["first_call_host_ms"] for r in res],
+                     "merge_host_ms_per_rank": [r["merge_host_ms"] for r in res]})
+    planted = pools[2].run(cp_decode_rank, seed, 1)[0]
+    check(bool(planted["failed"]), "cp_decode: the planted drop of rank 1's partial passed")
+    return {"phase": "cp_decode", "lengths": list(CP_DECODE_LENS),
+            "heads": {"hq": HQ, "hk": HK, "head_dim": D}, "dtype": "bfloat16", "page": PAGE,
+            "note": "ranks sharing one card over gloo: host ms, not cp speeds", "runs": runs,
+            "launches": launches, "planted_drop_rank_partial": {"failed": planted["failed"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4664,10 +5211,15 @@ def main(argv=None) -> int:
         emit(cp_xattn_line)
         cp_reuse_line = cp_plan_reuse(pools, args.seed)
         emit(cp_reuse_line)
+        cp_decode_line = cp_decode_phase(pools, args.seed)
+        emit(cp_decode_line)
     finally:
         for pool in pools.values():
             pool.close()
         shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+    sched_line = scheduler_phase(gen)
+    emit(sched_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -4678,7 +5230,8 @@ def main(argv=None) -> int:
                "cp_hier_attn": cp_hier_line["launches"],
                "cp_hier_training": cp_hier_train_line["launches"],
                "cp_xattn": cp_xattn_line["launches"],
-               "cp_plan_reuse": cp_reuse_line["launches"]}
+               "cp_plan_reuse": cp_reuse_line["launches"],
+               "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}
@@ -4705,6 +5258,12 @@ def main(argv=None) -> int:
             "max_abs_err": MAX_ERR[name],
             **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # every path's launches are in the line: a phase cannot launch unseen
+    launched = {(p, n) for p, counts in by_path.items() for n, c in counts.items() if c}
+    listed = {(p, k["name"]) for k in kernels for p in k["launches_by_path"]}
+    check(launched == listed, f"launches missing from the kernels line: {launched - listed}")
+    check(all(any(counts.values()) for counts in by_path.values()),
+          f"a main path launched no kernel: {[p for p, c in by_path.items() if not any(c.values())]}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -172,6 +172,7 @@ def flags_fingerprint() -> tuple:
         env.is_hierarchical_comm_enable(),
         env.is_sanity_check_enabled(),
         env.plan_reuse_mode(),
+        env.unified_tick_mode(),
     )
 
 

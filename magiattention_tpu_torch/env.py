@@ -129,6 +129,29 @@ def cascade_mode() -> str:
     return v
 
 
+
+UNIFIED_TICK_MODES = ("auto", "on", "off")
+
+
+def unified_tick_mode() -> str:
+    """Unified serving-tick mode of ``serving/scheduler.py``
+    (``MAGI_ATTENTION_UNIFIED_TICK``), validated here:
+
+    - ``off`` (default): the per-request path, one flex launch per
+      prefilling request and one decode call per tick;
+    - ``auto``: the whole tick as one ``paged_decode`` launch
+      (``ServingEngine.unified_tick``) whenever the per-request path would
+      launch two or more programs (a decode group beside a prefill chunk,
+      or two chunks);
+    - ``on``: every tick with attention work takes the one launch.
+
+    Part of ``api/interface.py::flags_fingerprint``, as the JAX package
+    folds it into its key."""
+    v = _env_str("MAGI_ATTENTION_UNIFIED_TICK", "off").strip().lower()
+    if v not in UNIFIED_TICK_MODES:
+        raise ValueError(f"MAGI_ATTENTION_UNIFIED_TICK={v!r} must be one of {UNIFIED_TICK_MODES}")
+    return v
+
 # -- context parallelism (the same names, defaults and validation as the JAX
 # package's env.py) -------------------------------------------------------------
 

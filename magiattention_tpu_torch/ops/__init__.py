@@ -5,6 +5,8 @@ sparse-load entry points over it."""
 from .block_meta import FlexAttnBlockMeta, build_block_meta
 from .block_sparse import (
     BlockEnumeration,
+    TickEnumeration,
+    TickSegment,
     block_sparse_attn_func,
     build_block_meta_from_block_mask,
     build_block_meta_from_occupancy,
@@ -31,6 +33,8 @@ __all__ = [
     "BlockEnumeration",
     "FlexAttnBlockMeta",
     "FlexAttnParams",
+    "TickEnumeration",
+    "TickSegment",
     "auto_kernel_config",
     "block_sparse_attn_func",
     "build_block_meta",

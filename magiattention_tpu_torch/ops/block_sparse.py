@@ -177,6 +177,198 @@ class BlockEnumeration:
             row_count=np.full((num_rows,), pps, np.int32))
 
 
+# -- the unified serving tick's enumeration -----------------------------------------
+
+
+def _pow2_bucket(n: int, lo: int = 1) -> int:
+    """Next power of two >= max(n, lo): the tick geometry's capacity bucket,
+    so a tick's table shape follows the token budget's bucket, never the
+    request mix."""
+    n = max(int(n), int(lo))
+    return 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class TickSegment:
+    """One request's row span inside a :class:`TickEnumeration`.
+
+    - ``kind``: ``"decode"`` (one q row) or ``"prefill"`` (one row per chunk
+      token);
+    - ``key``: the caller's demux handle (the engine uses the item index);
+    - ``row_lo .. row_hi``: the request's main rows, in q-row order;
+    - ``prefix_row``: a cascade member's shared-prefix partial row (merged
+      into the single main row through ``ops/correction``), or -1.
+    """
+
+    kind: str
+    key: object
+    row_lo: int
+    row_hi: int
+    prefix_row: int = -1
+
+    @property
+    def num_rows(self) -> int:
+        return self.row_hi - self.row_lo
+
+
+class TickEnumeration:
+    """One serving tick's attention work as a single page table for the
+    split-KV decode kernel. Every row is one query token against a page-table
+    prefix:
+
+    - a **decode** step is one row: the slot's pages, valid = the
+      post-append sequence length;
+    - token ``i`` of a **prefill chunk** starting at ``start`` is one row
+      over the history's pages with valid = ``start + i + 1``: causal
+      masking is prefix-length masking;
+    - a **cascade** member adds a row over the shared prefix pages before
+      its main row over the suffix pages (table-relative valid); the two
+      partials merge through ``correct_attn_out_lse`` after the launch.
+
+    :meth:`finalize` pads rows and entries to power-of-two buckets: padding
+    rows have valid 0 (exact ``(0, -inf)`` partials), padding entries page
+    0 (masked by the valid length, never read). The same host tables as the
+    JAX package's ``TickEnumeration``, byte for byte."""
+
+    def __init__(self, page_size: int, *, min_rows: int = 8):
+        self.page_size = int(page_size)
+        self.min_rows = int(min_rows)
+        self._pages: list[tuple[int, ...]] = []  # per-row page prefix
+        self._valid: list[int] = []  # per-row covered tokens
+        self._segments: list[TickSegment] = []
+        self._capacity: tuple[int, int] | None = None
+
+    def _add_row(self, pages, valid: int, what: str, key) -> int:
+        pages = tuple(int(p) for p in pages)
+        valid = int(valid)
+        if valid < 0 or valid > len(pages) * self.page_size:
+            raise ValueError(
+                f"tick enumeration: {what} row for {key!r} covers {valid} tokens but its "
+                f"{len(pages)} pages hold at most {len(pages) * self.page_size} — the page "
+                "prefix does not cover the row's history")
+        self._capacity = None
+        self._pages.append(pages)
+        self._valid.append(valid)
+        return len(self._pages) - 1
+
+    def add_decode(self, key, pages, valid_len: int, *, prefix_pages=(),
+                   prefix_len: int = 0) -> TickSegment:
+        """One decode row over ``pages`` covering ``valid_len`` tokens. With
+        ``prefix_pages`` the row is a cascade member: ``pages`` holds only
+        the suffix pages, ``valid_len`` is table-relative (length minus
+        ``prefix_len``), and a row over the shared ``prefix_pages`` is added
+        before it."""
+        prefix_row = -1
+        if prefix_pages:
+            prefix_row = self._add_row(prefix_pages, prefix_len, "cascade-prefix", key)
+        lo = self._add_row(pages, valid_len, "decode", key)
+        seg = TickSegment(kind="decode", key=key, row_lo=lo, row_hi=lo + 1, prefix_row=prefix_row)
+        self._segments.append(seg)
+        return seg
+
+    def add_prefill(self, key, pages, start: int, tokens: int) -> TickSegment:
+        """One prefill chunk: ``tokens`` rows over one page prefix (which
+        must cover ``start + tokens``); row ``i`` attends ``start + i + 1``
+        tokens, as token ``start + i`` of a one-shot causal prefill."""
+        start, tokens = int(start), int(tokens)
+        if tokens <= 0:
+            raise ValueError(
+                f"tick enumeration: prefill chunk for {key!r} has {tokens} tokens; zero-token "
+                "chunks never enumerate (the engine's fully-cached early return handles them)")
+        pages = tuple(int(p) for p in pages)
+        # the rows share one page tuple; the first row whose valid length the
+        # pages cannot hold (if any) raises as _add_row does, after the rows
+        # before it, as a row-by-row loop would
+        cap = len(pages) * self.page_size
+        bad = 0 if start + 1 < 0 else max(cap - start, 0)
+        ok = min(bad, tokens)
+        lo = len(self._pages)
+        self._capacity = None
+        self._pages.extend([pages] * ok)
+        self._valid.extend(range(start + 1, start + ok + 1))
+        if ok < tokens:
+            self._add_row(pages, start + ok + 1, "prefill", key)
+        seg = TickSegment(kind="prefill", key=key, row_lo=lo, row_hi=lo + tokens)
+        self._segments.append(seg)
+        return seg
+
+    @property
+    def num_rows(self) -> int:
+        return len(self._pages)
+
+    @property
+    def segments(self) -> tuple[TickSegment, ...]:
+        return tuple(self._segments)
+
+    def finalize(self) -> tuple[int, int]:
+        """Freeze the capacity buckets: ``(row_capacity, entry_capacity)``.
+        A tick with cascade pairs always keeps a padding (dead) row, where
+        :meth:`merge_pairs` pads."""
+        if self._capacity is None:
+            rows = _pow2_bucket(len(self._pages), self.min_rows)
+            entries = _pow2_bucket(max((len(p) for p in self._pages), default=1), 1)
+            n_pairs = sum(1 for s in self._segments if s.prefix_row >= 0)
+            if n_pairs and rows == len(self._pages):
+                rows *= 2
+            self._capacity = (rows, entries)
+        return self._capacity
+
+    @property
+    def row_capacity(self) -> int:
+        return self.finalize()[0]
+
+    @property
+    def entry_capacity(self) -> int:
+        return self.finalize()[1]
+
+    def block_tables(self) -> np.ndarray:
+        """Padded ``[row_capacity, entry_capacity]`` int32 page table (dead
+        entries page 0)."""
+        rows, entries = self.finalize()
+        bt = np.zeros((rows, entries), dtype=np.int32)
+        n, r = len(self._pages), 0
+        while r < n:  # a prefill chunk's rows share one page tuple: one copy a run
+            pages, e = self._pages[r], r + 1
+            while e < n and self._pages[e] is pages:
+                e += 1
+            if pages:
+                bt[r:e, : len(pages)] = pages
+            r = e
+        return bt
+
+    def valid_lens(self) -> np.ndarray:
+        """Padded ``[row_capacity]`` int32 covered-token counts (0 for
+        padding rows)."""
+        rows, _ = self.finalize()
+        sl = np.zeros((rows,), dtype=np.int32)
+        sl[: len(self._valid)] = self._valid
+        return sl
+
+    @property
+    def num_pairs(self) -> int:
+        """Cascade (main, prefix) pairs of this tick: the leading rows of
+        :meth:`merge_pairs`, the rest being padding."""
+        return sum(1 for s in self._segments if s.prefix_row >= 0)
+
+    def merge_pairs(self) -> np.ndarray:
+        """``[pair_capacity, 2]`` (main_row, prefix_row) cascade merge pairs,
+        padded to a power of two with dead-row self pairs; ``[0, 2]`` when no
+        member has a prefix row."""
+        rows, _ = self.finalize()
+        pairs = [(s.row_lo, s.prefix_row) for s in self._segments if s.prefix_row >= 0]
+        if not pairs:
+            return np.zeros((0, 2), dtype=np.int32)
+        cap = _pow2_bucket(len(pairs), 1)
+        out = np.full((cap, 2), rows - 1, dtype=np.int32)  # finalize() keeps row -1 dead
+        out[: len(pairs)] = pairs
+        return out
+
+    def enumeration(self, num_splits: int = 1) -> BlockEnumeration:
+        """The one :class:`BlockEnumeration` the kernel walks: the padded
+        table's (row, split) x page-entry walk."""
+        return BlockEnumeration.from_block_table(self.block_tables(), num_splits)
+
+
 def build_block_meta_from_occupancy(occ, q_ranges, k_ranges, attn_type_map, total_q: int,
                                     total_k: int) -> FlexAttnBlockMeta:
     """Kernel plan from a block-occupancy map: one entry per occupied

@@ -6,11 +6,18 @@
   CUDA, its plain version on the CPU)
 - :mod:`.prefix`      — the shared-prefix trie :class:`PrefixCache`,
   cascade decode (``plan_cascade_groups``, ``cascade_decode_attn``)
+- :mod:`.cp_decode`   — cross-rank LSE merge of decode partials for
+  cp-sharded KV histories (cp = 1 stays local)
 - :mod:`.engine`      — :class:`DecodeBatch`, ``magi_attn_decode``,
   ``prefill_into_cache`` / ``continue_prefill_into_cache``, the
   :class:`ServingEngine`
+- :mod:`.scheduler`   — the token-budget chunked-prefill :class:`Scheduler`
+- :mod:`.unified_tick` — a whole tick's prefill chunks and decode steps as
+  rows of one ``paged_decode`` launch (:func:`unified_tick_attn`), behind
+  ``MAGI_ATTENTION_UNIFIED_TICK``
 """
 
+from .cp_decode import cp_decode_attn, cp_merge_partials  # noqa: F401
 from .decode_attn import (  # noqa: F401
     DecodeParams,
     decode_attn_paged,
@@ -48,3 +55,5 @@ from .prefix import (  # noqa: F401
     cascade_decode_attn,
     plan_cascade_groups,
 )
+from .scheduler import Request, RequestState, Scheduler, StepReport  # noqa: F401
+from .unified_tick import demux_tick, resolve_tick_splits, unified_tick_attn  # noqa: F401

@@ -42,6 +42,10 @@ NEG_INF = float("-inf")
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_MAX_GROUP = {torch.bfloat16: 16, torch.float32: 8}
+# q rows one block serves in the shared mode (decode_sm90.cuh MAX_ROWS,
+# decode_simt.cuh MAXG); the row groups go on gridDim.z, at most 65535
+KERNEL_SHARED_ROWS = {torch.bfloat16: 32, torch.float32: 8}
+KERNEL_MAX_ROW_GROUPS = 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +147,12 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
             f"({'shared' if shared else 'flat'} mode, {b} queries); got "
             f"{tuple(bt.shape)} and {tuple(seq_lens.shape)}"
         )
+    # one row group per sequence (flat), or the members' rows in blocks (shared)
+    groups = -(-b * (hq // hk) // min(b * (hq // hk), KERNEL_SHARED_ROWS[q.dtype])) if shared else b
+    if groups > KERNEL_MAX_ROW_GROUPS:
+        raise ValueError(
+            f"paged_decode: {b} query rows make {groups} row groups, past the grid's "
+            f"{KERNEL_MAX_ROW_GROUPS} (gridDim.z); launch the rows in blocks")
     s = params.num_splits
     mpp = bt.shape[1]
     q = q.contiguous()

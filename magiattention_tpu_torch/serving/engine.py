@@ -16,8 +16,9 @@ and continued prefill, and flat or cascade split-KV decode.
   prefill (one shot, or one chunk against the written history) + the paged
   KV write.
 - :class:`ServingEngine` — host-side admission (with the prefix trie of
-  ``prefix.py``), reservation growth, copy-on-write, prefill, decode steps
-  and slot recycling.
+  ``prefix.py``), reservation growth, copy-on-write, prefill, decode steps,
+  the one-launch tick (:meth:`ServingEngine.unified_tick`, over
+  ``unified_tick.py``) and slot recycling.
 
 Cache updates are in place (see ``kv_cache.py``), so these functions return
 attention outputs only, where the JAX ones also return a new cache.
@@ -26,11 +27,13 @@ attention outputs only, where the JAX ones also return a new cache.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Sequence
 
 import torch
 
 from ..common.enum import AttnMaskType
+from ..ops.block_sparse import TickEnumeration
 from ..ops.flex_attn import flex_flash_attn_func
 from .decode_attn import decode_attn_paged, resolve_num_splits
 from .kv_cache import (
@@ -47,6 +50,23 @@ from .kv_cache import (
     write_prefill_kv,
 )
 from .prefix import PrefixCache, cascade_decode_attn, plan_cascade_groups
+from .unified_tick import demux_tick, resolve_tick_splits, unified_tick_attn
+
+
+def prefill_program_label(start: int, tokens: int) -> str:
+    """Label of one prefill-chunk call: its (history offset, rows)."""
+    return f"prefill[start={int(start)},t={int(tokens)}]"
+
+
+def decode_program_label(batch: int) -> str:
+    """Label of one batched decode-step call: its batch size."""
+    return f"decode[b={int(batch)}]"
+
+
+def tick_program_label(rows: int, entries: int, splits: int) -> str:
+    """Label of one unified tick: its padded geometry buckets (row and
+    entry capacity) and split count, never the request mix."""
+    return f"tick[r={int(rows)},e={int(entries)},s={int(splits)}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +213,8 @@ class ServingEngine:
     and decode run the Hopper kernels; ``device="cpu"`` runs their plain
     versions. ``cascade_override`` (``"auto"``/``"on"``/``"off"``, or None
     for ``MAGI_ATTENTION_CASCADE``) picks the decode path when a
-    ``decode_step`` caller does not.
+    ``decode_step`` caller does not, ``decode_splits_override`` the split
+    count.
     """
 
     def __init__(
@@ -243,6 +264,13 @@ class ServingEngine:
         self._slot_prefix: dict[int, tuple[tuple[int, ...], int]] = {}
         self.max_admission_evictions = int(max_admission_evictions)
         self.cascade_override: str | None = None
+        # pins the decode split count when a decode_step caller passes none
+        # (the scheduler's decode_splits knob)
+        self.decode_splits_override: int | None = None
+        # what the last decode_step / unified_tick resolved (label, splits,
+        # cascade grouping): the scheduler's launch census reads the labels
+        self.last_decode_info: dict = {}
+        self.last_tick_info: dict = {}
 
     # -- admission / retirement (host) --
 
@@ -404,11 +432,8 @@ class ServingEngine:
         t = q.shape[0]
         start = self._lengths.get(slot, 0)
         if t == 0 and length is None:
-            toks = self._tokens.get(slot)
-            if toks is not None and start >= len(toks):
-                self.commit_prefix(slot)
-            return q.new_zeros((0, q.shape[1], q.shape[2])), q.new_zeros(
-                (0, q.shape[1]), dtype=torch.float32)
+            self._commit_if_written(slot)
+            return self._empty_result(q)
         wrote = t if length is None else int(length)
         chunk = env.prefill_chunk()
         self._ensure_reserved(slot, start + wrote)
@@ -424,12 +449,10 @@ class ServingEngine:
                     )
                 out, lse = self._chunked_prefill(q, k, v, slot, start, chunk, **kw)
         except Exception:
-            self.free(slot)
+            self._release_after_fault(slot)
             raise
         self._lengths[slot] = start + wrote
-        toks = self._tokens.get(slot)
-        if toks is not None and self._lengths[slot] >= len(toks):
-            self.commit_prefix(slot)
+        self._commit_if_written(slot)
         return out, lse
 
     def _chunked_prefill(self, q, k, v, slot, start, chunk, **kw):
@@ -452,6 +475,19 @@ class ServingEngine:
             outs.append(o)
             lses.append(l)
         return torch.cat(outs, dim=0), torch.cat(lses, dim=0)
+
+    def _release_after_fault(self, slot: int) -> None:
+        """Tear a faulted slot down, best effort: its pages back to the pool
+        and its bookkeeping dropped. It never raises over the fault being
+        handled: a release that fails itself (the slot already freed) is
+        logged and the bookkeeping still goes."""
+        try:
+            self.free(slot)
+        except Exception:
+            logging.getLogger(__name__).warning("fault cleanup could not release slot %s", slot,
+                                                exc_info=True)
+        for book in (self._lengths, self._priorities, self._tokens, self._slot_prefix):
+            book.pop(slot, None)
 
     def commit_prefix(self, slot: int) -> int:
         """Register the slot's prefilled pages as a shareable prefix (trie
@@ -487,20 +523,11 @@ class ServingEngine:
         ``"on"`` cascades every prefix-carrying sequence (singleton groups
         too); False or ``"off"`` takes the flat split-KV path. Returns
         ``(out [b, hq, d], lse [b, hq])``."""
-        from .. import env
-
         slot_list = [int(s) for s in slots]
         for s in slot_list:
             self._ensure_reserved(s, self._lengths.get(s, 0) + 1)
             self._ensure_writable(s, self._lengths.get(s, 0))
-        if cascade is None:
-            mode = self.cascade_override if self.cascade_override is not None else env.cascade_mode()
-        elif isinstance(cascade, str):
-            mode = cascade
-        else:
-            mode = "on" if cascade else "off"
-        if mode not in env.CASCADE_MODES:
-            raise ValueError(f"cascade={mode!r} must be one of {env.CASCADE_MODES}")
+        mode = self._cascade_mode(cascade)
         groups = []
         if mode != "off" and self._slot_prefix:
             groups = plan_cascade_groups(self._slot_prefix, slot_list,
@@ -510,10 +537,191 @@ class ServingEngine:
         for s in slot_list:
             self._lengths[s] = self._lengths.get(s, 0) + 1
         if groups:
-            return cascade_decode_attn(q, self.cache, slot_list, groups,
-                                       num_splits=num_splits, **kw)
-        num_splits = resolve_num_splits(num_splits, self.cache, batch.batch_size)
-        return magi_attn_decode(q, self.cache, batch, num_splits=num_splits, **kw)
+            # each phase resolves its own splits: 0 = "per phase"
+            resolved = 0
+            out, lse = cascade_decode_attn(q, self.cache, slot_list, groups,
+                                           num_splits=num_splits, **kw)
+        else:
+            if num_splits is None:
+                num_splits = self.decode_splits_override
+            resolved = resolve_num_splits(num_splits, self.cache, batch.batch_size)
+            out, lse = magi_attn_decode(q, self.cache, batch, num_splits=resolved, **kw)
+        self.last_decode_info = {
+            "batch": batch.batch_size,
+            "program": decode_program_label(batch.batch_size),
+            "num_splits": resolved,
+            "cascade_groups": len(groups),
+            "cascade_group_of": {slot_list[pos]: gi for gi, g in enumerate(groups)
+                                 for pos in g.members},
+        }
+        return out, lse
+
+    def _cascade_mode(self, cascade) -> str:
+        """The decode path a caller's ``cascade`` asks for: None follows
+        ``cascade_override``, else ``MAGI_ATTENTION_CASCADE``; a bool is
+        on / off."""
+        from .. import env
+
+        if cascade is None:
+            mode = self.cascade_override if self.cascade_override is not None else env.cascade_mode()
+        elif isinstance(cascade, str):
+            mode = cascade
+        else:
+            mode = "on" if cascade else "off"
+        if mode not in env.CASCADE_MODES:
+            raise ValueError(f"cascade={mode!r} must be one of {env.CASCADE_MODES}")
+        return mode
+
+    def unified_tick(self, decode_items, prefill_items, *, cascade=None,
+                     num_splits: int | None = None, scale: float | None = None,
+                     softcap: float = 0.0):
+        """One serving tick in one ``paged_decode`` launch: every decode step
+        and every prefill chunk of the tick as rows of one
+        :func:`~.unified_tick.unified_tick_attn` call over the pool, then
+        demuxed per request.
+
+        - ``decode_items``: ``[(slot, q [hq, d], k [hk, d], v [hk, d])]``, one
+          new token per decoding sequence, appended then attended over the
+          whole history (as :meth:`decode_step`);
+        - ``prefill_items``: ``[(slot, q [t, hq, d], k, v)]``, one chunk per
+          prefilling sequence at the slot's committed position; a ``t = 0``
+          item runs only the completion hooks (as :meth:`prefill`'s early
+          return).
+
+        Returns ``(decode_results, prefill_results)`` aligned with the
+        inputs: ``(out [hq, d], lse [hq])`` and ``(out [t, hq, d], lse [t,
+        hq])``, out in q's dtype. Rows in order: the decode items (a cascade
+        member's prefix row before its main row), then the prefill chunks.
+        Cascade follows ``cascade`` as :meth:`decode_step` does, decode
+        members only. The host phase (reservation growth, copy-on-write
+        splits, the enumeration) runs before any device work, so a refused
+        growth changes nothing; a device-phase failure releases every
+        prefill item's slot and re-raises; decode slots are kept."""
+        ps = self.allocator.page_size
+        decode_slots = [int(it[0]) for it in decode_items]
+        prefill_slots = [int(it[0]) for it in prefill_items]
+        overlap = set(decode_slots) & set(prefill_slots)
+        if overlap:
+            raise ValueError(
+                f"unified_tick: slots {sorted(overlap)} appear as both decode and prefill items "
+                "— a sequence is in exactly one phase per tick")
+        # host phase: growth and copy-on-write before the enumeration reads
+        # the page lists (a split changes a page id)
+        for slot in decode_slots:
+            self._ensure_reserved(slot, self._lengths.get(slot, 0) + 1)
+            self._ensure_writable(slot, self._lengths.get(slot, 0))
+        prefill_meta = []  # (slot, start, t) aligned with prefill_items
+        for slot, q, _k, _v in prefill_items:
+            t = int(q.shape[0])
+            start = self._lengths.get(slot, 0)
+            prefill_meta.append((int(slot), start, t))
+            if t:
+                self._ensure_reserved(slot, start + t)
+                self._ensure_writable(slot, start)
+        mode = self._cascade_mode(cascade)
+        groups = []
+        if mode != "off" and self._slot_prefix and decode_slots:
+            groups = plan_cascade_groups(self._slot_prefix, decode_slots,
+                                         min_group=1 if mode == "on" else 2)
+        group_of_pos = {pos: g for g in groups for pos in g.members}
+        tick = TickEnumeration(ps)
+        q_parts = []  # row-ordered [n, hq, d] pieces
+        for j, (slot, q1, _k, _v) in enumerate(decode_items):
+            new_len = self._lengths.get(int(slot), 0) + 1
+            pages = self.allocator.slot_pages(int(slot))
+            need = -(-new_len // ps)
+            g = group_of_pos.get(j)
+            if g is not None:
+                ns = len(g.shared_pages)
+                tick.add_decode(("d", j), pages[ns:need], new_len - g.prefix_len,
+                                prefix_pages=g.shared_pages, prefix_len=g.prefix_len)
+                q_parts += [q1[None], q1[None]]  # the prefix row, then the main row
+            else:
+                tick.add_decode(("d", j), pages[:need], new_len)
+                q_parts.append(q1[None])
+        prefill_rows = 0
+        for j, (slot, q, _k, _v) in enumerate(prefill_items):
+            _s, start, t = prefill_meta[j]
+            if t == 0:
+                continue
+            pages = self.allocator.slot_pages(int(slot))
+            tick.add_prefill(("p", j), pages[: -(-(start + t) // ps)], start, t)
+            q_parts.append(q)
+            prefill_rows += t
+        if tick.num_rows == 0:
+            # nothing to launch: the completion hooks of fully-cached prompts
+            prefill_results = []
+            for slot, q, _k, _v in prefill_items:
+                self._commit_if_written(int(slot))
+                prefill_results.append(self._empty_result(q))
+            self.last_tick_info = {"program": None, "rows": 0, "entries": 0, "num_splits": 0,
+                                   "decode_batch": 0, "prefill_rows": 0, "cascade_groups": 0,
+                                   "cascade_group_of": {}}
+            return [], prefill_results
+        rows, entries = tick.finalize()
+        hq, head_dim = int(q_parts[0].shape[1]), int(q_parts[0].shape[2])
+        resolved = resolve_tick_splits(num_splits, self.cache, entries)
+        label = tick_program_label(rows, entries, resolved)
+        try:
+            if decode_items:
+                batch = DecodeBatch.of(decode_slots, self.device)
+                k_new = torch.stack([it[2] for it in decode_items])
+                v_new = torch.stack([it[3] for it in decode_items])
+                append_kv(self.cache, batch.slots, k_new, v_new)
+                for s in decode_slots:
+                    self._lengths[s] = self._lengths.get(s, 0) + 1
+            for j, (slot, _q, k, v) in enumerate(prefill_items):
+                if prefill_meta[j][2]:
+                    write_prefill_kv(self.cache, int(slot), k, v)
+            pad = rows - sum(int(p.shape[0]) for p in q_parts)
+            if pad:
+                q_parts.append(q_parts[0].new_zeros((pad, hq, head_dim)))
+            out, lse = unified_tick_attn(torch.cat(q_parts, dim=0), self.cache, tick,
+                                         num_splits=resolved, scale=scale, softcap=softcap)
+            parts = demux_tick(tick, out, lse)
+        except Exception:
+            for slot, _start, t in prefill_meta:
+                if t:
+                    self._release_after_fault(slot)
+            raise
+        decode_results = []
+        for j, (_slot, q1, _k, _v) in enumerate(decode_items):
+            o, l = parts[("d", j)]
+            decode_results.append((o[0].to(q1.dtype), l[0]))
+        prefill_results = []
+        for j, (slot, q, _k, _v) in enumerate(prefill_items):
+            _s, start, t = prefill_meta[j]
+            if t:
+                o, l = parts[("p", j)]
+                prefill_results.append((o.to(q.dtype), l))
+                self._lengths[int(slot)] = start + t
+            else:
+                prefill_results.append(self._empty_result(q))
+            self._commit_if_written(int(slot))
+        self.last_tick_info = {
+            "program": label,
+            "rows": rows,
+            "entries": entries,
+            "num_splits": resolved,
+            "decode_batch": len(decode_items),
+            "prefill_rows": prefill_rows,
+            "cascade_groups": len(groups),
+            "cascade_group_of": {decode_slots[pos]: gi for gi, g in enumerate(groups)
+                                 for pos in g.members},
+        }
+        return decode_results, prefill_results
+
+    def _commit_if_written(self, slot: int) -> None:
+        """Register the prompt once the admission's token ids are all written."""
+        toks = self._tokens.get(slot)
+        if toks is not None and self._lengths.get(slot, 0) >= len(toks):
+            self.commit_prefix(slot)
+
+    @staticmethod
+    def _empty_result(q):
+        """The (out, lse) of a prefill with no rows."""
+        return (q.new_zeros((0, q.shape[1], q.shape[2])),
+                q.new_zeros((0, q.shape[1]), dtype=torch.float32))
 
     def length(self, slot: int) -> int:
         """Tokens committed for ``slot`` (host state)."""

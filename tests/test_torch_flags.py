@@ -150,3 +150,24 @@ def test_each_flag_is_in_the_fingerprint(flag, monkeypatch):
     before = interface.flags_fingerprint()
     monkeypatch.setenv(flag, "1")
     assert interface.flags_fingerprint() != before
+
+
+def test_unified_tick_mode_is_validated_and_in_the_fingerprint(monkeypatch):
+    """``MAGI_ATTENTION_UNIFIED_TICK``: JAX's modes and default, a bad value
+    raises at read (and so from the key), and each mode re-keys."""
+    from magiattention_tpu import env as jax_env
+    from magiattention_tpu_torch import env
+
+    assert set(env.UNIFIED_TICK_MODES) == set(jax_env.UNIFIED_TICK_MODES)
+    monkeypatch.delenv("MAGI_ATTENTION_UNIFIED_TICK", raising=False)
+    assert env.unified_tick_mode() == jax_env.unified_tick_mode() == "off"
+    monkeypatch.setenv("MAGI_ATTENTION_UNIFIED_TICK", "bogus")
+    with pytest.raises(ValueError, match="MAGI_ATTENTION_UNIFIED_TICK"):
+        env.unified_tick_mode()
+    with pytest.raises(ValueError, match="MAGI_ATTENTION_UNIFIED_TICK"):
+        interface.flags_fingerprint()
+    prints = set()
+    for mode in ("off", "on", "auto", " ON "):
+        monkeypatch.setenv("MAGI_ATTENTION_UNIFIED_TICK", mode)
+        prints.add(interface.flags_fingerprint())
+    assert len(prints) == 3

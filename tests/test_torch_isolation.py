@@ -55,7 +55,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
     for new in ("meta.plan_fingerprint", "ops.range_merge", "utils.packing",
                 "telemetry.numerics", "common.axes", "common.protocols", "ops.block_sparse",
                 "ops.index_attn", "extensions.dsa", "extensions.sink_attention",
-                "testing.precision", "testing.flag_generator", "testing.gt_dispatcher"):
+                "testing.precision", "testing.flag_generator", "testing.gt_dispatcher",
+                "serving.scheduler", "serving.unified_tick", "serving.cp_decode"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
@@ -102,6 +103,18 @@ def test_engine_on_cuda_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(num_pages=8, num_kv_heads=2, head_dim=64)
+
+
+def test_scheduler_over_the_default_engine_raises_without_a_card():
+    """The scheduler serves on the engine's device, the card by default:
+    without one the engine it needs cannot be made, and a request on
+    another device than its engine's is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be observed here")
+    from magiattention_tpu_torch.serving import Scheduler, ServingEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(ServingEngine(num_pages=8, num_kv_heads=2, head_dim=64))
 
 
 @pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key",

@@ -761,3 +761,50 @@ def plan_reuse_stream(group, case: dict, requests: list, inputs: dict) -> dict:
     finally:
         os.environ.pop("MAGI_ATTENTION_PLAN_REUSE", None)
         api.clear_cache()
+
+
+def cp_decode(group, shards: list, q: np.ndarray, num_splits: int, page_size: int,
+              max_pages: int, drop_rank: int | None = None) -> dict:
+    """``serving.cp_decode_attn`` on the CPU: ``shards[rank][seq]`` is the
+    (k, v) numpy pair of the tokens this rank holds of sequence ``seq``
+    (maybe none), written into a local cache, one slot a sequence.
+    ``drop_rank`` plants a merge that drops that rank's partial."""
+    from magiattention_tpu_torch.serving import (
+        assign_block_table, cp_decode, cp_decode_attn, make_paged_kv_cache, write_prefill_kv)
+
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    mine = shards[rank]
+    d = q.shape[2]
+    cache = make_paged_kv_cache(len(mine) * max_pages + 1, page_size, mine[0][0].shape[1], d,
+                                max_seqs=len(mine), max_pages_per_seq=max_pages,
+                                dtype=torch.float32, device="cpu")
+    for slot, (k, v) in enumerate(mine):
+        assign_block_table(cache, slot, list(range(1 + slot * max_pages,
+                                                   1 + (slot + 1) * max_pages)))
+        if k.shape[0]:
+            write_prefill_kv(cache, slot, torch.from_numpy(k), torch.from_numpy(v))
+    real = cp_decode.all_gather_v
+    if drop_rank is not None:
+        def dropping(x, sizes, grp):
+            flat = real(x, sizes, grp)
+            b = sizes[drop_rank]
+            flat[drop_rank * b:(drop_rank + 1) * b] = 0.0 if x.dim() == 3 else float("-inf")
+            return flat
+
+        cp_decode.all_gather_v = dropping
+    try:
+        out, lse = cp_decode_attn(torch.from_numpy(q), cache, torch.arange(len(mine)),
+                                  group=group, cp_size=cp, num_splits=num_splits)
+    finally:
+        cp_decode.all_gather_v = real
+    return {"out": out.numpy(), "lse": lse.numpy()}
+
+
+def cp_merge(group, outs: np.ndarray, lses: np.ndarray) -> dict:
+    """``serving.cp_merge_partials`` of this rank's slice of ``outs`` / ``lses``."""
+    from magiattention_tpu_torch.serving import cp_merge_partials
+
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    out, lse = cp_merge_partials(torch.from_numpy(outs[rank]), torch.from_numpy(lses[rank]),
+                                 group=group, cp_size=cp)
+    return {"out": out.numpy(), "lse": lse.numpy()}
