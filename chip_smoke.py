@@ -228,11 +228,28 @@ Phases, each printing one JSON line:
    ms (host clock, synchronised), launches and kernel event ms, and for the
    largest fused tick ``paged_decode``'s time alone and its bound beside
    the per-request path's ``flex_fwd_hb`` + ``paged_decode`` event ms on
-   the same tick.
+   the same tick;
+19. tiered — disaggregated serving (``serving.TieredEngine`` /
+   ``TieredScheduler``) at the serving widths, every tier on ``cuda:0``
+   (so no disaggregation speed): TP decode on the serving phase's final
+   pool sharded on its kv heads at tp 2 and 4, out and lse bit for bit the
+   one-launch decode's, one ``paged_decode`` a slice, against the plain
+   version, with whether the bits also hold when each slice sizes its
+   clusters for its own heads, and a planted slice reading its neighbour's
+   kv heads, which must fail; the scheduler phase's first six prompts with
+   8 decode steps each through ``MAGI_ATTENTION_SERVING_MESH`` =
+   ``prefill=1,decode=2x1`` and ``2x2`` (prefill budget 2048, decode 16,
+   chunks of 512): every page stream's digest checked at its destination,
+   every request's outputs within 2e-3 of the one-card ``Scheduler``'s,
+   per tick the wall ms and kernel event ms, the streams' bytes and host
+   ms; replica pools too small for their requests' growth (a
+   ``DecodeTierFault``, the requests replayed, outputs within the same
+   bound); a planted stream that drops its last page, which must fail its
+   digest.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode`` and ``scheduler`` among them; every path's launches must be
+``cp_decode``, ``scheduler`` and ``tiered`` among them; every path's launches must be
 in it), errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -5102,6 +5119,280 @@ def cp_decode_phase(pools, seed: int) -> dict:
             "launches": launches, "planted_drop_rank_partial": {"failed": planted["failed"]}}
 
 
+# -- disaggregated serving ---------------------------------------------------------
+
+TIERED_SPECS = ("prefill=1,decode=2x1", "prefill=1,decode=2x2")
+TIERED_PROMPTS = SCHED_PROMPTS[:6]  # the scheduler trace's first six prompts, 1000-5120 tokens
+TIERED_STEPS = 8
+TIERED_BUDGETS = (SCHED_BUDGET, 16)  # (prefill, decode) tokens a tick
+TIERED_ATOL = 2e-3  # tiered decode outputs against the one-card scheduler's
+TIERED_DEVICES = ["cuda:0"] * 5  # every tier on the one card
+
+
+def tiered_tp_decode(engine, slots, gen) -> dict:
+    """TP decode on the serving path's final pool (8 sequences, 8 kv heads,
+    one split): at tp 2 and 4 over ``cuda:0`` repeated, out and lse bit for
+    bit equal to the one-launch decode and within the kernel bound of the
+    plain version, one ``paged_decode`` launch a slice; whether the bits
+    also hold with each slice's clusters sized for its own heads (no
+    ``cluster_heads``); and a planted fault, each slice's q over its
+    neighbour's kv heads, which the plain check must catch."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import (
+        ShardedPagedKVCache, decode_attn_paged, decode_reference, shard_kv_cache, tp_decode_attn,
+    )
+    from magiattention_tpu_torch.serving import distributed as dist_mod
+
+    cache = engine.cache
+    idx = torch.as_tensor(slots, device="cuda")
+    q = torch.randn((len(slots), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    ref_out, ref_lse = uncounted(lambda: decode_attn_paged(q, cache, idx))
+    plain_o, plain_l = decode_reference(q, cache, cache.block_tables[idx], cache.seq_lens[idx])
+    res = {}
+    for tp in (2, 4):
+        devs = TIERED_DEVICES[:tp]
+        sc = shard_kv_cache(cache, devs)
+        csrc.reset_launch_counts()
+        out, lse = tp_decode_attn(q, sc, idx, devices=devs)
+        launched = {n: c for n, c in csrc.launches.items() if c}
+        check(launched == {"paged_decode": tp},
+              f"tp_decode tp={tp}: launched {launched}, not paged_decode once a slice")
+        check(torch.equal(out, ref_out) and torch.equal(lse, ref_lse),
+              f"tp_decode tp={tp}: not bit for bit the one-launch decode")
+        compare("paged_decode", f"tiered_tp{tp}_decode", out, plain_o, lse, plain_l)
+        real = dist_mod.decode_attn_paged
+
+        def own_clusters(*a, **kw):  # each slice's clusters sized for its own kv heads
+            return real(*a, **{**kw, "cluster_heads": 0})
+
+        dist_mod.decode_attn_paged = own_clusters
+        try:
+            o_own, l_own = uncounted(lambda: tp_decode_attn(q, sc, idx, devices=devs))
+        finally:
+            dist_mod.decode_attn_paged = real
+        # planted: shard i holds shard i+1's kv heads
+        rolled = ShardedPagedKVCache(sc.shards[1:] + sc.shards[:1])
+        got_o, got_l = uncounted(lambda: tp_decode_attn(q, rolled, idx, devices=devs))
+        _, caught = out_errors(got_o, plain_o, [("lse", got_l, plain_l)])
+        check(bool(caught), f"tp_decode tp={tp}: the planted neighbour-heads slice passed")
+        ms = uncounted(lambda: cuda_ms(lambda: tp_decode_attn(q, sc, idx, devices=devs), reps=20))
+        res[f"tp{tp}"] = {"bitwise_equal_one_launch": True,
+                          "bitwise_equal_without_cluster_heads":
+                              bool(torch.equal(o_own, ref_out) and torch.equal(l_own, ref_lse)),
+                          "launches": launched, "planted_neighbour_heads_caught": caught,
+                          "ms": ms}
+        del sc, rolled
+    res["one_launch_ms"] = uncounted(lambda: cuda_ms(lambda: decode_attn_paged(q, cache, idx),
+                                                     reps=20))
+    res["cached_tokens"] = int(cache.seq_lens[idx].sum())
+    return res
+
+
+def tiered_requests(gen, prompts, steps) -> list:
+    """One request a prompt (token ids through a fixed table, so that a
+    replay's fork finds the same KV), ``steps`` decode steps each."""
+    import torch
+    from magiattention_tpu_torch.serving import Request
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    reqs = []
+    for rid, t in enumerate(prompts):
+        ids = torch.randint(0, VOCAB, (t,), generator=gen, device="cuda").tolist()
+        reqs.append(Request(rid=rid, prompt_q=rand(t, HQ, D), prompt_k=rand(t, HK, D),
+                            prompt_v=rand(t, HK, D), decode_q=rand(steps, HQ, D),
+                            decode_k=rand(steps, HK, D), decode_v=rand(steps, HK, D),
+                            tokens=ids))
+    return reqs
+
+
+def tiered_engine(spec, **kw):
+    """A ``TieredEngine`` over ``spec`` (through ``MAGI_ATTENTION_SERVING_MESH``)
+    on TIERED_DEVICES, with stream digests checked; ``kw`` overrides the
+    serving phase's pool geometry."""
+    import torch
+    from magiattention_tpu_torch.serving import TieredEngine
+
+    os.environ["MAGI_ATTENTION_SERVING_MESH"] = spec  # the user's way to pick the layout
+    try:
+        geom = {**dict(num_pages=1024, max_seqs=16, max_pages_per_seq=64), **kw}
+        return TieredEngine(num_kv_heads=HK, head_dim=D, page_size=PAGE, dtype=torch.bfloat16,
+                            devices=TIERED_DEVICES, verify_streams=True, **geom)
+    finally:
+        os.environ.pop("MAGI_ATTENTION_SERVING_MESH", None)
+
+
+def tiered_run(spec, reqs, **kw) -> tuple[dict, dict]:
+    """Drain ``reqs`` through a ``TieredScheduler`` over ``spec`` (every tier
+    on ``cuda:0``): per tick the report, wall ms (host clock, synchronised),
+    launches and kernel event ms; every stream's bytes, host ms and digest
+    check. Returns the run's line and each request's decode outputs."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import TieredScheduler
+
+    eng = tiered_engine(spec, **kw)
+    sched = TieredScheduler(eng, prefill_budget=TIERED_BUDGETS[0],
+                            decode_budget=TIERED_BUDGETS[1], chunk=SCHED_CHUNK)
+    for r in reqs:
+        sched.submit(r)
+    ticks, streams = [], []
+    with TickWatch() as watch:
+        while not sched.done:
+            before = dict(csrc.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = sched.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            ev_ms, _ = watch.take()
+            launched = {n: csrc.launches[n] - before[n] for n in csrc.launches
+                        if csrc.launches[n] != before[n]}
+            groups = sum(1 for p in sched._tick_programs if p.startswith("decode["))
+            check(launched.get("paged_decode", 0) == groups * eng.mesh_spec["decode_tp"],
+                  f"tiered {spec} tick {rep.step}: {launched} for {groups} decode groups, not "
+                  "one paged_decode a slice")
+            streams += [{"sid": s.sid, "replica": s.replica, "pages": s.pages,
+                         "tokens": s.tokens, "bytes": s.nbytes,
+                         "host_ms": s.duration_s * 1e3, "digest_ok": s.digest_ok}
+                        for s in sched.last_stream_reports]
+            ticks.append({"step": rep.step, "decode_batch": rep.decode_batch,
+                          "prefill_chunks": [list(c) for c in rep.prefill_chunks],
+                          "wall_ms": wall, "launches": launched, "kernel_event_ms": ev_ms,
+                          "streams": len(sched.last_stream_reports)})
+            check(len(ticks) < 400, f"tiered {spec}: not drained in 400 ticks")
+    check(all(s["digest_ok"] for s in streams) and len(streams) >= len(reqs),
+          f"tiered {spec}: a stream's digest failed or a request never streamed: {streams}")
+    outs = {rid: st.decode_outs for rid, st in sched._finished.items()}
+    check(all(st.status == "finished" and st.tokens_done == st.request.num_new_tokens
+              for st in sched._finished.values()) and len(outs) == len(reqs),
+          f"tiered {spec}: not every request finished")
+    walls = [t["wall_ms"] for t in ticks]
+    line = {"spec": spec, "ticks": len(ticks), "wall_ms_total": sum(walls),
+            "wall_ms_max": max(walls),
+            "wall_less_kernel_ms_total": sum(t["wall_ms"] - sum(t["kernel_event_ms"].values())
+                                             for t in ticks),
+            "replicas_used": sorted({s["replica"] for s in streams}),
+            "restarts": [r.restarts for r in eng.replicas],
+            "streams": {"count": len(streams), "bytes": sum(s["bytes"] for s in streams),
+                        "host_ms_total": sum(s["host_ms"] for s in streams),
+                        "host_ms_max": max(s["host_ms"] for s in streams)},
+            "requeues": {rid: st.requeues for rid, st in sched._finished.items() if st.requeues},
+            "per_tick": {"wall_ms": walls, "decode_batch": [t["decode_batch"] for t in ticks],
+                         "launches": [sum(t["launches"].values()) for t in ticks]}}
+    del sched, eng
+    torch.cuda.empty_cache()
+    return line, outs
+
+
+def single_card_run(reqs) -> tuple[dict, dict]:
+    """The same requests through the one-card ``Scheduler`` at the two tiers'
+    summed budget: the reference outputs, and its wall ms."""
+    import torch
+    from magiattention_tpu_torch.serving import Scheduler, ServingEngine
+
+    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+    sched = Scheduler(engine, token_budget=sum(TIERED_BUDGETS), chunk=SCHED_CHUNK)
+    for r in reqs:
+        sched.submit(r)
+    walls = []
+    while not sched.done:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    outs = {rid: st.decode_outs for rid, st in sched._finished.items()}
+    del sched, engine
+    torch.cuda.empty_cache()
+    return {"ticks": len(walls), "wall_ms_total": sum(walls), "wall_ms_max": max(walls)}, outs
+
+
+def outs_err(got: dict, ref: dict) -> float:
+    """The largest |difference| of any request's decode outputs."""
+    import torch
+
+    check(set(got) == set(ref), f"requests differ: {sorted(got)} vs {sorted(ref)}")
+    return max(float((torch.stack(got[r]).float() - torch.stack(ref[r]).float()).abs().max())
+               for r in ref)
+
+
+def tiered_planted_stream(gen) -> dict:
+    """A stream whose hop drops its last page: the destination digest must
+    fail."""
+    eng = tiered_engine("prefill=1,decode=1x2")
+    (req,) = tiered_requests(gen, (1000,), 1)
+    real = eng._stream_pages
+
+    def drop_last(src_pages, rep, dst_pages):
+        pk, pv = real(src_pages[:-1], rep, dst_pages[:-1])
+        return eng._prefill.cache.k_pages[src_pages], eng._prefill.cache.v_pages[src_pages]
+
+    eng._stream_pages = drop_last
+    res = eng.admit(req.prompt_len, tokens=req.tokens)
+    uncounted(lambda: eng.prefill(req.prompt_q, req.prompt_k, req.prompt_v, res.slot))
+    (report,) = eng.take_stream_reports()
+    check(report.digest_ok is False, "tiered: the planted stream that drops its last page passed")
+    return {"pages": report.pages, "caught": True}
+
+
+def tiered_phase(gen, tp_line) -> dict:
+    """Disaggregated serving at the serving widths, every tier on the one
+    card: TP decode (``tp_line``, from :func:`tiered_tp_decode`); the first
+    six scheduler prompts with 8 decode steps each through a
+    ``TieredScheduler`` over ``prefill=1,decode=2x1`` and ``2x2`` (in turns,
+    each twice), every
+    stream's digest checked and every request's outputs within TIERED_ATOL
+    of the one-card ``Scheduler``'s; a replica pool too small for its
+    requests' growth (a ``DecodeTierFault``, the requests replayed, outputs
+    within the same bound of a run with room); the planted stream. No
+    disaggregation speed: the tiers share one card."""
+    from magiattention_tpu_torch import csrc
+
+    reqs = tiered_requests(gen, TIERED_PROMPTS, TIERED_STEPS)
+    ref_line, ref_outs = uncounted(lambda: single_card_run(reqs))
+    csrc.reset_launch_counts()
+    runs, errs = {spec: [] for spec in TIERED_SPECS}, {}
+    for spec in (*TIERED_SPECS, *reversed(TIERED_SPECS)):  # in turns: a, b, b, a
+        line, outs = tiered_run(spec, reqs)
+        runs[spec].append(line)
+        err = outs_err(outs, ref_outs)
+        errs[spec] = max(errs.get(spec, 0.0), err)
+        check(err <= TIERED_ATOL, f"tiered {spec}: decode outputs {err} from the one-card "
+              f"scheduler's (bound {TIERED_ATOL})")
+        check(line["replicas_used"] == [0, 1], f"tiered {spec}: one replica idle")
+    launches = {n: c for n, c in csrc.launches.items() if c}
+    check(set(launches) == {"flex_fwd_hb", "paged_decode"},
+          f"tiered launches {launches}: not flex_fwd_hb prefill and paged_decode")
+    # three one-page prompts on pools of 3 pages: two share replica 0,
+    # where the second one's growth into a second page fails
+    fault_reqs = tiered_requests(gen, (PAGE,) * 3, 3)
+    fault_line, fault_outs = uncounted(lambda: tiered_run(
+        "prefill=1,decode=2x2", fault_reqs, num_pages=3, max_seqs=2, max_pages_per_seq=3))
+    _, room_outs = uncounted(lambda: tiered_run("prefill=1,decode=2x2", fault_reqs))
+    faulted = [rid for rid, rq in fault_line["requeues"].items()
+               if ("decode", "decode_fault") in rq]
+    check(bool(faulted) and max(fault_line["restarts"]) >= 1,
+          f"tiered fault run: no DecodeTierFault ({fault_line['requeues']})")
+    fault_err = outs_err(fault_outs, room_outs)
+    check(fault_err <= TIERED_ATOL, f"tiered fault run: replayed outputs {fault_err} off")
+    return {"phase": "tiered", "heads": {"hq": HQ, "hk": HK, "head_dim": D},
+            "dtype": "bfloat16", "page": PAGE, "devices": TIERED_DEVICES,
+            "card": nvidia_smi_line(), "prompts": list(TIERED_PROMPTS),
+            "decode_steps": TIERED_STEPS, "budgets": dict(zip(("prefill", "decode"),
+                                                             TIERED_BUDGETS)),
+            "chunk": SCHED_CHUNK, "tp_decode": tp_line, "single_card": ref_line,
+            "runs": runs, "out_max_abs_err_vs_single_card": errs,
+            "replica_fault": {"faulted_requests": faulted, "restarts": fault_line["restarts"],
+                              "requeues": fault_line["requeues"],
+                              "out_max_abs_err_vs_room": fault_err},
+            "planted_stream_drop_last_page": tiered_planted_stream(gen),
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5159,6 +5450,7 @@ def main(argv=None) -> int:
     emit(summary)
     dec_t = decode_timing(engine, slots, gen, planted)
     emit({"phase": "decode_timing", **dec_t})
+    tp_line = tiered_tp_decode(engine, slots, gen)  # the tiered phase's TP decode, on this pool
     del engine
     torch.cuda.empty_cache()
     # multi-head widths (G = 1): the choice is head_block 1, the prefill flex_fwd
@@ -5220,6 +5512,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sched_line = scheduler_phase(gen)
     emit(sched_line)
+    tiered_line = tiered_phase(gen, tp_line)
+    emit(tiered_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -5231,7 +5525,8 @@ def main(argv=None) -> int:
                "cp_hier_training": cp_hier_train_line["launches"],
                "cp_xattn": cp_xattn_line["launches"],
                "cp_plan_reuse": cp_reuse_line["launches"],
-               "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"]}
+               "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
+               "tiered": tiered_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

@@ -173,6 +173,11 @@ def flags_fingerprint() -> tuple:
         env.is_sanity_check_enabled(),
         env.plan_reuse_mode(),
         env.unified_tick_mode(),
+        # refused until honoured (check_flag_comb), keyed as in the JAX
+        # package all the same; MAGI_ATTENTION_VALIDATE builds nothing else
+        env.guard_mode(),
+        env.chaos_spec(),
+        env.numerics_mode(),
     )
 
 
@@ -181,9 +186,12 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     a ``ValueError`` that says why, before any planning: the JAX package's
     ``check_flag_comb`` for the cp layout (``cp_group`` a
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
-    pair), qo-comm and cross-attention (``xattn``), and a kernel backend
-    that is not one of ``env.KERNEL_BACKENDS`` (a JAX name included)."""
+    pair), qo-comm and cross-attention (``xattn``), a kernel backend that
+    is not one of ``env.KERNEL_BACKENDS`` (a JAX name included), and the
+    guard, chaos, validate and numerics flags the port does not honour yet
+    (``env.refuse_unhonoured_flags``)."""
     env.kernel_backend()  # raises on an unknown or JAX backend name
+    env.refuse_unhonoured_flags("check_flag_comb")
     qo = env.is_qo_comm_enable()
     hier_flag = env.is_hierarchical_comm_enable()
     hier_groups = len(cp_axis_names(cp_group)) == 2

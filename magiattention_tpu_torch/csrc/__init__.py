@@ -159,8 +159,8 @@ KERNELS: dict[str, Kernel] = {
         "magi_paged_decode",
         # q k_pages v_pages block_table seq_lens | out_parts lse_parts
         [_P] * 5 + [_P] * 2
-        # b hq hk head_dim page_size mpp num_splits shared is_f32
-        + [_I] * 9
+        # b hq hk head_dim page_size mpp num_splits shared is_f32 cluster_heads
+        + [_I] * 10
         # scale softcap stream
         + [_F, _F, _P],
         ("decode_simt.cuh", "decode_sm90.cuh"),

@@ -18,6 +18,10 @@
 // shared = 0: row b of q reads table row b and length b (flat decode).
 // shared = 1: every row reads table row 0 and length 0, the cascade's shared
 // prefix, and one block serves several members' q heads from each load.
+// cluster_heads: the kv-head count the tensor-core walk sizes its clusters
+// for, hk for a launch of its own; a tensor-parallel head slice passes the
+// whole pool's, so that its walks merge as the full launch's do and give
+// the same bits (the CUDA-core walk has no clusters and ignores it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +39,8 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                       const void* block_table, const void* seq_lens,
                       void* out_parts, void* lse_parts, int b, int hq, int hk,
                       int head_dim, int page_size, int mpp, int num_splits,
-                      int shared, int is_f32, float scale, float softcap, void* stream) {
+                      int shared, int is_f32, int cluster_heads, float scale, float softcap,
+                      void* stream) {
   if (b <= 0 || hk <= 0 || hq % hk != 0 || num_splits <= 0 || mpp % num_splits != 0 ||
       page_size <= 0)
     return cudaErrorInvalidValue;
@@ -47,7 +52,8 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                                 softcap, st)                                \
                 : decode_sm90::launch<D>(q, k_pages, v_pages, block_table, seq_lens,        \
                                          out_parts, lse_parts, b, hq, hk, page_size, mpp,   \
-                                         num_splits, shared, scale, softcap, st)
+                                         num_splits, shared, cluster_heads, scale, softcap, \
+                                         st)
   switch (head_dim) {
     case 64: MAGI_DECODE_LAUNCH(64);
     case 128: MAGI_DECODE_LAUNCH(128);

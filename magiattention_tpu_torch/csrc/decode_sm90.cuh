@@ -455,7 +455,10 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 // The blocks that share one (kv head, split, row group) walk: a cluster of
 // up to MAX_CLUSTER, the fewest that give every SM a block (the rings allow
 // one an SM at d 128), as long as each warp keeps two chunks at the split's
-// full length.
+// full length. ``walks`` counts the walks of the whole head count a launch
+// stands for: a tensor-parallel head slice sizes its clusters as the full
+// launch does, so each walk merges over the same block partition and gives
+// the same bits.
 inline int cluster_blocks(int walks, int split_tokens) {
   static int sms = 0;
   if (sms == 0) {
@@ -473,7 +476,8 @@ template <int D, int MT>
 cudaError_t launch_mt(const bf16* q, const bf16* kp, const bf16* vp, const int* bt,
                       const int* sl, float* out_parts, float* lse_parts, int hq, int hk,
                       int rows_total, int rows_per_block, int shared, int ps, int mpp,
-                      int splits, float scale, float softcap, cudaStream_t stream) {
+                      int splits, int cluster_heads, float scale, float softcap,
+                      cudaStream_t stream) {
   constexpr int ROWS = MT * 16;
   const size_t smem = fixed_smem<D, MT>();
   static_assert((NWARPS * (2 * ROWS + ROWS * D) + 2 * ROWS + ROWS * D) * sizeof(float) <=
@@ -484,7 +488,7 @@ cudaError_t launch_mt(const bf16* q, const bf16* kp, const bf16* vp, const int* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int groups = (rows_total + rows_per_block - 1) / rows_per_block;
-  const int c = cluster_blocks(hk * splits * groups, mpp / splits * ps);
+  const int c = cluster_blocks(cluster_heads * splits * groups, mpp / splits * ps);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(hk * c, splits, groups);
   cfg.blockDim = dim3(NTHREADS);
@@ -503,19 +507,22 @@ cudaError_t launch_mt(const bf16* q, const bf16* kp, const bf16* vp, const int* 
 }
 
 // b rows of q (sequences, or a shared prefix's members), bf16 pages.
+// ``cluster_heads``: the kv-head count the cluster size is chosen for (at
+// least hk; hk for a launch that stands for itself).
 template <int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt,
                    const void* sl, void* out_parts, void* lse_parts, int b, int hq, int hk,
-                   int ps, int mpp, int splits, int shared, float scale, float softcap,
-                   cudaStream_t stream) {
+                   int ps, int mpp, int splits, int shared, int cluster_heads, float scale,
+                   float softcap, cudaStream_t stream) {
   const int group = hq / hk;
-  if (group > MAX_GROUP) return cudaErrorInvalidValue;
+  if (group > MAX_GROUP || cluster_heads < hk) return cudaErrorInvalidValue;
   const int rows_total = b * group;
   const int rows_per_block = shared ? min(rows_total, MAX_ROWS) : group;
 #define MAGI_DECODE_MT(MT)                                                                   \
   launch_mt<D, MT>((const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)bt,          \
                    (const int*)sl, (float*)out_parts, (float*)lse_parts, hq, hk, rows_total,  \
-                   rows_per_block, shared, ps, mpp, splits, scale, softcap, stream)
+                   rows_per_block, shared, ps, mpp, splits, cluster_heads, scale, softcap,   \
+                   stream)
   return rows_per_block > 16 ? MAGI_DECODE_MT(2) : MAGI_DECODE_MT(1);
 #undef MAGI_DECODE_MT
 }

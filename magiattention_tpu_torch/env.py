@@ -152,6 +152,68 @@ def unified_tick_mode() -> str:
         raise ValueError(f"MAGI_ATTENTION_UNIFIED_TICK={v!r} must be one of {UNIFIED_TICK_MODES}")
     return v
 
+# -- serving topology (serving/distributed.py) ------------------------------------
+
+SERVING_TIERS = ("prefill", "decode")
+
+
+def serving_mesh() -> dict | None:
+    """Disaggregated-serving layout (``serving/distributed.py``), validated
+    here: ``MAGI_ATTENTION_SERVING_MESH`` names how many devices each tier
+    owns, e.g. ``"prefill=1,decode=4"`` (four one-device decode replicas)
+    or ``"prefill=2,decode=2x2"`` (decode = 2 data-parallel replicas x
+    tensor-parallel degree 2). Unset/'' (the default) returns None: one
+    engine, the :class:`~.serving.engine.ServingEngine` path.
+
+    Returns ``{"prefill": P, "decode_dp": D, "decode_tp": T}``. Whether the
+    device list is long enough is checked where the tiers are built. Not
+    in ``flags_fingerprint`` (serving-host topology only), as in the JAX
+    package."""
+    v = _env_str("MAGI_ATTENTION_SERVING_MESH", "").strip().lower()
+    if not v:
+        return None
+    out = {"prefill": 1, "decode_dp": 1, "decode_tp": 1}
+    seen = set()
+    for item in v.split(","):
+        tier, eq, count = item.partition("=")
+        tier = tier.strip()
+        if not eq or tier not in SERVING_TIERS:
+            raise ValueError(f"MAGI_ATTENTION_SERVING_MESH: bad clause {item!r} "
+                             f"(want tier=count with tier in {SERVING_TIERS})")
+        if tier in seen:
+            raise ValueError(f"MAGI_ATTENTION_SERVING_MESH: duplicate tier {tier!r}")
+        seen.add(tier)
+        count = count.strip()
+        try:
+            if tier == "decode" and "x" in count:
+                dp, _, tp = count.partition("x")
+                out["decode_dp"], out["decode_tp"] = int(dp), int(tp)
+            elif tier == "decode":
+                out["decode_dp"] = int(count)
+            else:
+                out[tier] = int(count)
+        except ValueError:
+            raise ValueError(f"MAGI_ATTENTION_SERVING_MESH: {item!r} count must be an integer "
+                             "(decode also takes DxT for dp x tp)") from None
+    if out["prefill"] < 1 or out["decode_dp"] < 1 or out["decode_tp"] < 1:
+        raise ValueError(f"MAGI_ATTENTION_SERVING_MESH={v!r}: every tier count must be >= 1")
+    return out
+
+
+def tier_token_budget(tier: str) -> int:
+    """Per-tier token budget of one ``TieredScheduler`` tick
+    (``MAGI_ATTENTION_TIER_BUDGET_PREFILL`` / ``_DECODE``, default 256;
+    constructor arguments win). Decode counts one token per decoding
+    sequence, prefill a chunk's rows. Not in ``flags_fingerprint``."""
+    if tier not in SERVING_TIERS:
+        raise ValueError(f"tier_token_budget: unknown tier {tier!r}")
+    v = _env_int(f"MAGI_ATTENTION_TIER_BUDGET_{tier.upper()}", 256)
+    if v < 1:
+        raise ValueError(f"MAGI_ATTENTION_TIER_BUDGET_{tier.upper()}={v} must be a positive "
+                         "token count")
+    return v
+
+
 # -- context parallelism (the same names, defaults and validation as the JAX
 # package's env.py) -------------------------------------------------------------
 
@@ -342,3 +404,76 @@ def is_cpp_backend_enabled() -> bool:
     if v is None:
         return True
     return v.strip().lower() not in ("0", "false", "off", "no")
+
+
+# -- flags the port validates and refuses until their modules are ported -------
+# (the JAX package's accepted values and messages; env.refuse_unhonoured_flags)
+
+VALIDATE_MODES = ("off", "plan", "trace")
+
+
+def validate_mode() -> str:
+    """Plan-sanitizer mode (``MAGI_ATTENTION_VALIDATE``: off | plan |
+    trace), validated here. The sanitizer is not ported (ROADMAP A.18), so
+    any mode but ``off`` is refused. Not in ``flags_fingerprint``: it never
+    changes what is built, as in the JAX package."""
+    v = _env_str("MAGI_ATTENTION_VALIDATE", "off").strip().lower()
+    if v not in VALIDATE_MODES:
+        raise ValueError(f"MAGI_ATTENTION_VALIDATE={v!r} must be one of {VALIDATE_MODES}")
+    return v
+
+
+NUMERICS_MODES = ("off", "census")
+
+
+def numerics_mode() -> str:
+    """Numerics-census mode (``MAGI_ATTENTION_NUMERICS``: off | census),
+    validated here. The census is not ported (ROADMAP A.15), so ``census``
+    is refused. In ``flags_fingerprint``."""
+    v = _env_str("MAGI_ATTENTION_NUMERICS", "off").strip().lower()
+    if v not in NUMERICS_MODES:
+        raise ValueError(f"MAGI_ATTENTION_NUMERICS={v!r} must be one of {NUMERICS_MODES}")
+    return v
+
+
+GUARD_MODES = ("off", "check", "repair")
+
+
+def guard_mode() -> str:
+    """Numerical-guard mode (``MAGI_ATTENTION_GUARD``: off | check |
+    repair), validated here. The guards are not ported (ROADMAP A.13), so
+    any mode but ``off`` is refused. In ``flags_fingerprint``."""
+    v = _env_str("MAGI_ATTENTION_GUARD", "off").strip().lower()
+    if v not in GUARD_MODES:
+        raise ValueError(f"MAGI_ATTENTION_GUARD={v!r} must be one of {GUARD_MODES}")
+    return v
+
+
+def chaos_spec() -> str:
+    """Raw fault-injection spec (``MAGI_ATTENTION_CHAOS``; '' = off, the
+    default), grammar-validated here (``resilience/chaos.py``). The
+    injectors are not ported (ROADMAP A.13), so any non-empty spec is
+    refused. In ``flags_fingerprint``."""
+    v = _env_str("MAGI_ATTENTION_CHAOS", "").strip()
+    if v:
+        from .resilience.chaos import parse_chaos_spec
+
+        parse_chaos_spec(v)
+    return v
+
+
+def refuse_unhonoured_flags(where: str) -> None:
+    """Raise ``ValueError`` naming ``where`` when a flag the port reads but
+    does not yet honour is set: ``MAGI_ATTENTION_GUARD`` or ``_CHAOS``
+    (ROADMAP A.13), ``_VALIDATE`` (A.18), ``_NUMERICS`` (A.15). A value
+    outside a flag's domain raises its accessor's message first."""
+    refused = [(name, value, item) for name, value, item in (
+        ("MAGI_ATTENTION_GUARD", guard_mode(), "A.13"),
+        ("MAGI_ATTENTION_CHAOS", chaos_spec(), "A.13"),
+        ("MAGI_ATTENTION_VALIDATE", validate_mode(), "A.18"),
+        ("MAGI_ATTENTION_NUMERICS", numerics_mode(), "A.15"),
+    ) if value not in ("", "off")]
+    if refused:
+        name, value, item = refused[0]
+        raise ValueError(f"{where}: {name}={value!r} is not honoured by the port yet (ROADMAP "
+                         f"{item} ports it); unset it or set it to 'off'")

@@ -15,6 +15,12 @@
 - :mod:`.unified_tick` — a whole tick's prefill chunks and decode steps as
   rows of one ``paged_decode`` launch (:func:`unified_tick_attn`), behind
   ``MAGI_ATTENTION_UNIFIED_TICK``
+- :mod:`.distributed` — disaggregated serving over a device list: TP decode
+  over a KV-head-sharded pool (:func:`tp_decode_attn`), the
+  :class:`TieredEngine` (prefill tier, page streams, decode replicas) and
+  the :class:`TieredScheduler`, behind ``MAGI_ATTENTION_SERVING_MESH``
+- :mod:`.plan_probe` — :class:`PlanReuseProbe`, the scheduler's request
+  shapes through the keyed planner
 """
 
 from .cp_decode import cp_decode_attn, cp_merge_partials  # noqa: F401
@@ -24,6 +30,17 @@ from .decode_attn import (  # noqa: F401
     decode_partials_for_tables,
     decode_reference,
     resolve_num_splits,
+)
+from .distributed import (  # noqa: F401
+    DecodeReplica,
+    DecodeTierFault,
+    PendingStream,
+    StreamReport,
+    TieredEngine,
+    TieredScheduler,
+    gather_pages,
+    pages_digest,
+    tp_decode_attn,
 )
 from .engine import (  # noqa: F401
     AdmissionResult,
@@ -39,15 +56,18 @@ from .kv_cache import (  # noqa: F401
     PageAllocatorError,
     PagedKVCache,
     PageShareError,
+    ShardedPagedKVCache,
     append_kv,
     assign_block_table,
     copy_page,
     gather_kv,
     make_paged_kv_cache,
     reset_slot,
+    shard_kv_cache,
     swap_block_table_page,
     write_prefill_kv,
 )
+from .plan_probe import PlanProbeStats, PlanReuseProbe  # noqa: F401
 from .prefix import (  # noqa: F401
     CascadeGroup,
     PrefixCache,

@@ -50,12 +50,17 @@ KERNEL_MAX_ROW_GROUPS = 65535
 
 @dataclasses.dataclass(frozen=True)
 class DecodeParams:
-    """Static decode parameters."""
+    """Static decode parameters. ``cluster_heads``: the kv-head count the
+    kernel sizes its thread-block clusters for (0: the cache's own); a
+    tensor-parallel head slice passes the whole pool's, so its walks merge
+    over the blocks the full launch's would and give the same bits. It
+    changes the launch geometry only."""
 
     scale: float
     softcap: float
     num_splits: int
     out_dtype: torch.dtype
+    cluster_heads: int = 0
 
 
 def _split_partial_torch(q, k, v, pos0: int, valid_len, scale: float, softcap: float):
@@ -166,7 +171,8 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
         bt.data_ptr(), seq_lens.data_ptr(),
         out_parts.data_ptr(), lse_parts.data_ptr(),
         b, hq, hk, d, cache.page_size, mpp, s, int(shared),
-        int(q.dtype == torch.float32), float(params.scale), float(params.softcap),
+        int(q.dtype == torch.float32), int(params.cluster_heads or hk),
+        float(params.scale), float(params.softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out_parts, lse_parts
@@ -333,13 +339,18 @@ def decode_attn_paged(
     scale: float | None = None,
     softcap: float = 0.0,
     out_dtype: torch.dtype | None = None,
+    cluster_heads: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Split-KV decode attention over the paged cache.
 
     Each query attends to its sequence's first ``seq_lens[slot]`` cached
     tokens (append the step's own KV first for standard causal decode).
+    ``cluster_heads``: see :class:`DecodeParams` (0 for a call of its own).
     Returns ``(out [b, hq, head_dim] in out_dtype, lse [b, hq] f32)``.
     """
+    from .. import env
+
+    env.refuse_unhonoured_flags("decode_attn_paged")
     _check_q(q, cache, "decode_attn_paged")
     b, hq, d = q.shape
     params = DecodeParams(
@@ -347,6 +358,7 @@ def decode_attn_paged(
         softcap=float(softcap),
         num_splits=resolve_num_splits(num_splits, cache, b),
         out_dtype=out_dtype if out_dtype is not None else q.dtype,
+        cluster_heads=int(cluster_heads),
     )
     slots = slots.to(device=cache.device, dtype=torch.long)
     bt = cache.block_tables[slots]  # [b, MPP]

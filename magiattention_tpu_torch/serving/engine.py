@@ -214,7 +214,10 @@ class ServingEngine:
     versions. ``cascade_override`` (``"auto"``/``"on"``/``"off"``, or None
     for ``MAGI_ATTENTION_CASCADE``) picks the decode path when a
     ``decode_step`` caller does not, ``decode_splits_override`` the split
-    count.
+    count. ``decode_attn_fn`` substitutes the decode attention of
+    :meth:`decode_step`, called as ``fn(q, cache, slots, num_splits=, **kw)``
+    (the tiered engine's tensor-parallel decode over a sharded pool): it
+    skips the cascade, and :meth:`unified_tick` refuses it.
     """
 
     def __init__(
@@ -229,10 +232,12 @@ class ServingEngine:
         dtype: torch.dtype = torch.bfloat16,
         max_admission_evictions: int = 4,
         prefix_sharing: bool = True,
+        decode_attn_fn=None,
         device: str | torch.device = "cuda",
     ):
         from .. import env
 
+        env.refuse_unhonoured_flags("ServingEngine")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -263,6 +268,7 @@ class ServingEngine:
         # group key, set on a fork or when a registrant commits its prompt
         self._slot_prefix: dict[int, tuple[tuple[int, ...], int]] = {}
         self.max_admission_evictions = int(max_admission_evictions)
+        self._decode_attn_fn = decode_attn_fn
         self.cascade_override: str | None = None
         # pins the decode split count when a decode_step caller passes none
         # (the scheduler's decode_splits knob)
@@ -529,7 +535,7 @@ class ServingEngine:
             self._ensure_writable(s, self._lengths.get(s, 0))
         mode = self._cascade_mode(cascade)
         groups = []
-        if mode != "off" and self._slot_prefix:
+        if mode != "off" and self._slot_prefix and self._decode_attn_fn is None:
             groups = plan_cascade_groups(self._slot_prefix, slot_list,
                                          min_group=1 if mode == "on" else 2)
         batch = DecodeBatch.of(slot_list, self.device)
@@ -541,6 +547,11 @@ class ServingEngine:
             resolved = 0
             out, lse = cascade_decode_attn(q, self.cache, slot_list, groups,
                                            num_splits=num_splits, **kw)
+        elif self._decode_attn_fn is not None:
+            # the substitute resolves its own splits: 0 = "resolved outside"
+            resolved = 0
+            out, lse = self._decode_attn_fn(q, self.cache, batch.slots, num_splits=num_splits,
+                                            **kw)
         else:
             if num_splits is None:
                 num_splits = self.decode_splits_override
@@ -596,7 +607,14 @@ class ServingEngine:
         members only. The host phase (reservation growth, copy-on-write
         splits, the enumeration) runs before any device work, so a refused
         growth changes nothing; a device-phase failure releases every
-        prefill item's slot and re-raises; decode slots are kept."""
+        prefill item's slot and re-raises; decode slots are kept. An engine
+        with a substituted decode (``decode_attn_fn``) raises: the tick's
+        kernel is the attention."""
+        if self._decode_attn_fn is not None:
+            raise ValueError(
+                "unified_tick does not compose with a substituted decode realization "
+                "(decode_attn_fn): the tick kernel IS the attention — TP decode tiers keep the "
+                "per-request path")
         ps = self.allocator.page_size
         decode_slots = [int(it[0]) for it in decode_items]
         prefill_slots = [int(it[0]) for it in prefill_items]

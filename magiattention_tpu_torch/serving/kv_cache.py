@@ -16,6 +16,14 @@ the pool is the largest allocation of a server.
 
 Page bookkeeping (free list, slot ownership, refcounts) is host Python in
 :class:`PageAllocator`: admission decisions happen between device steps.
+
+:func:`shard_kv_cache` splits a pool on its KV-head axis over a list of
+devices (:class:`ShardedPagedKVCache`, the JAX package's
+``kv_head_sharding`` layout): each device holds every page for its head
+slice and its own copy of the block tables and lengths, while the host
+allocator stays one. The cache ops a decode engine calls (``append_kv``,
+``assign_block_table``, ``reset_slot``, ``copy_page``,
+``swap_block_table_page``) take it and apply themselves shard by shard.
 """
 
 from __future__ import annotations
@@ -114,8 +122,86 @@ def make_paged_kv_cache(
     )
 
 
+@dataclasses.dataclass
+class ShardedPagedKVCache:
+    """A pool split on the KV-head axis: ``shards[i]`` is a
+    :class:`PagedKVCache` on its own device holding kv heads
+    ``[i * hk / tp, (i + 1) * hk / tp)`` of every page, with its own copy of
+    the block tables and lengths (the same values on every shard). A device
+    may appear twice: the shards are separate tensors all the same."""
+
+    shards: tuple[PagedKVCache, ...]
+
+    @property
+    def tp(self) -> int:
+        return len(self.shards)
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(c.device for c in self.shards)
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def num_kv_heads(self) -> int:
+        return sum(c.num_kv_heads for c in self.shards)
+
+    @property
+    def block_tables(self) -> torch.Tensor:
+        return self.shards[0].block_tables
+
+    @property
+    def seq_lens(self) -> torch.Tensor:
+        return self.shards[0].seq_lens
+
+    # the geometry every shard shares
+    num_pages = property(lambda self: self.shards[0].num_pages)
+    page_size = property(lambda self: self.shards[0].page_size)
+    head_dim = property(lambda self: self.shards[0].head_dim)
+    max_seqs = property(lambda self: self.shards[0].max_seqs)
+    max_pages_per_seq = property(lambda self: self.shards[0].max_pages_per_seq)
+    max_seq_len = property(lambda self: self.shards[0].max_seq_len)
+
+
+def shard_kv_cache(cache: PagedKVCache, devices) -> PagedKVCache | ShardedPagedKVCache:
+    """A copy of ``cache`` split on its KV-head axis over ``devices``, one
+    head slice per device, the block tables and lengths copied whole to
+    each (the JAX package's ``shard_kv_cache`` over a ``tp`` mesh axis).
+    One device gives a plain :class:`PagedKVCache` copy there, as a
+    one-device mesh gives plain placement in JAX. Raises ``ValueError``
+    when the device count does not divide the kv heads."""
+    devices = [torch.device(d) for d in devices]
+    tp = len(devices)
+    hk = cache.num_kv_heads
+    if tp < 1 or hk % tp:
+        raise ValueError(
+            f"shard_kv_cache: kv_heads {hk} not divisible by tp={tp} devices — the "
+            "KV-head-sharded layout needs equal head slices per device")
+
+    def copy(x, dev):  # a fresh contiguous tensor, even on the same device
+        return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+    def shard(i, dev):
+        h = slice(i * (hk // tp), (i + 1) * (hk // tp))
+        return PagedKVCache(copy(cache.k_pages[:, :, h], dev), copy(cache.v_pages[:, :, h], dev),
+                            copy(cache.block_tables, dev), copy(cache.seq_lens, dev))
+
+    if tp == 1:
+        return shard(0, devices[0])
+    return ShardedPagedKVCache(tuple(shard(i, d) for i, d in enumerate(devices)))
+
+
+def shards_of(cache) -> tuple[PagedKVCache, ...]:
+    """The caches an op applies to: each shard of a sharded pool (shard
+    ``i`` holding kv heads ``[i * n, (i + 1) * n)`` of the whole, ``n`` its
+    own count), else the cache itself."""
+    return cache.shards if isinstance(cache, ShardedPagedKVCache) else (cache,)
+
+
 def append_kv(
-    cache: PagedKVCache,
+    cache: PagedKVCache | ShardedPagedKVCache,
     slots: torch.Tensor,  # [b] int sequence slots (distinct)
     k_new: torch.Tensor,  # [b, kv_heads, head_dim] this step's K per sequence
     v_new: torch.Tensor,
@@ -126,7 +212,13 @@ def append_kv(
     pages for them (unreserved block-table entries read 0, another
     sequence's page). A full slot (``seq_lens == max_seq_len``) is left
     unchanged, and the update needs no host synchronisation: the full
-    slot's row rewrites its own last page's current value."""
+    slot's row rewrites its own last page's current value. On a sharded
+    pool each shard appends its head slice of ``k_new`` / ``v_new``."""
+    if isinstance(cache, ShardedPagedKVCache):
+        for i, c in enumerate(cache.shards):
+            h = slice(i * c.num_kv_heads, (i + 1) * c.num_kv_heads)
+            append_kv(c, slots, k_new[:, h].to(c.device), v_new[:, h].to(c.device))
+        return
     ps = cache.page_size
     slots = slots.to(device=cache.device, dtype=torch.long)
     pos = cache.seq_lens[slots].long()
@@ -184,7 +276,7 @@ def gather_kv(
 
 
 def assign_block_table(
-    cache: PagedKVCache,
+    cache: PagedKVCache | ShardedPagedKVCache,
     slot: int,
     pages: Sequence[int],
     *,
@@ -210,28 +302,34 @@ def assign_block_table(
                 f"{len(pages)}-page list holds at most "
                 f"{len(pages) * cache.page_size} tokens"
             )
-        cache.seq_lens[slot] = n
-    cache.block_tables[slot] = row.to(cache.device)
+    for c in shards_of(cache):
+        if keep_len is not True:
+            c.seq_lens[slot] = n
+        c.block_tables[slot] = row.to(c.device)
 
 
-def copy_page(cache: PagedKVCache, src_page: int, dst_page: int) -> None:
+def copy_page(cache: PagedKVCache | ShardedPagedKVCache, src_page: int, dst_page: int) -> None:
     """The data half of a copy-on-write split, in place: ``dst_page``'s K/V
     become a bit copy of ``src_page``'s. Pair it with
     :func:`swap_block_table_page` to point the writing slot at its copy."""
-    cache.k_pages[dst_page] = cache.k_pages[src_page]
-    cache.v_pages[dst_page] = cache.v_pages[src_page]
+    for c in shards_of(cache):
+        c.k_pages[dst_page] = c.k_pages[src_page]
+        c.v_pages[dst_page] = c.v_pages[src_page]
 
 
-def swap_block_table_page(cache: PagedKVCache, slot: int, page_idx: int, new_page: int) -> None:
+def swap_block_table_page(cache: PagedKVCache | ShardedPagedKVCache, slot: int, page_idx: int,
+                          new_page: int) -> None:
     """The table half of a copy-on-write split, in place: entry ``page_idx``
     of ``slot``'s block table now names ``new_page`` (lengths untouched)."""
-    cache.block_tables[slot, page_idx] = int(new_page)
+    for c in shards_of(cache):
+        c.block_tables[slot, page_idx] = int(new_page)
 
 
-def reset_slot(cache: PagedKVCache, slot: int) -> None:
+def reset_slot(cache: PagedKVCache | ShardedPagedKVCache, slot: int) -> None:
     """Logical free of a slot's stored tokens, in place (page recycling is
     the allocator's job; stale page contents are never read at length 0)."""
-    cache.seq_lens[slot] = 0
+    for c in shards_of(cache):
+        c.seq_lens[slot] = 0
 
 
 class PageAllocator:

@@ -103,6 +103,7 @@ class RequestState:
     tokens_done: int = 0
     prefill_chunk_idx: int = 0  # chunks run so far
     evictions: int = 0  # evictions and preemptions suffered
+    requeues: list = dataclasses.field(default_factory=list)  # (tier, reason) of each
     prefill_out_tail: torch.Tensor | None = None  # last prompt row's out
     decode_outs: list = dataclasses.field(default_factory=list)
 
@@ -273,8 +274,8 @@ class Scheduler:
             "chunk": self.chunk,
             "max_decode_batch": self.max_decode_batch,
             "admission_watermark": self.admission_watermark,
-            "cascade": self.engine.cascade_override,
-            "decode_splits": self.engine.decode_splits_override,
+            "cascade": self._knob_engines()[0].cascade_override,
+            "decode_splits": self._knob_engines()[0].decode_splits_override,
         }
 
     def apply_knobs(self, **updates) -> dict:
@@ -288,16 +289,25 @@ class Scheduler:
                                  f"{sorted(self._KNOB_NAMES)}")
             staged[name] = self._coerce_knob(name, value)
         for name, value in staged.items():
-            if name == "cascade":
-                self.engine.cascade_override = value
-            elif name == "decode_splits":
-                self.engine.decode_splits_override = value
-            else:
-                setattr(self, name, value)
+            self._set_knob(name, value)
         return staged
 
-    @staticmethod
-    def _coerce_knob(name: str, value):
+    def _knob_engines(self) -> list:
+        """The engines the cascade and decode-splits knobs write through
+        (the tiered scheduler's: the prefill engine and every replica's)."""
+        return [self.engine]
+
+    def _set_knob(self, name: str, value) -> None:
+        if name == "cascade":
+            for eng in self._knob_engines():
+                eng.cascade_override = value
+        elif name == "decode_splits":
+            for eng in self._knob_engines():
+                eng.decode_splits_override = value
+        else:
+            setattr(self, name, value)
+
+    def _coerce_knob(self, name: str, value):
         from .. import env
 
         if name == "token_budget":
@@ -337,9 +347,12 @@ class Scheduler:
                 self._requeue(st)
                 return
 
-    def _requeue(self, st: RequestState) -> None:
+    def _requeue(self, st: RequestState, *, tier: str | None = None,
+                 reason: str | None = None) -> None:
         """One in-flight request back to the queue, its generation restarted
-        and its SLO clock reset to now."""
+        and its SLO clock reset to now; ``(tier, reason)`` is recorded in
+        ``st.requeues`` (a decode-tier fault: ``("decode", "decode_fault")``)."""
+        st.requeues.append((tier, reason))
         self._active.pop(st.rid, None)
         st.slot = None
         st.status = QUEUED
@@ -360,7 +373,7 @@ class Scheduler:
         admission."""
         victim = min(states, key=lambda s: (s.request.priority, -s.submitted_at))
         self.engine.free(victim.slot)
-        self._requeue(victim)
+        self._requeue(victim, reason="decode_pressure")
 
     # -- the decode group and the prefill chunks --
 
@@ -376,9 +389,11 @@ class Scheduler:
             states = states[: self.max_decode_batch]
         return self._decode_group(states)
 
-    def _decode_group(self, states: list[RequestState]) -> int:
+    def _decode_group(self, states: list[RequestState], *, replica: int | None = None) -> int:
         """One batched decode step over ``states``; 0 when pool pressure
-        preempted a member instead."""
+        preempted a member instead. The tiered scheduler calls it once per
+        decode replica (``replica``, its index), so that a replica's fault
+        stays with its own group."""
         if self.plan_probe is not None:
             self.plan_probe.note_decode(states)
         qs = torch.stack([st.request.decode_q[st.tokens_done] for st in states])
@@ -535,6 +550,8 @@ class Scheduler:
         mode = env.unified_tick_mode()
         if mode == "off" or not hasattr(self.engine, "unified_tick"):
             return False
+        if getattr(self.engine, "_decode_attn_fn", None) is not None:
+            return False  # a substituted decode (TP) keeps the per-request path
         n_pf = sum(1 for st in prefilling if st.request.prompt_len - st.prefill_pos > 0)
         if mode == "on":
             return bool(decoding) or n_pf > 0

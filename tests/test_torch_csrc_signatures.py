@@ -243,3 +243,34 @@ def test_host_entry_point_matches_argtypes(entry):
     got = [kind(p) for p in m.group(1).split(",")]
     assert got == [_HOST_KINDS[t] for t in csrc.HOST_ENTRY_POINTS[entry]]
     assert set(re.findall(r"\bint64_t\s+(magi_\w+)\s*\(", extern)) == set(csrc.HOST_ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("cluster_heads", [0, 8], ids=["own", "full_pool"])
+def test_paged_decode_launcher_passes_what_the_entry_point_takes(cluster_heads, monkeypatch):
+    """``_decode_partials_kernel`` with the launch recorded instead of run:
+    as many arguments as ``magi_paged_decode``'s argtypes, each of the kind
+    declared, and the kv-head count the clusters are sized for after
+    ``is_f32``: the cache's own (4 here) by default, the whole pool's for a
+    tensor-parallel head slice."""
+    import types
+
+    import torch
+
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import make_paged_kv_cache
+
+    cache = make_paged_kv_cache(9, 16, 4, 64, max_seqs=2, max_pages_per_seq=4, device="cpu")
+    q = torch.zeros((2, 16, 64), dtype=torch.bfloat16)
+    calls = []
+    monkeypatch.setattr(da.csrc, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    params = da.DecodeParams(0.125, 0.0, 2, torch.bfloat16, cluster_heads=cluster_heads)
+    da._decode_partials_kernel(q, cache, cache.block_tables, cache.seq_lens, params)
+    (name, a), = calls
+    kinds = [KINDS[t] for t in csrc.KERNELS[name].argtypes]
+    python_kind = {"pointer": int, "int": int, "float": float}
+    assert name == "paged_decode" and len(a) == len(kinds)
+    assert all(type(x) is python_kind[kind] for x, kind in zip(a, kinds))
+    ints = a[kinds.index("int"):kinds.index("float")]  # b hq hk d ps mpp splits shared f32 heads
+    assert ints == (2, 16, 4, 64, 16, 4, 2, 0, 0, cluster_heads or 4)

@@ -56,7 +56,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "telemetry.numerics", "common.axes", "common.protocols", "ops.block_sparse",
                 "ops.index_attn", "extensions.dsa", "extensions.sink_attention",
                 "testing.precision", "testing.flag_generator", "testing.gt_dispatcher",
-                "serving.scheduler", "serving.unified_tick", "serving.cp_decode"):
+                "serving.scheduler", "serving.unified_tick", "serving.cp_decode",
+                "serving.distributed", "serving.plan_probe", "resilience.chaos"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
@@ -115,6 +116,18 @@ def test_scheduler_over_the_default_engine_raises_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scheduler(ServingEngine(num_pages=8, num_kv_heads=2, head_dim=64))
+
+
+def test_tiered_engine_raises_without_a_card():
+    """The disaggregated engine's tiers default to the cards in turn: with
+    none it raises instead of taking the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be observed here")
+    from magiattention_tpu_torch.serving import TieredEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TieredEngine(num_pages=8, num_kv_heads=2, head_dim=64,
+                     mesh_spec={"prefill": 1, "decode_dp": 2, "decode_tp": 2})
 
 
 @pytest.mark.parametrize("entry", ["magi_attn_flex_key", "magi_attn_varlen_key",
