@@ -245,11 +245,32 @@ Phases, each printing one JSON line:
    ms; replica pools too small for their requests' growth (a
    ``DecodeTierFault``, the requests replayed, outputs within the same
    bound); a planted stream that drops its last page, which must fail its
-   digest.
+   digest;
+20. resilience — ``MAGI_ATTENTION_GUARD`` and ``MAGI_ATTENTION_CHAOS`` on
+   the card, in parts, each part's launches counted from zero: the serving
+   phase's pool, ``decode_attn_paged`` over its 8 sequences under ``off``,
+   ``check`` and ``repair`` without chaos, bit for bit equal, with each
+   mode's kernel ms a call (``torch.profiler``) and synchronised host ms;
+   ``corrupt_partial`` at ``split0`` raising ``NumericalGuardError`` under
+   ``check`` and quarantined to (0, -inf) under ``repair`` (off's bits
+   elsewhere); cp 2 over gloo at causal 8192, 16 / 8 heads, degree 1:
+   ``check`` bit for bit ``off``, a ``stage0`` plant on rank 0 raising on
+   rank 0 only, ``repair`` finite forward and backward, ``plan_error``
+   falling back to degree 0 within the kernel bound of the staged result,
+   ``hops_build_error`` giving the a2a collective's bits, ``corrupt_cast``
+   caught at ``stage0``, a ``straggler`` leaving the bits and adding device
+   ms; a 1024-token prompt and three forks at the serving widths, cascade
+   decode under the split plant (``check`` raises, ``repair`` finite),
+   ``prefill_error`` releasing its pages, ``alloc_fail`` and
+   ``pool_exhaust`` answering ``alloc_error`` and ``pool_exhausted``; the
+   tiered trace at ``prefill=1,decode=2x1`` under ``decode_fault`` replayed
+   to the clean run's bits; and a flat ``paged_decode`` of 70,000 one-page
+   sequences (8 / 8 heads, d 64), past one launch's 65,535 row groups, in
+   two row-block launches against the plain version.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode``, ``scheduler`` and ``tiered`` among them; every path's launches must be
+``cp_decode``, ``scheduler``, ``tiered`` and ``resilience`` among them; every path's launches must be
 in it), errors and times; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -4010,8 +4031,8 @@ def plant_hier_reduce(kind: str):
     from magiattention_tpu_torch.comm import hier
     from magiattention_tpu_torch.comm.group_collective import (
         all_to_all_rows,
+        cast_transpose,
         exchange,
-        group_reduce_sum,
     )
 
     def pad_rows(y, rt, group):
@@ -4043,8 +4064,8 @@ def plant_hier_reduce(kind: str):
 
     def planted(y, hr, groups):
         if kind == "pad_rows":
-            return pad_rows(group_reduce_sum(y, hr.intra, groups.intra), hr.inter, groups.inter)
-        return group_reduce_sum(keep_one(y, hr.intra, groups.intra), hr.inter, groups.inter)
+            return pad_rows(cast_transpose(y, hr.intra, groups.intra), hr.inter, groups.inter)
+        return cast_transpose(keep_one(y, hr.intra, groups.intra), hr.inter, groups.inter)
 
     hier.group_reduce_hier = planted
 
@@ -5393,6 +5414,411 @@ def tiered_phase(gen, tp_line) -> dict:
             "launches": launches}
 
 
+# -- resilience: chaos, guards and the degradation paths ------------------------------
+
+RES_PLANT = "corrupt_partial:site=split0,value=nan"  # seed 0: (row 0, head 0) of split 0
+RES_CP_T = 8192  # the cp part: causal 8192 at the LlamaConfig widths, degree 1
+RES_STAGE0 = "corrupt_partial:site=stage0,value=nan,rank=0,seed=64"
+RES_STRAGGLER = "straggler:hop=1,delay=32"
+RES_ROW_SEQS = 70_000  # one-page sequences: past the 65,535 row groups of one launch
+RES_ROW_PAGE = 16
+RES_ROW_HEADS, RES_ROW_D = 8, 64
+RES_PREFIX = 1024  # the cascade part's shared prompt: 8 full pages
+RES_FORKS = (200, 300, 500)
+
+
+@contextlib.contextmanager
+def resilience_flags(guard: str = "off", chaos: str = ""):
+    """``MAGI_ATTENTION_GUARD`` / ``_CHAOS`` set for the block (the bounded
+    injectors rearmed on the way in and out), then restored."""
+    from magiattention_tpu_torch.resilience import reset_chaos
+
+    names = {"MAGI_ATTENTION_GUARD": guard, "MAGI_ATTENTION_CHAOS": chaos}
+    saved = {n: os.environ.get(n) for n in names}
+    os.environ.update(names)
+    reset_chaos()
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+        reset_chaos()
+
+
+def guard_sites(fn):
+    """The sites of the ``NumericalGuardError`` that ``fn()`` raises, or None
+    when it returns."""
+    from magiattention_tpu_torch.resilience import NumericalGuardError
+
+    try:
+        fn()
+    except NumericalGuardError as e:
+        return list(e.sites)
+    return None
+
+
+def counted(launches: dict, fn):
+    """``fn()`` with the kernels' counts zeroed just before it; its launches
+    are added into ``launches``."""
+    from magiattention_tpu_torch import csrc
+
+    csrc.reset_launch_counts()
+    try:
+        return fn()
+    finally:
+        for n, c in csrc.launches.items():
+            if c:
+                launches[n] = launches.get(n, 0) + c
+
+
+def guard_cost(fn, calls: int = 20) -> dict:
+    """A call's cost in the current guard mode: ``device_ms``, the kernels'
+    device time a call (``torch.profiler``; a guarded call reads its code on
+    the host, so CUDA events around a run of calls would time the host's
+    gaps), ``host_ms``, the call's synchronised latency (median), and the
+    kernels a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    ms = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    return {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            "host_ms": sorted(ms)[calls // 2],
+            "kernels_per_call": sum(e.count for e in kernels) / calls}
+
+
+def resilience_decode(engine, slots, gen) -> dict:
+    """The serving pool's decode (``decode_attn_paged`` over the serving
+    phase's 8 sequences at Llama-3.1-8B widths, one split): ``off``,
+    ``check`` and ``repair`` with no chaos bit for bit equal, each mode's
+    cost a call (:func:`guard_cost`); the split-0 plant under
+    ``check`` raising naming ``split0``, under ``repair`` giving (0, -inf) at
+    (row 0, head 0) and off's bits everywhere else."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn_paged
+
+    idx = torch.as_tensor(slots, device="cuda")
+    q = torch.randn((len(slots), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    launches, got, cost = {}, {}, {}
+
+    def step():
+        return decode_attn_paged(q, engine.cache, idx)
+
+    for mode in ("off", "check", "repair"):
+        with resilience_flags(mode):
+            got[mode] = counted(launches, step)
+            cost[mode] = uncounted(lambda: guard_cost(step))
+    off_out, off_lse = got["off"]
+    for mode in ("check", "repair"):
+        check(torch.equal(got[mode][0], off_out) and torch.equal(got[mode][1], off_lse),
+              f"resilience decode: {mode} without chaos differs from off")
+    with resilience_flags("check", RES_PLANT):
+        sites = counted(launches, lambda: guard_sites(step))
+    check(sites == ["split0"], f"resilience decode: the split-0 plant under check raised {sites}")
+    with resilience_flags("repair", RES_PLANT):
+        out, lse = counted(launches, step)
+    keep = torch.ones(lse.shape, dtype=torch.bool, device="cuda")
+    keep[0, 0] = False
+    check(bool(torch.isneginf(lse[0, 0])) and bool((out[0, 0] == 0).all())
+          and torch.equal(out[keep], off_out[keep]) and torch.equal(lse[keep], off_lse[keep]),
+          "resilience decode: repair of the split-0 plant is not (0, -inf) at (0, 0) with off's "
+          "bits elsewhere")
+    check(set(launches) == {"paged_decode"}, f"resilience decode launches {launches}")
+    return {"batch": len(slots), "guard_cost": cost, "launches": launches,
+            "cases": {"check_no_chaos": "bitwise_off", "repair_no_chaos": "bitwise_off",
+                      "split0_check": {"raised": sites},
+                      "split0_repair": "(0, -inf) at (0, 0), off elsewhere"}}
+
+
+def resilience_serving(gen) -> dict:
+    """The cascade and the engine's degradation paths at the serving widths:
+    a 1024-token prompt and three forks onto its pages, cascade decode under
+    the split-0 plant (``check`` raises naming ``split0``, ``repair`` is
+    finite); a ``prefill_error:times=1`` prefill raising and the free pages
+    back at their count; ``alloc_fail:times=1`` answering ``alloc_error``;
+    ``pool_exhaust`` answering ``pool_exhausted`` without raising."""
+    import torch
+    from magiattention_tpu_torch.resilience import ChaosInjectedError
+    from magiattention_tpu_torch.serving import ServingEngine
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    launches = {}
+    engine = ServingEngine(num_pages=64, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=8, max_pages_per_seq=16, dtype=torch.bfloat16)
+    ids = torch.randint(0, VOCAB, (RES_PREFIX + sum(RES_FORKS),), generator=gen,
+                        device="cuda").tolist()
+    system, rest, slots = ids[:RES_PREFIX], ids[RES_PREFIX:], []
+    for n in (0, *RES_FORKS):
+        toks, rest = system + rest[:n], rest[n:]
+        res = engine.admit(len(toks), tokens=toks)
+        left = len(toks) - res.prefix_len
+        check(res.admitted and (n == 0 or res.prefix_len == RES_PREFIX),
+              f"resilience cascade: admission {res}")
+        counted(launches, lambda: engine.prefill(rand(left, HQ, D), rand(left, HK, D),
+                                                 rand(left, HK, D), res.slot))
+        slots.append(res.slot)
+    b = len(slots)
+
+    def cascade_step():
+        return engine.decode_step(rand(b, HQ, D), rand(b, HK, D), rand(b, HK, D), slots,
+                                  cascade=True)
+
+    with resilience_flags("check", RES_PLANT):
+        sites = counted(launches, lambda: guard_sites(cascade_step))
+    check(sites == ["split0"], f"resilience cascade: the plant under check raised {sites}")
+    with resilience_flags("repair", RES_PLANT):
+        out, lse = counted(launches, cascade_step)
+    groups = engine.last_decode_info.get("cascade_groups")
+    check(groups == 1 and bool(torch.isfinite(out).all()) and not bool(torch.isnan(lse).any()),
+          f"resilience cascade: repair gave {groups} groups, finite {bool(torch.isfinite(out).all())}")
+
+    free = engine.allocator.num_pages - engine.allocator.pages_in_use
+    res = engine.admit(1500)
+    check(res.admitted, f"resilience prefill_error: admission {res}")
+    with resilience_flags(chaos="prefill_error:times=1"):
+        try:
+            counted(launches, lambda: engine.prefill(rand(1500, HQ, D), rand(1500, HK, D),
+                                                     rand(1500, HK, D), res.slot))
+            raised = None
+        except ChaosInjectedError as e:
+            raised = type(e).__name__
+    free_after = engine.allocator.num_pages - engine.allocator.pages_in_use
+    check(raised == "ChaosInjectedError" and free_after == free,
+          f"resilience prefill_error: raised {raised}, free pages {free} -> {free_after}")
+    verdicts = {}
+    for spec in ("alloc_fail:times=1", "pool_exhaust"):
+        with resilience_flags(chaos=spec):
+            v = engine.admit(300)
+        verdicts[spec] = v.reason
+    check(verdicts == {"alloc_fail:times=1": "alloc_error", "pool_exhaust": "pool_exhausted"},
+          f"resilience admission verdicts {verdicts}")
+    check(engine.admit(300).admitted, "resilience: admission after chaos cleared refused")
+    check(set(launches) == {"flex_fwd_hb", "paged_decode"}, f"resilience serving {launches}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cases": {
+        "cascade_split0_check": {"raised": sites}, "cascade_split0_repair": "finite",
+        "prefill_error": {"raised": raised, "free_pages": [free, free_after]},
+        "admission": verdicts}}
+
+
+def resilience_tiers(gen) -> dict:
+    """The tiered phase's trace at ``prefill=1,decode=2x1`` on cuda:0, clean
+    and under ``decode_fault:times=1``: the faulted replica's requests
+    replay, one replica restarts, and every request's decode outputs equal
+    the clean run's bit for bit."""
+    spec, launches = "prefill=1,decode=2x1", {}
+    reqs = tiered_requests(gen, TIERED_PROMPTS, TIERED_STEPS)
+    clean_line, clean = counted(launches, lambda: tiered_run(spec, reqs))
+    with resilience_flags(chaos="decode_fault:times=1"):
+        line, outs = counted(launches, lambda: tiered_run(spec, reqs))
+    faulted = sorted(rid for rid, rq in line["requeues"].items() if ("decode", "decode_fault") in rq)
+    err = outs_err(outs, clean)
+    check(bool(faulted) and sum(line["restarts"]) == 1 and err == 0.0,
+          f"resilience tiers: faulted {faulted}, restarts {line['restarts']}, outputs {err} off")
+    return {"launches": launches, "cases": {"decode_fault": {
+        "faulted_requests": faulted, "restarts": line["restarts"], "ticks": line["ticks"],
+        "clean_ticks": clean_line["ticks"], "out_max_abs_err_vs_clean": err}}}
+
+
+@in_rank
+def resilience_cp_rank(group, seed: int) -> dict:
+    """One rank of the keyed cp API on the card under the resilience flags:
+    cp 2, degree 1, causal RES_CP_T at 16 / 8 heads, d 128, bf16. Every run
+    is the forward of ``dispatch`` -> ``calc_attn`` on this rank's shard;
+    the repair run also the backward. Returns this rank's raised sites and
+    its checks' facts; the parent asserts them."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+
+    cp_rank_setup()
+    rank, t = dist.get_rank(group), RES_CP_T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g_out = (torch.randn((t, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+                      for h in (TRAIN_HQ, TRAIN_HK, TRAIN_HK, TRAIN_HQ))
+    g_lse = torch.randn((t, TRAIN_HQ), generator=gen, device="cuda")
+
+    def key_of(degree=1):
+        return api.magi_attn_flex_key(
+            [(0, t)], [(0, t)], [1], t, t, group, num_heads=(TRAIN_HQ, TRAIN_HK), head_dim=D,
+            chunk_size=CP_CHUNK,
+            dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=degree)))
+
+    def forward(key, grad=False):
+        qs, ks, vs = (api.dispatch(x, key).detach().requires_grad_(grad) for x in (q, k, v))
+        out, meta = api.calc_attn(qs, ks, vs, key)
+        if grad:
+            go, gl = api.dispatch(g_out, key), api.dispatch(g_lse, key)
+            loss = (out.float() * go.float()).sum() + torch.where(
+                torch.isfinite(meta.lse), meta.lse * gl, 0.0).sum()
+            loss.backward()
+            return out.detach(), meta.lse, (qs.grad, ks.grad, vs.grad)
+        return out.detach(), meta.lse
+
+    def run(impl, guard="off", chaos="", fn=None):
+        os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
+        try:
+            with resilience_flags(guard, chaos):
+                key = key_of()
+                return (fn or forward)(key), api.get_runtime_mgr(key).plan
+        finally:
+            os.environ.pop("MAGI_ATTENTION_GROUP_COLL_IMPL", None)
+
+    def raised(impl, guard, chaos):
+        sites = run(impl, guard, chaos, fn=lambda key: guard_sites(lambda: forward(key)))[0]
+        every = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, sites, group=group)
+        return every
+
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    csrc.reset_launch_counts()
+    (off_out, off_lse), plan = run("a2a")
+    check(plan.overlap_degree == 1, f"resilience cp: the plan has degree {plan.overlap_degree}")
+    (chk_out, chk_lse), _ = run("a2a", "check")
+    res = {"rank": rank, "check_bitwise_off": torch.equal(chk_out, off_out)
+           and torch.equal(chk_lse, off_lse)}
+    res["stage0_check_raised"] = raised("a2a", "check", RES_STAGE0)
+    (rep_out, rep_lse, grads), _ = run("a2a", "repair", RES_STAGE0,
+                                      fn=lambda key: forward(key, grad=True))
+    res["repair_finite"] = {"out": bool(torch.isfinite(rep_out).all()),
+                            "lse": not bool(torch.isnan(rep_lse).any()),
+                            "grads": all(bool(torch.isfinite(g).all()) for g in grads)}
+    (fb_out, fb_lse), fb_plan = run("a2a", chaos="plan_error:times=1")
+    errs, failed = out_errors(fb_out, off_out, [("lse", fb_lse, off_lse)])
+    res["plan_error"] = {"degree": fb_plan.overlap_degree, "vs_staged": errs, "failed": failed}
+    (hb_out, hb_lse), hb_plan = run("hops", chaos="hops_build_error:times=1")
+    res["hops_build_error"] = {
+        "impls": [c.impl for c in hb_plan.comms()],
+        "reasons": [c.impl_reason for c in hb_plan.comms()],
+        "bitwise_a2a": torch.equal(hb_out, off_out) and torch.equal(hb_lse, off_lse)}
+    res["corrupt_cast_check_raised"] = raised("a2a", "check", "corrupt_cast:value=nan,seed=3")
+
+    def timed(key):
+        forward(key)  # warm
+        ms = []
+        for _ in range(5):
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out, lse = forward(key)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return out, lse, sorted(ms)[len(ms) // 2]
+
+    (h_out, h_lse, h_ms), h_plan = run("hops", fn=timed)
+    (s_out, s_lse, s_ms), _ = run("hops", chaos=RES_STRAGGLER, fn=timed)
+    res["straggler"] = {"impls": [c.impl for c in h_plan.comms()],
+                        "bitwise": torch.equal(s_out, h_out) and torch.equal(s_lse, h_lse),
+                        "device_ms": h_ms, "device_ms_with_straggler": s_ms,
+                        "added_device_ms": s_ms - h_ms}
+    torch.cuda.synchronize()
+    res["launches"] = {n: c for n, c in csrc.launches.items() if c}
+    return res
+
+
+def resilience_cp(pools, seed: int) -> dict:
+    """The cp part on ranks sharing the card (cp 2, gloo): check without chaos
+    bit for bit off; the stage-0 plant caught on rank 0 only; repair finite
+    forward and backward; a plan build failure falling back to degree 0
+    within the kernel bound of the staged result; a hop-plan build failure
+    giving the a2a collective and its bits; a corrupted cast caught at the
+    stage that read it; a straggler leaving the bits and adding device ms."""
+    res = pools[2].run(resilience_cp_rank, seed)
+    launches = {}
+    for r in res:
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        check(r["check_bitwise_off"], f"resilience cp rank {r['rank']}: check differs from off")
+        check(r["stage0_check_raised"] == [["stage0"], None],
+              f"resilience cp: the stage-0 plant raised {r['stage0_check_raised']}")
+        check(all(r["repair_finite"].values()), f"resilience cp repair {r['repair_finite']}")
+        check(r["plan_error"]["degree"] == 0 and not r["plan_error"]["failed"],
+              f"resilience cp plan_error: {r['plan_error']}")
+        hb = r["hops_build_error"]
+        check(set(hb["impls"]) == {"a2a"} and set(hb["reasons"]) == {"degraded_hops_build_error"}
+              and hb["bitwise_a2a"], f"resilience cp hops_build_error: {hb}")
+        check(r["corrupt_cast_check_raised"] == [["stage0"], ["stage0"]],
+              f"resilience cp corrupt_cast: raised {r['corrupt_cast_check_raised']}")
+        check(r["straggler"]["bitwise"] and set(r["straggler"]["impls"]) == {"hops"},
+              f"resilience cp straggler: {r['straggler']}")
+    check(set(launches) == {"flex_fwd_hb", "flex_dq", "flex_dkv"}, f"resilience cp {launches}")
+    r0 = res[0]
+    return {"launches": launches, "cases": {
+        "check_no_chaos": "bitwise_off", "stage0_check": {"raised": r0["stage0_check_raised"]},
+        "stage0_repair": r0["repair_finite"], "plan_error": r0["plan_error"],
+        "hops_build_error": r0["hops_build_error"],
+        "corrupt_cast_check": {"raised": r0["corrupt_cast_check_raised"]},
+        "straggler": [r["straggler"] for r in res]}}
+
+
+def resilience_row_blocks(gen) -> dict:
+    """A flat ``paged_decode`` of RES_ROW_SEQS one-page sequences at 8 / 8
+    heads, d 64, bf16: past the grid's 65,535 row groups, so it launches in
+    row blocks, and it must equal the plain version."""
+    import torch
+    from magiattention_tpu_torch.serving import (
+        decode_attn_paged, decode_reference, make_paged_kv_cache)
+
+    n, ps, h, d = RES_ROW_SEQS, RES_ROW_PAGE, RES_ROW_HEADS, RES_ROW_D
+    cache = make_paged_kv_cache(n + 1, ps, h, d, max_seqs=n, max_pages_per_seq=1,
+                                dtype=torch.bfloat16)
+    cache.k_pages.copy_(torch.randn(cache.k_pages.shape, generator=gen, device="cuda"))
+    cache.v_pages.copy_(torch.randn(cache.v_pages.shape, generator=gen, device="cuda"))
+    cache.block_tables[:, 0] = torch.arange(1, n + 1, device="cuda", dtype=cache.block_tables.dtype)
+    cache.seq_lens.copy_(torch.randint(1, ps + 1, (n,), generator=gen, device="cuda"))
+    q = torch.randn((n, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    launches = {}
+    out, lse = counted(launches, lambda: decode_attn_paged(q, cache, torch.arange(n,
+                                                                                 device="cuda")))
+    check(launches == {"paged_decode": 2}, f"resilience row blocks: launches {launches}")
+    ref_out, ref_lse = decode_reference(q, cache, cache.block_tables, cache.seq_lens)
+    compare("paged_decode", f"row_blocks_{n}", out, ref_out, lse, ref_lse)
+    err = float((out.float() - ref_out).abs().max())
+    del cache, q
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cases": {"row_blocks": {
+        "sequences": n, "heads": [h, h], "head_dim": d, "page": ps, "out_max_abs_err": err}}}
+
+
+def resilience_phase(parts: dict, t0: float) -> dict:
+    """The resilience line: every part's cases, the guards' cost by mode, and
+    the phase's launches summed over its parts (each part's counts zeroed
+    just before it)."""
+    launches = {}
+    for part in parts.values():
+        for n, c in part["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    return {"phase": "resilience", "card": nvidia_smi_line(),
+            "guard_cost_decode": parts["decode"]["guard_cost"],
+            "cases": {name: part["cases"] for name, part in parts.items()},
+            "launches": launches, "launches_by_part": {n: p["launches"] for n, p in parts.items()},
+            "wall_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5451,6 +5877,9 @@ def main(argv=None) -> int:
     dec_t = decode_timing(engine, slots, gen, planted)
     emit({"phase": "decode_timing", **dec_t})
     tp_line = tiered_tp_decode(engine, slots, gen)  # the tiered phase's TP decode, on this pool
+    res_t0 = time.perf_counter()
+    res_parts = {"decode": resilience_decode(engine, slots, gen)}  # the resilience phase's first part
+    res_wall = time.perf_counter() - res_t0
     del engine
     torch.cuda.empty_cache()
     # multi-head widths (G = 1): the choice is head_block 1, the prefill flex_fwd
@@ -5505,6 +5934,9 @@ def main(argv=None) -> int:
         emit(cp_reuse_line)
         cp_decode_line = cp_decode_phase(pools, args.seed)
         emit(cp_decode_line)
+        res_t0 = time.perf_counter()
+        res_parts["cp"] = resilience_cp(pools, args.seed)
+        res_wall += time.perf_counter() - res_t0
     finally:
         for pool in pools.values():
             pool.close()
@@ -5514,6 +5946,11 @@ def main(argv=None) -> int:
     emit(sched_line)
     tiered_line = tiered_phase(gen, tp_line)
     emit(tiered_line)
+    res_t0 = time.perf_counter() - res_wall
+    res_parts.update(serving=resilience_serving(gen), tiers=resilience_tiers(gen),
+                     row_blocks=resilience_row_blocks(gen))
+    resilience_line = resilience_phase(res_parts, res_t0)
+    emit(resilience_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -5526,7 +5963,7 @@ def main(argv=None) -> int:
                "cp_xattn": cp_xattn_line["launches"],
                "cp_plan_reuse": cp_reuse_line["launches"],
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
-               "tiered": tiered_line["launches"]}
+               "tiered": tiered_line["launches"], "resilience": resilience_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

@@ -100,6 +100,7 @@ from ..parallel.dist_attn import (
     make_attn_params,
 )
 from ..parallel.qo_comm import QoCommPlan, build_qo_comm_plan, qo_comm_attn_local
+from ..resilience import guards
 from .functools import compute_pad_size, pad_at_dim
 
 GeneralAttnMaskType = str | AttnMaskType | Sequence[str | AttnMaskType]
@@ -173,8 +174,8 @@ def flags_fingerprint() -> tuple:
         env.is_sanity_check_enabled(),
         env.plan_reuse_mode(),
         env.unified_tick_mode(),
-        # refused until honoured (check_flag_comb), keyed as in the JAX
-        # package all the same; MAGI_ATTENTION_VALIDATE builds nothing else
+        # keyed as in the JAX package (numerics is refused until honoured,
+        # check_flag_comb); MAGI_ATTENTION_VALIDATE builds nothing else
         env.guard_mode(),
         env.chaos_spec(),
         env.numerics_mode(),
@@ -187,9 +188,9 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     ``check_flag_comb`` for the cp layout (``cp_group`` a
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
     pair), qo-comm and cross-attention (``xattn``), a kernel backend that
-    is not one of ``env.KERNEL_BACKENDS`` (a JAX name included), and the
-    guard, chaos, validate and numerics flags the port does not honour yet
-    (``env.refuse_unhonoured_flags``)."""
+    is not one of ``env.KERNEL_BACKENDS`` (a JAX name included), a guard or
+    chaos value outside its domain, and the validate and numerics flags the
+    port does not honour yet (``env.refuse_unhonoured_flags``)."""
     env.kernel_backend()  # raises on an unknown or JAX backend name
     env.refuse_unhonoured_flags("check_flag_comb")
     qo = env.is_qo_comm_enable()
@@ -350,7 +351,11 @@ class DistAttnRuntimeMgr:
         AttnForwardMeta(lse, max_logits))`` in the same layout;
         ``max_logits`` [hq] is max-reduced over the group (None on a
         qo-comm plan, as in the JAX package). ``sink`` overrides the key's
-        sink (a trainable sink gets its gradient)."""
+        sink (a trainable sink gets its gradient). With
+        ``MAGI_ATTENTION_GUARD`` on, the plan's partials are guarded and this
+        rank's error code is read here: ``check`` raises
+        ``NumericalGuardError`` naming the tripped sites on the rank that
+        saw them."""
         import torch.distributed as dist
 
         from ..comm.primitives import replicated
@@ -363,9 +368,17 @@ class DistAttnRuntimeMgr:
         if isinstance(self.plan, QoCommPlan):
             out, lse = qo_comm_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
             return out, AttnForwardMeta(lse=lse, max_logits=None)
-        out, lse, mx = dist_attn_local(q, k, v, self.plan, self.params, self.cp_group, sink=s)
+        thread_code = guards.guards_active()
+        res = dist_attn_local(q, k, v, self.plan, self.params, self.cp_group, sink=s,
+                              with_guard_code=thread_code)
+        out, lse, mx = res[:3]
         mx = mx.detach().clone()
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
+        if thread_code:
+            # the call boundary of the guards, after this call's last
+            # collective: this rank's code, read once (check raises
+            # NumericalGuardError naming the plan's sites)
+            guards.consume_error_code(res[3], guards.plan_guard_sites(self.plan))
         return out, AttnForwardMeta(lse=lse, max_logits=mx)
 
 

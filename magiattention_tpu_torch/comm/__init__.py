@@ -6,7 +6,9 @@ from .group_collective import (
     GroupCast,
     GroupCollectiveMeta,
     ReturnRows,
+    cast_transpose,
     group_cast,
+    group_cast_m,
     group_reduce_lse,
     group_reduce_sum,
     rank_routing,
@@ -35,7 +37,9 @@ __all__ = [
     "ReturnRows",
     "all2all_v",
     "all_gather_v",
+    "cast_transpose",
     "group_cast",
+    "group_cast_m",
     "group_cast_hier",
     "group_reduce_hier",
     "group_reduce_lse",

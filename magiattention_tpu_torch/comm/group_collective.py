@@ -20,10 +20,13 @@ routing arrays and resolves the same implementation
 The recv layout is the same in both: rows in (src rank, send position)
 order. On the device, each process holds its own routing row
 (:func:`rank_routing`); :func:`group_cast` packs rows by ``send_idx``,
-exchanges them and selects the received rows, :func:`group_reduce_sum` is
+exchanges them and selects the received rows, :func:`cast_transpose` is
 its transpose (index ops for the local pack and unpack), and
 :class:`GroupCast` is the ``torch.autograd.Function`` whose backward is
-that reduce, so that the dK/dV of rows another rank received come home.
+that transpose, so that the dK/dV of rows another rank received come home;
+:func:`group_reduce_sum` is the explicit GroupReduce with the sum op.
+The runtimes cast through :func:`group_cast_m`, where the cast's chaos
+injectors sit; the reduces carry theirs (``resilience/chaos.py``).
 :func:`group_reduce_lse` is the GroupReduce with the LSE op, which brings
 partial (out, lse) rows back to their owners and merges them there
 (qo-comm): the transport is :class:`ReturnRows`, whose backward is a cast
@@ -47,6 +50,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.correction import exp_where_finite
+from ..resilience import chaos
+from ..resilience.guards import quarantine_if_repair
 
 NEG_INF = float("-inf")
 
@@ -259,28 +264,21 @@ class GroupCollectiveMeta:
         impl_resolved, reason = _resolve_impl(impl, hop_specs, cp, S)
         hops: tuple[HopPlan, ...] = ()
         if impl_resolved == "hops":
-            # dst-side segment offsets of the (src-rank-major) recv layout
-            offsets = np.zeros((cp, cp), dtype=np.int64)
-            offsets[1:] = np.cumsum(sizes, axis=0)[:-1]  # [src, dst]
-            plans = []
-            for k, Sk in hop_specs:
-                h_send = np.zeros((cp, Sk), dtype=np.int32)
-                h_recv = np.full((cp, Sk), R, dtype=np.int32)
-                h_seg = np.zeros((cp, Sk), dtype=np.int32)
-                for r in range(cp):
-                    d = (r + k) % cp
-                    idx = np.asarray(send_map[r][d], dtype=np.int32).reshape(-1)
-                    h_send[r, : idx.size] = idx
-                    h_seg[r, : idx.size] = idx
-                    h_seg[r, idx.size :] = num_local_rows[r]
-                for d in range(cp):
-                    s = (d - k) % cp
-                    n = int(sizes[s, d])
-                    h_recv[d, :n] = offsets[s, d] + np.arange(n)
-                plans.append(
-                    HopPlan(shift=k, size=Sk, send_idx=h_send, recv_pos=h_recv, seg_ids=h_seg)
-                )
-            hops = tuple(plans)
+            try:
+                chaos.maybe_fail("hops_build_error")
+                hops = _hop_plans(send_map, num_local_rows, sizes, hop_specs, R)
+            except Exception as exc:  # noqa: BLE001 — the degradation path
+                # a failed hop-plan build falls back to the always-available
+                # globally padded a2a collective (correct, more wire volume),
+                # never silently; the JAX package also counts it
+                # (telemetry.record_degraded_path; ROADMAP A.15)
+                from ..telemetry.logger import get_logger
+
+                get_logger("resilience").warning(
+                    "hop-schedule build failed (%s: %s) — degrading this collective to the "
+                    "a2a impl", type(exc).__name__, exc)
+                impl_resolved, reason = "a2a", "degraded_hops_build_error"
+                hops = ()
         meta = GroupCollectiveMeta(
             cp_size=cp,
             max_send=S,
@@ -383,6 +381,32 @@ class GroupCollectiveMeta:
     @property
     def num_reduce_arrays(self) -> int:
         return 3 * len(self.hops) if self.impl == "hops" else 4
+
+
+def _hop_plans(send_map, num_local_rows, sizes, hop_specs, R) -> tuple[HopPlan, ...]:
+    """The per-hop routing arrays of :meth:`GroupCollectiveMeta.build`'s
+    hops impl."""
+    cp = len(send_map)
+    # dst-side segment offsets of the (src-rank-major) recv layout
+    offsets = np.zeros((cp, cp), dtype=np.int64)
+    offsets[1:] = np.cumsum(sizes, axis=0)[:-1]  # [src, dst]
+    plans = []
+    for k, Sk in hop_specs:
+        h_send = np.zeros((cp, Sk), dtype=np.int32)
+        h_recv = np.full((cp, Sk), R, dtype=np.int32)
+        h_seg = np.zeros((cp, Sk), dtype=np.int32)
+        for r in range(cp):
+            d = (r + k) % cp
+            idx = np.asarray(send_map[r][d], dtype=np.int32).reshape(-1)
+            h_send[r, : idx.size] = idx
+            h_seg[r, : idx.size] = idx
+            h_seg[r, idx.size :] = num_local_rows[r]
+        for d in range(cp):
+            s = (d - k) % cp
+            n = int(sizes[s, d])
+            h_recv[d, :n] = offsets[s, d] + np.arange(n)
+        plans.append(HopPlan(shift=k, size=Sk, send_idx=h_send, recv_pos=h_recv, seg_ids=h_seg))
+    return tuple(plans)
 
 
 # -- the device side ---------------------------------------------------------------
@@ -511,14 +535,18 @@ def rank_routing(meta: GroupCollectiveMeta, rank: int, num_local_rows: int,
 def group_cast(x: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
     """Multicast this rank's rows ``x`` [T, ...] along the routing; returns
     the [R, ...] rows this rank receives, in (src rank, send position)
-    order, padded rows zero."""
+    order, padded rows zero. A ``straggler`` chaos clause holds its hop's
+    received rows back (bit for bit unchanged)."""
     out = x.new_zeros((rt.max_recv,) + tuple(x.shape[1:]))
     if rt.impl == "hops":
+        straggle = chaos.enabled()
         for h in rt.hops:
             buf = x.index_select(0, h.send_idx)
             if h.shift % rt.cp_size:
                 buf = exchange(buf, (rt.rank + h.shift) % rt.cp_size,
                                (rt.rank - h.shift) % rt.cp_size, group)
+            if straggle:
+                buf = chaos.straggler_delay(buf, h.shift)
             n = h.recv_pos.shape[0]
             out.index_copy_(0, h.recv_pos, buf[:n])
         return out
@@ -528,11 +556,34 @@ def group_cast(x: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
     return out
 
 
+def group_cast_m(x: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
+    """The cast as the runtimes run it: :class:`GroupCast` (differentiable),
+    then the ``corrupt_cast`` and ``permute_cast`` chaos injectors on the
+    received rows (the JAX package's ``group_cast_m``), gated on this rank
+    of the flat group. They run outside the autograd Function, so autograd
+    sees ordinary ops; off, nothing runs."""
+    out = GroupCast.apply(x, rt, group)
+    if chaos.enabled():
+        out = chaos.corrupt_cast_payload(out, rank=rt.rank)
+    return out
+
+
 def group_reduce_sum(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
-    """The transpose of :func:`group_cast`: partial rows ``y`` [R, ...] in
-    the cast's output layout go back to their owners and are summed onto
-    the owner rows; returns this rank's [T, ...] sums (zero for rows it
-    sent nowhere)."""
+    """The GroupReduce with the sum op: partial rows ``y`` [R, ...] in the
+    cast's output layout go back to their owners and are summed onto the
+    owner rows; returns this rank's [T, ...] sums (zero for rows it sent
+    nowhere). A ``corrupt_reduce`` chaos clause plants its value into one
+    partial row first (the JAX package's ``group_reduce_sum_m``); the
+    cast's own backward is :func:`cast_transpose`, with no hook, as the
+    JAX package's transpose of the cast has none."""
+    if chaos.enabled():
+        y = chaos.corrupt_reduce_payload(y, rank=rt.rank)
+    return cast_transpose(y, rt, group)
+
+
+def cast_transpose(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
+    """The transpose of :func:`group_cast`: the rows of ``y`` [R, ...] summed
+    back onto the rows of this rank they came from ([T, ...])."""
     acc = y.new_zeros((rt.num_local_rows,) + tuple(y.shape[1:]))
     if rt.impl == "hops":
         for h in rt.hops:
@@ -554,7 +605,7 @@ def group_reduce_sum(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
 
 
 class GroupCast(torch.autograd.Function):
-    """:func:`group_cast` with :func:`group_reduce_sum` as its backward
+    """:func:`group_cast` with :func:`cast_transpose` as its backward
     (the cotangent of a received row is summed onto the row it came from:
     a2a for an a2a routing, the hops' exchanges for a hops routing)."""
 
@@ -565,7 +616,7 @@ class GroupCast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return group_reduce_sum(g.contiguous(), ctx.rt, ctx.group), None, None
+        return cast_transpose(g.contiguous(), ctx.rt, ctx.group), None, None
 
 
 class ReturnRows(torch.autograd.Function):
@@ -647,7 +698,17 @@ def group_reduce_lse(
     row's running max is held out of the gradient (the result does not
     depend on it). Differentiable in all four tensors; rows covered by no
     one get finite (zero) gradients. Returns (out in ``out_acc``'s dtype,
-    lse in f32 or wider)."""
+    lse in f32 or wider).
+
+    Resilience (the JAX package's ``group_reduce_lse_m``): a
+    ``corrupt_reduce`` chaos clause plants its value into one row of each
+    partial payload, then under ``MAGI_ATTENTION_GUARD=repair`` the bad
+    partial rows are quarantined (site ``"reduce_lse"``), so that each
+    merges as a no-op."""
+    if chaos.enabled():
+        out_partial = chaos.corrupt_reduce_payload(out_partial, rank=rt.rank)
+        lse_partial = chaos.corrupt_reduce_payload(lse_partial, rank=rt.rank)
+    out_partial, lse_partial = quarantine_if_repair(out_partial, lse_partial, "reduce_lse")
     parts_out = return_rows(out_partial, rt, group, 0.0)
     if not parts_out:
         return out_acc, lse_acc

@@ -44,8 +44,8 @@ from .group_collective import (
     RankRouting,
     _hop_padded_sizes,
     _resolve_impl,
+    cast_transpose,
     group_cast,
-    group_reduce_sum,
     rank_routing,
 )
 
@@ -539,8 +539,8 @@ def group_reduce_hier(y: torch.Tensor, hr: HierRouting, groups: HierCpGroups) ->
     there (rows several ranks of a node received from one source row add
     up at the gateway), then cross the inter subgroup once per unique row
     and are summed onto the owner rows; returns this rank's [T, ...] sums."""
-    gw = group_reduce_sum(y, hr.intra, groups.intra)
-    return group_reduce_sum(gw, hr.inter, groups.inter)
+    gw = cast_transpose(y, hr.intra, groups.intra)
+    return cast_transpose(gw, hr.inter, groups.inter)
 
 
 class GroupCastHier(torch.autograd.Function):

@@ -19,6 +19,20 @@ def _env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+def log_level() -> str:
+    """Level of the ``magiattention_tpu_torch`` logger tree
+    (``MAGI_ATTENTION_LOG_LEVEL``), applied by
+    ``telemetry.logger.configure_logging``."""
+    return _env_str("MAGI_ATTENTION_LOG_LEVEL", "WARNING")
+
+
+def log_level_explicit() -> bool:
+    """Whether ``MAGI_ATTENTION_LOG_LEVEL`` is set at all: only then does the
+    logging config claim the logger tree (an embedder's own
+    ``logging.basicConfig`` keeps control otherwise)."""
+    return "MAGI_ATTENTION_LOG_LEVEL" in os.environ
+
+
 def mask_skip_disabled() -> bool:
     """Debug: force the diagnostic needs-mask flag (``RUN_FIELDS`` slot 6)
     to 1 on every entry in ``ops/block_meta.py``. The kernels mask every
@@ -406,8 +420,10 @@ def is_cpp_backend_enabled() -> bool:
     return v.strip().lower() not in ("0", "false", "off", "no")
 
 
-# -- flags the port validates and refuses until their modules are ported -------
-# (the JAX package's accepted values and messages; env.refuse_unhonoured_flags)
+# -- the validate, numerics, guard and chaos flags ---------------------------------
+# (the JAX package's accepted values and messages; the port honours guard and
+# chaos, and refuses validate and numerics until their modules are ported:
+# env.refuse_unhonoured_flags)
 
 VALIDATE_MODES = ("off", "plan", "trace")
 
@@ -441,8 +457,8 @@ GUARD_MODES = ("off", "check", "repair")
 
 def guard_mode() -> str:
     """Numerical-guard mode (``MAGI_ATTENTION_GUARD``: off | check |
-    repair), validated here. The guards are not ported (ROADMAP A.13), so
-    any mode but ``off`` is refused. In ``flags_fingerprint``."""
+    repair), validated here; ``resilience/guards.py`` reads it. In
+    ``flags_fingerprint``."""
     v = _env_str("MAGI_ATTENTION_GUARD", "off").strip().lower()
     if v not in GUARD_MODES:
         raise ValueError(f"MAGI_ATTENTION_GUARD={v!r} must be one of {GUARD_MODES}")
@@ -451,9 +467,8 @@ def guard_mode() -> str:
 
 def chaos_spec() -> str:
     """Raw fault-injection spec (``MAGI_ATTENTION_CHAOS``; '' = off, the
-    default), grammar-validated here (``resilience/chaos.py``). The
-    injectors are not ported (ROADMAP A.13), so any non-empty spec is
-    refused. In ``flags_fingerprint``."""
+    default), grammar-validated here; ``resilience/chaos.py`` parses it and
+    its injectors read it. In ``flags_fingerprint``."""
     v = _env_str("MAGI_ATTENTION_CHAOS", "").strip()
     if v:
         from .resilience.chaos import parse_chaos_spec
@@ -464,12 +479,12 @@ def chaos_spec() -> str:
 
 def refuse_unhonoured_flags(where: str) -> None:
     """Raise ``ValueError`` naming ``where`` when a flag the port reads but
-    does not yet honour is set: ``MAGI_ATTENTION_GUARD`` or ``_CHAOS``
-    (ROADMAP A.13), ``_VALIDATE`` (A.18), ``_NUMERICS`` (A.15). A value
-    outside a flag's domain raises its accessor's message first."""
+    does not yet honour is set: ``MAGI_ATTENTION_VALIDATE`` (ROADMAP A.18)
+    or ``_NUMERICS`` (A.15). A value outside a flag's domain raises its
+    accessor's message first, the guard and chaos flags' included."""
+    guard_mode()
+    chaos_spec()
     refused = [(name, value, item) for name, value, item in (
-        ("MAGI_ATTENTION_GUARD", guard_mode(), "A.13"),
-        ("MAGI_ATTENTION_CHAOS", chaos_spec(), "A.13"),
         ("MAGI_ATTENTION_VALIDATE", validate_mode(), "A.18"),
         ("MAGI_ATTENTION_NUMERICS", numerics_mode(), "A.15"),
     ) if value not in ("", "off")]

@@ -76,7 +76,18 @@ def correct_attn_out_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Merge two partial (out, lse) pairs over disjoint KV sets:
     out = exp(lse1 - lse) * out1 + exp(lse2 - lse) * out2; rows covered by
-    neither stay (0, -inf). f32 internally."""
+    neither stay (0, -inf). f32 internally.
+
+    Under ``MAGI_ATTENTION_GUARD=repair`` each input partial is quarantined
+    first (``resilience.guards.quarantine_if_repair``, site
+    ``"correction"``): rows with a NaN or +inf lse or a non-finite out merge
+    as (0, -inf) no-ops, in every merge tree built on this function (the
+    decode splits, the cascade's levels, the tick's pairs, cp decode, the cp
+    stages). ``off`` and ``check`` add no op."""
+    from ..resilience.guards import quarantine_if_repair
+
+    out1, lse1 = quarantine_if_repair(out1, lse1, "correction")
+    out2, lse2 = quarantine_if_repair(out2, lse2, "correction")
     lse = safe_lse_merge(lse1, lse2)
     return correct_attn_out(out1, lse1, out2, lse2, lse), lse
 

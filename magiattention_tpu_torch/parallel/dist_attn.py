@@ -34,6 +34,11 @@ The kernels are the row-major ``flex_fwd_hb`` (head_block > 1) or
 versions). The cast is ``comm.GroupCast`` (a hierarchical plan:
 ``comm.GroupCastHier`` over the ``HierCpGroups`` subgroups), whose
 backward sums the dK/dV of received rows back onto their owners.
+
+Resilience, as in the JAX package: a plan build that fails falls back to
+the degree-0 plan (:func:`build_dist_attn_plan`), and each kernel partial
+takes the chaos injector and the numerical guard before it merges
+(:func:`dist_attn_local`).
 """
 
 from __future__ import annotations
@@ -50,9 +55,9 @@ from ..common.axes import split_cp_group
 from ..common.mask import slice_area
 from ..common.ranges import AttnRanges
 from ..comm.group_collective import (
-    GroupCast,
     GroupCollectiveMeta,
     RankRouting,
+    group_cast_m,
     predicted_volume_ratio,
     rank_routing,
 )
@@ -354,7 +359,44 @@ def build_dist_attn_plan(
     side's own ``kv_dispatch_meta`` for cross-attention. ``cp_mesh_shape``
     (n_inter, n_intra) plans hierarchical two-level comm over that layout
     of the ranks (rank = inter * n_intra + intra): every cast, merged or
-    staged, becomes a ``HierGroupCollectiveMeta``."""
+    staged, becomes a ``HierGroupCollectiveMeta``.
+
+    A build that fails (an injected ``plan_error`` included) falls back to
+    the dense degree-0 plan (one merged cast, one kernel call) with a
+    warning on the ``resilience`` logger; a degree-0 build that fails
+    raises, as there is nothing left to fall back to."""
+    kw = dict(kv_dispatch_meta=kv_dispatch_meta, block_q=block_q, block_k=block_k,
+              cp_mesh_shape=cp_mesh_shape)
+    try:
+        return _build_dist_attn_plan(dispatch_meta, bucket, overlap_config=overlap_config, **kw)
+    except Exception as exc:  # noqa: BLE001 — the degradation path
+        cfg = overlap_config or OverlapConfig()
+        if cfg.degree == 0:
+            raise  # the fallback is the path that failed
+        from ..telemetry.logger import get_logger
+
+        # the JAX package also counts it (telemetry.record_degraded_path;
+        # ROADMAP A.15)
+        get_logger("resilience").warning(
+            "plan build failed (%s: %s) — degrading to the dense single-bucket degree-0 plan",
+            type(exc).__name__, exc)
+        return _build_dist_attn_plan(dispatch_meta, bucket,
+                                     overlap_config=dataclasses.replace(cfg, degree=0), **kw)
+
+
+def _build_dist_attn_plan(
+    dispatch_meta: DispatchMeta,
+    bucket: AttnBucket,
+    *,
+    kv_dispatch_meta: DispatchMeta | None = None,
+    block_q: int = 64,
+    block_k: int = 64,
+    overlap_config: OverlapConfig | None = None,
+    cp_mesh_shape: tuple[int, int] | None = None,
+) -> DistAttnPlan:
+    from ..resilience import chaos
+
+    chaos.maybe_fail("plan_error")  # an injectable solver / build failure
     cp = dispatch_meta.cp_size
     shard_len = dispatch_meta.shard_seqlen
     kv_meta = kv_dispatch_meta or dispatch_meta
@@ -714,11 +756,12 @@ def _seq(out_h, lse_h, n):
 
 
 def _cast(payload, rt, group):
-    """One cast of the plan: flat (``GroupCast`` over the cp group) or
-    hierarchical (``GroupCastHier`` over the ``HierCpGroups``' levels)."""
+    """One cast of the plan: flat (``group_cast_m`` over the cp group, with
+    the cast's chaos injectors) or hierarchical (``GroupCastHier`` over the
+    ``HierCpGroups``' levels, which has none, as in the JAX package)."""
     if isinstance(rt, HierRouting):
         return GroupCastHier.apply(payload, rt, group)
-    return GroupCast.apply(payload, rt, group)
+    return group_cast_m(payload, rt, group)
 
 
 class _Stream:
@@ -768,6 +811,7 @@ def dist_attn_local(
     group,
     *,
     sink: torch.Tensor | None = None,
+    with_guard_code: bool = False,
 ):
     """The context-parallel hot path, one call per rank (each process
     passes its own shards and the process group of the cp ranks, or for a
@@ -777,13 +821,40 @@ def dist_attn_local(
     rank-local per-head max logit [hq]: all-reduce it with MAX across the
     group for the global value). Differentiable in q, k, v and sink: the
     backward runs ``flex_dq`` / ``flex_dkv`` on this rank's tables and sums
-    the dK/dV of the rows other ranks received back onto this rank."""
+    the dK/dV of the rows other ranks received back onto this rank.
+
+    Resilience: each partial (the merged one at degree 0; the host stage's,
+    then each stage's before its merge) takes the ``corrupt_partial`` chaos
+    injector, then the guard (sites ``resilience.plan_guard_sites(plan)``,
+    in bit order). ``with_guard_code``: also return this rank's int32 guard
+    code (a device tensor) as a 4th output, for the caller to read at its
+    boundary; the keyed runtime does. Off, the path is unchanged."""
     import torch.distributed as dist
+
+    from ..resilience import chaos, guards
 
     if params.has_sink != (sink is not None):
         raise ValueError("params.has_sink must match whether a sink is given")
     flat, group = _cast_groups(plan, group)
     rank = dist.get_rank(flat)
+    gmode = guards.guard_mode()
+    code = guards.new_error_code(q.device) if with_guard_code else None
+    # a hierarchical plan plants on every rank, as the JAX package does there
+    chaos_rank = rank if plan.hier is None else None
+
+    def resilient(out_p, lse_p, site, site_index):
+        # chaos upstream of the guard: an injected fault travels the path an
+        # organic kernel NaN would
+        nonlocal code
+        if chaos.enabled():
+            out_p, lse_p = chaos.corrupt_partial(out_p, lse_p, site, rank=chaos_rank)
+        if gmode != "off":
+            out_p, lse_p, code = guards.guard_partial(out_p, lse_p, code, site_index, site)
+        return out_p, lse_p
+
+    def result(out, lse, mx):
+        return (out, lse, mx, code) if with_guard_code else (out, lse, mx)
+
     tabs = rank_tables(plan, rank, str(q.device))
     n, nk = plan.shard_q_len, plan.shard_k_len
     if q.shape[0] != n or k.shape[0] != nk or v.shape[0] != nk:
@@ -803,8 +874,8 @@ def dist_attn_local(
         buf = _kv_buffer((kv, recv), kv_pad, k)
         out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, params,
                                                    sink=sink)
-        out, lse = _seq(out_h, lse_h, n)
-        return out, lse, rowmax.amax(dim=1)
+        out, lse = resilient(*_seq(out_h, lse_h, n), "merged", 0)
+        return result(out, lse, rowmax.amax(dim=1))
 
     # staged: the host stage (own shard, with the sink) and D sink-free
     # remote stages merged in by their lse, the accumulator kept in fp32
@@ -816,14 +887,14 @@ def dist_attn_local(
         qh, buf[0], buf[1], ftab, btab, dataclasses.replace(params, out_dtype=acc_dtype),
         sink=sink,
     )
-    out, lse = _seq(out_h, lse_h, n)
+    out, lse = resilient(*_seq(out_h, lse_h, n), "host", 0)
     mx = rowmax.amax(dim=1)
     stage_params = dataclasses.replace(params, has_sink=False, out_dtype=acc_dtype)
-    for (ftab, btab, kv_pad), rt in zip(tabs.kernel[1:], tabs.casts):
+    for i, ((ftab, btab, kv_pad), rt) in enumerate(zip(tabs.kernel[1:], tabs.casts)):
         recv = stream.cast(kv, rt, group)
         buf = _kv_buffer((recv,), kv_pad, k)
         out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, stage_params)
-        out_i, lse_i = _seq(out_h, lse_h, n)
+        out_i, lse_i = resilient(*_seq(out_h, lse_h, n), f"stage{i}", 1 + i)
         out, lse = correct_attn_out_lse(out, lse, out_i, lse_i)
         mx = torch.maximum(mx, rowmax.amax(dim=1))
-    return out.to(params.out_dtype), lse, mx
+    return result(out.to(params.out_dtype), lse, mx)

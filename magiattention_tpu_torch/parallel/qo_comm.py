@@ -18,7 +18,10 @@ keyed API passes its MinHeap-balanced one).
 
 Everything is differentiable: the Q and K/V casts (``comm.GroupCast``)
 send dQ and dK/dV home in their backward, the O-return reduce carries the
-lse cotangent, and a sink is folded in once after the merge.
+lse cotangent, and a sink is folded in once after the merge. The casts'
+and the LSE reduce's chaos injectors and the reduce's repair quarantine
+sit in ``comm.group_collective`` (``group_cast_m``, ``group_reduce_lse``),
+as in the JAX package: qo-comm adds no hook of its own.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ import numpy as np
 import torch
 
 from ..comm.group_collective import (
-    GroupCast,
     GroupCollectiveMeta,
     RankRouting,
+    group_cast_m,
     group_reduce_lse,
     rank_routing,
 )
@@ -299,8 +302,8 @@ def qo_comm_attn_local(
                          f"{q.shape[0]}/{k.shape[0]}/{v.shape[0]}")
     tabs = qo_rank_tables(plan, dist.get_rank(group), str(q.device))
     ftab, btab, kv_pad = tabs.kernel
-    qb = GroupCast.apply(q, tabs.q, group)  # [R_q, hq, d]
-    kvb = GroupCast.apply(torch.stack([k, v], dim=1), tabs.kv, group)  # [R_kv, 2, hk, d]
+    qb = group_cast_m(q, tabs.q, group)  # [R_q, hq, d]
+    kvb = group_cast_m(torch.stack([k, v], dim=1), tabs.kv, group)  # [R_kv, 2, hk, d]
     buf = _kv_buffer((kvb,), kv_pad, k)
     out_h, lse_h, _ = flex_attn_headmajor(
         _hm(qb, plan.q_buf_pad), buf[0], buf[1], ftab, btab,

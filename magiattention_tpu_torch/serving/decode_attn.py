@@ -21,6 +21,14 @@ the broadcast table).
 Split-count resolution: explicit argument > ``MAGI_ATTENTION_DECODE_SPLITS``
 > the Hopper rule of :func:`resolve_num_splits` (one split), always clamped
 to a divisor of the block-table width.
+
+Resilience: between the split partials and their merge, on the kernel path
+and the plain one alike, each partial ``split{i}`` takes the chaos
+injectors, then the guard (:func:`_apply_split_resilience`); the error code
+is read at :func:`decode_attn_paged`, :func:`decode_partials_for_tables`
+and :func:`_decode_shared_prefix` (``check`` raises
+``NumericalGuardError`` naming the splits). :func:`decode_reference` stays
+outside every hook. Off, no hook runs a tensor op.
 """
 
 from __future__ import annotations
@@ -43,9 +51,25 @@ KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_MAX_GROUP = {torch.bfloat16: 16, torch.float32: 8}
 # q rows one block serves in the shared mode (decode_sm90.cuh MAX_ROWS,
-# decode_simt.cuh MAXG); the row groups go on gridDim.z, at most 65535
+# decode_simt.cuh MAXG); the row groups go on gridDim.z, at most 65535 a
+# launch, so a larger batch launches in row blocks (kernel_row_blocks)
 KERNEL_SHARED_ROWS = {torch.bfloat16: 32, torch.float32: 8}
 KERNEL_MAX_ROW_GROUPS = 65535
+
+
+def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool) -> list[tuple[int, int]]:
+    """The query ranges ``[lo, hi)`` that ``paged_decode`` launches one at a
+    time, each of at most :data:`KERNEL_MAX_ROW_GROUPS` row groups: one row
+    group per query in the flat mode, ``KERNEL_SHARED_ROWS`` q rows (a
+    query's ``group`` heads each) per row group in the shared mode. Every
+    row's walk is the same in any block, so the blocks give the bits of one
+    launch."""
+    per = KERNEL_MAX_ROW_GROUPS
+    if shared:
+        per = KERNEL_MAX_ROW_GROUPS * KERNEL_SHARED_ROWS[dtype] // max(int(group), 1)
+    if b <= per:
+        return [(0, b)]
+    return [(lo, min(lo + per, b)) for lo in range(0, b, per)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +121,9 @@ def _split_partial_torch(q, k, v, pos0: int, valid_len, scale: float, softcap: f
 
 def _decode_torch(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     """Plain version: gather each split's pages densely, compute its partial,
-    tree-merge. ``bt`` [b, W] / ``seq_lens`` [b] are the batch's
-    block-table rows and true lengths. Returns f32 (out [b, hq, d], lse
-    [b, hq])."""
+    take the resilience hooks, tree-merge. ``bt`` [b, W] / ``seq_lens`` [b]
+    are the batch's block-table rows and true lengths. Returns f32 (out
+    [b, hq, d], lse [b, hq]) and the guard code (None with guards off)."""
     b = q.shape[0]
     ps = cache.page_size
     s = params.num_splits
@@ -115,7 +139,8 @@ def _decode_torch(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
         )
         outs.append(o)
         lses.append(l)
-    return merge_partials(outs, lses)
+    outs, lses, code = _apply_split_resilience(outs, lses)
+    return (*merge_partials(outs, lses), code)
 
 
 def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams,
@@ -124,7 +149,8 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     launch. ``shared``: ``bt`` [1, W] and ``seq_lens`` [1] hold one table
     row and length that every query reads (the kernel's shared mode).
     Returns (out_parts [b, s, hq, d] f32, lse_parts [b, s, hq] f32). Raises
-    on what the kernel does not take."""
+    on what the kernel does not take. A batch past the grid's row groups
+    launches in row blocks (:func:`kernel_row_blocks`)."""
     b, hq, d = q.shape
     hk = cache.num_kv_heads
     if q.requires_grad:
@@ -152,12 +178,6 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
             f"({'shared' if shared else 'flat'} mode, {b} queries); got "
             f"{tuple(bt.shape)} and {tuple(seq_lens.shape)}"
         )
-    # one row group per sequence (flat), or the members' rows in blocks (shared)
-    groups = -(-b * (hq // hk) // min(b * (hq // hk), KERNEL_SHARED_ROWS[q.dtype])) if shared else b
-    if groups > KERNEL_MAX_ROW_GROUPS:
-        raise ValueError(
-            f"paged_decode: {b} query rows make {groups} row groups, past the grid's "
-            f"{KERNEL_MAX_ROW_GROUPS} (gridDim.z); launch the rows in blocks")
     s = params.num_splits
     mpp = bt.shape[1]
     q = q.contiguous()
@@ -165,25 +185,64 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     seq_lens = seq_lens.to(torch.int32).contiguous()
     out_parts = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
     lse_parts = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
-    csrc.launch(
-        "paged_decode",
-        q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-        bt.data_ptr(), seq_lens.data_ptr(),
-        out_parts.data_ptr(), lse_parts.data_ptr(),
-        b, hq, hk, d, cache.page_size, mpp, s, int(shared),
-        int(q.dtype == torch.float32), int(params.cluster_heads or hk),
-        float(params.scale), float(params.softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # past the grid's row groups (gridDim.z), one launch per block of rows
+    for lo, hi in kernel_row_blocks(b, hq // hk, q.dtype, shared):
+        rows_bt, rows_sl = (bt, seq_lens) if shared else (bt[lo:hi], seq_lens[lo:hi])
+        csrc.launch(
+            "paged_decode",
+            q[lo:hi].data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+            rows_bt.data_ptr(), rows_sl.data_ptr(),
+            out_parts[lo:hi].data_ptr(), lse_parts[lo:hi].data_ptr(),
+            hi - lo, hq, hk, d, cache.page_size, mpp, s, int(shared),
+            int(q.dtype == torch.float32), int(params.cluster_heads or hk),
+            float(params.scale), float(params.softcap),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     return out_parts, lse_parts
+
+
+def _apply_split_resilience(outs, lses):
+    """The chaos injectors, then the guard, on each split partial (site
+    ``split{i}``), upstream of the merge: ``(outs, lses, code)``, the code
+    an int32 tensor on the partials' device (None with guards off). With
+    chaos and guards off it returns the inputs and runs no tensor op."""
+    from ..resilience import chaos, guards
+
+    active = guards.guards_active()
+    if not (chaos.enabled() or active):
+        return outs, lses, None
+    code = guards.new_error_code(outs[0].device) if active else None
+    new_outs, new_lses = [], []
+    for i, (o, l) in enumerate(zip(outs, lses)):
+        site = f"split{i}"
+        o, l = chaos.corrupt_partial(o, l, site)
+        if active:
+            o, l, code = guards.guard_partial(o, l, code, i, site)
+        new_outs.append(o)
+        new_lses.append(l)
+    return new_outs, new_lses, code
 
 
 def _merge_splits(out_parts, lse_parts):
     """The kernel's per-split partials merged: f32 (out [b, hq, d], lse [b, hq])."""
+    return _merge_parts(out_parts, lse_parts)[:2]
+
+
+def _merge_parts(out_parts, lse_parts):
+    """The kernel's per-split partials through the resilience hooks, then
+    merged: f32 (out [b, hq, d], lse [b, hq]) and the guard code."""
     s = out_parts.shape[1]
-    return merge_partials(
-        [out_parts[:, i] for i in range(s)], [lse_parts[:, i] for i in range(s)]
-    )
+    outs, lses, code = _apply_split_resilience(
+        [out_parts[:, i] for i in range(s)], [lse_parts[:, i] for i in range(s)])
+    return (*merge_partials(outs, lses), code)
+
+
+def _consume(code, num_splits: int) -> None:
+    """Read a split guard code at the call boundary (``check`` raises)."""
+    if code is not None:
+        from ..resilience import guards
+
+        guards.consume_error_code(code, guards.split_guard_sites(num_splits))
 
 
 def _plain(q, cache: PagedKVCache, bt) -> bool:
@@ -196,10 +255,11 @@ def _plain(q, cache: PagedKVCache, bt) -> bool:
 
 
 def _decode(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
-    """Split-KV decode where the tensors are: f32 (out [b, hq, d], lse [b, hq])."""
+    """Split-KV decode where the tensors are: f32 (out [b, hq, d], lse
+    [b, hq]) and the split guard code."""
     if _plain(q, cache, bt):
         return _decode_torch(q, cache, bt, seq_lens, params)
-    return _merge_splits(*_decode_partials_kernel(q, cache, bt, seq_lens, params))
+    return _merge_parts(*_decode_partials_kernel(q, cache, bt, seq_lens, params))
 
 
 def _decode_shared_prefix(
@@ -217,7 +277,10 @@ def _decode_shared_prefix(
     table that repeats ``shared_pages`` for every query. On CUDA the
     kernel's shared mode reads each shared page once for up to 32 q rows
     across members (8 on the float32 walk); on the CPU the plain version
-    runs over the broadcast table. Returns f32 ``(out [m, hq, d], lse [m, hq])``."""
+    runs over the broadcast table. The split partials take the resilience
+    hooks, and the guard code is read here, as the JAX package reads it in
+    ``decode_partials_for_tables``. Returns f32 ``(out [m, hq, d], lse
+    [m, hq])``."""
     _check_q(q, cache, "_decode_shared_prefix")
     m, _, d = q.shape
     params = DecodeParams(
@@ -229,8 +292,12 @@ def _decode_shared_prefix(
     bt = shared_pages.to(torch.int32)[None]  # [1, W]
     sl = torch.full((1,), int(prefix_len), dtype=torch.int32, device=bt.device)
     if _plain(q, cache, bt):
-        return _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
-    return _merge_splits(*_decode_partials_kernel(q, cache, bt, sl, params, shared=True))
+        out, lse, code = _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
+    else:
+        out, lse, code = _merge_parts(*_decode_partials_kernel(q, cache, bt, sl, params,
+                                                               shared=True))
+    _consume(code, params.num_splits)
+    return out, lse
 
 
 def _clamp_splits(num_splits: int, width: int) -> int:
@@ -305,7 +372,9 @@ def decode_partials_for_tables(
         num_splits=_clamp_splits(num_splits, bt.shape[1]),
         out_dtype=torch.float32,
     )
-    return _decode(q, cache, bt, seq_lens.to(torch.int32), params)
+    out, lse, code = _decode(q, cache, bt, seq_lens.to(torch.int32), params)
+    _consume(code, params.num_splits)
+    return out, lse
 
 
 def decode_reference(
@@ -318,8 +387,9 @@ def decode_reference(
     softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single-split f32 plain decode over explicit tables, on any device —
-    the oracle the kernel is held against. Returns f32 ``(out [b, hq, d],
-    lse [b, hq])``."""
+    the oracle the kernel is held against, outside every resilience hook (a
+    planted fault hits the production output only). Returns f32 ``(out
+    [b, hq, d], lse [b, hq])``."""
     b, hq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -346,7 +416,10 @@ def decode_attn_paged(
     Each query attends to its sequence's first ``seq_lens[slot]`` cached
     tokens (append the step's own KV first for standard causal decode).
     ``cluster_heads``: see :class:`DecodeParams` (0 for a call of its own).
-    Returns ``(out [b, hq, head_dim] in out_dtype, lse [b, hq] f32)``.
+    Under ``MAGI_ATTENTION_GUARD=check`` a non-finite split partial raises
+    ``NumericalGuardError`` naming its splits; under ``repair`` its bad
+    rows merge as no-ops. Returns ``(out [b, hq, head_dim] in out_dtype,
+    lse [b, hq] f32)``.
     """
     from .. import env
 
@@ -363,5 +436,6 @@ def decode_attn_paged(
     slots = slots.to(device=cache.device, dtype=torch.long)
     bt = cache.block_tables[slots]  # [b, MPP]
     seq_lens = cache.seq_lens[slots]  # [b]
-    out, lse = _decode(q, cache, bt, seq_lens, params)
+    out, lse, code = _decode(q, cache, bt, seq_lens, params)
+    _consume(code, params.num_splits)
     return out.to(params.out_dtype), lse

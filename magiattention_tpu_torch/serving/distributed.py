@@ -27,14 +27,14 @@ from one controller over a JAX device mesh to one process over a list of
 - **Fleet resilience.** :meth:`TieredEngine.admit` answers
   ``decode_saturated`` while no live replica could take the request or the
   stream queue is full, so a requeued request never lands on a saturated
-  tier. A page-allocator failure during a replica's decode growth tears down
-  only that replica (:class:`DecodeTierFault` names its sequences, which the
-  scheduler replays through the prefill tier) and rebuilds it with a fresh
-  pool.
+  tier. A replica-local failure in a decode step (an injected
+  ``decode_fault`` chaos, or a page-allocator failure during the replica's
+  growth) tears down only that replica (:class:`DecodeTierFault` names its
+  sequences, which the scheduler replays through the prefill tier) and
+  rebuilds it with a fresh pool.
 
-Not ported yet: the ``decode_fault`` chaos site (ROADMAP A.13; the port
-refuses any chaos spec until then), and the telemetry, trace spans, flight
-recorder and ``memory_snapshot`` (A.15); none of them changes a schedule.
+Not ported yet: the telemetry, trace spans, flight recorder and
+``memory_snapshot`` (ROADMAP A.15); none of them changes a schedule.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from typing import Sequence
 
 import torch
 
+from ..resilience import chaos
 from .decode_attn import decode_attn_paged, resolve_num_splits
 from .engine import AdmissionResult, ServingEngine, decode_program_label
 from .kv_cache import (
@@ -475,8 +476,9 @@ class TieredEngine:
 
     def decode_step(self, q, k_new, v_new, sids, **kw):
         """One decode step over placed sequences, one engine step per
-        replica. A page-allocator failure during a replica's growth fails
-        only that replica: its sequences are torn down for replay and a
+        replica. A replica-local failure (an injected ``decode_fault``, or a
+        page-allocator failure during the replica's growth) fails only that
+        replica: its sequences are torn down for replay and a
         :class:`DecodeTierFault` names them (the other replicas' tokens of
         this call are lost with it; the :class:`TieredScheduler` calls per
         replica). Outputs come back on ``q``'s device."""
@@ -497,8 +499,9 @@ class TieredEngine:
                 qs, ks, vs = q[pidx], k_new[pidx], v_new[pidx]
             dev = rep.devices[0]
             try:
+                chaos.maybe_fail("decode_fault")
                 o, l = rep.engine.decode_step(qs.to(dev), ks.to(dev), vs.to(dev), dslots, **kw)
-            except PageAllocatorError as e:
+            except (chaos.ChaosInjectedError, PageAllocatorError) as e:
                 affected = self.fail_replica(r, reason=repr(e))
                 raise DecodeTierFault(r, affected, repr(e)) from e
             if len(by_rep) == 1:  # rows in order: the replica's batch is the answer

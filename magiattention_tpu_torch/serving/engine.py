@@ -35,6 +35,8 @@ import torch
 from ..common.enum import AttnMaskType
 from ..ops.block_sparse import TickEnumeration
 from ..ops.flex_attn import flex_flash_attn_func
+from ..resilience import chaos
+from ..resilience.chaos import ChaosInjectedError
 from .decode_attn import decode_attn_paged, resolve_num_splits
 from .kv_cache import (
     PageAllocator,
@@ -296,7 +298,8 @@ class ServingEngine:
         is short), then live sequences whose ``priority`` is strictly below
         the incoming one (lowest first, at most
         ``max_admission_evictions``); if it still does not fit the verdict
-        is backpressure."""
+        is backpressure. An allocator failure after the probe (an injected
+        ``alloc_fail`` included) answers ``alloc_error``."""
         need = max(self.allocator.pages_needed(num_tokens), 1)
         if need > self.allocator.max_pages_per_seq:
             return AdmissionResult(False, None, "too_long")
@@ -314,7 +317,7 @@ class ServingEngine:
                 if self.allocator.can_fork(match.pages, num_tokens):
                     try:
                         slot, pages = self.allocator.fork(match.pages, num_tokens)
-                    except PageAllocatorError:
+                    except (ChaosInjectedError, PageAllocatorError):
                         return AdmissionResult(False, None, "alloc_error", tuple(evicted))
                     self._install(slot, pages, keep_len=match.length)
                     shared_full = (match.pages[: match.full_pages],
@@ -324,7 +327,7 @@ class ServingEngine:
             elif self.allocator.can_admit(num_tokens):
                 try:
                     slot, pages = self.allocator.allocate(num_tokens)
-                except PageAllocatorError:
+                except (ChaosInjectedError, PageAllocatorError):
                     return AdmissionResult(False, None, "alloc_error", tuple(evicted))
                 self._install(slot, pages)
                 return self._finish_admit(slot, priority, tokens, evicted)
@@ -430,9 +433,10 @@ class ServingEngine:
         a prompt the prefix covered whole. When the admission's token ids
         are all written, the prompt is registered as a shareable prefix
         (:meth:`commit_prefix`). ``length`` (a padded prompt) is supported
-        on the one-shot path only. A failure mid prefill releases the slot
-        before re-raising, so its pages are not leaked; a refused
-        reservation growth or copy-on-write split changes nothing."""
+        on the one-shot path only. A failure mid prefill (an injected
+        ``prefill_error`` included) releases the slot before re-raising, so
+        its pages are not leaked; a refused reservation growth or
+        copy-on-write split changes nothing."""
         from .. import env
 
         t = q.shape[0]
@@ -445,6 +449,7 @@ class ServingEngine:
         self._ensure_reserved(slot, start + wrote)
         self._ensure_writable(slot, start)
         try:
+            chaos.maybe_fail("prefill_error")
             if start == 0 and (chunk is None or t <= chunk):
                 out, lse = prefill_into_cache(q, k, v, self.cache, slot, length=length, **kw)
             else:
@@ -681,6 +686,8 @@ class ServingEngine:
         resolved = resolve_tick_splits(num_splits, self.cache, entries)
         label = tick_program_label(rows, entries, resolved)
         try:
+            if prefill_rows:
+                chaos.maybe_fail("prefill_error")
             if decode_items:
                 batch = DecodeBatch.of(decode_slots, self.device)
                 k_new = torch.stack([it[2] for it in decode_items])

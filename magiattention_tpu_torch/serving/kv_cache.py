@@ -360,6 +360,10 @@ class PageAllocator:
         return -(-max(int(num_tokens), 0) // self.page_size)
 
     def can_admit(self, num_tokens: int) -> bool:
+        from ..resilience import chaos
+
+        if chaos.pool_exhausted():
+            return False
         need = max(self.pages_needed(num_tokens), 1)
         return (
             bool(self._free_slots)
@@ -369,11 +373,17 @@ class PageAllocator:
 
     def allocate(self, num_tokens: int) -> tuple[int, list[int]]:
         """Admit a sequence needing ``num_tokens`` of KV (whole pages, at
-        least one). Returns (slot, page list)."""
+        least one). Returns (slot, page list). Every failure, the chaos
+        injectors' (``alloc_fail``, ``pool_exhaust``) included, raises before
+        any free-list mutation."""
+        from ..resilience import chaos
+
+        chaos.maybe_fail("alloc_fail")
         need = max(self.pages_needed(num_tokens), 1)
-        if need > len(self._free_pages):
+        if chaos.pool_exhausted() or need > len(self._free_pages):
             raise PageAllocatorError(
-                f"PageAllocator: {need} pages requested, {len(self._free_pages)} free"
+                f"PageAllocator: {need} pages requested, "
+                f"{0 if chaos.pool_exhausted() else len(self._free_pages)} free"
             )
         if not self._free_slots:
             raise PageAllocatorError("PageAllocator: no free sequence slot")
@@ -424,6 +434,10 @@ class PageAllocator:
         return sum(1 for p in pages if self._decref(p))
 
     def can_fork(self, shared_pages: Sequence[int], num_tokens: int) -> bool:
+        from ..resilience import chaos
+
+        if chaos.pool_exhausted():
+            return False
         need = max(self.pages_needed(num_tokens), len(shared_pages), 1)
         return (
             bool(self._free_slots)
@@ -435,7 +449,11 @@ class PageAllocator:
     def fork(self, shared_pages: Sequence[int], num_tokens: int) -> tuple[int, list[int]]:
         """Admit a sequence whose first pages are an already-resident shared
         prefix (one more reference each, no copy); only the remaining pages
-        are newly popped. Returns (slot, full page list)."""
+        are newly popped. Returns (slot, full page list). Atomic like
+        :meth:`allocate`."""
+        from ..resilience import chaos
+
+        chaos.maybe_fail("alloc_fail")
         shared = list(shared_pages)
         need = max(self.pages_needed(num_tokens), len(shared), 1)
         if need > self.max_pages_per_seq:
@@ -444,10 +462,10 @@ class PageAllocator:
                 f"max_pages_per_seq {self.max_pages_per_seq}"
             )
         grow = need - len(shared)
-        if grow > len(self._free_pages):
+        if chaos.pool_exhausted() or grow > len(self._free_pages):
             raise PageAllocatorError(
                 f"PageAllocator: fork needs {grow} fresh pages, "
-                f"{len(self._free_pages)} free"
+                f"{0 if chaos.pool_exhausted() else len(self._free_pages)} free"
             )
         if not self._free_slots:
             raise PageAllocatorError("PageAllocator: no free sequence slot")
@@ -483,7 +501,10 @@ class PageAllocator:
 
     def extend(self, slot: int, total_tokens: int) -> list[int]:
         """Grow a slot's reservation to cover ``total_tokens``; returns the
-        FULL page list. A refused extension changes nothing."""
+        FULL page list. A refused extension (``pool_exhaust`` chaos included)
+        changes nothing."""
+        from ..resilience import chaos
+
         pages = self._slot_pages.get(slot)
         if pages is None:
             raise InvalidFreeError(f"PageAllocator: slot {slot} not allocated")
@@ -494,7 +515,7 @@ class PageAllocator:
                 f"max_pages_per_seq {self.max_pages_per_seq}"
             )
         grow = need - len(pages)
-        if grow > len(self._free_pages):
+        if grow > 0 and (chaos.pool_exhausted() or grow > len(self._free_pages)):
             raise PageAllocatorError("PageAllocator: page pool exhausted")
         for _ in range(max(grow, 0)):
             pages.append(self._pop_free_page())

@@ -1,6 +1,8 @@
 """Telemetry of the port: the numerics oracle (``numerics.py``: error
-budgets and divergence reports, host-side numpy)."""
+budgets and divergence reports, host-side numpy) and the logger tree
+(``logger.py``: ``MAGI_ATTENTION_LOG_LEVEL``)."""
 
+from .logger import configure_logging, get_logger
 from .numerics import (
     DEFAULT_BUDGETS,
     DivergenceReport,
@@ -20,7 +22,9 @@ __all__ = [
     "ErrorBudgetExceeded",
     "assert_within_budget",
     "budget_for_dtype",
+    "configure_logging",
     "divergence_report",
+    "get_logger",
     "nudge_ulps",
     "ulp_distance",
 ]

@@ -1,10 +1,11 @@
 """The guard, chaos, validate and numerics flags in the port.
 
-The port does not honour ``MAGI_ATTENTION_GUARD``, ``_CHAOS``, ``_VALIDATE``
-or ``_NUMERICS`` yet (their modules are ROADMAP A.13, A.13, A.18 and A.15).
-Set to anything but ``off`` (or, for chaos, anything), each makes
-``check_flag_comb``, ``ServingEngine``, ``TieredEngine`` and
-``decode_attn_paged`` raise, naming the item that will honour it. A value
+The port honours ``MAGI_ATTENTION_GUARD`` and ``_CHAOS`` (``resilience/``):
+set to a value that does not fire there, ``check_flag_comb``,
+``ServingEngine``, ``TieredEngine`` and ``decode_attn_paged`` run and return
+what they return unset. It does not honour ``_VALIDATE`` or ``_NUMERICS``
+yet (ROADMAP A.18 and A.15): set to anything but ``off``, each makes those
+four entry points raise, naming the item that will honour it. A value
 outside a flag's domain raises the JAX package's ``ValueError``, word for
 word; guard, chaos and numerics are in ``flags_fingerprint`` and validate
 is not, as in the JAX package's ``env.py``."""
@@ -26,12 +27,14 @@ from magiattention_tpu_torch.serving import (
     make_paged_kv_cache,
 )
 
-FLAGS = {  # variable -> (a value the port refuses, the ROADMAP item that honours it)
+FLAGS = {  # variable -> (a value that is not off, the ROADMAP item that honours it)
     "MAGI_ATTENTION_GUARD": ("check", "A.13"),
     "MAGI_ATTENTION_CHAOS": ("decode_fault:times=1", "A.13"),
     "MAGI_ATTENTION_VALIDATE": ("plan", "A.18"),
     "MAGI_ATTENTION_NUMERICS": ("census", "A.15"),
 }
+HONOURED = ("MAGI_ATTENTION_GUARD", "MAGI_ATTENTION_CHAOS")
+REFUSED = ("MAGI_ATTENTION_NUMERICS", "MAGI_ATTENTION_VALIDATE")
 BAD = {  # variable -> a value outside its domain
     "MAGI_ATTENTION_GUARD": "bogus",
     "MAGI_ATTENTION_CHAOS": "decode_fault:times=x",
@@ -77,14 +80,39 @@ ENTRY_POINTS = {
 }
 
 
+def _result(x):
+    """What an entry point returns, in a form that compares by value."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(t.numpy() for t in x)
+    return (type(x).__name__, x.allocator.occupancy() if hasattr(x, "allocator") else
+            [(r.devices, r.engine.allocator.occupancy()) for r in x.replicas])
+
+
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
-@pytest.mark.parametrize("name", sorted(FLAGS))
+@pytest.mark.parametrize("name", REFUSED)
 def test_each_flag_is_refused_at_each_entry_point(name, entry, monkeypatch):
     ENTRY_POINTS[entry]()  # unset: runs
     value, item = FLAGS[name]
     monkeypatch.setenv(name, value)
     with pytest.raises(ValueError, match=rf"{entry}: {name}=.*ROADMAP {item}"):
         ENTRY_POINTS[entry]()
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+@pytest.mark.parametrize("name", HONOURED)
+def test_guard_and_chaos_are_honoured_at_each_entry_point(name, entry, monkeypatch):
+    """Guard ``check`` with nothing to catch and a chaos clause with no site
+    at these entry points: each runs and returns what it returns unset (the
+    decode's out and lse bit for bit)."""
+    want = _result(ENTRY_POINTS[entry]())
+    monkeypatch.setenv(name, FLAGS[name][0])
+    got = _result(ENTRY_POINTS[entry]())
+    if isinstance(want, tuple) and want and isinstance(want[0], np.ndarray):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    else:
+        assert got == want
 
 
 @pytest.mark.parametrize("name", ["MAGI_ATTENTION_GUARD", "MAGI_ATTENTION_VALIDATE",

@@ -57,7 +57,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "ops.index_attn", "extensions.dsa", "extensions.sink_attention",
                 "testing.precision", "testing.flag_generator", "testing.gt_dispatcher",
                 "serving.scheduler", "serving.unified_tick", "serving.cp_decode",
-                "serving.distributed", "serving.plan_probe", "resilience.chaos"):
+                "serving.distributed", "serving.plan_probe", "resilience.chaos",
+                "resilience.guards", "telemetry.logger"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

@@ -213,12 +213,14 @@ def test_zero_row_tick_and_dual_phase_refusal():
 
 @pytest.mark.parametrize("shared", [False, True])
 def test_decode_kernel_row_groups_bounded(shared, monkeypatch):
-    """Past 65535 row groups (gridDim.z) the wrapper raises before any
-    launch; at the bound it launches (recorded here, on CPU tensors)."""
+    """At 65535 row groups (gridDim.z) the wrapper launches once; past them
+    it launches the rows in blocks of at most that many row groups, each
+    block's rows, table rows and outputs at their offsets (recorded here,
+    on CPU tensors)."""
     import types
 
     calls = []
-    monkeypatch.setattr(csrc, "launch", lambda name, *a: calls.append(name))
+    monkeypatch.setattr(csrc, "launch", lambda name, *a: calls.append((name, a)))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     eng = ServingEngine(num_pages=4, num_kv_heads=1, head_dim=64, page_size=8,
@@ -230,14 +232,43 @@ def test_decode_kernel_row_groups_bounded(shared, monkeypatch):
     bt, sl = torch.zeros(rows, 1, dtype=torch.int32), torch.zeros(rows, dtype=torch.int32)
     decode_attn._decode_partials_kernel(torch.zeros(limit, 1, 64), eng.cache, bt, sl, prm,
                                         shared=shared)
-    assert calls == ["paged_decode"]
+    assert [(n, a[7]) for n, a in calls] == [("paged_decode", limit)]
     if not shared:
         bt, sl = torch.zeros(limit + 1, 1, dtype=torch.int32), torch.zeros(limit + 1,
                                                                            dtype=torch.int32)
-    with pytest.raises(ValueError, match="row groups"):
-        decode_attn._decode_partials_kernel(torch.zeros(limit + per_group, 1, 64), eng.cache,
-                                            bt, sl, prm, shared=shared)
-    assert calls == ["paged_decode"]
+    calls.clear()
+    q = torch.zeros(limit + per_group, 1, 64)
+    out_parts, lse_parts = decode_attn._decode_partials_kernel(q, eng.cache, bt, sl, prm,
+                                                               shared=shared)
+    assert [(n, a[7]) for n, a in calls] == [("paged_decode", limit),
+                                             ("paged_decode", per_group)]
+    (_, first), (_, second) = calls
+    item = q.element_size()
+    assert second[0] - first[0] == limit * 64 * item  # q rows
+    assert second[5] - first[5] == limit * 64 * 4  # out_parts rows (f32, 1 split, 1 head)
+    assert second[6] - first[6] == limit * 4  # lse_parts rows
+    table_step = 0 if shared else limit * 4  # one shared table row; else each block's rows
+    assert second[3] - first[3] == table_step and second[4] - first[4] == table_step
+    assert out_parts.shape[0] == lse_parts.shape[0] == limit + per_group
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("b", [0, 1, 65535, 65536, 70000, 8 * 65535 + 9, 600000])
+def test_kernel_row_blocks(b, group, shared, dtype):
+    """``kernel_row_blocks``: contiguous query ranges covering [0, b), one
+    range when the batch fits, each range at most 65535 row groups (one per
+    query flat; KERNEL_SHARED_ROWS q rows, ``group`` a query, shared), every
+    range but the last full."""
+    blocks = decode_attn.kernel_row_blocks(b, group, dtype, shared)
+    rows = decode_attn.KERNEL_SHARED_ROWS[dtype]
+    groups = (lambda n: -(-n * group // rows)) if shared else (lambda n: n)
+    assert blocks[0][0] == 0 and blocks[-1][1] == b
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(blocks, blocks[1:]))
+    assert all(groups(hi - lo) <= decode_attn.KERNEL_MAX_ROW_GROUPS for lo, hi in blocks)
+    assert (len(blocks) == 1) == (groups(b) <= decode_attn.KERNEL_MAX_ROW_GROUPS)
+    assert all(groups(hi - lo + 1) > decode_attn.KERNEL_MAX_ROW_GROUPS for lo, hi in blocks[:-1])
 
 
 # -- the fault paths ------------------------------------------------------------------

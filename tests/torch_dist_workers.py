@@ -39,17 +39,17 @@ def keyed_attention(group, case: dict, inputs: dict) -> dict:
         gc.GroupCast.backward = staticmethod(
             lambda ctx, g: (g.new_zeros((ctx.rt.num_local_rows,) + tuple(g.shape[1:])), None, None))
     reduce_dtypes = set()
-    real_reduce = gc.group_reduce_sum
+    real_reduce = gc.cast_transpose  # the cast's backward: the dK/dV reduce
 
     def recording_reduce(y, rt, grp):
         reduce_dtypes.add(str(y.dtype))
         return real_reduce(y, rt, grp)
 
-    gc.group_reduce_sum = recording_reduce
+    gc.cast_transpose = recording_reduce
     try:
         return {**_keyed_attention(group, case, inputs), "reduce_dtypes": sorted(reduce_dtypes)}
     finally:
-        gc.group_reduce_sum = real_reduce
+        gc.cast_transpose = real_reduce
         os.environ.pop("MAGI_ATTENTION_BACKWARD_HIGH_PRECISION_REDUCE", None)
         for name in case.get("env", {}):
             os.environ.pop(name)
@@ -808,3 +808,67 @@ def cp_merge(group, outs: np.ndarray, lses: np.ndarray) -> dict:
     out, lse = cp_merge_partials(torch.from_numpy(outs[rank]), torch.from_numpy(lses[rank]),
                                  group=group, cp_size=cp)
     return {"out": out.numpy(), "lse": lse.numpy()}
+
+
+# -- resilience on the cp path --------------------------------------------------------------
+
+
+def resilience_cp(group, case: dict, runs: list, inputs: dict) -> list:
+    """The keyed API (``dispatch`` -> ``calc_attn`` -> ``undispatch``, f32 on
+    the CPU) once per run of ``runs``, each under its own flags
+    (``run["env"]``, chaos rearmed first). A run whose ``calc_attn`` raises
+    ``NumericalGuardError`` on some rank returns every rank's sites
+    (``"raised"``: None where it did not raise) and skips the rest; else the
+    global out and lse and, with ``run["grad"]``, dq / dk / dv of sum(out *
+    g_out) + sum(lse * g_lse) over the finite lse, leaving out the rows
+    ``run["skip_rows"]`` names (global q rows). ``case`` as
+    :func:`keyed_attention`'s (impl, mask, degree, ...)."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.resilience import NumericalGuardError, reset_chaos
+
+    results = []
+    for run in runs:
+        os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = run.get("impl", case["impl"])
+        os.environ.update(run.get("env", {}))
+        reset_chaos()
+        try:
+            q, k, v = (torch.from_numpy(inputs[n]).requires_grad_() for n in ("q", "k", "v"))
+            key = api.magi_attn_flex_key(
+                case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"],
+                group, num_heads=(q.shape[1], k.shape[1]), head_dim=q.shape[2],
+                chunk_size=case["chunk"], out_dtype=torch.float32, device="cpu",
+                dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(
+                    degree=case["degree"], min_stage_rows=case["min_stage_rows"])))
+            raised = None
+            try:
+                out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key),
+                                            api.dispatch(v, key), key)
+            except NumericalGuardError as e:
+                raised = list(e.sites)
+            every = [None] * dist.get_world_size(group)
+            dist.all_gather_object(every, raised, group=group)
+            if any(s is not None for s in every):
+                results.append({"raised": every})
+                continue
+            out, lse = api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+            res = {"out": out.detach().numpy(), "lse": lse.detach().numpy(),
+                   "impls": [c.impl for c in api.get_runtime_mgr(key).plan.comms()],
+                   "first_row_of_rank0": int(api.get_runtime_mgr(key).dispatch_meta
+                                             .position_ids(0)[0])}
+            if run.get("grad"):
+                keep = torch.ones((out.shape[0], 1, 1))
+                keep[list(run.get("skip_rows", ()))] = 0.0
+                g_out = torch.from_numpy(inputs["g_out"]) * keep
+                g_lse = torch.from_numpy(inputs["g_lse"]) * keep[:, :, 0]
+                loss = (out * g_out).sum() + torch.where(torch.isfinite(lse), lse * g_lse,
+                                                         0.0).sum()
+                loss.backward()
+                res.update(dq=q.grad.numpy(), dk=k.grad.numpy(), dv=v.grad.numpy())
+            results.append(res)
+        finally:
+            for name in run.get("env", {}):
+                os.environ.pop(name)
+            reset_chaos()
+    return results
