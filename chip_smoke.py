@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
    and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass``, for
    ``paged_decode`` its ``HMMA`` (mma.sync), ``LDGSTS`` (cp.async) and
    ``LDSM`` (ldmatrix), and print the card's name and power limit as
-   nvidia-smi reports them;
+   nvidia-smi reports them (the builds recorded by the compile tracker
+   with telemetry on, for the telemetry phase);
 2. kernels — each kernel against its plain PyTorch version on the card, in
    bf16 at head_dim 128 (and 64 for the head-batched and sparse-grid
    forwards), on the mask families and ragged lengths below (``flex_fwd``
@@ -266,12 +267,35 @@ Phases, each printing one JSON line:
    tiered trace at ``prefill=1,decode=2x1`` under ``decode_fault`` replayed
    to the clean run's bits; and a flat ``paged_decode`` of 70,000 one-page
    sequences (8 / 8 heads, d 64), past one launch's 65,535 row groups, in
-   two row-block launches against the plain version.
+   two row-block launches against the plain version;
+21. telemetry — serving observability on the card: the scheduler phase's
+   trace under ``MAGI_ATTENTION_UNIFIED_TICK=auto``, telemetry off then on
+   (``MAGI_ATTENTION_TELEMETRY=1``, the Prometheus endpoint on a free port,
+   the shadow check at every 4th per-request decode batch, the memory
+   pressure watcher at a free fraction of 0.95, dumps into a scratch
+   directory): the same ``StepReport``s and ``torch.equal`` outputs; the
+   scraped ``/metrics`` equal to ``render_prometheus(snapshot())``,
+   ``/healthz`` answering; one complete request trace per request with its
+   TTFT not below its queue time; the shadow checks (``paged_decode``
+   against the plain decode on live batches) within the bf16 budget, the
+   largest ulp distance printed; a decode step synchronising no more with
+   telemetry on than off (``torch.cuda.set_sync_debug_mode("warn")``); the
+   ``mem_pressure``, ``numerical_guard`` (a ``split0`` plant under
+   ``check``), ``engine_fault`` (``prefill_error``, with a span ring small
+   enough to drop spans) and ``decode_tier_fault`` (the tiered trace at
+   ``prefill=1,decode=2x1`` under ``decode_fault``) dumps, each with the
+   card allocator's numbers and the pools' fragmentation maps; the serving
+   pool's ledger against its tensors' bytes and one measured decode step
+   (``ledger_vs_measured``); every required series (serving, scheduler,
+   traces, prefix cache with a CoW split and an eviction, builds and the
+   plan solver's hit and miss, tiers, memory); and the host ms a tick
+   costs with telemetry off and on, in turns after a warm-up drain.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode``, ``scheduler``, ``tiered`` and ``resilience`` among them; every path's launches must be
-in it), errors and times; the last line is
+``cp_decode``, ``scheduler``, ``tiered``, ``resilience`` and ``telemetry``
+among them; every path's launches must be in it), errors and times; the
+last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
 """
@@ -5428,14 +5452,19 @@ RES_FORKS = (200, 300, 500)
 
 
 @contextlib.contextmanager
-def resilience_flags(guard: str = "off", chaos: str = ""):
-    """``MAGI_ATTENTION_GUARD`` / ``_CHAOS`` set for the block (the bounded
-    injectors rearmed on the way in and out), then restored."""
+def magi_flags(**flags):
+    """``MAGI_ATTENTION_<NAME>`` set for the block (a None value unsets it),
+    the bounded chaos injectors rearmed on the way in and out; restored
+    after."""
     from magiattention_tpu_torch.resilience import reset_chaos
 
-    names = {"MAGI_ATTENTION_GUARD": guard, "MAGI_ATTENTION_CHAOS": chaos}
+    names = {f"MAGI_ATTENTION_{k}": v for k, v in flags.items()}
     saved = {n: os.environ.get(n) for n in names}
-    os.environ.update(names)
+    for n, v in names.items():
+        if v is None:
+            os.environ.pop(n, None)
+        else:
+            os.environ[n] = str(v)
     reset_chaos()
     try:
         yield
@@ -5446,6 +5475,12 @@ def resilience_flags(guard: str = "off", chaos: str = ""):
             else:
                 os.environ[n] = v
         reset_chaos()
+
+
+def resilience_flags(guard: str = "off", chaos: str = ""):
+    """``MAGI_ATTENTION_GUARD`` / ``_CHAOS`` set for the block (the bounded
+    injectors rearmed on the way in and out), then restored."""
+    return magi_flags(GUARD=guard, CHAOS=chaos)
 
 
 def guard_sites(fn):
@@ -5819,6 +5854,459 @@ def resilience_phase(parts: dict, t0: float) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+# -- serving observability: the telemetry layer on the serving path ----------------
+
+TEL_MODE = "auto"  # MAGI_ATTENTION_UNIFIED_TICK of the phase's scheduler runs
+TEL_SHADOW_RATE = 4  # every 4th per-request decode batch against the plain decode
+TEL_MEM_PRESSURE = 0.95  # free-page fraction: the trace's pool stays under it, so it fires
+TEL_COST_REPEATS = 5  # telemetry off / on drains of the trace, in turns
+TEL_RING_SMALL = 8  # the engine-fault run's span ring: small enough to drop spans
+TEL_MEM_TOL = 0.25  # one decode step's measured temporaries vs the ledger's scratch
+TEL_PREFIX = 1000  # the CoW part's prompt: 7 full pages and a 104-token tail
+
+
+def tel_drain(reqs, forks) -> dict:
+    """One drain of the scheduler phase's trace (its forks submitted once the
+    base prompt has prefilled) through a fresh engine and ``Scheduler`` at the
+    serving widths, under whatever flags are set: each tick's report, its
+    host ms (the ``step()`` call on the host clock) and wall ms (synchronised
+    before and after), and each request's outputs."""
+    import torch
+    from magiattention_tpu_torch.serving import Scheduler, ServingEngine
+    from magiattention_tpu_torch.serving.scheduler import PREFILLING
+
+    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+    sched = Scheduler(engine, token_budget=SCHED_BUDGET, chunk=SCHED_CHUNK)
+    for r in reqs:
+        sched.submit(r)
+    forked, reports, host, wall = False, [], [], []
+    while not sched.done or not forked:
+        base = sched._active.get(SCHED_BASE)
+        if not forked and (SCHED_BASE in sched._finished
+                           or (base is not None and base.status != PREFILLING)):
+            for f in forks:
+                sched.submit(f)
+            forked = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports.append(sched.step())
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        check(len(reports) < 400, "telemetry: the trace did not drain in 400 ticks")
+    outs = {rid: (st.prefill_out_tail, st.decode_outs) for rid, st in sched._finished.items()}
+    check(len(outs) == len(reqs) + len(forks)
+          and all(st.tokens_done == SCHED_STEPS for st in sched._finished.values()),
+          "telemetry: not every request finished its decode steps")
+    return {"reports": reports, "outs": outs, "host_ms": host, "wall_ms": wall,
+            "flight_ticks": len(sched._flight.snapshot_ticks())}
+
+
+def tel_cost(reqs, forks) -> dict:
+    """Host ms per tick with telemetry off and on (the flag alone: no shadow
+    check, watcher or server): one warm-up drain, then TEL_COST_REPEATS
+    pairs of drains in turns (off, on). Per drain the median tick and the
+    mean tick (host and wall); per mode the median of the drains; and the
+    pairs' differences (on less off), median and range."""
+    import statistics
+
+    tel_drain(reqs, forks)  # warm-up: first-use costs land in no measured drain
+    per = {"off": [], "on": []}
+    for _ in range(TEL_COST_REPEATS):
+        for mode in ("off", "on"):
+            with magi_flags(TELEMETRY="1" if mode == "on" else "0"):
+                run = tel_drain(reqs, forks)
+            per[mode].append({"host_ms_median": statistics.median(run["host_ms"]),
+                              "host_ms_mean": statistics.fmean(run["host_ms"]),
+                              "wall_ms_median": statistics.median(run["wall_ms"]),
+                              "wall_ms_mean": statistics.fmean(run["wall_ms"]),
+                              "ticks": len(run["host_ms"])})
+    keys = ("host_ms_median", "host_ms_mean", "wall_ms_median", "wall_ms_mean")
+    out = {mode: {k: statistics.median(r[k] for r in runs) for k in keys}
+           for mode, runs in per.items()}
+    for k in ("host_ms_median", "host_ms_mean"):
+        diffs = sorted(b[k] - a[k] for a, b in zip(per["off"], per["on"]))
+        out[f"on_minus_off_{k}"] = {"median": statistics.median(diffs), "min": diffs[0],
+                                    "max": diffs[-1]}
+    out["drains"] = per
+    return out
+
+
+def tel_same_runs(off, on) -> None:
+    """The telemetry-off and -on drains: equal ``StepReport``s, every output
+    ``torch.equal``."""
+    import torch
+
+    check([dataclasses.asdict(r) for r in on["reports"]]
+          == [dataclasses.asdict(r) for r in off["reports"]],
+          "telemetry: the StepReports differ between telemetry off and on")
+    for rid, (tail, dec) in off["outs"].items():
+        tail_on, dec_on = on["outs"][rid]
+        check(torch.equal(tail, tail_on) and len(dec) == len(dec_on)
+              and all(torch.equal(a, b) for a, b in zip(dec, dec_on)),
+              f"telemetry: request {rid}'s outputs differ between telemetry off and on")
+
+
+def tel_scrape() -> dict:
+    """``GET /metrics`` of the running server parsed and equal to the
+    rendered snapshot; ``/healthz`` answers."""
+    import urllib.request
+
+    from magiattention_tpu_torch import telemetry
+
+    server = telemetry.ensure_metrics_server()
+    check(server is not None, "telemetry: no metrics server was started by the engine")
+    base = f"http://127.0.0.1:{server.port}"
+    text = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+    rendered = telemetry.render_prometheus(telemetry.snapshot())
+    parsed = telemetry.parse_prometheus_text(text)
+    check(text == rendered and parsed == telemetry.parse_prometheus_text(rendered),
+          "telemetry: the scraped /metrics differs from render_prometheus(snapshot())")
+    health = urllib.request.urlopen(base + "/healthz", timeout=30).read()
+    check(health == b"ok\n", f"telemetry: /healthz answered {health!r}")
+    return {"port": server.port, "series": len(parsed), "bytes": len(text)}
+
+
+def tel_traces(n_requests: int) -> dict:
+    """One complete trace per request, submit first and finished last, each
+    with its TTFT not below its queue time."""
+    from magiattention_tpu_torch import telemetry
+
+    traces = telemetry.export_request_traces()
+    rids = sorted(t.rid for t in traces.values())
+    check(rids == list(range(n_requests)), f"telemetry: traces of requests {rids}")
+    bad = [t.rid for t in traces.values()
+           if not t.complete or t.spans[0]["kind"] != "submit"
+           or t.spans[-1]["kind"] != "finished" or t.stats["ttft_s"] is None
+           or t.stats["ttft_s"] < t.stats["queue_s"]]
+    check(not bad, f"telemetry: incomplete traces or TTFT below queue time: {bad}")
+    ttft = sorted(t.stats["ttft_s"] * 1e3 for t in traces.values())
+    return {"requests": len(traces), "spans": sum(len(t.spans) for t in traces.values()),
+            "ttft_ms": {"min": ttft[0], "median": ttft[len(ttft) // 2], "max": ttft[-1]}}
+
+
+def tel_dump(path: str, trigger: str) -> dict:
+    """A flight dump's trigger and its memory section: every source with the
+    card allocator's numbers and a fragmentation map."""
+    with open(path) as f:
+        payload = json.load(f)
+    check(payload["trigger"]["trigger"] == trigger,
+          f"telemetry: dump {path} is a {payload['trigger']['trigger']} dump, not {trigger}")
+    memory = payload.get("memory") or {}
+    pools = {}
+    for name, src in memory.items():
+        engines = [src] if "ledger" in src else [v for v in src.values() if isinstance(v, dict)]
+        for eng in engines:
+            check("allocator" in eng and "fragmentation" in eng,
+                  f"telemetry: the {trigger} dump's memory source {name} lacks the allocator "
+                  "numbers or the fragmentation map")
+            pools[eng["fragmentation"]["pool"]] = {
+                "allocator": eng["allocator"], "states": eng["fragmentation"]["state_counts"]}
+    check(bool(pools), f"telemetry: the {trigger} dump has no memory section")
+    return {"ticks": len(payload["ticks"]), "context": payload["trigger"]["context"],
+            "pools": pools, "numerics": "numerics" in payload}
+
+
+def tel_dumps_of(trigger: str) -> list:
+    from magiattention_tpu_torch import telemetry
+
+    out = []
+    for path in telemetry.get_flight_recorder().dump_paths:
+        with open(path) as f:
+            if json.load(f)["trigger"]["trigger"] == trigger:
+                out.append(path)
+    return out
+
+
+def tel_serving_pool(gen) -> dict:
+    """The serving phase's pool geometry with 8 sequences of 1000 tokens: one
+    decode step's synchronising calls with telemetry off and on (shadow
+    sampling 0; ``torch.cuda.set_sync_debug_mode("warn")``), in turns; the
+    ledger's pool bytes against the pool tensors', and one decode step's
+    measured memory against the ledger (``ledger_vs_measured``)."""
+    import warnings
+
+    import torch
+    from magiattention_tpu_torch import telemetry
+    from magiattention_tpu_torch.serving import ServingEngine, decode_attn_paged
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+    slots = []
+    for _ in range(8):
+        res = engine.admit(1000)
+        engine.prefill(rand(1000, HQ, D), rand(1000, HK, D), rand(1000, HK, D), res.slot)
+        slots.append(res.slot)
+    syncs = {"off": [], "on": []}
+    with magi_flags(SHADOW_SAMPLE_RATE="0"):
+        for mode in ("warm", "off", "on", "off", "on"):
+            telemetry.set_enabled(mode == "on")
+            q, k, v = rand(8, HQ, D), rand(8, HK, D), rand(8, HK, D)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    engine.decode_step(q, k, v, slots)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            if mode != "warm":
+                syncs[mode].append(sum("synchroniz" in str(w.message) for w in caught))
+    telemetry.set_enabled(True)
+    check(max(syncs["on"]) <= min(syncs["off"]),
+          f"telemetry: a decode step with telemetry on synchronises more than off: {syncs}")
+    led = telemetry.serving_memory_ledger(engine, num_q_heads=HQ, decode_batch=len(slots),
+                                          num_splits=1)
+    pool = engine.cache.k_pages.nbytes + engine.cache.v_pages.nbytes
+    check(led.total("pool") == pool,
+          f"telemetry: the ledger's pool bytes {led.total('pool')} != the pool's {pool}")
+    idx = torch.as_tensor(slots, device="cuda")
+    q = rand(len(slots), HQ, D)
+    measured = uncounted(lambda: telemetry.measure_program_memory(
+        lambda q_, c_, i_: decode_attn_paged(q_, c_, i_, num_splits=1), q, engine.cache, idx))
+    cmp = telemetry.ledger_vs_measured(led, measured, program="decode_step")
+    temp_ratio = measured["temp_bytes"] / max(cmp.predicted_scratch_bytes, 1)
+    check(cmp.within(0.10) and abs(temp_ratio - 1.0) <= TEL_MEM_TOL,
+          f"telemetry: one decode step's memory off the ledger: {cmp.to_json()}, measured "
+          f"temporaries {temp_ratio:.3f} x the ledger's scratch (tolerance {TEL_MEM_TOL})")
+    telemetry.fragmentation_map(engine.allocator, record=True)
+    telemetry.record_hbm_sample(telemetry.sample_memory_stats())
+    line = {"syncs_per_decode_step": syncs, "pool_bytes": pool,
+            "ledger_vs_measured": {**cmp.to_json(), "measured": measured,
+                                   "temp_vs_scratch": temp_ratio, "tolerance": TEL_MEM_TOL}}
+    del engine
+    torch.cuda.empty_cache()
+    return line
+
+
+def tel_prefix_and_guard(gen) -> dict:
+    """A small pool at the serving widths: a 1000-token prompt registered, a
+    fork extending it (its first write splits the shared tail page), both
+    released, a long tokenless admission evicting the trie's pages; then a
+    decode under ``MAGI_ATTENTION_GUARD=check`` with the split-0 plant, which
+    raises naming ``split0`` and dumps ``numerical_guard``."""
+    import torch
+    from magiattention_tpu_torch.serving import ServingEngine
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    engine = ServingEngine(num_pages=16, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=4, max_pages_per_seq=16, dtype=torch.bfloat16)
+    big_len = 12 * PAGE - 10  # its next decode token stays in its last page: no growth
+    ids = torch.randint(0, VOCAB, (TEL_PREFIX + 100,), generator=gen, device="cuda").tolist()
+    a = engine.admit(TEL_PREFIX, tokens=ids[:TEL_PREFIX])
+    engine.prefill(rand(TEL_PREFIX, HQ, D), rand(TEL_PREFIX, HK, D), rand(TEL_PREFIX, HK, D),
+                   a.slot)
+    b = engine.admit(len(ids), tokens=ids)
+    check(b.prefix_len == TEL_PREFIX, f"telemetry: the fork matched {b.prefix_len} tokens")
+    engine.prefill(rand(100, HQ, D), rand(100, HK, D), rand(100, HK, D), b.slot)
+    engine.free(a.slot)
+    engine.free(b.slot)
+    big = engine.admit(big_len)
+    check(big.admitted, f"telemetry: the evicting admission was refused: {big}")
+    engine.prefill(rand(big_len, HQ, D), rand(big_len, HK, D), rand(big_len, HK, D), big.slot)
+    with magi_flags(GUARD="check", CHAOS=RES_PLANT):
+        sites = guard_sites(lambda: engine.decode_step(rand(1, HQ, D), rand(1, HK, D),
+                                                       rand(1, HK, D), [big.slot]))
+    check(sites == ["split0"], f"telemetry: the split-0 plant under check raised {sites}")
+    dumps = tel_dumps_of("numerical_guard")
+    check(len(dumps) == 1, f"telemetry: {len(dumps)} numerical_guard dumps")
+    line = {"guard_raised": sites, "numerical_guard_dump": tel_dump(dumps[0], "numerical_guard")}
+    del engine
+    torch.cuda.empty_cache()
+    return line
+
+
+def tel_plan_solver() -> dict:
+    """One cold and one warm resolution of a 4096-token causal prefill's key
+    through the scheduler's plan probe (a one-rank gloo group on the CPU):
+    the plan solver's miss and hit seconds, and the ms a hit saved."""
+    import torch.distributed as dist
+    from magiattention_tpu_torch.serving import PlanReuseProbe
+
+    made = not dist.is_initialized()
+    probe = PlanReuseProbe(num_heads=(HQ, HK), head_dim=D, chunk_size=SCHED_CHUNK)
+    try:
+        for _ in range(2):
+            probe.note_prefill(0, 0, 4096)
+    finally:
+        from magiattention_tpu_torch import api
+
+        api.clear_cache()
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    return {"resolutions": probe.stats.total_resolutions}
+
+
+def tel_engine_fault(reqs) -> dict:
+    """The trace under ``prefill_error:times=1`` with a span ring of
+    TEL_RING_SMALL: the first prefill raises out of the tick, the aborted
+    tick is recorded and the ``engine_fault`` dump flushed, and the ring
+    drops spans (``magi_trace_events_dropped_total``)."""
+    import torch
+    from magiattention_tpu_torch.resilience import ChaosInjectedError
+    from magiattention_tpu_torch.serving import Scheduler, ServingEngine
+    from magiattention_tpu_torch.telemetry import events
+
+    events._buffer = None  # the ring is sized when it is first made
+    try:
+        with magi_flags(CHAOS="prefill_error:times=1", TELEMETRY_RING_SIZE=TEL_RING_SMALL):
+            engine = ServingEngine(num_pages=1024, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                                   max_seqs=16, max_pages_per_seq=64, dtype=torch.bfloat16)
+            sched = Scheduler(engine, token_budget=SCHED_BUDGET, chunk=SCHED_CHUNK)
+            for r in reqs:
+                sched.submit(r)
+            try:
+                sched.step()
+                raised = None
+            except ChaosInjectedError as e:
+                raised = type(e).__name__
+            dropped = events.get_event_buffer().dropped
+    finally:
+        events._buffer = None
+    check(raised == "ChaosInjectedError", f"telemetry: the prefill_error tick raised {raised}")
+    check(dropped > 0, "telemetry: the small ring dropped no span")
+    dumps = tel_dumps_of("engine_fault")
+    check(len(dumps) == 1, f"telemetry: {len(dumps)} engine_fault dumps")
+    with open(dumps[0]) as f:
+        aborted = json.load(f)["ticks"][-1].get("aborted", "")
+    check("ChaosInjectedError" in aborted, f"telemetry: the dump's last tick is {aborted!r}")
+    del sched, engine
+    torch.cuda.empty_cache()
+    return {"raised": raised, "ring": TEL_RING_SMALL, "dropped_spans": dropped,
+            "engine_fault_dump": tel_dump(dumps[0], "engine_fault")}
+
+
+def tel_tiered_fault(gen) -> dict:
+    """The tiered trace at ``prefill=1,decode=2x1`` on cuda:0 under
+    ``decode_fault:times=1`` with telemetry on: the distserve series and a
+    ``decode_tier_fault`` dump."""
+    spec = "prefill=1,decode=2x1"
+    reqs = tiered_requests(gen, TIERED_PROMPTS, TIERED_STEPS)
+    with magi_flags(CHAOS="decode_fault:times=1"):
+        line, _ = tiered_run(spec, reqs)
+    check(sum(line["restarts"]) == 1, f"telemetry tiers: restarts {line['restarts']}")
+    dumps = tel_dumps_of("decode_tier_fault")
+    check(len(dumps) == 1, f"telemetry tiers: {len(dumps)} decode_tier_fault dumps")
+    return {"spec": spec, "ticks": line["ticks"], "restarts": line["restarts"],
+            "decode_tier_fault_dump": tel_dump(dumps[0], "decode_tier_fault")}
+
+
+def tel_required(snap) -> dict:
+    """Every series of the REQUIRED sets the phase must populate, and of
+    REQUIRED_MEMORY_METRICS (all recorded here), by metric name."""
+    from magiattention_tpu_torch import telemetry
+
+    present = {k.split("{")[0] for sec in snap.values() for k in sec}
+    sets = {name: getattr(telemetry, f"REQUIRED_{name}_METRICS")
+            for name in ("SERVING", "SCHED", "TRACE", "PREFIX", "COMPILE", "DISTSERVE", "MEMORY")}
+    missing = {name: sorted(set(s) - present) for name, s in sets.items() if set(s) - present}
+    check(not missing, f"telemetry: required series missing: {missing}")
+    return {name: len(s) for name, s in sets.items()}
+
+
+def telemetry_phase(gen) -> dict:
+    """Serving observability on the card: the scheduler phase's trace under
+    ``MAGI_ATTENTION_UNIFIED_TICK=auto``, telemetry off then on (the
+    Prometheus endpoint on a free port, the shadow check at every
+    TEL_SHADOW_RATE-th decode batch, the memory-pressure watcher at
+    TEL_MEM_PRESSURE, dumps into a scratch directory): the same reports and
+    bits; the scrape equal to the snapshot; one complete trace per request;
+    the shadow checks within the bf16 budget; no added synchronisation; the
+    planted faults' dumps (``numerical_guard``, ``engine_fault``,
+    ``mem_pressure``, ``decode_tier_fault``) each with the allocator's
+    numbers and the pool's fragmentation map; the ledger against the pool
+    and a measured decode step; the required series; and the host ms a tick
+    costs with telemetry off and on. The phase's launches are counted from
+    zero at its start; the comparisons' are not."""
+    import socket
+    import tempfile
+
+    from magiattention_tpu_torch import csrc, telemetry
+
+    t0 = time.perf_counter()
+    reqs, forks = sched_requests(gen)
+    dump_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    csrc.reset_launch_counts()
+    try:
+        with magi_flags(UNIFIED_TICK=TEL_MODE, TRACE_DIR=dump_dir, TELEMETRY="0",
+                        METRICS_PORT="0", SHADOW_SAMPLE_RATE="0", MEM_PRESSURE_THRESHOLD="0"):
+            cost = tel_cost(reqs, forks)
+            off = tel_drain(reqs, forks)
+            # the on run's traces and dumps alone; the registry keeps the
+            # cost runs' records and the kernel builds' (main() records them)
+            telemetry.get_event_buffer().clear()
+            telemetry.reset_request_traces()
+            telemetry.reset_flight_recorder()
+            telemetry.reset_numerics_census()
+            with magi_flags(TELEMETRY="1", METRICS_PORT=port, SHADOW_SAMPLE_RATE=TEL_SHADOW_RATE,
+                            MEM_PRESSURE_THRESHOLD=TEL_MEM_PRESSURE):
+                on = tel_drain(reqs, forks)
+                tel_same_runs(off, on)
+                scrape = tel_scrape()
+                traces = tel_traces(len(reqs) + len(forks))
+                census = telemetry.get_numerics_census().numerics_snapshot()
+                div = telemetry.snapshot()["histograms"].get("magi_numerics_shadow_divergence")
+                check(census["shadow_checks"] > 0 and census["shadow_breaches"] == 0
+                      and div is not None and div["count"] == census["shadow_checks"],
+                      f"telemetry: shadow checks {census['shadow_checks']}, breaches "
+                      f"{census['shadow_breaches']}: "
+                      + json.dumps([{"violations": r["violations"], **{
+                          k: r["report"][k] for k in ("out_max_abs", "out_max_rel", "out_max_ulp",
+                                                      "out_mean_ulp", "lse_max_abs",
+                                                      "lse_max_ulp", "worst")}}
+                          for r in census["shadow"]]))
+                pressure = tel_dumps_of("mem_pressure")
+                check(len(pressure) == 1, f"telemetry: {len(pressure)} mem_pressure dumps")
+                mem_pressure = tel_dump(pressure[0], "mem_pressure")
+                pool = tel_serving_pool(gen)
+                prefix_guard = tel_prefix_and_guard(gen)
+                solver = tel_plan_solver()
+                fault = tel_engine_fault(reqs)
+                tiers = tel_tiered_fault(gen)
+                snap = telemetry.snapshot()
+                required = tel_required(snap)
+                summary = telemetry.telemetry_summary(snap)
+    finally:
+        telemetry.stop_metrics_server()
+        telemetry.set_enabled(None)
+        telemetry.reset()
+        telemetry.reset_flight_recorder()
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    launches = {n: c for n, c in csrc.launches.items() if c}
+    check(set(launches) == {"flex_fwd_hb", "paged_decode"},
+          f"telemetry: the phase launched {launches}")
+    compiles = telemetry.get_compile_tracker().stats()
+    return {"phase": "telemetry", "card": nvidia_smi_line(), "mode": TEL_MODE,
+            "heads": {"hq": HQ, "hk": HK, "head_dim": D}, "dtype": "bfloat16", "page": PAGE,
+            "requests": len(reqs) + len(forks), "ticks": len(on["reports"]),
+            "cost_host_ms_per_tick": cost, "shadow": {
+                "rate": TEL_SHADOW_RATE, "checks": census["shadow_checks"],
+                "breaches": census["shadow_breaches"], "max_ulp": div["max"],
+                "max_ulp_every_output_last_checks": max(
+                    r["report"]["out_max_ulp"] for r in census["shadow"]),
+                "max_abs_last_checks": max(r["report"]["out_max_abs"] for r in census["shadow"]),
+                "budget_max_ulp": telemetry.budget_for_dtype("bfloat16").max_ulp},
+            "scrape": scrape, "traces": traces, "mem_pressure_dump": mem_pressure,
+            "serving_pool": pool, "prefix_and_guard": prefix_guard, "plan_solver": solver,
+            "engine_fault": fault, "tiered_fault": tiers, "required_series": required,
+            "builds": {lab: st for lab, st in compiles.items()},
+            "counters": {k: v for k, v in snap["counters"].items()
+                         if k.startswith(("magi_guard", "magi_flight", "magi_trace",
+                                          "magi_tier_faults", "magi_prefix"))},
+            "summary": summary.splitlines(), "launches": launches,
+            "wall_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5834,9 +6322,23 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    if "MAGI_ATTENTION_TRACE_DIR" not in os.environ:
+        # the flight recorder is always on: its dumps go to a directory of
+        # this run's, not into the checkout
+        import atexit
+        import tempfile
+
+        os.environ["MAGI_ATTENTION_TRACE_DIR"] = tempfile.mkdtemp(prefix="chip_smoke_dumps_")
+        atexit.register(shutil.rmtree, os.environ["MAGI_ATTENTION_TRACE_DIR"], True)
     t0 = time.perf_counter()
     planted_procs = start_planted_build()  # nvcc runs beside the real build
-    built = csrc.build(ptxas_verbose=True)
+    from magiattention_tpu_torch import telemetry
+
+    telemetry.set_enabled(True)  # the builds' compile records: the telemetry phase reads them
+    try:
+        built = csrc.build(ptxas_verbose=True)
+    finally:
+        telemetry.set_enabled(None)
     for name in csrc.KERNELS:
         csrc.load(name)
     planted = planted_libraries(planted_procs)
@@ -5951,6 +6453,8 @@ def main(argv=None) -> int:
                      row_blocks=resilience_row_blocks(gen))
     resilience_line = resilience_phase(res_parts, res_t0)
     emit(resilience_line)
+    telemetry_line = telemetry_phase(gen)
+    emit(telemetry_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -5963,7 +6467,8 @@ def main(argv=None) -> int:
                "cp_xattn": cp_xattn_line["launches"],
                "cp_plan_reuse": cp_reuse_line["launches"],
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
-               "tiered": tiered_line["launches"], "resilience": resilience_line["launches"]}
+               "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
+               "telemetry": telemetry_line["launches"]}
     times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
              "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
              "paged_decode": dec_t, **hetero_t}

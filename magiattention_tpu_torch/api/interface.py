@@ -56,13 +56,14 @@ and then ignored.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import env
+from .. import env, telemetry
 from ..common.enum import AttnMaskType
 from ..common.forward_meta import AttnForwardMeta
 from ..common.ranges import AttnRanges
@@ -713,7 +714,11 @@ def magi_attn_flex_key(
         block_config=block_config,
         hier=hier,
     )
+    t_lookup = time.perf_counter()
     if key in _runtime_dict:
+        if not _in_canonical_resolve:
+            # a hit's solver cost is the lookup itself
+            telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
         _most_recent_key = key
         return key
     if not _try_plan_reuse(key, cp_group=cp_group, sink=sink, out_dtype=out_dtype,
@@ -1103,3 +1108,20 @@ def init_dist_attn_runtime_mgr(
         q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, num_heads_q,
         num_heads_kv, head_dim, chunk_size, cp_group, dist_attn_config=dist_attn_config,
         **kwargs))
+
+
+def get_telemetry_snapshot() -> dict:
+    """Plain-dict snapshot of the telemetry registry: what was recorded
+    while ``MAGI_ATTENTION_TELEMETRY`` (or ``telemetry.set_enabled(True)``)
+    was on. Always JSON-serialisable; empty sections while telemetry is
+    off."""
+    return telemetry.snapshot()
+
+
+def aggregate_telemetry_across_mesh(snapshot: dict | None = None, group=None) -> dict:
+    """Every rank's registry snapshot gathered over ``group`` (default: the
+    default group) and merged — counters summed, gauges with per-rank
+    values and min/max/mean/argmax, histograms bucket-merged; a loopback
+    merge of the local snapshot in one process. A collective: every rank
+    of the group calls it."""
+    return telemetry.aggregate_across_mesh(snapshot, group=group)

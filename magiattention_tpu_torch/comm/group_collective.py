@@ -270,11 +270,11 @@ class GroupCollectiveMeta:
             except Exception as exc:  # noqa: BLE001 — the degradation path
                 # a failed hop-plan build falls back to the always-available
                 # globally padded a2a collective (correct, more wire volume),
-                # never silently; the JAX package also counts it
-                # (telemetry.record_degraded_path; ROADMAP A.15)
-                from ..telemetry.logger import get_logger
+                # never silently
+                from .. import telemetry
 
-                get_logger("resilience").warning(
+                telemetry.record_degraded_path("hops_build_error")
+                telemetry.get_logger("resilience").warning(
                     "hop-schedule build failed (%s: %s) — degrading this collective to the "
                     "a2a impl", type(exc).__name__, exc)
                 impl_resolved, reason = "a2a", "degraded_hops_build_error"

@@ -265,9 +265,19 @@ def _build_locked(names, ptxas_verbose: bool) -> dict[str, dict]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         result[name] = {"path": out, "seconds": seconds, "log": log}
+        _note_build(seconds)
     if failures:
         raise KernelBuildError("nvcc failed:\n" + "\n\n".join(failures))
     return result
+
+
+def _note_build(seconds: float) -> None:
+    """One library built: a compile event for the compile tracker, under
+    the program label live on this thread (a library already built and
+    only loaded is none)."""
+    from ..telemetry.compile import get_compile_tracker
+
+    get_compile_tracker().note_compile(seconds)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -348,10 +358,12 @@ def build_host() -> str:
                                  "MAGI_ATTENTION_CPP_BACKEND=0 to plan with the Python loops")
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [gxx, *GXX_FLAGS, HOST_SOURCE, "-o", tmp]
+        t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             raise HostBuildError(f"g++ failed:\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _note_build(time.perf_counter() - t0)
     return out
 
 

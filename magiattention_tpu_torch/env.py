@@ -19,6 +19,11 @@ def _env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v is not None else default
+
+
 def log_level() -> str:
     """Level of the ``magiattention_tpu_torch`` logger tree
     (``MAGI_ATTENTION_LOG_LEVEL``), applied by
@@ -31,6 +36,93 @@ def log_level_explicit() -> bool:
     logging config claim the logger tree (an embedder's own
     ``logging.basicConfig`` keeps control otherwise)."""
     return "MAGI_ATTENTION_LOG_LEVEL" in os.environ
+
+
+# -- telemetry (the same names, defaults and validation as the JAX package's
+# env.py; observability only, so none of them is in flags_fingerprint) ----------
+
+
+def is_telemetry_enabled() -> bool:
+    """Whether the telemetry layer records (``MAGI_ATTENTION_TELEMETRY``;
+    ``telemetry.set_enabled`` overrides it). Off by default: every hook is
+    then one predicate call."""
+    return _env_bool("MAGI_ATTENTION_TELEMETRY")
+
+
+def telemetry_ring_size() -> int:
+    """Capacity of the host span ring (``telemetry/events.py``): the most
+    recent N spans are kept."""
+    return _env_int("MAGI_ATTENTION_TELEMETRY_RING_SIZE", 4096)
+
+
+def trace_dir() -> str:
+    """Where the flight recorder writes its dumps (``telemetry/trace.py``)."""
+    return _env_str("MAGI_ATTENTION_TRACE_DIR", "./magi_attention_trace")
+
+
+def metrics_port() -> int:
+    """TCP port of the Prometheus endpoint (``telemetry/exposition.py``):
+    0 (the default) starts no server; a port starts one stdlib HTTP thread
+    per process at the first ``ServingEngine`` (``GET /metrics``,
+    ``/metrics.json``, ``/healthz``)."""
+    v = _env_int("MAGI_ATTENTION_METRICS_PORT", 0)
+    if v < 0 or v > 65535:
+        raise ValueError(
+            f"MAGI_ATTENTION_METRICS_PORT={v} must be 0 (off) or a valid "
+            "TCP port"
+        )
+    return v
+
+
+def flight_recorder_depth() -> int:
+    """Tick capacity of the serving flight recorder (``telemetry/trace.py``),
+    on whatever the telemetry flag says; 0 disables it."""
+    v = _env_int("MAGI_ATTENTION_FLIGHT_RECORDER_DEPTH", 64)
+    if v < 0:
+        raise ValueError(
+            f"MAGI_ATTENTION_FLIGHT_RECORDER_DEPTH={v} must be >= 0 "
+            "(0 disables the recorder)"
+        )
+    return v
+
+
+def mem_pressure_threshold() -> float:
+    """Free-page fraction under which the scheduler's
+    ``MemPressureWatcher`` counts a tick as pressured (8 such ticks in a
+    row dump ``mem_pressure``); 0.0 (the default) disables it."""
+    v = _env_float("MAGI_ATTENTION_MEM_PRESSURE_THRESHOLD", 0.0)
+    if not 0.0 <= v <= 1.0:
+        raise ValueError(
+            f"MAGI_ATTENTION_MEM_PRESSURE_THRESHOLD={v} must be in "
+            "[0, 1] (a free-page fraction; 0 disables)"
+        )
+    return v
+
+
+def recompile_storm_threshold() -> int:
+    """Builds of one program label inside the compile tracker's 30 s window
+    that dump ``recompile_storm`` (``telemetry/compile.py``); 0 (the
+    default) disables the detector."""
+    v = _env_int("MAGI_ATTENTION_RECOMPILE_STORM_THRESHOLD", 0)
+    if v < 0:
+        raise ValueError(
+            f"MAGI_ATTENTION_RECOMPILE_STORM_THRESHOLD={v} must be >= 0 "
+            "(compiles of one label per window; 0 disables)"
+        )
+    return v
+
+
+def shadow_sample_rate() -> int:
+    """Every Nth decode batch is recomputed by the plain f32 decode and
+    scored against the production output (``ServingEngine``'s shadow
+    check); 0 (the default) disables it."""
+    v = _env_int("MAGI_ATTENTION_SHADOW_SAMPLE_RATE", 0)
+    if v < 0:
+        raise ValueError(
+            f"MAGI_ATTENTION_SHADOW_SAMPLE_RATE={v} must be >= 0 "
+            "(re-check every Nth decode batch; 0 disables)"
+        )
+    return v
 
 
 def mask_skip_disabled() -> bool:

@@ -46,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 
 import numpy as np
 import torch
@@ -364,24 +365,28 @@ def build_dist_attn_plan(
     A build that fails (an injected ``plan_error`` included) falls back to
     the dense degree-0 plan (one merged cast, one kernel call) with a
     warning on the ``resilience`` logger; a degree-0 build that fails
-    raises, as there is nothing left to fall back to."""
+    raises, as there is nothing left to fall back to. The build's seconds
+    go to the compile tracker's solver accumulator
+    (``telemetry.record_plan_solver``)."""
+    from .. import telemetry
+
     kw = dict(kv_dispatch_meta=kv_dispatch_meta, block_q=block_q, block_k=block_k,
               cp_mesh_shape=cp_mesh_shape)
+    t0 = time.perf_counter()
     try:
-        return _build_dist_attn_plan(dispatch_meta, bucket, overlap_config=overlap_config, **kw)
+        plan = _build_dist_attn_plan(dispatch_meta, bucket, overlap_config=overlap_config, **kw)
     except Exception as exc:  # noqa: BLE001 — the degradation path
         cfg = overlap_config or OverlapConfig()
         if cfg.degree == 0:
             raise  # the fallback is the path that failed
-        from ..telemetry.logger import get_logger
-
-        # the JAX package also counts it (telemetry.record_degraded_path;
-        # ROADMAP A.15)
-        get_logger("resilience").warning(
+        telemetry.record_degraded_path("plan_build_error")
+        telemetry.get_logger("resilience").warning(
             "plan build failed (%s: %s) — degrading to the dense single-bucket degree-0 plan",
             type(exc).__name__, exc)
-        return _build_dist_attn_plan(dispatch_meta, bucket,
+        plan = _build_dist_attn_plan(dispatch_meta, bucket,
                                      overlap_config=dataclasses.replace(cfg, degree=0), **kw)
+    telemetry.record_plan_solver(time.perf_counter() - t0, cache_hit=False)
+    return plan
 
 
 def _build_dist_attn_plan(

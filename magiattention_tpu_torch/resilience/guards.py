@@ -21,9 +21,13 @@ A partial's legitimate "no coverage" value is lse = -inf with out = 0; the
 guards treat it as healthy (only a NaN or +inf lse, or a non-finite out,
 is bad). ``off`` calls no guard function at all.
 
-The JAX package also counts guard checks, violations and repairs and
-triggers its flight recorder on a violation; those belong to the port's
-telemetry (ROADMAP A.15) and are marked where they go.
+Telemetry, as the JAX package records it: ``magi_guard_checks{site=}``
+ticks once per guard call (the port runs eagerly; the JAX package counts
+once per traced program), ``magi_guard_violations`` / ``_repairs`` once per
+bad site of a code read at the call boundary, and a ``check`` violation
+writes the flight recorder's ``numerical_guard`` dump before it raises.
+The counters are host work on the code already read: no hook reads a
+device tensor.
 """
 
 from __future__ import annotations
@@ -89,10 +93,11 @@ def guard_partial(out, lse, code, site_index: int, site: str):
     caller that threads no code: repair still applies). No operand is copied
     from the host: the bit and the fills are kernel scalars. ``off`` must
     not call this."""
+    from .. import telemetry
+
     mode = guard_mode()
     assert mode != "off", "guard_partial called with guards off"
-    # the JAX package counts the check here (telemetry.record_guard_check;
-    # ROADMAP A.15)
+    telemetry.record_guard_check(site)
     good = _good_rows(out, lse)
     if code is not None:
         bit = 1 << (site_index % _CODE_BITS)
@@ -151,8 +156,15 @@ def consume_error_code(code, sites, *, mode: str | None = None) -> None:
     if not value:
         return
     bad = _decode_bits(value, sites)
-    # the JAX package counts each bad site as a violation (check) or a repair
-    # (repair) here, and triggers its flight recorder's "numerical_guard" dump
-    # in check mode (telemetry.record_guard_*, get_flight_recorder; ROADMAP A.15)
+    from .. import telemetry
+
+    for s in bad:
+        if mode == "repair":
+            telemetry.record_guard_repair(s)
+        else:
+            telemetry.record_guard_violation(s)
     if mode == "check":
+        # a tripped guard is a post-mortem moment: dump the serving flight
+        # recorder's recent ticks, if any were recorded
+        telemetry.get_flight_recorder().trigger("numerical_guard", sites=list(bad))
         raise NumericalGuardError(bad)

@@ -33,8 +33,14 @@ from one controller over a JAX device mesh to one process over a list of
   sequences, which the scheduler replays through the prefill tier) and
   rebuilds it with a fresh pool.
 
-Not ported yet: the telemetry, trace spans, flight recorder and
-``memory_snapshot`` (ROADMAP A.15); none of them changes a schedule.
+Telemetry, as the JAX package records it, none of which changes a
+schedule: the tiers' occupancy (``record_tier_state``), the page streams
+and the stream-queue depth, tier faults and their deferred
+``decode_tier_fault`` flight dump, the ``tier_assigned`` /
+``pages_streamed`` / ``tier_migrated`` request spans, the ``tier=`` SLO
+labels, and one flight-recorder memory source for the whole fleet
+(:meth:`TieredEngine.memory_snapshot`, per-tier ledgers and fragmentation
+maps).
 """
 
 from __future__ import annotations
@@ -42,15 +48,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
-import logging
 import time
 from typing import Sequence
 
 import torch
 
+from .. import telemetry
 from ..resilience import chaos
+from ..telemetry import trace as reqtrace
 from .decode_attn import decode_attn_paged, resolve_num_splits
-from .engine import AdmissionResult, ServingEngine, decode_program_label
+from .engine import AdmissionResult, ServingEngine
 from .kv_cache import (
     PagedKVCache,
     PageAllocatorError,
@@ -255,10 +262,13 @@ class TieredEngine:
                              f"{num_kv_heads} (KV-head-sharded decode layout)")
         self.verify_streams = bool(verify_streams)
         self.stream_queue_max = int(stream_queue_max)
+        # the tiered engine registers one memory source for the fleet below:
+        # its member engines register none
         self._geom = dict(num_pages=num_pages, num_kv_heads=num_kv_heads, head_dim=head_dim,
                           page_size=page_size, max_seqs=max_seqs,
                           max_pages_per_seq=max_pages_per_seq, dtype=dtype,
-                          max_admission_evictions=max_admission_evictions)
+                          max_admission_evictions=max_admission_evictions,
+                          register_flight_memory=False)
         # the prefill tier's devices are reserved for its compute; its pool
         # lives on the first, where prefill writes one stream at a time
         self.prefill_devices = tuple(devices[:n_prefill])
@@ -274,6 +284,11 @@ class TieredEngine:
         self._seq: dict[int, dict] = {}  # sid -> lifecycle record
         self._next_sid = 0
         self.last_decode_info: dict = {}
+        self._flight = reqtrace.get_flight_recorder()
+        # the snapshot walks self.replicas at dump time, so a replica rebuilt
+        # after a fault is picked up live
+        self._flight.register_memory_source("tiered", self)
+        self._record_tiers()
 
     def _build_replica(self, index: int, devs: tuple, tp: int) -> DecodeReplica:
         fn = functools.partial(tp_decode_attn, devices=devs) if tp > 1 else None
@@ -313,6 +328,18 @@ class TieredEngine:
                 "decode": [r.engine.allocator.occupancy() for r in self.replicas],
                 "pending_streams": len(self._pending)}
 
+    def memory_snapshot(self) -> dict:
+        """Per-tier memory forensics: the prefill tier's and every decode
+        replica's ledger and fragmentation map, keyed ``tier_prefill`` /
+        ``tier_decode_r<N>`` (which pool ran out), and the parked streams."""
+        out = {"tier_prefill": telemetry.engine_memory_snapshot(self._prefill,
+                                                                pool="tier_prefill"),
+               "pending_streams": len(self._pending)}
+        for rep in self.replicas:
+            name = f"tier_decode_r{rep.index}"
+            out[name] = telemetry.engine_memory_snapshot(rep.engine, pool=name)
+        return out
+
     # -- admission (fleet backpressure) --
 
     def admit(self, num_tokens: int, *, priority: int = 0,
@@ -324,7 +351,10 @@ class TieredEngine:
         across the migration."""
         if (len(self._pending) >= self.stream_queue_max
                 or self._pick_replica(num_tokens, int(priority)) is None):
-            return AdmissionResult(False, None, "decode_saturated")
+            res = AdmissionResult(False, None, "decode_saturated")
+            telemetry.record_admission(res)
+            self._flight.note_admission(False, "decode_saturated")
+            return res
         res = self._prefill.admit(num_tokens, priority=priority, tokens=tokens)
         evicted = self._translate_evicted(res.evicted)
         if not res.admitted:
@@ -333,6 +363,8 @@ class TieredEngine:
         self._next_sid += 1
         self._seq[sid] = {"stage": "prefill", "pslot": res.slot, "replica": None, "dslot": None,
                           "expected": int(num_tokens), "priority": int(priority)}
+        reqtrace.span_for_current(reqtrace.SPAN_TIER_ASSIGNED, tier="prefill", slot=sid)
+        self._record_tiers()
         return dataclasses.replace(res, slot=sid, evicted=evicted)
 
     def _translate_evicted(self, pslots: tuple) -> tuple:
@@ -345,6 +377,7 @@ class TieredEngine:
         for sid in victims:
             self._pending = [p for p in self._pending if p.sid != sid]
             del self._seq[sid]
+        telemetry.record_stream_queue_depth(len(self._pending))
         return tuple(victims)
 
     # -- prefill tier --
@@ -385,7 +418,13 @@ class TieredEngine:
             else:
                 done.append(rep)
         self._pending = still
-        self._stream_reports.extend(done)
+        for rep in done:
+            telemetry.record_page_stream(pages=rep.pages, nbytes=rep.nbytes,
+                                         queue_depth=len(self._pending))
+        telemetry.record_stream_queue_depth(len(self._pending))
+        if done:
+            self._stream_reports.extend(done)
+            self._record_tiers()
         return done
 
     def take_stream_reports(self) -> list[StreamReport]:
@@ -512,7 +551,7 @@ class TieredEngine:
             splits_seen.add(int(rep.engine.last_decode_info.get("num_splits", 0)))
         self.last_decode_info = {
             "batch": len(sid_list),
-            "program": decode_program_label(len(sid_list)),
+            "program": telemetry.decode_program_label(len(sid_list)),
             "num_splits": splits_seen.pop() if len(splits_seen) == 1 else 0,
             "cascade_groups": 0,
             "cascade_group_of": {},
@@ -535,9 +574,14 @@ class TieredEngine:
         fresh = self._build_replica(index, rep.devices, rep.tp)
         fresh.restarts = rep.restarts + 1
         self.replicas[index] = fresh
-        logging.getLogger(__name__).warning(
+        telemetry.record_tier_fault("decode", index)
+        # deferred: the post-mortem holds the tick the fault killed
+        self._flight.trigger("decode_tier_fault", immediate=False, replica=index,
+                             sequences=len(affected), reason=reason)
+        telemetry.get_logger("serving").warning(
             "decode replica %d failed (%s): %d sequences requeued for replay, replica rebuilt "
             "with a fresh pool", index, reason or "unspecified", len(affected))
+        self._record_tiers()
         return tuple(affected)
 
     # -- retirement --
@@ -552,6 +596,21 @@ class TieredEngine:
             self._pending = [p for p in self._pending if p.sid != sid]
             self._prefill.free(rec["pslot"])
         del self._seq[int(sid)]
+        telemetry.record_stream_queue_depth(len(self._pending))
+        self._record_tiers()
+
+    def _record_tiers(self) -> None:
+        if not telemetry.enabled():  # off: no scan of the sequence records either
+            return
+        telemetry.record_tier_state(
+            "prefill", pages_in_use=self._prefill.allocator.pages_in_use,
+            active=sum(1 for rec in self._seq.values()
+                       if rec["stage"] in ("prefill", "stream_queued")))
+        decode_active = sum(1 for rec in self._seq.values() if rec["stage"] == "decode")
+        for r in self.replicas:
+            telemetry.record_tier_state("decode", replica=r.index,
+                                        pages_in_use=r.engine.allocator.pages_in_use,
+                                        active=decode_active)
 
 
 # -- the tiered scheduler --------------------------------------------------------
@@ -569,10 +628,16 @@ class TieredScheduler(Scheduler):
       exactly that replica's requests (``requeues`` ``("decode",
       "decode_fault")``) while the other replicas' tokens land;
     - the requeue of requests a decode-tier placement evicted;
-    - knobs ``prefill_budget`` and ``decode_budget``.
+    - knobs ``prefill_budget`` and ``decode_budget``;
+    - the ``tier=`` label on every span and SLO sample, and each completed
+      stream as ``pages_streamed`` + ``tier_migrated`` spans on its
+      request's trace.
 
     ``last_stream_reports``: the :class:`StreamReport`s of the last tick.
     """
+
+    _prefill_tier = "prefill"
+    _decode_tier = "decode"
 
     def __init__(
         self,
@@ -660,9 +725,21 @@ class TieredScheduler(Scheduler):
 
     def _take_tier_events(self) -> None:
         """The engine's completed streams (kept as this tick's
-        ``last_stream_reports``) and decode-tier eviction victims, requeued."""
-        self.last_stream_reports.extend(self.engine.take_stream_reports())
+        ``last_stream_reports``, each a ``pages_streamed`` and a
+        ``tier_migrated`` span on its request's trace) and decode-tier
+        eviction victims, requeued."""
+        reports = self.engine.take_stream_reports()
+        self.last_stream_reports.extend(reports)
         by_sid = {st.slot: st for st in self._active.values()}
+        for rep in reports:
+            st = by_sid.get(rep.sid)
+            if st is None:
+                continue
+            reqtrace.span_pages_streamed(
+                st.trace_id, st.rid, pages=rep.pages, tokens=rep.tokens, nbytes=rep.nbytes,
+                replica=rep.replica, digest_ok=rep.digest_ok, duration_s=rep.duration_s)
+            reqtrace.span_tier_migrated(st.trace_id, st.rid, from_tier="prefill",
+                                        to_tier="decode", replica=rep.replica)
         for sid in self.engine.take_evicted_sids():
             st = by_sid.get(sid)
             if st is not None:

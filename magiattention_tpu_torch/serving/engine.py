@@ -27,17 +27,18 @@ attention outputs only, where the JAX ones also return a new cache.
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Sequence
 
 import torch
 
+from .. import telemetry
 from ..common.enum import AttnMaskType
 from ..ops.block_sparse import TickEnumeration
 from ..ops.flex_attn import flex_flash_attn_func
 from ..resilience import chaos
 from ..resilience.chaos import ChaosInjectedError
-from .decode_attn import decode_attn_paged, resolve_num_splits
+from ..telemetry import exposition, numerics, trace
+from .decode_attn import decode_attn_paged, decode_reference, resolve_num_splits
 from .kv_cache import (
     PageAllocator,
     PageAllocatorError,
@@ -48,27 +49,12 @@ from .kv_cache import (
     gather_kv,
     make_paged_kv_cache,
     reset_slot,
+    shards_of,
     swap_block_table_page,
     write_prefill_kv,
 )
 from .prefix import PrefixCache, cascade_decode_attn, plan_cascade_groups
 from .unified_tick import demux_tick, resolve_tick_splits, unified_tick_attn
-
-
-def prefill_program_label(start: int, tokens: int) -> str:
-    """Label of one prefill-chunk call: its (history offset, rows)."""
-    return f"prefill[start={int(start)},t={int(tokens)}]"
-
-
-def decode_program_label(batch: int) -> str:
-    """Label of one batched decode-step call: its batch size."""
-    return f"decode[b={int(batch)}]"
-
-
-def tick_program_label(rows: int, entries: int, splits: int) -> str:
-    """Label of one unified tick: its padded geometry buckets (row and
-    entry capacity) and split count, never the request mix."""
-    return f"tick[r={int(rows)},e={int(entries)},s={int(splits)}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +206,19 @@ class ServingEngine:
     :meth:`decode_step`, called as ``fn(q, cache, slots, num_splits=, **kw)``
     (the tiered engine's tensor-parallel decode over a sharded pool): it
     skips the cascade, and :meth:`unified_tick` refuses it.
+
+    Telemetry, as the JAX engine records it: the pool's occupancy after
+    every admission, growth and free, admissions and prefix-cache events,
+    each prefill and decode step under its program label (``telemetry.
+    program``), the shadow check of every Nth decode batch
+    (``MAGI_ATTENTION_SHADOW_SAMPLE_RATE``) against the plain f32 decode,
+    and the flight recorder's ``engine_fault``, ``pool_exhausted`` and
+    ``numeric_drift`` dumps, each embedding :meth:`memory_snapshot`
+    (``register_flight_memory=False`` opts a tiered member engine out: the
+    tiered engine registers one source for the fleet). The first engine
+    starts the metrics server when ``MAGI_ATTENTION_METRICS_PORT`` is set.
+    No hook reads a device tensor; the shadow check reads the outputs it
+    scores.
     """
 
     def __init__(
@@ -235,6 +234,7 @@ class ServingEngine:
         max_admission_evictions: int = 4,
         prefix_sharing: bool = True,
         decode_attn_fn=None,
+        register_flight_memory: bool = True,
         device: str | torch.device = "cuda",
     ):
         from .. import env
@@ -276,9 +276,19 @@ class ServingEngine:
         # (the scheduler's decode_splits knob)
         self.decode_splits_override: int | None = None
         # what the last decode_step / unified_tick resolved (label, splits,
-        # cascade grouping): the scheduler's launch census reads the labels
+        # cascade grouping): the scheduler's launch census and its request
+        # spans read them
         self.last_decode_info: dict = {}
         self.last_tick_info: dict = {}
+        self._flight = trace.get_flight_recorder()
+        if register_flight_memory:
+            self._flight.register_memory_source("engine", self)
+        # dumps carry the numerics census even after a flight-recorder reset
+        numerics.ensure_flight_registration()
+        self._shadow_counter = 0
+        self._pool_exhausted_armed = False
+        exposition.ensure_metrics_server()
+        self._record_pool()
 
     # -- admission / retirement (host) --
 
@@ -302,7 +312,7 @@ class ServingEngine:
         ``alloc_fail`` included) answers ``alloc_error``."""
         need = max(self.allocator.pages_needed(num_tokens), 1)
         if need > self.allocator.max_pages_per_seq:
-            return AdmissionResult(False, None, "too_long")
+            return self._note_admission(AdmissionResult(False, None, "too_long"))
         tokens = tuple(int(t) for t in tokens) if tokens is not None else None
         evicted: list[int] = []
         while True:
@@ -318,7 +328,8 @@ class ServingEngine:
                     try:
                         slot, pages = self.allocator.fork(match.pages, num_tokens)
                     except (ChaosInjectedError, PageAllocatorError):
-                        return AdmissionResult(False, None, "alloc_error", tuple(evicted))
+                        return self._refuse(AdmissionResult(False, None, "alloc_error",
+                                                            tuple(evicted)))
                     self._install(slot, pages, keep_len=match.length)
                     shared_full = (match.pages[: match.full_pages],
                                    match.full_pages * self.allocator.page_size)
@@ -328,7 +339,8 @@ class ServingEngine:
                 try:
                     slot, pages = self.allocator.allocate(num_tokens)
                 except (ChaosInjectedError, PageAllocatorError):
-                    return AdmissionResult(False, None, "alloc_error", tuple(evicted))
+                    return self._refuse(AdmissionResult(False, None, "alloc_error",
+                                                        tuple(evicted)))
                 self._install(slot, pages)
                 return self._finish_admit(slot, priority, tokens, evicted)
             # cached prefix pages go first, but only when pages are what is
@@ -337,7 +349,9 @@ class ServingEngine:
             deficit = need - shared - (self.allocator.num_pages - self.allocator.pages_in_use)
             if (deficit > 0 and self.prefix is not None
                     and self.allocator.active_seqs < self.allocator.max_seqs):
-                if self.prefix.evict(self.allocator, deficit) > 0:
+                freed = self.prefix.evict(self.allocator, deficit)
+                if freed > 0:
+                    telemetry.record_prefix_eviction(freed, self.prefix.resident_pages)
                     continue
             if len(evicted) >= self.max_admission_evictions:
                 break
@@ -351,7 +365,37 @@ class ServingEngine:
             if self.allocator.active_seqs >= self.allocator.max_seqs
             else "pool_exhausted"
         )
-        return AdmissionResult(False, None, reason, tuple(evicted))
+        return self._refuse(AdmissionResult(False, None, reason, tuple(evicted)))
+
+    def _refuse(self, res: AdmissionResult) -> AdmissionResult:
+        """A refused admission's telemetry: the verdict and the pool."""
+        self._note_admission(res)
+        self._record_pool()
+        return res
+
+    def _note_admission(self, res: AdmissionResult) -> AdmissionResult:
+        """The admission telemetry every verdict shares: the registry
+        counters (gated on the telemetry flag) and the always-on flight
+        recorder's rejection-storm detector. The first ``pool_exhausted``
+        verdict of a pressure episode arms a deferred dump tagged with the
+        admitting request's trace id (the scheduler's tick-end flush writes
+        it); an admission that succeeds re-arms it."""
+        telemetry.record_admission(res)
+        self._flight.note_admission(res.admitted, res.reason)
+        if res.admitted:
+            self._pool_exhausted_armed = False
+        elif res.reason == "pool_exhausted" and not self._pool_exhausted_armed:
+            self._pool_exhausted_armed = True
+            cur = trace.current_trace()
+            self._flight.trigger(
+                "pool_exhausted",
+                immediate=False,
+                trace_id=cur[0] if cur is not None else None,
+                pages_in_use=self.allocator.pages_in_use,
+                pages_total=self.allocator.num_pages,
+                active_seqs=self.allocator.active_seqs,
+            )
+        return res
 
     def _install(self, slot: int, pages, *, keep_len: bool | int = False) -> None:
         """The device-side block-table install of a fresh admission; if it
@@ -360,19 +404,26 @@ class ServingEngine:
             assign_block_table(self.cache, slot, pages, keep_len=keep_len)
         except Exception:
             self.allocator.free(slot)
+            self._record_pool()
             raise
 
     def _finish_admit(self, slot: int, priority: int, tokens, evicted: list[int], *,
                       prefix_len: int = 0, shared_full=None) -> AdmissionResult:
-        """The bookkeeping both admission paths share."""
+        """The bookkeeping and telemetry both admission paths share."""
         self._priorities[slot] = int(priority)
         if tokens is not None:
             self._tokens[slot] = tokens
+            if self.prefix is not None:
+                # only admissions that consulted the trie count as lookups
+                telemetry.record_prefix_lookup(hit=prefix_len > 0, matched_tokens=prefix_len)
         if prefix_len:
             self._lengths[slot] = prefix_len
         if shared_full is not None and shared_full[0]:
             self._slot_prefix[slot] = (tuple(shared_full[0]), shared_full[1])
-        return AdmissionResult(True, slot, "ok", tuple(evicted), prefix_len=prefix_len)
+        res = AdmissionResult(True, slot, "ok", tuple(evicted), prefix_len=prefix_len)
+        self._note_admission(res)
+        self._record_pool()
+        return res
 
     def _eviction_candidate(self, incoming_priority: int) -> int | None:
         """Lowest-priority live slot strictly below the incoming priority
@@ -384,6 +435,7 @@ class ServingEngine:
         """Extend a slot's page reservation to ``total_tokens``."""
         pages = self.allocator.extend(slot, total_tokens)
         assign_block_table(self.cache, slot, pages, keep_len=True)
+        self._record_pool()
 
     def free(self, slot: int) -> None:
         """Retire a sequence: one reference dropped per page (a prefix page
@@ -394,6 +446,7 @@ class ServingEngine:
         reset_slot(self.cache, slot)
         for book in (self._lengths, self._priorities, self._tokens, self._slot_prefix):
             book.pop(slot, None)
+        self._record_pool()
 
     def _ensure_reserved(self, slot: int, total_tokens: int) -> None:
         """Grow the reservation to cover ``total_tokens`` before any write
@@ -420,6 +473,7 @@ class ServingEngine:
         old, new = self.allocator.cow_page(slot, idx)
         copy_page(self.cache, old, new)
         swap_block_table_page(self.cache, slot, idx, new)
+        telemetry.record_prefix_cow()
 
     # -- device steps --
 
@@ -448,21 +502,25 @@ class ServingEngine:
         chunk = env.prefill_chunk()
         self._ensure_reserved(slot, start + wrote)
         self._ensure_writable(slot, start)
+        label = telemetry.prefill_program_label(start, wrote)
         try:
             chaos.maybe_fail("prefill_error")
-            if start == 0 and (chunk is None or t <= chunk):
-                out, lse = prefill_into_cache(q, k, v, self.cache, slot, length=length, **kw)
-            else:
-                if length is not None:
-                    raise ValueError(
-                        "chunked/continuation prefill needs unpadded prompts "
-                        "(length=None); pre-slice the valid rows"
-                    )
-                out, lse = self._chunked_prefill(q, k, v, slot, start, chunk, **kw)
+            with telemetry.program(label):
+                if start == 0 and (chunk is None or t <= chunk):
+                    out, lse = prefill_into_cache(q, k, v, self.cache, slot, length=length,
+                                                  **kw)
+                else:
+                    if length is not None:
+                        raise ValueError(
+                            "chunked/continuation prefill needs unpadded prompts "
+                            "(length=None); pre-slice the valid rows"
+                        )
+                    out, lse = self._chunked_prefill(q, k, v, slot, start, chunk, **kw)
         except Exception:
             self._release_after_fault(slot)
             raise
         self._lengths[slot] = start + wrote
+        telemetry.record_prefill(wrote)
         self._commit_if_written(slot)
         return out, lse
 
@@ -491,14 +549,18 @@ class ServingEngine:
         """Tear a faulted slot down, best effort: its pages back to the pool
         and its bookkeeping dropped. It never raises over the fault being
         handled: a release that fails itself (the slot already freed) is
-        logged and the bookkeeping still goes."""
+        logged and the bookkeeping still goes. Arms a deferred
+        ``engine_fault`` flight dump: the scheduler records the aborted tick
+        and flushes, so the dump holds the tick the fault killed."""
+        self._flight.trigger("engine_fault", immediate=False, slot=slot)
         try:
             self.free(slot)
         except Exception:
-            logging.getLogger(__name__).warning("fault cleanup could not release slot %s", slot,
-                                                exc_info=True)
+            telemetry.get_logger("resilience").warning(
+                "fault cleanup could not release slot %s", slot, exc_info=True)
         for book in (self._lengths, self._priorities, self._tokens, self._slot_prefix):
             book.pop(slot, None)
+        self._record_pool()
 
     def commit_prefix(self, slot: int) -> int:
         """Register the slot's prefilled pages as a shareable prefix (trie
@@ -518,6 +580,8 @@ class ServingEngine:
             # a fresh registrant: its own leading full pages ARE the trie's
             # resident copy (a fork keeps the key it shares with its siblings)
             self._slot_prefix[slot] = (tuple(pages[:full]), full * self.allocator.page_size)
+        telemetry.record_prefix_registered(newly, self.prefix.resident_pages)
+        self._record_pool()
         return newly
 
     def decode_step(self, q, k_new, v_new, slots, *, num_splits: int | None = None,
@@ -544,33 +608,126 @@ class ServingEngine:
             groups = plan_cascade_groups(self._slot_prefix, slot_list,
                                          min_group=1 if mode == "on" else 2)
         batch = DecodeBatch.of(slot_list, self.device)
-        append_kv(self.cache, batch.slots, k_new, v_new)
-        for s in slot_list:
-            self._lengths[s] = self._lengths.get(s, 0) + 1
-        if groups:
-            # each phase resolves its own splits: 0 = "per phase"
-            resolved = 0
-            out, lse = cascade_decode_attn(q, self.cache, slot_list, groups,
-                                           num_splits=num_splits, **kw)
-        elif self._decode_attn_fn is not None:
-            # the substitute resolves its own splits: 0 = "resolved outside"
-            resolved = 0
-            out, lse = self._decode_attn_fn(q, self.cache, batch.slots, num_splits=num_splits,
-                                            **kw)
-        else:
-            if num_splits is None:
-                num_splits = self.decode_splits_override
-            resolved = resolve_num_splits(num_splits, self.cache, batch.batch_size)
-            out, lse = magi_attn_decode(q, self.cache, batch, num_splits=resolved, **kw)
+        label = telemetry.decode_program_label(batch.batch_size)
+        with telemetry.program(label):
+            append_kv(self.cache, batch.slots, k_new, v_new)
+            for s in slot_list:
+                self._lengths[s] = self._lengths.get(s, 0) + 1
+            if groups:
+                # each phase resolves its own splits: 0 = "per phase"
+                resolved = 0
+                out, lse = cascade_decode_attn(q, self.cache, slot_list, groups,
+                                               num_splits=num_splits, **kw)
+            elif self._decode_attn_fn is not None:
+                # the substitute resolves its own splits: 0 = "resolved outside"
+                resolved = 0
+                out, lse = self._decode_attn_fn(q, self.cache, batch.slots,
+                                                num_splits=num_splits, **kw)
+            else:
+                if num_splits is None:
+                    num_splits = self.decode_splits_override
+                resolved = resolve_num_splits(num_splits, self.cache, batch.batch_size)
+                out, lse = magi_attn_decode(q, self.cache, batch, num_splits=resolved, **kw)
         self.last_decode_info = {
             "batch": batch.batch_size,
-            "program": decode_program_label(batch.batch_size),
+            "program": label,
             "num_splits": resolved,
             "cascade_groups": len(groups),
             "cascade_group_of": {slot_list[pos]: gi for gi, g in enumerate(groups)
                                  for pos in g.members},
         }
+        telemetry.record_decode_step(
+            batch_size=batch.batch_size,
+            num_splits=resolved,
+            max_seq_len=max((self._lengths.get(s, 0) for s in slot_list), default=0),
+            cascade_groups=len(groups),
+        )
+        self._maybe_shadow_check(q, slot_list, out, lse, kw)
         return out, lse
+
+    def _maybe_shadow_check(self, q, slot_list, out, lse, kw) -> None:
+        """The shadow check: every Nth decode batch
+        (``MAGI_ATTENTION_SHADOW_SAMPLE_RATE``; 0 = off) is recomputed by
+        :func:`~.decode_attn.decode_reference` — the plain f32 single-split
+        decode, outside every resilience hook — and scored against the
+        production output with the error-budget oracle. Every check lands
+        in the ``magi_numerics_shadow_*`` series and the census ring; a
+        breach arms a deferred ``numeric_drift`` flight dump tagged with
+        the live trace id. It reads the outputs on the host (the one
+        synchronisation of a sampled step), and changes no plan, key or
+        output.
+
+        One departure from the JAX package: the relative and ulp rows of the
+        budget judge only the outputs whose reference is at least the
+        budget's ``max_abs``; ``max_abs`` and the lse rows judge every
+        output. The kernel rounds P to the cache dtype before the PV
+        product and the f32 reference does not, so an output near zero may
+        land on the other side of it: on the card a clean bf16 batch then
+        scores tens of thousands of ulps (a sign flip crosses every small
+        binade) within 3e-4 of its reference."""
+        from .. import env
+
+        rate = env.shadow_sample_rate()
+        if rate <= 0:
+            return
+        self._shadow_counter += 1
+        if self._shadow_counter % rate:
+            return
+        ref_out, ref_lse = self._shadow_reference(q, slot_list, kw.get("scale"),
+                                                  kw.get("softcap", 0.0))
+        report = numerics.divergence_report(ref_out, out, ref_lse=ref_lse, test_lse=lse)
+        try:
+            budget = numerics.budget_for_dtype(report.dtype)
+        except ValueError:
+            # an out dtype without a calibrated row: the f32 budget
+            budget = numerics.budget_for_dtype("float32")
+        scaled = ("out.max_rel", "out.max_ulp")
+        significant = ref_out.abs() >= budget.max_abs
+        max_ulp = 0.0
+        violations = [v for v in budget.violations(report) if v not in scaled]
+        if bool(significant.any()):
+            sig = numerics.divergence_report(ref_out[significant], out[significant])
+            max_ulp = sig.out_max_ulp
+            violations += [v for v in budget.violations(sig) if v in scaled]
+        breached = bool(violations)
+        telemetry.record_shadow_check(max_ulp, breached=breached)
+        ctx = trace.current_trace()
+        numerics.get_numerics_census().note_shadow({
+            "batch": len(slot_list),
+            "trace_id": ctx[0] if ctx else None,
+            "rid": ctx[1] if ctx else None,
+            "breached": breached,
+            "violations": list(violations),
+            "scored_max_ulp": max_ulp,
+            "report": report.to_json(),
+        }, breached=breached)
+        if breached:
+            self._flight.trigger(
+                "numeric_drift",
+                immediate=False,
+                trace_id=ctx[0] if ctx else None,
+                rid=ctx[1] if ctx else None,
+                violations=list(violations),
+                max_ulp=max_ulp,
+                dominant=report.dominant,
+            )
+
+    def _shadow_reference(self, q, slot_list, scale, softcap):
+        """The plain f32 decode of ``slot_list`` over the pool as it stands
+        (the step's token appended); a pool sharded on its kv heads is
+        recomputed shard by shard on each shard's q-head slice, as the
+        per-head softmax allows."""
+        shards = shards_of(self.cache)
+        hq = q.shape[1]
+        outs, lses = [], []
+        for i, c in enumerate(shards):
+            idx = torch.as_tensor(slot_list, dtype=torch.long, device=c.device)
+            h = slice(i * hq // len(shards), (i + 1) * hq // len(shards))
+            o, l = decode_reference(q[:, h].to(c.device), c, c.block_tables[idx],
+                                    c.seq_lens[idx], scale=scale, softcap=softcap)
+            outs.append(o.to(q.device))
+            lses.append(l.to(q.device))
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
     def _cascade_mode(self, cascade) -> str:
         """The decode path a caller's ``cascade`` asks for: None follows
@@ -684,26 +841,27 @@ class ServingEngine:
         rows, entries = tick.finalize()
         hq, head_dim = int(q_parts[0].shape[1]), int(q_parts[0].shape[2])
         resolved = resolve_tick_splits(num_splits, self.cache, entries)
-        label = tick_program_label(rows, entries, resolved)
+        label = telemetry.tick_program_label(rows, entries, resolved)
         try:
             if prefill_rows:
                 chaos.maybe_fail("prefill_error")
-            if decode_items:
-                batch = DecodeBatch.of(decode_slots, self.device)
-                k_new = torch.stack([it[2] for it in decode_items])
-                v_new = torch.stack([it[3] for it in decode_items])
-                append_kv(self.cache, batch.slots, k_new, v_new)
-                for s in decode_slots:
-                    self._lengths[s] = self._lengths.get(s, 0) + 1
-            for j, (slot, _q, k, v) in enumerate(prefill_items):
-                if prefill_meta[j][2]:
-                    write_prefill_kv(self.cache, int(slot), k, v)
-            pad = rows - sum(int(p.shape[0]) for p in q_parts)
-            if pad:
-                q_parts.append(q_parts[0].new_zeros((pad, hq, head_dim)))
-            out, lse = unified_tick_attn(torch.cat(q_parts, dim=0), self.cache, tick,
-                                         num_splits=resolved, scale=scale, softcap=softcap)
-            parts = demux_tick(tick, out, lse)
+            with telemetry.program(label):
+                if decode_items:
+                    batch = DecodeBatch.of(decode_slots, self.device)
+                    k_new = torch.stack([it[2] for it in decode_items])
+                    v_new = torch.stack([it[3] for it in decode_items])
+                    append_kv(self.cache, batch.slots, k_new, v_new)
+                    for s in decode_slots:
+                        self._lengths[s] = self._lengths.get(s, 0) + 1
+                for j, (slot, _q, k, v) in enumerate(prefill_items):
+                    if prefill_meta[j][2]:
+                        write_prefill_kv(self.cache, int(slot), k, v)
+                pad = rows - sum(int(p.shape[0]) for p in q_parts)
+                if pad:
+                    q_parts.append(q_parts[0].new_zeros((pad, hq, head_dim)))
+                out, lse = unified_tick_attn(torch.cat(q_parts, dim=0), self.cache, tick,
+                                             num_splits=resolved, scale=scale, softcap=softcap)
+                parts = demux_tick(tick, out, lse)
         except Exception:
             for slot, _start, t in prefill_meta:
                 if t:
@@ -720,9 +878,17 @@ class ServingEngine:
                 o, l = parts[("p", j)]
                 prefill_results.append((o.to(q.dtype), l))
                 self._lengths[int(slot)] = start + t
+                telemetry.record_prefill(t)
             else:
                 prefill_results.append(self._empty_result(q))
             self._commit_if_written(int(slot))
+        if decode_items:
+            telemetry.record_decode_step(
+                batch_size=len(decode_items),
+                num_splits=resolved,
+                max_seq_len=max((self._lengths.get(s, 0) for s in decode_slots), default=0),
+                cascade_groups=len(groups),
+            )
         self.last_tick_info = {
             "program": label,
             "rows": rows,
@@ -751,3 +917,19 @@ class ServingEngine:
     def length(self, slot: int) -> int:
         """Tokens committed for ``slot`` (host state)."""
         return self._lengths.get(slot, 0)
+
+    # -- introspection --
+
+    def occupancy(self) -> dict:
+        return self.allocator.occupancy()
+
+    def memory_snapshot(self) -> dict:
+        """JSON-safe memory forensics of this engine: the priced serving
+        ledger (pool split live/trie/free, CoW pages once) and the page
+        fragmentation map — what the flight recorder embeds in every dump.
+        Host arithmetic over the allocator and the pool's shapes."""
+        return telemetry.engine_memory_snapshot(self)
+
+    def _record_pool(self) -> None:
+        if telemetry.enabled():  # off: no occupancy scan either
+            telemetry.record_kvcache_state(self.allocator.occupancy())

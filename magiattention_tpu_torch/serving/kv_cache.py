@@ -559,6 +559,29 @@ class PageAllocator:
     def active_seqs(self) -> int:
         return len(self._slot_pages)
 
+    def page_states(self) -> dict[str, tuple[int, ...]]:
+        """The ownership class of every page, for the memory ledger and the
+        fragmentation map:
+
+        - ``free``: on the free list;
+        - ``live``: owned by exactly one sequence slot (one reference);
+        - ``shared``: slot-owned with more than one reference (a CoW-shared
+          prefix page, and/or also pinned by the prefix trie);
+        - ``trie``: resident but owned by no slot (the prefix cache's
+          reference alone keeps it).
+
+        The four classes partition ``range(num_pages)``: a page appears once
+        however many references it holds (residency, not references, is what
+        costs pool capacity)."""
+        slot_owned: set[int] = set()
+        for pages in self._slot_pages.values():
+            slot_owned.update(pages)
+        live = tuple(sorted(p for p in slot_owned if self._page_refs.get(p, 0) == 1))
+        shared = tuple(sorted(p for p in slot_owned if self._page_refs.get(p, 0) > 1))
+        trie = tuple(sorted(set(self._page_refs) - slot_owned))
+        return {"free": tuple(sorted(self._free_pages)), "live": live, "shared": shared,
+                "trie": trie}
+
     def occupancy(self) -> dict:
         return {
             "pages_total": self.num_pages,

@@ -25,10 +25,21 @@ hoisted state scan predicts.
 
 Requests carry their attention inputs (per-token prompt q/k/v and one q/k/v
 row per decode step) as tensors on the engine's device: this package is the
-attention runtime, a model is the caller's. Host-side only. Not ported yet:
-the JAX scheduler's request-trace spans, SLO histograms, flight recorder,
-memory-pressure watcher (and its knob) and compile tracker; none of them
-changes the schedule.
+attention runtime, a model is the caller's. Host-side only.
+
+Telemetry, as the JAX scheduler records it, none of which changes the
+schedule: every request gets a trace id at submission, and its lifecycle
+spans (``submit``, ``admitted``, ``prefill_chunk``, ``decode_step``,
+``evicted`` / ``requeued``, ``finished`` ...) land in the span ring through
+``telemetry/trace.py``, the SLO histograms (queue wait, TTFT, inter-token
+latency) fed from the same floats; per tick the launch ledger and its cost
+decomposition (``record_tick_programs``: host solver, kernel builds, engine
+calls, an honest residual), ``record_sched_step``, the admission watermark,
+the ``MemPressureWatcher`` (``MAGI_ATTENTION_MEM_PRESSURE_THRESHOLD``, also
+the ``mem_pressure_threshold`` knob), and the always-on flight recorder's
+tick record and flush — a tick that raises is recorded and flushed too.
+The engine-call wall time of a tick is host time: the scheduler never
+synchronises the card.
 """
 
 from __future__ import annotations
@@ -39,7 +50,10 @@ from typing import Sequence
 
 import torch
 
-from .engine import ServingEngine, decode_program_label, prefill_program_label
+from .. import telemetry
+from ..telemetry import trace as reqtrace
+from ..telemetry.memory import MemPressureWatcher
+from .engine import AdmissionResult, ServingEngine
 from .kv_cache import PageAllocatorError
 
 QUEUED = "queued"
@@ -59,7 +73,9 @@ class Request:
     - ``decode_q/k/v``: ``[G, h, d]`` the projections of each generated
       step; ``max_new_tokens`` defaults to G;
     - ``priority``: admission priority (higher wins; the engine may evict
-      strictly lower-priority residents under pressure).
+      strictly lower-priority residents under pressure);
+    - ``trace_id``: the request's lifecycle trace id; None lets
+      :meth:`Scheduler.submit` assign a process-unique one.
     """
 
     rid: int
@@ -72,6 +88,7 @@ class Request:
     tokens: Sequence[int] | None = None
     max_new_tokens: int | None = None
     priority: int = 0
+    trace_id: str | None = None
 
     @property
     def prompt_len(self) -> int:
@@ -104,6 +121,7 @@ class RequestState:
     prefill_chunk_idx: int = 0  # chunks run so far
     evictions: int = 0  # evictions and preemptions suffered
     requeues: list = dataclasses.field(default_factory=list)  # (tier, reason) of each
+    trace_id: str = ""
     prefill_out_tail: torch.Tensor | None = None  # last prompt row's out
     decode_outs: list = dataclasses.field(default_factory=list)
 
@@ -144,6 +162,11 @@ class Scheduler:
     host work and never enters the launch census.
     """
 
+    # the tier labels of spans and SLO samples: None here (the unlabeled
+    # series); the tiered scheduler sets both
+    _prefill_tier: str | None = None
+    _decode_tier: str | None = None
+
     def __init__(
         self,
         engine: ServingEngine,
@@ -169,9 +192,12 @@ class Scheduler:
         self._active: dict[int, RequestState] = {}  # rid -> state
         self._finished: dict[int, RequestState] = {}
         self._step = 0
-        # the launch census: labels of the engine calls this tick made,
-        # reset at the top of every step()
+        self._flight = reqtrace.get_flight_recorder()
+        self._mem_watcher = MemPressureWatcher()
+        # the launch census: labels of the engine calls this tick made, and
+        # their host wall seconds, reset at the top of every step()
         self._tick_programs: list[str] = []
+        self._tick_engine_s = 0.0
 
     # -- submission --
 
@@ -185,8 +211,12 @@ class Scheduler:
                 raise ValueError(f"request {request.rid}: {name} is on {t.device}, the engine "
                                  f"on {dev}")
         now = self._clock()
-        st = RequestState(request=request, submitted_at=now, slo_start=now)
+        st = RequestState(request=request, submitted_at=now, slo_start=now,
+                          trace_id=(request.trace_id if request.trace_id is not None
+                                    else reqtrace.new_trace_id(request.rid)))
         self._queue.append(st)
+        reqtrace.span_submit(st.trace_id, st.rid, prompt_len=request.prompt_len,
+                             max_new_tokens=request.num_new_tokens, priority=request.priority)
         return st
 
     @property
@@ -209,11 +239,12 @@ class Scheduler:
     def _admission_order(self) -> list[RequestState]:
         return sorted(self._queue, key=lambda s: (-s.request.priority, s.submitted_at))
 
-    def _reject(self, st: RequestState, rejected: list[int]) -> None:
+    def _reject(self, st: RequestState, rejected: list[int], reason: str) -> None:
         st.status = REJECTED
         self._queue.remove(st)
         self._finished[st.rid] = st
         rejected.append(st.rid)
+        reqtrace.span_rejected(st.trace_id, st.rid, reason=reason)
 
     def _admit_queued(self) -> tuple[list[int], list[int]]:
         admitted, rejected = [], []
@@ -225,7 +256,10 @@ class Scheduler:
             # would raise out of the tick loop
             cap = min(alc.max_pages_per_seq, alc.num_pages) * alc.page_size
             if req.prompt_len + req.num_new_tokens > cap:
-                self._reject(st, rejected)
+                # the engine never sees it: mirror its rejection telemetry
+                telemetry.record_admission(AdmissionResult(False, None, "too_long"))
+                self._flight.note_admission(False, "too_long")
+                self._reject(st, rejected, "too_long")
                 continue
             # an admission with no eviction power leaves one free page of
             # decode headroom per decoding sequence: without it a request a
@@ -235,15 +269,19 @@ class Scheduler:
                 headroom = self._admission_headroom()
                 free = alc.num_pages - alc.pages_in_use
                 if headroom and free - alc.pages_needed(req.prompt_len) < headroom:
+                    reqtrace.span_backpressure(st.trace_id, st.rid, reason="decode_headroom")
                     break  # transient: decoders finish, pages free
-            res = self.engine.admit(req.prompt_len, priority=req.priority, tokens=req.tokens)
+            with reqtrace.request_context(st.trace_id, st.rid):
+                res = self.engine.admit(req.prompt_len, priority=req.priority,
+                                        tokens=req.tokens)
             # an attempt may have evicted residents even when it failed
             for victim_slot in res.evicted:
                 self._handle_eviction(victim_slot)
             if not res.admitted:
                 if res.reason == "too_long":
-                    self._reject(st, rejected)
+                    self._reject(st, rejected, res.reason)
                     continue
+                reqtrace.span_backpressure(st.trace_id, st.rid, reason=res.reason)
                 break  # transient backpressure: keep FIFO order, retry later
             st.slot = res.slot
             st.prefix_len = res.prefix_len
@@ -255,6 +293,13 @@ class Scheduler:
             self._queue.remove(st)
             self._active[st.rid] = st
             admitted.append(st.rid)
+            # the span and the queue-wait histogram from one float, measured
+            # from the SLO clock origin (which a requeue resets)
+            reqtrace.span_admitted(
+                st.trace_id, st.rid, slot=res.slot, prefix_len=res.prefix_len,
+                shared_pages=res.prefix_len // max(alc.page_size, 1),
+                evicted=len(res.evicted), queue_s=st.admitted_at - st.slo_start,
+                tier=self._prefill_tier)
         return admitted, rejected
 
     def _admission_headroom(self) -> int:
@@ -265,7 +310,8 @@ class Scheduler:
     # -- runtime knobs --
 
     _KNOB_NAMES: tuple[str, ...] = ("token_budget", "chunk", "max_decode_batch",
-                                    "admission_watermark", "cascade", "decode_splits")
+                                    "admission_watermark", "mem_pressure_threshold", "cascade",
+                                    "decode_splits")
 
     def knobs(self) -> dict:
         """Current value of every runtime-retunable knob."""
@@ -274,6 +320,7 @@ class Scheduler:
             "chunk": self.chunk,
             "max_decode_batch": self.max_decode_batch,
             "admission_watermark": self.admission_watermark,
+            "mem_pressure_threshold": self._mem_watcher.threshold,
             "cascade": self._knob_engines()[0].cascade_override,
             "decode_splits": self._knob_engines()[0].decode_splits_override,
         }
@@ -298,7 +345,9 @@ class Scheduler:
         return [self.engine]
 
     def _set_knob(self, name: str, value) -> None:
-        if name == "cascade":
+        if name == "mem_pressure_threshold":
+            self._mem_watcher.threshold = value
+        elif name == "cascade":
             for eng in self._knob_engines():
                 eng.cascade_override = value
         elif name == "decode_splits":
@@ -327,6 +376,12 @@ class Scheduler:
             if v < 0:
                 raise ValueError(f"knob admission_watermark={value!r} must be >= 0")
             return v
+        if name == "mem_pressure_threshold":
+            v = float(value)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"knob mem_pressure_threshold={value!r} must be in [0, 1] "
+                                 "(a free-page fraction; 0 disables)")
+            return v
         # cascade
         if value is None:
             return None
@@ -352,6 +407,7 @@ class Scheduler:
         """One in-flight request back to the queue, its generation restarted
         and its SLO clock reset to now; ``(tier, reason)`` is recorded in
         ``st.requeues`` (a decode-tier fault: ``("decode", "decode_fault")``)."""
+        reqtrace.span_evicted(st.trace_id, st.rid, slot=st.slot, tier=tier, reason=reason)
         st.requeues.append((tier, reason))
         self._active.pop(st.rid, None)
         st.slot = None
@@ -366,6 +422,7 @@ class Scheduler:
         st.last_token_at = None
         st.slo_start = self._clock()
         self._queue.append(st)
+        reqtrace.span_requeued(st.trace_id, st.rid)
 
     def _preempt(self, states: list[RequestState]) -> None:
         """Decode-pressure preemption: the lowest-priority, youngest member
@@ -399,27 +456,48 @@ class Scheduler:
         qs = torch.stack([st.request.decode_q[st.tokens_done] for st in states])
         ks = torch.stack([st.request.decode_k[st.tokens_done] for st in states])
         vs = torch.stack([st.request.decode_v[st.tokens_done] for st in states])
+        t0 = time.perf_counter()
         try:
-            out, _lse = self.engine.decode_step(qs, ks, vs, [st.slot for st in states])
+            # the batch lead's trace tags the engine's own emissions (a shadow
+            # check's numeric_drift dump names a live request this way)
+            with reqtrace.request_context(states[0].trace_id, states[0].rid):
+                out, _lse = self.engine.decode_step(qs, ks, vs, [st.slot for st in states])
         except PageAllocatorError:
             # transient pool pressure mid-growth: an operating condition,
             # not a crash; retry the batch next tick
             self._preempt(states)
             return 0
+        dur = time.perf_counter() - t0
         info = self.engine.last_decode_info or {}
-        self._tick_programs.append(info.get("program") or decode_program_label(len(states)))
-        self._decode_done(states, [out[j] for j in range(len(states))])
+        program = info.get("program") or telemetry.decode_program_label(len(states))
+        self._tick_programs.append(program)
+        self._tick_engine_s += dur
+        self._decode_done(states, [out[j] for j in range(len(states))], info=info, t0=t0,
+                          dur=dur, program=program, replica=replica)
         return len(states)
 
-    def _decode_done(self, states: list[RequestState], outs: list) -> None:
-        """The per-request bookkeeping of a decode step's outputs."""
+    def _decode_done(self, states: list[RequestState], outs: list, *, info: dict, t0: float,
+                     dur: float, program: str | None, replica: int | None = None) -> None:
+        """The per-request bookkeeping of a decode step's outputs: each
+        request's ``decode_step`` span and its TTFT or inter-token latency
+        sample from one float."""
         now = self._clock()
+        group_of = info.get("cascade_group_of", {})
         for st, o in zip(states, outs):
             st.decode_outs.append(o)
             st.tokens_done += 1
+            ttft_s = token_latency_s = None
             if st.first_token_at is None:
                 st.first_token_at = now
+                ttft_s = now - st.slo_start
+            else:
+                token_latency_s = now - (st.last_token_at or now)
             st.last_token_at = now
+            reqtrace.span_decode_step(
+                st.trace_id, st.rid, token_idx=st.tokens_done - 1, batch=len(states),
+                num_splits=int(info.get("num_splits", 0)), cascade_group=group_of.get(st.slot),
+                start_s=t0, duration_s=dur, ttft_s=ttft_s, token_latency_s=token_latency_s,
+                tier=self._decode_tier, replica=replica, program=program)
             if st.tokens_done >= st.request.num_new_tokens:
                 self._finish(st)
 
@@ -428,6 +506,11 @@ class Scheduler:
         self.engine.free(st.slot)
         del self._active[st.rid]
         self._finished[st.rid] = st
+        now = self._clock()
+        reqtrace.span_finished(
+            st.trace_id, st.rid, tokens=st.tokens_done, prefill_chunks=st.prefill_chunk_idx,
+            prefix_len=st.prefix_len, evictions=st.evictions, e2e_s=now - st.submitted_at,
+            slo_window_s=now - st.slo_start)
 
     def _run_prefill_chunk(self, st: RequestState, budget: int) -> int:
         req = st.request
@@ -439,15 +522,26 @@ class Scheduler:
         lo, hi = st.prefill_pos, st.prefill_pos + n
         if self.plan_probe is not None and n:
             self.plan_probe.note_prefill(st.rid, lo, hi)
-        out, _lse = self.engine.prefill(req.prompt_q[lo:hi], req.prompt_k[lo:hi],
-                                        req.prompt_v[lo:hi], st.slot)
-        if n:  # a zero-token chunk (fully-cached prompt) launches nothing
-            self._tick_programs.append(prefill_program_label(lo, n))
-        self._chunk_done(st, lo, n, out)
+        t0 = time.perf_counter()
+        with reqtrace.request_context(st.trace_id, st.rid):
+            out, _lse = self.engine.prefill(req.prompt_q[lo:hi], req.prompt_k[lo:hi],
+                                            req.prompt_v[lo:hi], st.slot)
+        dur = time.perf_counter() - t0
+        # a zero-token chunk (fully-cached prompt) launches nothing
+        program = telemetry.prefill_program_label(lo, n) if n else None
+        if n:
+            self._tick_programs.append(program)
+            self._tick_engine_s += dur
+        self._chunk_done(st, lo, n, out, t0=t0, dur=dur, program=program)
         return n
 
-    def _chunk_done(self, st: RequestState, lo: int, n: int, out) -> None:
-        """The per-request bookkeeping of one prefill chunk."""
+    def _chunk_done(self, st: RequestState, lo: int, n: int, out, *, t0: float, dur: float,
+                    program: str | None) -> None:
+        """The per-request bookkeeping of one prefill chunk, its
+        ``prefill_chunk`` span first."""
+        reqtrace.span_prefill_chunk(st.trace_id, st.rid, tokens=n,
+                                    chunk_idx=st.prefill_chunk_idx, start=lo, start_s=t0,
+                                    duration_s=dur, tier=self._prefill_tier, program=program)
         req = st.request
         hi = lo + n
         st.prefill_chunk_idx += 1
@@ -481,13 +575,91 @@ class Scheduler:
 
     def step(self) -> StepReport:
         """One tick: admissions, at most one decode step, then prefill
-        chunks with the budget left (or all of it as one unified tick)."""
+        chunks with the budget left (or all of it as one unified tick).
+        Every tick lands in the flight recorder; a tick aborted by an
+        engine fault is recorded (with the error) before the armed dump
+        flushes, so the dump holds the faulting tick."""
         self._step += 1
+        tick_start = time.perf_counter()  # the flight recorder's arm window
+        # the tick's cost attribution: marks on the compile tracker's
+        # always-on accumulators, diffed at the end (telemetry on or off)
+        tracker = telemetry.get_compile_tracker()
+        tracker.note_tick(self._step)
+        compile_mark = tracker.mark()
+        solver_mark = tracker.solver_mark()
         self._tick_programs = []
-        report = self._step_body(self.waiting)
+        self._tick_engine_s = 0.0
+        queue_depth = self.waiting  # at the tick's start, before admissions
+        try:
+            report = self._step_body(queue_depth)
+        except Exception as e:  # noqa: BLE001 — recorded, then re-raised
+            self._flight.record_tick({"step": self._step, "aborted": repr(e),
+                                      "queue_depth": queue_depth, "active": self.num_active,
+                                      "budget": self.token_budget}, start_t=tick_start)
+            self._flight.flush()
+            raise
+        self._record_tick(report, tick_start, tracker, compile_mark, solver_mark)
         if self.plan_probe is not None:
             self.plan_probe.on_step_end(report)
         return report
+
+    def _record_tick(self, report: StepReport, tick_start: float, tracker, compile_mark,
+                     solver_mark: float) -> None:
+        """A finished tick's telemetry: its wall-clock decomposed into host
+        solver, kernel builds, engine calls (less the builds inside them)
+        and an honest residual (negative when attribution over-counts),
+        the step and launch records, the admission watermark, the memory
+        pressure watcher, then the flight recorder's tick record and
+        flush."""
+        wall_s = time.perf_counter() - tick_start
+        compile_n, compile_s = tracker.since(compile_mark)
+        solver_s = tracker.solver_since(solver_mark)
+        device_s = max(self._tick_engine_s - compile_s, 0.0)
+        residual_s = wall_s - solver_s - compile_s - device_s
+        programs = list(self._tick_programs)
+        telemetry.record_sched_step(
+            waiting=self.waiting, active=self.num_active, tokens_used=report.tokens_used,
+            prefill_chunks=len([c for c in report.prefill_chunks if c[1] > 0]),
+            decode_ran=report.decode_ran, budget_utilization=report.budget_utilization,
+            queue_depth=report.queue_depth)
+        telemetry.record_tick_programs(
+            step=self._step, start_s=tick_start, wall_s=wall_s, programs=programs,
+            compiles=compile_n, solver_s=solver_s, compile_s=compile_s, device_s=device_s,
+            residual_s=residual_s)
+        alloc = self.engine.allocator
+        free = alloc.num_pages - alloc.pages_in_use
+        telemetry.record_admission_watermark(self._admission_headroom(), free)
+        if self._mem_watcher.observe(free / max(alloc.num_pages, 1)):
+            self._flight.trigger(
+                "mem_pressure", immediate=False, free_pages=free, pages_total=alloc.num_pages,
+                threshold=self._mem_watcher.threshold,
+                consecutive_ticks=self._mem_watcher.ticks)
+        self._flight.record_tick({
+            "step": report.step,
+            "admitted": list(report.admitted),
+            "rejected": list(report.rejected),
+            "decode_ran": report.decode_ran,
+            "decode_batch": report.decode_batch,
+            "prefill_chunks": [list(c) for c in report.prefill_chunks],
+            "tokens_used": report.tokens_used,
+            "budget": self.token_budget,
+            "budget_utilization": report.budget_utilization,
+            "queue_depth": report.queue_depth,
+            "waiting": self.waiting,
+            "active": self.num_active,
+            "finished": list(report.finished),
+            "launches": len(set(programs)),
+            "programs": programs,
+            "compiles": compile_n,
+            "cost_ms": {
+                "wall": round(wall_s * 1e3, 3),
+                "solver": round(solver_s * 1e3, 3),
+                "compile": round(compile_s * 1e3, 3),
+                "device": round(device_s * 1e3, 3),
+                "residual": round(residual_s * 1e3, 3),
+            },
+        }, start_t=tick_start)
+        self._flight.flush()
 
     def _report(self, admitted, rejected, finished_before, queue_depth, decode_ran: bool,
                 decode_batch: int, chunks, tokens_used: int) -> StepReport:
@@ -593,6 +765,7 @@ class Scheduler:
                         for st in decode_states]
         prefill_items = [(st.slot, st.request.prompt_q[lo:lo + n], st.request.prompt_k[lo:lo + n],
                           st.request.prompt_v[lo:lo + n]) for st, lo, n in plan]
+        t0 = time.perf_counter()
         try:
             decode_res, prefill_res = self.engine.unified_tick(decode_items, prefill_items)
         except PageAllocatorError:
@@ -601,13 +774,18 @@ class Scheduler:
             self._preempt(decode_states)  # nothing launched
             return self._report(admitted, rejected, finished_before, queue_depth,
                                 bool(decode_states), 0, (), 0)
+        dur = time.perf_counter() - t0
         info = self.engine.last_tick_info or {}
-        if info.get("program") is not None:  # the whole tick was one call
-            self._tick_programs.append(info["program"])
-        self._decode_done(decode_states, [o for o, _lse in decode_res])
+        program = info.get("program")
+        if program is not None:  # the whole tick was one call
+            self._tick_programs.append(program)
+            self._tick_engine_s += dur
+        self._decode_done(decode_states, [o for o, _lse in decode_res], info=info, t0=t0,
+                          dur=dur, program=program)
         chunks: list[tuple[int, int]] = []
         for (st, lo, n), (out_rows, _lse_rows) in zip(plan, prefill_res):
-            self._chunk_done(st, lo, n, out_rows)
+            self._chunk_done(st, lo, n, out_rows, t0=t0, dur=dur if n else 0.0,
+                             program=program if n else None)
             chunks.append((st.rid, n))
         return self._report(admitted, rejected, finished_before, queue_depth,
                             bool(decode_states), len(decode_states), chunks,

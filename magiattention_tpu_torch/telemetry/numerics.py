@@ -1,21 +1,28 @@
-"""Numerics oracle: error budgets and divergence reports.
+"""Numerics oracle: error budgets, divergence reports and the host census.
 
-The port's copy of the host-side (numpy) part of the JAX package's
+The port's copy of the host-side part of the JAX package's
 ``telemetry/numerics.py``. :func:`divergence_report` scores a test array
 against a reference per position: absolute, relative and ulp error (the
 bit-pattern distance in the test dtype's own grid), with out-vs-lse
-attribution when both components are given. :class:`ErrorBudget` is the
-composable policy (per-dtype defaults in :data:`DEFAULT_BUDGETS`; ``&`` =
-the strictest of two budgets, ``|`` = the loosest), and
-:func:`assert_within_budget` is the gate the parity tests share. Torch
-tensors go in through numpy (``t.detach().cpu().numpy()``). The in-graph
-value census of the JAX module needs the telemetry registry and is not
-part of this copy.
+attribution when both components are given. The arrays are numpy arrays or
+torch tensors (a tensor is read on the host; bfloat16, which numpy lacks,
+is scored on its own bit patterns). :class:`ErrorBudget` is the composable
+policy (per-dtype defaults in :data:`DEFAULT_BUDGETS`; ``&`` = the
+strictest of two budgets, ``|`` = the loosest), and
+:func:`assert_within_budget` is the gate the parity tests share.
+
+:class:`NumericsCensus` is the host state every flight-recorder dump embeds
+as its ``numerics`` section: the serving engine's shadow checks
+(``MAGI_ATTENTION_SHADOW_SAMPLE_RATE``) land there. The in-graph value
+census of ``MAGI_ATTENTION_NUMERICS=census`` (``site_summary``,
+``pack_census``, ``consume_census``) comes with the device slice of
+ROADMAP A.15; until then the flag is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -36,17 +43,50 @@ def _ordered_ints(x: np.ndarray) -> np.ndarray:
     return np.where(i >= 0, i, np.iinfo(itype).min - i)
 
 
+def _is_tensor(x) -> bool:
+    return type(x).__module__.startswith("torch")
+
+
+def _grid(x, like=None) -> tuple[np.ndarray, np.ndarray, str]:
+    """``x`` (numpy or torch) on ``like``'s dtype grid (its own by default):
+    its values as float64 and its bit patterns as ordered int64, on the
+    host, and the grid's dtype name. A tensor is read through its integer
+    view, so bfloat16 needs no numpy dtype."""
+    if like is not None and not _is_tensor(like):
+        like = np.asarray(like)
+        if _is_tensor(x):  # onto a numpy grid; numpy has no bfloat16
+            import torch
+
+            x = x.detach().cpu()
+            x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        a = np.asarray(x).astype(like.dtype)
+        return a.astype(np.float64), _ordered_ints(a), str(a.dtype)
+    if like is not None and not _is_tensor(x):
+        import torch
+
+        x = torch.from_numpy(np.asarray(x))
+    if not _is_tensor(x):
+        a = np.asarray(x)
+        return a.astype(np.float64), _ordered_ints(a), str(a.dtype)
+    import torch
+
+    t = x.detach() if like is None else x.detach().to(like.dtype)
+    ints = t.view(getattr(torch, f"int{t.element_size() * 8}")).cpu().numpy()
+    i = ints.astype(np.int64)
+    ordered = np.where(i >= 0, i, np.iinfo(ints.dtype).min - i)
+    return t.double().cpu().numpy(), ordered, str(t.dtype).removeprefix("torch.")
+
+
 def ulp_distance(ref, test) -> np.ndarray:
     """Per-position ulp distance between ``ref`` and ``test`` in
     ``test``'s dtype grid (``ref`` is rounded onto it first: the honest
     comparison of a low-precision path with an f32 oracle). Agreeing NaNs
     count 0; any other non-finite disagreement shows as the huge
     bit-pattern distance it is."""
-    t = np.asarray(test)
-    r = np.asarray(ref).astype(t.dtype)
-    d = np.abs(_ordered_ints(t) - _ordered_ints(r))
-    both_nan = np.isnan(t.astype(np.float64)) & np.isnan(r.astype(np.float64))
-    return np.where(both_nan, 0, d)
+    t64, t_ord, _ = _grid(test)
+    r64, r_ord, _ = _grid(ref, like=test)
+    d = np.abs(t_ord - r_ord)
+    return np.where(np.isnan(t64) & np.isnan(r64), 0, d)
 
 
 def nudge_ulps(x, n: int):
@@ -180,9 +220,8 @@ def divergence_report(ref, test, *, ref_lse=None, test_lse=None) -> DivergenceRe
     pass the lse pair too for the out-vs-lse attribution, which matters for
     an LSE-corrected merge, where a wrong lse poisons out
     multiplicatively."""
-    t = np.asarray(test)
-    r64 = np.asarray(ref).astype(np.float64)
-    t64 = t.astype(np.float64)
+    t64, _, dtype = _grid(test)
+    r64, _, _ = _grid(ref)
     if r64.shape != t64.shape:
         raise ValueError(f"divergence_report: shape mismatch ref {r64.shape} vs test {t64.shape}")
     abs_err = np.abs(t64 - r64)
@@ -197,8 +236,8 @@ def divergence_report(ref, test, *, ref_lse=None, test_lse=None) -> DivergenceRe
     if test_lse is not None:
         if ref_lse is None:
             raise ValueError("divergence_report: test_lse supplied without ref_lse")
-        rl = np.asarray(ref_lse).astype(np.float64)
-        tl = np.asarray(test_lse).astype(np.float64)
+        rl = _grid(ref_lse)[0]
+        tl = _grid(test_lse)[0]
         # lse = -inf is the zero-coverage value: agreeing -inf rows are exact
         # (the -inf - -inf NaN is masked away), disagreeing ones infinitely off
         with np.errstate(invalid="ignore"):
@@ -213,8 +252,8 @@ def divergence_report(ref, test, *, ref_lse=None, test_lse=None) -> DivergenceRe
     if lse_max_ulp is not None and lse_max_ulp > out_max_ulp:
         dominant = "lse"
     return DivergenceReport(
-        dtype=str(t.dtype),
-        shape=tuple(int(s) for s in t.shape),
+        dtype=dtype,
+        shape=tuple(int(s) for s in t64.shape),
         out_max_abs=float(np.max(abs_err)) if abs_err.size else 0.0,
         out_mean_abs=float(np.mean(abs_err)) if abs_err.size else 0.0,
         out_max_rel=float(np.max(rel_err)) if rel_err.size else 0.0,
@@ -238,3 +277,97 @@ def assert_within_budget(report: DivergenceReport, budget: ErrorBudget | None = 
     if bad:
         raise ErrorBudgetExceeded(bad, report, budget, where=where)
     return report
+
+
+# ---------------------------------------------------------------------------
+# host-side census state (the flight dump's `numerics` section)
+# ---------------------------------------------------------------------------
+
+
+class NumericsCensus:
+    """Last-consumed census per (layer, site) + a bounded ring of
+    shadow-check scores — the host state every flight dump embeds as its
+    ``numerics`` section (registered with the flight recorder as a weakly
+    held source). Independent of the telemetry flag, like the flight
+    recorder itself."""
+
+    SHADOW_RING = 8
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._sites: dict[str, dict[str, dict[str, float]]] = {}
+        self._shadow: list[dict] = []
+        self._shadow_checks = 0
+        self._shadow_breaches = 0
+
+    def note_sites(self, layer: str, site_stats: dict[str, dict[str, float]]) -> None:
+        with self._lock:
+            self._sites.setdefault(layer, {}).update(
+                {s: dict(v) for s, v in site_stats.items()})
+
+    def note_shadow(self, record: dict, *, breached: bool) -> None:
+        with self._lock:
+            self._shadow_checks += 1
+            if breached:
+                self._shadow_breaches += 1
+            self._shadow.append(dict(record))
+            if len(self._shadow) > self.SHADOW_RING:
+                del self._shadow[: len(self._shadow) - self.SHADOW_RING]
+
+    def numerics_snapshot(self) -> dict:
+        """JSON-safe snapshot (the flight recorder's source contract)."""
+        with self._lock:
+            return {
+                "census": {layer: {s: dict(v) for s, v in sites.items()}
+                           for layer, sites in self._sites.items()},
+                "shadow": [dict(r) for r in self._shadow],
+                "shadow_checks": self._shadow_checks,
+                "shadow_breaches": self._shadow_breaches,
+            }
+
+
+_census: NumericsCensus | None = None
+_census_lock = threading.Lock()
+# the flight recorder the census last registered with: a
+# reset_flight_recorder() swaps the global recorder, so registration
+# re-arms lazily on the next note (and eagerly at engine construction)
+_registered_with = None
+
+
+def get_numerics_census() -> NumericsCensus:
+    """The process-global census (made on first use; registered as a
+    flight-recorder ``numerics`` source so dumps carry it)."""
+    global _census
+    if _census is None:
+        with _census_lock:
+            if _census is None:
+                _census = NumericsCensus()
+    ensure_flight_registration()
+    return _census
+
+
+def ensure_flight_registration() -> None:
+    """(Re-)attach the census to the CURRENT flight recorder — called
+    lazily by :func:`get_numerics_census` and eagerly by the serving
+    engine, so a ``reset_flight_recorder()`` never silently drops the
+    ``numerics`` section from later dumps."""
+    global _registered_with
+    if _census is None:
+        return
+    from .trace import get_flight_recorder
+
+    fr = get_flight_recorder()
+    with _census_lock:
+        if _registered_with is fr:
+            return
+        _registered_with = fr
+    fr.register_numerics_source("census", _census)
+
+
+def reset_numerics_census() -> NumericsCensus:
+    """A fresh census (tests); registered with the current recorder."""
+    global _census, _registered_with
+    with _census_lock:
+        _census = NumericsCensus()
+        _registered_with = None
+    return get_numerics_census()

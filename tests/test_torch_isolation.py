@@ -58,7 +58,10 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "testing.precision", "testing.flag_generator", "testing.gt_dispatcher",
                 "serving.scheduler", "serving.unified_tick", "serving.cp_decode",
                 "serving.distributed", "serving.plan_probe", "resilience.chaos",
-                "resilience.guards", "telemetry.logger"):
+                "resilience.guards", "telemetry.logger", "telemetry.registry",
+                "telemetry.events", "telemetry.collectors", "telemetry.compile",
+                "telemetry.trace", "telemetry.aggregate", "telemetry.exposition",
+                "telemetry.memory"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

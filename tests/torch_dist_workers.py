@@ -872,3 +872,27 @@ def resilience_cp(group, case: dict, runs: list, inputs: dict) -> list:
                 os.environ.pop(name)
             reset_chaos()
     return results
+
+
+def telemetry_aggregate(group, seed: int) -> dict:
+    """Each rank records its own telemetry (values that differ by rank) and
+    gathers the cross-rank aggregate over ``group``; returns the rank's
+    snapshot and the aggregate it got."""
+    from magiattention_tpu_torch import telemetry
+
+    rank = dist.get_rank(group)
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    try:
+        rng = np.random.default_rng(seed + rank)
+        telemetry.record_decode_step(batch_size=rank + 1, num_splits=1,
+                                     max_seq_len=int(rng.integers(1, 100)))
+        telemetry.record_tier_state("decode", pages_in_use=10 * rank, active=rank + 1,
+                                    replica=rank)
+        for _ in range(rank + 2):
+            telemetry.record_request_ttft(float(rng.exponential(0.01)))
+        snap = telemetry.snapshot()
+        return {"snapshot": snap, "aggregate": telemetry.aggregate_across_mesh(group=group)}
+    finally:
+        telemetry.set_enabled(None)
+        telemetry.reset()
