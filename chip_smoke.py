@@ -289,12 +289,34 @@ Phases, each printing one JSON line:
    (``ledger_vs_measured``); every required series (serving, scheduler,
    traces, prefix cache with a CoW split and an eviction, builds and the
    plan solver's hit and miss, tiers, memory); and the host ms a tick
-   costs with telemetry off and on, in turns after a warm-up drain.
+   costs with telemetry off and on, in turns after a warm-up drain;
+22. profiling — the device side of telemetry, in parts, each part's
+   launches counted from zero: ``telemetry.profile_roofline`` measured on
+   the serving path's causal 4096 prefill (32 / 8, d 128, bf16) at the
+   automatic choice (``flex_fwd_hb``) and at head_block 1 (``flex_fwd``)
+   and on the hetero mask at 8 / 8 (``flex_fwd_sparse``): the achieved
+   fraction of the 989 TF/s peak at most 1.05 and within 10% of the mask
+   FLOPs over the kernels phase's own time of that kernel, with the gap's
+   fractions; the hetero mask's block-occupancy map equal, tile for tile,
+   to the plan the sparse grid launched with; ``api.profile_attn_timeline``
+   at cp=2 over gloo on the cp_attn phase's key (degree 0) and on the same
+   mask at degree 1: one stage a plan piece, each stage's cast and kernel
+   ms, the serial sum, the pipelined whole and the measured / predicted
+   ratio (the ranks share the card: no cp speed); ``MAGI_ATTENTION_NUMERICS``
+   off and census ``torch.equal`` on the serving pool's decode batch and on
+   the cp=2 keyed forward at degree 1, the decode census equal to a plain
+   recomputation from the same kernel partials, the merges' mass deviation
+   under 1e-5, a ``finite:8.0`` plant moving its site's out max-abs to 8.0,
+   the census's added device ms (the reductions) and host ms
+   (paired medians) a decode call; the cp_plan_reuse stream's plan-cache,
+   bucket, incremental and eviction counters (telemetry on for the stream)
+   against its tiers; every series of the plan, plan-cache, timeline,
+   roofline and numerics catalogs recorded.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode``, ``scheduler``, ``tiered``, ``resilience`` and ``telemetry``
-among them; every path's launches must be in it), errors and times; the
+``cp_decode``, ``scheduler``, ``tiered``, ``resilience``, ``telemetry`` and
+``profiling`` among them; every path's launches must be in it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -4467,7 +4489,10 @@ def cp_plan_reuse_rank(group, seed: int, stream=CP_REUSE_STREAM, heads=(TRAIN_HQ
     (B's runtime rebuilt from row maps that pad only the tail, as an exact
     key pads, instead of each document's segment), and the host-only tally
     of a ``utils.pack_corpus`` stream of ``packed`` (batches, capacity)
-    through the keys, with no attention call."""
+    through the keys, with no attention call. All of that with telemetry
+    off; last, the stream once more from a cleared cache with telemetry on,
+    unchecked: its tiers, key host ms, counters and series (the profiling
+    phase holds the counters against the tiers)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4582,8 +4607,33 @@ def cp_plan_reuse_rank(group, seed: int, stream=CP_REUSE_STREAM, heads=(TRAIN_HQ
             tally.append({"docs": len(cu) - 1, "tier": tier, "key_host_ms": ms,
                           "patched": patched})
         res["packed"] = tally
+
+        # the stream again from a cleared cache, telemetry on: its counters
+        # and series (the profiling phase), kept out of the timed pass above
+        from magiattention_tpu_torch import telemetry
+
+        api.clear_cache()
+        telemetry.set_enabled(True)
+        telemetry.reset()
+        tiers, on_ms = [], []
+        for name, docs, _ in stream:
+            cu = np.concatenate([[0], np.cumsum(docs)]).astype(int).tolist()
+            key, tier, ms, _ = key_tier(interface, lambda: key_of(cu))
+            tiers.append(tier)
+            on_ms.append(ms)
+            keyed_fwd_bwd(key, *by_name[name])
+        snap = telemetry.snapshot()
+        telemetry.set_enabled(None)
+        res["stream_telemetry"] = {
+            "rank": rank, "tiers": tiers, "key_host_ms": on_ms, "counters": snap["counters"],
+            "names": sorted({n.split("{")[0] for kind in ("counters", "gauges", "histograms")
+                             for n in snap[kind]})}
         return res
     finally:
+        from magiattention_tpu_torch import telemetry
+
+        telemetry.set_enabled(None)
+        telemetry.reset()
         os.environ.pop("MAGI_ATTENTION_PLAN_REUSE", None)
         api.clear_cache()
 
@@ -4635,6 +4685,7 @@ def cp_plan_reuse(pools, seed: int) -> dict:
                                                          for r in res]}
                          for i, req in enumerate(r0["requests"])],
             "launches": launches,
+            "stream_telemetry": [r["stream_telemetry"] for r in res],
             "planted_tail_only_pad": {"caught": sorted(caught),
                                       **r0["planted_tail_only_pad"]},
             "packed_stream": {"batches": CP_PACKED_BATCHES, "capacity": CP_PACKED_CAPACITY,
@@ -6307,6 +6358,374 @@ def telemetry_phase(gen) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+# -- the device side of telemetry: roofline, occupancy, timeline, census, cp counters ----
+
+PROF_REPS = 7  # timed reps of the roofline's measurement (warm-up 1, the median kept)
+PROF_ROOFLINE_TOL = 0.10  # the roofline's fraction against the kernels phase's own time
+PROF_CENSUS_PAIRS = 15  # off / census decode calls in turns for the census's cost
+PROF_MASS_DEV = 1e-5  # a clean merge's softmax-mass deviation, f32 partials
+PROF_PLANT = "finite:8.0"
+
+
+def prof_census_decode(engine, slots, gen) -> dict:
+    """The census on one decode batch of the serving pool (8 sequences at
+    Llama-3.1-8B widths, one split): ``MAGI_ATTENTION_NUMERICS`` off and
+    census ``torch.equal``; the census's values equal a plain torch
+    recomputation from the same kernel partials; the merge's mass deviation
+    under PROF_MASS_DEV; a ``finite:8.0`` plant at split 0 moves its out
+    max-abs to 8.0 (a real lse may exceed 8.0); the census's cost a call:
+    the reductions' device ms (CUDA events, the stream held) and the
+    synchronised host ms, census less off, in turns (paired medians). Then
+    one shadow-checked decode step (the ``magi_numerics_shadow_*`` series).
+    Telemetry is on, into a registry of its own."""
+    import statistics
+
+    import torch
+    from magiattention_tpu_torch import telemetry
+    from magiattention_tpu_torch.ops.correction import merge_partials
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.telemetry.roofline import device_ms
+
+    idx = torch.as_tensor(slots, device="cuda")
+    q = torch.randn((len(slots), HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    launches = {}
+
+    def step():
+        return da.decode_attn_paged(q, engine.cache, idx)
+
+    telemetry.set_enabled(True)
+    telemetry.reset_numerics_census()
+    with telemetry.scoped_registry():
+        try:
+            with magi_flags(NUMERICS="off"):
+                off = counted(launches, step)
+            with magi_flags(NUMERICS="census"):
+                on = counted(launches, step)
+            check(torch.equal(on[0], off[0]) and torch.equal(on[1], off[1]),
+                  "profiling census decode: census on differs from off")
+            got = telemetry.get_numerics_census().numerics_snapshot()["census"]["decode"]
+            # the plain recomputation from the same partials (one split: the
+            # census takes the lse as its max-logit proxy, as JAX's does)
+            b = len(slots)
+            params = da.DecodeParams(scale=1.0 / math.sqrt(D), softcap=0.0,
+                                     num_splits=da.resolve_num_splits(None, engine.cache, b),
+                                     out_dtype=q.dtype)
+            cache = engine.cache
+            out_p, lse_p = uncounted(lambda: da._decode_partials_kernel(
+                q, cache, cache.block_tables[idx], cache.seq_lens[idx], params))
+            outs = [out_p[:, i] for i in range(params.num_splits)]
+            lses = [lse_p[:, i] for i in range(params.num_splits)]
+            merged = merge_partials(outs, lses)[1]
+            want = {}
+            for i, (o, l) in enumerate(zip(outs, lses)):
+                finite = l[l > float("-inf")]
+                want[f"split{i}"] = {"logit_max": float(l.max()),
+                                     "lse_min": float(finite.min()), "lse_max": float(l.max()),
+                                     "out_max_abs": float(o.abs().max())}
+            mass = sum(torch.exp(l - merged) for l in lses)
+            want["final"] = {"mass_dev": float((mass - 1.0).abs().max())}
+            check(set(got) == set(want), f"profiling census decode: sites {got}, want {want}")
+            err = max(abs(got[s][k] - v) for s, st in want.items() for k, v in st.items())
+            check(err <= 1e-6, f"profiling census decode: {got} against the plain recomputation "
+                  f"{want}")
+            check(got["final"]["mass_dev"] < PROF_MASS_DEV,
+                  f"profiling census decode: mass deviation {got['final']['mass_dev']}")
+            with magi_flags(NUMERICS="census",
+                            CHAOS=f"corrupt_partial:site=split0,value={PROF_PLANT},seed=3"):
+                counted(launches, step)
+            planted = telemetry.get_numerics_census().numerics_snapshot()["census"]["decode"]
+            check(planted["split0"]["out_max_abs"] == 8.0 and got["split0"]["out_max_abs"] < 8.0,
+                  f"profiling census decode: the {PROF_PLANT} plant moved split0 to "
+                  f"{planted['split0']} from {got['split0']}")
+            # the cost: the reductions alone on the device, and whole calls in turns
+            with magi_flags(NUMERICS="census"):
+                dev_ms = uncounted(lambda: device_ms(
+                    lambda: da._split_census(outs, lses, merged), reps=PROF_REPS, warmup=2,
+                    cuda=True))
+            host = {"off": [], "census": []}
+            for _ in range(PROF_CENSUS_PAIRS + 2):
+                for mode in ("off", "census"):
+                    with magi_flags(NUMERICS=mode):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        counted(launches, step)
+                        torch.cuda.synchronize()
+                        host[mode].append((time.perf_counter() - t0) * 1e3)
+            pairs = [c - o for o, c in zip(host["off"][2:], host["census"][2:])]  # 2 warm-up pairs
+            with magi_flags(NUMERICS="census", SHADOW_SAMPLE_RATE="1"):
+                k, v = (torch.randn((b, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+                        for _ in range(2))
+                counted(launches, lambda: engine.decode_step(q, k, v, slots))
+            names = {s.split("{")[0] for kind in ("counters", "gauges", "histograms")
+                     for s in telemetry.snapshot()[kind]}
+        finally:
+            telemetry.set_enabled(None)
+        return {"batch": b, "splits": params.num_splits, "census": got, "planted_split0":
+                planted["split0"], "plain_recomputation_max_abs_diff": err,
+                "added_device_ms_reductions": dev_ms,
+                "host_ms_off_median": statistics.median(host["off"][2:]),
+                "host_ms_census_median": statistics.median(host["census"][2:]),
+                "added_host_ms_paired_median": statistics.median(pairs),
+                "added_host_ms_paired_range": [min(pairs), max(pairs)],
+                "series": sorted(names), "launches": launches}
+
+
+@in_rank
+def prof_cp_rank(group, seed: int, t: int = CP_ATTN_T, heads=(TRAIN_HQ, TRAIN_HK), head_dim=D,
+                 chunk=CP_CHUNK, device="cuda") -> dict:
+    """One rank of the profiling phase's cp part, at cp=2 on the card: the
+    measured timeline (``api.profile_attn_timeline``) of the ``cp_attn``
+    phase's key (the hetero mask, 16 / 8 heads, degree 0) and of the same
+    mask at degree 1; then on the degree-1 key the forward under census off,
+    on, and on with a ``finite:8.0`` plant at the host stage. Returns the
+    timelines, the census values, whether off and on are ``torch.equal``,
+    the series recorded and the launches. ``device="cpu"`` rehearses it on
+    the CPU (float32; give a small ``t``)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc, telemetry
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    if device == "cuda":
+        cp_rank_setup()
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    hq, hk = heads
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((t, h, head_dim), generator=gen, device=device, dtype=dtype)
+               for h in (hq, hk, hk))
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    telemetry.reset_numerics_census()
+    csrc.reset_launch_counts()
+    res = {"rank": dist.get_rank(group), "timelines": {}, "census": {}}
+    try:
+        keys = {d: api.magi_attn_flex_key(
+            qr, kr, ty, t, t, group, num_heads=(hq, hk), head_dim=head_dim, chunk_size=chunk,
+            out_dtype=dtype, device=device,
+            dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=d)))
+            for d in (0, 1)}
+        for d, key in keys.items():
+            plan = api.get_runtime_mgr(key).plan
+            tl = api.profile_attn_timeline(key)
+            res["timelines"][d] = {
+                **dataclasses.asdict(tl), "report": tl.report(),
+                "plan_pieces": 1 if plan.overlap_degree == 0 else 1 + len(plan.stages),
+                "plan_degree": plan.overlap_degree}
+        key = keys[1]
+        outs = {}
+        for run, flags in (("off", dict(NUMERICS="off")), ("census", dict(NUMERICS="census")),
+                           ("planted", dict(NUMERICS="census", CHAOS="corrupt_partial:site=host,"
+                                            f"value={PROF_PLANT},seed=3"))):
+            with magi_flags(**flags):
+                out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key),
+                                            api.dispatch(v, key), key)
+                outs[run] = (api.undispatch(out_l, key), api.undispatch(meta.lse, key))
+                res["census"][run] = telemetry.get_numerics_census().numerics_snapshot()[
+                    "census"].get("parallel", {})
+        res["census_equal_off"] = all(torch.equal(a, b)
+                                      for a, b in zip(outs["off"], outs["census"]))
+        snap = telemetry.snapshot()
+        res["series"] = sorted({s.split("{")[0] for kind in ("counters", "gauges", "histograms")
+                                for s in snap[kind]})
+        res["launches"] = {n: c for n, c in csrc.launches.items() if c}
+        return res
+    finally:
+        telemetry.set_enabled(None)
+        telemetry.reset()
+        api.clear_cache()
+
+
+def prof_cp(pools, seed: int) -> list:
+    return pools[2].run(prof_cp_rank, seed)
+
+
+def prof_roofline() -> tuple[list, dict, set]:
+    """``telemetry.profile_roofline`` (measured on the card) on the serving
+    path's causal 4096 prefill (32 / 8, d 128, bf16) at the automatic choice
+    (``flex_fwd_hb``, head_block G) and at head_block 1 (``flex_fwd``), and on
+    the hetero mask at 8 / 8 (the sparse grid, ``flex_fwd_sparse``). Returns
+    the lines, the launches and the series recorded."""
+    from magiattention_tpu_torch import csrc, telemetry
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    causal = ([(0, 4096)], [(0, 4096)], [1])
+    cases = (
+        ("serving_prefill", "flex_fwd_hb", causal, HQ, HK, {}),
+        ("serving_prefill_hb1", "flex_fwd", causal, HQ, HK,
+         dict(block_q=64, block_k=64, head_block=1, grid="row_major")),
+        ("hetero_8x8", "flex_fwd_sparse", split_slices(varlen_block_causal(HETERO_T)), 8, 8, {}),
+    )
+    lines, launches = [], {}
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    try:
+        for name, kernel, (qr, kr, ts), hq, hk, pins in cases:
+            rep = counted(launches, lambda: telemetry.profile_roofline(
+                qr, kr, ts, num_heads_q=hq, num_heads_kv=hk, head_dim=D, measure=True,
+                reps=PROF_REPS, workload=name, **pins))
+            lines.append({"workload": name, "kernel": kernel, "heads": [hq, hk],
+                          "rung": f"{rep.block_q}x{rep.block_k}x{rep.head_block}",
+                          "grid": rep.grid, "card": rep.card, "peak_tflops": rep.peak_tflops,
+                          "measured_ms": rep.measured_ms, "achieved_tflops": rep.measured_tflops,
+                          "fraction_of_peak": rep.efficiency, "mask_density": rep.mask_density,
+                          "overcompute_ratio": rep.overcompute_ratio,
+                          "gap_fractions": rep.gap_fractions(),
+                          "dominant_waste": rep.dominant_waste, "mask_flops": rep.mask_flops})
+        names = {s.split("{")[0] for s in telemetry.snapshot()["gauges"]}
+    finally:
+        telemetry.set_enabled(None)
+    return lines, launches, names
+
+
+def prof_occupancy() -> dict:
+    """The hetero mask's block-occupancy map at the kernel's tile, against
+    the plan the sparse grid launched with in the ``hetero`` phase (the
+    same cached plan ``flex_flash_attn_func`` built): its enumeration must
+    be the plan's live (q block, k block) tiles, one for one."""
+    import numpy as np
+    from magiattention_tpu_torch import telemetry
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    qr, kr, ts = split_slices(varlen_block_causal(HETERO_T))
+    bq, bk = fa.resolve_tile(D, None, None)
+    q_arr, k_arr, t_arr = (np.ascontiguousarray(np.asarray(a, dtype=np.int64))
+                           for a in (qr, kr, ts))
+    meta = fa._cached_meta(q_arr.reshape(-1, 2).tobytes(), k_arr.reshape(-1, 2).tobytes(),
+                           t_arr.tobytes(), len(ts), HETERO_T, HETERO_T, bq, bk)
+    occ = telemetry.block_occupancy_map(qr, kr, ts, bq, bk)
+    enum = occ.to_enumeration()
+    live = meta.fwd_slice_id < meta.num_slices
+    planned = set(zip(meta.fwd_q_block[live].tolist(), meta.fwd_k_block[live].tolist()))
+    mapped = set(zip(enum.major.tolist(), enum.minor.tolist()))
+    check(mapped == planned and len(enum.major) == occ.active_blocks_total,
+          f"profiling occupancy: the map's {len(mapped)} tiles are not the launched plan's "
+          f"{len(planned)} (missing {len(planned - mapped)}, extra {len(mapped - planned)})")
+    return {"tile": [bq, bk], "tiles": len(mapped), "plan_entries": int(meta.num_fwd_entries),
+            "dead_q_blocks": occ.dead_q_blocks, "block_density": occ.block_density,
+            "density_histogram": occ.density_histogram()}
+
+
+def prof_counters(reuse_line: dict) -> dict:
+    """The ``cp_plan_reuse`` stream's plan-cache counters (its telemetry-on
+    pass, which must resolve the timed pass's tiers) against the tiers the
+    phase resolved (the JAX package's):
+    a hit per exact or bucket tier, a miss per cold one; a bucket hit per
+    bucket tier, a bucket miss per cold bucketed one; a patch per patched
+    hit and a rebuild per other bucket hit; no eviction (the caches hold the
+    stream)."""
+    reqs = reuse_line["requests"]
+    tiers = [r["tier"] for r in reqs]
+    bucket = tiers.count("bucket")
+    patched = sum(bool(r["patched"]) for r in reqs)
+    want = {"magi_plan_cache_hits": bucket + tiers.count("exact"),
+            "magi_plan_cache_misses": tiers.count("cold"),
+            "magi_runtime_cache_hits_total": bucket + tiers.count("exact"),
+            "magi_runtime_cache_misses_total": tiers.count("cold"),
+            "magi_plan_bucket_hits_total": bucket,
+            "magi_plan_bucket_misses_total": sum(r["tier"] == "cold" and r["bucketed"]
+                                                 for r in reqs),
+            "magi_plan_incremental_patches_total": patched,
+            "magi_plan_incremental_fallbacks_total": bucket - patched}
+    got = {}
+    for r in reuse_line["stream_telemetry"]:
+        check(r["tiers"] == tiers, f"profiling counters: rank {r['rank']}'s telemetry pass "
+              f"resolved {r['tiers']}, the timed pass {tiers}")
+        c = {k: v for k, v in r["counters"].items() if k.split("{")[0] in want
+             or k.startswith("magi_plan_cache_evictions_total")}
+        check({k: c.get(k, 0) for k in want} == want
+              and not any(k.startswith("magi_plan_cache_evictions_total") for k in c),
+              f"profiling counters: rank {r['rank']} counted {c}, the tiers {tiers} give {want}")
+        got[r["rank"]] = c
+    return {"tiers": tiers, "expected": want, "counters_per_rank": got}
+
+
+def profiling_phase(parts: dict, reuse_line: dict, times: dict, t0: float) -> dict:
+    """The device side of telemetry on the card: the roofline against the
+    kernels phase's own times (within PROF_ROOFLINE_TOL, at most 1.05 of
+    peak), the occupancy map against the launched sparse plan, the cp
+    timelines (one piece per plan piece), the census (off / on equal, the
+    plant moving the census), the cp counters against the tiers, and every
+    series of the plan, plan-cache, timeline, roofline and numerics
+    catalogs recorded."""
+    from magiattention_tpu_torch import telemetry
+
+    card = nvidia_smi_line()
+    roof, roof_launches, roof_series = prof_roofline()
+    for line in roof:
+        ms = times[line["kernel"]]["ms"]
+        expected = line["mask_flops"] / (ms * 1e-3) / (line["peak_tflops"] * 1e12)
+        line.update(kernels_phase_ms=ms, kernels_phase_fraction=expected)
+        check(line["fraction_of_peak"] <= 1.05,
+              f"profiling roofline {line['workload']}: {line['fraction_of_peak']} of peak")
+        check(abs(line["fraction_of_peak"] / expected - 1.0) <= PROF_ROOFLINE_TOL,
+              f"profiling roofline {line['workload']}: {line['fraction_of_peak']:.4f} of peak "
+              f"against the kernels phase's {expected:.4f} ({line['kernel']} {ms} ms)")
+        print(f"profiling roofline {line['workload']} [{line['kernel']}, {line['rung']} "
+              f"{line['grid']}] on {card}: {line['fraction_of_peak']:.4f} of "
+              f"{line['peak_tflops']:g} TF/s (kernels phase {expected:.4f}); gap "
+              + ", ".join(f"{k} {v:.3f}" for k, v in line["gap_fractions"].items()), flush=True)
+    occupancy = prof_occupancy()
+    timelines, census_cp, rank_series = [], [], set()
+    launches = dict(roof_launches)
+    for n, c in parts["census_decode"]["launches"].items():
+        launches[n] = launches.get(n, 0) + c
+    for r in parts["cp"]:
+        rank_series |= set(r["series"])
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+        for d, tl in r["timelines"].items():
+            check(len(tl["stages"]) == tl["plan_pieces"],
+                  f"profiling timeline rank {r['rank']} degree {d}: {len(tl['stages'])} stages, "
+                  f"the plan has {tl['plan_pieces']}")
+        c = r["census"]
+        check(r["census_equal_off"], f"profiling census cp rank {r['rank']}: on differs from off")
+        check(set(c["census"]) == {"host", "stage0", "final"}
+              and c["census"]["final"]["mass_dev"] < PROF_MASS_DEV,
+              f"profiling census cp rank {r['rank']}: {c['census']}")
+        check(c["planted"]["host"]["out_max_abs"] == 8.0
+              and c["census"]["host"]["out_max_abs"] < 8.0,
+              f"profiling census cp rank {r['rank']}: the plant moved the host site to "
+              f"{c['planted']['host']} from {c['census']['host']}")
+        census_cp.append({"rank": r["rank"], "census": c["census"],
+                          "planted_host": c["planted"]["host"]})
+    for d, tl in parts["cp"][0]["timelines"].items():
+        timelines.append({k: tl[k] for k in ("plan_degree", "plan_pieces", "stages", "hops",
+                                              "measured_total_ms", "serial_total_ms",
+                                              "hideable_comm_ms", "overlap_efficiency",
+                                              "predicted_total_ms", "prediction_error_ratio")})
+        print(f"profiling timeline cp=2 degree {tl['plan_degree']} on {card} (the ranks share one "
+              f"card: no cp speed): {len(tl['stages'])} stages, "
+              + "; ".join(f"{s['stage']} cast {s['comm_ms']:.3f} ms kernel {s['calc_ms']:.3f} ms"
+                          for s in tl["stages"])
+              + f"; serial {tl['serial_total_ms']:.3f} ms, pipelined "
+              f"{tl['measured_total_ms']:.3f} ms, measured/predicted "
+              f"{tl['prediction_error_ratio']:.2f}x", flush=True)
+    dec = parts["census_decode"]
+    print(f"profiling census decode on {card}: +{dec['added_device_ms_reductions']:.4f} device ms "
+          f"(the reductions), +{dec['added_host_ms_paired_median']:.4f} host ms a call (paired "
+          f"median of {PROF_CENSUS_PAIRS})", flush=True)
+    counters = prof_counters(reuse_line)
+    series = roof_series | rank_series | set(dec["series"])
+    for r in reuse_line["stream_telemetry"]:
+        series |= set(r["names"])
+    required = (set(telemetry.REQUIRED_PLAN_METRICS) | set(telemetry.REQUIRED_PLAN_CACHE_METRICS)
+                | set(telemetry.REQUIRED_TIMELINE_METRICS)
+                | set(telemetry.REQUIRED_ROOFLINE_METRICS)
+                | set(telemetry.REQUIRED_NUMERICS_METRICS))
+    check(required <= series, f"profiling: series never recorded: {sorted(required - series)}")
+    return {"phase": "profiling", "card": card, "roofline": roof, "occupancy": occupancy,
+            "timeline_cp2": timelines,
+            "note": "the cp ranks share one card over gloo: timelines are no cp speed",
+            "census_decode": {k: v for k, v in dec.items() if k not in ("series", "launches")},
+            "census_cp2": census_cp, "cp_counters": counters,
+            "required_series": len(required), "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6382,6 +6801,9 @@ def main(argv=None) -> int:
     res_t0 = time.perf_counter()
     res_parts = {"decode": resilience_decode(engine, slots, gen)}  # the resilience phase's first part
     res_wall = time.perf_counter() - res_t0
+    prof_t0 = time.perf_counter()
+    prof_parts = {"census_decode": prof_census_decode(engine, slots, gen)}  # the profiling phase's
+    prof_wall = time.perf_counter() - prof_t0
     del engine
     torch.cuda.empty_cache()
     # multi-head widths (G = 1): the choice is head_block 1, the prefill flex_fwd
@@ -6416,7 +6838,8 @@ def main(argv=None) -> int:
 
     # context parallelism: the ranks are processes sharing cuda:0 over gloo,
     # spawned after the kernels above were built (each loads the libraries)
-    pools = {cp: RankPool(cp, backend="gloo") for cp, _ in CP_RUNS}
+    pools = {cp: RankPool(cp, backend="gloo", env={"MAGI_ATTENTION_TRACE_DIR": os.environ[
+        "MAGI_ATTENTION_TRACE_DIR"]}) for cp, _ in CP_RUNS}
     try:
         cp_attn_line = cp_attn(pools, args.seed)
         emit(cp_attn_line)
@@ -6439,6 +6862,9 @@ def main(argv=None) -> int:
         res_t0 = time.perf_counter()
         res_parts["cp"] = resilience_cp(pools, args.seed)
         res_wall += time.perf_counter() - res_t0
+        prof_t0 = time.perf_counter()
+        prof_parts["cp"] = prof_cp(pools, args.seed)
+        prof_wall += time.perf_counter() - prof_t0
     finally:
         for pool in pools.values():
             pool.close()
@@ -6455,6 +6881,12 @@ def main(argv=None) -> int:
     emit(resilience_line)
     telemetry_line = telemetry_phase(gen)
     emit(telemetry_line)
+    times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
+             "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
+             "paged_decode": dec_t, **hetero_t}
+    profiling_line = profiling_phase(prof_parts, cp_reuse_line, times,
+                                     time.perf_counter() - prof_wall)
+    emit(profiling_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -6468,10 +6900,7 @@ def main(argv=None) -> int:
                "cp_plan_reuse": cp_reuse_line["launches"],
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
-               "telemetry": telemetry_line["launches"]}
-    times = {"flex_fwd": fwd_t["flex_fwd"], "flex_fwd_hb": fwd_t["flex_fwd_hb"],
-             "flex_dq": bwd_t["flex_dq"], "flex_dkv": bwd_t["flex_dkv"],
-             "paged_decode": dec_t, **hetero_t}
+               "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

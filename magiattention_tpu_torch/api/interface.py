@@ -102,6 +102,7 @@ from ..parallel.dist_attn import (
 )
 from ..parallel.qo_comm import QoCommPlan, build_qo_comm_plan, qo_comm_attn_local
 from ..resilience import guards
+from ..telemetry import numerics
 from .functools import compute_pad_size, pad_at_dim
 
 GeneralAttnMaskType = str | AttnMaskType | Sequence[str | AttnMaskType]
@@ -175,8 +176,7 @@ def flags_fingerprint() -> tuple:
         env.is_sanity_check_enabled(),
         env.plan_reuse_mode(),
         env.unified_tick_mode(),
-        # keyed as in the JAX package (numerics is refused until honoured,
-        # check_flag_comb); MAGI_ATTENTION_VALIDATE builds nothing else
+        # keyed as in the JAX package (MAGI_ATTENTION_VALIDATE builds nothing)
         env.guard_mode(),
         env.chaos_spec(),
         env.numerics_mode(),
@@ -190,7 +190,7 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
     pair), qo-comm and cross-attention (``xattn``), a kernel backend that
     is not one of ``env.KERNEL_BACKENDS`` (a JAX name included), a guard or
-    chaos value outside its domain, and the validate and numerics flags the
+    chaos or numerics value outside its domain, and the validate flag the
     port does not honour yet (``env.refuse_unhonoured_flags``)."""
     env.kernel_backend()  # raises on an unknown or JAX backend name
     env.refuse_unhonoured_flags("check_flag_comb")
@@ -356,7 +356,9 @@ class DistAttnRuntimeMgr:
         ``MAGI_ATTENTION_GUARD`` on, the plan's partials are guarded and this
         rank's error code is read here: ``check`` raises
         ``NumericalGuardError`` naming the tripped sites on the rank that
-        saw them."""
+        saw them. Under ``MAGI_ATTENTION_NUMERICS=census`` every rank's value
+        census is gathered over the group and read here (layer
+        ``parallel``)."""
         import torch.distributed as dist
 
         from ..comm.primitives import replicated
@@ -370,11 +372,20 @@ class DistAttnRuntimeMgr:
             out, lse = qo_comm_attn_local(q, k, v, self.plan, self.params, self.group, sink=s)
             return out, AttnForwardMeta(lse=lse, max_logits=None)
         thread_code = guards.guards_active()
+        thread_census = numerics.census_active()
         res = dist_attn_local(q, k, v, self.plan, self.params, self.cp_group, sink=s,
-                              with_guard_code=thread_code)
+                              with_guard_code=thread_code, with_census=thread_census)
         out, lse, mx = res[:3]
         mx = mx.detach().clone()
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
+        if thread_census:
+            # every rank's census, gathered before the guard can raise on one
+            # rank, read to the host once and reduced as the JAX package's
+            census = res[-1]
+            every = [torch.empty_like(census) for _ in range(dist.get_world_size(self.group))]
+            dist.all_gather(every, census, group=self.group)
+            numerics.consume_census(torch.stack(every), numerics.census_keys(
+                guards.plan_guard_sites(self.plan)), layer="parallel")
         if thread_code:
             # the call boundary of the guards, after this call's last
             # collective: this rank's code, read once (check raises
@@ -452,6 +463,7 @@ class DistAttnRuntimeDict:
         self._d.move_to_end(key)
         while len(self._d) > self.maxsize:
             self._d.popitem(last=False)
+            telemetry.record_plan_cache_eviction(cache="runtime")
 
     def __contains__(self, key) -> bool:
         return key in self._d
@@ -556,6 +568,24 @@ def resolve_blocking(hq: int, hk: int, head_dim: int) -> tuple[int, int, int]:
     return bq, bk, group if hb_env is None else _auto_head_block(hb_env, hq, group)
 
 
+def key_dtype(key: DistAttnRuntimeKey) -> torch.dtype:
+    """The torch dtype a key's ``out_dtype`` names."""
+    return getattr(torch, key.out_dtype.split(".")[-1])
+
+
+def _record_runtime_costs(plan: DistAttnPlan, key: DistAttnRuntimeKey) -> None:
+    """``telemetry.record_runtime_costs`` for a key's new plan, priced on
+    the card the key's device lies on (``utils/cost.py``; a CPU key records
+    its bytes and FLOPs only)."""
+    if not telemetry.enabled():
+        return
+    dev = torch.device(key.device)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+    telemetry.record_runtime_costs(
+        plan, num_heads_q=key.num_heads_q, num_heads_kv=key.num_heads_kv, head_dim=key.head_dim,
+        bytes_per_elt=torch.empty((), dtype=key_dtype(key)).element_size(), card=card)
+
+
 def _make_bucketed_mgr(key: DistAttnRuntimeKey, canonical_mgr: DistAttnRuntimeMgr,
                        maps) -> BucketedDistAttnRuntimeMgr:
     """The request -> canonical adapter runtime: its three tables composed
@@ -569,8 +599,8 @@ def _make_bucketed_mgr(key: DistAttnRuntimeKey, canonical_mgr: DistAttnRuntimeMg
         padded_position_ids(meta, maps.canon_to_real))
 
 
-def _try_plan_reuse(key: DistAttnRuntimeKey, *, cp_group, sink, out_dtype, dispatch_config,
-                    dist_attn_config, device) -> bool:
+def _try_plan_reuse(key: DistAttnRuntimeKey, t_lookup: float, *, cp_group, sink, out_dtype,
+                    dispatch_config, dist_attn_config, device) -> bool:
     """The fingerprint-bucketed second-level lookup, after an exact-key
     miss (exact hits never come here). Installs a bucketed runtime under
     ``key`` and returns True, either over a live canonical plan (a bucket
@@ -581,7 +611,8 @@ def _try_plan_reuse(key: DistAttnRuntimeKey, *, cp_group, sink, out_dtype, dispa
     the JAX package: under qo-comm (its plane partition is exact to the
     mask: no static table to adapt onto), and for a mask that
     canonicalises to itself or not at all; the caller then plans
-    ``key`` itself."""
+    ``key`` itself. ``t_lookup``: when the exact-key lookup began (a
+    bucket hit's solver seconds run from it)."""
     global _in_canonical_resolve
     if _in_canonical_resolve or env.plan_reuse_mode() != "bucket":
         return False
@@ -606,13 +637,21 @@ def _try_plan_reuse(key: DistAttnRuntimeKey, *, cp_group, sink, out_dtype, dispa
         if entry.last_sig is not None and entry.last_maps is not None:
             if try_incremental_update(entry.last_sig, new_sig, entry.last_maps):
                 maps = entry.last_maps
+                telemetry.record_plan_incremental(patched=True)
+            else:
+                telemetry.record_plan_incremental(patched=False)
         if maps is None:
             maps = canon.build_row_maps()
         _runtime_dict.put(key, _make_bucketed_mgr(key, canonical_mgr, maps))
         entry.last_sig, entry.last_maps = new_sig, maps
+        telemetry.record_cache_access(hit=True)
+        telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
+        telemetry.record_plan_bucket(hit=True)
         return True
     # a fingerprint miss (or the canonical runtime was evicted): plan the
     # canonical mask once, then adapt this request onto it
+    telemetry.record_cache_access(hit=False)
+    telemetry.record_plan_bucket(hit=False)
     _in_canonical_resolve = True
     try:
         canonical_key = magi_attn_flex_key(
@@ -718,12 +757,15 @@ def magi_attn_flex_key(
     if key in _runtime_dict:
         if not _in_canonical_resolve:
             # a hit's solver cost is the lookup itself
+            telemetry.record_cache_access(hit=True)
             telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
         _most_recent_key = key
         return key
-    if not _try_plan_reuse(key, cp_group=cp_group, sink=sink, out_dtype=out_dtype,
+    if not _try_plan_reuse(key, t_lookup, cp_group=cp_group, sink=sink, out_dtype=out_dtype,
                            dispatch_config=dispatch_config, dist_attn_config=dist_attn_config,
                            device=device):
+        if not _in_canonical_resolve:
+            telemetry.record_cache_access(hit=False)
         mq, _, bucket = make_dispatch_meta_from_qk_ranges(
             q_ranges, k_ranges, [AttnMaskType(t) for t in types],
             total_seqlen_q + pad, total_seqlen_k + pad,
@@ -741,6 +783,7 @@ def magi_attn_flex_key(
         else:
             plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk, overlap_config=oc,
                                         cp_mesh_shape=hier)
+            _record_runtime_costs(plan, key)
             params = make_attn_params(plan, head_dim, softcap=softcap, has_sink=has_sink,
                                       out_dtype=out_dtype, head_block=hb)
         sink_t = None if sink is None else sink.detach().to(device=device, dtype=torch.float32)
@@ -851,7 +894,12 @@ def magi_attn_cross_key(
         flags=flags_fingerprint(),
         block_config=block_config,
     )
-    if key not in _runtime_dict:
+    t_lookup = time.perf_counter()
+    if key in _runtime_dict:
+        telemetry.record_cache_access(hit=True)
+        telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
+    else:
+        telemetry.record_cache_access(hit=False)
         mq, mk, bucket = make_cross_attn_dispatch_meta(
             q_ranges, k_ranges, [AttnMaskType(t) for t in types],
             total_seqlen_q + pad_q, total_seqlen_k + pad_k,
@@ -861,6 +909,7 @@ def magi_attn_cross_key(
         bq, bk, hb = block_config
         plan = build_dist_attn_plan(mq, bucket, kv_dispatch_meta=mk, block_q=bq, block_k=bk,
                                     overlap_config=overlap_config)
+        _record_runtime_costs(plan, key)
         params = make_attn_params(plan, head_dim, softcap=softcap, out_dtype=out_dtype,
                                   head_block=hb)
         _runtime_dict.put(key, DistAttnRuntimeMgr(
@@ -923,7 +972,12 @@ def make_flex_key_for_new_mask_after_dispatch(
         dispatch_of=old_key.dispatch_of or (old_key.q_ranges, old_key.k_ranges,
                                             old_key.attn_type_map),
     )
-    if new_key not in _runtime_dict:
+    t_lookup = time.perf_counter()
+    if new_key in _runtime_dict:
+        telemetry.record_cache_access(hit=True)
+        telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
+    else:
+        telemetry.record_cache_access(hit=False)
         meta = old_mgr.dispatch_meta
         bucket = make_global_bucket_from_qk_ranges(
             q_ranges, k_ranges, [AttnMaskType(t) for t in types], new_key.total_seqlen_q,
@@ -934,6 +988,7 @@ def make_flex_key_for_new_mask_after_dispatch(
             meta, bucket, block_q=bq, block_k=bk,
             overlap_config=old_mgr.dist_attn_config.overlap_config,
             cp_mesh_shape=old_plan.hier)
+        _record_runtime_costs(plan, new_key)
         params = make_attn_params(plan, new_key.head_dim, softcap=new_key.softcap,
                                   out_dtype=old_params.out_dtype, head_block=hb)
         _runtime_dict.put(new_key, DistAttnRuntimeMgr(
@@ -1116,6 +1171,62 @@ def get_telemetry_snapshot() -> dict:
     was on. Always JSON-serialisable; empty sections while telemetry is
     off."""
     return telemetry.snapshot()
+
+
+def profile_attn_timeline(key: DistAttnRuntimeKey | None = None, **kwargs):
+    """Measure the stage timeline of a planned runtime (default: the most
+    recent key) in every rank of its group together: each stage's cast and
+    kernel ms between barriers on CUDA events, the pipelined whole against
+    the serial sum, and the delta against the overlap solver's timeline
+    model at the card's rates. Returns a ``telemetry.MeasuredTimeline``
+    (``report()``); records the ``magi_overlap_measured_*`` gauges while
+    telemetry is on. Keywords go to ``telemetry.profile_key_timeline``
+    (reps, inner, warmup, seed)."""
+    return telemetry.profile_key_timeline(key, **kwargs)
+
+
+def profile_roofline(
+    key: DistAttnRuntimeKey | None = None,
+    *,
+    measured_tflops: float | None = None,
+    measured_ms: float | None = None,
+    measure: bool = False,
+    workload: str | None = None,
+    record: bool = True,
+    **timeline_kwargs,
+):
+    """The mask-aware roofline of a planned runtime's workload (default:
+    the most recent key): true against scheduled FLOPs at the key's
+    blocking, the mask density, and the gap to the card's peak split into
+    dead-step, partial-tile and masked-entry fractions. Returns a
+    ``telemetry.RooflineReport`` (``report()``); records the
+    ``magi_roofline_*`` gauges while telemetry is on. Pass a measurement
+    (``measured_tflops`` on the mask-FLOPs convention, or ``measured_ms``),
+    or ``measure=True`` to time the whole ``dist_attn_local`` through
+    :func:`profile_attn_timeline` (in every rank; extra keywords go there);
+    with neither, the modeled gap is attributed."""
+    from ..telemetry.roofline import analyze_workload
+
+    if key is None:
+        key = get_most_recent_key()
+    if measure:
+        measured_ms = profile_attn_timeline(key, **timeline_kwargs).measured_total_ms
+        measured_tflops = None
+    bq, bk, hb = key.block_config
+    dev = torch.device(key.device)
+    rep = analyze_workload(
+        key.q_ranges, key.k_ranges, key.attn_type_map, num_heads_q=key.num_heads_q,
+        num_heads_kv=key.num_heads_kv, head_dim=key.head_dim, block_q=bq, block_k=bk,
+        head_block=hb,
+        bytes_per_elt=torch.empty((), dtype=key_dtype(key)).element_size(),
+        device=dev,
+        workload=workload if workload is not None
+        else f"key_{key.total_seqlen_q}x{key.total_seqlen_k}",
+        measured_tflops=measured_tflops, measured_ms=measured_ms,
+        total_seqlen_q=key.total_seqlen_q, total_seqlen_k=key.total_seqlen_k)
+    if record:
+        telemetry.record_roofline(rep)
+    return rep
 
 
 def aggregate_telemetry_across_mesh(snapshot: dict | None = None, group=None) -> dict:

@@ -295,6 +295,9 @@ class GroupCollectiveMeta:
             hops=hops,
             local_rows_total=int(np.trace(sizes)),
         )
+        from .. import telemetry
+
+        telemetry.record_group_collective_build(meta)
         return meta
 
     # ---- volume accounting (rows; the interface layer resolves bytes) ----
@@ -495,6 +498,8 @@ class RankRouting:
     back_rows: torch.Tensor | None  # [m] int64: their owner rows
     # hops
     hops: tuple[HopRouting, ...] = ()
+    # the meta's scheduled / true rows (``telemetry.record_comm_op``)
+    padding_overhead_ratio: float = 1.0
 
 
 @functools.lru_cache(maxsize=512)
@@ -521,14 +526,14 @@ def rank_routing(meta: GroupCollectiveMeta, rank: int, num_local_rows: int,
                 recv_pos=t(recv_pos[recv_pos < R]), seg=t(seg[seg < num_local_rows]),
             ))
         return RankRouting("hops", cp, me, num_local_rows, meta.max_send, R,
-                           None, None, None, None, tuple(hops))
+                           None, None, None, None, tuple(hops), meta.padding_overhead_ratio)
     n_recv = int(meta.recv_valid[rank].sum())
     seg = meta.seg_ids[rank].reshape(-1)
     pos = np.flatnonzero(seg < num_local_rows)
     return RankRouting(
         "a2a", cp, me, num_local_rows, meta.max_send, R,
         t(meta.send_idx[rank].reshape(-1)), t(meta.recv_sel[rank, :n_recv]),
-        t(pos), t(seg[pos]),
+        t(pos), t(seg[pos]), padding_overhead_ratio=meta.padding_overhead_ratio,
     )
 
 
@@ -576,6 +581,9 @@ def group_reduce_sum(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
     partial row first (the JAX package's ``group_reduce_sum_m``); the
     cast's own backward is :func:`cast_transpose`, with no hook, as the
     JAX package's transpose of the cast has none."""
+    from .. import telemetry
+
+    telemetry.record_comm_op(rt, "reduce_sum")
     if chaos.enabled():
         y = chaos.corrupt_reduce_payload(y, rank=rt.rank)
     return cast_transpose(y, rt, group)
@@ -705,6 +713,9 @@ def group_reduce_lse(
     partial payload, then under ``MAGI_ATTENTION_GUARD=repair`` the bad
     partial rows are quarantined (site ``"reduce_lse"``), so that each
     merges as a no-op."""
+    from .. import telemetry
+
+    telemetry.record_comm_op(rt, "reduce_lse")
     if chaos.enabled():
         out_partial = chaos.corrupt_reduce_payload(out_partial, rank=rt.rank)
         lse_partial = chaos.corrupt_reduce_payload(lse_partial, rank=rt.rank)

@@ -465,6 +465,9 @@ class HierGroupCollectiveMeta:
             inter_level=inter_level,
             intra_level=intra_level,
         )
+        from .. import telemetry
+
+        telemetry.record_group_collective_build(meta)
         # reorder recv_sources to the actual final layout: (si asc, sn asc)
         ordered: list[list[tuple[int, np.ndarray]]] = [[] for _ in range(n)]
         for dn in range(n_inter):

@@ -513,8 +513,8 @@ def is_cpp_backend_enabled() -> bool:
 
 
 # -- the validate, numerics, guard and chaos flags ---------------------------------
-# (the JAX package's accepted values and messages; the port honours guard and
-# chaos, and refuses validate and numerics until their modules are ported:
+# (the JAX package's accepted values and messages; the port honours guard,
+# chaos and numerics, and refuses validate until the sanitizer is ported:
 # env.refuse_unhonoured_flags)
 
 VALIDATE_MODES = ("off", "plan", "trace")
@@ -536,8 +536,17 @@ NUMERICS_MODES = ("off", "census")
 
 def numerics_mode() -> str:
     """Numerics-census mode (``MAGI_ATTENTION_NUMERICS``: off | census),
-    validated here. The census is not ported (ROADMAP A.15), so ``census``
-    is refused. In ``flags_fingerprint``."""
+    validated here:
+
+    - ``off`` (default): no census, no extra tensor op, outputs unchanged;
+    - ``census``: each guard site of ``parallel/dist_attn.py`` and
+      ``serving/decode_attn.py`` also reduces its partial to a few values
+      (max logit, lse min / max, out max-abs) and the merge to its
+      softmax-mass deviation, read to the host once a call into the
+      ``magi_numerics_*`` series and the flight dumps' ``numerics``
+      section (``telemetry/numerics.py``).
+
+    In ``flags_fingerprint``, as in the JAX package."""
     v = _env_str("MAGI_ATTENTION_NUMERICS", "off").strip().lower()
     if v not in NUMERICS_MODES:
         raise ValueError(f"MAGI_ATTENTION_NUMERICS={v!r} must be one of {NUMERICS_MODES}")
@@ -571,16 +580,42 @@ def chaos_spec() -> str:
 
 def refuse_unhonoured_flags(where: str) -> None:
     """Raise ``ValueError`` naming ``where`` when a flag the port reads but
-    does not yet honour is set: ``MAGI_ATTENTION_VALIDATE`` (ROADMAP A.18)
-    or ``_NUMERICS`` (A.15). A value outside a flag's domain raises its
-    accessor's message first, the guard and chaos flags' included."""
+    does not yet honour is set: ``MAGI_ATTENTION_VALIDATE`` (ROADMAP A.18).
+    A value outside a flag's domain raises its accessor's message first,
+    the guard, chaos and numerics flags' included."""
     guard_mode()
     chaos_spec()
-    refused = [(name, value, item) for name, value, item in (
-        ("MAGI_ATTENTION_VALIDATE", validate_mode(), "A.18"),
-        ("MAGI_ATTENTION_NUMERICS", numerics_mode(), "A.15"),
-    ) if value not in ("", "off")]
-    if refused:
-        name, value, item = refused[0]
-        raise ValueError(f"{where}: {name}={value!r} is not honoured by the port yet (ROADMAP "
-                         f"{item} ports it); unset it or set it to 'off'")
+    numerics_mode()
+    value = validate_mode()
+    if value not in ("", "off"):
+        raise ValueError(f"{where}: MAGI_ATTENTION_VALIDATE={value!r} is not honoured by the "
+                         "port yet (ROADMAP A.18 ports it); unset it or set it to 'off'")
+
+
+def peak_tflops_override() -> float | None:
+    """The roofline's peak rate in TF/s (``MAGI_ATTENTION_PEAK_TFLOPS``),
+    or None to take the card's row of ``utils/cost.py`` (the CPU's
+    placeholder on the CPU). Set it for a card the table does not know, or
+    to hold a kernel against a measured ceiling instead of the datasheet.
+    Observability only: not in ``flags_fingerprint``."""
+    v = os.environ.get("MAGI_ATTENTION_PEAK_TFLOPS")
+    if v is None or not v.strip():
+        return None
+    f = float(v)
+    if f <= 0:
+        raise ValueError(f"MAGI_ATTENTION_PEAK_TFLOPS={v!r} must be a positive TF/s rate")
+    return f
+
+
+def timeline_reps() -> int:
+    """Timed reps per piece in the measured-timeline profiler
+    (``telemetry/timeline.py``; the median is kept), as in the JAX
+    package (``MAGI_ATTENTION_TIMELINE_REPS``, default 5)."""
+    return _env_int("MAGI_ATTENTION_TIMELINE_REPS", 5)
+
+
+def timeline_inner() -> int:
+    """Calls per timed rep in the measured-timeline profiler
+    (``MAGI_ATTENTION_TIMELINE_INNER``, default 2): a rep's time is their
+    mean, which spreads the barrier's fixed cost."""
+    return _env_int("MAGI_ATTENTION_TIMELINE_INNER", 2)

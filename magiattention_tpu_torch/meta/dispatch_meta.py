@@ -11,6 +11,7 @@ own.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -189,12 +190,14 @@ def _solve_q_partitions(
         affinities = [
             IOUAffinity.from_ranges(c.k_ranges.merge()) for c in bucket.q_chunks
         ]
+    t0 = time.perf_counter()
     solution = DispatchSolver(dispatch_config.alg).solve(
         DispatchData(
             jobs=DispatchJob.from_job_list(workloads, affinities),
             num_buckets=cp_size,
         )
     )
+    solve_s = time.perf_counter() - t0
     if not solution.bucket_partitions:
         raise ValueError(
             f"{dispatch_config.alg.type} does not return partitions; "
@@ -212,6 +215,12 @@ def _solve_q_partitions(
             f"missing={sorted(set(range(num_chunks)) - set(covered))[:8]}, "
             f"dupes={sorted({x for x in covered if covered.count(x) > 1})[:8]})"
         )
+    from .. import telemetry
+
+    if telemetry.enabled():  # the O(num_chunks) sums stay off the disabled path
+        telemetry.record_dispatch_solution(
+            dispatch_config.alg.type.value, solution.minimax_workload,
+            [sum(workloads[i] for i in p) for p in partitions], solve_s)
     return partitions
 
 
@@ -283,6 +292,9 @@ def make_cross_attn_dispatch_meta(
             for r in range(cp_size)
         ),
     )
+    from .. import telemetry
+
+    telemetry.record_dispatch_meta(meta_q)
     return meta_q, meta_k, bucket
 
 
@@ -333,5 +345,8 @@ def make_dispatch_meta_from_qk_ranges(
         cp_size=cp_size,
         partitions=tuple(tuple(p) for p in partitions),
     )
+    from .. import telemetry
+
+    telemetry.record_dispatch_meta(meta)
     # self-attn: K/V follow the same partition
     return meta, meta, bucket

@@ -370,10 +370,13 @@ class PlanReuseCache:
         return entry
 
     def put(self, fp: PlanFingerprint, entry: ReuseEntry) -> None:
+        from .. import telemetry
+
         self._d[fp] = entry
         self._d.move_to_end(fp)
         while len(self._d) > self.capacity:
             self._d.popitem(last=False)
+            telemetry.record_plan_cache_eviction(cache="fingerprint")
 
     def __contains__(self, fp: PlanFingerprint) -> bool:
         return fp in self._d

@@ -117,7 +117,24 @@ class OverlapSolver:
             s = min(range(degree), key=lambda j: loads[j])
             stage_of_l[i] = s
             loads[s] += cost[i]
+        self._record_quality(loads, degree, n)
         return OverlapSolution(stage_of=tuple(stage_of_l), num_stages=degree)
+
+    @staticmethod
+    def _record_quality(stage_loads, degree: int, n_chunks: int) -> None:
+        """How evenly the greedy pass spread the weighted chunk costs over
+        the stages (max / mean, 1.0 = even), as the JAX package records it.
+        A uniform split is structural: nothing to record. The per-rank
+        builds overwrite one series: the last plan's."""
+        from ... import telemetry
+
+        if not telemetry.enabled():
+            return
+        mean = sum(stage_loads) / max(degree, 1)
+        reg = telemetry.get_registry()
+        reg.gauge_set("magi_overlap_solver_chunks", n_chunks)
+        reg.gauge_set("magi_overlap_solver_stage_balance_ratio",
+                      (max(stage_loads) / mean) if mean else 1.0)
 
 
 class UniformOverlapAlg:

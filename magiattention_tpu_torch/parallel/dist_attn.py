@@ -122,6 +122,16 @@ class StageTables:
             self.bounds,
         )
 
+    def kernel_steps(self) -> tuple[int, int]:
+        """(fwd, bwd) row-major step extents across the ranks: the most
+        entries of one q block (forward, dq) and of one k block (dk/dv)."""
+        from ..ops.block_meta import max_row_count
+
+        nq = max(self.num_q_blocks, 1)
+        nk = max(self.num_k_blocks, 1)
+        return (max(max_row_count(row, nq) for row in self.fwd_qblk),
+                max(max_row_count(row, nk) for row in self.bwd_kblk))
+
     @staticmethod
     def from_rank_metas(metas: list[FlexAttnBlockMeta], kv_pad: int):
         e = max(m.num_fwd_entries for m in metas)
@@ -181,6 +191,36 @@ class DistAttnPlan:
 
     # K/V rows per rank (the K side's shard; = shard_q_len in self-attention)
     shard_k_len: int = 0
+
+    @property
+    def comm(self) -> GroupCollectiveMeta | HierGroupCollectiveMeta:
+        """The plan's comm for the records: the merged cast at degree 0,
+        else the stages' casts summed (send and recv rows per rank)."""
+        if self.merged_comm is not None:
+            return self.merged_comm
+        rt, st = [0] * self.cp_size, [0] * self.cp_size
+        for sp in self.stages:
+            for r in range(self.cp_size):
+                rt[r] += sp.comm.recv_total[r]
+                st[r] += sp.comm.send_total[r]
+        if not self.stages:  # every stage was empty (a fully local mask)
+            cp = self.cp_size
+            return GroupCollectiveMeta(
+                cp_size=cp, max_send=0, max_recv=0, send_total=tuple(st), recv_total=tuple(rt),
+                send_idx=np.zeros((cp, cp, 0), np.int32), recv_sel=np.zeros((cp, 0), np.int32),
+                recv_valid=np.zeros((cp, 0), bool), seg_ids=np.zeros((cp, cp, 0), np.int32))
+        return dataclasses.replace(self.stages[0].comm, recv_total=tuple(rt), send_total=tuple(st))
+
+    def memory_ledger(self, *, num_heads_q: int, num_heads_kv: int, head_dim: int,
+                      bytes_per_elt: int = 2, **kw):
+        """One rank's buffers for this plan's forward
+        (``telemetry.plan_memory_ledger``): each stage's cast buffer at the
+        rows its cast schedules, the kernels' partials and lse, the operands,
+        tables and outputs."""
+        from ..telemetry.memory import plan_memory_ledger
+
+        return plan_memory_ledger(self, num_heads_q=num_heads_q, num_heads_kv=num_heads_kv,
+                                  head_dim=head_dim, bytes_per_elt=bytes_per_elt, **kw)
 
     def table_sets(self) -> tuple[StageTables, ...]:
         """Every StageTables the plan hands the kernels, in call order."""
@@ -337,6 +377,9 @@ def _choose_overlap_degree(
             )
         if t < best_t * (1.0 - 1e-9):
             best_d, best_t = d, t
+    from .. import telemetry
+
+    telemetry.record_overlap_choice(best_d, best_t)
     return best_d
 
 
@@ -365,27 +408,32 @@ def build_dist_attn_plan(
     A build that fails (an injected ``plan_error`` included) falls back to
     the dense degree-0 plan (one merged cast, one kernel call) with a
     warning on the ``resilience`` logger; a degree-0 build that fails
-    raises, as there is nothing left to fall back to. The build's seconds
-    go to the compile tracker's solver accumulator
-    (``telemetry.record_plan_solver``)."""
+    raises, as there is nothing left to fall back to. With telemetry on the
+    build is a span, and the plan's facts and build seconds are recorded
+    (``telemetry.record_plan``); the seconds also go to the compile
+    tracker's solver accumulator (``telemetry.record_plan_solver``)."""
     from .. import telemetry
 
     kw = dict(kv_dispatch_meta=kv_dispatch_meta, block_q=block_q, block_k=block_k,
               cp_mesh_shape=cp_mesh_shape)
     t0 = time.perf_counter()
-    try:
-        plan = _build_dist_attn_plan(dispatch_meta, bucket, overlap_config=overlap_config, **kw)
-    except Exception as exc:  # noqa: BLE001 — the degradation path
-        cfg = overlap_config or OverlapConfig()
-        if cfg.degree == 0:
-            raise  # the fallback is the path that failed
-        telemetry.record_degraded_path("plan_build_error")
-        telemetry.get_logger("resilience").warning(
-            "plan build failed (%s: %s) — degrading to the dense single-bucket degree-0 plan",
-            type(exc).__name__, exc)
-        plan = _build_dist_attn_plan(dispatch_meta, bucket,
-                                     overlap_config=dataclasses.replace(cfg, degree=0), **kw)
-    telemetry.record_plan_solver(time.perf_counter() - t0, cache_hit=False)
+    with telemetry.span("build_dist_attn_plan", cp=dispatch_meta.cp_size):
+        try:
+            plan = _build_dist_attn_plan(dispatch_meta, bucket, overlap_config=overlap_config,
+                                         **kw)
+        except Exception as exc:  # noqa: BLE001 — the degradation path
+            cfg = overlap_config or OverlapConfig()
+            if cfg.degree == 0:
+                raise  # the fallback is the path that failed
+            telemetry.record_degraded_path("plan_build_error")
+            telemetry.get_logger("resilience").warning(
+                "plan build failed (%s: %s) — degrading to the dense single-bucket degree-0 plan",
+                type(exc).__name__, exc)
+            plan = _build_dist_attn_plan(dispatch_meta, bucket,
+                                         overlap_config=dataclasses.replace(cfg, degree=0), **kw)
+    build_s = time.perf_counter() - t0
+    telemetry.record_plan(plan, build_seconds=build_s)
+    telemetry.record_plan_solver(build_s, cache_hit=False)
     return plan
 
 
@@ -817,6 +865,7 @@ def dist_attn_local(
     *,
     sink: torch.Tensor | None = None,
     with_guard_code: bool = False,
+    with_census: bool = False,
 ):
     """The context-parallel hot path, one call per rank (each process
     passes its own shards and the process group of the cp ranks, or for a
@@ -833,10 +882,17 @@ def dist_attn_local(
     injector, then the guard (sites ``resilience.plan_guard_sites(plan)``,
     in bit order). ``with_guard_code``: also return this rank's int32 guard
     code (a device tensor) as a 4th output, for the caller to read at its
-    boundary; the keyed runtime does. Off, the path is unchanged."""
+    boundary; the keyed runtime does. Off, the path is unchanged.
+
+    ``with_census``: also return, last, this rank's packed value census
+    (f32 ``[len(numerics.census_keys(plan_guard_sites(plan)))]`` on the
+    rank's device: each site's summary, downstream of chaos and the guard,
+    then the merge's softmax-mass deviation). Reductions of the partials
+    in hand, no collective; the keyed runtime reads it."""
     import torch.distributed as dist
 
     from ..resilience import chaos, guards
+    from ..telemetry import numerics
 
     if params.has_sink != (sink is not None):
         raise ValueError("params.has_sink must match whether a sink is given")
@@ -847,18 +903,29 @@ def dist_attn_local(
     # a hierarchical plan plants on every rank, as the JAX package does there
     chaos_rank = rank if plan.hier is None else None
 
-    def resilient(out_p, lse_p, site, site_index):
+    census_vals, partial_lses = [], []
+
+    def resilient(out_p, lse_p, site, site_index, rowmax):
         # chaos upstream of the guard: an injected fault travels the path an
-        # organic kernel NaN would
+        # organic kernel NaN would; the census downstream of both, so that
+        # it sees what the merge takes
         nonlocal code
         if chaos.enabled():
             out_p, lse_p = chaos.corrupt_partial(out_p, lse_p, site, rank=chaos_rank)
         if gmode != "off":
             out_p, lse_p, code = guards.guard_partial(out_p, lse_p, code, site_index, site)
+        if with_census:
+            census_vals.extend(numerics.site_summary(out_p.detach(), lse_p.detach(),
+                                                     rowmax[:, :n]))
+            partial_lses.append(lse_p.detach())
         return out_p, lse_p
 
     def result(out, lse, mx):
-        return (out, lse, mx, code) if with_guard_code else (out, lse, mx)
+        res = (out, lse, mx, code) if with_guard_code else (out, lse, mx)
+        if with_census:
+            census_vals.append(numerics.mass_deviation(partial_lses, lse.detach()))
+            res = res + (numerics.pack_census(census_vals),)
+        return res
 
     tabs = rank_tables(plan, rank, str(q.device))
     n, nk = plan.shard_q_len, plan.shard_k_len
@@ -879,7 +946,7 @@ def dist_attn_local(
         buf = _kv_buffer((kv, recv), kv_pad, k)
         out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, params,
                                                    sink=sink)
-        out, lse = resilient(*_seq(out_h, lse_h, n), "merged", 0)
+        out, lse = resilient(*_seq(out_h, lse_h, n), "merged", 0, rowmax)
         return result(out, lse, rowmax.amax(dim=1))
 
     # staged: the host stage (own shard, with the sink) and D sink-free
@@ -892,14 +959,14 @@ def dist_attn_local(
         qh, buf[0], buf[1], ftab, btab, dataclasses.replace(params, out_dtype=acc_dtype),
         sink=sink,
     )
-    out, lse = resilient(*_seq(out_h, lse_h, n), "host", 0)
+    out, lse = resilient(*_seq(out_h, lse_h, n), "host", 0, rowmax)
     mx = rowmax.amax(dim=1)
     stage_params = dataclasses.replace(params, has_sink=False, out_dtype=acc_dtype)
     for i, ((ftab, btab, kv_pad), rt) in enumerate(zip(tabs.kernel[1:], tabs.casts)):
         recv = stream.cast(kv, rt, group)
         buf = _kv_buffer((recv,), kv_pad, k)
         out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, stage_params)
-        out_i, lse_i = resilient(*_seq(out_h, lse_h, n), f"stage{i}", 1 + i)
+        out_i, lse_i = resilient(*_seq(out_h, lse_h, n), f"stage{i}", 1 + i, rowmax)
         out, lse = correct_attn_out_lse(out, lse, out_i, lse_i)
         mx = torch.maximum(mx, rowmax.amax(dim=1))
     return result(out.to(params.out_dtype), lse, mx)

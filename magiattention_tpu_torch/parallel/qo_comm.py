@@ -185,6 +185,9 @@ def build_qo_comm_plan(
         [int(s[4]) for s in sl],
     )
     sol = solver.solve(rects, cp_size, total_seqlen=total_seqlen)
+    from .. import telemetry
+
+    telemetry.record_dynamic_solution(type(solver).__name__, sol.balance_ratio)
 
     q_need: list[AttnRanges] = []
     k_need: list[AttnRanges] = []

@@ -123,7 +123,8 @@ def _decode_torch(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     """Plain version: gather each split's pages densely, compute its partial,
     take the resilience hooks, tree-merge. ``bt`` [b, W] / ``seq_lens`` [b]
     are the batch's block-table rows and true lengths. Returns f32 (out
-    [b, hq, d], lse [b, hq]) and the guard code (None with guards off)."""
+    [b, hq, d], lse [b, hq]), the guard code (None with guards off) and the
+    value census (None with the census off)."""
     b = q.shape[0]
     ps = cache.page_size
     s = params.num_splits
@@ -140,7 +141,8 @@ def _decode_torch(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
         outs.append(o)
         lses.append(l)
     outs, lses, code = _apply_split_resilience(outs, lses)
-    return (*merge_partials(outs, lses), code)
+    out, lse = merge_partials(outs, lses)
+    return out, lse, code, _split_census(outs, lses, lse)
 
 
 def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams,
@@ -223,6 +225,22 @@ def _apply_split_resilience(outs, lses):
     return new_outs, new_lses, code
 
 
+def _split_census(outs, lses, merged_lse):
+    """The value census of the split partials (after the resilience hooks,
+    so that a planted corruption shows) and of the merge's softmax mass:
+    one packed f32 vector on the partials' device, or None unless
+    ``MAGI_ATTENTION_NUMERICS=census`` (then nothing runs)."""
+    from ..telemetry import numerics
+
+    if not numerics.census_active():
+        return None
+    vals: list = []
+    for o, l in zip(outs, lses):
+        vals.extend(numerics.site_summary(o, l))
+    vals.append(numerics.mass_deviation(lses, merged_lse))
+    return numerics.pack_census(vals)
+
+
 def _merge_splits(out_parts, lse_parts):
     """The kernel's per-split partials merged: f32 (out [b, hq, d], lse [b, hq])."""
     return _merge_parts(out_parts, lse_parts)[:2]
@@ -230,19 +248,27 @@ def _merge_splits(out_parts, lse_parts):
 
 def _merge_parts(out_parts, lse_parts):
     """The kernel's per-split partials through the resilience hooks, then
-    merged: f32 (out [b, hq, d], lse [b, hq]) and the guard code."""
+    merged: f32 (out [b, hq, d], lse [b, hq]), the guard code and the value
+    census (None while off)."""
     s = out_parts.shape[1]
     outs, lses, code = _apply_split_resilience(
         [out_parts[:, i] for i in range(s)], [lse_parts[:, i] for i in range(s)])
-    return (*merge_partials(outs, lses), code)
+    out, lse = merge_partials(outs, lses)
+    return out, lse, code, _split_census(outs, lses, lse)
 
 
-def _consume(code, num_splits: int) -> None:
-    """Read a split guard code at the call boundary (``check`` raises)."""
+def _consume(code, census, num_splits: int) -> None:
+    """The call boundary: read the split guard code (``check`` raises),
+    then land the value census (layer ``decode``; one device-to-host copy)."""
     if code is not None:
         from ..resilience import guards
 
         guards.consume_error_code(code, guards.split_guard_sites(num_splits))
+    if census is not None:
+        from ..telemetry import numerics
+
+        numerics.consume_census(census, numerics.census_keys(
+            tuple(f"split{i}" for i in range(num_splits))), layer="decode")
 
 
 def _plain(q, cache: PagedKVCache, bt) -> bool:
@@ -256,7 +282,7 @@ def _plain(q, cache: PagedKVCache, bt) -> bool:
 
 def _decode(q, cache: PagedKVCache, bt, seq_lens, params: DecodeParams):
     """Split-KV decode where the tensors are: f32 (out [b, hq, d], lse
-    [b, hq]) and the split guard code."""
+    [b, hq]), the split guard code and the value census."""
     if _plain(q, cache, bt):
         return _decode_torch(q, cache, bt, seq_lens, params)
     return _merge_parts(*_decode_partials_kernel(q, cache, bt, seq_lens, params))
@@ -292,11 +318,11 @@ def _decode_shared_prefix(
     bt = shared_pages.to(torch.int32)[None]  # [1, W]
     sl = torch.full((1,), int(prefix_len), dtype=torch.int32, device=bt.device)
     if _plain(q, cache, bt):
-        out, lse, code = _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
+        out, lse, code, census = _decode_torch(q, cache, bt.expand(m, -1), sl.expand(m), params)
     else:
-        out, lse, code = _merge_parts(*_decode_partials_kernel(q, cache, bt, sl, params,
-                                                               shared=True))
-    _consume(code, params.num_splits)
+        out, lse, code, census = _merge_parts(*_decode_partials_kernel(q, cache, bt, sl, params,
+                                                                       shared=True))
+    _consume(code, census, params.num_splits)
     return out, lse
 
 
@@ -372,8 +398,8 @@ def decode_partials_for_tables(
         num_splits=_clamp_splits(num_splits, bt.shape[1]),
         out_dtype=torch.float32,
     )
-    out, lse, code = _decode(q, cache, bt, seq_lens.to(torch.int32), params)
-    _consume(code, params.num_splits)
+    out, lse, code, census = _decode(q, cache, bt, seq_lens.to(torch.int32), params)
+    _consume(code, census, params.num_splits)
     return out, lse
 
 
@@ -436,6 +462,6 @@ def decode_attn_paged(
     slots = slots.to(device=cache.device, dtype=torch.long)
     bt = cache.block_tables[slots]  # [b, MPP]
     seq_lens = cache.seq_lens[slots]  # [b]
-    out, lse, code = _decode(q, cache, bt, seq_lens, params)
-    _consume(code, params.num_splits)
+    out, lse, code, census = _decode(q, cache, bt, seq_lens, params)
+    _consume(code, census, params.num_splits)
     return out.to(params.out_dtype), lse

@@ -1,7 +1,8 @@
 """Runtime telemetry of the port: metrics registry, span events, request
-traces, flight recorder, exposition, memory forensics, numerics.
+traces, flight recorder, exposition, memory forensics, numerics, and the
+device profilers.
 
-The JAX package's ``telemetry/`` for the host side of the serving path:
+The JAX package's ``telemetry/``:
 
 - :mod:`.registry`    — process-global counters/gauges/histograms +
   ``snapshot()``/``dump``
@@ -12,14 +13,19 @@ The JAX package's ``telemetry/`` for the host side of the serving path:
 - :mod:`.aggregate`   — cross-rank snapshot and trace merges
 - :mod:`.exposition`  — Prometheus text, snapshot deltas, the scrape server
 - :mod:`.memory`      — ledgers, measured call memory, pool forensics
-- :mod:`.numerics`    — error budgets, divergence reports, the host census
+- :mod:`.numerics`    — error budgets, divergence reports, the value census
+  (``MAGI_ATTENTION_NUMERICS=census``)
+- :mod:`.timeline`    — a cp plan's measured stage timeline (CUDA events)
+- :mod:`.roofline`    — the mask-aware roofline at the card's peak
+- :mod:`.occupancy`   — block-occupancy maps (the sparse grid's input)
 - :mod:`.logger`      — ``MAGI_ATTENTION_LOG_LEVEL`` -> logging config
 
 Gating: recording is OFF by default. ``MAGI_ATTENTION_TELEMETRY=1`` (or
 ``set_enabled(True)``, as tests and benches do) turns it on; while off,
 every hook is a single predicate call — no dict churn, no clock reads. No
-hook reads a device tensor. The flight recorder and the compile tracker
-are always on, as in the JAX package.
+hook reads a device tensor; the value census, when on, reads one packed
+vector a call. The flight recorder and the compile tracker are always on,
+as in the JAX package.
 
 Typical use::
 
@@ -30,9 +36,8 @@ Typical use::
     telemetry.dump_metrics("metrics.json")
     telemetry.dump_events("trace.json")   # chrome://tracing format
 
-The device profilers (``timeline``, ``roofline``, ``occupancy``,
-``baseline``) and the in-graph numerics census come with the device slice
-of ROADMAP A.15.
+The bench-history baseline (``baseline``) comes with a benchmark (ROADMAP
+A.19).
 """
 
 from __future__ import annotations
@@ -61,9 +66,15 @@ from .collectors import (  # noqa: F401
     REQUIRED_VALIDATE_METRICS,
     record_admission,
     record_admission_watermark,
+    record_cache_access,
+    record_comm_op,
     record_compile,
     record_decode_step,
     record_degraded_path,
+    record_dispatch_meta,
+    record_dispatch_solution,
+    record_dynamic_solution,
+    record_group_collective_build,
     record_guard_check,
     record_guard_repair,
     record_guard_violation,
@@ -72,8 +83,15 @@ from .collectors import (  # noqa: F401
     record_memory_comparison,
     record_memory_ledger,
     record_memory_measurement,
+    record_measured_timeline,
     record_memory_pool,
+    record_numerics_census,
+    record_overlap_choice,
     record_page_stream,
+    record_plan,
+    record_plan_bucket,
+    record_plan_cache_eviction,
+    record_plan_incremental,
     record_plan_solver,
     record_prefill,
     record_prefix_cow,
@@ -83,6 +101,8 @@ from .collectors import (  # noqa: F401
     record_request_queue_time,
     record_request_token_latency,
     record_request_ttft,
+    record_roofline,
+    record_runtime_costs,
     record_sched_step,
     record_shadow_check,
     record_stream_queue_depth,
@@ -142,15 +162,31 @@ from .numerics import (  # noqa: F401
     NumericsCensus,
     assert_within_budget,
     budget_for_dtype,
+    census_active,
+    census_keys,
+    consume_census,
     divergence_report,
     get_numerics_census,
+    mass_deviation,
     nudge_ulps,
+    pack_census,
     reset_numerics_census,
+    site_summary,
     ulp_distance,
+)
+from .occupancy import BlockOccupancyMap, block_occupancy_map  # noqa: F401
+from .roofline import (  # noqa: F401
+    CPU_PEAK_TFLOPS,
+    RooflineReport,
+    StepFees,
+    analyze_workload,
+    profile_roofline,
+    resolve_peak_tflops,
 )
 from .registry import (  # noqa: F401
     MetricsRegistry,
     get_registry,
+    scoped_registry,
     series_key,
 )
 from .trace import (  # noqa: F401
@@ -165,6 +201,13 @@ from .trace import (  # noqa: F401
     request_traces_to_chrome,
     reset_flight_recorder,
     reset_request_traces,
+)
+from .timeline import (  # noqa: F401
+    HopTiming,
+    MeasuredTimeline,
+    StageTiming,
+    profile_key_timeline,
+    profile_plan_timeline,
 )
 
 # tri-state programmatic override: None -> defer to the env flag
@@ -214,6 +257,8 @@ def dump_events(path: str) -> str:
 
 
 __all__ = [
+    "BlockOccupancyMap",
+    "CPU_PEAK_TFLOPS",
     "CompileTracker",
     "DEFAULT_BUDGETS",
     "DivergenceReport",
@@ -221,7 +266,9 @@ __all__ = [
     "ErrorBudgetExceeded",
     "EventBuffer",
     "FlightRecorder",
+    "HopTiming",
     "LedgerEntry",
+    "MeasuredTimeline",
     "MemPressureWatcher",
     "MemoryComparison",
     "MemoryLedger",
@@ -246,11 +293,19 @@ __all__ = [
     "REQUIRED_TRACE_METRICS",
     "REQUIRED_VALIDATE_METRICS",
     "RequestTrace",
+    "RooflineReport",
+    "StageTiming",
+    "StepFees",
     "add_solver_seconds",
     "aggregate_across_mesh",
+    "analyze_workload",
     "assert_within_budget",
+    "block_occupancy_map",
     "budget_for_dtype",
+    "census_active",
+    "census_keys",
     "configure_logging",
+    "consume_census",
     "current_program",
     "decode_program_label",
     "divergence_report",
@@ -270,30 +325,48 @@ __all__ = [
     "get_numerics_census",
     "get_registry",
     "ledger_vs_measured",
+    "mass_deviation",
     "measure_program_memory",
     "merge_chrome_traces",
     "merge_snapshots",
     "nudge_ulps",
+    "pack_census",
     "parse_prometheus_text",
     "plan_memory_ledger",
     "prefill_program_label",
+    "profile_key_timeline",
+    "profile_plan_timeline",
+    "profile_roofline",
     "program",
     "record_admission",
     "record_admission_watermark",
+    "record_cache_access",
+    "record_comm_op",
     "record_compile",
     "record_decode_step",
     "record_degraded_path",
+    "record_dispatch_meta",
+    "record_dispatch_solution",
+    "record_dynamic_solution",
     "record_event",
+    "record_group_collective_build",
     "record_guard_check",
     "record_guard_repair",
     "record_guard_violation",
     "record_hbm_sample",
     "record_kvcache_state",
+    "record_measured_timeline",
     "record_memory_comparison",
     "record_memory_ledger",
     "record_memory_measurement",
     "record_memory_pool",
+    "record_numerics_census",
+    "record_overlap_choice",
     "record_page_stream",
+    "record_plan",
+    "record_plan_bucket",
+    "record_plan_cache_eviction",
+    "record_plan_incremental",
     "record_plan_solver",
     "record_prefill",
     "record_prefix_cow",
@@ -304,6 +377,8 @@ __all__ = [
     "record_request_span",
     "record_request_token_latency",
     "record_request_ttft",
+    "record_roofline",
+    "record_runtime_costs",
     "record_sched_step",
     "record_shadow_check",
     "record_stream_queue_depth",
@@ -318,10 +393,13 @@ __all__ = [
     "reset_flight_recorder",
     "reset_numerics_census",
     "reset_request_traces",
+    "resolve_peak_tflops",
     "sample_memory_stats",
+    "scoped_registry",
     "series_key",
     "serving_memory_ledger",
     "set_enabled",
+    "site_summary",
     "snapshot",
     "snapshot_delta",
     "span",

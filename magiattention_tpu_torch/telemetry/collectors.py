@@ -8,20 +8,12 @@ once while telemetry is off: a hot path pays one predicate call.
 
 The port carries the recorders whose callers it has: the serving engine,
 scheduler and tiers, the memory and compile tracking, the request traces
-and the flight recorder, the resilience hooks, and the plan solver's
-seconds. The others come with the items that port their callers (ROADMAP):
-
-- the cp planner's ``record_plan``, ``record_dispatch_meta``,
-  ``record_dispatch_solution``, ``record_dynamic_solution``,
-  ``record_group_collective_build``, ``record_comm_op``,
-  ``record_overlap_choice``, ``record_cache_access`` and the plan-cache,
-  bucket and incremental counters: the cp counters slice (A.6, A.8, A.14);
-- ``record_runtime_costs``: with ``utils/cost.py`` (A.19);
-- ``record_roofline``, ``record_measured_timeline`` and
-  ``record_numerics_census``: the device slice of A.15;
-- ``record_autotune_*`` and ``record_tuning_cache_io_error``: A.12;
-- ``record_validate`` and ``record_analysis_run``: A.18;
-- ``record_fleet_*``: A.17.
+and the flight recorder, the resilience hooks, the plan solver's seconds,
+the cp planner, comm and keyed cache, the cost model, the roofline, the
+measured timeline and the value census. The others come with the items
+that port their callers (ROADMAP): ``record_autotune_*`` and
+``record_tuning_cache_io_error`` (A.12), ``record_validate`` and
+``record_analysis_run`` (A.18), ``record_fleet_*`` (A.17).
 """
 
 from __future__ import annotations
@@ -434,6 +426,23 @@ REQUIRED_FLEET_METRICS: tuple[str, ...] = (
     H_FLEET_TTFT_TICKS,
     H_FLEET_TOKLAT_TICKS,
 )
+
+
+def record_numerics_census(layer: str, site: str, stats: dict) -> None:
+    """One consumed value census of one guard site: a gauge for every
+    value, and the out max-abs / mass-deviation histograms (``site='final'``
+    carries only ``mass_dev``)."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    for stat, val in stats.items():
+        v = float(val)
+        reg.gauge_set(M_NUMERICS_CENSUS, v, layer=layer, site=site, stat=stat)
+        if stat == "out_max_abs":
+            reg.histogram_observe(H_NUMERICS_OUT_MAX_ABS, v, bounds=_OUT_MAX_ABS_BOUNDS,
+                                  layer=layer)
+        elif stat == "mass_dev":
+            reg.histogram_observe(H_NUMERICS_MASS_DEV, v, bounds=_MASS_DEV_BOUNDS, layer=layer)
 
 
 def record_shadow_check(
@@ -961,6 +970,261 @@ def record_tier_state(
         labels["replica"] = replica
     reg.gauge_set(M_TIER_PAGES_USED, int(pages_in_use), **labels)
     reg.gauge_set(M_TIER_ACTIVE, int(active), tier=tier)
+
+
+# ---------------------------------------------------------------------------
+# dispatch layer
+# ---------------------------------------------------------------------------
+
+
+def record_dispatch_meta(meta) -> None:
+    """One DispatchMeta built (``meta/dispatch_meta.py``): chunk counts and
+    the token imbalance of the physical shard (1.0 = even; above 1 the
+    lighter ranks of an uneven shard hold pad slots)."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_DISPATCH_BUILDS)
+    reg.gauge_set(M_DISPATCH_NUM_CHUNKS, meta.num_chunks)
+    reg.gauge_set(M_DISPATCH_UNEVEN, int(meta.is_uneven))
+    valid = meta.rank_valid_lens
+    mean_valid = sum(valid) / max(len(valid), 1)
+    reg.gauge_set(M_DISPATCH_TOKEN_IMBALANCE,
+                  (meta.shard_seqlen / mean_valid) if mean_valid else 1.0)
+    reg.clear_metric(M_DISPATCH_CHUNKS_RANK)  # cp may shrink between plans
+    for r, p in enumerate(meta.partitions):
+        reg.gauge_set(M_DISPATCH_CHUNKS_RANK, len(p), rank=r)
+
+
+def record_dispatch_solution(alg: str, minimax_workload: float, bucket_workloads,
+                             solve_seconds: float) -> None:
+    """The dispatch solver's result (``meta/solver/dispatch_solver.py``):
+    the minimax objective, the max / mean balance and the solve seconds."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.gauge_set(M_SOLVER_MINIMAX, float(minimax_workload), alg=alg)
+    loads = list(bucket_workloads)
+    mean = sum(loads) / max(len(loads), 1)
+    reg.gauge_set(M_SOLVER_BALANCE, (max(loads) / mean) if mean else 1.0, alg=alg)
+    reg.histogram_observe(H_DISPATCH_SOLVE_S, solve_seconds, alg=alg)
+
+
+def record_dynamic_solution(solver: str, balance_ratio: float) -> None:
+    """The qo-comm plane partition's balance (``parallel/qo_comm.py``)."""
+    if not _enabled():
+        return
+    get_registry().gauge_set(M_DYN_SOLVER_BALANCE, float(balance_ratio), solver=solver)
+
+
+# ---------------------------------------------------------------------------
+# comm layer
+# ---------------------------------------------------------------------------
+
+
+def record_group_collective_build(comm) -> None:
+    """One cast routed (``comm/group_collective.py``, ``comm/hier.py``):
+    counts builds and keeps the latest true, padded and scheduled rows and
+    the scheduled / true ratio of the cast, and the impl chosen. Per-rank
+    rows are recorded with the plan (:func:`record_plan`), where the
+    plan's own comm is known: builds also run for each stage's cast."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_GRPCOLL_BUILDS)
+    reg.gauge_set(M_COMM_PADDED_ROWS, comm.padded_rows_per_rank)
+    reg.gauge_set(M_COMM_SCHEDULED_ROWS, comm.scheduled_rows_per_rank)
+    reg.gauge_set(M_COMM_TRUE_ROWS, comm.true_rows_total)
+    reg.gauge_set(M_COMM_PADDING_OVERHEAD, comm.padding_overhead_ratio, kind="cast")
+    reg.clear_metric(M_COMM_IMPL_CHOICE)  # one live choice at a time
+    reg.gauge_set(M_COMM_IMPL_CHOICE, 1, impl=comm.impl, reason=comm.impl_reason)
+
+
+def record_comm_op(comm, kind: str) -> None:
+    """One group reduce run against a cast's routing (``group_reduce_sum``,
+    ``group_reduce_lse``): its scheduled / true ratio by kind."""
+    if not _enabled():
+        return
+    get_registry().gauge_set(M_COMM_PADDING_OVERHEAD, comm.padding_overhead_ratio, kind=kind)
+
+
+# ---------------------------------------------------------------------------
+# plan layer
+# ---------------------------------------------------------------------------
+
+
+def record_overlap_choice(degree: int, modeled_makespan_s: float) -> None:
+    """The auto overlap degree's search result (``_choose_overlap_degree``)."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.gauge_set(M_OVERLAP_AUTO_DEGREE, degree)
+    reg.gauge_set(M_OVERLAP_MAKESPAN, modeled_makespan_s)
+
+
+def record_plan(plan, build_seconds: float | None = None) -> None:
+    """One DistAttnPlan built (``parallel/dist_attn.py``): overlap degree,
+    stages, per-rank comm rows, the mask-area balance and the kernels'
+    row-major step extents."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_PLAN_BUILDS)
+    reg.gauge_set(M_PLAN_OVERLAP_DEGREE, plan.overlap_degree)
+    reg.gauge_set(M_PLAN_NUM_STAGES, len(plan.stages))
+    reg.gauge_set(M_PLAN_TOTAL_AREA, plan.total_area)
+    reg.gauge_set(M_PLAN_MAX_RANK_AREA, plan.max_rank_area)
+    reg.gauge_set(M_PLAN_AREA_IMBALANCE,
+                  plan.max_rank_area / max(plan.total_area / plan.cp_size, 1))
+    comm = plan.comm
+    reg.clear_metric(M_COMM_SEND_ROWS)  # cp may shrink between plans
+    reg.clear_metric(M_COMM_RECV_ROWS)
+    for r in range(plan.cp_size):
+        reg.gauge_set(M_COMM_SEND_ROWS, comm.send_total[r], rank=r)
+        reg.gauge_set(M_COMM_RECV_ROWS, comm.recv_total[r], rank=r)
+    fwd = bwd = 0
+    for t in plan.table_sets():
+        a, b = t.kernel_steps()
+        fwd, bwd = max(fwd, a), max(bwd, b)
+    reg.gauge_set(M_PLAN_KERNEL_STEPS_FWD, fwd)
+    reg.gauge_set(M_PLAN_KERNEL_STEPS_BWD, bwd)
+    if build_seconds is not None:
+        reg.histogram_observe(H_PLAN_BUILD_S, build_seconds)
+
+
+def record_runtime_costs(plan, *, num_heads_q: int, num_heads_kv: int, head_dim: int,
+                         bytes_per_elt: int, card: str | None) -> None:
+    """The keyed API's rows -> bytes and area -> seconds: per-rank comm
+    bytes of the K+V payload, the modeled FLOPs, and the calc and comm
+    seconds ``utils/cost.py`` prices them at on ``card`` (none for a card
+    the table does not know, or for ``card=None``: a CPU key)."""
+    if not _enabled():
+        return
+    from ..utils.cost import get_calc_cost_factor, get_comm_cost_factor
+
+    reg = get_registry()
+    comm = plan.comm
+    row_bytes = 2 * num_heads_kv * head_dim * bytes_per_elt  # K + V
+    reg.clear_metric(M_COMM_BYTES_RANK)  # cp may shrink between plans
+    for r in range(plan.cp_size):
+        reg.gauge_set(M_COMM_BYTES_RANK, comm.recv_total[r] * row_bytes, rank=r)
+    reg.gauge_set(M_MODELED_FLOPS, 4.0 * plan.total_area * num_heads_q * head_dim)
+    if card is None:
+        return
+    try:
+        calc_f = get_calc_cost_factor(num_heads_q, head_dim, card)
+        comm_f = get_comm_cost_factor(num_heads_kv, head_dim, card, bytes_per_elt=bytes_per_elt)
+    except ValueError:  # an unknown card must never take planning down
+        return
+    reg.gauge_set(M_MODELED_CALC_S, plan.max_rank_area * calc_f)
+    reg.gauge_set(M_MODELED_COMM_S, max(comm.recv_total, default=0) * comm_f)
+
+
+def record_roofline(report) -> None:
+    """One mask-aware roofline (``telemetry/roofline.py``): true and
+    scheduled FLOPs, the achieved fraction of peak where measured, and the
+    gap's fractions, labelled by workload."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    w = report.workload
+    reg.gauge_set(M_ROOF_PEAK, report.peak_tflops, workload=w)
+    reg.gauge_set(M_ROOF_MASK_FLOPS, report.mask_flops, workload=w)
+    reg.gauge_set(M_ROOF_SCHED_FLOPS, report.scheduled_flops, workload=w)
+    reg.gauge_set(M_ROOF_DENSITY, report.mask_density, workload=w)
+    f = report.gap_fractions()
+    reg.gauge_set(M_ROOF_DEAD_FRAC, f["dead_steps"], workload=w)
+    reg.gauge_set(M_ROOF_PARTIAL_FRAC, f["partial_tile"], workload=w)
+    reg.gauge_set(M_ROOF_MASKED_FRAC, f["masked_overcompute"], workload=w)
+    if report.measured_tflops is not None:
+        reg.gauge_set(M_ROOF_ACHIEVED, report.measured_tflops, workload=w)
+        reg.gauge_set(M_ROOF_EFFICIENCY, report.efficiency, workload=w)
+    else:
+        # a measurement-less re-record must not pair an earlier run's
+        # achieved rate with this run's fractions
+        reg.clear_series(M_ROOF_ACHIEVED, workload=w)
+        reg.clear_series(M_ROOF_EFFICIENCY, workload=w)
+    _marker_event("roofline", {
+        "workload": w,
+        "rung": f"{report.block_q}x{report.block_k}x{report.head_block}"
+        + (f":{report.grid}" if report.grid != "row_major" else ""),
+        "mask_density": report.mask_density,
+        "measured_tflops": report.measured_tflops,
+        "efficiency": report.efficiency,
+        "dominant_waste": report.dominant_waste,
+    })
+
+
+def record_measured_timeline(tl) -> None:
+    """One measured stage timeline (``telemetry/timeline.py``): each
+    stage's cast and kernel ms beside the prediction, the pipelined and
+    serial totals and the overlap efficiency. The stage-labelled series are
+    cleared first: a re-profile at another degree leaves no stale stage."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.clear_metric(M_TL_COMM_MS)
+    reg.clear_metric(M_TL_CALC_MS)
+    reg.clear_metric(M_HOP_MS)
+    for ht in getattr(tl, "hops", ()):
+        reg.gauge_set(M_HOP_MS, ht.ms, hop=ht.hop, axis=ht.axis, stage=ht.stage)
+    for st in tl.stages:
+        if st.stage != "host":  # the host stage has no cast
+            reg.gauge_set(M_TL_COMM_MS, st.comm_ms, stage=st.stage)
+        reg.gauge_set(M_TL_CALC_MS, st.calc_ms, stage=st.stage)
+    reg.gauge_set(M_TL_MEASURED_TOTAL_MS, tl.measured_total_ms)
+    reg.gauge_set(M_TL_SERIAL_MS, tl.serial_total_ms)
+    reg.gauge_set(M_TL_EFFICIENCY, tl.overlap_efficiency)
+    # clear, then set: a re-profile that could not be priced must not pair
+    # fresh measurements with an earlier plan's prediction
+    reg.clear_metric(M_TL_PREDICTED_MS)
+    reg.clear_metric(M_TL_PRED_ERROR)
+    if tl.predicted_total_ms is not None:
+        reg.gauge_set(M_TL_PREDICTED_MS, tl.predicted_total_ms)
+    if tl.prediction_error_ratio is not None:
+        reg.gauge_set(M_TL_PRED_ERROR, tl.prediction_error_ratio)
+    _marker_event("measured_timeline", {
+        "overlap_degree": tl.overlap_degree,
+        "measured_total_ms": tl.measured_total_ms,
+        "serial_total_ms": tl.serial_total_ms,
+        "overlap_efficiency": tl.overlap_efficiency,
+        "predicted_total_ms": tl.predicted_total_ms,
+    })
+
+
+def record_cache_access(hit: bool) -> None:
+    """The keyed plan cache (``api/interface.py``): one tick a key
+    resolution, under the ``magi_plan_cache_*`` names and the
+    ``magi_runtime_cache_*`` ones."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_CACHE_HITS if hit else M_CACHE_MISSES)
+    reg.counter_inc(M_PLAN_CACHE_HITS if hit else M_PLAN_CACHE_MISSES)
+
+
+def record_plan_cache_eviction(cache: str) -> None:
+    """One entry dropped by a bounded plan cache: ``cache`` is ``runtime``
+    (the exact-key LRU) or ``fingerprint`` (the bucketed second level)."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_PLAN_CACHE_EVICTIONS, cache=cache)
+
+
+def record_plan_bucket(hit: bool) -> None:
+    """One fingerprint lookup after an exact-key miss
+    (``MAGI_ATTENTION_PLAN_REUSE=bucket`` only)."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_PLAN_BUCKET_HITS if hit else M_PLAN_BUCKET_MISSES)
+
+
+def record_plan_incremental(patched: bool) -> None:
+    """A bucket hit's row maps: ``patched`` when the tail-extend patch
+    applied, else rebuilt (both skip the solver)."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_PLAN_INCR_PATCHES if patched else M_PLAN_INCR_FALLBACKS)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,14 @@ strictest of two budgets, ``|`` = the loosest), and
 
 :class:`NumericsCensus` is the host state every flight-recorder dump embeds
 as its ``numerics`` section: the serving engine's shadow checks
-(``MAGI_ATTENTION_SHADOW_SAMPLE_RATE``) land there. The in-graph value
-census of ``MAGI_ATTENTION_NUMERICS=census`` (``site_summary``,
-``pack_census``, ``consume_census``) comes with the device slice of
-ROADMAP A.15; until then the flag is refused.
+(``MAGI_ATTENTION_SHADOW_SAMPLE_RATE``) land there, and so does the value
+census of ``MAGI_ATTENTION_NUMERICS=census``: each guard site's partial
+reduced to a few values on the device (:func:`site_summary`), the merge's
+softmax-mass deviation (:func:`mass_deviation`), packed into one vector
+(:func:`pack_census`) and read to the host once a call
+(:func:`consume_census`). The port has no jit boundary: the values are
+consumed where ``DistAttnRuntimeMgr.calc_attn`` and the decode entry points
+return. Off, none of it runs.
 """
 
 from __future__ import annotations
@@ -277,6 +281,95 @@ def assert_within_budget(report: DivergenceReport, budget: ErrorBudget | None = 
     if bad:
         raise ErrorBudgetExceeded(bad, report, budget, where=where)
     return report
+
+
+# ---------------------------------------------------------------------------
+# the value census (device reductions, read once a call)
+# ---------------------------------------------------------------------------
+
+# per-site values, in packed order; "final/mass_dev" closes each call
+CENSUS_STATS = ("logit_max", "lse_min", "lse_max", "out_max_abs")
+MASS_DEV_KEY = "final/mass_dev"
+
+
+def census_active() -> bool:
+    """Whether ``MAGI_ATTENTION_NUMERICS=census``: off (the default), no
+    emitter below runs and the outputs are unchanged."""
+    from .. import env
+
+    return env.numerics_mode() == "census"
+
+
+def site_summary(out, lse, logits_max=None) -> list:
+    """One (out, lse) partial reduced to f32 scalars on its device, in
+    ``CENSUS_STATS`` order. ``logits_max``: the kernel's max logits where
+    the caller has them, else max lse stands in (max logit <= lse <= max
+    logit + log n). Uncovered rows (lse -inf) are masked by equality; no
+    ``isfinite``, which stays the guards' marker."""
+    import torch
+
+    lse32 = lse.float()
+    logit_max = (logits_max.float() if logits_max is not None else lse32).amax()
+    lse_min = torch.where(torch.isneginf(lse32), torch.full_like(lse32, float("inf")),
+                          lse32).amin()
+    return [logit_max, lse_min, lse32.amax(), out.float().abs().amax()]
+
+
+def mass_deviation(partial_lses, merged_lse):
+    """The softmax-mass deviation of an LSE merge: the partial masses
+    sum_i exp(lse_i - lse_merged) make exactly 1 in exact arithmetic, so
+    the largest deviation over positions measures the merge's rounding (and
+    explodes on a corrupted finite partial). Uncovered rows count 0."""
+    import torch
+
+    merged = merged_lse.float()
+    uncovered = torch.isneginf(merged)
+    safe = torch.where(uncovered, torch.zeros_like(merged), merged)
+    mass = None
+    for l_i in partial_lses:
+        l32 = l_i.float()
+        term = torch.where(torch.isneginf(l32), torch.zeros_like(l32), torch.exp(l32 - safe))
+        mass = term if mass is None else mass + term
+    dev = torch.where(uncovered, torch.zeros_like(mass), (mass - 1.0).abs())
+    return dev.amax()
+
+
+def census_keys(sites) -> tuple[str, ...]:
+    """The packed order for a call's guard-site names, shared by the
+    emitter and :func:`consume_census`."""
+    keys = [f"{s}/{stat}" for s in sites for stat in CENSUS_STATS]
+    keys.append(MASS_DEV_KEY)
+    return tuple(keys)
+
+
+def pack_census(values):
+    """The emitted scalars as one f32 vector on their device."""
+    import torch
+
+    return torch.stack([v.float().reshape(()) for v in values])
+
+
+def consume_census(values, keys, *, layer: str) -> None:
+    """Land a packed census (``[S]``, or ``[R, S]`` over ranks) in the
+    ``magi_numerics_*`` series and the host :class:`NumericsCensus`: one
+    device-to-host copy. Over ranks, a minimum stays a minimum and every
+    other value takes the worst (largest) rank, as in the JAX package."""
+    if values is None:
+        return
+    if not isinstance(values, np.ndarray):
+        values = values.detach().cpu().numpy()
+    arr = np.asarray(values, np.float64).reshape(-1, len(keys))
+    site_stats: dict[str, dict[str, float]] = {}
+    for j, key in enumerate(keys):
+        site, _, stat = key.rpartition("/")
+        col = arr[:, j]
+        val = float(np.min(col) if stat == "lse_min" else np.max(col))
+        site_stats.setdefault(site, {})[stat] = val
+    from . import collectors
+
+    for site, stats in site_stats.items():
+        collectors.record_numerics_census(layer, site, stats)
+    get_numerics_census().note_sites(layer, site_stats)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Process-global metrics registry: counters, gauges and histograms.
 
-The JAX package's ``telemetry/registry.py``, unchanged: the serving path,
+The JAX package's ``telemetry/registry.py``, plus ``scoped_registry``
+(below): the serving path,
 the tiers and the resilience hooks record what they did into one registry,
 and ``snapshot()`` returns it as a plain JSON-serialisable dict.
 
@@ -17,6 +18,7 @@ Series are keyed ``name{label=value,...}`` with the labels sorted by key
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 from dataclasses import dataclass, field
@@ -239,3 +241,18 @@ _global_registry = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     """The process-global registry every runtime layer records into."""
     return _global_registry
+
+
+@contextlib.contextmanager
+def scoped_registry(reg: MetricsRegistry | None = None):
+    """Every record made in the block goes to ``reg`` (default: a fresh
+    registry), which the block receives; the process registry is put back
+    after it. Recorders look the registry up at each record, so none keeps
+    the old one; a reference taken before the block does."""
+    global _global_registry
+    saved = _global_registry
+    _global_registry = MetricsRegistry() if reg is None else reg
+    try:
+        yield _global_registry
+    finally:
+        _global_registry = saved

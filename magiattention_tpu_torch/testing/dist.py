@@ -11,7 +11,12 @@ share ``cuda:0`` over gloo.
 
 ``fn`` must be importable by reference (a module-level function) from a
 module that does not import JAX: the ranks import none of it, and
-``XLA_FLAGS`` is kept out of their environment. Any rank's failure, death
+``XLA_FLAGS`` is kept out of their environment. Neither do the ranks take
+the parent's ``MAGI_ATTENTION_*`` flags: a rank's environment is fixed when
+it starts, so a flag the parent happened to hold then would hold in every
+task the pool runs. A task that needs a flag sets it itself (and restores
+it, as the ranks outlive the task), and flags every task should see are
+passed as ``RankPool(..., env={name: value})``. Any rank's failure, death
 or timeout raises in the parent and ends every rank.
 """
 
@@ -57,7 +62,7 @@ class RankPool:
     in every rank and returns the results in rank order."""
 
     def __init__(self, world: int, *, backend: str = "gloo", timeout_s: float = 300.0,
-                 threads: int = 2):
+                 threads: int = 2, env: dict | None = None):
         self.world = int(world)
         self.timeout_s = float(timeout_s)
         ctx = mp.get_context("spawn")
@@ -65,7 +70,11 @@ class RankPool:
         init_method = "file://" + os.path.join(self._dir, "rendezvous")
         self._tasks = [ctx.Queue() for _ in range(self.world)]
         self._results = ctx.Queue()
-        xla = os.environ.pop("XLA_FLAGS", None)  # the ranks import no JAX
+        # the ranks import no JAX, and start with no MAGI_ATTENTION_* flag but
+        # those of ``env``: the parent's environment is put back after the spawn
+        held = {n: os.environ.pop(n) for n in list(os.environ)
+                if n == "XLA_FLAGS" or n.startswith("MAGI_ATTENTION_")}
+        os.environ.update(env or {})
         try:
             self._procs = [
                 ctx.Process(
@@ -79,8 +88,9 @@ class RankPool:
             for p in self._procs:
                 p.start()
         finally:
-            if xla is not None:
-                os.environ["XLA_FLAGS"] = xla
+            for n in env or {}:
+                os.environ.pop(n, None)
+            os.environ.update(held)
 
     def run(self, fn, *args, timeout_s: float | None = None) -> list:
         """``fn(group, *args)`` in every rank; the results in rank order.

@@ -1,11 +1,12 @@
 """The guard, chaos, validate and numerics flags in the port.
 
-The port honours ``MAGI_ATTENTION_GUARD`` and ``_CHAOS`` (``resilience/``):
-set to a value that does not fire there, ``check_flag_comb``,
-``ServingEngine``, ``TieredEngine`` and ``decode_attn_paged`` run and return
-what they return unset. It does not honour ``_VALIDATE`` or ``_NUMERICS``
-yet (ROADMAP A.18 and A.15): set to anything but ``off``, each makes those
-four entry points raise, naming the item that will honour it. A value
+The port honours ``MAGI_ATTENTION_GUARD`` and ``_CHAOS`` (``resilience/``)
+and ``_NUMERICS`` (the value census, ``telemetry/numerics.py``): set to a
+value that does not fire there (or, for the census, to ``census``),
+``check_flag_comb``, ``ServingEngine``, ``TieredEngine`` and
+``decode_attn_paged`` run and return what they return unset. It does not
+honour ``_VALIDATE`` yet (ROADMAP A.18): set to anything but ``off``, it
+makes those four entry points raise, naming the item that will honour it. A value
 outside a flag's domain raises the JAX package's ``ValueError``, word for
 word; guard, chaos and numerics are in ``flags_fingerprint`` and validate
 is not, as in the JAX package's ``env.py``."""
@@ -33,8 +34,8 @@ FLAGS = {  # variable -> (a value that is not off, the ROADMAP item that honours
     "MAGI_ATTENTION_VALIDATE": ("plan", "A.18"),
     "MAGI_ATTENTION_NUMERICS": ("census", "A.15"),
 }
-HONOURED = ("MAGI_ATTENTION_GUARD", "MAGI_ATTENTION_CHAOS")
-REFUSED = ("MAGI_ATTENTION_NUMERICS", "MAGI_ATTENTION_VALIDATE")
+HONOURED = ("MAGI_ATTENTION_GUARD", "MAGI_ATTENTION_CHAOS", "MAGI_ATTENTION_NUMERICS")
+REFUSED = ("MAGI_ATTENTION_VALIDATE",)
 BAD = {  # variable -> a value outside its domain
     "MAGI_ATTENTION_GUARD": "bogus",
     "MAGI_ATTENTION_CHAOS": "decode_fault:times=x",
@@ -103,9 +104,9 @@ def test_each_flag_is_refused_at_each_entry_point(name, entry, monkeypatch):
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 @pytest.mark.parametrize("name", HONOURED)
 def test_guard_and_chaos_are_honoured_at_each_entry_point(name, entry, monkeypatch):
-    """Guard ``check`` with nothing to catch and a chaos clause with no site
-    at these entry points: each runs and returns what it returns unset (the
-    decode's out and lse bit for bit)."""
+    """Guard ``check`` with nothing to catch, a chaos clause with no site
+    at these entry points and the census: each runs and returns what it
+    returns unset (the decode's out and lse bit for bit)."""
     want = _result(ENTRY_POINTS[entry]())
     monkeypatch.setenv(name, FLAGS[name][0])
     got = _result(ENTRY_POINTS[entry]())

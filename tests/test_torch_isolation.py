@@ -61,7 +61,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "resilience.guards", "telemetry.logger", "telemetry.registry",
                 "telemetry.events", "telemetry.collectors", "telemetry.compile",
                 "telemetry.trace", "telemetry.aggregate", "telemetry.exposition",
-                "telemetry.memory"):
+                "telemetry.memory", "telemetry.timeline", "telemetry.roofline",
+                "telemetry.occupancy", "utils.cost"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

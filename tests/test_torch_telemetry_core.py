@@ -310,8 +310,20 @@ def test_flags_read_with_jax_validation(var, value, accessor, monkeypatch):
 
 
 def test_numerics_census_is_still_refused(monkeypatch):
+    """The census is honoured now (``telemetry/numerics.py``): only
+    ``MAGI_ATTENTION_VALIDATE`` is still refused, and a numerics value
+    outside its domain raises the JAX package's message."""
     monkeypatch.setenv("MAGI_ATTENTION_NUMERICS", "census")
-    with pytest.raises(ValueError, match="A.15"):
+    penv.refuse_unhonoured_flags("here")
+    monkeypatch.setenv("MAGI_ATTENTION_VALIDATE", "plan")
+    with pytest.raises(ValueError, match="A.18"):
         penv.refuse_unhonoured_flags("here")
+    monkeypatch.delenv("MAGI_ATTENTION_VALIDATE")
+    monkeypatch.setenv("MAGI_ATTENTION_NUMERICS", "full")
+    with pytest.raises(ValueError) as got:
+        penv.refuse_unhonoured_flags("here")
+    with pytest.raises(ValueError) as want:
+        jenv.numerics_mode()
+    assert str(got.value) == str(want.value)
     monkeypatch.setenv("MAGI_ATTENTION_NUMERICS", "off")
     penv.refuse_unhonoured_flags("here")

@@ -4,6 +4,7 @@ port and torch only: the ranks import no JAX."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -896,3 +897,135 @@ def telemetry_aggregate(group, seed: int) -> dict:
     finally:
         telemetry.set_enabled(None)
         telemetry.reset()
+
+
+def census_cp(group, case: dict, inputs: dict) -> dict:
+    """The keyed forward (``case``: mask, total, chunk, degree) under
+    ``MAGI_ATTENTION_NUMERICS`` off, then census, then census with
+    ``case["chaos"]`` planted: the global out and lse of each run, and the
+    ``parallel`` layer's census values after the census runs (the host
+    census, and the ``magi_numerics_census`` gauges)."""
+    from magiattention_tpu_torch import api, telemetry
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.resilience import reset_chaos
+
+    telemetry.set_enabled(True)
+    res = {}
+    try:
+        for run, flags in (("off", {}), ("census", {"MAGI_ATTENTION_NUMERICS": "census"}),
+                           ("planted", {"MAGI_ATTENTION_NUMERICS": "census",
+                                        "MAGI_ATTENTION_CHAOS": case["chaos"]})):
+            telemetry.reset()
+            telemetry.reset_numerics_census()
+            os.environ.update(flags)
+            reset_chaos()
+            try:
+                q, k, v = (torch.from_numpy(inputs[n]) for n in ("q", "k", "v"))
+                key = api.magi_attn_flex_key(
+                    case["q_ranges"], case["k_ranges"], case["types"], case["total"],
+                    case["total"], group, num_heads=(q.shape[1], k.shape[1]),
+                    head_dim=q.shape[2], chunk_size=case["chunk"], out_dtype=torch.float32,
+                    device="cpu", dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(
+                        degree=case["degree"], min_stage_rows=case["min_stage_rows"])))
+                out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key),
+                                            api.dispatch(v, key), key)
+                gauges = {s: val for s, val in telemetry.snapshot()["gauges"].items()
+                          if s.startswith("magi_numerics_census")}
+                res[run] = {
+                    "out": api.undispatch(out_l, key).numpy(),
+                    "lse": api.undispatch(meta.lse, key).numpy(),
+                    "census": telemetry.get_numerics_census().numerics_snapshot()["census"],
+                    "gauges": gauges,
+                    "num_stages": len(api.get_runtime_mgr(key).plan.stages),
+                }
+            finally:
+                for name in flags:
+                    os.environ.pop(name)
+                reset_chaos()
+                api.clear_cache()
+        return res
+    finally:
+        telemetry.set_enabled(None)
+        telemetry.reset()
+        telemetry.reset_numerics_census()
+
+
+def timeline_cp(group, case: dict, clock: list, factors: tuple) -> dict:
+    """The keyed plan of ``case`` profiled twice: with a fake clock (each
+    timed piece takes the next value of ``clock``) and the cost
+    ``factors`` (calc, comm) given, and with the real clock and two reps;
+    returns both timelines as dicts, the plan's stage count and the
+    ``magi_overlap_*`` gauges of the real run."""
+    from magiattention_tpu_torch import api, telemetry
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.parallel.dist_attn import make_attn_params
+    from magiattention_tpu_torch.telemetry.timeline import profile_plan_timeline
+
+    os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = case["impl"]
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    try:
+        key = api.magi_attn_flex_key(
+            case["q_ranges"], case["k_ranges"], case["types"], case["total"], case["total"],
+            group, num_heads=case["heads"], head_dim=case["head_dim"], chunk_size=case["chunk"],
+            out_dtype=torch.float32, device="cpu",
+            dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(
+                degree=case["degree"], min_stage_rows=case["min_stage_rows"])))
+        plan = api.get_runtime_mgr(key).plan
+        ticks = iter(clock)
+        fake = profile_plan_timeline(
+            plan, make_attn_params(plan, case["head_dim"], out_dtype=torch.float32), group,
+            num_heads=case["heads"], head_dim=case["head_dim"], device="cpu",
+            calc_cost_factor=factors[0], comm_cost_factor=factors[1],
+            timer=lambda fn: next(ticks), record=False)
+        real = api.profile_attn_timeline(key, reps=2, inner=1)
+        try:  # operands made with no device named: the card, or a refusal
+            profile_plan_timeline(plan, make_attn_params(plan, case["head_dim"]), group,
+                                  num_heads=case["heads"], head_dim=case["head_dim"],
+                                  timer=lambda fn: 1.0, record=False)
+            no_device = "ran"
+        except RuntimeError as e:
+            no_device = str(e)
+        gauges = {s: v for s, v in telemetry.snapshot()["gauges"].items()
+                  if s.startswith("magi_overlap_")}
+        return {"fake": dataclasses.asdict(fake), "real": dataclasses.asdict(real),
+                "real_report": real.report(), "num_stages": len(plan.stages),
+                "no_device": no_device,
+                "degree": plan.overlap_degree, "gauges": gauges}
+    finally:
+        os.environ.pop("MAGI_ATTENTION_GROUP_COLL_IMPL", None)
+        telemetry.set_enabled(None)
+        telemetry.reset()
+        api.clear_cache()
+
+
+def plan_cache_stream(group, cus: list, chunk: int, runtime_size: int, flags: dict) -> dict:
+    """Varlen-causal key resolutions of the ``cus`` (cu_seqlens lists) in
+    order, with the runtime cache bounded at ``runtime_size`` and ``flags``
+    set: the counters, and the names of every series present."""
+    from magiattention_tpu_torch import api, telemetry
+    from magiattention_tpu_torch.api import interface
+
+    os.environ.update(flags)
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    api.clear_cache()
+    saved = interface._runtime_dict.maxsize
+    interface._runtime_dict.maxsize = runtime_size
+    try:
+        for cu in cus:
+            api.magi_attn_varlen_key(cu, cu[-1], group, num_heads=(4, 2), head_dim=32,
+                                     chunk_size=chunk, out_dtype=torch.float32, device="cpu")
+        snap = telemetry.snapshot()
+        names = {s.split("{")[0] for kind in ("counters", "gauges", "histograms")
+                 for s in snap[kind]}
+        return {"counters": snap["counters"], "names": sorted(names)}
+    finally:
+        interface._runtime_dict.maxsize = saved
+        for name in flags:
+            os.environ.pop(name)
+        telemetry.set_enabled(None)
+        telemetry.reset()
+        api.clear_cache()
