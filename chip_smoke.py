@@ -312,11 +312,28 @@ Phases, each printing one JSON line:
    bucket, incremental and eviction counters (telemetry on for the stream)
    against its tiers; every series of the plan, plan-cache, timeline,
    roofline and numerics catalogs recorded.
+23. tuning — the autotuner (``tuning/``): the four forward kernels timed at
+   every candidate of the cost model (head_block 1 / G / 2G on both grids)
+   on the serving prefill at 32 / 8 and 32 / 32, causal 8192 and the hetero
+   mask at 16 / 8, the hetero mask at 8 / 8 and a sliding window of 512 on
+   8192; the model's efficiency and slot fees fitted to them by
+   non-negative least squares, and the merge round's fee from the
+   decode_timing split sweeps, each printed with every sample's predicted /
+   measured ratio; the model's top pick against the candidate measured
+   fastest (reported where they differ); ``flex_flash_attn_func`` under
+   ``MAGI_ATTENTION_AUTOTUNE=measure`` with a temporary
+   ``MAGI_ATTENTION_AUTOTUNE_CACHE_DIR`` on the prefill and the hetero mask
+   at 16 / 8 and 8 / 8 (no failed candidate, the winner against the plain
+   version, back from disk with the same bits after the process cache is
+   dropped); the split tuners at one split on the serving batch, the 32K
+   sequence and every scheduler tick geometry, and the host µs of a
+   memoised split call and of a repeat kernel choice; the roofline's
+   unattributed share with the committed fees and with this run's fit.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode``, ``scheduler``, ``tiered``, ``resilience``, ``telemetry`` and
-``profiling`` among them; every path's launches must be in it), errors and times; the
+``cp_decode``, ``scheduler``, ``tiered``, ``resilience``, ``telemetry``,
+``profiling`` and ``tuning`` among them; every path's launches must be in it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -2091,7 +2108,7 @@ def decode_timing(engine, slots, gen, planted) -> dict:
     b = len(slots)
     idx = torch.as_tensor(slots, device="cuda")
     bt, seq_lens = cache.block_tables[idx], cache.seq_lens[idx]
-    splits = da.resolve_num_splits(None, cache, b)
+    splits = da.resolve_num_splits(None, cache, b, HQ)
     # the previous rule: enough splits for two thread blocks an SM
     prev_splits = da._clamp_splits(-(-2 * 132 // (b * HK)), bt.shape[1])
 
@@ -5072,6 +5089,8 @@ def scheduler_phase(gen) -> dict:
             "schedule_ticks": len(schedule), "on_auto_vs_off_out_max_abs_err": worst,
             "long_and_short_launch": sched_long_short(gen),
             "largest_fused_tick": big, "launches": total, "launches_by_mode": launches,
+            "tick_programs": sorted({p for m in SCHED_MODES for t in ticks[m]
+                                     for p in t["programs"] if p.startswith("tick[")}),
             "modes": {m: runs[m] for m in SCHED_MODES}}
 
 
@@ -6408,7 +6427,7 @@ def prof_census_decode(engine, slots, gen) -> dict:
             # census takes the lse as its max-logit proxy, as JAX's does)
             b = len(slots)
             params = da.DecodeParams(scale=1.0 / math.sqrt(D), softcap=0.0,
-                                     num_splits=da.resolve_num_splits(None, engine.cache, b),
+                                     num_splits=da.resolve_num_splits(None, engine.cache, b, HQ),
                                      out_dtype=q.dtype)
             cache = engine.cache
             out_p, lse_p = uncounted(lambda: da._decode_partials_kernel(
@@ -6726,6 +6745,363 @@ def profiling_phase(parts: dict, reuse_line: dict, times: dict, t0: float) -> di
             "seconds": time.perf_counter() - t0}
 
 
+# -- tuning: the autotuner on the card ---------------------------------------------
+
+TUNE_WINDOW = 512  # the narrow-band workload: a sliding window of 512 keys on 8192 tokens
+TUNE_REPS = 20  # timed forwards a candidate in the fit
+TUNE_SPLIT_CALLS = 1000  # repeat split-tuner calls timed on the host
+TUNE_CHOICE_CALLS = 200  # repeat kernel choices timed on the host
+TUNE_MEASURED = ("prefill_4096_32x8", "hetero_16x8", "hetero_8x8")  # run under measure
+
+
+def tune_shapes():
+    """(name, q_ranges, k_ranges, types, hq, hk) of the fit's workloads: the
+    serving prefill at 32 / 8 and 32 / 32, causal 8192 and the hetero mask
+    at the training widths, the hetero mask at 8 / 8, and a narrow band."""
+    from magiattention_tpu_torch.api.functools import infer_attn_mask_from_sliding_window
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    def causal(t):
+        return [(0, t)], [(0, t)], [1]
+
+    wq, wk, wt = infer_attn_mask_from_sliding_window(8192, TUNE_WINDOW)
+    window = (wq.to_naive_ranges(), wk.to_naive_ranges(), [int(x) for x in wt])
+    hetero = split_slices(varlen_block_causal(HETERO_T))
+    return (("prefill_4096_32x8", *causal(4096), HQ, HK),
+            ("prefill_4096_32x32", *causal(4096), HQ, HQ),
+            ("causal_8192_16x8", *causal(8192), TRAIN_HQ, TRAIN_HK),
+            ("hetero_16x8", *hetero, TRAIN_HQ, TRAIN_HK),
+            ("hetero_8x8", *hetero, 8, 8),
+            (f"window_{TUNE_WINDOW}_8192_16x8", *window, TRAIN_HQ, TRAIN_HK))
+
+
+def fwd_kernel_name(head_block: int, grid: str) -> str:
+    """The forward kernel a (head_block, grid) candidate launches."""
+    if grid == "sparse":
+        return "flex_fwd_sparse_hb" if head_block > 1 else "flex_fwd_sparse"
+    return "flex_fwd_hb" if head_block > 1 else "flex_fwd"
+
+
+def tune_samples(gen) -> list:
+    """Every candidate of the cost model on each fit workload, timed alone
+    (the forward kernel on head-major operands, CUDA events, the stream
+    held), with the counts the model prices it by. Not main-path launches."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.tuning import cost_model as cm
+
+    samples = []
+    for name, qr, kr, ty, hq, hk in tune_shapes():
+        t = max(e for _, e in qr)
+        p = Flex(gen, t, t, hq, hk, qr, kr, ty)
+        for c in cm.rank_candidates(qr, kr, ty, hq, hk, head_dim=D):
+            check(c.feasible, f"tuning {name}: candidate {c.kernel_config} is not feasible")
+            params = dataclasses.replace(p.params, head_block=c.head_block, grid=c.grid)
+            work = (fa.sparse_work(p.meta, "cuda:0", hq, hk, c.head_block)
+                    if c.grid == "sparse" else None)
+
+            def fwd(params=params, work=work):
+                with torch.no_grad():
+                    return fa.flex_attn_headmajor(p.q, p.k, p.v, p.tables, p.btables, params,
+                                                  work=work)
+
+            ms = uncounted(lambda: cuda_ms(fwd, reps=TUNE_REPS))
+            samples.append({
+                "shape": name, "kernel": fwd_kernel_name(c.head_block, c.grid),
+                "head_block": c.head_block, "grid": c.grid, "ms": ms, "entries": c.entries,
+                "mma_at_peak_s": 4.0 * D * hq * c.entries * c.block_q * c.block_k
+                / PEAK_BF16_FLOPS,
+                "live": c.live_slots, "dead": c.dead_slots})
+        del p
+        torch.cuda.empty_cache()
+    return samples
+
+
+def tune_fit(samples) -> dict:
+    """Efficiency and the three slot fees by non-negative least squares on
+    the relative residuals (each sample's time weighs as much as any
+    other's): t = mma_at_peak / eff + live * LIVE + dead * DEAD (row-major)
+    or live * SPARSE (sparse)."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    a = np.array([[s["mma_at_peak_s"],
+                   s["live"] if s["grid"] == "row_major" else 0.0,
+                   s["dead"] if s["grid"] == "row_major" else 0.0,
+                   s["live"] if s["grid"] == "sparse" else 0.0] for s in samples], dtype=np.float64)
+    t = np.array([s["ms"] * 1e-3 for s in samples])
+    aw = a / t[:, None]
+    scale = aw.max(axis=0)
+    scale[scale == 0] = 1.0
+    x, _ = nnls(aw / scale, np.ones_like(t))
+    x = x / scale
+    check(x[0] > 0, f"tuning fit: no tensor-core term ({x})")
+    pred = a @ x
+    for s, pr in zip(samples, pred):
+        s["predicted_ms"] = float(pr) * 1e3
+        s["predicted_over_measured"] = float(pr) * 1e3 / s["ms"]
+    ratios = [s["predicted_over_measured"] for s in samples]
+    return {"mma_efficiency": float(1.0 / x[0]), "live_slot_s": float(x[1]),
+            "dead_slot_s": float(x[2]), "sparse_slot_s": float(x[3]),
+            "ratio_min": min(ratios), "ratio_max": max(ratios),
+            "rms_relative_residual": float(np.sqrt(np.mean((np.array(ratios) - 1.0) ** 2)))}
+
+
+@contextlib.contextmanager
+def cost_constants(fit: dict):
+    """The cost model priced with ``fit``'s efficiency and fees."""
+    from magiattention_tpu_torch.tuning import cost_model as cm
+
+    names = {"MMA_EFFICIENCY": fit["mma_efficiency"], "LIVE_SLOT_S": fit["live_slot_s"],
+             "DEAD_SLOT_S": fit["dead_slot_s"], "SPARSE_SLOT_S": fit["sparse_slot_s"]}
+    saved = {n: getattr(cm, n) for n in names}
+    for n, v in names.items():
+        setattr(cm, n, v)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(cm, n, v)
+
+
+def tune_model_picks(samples, fit) -> list:
+    """Each workload's top pick under the model with this run's fit (and
+    with the committed constants) against the candidate measured fastest;
+    a disagreement is reported with both times."""
+    from magiattention_tpu_torch.tuning import cost_model as cm
+
+    out = []
+    for name, qr, kr, ty, hq, hk in tune_shapes():
+        mine = {(s["head_block"], s["grid"]): s for s in samples if s["shape"] == name}
+        fastest = min(mine.values(), key=lambda s: s["ms"])
+        with cost_constants(fit):
+            pick = cm.rank_candidates(qr, kr, ty, hq, hk, head_dim=D)[0]
+        committed = cm.rank_candidates(qr, kr, ty, hq, hk, head_dim=D)[0]
+        got = mine[pick.head_block, pick.grid]
+        line = {"shape": name, "model_pick": got["kernel"], "model_head_block": got["head_block"],
+                "model_pick_ms": got["ms"], "fastest": fastest["kernel"],
+                "fastest_head_block": fastest["head_block"], "fastest_ms": fastest["ms"],
+                "agree": got is fastest, "pick_over_fastest": got["ms"] / fastest["ms"],
+                "committed_pick": fwd_kernel_name(committed.head_block, committed.grid),
+                "committed_head_block": committed.head_block}
+        if not line["agree"]:
+            print(f"tuning model pick {name}: {got['kernel']} (head_block {got['head_block']}) "
+                  f"{got['ms']:.4f} ms, the fastest {fastest['kernel']} (head_block "
+                  f"{fastest['head_block']}) {fastest['ms']:.4f} ms", flush=True)
+        out.append(line)
+    return out
+
+
+def tune_merge_fee(dec_t) -> dict:
+    """The merge round's device ms from the decode_timing split sweeps: the
+    kernel with ``merge_partials`` less the kernel alone at each split count
+    s above one, less the same difference at one split (no merge), over the
+    s - 1 pairwise merges; the median over both sweeps."""
+    fees = []
+    for sweep in (dec_t["split_sweep"], dec_t["split_sweep_one_sequence"]["sweep"]):
+        base = sweep[1]["kernel_and_merge"]["ms"] - sweep[1]["kernel_ms"]
+        fees += [(r["kernel_and_merge"]["ms"] - r["kernel_ms"] - base) / (s - 1)
+                 for s, r in sweep.items() if s > 1]
+    fees.sort()
+    return {"merge_round_s": fees[len(fees) // 2] * 1e-3, "samples_ms": fees}
+
+
+def tune_splits_serving(engine, slots) -> dict:
+    """The split tuner on the serving batch and on the decode_timing
+    phase's 32K-token sequence (each must give one split), and the host
+    cost of a memoised repeat call: ``select_decode_splits`` and the
+    engine's ``resolve_num_splits`` path, TUNE_SPLIT_CALLS calls each."""
+    from magiattention_tpu_torch import tuning
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    cache, b = engine.cache, len(slots)
+    kw = dict(head_dim=D, dtype=cache.k_pages.dtype, device=cache.k_pages.device)
+    got = {}
+    for name, (batch, mpp) in {"serving_batch": (b, cache.max_pages_per_seq),
+                               "one_sequence_32k": (1, 256)}.items():
+        dec = tuning.select_decode_splits(batch, mpp, PAGE, HQ, HK, **kw)
+        check(dec.head_block == 1, f"tuning splits {name}: {dec.head_block} splits ({dec.reason})")
+        got[name] = {"batch": batch, "max_pages_per_seq": mpp, "splits": dec.head_block,
+                     "predicted_ms": dec.predicted_ms, "reason": dec.reason}
+    mpp = cache.max_pages_per_seq
+    t0 = time.perf_counter()
+    for _ in range(TUNE_SPLIT_CALLS):
+        tuning.select_decode_splits(b, mpp, PAGE, HQ, HK, **kw)
+    tuner_us = (time.perf_counter() - t0) * 1e6 / TUNE_SPLIT_CALLS
+    t0 = time.perf_counter()
+    for _ in range(TUNE_SPLIT_CALLS):
+        da.resolve_num_splits(None, cache, b, HQ)
+    resolve_us = (time.perf_counter() - t0) * 1e6 / TUNE_SPLIT_CALLS
+    return {"decode": got, "memoised_select_decode_splits_host_us": tuner_us,
+            "memoised_resolve_num_splits_host_us": resolve_us}
+
+
+def counter_total(snap, name: str, **labels) -> float:
+    """A counter's value summed over its series whose labels include
+    ``labels``."""
+    want = [f"{k}={v}" for k, v in labels.items()]
+    return sum(v for key, v in snap["counters"].items()
+               if key.split("{")[0] == name and all(w in key for w in want))
+
+
+def tune_measure(gen) -> tuple[list, dict]:
+    """``flex_flash_attn_func`` with its default arguments under
+    ``MAGI_ATTENTION_AUTOTUNE=measure`` on the serving prefill and the
+    hetero mask at 16 / 8 and 8 / 8, a fresh temp
+    ``MAGI_ATTENTION_AUTOTUNE_CACHE_DIR``: the measured winner against the
+    plain version (the kernels phase's tolerances), then the process cache
+    dropped and the call again, which must take the winner from disk and
+    give the same bits; no candidate may fail. Returns the lines and the
+    launches (the tuner's timed candidates included: they are the path's)."""
+    import tempfile
+
+    import torch
+    from magiattention_tpu_torch import telemetry, tuning
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    lines, launches = [], {}
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    try:
+        with magi_flags(AUTOTUNE="measure", AUTOTUNE_CACHE_DIR=cache_dir):
+            tuning.reset_tuning_cache()
+            for name, qr, kr, ty, hq, hk in tune_shapes():
+                if name not in TUNE_MEASURED:
+                    continue
+                t = max(e for _, e in qr)
+                p = Flex(gen, t, t, hq, hk, qr, kr, ty)
+                q, k, v = (x[:, :t].transpose(0, 1).contiguous() for x in (p.q, p.k, p.v))
+
+                def call():
+                    with torch.no_grad():
+                        return fa.flex_flash_attn_func(q, k, v, qr, kr, ty)
+
+                out, lse = counted(launches, call)
+                dec = tuning.select_block_config(qr, kr, ty, hq, hk, head_dim=D,
+                                                 dtype=str(q.dtype), device=q.device)
+                check(dec.source == "measured",
+                      f"tuning measure {name}: the winner is {dec.source} ({dec.reason})")
+                kernel = fwd_kernel_name(dec.head_block, dec.grid)
+                ref_out, ref_lse, _ = p.sparse_plain()
+                compare(kernel, f"tuning_measure_{name}", out.transpose(0, 1), ref_out[:, :t],
+                        lse.transpose(0, 1), ref_lse[:, :t])
+                tuning.reset_tuning_cache()
+                disk = counter_total(telemetry.snapshot(), "magi_autotune_cache_hits_total",
+                                     layer="disk")
+                out2, lse2 = counted(launches, call)
+                check(counter_total(telemetry.snapshot(), "magi_autotune_cache_hits_total",
+                                    layer="disk") == disk + 1,
+                      f"tuning measure {name}: the winner did not come back from disk")
+                check(torch.equal(out2, out) and torch.equal(lse2, lse),
+                      f"tuning measure {name}: the disk winner gave other bits")
+                lines.append({"shape": name, "heads": [hq, hk], "winner": kernel,
+                              "head_block": dec.head_block, "grid": dec.grid,
+                              "measured_ms": dec.measured_ms, "predicted_ms": dec.predicted_ms,
+                              "reason": dec.reason})
+                del p, q, k, v, out, lse, out2, lse2
+                torch.cuda.empty_cache()
+            snap = telemetry.snapshot()
+            failures = counter_total(snap, "magi_autotune_measure_failures_total")
+            check(failures == 0, f"tuning measure: {failures} candidates failed")
+            measured = counter_total(snap, "magi_autotune_measurements_total")
+            files = sorted(os.listdir(cache_dir))
+    finally:
+        telemetry.set_enabled(None)
+        tuning.reset_tuning_cache()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return lines, {"launches": launches, "measurements": measured, "failures": failures,
+                   "cache_files": len(files)}
+
+
+def tune_roofline(prof_line: dict, fit: dict) -> list:
+    """The profiling phase's three roofline workloads: the ``unattributed``
+    share with the committed fees (the profiling phase's own report) and
+    with this run's fit."""
+    from magiattention_tpu_torch.telemetry import roofline
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    masks = {"serving_prefill": ([(0, 4096)], [(0, 4096)], [1]),
+             "serving_prefill_hb1": ([(0, 4096)], [(0, 4096)], [1]),
+             "hetero_8x8": split_slices(varlen_block_causal(HETERO_T))}
+    fees = roofline.StepFees(fit["live_slot_s"], fit["dead_slot_s"],
+                             fit["sparse_slot_s"] - fit["live_slot_s"])
+    out = []
+    for line in prof_line["roofline"]:
+        qr, kr, ts = masks[line["workload"]]
+        bq, bk, hb = (int(x) for x in line["rung"].split("x"))
+        hq, hk = line["heads"]
+        rep = roofline.analyze_workload(
+            qr, kr, ts, num_heads_q=hq, num_heads_kv=hk, head_dim=D, block_q=bq, block_k=bk,
+            head_block=hb, grid=line["grid"], card=line["card"], fees=fees,
+            measured_ms=line["measured_ms"], workload=line["workload"])
+        out.append({"workload": line["workload"], "kernel": line["kernel"],
+                    "unattributed_committed_fees": line["gap_fractions"]["unattributed"],
+                    "unattributed_this_fit": rep.gap_fractions()["unattributed"],
+                    "gap_this_fit": rep.gap_fractions()})
+    return out
+
+
+def tuning_phase(gen, dec_t: dict, serving_splits: dict, sched_line: dict, prof_line: dict,
+                 t0: float) -> dict:
+    """The autotuner on the card: (a) the cost model's efficiency and slot
+    fees fitted on every candidate of six workloads and the merge round's
+    fee from the decode split sweeps, each sample's predicted / measured
+    ratio; (b) the model's top pick against the candidate measured fastest;
+    (c) measure mode end to end (no failure, the disk round trip, the plain
+    version); (d) the split tuners at one split on every decode geometry the
+    smoke ran (the serving batch, the 32K sequence, the scheduler's ticks)
+    and the memoised call's host cost, and a repeat kernel choice's; (e) the
+    roofline's unattributed share with the fees."""
+    from magiattention_tpu_torch import tuning
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    card = nvidia_smi_line()
+    samples = tune_samples(gen)
+    fit = tune_fit(samples)
+    fit.update(tune_merge_fee(dec_t))
+    print(f"tuning fit on {card}: mma_efficiency {fit['mma_efficiency']:.6f}, live_slot_s "
+          f"{fit['live_slot_s']:.6e}, dead_slot_s {fit['dead_slot_s']:.6e}, sparse_slot_s "
+          f"{fit['sparse_slot_s']:.6e}, merge_round_s {fit['merge_round_s']:.6e}", flush=True)
+    for s in samples:
+        print(f"tuning sample {s['shape']} {s['kernel']} head_block {s['head_block']}: "
+              f"{s['ms']:.4f} ms measured, {s['predicted_ms']:.4f} predicted, ratio "
+              f"{s['predicted_over_measured']:.4f}", flush=True)
+    picks = tune_model_picks(samples, fit)
+    measure_lines, measure = tune_measure(gen)
+    ticks = []
+    for label in sched_line["tick_programs"]:
+        rows, entries, splits = (int(x.split("=")[1]) for x in label[5:-1].split(","))
+        dec = tuning.select_tick_splits(rows, entries, PAGE, HQ, HK, head_dim=D,
+                                        dtype="bfloat16", device="cuda")
+        check(splits == 1 and dec.head_block == 1,
+              f"tuning splits: the scheduler's {label} (the tuner now: {dec.head_block})")
+        ticks.append(label)
+    check(dec_t["splits"] == 1, f"tuning splits: the serving batch ran {dec_t['splits']} splits")
+    choice_us = {}
+    for name, qr, kr, ty, hq, hk in tune_shapes():
+        if name in TUNE_MEASURED:  # a repeat kernel choice: the fingerprint memo, a memory hit
+            fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, head_dim=D, device="cuda")
+            t1 = time.perf_counter()
+            for _ in range(TUNE_CHOICE_CALLS):
+                fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, head_dim=D,
+                                      device="cuda")
+            choice_us[name] = (time.perf_counter() - t1) * 1e6 / TUNE_CHOICE_CALLS
+    roof = tune_roofline(prof_line, fit)
+    for r in roof:
+        print(f"tuning roofline {r['workload']} [{r['kernel']}] on {card}: unattributed "
+              f"{r['unattributed_committed_fees']:.4f} with the committed fees, "
+              f"{r['unattributed_this_fit']:.4f} with this fit", flush=True)
+    return {"phase": "tuning", "card": card, "fit": fit, "samples": samples,
+            "model_picks": picks, "model_pick_disagreements": sum(not p["agree"] for p in picks),
+            "measure": measure_lines, "measurements": measure["measurements"],
+            "measure_failures": measure["failures"], "cache_files": measure["cache_files"],
+            "splits": {**serving_splits, "scheduler_ticks": ticks},
+            "repeat_choice_host_us": choice_us,
+            "roofline": roof, "launches": measure["launches"],
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6797,6 +7173,9 @@ def main(argv=None) -> int:
     emit(summary)
     dec_t = decode_timing(engine, slots, gen, planted)
     emit({"phase": "decode_timing", **dec_t})
+    tune_t0 = time.perf_counter()
+    tune_serving = tune_splits_serving(engine, slots)  # the tuning phase's split part
+    tune_wall = time.perf_counter() - tune_t0
     tp_line = tiered_tp_decode(engine, slots, gen)  # the tiered phase's TP decode, on this pool
     res_t0 = time.perf_counter()
     res_parts = {"decode": resilience_decode(engine, slots, gen)}  # the resilience phase's first part
@@ -6887,6 +7266,9 @@ def main(argv=None) -> int:
     profiling_line = profiling_phase(prof_parts, cp_reuse_line, times,
                                      time.perf_counter() - prof_wall)
     emit(profiling_line)
+    tuning_line = tuning_phase(gen, dec_t, tune_serving, sched_line, profiling_line,
+                               time.perf_counter() - tune_wall)
+    emit(tuning_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
@@ -6900,7 +7282,8 @@ def main(argv=None) -> int:
                "cp_plan_reuse": cp_reuse_line["launches"],
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
-               "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"]}
+               "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
+               "tuning": tuning_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

@@ -157,9 +157,15 @@ def _default_chunk_size(total: int, cp_size: int) -> int:
 
 
 def flags_fingerprint() -> tuple:
-    """The flags that change a plan or a kernel call, folded into the key."""
+    """The flags that change a plan or a kernel call, folded into the key:
+    JAX's, with the card's name (``"cpu"`` without one) where JAX keys its
+    TPU generation."""
+    from ..tuning.fingerprint import device_identity
+
     return (
         env.kernel_backend(),
+        device_identity()[0],
+        env.autotune_mode(),
         env.block_q(),
         env.block_k(),
         env.head_block_override(),
@@ -555,17 +561,30 @@ def _resolve_overlap_config(oc: OverlapConfig | None) -> OverlapConfig:
     return oc
 
 
-def resolve_blocking(hq: int, hk: int, head_dim: int) -> tuple[int, int, int]:
-    """(block_q, block_k, head_block) of a keyed runtime: the kernels' tile
-    (``ops.flex_attn.resolve_tile``: the env's pin, else ``HOPPER_TILES``)
-    and head_block G on the row-major grid (``flex_fwd_hb`` at G > 1), or
-    ``MAGI_ATTENTION_HEAD_BLOCK`` snapped to the GQA geometry."""
-    from ..ops.flex_attn import _auto_head_block, resolve_tile
+def resolve_blocking(q_ranges, k_ranges, types, total_q: int, total_k: int, cp_size: int,
+                     hq: int, hk: int, head_dim: int, out_dtype, *, group=None,
+                     device=None, plan_mask=None) -> tuple[int, int, int]:
+    """(block_q, block_k, head_block) of a keyed runtime, the counterpart
+    of the JAX keyed API's ``_resolve_block_config`` + ``_blocking_from``:
+    the autotuner's row-major decision (``tuning.resolve_block_config``:
+    rank 0's over ``group``, memoised per group; ``measure`` takes the
+    model there; ``plan_mask`` gives the mask whose plan serves this one,
+    whose blocking it then takes), else, where the tuner steps aside
+    (``MAGI_ATTENTION_AUTOTUNE=off``, a ``MAGI_ATTENTION_BLOCK_Q/_K`` pin,
+    qo-comm, whose plane partition keeps the env's blocking as JAX's does),
+    the static rule (``ops.flex_attn._static_block_config``: the tile,
+    head_block G or ``MAGI_ATTENTION_HEAD_BLOCK`` snapped)."""
+    from ..ops.flex_attn import _static_block_config
+    from ..tuning import resolve_block_config
 
-    bq, bk = resolve_tile(head_dim, None, None)
-    group = max(hq // max(hk, 1), 1)
-    hb_env = env.head_block_override()
-    return bq, bk, group if hb_env is None else _auto_head_block(hb_env, hq, group)
+    tuned = None
+    if not env.is_qo_comm_enable():
+        tuned = resolve_block_config(q_ranges, k_ranges, types, total_q, total_k, cp_size, hq, hk,
+                                     head_dim, str(out_dtype), group=group, device=device,
+                                     plan_mask=plan_mask)
+    if tuned is not None:
+        return tuned
+    return _static_block_config(q_ranges, k_ranges, hq, hk, head_dim=head_dim)
 
 
 def key_dtype(key: DistAttnRuntimeKey) -> torch.dtype:
@@ -599,8 +618,8 @@ def _make_bucketed_mgr(key: DistAttnRuntimeKey, canonical_mgr: DistAttnRuntimeMg
         padded_position_ids(meta, maps.canon_to_real))
 
 
-def _try_plan_reuse(key: DistAttnRuntimeKey, t_lookup: float, *, cp_group, sink, out_dtype,
-                    dispatch_config, dist_attn_config, device) -> bool:
+def _try_plan_reuse(key: DistAttnRuntimeKey, t_lookup: float, canonical, *, cp_group, sink,
+                    out_dtype, dispatch_config, dist_attn_config, device) -> bool:
     """The fingerprint-bucketed second-level lookup, after an exact-key
     miss (exact hits never come here). Installs a bucketed runtime under
     ``key`` and returns True, either over a live canonical plan (a bucket
@@ -612,14 +631,15 @@ def _try_plan_reuse(key: DistAttnRuntimeKey, t_lookup: float, *, cp_group, sink,
     mask: no static table to adapt onto), and for a mask that
     canonicalises to itself or not at all; the caller then plans
     ``key`` itself. ``t_lookup``: when the exact-key lookup began (a
-    bucket hit's solver seconds run from it)."""
+    bucket hit's solver seconds run from it); ``canonical()``: the
+    request's canonical mask (``canonicalize_mask``), or None."""
     global _in_canonical_resolve
     if _in_canonical_resolve or env.plan_reuse_mode() != "bucket":
         return False
     if env.is_qo_comm_enable():
         return False
     real_total = key.total_seqlen_q - key.pad_size
-    canon = canonicalize_mask(key.q_ranges, key.k_ranges, key.attn_type_map, real_total)
+    canon = canonical()
     if canon is None:
         return False
     new_sig = (key.q_ranges, key.k_ranges, key.attn_type_map, real_total)
@@ -725,13 +745,35 @@ def magi_attn_flex_key(
     if has_sink and sink is None:
         raise ValueError("has_sink=True needs the sink tensor at key-creation time")
     sink_fp = hash(sink.detach().float().cpu().numpy().tobytes()) if sink is not None else 0
-    block_config = resolve_blocking(hq, hkv, head_dim)
+    q_naive, k_naive = q_ranges.to_naive_ranges(), k_ranges.to_naive_ranges()
+    canon_box = []
+
+    def canonical():  # the plan-reuse tier's canonical mask, made at most once
+        if not canon_box:
+            canon_box.append(canonicalize_mask(q_naive, k_naive, types, total_seqlen_q))
+        return canon_box[0]
+
+    def plan_mask():  # the mask whose plan a bucketed request runs, padded as its key pads it
+        canon = canonical()
+        if canon is None:
+            return None
+        cpad = compute_pad_size(canon.total_seqlen,
+                                1 if dispatch_config.uneven_shard else cp_size, chunk_size)
+        return (canon.q_ranges, canon.k_ranges, canon.attn_type_map, canon.total_seqlen + cpad,
+                canon.total_seqlen + cpad)
+
+    reuse = (not _in_canonical_resolve and env.plan_reuse_mode() == "bucket"
+             and not env.is_qo_comm_enable())
+    block_config = resolve_blocking(q_naive, k_naive, types, total_seqlen_q + pad,
+                                    total_seqlen_k + pad, cp_size, hq, hkv, head_dim, out_dtype,
+                                    group=flat, device=device,
+                                    plan_mask=plan_mask if reuse else None)
     if chunk_size % block_config[0]:
         raise ValueError(f"chunk_size {chunk_size} must be a multiple of the kernels' "
                          f"block_q {block_config[0]}")
     key = DistAttnRuntimeKey(
-        q_ranges=tuple(q_ranges.to_naive_ranges()),
-        k_ranges=tuple(k_ranges.to_naive_ranges()),
+        q_ranges=tuple(q_naive),
+        k_ranges=tuple(k_naive),
         attn_type_map=types,
         total_seqlen_q=total_seqlen_q + pad,
         total_seqlen_k=total_seqlen_k + pad,
@@ -761,9 +803,9 @@ def magi_attn_flex_key(
             telemetry.record_plan_solver(time.perf_counter() - t_lookup, cache_hit=True)
         _most_recent_key = key
         return key
-    if not _try_plan_reuse(key, t_lookup, cp_group=cp_group, sink=sink, out_dtype=out_dtype,
-                           dispatch_config=dispatch_config, dist_attn_config=dist_attn_config,
-                           device=device):
+    if not _try_plan_reuse(key, t_lookup, canonical, cp_group=cp_group, sink=sink,
+                           out_dtype=out_dtype, dispatch_config=dispatch_config,
+                           dist_attn_config=dist_attn_config, device=device):
         if not _in_canonical_resolve:
             telemetry.record_cache_access(hit=False)
         mq, _, bucket = make_dispatch_meta_from_qk_ranges(
@@ -864,7 +906,9 @@ def magi_attn_cross_key(
         chunk_size_k = _default_chunk_size(total_seqlen_k, cp_size)
     pad_q = compute_pad_size(total_seqlen_q, cp_size, chunk_size_q)
     pad_k = compute_pad_size(total_seqlen_k, cp_size, chunk_size_k)
-    block_config = resolve_blocking(hq, hkv, head_dim)
+    block_config = resolve_blocking(q_ranges.to_naive_ranges(), k_ranges.to_naive_ranges(), types,
+                                    total_seqlen_q + pad_q, total_seqlen_k + pad_k, cp_size, hq,
+                                    hkv, head_dim, out_dtype, group=cp_group, device=device)
     if chunk_size_q % block_config[0]:
         raise ValueError(f"chunk_size_q {chunk_size_q} must be a multiple of the kernels' "
                          f"block_q {block_config[0]}")
@@ -964,11 +1008,18 @@ def make_flex_key_for_new_mask_after_dispatch(
             "cross-attention key's memory has a dispatch of its own — create a fresh key "
             "with magi_attn_cross_key")
     q_ranges, k_ranges, types = _coerce_mask(q_ranges, k_ranges, attn_type_map, merge=False)
+    # tuned for the new mask on the inherited dispatch geometry, as JAX's
+    block_config = resolve_blocking(
+        q_ranges.to_naive_ranges(), k_ranges.to_naive_ranges(), types, old_key.total_seqlen_q,
+        old_key.total_seqlen_k, old_key.cp_size, old_key.num_heads_q, old_key.num_heads_kv,
+        old_key.head_dim, old_key.out_dtype, group=split_cp_group(old_mgr.cp_group)[0],
+        device=old_key.device)
     new_key = dataclasses.replace(
         old_key,
         q_ranges=tuple(q_ranges.to_naive_ranges()),
         k_ranges=tuple(k_ranges.to_naive_ranges()),
         attn_type_map=types,
+        block_config=block_config,
         dispatch_of=old_key.dispatch_of or (old_key.q_ranges, old_key.k_ranges,
                                             old_key.attn_type_map),
     )

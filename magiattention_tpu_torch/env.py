@@ -9,18 +9,43 @@ from __future__ import annotations
 
 import os
 
+# flags are read through the encoded mapping ``os.environ`` keeps and writes:
+# ``os.environ.get`` raises and catches a KeyError for each unset name, a
+# microsecond or two apiece, and a keyed call or a flex call reads dozens
+_ENV_DATA = os.environ._data
+_ENCODED: dict = {}
+
+
+def _encoded(name: str):
+    key = _ENCODED.get(name)
+    if key is None:
+        key = _ENCODED[name] = os.environ.encodekey(name)
+    return key
+
+
+def _get(name: str, default=None):
+    """``os.environ.get(name, default)``."""
+    v = _ENV_DATA.get(_encoded(name))
+    return default if v is None else os.environ.decodevalue(v)
+
+
+def raw_flags(names) -> tuple:
+    """The encoded values of ``names`` (None where unset), as a memo key
+    reads them."""
+    return tuple(_ENV_DATA.get(_encoded(n)) for n in names)
+
 
 def _env_int(name: str, default: int) -> int:
-    v = os.environ.get(name)
+    v = _get(name)
     return int(v) if v is not None else default
 
 
 def _env_str(name: str, default: str) -> str:
-    return os.environ.get(name, default)
+    return _get(name, default)
 
 
 def _env_float(name: str, default: float) -> float:
-    v = os.environ.get(name)
+    v = _get(name)
     return float(v) if v is not None else default
 
 
@@ -130,19 +155,19 @@ def mask_skip_disabled() -> bool:
     to 1 on every entry in ``ops/block_meta.py``. The kernels mask every
     tile unconditionally, so this affects plan diagnostics only. Any
     non-empty value sets it."""
-    return bool(os.environ.get("MAGI_DISABLE_MASK_SKIP"))
+    return bool(_get("MAGI_DISABLE_MASK_SKIP"))
 
 
 def block_q() -> int | None:
     """Explicitly-set flex tile height, or None when unset: the flex
     forward then takes its Hopper tile table (``ops/flex_attn.py``)."""
-    v = os.environ.get("MAGI_ATTENTION_BLOCK_Q")
+    v = _get("MAGI_ATTENTION_BLOCK_Q")
     return int(v) if v else None
 
 
 def block_k() -> int | None:
     """Explicitly-set flex tile width, or None (the Hopper tile table)."""
-    v = os.environ.get("MAGI_ATTENTION_BLOCK_K")
+    v = _get("MAGI_ATTENTION_BLOCK_K")
     return int(v) if v else None
 
 
@@ -172,7 +197,7 @@ def prefill_chunk() -> int | None:
 def decode_splits() -> int | None:
     """Split-KV decode split count (``serving/decode_attn.py``): an integer
     pins the number of KV splits per sequence; 'auto' (default) resolves
-    through ``resolve_num_splits``'s Hopper rule."""
+    through the split tuner (``tuning.select_decode_splits``)."""
     v = _env_str("MAGI_ATTENTION_DECODE_SPLITS", "auto").strip().lower()
     return None if v in ("", "auto") else int(v)
 
@@ -195,7 +220,7 @@ def grid_override() -> str | None:
 def head_block_override() -> int | None:
     """Explicitly-set head_block (q heads per kernel work item), or None
     when the flag is unset."""
-    v = os.environ.get("MAGI_ATTENTION_HEAD_BLOCK")
+    v = _get("MAGI_ATTENTION_HEAD_BLOCK")
     return int(v) if v else None
 
 
@@ -203,18 +228,27 @@ AUTOTUNE_MODES = ("off", "model", "measure")
 
 
 def autotune_mode() -> str:
-    """Kernel blocking mode of the model harness
-    (``models/_common.resolve_harness_blocking``), validated here: 'off' =
-    the legacy harness blocking (the env's tile, head_block 1 unless
-    ``MAGI_ATTENTION_HEAD_BLOCK`` is set); 'model' (default) and 'measure'
-    both take the port's Hopper rule (``ops.auto_kernel_config`` on the
-    row-major grid). The reference's modes rank its rungs with a TPU cost
-    model or TPU timings; neither carries over to Hopper, so the port reads
-    only 'off'."""
+    """Kernel choice mode (``tuning/autotuner.py``), validated here, as in
+    the JAX package: 'off' = the static rule (``ops.flex_attn.
+    _static_block_config``: the Hopper tile, head_block G, the row-major
+    grid; the model harness's legacy blocking); 'model' (default) = the
+    cost model's ranking of the candidates (``tuning/cost_model.py``, its
+    fees fitted on the H100), cached by workload fingerprint; 'measure' =
+    the model's top candidates timed on the caller's own operands on the
+    card, the winner cached in memory and on disk
+    (:func:`autotune_cache_dir`). A caller that cannot time (the keyed cp
+    API, a pinned head_block) takes 'model' there."""
     v = _env_str("MAGI_ATTENTION_AUTOTUNE", "model").strip().lower()
     if v not in AUTOTUNE_MODES:
         raise ValueError(f"MAGI_ATTENTION_AUTOTUNE={v!r} must be one of {AUTOTUNE_MODES}")
     return v
+
+
+def autotune_cache_dir() -> str:
+    """Disk directory backing the tuning cache ('' = the process's memory
+    only): one JSON file per workload fingerprint
+    (``tuning/cache.py``)."""
+    return _env_str("MAGI_ATTENTION_AUTOTUNE_CACHE_DIR", "")
 
 
 CASCADE_MODES = ("auto", "on", "off")
@@ -325,7 +359,7 @@ def tier_token_budget(tier: str) -> int:
 
 
 def _env_bool(name: str, default: bool = False) -> bool:
-    v = os.environ.get(name)
+    v = _get(name)
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
@@ -506,7 +540,7 @@ def is_cpp_backend_enabled() -> bool:
     the same bytes. On, a build or load failure raises. Not in
     ``flags_fingerprint``: it changes how a plan is built, not what it
     holds."""
-    v = os.environ.get("MAGI_ATTENTION_CPP_BACKEND")
+    v = _get("MAGI_ATTENTION_CPP_BACKEND")
     if v is None:
         return True
     return v.strip().lower() not in ("0", "false", "off", "no")
@@ -598,7 +632,7 @@ def peak_tflops_override() -> float | None:
     placeholder on the CPU). Set it for a card the table does not know, or
     to hold a kernel against a measured ceiling instead of the datasheet.
     Observability only: not in ``flags_fingerprint``."""
-    v = os.environ.get("MAGI_ATTENTION_PEAK_TFLOPS")
+    v = _get("MAGI_ATTENTION_PEAK_TFLOPS")
     if v is None or not v.strip():
         return None
     f = float(v)

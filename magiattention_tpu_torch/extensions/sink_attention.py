@@ -63,7 +63,8 @@ def flash_attention_with_sink(
     kernel_sink = None
     if sink_layout == "sh" and (sink.ndim == 1 or sink.shape[0] == 1):
         kernel_sink = sink.reshape(hq)
-    bq, bk, hb, grid = auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=d)
+    bq, bk, hb, grid = auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=d,
+                                          dtype=str(q.dtype), device=q.device)
     pqr = [(s + i * t, e + i * t) for i in range(b) for s, e in qr]
     pkr = [(s + i * t, e + i * t) for i in range(b) for s, e in kr]
     out, lse = flex_flash_attn_func(

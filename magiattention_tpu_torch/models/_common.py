@@ -62,43 +62,39 @@ def sum_grads_over_group(model, group) -> None:
 
 
 def resolve_harness_blocking(cfg, q_naive, k_naive, attn_type_map, total_seqlen, cp_size: int,
-                             block_q: int | None, block_k: int | None) -> tuple[int, int, int]:
+                             block_q: int | None, block_k: int | None, *, group=None,
+                             device=None) -> tuple[int, int, int]:
     """(block_q, block_k, head_block) for a model-harness plan: the tp=1
     counterpart of the JAX ``models/_common.resolve_harness_blocking``,
     one policy for every model builder at any cp size.
 
-    - The caller's ``block_q``/``block_k``, or a ``MAGI_ATTENTION_BLOCK_Q/_K``
-      pin, or ``MAGI_ATTENTION_AUTOTUNE=off``: the legacy harness blocking
-      (the caller's tile, else the env's, else ``HOPPER_TILES``; head_block
-      1, or ``MAGI_ATTENTION_HEAD_BLOCK`` snapped by ``_auto_head_block``),
-      where the reference's tuner steps aside too.
-    - Else ``ops.auto_kernel_config`` restricted to the row-major grid, as
-      the reference's harness restricts its tuner (the distributed kernels
-      run that grid): head_block G, each K/V tile read once per head pair.
-
-    ``total_seqlen`` and ``cp_size`` are taken for the reference's
-    signature: its tuner sizes tiles to a rank's shard, while the Hopper
-    kernels have one tile, which divides every shard (a chunk is a multiple
-    of the tile), so they change nothing here."""
-    from .. import env
-    from ..ops.flex_attn import _auto_head_block, auto_kernel_config, resolve_tile
+    - The caller's ``block_q``/``block_k``: the legacy harness blocking.
+    - Else the autotuner's row-major decision (``tuning.
+      resolve_block_config``: the cp kernels run that grid; tiles no wider
+      than a rank's shard of ``total_seqlen``; rank 0's decision broadcast
+      over ``group``), head_block G on the fitted model.
+    - Where the tuner steps aside (a ``MAGI_ATTENTION_BLOCK_Q/_K`` pin,
+      ``MAGI_ATTENTION_AUTOTUNE=off``): the legacy harness blocking, the
+      caller's tile, else the env's, else ``HOPPER_TILES``; head_block 1,
+      or ``MAGI_ATTENTION_HEAD_BLOCK`` snapped (``pin_head_block``)."""
+    from ..ops.flex_attn import pin_head_block, resolve_tile
 
     hq, hk = cfg.n_heads, cfg.n_kv_heads
-    pinned = env.block_q() is not None or env.block_k() is not None
-    if block_q is None and block_k is None and not pinned and env.autotune_mode() != "off":
-        bq, bk, hb, _ = auto_kernel_config(
-            q_naive, k_naive, hq, hk, attn_type_map=attn_type_map, head_dim=cfg.head_dim,
-            dtype=str(cfg.dtype), grid="row_major",
-        )
-        return bq, bk, hb
-    hb_env = env.head_block_override()
-    hb = 1 if hb_env is None else _auto_head_block(hb_env, hq, max(hq // max(hk, 1), 1))
-    return (*resolve_tile(cfg.head_dim, block_q, block_k), hb)
+    if block_q is None and block_k is None:
+        from ..tuning import resolve_block_config
+
+        tuned = resolve_block_config(q_naive, k_naive, tuple(int(t) for t in attn_type_map),
+                                     total_seqlen, total_seqlen, cp_size, hq, hk, cfg.head_dim,
+                                     str(cfg.dtype), group=group, device=device)
+        if tuned is not None:
+            return tuned
+    return (*resolve_tile(cfg.head_dim, block_q, block_k), pin_head_block(1, hq, hk))
 
 
 def plan_flex_attn(cfg, total_seqlen, q_ranges, k_ranges, attn_type_map, *, chunk_size: int,
                    cp_size: int, block_q: int | None = None, block_k: int | None = None,
-                   overlap_config=None, cp_mesh_shape: tuple[int, int] | None = None):
+                   overlap_config=None, cp_mesh_shape: tuple[int, int] | None = None,
+                   group=None, device=None):
     """Shared builder tail of the context-parallel model bundles: the
     dispatch meta and the cp plan for one self-attention mask, and the
     kernels' parameters at the harness's blocking. Returns (plan,
@@ -106,7 +102,9 @@ def plan_flex_attn(cfg, total_seqlen, q_ranges, k_ranges, attn_type_map, *, chun
     ``overlap_config`` forces the overlap degree (default: degree 0, one
     merged cast and one kernel call per layer). ``cp_mesh_shape`` (n_inter,
     n_intra) plans hierarchical two-level comm over that layout of the
-    ranks (the JAX ``cp_axis`` pair)."""
+    ranks (the JAX ``cp_axis`` pair). ``group`` and ``device``: the flat cp
+    group whose rank 0 decides the tuned blocking, and the card it is tuned
+    for (``resolve_harness_blocking``)."""
     from ..common.enum import AttnMaskType
     from ..common.ranges import AttnRanges
     from ..meta.dispatch_meta import make_dispatch_meta_from_qk_ranges
@@ -120,7 +118,8 @@ def plan_flex_attn(cfg, total_seqlen, q_ranges, k_ranges, attn_type_map, *, chun
         chunk_size=chunk_size, cp_size=cp_size,
     )
     bq, bk, hb = resolve_harness_blocking(cfg, qr.to_naive_ranges(), kr.to_naive_ranges(), types,
-                                          total_seqlen, cp_size, block_q, block_k)
+                                          total_seqlen, cp_size, block_q, block_k, group=group,
+                                          device=device)
     plan = build_dist_attn_plan(mq, bucket, block_q=bq, block_k=bk,
                                 overlap_config=overlap_config, cp_mesh_shape=cp_mesh_shape)
     attn_params = make_attn_params(plan, cfg.head_dim, out_dtype=cfg.torch_dtype, head_block=hb)

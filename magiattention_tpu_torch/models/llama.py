@@ -312,14 +312,14 @@ def build_magi_llama(
         plan, attn_params, mq = plan_flex_attn(
             cfg, total_seqlen, qn, kn, types, chunk_size=chunk_size,
             cp_size=cp_axis_size(cp_group), block_q=block_q, block_k=block_k,
-            overlap_config=overlap_config, cp_mesh_shape=shape,
+            overlap_config=overlap_config, cp_mesh_shape=shape, group=flat, device=device,
         )
         meta, hb = None, attn_params.head_block
         cp = dict(plan=plan, attn_params=attn_params, dispatch_meta=mq, group=flat,
                   cp_group=cp_group)
     else:
         bq, bk, hb = resolve_harness_blocking(cfg, qn, kn, types, total_seqlen, 1, block_q,
-                                              block_k)
+                                              block_k, device=device)
         meta = build_block_meta(qn, kn, types, total_seqlen, total_seqlen, block_q=bq,
                                 block_k=bk)
     if params is None:

@@ -24,7 +24,8 @@ it. Two grids, as in the JAX package:
 
 :class:`_FlexAttnCore` is the ``torch.autograd.Function`` around them, the
 counterpart of the JAX ``_flex_attn_core`` custom vjp, and
-:func:`auto_kernel_config` picks the grid as the JAX package does.
+:func:`auto_kernel_config` picks the kernel through the autotuner
+(``tuning/``) as the JAX package does.
 
 Where it runs follows its tensors: CUDA tensors launch the kernels (or
 raise) unless ``MAGI_ATTENTION_KERNEL_BACKEND`` asks for the plain
@@ -980,6 +981,47 @@ def _auto_head_block(pref: int, hq: int, group: int) -> int:
     return best
 
 
+def pin_head_block(head_block: int, hq: int, hk: int) -> int:
+    """``head_block``, or ``MAGI_ATTENTION_HEAD_BLOCK`` snapped to the GQA
+    geometry by :func:`_auto_head_block` where that is set: the pin every
+    decision (the static rule's, the tuner's, the keyed API's, the model
+    harness's) passes through."""
+    from .. import env
+
+    hb_env = env.head_block_override()
+    if hb_env is None:
+        return head_block
+    return _auto_head_block(hb_env, hq, max(hq // max(hk, 1), 1))
+
+
+def _static_block_config(q_ranges, k_ranges, hq: int, hk: int, *,
+                         fixed_block_q: int | None = None, fixed_block_k: int | None = None,
+                         head_dim: int = 128) -> tuple[int, int, int]:
+    """The static rule (``MAGI_ATTENTION_AUTOTUNE=off`` and a caller-fixed
+    tile), the counterpart of the JAX ``_static_block_config``: the tile of
+    :func:`resolve_tile` (the caller's, the env's, or ``HOPPER_TILES``)
+    and head_block G, or ``MAGI_ATTENTION_HEAD_BLOCK`` snapped
+    (:func:`pin_head_block`). Its grid is the row-major one. The reference's
+    table of TPU rungs does not carry over: the Hopper kernels have one
+    tile, and a block walks its further heads in turn (head_block 2G
+    measured no faster than G on the serving prefill, PERF.md §6); the
+    ranges are taken for the reference's signature."""
+    block_q, block_k = resolve_tile(head_dim, fixed_block_q, fixed_block_k)
+    return block_q, block_k, pin_head_block(max(hq // max(hk, 1), 1), hq, hk)
+
+
+def _tuned(decision, q_ranges, k_ranges, hq: int, hk: int, head_dim: int):
+    """A tuner decision with the env's pins applied: the tile of
+    ``MAGI_ATTENTION_BLOCK_Q/_K`` (the plain versions take any) and
+    ``MAGI_ATTENTION_HEAD_BLOCK`` snapped; the static rule if the tuner had
+    no candidate."""
+    if decision is None:
+        return (*_static_block_config(q_ranges, k_ranges, hq, hk, head_dim=head_dim),
+                "row_major")
+    block_q, block_k = resolve_tile(head_dim, None, None)
+    return block_q, block_k, pin_head_block(decision.head_block, hq, hk), decision.grid
+
+
 def auto_kernel_config(
     q_ranges,
     k_ranges,
@@ -991,52 +1033,105 @@ def auto_kernel_config(
     attn_type_map=None,
     head_dim: int = 128,
     dtype: str = "bfloat16",
+    measure_fn=None,
     grid: str | None = None,
+    device=None,
 ) -> tuple[int, int, int, str]:
-    """(block_q, block_k, head_block, grid) for a mask, the counterpart of
-    the JAX ``auto_kernel_config`` sized for Hopper.
+    """(block_q, block_k, head_block, grid) for a mask on ``device`` (the
+    tuning fingerprint's card; default: the card, else the CPU), the
+    counterpart of the JAX ``auto_kernel_config``.
 
-    The tile comes from :func:`resolve_tile` (the caller's, the env's, or
-    ``HOPPER_TILES``). ``grid``: the caller's pin, else
-    ``MAGI_ATTENTION_GRID``; else, with a caller-fixed ``block_q`` or
-    ``block_k`` or under ``MAGI_ATTENTION_AUTOTUNE=off``, ``"row_major"``
-    (the reference returns its static table on the row-major grid there);
-    else ``"sparse"`` when the mask covers less
-    than ``SPARSE_DENSITY_THRESHOLD`` of its dense extent (the reference's
-    heterogeneous regime, where its cost model takes the sparse grid),
-    else ``"row_major"``. ``head_block``: ``MAGI_ATTENTION_HEAD_BLOCK``
-    snapped by :func:`_auto_head_block`, else the GQA group G on either
-    grid: one work item per kv head covers its G q heads, so each K/V tile
-    is read once per pair of them (``flex_fwd_hb`` or
-    ``flex_fwd_sparse_hb``; at G = 1 that is head_block 1, ``flex_fwd``).
-    The reference's choice on a causal or near-full mask is ``(128, 512,
-    8)``, the first rung of its ``_AUTO_BLOCK_CONFIGS``: a tile sized to
-    the v5e's VMEM, where 8 heads a grid step amortise the TPU's per-step
-    cost. Neither carries over to Hopper, where a block holds at most two
-    heads' rows at d = 128 and walks an item's further heads in turn
-    (head_block 2G measured no faster than G on the serving prefill,
-    PERF.md §6); so the head-batched forward runs where the reference runs
-    it, at G heads an item. The TPU cost model's rung tables do not carry
-    over; ``dtype`` is accepted for the reference's signature and not
-    read."""
+    By default the autotuner decides (``tuning.select_block_config``):
+    the cost model ranks the tile, grid and head_block candidates the build
+    can launch, or, under ``MAGI_ATTENTION_AUTOTUNE=measure`` with a
+    ``measure_fn``, its top candidates are timed; the winner is cached by
+    workload fingerprint. Inside the model's error bar the preference order
+    decides: head_block G, the row-major grid on a dense mask and the
+    sparse grid below ``SPARSE_DENSITY_THRESHOLD``.
+    ``MAGI_ATTENTION_AUTOTUNE=off`` or a caller-fixed ``block_q`` /
+    ``block_k`` take the static rule (:func:`_static_block_config`) on the
+    row-major grid. ``grid`` (the caller's pin, else ``MAGI_ATTENTION_GRID``)
+    pins the grid; a row-major pin also restricts the ranking to that grid
+    (:func:`auto_block_config`). ``MAGI_ATTENTION_BLOCK_Q/_K`` and
+    ``MAGI_ATTENTION_HEAD_BLOCK`` pin the tile and head_block of any
+    decision."""
     from .. import env
-    from ..tuning import SPARSE_DENSITY_THRESHOLD, mask_density
 
-    block_q, block_k = resolve_tile(head_dim, fixed_block_q, fixed_block_k)
-    group = max(hq // max(hk, 1), 1)
-    if grid is None:
-        grid = env.grid_override()
-    if grid is None:
-        static = (fixed_block_q is not None or fixed_block_k is not None
-                  or env.autotune_mode() == "off")
-        dense = static or (
-            mask_density(q_ranges, k_ranges, attn_type_map) >= SPARSE_DENSITY_THRESHOLD)
-        grid = "row_major" if dense else "sparse"
-    if grid not in GRID_KINDS:
-        raise ValueError(f"grid={grid!r} must be one of {GRID_KINDS}")
-    hb_env = env.head_block_override()
-    head_block = group if hb_env is None else _auto_head_block(hb_env, hq, group)
-    return block_q, block_k, head_block, grid
+    grid_pin = grid if grid is not None else env.grid_override()
+    if grid_pin is not None and grid_pin not in GRID_KINDS:
+        raise ValueError(f"grid={grid_pin!r} must be one of {GRID_KINDS}")
+    if (grid_pin == "row_major" or fixed_block_q is not None or fixed_block_k is not None
+            or env.autotune_mode() == "off"):
+        # the static rule, or the row-major grid's own ranking
+        return (*auto_block_config(q_ranges, k_ranges, hq, hk, fixed_block_q=fixed_block_q,
+                                   fixed_block_k=fixed_block_k, attn_type_map=attn_type_map,
+                                   head_dim=head_dim, dtype=dtype, measure_fn=measure_fn,
+                                   device=device), grid_pin or "row_major")
+    from ..tuning import select_block_config
+
+    decision = select_block_config(q_ranges, k_ranges, attn_type_map, hq, hk, head_dim=head_dim,
+                                   dtype=dtype, measure_fn=measure_fn, device=device)
+    block_q, block_k, head_block, chosen = _tuned(decision, q_ranges, k_ranges, hq, hk, head_dim)
+    return block_q, block_k, head_block, grid_pin or chosen
+
+
+def auto_block_config(
+    q_ranges,
+    k_ranges,
+    hq: int,
+    hk: int,
+    *,
+    fixed_block_q: int | None = None,
+    fixed_block_k: int | None = None,
+    attn_type_map=None,
+    head_dim: int = 128,
+    dtype: str = "bfloat16",
+    measure_fn=None,
+    device=None,
+) -> tuple[int, int, int]:
+    """(block_q, block_k, head_block) for a caller that runs the row-major
+    grid whatever the mask (the JAX ``auto_block_config``): the ranking is
+    the row-major grid's, under a fingerprint of its own, so it never
+    shares a cache entry with :func:`auto_kernel_config`'s full ranking."""
+    from .. import env
+
+    if fixed_block_q is not None or fixed_block_k is not None or env.autotune_mode() == "off":
+        return _static_block_config(q_ranges, k_ranges, hq, hk, fixed_block_q=fixed_block_q,
+                                    fixed_block_k=fixed_block_k, head_dim=head_dim)
+    from ..tuning import select_block_config
+
+    decision = select_block_config(q_ranges, k_ranges, attn_type_map, hq, hk, head_dim=head_dim,
+                                   dtype=dtype, measure_fn=measure_fn, include_sparse=False,
+                                   device=device)
+    return _tuned(decision, q_ranges, k_ranges, hq, hk, head_dim)[:3]
+
+
+def _make_measure_fn(q, k, v, q_arr, k_arr, t_arr, *, scale, softcap, sink, out_dtype,
+                     warmup: int = 1, reps: int = 3):
+    """The timer of ``MAGI_ATTENTION_AUTOTUNE=measure``: the forward at one
+    candidate on the caller's own operands, without autograd, its median ms
+    over ``reps`` after ``warmup`` calls (``telemetry.roofline.device_ms``:
+    CUDA events with the stream held on the card, the host clock on the
+    CPU), in seconds. The plan comes from :func:`_cached_meta`, so it is
+    built in the warm-up, never timed, and the winner's plan is ready for
+    the tuned call."""
+    from ..telemetry.roofline import device_ms
+
+    cuda = on_card(q, k, v)
+
+    def measure(bq: int, bk: int, hb: int, grid: str = "row_major") -> float:
+        meta = _cached_meta(q_arr.tobytes(), k_arr.tobytes(), t_arr.tobytes(),
+                            int(t_arr.shape[0]), int(q.shape[0]), int(k.shape[0]), int(bq),
+                            int(bk))
+
+        def run():
+            with torch.no_grad():
+                flex_attn_with_meta(q, k, v, meta, scale=scale, softcap=softcap, sink=sink,
+                                    out_dtype=out_dtype, head_block=hb, grid=grid)
+
+        return device_ms(run, reps=reps, warmup=warmup, cuda=cuda) * 1e-3
+
+    return measure
 
 
 def flex_flash_attn_func(
@@ -1061,9 +1156,12 @@ def flex_flash_attn_func(
 
     The ranges are host values: the kernel plan is built once per unique
     (mask, shape, blocking) and cached. ``block_q``/``block_k``/
-    ``head_block`` left unset resolve through :func:`auto_kernel_config`,
-    as in the JAX package: heterogeneous masks take the compact sparse
-    grid, dense ones the row-major grid, both at head_block G. With all
+    ``head_block`` left unset resolve through :func:`auto_kernel_config`
+    (the autotuner), as in the JAX package: heterogeneous masks take the
+    compact sparse grid, dense ones the row-major grid, both at head_block
+    G; under ``MAGI_ATTENTION_AUTOTUNE=measure``, with none of the three
+    given, the tuner times its top candidates on these operands
+    (:func:`_make_measure_fn`). With all
     three given, ``grid`` is the caller's, else ``MAGI_ATTENTION_GRID``,
     else ``"row_major"``, as the reference takes it. Under
     ``MAGI_ATTENTION_AUTO_RANGE_MERGE`` the slices are merged first
@@ -1077,25 +1175,37 @@ def flex_flash_attn_func(
         from .range_merge import merge_ranges
 
         q_arr, k_arr, t_arr = (np.ascontiguousarray(a) for a in merge_ranges(q_arr, k_arr, t_arr))
+    q_b, k_b, t_b = q_arr.tobytes(), k_arr.tobytes(), t_arr.tobytes()
     if None in (block_q, block_k, head_block):
-        block_q, block_k, auto_hb, grid = auto_kernel_config(
-            q_arr, k_arr, int(q.shape[1]), int(k.shape[1]),
-            fixed_block_q=block_q, fixed_block_k=block_k, attn_type_map=t_arr,
-            head_dim=int(q.shape[2]), grid=grid,
-        )
+        from ..tuning.autotuner import memoised
+
+        def choose():
+            measure_fn = None
+            if (head_block is None and block_q is None and block_k is None
+                    and env.autotune_mode() == "measure" and env.head_block_override() is None
+                    and env.block_q() is None and env.block_k() is None):
+                # the candidates timed on these operands; a pinned head_block
+                # or tile takes the model instead: the candidates would be
+                # timed at their own, the call would run the pin
+                measure_fn = _make_measure_fn(q, k, v, q_arr, k_arr, t_arr, scale=scale,
+                                              softcap=softcap, sink=sink, out_dtype=out_dtype)
+            return auto_kernel_config(
+                q_arr, k_arr, int(q.shape[1]), int(k.shape[1]),
+                fixed_block_q=block_q, fixed_block_k=block_k, attn_type_map=t_arr,
+                head_dim=int(q.shape[2]), dtype=str(q.dtype), measure_fn=measure_fn, grid=grid,
+                device=q.device,
+            )
+
+        # a repeat call (the same slices, extents, dtype, card, pins and
+        # flags) takes its decision from the memo: no fingerprint
+        block_q, block_k, auto_hb, grid = memoised(
+            ("flex", q_b, k_b, t_b, *q.shape, *k.shape[:2], str(q.dtype), str(q.device),
+             block_q, block_k, head_block, grid), choose)
         head_block = auto_hb if head_block is None else head_block
     elif grid is None:
         grid = env.grid_override() or "row_major"
-    meta = _cached_meta(
-        q_arr.tobytes(),
-        k_arr.tobytes(),
-        t_arr.tobytes(),
-        int(t_arr.shape[0]),
-        int(q.shape[0]),
-        int(k.shape[0]),
-        int(block_q),
-        int(block_k),
-    )
+    meta = _cached_meta(q_b, k_b, t_b, int(t_arr.shape[0]), int(q.shape[0]), int(k.shape[0]),
+                        int(block_q), int(block_k))
     return flex_attn_with_meta(
         q,
         k,

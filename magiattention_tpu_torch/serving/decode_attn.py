@@ -19,8 +19,8 @@ reads once for up to 32 q rows (8 on the float32 walk; the plain version:
 the broadcast table).
 
 Split-count resolution: explicit argument > ``MAGI_ATTENTION_DECODE_SPLITS``
-> the Hopper rule of :func:`resolve_num_splits` (one split), always clamped
-to a divisor of the block-table width.
+> the split tuner (:func:`resolve_num_splits`), always clamped to a divisor
+of the block-table width.
 
 Resilience: between the split partials and their merge, on the kernel path
 and the plain one alike, each partial ``split{i}`` takes the chaos
@@ -339,30 +339,40 @@ def resolve_num_splits(
     num_splits: int | None,
     cache: PagedKVCache,
     batch: int,
+    hq: int | None = None,
     *,
     mpp: int | None = None,
+    prefix_groups: int = 0,
 ) -> int:
-    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > the Hopper rule,
+    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > the split tuner
+    (``tuning.select_decode_splits``, the ``decode`` fingerprint kind),
     clamped to a divisor of the table width: ``max_pages_per_seq``, or an
-    explicit ``mpp`` (the cascade resolves each phase on its own table:
-    the shared prefix's pages, then each member's suffix pages).
+    explicit ``mpp`` (the cascade resolves each phase on its own table: the
+    shared prefix's pages, then each member's suffix pages).
+    ``prefix_groups`` (the cascade's group count, 0 for flat decode) and
+    ``hq`` (default: the cache's kv heads) are fingerprint axes.
 
-    The rule, in place of the JAX package's tuner, is one split, whatever
-    the batch: measured on the H100 (``chip_smoke.py``'s ``decode_timing``
-    split sweep, the kernel alone and with the merge, on the serving batch
-    of 8 sequences and on one 32K-token sequence, 8 kv heads each). The
-    kernel spreads each (sequence, kv head) walk over a cluster of up to 8
-    thread blocks itself, so splits add no parallelism it lacks, and each
-    extra split costs a ``merge_partials`` round of small elementwise
-    kernels that takes longer on the card than the split saves.
-    """
+    The tuner prices the launch on the card: the kernel spreads each
+    (sequence, kv head) walk over a cluster of up to 8 thread blocks itself,
+    so a split pays only while the blocks leave SMs idle, and each split
+    past the first costs a ``merge_partials`` round. On the geometries the
+    serving paths run that is one split, the rule measured in the
+    ``decode_timing`` split sweep. Its decision is memoised on the
+    geometry: a repeat call is one dict lookup."""
     from .. import env
 
+    mpp = max(int(cache.max_pages_per_seq if mpp is None else mpp), 1)
     if num_splits is None:
         num_splits = env.decode_splits()
     if num_splits is None:
-        num_splits = 1
-    return _clamp_splits(num_splits, cache.max_pages_per_seq if mpp is None else mpp)
+        from ..tuning import select_decode_splits
+
+        num_splits = select_decode_splits(
+            batch, mpp, cache.page_size, cache.num_kv_heads if hq is None else hq,
+            cache.num_kv_heads, head_dim=cache.head_dim, dtype=cache.k_pages.dtype,
+            prefix_groups=prefix_groups, device=cache.k_pages.device,
+        ).head_block  # the record's head_block is the split count
+    return _clamp_splits(num_splits, mpp)
 
 
 def _check_q(q, cache: PagedKVCache, where: str) -> None:
@@ -455,7 +465,7 @@ def decode_attn_paged(
     params = DecodeParams(
         scale=float(scale if scale is not None else 1.0 / math.sqrt(d)),
         softcap=float(softcap),
-        num_splits=resolve_num_splits(num_splits, cache, b),
+        num_splits=resolve_num_splits(num_splits, cache, b, hq),
         out_dtype=out_dtype if out_dtype is not None else q.dtype,
         cluster_heads=int(cluster_heads),
     )

@@ -120,7 +120,7 @@ def tp_decode_attn(
             "(kv_cache.shard_kv_cache)")
     # once, for the whole batch and head count: every slice splits its
     # histories where the single-device call would
-    num_splits = resolve_num_splits(num_splits, cache.shards[0], b)
+    num_splits = resolve_num_splits(num_splits, cache.shards[0], b, hq)
     outs, lses = [], []
     for i, shard in enumerate(cache.shards):
         h = slice(i * hq // tp, (i + 1) * hq // tp)

@@ -626,7 +626,8 @@ class ServingEngine:
             else:
                 if num_splits is None:
                     num_splits = self.decode_splits_override
-                resolved = resolve_num_splits(num_splits, self.cache, batch.batch_size)
+                resolved = resolve_num_splits(num_splits, self.cache, batch.batch_size,
+                                              int(q.shape[1]))
                 out, lse = magi_attn_decode(q, self.cache, batch, num_splits=resolved, **kw)
         self.last_decode_info = {
             "batch": batch.batch_size,
@@ -840,7 +841,8 @@ class ServingEngine:
             return [], prefill_results
         rows, entries = tick.finalize()
         hq, head_dim = int(q_parts[0].shape[1]), int(q_parts[0].shape[2])
-        resolved = resolve_tick_splits(num_splits, self.cache, entries)
+        resolved = resolve_tick_splits(num_splits, self.cache, rows, entries, hq,
+                                       prefill_rows=prefill_rows)
         label = telemetry.tick_program_label(rows, entries, resolved)
         try:
             if prefill_rows:

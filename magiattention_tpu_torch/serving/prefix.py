@@ -317,7 +317,8 @@ def cascade_decode_attn(
         # level 1: the shared prefix, once per group, fully covered; the
         # kernel reads each shared page once for the group's q rows
         shared = _device_index(g.shared_pages, torch.int32, dev)
-        s_prefix = resolve_num_splits(num_splits, cache, len(idx), mpp=n_shared)
+        s_prefix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=n_shared,
+                                      prefix_groups=max(len(groups), 1))
         o_g, l_g = _decode_shared_prefix(qg, cache, shared, g.prefix_len,
                                          num_splits=s_prefix, **kw)
         # level 2: each member's own pages past the prefix (table-relative lengths)
@@ -325,7 +326,7 @@ def cascade_decode_attn(
         if suffix_w > 0:
             bt_suffix = bt_all[idx_dev][:, n_shared:]
             sl_suffix = (sl_all[idx_dev] - g.prefix_len).clamp_min(0)
-            s_suffix = resolve_num_splits(num_splits, cache, len(idx), mpp=suffix_w)
+            s_suffix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=suffix_w)
             o_s, l_s = decode_partials_for_tables(qg, cache, bt_suffix, sl_suffix,
                                                   num_splits=s_suffix, **kw)
             o_g, l_g = correct_attn_out_lse(o_g, l_g, o_s, l_s)
@@ -333,7 +334,7 @@ def cascade_decode_attn(
 
     if rest:
         idx_dev = _device_index(rest, torch.long, dev)
-        s_flat = resolve_num_splits(num_splits, cache, len(rest))
+        s_flat = resolve_num_splits(num_splits, cache, len(rest), hq)
         out[idx_dev], lse[idx_dev] = decode_partials_for_tables(
             q[idx_dev], cache, bt_all[idx_dev], sl_all[idx_dev], num_splits=s_flat, **kw)
     return out.to(out_dtype), lse

@@ -18,18 +18,32 @@ import torch
 
 from ..ops.block_sparse import TickEnumeration
 from ..ops.correction import correct_attn_out_lse
-from .decode_attn import decode_partials_for_tables, resolve_num_splits
+from .decode_attn import _clamp_splits, decode_partials_for_tables
 from .kv_cache import PagedKVCache
 
 
-def resolve_tick_splits(num_splits: int | None, cache: PagedKVCache, entry_capacity: int) -> int:
-    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > one split, clamped
-    to a divisor of the tick's entry capacity: the decode rule of
-    :func:`~.decode_attn.resolve_num_splits` (in place of the JAX package's
-    tick tuner) on the tick's table, for its reason: the kernel spreads each
-    walk over a thread-block cluster itself, and every extra split costs a
-    merge round that takes longer on the card than the split saves."""
-    return resolve_num_splits(num_splits, cache, 0, mpp=entry_capacity)
+def resolve_tick_splits(num_splits: int | None, cache: PagedKVCache, row_capacity: int,
+                        entry_capacity: int, hq: int, *, prefill_rows: int = 0) -> int:
+    """Explicit arg > ``MAGI_ATTENTION_DECODE_SPLITS`` > the split tuner
+    (``tuning.select_tick_splits``, the ``tick`` fingerprint kind: the
+    decode model with the tick's padded rows for the batch), clamped to a
+    divisor of the tick's entry capacity. The decode override applies here
+    too, as in the JAX package: the tick is the decode kernel at the tick's
+    batch. ``prefill_rows`` is a fingerprint axis."""
+    from .. import env
+
+    width = max(int(entry_capacity), 1)
+    if num_splits is None:
+        num_splits = env.decode_splits()
+    if num_splits is None:
+        from ..tuning import select_tick_splits
+
+        num_splits = select_tick_splits(
+            row_capacity, width, cache.page_size, hq, cache.num_kv_heads,
+            head_dim=cache.head_dim, dtype=cache.k_pages.dtype, prefill_rows=prefill_rows,
+            device=cache.k_pages.device,
+        ).head_block  # the record's head_block is the split count
+    return _clamp_splits(num_splits, width)
 
 
 def unified_tick_attn(
@@ -51,7 +65,9 @@ def unified_tick_attn(
             f"unified_tick_attn: q_rows has {q_rows.shape[0]} rows but the tick enumeration is "
             f"padded to {rows} — pad q to the row capacity bucket (zero rows are fine: valid = 0 "
             "masks them)")
-    num_splits = resolve_tick_splits(num_splits, cache, entries)
+    num_splits = resolve_tick_splits(
+        num_splits, cache, rows, entries, q_rows.shape[1],
+        prefill_rows=sum(s.num_rows for s in tick.segments if s.kind == "prefill"))
     dev = q_rows.device
     bt = torch.from_numpy(tick.block_tables()).to(dev)
     valid = torch.from_numpy(tick.valid_lens()).to(dev)

@@ -66,6 +66,10 @@ from .collectors import (  # noqa: F401
     REQUIRED_VALIDATE_METRICS,
     record_admission,
     record_admission_watermark,
+    record_autotune_cache,
+    record_autotune_decision,
+    record_autotune_measure_failure,
+    record_autotune_measurement,
     record_cache_access,
     record_comm_op,
     record_compile,
@@ -109,6 +113,7 @@ from .collectors import (  # noqa: F401
     record_tick_programs,
     record_tier_fault,
     record_tier_state,
+    record_tuning_cache_io_error,
     telemetry_summary,
 )
 from .compile import (  # noqa: F401
@@ -340,6 +345,10 @@ __all__ = [
     "program",
     "record_admission",
     "record_admission_watermark",
+    "record_autotune_cache",
+    "record_autotune_decision",
+    "record_autotune_measure_failure",
+    "record_autotune_measurement",
     "record_cache_access",
     "record_comm_op",
     "record_compile",
@@ -385,6 +394,7 @@ __all__ = [
     "record_tick_programs",
     "record_tier_fault",
     "record_tier_state",
+    "record_tuning_cache_io_error",
     "render_prometheus",
     "request_context",
     "request_traces_to_chrome",

@@ -10,10 +10,9 @@ The port carries the recorders whose callers it has: the serving engine,
 scheduler and tiers, the memory and compile tracking, the request traces
 and the flight recorder, the resilience hooks, the plan solver's seconds,
 the cp planner, comm and keyed cache, the cost model, the roofline, the
-measured timeline and the value census. The others come with the items
-that port their callers (ROADMAP): ``record_autotune_*`` and
-``record_tuning_cache_io_error`` (A.12), ``record_validate`` and
-``record_analysis_run`` (A.18), ``record_fleet_*`` (A.17).
+measured timeline, the value census and the kernel autotuner. The others
+come with the items that port their callers (ROADMAP): ``record_validate``
+and ``record_analysis_run`` (A.18), ``record_fleet_*`` (A.17).
 """
 
 from __future__ import annotations
@@ -527,6 +526,68 @@ def record_degraded_path(reason: str) -> None:
     span_for_current(SPAN_DEGRADED, reason=reason)
     get_registry().gauge_set(M_DEGRADED_PATH, 1, reason=reason)
     _marker_event("degraded_path", {"reason": reason})
+
+
+def record_tuning_cache_io_error(op: str) -> None:
+    """A tuning-cache disk load or store failed (``tuning/cache.py``): still
+    a miss or a skipped store, but counted."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_TUNING_CACHE_IO, op=op)
+
+
+# ---------------------------------------------------------------------------
+# kernel autotuner (tuning/)
+# ---------------------------------------------------------------------------
+
+
+def record_autotune_cache(hit: bool, layer: str) -> None:
+    """A tuning-cache lookup: hits labelled with the layer that answered
+    (memory | disk)."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    if hit:
+        reg.counter_inc(M_AUTOTUNE_CACHE_HITS, layer=layer)
+    else:
+        reg.counter_inc(M_AUTOTUNE_CACHE_MISSES)
+
+
+def record_autotune_measurement() -> None:
+    """One measure-mode candidate timed on the card."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_AUTOTUNE_MEASUREMENTS)
+
+
+def record_autotune_measure_failure(candidate: str, error: str) -> None:
+    """A measure-mode candidate raised: disqualified, not fatal."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_AUTOTUNE_MEASURE_FAILURES)
+    _marker_event("autotune_measure_failed", {"candidate": candidate, "error": error[:200]})
+
+
+def record_autotune_decision(decision) -> None:
+    """One resolved kernel choice (``tuning/autotuner.py``): the choice, its
+    source (static rule, cost model, measured, cache layer) and its
+    predicted and measured cost."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.gauge_set(M_AUTOTUNE_BLOCK_Q, decision.block_q)
+    reg.gauge_set(M_AUTOTUNE_BLOCK_K, decision.block_k)
+    reg.gauge_set(M_AUTOTUNE_HEAD_BLOCK, decision.head_block)
+    reg.gauge_set(M_AUTOTUNE_PREDICTED_MS, decision.predicted_ms)
+    if decision.measured_ms is not None:
+        reg.gauge_set(M_AUTOTUNE_MEASURED_MS, decision.measured_ms)
+    reg.clear_metric(M_AUTOTUNE_CHOICE)  # one live choice series at a time
+    rung = f"{decision.block_q}x{decision.block_k}x{decision.head_block}"
+    reg.gauge_set(M_AUTOTUNE_CHOICE, 1, rung=rung, source=decision.source)
+    _marker_event("autotune_decision", {
+        "rung": rung, "source": decision.source, "cache_layer": decision.cache_layer,
+        "fingerprint": decision.fingerprint_hash, "reason": decision.reason,
+    })
 
 
 # ---------------------------------------------------------------------------

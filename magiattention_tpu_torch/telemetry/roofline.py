@@ -13,10 +13,10 @@ cost model's own counting (``tuning/cost_model.py``) at three nested areas:
   is partial-tile waste (rows past a slice's end, columns past its interval);
 
 and the grid: live slots pay a per-step fee, and a row-major grid's clamped
-dead steps (rows shorter than the grid's ``steps`` extent) a smaller one.
-The fees are a parameter (:class:`StepFees`): none has been fitted on the
-card yet (ROADMAP A.12), so the default is 0 s and what they would explain
-lands in ``unattributed``.
+dead steps (rows shorter than the grid's ``steps`` extent) another. The
+fees are a parameter (:class:`StepFees`), by default the ones the cost
+model fitted on the H100; what they do not explain lands in
+``unattributed``.
 
 The achieved rate is divided by the card's peak (``utils/cost.py``;
 ``MAGI_ATTENTION_PEAK_TFLOPS`` overrides), and the gap is attributed term
@@ -37,6 +37,9 @@ import time
 import numpy as np
 
 from ..tuning.cost_model import (
+    DEAD_SLOT_S,
+    LIVE_SLOT_S,
+    SPARSE_SLOT_S,
     _normalize_slices,
     estimate_entries,
     exact_mask_area,
@@ -52,12 +55,17 @@ CPU_PEAK_TFLOPS = 0.10
 @dataclasses.dataclass(frozen=True)
 class StepFees:
     """Fixed seconds per grid slot: a live row-major step, a clamped dead
-    one, and the sparse grid's extra per live step. 0 until fitted on the
-    card (ROADMAP A.12)."""
+    one, and the sparse grid's extra per live step (its live slot's fee
+    less the row-major one's; negative where a sparse slot is the cheaper).
+    The defaults are the cost model's fees (``tuning/cost_model.py``:
+    ``LIVE_SLOT_S``, ``DEAD_SLOT_S``, ``SPARSE_SLOT_S``), fitted by least
+    squares on "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name,
+    power.limit) by ``chip_smoke.py``'s ``tuning`` phase in its first chip
+    run, before the model used them."""
 
-    live_s: float = 0.0
-    dead_s: float = 0.0
-    sparse_extra_s: float = 0.0
+    live_s: float = LIVE_SLOT_S
+    dead_s: float = DEAD_SLOT_S
+    sparse_extra_s: float = SPARSE_SLOT_S - LIVE_SLOT_S
 
 
 def _resolve_card(card: str | None, device) -> str:
@@ -359,7 +367,7 @@ def profile_roofline(
 
         bq, bk, hb, ag = auto_kernel_config(
             qr, kr, num_heads_q, hkv, fixed_block_q=block_q, fixed_block_k=block_k,
-            attn_type_map=ts, head_dim=head_dim, grid=grid)
+            attn_type_map=ts, head_dim=head_dim, dtype=str(dtype), grid=grid, device=device)
         block_q, block_k = bq, bk
         head_block = hb if head_block is None else head_block
         grid = ag if grid is None else grid

@@ -62,7 +62,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "telemetry.events", "telemetry.collectors", "telemetry.compile",
                 "telemetry.trace", "telemetry.aggregate", "telemetry.exposition",
                 "telemetry.memory", "telemetry.timeline", "telemetry.roofline",
-                "telemetry.occupancy", "utils.cost"):
+                "telemetry.occupancy", "utils.cost", "tuning.fingerprint", "tuning.cache",
+                "tuning.cost_model", "tuning.autotuner"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

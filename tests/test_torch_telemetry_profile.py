@@ -104,8 +104,8 @@ def test_counting_and_occupancy_are_jaxs(name, tmp_path):
 @pytest.mark.parametrize("name", sorted(MASKS))
 def test_roofline_accounting_is_jaxs(name, grid, monkeypatch):
     """Areas, grid slots, bytes, and the modeled seconds with JAX's step
-    fees given to the port (the port's own default is 0 until fitted on the
-    card) at one peak, set for both through MAGI_ATTENTION_PEAK_TFLOPS."""
+    fees given to the port (the port's own default is the fees fitted on
+    the card) at one peak, set for both through MAGI_ATTENTION_PEAK_TFLOPS."""
     qr, kr, ts = MASKS[name]
     monkeypatch.setenv("MAGI_ATTENTION_PEAK_TFLOPS", "123.5")
     kw = dict(num_heads_q=8, num_heads_kv=2, head_dim=64, block_q=B, block_k=B, head_block=4,
@@ -121,9 +121,11 @@ def test_roofline_accounting_is_jaxs(name, grid, monkeypatch):
         assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-12), f
     assert got.gap_fractions() == pytest.approx(want.gap_fractions(), rel=1e-12)
     assert got.mask_area <= got.covered_area <= got.tile_area
-    # the port's default fees are 0 s: the step terms move to unattributed
-    zero = roofline.analyze_workload(qr, kr, ts, device="cpu", **kw)
-    assert zero.dead_step_seconds == zero.live_step_seconds == 0.0
+    # the port's default fees are the cost model's, fitted on the H100
+    fitted = roofline.analyze_workload(qr, kr, ts, device="cpu", **kw)
+    assert fitted.dead_step_seconds == fitted.dead_slots * cost_model.DEAD_SLOT_S
+    live_fee = cost_model.SPARSE_SLOT_S if grid == "sparse" else cost_model.LIVE_SLOT_S
+    assert fitted.live_step_seconds == pytest.approx(fitted.live_slots * live_fee, rel=1e-12)
 
 
 def test_peak_table_and_flags(monkeypatch):

@@ -1029,3 +1029,129 @@ def plan_cache_stream(group, cus: list, chunk: int, runtime_size: int, flags: di
         telemetry.set_enabled(None)
         telemetry.reset()
         api.clear_cache()
+
+
+def tuned_key_blocking(group, cache_dirs: list, total: int, heads: tuple, head_dim: int,
+                       chunk: int) -> dict:
+    """A causal flex key on every rank, each rank with a tuning cache
+    directory of its own, rank 1's holding a planted record (head_block 1)
+    under the fingerprint of the key's decision: every rank must take rank
+    0's decision. Returns the key's blocking and this rank's own
+    (unbroadcast) decision."""
+    from magiattention_tpu_torch import api, tuning
+
+    rank = dist.get_rank(group)
+    hq, hk = heads
+    os.environ["MAGI_ATTENTION_AUTOTUNE_CACHE_DIR"] = cache_dirs[rank]
+    tuning.reset_tuning_cache()
+    try:
+        cp = dist.get_world_size(group)
+        mask = ([(0, total)], [(0, total)], [1])
+        if rank == 1:
+            fp = tuning.make_fingerprint(*mask, hq, hk, head_dim=head_dim, dtype=torch.float32,
+                                         max_block_q=total // cp, max_block_k=total // cp,
+                                         include_sparse=False, device="cpu")
+            tuning.get_tuning_cache().put(fp, tuning.TuningRecord(
+                block_q=64, block_k=64, head_block=1, source="measured", predicted_ms=1.0,
+                measured_ms=1.0, candidates=()))
+        own = tuning.resolve_block_config(*mask, total, total, cp, hq, hk, head_dim,
+                                          str(torch.float32), device="cpu")
+        key = api.magi_attn_flex_key(*mask, total, total, group, num_heads=heads,
+                                     head_dim=head_dim, chunk_size=chunk,
+                                     out_dtype=torch.float32, device="cpu")
+        again = api.magi_attn_flex_key(*mask, total, total, group, num_heads=heads,
+                                       head_dim=head_dim, chunk_size=chunk,
+                                       out_dtype=torch.float32, device="cpu")
+        return {"rank": rank, "key_blocking": key.block_config, "own": own,
+                "same_key": again == key}
+    finally:
+        os.environ.pop("MAGI_ATTENTION_AUTOTUNE_CACHE_DIR")
+        tuning.reset_tuning_cache()
+        api.clear_cache()
+
+
+def _count_decisions(autotuner) -> list:
+    """Wrap ``autotuner.select_block_config`` in this rank to count its
+    calls; returns the list the calls append to (the wrapper stays for the
+    rank's life: the caller restores ``autotuner.select_block_config``)."""
+    calls = []
+    inner = autotuner.select_block_config
+
+    def counted(*a, **kw):
+        calls.append(len(a[0]))
+        return inner(*a, **kw)
+
+    autotuner.select_block_config = counted
+    return calls
+
+
+def overlapping_group_blocking(group, rounds: int, cap: int) -> dict:
+    """Keyed blockings on two groups that share ranks 0 and 1 (the world
+    and {0, 1}), a new mask each round and memo tables of ``cap`` entries,
+    so that the tables evict during the stream: each group's ranks must
+    hit and miss together (a rank that misses alone enters a broadcast its
+    peers skip, and the pool times out). Then the last ``cap`` masks
+    again: every call a memo hit, no decision taken."""
+    from magiattention_tpu_torch import tuning
+    from magiattention_tpu_torch.tuning import autotuner
+
+    rank = dist.get_rank(group)
+    pair = dist.new_group([0, 1])
+    inner, cap_was = autotuner.select_block_config, autotuner._AGREED.cap
+    calls = _count_decisions(autotuner)
+    autotuner._AGREED.cap = cap
+    tuning.reset_tuning_cache()
+    try:
+        def stream(first: int):
+            got = []
+            for i in range(first, rounds):
+                total = 1024 + 192 * i
+                mask = ([(0, total)], [(0, total)], [1])
+                got.append(tuning.resolve_block_config(
+                    *mask, total, total, 3, 6, 3, 64, "torch.float32", group=group,
+                    device="cpu"))
+                if rank < 2:
+                    got.append(tuning.resolve_block_config(
+                        *mask, total, total, 2, 6, 3, 64, "torch.float32", group=pair,
+                        device="cpu"))
+            return got
+
+        first = stream(0)
+        decided = len(calls)
+        again = stream(rounds - cap)
+        return {"rank": rank, "first": first, "again": again, "decided": decided,
+                "decided_again": len(calls) - decided}
+    finally:
+        autotuner.select_block_config, autotuner._AGREED.cap = inner, cap_was
+        tuning.reset_tuning_cache()
+        dist.destroy_process_group(pair)
+
+
+def bucketed_key_blocking(group, stream: list, heads: tuple, head_dim: int, chunk: int) -> dict:
+    """``magi_attn_varlen_key`` on each request of ``stream`` (lists of
+    document lengths) under ``MAGI_ATTENTION_PLAN_REUSE=bucket``: each
+    key's blocking and the decisions this rank took for it (rank 0 decides
+    for the group; a bucket hit, an exact hit and the nested canonical key
+    take none)."""
+    from magiattention_tpu_torch import api, tuning
+    from magiattention_tpu_torch.tuning import autotuner
+
+    os.environ["MAGI_ATTENTION_PLAN_REUSE"] = "bucket"
+    inner = autotuner.select_block_config
+    calls = _count_decisions(autotuner)
+    tuning.reset_tuning_cache()
+    try:
+        blockings, decisions = [], []
+        for docs in stream:
+            cu = np.concatenate([[0], np.cumsum(docs)]).tolist()
+            n = len(calls)
+            key = api.magi_attn_varlen_key(cu, cu[-1], group, num_heads=heads,
+                                           head_dim=head_dim, chunk_size=chunk, device="cpu")
+            blockings.append(key.block_config)
+            decisions.append(len(calls) - n)
+        return {"rank": dist.get_rank(group), "blockings": blockings, "decisions": decisions}
+    finally:
+        os.environ.pop("MAGI_ATTENTION_PLAN_REUSE")
+        autotuner.select_block_config = inner
+        tuning.reset_tuning_cache()
+        api.clear_cache()
