@@ -329,11 +329,28 @@ Phases, each printing one JSON line:
    sequence and every scheduler tick geometry, and the host µs of a
    memoised split call and of a repeat kernel choice; the roofline's
    unattributed share with the committed fees and with this run's fit.
+24. analysis — ``analysis/`` on the card: the cp_attn phase's hetero mask
+   at the LlamaConfig widths through the keyed API at overlap degree 1,
+   cp=2 over hops and a2a under ``MAGI_ATTENTION_VALIDATE`` off, plan and
+   trace, and cp=4 as 2 x 2 under off and plan (three cold plan builds a
+   mode, their host ms), forward and backward bit for bit equal across the
+   modes, one sanitizer check counted per plan built and no failure; the
+   trace runs' collectives recorded live (``comm.group_collective
+   .record_collectives``) and gathered: their census the plan's expectation
+   (twice it with the backward), uniform and well paired across the ranks,
+   equal to each rank's dry records of the same plan; a stage
+   ``recv_sel`` corrupted on one rank must raise ``PlanValidationError``
+   under ``plan`` before any launch, with one failure counted; the
+   serving-state interleaving checker's smoke matrix and both plants at the
+   JAX package's counts, with a real decode step on the card before and
+   after it, bit for bit (the stubs are gone); the upcast census of the cp
+   runtime and the flex entry on the card equal to the checked-in table;
+   the port linting clean and the analysis CLI's ``--self-test`` passing.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``block_sparse``, ``sink``,
 ``cp_decode``, ``scheduler``, ``tiered``, ``resilience``, ``telemetry``,
-``profiling`` and ``tuning`` among them; every path's launches must be in it), errors and times; the
+``profiling``, ``tuning`` and ``analysis`` among them; every path's launches must be in it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -344,6 +361,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -7102,6 +7120,341 @@ def tuning_phase(gen, dec_t: dict, serving_splits: dict, sched_line: dict, prof_
             "seconds": time.perf_counter() - t0}
 
 
+ANALYSIS_MODES = ("off", "plan", "trace")
+ANALYSIS_IMPLS = ("hops", "a2a")
+ANALYSIS_DEGREE = 1  # one overlap stage: its cast is what the sanitizer and the census read
+ANALYSIS_BUILDS = 3  # cold plan builds a (impl, mode), for the host ms median
+ANALYSIS_HEADS = (TRAIN_HQ, TRAIN_HK)
+# the interleaving checker's smoke matrix and plants: the JAX package's
+# counts on the same models (states, transitions; counterexample events)
+ANALYSIS_LIFECYCLE = {"0:engine": (62, 190), "1:scheduler": (48, 62), "2:tiered": (25, 26)}
+
+
+def _analysis_fwd_bwd(key, q, k, v, g_out, g_lse, record: bool = False):
+    """``dispatch`` -> ``calc_attn`` -> the backward of this rank's share of
+    sum(out * g_out) + sum(lse * g_lse) over covered rows: this rank's
+    (out, lse, dq, dk, dv) shards, and with ``record`` the comm layer's live
+    records of the forward and of the backward."""
+    import torch
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.comm.group_collective import record_collectives
+
+    qd, kd, vd = (api.dispatch(x, key).detach().requires_grad_() for x in (q, k, v))
+    go, gl = api.dispatch(g_out, key), api.dispatch(g_lse, key)
+    rec = (lambda: record_collectives("live")) if record else (lambda: contextlib.nullcontext([]))
+    with rec() as fwd:
+        out, meta = api.calc_attn(qd, kd, vd, key)
+    loss = (out.float() * go.float()).sum() + torch.where(
+        torch.isfinite(meta.lse), meta.lse * gl, 0.0).sum()
+    with rec() as bwd:
+        loss.backward()
+    return (out.detach(), meta.lse.detach(), qd.grad, kd.grad, vd.grad), list(fwd), list(bwd)
+
+
+def _validate_counters() -> tuple[int, int]:
+    from magiattention_tpu_torch import telemetry
+
+    c = telemetry.snapshot()["counters"]
+    return (int(sum(v for k, v in c.items() if k.startswith("magi_validate_plan_checks"))),
+            int(sum(v for k, v in c.items() if k.startswith("magi_validate_failures"))))
+
+
+@in_rank
+def analysis_cp_rank(group, seed: int, hier=None) -> dict:
+    """One rank of the path under validation: the hetero mask at the
+    LlamaConfig widths through the keyed API at degree 1, under
+    ``MAGI_ATTENTION_VALIDATE`` off, plan and trace (``hier``: the 2 x 2
+    hierarchical groups, off and plan), hops and a2a (hier: the default
+    impl). Each (impl, mode) builds its plan ``ANALYSIS_BUILDS`` times from a
+    cleared cache (the builds' host ms), then runs the forward and backward
+    once; every mode's shards must equal the off run's bit for bit. The
+    trace runs record the comm layer live, gathered over the group: their
+    census against the plan's expectation, uniform and well paired across
+    ranks, and equal to this rank's dry records of the same plan."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc, env, telemetry
+    from magiattention_tpu_torch.analysis import spmd_audit as sa
+    from magiattention_tpu_torch.analysis import trace_audit as ta
+    from magiattention_tpu_torch.api import interface
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cp_rank_setup()
+    rank, t = dist.get_rank(group), CP_ATTN_T
+    hq, hk = ANALYSIS_HEADS
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    gen = torch.Generator(device="cuda").manual_seed(seed)  # the same inputs on every rank
+    q, k, v, g_out = (torch.randn((t, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+                      for h in (hq, hk, hk, hq))
+    g_lse = torch.randn((t, hq), generator=gen, device="cuda")
+    cp_group = hier_cp_groups(group, hier) if hier else group
+    config = DistAttnConfig(overlap_config=OverlapConfig(degree=ANALYSIS_DEGREE))
+    impls, modes = (("auto",), ("off", "plan")) if hier else (ANALYSIS_IMPLS, ANALYSIS_MODES)
+    real_build, times = interface.build_dist_attn_plan, []
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_build(*args, **kwargs)
+        finally:
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    build_ms, bitwise, live, plans_checked = {}, {}, {}, 0
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    interface.build_dist_attn_plan = timed_build
+    try:
+        torch.cuda.synchronize()
+        csrc.reset_launch_counts()
+        for impl in impls:
+            ref = None
+            for mode in modes:
+                with magi_flags(VALIDATE=mode, GROUP_COLL_IMPL=None if impl == "auto" else impl):
+                    times.clear()
+                    for _ in range(ANALYSIS_BUILDS):
+                        api.clear_cache()
+                        key = api.magi_attn_flex_key(qr, kr, ty, t, t, cp_group, num_heads=(hq, hk),
+                                                     head_dim=D, chunk_size=CP_CHUNK,
+                                                     dist_attn_config=config)
+                    plans_checked += ANALYSIS_BUILDS if mode != "off" else 0
+                    build_ms[f"{impl}/{mode}"] = statistics.median(times)
+                    plan = api.get_runtime_mgr(key).plan
+                    got, fwd, bwd = _analysis_fwd_bwd(key, q, k, v, g_out, g_lse,
+                                                      record=mode == "trace")
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = got
+                else:
+                    bitwise[f"{impl}/{mode}"] = all(torch.equal(a, b) for a, b in zip(got, ref))
+                if mode == "trace":
+                    payload = torch.float32 if env.is_backward_high_precision_reduce() \
+                        else torch.bfloat16
+                    mine = {"rank": rank, "fwd": fwd, "fwd_bwd": fwd + bwd,
+                            "expected_fwd": ta.expected_plan_cast_collectives(plan),
+                            "dry": ta.plan_cast_records(plan, rank, tail=(2, hk, D),
+                                                        dtype=payload, device="cuda",
+                                                        backward=True)}
+                    every = [None] * dist.get_world_size(group)
+                    dist.all_gather_object(every, mine, group=group)
+                    res = [dict(r, fwd=[e["fwd"] for e in every],
+                                fwd_bwd=[e["fwd_bwd"] for e in every]) for r in every]
+                    errors, sig = sa.live_dist_attn_errors(f"cp=2 {impl}", res, impl)
+                    live[impl] = {"errors": errors, "signature": sig,
+                                  "census_fwd": ta.collective_census(fwd),
+                                  "census_fwd_bwd": ta.collective_census(fwd + bwd),
+                                  "expected_fwd": mine["expected_fwd"],
+                                  "impls": [c.impl for c in plan.comms()]}
+        torch.cuda.synchronize()
+        launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    finally:
+        interface.build_dist_attn_plan = real_build
+        api.clear_cache()
+    checks, failures = _validate_counters()
+    telemetry.reset()
+    telemetry.set_enabled(None)
+    return {"rank": rank, "launches": launches, "plan_build_host_ms": build_ms,
+            "bitwise_equal_to_off": bitwise, "live": live, "plans_checked": plans_checked,
+            "validate_checks": checks, "validate_failures": failures,
+            "overlap_degree": plan.overlap_degree}
+
+
+@in_rank
+def analysis_plant_rank(group, seed: int) -> dict:
+    """The planted corruption: rank 0's plan of the cp=2 hetero key gets a
+    stage ``recv_sel`` that is not a permutation (two slots read one source
+    row). Under ``MAGI_ATTENTION_VALIDATE=plan`` the key raises
+    ``PlanValidationError`` on that rank before any kernel launch, with one
+    failure counted; the other rank's plan is clean. The outcomes are
+    gathered before either rank goes on."""
+    import numpy as np
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api, csrc, telemetry
+    from magiattention_tpu_torch.analysis import PlanValidationError
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.parallel import dist_attn
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cp_rank_setup()
+    rank, t = dist.get_rank(group), CP_ATTN_T
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    real = dist_attn._build_dist_attn_plan
+
+    def corrupt(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        if rank != 0:
+            return plan
+        comm = plan.stages[0].comm
+        rs = np.array(comm.recv_sel, copy=True)
+        d = next(i for i in range(comm.cp_size) if comm.recv_total[i] >= 2)
+        rs[d, 1] = rs[d, 0]
+        st0 = dataclasses.replace(plan.stages[0], comm=dataclasses.replace(comm, recv_sel=rs))
+        return dataclasses.replace(plan, stages=(st0,) + plan.stages[1:])
+
+    telemetry.set_enabled(True)
+    telemetry.reset()
+    raised = None
+    dist_attn._build_dist_attn_plan = corrupt
+    try:
+        with magi_flags(VALIDATE="plan"):
+            api.clear_cache()
+            csrc.reset_launch_counts()
+            try:
+                api.magi_attn_flex_key(qr, kr, ty, t, t, group, num_heads=ANALYSIS_HEADS,
+                                       head_dim=D, chunk_size=CP_CHUNK,
+                                       dist_attn_config=DistAttnConfig(
+                                           overlap_config=OverlapConfig(degree=ANALYSIS_DEGREE)))
+            except PlanValidationError as e:
+                raised = str(e)
+            launched = sum(csrc.launches.values())
+    finally:
+        dist_attn._build_dist_attn_plan = real
+        api.clear_cache()
+    checks, failures = _validate_counters()
+    telemetry.reset()
+    telemetry.set_enabled(None)
+    mine = {"rank": rank, "raised": raised, "launches": launched, "checks": checks,
+            "failures": failures}
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, mine, group=group)
+    return {"rank": rank, "every": every}
+
+
+def analysis_decode_probe(seed: int) -> dict:
+    """One real serving decode step on ``cuda:0`` at the serving phase's
+    widths (a 1000-token prompt prefilled, then one step): its (out, lse)
+    and the ``paged_decode`` launches it made."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(num_pages=16, num_kv_heads=HK, head_dim=D, page_size=PAGE, max_seqs=2,
+                           max_pages_per_seq=8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    prompt = [torch.randn((1000, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+              for h in (HQ, HK, HK)]
+    step = [torch.randn((1, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+            for h in (HQ, HK, HK)]
+    res = engine.admit(1000)
+    check(res.admitted, f"analysis decode probe: admission refused ({res.reason})")
+    engine.prefill(*prompt, res.slot)
+    before = csrc.launches["paged_decode"]
+    out, lse = engine.decode_step(*step, [res.slot])
+    torch.cuda.synchronize()
+    return {"out": out, "lse": lse, "paged_decode": csrc.launches["paged_decode"] - before,
+            "cache_type": type(engine.cache).__name__}
+
+
+def analysis_phase(pools, seed: int) -> dict:
+    """The ``analysis`` phase: ``MAGI_ATTENTION_VALIDATE`` on the keyed cp
+    path (cp=2 flat, hops and a2a, off / plan / trace; cp=4 as 2 x 2, off /
+    plan), the live collective records against the comm metas and the dry
+    records, the planted corruption, the interleaving checker's smoke
+    matrix and plants on this machine with a real decode step before and
+    after it, the upcast census on the card against the checked-in table,
+    and the port's lint and CLI self-test."""
+    import torch
+    from magiattention_tpu_torch.analysis import lifecycle as lc
+    from magiattention_tpu_torch.analysis import trace_audit as ta
+    from magiattention_tpu_torch.analysis.__main__ import main as analysis_cli
+    from magiattention_tpu_torch.analysis.lint import lint_errors
+
+    t0 = time.perf_counter()
+    flat = pools[2].run(analysis_cp_rank, seed, None)
+    parts_s = {"cp2": time.perf_counter() - t0}
+    hier = pools[4].run(analysis_cp_rank, seed, CP_HIER)
+    parts_s["cp4_2x2"] = time.perf_counter() - t0 - sum(parts_s.values())
+    launches = {}
+    for r in flat + hier:
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    for label, res in (("cp=2", flat), ("cp=4 2x2", hier)):
+        for r in res:
+            check(all(r["bitwise_equal_to_off"].values()) and r["bitwise_equal_to_off"],
+                  f"analysis {label} rank {r['rank']}: validation changed a bit: "
+                  f"{r['bitwise_equal_to_off']}")
+            check(r["validate_checks"] == r["plans_checked"] and r["validate_failures"] == 0,
+                  f"analysis {label} rank {r['rank']}: {r['validate_checks']} checks / "
+                  f"{r['validate_failures']} failures for {r['plans_checked']} plans built")
+            check(r["overlap_degree"] == ANALYSIS_DEGREE,
+                  f"analysis {label}: the plan has degree {r['overlap_degree']}")
+            check(set(r["launches"]) == set(TRAINING_KERNELS),
+                  f"analysis {label} rank {r['rank']}: launches {r['launches']}")
+    for impl in ANALYSIS_IMPLS:
+        for r in flat:
+            lv = r["live"][impl]
+            check(not lv["errors"], f"analysis cp=2 {impl} rank {r['rank']}: the live "
+                  f"records fail {lv['errors']}")
+            check(lv["census_fwd"] == lv["expected_fwd"] and lv["expected_fwd"]
+                  and lv["census_fwd_bwd"] == {o: 2 * c for o, c in lv["expected_fwd"].items()},
+                  f"analysis cp=2 {impl}: census {lv['census_fwd']} / {lv['census_fwd_bwd']} "
+                  f"against {lv['expected_fwd']}")
+    plant = pools[2].run(analysis_plant_rank, seed)[0]["every"]
+    parts_s["plant"] = time.perf_counter() - t0 - sum(parts_s.values())
+    check(plant[0]["raised"] is not None and "permutation" in plant[0]["raised"]
+          and plant[0]["failures"] == 1 and plant[0]["launches"] == 0
+          and plant[1]["raised"] is None and plant[1]["failures"] == 0,
+          f"analysis: the planted recv_sel corruption: {plant}")
+
+    # the interleaving checker on this machine, a real decode step around it
+    probe_before = analysis_decode_probe(seed)
+    lc_t0 = time.perf_counter()
+    errors, report = lc.run_lifecycle_check(smoke=True)
+    counts = {k: (r["states"], r["transitions"]) for k, r in report.items()}
+    plants = lc.run_mutation_self_test()
+    lc_s = time.perf_counter() - lc_t0
+    check(not errors and counts == ANALYSIS_LIFECYCLE and not plants,
+          f"analysis lifecycle: {counts} (want {ANALYSIS_LIFECYCLE}), errors {errors[:2]}, "
+          f"plants {plants}")
+    probe_after = analysis_decode_probe(seed)
+    check(probe_after["cache_type"] == "PagedKVCache" and probe_after["paged_decode"] >= 1
+          and probe_before["paged_decode"] >= 1
+          and torch.equal(probe_after["out"], probe_before["out"])
+          and torch.equal(probe_after["lse"], probe_before["lse"]),
+          "analysis: the decode step after the lifecycle check differs from the one before "
+          f"(stubs left behind?): {probe_after['cache_type']}, launches "
+          f"{probe_before['paged_decode']} / {probe_after['paged_decode']}")
+
+    parts_s["lifecycle_and_decode_probes"] = time.perf_counter() - t0 - sum(parts_s.values())
+
+    # the op census on the card: the same table as the CPU's
+    census_errors, census = ta.audit_dtypes(ta.load_expectations(), device="cuda")
+    check(not census_errors, f"analysis: the upcast census on the card: {census_errors}")
+    lint = lint_errors(os.path.dirname(os.path.abspath(__file__)))
+    check(not lint, f"analysis: the port does not lint clean: {lint}")
+    out = io.StringIO()  # the CLI's entry in this process: its report, not the smoke's lines
+    with contextlib.redirect_stdout(out):
+        rc = analysis_cli(["--only", "lint", "--only", "plan", "--self-test"])
+    check(rc == 0, f"analysis CLI --self-test exited {rc}: {out.getvalue()[-2000:]}")
+    parts_s["census_lint_cli"] = time.perf_counter() - t0 - sum(parts_s.values())
+    r0 = flat[0]
+    return {
+        "phase": "analysis", "tokens": CP_ATTN_T, "heads": list(ANALYSIS_HEADS),
+        "overlap_degree": ANALYSIS_DEGREE, "card": nvidia_smi_line(),
+        "plan_build_host_ms_rank0": {"cp2": r0["plan_build_host_ms"],
+                                     "cp4_2x2": hier[0]["plan_build_host_ms"]},
+        "note": "plan-build host ms: median of cold builds, the cp ranks sharing one card",
+        "bitwise_equal_to_off": {"cp2": [r["bitwise_equal_to_off"] for r in flat],
+                                 "cp4_2x2": [r["bitwise_equal_to_off"] for r in hier]},
+        "validate_checks": [r["validate_checks"] for r in flat + hier],
+        "validate_failures": sum(r["validate_failures"] for r in flat + hier),
+        "live": {impl: {k: flat[0]["live"][impl][k] for k in
+                        ("census_fwd", "census_fwd_bwd", "expected_fwd", "signature", "impls")}
+                 for impl in ANALYSIS_IMPLS},
+        "planted_recv_sel": {"raised": plant[0]["raised"][:160],
+                             "failures": plant[0]["failures"],
+                             "launches_before_raise": plant[0]["launches"]},
+        "lifecycle": {"counts": counts, "seconds": lc_s,
+                      "decode_probe_bitwise": True},
+        "upcast_census_card": census, "lint_findings": 0, "parts_s": parts_s,
+        "launches": launches, "wall_s": time.perf_counter() - t0,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7244,6 +7597,8 @@ def main(argv=None) -> int:
         prof_t0 = time.perf_counter()
         prof_parts["cp"] = prof_cp(pools, args.seed)
         prof_wall += time.perf_counter() - prof_t0
+        analysis_line = analysis_phase(pools, args.seed)
+        emit(analysis_line)
     finally:
         for pool in pools.values():
             pool.close()
@@ -7283,7 +7638,7 @@ def main(argv=None) -> int:
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
                "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
-               "tuning": tuning_line["launches"]}
+               "tuning": tuning_line["launches"], "analysis": analysis_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

@@ -163,6 +163,7 @@ def flags_fingerprint() -> tuple:
     from ..tuning.fingerprint import device_identity
 
     return (
+        env.is_deterministic_mode_enabled(),
         env.kernel_backend(),
         device_identity()[0],
         env.autotune_mode(),
@@ -196,8 +197,8 @@ def check_flag_comb(*, cp_group=None, uneven_shard: bool = False, xattn: bool = 
     :class:`~..comm.hier.HierCpGroups`: hierarchical, the JAX ``cp_axis``
     pair), qo-comm and cross-attention (``xattn``), a kernel backend that
     is not one of ``env.KERNEL_BACKENDS`` (a JAX name included), a guard or
-    chaos or numerics value outside its domain, and the validate flag the
-    port does not honour yet (``env.refuse_unhonoured_flags``)."""
+    chaos, numerics or validate value outside its domain
+    (``env.refuse_unhonoured_flags``)."""
     env.kernel_backend()  # raises on an unknown or JAX backend name
     env.refuse_unhonoured_flags("check_flag_comb")
     qo = env.is_qo_comm_enable()

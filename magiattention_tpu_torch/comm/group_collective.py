@@ -37,10 +37,22 @@ caught error: NCCL exchanges the CUDA tensors as they are; gloo takes
 CUDA tensors for the collectives in ``GLOO_CUDA_OPS`` and reads a host
 pointer in its send/recv, so the hops' rows are staged through pinned
 host buffers there (:func:`staging`); CPU tensors go as they are.
+
+The collective recorder (:func:`record_collectives`) is the port's
+counterpart of reading a jaxpr: while it is active, every collective the
+comm layer issues (:func:`all_to_all_rows`, :func:`exchange`, and
+``primitives.all_gather_v`` and the gradient all-reduce of
+``primitives.replicated``) appends one :class:`CollectiveRecord`, named as
+the JAX package's census names its primitives. ``live`` then issues the
+call; ``dry`` issues nothing and returns zeros of the shape the call
+returns, over a :class:`DryGroup` stand-in that carries the rank and the
+group size, so one process can record every rank's sequence without a
+wire (``analysis/trace_audit.py``, ``analysis/spmd_audit.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Sequence
@@ -420,6 +432,95 @@ def _hop_plans(send_map, num_local_rows, sizes, hop_specs, R) -> tuple[HopPlan, 
 GLOO_CUDA_OPS = frozenset({"all_to_all_single", "all_gather", "all_reduce", "broadcast"})
 
 
+# -- the collective recorder -------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A stand-in process group for a dry recording: this rank's position
+    ``rank`` in a group of ``size`` ranks, and the name of the axis (for a
+    hierarchical cast, the level) the group spans. No wire is behind it:
+    pass it only under ``record_collectives("dry")``."""
+
+    rank: int
+    size: int
+    axis: str = "cp"
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective the comm layer issued (or, dry, would have issued)."""
+
+    op: str  # the JAX census's name: all_to_all | ppermute | all_gather | psum
+    axis: str  # "cp" for a process group; a DryGroup's own axis name
+    rank: int  # this rank's position in the group
+    size: int  # the group's size
+    peers: tuple[int, int] | None  # a ppermute's (send to, receive from) group ranks
+    shape: tuple[int, ...]  # the payload this rank puts in
+    dtype: str
+
+
+class _Recording:
+    def __init__(self, mode: str):
+        self.mode = mode
+        self.records: list[CollectiveRecord] = []
+
+
+_RECORDINGS: list[_Recording] = []
+
+
+def recording() -> bool:
+    """Whether a :func:`record_collectives` block is active (the only cost
+    of the recorder when none is)."""
+    return bool(_RECORDINGS)
+
+
+@contextlib.contextmanager
+def record_collectives(mode: str = "live"):
+    """Record every collective the comm layer issues inside the block;
+    yields the list the :class:`CollectiveRecord` s are appended to, in
+    issue order. ``live`` records and then issues the real call; ``dry``
+    records, issues nothing and returns zeros of the shape the call returns
+    (groups may be :class:`DryGroup` s). Blocks nest: a record goes to every
+    active one, and any active dry block makes the call dry."""
+    if mode not in ("live", "dry"):
+        raise ValueError(f"record_collectives: mode {mode!r} must be 'live' or 'dry'")
+    rec = _Recording(mode)
+    _RECORDINGS.append(rec)
+    try:
+        yield rec.records
+    finally:
+        _RECORDINGS.remove(rec)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group``: a :class:`DryGroup`'s own, else
+    ``torch.distributed``'s."""
+    return group.rank if isinstance(group, DryGroup) else dist.get_rank(group)
+
+
+def group_size(group) -> int:
+    """``group``'s size: a :class:`DryGroup`'s own, else
+    ``torch.distributed``'s."""
+    return group.size if isinstance(group, DryGroup) else dist.get_world_size(group)
+
+
+def record_collective(op: str, group, payload: torch.Tensor, peers=None) -> bool:
+    """Append one record to every active recording; True when the call
+    must not be issued (a dry recording is active). A :class:`DryGroup`
+    outside a dry recording raises: it has no wire."""
+    dry = isinstance(group, DryGroup)
+    rec = CollectiveRecord(op, group.axis if dry else "cp", group_rank(group),
+                           group_size(group), peers, tuple(payload.shape), str(payload.dtype))
+    skip = False
+    for r in _RECORDINGS:
+        r.records.append(rec)
+        skip = skip or r.mode == "dry"
+    if dry and not skip:
+        raise ValueError(f"a DryGroup has no wire: {op} over it needs record_collectives('dry')")
+    return skip
+
+
 def staging(group, device: torch.device, op: str) -> bool:
     """True when ``op`` on ``device`` tensors must go through host buffers
     because ``group``'s backend does not take them: gloo on CUDA tensors
@@ -444,6 +545,8 @@ def all_to_all_rows(send: torch.Tensor, group) -> torch.Tensor:
     goes to rank j, block i of the result came from rank i (every backend
     takes the tensors where they are: gloo's all-to-all copies CUDA tensors
     through the host itself)."""
+    if recording() and record_collective("all_to_all", group, send):
+        return torch.zeros_like(send)
     send = send.contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
@@ -452,7 +555,11 @@ def all_to_all_rows(send: torch.Tensor, group) -> torch.Tensor:
 
 def exchange(send: torch.Tensor, to_rank: int, from_rank: int, group) -> torch.Tensor:
     """Send ``send`` to group rank ``to_rank`` and receive a buffer of the
-    same shape from ``from_rank``: one ``batch_isend_irecv``."""
+    same shape from ``from_rank``: one ``batch_isend_irecv``, the
+    ``ppermute`` of the JAX census."""
+    if recording() and record_collective("ppermute", group, send,
+                                         (int(to_rank), int(from_rank))):
+        return torch.zeros_like(send)
     send = send.contiguous()
     staged = staging(group, send.device, "batch_isend_irecv")
     s = _host(send) if staged else send

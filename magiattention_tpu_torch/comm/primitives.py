@@ -6,6 +6,8 @@ static per-rank sizes (host-known, like all routing here), variable splits
 are realized by padding to the max size, the same convention as
 ``GroupCollectiveMeta``. They take CUDA tensors on NCCL and on gloo
 (whose all-gather and all-to-all copy them through the host themselves).
+The all-gather and the all-reduce record themselves under
+``group_collective.record_collectives`` (``all_gather``, ``psum``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import group_collective as _gc
 from .group_collective import all_to_all_rows
 
 
@@ -28,7 +31,10 @@ def all_gather_v(x: torch.Tensor, sizes: Sequence[int], group) -> torch.Tensor:
         raise ValueError(f"x must be padded to {pad} rows, got {x.shape[0]}")
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in sizes]
-    dist.all_gather(parts, x, group=group)  # gloo copies CUDA tensors through the host
+    if _gc.recording() and _gc.record_collective("all_gather", group, x):
+        parts = [torch.zeros_like(x) for _ in sizes]
+    else:
+        dist.all_gather(parts, x, group=group)  # gloo copies CUDA tensors through the host
     return torch.cat([p[:s] for p, s in zip(parts, sizes)], dim=0)
 
 
@@ -69,6 +75,8 @@ class _SumGradOverGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
+        if _gc.recording() and _gc.record_collective("psum", ctx.group, g):
+            return torch.zeros_like(g), None
         dist.all_reduce(g, group=ctx.group)
         return g, None
 

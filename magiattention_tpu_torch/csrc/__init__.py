@@ -192,8 +192,10 @@ def reset_launch_counts() -> None:
 
 
 def _nvcc() -> str:
+    from .. import env
+
     path = shutil.which("nvcc")
-    toolkit = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    toolkit = os.path.join(env.cuda_home(), "bin", "nvcc")
     if path is None and os.path.exists(toolkit):
         path = toolkit
     if path is None:

@@ -449,6 +449,14 @@ def is_sanity_check_enabled() -> bool:
     return _env_bool("MAGI_ATTENTION_SANITY_CHECK", False)
 
 
+def is_deterministic_mode_enabled() -> bool:
+    """``MAGI_ATTENTION_DETERMINISTIC_MODE`` (default off), read as the JAX
+    package reads it. The port's kernels are deterministic by construction
+    (a fixed walk and merge order, no atomics), so the flag changes no
+    result; it is keyed in ``flags_fingerprint`` as in the JAX package."""
+    return _env_bool("MAGI_ATTENTION_DETERMINISTIC_MODE", False)
+
+
 def is_auto_range_merge_enable() -> bool:
     """Merge duplicate slices and the overlapping k-ranges of FULL slices
     before planning (``ops/range_merge.py``; ``MAGI_ATTENTION_AUTO_RANGE_MERGE``,
@@ -532,6 +540,15 @@ def kernel_backend() -> str:
     return v
 
 
+def cuda_home() -> str:
+    """The CUDA toolkit's root (``CUDA_HOME``, default ``/usr/local/cuda``):
+    ``csrc`` looks for ``nvcc`` in its ``bin`` when ``nvcc`` is not on
+    ``PATH``. Not a ``MAGI_ATTENTION_*`` flag, and not in
+    ``flags_fingerprint``: it picks the compiler, and the kernel library's
+    name hashes its sources."""
+    return _env_str("CUDA_HOME", "/usr/local/cuda")
+
+
 def is_cpp_backend_enabled() -> bool:
     """Build the host tables with the native entry emitter
     (``csrc/entry_table.cpp``, built with g++ on first use;
@@ -556,9 +573,18 @@ VALIDATE_MODES = ("off", "plan", "trace")
 
 def validate_mode() -> str:
     """Plan-sanitizer mode (``MAGI_ATTENTION_VALIDATE``: off | plan |
-    trace), validated here. The sanitizer is not ported (ROADMAP A.18), so
-    any mode but ``off`` is refused. Not in ``flags_fingerprint``: it never
-    changes what is built, as in the JAX package."""
+    trace), validated here, as in the JAX package:
+
+    - ``off`` (default): the plan-build hook is one predicate call;
+    - ``plan``: every ``build_dist_attn_plan`` output runs through
+      ``analysis.plan_sanity.validate_plan`` before it is returned;
+    - ``trace``: ``plan``, then the plan's collective audit
+      (``analysis.trace_audit.audit_plan_collectives``: each cast recorded
+      dry for every rank and counted against its comm meta).
+
+    A failing check raises ``analysis.PlanValidationError``. Not in
+    ``flags_fingerprint``: it never changes what is built, as in the JAX
+    package."""
     v = _env_str("MAGI_ATTENTION_VALIDATE", "off").strip().lower()
     if v not in VALIDATE_MODES:
         raise ValueError(f"MAGI_ATTENTION_VALIDATE={v!r} must be one of {VALIDATE_MODES}")
@@ -613,17 +639,14 @@ def chaos_spec() -> str:
 
 
 def refuse_unhonoured_flags(where: str) -> None:
-    """Raise ``ValueError`` naming ``where`` when a flag the port reads but
-    does not yet honour is set: ``MAGI_ATTENTION_VALIDATE`` (ROADMAP A.18).
-    A value outside a flag's domain raises its accessor's message first,
-    the guard, chaos and numerics flags' included."""
+    """Check the domains of the guard, chaos, numerics and validate flags
+    at an entry point (``where``): a value outside a flag's domain raises
+    its accessor's ``ValueError``, the JAX package's message. The port
+    honours every one of them, so no value inside its domain is refused."""
     guard_mode()
     chaos_spec()
     numerics_mode()
-    value = validate_mode()
-    if value not in ("", "off"):
-        raise ValueError(f"{where}: MAGI_ATTENTION_VALIDATE={value!r} is not honoured by the "
-                         "port yet (ROADMAP A.18 ports it); unset it or set it to 'off'")
+    validate_mode()
 
 
 def peak_tflops_override() -> float | None:

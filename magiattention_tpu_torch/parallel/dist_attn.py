@@ -411,7 +411,13 @@ def build_dist_attn_plan(
     raises, as there is nothing left to fall back to. With telemetry on the
     build is a span, and the plan's facts and build seconds are recorded
     (``telemetry.record_plan``); the seconds also go to the compile
-    tracker's solver accumulator (``telemetry.record_plan_solver``)."""
+    tracker's solver accumulator (``telemetry.record_plan_solver``).
+
+    Under ``MAGI_ATTENTION_VALIDATE=plan`` the plan then runs through
+    ``analysis.plan_sanity.validate_plan`` (against the bucket's mask area);
+    under ``trace`` also through ``analysis.trace_audit
+    .audit_plan_collectives``. A failing check raises
+    ``PlanValidationError``; nothing catches it."""
     from .. import telemetry
 
     kw = dict(kv_dispatch_meta=kv_dispatch_meta, block_q=block_q, block_k=block_k,
@@ -434,6 +440,20 @@ def build_dist_attn_plan(
     build_s = time.perf_counter() - t0
     telemetry.record_plan(plan, build_seconds=build_s)
     telemetry.record_plan_solver(build_s, cache_hit=False)
+    mode = env.validate_mode()
+    if mode != "off":
+        # after the fallback was decided and outside its try: a failing
+        # check raises to the caller, as in the JAX package
+        from ..analysis.plan_sanity import PlanValidationError, validate_plan
+
+        validate_plan(plan, total_area=bucket.area)
+        if mode == "trace":
+            from ..analysis.trace_audit import audit_plan_collectives
+
+            problems = audit_plan_collectives(plan)
+            if problems:
+                telemetry.record_validate(failed=True)
+                raise PlanValidationError("; ".join(problems))
     return plan
 
 
@@ -889,15 +909,14 @@ def dist_attn_local(
     rank's device: each site's summary, downstream of chaos and the guard,
     then the merge's softmax-mass deviation). Reductions of the partials
     in hand, no collective; the keyed runtime reads it."""
-    import torch.distributed as dist
-
+    from ..comm.group_collective import group_rank
     from ..resilience import chaos, guards
     from ..telemetry import numerics
 
     if params.has_sink != (sink is not None):
         raise ValueError("params.has_sink must match whether a sink is given")
     flat, group = _cast_groups(plan, group)
-    rank = dist.get_rank(flat)
+    rank = group_rank(flat)  # a DryGroup's own rank under a dry recording
     gmode = guards.guard_mode()
     code = guards.new_error_code(q.device) if with_guard_code else None
     # a hierarchical plan plants on every rank, as the JAX package does there

@@ -66,6 +66,7 @@ from .collectors import (  # noqa: F401
     REQUIRED_VALIDATE_METRICS,
     record_admission,
     record_admission_watermark,
+    record_analysis_run,
     record_autotune_cache,
     record_autotune_decision,
     record_autotune_measure_failure,
@@ -114,6 +115,7 @@ from .collectors import (  # noqa: F401
     record_tier_fault,
     record_tier_state,
     record_tuning_cache_io_error,
+    record_validate,
     telemetry_summary,
 )
 from .compile import (  # noqa: F401
@@ -345,6 +347,7 @@ __all__ = [
     "program",
     "record_admission",
     "record_admission_watermark",
+    "record_analysis_run",
     "record_autotune_cache",
     "record_autotune_decision",
     "record_autotune_measure_failure",
@@ -395,6 +398,7 @@ __all__ = [
     "record_tier_fault",
     "record_tier_state",
     "record_tuning_cache_io_error",
+    "record_validate",
     "render_prometheus",
     "request_context",
     "request_traces_to_chrome",

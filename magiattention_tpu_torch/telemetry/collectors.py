@@ -10,9 +10,10 @@ The port carries the recorders whose callers it has: the serving engine,
 scheduler and tiers, the memory and compile tracking, the request traces
 and the flight recorder, the resilience hooks, the plan solver's seconds,
 the cp planner, comm and keyed cache, the cost model, the roofline, the
-measured timeline, the value census and the kernel autotuner. The others
-come with the items that port their callers (ROADMAP): ``record_validate``
-and ``record_analysis_run`` (A.18), ``record_fleet_*`` (A.17).
+measured timeline, the value census, the kernel autotuner, the plan
+sanitizer (``record_validate``) and the interleaving checker
+(``record_analysis_run``). ``record_fleet_*`` comes with the port of its
+caller, ``fleet/`` (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -460,6 +461,29 @@ def record_shadow_check(
         bounds=_SHADOW_ULP_BOUNDS,
     )
     reg.counter_inc(M_NUMERICS_SHADOW_BREACHES, 1 if breached else 0)
+
+
+def record_analysis_run(states_explored: int, counterexamples: int) -> None:
+    """One interleaving-checker exploration (``analysis/lifecycle.py``):
+    canonical states visited and counterexamples found (0 increments still
+    materialize the series, so the catalog check sees a clean run)."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_ANALYSIS_STATES, max(int(states_explored), 0))
+    reg.counter_inc(M_ANALYSIS_CEX, max(int(counterexamples), 0))
+
+
+def record_validate(failed: bool) -> None:
+    """One plan-sanitizer outcome (``analysis/plan_sanity.py``): every
+    call ticks the checks counter, failures additionally tick the failure
+    counter."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_VALIDATE_CHECKS)
+    if failed:
+        reg.counter_inc(M_VALIDATE_FAILURES)
 
 
 def _enabled() -> bool:

@@ -171,3 +171,21 @@ def test_unified_tick_mode_is_validated_and_in_the_fingerprint(monkeypatch):
         monkeypatch.setenv("MAGI_ATTENTION_UNIFIED_TICK", mode)
         prints.add(interface.flags_fingerprint())
     assert len(prints) == 3
+
+
+@pytest.mark.parametrize("value", ["1", "true"])
+def test_deterministic_mode_is_read_as_jax_reads_it_and_keyed(value, monkeypatch):
+    """``MAGI_ATTENTION_DETERMINISTIC_MODE``: the JAX package keys it first in
+    its fingerprint, so two keys that differ only in it must differ in the
+    port too (the port's kernels are deterministic by construction: the flag
+    changes no result, only the key)."""
+    from magiattention_tpu import env as jax_env
+    from magiattention_tpu_torch import env
+
+    monkeypatch.delenv("MAGI_ATTENTION_DETERMINISTIC_MODE", raising=False)
+    before, jax_before = interface.flags_fingerprint(), jax_env.flags_fingerprint()
+    assert env.is_deterministic_mode_enabled() is jax_env.is_deterministic_mode_enabled()
+    monkeypatch.setenv("MAGI_ATTENTION_DETERMINISTIC_MODE", value)
+    assert env.is_deterministic_mode_enabled() is jax_env.is_deterministic_mode_enabled()
+    assert jax_env.flags_fingerprint() != jax_before
+    assert interface.flags_fingerprint() != before

@@ -1,12 +1,12 @@
 """The guard, chaos, validate and numerics flags in the port.
 
-The port honours ``MAGI_ATTENTION_GUARD`` and ``_CHAOS`` (``resilience/``)
-and ``_NUMERICS`` (the value census, ``telemetry/numerics.py``): set to a
-value that does not fire there (or, for the census, to ``census``),
-``check_flag_comb``, ``ServingEngine``, ``TieredEngine`` and
-``decode_attn_paged`` run and return what they return unset. It does not
-honour ``_VALIDATE`` yet (ROADMAP A.18): set to anything but ``off``, it
-makes those four entry points raise, naming the item that will honour it. A value
+The port honours ``MAGI_ATTENTION_GUARD`` and ``_CHAOS`` (``resilience/``),
+``_NUMERICS`` (the value census, ``telemetry/numerics.py``) and
+``_VALIDATE`` (the plan sanitizer, ``analysis/``): set to a value that does
+not fire there (or, for the census, to ``census``; for validate, to
+``plan``), ``check_flag_comb``, ``ServingEngine``, ``TieredEngine`` and
+``decode_attn_paged`` run and return what they return unset. Validate was
+the last flag those four entry points refused; none is refused now. A value
 outside a flag's domain raises the JAX package's ``ValueError``, word for
 word; guard, chaos and numerics are in ``flags_fingerprint`` and validate
 is not, as in the JAX package's ``env.py``."""
@@ -35,7 +35,7 @@ FLAGS = {  # variable -> (a value that is not off, the ROADMAP item that honours
     "MAGI_ATTENTION_NUMERICS": ("census", "A.15"),
 }
 HONOURED = ("MAGI_ATTENTION_GUARD", "MAGI_ATTENTION_CHAOS", "MAGI_ATTENTION_NUMERICS")
-REFUSED = ("MAGI_ATTENTION_VALIDATE",)
+FORMERLY_REFUSED = ("MAGI_ATTENTION_VALIDATE",)  # honoured since the sanitizer's port
 BAD = {  # variable -> a value outside its domain
     "MAGI_ATTENTION_GUARD": "bogus",
     "MAGI_ATTENTION_CHAOS": "decode_fault:times=x",
@@ -92,13 +92,25 @@ def _result(x):
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
-@pytest.mark.parametrize("name", REFUSED)
+@pytest.mark.parametrize("name", FORMERLY_REFUSED)
 def test_each_flag_is_refused_at_each_entry_point(name, entry, monkeypatch):
-    ENTRY_POINTS[entry]()  # unset: runs
-    value, item = FLAGS[name]
-    monkeypatch.setenv(name, value)
-    with pytest.raises(ValueError, match=rf"{entry}: {name}=.*ROADMAP {item}"):
+    """The flag these entry points refused until its item was ported is
+    honoured now: set inside its domain, each runs and returns what it
+    returns unset (the decode's out and lse bit for bit); outside it, each
+    raises the JAX package's message."""
+    want = _result(ENTRY_POINTS[entry]())
+    monkeypatch.setenv(name, FLAGS[name][0])
+    got = _result(ENTRY_POINTS[entry]())
+    if isinstance(want, tuple) and want and isinstance(want[0], np.ndarray):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    else:
+        assert got == want
+    monkeypatch.setenv(name, BAD[name])
+    with pytest.raises(ValueError) as expected:
+        JAX_ACCESSOR[name]()
+    with pytest.raises(ValueError) as refused:
         ENTRY_POINTS[entry]()
+    assert str(refused.value) == str(expected.value)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

@@ -63,13 +63,17 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "telemetry.trace", "telemetry.aggregate", "telemetry.exposition",
                 "telemetry.memory", "telemetry.timeline", "telemetry.roofline",
                 "telemetry.occupancy", "utils.cost", "tuning.fingerprint", "tuning.cache",
-                "tuning.cost_model", "tuning.autotuner"):
+                "tuning.cost_model", "tuning.autotuner", "analysis.plan_sanity",
+                "analysis.trace_audit", "analysis.spmd_audit", "analysis.lifecycle",
+                "analysis.lint", "analysis.__main__"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)
-        # the port's own: state to and from numpy; and the process spawner of
-        # the multi-rank tests (the JAX package's ranks are one process's mesh)
-        if rel in ("convert", os.path.join("testing", "dist")):
+        # the port's own: state to and from numpy; the process spawner of the
+        # multi-rank tests (the JAX package's ranks are one process's mesh);
+        # and the analysis CLI (the JAX package's is exps/run_static_analysis.py)
+        if rel in ("convert", os.path.join("testing", "dist"),
+                   os.path.join("analysis", "__main__")):
             continue
         assert os.path.exists(os.path.join(jax_root, rel + ".py")) or os.path.isdir(
             os.path.join(jax_root, rel)), rel

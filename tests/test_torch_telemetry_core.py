@@ -310,13 +310,14 @@ def test_flags_read_with_jax_validation(var, value, accessor, monkeypatch):
 
 
 def test_numerics_census_is_still_refused(monkeypatch):
-    """The census is honoured now (``telemetry/numerics.py``): only
-    ``MAGI_ATTENTION_VALIDATE`` is still refused, and a numerics value
-    outside its domain raises the JAX package's message."""
+    """The census is honoured (``telemetry/numerics.py``), and so is
+    ``MAGI_ATTENTION_VALIDATE`` since the sanitizer's port (``analysis/``):
+    no value in a flag's domain is refused, and a numerics value outside
+    its domain raises the JAX package's message."""
     monkeypatch.setenv("MAGI_ATTENTION_NUMERICS", "census")
     penv.refuse_unhonoured_flags("here")
-    monkeypatch.setenv("MAGI_ATTENTION_VALIDATE", "plan")
-    with pytest.raises(ValueError, match="A.18"):
+    for mode in ("plan", "trace", "off"):
+        monkeypatch.setenv("MAGI_ATTENTION_VALIDATE", mode)
         penv.refuse_unhonoured_flags("here")
     monkeypatch.delenv("MAGI_ATTENTION_VALIDATE")
     monkeypatch.setenv("MAGI_ATTENTION_NUMERICS", "full")
