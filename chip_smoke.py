@@ -91,7 +91,11 @@ Phases, each printing one JSON line:
    8192-token stream packed as documents [4096, 2048, 2048]: 6 AdamW steps
    on a fixed batch from ``--seed`` with the harness's blocking (row-major,
    head_block 2: ``flex_fwd_hb``), one layer's attention call of the first
-   step held against the plain forward and backward;
+   step held against the plain forward and backward; then the same run with
+   ``cfg.remat`` (each decoder layer under ``torch.utils.checkpoint``): its
+   six losses bit for bit the plain run's, its step ms and peak memory
+   beside the plain run's, and one more ``flex_fwd_hb`` a layer and step,
+   the recompute (``training_remat`` in the kernels line);
 6. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
    backward, on the 16384-token varlen block-causal mask (12 documents),
    once at the ``LlamaConfig`` attention widths (16 q / 8 kv heads) and
@@ -346,11 +350,31 @@ Phases, each printing one JSON line:
    after it, bit for bit (the stubs are gone); the upcast census of the cp
    runtime and the flex entry on the card equal to the checked-in table;
    the port linting clean and the analysis CLI's ``--self-test`` passing.
+25. fleet — ``fleet/`` on the card: one seeded trace (``FLEET_TRACE``:
+   MMPP arrivals at 0.5 a tick with bursts at 4, about 70 requests of
+   64-2048 prompt tokens, three in four opening with one of four 512-token
+   shared system prompts, lognormal outputs around 16 tokens) replayed by
+   ``fleet.FleetSimulator``'s own loop through the real engine on the card
+   at the serving widths (32 / 8 heads, d 128, bf16, pages of 128), in
+   single mode (``Scheduler``, budget 2048) and tiered mode (prefill=1,
+   decode=2x1, every tier on ``cuda:0``), each under the SLO autopilot with
+   knobs sized for this geometry; a subclass swaps the stubbed device layer
+   for the card, the requests for bf16 rows drawn on the card and the tick
+   clock for one that stamps each tick's start after a synchronise. Each
+   mode's report must equal the stubbed simulator's on the same trace,
+   request for request (TTFT, token latency, tokens, evictions, finish
+   tick), window for window and action for action; every request's prompt
+   tail and last decode output against plain attention over its own rows;
+   per mode the ticks, wall s, ms a tick, TTFT and token-latency ms (p50 /
+   p99), prefill and decode tokens/s, attainment, actions, peak concurrency
+   and pages, and the launches (``flex_fwd_hb`` and ``paged_decode``).
+   ``FleetSimulator.run`` resets the telemetry registry: it runs last.
 
 The line before the last lists the nine kernels with their launches on the
-main paths (and which paths launched them: ``block_sparse``, ``sink``,
-``cp_decode``, ``scheduler``, ``tiered``, ``resilience``, ``telemetry``,
-``profiling``, ``tuning`` and ``analysis`` among them; every path's launches must be in it), errors and times; the
+main paths (and which paths launched them: ``training_remat``,
+``block_sparse``, ``sink``, ``cp_decode``, ``scheduler``, ``tiered``,
+``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis`` and
+``fleet`` among them; every path's launches must be in it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -2668,6 +2692,8 @@ def training(seed: int, grads_path: str) -> dict:
     # a seventh step, after the six counted ones, under the profiler
     profile = profile_step(step, (tokens, labels, pos))
     med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    del cap, step, model  # the remat run's peak counts its own model only
+    remat = remat_training(cfg, (total, qr, kr, ts), seed, (tokens, labels, pos), losses)
     return {
         "phase": "training",
         "config": {**dataclasses.asdict(cfg), "n_layers_full": full.n_layers},
@@ -2684,7 +2710,48 @@ def training(seed: int, grads_path: str) -> dict:
         "max_memory_allocated_bytes": peak,
         "launches": launches,
         "profiled_extra_step": profile,
+        "remat": {**remat, "remat_off": {"median_step_ms_steps_2_to_6": med,
+                                         "peak_gb": peak / 1e9}},
     }
+
+
+def remat_training(cfg, mask, seed: int, batch, losses_off) -> dict:
+    """The training run again with ``cfg.remat`` (each decoder layer under
+    ``torch.utils.checkpoint``): the same weights from ``seed``, the same
+    batch and TRAIN_STEPS AdamW steps. Its losses must equal the plain run's
+    bit for bit (the kernels are deterministic, and the backward recomputes
+    each layer from the same input); each step runs one more ``flex_fwd_hb``
+    a layer, the recompute. The launch counts are zeroed just before it."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.models import build_magi_llama, make_model_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_llama(dataclasses.replace(cfg, remat=True), *mask, seed=seed)
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+    losses, step_ms = [], []
+    csrc.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    peak = torch.cuda.max_memory_allocated()
+    per_run = TRAIN_LAYERS * TRAIN_STEPS
+    check(launches == {"flex_fwd_hb": 2 * per_run, "flex_dq": per_run, "flex_dkv": per_run},
+          f"remat training launches {launches}, expected {2 * per_run} flex_fwd_hb (forward and "
+          f"recompute) and {per_run} flex_dq and flex_dkv")
+    check(losses == losses_off, f"remat losses {losses} differ from the plain run's {losses_off}")
+    del step, model
+    torch.cuda.empty_cache()
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    return {"losses": losses, "losses_equal_bitwise": True, "step_ms": step_ms,
+            "median_step_ms_steps_2_to_6": med, "max_memory_allocated_bytes": peak,
+            "peak_gb": peak / 1e9, "launches": launches,
+            "extra_flex_fwd_hb_per_step": (launches["flex_fwd_hb"] - per_run) / TRAIN_STEPS}
 
 
 # -- the heterogeneous-mask path ---------------------------------------------------
@@ -7455,6 +7522,322 @@ def analysis_phase(pools, seed: int) -> dict:
     }
 
 
+# -- the fleet layer: a seeded trace through the real engine ------------------------
+
+# generate_trace's arguments (the seed is --seed): MMPP arrivals, calm at 0.5
+# requests a tick and bursts at 4, 512-token shared system prompts (4 pages,
+# a zipf pool of 4) on 3 of 4 requests, chat-length suffixes, lognormal
+# outputs around 16 tokens, Llama-3.1-8B's vocabulary
+FLEET_TRACE = dict(horizon_ticks=64, arrival="mmpp", rate=0.5, burst_rate=4.0, burst_prob=0.05,
+                   calm_prob=0.25, page_size=PAGE, prefix_pool=4, prefix_pages=4,
+                   zipf_alpha=1.2, shared_fraction=0.75, suffix_len_range=(64, 1536),
+                   output_len_median=16, output_len_sigma=0.6, output_len_max=64, vocab=VOCAB)
+FLEET_GEOM = dict(num_pages=1024, max_seqs=64, max_pages_per_seq=24, chunk=SCHED_CHUNK)
+FLEET_MODES = {"single": dict(token_budget=SCHED_BUDGET),
+               "tiered": dict(dp=2, prefill_budget=SCHED_BUDGET, decode_budget=64)}
+FLEET_SLO = dict(ttft_p99_ticks=16, toklat_p99_ticks=8, attainment_target=0.9)
+FLEET_WINDOW, FLEET_COOLDOWN = 8, 3
+FLEET_KERNELS = ("flex_fwd", "flex_fwd_hb", "paged_decode")  # flex_fwd only at head_block 1
+
+
+def fleet_knob_specs(mode: str):
+    """The autopilot's knobs sized for this geometry (``default_knob_specs``
+    is sized for the simulator's toy budgets: its token_budget ceiling of
+    1024 would clamp 2048 on the first action); the admission watermark as
+    the package's."""
+    from magiattention_tpu_torch.fleet import KnobSpec, default_knob_specs
+
+    watermark = [s for s in default_knob_specs(mode) if s.name == "admission_watermark"]
+    if mode == "single":
+        return (KnobSpec("token_budget", 1024, 8192, 512, SCHED_BUDGET), *watermark)
+    return (KnobSpec("decode_budget", 16, 512, 16, 64),
+            KnobSpec("prefill_budget", 1024, 8192, 512, SCHED_BUDGET), *watermark)
+
+
+def fleet_sim_kwargs(mode: str) -> dict:
+    from magiattention_tpu_torch.fleet import Autopilot, SLOTargets
+
+    slo = SLOTargets(**FLEET_SLO)
+    pilot = Autopilot(slo, knob_specs=fleet_knob_specs(mode), cooldown_windows=FLEET_COOLDOWN)
+    return dict(mode=mode, autopilot=pilot, slo=slo, window_ticks=FLEET_WINDOW, **FLEET_GEOM,
+                **FLEET_MODES[mode])
+
+
+def fleet_card_simulator(seed: int):
+    """``fleet.FleetSimulator`` on the card: its replay loop, with the real
+    engine and scheduler (every tier on ``cuda:0`` in tiered mode) in place
+    of the stubbed device layer, bf16 requests drawn on the card, and a tick
+    clock that stamps each tick's start on the host clock once the card has
+    finished the previous tick. A request's rows come from generators seeded
+    by ``seed`` and its ``prefix_id`` (the shared prompt: two requests that
+    share it carry the same K/V) and by its ``rid`` (the rest)."""
+    import torch
+    from magiattention_tpu_torch.fleet import FleetSimulator, TickClock
+    from magiattention_tpu_torch.serving import (
+        Request,
+        Scheduler,
+        ServingEngine,
+        TieredEngine,
+        TieredScheduler,
+    )
+
+    class CardClock(TickClock):
+        def __init__(self):
+            self._t, self.stamps = 0.0, []
+
+        @property
+        def t(self):
+            return self._t
+
+        @t.setter
+        def t(self, value):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            self._t = value
+
+    def rows(g, t):
+        return [torch.randn((t, h, D), generator=g, device="cuda").to(torch.bfloat16)
+                for h in (HQ, HK, HK)]
+
+    class CardFleet(FleetSimulator):
+        def __init__(self, trace, **kw):
+            super().__init__(trace, **kw)
+            prefix_len = trace.meta["prefix_pages"] * trace.page_size
+            prefixes, self.rows = {}, {}
+            for tr in trace.requests:  # drawn before the replay: no tick pays for them
+                g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + tr.rid)
+                head = 0
+                if tr.prefix_id >= 0:
+                    if tr.prefix_id not in prefixes:
+                        pg = torch.Generator(device="cuda").manual_seed(
+                            seed * 1_000_003 + 500_000 + tr.prefix_id)
+                        prefixes[tr.prefix_id] = rows(pg, prefix_len)
+                    head = prefix_len
+                prompt = rows(g, tr.prompt_len - head)
+                if head:
+                    prompt = [torch.cat([p, x]) for p, x in zip(prefixes[tr.prefix_id], prompt)]
+                self.rows[tr.rid] = (prompt, rows(g, tr.output_len))
+            self.reports, self.plan_ms, self.peak_pages, self.cascade_steps = [], [], 0, 0
+
+        def _device_layer(self):
+            return contextlib.nullcontext()
+
+        def _make_clock(self):
+            self.clock = CardClock()
+            return self.clock
+
+        def _build_stack(self, clock):
+            geom = dict(num_pages=self.num_pages, page_size=self.trace.page_size,
+                        max_seqs=self.max_seqs, max_pages_per_seq=self.max_pages_per_seq,
+                        num_kv_heads=HK, head_dim=D, dtype=torch.bfloat16)
+            if self.mode == "single":
+                engine = ServingEngine(device="cuda", **geom)
+                sched = Scheduler(engine, token_budget=self.token_budget, chunk=self.chunk,
+                                  max_decode_batch=self.max_decode_batch, clock=clock)
+                pools = [engine.allocator]
+            else:
+                engine = TieredEngine(
+                    mesh_spec={"prefill": 1, "decode_dp": self.dp, "decode_tp": 1},
+                    devices=["cuda:0"] * (1 + self.dp), stream_queue_max=self.stream_queue_max,
+                    **geom)
+                sched = TieredScheduler(engine, prefill_budget=self.prefill_budget,
+                                        decode_budget=self.decode_budget, chunk=self.chunk,
+                                        max_decode_batch=self.max_decode_batch, clock=clock)
+                pools = [engine.allocator] + [r.engine.allocator for r in engine.replicas]
+            step = sched.step
+
+            def recorded_step():
+                with host_split() as spent:  # the tick's host ms in the plan builder
+                    rep = step()
+                self.reports.append(rep)
+                self.plan_ms.append(spent["plan"] + spent["table_upload"])
+                self.peak_pages = max(self.peak_pages, sum(p.pages_in_use for p in pools))
+                info = engine.last_decode_info or {}
+                self.cascade_steps += bool(rep.decode_ran and info.get("cascade_groups"))
+                return rep
+
+            sched.step = recorded_step
+            self.sched, self.engine = sched, engine
+            return sched, engine
+
+        def _mk_request(self, tr):
+            (q, k, v), (dq, dk, dv) = self.rows[tr.rid]
+            return Request(rid=tr.rid, prompt_q=q, prompt_k=k, prompt_v=v, decode_q=dq,
+                           decode_k=dk, decode_v=dv, tokens=list(tr.prompt_tokens),
+                           max_new_tokens=tr.output_len, priority=tr.priority,
+                           trace_id=f"fleet-{self.trace.name}-{tr.rid}")
+
+    return CardFleet
+
+
+def plain_last_row(q, k, v):
+    """Plain attention of one query row [hq, d] over every key [t, hk, d],
+    in float32."""
+    import torch
+
+    g = q.shape[0] // k.shape[1]
+    kk, vv = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    s = torch.einsum("hd,thd->ht", q.float(), kk) / math.sqrt(q.shape[-1])
+    return torch.einsum("ht,thd->hd", torch.softmax(s, dim=-1), vv)
+
+
+def pct(xs, q: float) -> float | None:
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def fleet_cold_start() -> None:
+    """Drop the process's plans, their device tables and the tuning memos:
+    each mode's replay starts as a fresh server would, with no plan an
+    earlier phase or mode built."""
+    from magiattention_tpu_torch.ops import flex_attn as fa
+    from magiattention_tpu_torch.tuning import reset_tuning_cache
+
+    for cached in (fa._cached_meta, fa.fwd_tables, fa.bwd_tables, fa.sparse_work):
+        cached.cache_clear()
+    reset_tuning_cache()
+
+
+def fleet_run(mode: str, trace, card_cls) -> dict:
+    """One mode's replay on the card and through the stubbed simulator: the
+    reports equal request for request, window for window and action for
+    action; each request's prompt tail and last decode output against the
+    plain attention of its own rows; per-tick, TTFT and token-latency ms from
+    the tick stamps."""
+    import torch
+    from magiattention_tpu_torch import csrc, telemetry
+    from magiattention_tpu_torch.fleet import FleetSimulator
+
+    sim = card_cls(trace, **fleet_sim_kwargs(mode))
+    fleet_cold_start()
+    csrc.reset_launch_counts()
+    try:
+        rep = sim.run()
+        torch.cuda.synchronize()
+        sim.clock.stamps.append(time.perf_counter())  # the last tick's end
+        launches = {n: csrc.launches[n] for n in csrc.launches if csrc.launches[n]}
+        stub = FleetSimulator(trace, **fleet_sim_kwargs(mode)).run()
+    finally:
+        telemetry.set_enabled(None)
+    fields = ("rid", "arrival_tick", "ttft_ticks", "toklat_ticks", "tokens", "evictions",
+              "finish_tick")
+    diffs = [(a.rid, [f for f in fields if getattr(a, f) != getattr(b, f)])
+             for a, b in zip(rep.requests, stub.requests)]
+    equal = (len(rep.requests) == len(stub.requests) and not any(d for _, d in diffs)
+             and rep.windows == stub.windows and rep.actions == stub.actions)
+    check(equal, f"fleet {mode}: the card's replay differs from the stubbed simulator's: "
+          f"{[d for d in diffs if d[1]][:5]}, windows equal {rep.windows == stub.windows}, "
+          f"actions {rep.actions} vs {stub.actions}")
+    check(rep.offered == trace.num_requests and rep.finished == rep.offered,
+          f"fleet {mode}: {rep.finished} of {rep.offered} requests finished "
+          f"({trace.num_requests} in the trace)")
+    check(set(launches) <= set(FLEET_KERNELS) and launches.get("flex_fwd_hb", 0) > 0
+          and launches.get("paged_decode", 0) > 0,
+          f"fleet {mode} launches {launches}: flex_fwd_hb and paged_decode, and no other "
+          "kernel than flex_fwd")
+    worst = {"flex_fwd_hb": 0.0, "paged_decode": 0.0}
+    for rid, st in sim.sched._finished.items():
+        (q, k, v), (dq, dk, dv) = sim.rows[rid]
+        n = st.tokens_done
+        check(st.prefill_out_tail is not None and n == st.request.max_new_tokens
+              and len(st.decode_outs) >= n, f"fleet {mode}: request {rid} finished without "
+              "its outputs")
+        for kernel, got, ref in (
+                ("flex_fwd_hb", st.prefill_out_tail, plain_last_row(q[-1], k, v)),
+                ("paged_decode", st.decode_outs[-1],
+                 plain_last_row(dq[n - 1], torch.cat([k, dk[:n]]), torch.cat([v, dv[:n]])))):
+            errs, failed = out_errors(got, ref, [])
+            check(not failed, f"fleet {mode}: request {rid}'s {kernel} output fails {failed}: "
+                  f"{errs}")
+            worst[kernel] = max(worst[kernel], errs["out_max_abs_err"])
+    for kernel, e in worst.items():
+        MAX_ERR[kernel] = max(MAX_ERR[kernel], e)
+    stamps = sim.clock.stamps
+    check(len(stamps) == rep.ticks_run + 1, f"fleet {mode}: {len(stamps)} stamps for "
+          f"{rep.ticks_run} ticks")
+    tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ttft_ms, toklat_ms, plan_share = [], [], []
+    arrivals = {r.rid: r.arrival_tick for r in trace.requests}
+    for st in sim.sched._finished.values():
+        arrival = arrivals[st.rid]
+        first, last = int(st.first_token_at), int(st.last_token_at)
+        ttft_ms.append((stamps[first + 1] - stamps[arrival]) * 1e3)
+        plan_share.append(sum(sim.plan_ms[arrival:first + 1]) / ttft_ms[-1])
+        if st.tokens_done > 1:
+            toklat_ms.append((stamps[last + 1] - stamps[first + 1]) * 1e3 / (st.tokens_done - 1))
+    wall_s = stamps[-1] - stamps[0]
+    prefill_tokens = sum(n for r in sim.reports for _rid, n in r.prefill_chunks)
+    decode_tokens = sum(r.decode_batch for r in sim.reports)
+    return {
+        "ticks": rep.ticks_run, "wall_s": wall_s,
+        "ms_per_tick": {"p50": pct(tick_ms, 50), "p99": pct(tick_ms, 99), "max": max(tick_ms)},
+        "ttft_ms": {"p50": pct(ttft_ms, 50), "p99": pct(ttft_ms, 99)},
+        # the plan builder's host ms (plan and table upload) over a request's
+        # ticks from arrival to first token, as a share of its TTFT
+        "plan_share_of_ttft": {"p50": pct(plan_share, 50), "p99": pct(plan_share, 99)},
+        "plan_ms_total": sum(sim.plan_ms),
+        "ticks_with_a_plan_build": sum(ms > 0 for ms in sim.plan_ms),
+        "cascade_decode_steps": sim.cascade_steps,
+        "token_latency_ms": {"p50": pct(toklat_ms, 50), "p99": pct(toklat_ms, 99)},
+        "ttft_ticks": {"p50": rep.ttft_p50, "p99": rep.ttft_p99},
+        "token_latency_ticks_p99": rep.toklat_p99,
+        "prefill_tokens": prefill_tokens, "decode_tokens": decode_tokens,
+        "prefill_tokens_per_s": prefill_tokens / wall_s,
+        "decode_tokens_per_s": decode_tokens / wall_s,
+        "offered": rep.offered, "finished": rep.finished,
+        "attainment_offered": rep.attainment_offered, "goodput_tokens": rep.goodput_tokens,
+        "actions": [list(a) for a in rep.actions], "final_knobs": rep.final_knobs,
+        "holds": sorted({h[1] for w in rep.windows for h in w.get("holds", [])}),
+        "peak_concurrent": rep.peak_concurrent, "peak_pages_in_use": sim.peak_pages,
+        "evictions": sum(r.evictions for r in rep.requests),
+        "equal_to_stub": equal, "out_max_abs_err": worst, "launches": launches,
+        "per_tick_ms": tick_ms, "per_tick_plan_ms": sim.plan_ms,
+    }
+
+
+def fleet_phase(seed: int) -> dict:
+    """The ``fleet`` phase: one seeded MMPP trace of shared-prefix chat
+    requests replayed by the fleet simulator's own loop through the real
+    engine on the card at the serving widths, in single and tiered mode
+    under the SLO autopilot, each against the stubbed simulator on the same
+    trace. ``FleetSimulator.run`` resets the telemetry registry, so no phase
+    that reads the builds' compile records may come after this one."""
+    import torch
+    from magiattention_tpu_torch.fleet import generate_trace
+    from magiattention_tpu_torch.fleet.workload import validate_trace
+
+    t0 = time.perf_counter()
+    trace = generate_trace("card", seed=seed, **FLEET_TRACE)
+    check(not validate_trace(trace), f"fleet: the trace fails its lint: {validate_trace(trace)}")
+    card_cls = fleet_card_simulator(seed)
+    modes = {}
+    for mode in FLEET_MODES:
+        modes[mode] = fleet_run(mode, trace, card_cls)
+        torch.cuda.empty_cache()
+    launches = {}
+    for line in modes.values():
+        for n, c in line["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    prompt = [len(r.prompt_tokens) for r in trace.requests]
+    return {
+        "phase": "fleet", "card": nvidia_smi_line(),
+        "heads": {"hq": HQ, "hk": HK, "head_dim": D}, "dtype": "bfloat16", "page": PAGE,
+        "trace": {"requests": trace.num_requests, "horizon_ticks": trace.horizon_ticks,
+                  "prompt_tokens": {"min": min(prompt), "max": max(prompt),
+                                    "total": sum(prompt)},
+                  "shared": sum(r.prefix_id >= 0 for r in trace.requests),
+                  "output_tokens": sum(r.output_len for r in trace.requests),
+                  "offered_per_tick": [int(x) for x in trace.offered_per_tick()]},
+        "geometry": {**FLEET_GEOM, **{m: FLEET_MODES[m] for m in FLEET_MODES}},
+        "slo": FLEET_SLO, "window_ticks": FLEET_WINDOW, "cooldown_windows": FLEET_COOLDOWN,
+        "note": "ms from host stamps at each tick's start after a synchronise; TTFT = the "
+                "first-token tick's end less the arrival tick's start; each mode starts with "
+                "no plan cached (fleet_cold_start)",
+        "modes": modes, "launches": launches, "wall_s": time.perf_counter() - t0,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7624,10 +8007,13 @@ def main(argv=None) -> int:
     tuning_line = tuning_phase(gen, dec_t, tune_serving, sched_line, profiling_line,
                                time.perf_counter() - tune_wall)
     emit(tuning_line)
+    fleet_line = fleet_phase(args.seed)  # resets the telemetry registry: no reader after it
+    emit(fleet_line)
 
     # launches on the main paths: each path's counts were zeroed just before it
     by_path = {"serving": summary["launches"], "serving_mha": mha["launches"],
                "prefix": prefix_line["launches"], "training": train["launches"],
+               "training_remat": train["remat"]["launches"],
                "hetero": hetero_line["launches"], "block_sparse": block_sparse_line["launches"],
                "sink": sink_line["launches"], "cp_attn": cp_attn_line["launches"],
                "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
@@ -7638,7 +8024,8 @@ def main(argv=None) -> int:
                "cp_decode": cp_decode_line["launches"], "scheduler": sched_line["launches"],
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
                "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
-               "tuning": tuning_line["launches"], "analysis": analysis_line["launches"]}
+               "tuning": tuning_line["launches"], "analysis": analysis_line["launches"],
+               "fleet": fleet_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

@@ -354,6 +354,63 @@ def tier_token_budget(tier: str) -> int:
     return v
 
 
+# -- the fleet simulator and autopilot (the JAX package's names, defaults and
+# messages; host behaviour only, none of them in flags_fingerprint) ------------
+
+
+def fleet_window_ticks() -> int:
+    """Scheduler ticks per autopilot evaluation window
+    (``MAGI_ATTENTION_FLEET_WINDOW``, default 16): the ``FleetSimulator``
+    snapshots the registry every N ticks and hands the ``snapshot_delta``
+    to the autopilot. Smaller windows react faster but see noisier SLO
+    samples."""
+    v = _env_int("MAGI_ATTENTION_FLEET_WINDOW", 16)
+    if v < 1:
+        raise ValueError(
+            f"MAGI_ATTENTION_FLEET_WINDOW={v} must be a positive tick count"
+        )
+    return v
+
+
+def fleet_cooldown_windows() -> int:
+    """Autopilot per-knob cooldown (``MAGI_ATTENTION_FLEET_COOLDOWN``,
+    default 3): after a knob moves, it is frozen for this many evaluation
+    windows, the anti-oscillation half of the controller's contract."""
+    v = _env_int("MAGI_ATTENTION_FLEET_COOLDOWN", 3)
+    if v < 1:
+        raise ValueError(
+            f"MAGI_ATTENTION_FLEET_COOLDOWN={v} must be a positive "
+            "window count"
+        )
+    return v
+
+
+def fleet_slo_ttft_ticks() -> float:
+    """Default p99 time-to-first-token SLO in logical ticks
+    (``MAGI_ATTENTION_FLEET_SLO_TTFT``, default 16.0) of
+    ``fleet.SLOTargets``; explicit arguments win."""
+    v = _env_float("MAGI_ATTENTION_FLEET_SLO_TTFT", 16.0)
+    if v <= 0:
+        raise ValueError(
+            f"MAGI_ATTENTION_FLEET_SLO_TTFT={v} must be a positive tick "
+            "count"
+        )
+    return v
+
+
+def fleet_slo_toklat_ticks() -> float:
+    """Default p99 per-token decode-latency SLO in logical ticks
+    (``MAGI_ATTENTION_FLEET_SLO_TOKLAT``, default 8.0) of
+    ``fleet.SLOTargets``; explicit arguments win."""
+    v = _env_float("MAGI_ATTENTION_FLEET_SLO_TOKLAT", 8.0)
+    if v <= 0:
+        raise ValueError(
+            f"MAGI_ATTENTION_FLEET_SLO_TOKLAT={v} must be a positive "
+            "tick count"
+        )
+    return v
+
+
 # -- context parallelism (the same names, defaults and validation as the JAX
 # package's env.py) -------------------------------------------------------------
 

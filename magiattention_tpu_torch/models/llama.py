@@ -27,9 +27,14 @@ Two layouts:
   two-level comm for the attention; the loss count, the gradient sum and
   the shards use its flat group.
 
-Data, tensor and pipeline parallelism (``llama_pp``) and rematerialisation
-are not ported yet: ``cfg.remat`` is kept so that configurations carry
-across, and the builder refuses it.
+``cfg.remat`` rematerialises each decoder layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), as the JAX model wraps its
+layer in ``jax.checkpoint``: only each layer's input is saved, and the
+backward runs the layer's forward again, attention kernels and (under cp)
+the attention's casts and max-logit all-reduce included, on every rank in
+the same order. Telemetry, guard and census records therefore count the
+recomputed calls too (JAX counts a traced program once). Data, tensor and
+pipeline parallelism (``llama_pp``) are not ported yet.
 
 The builder resolves ``(block_q, block_k, head_block)`` once through
 ``_common.resolve_harness_blocking``, as the JAX builder does: by default
@@ -47,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.block_meta import FlexAttnBlockMeta, build_block_meta
 from ..ops.flex_attn import flex_attn_with_meta
@@ -66,7 +72,9 @@ class LlamaConfig:
     ffn_hidden: int = 5632
     rope_theta: float = 500000.0
     dtype: str = "bfloat16"
-    # recompute each layer in backward: not in this slice (the builder refuses it)
+    # recompute each decoder layer in backward (torch.utils.checkpoint):
+    # activation memory drops from O(layers x t x dim) to O(t x dim) at
+    # about a third more FLOPs
     remat: bool = False
 
     @property
@@ -224,7 +232,11 @@ class MagiLlama(nn.Module):
         dt = self.cfg.torch_dtype
         x = self.embed.to(dt)[tokens]
         for layer in self.layers:
-            x = layer(x, pos, self.cfg, self.attention)
+            if self.cfg.remat:
+                # save only the layer's input; the backward runs it again
+                x = checkpoint(layer, x, pos, self.cfg, self.attention, use_reentrant=False)
+            else:
+                x = layer(x, pos, self.cfg, self.attention)
         x = _rms_norm(x, self.final_norm)
         return (x @ self.lm_head.to(dt)).float()
 
@@ -294,10 +306,6 @@ def build_magi_llama(
         raise RuntimeError(
             "build_magi_llama(device='cuda'): no CUDA device is available; "
             "pass device='cpu' to run the plain versions"
-        )
-    if cfg.remat:
-        raise NotImplementedError(
-            "cfg.remat (layer rematerialisation) is not in the port yet (ROADMAP queue A item 16)"
         )
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError(f"n_heads {cfg.n_heads} is not a multiple of n_kv_heads {cfg.n_kv_heads}")

@@ -79,6 +79,12 @@ from .collectors import (  # noqa: F401
     record_dispatch_meta,
     record_dispatch_solution,
     record_dynamic_solution,
+    record_fleet_autopilot_action,
+    record_fleet_autopilot_hold,
+    record_fleet_finished,
+    record_fleet_knob,
+    record_fleet_offered,
+    record_fleet_window,
     record_group_collective_build,
     record_guard_check,
     record_guard_repair,
@@ -361,6 +367,12 @@ __all__ = [
     "record_dispatch_solution",
     "record_dynamic_solution",
     "record_event",
+    "record_fleet_autopilot_action",
+    "record_fleet_autopilot_hold",
+    "record_fleet_finished",
+    "record_fleet_knob",
+    "record_fleet_offered",
+    "record_fleet_window",
     "record_group_collective_build",
     "record_guard_check",
     "record_guard_repair",

@@ -12,8 +12,8 @@ and the flight recorder, the resilience hooks, the plan solver's seconds,
 the cp planner, comm and keyed cache, the cost model, the roofline, the
 measured timeline, the value census, the kernel autotuner, the plan
 sanitizer (``record_validate``) and the interleaving checker
-(``record_analysis_run``). ``record_fleet_*`` comes with the port of its
-caller, ``fleet/`` (ROADMAP A.17).
+(``record_analysis_run``) and the fleet simulator and autopilot
+(``record_fleet_*``).
 """
 
 from __future__ import annotations
@@ -1055,6 +1055,77 @@ def record_tier_state(
         labels["replica"] = replica
     reg.gauge_set(M_TIER_PAGES_USED, int(pages_in_use), **labels)
     reg.gauge_set(M_TIER_ACTIVE, int(active), tier=tier)
+
+
+def record_fleet_offered(n: int = 1) -> None:
+    """``n`` trace arrivals presented to the fleet this tick (counted
+    whether or not admission accepted them — offered load)."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_FLEET_OFFERED, int(n))
+
+
+def record_fleet_finished(
+    *, ttft_ticks: float, token_latency_ticks: float,
+    tokens: int, slo_ok: bool,
+) -> None:
+    """One request finished: served counter, tick-unit latency
+    histograms, and — only when it met its SLO — the slo-ok counter and
+    its tokens into goodput."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_FLEET_SERVED)
+    reg.histogram_observe(
+        H_FLEET_TTFT_TICKS, float(ttft_ticks), bounds=_FLEET_TICK_BOUNDS
+    )
+    reg.histogram_observe(
+        H_FLEET_TOKLAT_TICKS, float(token_latency_ticks),
+        bounds=_FLEET_TICK_BOUNDS,
+    )
+    if slo_ok:
+        reg.counter_inc(M_FLEET_SLO_OK)
+        reg.counter_inc(M_FLEET_GOODPUT, int(tokens))
+
+
+def record_fleet_window(
+    *, slo_attainment: float, concurrent: int
+) -> None:
+    """End of one autopilot window: the window's SLO attainment (of the
+    requests that finished in it) and the in-flight request count."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.gauge_set(M_FLEET_SLO_ATTAINMENT, float(slo_attainment))
+    reg.gauge_set(M_FLEET_CONCURRENT, int(concurrent))
+
+
+def record_fleet_autopilot_action(
+    knob: str, direction: str, value: float
+) -> None:
+    """The autopilot retuned one knob (``direction`` up|down) to
+    ``value`` — action counter + live knob gauge."""
+    if not _enabled():
+        return
+    reg = get_registry()
+    reg.counter_inc(M_FLEET_AUTOPILOT_ACTIONS, knob=knob,
+                    direction=direction)
+    reg.gauge_set(M_FLEET_KNOB, float(value), knob=knob)
+
+
+def record_fleet_autopilot_hold(reason: str) -> None:
+    """The autopilot evaluated a window and deliberately did NOT act
+    (``reason``: steady|cooldown|hysteresis|fault|bounds|reversal)."""
+    if not _enabled():
+        return
+    get_registry().counter_inc(M_FLEET_AUTOPILOT_HOLDS, reason=reason)
+
+
+def record_fleet_knob(knob: str, value: float) -> None:
+    """Seed/refresh a knob gauge without an action (initial values)."""
+    if not _enabled():
+        return
+    get_registry().gauge_set(M_FLEET_KNOB, float(value), knob=knob)
 
 
 # ---------------------------------------------------------------------------

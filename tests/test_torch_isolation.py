@@ -65,7 +65,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "telemetry.occupancy", "utils.cost", "tuning.fingerprint", "tuning.cache",
                 "tuning.cost_model", "tuning.autotuner", "analysis.plan_sanity",
                 "analysis.trace_audit", "analysis.spmd_audit", "analysis.lifecycle",
-                "analysis.lint", "analysis.__main__"):
+                "analysis.lint", "analysis.__main__", "fleet.workload", "fleet.autopilot",
+                "fleet.sim", "fleet.capacity"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

@@ -153,10 +153,103 @@ def test_init_params_scheme():
     assert torch.equal(p["lm_head"], q["lm_head"])  # the generator decides the draws
 
 
-def test_builder_refuses_remat():
+def _remat_model(jax_params, remat):
     qr, kr, ts = infer_attn_mask_from_cu_seqlens(CU)
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_magi_llama(LlamaConfig(**FIELDS, remat=True), TOTAL, qr, kr, ts, device="cpu")
+    return build_magi_llama(LlamaConfig(**FIELDS, remat=remat), TOTAL, qr, kr, ts,
+                            params=convert.llama_params_from_numpy(jax_params), device="cpu")
+
+
+def test_remat_step_equals_the_plain_step(jax_run, monkeypatch):
+    """One train step with each decoder layer rematerialised gives the loss,
+    gradients and updated weights of the plain step (rtol 1e-6), and the
+    backward runs every layer's attention forward again."""
+    from magiattention_tpu_torch.models import llama
+
+    calls = []
+    real = llama.flex_attn_with_meta
+    monkeypatch.setattr(llama, "flex_attn_with_meta",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = {}
+    for remat in (False, True):
+        model = _remat_model(jax_run["params"], remat)
+        calls.clear()
+        loss = model.loss(*_batch())
+        loss.backward()
+        grads = dict(_leaves(convert.llama_params_to_numpy(model, grad=True)))
+        forward_calls = len(calls)
+        model.zero_grad()
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=BETAS, eps=EPS,
+                                weight_decay=WD)
+        step_loss = float(make_model_train_step(model, opt)(*_batch()))
+        out[remat] = (float(loss), grads, step_loss, forward_calls,
+                      dict(_leaves(convert.llama_params_to_numpy(model))))
+    (loss0, grads0, step0, calls0, w0), (loss1, grads1, step1, calls1, w1) = out[False], out[True]
+    # a forward per layer and stream, and under remat the same again in the backward
+    assert calls0 == FIELDS["n_layers"] * BATCH and calls1 == 2 * calls0
+    np.testing.assert_allclose(loss1, loss0, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(step1, step0, rtol=1e-6, atol=0)
+    for name, g in grads0.items():
+        np.testing.assert_allclose(grads1[name], g, rtol=1e-6, atol=1e-9, err_msg=name)
+    for name, w in w0.items():
+        np.testing.assert_allclose(w1[name], w, rtol=1e-6, atol=1e-9, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_remat_run():
+    """The JAX oracle's loss and gradients with ``remat=True``
+    (``jax.checkpoint`` around each layer)."""
+    with pytest.MonkeyPatch.context() as mp:
+        jax_backend(mp)
+        cfg = jax_models.LlamaConfig(**FIELDS, remat=True)
+        mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "cp"))
+        qr, kr, ts = jax_mask(CU)
+        model, meta = jax_models.build_magi_llama(
+            cfg, mesh, TOTAL, qr, kr, ts, chunk_size=CHUNK, block_q=32, block_k=32)
+        params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                              jax_models.init_params(jax.random.PRNGKey(0), cfg))
+        tokens_g, labels_g = _tokens()
+        tokens = jax.vmap(lambda x: dispatch(x, meta))(jnp.asarray(tokens_g))
+        labels = jax.vmap(lambda x: dispatch(x, meta))(jnp.asarray(labels_g))
+        pos = jnp.broadcast_to(jnp.asarray(meta.perm_idx), (BATCH, TOTAL))
+        loss, grads = jax.jit(jax.value_and_grad(model.loss_fn))(
+            params, tokens, labels, pos, model.sharded_tables())
+        out = jax.tree.map(np.array, {"params": params, "grads": grads})
+        return {**out, "loss": float(loss)}
+
+
+def test_remat_loss_and_every_gradient_match_jax_remat(jax_remat_run):
+    model = _remat_model(jax_remat_run["params"], True)
+    assert model.cfg.remat
+    loss = model.loss(*_batch())
+    loss.backward()
+    np.testing.assert_allclose(float(loss), jax_remat_run["loss"], rtol=RTOL, atol=ATOL)
+    grads = dict(_leaves(convert.llama_params_to_numpy(model, grad=True)))
+    ref = dict(_leaves(jax_remat_run["grads"]))
+    assert grads.keys() == ref.keys()
+    for name, g in ref.items():
+        np.testing.assert_allclose(grads[name], g, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_remat_at_cp2_equals_the_plain_cp2_run(jax_run):
+    """cp=2 over gloo: the rematerialised trainer (whose backward runs each
+    layer's casts and max-logit all-reduce again, in the same order on both
+    ranks) gives the plain cp=2 run's loss, gradients and step losses."""
+    from magiattention_tpu_torch.testing.dist import RankPool
+
+    from tests import torch_dist_workers as workers
+
+    tokens, labels = _tokens()
+    adamw = dict(lr=LR, betas=BETAS, eps=EPS, weight_decay=WD)
+    with RankPool(2) as pool:
+        runs = {remat: pool.run(workers.llama_cp, dict(FIELDS, remat=remat), TOTAL, CU, CHUNK,
+                                jax_run["params"], tokens, labels, 0, "a2a", 2, adamw)
+                for remat in (False, True)}
+    for plain, remat in zip(runs[False], runs[True]):
+        np.testing.assert_allclose(remat["loss"], plain["loss"], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(remat["losses"], plain["losses"], rtol=1e-6, atol=0)
+        ref = dict(_leaves(plain["grads"]))
+        for name, g in _leaves(remat["grads"]):
+            np.testing.assert_allclose(g, ref[name], rtol=1e-6, atol=1e-9, err_msg=name)
 
 
 def test_builder_on_cuda_raises_without_a_card():
