@@ -172,7 +172,26 @@ Phases, each printing one JSON line:
    loss and the first step's gradients (summed over the ranks) against
    cp=1's, within ``CP_LOSS_ATOL`` / ``CP_GRAD_REL_L2``; the step times and
    peak memory per rank, labelled as ranks sharing one card;
-13. cp_hier_attn — hierarchical two-level comm through the keyed API: the
+13. parallel_training — the training phase's model (full widths, 4
+   layers) over two streams of its mask under dp2 x cp2, cp2 x tp2, pp2 x
+   cp2 (GPipe: 2 microbatches, 3 ticks) and pp2 x cp2 x tp2 (8 ranks),
+   ``models.make_parallel_groups`` row-major over (pp, dp, cp, tp), 3 AdamW
+   steps each, against the cp=1 trainer on the card on the same weights
+   and streams: every step's loss within ``CP_LOSS_ATOL``, every
+   first-step gradient (a tp shard against its slice, a stage's layers
+   against theirs) within ``CP_GRAD_REL_L2``, the same losses on every
+   rank, only ``flex_fwd_hb`` / ``flex_dq`` / ``flex_dkv`` at head_block 2;
+   tp all-reduces a step, pp ticks, step ms and peak memory per rank;
+14. cp_baselines — the six cp baselines (``parallel.baselines``) at the
+   LlamaConfig attention widths on 16,384 tokens, causal and hetero: ring
+   and Ulysses at cp 2 and 4, USP and the double ring at 2 x 2, hybrid DCP
+   at cp 2 and 4, forward and backward gathered against single-card
+   ``flex_flash_attn_func`` within the kernel bounds; USP-NSA at cp 2,
+   forward, against single-card ``nsa_attn`` on each rank's head block
+   and, for head 0, a plain dense-masked float32 NSA (``nsa_dense_head``);
+   each run's launches and bytes on the wire per rank beside
+   MagiAttention's own plan's K/V rows at the same mask and cp;
+15. cp_hier_attn — hierarchical two-level comm through the keyed API: the
    four cp ranks as 2 nodes x 2 (``comm.make_hier_cp_groups``), the
    cp_attn mask at 16 / 8 heads, degree 0, a2a (run A), at 8 / 8, degree
    2, hops on the intra level (run B), and on run A's key
@@ -185,16 +204,16 @@ Phases, each printing one JSON line:
    and 4097 exactly equal to the dispatch of ``torch.roll``, and two
    planted hierarchical reduces (pad slots summed onto row 0; the
    gateway's pre-reduce skipped) that must fail dk and dv only;
-14. cp_hier_training — the cp_training trainer at cp=4 as 2 x 2 over the
+16. cp_hier_training — the cp_training trainer at cp=4 as 2 x 2 over the
    hierarchical groups, degree 0, 6 AdamW steps, against cp=1's losses and
    first-step gradients;
-15. cp_xattn — ``magi_attn_cross_key`` at cp=2 and cp=4, 16 / 8 heads:
+17. cp_xattn — ``magi_attn_cross_key`` at cp=2 and cp=4, 16 / 8 heads:
    8192 queries as documents [4096, 2048, 2048] attending FULL to their
    own span of a 3000-row memory [1500, 750, 750] (padded to the chunk
    multiple), forward and backward against single-card
    ``flex_flash_attn_func`` with tq != tk, and a planted skip of the
    memory's dK/dV reduce that must fail dk and dv only;
-16. cp_plan_reuse — a new mask every call under
+18. cp_plan_reuse — a new mask every call under
    ``MAGI_ATTENTION_PLAN_REUSE=bucket`` at cp=2, 16 / 8 heads, chunk 512:
    six varlen block-causal requests (``CP_REUSE_STREAM``: a cold key whose
    documents canonicalise onto the bucket grid, a bucket hit on its
@@ -210,7 +229,7 @@ Phases, each printing one JSON line:
    of each document's segment, which must fail out, lse and the gradients;
    and a host-only tally of 12 packed batches of 16384 tokens
    (``utils.pack_corpus``) through the keys: tiers and median host ms;
-17. cp_decode — ``serving.cp_decode_attn`` at cp=2 and cp=4 (ranks sharing
+19. cp_decode — ``serving.cp_decode_attn`` at cp=2 and cp=4 (ranks sharing
    the card over gloo): 8 histories of 4,096-32,768 tokens (32 / 8 heads,
    d 128, bf16, page 128), each rank holding a contiguous shard of each in
    its local cache (the last rank none of the first), one ``paged_decode``
@@ -218,7 +237,7 @@ Phases, each printing one JSON line:
    and lse against single-card ``decode_attn_paged`` over the whole
    histories and against the plain version; the merge's host ms; a merge
    that drops one rank's partial, planted, must fail;
-18. scheduler — ``serving.Scheduler`` at the serving widths (token budget
+20. scheduler — ``serving.Scheduler`` at the serving widths (token budget
    2048, chunks of 512): the 8 prompts of the serving phase and, once the
    4096-token one has prefilled, 3 requests extending it by token ids
    (forks, so cascade pairs ride in the ticks), 16 decode steps each, under
@@ -234,7 +253,7 @@ Phases, each printing one JSON line:
    largest fused tick ``paged_decode``'s time alone and its bound beside
    the per-request path's ``flex_fwd_hb`` + ``paged_decode`` event ms on
    the same tick;
-19. tiered — disaggregated serving (``serving.TieredEngine`` /
+21. tiered — disaggregated serving (``serving.TieredEngine`` /
    ``TieredScheduler``) at the serving widths, every tier on ``cuda:0``
    (so no disaggregation speed): TP decode on the serving phase's final
    pool sharded on its kv heads at tp 2 and 4, out and lse bit for bit the
@@ -251,7 +270,7 @@ Phases, each printing one JSON line:
    ``DecodeTierFault``, the requests replayed, outputs within the same
    bound); a planted stream that drops its last page, which must fail its
    digest;
-20. resilience — ``MAGI_ATTENTION_GUARD`` and ``MAGI_ATTENTION_CHAOS`` on
+22. resilience — ``MAGI_ATTENTION_GUARD`` and ``MAGI_ATTENTION_CHAOS`` on
    the card, in parts, each part's launches counted from zero: the serving
    phase's pool, ``decode_attn_paged`` over its 8 sequences under ``off``,
    ``check`` and ``repair`` without chaos, bit for bit equal, with each
@@ -272,7 +291,7 @@ Phases, each printing one JSON line:
    to the clean run's bits; and a flat ``paged_decode`` of 70,000 one-page
    sequences (8 / 8 heads, d 64), past one launch's 65,535 row groups, in
    two row-block launches against the plain version;
-21. telemetry — serving observability on the card: the scheduler phase's
+23. telemetry — serving observability on the card: the scheduler phase's
    trace under ``MAGI_ATTENTION_UNIFIED_TICK=auto``, telemetry off then on
    (``MAGI_ATTENTION_TELEMETRY=1``, the Prometheus endpoint on a free port,
    the shadow check at every 4th per-request decode batch, the memory
@@ -294,7 +313,7 @@ Phases, each printing one JSON line:
    traces, prefix cache with a CoW split and an eviction, builds and the
    plan solver's hit and miss, tiers, memory); and the host ms a tick
    costs with telemetry off and on, in turns after a warm-up drain;
-22. profiling — the device side of telemetry, in parts, each part's
+24. profiling — the device side of telemetry, in parts, each part's
    launches counted from zero: ``telemetry.profile_roofline`` measured on
    the serving path's causal 4096 prefill (32 / 8, d 128, bf16) at the
    automatic choice (``flex_fwd_hb``) and at head_block 1 (``flex_fwd``)
@@ -316,7 +335,7 @@ Phases, each printing one JSON line:
    bucket, incremental and eviction counters (telemetry on for the stream)
    against its tiers; every series of the plan, plan-cache, timeline,
    roofline and numerics catalogs recorded.
-23. tuning — the autotuner (``tuning/``): the four forward kernels timed at
+25. tuning — the autotuner (``tuning/``): the four forward kernels timed at
    every candidate of the cost model (head_block 1 / G / 2G on both grids)
    on the serving prefill at 32 / 8 and 32 / 32, causal 8192 and the hetero
    mask at 16 / 8, the hetero mask at 8 / 8 and a sliding window of 512 on
@@ -333,7 +352,7 @@ Phases, each printing one JSON line:
    sequence and every scheduler tick geometry, and the host µs of a
    memoised split call and of a repeat kernel choice; the roofline's
    unattributed share with the committed fees and with this run's fit.
-24. analysis — ``analysis/`` on the card: the cp_attn phase's hetero mask
+26. analysis — ``analysis/`` on the card: the cp_attn phase's hetero mask
    at the LlamaConfig widths through the keyed API at overlap degree 1,
    cp=2 over hops and a2a under ``MAGI_ATTENTION_VALIDATE`` off, plan and
    trace, and cp=4 as 2 x 2 under off and plan (three cold plan builds a
@@ -350,7 +369,7 @@ Phases, each printing one JSON line:
    after it, bit for bit (the stubs are gone); the upcast census of the cp
    runtime and the flex entry on the card equal to the checked-in table;
    the port linting clean and the analysis CLI's ``--self-test`` passing.
-25. fleet — ``fleet/`` on the card: one seeded trace (``FLEET_TRACE``:
+27. fleet — ``fleet/`` on the card: one seeded trace (``FLEET_TRACE``:
    MMPP arrivals at 0.5 a tick with bursts at 4, about 70 requests of
    64-2048 prompt tokens, three in four opening with one of four 512-token
    shared system prompts, lognormal outputs around 16 tokens) replayed by
@@ -4135,6 +4154,511 @@ def cp_training(pools, seed: int, cp1: dict, runs_of=CP_RUNS, hier=None,
             "tolerance": {"loss_abs": CP_LOSS_ATOL, "grad_rel_l2": CP_GRAD_REL_L2},
             "note": "times with the cp ranks sharing one card: not cp speeds",
             "runs": runs, "launches": launches}
+
+
+# -- the trainer's parallel layouts: dp, tp, pp as ranks sharing the card ----------
+
+PAR_LAYOUTS = (  # row-major over (pp, dp, cp, tp), as the JAX mesh
+    dict(dp=2, cp=2),
+    dict(cp=2, tp=2),
+    dict(pp=2, cp=2),  # 2 microbatches, 3 ticks
+    dict(pp=2, cp=2, tp=2),  # the 4-D composition: 8 ranks
+)
+PAR_BATCH = 2  # two streams of the training mask
+PAR_STEPS = 3
+
+
+def layout_name(layout: dict) -> str:
+    return " x ".join(f"{a}{layout[a]}" for a in ("pp", "dp", "cp", "tp") if a in layout)
+
+
+def par_batch(seed: int, cfg, total: int):
+    """The phase's two token streams and their next-token labels, on the
+    card, from ``seed`` (the same on every rank)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (PAR_BATCH, total), generator=gen, device="cuda")
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def named_layers(model, first: int = 0):
+    """(name, parameter) of a model's weights, its layers numbered from
+    ``first`` (a pipeline stage's first global layer)."""
+    from magiattention_tpu_torch.models.llama import LAYER_KEYS
+
+    yield "embed", model.embed
+    for i, layer in enumerate(model.layers):
+        for k in LAYER_KEYS:
+            yield f"layers.{first + i}.{k}", getattr(layer, k)
+    yield "final_norm", model.final_norm
+    yield "lm_head", model.lm_head
+
+
+def par_reference(seed: int, grads_path: str) -> dict:
+    """The cp=1 trainer on the card over the phase's two streams: the
+    losses of PAR_STEPS AdamW steps, the first step's gradients saved by
+    name for the layouts to hold theirs against."""
+    import torch
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+
+    cfg = dataclasses.replace(LlamaConfig(), n_layers=TRAIN_LAYERS)
+    total = sum(TRAIN_DOCS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_llama(cfg, total, *infer_varlen_mask_from_batch(TRAIN_DOCS), seed=seed)
+    tokens, labels = par_batch(seed, cfg, total)
+    pos = torch.arange(total, device="cuda").expand(PAR_BATCH, -1)
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+    losses, step_ms = [], []
+    for i in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens, labels, pos)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in named_layers(model)}, grads_path)
+    peak = torch.cuda.max_memory_allocated()
+    del step, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "max_memory_allocated_bytes": peak}
+
+
+@in_rank
+def par_train_rank(group, layout: dict, seed: int, grads_path: str, steps: int) -> dict:
+    """One rank of a (pp, dp, cp, tp) layout of the trainer on the card:
+    ``make_parallel_groups``, the model (``build_magi_llama_pp`` under pp)
+    on the reference's weights from ``seed``, this rank's part of the two
+    streams, ``steps`` AdamW steps. A rank at dp 0, cp 0 holds the first
+    step's gradients (summed as the step sums them) against its slice of
+    the reference's: its stage's layers, its tp columns or rows."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.comm.group_collective import record_collectives
+    from magiattention_tpu_torch.models import (
+        LlamaConfig,
+        build_magi_llama,
+        build_magi_llama_pp,
+        make_model_train_step,
+        make_parallel_groups,
+        shard_llama_params,
+    )
+
+    cp_rank_setup()
+    cfg = dataclasses.replace(LlamaConfig(), n_layers=TRAIN_LAYERS)
+    total = sum(TRAIN_DOCS)
+    torch.cuda.reset_peak_memory_stats()
+    groups = make_parallel_groups(**layout)
+    (pp, _, _, tp), (stage, d, c, t) = groups.sizes, groups.coords
+    build = build_magi_llama_pp if pp > 1 else build_magi_llama
+    model = build(cfg, total, *infer_varlen_mask_from_batch(TRAIN_DOCS), seed=seed,
+                  groups=groups, chunk_size=CP_CHUNK)
+    tokens, labels = par_batch(seed, cfg, total)
+    tok, lab = model.shard(tokens), model.shard(labels)
+    pos = model.position_ids().cuda().expand(tok.shape[0], -1)
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+    losses, step_ms, grad_rel_l2 = [], [], None
+    csrc.reset_launch_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_collectives("live") if i == 0 else contextlib.nullcontext() as recs:
+            losses.append(float(step(tok, lab, pos)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            psums = sum(1 for r in recs if r.op == "psum")
+            if d == 0 and c == 0:
+                ref = torch.load(grads_path, mmap=True, weights_only=True)
+                per = cfg.n_layers // pp
+                grad_rel_l2 = {}
+                for name, p in named_layers(model, stage * per):
+                    r = ref[name]
+                    if name.startswith("layers."):
+                        r = shard_llama_params({"layers": [{name.rsplit(".", 1)[1]: r}]}, t,
+                                               tp)["layers"][0][name.rsplit(".", 1)[1]]
+                    r = r.cuda()
+                    grad_rel_l2[name] = float((p.grad - r).norm() / r.norm())
+                del ref
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    return {"rank": dist.get_rank(group), "coords": list(groups.coords), "losses": losses,
+            "step_ms": step_ms, "launches": launches, "grad_rel_l2": grad_rel_l2,
+            "head_block": model.head_block,
+            "heads": [model.layers[0].wq.shape[1] // D, model.layers[0].wk.shape[1] // D],
+            "tp_all_reduces_per_step": psums,
+            "microbatches": tok.shape[0], "pp_ticks": model.ticks if pp > 1 else None,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def parallel_training(pools, seed: int, scratch: str) -> dict:
+    """The training phase's model (full widths, 4 layers) over two streams
+    of its mask under dp2 x cp2, cp2 x tp2, pp2 x cp2 and pp2 x cp2 x tp2,
+    ranks sharing the card over gloo, against the cp=1 trainer on the card
+    on the same weights and streams: every step's loss within CP_LOSS_ATOL,
+    every first-step gradient (a tp shard against its slice, a stage's
+    layers against theirs) within CP_GRAD_REL_L2 relative L2, the same
+    losses on every rank, and only flex_fwd_hb, flex_dq and flex_dkv
+    launched, at head_block G = 2 (per-rank heads 8 / 4 under tp)."""
+    from magiattention_tpu_torch.testing.dist import RankPool
+
+    t0 = time.perf_counter()
+    # the 8-rank pool starts while the reference runs, and is closed at the end
+    own = {n: RankPool(n, backend="gloo", env={
+        "MAGI_ATTENTION_TRACE_DIR": os.environ["MAGI_ATTENTION_TRACE_DIR"]})
+        for n in {math.prod(lay.values()) for lay in PAR_LAYOUTS} - set(pools)}
+    try:
+        return _parallel_training(pools | own, seed, scratch, t0)
+    finally:
+        for pool in own.values():
+            pool.close()
+
+
+def _parallel_training(pools, seed: int, scratch: str, t0: float) -> dict:
+    grads_path = os.path.join(scratch, "par_ref_grads.pt")
+    ref = par_reference(seed, grads_path)
+    runs, launches = [], {}
+    for layout in PAR_LAYOUTS:
+        n = math.prod(layout.values())
+        res = pools[n].run(par_train_rank, layout, seed, grads_path, PAR_STEPS)
+        name = layout_name(layout)
+        tp = layout.get("tp", 1)
+        for r in res:
+            worst_rank = max(abs(a - b) for a, b in zip(r["losses"], res[0]["losses"]))
+            check(worst_rank <= 1e-6, f"{name}: rank {r['rank']} reports losses {r['losses']}, "
+                  f"rank 0 {res[0]['losses']}")
+            check(set(r["launches"]) == set(TRAINING_KERNELS),
+                  f"{name} rank {r['rank']}: launches {r['launches']}, expected {TRAINING_KERNELS}")
+            check(r["head_block"] == 2 and r["heads"] == [TRAIN_HQ // tp, TRAIN_HK // tp],
+                  f"{name} rank {r['rank']}: heads {r['heads']} at head_block {r['head_block']}")
+            if layout.get("pp", 1) > 1:
+                want = r["microbatches"] + layout["pp"] - 1
+                check(r["pp_ticks"] == want, f"{name} rank {r['rank']}: {r['pp_ticks']} GPipe "
+                      f"ticks, expected {want}")
+            for k, c in r["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+        diffs = [abs(a - b) for a, b in zip(res[0]["losses"], ref["losses"])]
+        check(max(diffs) <= CP_LOSS_ATOL, f"{name}: losses {res[0]['losses']} vs cp=1 "
+              f"{ref['losses']}")
+        grads = {}
+        for r in res:
+            if r["grad_rel_l2"] is not None:
+                grads.update({f"{k}@pp{r['coords'][0]}tp{r['coords'][3]}": v
+                              for k, v in r["grad_rel_l2"].items()})
+        checked = {k.split("@")[0] for k in grads}
+        check(len(checked) == 3 + 9 * TRAIN_LAYERS, f"{name}: gradients checked {sorted(checked)}")
+        worst = max(grads, key=grads.get)
+        check(grads[worst] <= CP_GRAD_REL_L2,
+              f"{name}: the first-step gradient of {worst} is {grads[worst]} relative L2 from "
+              "cp=1's")
+        runs.append({"layout": name, "ranks": n, "losses": res[0]["losses"],
+                     "loss_abs_diff_vs_cp1": diffs, "grad_rel_l2_vs_cp1_max": grads[worst],
+                     "grad_rel_l2_worst": worst, "grads_checked": len(grads),
+                     "heads_per_rank": res[0]["heads"], "head_block": res[0]["head_block"],
+                     "tp_all_reduces_per_step": res[0]["tp_all_reduces_per_step"],
+                     "pp_ticks": res[0]["pp_ticks"],
+                     "step_ms_ranks_sharing_one_card": [r["step_ms"] for r in res],
+                     "max_memory_allocated_bytes_per_rank": [r["max_memory_allocated_bytes"]
+                                                             for r in res],
+                     "launches_per_rank": [r["launches"] for r in res]})
+    return {"phase": "parallel_training", "card": nvidia_smi_line(), "docs": TRAIN_DOCS,
+            "streams": PAR_BATCH, "layers": TRAIN_LAYERS, "steps": PAR_STEPS,
+            "chunk": CP_CHUNK, "cp1": ref,
+            "tolerance": {"loss_abs": CP_LOSS_ATOL, "grad_rel_l2": CP_GRAD_REL_L2},
+            "note": "times with the ranks sharing one card: not parallel speeds",
+            "runs": runs, "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+# -- the cp baselines: ring, Ulysses, USP, double ring, hybrid DCP, USP-NSA ----------
+
+BASE_T = CP_ATTN_T  # 16,384 tokens
+BASE_MASKS = ("causal", "hetero")
+BASE_RUNS = (  # (scheme, layout): cp, or (outer, inner) subgroups
+    ("ring", dict(cp=2)), ("ring", dict(cp=4)),
+    ("ulysses", dict(cp=2)), ("ulysses", dict(cp=4)),
+    ("usp", dict(outer=2, inner=2)),  # (ring, ulysses)
+    ("double_ring", dict(outer=2, inner=2)),
+    ("hybrid_dcp", dict(cp=2)), ("hybrid_dcp", dict(cp=4)),
+)
+BASE_NSA = dict(block=64, topk=8, window=256)  # NsaConfig()'s defaults
+BASE_KERNELS = ("flex_fwd_hb", "flex_dq", "flex_dkv")  # head_block G = 2, the row-major grid
+
+
+def base_slices(mask: str):
+    """(slices [S, 5], q_ranges, k_ranges, types) of a phase mask."""
+    import numpy as np
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    sl = [(0, BASE_T, 0, BASE_T, 1)] if mask == "causal" else varlen_block_causal(BASE_T)
+    return (np.asarray(sl, np.int64), *split_slices(sl))
+
+
+def sent_bytes(records) -> float:
+    """Bytes this rank puts on the wire for the recorded collectives: a
+    ppermute its payload, an all-to-all all blocks but its own, a tiled
+    all-gather its block to every other rank, an all-reduce 2 (n - 1) / n
+    of its payload (a ring)."""
+    import torch
+
+    total = 0.0
+    for r in records:
+        n = r.size
+        b = math.prod(r.shape) * getattr(torch, r.dtype.split(".")[-1]).itemsize
+        total += {"ppermute": b, "all_to_all": b * (n - 1) / n, "all_gather": b * (n - 1),
+                  "psum": 2 * b * (n - 1) / n}[r.op]
+    return total
+
+
+def base_fn(kind: str, layout: dict, group, slices, qr, kr, ty, params):
+    """The baseline's ``make_*_attn_fn`` over ``group`` (its subgroups for
+    USP and the double ring)."""
+    from magiattention_tpu_torch.parallel import baselines as bl
+
+    cp = math.prod(layout.values())
+    if kind == "ring":
+        return bl.make_ring_attn_fn(bl.build_ring_attn_plan(slices, BASE_T, cp), group, params)
+    if kind == "ulysses":
+        return bl.make_ulysses_attn_fn(bl.build_ulysses_plan(qr, kr, ty, BASE_T, cp), group,
+                                       params)
+    if kind == "hybrid_dcp":
+        return bl.make_hybrid_dcp_attn_fn(bl.build_hybrid_dcp_plan(slices, BASE_T, cp), group,
+                                          params)
+    groups = hier_cp_groups(group, (layout["outer"], layout["inner"]))
+    if kind == "usp":
+        return bl.make_usp_attn_fn(bl.build_usp_plan(slices, BASE_T, layout["inner"],
+                                                     layout["outer"]), groups, params)
+    return bl.make_double_ring_attn_fn(bl.build_double_ring_plan(
+        slices, BASE_T, layout["outer"], layout["inner"]), groups, params)
+
+
+@in_rank
+def base_rank(group, kind: str, layout: dict, mask: str, seed: int) -> dict:
+    """One rank of a cp baseline on the card (16 / 8 heads, d 128, bf16,
+    head_block 2): this rank's shard (contiguous; zigzag for hybrid DCP),
+    forward and backward of sum(out * g_out) + sum(lse * g_lse) with its
+    collectives recorded, its launches; a second, timed run; on rank 0 the
+    gathered out, lse, dq, dk, dv against single-card
+    ``flex_flash_attn_func`` on the same inputs (``vs_single_card``)."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.comm.group_collective import record_collectives
+    from magiattention_tpu_torch.comm.primitives import all_gather_tiled
+    from magiattention_tpu_torch.ops.flex_attn import FlexAttnParams
+    from magiattention_tpu_torch.parallel import baselines as bl
+
+    cp_rank_setup()
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    hq, hk = TRAIN_HQ, TRAIN_HK
+    slices, qr, kr, ty = base_slices(mask)
+    gen = torch.Generator(device="cuda").manual_seed(seed)  # the same inputs on every rank
+    q, k, v, g_out = (torch.randn((BASE_T, h, D), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for h in (hq, hk, hk, hq))
+    g_lse = torch.randn((BASE_T, hq), generator=gen, device="cuda")
+    params = FlexAttnParams(BLOCK, BLOCK, 1.0 / math.sqrt(D), 0.0, False, torch.bfloat16,
+                            head_block=hq // hk)
+    fn = base_fn(kind, layout, group, slices, qr, kr, ty, params)
+    zig = kind == "hybrid_dcp"
+
+    def order(x):
+        return bl.zigzag_dispatch(x, BASE_T, cp) if zig else x
+
+    rows = slice(rank * (BASE_T // cp), (rank + 1) * (BASE_T // cp))
+    go, gl = order(g_out)[rows], order(g_lse)[rows]
+
+    def fwd_bwd(record: bool):
+        qs, ks, vs = (order(x)[rows].detach().clone().requires_grad_() for x in (q, k, v))
+        with record_collectives("live") if record else contextlib.nullcontext() as fwd:
+            out, lse = fn(qs, ks, vs)
+        loss = (out.float() * go.float()).sum() + torch.where(
+            torch.isfinite(lse), lse * gl, 0.0).sum()
+        with record_collectives("live") if record else contextlib.nullcontext() as bwd:
+            loss.backward()
+        return (out, lse, qs.grad, ks.grad, vs.grad), fwd, bwd
+
+    torch.cuda.synchronize()
+    csrc.reset_launch_counts()
+    got, fwd_recs, bwd_recs = fwd_bwd(True)
+    torch.cuda.synchronize()
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd_bwd(False)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    gathered = [all_gather_tiled(x.detach().contiguous(), group) for x in got]
+    if zig:
+        gathered = [bl.zigzag_undispatch(x, BASE_T, cp) for x in gathered]
+    res = {"rank": rank, "launches": launches, "wall_ms": wall_ms,
+           "fwd_bytes_sent": sent_bytes(fwd_recs), "bwd_bytes_sent": sent_bytes(bwd_recs),
+           "fwd_collectives": sorted({r.op for r in fwd_recs}),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        errs, failed = vs_single_card(gathered, q, k, v, g_out, g_lse, qr, kr, ty, hq, hk)
+        res.update(vs_single_card=errs, failed=failed)
+    return res
+
+
+def nsa_dense_head(q, k, v, cfg, head: int):
+    """A plain dense-masked NSA for query ``head`` of a head block (q [t,
+    hq, d], k / v [t, hk, d], bf16): out [t, d] float32, independent of
+    ``nsa_attn``'s arithmetic. Each branch is a full [t, t] (the compressed
+    one [t, t / block]) float32 score matrix under its mask, the window
+    branch too. Only the top-k ranking of the selected branch is taken
+    from block scores at the inputs' precision, as ``nsa_attn`` ranks them
+    (its bf16 einsum over the whole block): a float32 ranking picks other
+    blocks at near ties."""
+    import torch
+
+    t, hq, d = q.shape
+    g, b = hq // k.shape[1], cfg.block
+    nb, scale = t // b, 1.0 / math.sqrt(d)
+    # the ranking, op for op as nsa_attn's on the same block (the same ties)
+    kc = k.repeat_interleave(g, dim=1).reshape(nb, b, hq, d).mean(dim=1)
+    sb = (torch.einsum("qhd,bhd->hqb", q, kc) * scale).reshape(hq, nb, b, nb).sum(dim=2)
+    blocks = torch.arange(nb, device=q.device)
+    sb = torch.where(blocks[None, None, :] <= blocks[None, :, None], sb, float("-inf"))
+    top = torch.topk(sb, min(cfg.topk, nb), dim=-1).indices[head]  # [q blocks, topk]
+    chosen = torch.zeros((nb, nb), dtype=torch.bool, device=q.device)
+    chosen[blocks[:, None], top] = True
+
+    qf, kf, vf = q[:, head].float(), k[:, head // g].float(), v[:, head // g].float()
+    rows = torch.arange(t, device=q.device)
+    causal = rows[None, :] <= rows[:, None]
+
+    def attend(scores, mask, values):
+        p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+        return p.nan_to_num(0.0) @ values  # a row with no key attends nothing
+
+    kcf, vcf = (x.reshape(nb, b, d).mean(dim=1) for x in (kf, vf))
+    out_cmp = attend(qf @ kcf.T * scale, blocks[None, :] < (rows // b)[:, None], vcf)
+    dense = qf @ kf.T * scale
+    out_slc = attend(dense, causal & chosen[rows // b][:, rows // b], vf)
+    out_win = attend(dense, causal & (rows[:, None] - rows[None, :] < cfg.window), vf)
+    return (out_cmp + out_slc + out_win) / 3.0
+
+
+@in_rank
+def base_nsa_rank(group, seed: int) -> dict:
+    """USP-NSA at cp 2 on the card, forward only (causal, ``NsaConfig()``):
+    rank 0 holds the gathered out against single-card ``nsa_attn`` on each
+    rank's head block of the same inputs, and its head 0 against
+    ``nsa_dense_head`` within the kernel bounds."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.comm.primitives import all_gather_tiled
+    from magiattention_tpu_torch.parallel import baselines as bl
+
+    cp_rank_setup()
+    rank, cp = dist.get_rank(group), dist.get_world_size(group)
+    cfg = bl.NsaConfig(**BASE_NSA)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((BASE_T, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (TRAIN_HQ, TRAIN_HK, TRAIN_HK))
+    rows = slice(rank * (BASE_T // cp), (rank + 1) * (BASE_T // cp))
+    fn = bl.make_usp_nsa_attn_fn(BASE_T, group, cfg)
+    torch.cuda.synchronize()
+    csrc.reset_launch_counts()
+    out = fn(q[rows], k[rows], v[rows])
+    torch.cuda.synchronize()
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    fn(q[rows], k[rows], v[rows])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    out = all_gather_tiled(out.contiguous(), group)
+    res = {"rank": rank, "launches": launches, "wall_ms": wall_ms}
+    if rank == 0:
+        hq, hk = TRAIN_HQ // cp, TRAIN_HK // cp
+        ref = torch.cat([bl.nsa_attn(q[:, j * hq:(j + 1) * hq], k[:, j * hk:(j + 1) * hk],
+                                     v[:, j * hk:(j + 1) * hk], cfg) for j in range(cp)], dim=1)
+        errs, failed = out_errors(out, ref, [])
+        dense = nsa_dense_head(q[:, :hq], k[:, :hk], v[:, :hk], cfg, 0)
+        dense_errs, dense_failed = out_errors(out[:, 0], dense, [])
+        res.update(vs_single_card=errs, failed=failed + [f"dense_{f}" for f in dense_failed],
+                   vs_dense_head0=dense_errs, bitwise=bool(torch.equal(out, ref)))
+    return res
+
+
+def magi_recv_rows(mask: str, cp: int) -> list:
+    """K/V rows MagiAttention's own plan (degree 0, chunk CP_CHUNK) has each
+    rank receive for the same mask and cp, built on the host."""
+    from magiattention_tpu_torch.common.enum import AttnMaskType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+    from magiattention_tpu_torch.meta.dispatch_meta import make_dispatch_meta_from_qk_ranges
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.parallel.dist_attn import build_dist_attn_plan
+
+    _, qr, kr, ty = base_slices(mask)
+    mq, _, bucket = make_dispatch_meta_from_qk_ranges(
+        AttnRanges.from_ranges(qr), AttnRanges.from_ranges(kr), [AttnMaskType(t) for t in ty],
+        BASE_T, BASE_T, chunk_size=CP_CHUNK, cp_size=cp)
+    plan = build_dist_attn_plan(mq, bucket, block_q=BLOCK, block_k=BLOCK,
+                                overlap_config=OverlapConfig(degree=0))
+    return [int(x) for x in plan.comm.recv_total]
+
+
+def cp_baselines(pools, seed: int) -> dict:
+    """The six cp baselines at ``LlamaConfig``'s attention widths on 16,384
+    tokens, causal and ``hetero``: ring and Ulysses at cp 2 and 4, USP and
+    the double ring at 2 x 2, hybrid DCP at cp 2 and 4, forward and
+    backward within the kernel bounds of single-card attention; USP-NSA at
+    cp 2, forward only, against single-card NSA. Each run's bytes on the
+    wire per rank beside MagiAttention's own plan's K/V rows at the same
+    mask and cp."""
+    t0 = time.perf_counter()
+    row_bytes = 2 * TRAIN_HK * D * 2  # one K and one V row of every kv head, bf16
+    magi = {(m, cp): magi_recv_rows(m, cp) for m in BASE_MASKS for cp in (2, 4)}
+    runs, launches = [], {}
+    for kind, layout in BASE_RUNS:
+        cp = math.prod(layout.values())
+        for mask in BASE_MASKS:
+            res = pools[cp].run(base_rank, kind, layout, mask, seed)
+            name = f"{kind} {'x'.join(str(x) for x in layout.values())} {mask}"
+            check(not res[0]["failed"], f"{name}: the gathered results fail "
+                  f"{res[0]['failed']}: {res[0]['vs_single_card']}")
+            for r in res:
+                check(set(r["launches"]) == set(BASE_KERNELS),
+                      f"{name} rank {r['rank']}: launches {r['launches']}")
+                for k, c in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + c
+            magi_rows = magi[(mask, cp)]
+            runs.append({
+                "scheme": kind, "layout": layout, "mask": mask,
+                "vs_single_card": res[0]["vs_single_card"],
+                "launches_per_rank": [r["launches"] for r in res],
+                "fwd_collectives": res[0]["fwd_collectives"],
+                "fwd_bytes_sent_per_rank": [r["fwd_bytes_sent"] for r in res],
+                "bwd_bytes_sent_per_rank": [r["bwd_bytes_sent"] for r in res],
+                "fwd_kv_rows_equivalent_per_rank": [r["fwd_bytes_sent"] / row_bytes
+                                                    for r in res],
+                "magi_recv_rows_per_rank": magi_rows,
+                "magi_fwd_bytes_per_rank": [x * row_bytes for x in magi_rows],
+                "wall_ms_ranks_sharing_one_card": [r["wall_ms"] for r in res],
+                "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"] for r in res]})
+    nsa = pools[2].run(base_nsa_rank, seed)
+    check(not nsa[0]["failed"], f"usp_nsa cp2: the gathered out fails {nsa[0]['failed']}: "
+          f"{nsa[0]['vs_single_card']}, head 0 vs dense {nsa[0]['vs_dense_head0']}")
+    for r in nsa:
+        check(bool(r["launches"]), f"usp_nsa rank {r['rank']}: no flex launch")
+        for k, c in r["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    runs.append({"scheme": "usp_nsa", "layout": {"cp": 2}, "mask": "causal",
+                 "nsa": BASE_NSA, "vs_single_card": nsa[0]["vs_single_card"],
+                 "vs_dense_head0": nsa[0]["vs_dense_head0"],
+                 "bitwise_single_card": nsa[0]["bitwise"],
+                 "launches_per_rank": [r["launches"] for r in nsa],
+                 "wall_ms_ranks_sharing_one_card": [r["wall_ms"] for r in nsa]})
+    return {"phase": "cp_baselines", "card": nvidia_smi_line(), "tokens": BASE_T,
+            "heads": [TRAIN_HQ, TRAIN_HK], "head_dim": D, "dtype": "bfloat16",
+            "note": "times with the cp ranks sharing one card: not cp speeds",
+            "runs": runs, "launches": launches, "wall_s": time.perf_counter() - t0}
 
 
 # -- hierarchical cp, cross-attention keys -------------------------------------------
@@ -7963,6 +8487,10 @@ def main(argv=None) -> int:
         cp1 = {"losses": train["losses"], "grads_path": grads_path}
         cp_train_line = cp_training(pools, args.seed, cp1)
         emit(cp_train_line)
+        par_train_line = parallel_training(pools, args.seed, scratch)
+        emit(par_train_line)
+        baselines_line = cp_baselines(pools, args.seed)
+        emit(baselines_line)
         cp_hier_line = cp_hier_attn(pools, args.seed)
         emit(cp_hier_line)
         cp_hier_train_line = cp_training(pools, args.seed, cp1, runs_of=((4, 0),), hier=CP_HIER,
@@ -8017,6 +8545,8 @@ def main(argv=None) -> int:
                "hetero": hetero_line["launches"], "block_sparse": block_sparse_line["launches"],
                "sink": sink_line["launches"], "cp_attn": cp_attn_line["launches"],
                "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
+               "parallel_training": par_train_line["launches"],
+               "cp_baselines": baselines_line["launches"],
                "cp_hier_attn": cp_hier_line["launches"],
                "cp_hier_training": cp_hier_train_line["launches"],
                "cp_xattn": cp_xattn_line["launches"],

@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models.llama import LAYER_KEYS
+from .models.llama import LAYER_KEYS, TP_COLUMNS, TP_ROWS
 from .ops.block_meta import FlexAttnBlockMeta
 from .serving.kv_cache import PagedKVCache
 
@@ -95,33 +95,74 @@ def block_meta_to_numpy(meta: FlexAttnBlockMeta) -> dict:
 
 def llama_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
     """The port's Llama parameter tree from the JAX package's (its
-    ``init_params(PRNGKey, cfg)`` through ``np.asarray``): float32 tensors
-    on ``device``, for ``models.build_magi_llama(params=...)``. The weight
-    layout stays the JAX one, ``[in, out]`` applied as ``x @ w``, so every
-    array carries across unchanged."""
+    ``init_params(PRNGKey, cfg)``, or the layer-stacked tree of
+    ``init_pp_params``, through ``np.asarray``): float32 tensors on
+    ``device``, for ``models.build_magi_llama(params=...)`` (or
+    ``build_magi_llama_pp``). The weight layout stays the JAX one, ``[in,
+    out]`` applied as ``x @ w``, so every array carries across unchanged.
+    The tree stays whole: the builders cut a tensor-parallel rank's slices
+    themselves (``models.llama.shard_llama_params``)."""
 
     def conv(a):
         return tensor_from_numpy(a, device, torch.float32)
 
+    layers = tree["layers"]
     return {
         "embed": conv(tree["embed"]),
-        "layers": [{n: conv(layer[n]) for n in LAYER_KEYS} for layer in tree["layers"]],
+        "layers": ({n: conv(layers[n]) for n in LAYER_KEYS} if isinstance(layers, dict)
+                   else [{n: conv(layer[n]) for n in LAYER_KEYS} for layer in layers]),
         "final_norm": conv(tree["final_norm"]),
         "lm_head": conv(tree["lm_head"]),
     }
 
 
+def _gathered(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated on ``axis`` (``t``
+    itself without a group)."""
+    if group is None:
+        return t
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
+
+
 def llama_params_to_numpy(model, *, grad: bool = False) -> dict:
-    """A ``MagiLlama``'s parameters (or, with ``grad``, their gradients) as
-    numpy arrays in the JAX package's tree."""
+    """A ``MagiLlama``'s parameters (or, with ``grad``, their gradients; a
+    gradient never computed reads 0) as numpy arrays in the JAX package's
+    tree. Under tp the layer slices are gathered back over the model's tp
+    group, and a pipeline model's stage layers over its pp group into the
+    layer-stacked tree of JAX's ``MagiLlamaPP``: then every rank of those
+    groups calls this together."""
     tree = model.param_tree()
+    tp_group = getattr(model, "tp_group", None)
+    pp_group = getattr(model, "pp_group", None)
+    stacked = getattr(model, "stacked", False)
 
-    def conv(p):
-        return tensor_to_numpy(p.grad if grad else p)
+    def leaf(p):
+        t = p.grad if grad else p
+        return (torch.zeros_like(p) if t is None else t).detach()
 
+    def layer_leaf(name, ts):
+        t = torch.stack(ts) if stacked else ts
+        if name in TP_COLUMNS:
+            t = _gathered(t, tp_group, -1)
+        elif name in TP_ROWS:
+            t = _gathered(t, tp_group, -2)
+        if stacked:
+            t = _gathered(t, pp_group, 0)
+        return tensor_to_numpy(t)
+
+    if stacked:
+        layers = {n: layer_leaf(n, [leaf(layer[n]) for layer in tree["layers"]])
+                  for n in LAYER_KEYS}
+    else:
+        layers = [{n: layer_leaf(n, leaf(layer[n])) for n in LAYER_KEYS}
+                  for layer in tree["layers"]]
     return {
-        "embed": conv(tree["embed"]),
-        "layers": [{n: conv(layer[n]) for n in LAYER_KEYS} for layer in tree["layers"]],
-        "final_norm": conv(tree["final_norm"]),
-        "lm_head": conv(tree["lm_head"]),
+        "embed": tensor_to_numpy(leaf(tree["embed"])),
+        "layers": layers,
+        "final_norm": tensor_to_numpy(leaf(tree["final_norm"])),
+        "lm_head": tensor_to_numpy(leaf(tree["lm_head"])),
     }

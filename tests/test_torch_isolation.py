@@ -66,7 +66,10 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "tuning.cost_model", "tuning.autotuner", "analysis.plan_sanity",
                 "analysis.trace_audit", "analysis.spmd_audit", "analysis.lifecycle",
                 "analysis.lint", "analysis.__main__", "fleet.workload", "fleet.autopilot",
-                "fleet.sim", "fleet.capacity"):
+                "fleet.sim", "fleet.capacity", "models.llama_pp", "parallel.baselines",
+                "parallel.baselines.ring", "parallel.baselines.ulysses",
+                "parallel.baselines.usp", "parallel.baselines.loongtrain",
+                "parallel.baselines.hybrid_dcp", "parallel.baselines.nsa"):
         assert prefix + new in names, new
     for name in names:
         rel = name[len(prefix):].replace(".", os.sep)

@@ -124,8 +124,8 @@ def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict
         LlamaConfig,
         build_magi_llama,
         make_model_train_step,
-        sum_grads_over_group,
     )
+    from magiattention_tpu_torch.models._common import sum_grads
 
     os.environ["MAGI_ATTENTION_GROUP_COLL_IMPL"] = impl
     qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu)
@@ -143,7 +143,8 @@ def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict
     pos = model.position_ids().expand(tok.shape[0], -1)
     share = model.loss(tok, lab, pos)
     share.backward()
-    sum_grads_over_group(model, group)
+    for params_, grp in model.grad_groups():
+        sum_grads(params_, grp)
     loss = share.detach().clone()
     dist.all_reduce(loss, group=group)
     grads = convert.llama_params_to_numpy(model, grad=True)
@@ -152,6 +153,141 @@ def llama_cp(group, fields: dict, total: int, cu: list, chunk: int, params: dict
     return {"loss": float(loss), "grads": grads, "losses": losses,
             "degree": model.plan.overlap_degree, "head_block": model.head_block,
             "impls": [c.impl for c in model.plan.comms()], "hier": model.plan.hier}
+
+
+def llama_parallel(group, fields: dict, total: int, cu: list, chunk: int, params: dict,
+                   tokens: np.ndarray, labels: np.ndarray, layout: dict, steps: int,
+                   adamw: dict, block: int = 64, remat: bool = False) -> dict:
+    """The port's Llama trainer under a (pp, dp, cp, tp) layout on the CPU
+    (``make_parallel_groups(**layout)``; ``build_magi_llama_pp`` when pp >
+    1): this rank's loss share summed over the layout's loss groups, the
+    first backward's gradients summed as the train step sums them and
+    gathered back to the full tree (layer-stacked under pp), then ``steps``
+    AdamW steps of ``make_model_train_step``."""
+    from magiattention_tpu_torch import convert
+    from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.models import (
+        LlamaConfig,
+        build_magi_llama,
+        build_magi_llama_pp,
+        make_model_train_step,
+        make_parallel_groups,
+    )
+    from magiattention_tpu_torch.models._common import sum_grads
+
+    qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu)
+    groups = make_parallel_groups(**layout)
+    cfg = LlamaConfig(**fields, remat=remat)
+    build = build_magi_llama_pp if layout.get("pp", 1) > 1 else build_magi_llama
+    model = build(cfg, total, qr, kr, ts, params=convert.llama_params_from_numpy(params),
+                  device="cpu", groups=groups, chunk_size=chunk if groups.cp is not None else None,
+                  block_q=block, block_k=block)
+    tok, lab = (model.shard(torch.from_numpy(a).long()) for a in (tokens, labels))
+    pos = model.position_ids().expand(tok.shape[0], -1)
+    share = model.loss(tok, lab, pos)
+    share.backward()
+    for params_, grp in model.grad_groups():
+        sum_grads(params_, grp)
+    loss = share.detach().clone()
+    for grp in model.sum_groups:
+        dist.all_reduce(loss, group=grp)
+    grads = convert.llama_params_to_numpy(model, grad=True)
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **adamw))
+    losses = [float(step(tok, lab, pos)) for _ in range(steps)]
+    return {"loss": float(loss), "grads": grads, "losses": losses, "coords": groups.coords,
+            "ticks": getattr(model, "ticks", None), "head_block": model.head_block, "heads": (model.layers[0].wq.shape[1],
+                                                      model.layers[0].wk.shape[1]),
+            "hier": None if model.plan is None else model.plan.hier}
+
+
+def llama_pp_refusal(group, fields: dict, total: int, cu: list, chunk: int) -> str:
+    """``build_magi_llama_pp`` over pp2 x cp2 for a config whose layers do
+    not split over pp: the error's message."""
+    from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.models import (
+        LlamaConfig,
+        build_magi_llama_pp,
+        make_parallel_groups,
+    )
+
+    groups = make_parallel_groups(pp=2, cp=2)
+    try:
+        build_magi_llama_pp(LlamaConfig(**fields), total, *infer_attn_mask_from_cu_seqlens(cu),
+                            device="cpu", groups=groups, chunk_size=chunk)
+    except ValueError as exc:
+        return str(exc)
+    return "built"
+
+
+def baseline_attn(group, kind: str, case: dict, inputs: dict) -> dict:
+    """One of the port's cp baselines on the CPU (float32): this rank's
+    shard of the global q, k, v (contiguous, or zigzag for ``hybrid_dcp``),
+    ``make_*_attn_fn``'s forward, and the backward of sum(out * g_out) +
+    sum(lse * g_lse); the out, lse and gradients gathered back to global
+    order (every rank returns them), and rank 0's host tables.
+    ``usp_nsa`` is forward only. ``case``: total, slices [S, 5], the
+    layout (``cp``, or ``outer`` x ``inner``)."""
+    from magiattention_tpu_torch.comm import make_hier_cp_groups
+    from magiattention_tpu_torch.comm.primitives import all_gather_tiled
+    from magiattention_tpu_torch.ops.flex_attn import FlexAttnParams
+    from magiattention_tpu_torch.parallel import baselines as bl
+
+    total, slices = case["total"], np.asarray(case["slices"], np.int64)
+    cp, rank = dist.get_world_size(group), dist.get_rank(group)
+    q, k, v, g_out, g_lse = (torch.from_numpy(inputs[n]) for n in ("q", "k", "v", "g_out",
+                                                                    "g_lse"))
+    d = q.shape[-1]
+    params = FlexAttnParams(block_q=64, block_k=64, scale=1.0 / float(np.sqrt(d)), softcap=0.0,
+                            has_sink=False, out_dtype=torch.float32)
+    qr, kr, ty = slices[:, :2], slices[:, 2:4], slices[:, 4]
+    zig = kind == "hybrid_dcp"
+
+    def order(x):
+        return bl.zigzag_dispatch(x, total, cp) if zig else x
+
+    def unorder(x):
+        return bl.zigzag_undispatch(x, total, cp) if zig else x
+
+    if kind == "ring":
+        plan = bl.build_ring_attn_plan(slices, total, cp, block_q=64, block_k=64)
+        fn, tables = bl.make_ring_attn_fn(plan, group, params), plan.steps
+    elif kind == "ulysses":
+        plan = bl.build_ulysses_plan(qr, kr, ty, total, cp, block_q=64, block_k=64)
+        fn, tables = bl.make_ulysses_attn_fn(plan, group, params), plan.meta
+    elif kind == "usp":
+        groups = make_hier_cp_groups(group, case["outer"], case["inner"])  # (ring, ulysses)
+        plan = bl.build_usp_plan(slices, total, case["inner"], case["outer"], block_q=64,
+                                 block_k=64)
+        fn, tables = bl.make_usp_attn_fn(plan, groups, params), plan.ring_plan.steps
+    elif kind == "double_ring":
+        groups = make_hier_cp_groups(group, case["outer"], case["inner"])
+        plan = bl.build_double_ring_plan(slices, total, case["outer"], case["inner"],
+                                         block_q=64, block_k=64)
+        fn, tables = bl.make_double_ring_attn_fn(plan, groups, params), plan.steps
+    elif kind == "hybrid_dcp":
+        plan = bl.build_hybrid_dcp_plan(slices, total, cp, block_q=64, block_k=64)
+        fn, tables = bl.make_hybrid_dcp_attn_fn(plan, group, params), plan.tables
+    elif kind == "usp_nsa":
+        fn, tables = bl.make_usp_nsa_attn_fn(total, group, bl.NsaConfig(**case["nsa"])), None
+    else:
+        raise ValueError(kind)
+    shard = total // cp
+    rows = slice(rank * shard, (rank + 1) * shard)
+    qs, ks, vs = (order(x)[rows].clone().requires_grad_() for x in (q, k, v))
+
+    def gather(x):
+        return unorder(all_gather_tiled(x.detach().contiguous(), group)).numpy()
+
+    if kind == "usp_nsa":
+        return {"out": gather(fn(qs, ks, vs))}
+    out, lse = fn(qs, ks, vs)
+    loss = (out * order(g_out)[rows]).sum() + (lse * order(g_lse)[rows]).sum()
+    loss.backward()
+    res = {"out": gather(out), "lse": gather(lse), "dq": gather(qs.grad), "dk": gather(ks.grad),
+           "dv": gather(vs.grad)}
+    if rank == 0:
+        res["tables"] = tables
+    return res
 
 
 def comm_primitives(group, impl: str, seed: int) -> dict:
