@@ -48,13 +48,23 @@ Phases, each printing one JSON line:
    mutated copy of ``flex_dkv``, and in mutated copies of the persistent
    sparse backward each dq item after a block's first reusing the previous
    item's resident Q and dO, and the dK/dV partials not zeroed between a
-   block's items), which the checks must catch; then the
+   block's items), which the checks must catch; all eight flex kernels at
+   head_dim 32 in bf16 (the 64-byte-swizzle tiles) under the same bounds,
+   and the four row-major kernels on float32 q/k/v (the CUDA-core walks)
+   at d 32, 64 and 128 within the float32 row of
+   ``telemetry.numerics.DEFAULT_BUDGETS``, with two more planted faults
+   (the d-32 tile's k-slice offset dropped in ``flex_fwd_hb``; the float32
+   forward's rescale of O skipped); then the
    row-major kernels' times at their main path's shapes, each in turns with
    the previous walk (``flex_fwd`` and ``flex_fwd_hb`` at head_block G and
    2G on the serving prefill and on causal 8192 at the training widths;
    ``flex_dq`` and ``flex_dkv`` on the latter) beside the plain version's,
    a PyTorch ``scaled_dot_product_attention`` yardstick and the card's
-   bound; ``paged_decode`` at d 128 / 64, bf16 / f32, 1-16 q heads per kv
+   bound; the same at the new widths (``narrow_timing``): the row-major
+   four on the dit problem (8 q / 4 kv heads of d 32 on the 32,768-token
+   chunk-causal mask) in bf16 and float32 and the sparse four at d 32 on
+   the 16k hetero mask, each first checked there against its plain
+   version run head by head; ``paged_decode`` at d 128 / 64, bf16 / f32, 1-16 q heads per kv
    head, pages of 16, 64 and 128 tokens and 1, 3, 4 and 16 splits, each
    launch twice for the same bits, NaN past the lengths changing no bit,
    and its shared mode (the cascade's level 1) at 1, 3 and 8 members, with
@@ -182,6 +192,21 @@ Phases, each printing one JSON line:
    against theirs) within ``CP_GRAD_REL_L2``, the same losses on every
    rank, only ``flex_fwd_hb`` / ``flex_dq`` / ``flex_dkv`` at head_block 2;
    tp all-reduces a step, pp ticks, step ms and peak memory per rank;
+13b. dit — the Magi-1 DiT trainer (``models.build_magi_dit``) at
+   ``DiTConfig()``'s widths (dim 256, 4 layers, 8 q / 4 kv heads of d 32,
+   ffn 512, text 64 x 64) on one 32,768-token stream of 8 AR chunks of
+   4,096 (the repo's Magi-1 video mask at half its length): 3 AdamW steps
+   in float32 (the config's default: the float32 CUDA-core walks) and 3 in
+   bfloat16 (the wgmma walks at d 32) from the same seeded weights and
+   batch, each step's loss finite and the bf16 losses within 2e-2 of the
+   f32 ones, step ms, tokens/s, peak memory, ``flex_fwd_hb`` / ``flex_dq``
+   / ``flex_dkv`` launched once a layer a step (head_block 2), layer 0's
+   first attention call against the plain versions head by head; moving
+   the last chunk's latents moves no earlier token's velocity by 1e-5
+   (f32); then dp2 x cp2 and cp 4 as ranks sharing the card over gloo,
+   float32, on 16,384 tokens (4 chunks): each rank's gathered velocities
+   and global loss within 1e-4 of cp = 1 on the card, one AdamW step, the
+   same loss on every rank;
 14. cp_baselines — the six cp baselines (``parallel.baselines``) at the
    LlamaConfig attention widths on 16,384 tokens, causal and hetero: ring
    and Ulysses at cp 2 and 4, USP and the double ring at 2 x 2, hybrid DCP
@@ -419,6 +444,7 @@ PAGE = 128
 BLOCK = 64  # the flex kernels' tile (ops/flex_attn.py HOPPER_TILES)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12  # H100 SXM CUDA-core FP32 (the float32 walks are CUDA-core work)
 # bf16 outputs vs the plain f32 computation rounded to bf16: the kernels
 # round P to bf16 before P.V and round the output once; lse and the row max
 # come from f32 accumulations in another summation order
@@ -580,8 +606,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -623,11 +649,13 @@ class Flex:
     plain version."""
 
     def __init__(self, gen, tq, tk, hq, hk, q_ranges, k_ranges, types, *,
-                 softcap=0.0, sink=None, d=D, head_block=None, out_dtype=None, k_ramp=None):
+                 softcap=0.0, sink=None, d=D, head_block=None, out_dtype=None, k_ramp=None,
+                 dtype=None):
         import torch
         from magiattention_tpu_torch.ops import flex_attn as fa
 
         self.tq, self.tk = tq, tk
+        self.dtype = dtype = dtype or torch.bfloat16
         bq, bk = fa.resolve_tile(d, None, None)
         self.meta = fa.build_block_meta(q_ranges, k_ranges, types, tq, tk,
                                         block_q=bq, block_k=bk)
@@ -636,19 +664,23 @@ class Flex:
 
         def rand(t, h, tp):
             x = torch.randn((h, t, d), generator=gen, device="cuda")
-            return fa._pad_tokens(x.to(torch.bfloat16), tp)
+            return fa._pad_tokens(x.to(dtype), tp)
 
         self.q, self.k, self.v = rand(tq, hq, tqp), rand(tk, hk, tkp), rand(tk, hk, tkp)
+        if dtype == torch.float32:
+            # positive v: the float32 budget's relative and ulp bounds measure
+            # two summation orders, not the kernel, on near-zero outputs
+            self.v = self.v.abs()
         if k_ramp is not None:  # keys scaled from 1 to k_ramp along the sequence
             ramp = torch.linspace(1.0, k_ramp, tk, device="cuda")[None, :, None]
-            self.k[:, :tk] = (self.k[:, :tk].float() * ramp).to(torch.bfloat16)
+            self.k[:, :tk] = (self.k[:, :tk].float() * ramp).to(dtype)
         self.sink = (
             torch.full((hq,), 0.0, device="cuda") if sink is None
             else torch.as_tensor(sink, dtype=torch.float32, device="cuda")
         )
         self.params = fa.FlexAttnParams(
             block_q=bq, block_k=bk, scale=1.0 / math.sqrt(d), softcap=softcap,
-            has_sink=sink is not None, out_dtype=out_dtype or torch.bfloat16,
+            has_sink=sink is not None, out_dtype=out_dtype or dtype,
         )
         self.tables = fa.fwd_tables(self.meta, "cuda:0")
         self.btables = fa.bwd_tables(self.meta, "cuda:0")
@@ -948,6 +980,22 @@ PLANT_KEEP_PARTIALS = [
      "      }\n"),
 ]
 
+# The d-32 tile path with every 16-wide k slice of a K-major operand read
+# from the first (the slice's 32-byte offset in the 64-byte swizzled row
+# dropped). Planted into a copy of flex_sm90.cuh, built as flex_fwd_hb; the
+# forward checks at d 32 must catch it.
+PLANT_D32_FIRST_SLICE = [
+    ("  if constexpr (D == 32) return smem_desc<D>(tile + kk * 32, 16, 512);\n",
+     "  if constexpr (D == 32) return smem_desc<D>(tile, 16, 512);\n"),
+]
+
+# The float32 forward walk with O not rescaled when a row's max rises (l is
+# rescaled, O keeps its old reference). Planted into a copy of
+# flex_simt.cuh, built as flex_fwd; the float32 budget must catch it.
+PLANT_F32_NO_RESCALE = [
+    ("        for (int jj = 0; jj < CJ; ++jj) o[i][jj] *= alpha;\n", ""),
+]
+
 # Each split's last chunk dropped from the tensor-core walk; and, in the
 # shared mode, every member reading member 0's q. Planted into copies of
 # decode_sm90.cuh; the checks of ``decode_planted_faults`` must catch both.
@@ -973,6 +1021,8 @@ PLANTED = {
                                       PLANT_STALE_RESIDENT),
     "flex_dkv_sparse_unzeroed": ("flex_dkv_sparse.cu", "flex_dkv_sparse.cu",
                                  PLANT_KEEP_PARTIALS),
+    "flex_fwd_hb_d32_first_slice": ("flex_fwd_hb.cu", "flex_sm90.cuh", PLANT_D32_FIRST_SLICE),
+    "flex_fwd_f32_no_rescale": ("flex_fwd.cu", "flex_simt.cuh", PLANT_F32_NO_RESCALE),
     "paged_decode_drop_last_chunk": ("decode.cu", "decode_sm90.cuh", PLANT_DROP_LAST_CHUNK),
     "paged_decode_member0_q": ("decode.cu", "decode_sm90.cuh", PLANT_MEMBER0_Q),
 }
@@ -1498,6 +1548,232 @@ def sparse_cases(gen) -> None:
         Flex(gen, tq, tk, 4, 2, qr, kr, ty, d=64, **kw).check_sparse(f"{name}_g2_d64_hb2")
         Flex(gen, tq, tk, 4, 4, qr, kr, ty, head_block=2, **kw).check_sparse(
             f"{name}_g1_hb2")
+
+
+NARROW_D = 32  # DiTConfig's head_dim: a 64-byte row, the 64-byte TMA swizzle
+
+
+def narrow_cases(gen) -> dict:
+    """All eight flex kernels at head_dim 32 in bf16 against their plain
+    versions under the bounds of the d 64 / 128 cases, each twice for the
+    same bits: ``flex_fwd``, ``flex_fwd_hb`` (head_block G and 2G) and the
+    backward at G 1, 2 and 4 (8 q heads) on causal, varlen causal with a
+    softcap, uncovered rows with a sink and a bi-causal tq != tk mask; the
+    sparse grid (head_block 1 and G) at G 1, 2 and 4 on the two
+    heterogeneous masks, its backward bit for bit ``flex_dq`` /
+    ``flex_dkv``'s. Returns the line's summary."""
+    import torch
+    from magiattention_tpu_torch.testing.workloads import (
+        shared_question_q_overlap, split_slices, varlen_block_causal,
+    )
+
+    C, B = 1, 3
+    rows = [
+        ("causal", 2048, 2048, [(0, 2048)], [(0, 2048)], [C], {}),
+        ("varlen_causal_softcap", 2000, 2000, [(0, 700), (700, 1500), (1500, 2000)],
+         [(0, 700), (700, 1500), (1500, 2000)], [C, C, C], {"softcap": 30.0}),
+        ("uncovered_rows_sink", 1000, 1000, [(0, 600)], [(0, 600)], [C],
+         {"sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
+        ("bicausal", 512, 768, [(0, 512)], [(0, 768)], [B], {}),
+    ]
+    n_row = n_sparse = 0
+    for name, tq, tk, qr, kr, ty, kw in rows:
+        for g in (1, 2, 4):
+            p = Flex(gen, tq, tk, 8, 8 // g, qr, kr, ty, d=NARROW_D, **kw)
+            case = f"d32_{name}_g{g}"
+            p.check(case)
+            for hb in ((2,) if g == 1 else (g, 2 * g)):
+                p.check_hb(case, hb)
+            p.check_bwd(f"{case}_bwd")
+            n_row += 1
+    hetero = [("varlen_block_causal", 4096, *split_slices(varlen_block_causal(4096))),
+              ("shared_question", 4096, *split_slices(shared_question_q_overlap(4096)))]
+    for name, t, qr, kr, ty in hetero:
+        for g in (1, 2, 4):
+            for hb in (1, max(g, 2)):
+                p = Flex(gen, t, t, 2 * g, 2, qr, kr, ty, d=NARROW_D, head_block=hb)
+                case = f"d32_sparse_{name}_g{g}_hb{hb}"
+                p.check_sparse(case)
+                dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+                rm_dq, (rm_dk, rm_dv) = p.dq_kernel(), p.dkv_kernel()
+                check(torch.equal(dq, rm_dq) and torch.equal(dk, rm_dk) and torch.equal(dv, rm_dv),
+                      f"{case}: the sparse backward differs from flex_dq / flex_dkv")
+                n_sparse += 1
+    return {"phase": "kernels", "kernel": "all eight flex kernels", "head_dim": NARROW_D,
+            "dtype": "bfloat16", "row_major_problems": n_row, "sparse_problems": n_sparse,
+            "twice_bitwise_equal": n_row + n_sparse}
+
+
+def f32_budget():
+    """The float32 row of ``telemetry.numerics.DEFAULT_BUDGETS``."""
+    from magiattention_tpu_torch.telemetry.numerics import DEFAULT_BUDGETS
+
+    return DEFAULT_BUDGETS["float32"]
+
+
+def f32_report(got, ref, grad: bool = False, got_lse=None, ref_lse=None) -> tuple[dict, list]:
+    """One float32 result against its plain version within the float32 row
+    of ``telemetry.numerics.DEFAULT_BUDGETS``: an output (with its lse) on
+    every entry; a gradient, which has entries near zero where a few ulps of
+    an O(1) sum are a huge relative and ulp distance, within the row's
+    absolute bound everywhere and the whole row on the entries of at least
+    1% of its largest magnitude (as tests/test_torch_flex_attn_bwd.py).
+    Returns the stats and the breached ones."""
+    import numpy as np
+    from magiattention_tpu_torch.telemetry.numerics import divergence_report
+
+    budget = f32_budget()
+    g, r = (x.detach().float().cpu().numpy() for x in (got, ref))
+    if not grad:
+        lse = {} if got_lse is None else dict(
+            test_lse=got_lse.detach().float().cpu().numpy(),
+            ref_lse=ref_lse.detach().float().cpu().numpy())
+        rep = divergence_report(r, g, **lse)
+        stats = {"max_abs": rep.out_max_abs, "max_rel": rep.out_max_rel,
+                 "max_ulp": rep.out_max_ulp, "lse_max_abs": rep.lse_max_abs}
+        return stats, budget.violations(rep)
+    abs_only = dataclasses.replace(budget, max_rel=float("inf"), max_ulp=float("inf"))
+    rep_all = divergence_report(r, g)
+    big = np.abs(r) >= 1e-2 * np.abs(r).max()
+    rep_big = divergence_report(r[big], g[big])
+    stats = {"max_abs": rep_all.out_max_abs, "big_max_rel": rep_big.out_max_rel,
+             "big_max_ulp": rep_big.out_max_ulp}
+    return stats, abs_only.violations(rep_all) + [f"big.{v}" for v in budget.violations(rep_big)]
+
+
+def hold_fwd(kernel, name, f32, out, ref, lse, ref_lse, mx=None, ref_mx=None,
+             positive_v=True) -> dict:
+    """A forward's out, lse (and rowmax, where given) against its plain
+    version: bf16 under the kernels phase's bounds (:func:`compare`),
+    float32 within the float32 budget (:func:`f32_report`; where v is not
+    positive, as in a model, out is held as a gradient is) with rowmax
+    within its lse bound. Returns the float32 stats (empty for bf16)."""
+    import torch
+
+    rowmax = [] if mx is None else [("rowmax", mx, ref_mx)]
+    if not f32:
+        compare(kernel, name, out, ref, lse, ref_lse, {k: (g, r) for k, g, r in rowmax})
+        return {}
+    if positive_v:
+        stats, bad = f32_report(out, ref, got_lse=lse, ref_lse=ref_lse)
+        pairs = rowmax
+    else:
+        stats, bad = f32_report(out, ref, grad=True)
+        pairs = [("lse", lse, ref_lse), *rowmax]
+    for what, got, want in pairs:
+        fin = torch.isfinite(want)
+        stats[f"{what}_max_abs"] = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or \
+                stats[f"{what}_max_abs"] > f32_budget().lse_max_abs:
+            bad.append(what)
+    check(not bad, f"{name}: {kernel} breaches the float32 budget {bad}: {stats}")
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], stats["max_abs"])
+    emit({"phase": "kernels", "kernel": kernel, "case": name, **stats})
+    return stats
+
+
+def hold_grad(kernel, name, f32, what, got, ref) -> dict:
+    """A gradient against its plain version: :func:`compare_grads` for a
+    bf16 problem, the float32 budget's gradient rule (:func:`f32_report`)
+    for a float32 one. Returns the float32 stats (empty for bf16)."""
+    if not f32:
+        compare_grads(kernel, name, [(what, got, ref)])
+        return {}
+    stats, bad = f32_report(got, ref, grad=True)
+    check(not bad, f"{name}: {what} breaches the float32 budget {bad}: {stats}")
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], stats["max_abs"])
+    emit({"phase": "kernels", "kernel": kernel, "case": name, what: stats})
+    return stats
+
+
+def f32_problem_check(p, name) -> dict:
+    """``flex_fwd``, ``flex_fwd_hb`` (head_block G and 2G; 2 at G = 1),
+    ``flex_dq`` and ``flex_dkv`` on float32 problem ``p`` against their
+    plain versions (:func:`f32_report`), each twice for the same bits, and
+    the head-batched forward equal to ``flex_fwd`` bit for bit."""
+    import torch
+
+    rec = {}
+    tq, tk = p.tq, p.tk
+    got = p.kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, p.kernel())),
+          f"{name}: flex_fwd differs between two runs")
+    ref_out, ref_lse, ref_mx = p.plain()
+    g = p.q.shape[0] // p.k.shape[0]
+    for hb, run in [(None, got)] + [(hb, p.hb_kernel(hb))
+                                    for hb in ((2,) if g == 1 else (g, 2 * g))]:
+        kernel = "flex_fwd" if hb is None else "flex_fwd_hb"
+        rec[kernel if hb is None else f"{kernel}:{hb}"] = hold_fwd(
+            kernel, name, True, *(x[:, :tq] for x in (run[0], ref_out, run[1], ref_lse, run[2],
+                                                     ref_mx)))
+        check(all(torch.equal(a, b) for a, b in zip(run, got)),
+              f"{name}: {kernel} at head_block {hb} differs from flex_fwd")
+    dq, (dk, dv) = p.dq_kernel(), p.dkv_kernel()
+    torch.cuda.synchronize()
+    dq2, (dk2, dv2) = p.dq_kernel(), p.dkv_kernel()
+    check(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          f"{name}: the float32 backward differs between two runs")
+    ref_dk, ref_dv = p.dkv_plain()
+    for kernel, what, x, ref in (("flex_dq", "dq", dq[:, :tq], p.dq_plain()[:, :tq]),
+                                 ("flex_dkv", "dk", dk[:, :tk], ref_dk[:, :tk]),
+                                 ("flex_dkv", "dv", dv[:, :tk], ref_dv[:, :tk])):
+        rec[what] = hold_grad(kernel, name, True, what, x, ref)
+    return rec
+
+
+def f32_cases(gen) -> dict:
+    """The four row-major kernels on float32 q/k/v (the CUDA-core walks of
+    ``csrc/flex_simt.cuh``) at head_dim 32, 64 and 128: causal 2048 at G 2,
+    and at d 32 also G 1 with a softcap and a sink on varlen causal, and G 4
+    on uncovered rows (:func:`f32_problem_check`). Returns the line."""
+    import torch
+
+    f32 = dict(dtype=torch.float32)
+    cases = [(f"f32_causal_g2_d{d}", Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1],
+                                          d=d, **f32)) for d in (NARROW_D, 64, 128)]
+    cases += [
+        ("f32_varlen_causal_softcap_sink_g1_d32",
+         Flex(gen, 2000, 2000, 8, 8, [(0, 700), (700, 1500), (1500, 2000)],
+              [(0, 700), (700, 1500), (1500, 2000)], [1, 1, 1], d=NARROW_D, softcap=30.0,
+              sink=[0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0], **f32)),
+        ("f32_uncovered_rows_g4_d32",
+         Flex(gen, 1000, 1000, 8, 2, [(100, 600)], [(0, 500)], [0], d=NARROW_D, **f32)),
+    ]
+    line = {"phase": "kernels", "kernel": "flex_fwd+flex_fwd_hb+flex_dq+flex_dkv",
+            "dtype": "float32", "cases": {}}
+    for name, p in cases:
+        line["cases"][name] = f32_problem_check(p, name)
+    return line
+
+
+def narrow_planted_faults(gen, planted) -> dict:
+    """Two faults planted in mutated builds of the walks this slice added:
+    ``flex_fwd_hb`` at d 32 with every 16-wide k slice of S = Q K^T read
+    from the first one (the 64-byte swizzle's slice offset dropped), and
+    ``flex_fwd``'s float32 walk with O not rescaled when a row's max rises.
+    Returns which checks catch each; a fault that passes them fails the
+    smoke."""
+    import torch
+
+    caught = {}
+    p = Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1], d=NARROW_D)
+    got = with_library("flex_fwd_hb", planted["flex_fwd_hb_d32_first_slice"],
+                       lambda: p.hb_kernel(2))()
+    torch.cuda.synchronize()
+    errs, failed = p.hb_errors(got)
+    caught["first_k_slice_only:flex_fwd_hb:d32"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-32 slice fault passes the forward checks: {errs}")
+    pf = Flex(gen, 2048, 2048, 8, 4, [(0, 2048)], [(0, 2048)], [1], d=NARROW_D,
+              dtype=torch.float32)
+    out, lse, _ = with_library("flex_fwd", planted["flex_fwd_f32_no_rescale"], pf.kernel)()
+    ref_out, ref_lse, _ = pf.plain()
+    stats, bad = f32_report(out[:, :2048], ref_out[:, :2048], got_lse=lse[:, :2048],
+                            ref_lse=ref_lse[:, :2048])
+    caught["no_rescale_of_o:flex_fwd:f32"] = {"breached": bad, **stats}
+    check(bool(bad), f"the planted float32 rescale fault passes the float32 budget: {stats}")
+    return caught
 
 
 SPARSE_BWD_GROUPS = (1, 2, 3, 4, 8)  # q heads per kv head of the sparse backward cases
@@ -2775,6 +3051,510 @@ def remat_training(cfg, mask, seed: int, batch, losses_off) -> dict:
 
 # -- the heterogeneous-mask path ---------------------------------------------------
 
+def in_rank(fn):
+    """A rank task that hands its cached device memory back when it ends:
+    the ranks share the card, and one task's cached blocks (the plain
+    versions' dense scores, a model and its optimizer state) would starve
+    the next task's ranks."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args):
+        import gc
+
+        import torch
+
+        try:
+            return fn(*args)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    return run
+
+
+# -- the Magi-1 DiT on the card -----------------------------------------------
+
+# The repo's Magi-1 video mask shape (docs/dist_bench.md, 8 AR chunks) at half
+# its 64k length: 32,768 tokens as 8 chunks of 4,096; the cp layouts take 4
+# chunks of 4,096.
+DIT_T, DIT_CHUNK, DIT_CP_T = 32768, 4096, 16384
+DIT_STEPS = 3
+DIT_PERTURB = 0.02  # the JAX causality test's noise on the adaLN-zero start
+DIT_BF16_LOSS_TOL = 2e-2  # |bf16 loss - f32 loss| a step, same weights and batch
+DIT_CAUSAL_TOL = 1e-5  # an earlier token's velocity move (float32)
+DIT_CP_TOL = 1e-4  # dp2 x cp2 and cp 4 velocities and losses against cp = 1
+DIT_LAYOUTS = (dict(dp=2, cp=2), dict(cp=4))
+DIT_KERNELS = ("flex_fwd_hb", "flex_dq", "flex_dkv")  # head_block G = 2, the row-major grid
+
+
+def dit_params(seed: int, cfg):
+    """``init_dit_params`` from ``seed`` on the card plus DIT_PERTURB of
+    seeded noise, so that the adaLN-zero start (every block the identity,
+    the velocity 0) is broken and attention mixes tokens."""
+    import torch
+    from magiattention_tpu_torch.models import init_dit_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tree = init_dit_params(gen, cfg)
+
+    def noisy(x):
+        return x + DIT_PERTURB * torch.randn(x.shape, generator=gen, device="cuda")
+
+    return {**{n: noisy(x) for n, x in tree.items() if n != "layers"},
+            "layers": [{n: noisy(x) for n, x in layer.items()} for layer in tree["layers"]]}
+
+
+def dit_batch(seed: int, cfg, batch: int, t: int) -> dict:
+    """A rectified-flow batch from ``seed`` on the card: latents, text,
+    per-chunk t in [0.05, 0.95] broadcast to tokens, the noised latents, the
+    velocity target, and ``lat_moved`` (the last chunk's latents moved by
+    10), [batch, t, ...] in natural order."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    lat = randn(batch, t, cfg.in_dim)
+    text = randn(batch, cfg.text_len, cfg.text_dim)
+    tc = (0.05 + 0.9 * torch.rand((batch, t // DIT_CHUNK), generator=gen, device="cuda"))
+    tc = tc.repeat_interleave(DIT_CHUNK, dim=1)
+    noise = randn(batch, t, cfg.in_dim)
+    noised = (1 - tc[..., None]) * lat + tc[..., None] * noise
+    moved = noised.clone()
+    moved[:, -DIT_CHUNK:] += 10.0
+    return {"noised": noised, "target_v": noise - lat, "t_chunk": tc, "text": text,
+            "lat_moved": moved}
+
+
+def by_head(fn, q, k, v, *rest, tables, params, sink=None):
+    """A plain flex function (``_fwd_torch``, ``_fwd_torch_sparse``,
+    ``_dq_torch`` or ``_dkv_torch``) on head-major tensors, one q head at a
+    time: the whole call's dense [hq, t, t] f32 scores do not fit the card
+    at 32k tokens. Forwards give (out, lse, rowmax) and dq its gradient
+    stacked over the heads; dk, dv sum the q heads of each kv head."""
+    import torch
+
+    hq, hk = q.shape[0], k.shape[0]
+    g = hq // hk
+    parts = []
+    for h in range(hq):
+        kv = (k[h // g:h // g + 1], v[h // g:h // g + 1])
+        per = [x[h:h + 1] for x in rest]  # dout, lse, delta of the backward
+        args = (q[h:h + 1], *kv, *per) if rest else (q[h:h + 1], *kv, sink[h:h + 1])
+        parts.append(fn(*args, tables, params))
+    if fn.__name__ == "_dkv_torch":
+        return tuple(torch.cat([sum(parts[h][i] for h in range(j * g, (j + 1) * g))
+                                for j in range(hk)]) for i in range(2))
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(len(parts[0])))
+    return torch.cat(parts)
+
+
+def flex_bounds(area: int, t: int, hq: int, hk: int, d: int, f32: bool) -> dict:
+    """Each flex kernel's bound on a t-token problem of ``area`` unmasked
+    pairs (as the kernels phase reckons it): 4 d (forward), 6 d (dq) and 8
+    d (dk/dv) FLOPs per pair and q head at 989 TFLOP/s bf16, or 67 TFLOP/s
+    of CUDA-core FP32 for float32; q, k, v (and dout) read, the outputs
+    (out, or f32 gradients) and the f32 lse / rowmax / delta once."""
+    e, peak = (4, PEAK_F32_FLOPS) if f32 else (2, PEAK_BF16_FLOPS)
+    kv_in = e * (t * hq * d + 2 * t * hk * d)
+    bwd_in = e * (2 * t * hq * d + 2 * t * hk * d) + 4 * 2 * t * hq
+    return {"fwd": bound(4.0 * area * d * hq, kv_in + e * t * hq * d + 4 * 2 * t * hq, peak),
+            "dq": bound(6.0 * area * d * hq, bwd_in + 4 * t * hq * d, peak),
+            "dkv": bound(8.0 * area * d * hq, bwd_in + 4 * 2 * t * hk * d, peak)}
+
+
+def held_by_head(p, name, sparse=False) -> dict:
+    """``p``'s kernels (the row-major pair and backward, or the sparse
+    grid's) against their plain versions run head by head
+    (:func:`by_head`), in p's dtype's bounds; returns the plain versions'
+    device ms."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    f32 = p.dtype == torch.float32
+    # one q head a call: head_block 1 (the plain versions' results do not depend on it)
+    params = dataclasses.replace(p.sparse_params if sparse else p.params, head_block=1)
+    tq, tk = p.tq, p.tk
+    kw = dict(tables=p.tables, params=params)
+    plain_fwd = fa._fwd_torch_sparse if sparse else fa._fwd_torch
+    ms = {}
+    t0 = time.perf_counter()
+    ref = by_head(plain_fwd, p.q, p.k, p.v, sink=p.sink, **kw)
+    torch.cuda.synchronize()
+    ms["fwd"] = (time.perf_counter() - t0) * 1e3
+    bwd = p.bwd_inputs()
+    t0 = time.perf_counter()
+    ref_dq = by_head(fa._dq_torch, *bwd, **kw)
+    torch.cuda.synchronize()
+    ms["dq"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref_dk, ref_dv = by_head(fa._dkv_torch, *bwd, tables=p.btables, params=params)
+    torch.cuda.synchronize()
+    ms["dkv"] = (time.perf_counter() - t0) * 1e3
+    fwds = ({p.fwd_sparse_name: p.sparse_kernel()} if sparse else
+            {"flex_fwd": p.kernel(), "flex_fwd_hb": p.hb_kernel(p.q.shape[0] // p.k.shape[0])})
+    dq, (dk, dv) = ((p.dq_sparse_kernel(), p.dkv_sparse_kernel()) if sparse else
+                    (p.dq_kernel(), p.dkv_kernel()))
+    dq_name, dkv_name = ("flex_dq_sparse", "flex_dkv_sparse") if sparse else ("flex_dq", "flex_dkv")
+    grads = [(dq_name, "dq", dq[:, :tq], ref_dq[:, :tq]), (dkv_name, "dk", dk[:, :tk], ref_dk[:, :tk]),
+             (dkv_name, "dv", dv[:, :tk], ref_dv[:, :tk])]
+    for kernel, (out, lse, mx) in fwds.items():
+        hold_fwd(kernel, name, f32, *(x[:, :tq] for x in (out, ref[0], lse, ref[1], mx, ref[2])))
+    for kernel, what, got, want in grads:
+        hold_grad(kernel, name, f32, what, got, want)
+    return ms
+
+
+def masked_sdpa(q, k, v, mask):
+    """One PyTorch call computing the same attention over a boolean [t, t]
+    mask (head-major [h, t, d] q, k/v repeated to hq heads inside the call):
+    ``scaled_dot_product_attention`` on the memory-efficient backend. A
+    yardstick only."""
+    import torch.nn.functional as Fn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[0] // k.shape[0]
+
+    def fn():
+        qs, ks, vs = (x.unsqueeze(0) for x in (q, k.repeat_interleave(g, 0),
+                                               v.repeat_interleave(g, 0)))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    return fn
+
+
+def library_fwd_bwd(fn_of, q, k, v, do) -> tuple[float | None, float | None, str | None]:
+    """(forward ms, backward ms as fwd + bwd minus fwd, why not) of a
+    library yardstick ``fn_of(q, k, v)``; a refusal fails nothing."""
+    import torch
+
+    try:
+        fwd_ms = cuda_ms(fn_of(q, k, v), reps=5)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        fn = fn_of(ql, kl, vl)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(fn(), (ql, kl, vl), do), reps=5) - fwd_ms
+        return fwd_ms, bwd_ms, None
+    except RuntimeError as exc:
+        return None, None, f"{type(exc).__name__}: {str(exc)[:160]}"
+
+
+def narrow_timing(gen) -> tuple[dict, dict]:
+    """The flex kernels at this slice's new widths, in device time, each
+    checked first at its timed shape against its plain version run head by
+    head: rows 1, 2, 5 and 7 (``flex_fwd``, ``flex_fwd_hb`` at head_block
+    G, ``flex_dq``, ``flex_dkv``) on the dit problem (DiTConfig's 8 q / 4
+    kv heads of d 32 on the 32,768-token chunk-causal mask) in bf16 and in
+    float32; rows 3, 4, 6 and 8 at d 32 in bf16 on the 16,384-token varlen
+    block-causal mask at the same heads. Each beside the plain version's
+    ms, the card's bound (:func:`flex_bounds`) and a PyTorch yardstick:
+    SDPA over the boolean mask (its backward for dq) for the row-major
+    kernels, ``library_attention`` for the sparse grid. Returns (the line,
+    {kernel: {width: record}})."""
+    import torch
+    from magiattention_tpu_torch.models import DiTConfig, chunk_causal_mask
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    cfg = DiTConfig()
+    hq, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = hq // hk
+    qr, kr, ty = chunk_causal_mask(DIT_T, DIT_CHUNK)
+    recs, line = {}, {"phase": "narrow_timing", "card": nvidia_smi_line(), "tokens": DIT_T,
+                      "hq": hq, "hk": hk, "head_dim": d}
+    pos = torch.arange(DIT_T, device="cuda")
+    mask = pos[None] < (pos[:, None] // DIT_CHUNK + 1) * DIT_CHUNK
+    for dtype, width in ((torch.bfloat16, "d32_bf16"), (torch.float32, "d32_f32")):
+        p = Flex(gen, DIT_T, DIT_T, hq, hk, qr, kr, ty, d=d, dtype=dtype)
+        plain = held_by_head(p, f"dit_problem_{width}")
+        reps = 20 if dtype == torch.bfloat16 else 3
+        ms = {"flex_fwd": cuda_ms(p.kernel, reps), "flex_fwd_hb": cuda_ms(lambda: p.hb_kernel(g), reps),
+              "flex_dq": cuda_ms(p.dq_kernel, reps), "flex_dkv": cuda_ms(p.dkv_kernel, reps)}
+        lib_fwd, lib_bwd, why = library_fwd_bwd(lambda a, b, c: masked_sdpa(a, b, c, mask),
+                                                p.q, p.k, p.v, p.do.unsqueeze(0))
+        b = flex_bounds(p.meta.total_area, DIT_T, hq, hk, d, dtype == torch.float32)
+        for name, kind, lib in (("flex_fwd", "fwd", lib_fwd), ("flex_fwd_hb", "fwd", lib_fwd),
+                                ("flex_dq", "dq", lib_bwd), ("flex_dkv", "dkv", None)):
+            recs.setdefault(name, {})[width] = {
+                "ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                "bound_by": b[kind][1], "library_ms": lib}
+        line[width] = {"ms": ms, "plain_ms_by_head": plain, "area": p.meta.total_area,
+                       "share_of_bound": {n: recs[n][width]["bound_ms"] / ms[n] for n in ms},
+                       "library": "scaled_dot_product_attention(EFFICIENT_ATTENTION, boolean mask)",
+                       "library_fwd_ms": lib_fwd, "library_bwd_ms_for_dq_dk_dv": lib_bwd,
+                       "library_note": why}
+        del p
+        torch.cuda.empty_cache()
+    del mask
+    t = HETERO_T
+    hqr, hkr, hty = split_slices(varlen_block_causal(t))
+    p = Flex(gen, t, t, hq, hk, hqr, hkr, hty, d=d, head_block=1)
+    plain = held_by_head(p, "hetero_d32_bf16_hb1", sparse=True)
+    ms = {"flex_fwd_sparse": cuda_ms(p.sparse_kernel, 20)}
+    p.set_head_block(g)
+    held_by_head(p, f"hetero_d32_bf16_hb{g}", sparse=True)
+    ms.update({"flex_fwd_sparse_hb": cuda_ms(p.sparse_kernel, 20),
+               "flex_dq_sparse": cuda_ms(p.dq_sparse_kernel, 20),
+               "flex_dkv_sparse": cuda_ms(p.dkv_sparse_kernel, 20)})
+    docs = sorted({a for a, _ in hqr} | {b for _, b in hqr})
+    cu = torch.tensor(docs, dtype=torch.int32, device="cuda")
+    max_len = int(torch.diff(cu).max())
+    lib_name = None
+
+    def lib_of(a, b_, c):
+        nonlocal lib_name
+        fn, lib_name = library_attention(*(x[:, :t].transpose(0, 1).contiguous()
+                                           for x in (a, b_, c)), cu, max_len)
+        return fn
+
+    do = p.do[:, :t].transpose(0, 1)
+    lib_fwd, lib_bwd, why = library_fwd_bwd(lib_of, p.q, p.k, p.v, do)
+    b = flex_bounds(p.meta.total_area, t, hq, hk, d, False)
+    for name, kind, lib in (("flex_fwd_sparse", "fwd", lib_fwd),
+                            ("flex_fwd_sparse_hb", "fwd", lib_fwd),
+                            ("flex_dq_sparse", "dq", lib_bwd), ("flex_dkv_sparse", "dkv", None)):
+        recs.setdefault(name, {})["d32_bf16"] = {
+            "ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+            "bound_by": b[kind][1], "library_ms": lib}
+    line["hetero_d32_bf16"] = {"tokens": t, "ms": ms, "plain_ms_by_head": plain,
+                               "area": p.meta.total_area, "library": lib_name,
+                               "library_fwd_ms": lib_fwd, "library_bwd_ms_for_dq_dk_dv": lib_bwd,
+                               "library_note": why,
+                               "share_of_bound": {n: recs[n]["d32_bf16"]["bound_ms"] / ms[n]
+                                                  for n in ms}}
+    del p
+    torch.cuda.empty_cache()
+    return line, recs
+
+
+def dit_attention_check(model, cap, name) -> None:
+    """Layer 0's attention call of the first step against the plain forward
+    and backward, head by head (:func:`by_head`): its q, k, v, out and lse,
+    the dout that reached it and the dq, dk, dv it gave back; bf16 under the
+    kernels phase's bounds, float32 within the float32 budget."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    meta, cfg = model.meta, model.cfg
+    tqp, tkp = meta.num_q_blocks * meta.block_q, meta.num_k_blocks * meta.block_k
+    t = cap["q"].shape[0]
+
+    def head_major(x, tp):
+        return fa._pad_tokens(x.transpose(0, 1), tp)
+
+    q, out, do = (head_major(cap[n], tqp) for n in ("q", "out", "dout"))
+    k, v = (head_major(cap[n], tkp) for n in ("k", "v"))
+    params = fa.FlexAttnParams(meta.block_q, meta.block_k, 1.0 / math.sqrt(cfg.head_dim),
+                               0.0, False, cfg.torch_dtype)
+    ftab, btab = fa.fwd_tables(meta, "cuda:0"), fa.bwd_tables(meta, "cuda:0")
+    sink = torch.zeros((q.shape[0],), device="cuda")
+    ref_out, ref_lse, _ = by_head(fa._fwd_torch, q, k, v, sink=sink, tables=ftab, params=params)
+    lse = head_major(cap["lse"], tqp)
+    delta = (do.float() * out.float()).sum(-1)  # the model's lse cotangent is 0
+    ref_dq = by_head(fa._dq_torch, q, k, v, do, lse, delta, tables=ftab, params=params)
+    ref_dk, ref_dv = by_head(fa._dkv_torch, q, k, v, do, lse, delta, tables=btab,
+                             params=params)
+    f32 = cfg.torch_dtype == torch.float32
+    # the model's v is not positive: a float32 out is held as a gradient is
+    hold_fwd("flex_fwd_hb", name, f32, cap["out"].transpose(0, 1), ref_out[:, :t],
+             cap["lse"].transpose(0, 1), ref_lse[:, :t], positive_v=False)
+    for kernel, what, got, want in (("flex_dq", "dq", cap["dq"], ref_dq),
+                                    ("flex_dkv", "dk", cap["dk"], ref_dk),
+                                    ("flex_dkv", "dv", cap["dv"], ref_dv)):
+        hold_grad(kernel, name, f32, what, got.transpose(0, 1), want[:, :t])
+
+
+def dit_train(cfg, params, data, t: int, steps: int, name: str, check_layer0: bool) -> dict:
+    """``build_magi_dit`` at cp = 1 on the card (its default device) over
+    ``data``'s [1, t] stream and ``steps`` AdamW steps: the losses, step
+    ms, tokens/s, peak memory, the flex launches of the steps, and (with
+    ``check_layer0``) layer 0's first attention call against the plain
+    versions."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.models import build_magi_dit
+    from magiattention_tpu_torch.ops import flex_attn_with_meta
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_dit(cfg, t, DIT_CHUNK, params=params)  # the card, by default
+    choice = (model.meta.block_q, model.meta.block_k, model.head_block)
+    check(choice == (64, 64, cfg.n_heads // cfg.n_kv_heads),
+          f"{name}: the harness's blocking is {choice}, not (64, 64, G)")
+    pos = torch.arange(t, device="cuda")[None]
+    batch = (data["noised"], data["target_v"], data["t_chunk"], pos, data["text"])
+    step = model.make_train_step(torch.optim.AdamW(model.parameters(), **ADAMW))
+    cap = {}
+
+    def capture(q, k, v):
+        out, lse = flex_attn_with_meta(q, k, v, model.meta, out_dtype=cfg.torch_dtype,
+                                       head_block=model.head_block)
+        if not cap:
+            cap.update(q=q.detach(), k=k.detach(), v=v.detach(), out=out.detach(),
+                       lse=lse.detach())
+            for n, x in (("dq", q), ("dk", k), ("dv", v), ("dout", out)):
+                x.register_hook(lambda gr, n=n: cap.__setitem__(n, gr))
+        return out
+
+    losses, step_ms = [], []
+    csrc.reset_launch_counts()
+    for i in range(steps):
+        if i == 0 and check_layer0:
+            model.attention = capture  # shadows the method for the first step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and check_layer0:
+            del model.attention
+    launches = {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}
+    peak = torch.cuda.max_memory_allocated()
+    expected = cfg.n_layers * steps  # one flex call a layer a step, forward and backward
+    check(launches == {n: expected for n in DIT_KERNELS},
+          f"{name}: launches {launches}, expected {expected} of each of {DIT_KERNELS}")
+    check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss {losses}")
+    if check_layer0:
+        check(set(cap) == {"q", "k", "v", "out", "lse", "dq", "dk", "dv", "dout"},
+              f"{name}: the first step's attention call captured only {sorted(cap)}")
+        dit_attention_check(model, cap, f"{name}_layer0_step0")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    return {"losses": losses, "step_ms": step_ms, "median_step_ms": med,
+            "tokens_per_s": t / (med / 1e3), "peak_gb": peak / 1e9, "launches": launches,
+            "launches_per_step": {n: c / steps for n, c in launches.items()},
+            "launches_per_step_reckoned": {n: cfg.n_layers for n in DIT_KERNELS}}
+
+
+def dit_velocities(cfg, params, data, t: int) -> dict:
+    """cp = 1 on the card, float32: the velocities of ``data`` and of its
+    moved last chunk, [b, t, in_dim], and the loss, no gradient."""
+    import torch
+    from magiattention_tpu_torch.models import build_magi_dit
+
+    model = build_magi_dit(cfg, t, DIT_CHUNK, params=params)
+    b = data["noised"].shape[0]
+    pos = torch.arange(t, device="cuda").expand(b, -1)
+    with torch.no_grad():
+        vel = {n: model(data[n], data["t_chunk"], pos, data["text"])
+               for n in ("noised", "lat_moved")}
+        loss = float(model.loss(data["noised"], data["target_v"], data["t_chunk"], pos,
+                                data["text"]))
+    return {"vel": vel["noised"], "vel_moved": vel["lat_moved"], "loss": loss}
+
+
+@in_rank
+def dit_rank(group, seed: int, layout: dict, ref_path: str) -> dict:
+    """One rank of the DiT under a (dp, cp) layout on the card (float32,
+    the phase's weights and two-stream batch from ``seed``): the gathered
+    velocities against cp = 1's (saved by the phase), the global loss, one
+    AdamW step, and this rank's flex launches."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.models import DiTConfig, build_magi_dit, make_parallel_groups
+
+    cp_rank_setup()
+    cfg = DiTConfig()
+    groups = make_parallel_groups(**layout)
+    params = dit_params(seed, cfg)
+    data = dit_batch(seed, cfg, 2, DIT_CP_T)
+    csrc.reset_launch_counts()
+    model = build_magi_dit(cfg, DIT_CP_T, DIT_CHUNK, groups=groups, params=params)
+    tc = model.shard(data["t_chunk"], pad_value=-1.0)
+    text = model.dp_rows(data["text"])
+    pos = model.position_ids().cuda().expand(tc.shape[0], -1)
+    with torch.no_grad():
+        vel = model.gather(model(model.shard(data["noised"]), tc, pos, text))
+    batch = (model.shard(data["noised"]), model.shard(data["target_v"]), tc, pos, text)
+    step = model.make_train_step(torch.optim.AdamW(model.parameters(), **ADAMW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(*batch))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    ref = torch.load(ref_path)
+    return {"rank": dist.get_rank(), "coords": groups.coords, "loss": loss,
+            "loss_diff": abs(loss - ref["loss"]),
+            "vel_max_abs_diff": float((vel - ref["vel"].cuda()).abs().max()),
+            "step_ms": step_ms, "head_block": model.head_block,
+            "launches": {n: csrc.launches[n] for n in FLEX_KERNELS if csrc.launches[n]}}
+
+
+def dit_phase(pools, seed: int, scratch: str) -> dict:
+    """The Magi-1 DiT trainer on the card at ``DiTConfig()``'s widths (dim
+    256, 4 layers, 8 q / 4 kv heads of d 32, ffn 512, text 64 x 64) on one
+    32,768-token stream of 8 AR chunks: 3 AdamW steps in float32 (the
+    config's default) and 3 in bfloat16, from the same weights and batch;
+    layer 0's first attention call against the plain versions in each; the
+    chunk-causal property in float32 (moving the last chunk's latents moves
+    no earlier token's velocity by DIT_CAUSAL_TOL); then dp2 x cp2 and cp 4
+    as ranks sharing the card over gloo, float32, on 16,384 tokens (4
+    chunks), each rank's gathered velocities and loss within DIT_CP_TOL of
+    cp = 1 on the card and every rank the same loss."""
+    import torch
+    from magiattention_tpu_torch.models import DiTConfig
+
+    t_start = time.perf_counter()
+    cfg32 = DiTConfig()
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params = dit_params(seed, cfg32)
+    data = dit_batch(seed, cfg32, 1, DIT_T)
+    runs = {"float32": dit_train(cfg32, params, data, DIT_T, DIT_STEPS, "dit_f32", True),
+            "bfloat16": dit_train(cfg16, params, data, DIT_T, DIT_STEPS, "dit_bf16", True)}
+    diffs = [abs(a - b) for a, b in zip(runs["bfloat16"]["losses"], runs["float32"]["losses"])]
+    check(max(diffs) <= DIT_BF16_LOSS_TOL,
+          f"dit: the bf16 losses are {max(diffs)} from the f32 ones (> {DIT_BF16_LOSS_TOL})")
+    one = dit_velocities(cfg32, params, data, DIT_T)
+    move = (one["vel"] - one["vel_moved"]).abs().amax(dim=(0, 2))  # per token
+    earlier, own = float(move[:DIT_T - DIT_CHUNK].max()), float(move[DIT_T - DIT_CHUNK:].max())
+    check(earlier < DIT_CAUSAL_TOL and own > 1e-3,
+          f"dit: moving the last chunk moved an earlier velocity by {earlier} (own {own})")
+    del one
+    torch.cuda.empty_cache()
+    # the cp layouts' reference: cp = 1 on the card on their two 16k streams
+    ref = dit_velocities(cfg32, params, dit_batch(seed, cfg32, 2, DIT_CP_T), DIT_CP_T)
+    ref_path = os.path.join(scratch, "dit_cp1.pt")
+    torch.save({"vel": ref["vel"].cpu(), "loss": ref["loss"]}, ref_path)
+    del ref
+    torch.cuda.empty_cache()
+    t_cp = time.perf_counter()
+    layouts, launches = {}, {}
+    for layout in DIT_LAYOUTS:
+        got = pools[4].run(dit_rank, seed, layout, ref_path)
+        name = layout_name(layout)
+        check(all(r["vel_max_abs_diff"] <= DIT_CP_TOL and r["loss_diff"] <= DIT_CP_TOL
+                  for r in got), f"dit {name}: against cp = 1 {[(r['vel_max_abs_diff'], r['loss_diff']) for r in got]}")
+        check(len({r["loss"] for r in got}) == 1, f"dit {name}: the ranks' losses differ")
+        check(all(set(r["launches"]) == set(DIT_KERNELS) for r in got),
+              f"dit {name}: launches {[r['launches'] for r in got]}")
+        for r in got:
+            for n, c in r["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        layouts[name] = {"loss": got[0]["loss"],
+                         "vel_max_abs_diff": max(r["vel_max_abs_diff"] for r in got),
+                         "loss_diff": max(r["loss_diff"] for r in got),
+                         "step_ms": [r["step_ms"] for r in got],
+                         "head_block": got[0]["head_block"],
+                         "launches_by_rank": [r["launches"] for r in got]}
+    cp_s = time.perf_counter() - t_cp
+    path_launches = {n: runs["float32"]["launches"].get(n, 0) + runs["bfloat16"]["launches"].get(n, 0)
+                     for n in DIT_KERNELS}
+    return {"phase": "dit", "card": nvidia_smi_line(),
+            "config": dataclasses.asdict(cfg32), "tokens": DIT_T, "chunk": DIT_CHUNK,
+            "cut": "none of the widths; one 32,768-token stream (the 64k video mask at half "
+                   "its length)",
+            "weights": f"init_dit_params(seed {seed}) + {DIT_PERTURB} N(0, 1) noise",
+            "optimizer": {"AdamW": {**ADAMW, "betas": list(ADAMW["betas"])}},
+            "runs": runs, "bf16_minus_f32_loss": diffs,
+            "causality": {"earlier_max_move": earlier, "last_chunk_max_move": own},
+            "cp": {"tokens": DIT_CP_T, "layouts": layouts, "seconds": cp_s},
+            "launches": path_launches, "cp_launches": launches,
+            "seconds": time.perf_counter() - t_start}
+
+
 HETERO_T = 16384  # testing/workloads.py::varlen_block_causal(16384): 12 documents, seed 7
 HETERO_RUNS = ((TRAIN_HQ, TRAIN_HK, 2), (8, 8, 1))  # (hq, hk, the head_block the choice must give)
 
@@ -3711,28 +4491,6 @@ def keyed_fwd_bwd(key, q, k, v, g_out, g_lse, cross=False):
         torch.isfinite(lse), lse * g_lse, 0.0).sum()
     loss.backward()
     return out.detach(), lse.detach(), qg.grad, kg.grad, vg.grad
-
-
-def in_rank(fn):
-    """A rank task that hands its cached device memory back when it ends:
-    the ranks share the card, and one task's cached blocks (the plain
-    versions' dense scores, a model and its optimizer state) would starve
-    the next task's ranks."""
-    import functools
-
-    @functools.wraps(fn)
-    def run(*args):
-        import gc
-
-        import torch
-
-        try:
-            return fn(*args)
-        finally:
-            gc.collect()
-            torch.cuda.empty_cache()
-
-    return run
 
 
 @in_rank
@@ -8422,9 +9180,16 @@ def main(argv=None) -> int:
     sparse_cases(gen)
     emit(sparse_fwd_cases(gen))
     emit(sparse_bwd_cases(gen))
+    emit(narrow_cases(gen))
+    emit(f32_cases(gen))
+    emit({"phase": "planted_faults", "case": "d32_and_float32_walks",
+          "caught": narrow_planted_faults(gen, planted)})
     fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
+    narrow_line, narrow_t = narrow_timing(gen)
+    emit(narrow_line)
+    torch.cuda.empty_cache()
     emit(decode_cases(gen))
     emit({"phase": "planted_faults", "case": "paged_decode",
           "caught": decode_planted_faults(gen, planted)})
@@ -8489,6 +9254,8 @@ def main(argv=None) -> int:
         emit(cp_train_line)
         par_train_line = parallel_training(pools, args.seed, scratch)
         emit(par_train_line)
+        dit_line = dit_phase(pools, args.seed, scratch)
+        emit(dit_line)
         baselines_line = cp_baselines(pools, args.seed)
         emit(baselines_line)
         cp_hier_line = cp_hier_attn(pools, args.seed)
@@ -8546,6 +9313,7 @@ def main(argv=None) -> int:
                "sink": sink_line["launches"], "cp_attn": cp_attn_line["launches"],
                "cp_qo_attn": cp_qo_line["launches"], "cp_training": cp_train_line["launches"],
                "parallel_training": par_train_line["launches"],
+               "dit": dit_line["launches"], "dit_cp": dit_line["cp_launches"],
                "cp_baselines": baselines_line["launches"],
                "cp_hier_attn": cp_hier_line["launches"],
                "cp_hier_training": cp_hier_train_line["launches"],
@@ -8578,6 +9346,8 @@ def main(argv=None) -> int:
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": MAX_ERR[name],
             **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            # the same keys at this slice's new widths (narrow_timing): d 32 bf16, d 32 f32
+            **({"at_new_widths": narrow_t[name]} if name in narrow_t else {}),
         })
     # every path's launches are in the line: a phase cannot launch unseen
     launched = {(p, n) for p, counts in by_path.items() for n, c in counts.items() if c}

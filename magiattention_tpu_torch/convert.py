@@ -2,8 +2,8 @@
 
 The attention library has no weights of its own: its state is the paged KV
 cache (``k_pages``, ``v_pages``, ``block_tables``, ``seq_lens``) and the
-kernel plan (the arrays of a ``FlexAttnBlockMeta``); the Llama trainer adds
-its parameter tree. These functions carry that state across as numpy
+kernel plan (the arrays of a ``FlexAttnBlockMeta``); the Llama and DiT
+trainers add their parameter trees. These functions carry that state across as numpy
 arrays, so that the JAX package and the port can be handed the same state
 and compute the same thing — numpy is the only common currency; this module
 imports nothing of JAX.
@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models import dit
 from .models.llama import LAYER_KEYS, TP_COLUMNS, TP_ROWS
 from .ops.block_meta import FlexAttnBlockMeta
 from .serving.kv_cache import PagedKVCache
@@ -166,3 +167,30 @@ def llama_params_to_numpy(model, *, grad: bool = False) -> dict:
         "final_norm": tensor_to_numpy(leaf(tree["final_norm"])),
         "lm_head": tensor_to_numpy(leaf(tree["lm_head"])),
     }
+
+
+def dit_params_from_numpy(tree, device: str | torch.device = "cpu") -> dict:
+    """The port's DiT parameter tree from the JAX package's (its
+    ``init_dit_params(PRNGKey, cfg)`` through ``np.asarray``): float32
+    tensors on ``device``, for ``models.build_magi_dit(params=...)``. The
+    weight layout stays the JAX one, ``[in, out]`` applied as ``x @ w``."""
+
+    def conv(a):
+        return tensor_from_numpy(a, device, torch.float32)
+
+    return {**{n: conv(tree[n]) for n in dit.TOP_KEYS},
+            "layers": [{n: conv(layer[n]) for n in dit.LAYER_KEYS} for layer in tree["layers"]]}
+
+
+def dit_params_to_numpy(model, *, grad: bool = False) -> dict:
+    """A ``MagiDiT``'s parameters (or, with ``grad``, their gradients; a
+    gradient never computed reads 0) as numpy arrays in the JAX package's
+    tree."""
+    tree = model.param_tree()
+
+    def leaf(p):
+        t = p.grad if grad else p
+        return tensor_to_numpy(torch.zeros_like(p) if t is None else t)
+
+    return {**{n: leaf(tree[n]) for n in dit.TOP_KEYS},
+            "layers": [{n: leaf(layer[n]) for n in dit.LAYER_KEYS} for layer in tree["layers"]]}

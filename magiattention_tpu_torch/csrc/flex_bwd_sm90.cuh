@@ -172,8 +172,8 @@ __device__ __forceinline__ void two_scores(float (&s)[BK / 8][4], float (&t)[BK 
                                            uint32_t a, uint32_t b, uint32_t c, uint32_t e) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss(s, desc_k_major(a, kk), desc_k_major(b, kk), kk > 0);
-    wgmma_ss(t, desc_k_major(c, kk), desc_k_major(e, kk), kk > 0);
+    wgmma_ss(s, desc_k_major<D>(a, kk), desc_k_major<D>(b, kk), kk > 0);
+    wgmma_ss(t, desc_k_major<D>(c, kk), desc_k_major<D>(e, kk), kk > 0);
   }
 }
 

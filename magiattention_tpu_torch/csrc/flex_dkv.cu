@@ -36,8 +36,12 @@
 // Grid: (kv heads, k blocks), the k blocks in the host's launch order
 // (longest walk first, ops/flex_attn.py::walk_order). A k block with no
 // entry to walk still writes its (zero) rows.
+//
+// Float32 q/k/v/dout (in_f32) take the CUDA-core walk of flex_simt.cuh
+// instead: one (kv head, k block) per block, the same order in full f32.
 
 #include "flex_bwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -112,8 +116,8 @@ const char* magi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q/dout [hq, tqp, d] bf16; k/v [hk, tkp, d] bf16 (16-byte aligned, for
-// TMA); lse/delta [hq, tqp] f32 (delta = sum_d dout*out - dlse; 16-byte
+// q/dout [hq, tqp, d] bf16 (in_f32=0) or f32 (in_f32=1); k/v [hk, tkp, d]
+// of q's type (16-byte aligned, for TMA); lse/delta [hq, tqp] f32 (delta = sum_d dout*out - dlse; 16-byte
 // aligned); the backward's int32 tables (qblk, sid [E2]; runs [7 E2]; bounds
 // [5(S+1)]; rs, rc [nk] over its k blocks) and the launch order of the k
 // blocks (a permutation of 0..nk-1); dk, dv [hk, tkp, d] f32.
@@ -122,12 +126,23 @@ int magi_flex_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const void* sid, const void* runs, const void* bounds,
                   const void* rs, const void* rc, const void* order, void* dk, void* dv, int hq,
                   int hk, int tqp, int tkp, int head_dim, int nk, int block_q,
-                  int block_k, float scale, float softcap, void* stream) {
+                  int block_k, float scale, float softcap, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 ||
       tkp != nk * BK || tqp % BQ != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)
+    return simt::bwd<false>(
+        simt::BwdArgs{(const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                      (const float*)lse, (const float*)delta, (const int*)qblk, (const int*)sid,
+                      (const int*)runs, (const int*)bounds, (const int*)rs, (const int*)rc,
+                      (const int*)order, nullptr, (float*)dk, (float*)dv, hq / hk, tqp, tkp,
+                      scale, softcap},
+        hk, nk, head_dim, st);
   switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
+                        dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
                         dv, hq, hk, tqp, tkp, nk, scale, softcap, st);

@@ -145,6 +145,9 @@ int magi_flex_dkv_sparse(const void* q, const void* k, const void* v, const void
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, work,
+                        counter, dk, dv, hq, hk, tqp, tkp, nk, n_items, scale, softcap, st);
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, work,
                         counter, dk, dv, hq, hk, tqp, tkp, nk, n_items, scale, softcap, st);

@@ -32,8 +32,12 @@
 // (longest walk first, ops/flex_attn.py::walk_order), so the long walks of
 // every head start first and the short ones fill the tail. A q block with
 // no entry to walk still writes its (zero) rows.
+//
+// Float32 q/k/v/dout (in_f32) take the CUDA-core walk of flex_simt.cuh
+// instead: one q head and q block per block, the same math in full f32.
 
 #include "flex_bwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -118,8 +122,8 @@ const char* magi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q/dout [hq, tqp, d] bf16; k/v [hk, tkp, d] bf16 (16-byte aligned, for
-// TMA); lse/delta [hq, tqp] f32 (delta = sum_d dout*out - dlse); the
+// q/dout [hq, tqp, d] bf16 (in_f32=0) or f32 (in_f32=1); k/v [hk, tkp, d]
+// of q's type (16-byte aligned, for TMA); lse/delta [hq, tqp] f32 (delta = sum_d dout*out - dlse); the
 // forward's int32 tables (kblk, sid [E]; runs [7E]; bounds [5(S+1)]; rs, rc
 // [nq]) and the launch order of the q blocks (a permutation of 0..nq-1);
 // dq [hq, tqp, d] f32.
@@ -128,12 +132,23 @@ int magi_flex_dq(const void* q, const void* k, const void* v, const void* dout,
                  const void* sid, const void* runs, const void* bounds,
                  const void* rs, const void* rc, const void* order, void* dq, int hq, int hk,
                  int tqp, int tkp, int head_dim, int nq, int block_q,
-                 int block_k, float scale, float softcap, void* stream) {
+                 int block_k, float scale, float softcap, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 ||
       tqp != nq * BQ || tkp % BK != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)
+    return simt::bwd<true>(
+        simt::BwdArgs{(const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                      (const float*)lse, (const float*)delta, (const int*)kblk, (const int*)sid,
+                      (const int*)runs, (const int*)bounds, (const int*)rs, (const int*)rc,
+                      (const int*)order, (float*)dq, nullptr, nullptr, hq / hk, tqp, tkp, scale,
+                      softcap},
+        hq, nq, head_dim, st);
   switch (head_dim) {
+    case 32:
+      return dispatch<32>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, order, dq,
+                          hq, hk, tqp, tkp, nq, scale, softcap, st);
     case 64:
       return dispatch<64>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, order, dq,
                           hq, hk, tqp, tkp, nq, scale, softcap, st);

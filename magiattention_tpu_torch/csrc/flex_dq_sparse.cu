@@ -163,6 +163,9 @@ int magi_flex_dq_sparse(const void* q, const void* k, const void* v, const void*
   if (n_items != hq / heads_per_item * nq) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return dispatch<32>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
+                          counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
     case 64:
       return dispatch<64>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
                           counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);

@@ -13,8 +13,12 @@
 // (longest walk first, ops/flex_attn.py::walk_order), so the long walks of
 // every head start first and the short ones fill the tail. The loop over
 // entries takes the place of the TPU's sequential grid axis.
+//
+// Float32 q/k/v (in_f32) take the CUDA-core walk of flex_simt.cuh instead,
+// one q head per block, out in f32.
 
 #include "flex_fwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -48,21 +52,28 @@ const char* magi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q [hq, tqp, d] bf16; k/v [hk, tkp, d] bf16 (16-byte aligned, for TMA);
-// sink [hq] f32; int32 tables (kblk, sid [E]; runs [7E]; bounds [5(S+1)];
-// rs, rc [nq]) and the launch order of the q blocks (a permutation of
-// 0..nq-1); out [hq, tqp, d] bf16 (out_f32=0) or f32 (out_f32=1); lse,
-// rowmax [hq, tqp] f32.
+// q [hq, tqp, d] bf16 (in_f32=0) or f32 (in_f32=1); k/v [hk, tkp, d] of
+// q's type (16-byte aligned, for TMA); sink [hq] f32; int32 tables (kblk,
+// sid [E]; runs [7E]; bounds [5(S+1)]; rs, rc [nq]) and the launch order of
+// the q blocks (a permutation of 0..nq-1); out [hq, tqp, d] bf16 (out_f32=0)
+// or f32 (out_f32=1; f32 inputs write f32); lse, rowmax [hq, tqp] f32.
 int magi_flex_fwd(const void* q, const void* k, const void* v, const void* sink,
                   const void* kblk, const void* sid, const void* runs, const void* bounds,
                   const void* rs, const void* rc, const void* order, void* out, void* lse,
                   void* rowmax, int hq, int hk, int tqp, int tkp, int head_dim, int nq,
                   int block_q, int block_k, float scale, float softcap, int has_sink,
-                  int out_f32, void* stream) {
+                  int out_f32, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 || tqp != nq * BQ ||
-      tkp % BK != 0)
+      tkp % BK != 0 || (in_f32 && !out_f32))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)
+    return simt::fwd(simt::FwdArgs{(const float*)q, (const float*)k, (const float*)v,
+                                   (const float*)sink, (const int*)kblk, (const int*)sid,
+                                   (const int*)runs, (const int*)bounds, (const int*)rs,
+                                   (const int*)rc, (const int*)order, (float*)out, (float*)lse,
+                                   (float*)rowmax, hq / hk, tqp, tkp, scale, softcap, has_sink},
+                     hq, nq, head_dim, 1, st);
 #define MAGI_FLEX_LAUNCH(D)                                                                     \
   return out_f32 ? launch<D>(q, k, v,                                                           \
                              fwd_args<float>(sink, kblk, sid, runs, bounds, rs, rc, order, out, \
@@ -75,6 +86,7 @@ int magi_flex_fwd(const void* q, const void* k, const void* v, const void* sink,
                                             has_sink),                                          \
                              hq, hk, nq, st)
   switch (head_dim) {
+    case 32: MAGI_FLEX_LAUNCH(32);
     case 64: MAGI_FLEX_LAUNCH(64);
     case 128: MAGI_FLEX_LAUNCH(128);
     default: return cudaErrorInvalidValue;

@@ -18,8 +18,12 @@
 // (longest walk first, ops/flex_attn.py::walk_order), so on a causal mask
 // the longest walks (the last q blocks) of every head group start first and
 // the short ones fill the tail.
+//
+// Float32 q/k/v (in_f32) take the CUDA-core walk of flex_simt.cuh instead,
+// the item's head_block q heads one after the other in a block, out in f32.
 
 #include "flex_fwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -63,12 +67,19 @@ int magi_flex_fwd_hb(const void* q, const void* k, const void* v, const void* si
                      const void* rs, const void* rc, const void* order, void* out, void* lse,
                      void* rowmax, int hq, int hk, int tqp, int tkp, int head_dim, int nq,
                      int block_q, int block_k, int head_block, float scale, float softcap,
-                     int has_sink, int out_f32, void* stream) {
+                     int has_sink, int out_f32, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 || tqp != nq * BQ ||
       tkp % BK != 0 || head_block <= 0 || head_block % (hq / hk) != 0 ||
-      hq % head_block != 0)
+      hq % head_block != 0 || (in_f32 && !out_f32))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)
+    return simt::fwd(simt::FwdArgs{(const float*)q, (const float*)k, (const float*)v,
+                                   (const float*)sink, (const int*)kblk, (const int*)sid,
+                                   (const int*)runs, (const int*)bounds, (const int*)rs,
+                                   (const int*)rc, (const int*)order, (float*)out, (float*)lse,
+                                   (float*)rowmax, hq / hk, tqp, tkp, scale, softcap, has_sink},
+                     hq, nq, head_dim, head_block, st);
 #define MAGI_FLEX_HB_LAUNCH(D)                                                                  \
   return out_f32 ? launch<D>(q, k, v,                                                           \
                              fwd_args<float>(sink, kblk, sid, runs, bounds, rs, rc, order, out, \
@@ -81,6 +92,7 @@ int magi_flex_fwd_hb(const void* q, const void* k, const void* v, const void* si
                                             has_sink),                                          \
                              hq, hk, nq, head_block, st)
   switch (head_dim) {
+    case 32: MAGI_FLEX_HB_LAUNCH(32);
     case 64: MAGI_FLEX_HB_LAUNCH(64);
     case 128: MAGI_FLEX_HB_LAUNCH(128);
     default: return cudaErrorInvalidValue;

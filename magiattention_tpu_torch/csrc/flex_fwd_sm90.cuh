@@ -479,7 +479,8 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
   constexpr int J = D / 8;
   // at d = 128 Q lives in registers for the walk; at d = 64 such fragments
   // did not survive the walk on the card, so the product reads Q from
-  // shared memory there
+  // shared memory there, as at d = 32 (load_a_frag reads the 128-byte
+  // swizzle only)
   constexpr bool Q_IN_REGS = D == 128;
   const typename L::Bars bars{base + L::BARS};
   const int* meta = reinterpret_cast<const int*>(smem + L::META);
@@ -546,9 +547,9 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         if constexpr (Q_IN_REGS)
-          wgmma_rs_k(x, qf[kk], desc_k_major(sk, kk), kk > 0);
+          wgmma_rs_k(x, qf[kk], desc_k_major<D>(sk, kk), kk > 0);
         else
-          wgmma_ss(x, desc_k_major(sq, kk), desc_k_major(sk, kk), kk > 0);
+          wgmma_ss(x, desc_k_major<D>(sq, kk), desc_k_major<D>(sk, kk), kk > 0);
       }
       wgmma_commit();
     };

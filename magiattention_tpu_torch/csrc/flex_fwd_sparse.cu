@@ -80,6 +80,9 @@ int magi_flex_fwd_sparse(const void* q, const void* k, const void* v, const void
                   tqp, tkp, scale, softcap, has_sink),                                      \
       hq, hk, work, counter, nq, n_items, heads_per_item, st)
   switch (head_dim) {
+    case 32:
+      if (out_f32) MAGI_FWD_SPARSE_LAUNCH(32, float);
+      MAGI_FWD_SPARSE_LAUNCH(32, bf16);
     case 64:
       if (out_f32) MAGI_FWD_SPARSE_LAUNCH(64, float);
       MAGI_FWD_SPARSE_LAUNCH(64, bf16);

@@ -82,6 +82,9 @@ int magi_flex_fwd_sparse_hb(const void* q, const void* k, const void* v,
                                rowmax, hq / hk, tqp, tkp, scale, softcap, has_sink),         \
                    hq, hk, work, counter, nq, n_items, heads_per_item, st)
   switch (head_dim) {
+    case 32:
+      if (out_f32) MAGI_FWD_SPARSE_HB_LAUNCH(32, float);
+      MAGI_FWD_SPARSE_HB_LAUNCH(32, bf16);
     case 64:
       if (out_f32) MAGI_FWD_SPARSE_HB_LAUNCH(64, float);
       MAGI_FWD_SPARSE_HB_LAUNCH(64, bf16);

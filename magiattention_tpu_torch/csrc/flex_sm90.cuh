@@ -7,19 +7,22 @@
 // warpgroup around a ring of shared-memory stages) with the pieces its
 // consumers share, and the host-side tensor-map encoding.
 //
-// Tiles are 64 rows of a head-major [rows, d] bf16 array, d in {64, 128},
-// loaded by TMA with 128-byte swizzle as d / 64 "chunks" of 64 rows x 128
-// bytes (64 bf16), one 8 KB box each, every chunk 1024-byte aligned. wgmma
-// reads such a tile through a shared-memory descriptor in one of two
-// orientations:
-// - K-major (the reduction dimension runs along the 128-byte rows): the
+// Tiles are 64 rows of a head-major [rows, d] bf16 array, d in {32, 64,
+// 128}. At d = 64 and 128 TMA loads a tile with 128-byte swizzle as d / 64
+// "chunks" of 64 rows x 128 bytes (64 bf16), one 8 KB box each, every chunk
+// 1024-byte aligned. A d = 32 row is 64 bytes: the tile is one 64 x 32 box
+// (4 KB) with 64-byte swizzle, whose pattern repeats every 8 rows (512
+// bytes). wgmma reads a tile through a shared-memory descriptor (layout type
+// B128, or B64 at d = 32) in one of two orientations:
+// - K-major (the reduction dimension runs along the swizzled rows): the
 //   operands of S = Q K^T-type products. The 16-wide k slice kk starts at
-//   chunk kk / 4, byte 32 (kk % 4) of the swizzled row; 8-row groups are
-//   1024 bytes apart (SBO).
+//   chunk kk / 4, byte 32 (kk % 4) of the 128-byte row (d = 32: byte 32 kk
+//   of the 64-byte row); 8-row groups are 1024 (512) bytes apart (SBO).
 // - MN-major (the tile's rows are the reduction dimension, transposed B):
-//   the B operand of dQ += dS K-type products. The 16-row k slice kk
-//   starts 2048 bytes (16 rows) into the tile; 8-row groups are 1024 bytes
-//   apart (SBO), and the second 64-column chunk (d = 128) 8192 bytes (LBO).
+//   the B operand of dQ += dS K-type products, N = d. The 16-row k slice kk
+//   starts 16 rows into the tile, 2048 (1024) bytes; 8-row groups are 1024
+//   (512) bytes apart (SBO), and the second 64-column chunk (d = 128) 8192
+//   bytes (LBO; d <= 64 has one chunk across N).
 //
 // The accumulator of wgmma m64nNk16 (f32) gives thread (warp w of the
 // warpgroup, lane 4 g + t4) rows 16 w + g and 16 w + g + 8 of the tile and
@@ -39,7 +42,23 @@ namespace flex {
 namespace sm90 {
 
 constexpr int WG_THREADS = 128;  // a warpgroup: the unit that issues wgmma
-constexpr int CHUNK_BYTES = 64 * 128;  // one TMA box: 64 rows x 64 bf16
+constexpr int CHUNK_BYTES = 64 * 128;  // one TMA box at d = 64, 128: 64 rows x 64 bf16
+
+// A tile's swizzled row: 128 bytes at d = 64 and 128 (a chunk's 64 bf16),
+// the whole 64-byte row at d = 32; its columns and its TMA box's bytes.
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  static_assert(D == 32 || D == 64 || D == 128, "the flex kernels take d in {32, 64, 128}");
+  return D == 32 ? 64 : 128;
+}
+template <int D>
+__host__ __device__ constexpr int chunk_cols() {
+  return row_bytes<D>() / 2;
+}
+template <int D>
+__host__ __device__ constexpr int chunk_bytes() {
+  return 64 * row_bytes<D>();
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -95,12 +114,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Rows row0 .. row0+63 of a [rows, D] bf16 tensor map: D / 64 boxes.
+// Rows row0 .. row0+63 of a [rows, D] bf16 tensor map: D / 64 boxes (one
+// 64 x 32 box at D = 32), the tile_bytes<D>() that the barrier expects.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int row0) {
+  constexpr int COLS = chunk_cols<D>();
+  static_assert(D % COLS == 0 && D / COLS >= 1, "a tile is a whole number of boxes");
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_load_2d(dst + c * CHUNK_BYTES, map, bar, c * 64, row0);
+  for (int c = 0; c < D / COLS; ++c)
+    tma_load_2d(dst + c * chunk_bytes<D>(), map, bar, c * COLS, row0);
 }
 
 // A contiguous run of global memory (16-byte aligned, a multiple of 16
@@ -177,23 +200,30 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[J][4]) {
     for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[j][c])::"memory");
 }
 
-// A shared-memory matrix descriptor with 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+// A shared-memory matrix descriptor of a tile of width D: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128:
+// 128-byte swizzle) or, at D = 32, 2 (B64: 64-byte swizzle).
+template <int D>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t layout = row_bytes<D>() == 64 ? 2 : 1;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (layout << 62);
 }
 
-// The 16-wide k slice kk of a 64-row tile, K-major (see the top).
+// The 16-wide k slice kk of a 64-row tile of width D, K-major (see the top).
+template <int D>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
-  return smem_desc(tile + (kk >> 2) * CHUNK_BYTES + (kk & 3) * 32, 16, 1024);
+  if constexpr (D == 32) return smem_desc<D>(tile + kk * 32, 16, 512);
+  return smem_desc<D>(tile + (kk >> 2) * CHUNK_BYTES + (kk & 3) * 32, 16, 1024);
 }
 
-// Rows 16 kk .. 16 kk + 15 of a 64-row tile as the k slice of an MN-major B
-// operand whose N is the tile's width (see the top).
+// Rows 16 kk .. 16 kk + 15 of a 64-row tile of width D as the k slice of an
+// MN-major B operand whose N is D (see the top).
+template <int D>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
-  return smem_desc(tile + kk * 2048, CHUNK_BYTES, 1024);
+  constexpr int GROUP = 8 * row_bytes<D>();  // the bytes of an 8-row group
+  return smem_desc<D>(tile + kk * 2 * GROUP, chunk_bytes<D>(), GROUP);
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory, both
@@ -251,6 +281,22 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], uint32_t tile, int
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], A from registers (the A fragment),
+// B from shared memory, MN-major (transposed; 64-byte swizzle: d = 32).
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the A fragment),
@@ -353,13 +399,13 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)
   }
 }
 
-// acc[64 x D] += A[64 x 64] tile[64 rows x D]: A from registers, the tile
-// as an MN-major B operand. Issued, not waited for.
+// acc[64 x D] += A[64 x 64] tile[64 rows x D] (D = 8 J): A from registers,
+// the tile as an MN-major B operand. Issued, not waited for.
 template <int J>
 __device__ __forceinline__ void acc_product(float (&acc)[J][4], const uint32_t (&a)[4][4],
                                             uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn_major(tile, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn_major<8 * J>(tile, kk));
 }
 
 // Accumulator columns J0 .. J0+N-1 into a thread-major shared-memory
@@ -436,8 +482,9 @@ __device__ __forceinline__ Item take_item(uint32_t full0, uint32_t empty0, const
 
 // -- host ---------------------------------------------------------------------------
 
-// A 2-D tensor map over a head-major [rows, d] bf16 array (d in {64, 128},
-// row stride d) with 64 x 64 boxes and 128-byte swizzle. The driver's
+// A 2-D tensor map over a head-major [rows, d] bf16 array (d in {32, 64,
+// 128}, row stride d) with 64 x 64 boxes and 128-byte swizzle (d = 32: 64
+// x 32 boxes and 64-byte swizzle; see the top). The driver's
 // encoder is reached through the runtime's entry-point query, so the library
 // does not link libcuda. The base must be 16-byte aligned.
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int rows, int d) {
@@ -458,11 +505,14 @@ inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int rows,
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};  // bytes, rows
-  const cuuint32_t box[2] = {64, 64};
+  if (d != 32 && d != 64 && d != 128) return cudaErrorInvalidValue;
+  const bool narrow = d == 32;  // one 64-byte box a row
+  const cuuint32_t box[2] = {narrow ? 32u : 64u, 64};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              narrow ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

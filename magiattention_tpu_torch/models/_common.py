@@ -116,8 +116,9 @@ def make_parallel_groups(*, pp: int = 1, dp: int = 1, cp=1, tp: int = 1,
 
 
 def make_model_train_step(model, optimizer: torch.optim.Optimizer):
-    """A train step over a model exposing ``loss(tokens, labels, pos)``:
-    ``step(tokens, labels, pos)`` runs forward, backward and one
+    """A train step over a model exposing ``loss(*batch)`` (the Llama
+    trainers' ``(tokens, labels, pos)``, the DiT's ``(noised, target_v,
+    t_chunk, pos, text)``): ``step(*batch)`` runs forward, backward and one
     ``optimizer`` update in place, and returns the loss (a detached float32
     scalar on the model's device). The counterpart of the JAX
     ``make_model_train_step``, whose state is functional; here it lives in
@@ -132,9 +133,9 @@ def make_model_train_step(model, optimizer: torch.optim.Optimizer):
     ``model.sum_groups``."""
     import torch.distributed as dist
 
-    def step(tokens, labels, pos):
+    def step(*batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = model.loss(tokens, labels, pos)
+        loss = model.loss(*batch)
         loss.backward()
         for params, grp in model.grad_groups():
             sum_grads(params, grp)

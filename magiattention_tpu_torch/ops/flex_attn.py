@@ -13,7 +13,8 @@ it. Two grids, as in the JAX package:
   pairs), ``flex_dq`` (``csrc/flex_dq.cu``) the same walk for dq,
   ``flex_dkv`` (``csrc/flex_dkv.cu``) one k block's entries of the k-major
   table for dk/dv (all four warp-specialised TMA + wgmma kernels, their
-  blocks launched longest walk first: :func:`walk_order`);
+  blocks launched longest walk first: :func:`walk_order`; on float32
+  q/k/v the same four run the CUDA-core walks of ``csrc/flex_simt.cuh``);
 - ``sparse``, the compact grid for heterogeneous masks: persistent kernels
   that take (heads, block) items from a longest-walk-first work list
   (``sparse_work``) — ``flex_fwd_sparse`` / ``flex_fwd_sparse_hb`` (the
@@ -64,9 +65,16 @@ LN2 = math.log(2.0)
 # tuned table: 64 query rows are the M of one wgmma (a consumer
 # warpgroup's rows), and a 64-key K/V tile keeps a ring stage of K and V at
 # 32 KB for d=128, so four stages and the resident tiles fit one SM. The
-# kernels are compiled for these head dims and this one tile only.
-HOPPER_TILES: dict[int, tuple[int, int]] = {64: (64, 64), 128: (64, 64)}
-KERNEL_DTYPES = (torch.bfloat16,)
+# kernels are compiled for these head dims and this one tile only (d = 32
+# rows are 64 bytes: a 64-byte TMA swizzle, csrc/flex_sm90.cuh).
+HOPPER_TILES: dict[int, tuple[int, int]] = {32: (64, 64), 64: (64, 64), 128: (64, 64)}
+# The q/k/v dtypes each grid's kernels take: bf16 on the wgmma walks, and
+# float32 on the row-major grid's CUDA-core walks (csrc/flex_simt.cuh); the
+# sparse grid has no float32 walk yet.
+KERNEL_DTYPES: dict[str, tuple[torch.dtype, ...]] = {
+    "row_major": (torch.bfloat16, torch.float32),
+    "sparse": (torch.bfloat16,),
+}
 
 @dataclasses.dataclass(frozen=True)
 class FlexAttnParams:
@@ -424,13 +432,15 @@ def _check_variant(params: FlexAttnParams, hq: int, hk: int) -> None:
         )
 
 
-def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams) -> None:
-    """Raise on what the flex kernels do not take: the dtype, the head dim
-    and tile, the GQA ratio."""
+def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams,
+                       grid: str = "row_major") -> None:
+    """Raise on what the flex kernels of ``grid`` do not take: the dtype
+    (:data:`KERNEL_DTYPES`), the head dim and tile, the GQA ratio."""
     hq, d, hk = q.shape[0], q.shape[2], k.shape[0]
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtypes = KERNEL_DTYPES[grid]
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"{name} takes {KERNEL_DTYPES} q/k/v of one dtype; got "
+            f"{name} (the {grid} grid) takes q/k/v of one dtype in {dtypes}; got "
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if HOPPER_TILES.get(d) != (params.block_q, params.block_k):
@@ -468,7 +478,7 @@ def _launch_fwd(name, q, k, v, sink, tables, params: FlexAttnParams, *head_block
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, *head_block, float(params.scale), float(params.softcap),
         int(params.has_sink), int(params.out_dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse, rowmax
 
@@ -506,7 +516,7 @@ def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
     cannot load."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
-    _check_kernel_args(name, q, k, v, params)
+    _check_kernel_args(name, q, k, v, params, "sparse")
     if heads_per_item > 1:
         _check_variant(params, hq, hk)
     if params.out_dtype not in (q.dtype, torch.float32):
@@ -603,8 +613,8 @@ def _dkv_torch(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
     return (dk.view(hk, hq // hk, tkp, d).sum(1), dv.view(hk, hq // hk, tkp, d).sum(1))
 
 
-def _bwd_kernel_args(name, q, k, v, do, lse, delta, params):
-    _check_kernel_args(name, q, k, v, params)
+def _bwd_kernel_args(name, q, k, v, do, lse, delta, params, grid="row_major"):
+    _check_kernel_args(name, q, k, v, params, grid)
     if do.dtype != q.dtype or do.shape != q.shape:
         raise TypeError(f"{name}: dout {do.dtype}{tuple(do.shape)} must match q {q.dtype}{tuple(q.shape)}")
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -653,7 +663,7 @@ def _dq_kernel(q, k, v, do, lse, delta, ftab, params: FlexAttnParams):
         rs.data_ptr(), rc.data_ptr(), order.data_ptr(), dq.data_ptr(),
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, float(params.scale), float(params.softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq
 
@@ -678,7 +688,7 @@ def _dkv_kernel(q, k, v, do, lse, delta, btab, params: FlexAttnParams):
         rs.data_ptr(), rc.data_ptr(), order.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         hq, hk, tqp, tkp, d, tkp // params.block_k, params.block_q,
         params.block_k, float(params.scale), float(params.softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dk, dv
 
@@ -691,7 +701,8 @@ def _dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work: SparseWork,
     Raises on what it does not take."""
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
-    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq_sparse", q, k, v, do, lse, delta, params)
+    q, k, v, do, lse, delta = _bwd_kernel_args("flex_dq_sparse", q, k, v, do, lse, delta,
+                                               params, "sparse")
     _check_tma_aligned("flex_dq_sparse", dict(q=q, k=k, v=v, dout=do))
     _check_work_items("flex_dq_sparse", work.dq, hq // dq_heads_per_item(hq, hk),
                       tqp // params.block_q)
@@ -721,7 +732,7 @@ def _dkv_sparse_kernel(q, k, v, do, lse, delta, btab, work: SparseWork,
     hq, tqp, d = q.shape
     hk, tkp = k.shape[0], k.shape[1]
     q, k, v, do, lse, delta = _bwd_kernel_args("flex_dkv_sparse", q, k, v, do, lse, delta,
-                                               params)
+                                               params, "sparse")
     _check_tma_aligned("flex_dkv_sparse", dict(q=q, k=k, v=v, dout=do, lse=lse, delta=delta))
     _check_work_items("flex_dkv_sparse", work.dkv, hk, tkp // params.block_k)
     dk = torch.empty((hk, tkp, d), dtype=torch.float32, device=q.device)

@@ -157,3 +157,80 @@ def test_non_cpu_non_cuda_tensors_raise():
     q = torch.empty((64, 2, 32), device="meta")
     with pytest.raises(ValueError, match="meta"):
         flex_flash_attn_func(q, q[:, :1], q[:, :1], [(0, 64)], [(0, 64)], [C])
+
+
+# the kernels' argument checks, with the launch recorded instead of run (the
+# CPU has no card): what each of the eight flex kernels takes
+
+_ROW_MAJOR = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv")
+_SPARSE = ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")
+
+
+def _launch_recorded(kernel, d, dtype, monkeypatch):
+    """Call ``kernel``'s wrapper on CPU tensors of head_dim ``d`` and
+    ``dtype`` (a causal 256-token mask, 4 q / 2 kv heads, the 64 x 64 tile)
+    with ``csrc.launch`` recorded; returns the recorded (name, args)."""
+    import dataclasses
+    import types as pytypes
+
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    t, hq, hk = 256, 4, 2
+    meta = fa.build_block_meta([(0, t)], [(0, t)], [C], t, t, block_q=64, block_k=64)
+    q, do = (torch.zeros((hq, t, d), dtype=dtype) for _ in range(2))
+    k, v = (torch.zeros((hk, t, d), dtype=dtype) for _ in range(2))
+    lse, delta, sink = torch.zeros((hq, t)), torch.zeros((hq, t)), torch.zeros(hq)
+    grid = "sparse" if kernel in _SPARSE else "row_major"
+    hb = 2 if kernel.endswith("_hb") else 1
+    params = fa.FlexAttnParams(64, 64, d ** -0.5, 0.0, False, dtype, hb, grid)
+    ftab, btab = fa.fwd_tables(meta, "cpu"), fa.bwd_tables(meta, "cpu")
+    work = fa.sparse_work(meta, "cpu", hq, hk, hb)
+    calls = []
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: pytypes.SimpleNamespace(cuda_stream=0))
+    run = {
+        "flex_fwd": lambda: fa._fwd_kernel(q, k, v, sink, ftab, params),
+        "flex_fwd_hb": lambda: fa._fwd_hb_kernel(q, k, v, sink, ftab, params),
+        "flex_dq": lambda: fa._dq_kernel(q, k, v, do, lse, delta, ftab, params),
+        "flex_dkv": lambda: fa._dkv_kernel(q, k, v, do, lse, delta, btab, params),
+        "flex_fwd_sparse": lambda: fa._fwd_sparse_kernel(q, k, v, sink, ftab, work, params),
+        "flex_fwd_sparse_hb": lambda: fa._fwd_sparse_hb_kernel(q, k, v, sink, ftab, work,
+                                                               params),
+        "flex_dq_sparse": lambda: fa._dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work,
+                                                       dataclasses.replace(params, head_block=2)),
+        "flex_dkv_sparse": lambda: fa._dkv_sparse_kernel(q, k, v, do, lse, delta, btab, work,
+                                                         params),
+    }[kernel]
+    run()
+    return calls
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("kernel", _ROW_MAJOR + _SPARSE)
+def test_every_flex_kernel_takes_bf16_at_head_dims_32_64_128(kernel, d, monkeypatch):
+    calls = _launch_recorded(kernel, d, torch.bfloat16, monkeypatch)
+    assert [name for name, _ in calls] == [kernel]
+    args = calls[0][1]
+    assert d in args  # the head_dim argument the entry point switches on
+    if kernel in _ROW_MAJOR:
+        assert args[-2] == 0  # in_f32: the wgmma walk
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("kernel", _ROW_MAJOR)
+def test_row_major_kernels_take_float32(kernel, d, monkeypatch):
+    calls = _launch_recorded(kernel, d, torch.float32, monkeypatch)
+    assert [name for name, _ in calls] == [kernel] and calls[0][1][-2] == 1  # in_f32
+
+
+@pytest.mark.parametrize("kernel", _SPARSE)
+def test_sparse_kernels_refuse_float32_naming_the_grid(kernel, monkeypatch):
+    with pytest.raises(TypeError, match="the sparse grid"):
+        _launch_recorded(kernel, 32, torch.float32, monkeypatch)
+
+
+@pytest.mark.parametrize("kernel", _ROW_MAJOR + _SPARSE)
+def test_flex_kernels_refuse_other_head_dims(kernel, monkeypatch):
+    with pytest.raises(ValueError, match="head_dim"):
+        _launch_recorded(kernel, 16, torch.bfloat16, monkeypatch)

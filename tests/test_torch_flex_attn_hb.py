@@ -94,6 +94,16 @@ def test_head_batched_forward_matches_jax(mask, group, hb_of_group):
     _forward_case(mask, hq, hk, hb=group * hb_of_group)
 
 
+@pytest.mark.parametrize("group", sorted(HEADS), ids=lambda g: f"g{g}")
+@pytest.mark.parametrize("mask", ["causal", "varlen_block_causal"])
+def test_head_batched_forward_at_head_dim_32_matches_jax(mask, group):
+    """DiTConfig's head_dim: JAX ``_fwd_pallas_hb`` in interpret mode at d 32
+    against the port's plain version (what ``flex_fwd_hb`` is held to on
+    the card)."""
+    hq, hk = HEADS[group]
+    _forward_case(mask, hq, hk, hb=group, d=32)
+
+
 @pytest.mark.parametrize(
     "opts",
     [{"softcap": 5.0}, {"sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}],

@@ -135,6 +135,15 @@ def test_sparse_forward_head_blocks_match_jax(heads, hb_of_group):
     _forward_case("block_causal", hq, hk, hb=hb)
 
 
+@pytest.mark.parametrize("hb_of_group", [0, 1], ids=["hb1", "hbG"])
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"hq{h[0]}_hk{h[1]}")
+def test_sparse_forward_at_head_dim_32_matches_jax(heads, hb_of_group):
+    """head_dim 32: JAX ``_fwd_pallas_sparse`` / ``_fwd_pallas_hb_sparse`` in
+    interpret mode against the port's plain sparse forward."""
+    hq, hk = heads
+    _forward_case("block_causal", hq, hk, hb=1 if hb_of_group == 0 else hq // hk, d=32)
+
+
 def test_sparse_forward_softcap_sink_matches_jax():
     sink = np.asarray([0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0], np.float32)
     _forward_case("shared_question", 8, 2, hb=4, softcap=5.0, sink=sink)
@@ -494,14 +503,16 @@ def test_auto_head_block_matches_jax(hq, group):
 
 def test_flex_flash_attn_func_resolves_the_sparse_grid(monkeypatch):
     """Defaults on a heterogeneous mask reach the sparse plain forward; a
-    causal mask keeps the row-major one."""
+    causal mask keeps the row-major one. At head_dim 64: at d 32 (a built
+    tile since the d-32 kernels) the cost model takes the row-major grid on
+    this 512-token mask, as its cheaper tiles price it."""
     monkeypatch.delenv("MAGI_ATTENTION_GRID", raising=False)
     monkeypatch.delenv("MAGI_ATTENTION_HEAD_BLOCK", raising=False)
     calls = []
     monkeypatch.setattr(fa, "_fwd_torch_sparse",
                         lambda *a, _f=fa._fwd_torch_sparse: calls.append("sparse") or _f(*a))
     monkeypatch.setattr(fa, "_fwd_torch", lambda *a, _f=fa._fwd_torch: calls.append("row") or _f(*a))
-    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 512, 512, 4, 2, 32))
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 512, 512, 4, 2, 64))
     fa.flex_flash_attn_func(q, k, v, *split(MASKS["varlen_causal"]))
     fa.flex_flash_attn_func(q, k, v, [(0, 512)], [(0, 512)], [1])
     assert calls == ["sparse", "row"]

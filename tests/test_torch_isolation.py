@@ -66,7 +66,8 @@ def test_every_module_is_mirrored_by_a_jax_twin():
                 "tuning.cost_model", "tuning.autotuner", "analysis.plan_sanity",
                 "analysis.trace_audit", "analysis.spmd_audit", "analysis.lifecycle",
                 "analysis.lint", "analysis.__main__", "fleet.workload", "fleet.autopilot",
-                "fleet.sim", "fleet.capacity", "models.llama_pp", "parallel.baselines",
+                "fleet.sim", "fleet.capacity", "models.llama_pp", "models.dit",
+                "parallel.baselines",
                 "parallel.baselines.ring", "parallel.baselines.ulysses",
                 "parallel.baselines.usp", "parallel.baselines.loongtrain",
                 "parallel.baselines.hybrid_dcp", "parallel.baselines.nsa"):
@@ -210,3 +211,28 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_csrc_sources_include_only_the_ports_own_headers():
+    """Every kernel source and header of the port (the CUDA-core
+    ``flex_simt.cuh`` included) includes system headers or headers of its
+    own directory, never a file of the JAX package."""
+    import re
+
+    csrc_dir = os.path.join(REPO, "magiattention_tpu_torch", "csrc")
+    sources = [f for f in os.listdir(csrc_dir) if f.endswith((".cu", ".cuh", ".cpp"))]
+    assert "flex_simt.cuh" in sources
+    for name in sources:
+        with open(os.path.join(csrc_dir, name)) as f:
+            for inc in re.findall(r'#include "([^"]+)"', f.read()):
+                assert os.path.exists(os.path.join(csrc_dir, inc)) and "/" not in inc, (name, inc)
+
+
+def test_dit_builder_raises_without_a_card():
+    """``build_magi_dit`` runs on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be observed here")
+    from magiattention_tpu_torch.models import DiTConfig, build_magi_dit
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_magi_dit(DiTConfig(n_layers=1), 512, 128)

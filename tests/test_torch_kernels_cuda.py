@@ -42,7 +42,7 @@ def _close(out, ref, lse, ref_lse):
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("group", [1, 2, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("types", [[C], [F], [I], [B]], ids=["causal", "full", "inv", "bi"])
 def test_flex_fwd_matches_plain(card, d, types, group, out_dtype):
     """``flex_fwd`` (a head pair per block at even G, one head with its
@@ -74,7 +74,7 @@ def test_flex_fwd_matches_plain(card, d, types, group, out_dtype):
 
 @pytest.mark.parametrize("hb_of_group", [1, 2], ids=["hbG", "hb2G"])
 @pytest.mark.parametrize("group", [1, 2, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize(
     "case",
     [
@@ -127,6 +127,47 @@ def test_forward_checks_catch_planted_faults(card):
     assert len(caught) == 2 and all(c["failed_checks"] for c in caught.values())
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize(
+    "case",
+    [("causal", [(0, 700)], [(0, 700)], [C], {}),
+     ("varlen_softcap_sink", [(0, 300), (300, 700)], [(0, 300), (300, 700)], [C, C],
+      {"softcap": 30.0, "sink": [0.5, -1.0, 2.0, 0.0, 1.0, -3.0, 0.25, 4.0]}),
+     ("full_inv_bi", [(0, 200), (200, 450), (450, 700)], [(0, 700), (0, 500), (100, 700)],
+      [F, I, B], {})],
+    ids=lambda c: c[0],
+)
+def test_row_major_kernels_in_float32_match_plain(card, case, d, group):
+    """``flex_fwd``, ``flex_fwd_hb``, ``flex_dq`` and ``flex_dkv`` on
+    float32 q/k/v (the CUDA-core walks) within the float32 row of
+    ``DEFAULT_BUDGETS`` (the smoke's ``f32_problem_check``: gradients held
+    to the whole row on their entries of at least 1% of the largest), each
+    twice for the same bits, the head-batched forward bit for bit
+    ``flex_fwd``'s."""
+    import chip_smoke
+
+    _, qr, kr, ty, kw = case
+    p = chip_smoke.Flex(card, 700, 700, 8, 8 // group, qr, kr, ty, d=d, dtype=torch.float32,
+                        **kw)
+    chip_smoke.f32_problem_check(p, case[0])
+
+
+def test_narrow_and_float32_checks_catch_planted_faults(card):
+    """The smoke's checks on mutated builds of this slice's walks: the d-32
+    tile path reading every k slice of S = Q K^T from the first, and the
+    float32 forward not rescaling O when a row's max rises."""
+    import chip_smoke
+    from magiattention_tpu_torch import csrc
+
+    csrc.load("flex_fwd")
+    csrc.load("flex_fwd_hb")
+    planted = chip_smoke.planted_libraries(chip_smoke.start_planted_build(
+        ["flex_fwd_hb_d32_first_slice", "flex_fwd_f32_no_rescale"]))
+    caught = chip_smoke.narrow_planted_faults(card, planted)
+    assert len(caught) == 2
+
+
 def _bwd_problem(gen, tq, tk, hq, hk, d, q_ranges, k_ranges, types, softcap=0.0, sink=False):
     from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -173,7 +214,7 @@ def _bwd_close(got, ref):
 
 
 @pytest.mark.parametrize("group", [1, 2, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize(
     "case",
     [
@@ -259,8 +300,12 @@ def test_flex_fwd_refuses_what_it_does_not_implement(card):
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     with pytest.raises(ValueError, match="head_block 3"):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major", head_block=3)
-    with pytest.raises(TypeError):
-        flex_flash_attn_func(q.float(), k.float(), k.float(), [(0, 64)], [(0, 64)], [C])
+    # float32 runs the row-major grid's CUDA-core walks; the sparse grid has none
+    q32, k32 = q.float(), k.float()
+    out, lse = flex_flash_attn_func(q32, k32, k32, [(0, 64)], [(0, 64)], [C], grid="row_major")
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    with pytest.raises(TypeError, match="sparse grid"):
+        flex_flash_attn_func(q32, k32, k32, [(0, 64)], [(0, 64)], [C], grid="sparse")
     with pytest.raises(ValueError, match="tile"):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], block_q=32)
 
@@ -283,7 +328,7 @@ def _sparse_masks():
 
 @pytest.mark.parametrize("hb_of_group", [1, 0, 2], ids=["hbG", "hb1", "hb2G"])
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("mask", ["varlen_block_causal", "shared_question", "full_inv_bi"])
 def test_sparse_kernels_match_plain(card, mask, d, group, hb_of_group):
     import dataclasses
@@ -331,7 +376,7 @@ def _rising_keys(k, t, top=12.0):
 
 @pytest.mark.parametrize("hb_of_group", [0, 1], ids=["hb1", "hbG"])
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("mask", ["varlen_block_causal", "shared_question", "full_inv_bi",
                                   "one_tile_walks", "rising_logits", "uncovered_rows"])
 def test_sparse_forward_matches_plain(card, mask, d, group, hb_of_group):
@@ -431,7 +476,7 @@ def _one_tile_docs(t):
 
 
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize(
     "mask", ["varlen_block_causal", "shared_question", "full_inv_bi", "one_tile_walks"])
 def test_sparse_backward_matches_plain_and_row_major(card, mask, d, group):

@@ -169,13 +169,15 @@ def test_profile_roofline_measures_on_the_cpu_and_records():
     telemetry.set_enabled(True)
     telemetry.reset()
     qr, kr, ts = MASKS["varlen"]
-    rep = telemetry.profile_roofline(qr, kr, ts, num_heads_q=4, num_heads_kv=2, head_dim=32,
+    # head_dim 64: at d 32 (a built tile since the d-32 kernels) the cost
+    # model prices this 512-token mask onto the row-major grid
+    rep = telemetry.profile_roofline(qr, kr, ts, num_heads_q=4, num_heads_kv=2, head_dim=64,
                                      device="cpu", dtype=torch.float32, measure=True, reps=2,
                                      workload="varlen")
     assert rep.card == "cpu" and rep.measured_ms > 0 and 0 < rep.efficiency
     # the blocking the kernel would run: the density rule's sparse grid here
     assert (rep.block_q, rep.block_k, rep.head_block, rep.grid) == \
-        fa.auto_kernel_config(qr, kr, 4, 2, attn_type_map=ts, head_dim=32) == (B, B, 2, "sparse")
+        fa.auto_kernel_config(qr, kr, 4, 2, attn_type_map=ts, head_dim=64) == (B, B, 2, "sparse")
     names = {s.split("{")[0] for s in telemetry.snapshot()["gauges"]}
     assert set(telemetry.REQUIRED_ROOFLINE_METRICS) <= names
     assert "masked-entry overcompute" in rep.report()

@@ -250,14 +250,15 @@ def test_measure_failed_is_not_persisted(tmp_path, monkeypatch):
 
 
 def test_infeasible_everywhere_stays_model():
-    """A head dim the build has no tile for: nothing to time, a model
-    decision (the preference order), served from the cache after."""
+    """A head dim the build has no tile for (16; 32 has one since the d-32
+    kernels): nothing to time, a model decision (the preference order),
+    served from the cache after."""
     attempts = []
-    d = select_block_config(*CAUSAL, 8, 4, head_dim=32, device="cpu", mode="measure",
+    d = select_block_config(*CAUSAL, 8, 4, head_dim=16, device="cpu", mode="measure",
                             measure_fn=lambda *a: attempts.append(a) or 0.001)
     assert attempts == [] and d.source == "model" and "no feasible candidate" in d.reason
     assert d.kernel_config == (64, 64, 2, "row_major")
-    again = select_block_config(*CAUSAL, 8, 4, head_dim=32, device="cpu", mode="measure",
+    again = select_block_config(*CAUSAL, 8, 4, head_dim=16, device="cpu", mode="measure",
                                 measure_fn=lambda *a: attempts.append(a) or 0.001)
     assert attempts == [] and again.cache_layer == "memory"
 

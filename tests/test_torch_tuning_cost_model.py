@@ -67,13 +67,16 @@ def test_row_major_only_and_shard_constraints():
 
 
 def test_launch_feasibility():
-    # a head dim the build has no tile for: nothing feasible, the
-    # preference order (head_block G, the density's grid) comes back
-    cands = cm.rank_candidates([(0, 4096)], [(0, 4096)], [1], 8, 4, head_dim=32)
+    # a head dim the build has no tile for (16; 32 has one since the d-32
+    # kernels): nothing feasible, the preference order (head_block G, the
+    # density's grid) comes back
+    cands = cm.rank_candidates([(0, 4096)], [(0, 4096)], [1], 8, 4, head_dim=16)
     assert cands and not any(c.feasible for c in cands)
     assert (cands[0].head_block, cands[0].grid) == (2, "row_major")
-    assert not cm.any_feasible_rung([(0, 4096)], [(0, 4096)], [1], head_dim=32,
+    assert not cm.any_feasible_rung([(0, 4096)], [(0, 4096)], [1], head_dim=16,
                                     num_heads_q=8, num_heads_kv=4)
+    assert cm.any_feasible_rung([(0, 4096)], [(0, 4096)], [1], head_dim=32,
+                                num_heads_q=8, num_heads_kv=4)
     # past 65,535 q blocks the row-major grid does not launch, the sparse one does
     t = 65536 * 64
     assert not cm.smem_feasible([(0, t)], [(0, 64)], [0], 64, 64, num_heads_q=1,

@@ -200,6 +200,46 @@ def llama_parallel(group, fields: dict, total: int, cu: list, chunk: int, params
             "hier": None if model.plan is None else model.plan.hier}
 
 
+def dit_parallel(group, fields: dict, total: int, chunk: int, params: dict, data: dict,
+                 layout: dict, steps: int, adamw: dict, dispatch_chunk: int = 32,
+                 block: int = 32) -> dict:
+    """The port's DiT under a (dp, cp) layout on the CPU
+    (``make_parallel_groups(**layout)``; cp = 1 in this process for
+    ``layout=None``): the velocities of ``data`` and of
+    ``data`` with its last chunk's latents moved by 10 (``lat_moved``),
+    gathered to global order; this rank's loss share summed over the loss
+    groups; the first backward's gradients summed as the train step sums
+    them; then ``steps`` AdamW steps of ``model.make_train_step``."""
+    from magiattention_tpu_torch import convert
+    from magiattention_tpu_torch.models import DiTConfig, build_magi_dit, make_parallel_groups
+    from magiattention_tpu_torch.models._common import sum_grads
+
+    groups = None if layout is None else make_parallel_groups(**layout)
+    model = build_magi_dit(DiTConfig(**fields), total, chunk, groups=groups,
+                           dispatch_chunk=dispatch_chunk, block_q=block, block_k=block,
+                           device="cpu", params=convert.dit_params_from_numpy(params))
+    g = {n: torch.from_numpy(a) for n, a in data.items()}
+    tc = model.shard(g["t_chunk"], pad_value=-1.0)
+    text = model.dp_rows(g["text"])
+    pos = model.position_ids().expand(tc.shape[0], -1)
+    with torch.no_grad():
+        vel = {name: model.gather(model(model.shard(g[name]), tc, pos, text)).numpy()
+               for name in ("noised", "lat_moved")}
+    batch = (model.shard(g["noised"]), model.shard(g["target_v"]), tc, pos, text)
+    share = model.loss(*batch)
+    share.backward()
+    for params_, grp in model.grad_groups():
+        sum_grads(params_, grp)
+    loss = share.detach().clone()
+    for grp in model.sum_groups:
+        dist.all_reduce(loss, group=grp)
+    grads = convert.dit_params_to_numpy(model, grad=True)
+    step = model.make_train_step(torch.optim.AdamW(model.parameters(), **adamw))
+    losses = [float(step(*batch)) for _ in range(steps)]
+    return {"vel": vel["noised"], "vel_moved": vel["lat_moved"], "loss": float(loss),
+            "grads": grads, "losses": losses, "head_block": model.head_block}
+
+
 def llama_pp_refusal(group, fields: dict, total: int, cu: list, chunk: int) -> str:
     """``build_magi_llama_pp`` over pp2 x cp2 for a config whose layers do
     not split over pp: the error's message."""
