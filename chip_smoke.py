@@ -63,13 +63,22 @@ Phases, each printing one JSON line:
    bound; the same at the new widths (``narrow_timing``): the row-major
    four on the dit problem (8 q / 4 kv heads of d 32 on the 32,768-token
    chunk-causal mask) in bf16 and float32 and the sparse four at d 32 on
-   the 16k hetero mask, each first checked there against its plain
-   version run head by head; ``paged_decode`` at d 128 / 64, bf16 / f32, 1-16 q heads per kv
+   the 16k hetero mask in bf16 and float32, each first checked there
+   against its plain version run head by head; the sparse four in float32
+   (the CUDA-core walks) at d 32, 64 and 128 and 1, 2, 3, 4 and 8 q heads
+   per kv head on the hetero and rising-logits masks, the backward bit for
+   bit the row-major float32 pair, with three plants (the AMLA rescale of O
+   skipped once, a dq item's second head computed as its first, the dk/dv
+   work list's odd claims redoing the item before); ``paged_decode`` at d
+   128 / 64, bf16 / f32, 1-16 q heads per kv
    head, pages of 16, 64 and 128 tokens and 1, 3, 4 and 16 splits, each
    launch twice for the same bits, NaN past the lengths changing no bit,
    and its shared mode (the cascade's level 1) at 1, 3 and 8 members, with
    two planted faults (each split's last chunk dropped; every member on
-   member 0's q);
+   member 0's q); and at d 32 and 24 and 48 q heads per kv head (the wide
+   walks) in the flat, shared, tick and TP-slice modes, with a plant in
+   each wide walk (every row tile reading the first tile's q), timed at
+   DiTConfig's and StarCoder-15B's attention (``wide_decode_timing``);
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -413,12 +422,29 @@ Phases, each printing one JSON line:
    p99), prefill and decode tokens/s, attainment, actions, peak concurrency
    and pages, and the launches (``flex_fwd_hb`` and ``paged_decode``).
    ``FleetSimulator.run`` resets the telemetry registry: it runs last.
+28. instrument (run before fleet) — profiling, checkpoints, the bench
+   harness and the gate on the card: the serving widths (3 requests, 4
+   decode steps) with profile mode off, then under
+   ``MAGI_ATTENTION_PROFILE_MODE=1`` and ``utils.switch_profile()``: the
+   outputs bit for bit, the Chrome trace holding ``magi_prefill_attn``,
+   ``magi_decode_attn`` and ``magi_kvcache_append`` around kernel launches;
+   the keyed cp API at cp=2 (degree 1) the same way, each rank's trace
+   holding ``magi_stage0_cast`` / ``_kernel`` / ``_lse_merge``; the
+   training phase's trainer 2 steps, ``utils.save_train_state``, a
+   restore into a fresh model and optimizer (a drifted template raising),
+   2 more: the 4 losses bit for bit those of 4 steps in a row;
+   ``benchmarking.do_bench`` and ``MemoryRecorder`` on ``flex_fwd_hb`` and
+   ``flex_dq`` beside the smoke's own CUDA-event times and
+   ``max_memory_allocated``; ``telemetry.baseline.check_gate`` on a
+   history it writes (passing, then failing a lowered entry); and an
+   engine at StarCoder-15B's attention (48 q heads over 1 kv head, d 128)
+   whose greedy tokens through ``paged_decode`` equal the plain decode's.
 
 The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``training_remat``,
 ``block_sparse``, ``sink``, ``cp_decode``, ``scheduler``, ``tiered``,
-``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis`` and
-``fleet`` among them; every path's launches must be in it), errors and times; the
+``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis``,
+``fleet`` and ``instrument`` among them; every path's launches must be in it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -993,7 +1019,32 @@ PLANT_D32_FIRST_SLICE = [
 # rescaled, O keeps its old reference). Planted into a copy of
 # flex_simt.cuh, built as flex_fwd; the float32 budget must catch it.
 PLANT_F32_NO_RESCALE = [
-    ("        for (int jj = 0; jj < CJ; ++jj) o[i][jj] *= alpha;\n", ""),
+    ("          for (int jj = 0; jj < CJ; ++jj) o[i][jj] *= alpha;\n", ""),
+]
+
+# The float32 sparse walks: the AMLA forward with O's rescale skipped the
+# first time each row's reference moves (l takes it, O keeps the old
+# scale); the dq items of head pairs computing their first head twice; and
+# each odd claim of the dk/dv work list computing the item claimed before
+# it (so that half the items are never written). Planted into copies of
+# flex_simt.cuh, built as the sparse kernels; the float32 budget must catch
+# each (``f32_sparse_planted_faults``).
+PLANT_F32_AMLA_SKIP = [
+    ("    float m[RPT], ref[RPT], l[RPT], o[RPT][CJ];\n",
+     "    float m[RPT], ref[RPT], l[RPT], o[RPT][CJ];\n    int planted_rows = 0;\n"),
+    ("          for (int jj = 0; jj < CJ; ++jj) o[i][jj] = amla_rescale(o[i][jj], delta);\n",
+     "          if (delta != 0 && !(planted_rows & (1 << i))) planted_rows |= 1 << i;\n"
+     "          else\n"
+     "            for (int jj = 0; jj < CJ; ++jj) o[i][jj] = amla_rescale(o[i][jj], delta);\n"),
+]
+PLANT_F32_FIRST_HEAD = [
+    ("      dq_item<D>(a, smem, item / nq * heads_per_item + hh, item % nq);\n",
+     "      dq_item<D>(a, smem, item / nq * heads_per_item, item % nq);\n"),
+]
+PLANT_F32_PAIRED_ITEMS = [
+    ("    const int item = work[n];\n    dkv_item<D>(a, smem, item / nk, item % nk);\n",
+     "    const int item = work[n - n % 2];  // planted: odd claims redo the item before\n"
+     "    dkv_item<D>(a, smem, item / nk, item % nk);\n"),
 ]
 
 # Each split's last chunk dropped from the tensor-core walk; and, in the
@@ -1006,6 +1057,19 @@ PLANT_DROP_LAST_CHUNK = [
 PLANT_MEMBER0_Q = [
     ("      const int qm = i / group;  // the member whose q this row is\n",
      "      const int qm = shared ? 0 : i / group;\n"),
+]
+
+# The wide decode walks (a group past one walk's rows) with every row tile
+# reading the first tile's q: in decode_sm90.cuh's wide walk each warp's
+# fragments from the first m16 tile, in decode_simt.cuh's WIDE mode each
+# tile's scores from the first tile's rows. The checks of
+# ``wide_decode_planted_faults`` must catch both at G 48.
+PLANT_WIDE_FIRST_TILE = [
+    ("    ldmatrix_x4(qreg[kk], sQ + (warp * 16 + (lane & 15)) * RE + kk * 16 + (lane >> 4) * 8);\n",
+     "    ldmatrix_x4(qreg[kk], sQ + (lane & 15) * RE + kk * 16 + (lane >> 4) * 8);\n"),
+]
+PLANT_SIMT_FIRST_TILE = [
+    ("      const float* tq = sQ + t0 * D;\n", "      const float* tq = sQ;\n"),
 ]
 
 
@@ -1025,6 +1089,13 @@ PLANTED = {
     "flex_fwd_f32_no_rescale": ("flex_fwd.cu", "flex_simt.cuh", PLANT_F32_NO_RESCALE),
     "paged_decode_drop_last_chunk": ("decode.cu", "decode_sm90.cuh", PLANT_DROP_LAST_CHUNK),
     "paged_decode_member0_q": ("decode.cu", "decode_sm90.cuh", PLANT_MEMBER0_Q),
+    "flex_fwd_sparse_f32_skip_rescale": ("flex_fwd_sparse.cu", "flex_simt.cuh",
+                                         PLANT_F32_AMLA_SKIP),
+    "flex_dq_sparse_f32_first_head": ("flex_dq_sparse.cu", "flex_simt.cuh", PLANT_F32_FIRST_HEAD),
+    "flex_dkv_sparse_f32_paired_items": ("flex_dkv_sparse.cu", "flex_simt.cuh",
+                                         PLANT_F32_PAIRED_ITEMS),
+    "paged_decode_wide_first_tile": ("decode.cu", "decode_sm90.cuh", PLANT_WIDE_FIRST_TILE),
+    "paged_decode_simt_first_tile": ("decode.cu", "decode_simt.cuh", PLANT_SIMT_FIRST_TILE),
 }
 
 # Variants of the kernels, timed beside them and never launched on a main
@@ -1350,9 +1421,10 @@ def planted_libraries(procs) -> dict:
             # q k v bt sl | out lse | b hq hk d ps mpp splits | scale softcap stream
             fn = lib.simt_paged_decode
             fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [F, F, P], ctypes.c_int
-        elif name == "mma_sync_fwd_sparse":  # the sparse forwards' C signature
+        elif name == "mma_sync_fwd_sparse":  # the sparse forwards' C signature less in_f32
             fn = lib.mma_sync_flex_fwd_sparse
-            fn.argtypes, fn.restype = csrc.KERNELS["flex_fwd_sparse"].argtypes, ctypes.c_int
+            args = csrc.KERNELS["flex_fwd_sparse"].argtypes
+            fn.argtypes, fn.restype = args[:-2] + args[-1:], ctypes.c_int
         elif name == "mma_sync_fwd":
             # q k v sink | 6 tables | out lse rowmax | 6 (7) ints | scale softcap has_sink stream
             for fn, ints in ((lib.mma_sync_flex_fwd, 6), (lib.mma_sync_flex_fwd_hb, 7)):
@@ -1776,6 +1848,103 @@ def narrow_planted_faults(gen, planted) -> dict:
     return caught
 
 
+def f32_sparse_cases(gen) -> dict:
+    """The four sparse-grid kernels on float32 q/k/v (the CUDA-core walks of
+    ``csrc/flex_simt.cuh``: the forwards in AMLA's base-2 softmax, the
+    backward the row-major items) at head_dim 32, 64 and 128 and 1, 2, 3, 4
+    and 8 q heads per kv head (2 kv heads) on the heterogeneous varlen mask
+    and on a causal one whose keys grow along the sequence (AMLA's reference
+    moves): the forwards at head_block 1 and G (2 at G = 1) within the
+    float32 row of ``telemetry.numerics.DEFAULT_BUDGETS`` against the plain
+    sparse forward, the backward within it against the plain backward and
+    bit for bit equal to the row-major float32 ``flex_dq`` / ``flex_dkv`` on
+    the same tables; each kernel twice for the same bits. Returns the line."""
+    import torch
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    masks = [("varlen_block_causal", 4096, *split_slices(varlen_block_causal(4096)), {}),
+             ("rising_logits_causal", 2048, [(0, 2048)], [(0, 2048)], [1], {"k_ramp": RISING_K})]
+    worst, n = {}, 0
+    for m, t, qr, kr, ty, kw in masks:
+        for d in (NARROW_D, 64, 128):
+            for g in SPARSE_BWD_GROUPS:
+                name = f"f32_sparse_{m}_g{g}_d{d}"
+                p = Flex(gen, t, t, 2 * g, 2, qr, kr, ty, d=d, dtype=torch.float32, **kw)
+                for hb in (1, max(g, 2)):
+                    p.set_head_block(hb)
+                    got = p.sparse_kernel()
+                    torch.cuda.synchronize()
+                    check(bitwise(got, p.sparse_kernel()),
+                          f"{name}: {p.fwd_sparse_name} differs between two runs")
+                    out, ref_out, pairs = p.sparse_fwd_pairs(got)
+                    (_, lse, ref_lse), (_, mx, ref_mx) = pairs
+                    stats = hold_fwd(p.fwd_sparse_name, f"{name}_hb{hb}", True, out, ref_out,
+                                     lse, ref_lse, mx, ref_mx)
+                    worst[p.fwd_sparse_name] = max(worst.get(p.fwd_sparse_name, 0.0),
+                                                   stats["max_abs"])
+                dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+                torch.cuda.synchronize()
+                check(torch.equal(dq, p.dq_sparse_kernel())
+                      and bitwise((dk, dv), p.dkv_sparse_kernel()),
+                      f"{name}: the float32 sparse backward differs between two runs")
+                check(torch.equal(dq, p.dq_kernel()) and bitwise((dk, dv), p.dkv_kernel()),
+                      f"{name}: the float32 sparse backward differs from flex_dq / flex_dkv")
+                ref_dk, ref_dv = p.dkv_plain()
+                for kernel, what, x, ref in (
+                        ("flex_dq_sparse", "dq", dq[:, :t], p.dq_plain()[:, :t]),
+                        ("flex_dkv_sparse", "dk", dk[:, :t], ref_dk[:, :t]),
+                        ("flex_dkv_sparse", "dv", dv[:, :t], ref_dv[:, :t])):
+                    stats = hold_grad(kernel, name, True, what, x, ref)
+                    worst[kernel] = max(worst.get(kernel, 0.0), stats["max_abs"])
+                n += 1
+    return {"phase": "kernels", "kernel": "the sparse four in float32", "problems": n,
+            "twice_bitwise_equal": n, "backward_bitwise_equal_to_row_major": n,
+            "max_abs_err": worst}
+
+
+def f32_sparse_planted_faults(gen, planted) -> dict:
+    """Three faults planted in mutated builds of the float32 sparse walks:
+    the AMLA rescale of O skipped once per row (``flex_fwd_sparse``, on
+    rising logits, where the reference moves), the second head of each dq
+    item computed as the first (``flex_dq_sparse`` at G 4, items of head
+    pairs), and each odd claim of the dk/dv work list redoing the item
+    before it (``flex_dkv_sparse``). Returns which checks catch each; a fault that
+    passes them fails the smoke."""
+    import torch
+
+    f32 = torch.float32
+    caught = {}
+    p = Flex(gen, 2048, 2048, 4, 2, [(0, 2048)], [(0, 2048)], [1], d=64, dtype=f32,
+             k_ramp=RISING_K, head_block=1)
+    got = with_library("flex_fwd_sparse", planted["flex_fwd_sparse_f32_skip_rescale"],
+                       p.sparse_kernel)()
+    torch.cuda.synchronize()
+    out, ref_out, pairs = p.sparse_fwd_pairs(got)
+    stats, bad = f32_report(out, ref_out, got_lse=pairs[0][1], ref_lse=pairs[0][2])
+    caught["skip_amla_rescale_once:flex_fwd_sparse:f32"] = {"breached": bad, **stats}
+    check(bool(bad), f"the planted float32 AMLA fault passes the float32 budget: {stats}")
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    q = Flex(gen, 4096, 4096, 8, 2, *split_slices(varlen_block_causal(4096)), d=64, dtype=f32)
+    ref_dq = q.dq_plain()[:, :4096]
+    ref_dk = q.dkv_plain()[0][:, :4096]
+    dq = with_library("flex_dq_sparse", planted["flex_dq_sparse_f32_first_head"],
+                      q.dq_sparse_kernel)()
+    # NaN in the blocks the allocator hands the planted dk / dv next: an item
+    # never written shows as such, not as a stale copy of a right answer
+    poison = [torch.full_like(q.k, float("nan")) for _ in range(2)]
+    del poison
+    dk = with_library("flex_dkv_sparse", planted["flex_dkv_sparse_f32_paired_items"],
+                      q.dkv_sparse_kernel)()[0]
+    torch.cuda.synchronize()
+    for plant, got, ref in (("first_head_twice:flex_dq_sparse:f32", dq[:, :4096], ref_dq),
+                            ("paired_items:flex_dkv_sparse:f32", dk[:, :4096], ref_dk)):
+        stats, bad = f32_report(got, ref, grad=True)
+        caught[plant] = {"breached": bad, **stats}
+        check(bool(bad), f"the planted fault {plant} passes the float32 budget: {stats}")
+    return caught
+
+
 SPARSE_BWD_GROUPS = (1, 2, 3, 4, 8)  # q heads per kv head of the sparse backward cases
 SHORT_DOCS = (64, 128, 64, 192, 128, 64, 64, 128)  # the short-walk mask's document lengths
 
@@ -2124,21 +2293,21 @@ def decode_cache(gen, lengths, mpp=64):
     return cache
 
 
-def decode_problem(gen, d, dtype, hq, hk, ps, lengths):
+def decode_problem(gen, d, dtype, hq, hk, ps, lengths, mpp=DECODE_MPP):
     """A ``dtype`` cache holding one random sequence per slot on a random
-    permutation of the pool's pages (page 0 unused), DECODE_MPP pages a
-    slot, and a random query per slot."""
+    permutation of the pool's pages (page 0 unused), ``mpp`` pages a slot,
+    and a random query per slot."""
     import torch
     from magiattention_tpu_torch.serving import (
         assign_block_table, make_paged_kv_cache, write_prefill_kv,
     )
 
     b = len(lengths)
-    cache = make_paged_kv_cache(b * DECODE_MPP + 1, ps, hk, d, max_seqs=b,
-                                max_pages_per_seq=DECODE_MPP, dtype=dtype)
-    pages = (torch.randperm(b * DECODE_MPP, generator=gen, device="cuda") + 1).tolist()
+    cache = make_paged_kv_cache(b * mpp + 1, ps, hk, d, max_seqs=b,
+                                max_pages_per_seq=mpp, dtype=dtype)
+    pages = (torch.randperm(b * mpp, generator=gen, device="cuda") + 1).tolist()
     for slot, n in enumerate(lengths):
-        assign_block_table(cache, slot, pages[slot * DECODE_MPP:(slot + 1) * DECODE_MPP])
+        assign_block_table(cache, slot, pages[slot * mpp:(slot + 1) * mpp])
         kv = torch.randn((2, n, hk, d), generator=gen, device="cuda").to(dtype)
         write_prefill_kv(cache, slot, kv[0], kv[1])
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
@@ -2335,6 +2504,125 @@ def decode_planted_faults(gen, planted) -> dict:
     return caught
 
 
+# paged_decode at this slice's widths: (head_dim, q heads per kv head, kv
+# heads): d 32 at G 1, 4 and 16, then groups past one walk's rows, a GQA
+# group of 24 and StarCoder-15B's 48 q heads over 1 kv head, at d 128 and 32
+WIDE_DECODE = ((32, 1, 2), (32, 4, 2), (32, 16, 2), (128, 24, 2), (32, 24, 2), (128, 48, 1),
+               (32, 48, 1))
+
+
+def wide_decode_cases(gen) -> dict:
+    """``paged_decode`` at head_dim 32 and at 24 and 48 q heads per kv head
+    (:data:`WIDE_DECODE`), bf16 and f32, against its plain version
+    (``decode_reference``): the flat mode on ragged and zero lengths on
+    shuffled pages of 16 and 128 tokens at 1 and 3 splits; the shared mode
+    (the cascade's level 1) at 3 and 8 members, against the plain version
+    and the flat mode; the one-launch tick's per-row tables (the rows of a
+    prefill chunk, each a longer prefix of one sequence's pages); and TP's
+    head slices (``tp_decode_attn`` over two slices of a 2-kv-head pool,
+    each launch passing the pool's ``cluster_heads``), which must equal the
+    one launch bit for bit. Each launch twice for the same bits. Returns the
+    summary line."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import (
+        decode_attn_paged, decode_reference, shard_kv_cache, tp_decode_attn,
+    )
+
+    worst = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+    counts = {"flat": 0, "shared": 0, "tick": 0, "tp_slices_bitwise": 0}
+
+    def held(name, parts, ref):
+        out, lse = da._merge_splits(*parts)
+        errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+        check(not failed, f"{name}: paged_decode fails the {failed} check(s): {errs}")
+        for k in worst:
+            worst[k] = max(worst[k], errs.get(k, 0.0))
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+        return out, lse
+
+    def twice(name, *args, **kw):
+        first = decode_parts(*args, **kw)
+        check(bitwise(first, decode_parts(*args, **kw)), f"{name}: two runs of paged_decode differ")
+        return first
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, g, hk in WIDE_DECODE:
+            for ps in (16, 128):
+                full = DECODE_MPP * ps
+                lens = [0, 1, ps + 1, 5 * ps + 3, full // 2 + 7, full]
+                cache, q = decode_problem(gen, d, dtype, g * hk, hk, ps, lens)
+                bt, sl = cache.block_tables, cache.seq_lens
+                ref = decode_reference(q, cache, bt, sl)
+                tag = f"wide_d{d}_{str(dtype)[6:]}_g{g}_hk{hk}_ps{ps}"
+                for splits in (1, 3):
+                    held(f"{tag}_splits{splits}", twice(f"{tag}_splits{splits}", q, cache, bt, sl,
+                                                        splits), ref)
+                    counts["flat"] += 1
+                if ps != 128 or g < 24:
+                    continue
+                # the shared mode: every member reads slot 5's first 12 pages
+                w = DECODE_SHARED_PAGES
+                pages, plen = bt[5, :w], w * ps - 5
+                for members in (3, 8):
+                    qm = torch.randn((members, g * hk, d), generator=gen, device="cuda").to(dtype)
+                    bt_b = pages[None].expand(members, w).contiguous()
+                    sl_b = torch.full((members,), plen, dtype=torch.int32, device="cuda")
+                    mref = decode_reference(qm, cache, bt_b, sl_b)
+                    for splits in (1, 3):
+                        name = f"{tag}_shared_m{members}_splits{splits}"
+                        parts = twice(name, qm, cache, pages[None], sl_b[:1], splits, shared=True)
+                        out, lse = held(name, parts, mref)
+                        flat = da._merge_splits(*decode_parts(qm, cache, bt_b, sl_b, splits))
+                        errs, failed = out_errors(out, flat[0], [("lse", lse, flat[1])])
+                        check(not failed, f"{name}: the shared mode fails the {failed} "
+                              f"check(s) against the flat mode: {errs}")
+                        counts["shared"] += 1
+                # the tick's per-row tables: 5 rows of a prefill chunk of slot 4
+                rows = 5
+                bt_r = bt[4:5].expand(rows, -1).contiguous()
+                sl_r = (sl[4] - rows + 1 + torch.arange(rows, device="cuda")).int()
+                qr = torch.randn((rows, g * hk, d), generator=gen, device="cuda").to(dtype)
+                held(f"{tag}_tick", twice(f"{tag}_tick", qr, cache, bt_r, sl_r, 1),
+                     decode_reference(qr, cache, bt_r, sl_r))
+                counts["tick"] += 1
+                if hk == 2:  # TP: two head slices, each launch sized for the pool's 2 kv heads
+                    slots = torch.arange(len(lens), device="cuda")
+                    one = decode_attn_paged(q, cache, slots, num_splits=1, out_dtype=torch.float32)
+                    sc = shard_kv_cache(cache, ["cuda:0", "cuda:0"])
+                    tp = tp_decode_attn(q, sc, slots, devices=["cuda:0", "cuda:0"], num_splits=1,
+                                        out_dtype=torch.float32)
+                    check(bitwise(one, tp), f"{tag}: TP head slices differ from the one launch")
+                    counts["tp_slices_bitwise"] += 1
+    return {"phase": "kernels", "kernel": "paged_decode", "widths": [list(x) for x in WIDE_DECODE],
+            "cases": counts, "two_runs_bitwise_equal": True, **worst}
+
+
+def wide_decode_planted_faults(gen, planted) -> dict:
+    """The checks on the faults planted in the wide decode walks at G 48 (48
+    q heads over 1 kv head, d 128): every row tile reading the first tile's
+    q, in the bf16 wide walk and in the float32 WIDE mode. Returns which
+    checks catch each; a fault that passes them fails the smoke."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    caught = {}
+    lens = [1, 100, PAGE + 1, 1000, 3000, 6000]
+    for name, dtype in (("paged_decode_wide_first_tile", torch.bfloat16),
+                        ("paged_decode_simt_first_tile", torch.float32)):
+        cache, q = decode_problem(gen, D, dtype, 48, 1, PAGE, lens)
+        bt, sl = cache.block_tables, cache.seq_lens
+        ref_out, ref_lse = decode_reference(q, cache, bt, sl)
+        out, lse = da._merge_splits(*with_library(
+            "paged_decode", planted[name], lambda: decode_parts(q, cache, bt, sl, 1))())
+        torch.cuda.synchronize()
+        errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
+        caught[name] = {"failed_checks": failed, **errs}
+        check(bool(failed), f"planted fault {name} passes the decode checks: {errs}")
+    return caught
+
+
 def simt_decode(lib, q, cache, bt, sl, splits):
     """A launcher of the previous decode walk (the ``decode_simt`` side
     library) on these inputs, checked once against the plain version. A
@@ -2400,14 +2688,65 @@ def queued_ms(fn, reps: int = 1, repeats: int = 3) -> dict:
             "host_enqueue_ms": sorted(enqueue)[len(enqueue) // 2], "queue_prefilled": prefilled}
 
 
-def decode_bound(tokens: int, b: int, splits: int, table_entries: int) -> tuple[float, str]:
-    """The card's bound on one decode launch at the serving widths: 4 d
-    FLOPs per cached token and q head; each cached K/V row and q read once,
-    each partial written once."""
-    flops = 4.0 * tokens * HQ * D
-    nbytes = (2 * 2 * tokens * HK * D + 2 * b * HQ * D
-              + 4 * b * splits * HQ * (D + 1) + 4 * (table_entries + b))
+def decode_bound(tokens: int, b: int, splits: int, table_entries: int, hq: int = HQ,
+                 hk: int = HK, d: int = D) -> tuple[float, str]:
+    """The card's bound on one bf16 decode launch (default: at the serving
+    widths): 4 d FLOPs per cached token and q head; each cached K/V row and
+    q read once, each partial written once."""
+    flops = 4.0 * tokens * hq * d
+    nbytes = (2 * 2 * tokens * hk * d + 2 * b * hq * d
+              + 4 * b * splits * hq * (d + 1) + 4 * (table_entries + b))
     return bound(flops, nbytes)
+
+
+# the widths of the new decode rows: DiTConfig's attention (8 q / 4 kv heads
+# of d 32) and StarCoder-15B's (48 q heads over 1 kv head of d 128)
+WIDE_DECODE_TIMED = {"d32_bf16": (8, 4, 32), "g48_bf16": (48, 1, 128)}
+WIDE_DECODE_LENS = (1000, 1733, 2048, 2900, 4096, 5120, 6500, 8000)  # the serving prompts
+
+
+def wide_decode_timing(gen) -> tuple[dict, dict]:
+    """``paged_decode`` at the new widths (:data:`WIDE_DECODE_TIMED`) on a
+    batch of the serving prompts' lengths, bf16, pages of 128, one split:
+    the kernel's time (CUDA events), the plain version's, SDPA over the
+    gathered KV and the card's bound; each first held against its plain
+    version. Returns (the line, {"paged_decode": {width: record}})."""
+    import torch
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference, gather_kv
+
+    line, recs = {"phase": "wide_decode_timing", "card": nvidia_smi_line(),
+                  "lengths": list(WIDE_DECODE_LENS)}, {}
+    for width, (hq, hk, d) in WIDE_DECODE_TIMED.items():
+        cache, q = decode_problem(gen, d, torch.bfloat16, hq, hk, PAGE, WIDE_DECODE_LENS, mpp=64)
+        b = len(WIDE_DECODE_LENS)
+        bt, sl = cache.block_tables, cache.seq_lens
+        prm = da.DecodeParams(1.0 / math.sqrt(d), 0.0, 1, torch.bfloat16)
+        out, lse = da._merge_splits(*decode_parts(q, cache, bt, sl, 1))
+        ref_out, ref_lse = decode_reference(q, cache, bt, sl)
+        errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
+        check(not failed, f"wide_decode_timing {width}: paged_decode fails {failed}: {errs}")
+        ms = cuda_ms(lambda: da._decode_partials_kernel(q, cache, bt, sl, prm), reps=50)
+        plain_ms = cuda_ms(lambda: da._decode_torch(q, cache, bt, sl, prm), reps=5, warmup=1)
+        lmax = max(WIDE_DECODE_LENS)
+        kv = [gather_kv(cache, s, max_len=lmax) for s in range(b)]
+        k = torch.stack([x[0] for x in kv]).transpose(1, 2)  # [b, hk, L, d]
+        v = torch.stack([x[1] for x in kv]).transpose(1, 2)
+        mask = (torch.arange(lmax, device="cuda")[None] < sl[:, None].long())[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib_ms = cuda_ms(
+            lambda: Fn.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True),
+            reps=50)
+        bound_ms, bound_by = decode_bound(sum(WIDE_DECODE_LENS), b, 1, bt.numel(), hq, hk, d)
+        recs[width] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+        line[width] = {"hq": hq, "hk": hk, "head_dim": d, **recs[width], **errs,
+                       "share_of_bound": bound_ms / ms,
+                       "library": "scaled_dot_product_attention(enable_gqa, gathered KV)"}
+        del cache, k, v, kv
+        torch.cuda.empty_cache()
+    return line, {"paged_decode": recs}
 
 
 def split_sweep(q, cache, bt, seq_lens) -> dict:
@@ -3243,13 +3582,14 @@ def library_fwd_bwd(fn_of, q, k, v, do) -> tuple[float | None, float | None, str
         return None, None, f"{type(exc).__name__}: {str(exc)[:160]}"
 
 
-def narrow_timing(gen) -> tuple[dict, dict]:
+def narrow_timing(gen, f32_gen) -> tuple[dict, dict]:
     """The flex kernels at this slice's new widths, in device time, each
     checked first at its timed shape against its plain version run head by
     head: rows 1, 2, 5 and 7 (``flex_fwd``, ``flex_fwd_hb`` at head_block
     G, ``flex_dq``, ``flex_dkv``) on the dit problem (DiTConfig's 8 q / 4
     kv heads of d 32 on the 32,768-token chunk-causal mask) in bf16 and in
-    float32; rows 3, 4, 6 and 8 at d 32 in bf16 on the 16,384-token varlen
+    float32; rows 3, 4, 6 and 8 at d 32 in bf16 and (inputs from ``f32_gen``)
+    float32 on the 16,384-token varlen
     block-causal mask at the same heads. Each beside the plain version's
     ms, the card's bound (:func:`flex_bounds`) and a PyTorch yardstick:
     SDPA over the boolean mask (its backward for dq) for the row-major
@@ -3291,40 +3631,44 @@ def narrow_timing(gen) -> tuple[dict, dict]:
     del mask
     t = HETERO_T
     hqr, hkr, hty = split_slices(varlen_block_causal(t))
-    p = Flex(gen, t, t, hq, hk, hqr, hkr, hty, d=d, head_block=1)
-    plain = held_by_head(p, "hetero_d32_bf16_hb1", sparse=True)
-    ms = {"flex_fwd_sparse": cuda_ms(p.sparse_kernel, 20)}
-    p.set_head_block(g)
-    held_by_head(p, f"hetero_d32_bf16_hb{g}", sparse=True)
-    ms.update({"flex_fwd_sparse_hb": cuda_ms(p.sparse_kernel, 20),
-               "flex_dq_sparse": cuda_ms(p.dq_sparse_kernel, 20),
-               "flex_dkv_sparse": cuda_ms(p.dkv_sparse_kernel, 20)})
     docs = sorted({a for a, _ in hqr} | {b for _, b in hqr})
     cu = torch.tensor(docs, dtype=torch.int32, device="cuda")
     max_len = int(torch.diff(cu).max())
-    lib_name = None
+    for dtype, width, g_in in ((torch.bfloat16, "d32_bf16", gen),
+                               (torch.float32, "d32_f32", f32_gen)):
+        f32 = dtype == torch.float32
+        reps = 5 if f32 else 20
+        p = Flex(g_in, t, t, hq, hk, hqr, hkr, hty, d=d, head_block=1, dtype=dtype)
+        plain = held_by_head(p, f"hetero_{width}_hb1", sparse=True)
+        ms = {"flex_fwd_sparse": cuda_ms(p.sparse_kernel, reps)}
+        p.set_head_block(g)
+        held_by_head(p, f"hetero_{width}_hb{g}", sparse=True)
+        ms.update({"flex_fwd_sparse_hb": cuda_ms(p.sparse_kernel, reps),
+                   "flex_dq_sparse": cuda_ms(p.dq_sparse_kernel, reps),
+                   "flex_dkv_sparse": cuda_ms(p.dkv_sparse_kernel, reps)})
+        lib_name = None
 
-    def lib_of(a, b_, c):
-        nonlocal lib_name
-        fn, lib_name = library_attention(*(x[:, :t].transpose(0, 1).contiguous()
-                                           for x in (a, b_, c)), cu, max_len)
-        return fn
+        def lib_of(a, b_, c):
+            nonlocal lib_name
+            fn, lib_name = library_attention(*(x[:, :t].transpose(0, 1).contiguous()
+                                               for x in (a, b_, c)), cu, max_len)
+            return fn
 
-    do = p.do[:, :t].transpose(0, 1)
-    lib_fwd, lib_bwd, why = library_fwd_bwd(lib_of, p.q, p.k, p.v, do)
-    b = flex_bounds(p.meta.total_area, t, hq, hk, d, False)
-    for name, kind, lib in (("flex_fwd_sparse", "fwd", lib_fwd),
-                            ("flex_fwd_sparse_hb", "fwd", lib_fwd),
-                            ("flex_dq_sparse", "dq", lib_bwd), ("flex_dkv_sparse", "dkv", None)):
-        recs.setdefault(name, {})["d32_bf16"] = {
-            "ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
-            "bound_by": b[kind][1], "library_ms": lib}
-    line["hetero_d32_bf16"] = {"tokens": t, "ms": ms, "plain_ms_by_head": plain,
-                               "area": p.meta.total_area, "library": lib_name,
-                               "library_fwd_ms": lib_fwd, "library_bwd_ms_for_dq_dk_dv": lib_bwd,
-                               "library_note": why,
-                               "share_of_bound": {n: recs[n]["d32_bf16"]["bound_ms"] / ms[n]
-                                                  for n in ms}}
+        do = p.do[:, :t].transpose(0, 1)
+        lib_fwd, lib_bwd, why = library_fwd_bwd(lib_of, p.q, p.k, p.v, do)
+        b = flex_bounds(p.meta.total_area, t, hq, hk, d, f32)
+        for name, kind, lib in (("flex_fwd_sparse", "fwd", lib_fwd),
+                                ("flex_fwd_sparse_hb", "fwd", lib_fwd),
+                                ("flex_dq_sparse", "dq", lib_bwd), ("flex_dkv_sparse", "dkv", None)):
+            recs.setdefault(name, {})[width] = {
+                "ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                "bound_by": b[kind][1], "library_ms": lib}
+        line[f"hetero_{width}"] = {"tokens": t, "ms": ms, "plain_ms_by_head": plain,
+                                   "area": p.meta.total_area, "library": lib_name,
+                                   "library_fwd_ms": lib_fwd,
+                                   "library_bwd_ms_for_dq_dk_dv": lib_bwd, "library_note": why,
+                                   "share_of_bound": {n: recs[n][width]["bound_ms"] / ms[n]
+                                                      for n in ms}}
     del p
     torch.cuda.empty_cache()
     return line, recs
@@ -9120,6 +9464,343 @@ def fleet_phase(seed: int) -> dict:
     }
 
 
+# -- the instrument phase: profiling, checkpoints, the bench harness, the gate --
+
+NEW_CASES_SEED = 25  # the seed offset of the generator the newer cases draw from
+INSTR_PROMPTS = (1000, 2048, 3000)  # the serving part's requests
+INSTR_STEPS = 4  # decode steps of each
+INSTR_SERVING_RANGES = ("magi_prefill_attn", "magi_decode_attn", "magi_kvcache_append")
+INSTR_CP_RANGES = ("magi_stage0_cast", "magi_stage0_kernel", "magi_stage0_lse_merge")
+INSTR_TRAIN_STEPS = 2  # N: N steps, save, restore, N more against 2N uninterrupted
+INSTR_MQA = (48, 1, 128)  # StarCoder-15B's attention: 48 q heads over 1 kv head of d 128
+INSTR_MQA_VOCAB = 4096  # the greedy loop's toy vocabulary
+INSTR_GATE_METRICS = ("flex_fwd_hb_tflops", "flex_dq_tflops")
+
+
+def trace_ranges(path: str, labels) -> dict:
+    """Each label's ranges in a ``torch.profiler`` Chrome trace (its
+    ``user_annotation`` events) and the CUDA launches the host made inside
+    them (``cuda_runtime`` events whose name holds ``Launch``, on the same
+    thread, between the range's start and end)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and "Launch" in e["name"]]
+    out = {}
+    for label in labels:
+        ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == label]
+        inside = sum(1 for r in ranges for e in launches if e.get("tid") == r.get("tid")
+                     and r["ts"] <= e["ts"] <= r["ts"] + r["dur"])
+        out[label] = {"ranges": len(ranges), "launches_inside": inside}
+    return out
+
+
+def instr_serving_run(seed: int) -> tuple[list, dict]:
+    """The serving path at the serving widths: admit INSTR_PROMPTS, prefill
+    each, INSTR_STEPS decode steps of the batch, on inputs from ``seed``;
+    returns every output and the launches."""
+    import torch
+    from magiattention_tpu_torch.serving import ServingEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    launches, outs = {}, []
+    engine = ServingEngine(num_pages=128, num_kv_heads=HK, head_dim=D, page_size=PAGE,
+                           max_seqs=4, max_pages_per_seq=32, dtype=torch.bfloat16)
+    slots = []
+    for n in INSTR_PROMPTS:
+        res = engine.admit(n)
+        check(res.admitted, f"instrument serving: admission {res}")
+        outs.extend(counted(launches, lambda: engine.prefill(rand(n, HQ, D), rand(n, HK, D),
+                                                             rand(n, HK, D), res.slot)))
+        slots.append(res.slot)
+    b = len(slots)
+    for _ in range(INSTR_STEPS):
+        outs.extend(counted(launches, lambda: engine.decode_step(
+            rand(b, HQ, D), rand(b, HK, D), rand(b, HK, D), slots)))
+    torch.cuda.synchronize()
+    del engine
+    return outs, launches
+
+
+def instr_serving(seed: int, trace_dir: str) -> dict:
+    """Part 1: the serving run with profile mode off, then again under
+    ``MAGI_ATTENTION_PROFILE_MODE=1`` and ``switch_profile()`` (the trace
+    into ``MAGI_ATTENTION_TRACE_DIR``): the outputs bit for bit the same,
+    the trace holding the serving ranges around kernel launches."""
+    from magiattention_tpu_torch.utils.instrument import switch_profile
+
+    off, launches = instr_serving_run(seed)
+    with magi_flags(PROFILE_MODE="1", TRACE_DIR=trace_dir):
+        with switch_profile() as sess:
+            on, _ = instr_serving_run(seed)
+    check(sess.path is not None and sess.path.startswith(trace_dir),
+          f"instrument serving: the session wrote {sess.path}, not into {trace_dir}")
+    check(bitwise(off, on), "instrument serving: the outputs under profile mode differ")
+    ranges = trace_ranges(sess.path, INSTR_SERVING_RANGES)
+    check(all(r["ranges"] and r["launches_inside"] for r in ranges.values()),
+          f"instrument serving: ranges missing or empty in the trace: {ranges}")
+    return {"launches": launches, "trace_bytes": os.path.getsize(sess.path),
+            "ranges": ranges, "outputs_bitwise_profile_on_off": True}
+
+
+@in_rank
+def instr_cp_rank(group, seed: int, trace_dir: str) -> dict:
+    """Part 2, one cp rank: the keyed API's forward at degree 1 on the hetero
+    mask (``LlamaConfig``'s 16 / 8 heads, d 128, bf16) with profile mode off,
+    then under profile mode in a ``switch_profile`` session of this rank's;
+    the outputs bit for bit, the stage ranges in the trace."""
+    import torch
+    import torch.distributed as dist
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.meta.solver.overlap_solver import OverlapConfig
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+    from magiattention_tpu_torch.utils.instrument import switch_profile
+
+    cp_rank_setup()
+    rank, t = dist.get_rank(group), CP_ATTN_T
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((t, h, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+               for h in (TRAIN_HQ, TRAIN_HK, TRAIN_HK))
+    key = api.magi_attn_flex_key(
+        qr, kr, ty, t, t, group, num_heads=(TRAIN_HQ, TRAIN_HK), head_dim=D,
+        chunk_size=CP_CHUNK, dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=1)))
+
+    def fwd():
+        with torch.no_grad():
+            out_l, meta = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key),
+                                        api.dispatch(v, key), key)
+            return api.undispatch(out_l, key), api.undispatch(meta.lse, key)
+
+    off = fwd()
+    with magi_flags(PROFILE_MODE="1"):
+        with switch_profile(os.path.join(trace_dir, f"rank{rank}")) as sess:
+            on = fwd()
+            torch.cuda.synchronize()
+    return {"rank": rank, "degree": api.get_runtime_mgr(key).plan.overlap_degree,
+            "bitwise": bitwise(off, on), "ranges": trace_ranges(sess.path, INSTR_CP_RANGES)}
+
+
+def instr_cp(pools, seed: int, trace_dir: str) -> dict:
+    """Part 2 over ``RankPool(2)``, ranks sharing the card."""
+    ranks = pools[2].run(instr_cp_rank, seed, trace_dir)
+    for r in ranks:
+        check(r["degree"] == 1 and r["bitwise"], f"instrument cp: rank {r['rank']}: {r}")
+        check(all(x["ranges"] and x["launches_inside"] for x in r["ranges"].values()),
+              f"instrument cp: rank {r['rank']}'s stage ranges missing or empty: {r['ranges']}")
+    return {"cp": 2, "ranks": ranks}
+
+
+def instr_checkpoint(seed: int, scratch: str) -> dict:
+    """Part 3: the Llama trainer as the training phase runs it (4 layers of
+    ``LlamaConfig``, the 8192-token stream, AdamW): 2N steps in a row; then
+    from the same start N steps, a save, a restore into a fresh model and
+    optimizer (``template`` their state dicts), N more: the 2N losses bit
+    for bit; and a template with one weight's shape drifted must raise."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+    from magiattention_tpu_torch.utils.checkpoint import (
+        latest_step, restore_train_state, save_train_state,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig(), n_layers=TRAIN_LAYERS)
+    total = sum(TRAIN_DOCS)
+    mask = infer_varlen_mask_from_batch(TRAIN_DOCS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
+    batch = (tokens, torch.roll(tokens, -1), torch.arange(total, device="cuda"))
+
+    def trainer(init_seed):
+        model = build_magi_llama(cfg, total, *mask, seed=init_seed)
+        opt = torch.optim.AdamW(model.parameters(), **ADAMW)
+        return model, opt, make_model_train_step(model, opt)
+
+    n = INSTR_TRAIN_STEPS
+    launches = {}
+    model, opt, step = trainer(seed)
+    straight = counted(launches, lambda: [float(step(*batch)) for _ in range(2 * n)])
+    del model, opt, step
+    model, opt, step = trainer(seed)
+    first = [float(step(*batch)) for _ in range(n)]
+    path = os.path.join(scratch, "instr_ckpt")
+    t0 = time.perf_counter()
+    save_train_state(path, n, {"model": model.state_dict(), "optimizer": opt.state_dict()})
+    save_s = time.perf_counter() - t0
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step = trainer(seed + 1)  # another init: the restore must overwrite it
+    template = {"model": model.state_dict(), "optimizer": opt.state_dict()}
+    t0 = time.perf_counter()
+    at, state = restore_train_state(path, template=template)
+    restore_s = time.perf_counter() - t0
+    model.load_state_dict(state["model"])
+    opt.load_state_dict(state["optimizer"])
+    resumed = first + [float(step(*batch)) for _ in range(n)]
+    check(at == n == latest_step(path), f"instrument checkpoint: restored step {at}, saved {n}")
+    check(resumed == straight, f"instrument checkpoint: losses {resumed} != {straight}")
+    drifted = dict(template["model"])
+    name = next(iter(drifted))
+    drifted[name] = torch.empty((drifted[name].shape[0] + 1, *drifted[name].shape[1:]),
+                                dtype=drifted[name].dtype)
+    try:
+        restore_train_state(path, template={"model": drifted})
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)[:160]
+    check(raised is not None, "instrument checkpoint: a drifted template restored")
+    nbytes = sum(os.path.getsize(os.path.join(path, str(n), f))
+                 for f in os.listdir(os.path.join(path, str(n))))
+    del model, opt, step, state, template, drifted
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses_2n": straight, "resumed_bitwise": True,
+            "save_s": save_s, "restore_s": restore_s, "checkpoint_bytes": nbytes,
+            "drift_raised": raised}
+
+
+def instr_bench(gen) -> dict:
+    """Part 4: ``do_bench`` (record_memory) and a ``MemoryRecorder`` on
+    ``flex_fwd_hb`` at §6's row-2 problem (the causal 4096 prefill, 32 / 8
+    heads, head_block 4) and ``flex_dq`` at row 5's (causal 8192, 16 / 8):
+    the medians beside the smoke's own CUDA-event times of the same calls,
+    the peaks beside ``torch.cuda.max_memory_allocated``. Timing launches
+    only: none is a main path's."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.benchmarking import MemoryRecorder, do_bench
+
+    rec = {}
+    saved = dict(csrc.launches)
+    for name, (t, hq, hk), run_of in (
+            ("flex_fwd_hb", (4096, HQ, HK), lambda p: lambda: p.hb_kernel(HQ // HK)),
+            ("flex_dq", (8192, TRAIN_HQ, TRAIN_HK), lambda p: p.dq_kernel)):
+        p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1])
+        run = run_of(p)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with MemoryRecorder() as mem:
+            res = do_bench(run, warmup=3, rep=20, inner=5, record_memory=True)
+        peak = torch.cuda.max_memory_allocated()
+        smoke = cuda_ms(run, reps=20)
+        flops = {"flex_fwd_hb": 4.0, "flex_dq": 6.0}[name] * p.meta.total_area * D * hq
+        rec[name] = {"tokens": t, "hq": hq, "hk": hk, "do_bench_median_ms": res.median_ms,
+                     "do_bench_min_max_ms": [res.min_ms, res.max_ms], "smoke_cuda_ms": smoke,
+                     "ratio": res.median_ms / smoke, "tflops": res.tflops(flops),
+                     "do_bench_peak_bytes": res.peak_bytes,
+                     "memory_recorder_peak_bytes": max(mem.peak_bytes.values(), default=None),
+                     "max_memory_allocated_bytes": peak}
+        check(res.peak_bytes and res.peak_bytes <= peak and mem.peak_bytes,
+              f"instrument bench {name}: peaks {rec[name]}")
+        del p
+        torch.cuda.empty_cache()
+    csrc.launches.update(saved)
+    return rec
+
+
+def instr_gate(bench: dict, scratch: str) -> dict:
+    """Part 5: ``telemetry.baseline`` on a history this phase writes: two
+    entries of part 4's rates, expectations seeded from them, the gate on
+    the newest; then an entry lowered past the tolerance, which must fail."""
+    import torch
+    from magiattention_tpu_torch.telemetry import baseline
+
+    path = os.path.join(scratch, baseline.HISTORY_FILENAME)
+    metrics = {f"{k}_tflops": v["tflops"] for k, v in bench.items()}
+    card, limit = torch.cuda.get_device_name(0), nvidia_smi_line().split(", ")[-1]
+    for i in range(2):
+        baseline.append_history(path, baseline.make_history_entry(
+            source=f"instrument_{i}", metrics=metrics, device=card, power_limit=limit,
+            recorded_unix=int(time.time())))
+    hist = baseline.load_history(path)
+    windows = baseline.seed_expectations(hist)
+    passed = baseline.check_gate(baseline.newest_metrics(hist), windows)
+    tol = baseline.default_tolerance()
+    lowered = {k: v * (1.0 - 2.0 * tol) for k, v in metrics.items()}
+    baseline.append_history(path, baseline.make_history_entry(
+        source="instrument_lowered", metrics=lowered, device=card, power_limit=limit))
+    failed = baseline.check_gate(baseline.newest_metrics(baseline.load_history(path)), windows)
+    check(not any(r.failed for r in passed) and all(r.failed for r in failed),
+          f"instrument gate: {[r.status for r in passed]} then {[r.status for r in failed]}")
+    return {"tolerance": tol, "entries": len(baseline.load_history(path)),
+            "passes": [r.status for r in passed], "lowered": [r.status for r in failed],
+            "report": baseline.gate_report(failed, baseline.rung_changes(hist))}
+
+
+def instr_mqa(seed: int) -> dict:
+    """Part 6: a ServingEngine at StarCoder-15B's attention layout (48 q
+    heads over 1 kv head, d 128, bf16) answering three requests through the
+    widened ``paged_decode``: a greedy loop whose next token is the argmax
+    of a seeded projection of the decode output and whose next q / k / v
+    are a seeded embedding of that token. Each step's token from the
+    kernel's output must equal the one from the plain decode's
+    (``decode_reference``) over the same cache."""
+    import torch
+    from magiattention_tpu_torch.serving import ServingEngine, decode_reference
+
+    hq, hk, d = INSTR_MQA
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    embed = torch.randn((INSTR_MQA_VOCAB, (hq + 2 * hk) * d), generator=gen, device="cuda")
+    proj = torch.randn((hq * d, INSTR_MQA_VOCAB), generator=gen, device="cuda") / (hq * d) ** 0.5
+
+    def qkv(tokens):
+        x = embed[tokens].to(torch.bfloat16).view(len(tokens), hq + 2 * hk, d)
+        return (x[:, :hq].contiguous(), x[:, hq:hq + hk].contiguous(),
+                x[:, hq + hk:].contiguous())
+
+    launches = {}
+    engine = ServingEngine(num_pages=96, num_kv_heads=hk, head_dim=d, page_size=PAGE,
+                           max_seqs=4, max_pages_per_seq=32, dtype=torch.bfloat16)
+    slots, last = [], []
+    for n in INSTR_PROMPTS:
+        prompt = torch.randint(0, INSTR_MQA_VOCAB, (n,), generator=gen, device="cuda")
+        res = engine.admit(n)
+        check(res.admitted, f"instrument mqa: admission {res}")
+        out, _ = counted(launches, lambda: engine.prefill(*qkv(prompt), res.slot))
+        last.append(int((out[-1].float().flatten() @ proj).argmax()))
+        slots.append(res.slot)
+    tokens, steps = [last], 16
+    idx = torch.as_tensor(slots, device="cuda")
+    for _ in range(steps):
+        q, k, v = qkv(torch.as_tensor(tokens[-1], device="cuda"))
+        out, _ = counted(launches, lambda: engine.decode_step(q, k, v, slots))
+        ref, _ = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
+                                  engine.cache.seq_lens[idx])
+        got = (out.float().flatten(1) @ proj).argmax(1).tolist()
+        want = (ref.float().flatten(1) @ proj).argmax(1).tolist()
+        check(got == want, f"instrument mqa: kernel tokens {got} != plain tokens {want}")
+        tokens.append(got)
+    check(launches.get("paged_decode", 0) == steps, f"instrument mqa launches {launches}")
+    del engine
+    return {"layout": {"hq": hq, "hk": hk, "head_dim": d}, "requests": len(slots),
+            "steps": steps, "tokens_equal_plain": True, "tokens": tokens, "launches": launches}
+
+
+def instrument_phase(seed: int, gen, cp_part: dict, scratch: str, t0: float) -> dict:
+    """The phase's line: the serving ranges (part 1), the cp stage ranges
+    (part 2, run with the cp pools: ``cp_part``), checkpoint and resume
+    (3), the bench harness (4), the gate (5), the multi-query engine (6);
+    the launches of parts 1, 3 and 6, the main paths."""
+    trace_dir = os.path.join(scratch, "instr_traces")
+    serving_part = instr_serving(seed, trace_dir)
+    ckpt = instr_checkpoint(seed, scratch)
+    bench = instr_bench(gen)
+    gate = instr_gate(bench, scratch)
+    mqa = instr_mqa(seed)
+    launches = {}
+    for part in (serving_part, ckpt, mqa):
+        for n, c in part["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    return {"phase": "instrument", "card": nvidia_smi_line(), "serving": serving_part,
+            "cp": cp_part, "checkpoint": ckpt, "bench": bench, "gate": gate, "mqa": mqa,
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9172,6 +9853,11 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
+    # the cases and timings added with the float32 sparse walks and the wide
+    # decode walks draw from a generator of their own, so that every other
+    # phase keeps the inputs it drew before they were added
+    gen_new = torch.Generator(device="cuda")
+    gen_new.manual_seed(args.seed + NEW_CASES_SEED)
     flex_cases(gen)
     hb_line = hb_cases(gen)
     emit({"phase": "kernels", "kernel": "flex_fwd_hb", **hb_line})
@@ -9182,17 +9868,25 @@ def main(argv=None) -> int:
     emit(sparse_bwd_cases(gen))
     emit(narrow_cases(gen))
     emit(f32_cases(gen))
+    emit(f32_sparse_cases(gen_new))
     emit({"phase": "planted_faults", "case": "d32_and_float32_walks",
-          "caught": narrow_planted_faults(gen, planted)})
+          "caught": {**narrow_planted_faults(gen, planted),
+                     **f32_sparse_planted_faults(gen_new, planted)}})
     fwd_t = flex_timing(gen, 4096, planted)
     bwd_t = bwd_timing(gen, sum(TRAIN_DOCS), planted)
     emit({"phase": "bwd_timing", **bwd_t})
-    narrow_line, narrow_t = narrow_timing(gen)
+    narrow_line, narrow_t = narrow_timing(gen, gen_new)
     emit(narrow_line)
     torch.cuda.empty_cache()
     emit(decode_cases(gen))
     emit({"phase": "planted_faults", "case": "paged_decode",
           "caught": decode_planted_faults(gen, planted)})
+    emit(wide_decode_cases(gen_new))
+    emit({"phase": "planted_faults", "case": "paged_decode_wide",
+          "caught": wide_decode_planted_faults(gen_new, planted)})
+    wide_line, wide_t = wide_decode_timing(gen_new)
+    emit(wide_line)
+    narrow_t.update(wide_t)
 
     summary, engine, slots = serving(gen)
     emit(summary)
@@ -9219,11 +9913,14 @@ def main(argv=None) -> int:
     emit(prefix_line)
     torch.cuda.empty_cache()
 
+    import atexit
     import tempfile
 
     from magiattention_tpu_torch.testing.dist import RankPool
 
     scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    instr_scratch = tempfile.mkdtemp(prefix="chip_smoke_instr_")  # the instrument phase's
+    atexit.register(shutil.rmtree, instr_scratch, True)
     grads_path = os.path.join(scratch, "cp1_grads.pt")
     train = training(args.seed, grads_path)
     emit(train)
@@ -9275,6 +9972,9 @@ def main(argv=None) -> int:
         prof_t0 = time.perf_counter()
         prof_parts["cp"] = prof_cp(pools, args.seed)
         prof_wall += time.perf_counter() - prof_t0
+        instr_t0 = time.perf_counter()
+        instr_cp_part = instr_cp(pools, args.seed, os.path.join(instr_scratch, "instr_traces"))
+        instr_wall = time.perf_counter() - instr_t0
         analysis_line = analysis_phase(pools, args.seed)
         emit(analysis_line)
     finally:
@@ -9302,6 +10002,9 @@ def main(argv=None) -> int:
     tuning_line = tuning_phase(gen, dec_t, tune_serving, sched_line, profiling_line,
                                time.perf_counter() - tune_wall)
     emit(tuning_line)
+    instrument_line = instrument_phase(args.seed, gen_new, instr_cp_part, instr_scratch,
+                                       time.perf_counter() - instr_wall)
+    emit(instrument_line)
     fleet_line = fleet_phase(args.seed)  # resets the telemetry registry: no reader after it
     emit(fleet_line)
 
@@ -9323,7 +10026,7 @@ def main(argv=None) -> int:
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
                "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
                "tuning": tuning_line["launches"], "analysis": analysis_line["launches"],
-               "fleet": fleet_line["launches"]}
+               "fleet": fleet_line["launches"], "instrument": instrument_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

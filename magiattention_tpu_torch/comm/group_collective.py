@@ -64,6 +64,7 @@ import torch.distributed as dist
 from ..ops.correction import exp_where_finite
 from ..resilience import chaos
 from ..resilience.guards import quarantine_if_repair
+from ..utils.instrument import named_scope
 
 NEG_INF = float("-inf")
 
@@ -649,23 +650,24 @@ def group_cast(x: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
     the [R, ...] rows this rank receives, in (src rank, send position)
     order, padded rows zero. A ``straggler`` chaos clause holds its hop's
     received rows back (bit for bit unchanged)."""
-    out = x.new_zeros((rt.max_recv,) + tuple(x.shape[1:]))
-    if rt.impl == "hops":
-        straggle = chaos.enabled()
-        for h in rt.hops:
-            buf = x.index_select(0, h.send_idx)
-            if h.shift % rt.cp_size:
-                buf = exchange(buf, (rt.rank + h.shift) % rt.cp_size,
-                               (rt.rank - h.shift) % rt.cp_size, group)
-            if straggle:
-                buf = chaos.straggler_delay(buf, h.shift)
-            n = h.recv_pos.shape[0]
-            out.index_copy_(0, h.recv_pos, buf[:n])
+    with named_scope("magi_group_cast"):
+        out = x.new_zeros((rt.max_recv,) + tuple(x.shape[1:]))
+        if rt.impl == "hops":
+            straggle = chaos.enabled()
+            for h in rt.hops:
+                buf = x.index_select(0, h.send_idx)
+                if h.shift % rt.cp_size:
+                    buf = exchange(buf, (rt.rank + h.shift) % rt.cp_size,
+                                   (rt.rank - h.shift) % rt.cp_size, group)
+                if straggle:
+                    buf = chaos.straggler_delay(buf, h.shift)
+                n = h.recv_pos.shape[0]
+                out.index_copy_(0, h.recv_pos, buf[:n])
+            return out
+        recv = all_to_all_rows(x.index_select(0, rt.send_idx), group)
+        n = rt.recv_sel.shape[0]
+        out[:n] = recv.index_select(0, rt.recv_sel)
         return out
-    recv = all_to_all_rows(x.index_select(0, rt.send_idx), group)
-    n = rt.recv_sel.shape[0]
-    out[:n] = recv.index_select(0, rt.recv_sel)
-    return out
 
 
 def group_cast_m(x: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
@@ -693,7 +695,8 @@ def group_reduce_sum(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
     telemetry.record_comm_op(rt, "reduce_sum")
     if chaos.enabled():
         y = chaos.corrupt_reduce_payload(y, rank=rt.rank)
-    return cast_transpose(y, rt, group)
+    with named_scope("magi_group_reduce_sum"):
+        return cast_transpose(y, rt, group)
 
 
 def cast_transpose(y: torch.Tensor, rt: RankRouting, group) -> torch.Tensor:
@@ -731,7 +734,8 @@ class GroupCast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return cast_transpose(g.contiguous(), ctx.rt, ctx.group), None, None
+        with named_scope("magi_group_reduce_a2a"):
+            return cast_transpose(g.contiguous(), ctx.rt, ctx.group), None, None
 
 
 class ReturnRows(torch.autograd.Function):
@@ -827,10 +831,11 @@ def group_reduce_lse(
         out_partial = chaos.corrupt_reduce_payload(out_partial, rank=rt.rank)
         lse_partial = chaos.corrupt_reduce_payload(lse_partial, rank=rt.rank)
     out_partial, lse_partial = quarantine_if_repair(out_partial, lse_partial, "reduce_lse")
-    parts_out = return_rows(out_partial, rt, group, 0.0)
-    if not parts_out:
-        return out_acc, lse_acc
-    parts_lse = return_rows(lse_partial, rt, group, NEG_INF)
+    with named_scope("magi_group_reduce_lse_a2a"):
+        parts_out = return_rows(out_partial, rt, group, 0.0)
+        if not parts_out:
+            return out_acc, lse_acc
+        parts_lse = return_rows(lse_partial, rt, group, NEG_INF)
     acc_t = torch.promote_types(lse_partial.dtype, torch.float32)
     # pass 1: each owner row's max over every contribution, its own included
     m = lse_acc.detach().to(acc_t).clone()

@@ -74,7 +74,10 @@ def all2all_v(x: torch.Tensor, send_sizes: Sequence[Sequence[int]], group) -> to
     pad = max(max(int(v) for v in row) for row in send_sizes)
     if x.shape[1] < pad:
         raise ValueError(f"x per-dst rows {x.shape[1]} < max send size {pad}")
-    return all_to_all_rows(x, group)
+    from ..utils.instrument import named_scope
+
+    with named_scope("magi_all2all_v"):
+        return all_to_all_rows(x, group)
 
 
 class _SumGradOverGroup(torch.autograd.Function):

@@ -11,9 +11,9 @@ persistent sparse-grid ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``) the
 TMA + wgmma walk of ``flex_fwd_sm90.cuh``, the four backward kernels (the
 row-major ``flex_dq``, ``flex_dkv`` and the persistent sparse-grid
 ``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item walks of
-``flex_bwd_sm90.cuh``, all eight at head_dim 32, 64 and 128 in bf16. The
-four row-major kernels take float32 q/k/v too (their ``in_f32`` argument),
-on the CUDA-core walks of ``flex_simt.cuh``. ``paged_decode`` (``decode.cu``) takes the
+``flex_bwd_sm90.cuh``, all eight at head_dim 32, 64 and 128 in bf16. All
+eight take float32 q/k/v too (their ``in_f32`` argument), on the CUDA-core
+walks of ``flex_simt.cuh``. ``paged_decode`` (``decode.cu``) takes the
 tensor-core walk of ``decode_sm90.cuh`` for bf16 caches and the CUDA-core
 walk of ``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``,
 ``flex_fwd_sparse.cuh`` and ``flex_bwd.cuh``, the previous forward and
@@ -77,15 +77,14 @@ class Kernel(NamedTuple):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_fwd_sm90.cuh")
-_BWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_bwd_sm90.cuh")
-# the row-major kernels also take float32 q/k/v on the CUDA-core walks
-_ROW_FWD_HEADERS = _FWD_HEADERS + ("flex_simt.cuh",)
-_ROW_BWD_HEADERS = _BWD_HEADERS + ("flex_simt.cuh",)
+# (every flex kernel also takes float32 q/k/v on the CUDA-core walks of
+# flex_simt.cuh)
+_FWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_fwd_sm90.cuh", "flex_simt.cuh")
+_BWD_HEADERS = ("flex_tile.cuh", "flex_sm90.cuh", "flex_bwd_sm90.cuh", "flex_simt.cuh")
 # the sparse-grid forwards: q k v sink | kblk sid runs bounds rs rc | work
 # counter | out lse rowmax; hq hk tqp tkp head_dim nq block_q block_k n_items
-# heads_per_item; scale softcap has_sink out_f32 stream
-_FWD_SPARSE_ARGS = [_P] * 4 + [_P] * 6 + [_P] * 2 + [_P] * 3 + [_I] * 10 + [_F, _F, _I, _I, _P]
+# heads_per_item; scale softcap has_sink out_f32 in_f32 stream
+_FWD_SPARSE_ARGS = [_P] * 4 + [_P] * 6 + [_P] * 2 + [_P] * 3 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]
 KERNELS: dict[str, Kernel] = {
     "flex_fwd": Kernel(
         "flex_fwd.cu",
@@ -96,7 +95,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap has_sink out_f32 in_f32 stream
         + [_F, _F, _I, _I, _I, _P],
-        _ROW_FWD_HEADERS,
+        _FWD_HEADERS,
     ),
     "flex_fwd_hb": Kernel(
         "flex_fwd_hb.cu",
@@ -107,7 +106,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 9
         # scale softcap has_sink out_f32 in_f32 stream
         + [_F, _F, _I, _I, _I, _P],
-        _ROW_FWD_HEADERS,
+        _FWD_HEADERS,
     ),
     "flex_dq": Kernel(
         "flex_dq.cu",
@@ -118,7 +117,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap in_f32 stream
         + [_F, _F, _I, _P],
-        _ROW_BWD_HEADERS,
+        _BWD_HEADERS,
     ),
     "flex_dkv": Kernel(
         "flex_dkv.cu",
@@ -129,7 +128,7 @@ KERNELS: dict[str, Kernel] = {
         + [_I] * 8
         # scale softcap in_f32 stream
         + [_F, _F, _I, _P],
-        _ROW_BWD_HEADERS,
+        _BWD_HEADERS,
     ),
     "flex_fwd_sparse": Kernel(
         "flex_fwd_sparse.cu", "magi_flex_fwd_sparse", _FWD_SPARSE_ARGS, _FWD_HEADERS,
@@ -144,8 +143,8 @@ KERNELS: dict[str, Kernel] = {
         [_P] * 6 + [_P] * 6 + [_P] * 2 + [_P]
         # hq hk tqp tkp head_dim nq block_q block_k n_items
         + [_I] * 9
-        # scale softcap stream
-        + [_F, _F, _P],
+        # scale softcap in_f32 stream
+        + [_F, _F, _I, _P],
         _BWD_HEADERS,
     ),
     "flex_dkv_sparse": Kernel(
@@ -155,8 +154,8 @@ KERNELS: dict[str, Kernel] = {
         [_P] * 6 + [_P] * 6 + [_P] * 2 + [_P] * 2
         # hq hk tqp tkp head_dim nk block_q block_k n_items
         + [_I] * 9
-        # scale softcap stream
-        + [_F, _F, _P],
+        # scale softcap in_f32 stream
+        + [_F, _F, _I, _P],
         _BWD_HEADERS,
     ),
     "paged_decode": Kernel(

@@ -22,6 +22,11 @@
 // for, hk for a launch of its own; a tensor-parallel head slice passes the
 // whole pool's, so that its walks merge as the full launch's do and give
 // the same bits (the CUDA-core walk has no clusters and ignores it).
+//
+// head_dim 32, 64 or 128 (the flex kernels' widths), any number of q heads
+// per kv head: a group past what one walk keeps in registers runs as row
+// tiles of one walk over each K/V chunk it loads (decode_sm90.cuh's wide
+// walk, decode_simt.cuh's WIDE mode).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +60,7 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                          num_splits, shared, cluster_heads, scale, softcap, \
                                          st)
   switch (head_dim) {
+    case 32: MAGI_DECODE_LAUNCH(32);
     case 64: MAGI_DECODE_LAUNCH(64);
     case 128: MAGI_DECODE_LAUNCH(128);
     default: return cudaErrorInvalidValue;

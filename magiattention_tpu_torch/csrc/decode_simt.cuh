@@ -16,7 +16,11 @@
 // sequence's G rows on its own table row and length. Shared mode: every
 // member reads table row 0 and length 0 (a cascade's shared prefix), and a
 // group takes MAXG rows across members, so each page is read once per
-// MAXG rows.
+// MAXG rows. A flat-mode group of more than MAXG q heads (WIDE) runs as
+// row tiles of MAXG over each page the block loads, its accumulators in
+// shared memory, so that the page is read once for all of them; past
+// WIDE_MAX_ROWS q heads a sequence's group is cut into row slices
+// (blockIdx.z = sequence * slices + slice), each reading the pages once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,7 +32,13 @@ namespace decode_simt {
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;  // q rows a block serves
+constexpr int MAXG = 8;  // q rows a block serves (a row tile, under WIDE)
+constexpr int WIDE_MAX_ROWS = 64;  // q rows a WIDE block serves
+
+// The row slices of a flat-mode group of ``group`` q rows.
+__host__ __device__ inline int wide_slices(int group) {
+  return (group + WIDE_MAX_ROWS - 1) / WIDE_MAX_ROWS;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -42,14 +52,16 @@ __device__ __forceinline__ float round_to(float*, float p) { return p; }
 
 // q [b, hq, D]; k_pages/v_pages [P, ps, hk, D] (T); bt [b or 1, mpp];
 // sl [b or 1]; out_parts [b, splits, hq, D] f32; lse_parts [b, splits, hq].
-template <typename T, int D>
+// WIDE (flat mode only): rows_per_block is a slice's rows, ``slices`` the
+// slices of a sequence's group.
+template <typename T, int D, bool WIDE>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ bt,
                     const int* __restrict__ sl, float* __restrict__ out_parts,
                     float* __restrict__ lse_parts, int hq, int hk, int group,
                     int rows_total, int rows_per_block, int shared, int ps, int mpp,
-                    int splits, float scale, float softcap) {
+                    int splits, float scale, float softcap, int slices) {
   // K/V rows in shared memory with a row stride of an odd number of 32-bit
   // words, so that threads reading one row each hit distinct banks
   constexpr int ROW_WORDS = D * (int)sizeof(T) / 4 + 1;
@@ -65,12 +77,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* sM = sP + rows_per_block * ps;                       // [rows]
   float* sL = sM + rows_per_block;
   float* sA = sL + rows_per_block;
+  float* sO = sA + rows_per_block;  // WIDE: the accumulators [rows][D]
 
   const int h = blockIdx.x, s = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tb = shared ? 0 : z;  // the block-table row this group reads
-  const int row0 = z * rows_per_block;
-  const int rows = min(rows_per_block, rows_total - row0);
+  // the block-table row this group reads, its first row, its rows
+  const int tb = shared ? 0 : WIDE ? z / slices : z;
+  const int row0 = WIDE ? tb * group + (z % slices) * rows_per_block : z * rows_per_block;
+  const int rows = WIDE ? min(rows_per_block, (tb + 1) * group - row0)
+                        : min(rows_per_block, rows_total - row0);
   const int seq_len = sl[tb];
   const int pps = mpp / splits;
 
@@ -85,6 +100,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float acc[MAXOUT];
 #pragma unroll
   for (int r = 0; r < MAXOUT; ++r) acc[r] = 0.f;
+  if constexpr (WIDE)
+    for (int x = tid; x < rows * D; x += NTHREADS) sO[x] = 0.f;
   __syncthreads();
 
   for (int p = 0; p < pps; ++p) {
@@ -106,33 +123,39 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     __syncthreads();
 
-    // scores: one thread per token, all rows
-    for (int tok = tid; tok < ntok; tok += NTHREADS) {
-      float dot[MAXG];
+    // scores: one thread per token, all rows (a tile of MAXG rows at a time)
+    for (int t0 = 0; t0 < rows; t0 += MAXG) {
+      const int trows = rows - t0;
+      const float* tq = sQ + t0 * D;
+      float* tp = sP + t0 * ps;
+      for (int tok = tid; tok < ntok; tok += NTHREADS) {
+        float dot[MAXG];
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
-      const T* krow = reinterpret_cast<const T*>(sK + tok * ROW_WORDS);
+        for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
+        const T* krow = reinterpret_cast<const T*>(sK + tok * ROW_WORDS);
 #pragma unroll 4
-      for (int w = 0; w < D / EPW; ++w) {
-        float kx[EPW];
+        for (int w = 0; w < D / EPW; ++w) {
+          float kx[EPW];
 #pragma unroll
-        for (int u = 0; u < EPW; ++u) kx[u] = to_f(krow[w * EPW + u]);
+          for (int u = 0; u < EPW; ++u) kx[u] = to_f(krow[w * EPW + u]);
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g) {
+            if (g < trows) {
+#pragma unroll
+              for (int u = 0; u < EPW; ++u) dot[g] += tq[g * D + w * EPW + u] * kx[u];
+            }
+          }
+        }
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
-          if (g < rows) {
-#pragma unroll
-            for (int u = 0; u < EPW; ++u) dot[g] += sQ[g * D + w * EPW + u] * kx[u];
+          if (g < trows) {
+            float z = dot[g] * scale;
+            if (softcap > 0.f) z = softcap * tanhf(z / softcap);
+            tp[g * ps + tok] = z;
           }
         }
       }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < rows) {
-          float z = dot[g] * scale;
-          if (softcap > 0.f) z = softcap * tanhf(z / softcap);
-          sP[g * ps + tok] = z;
-        }
-      }
+      if constexpr (!WIDE) break;  // at most MAXG rows
     }
     __syncthreads();
 
@@ -168,31 +191,52 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     __syncthreads();
 
     // acc[g][d] = acc * alpha + sum_tok p[g][tok] * V[tok][d]
-#pragma unroll
-    for (int r = 0; r < MAXOUT; ++r) {
-      const int x = tid + r * NTHREADS;
-      if (x < rows * D) {
+    if constexpr (WIDE) {
+      for (int x = tid; x < rows * D; x += NTHREADS) {
         const int g = x / D, d = x % D;
         const float* pg = sP + g * ps;
         const T* vcol = reinterpret_cast<const T*>(sV) + d;
-        float a = acc[r] * sA[g];
+        float a = sO[x] * sA[g];
         for (int tok = 0; tok < ntok; ++tok)
           a += pg[tok] * to_f(vcol[(size_t)tok * ROW_WORDS * EPW]);
-        acc[r] = a;
+        sO[x] = a;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < MAXOUT; ++r) {
+        const int x = tid + r * NTHREADS;
+        if (x < rows * D) {
+          const int g = x / D, d = x % D;
+          const float* pg = sP + g * ps;
+          const T* vcol = reinterpret_cast<const T*>(sV) + d;
+          float a = acc[r] * sA[g];
+          for (int tok = 0; tok < ntok; ++tok)
+            a += pg[tok] * to_f(vcol[(size_t)tok * ROW_WORDS * EPW]);
+          acc[r] = a;
+        }
       }
     }
     __syncthreads();  // before the next page overwrites sK/sV/sP
   }
 
   // finalize: (0, -inf) for a split with no coverage
-#pragma unroll
-  for (int r = 0; r < MAXOUT; ++r) {
-    const int x = tid + r * NTHREADS;
-    if (x < rows * D) {
+  if constexpr (WIDE) {
+    for (int x = tid; x < rows * D; x += NTHREADS) {
       const int i = row0 + x / D;
       const size_t o = ((size_t)(i / group) * splits + s) * hq + h * group + i % group;
       const float lg = sL[x / D];
-      out_parts[o * D + x % D] = lg > 0.f ? acc[r] / lg : 0.f;
+      out_parts[o * D + x % D] = lg > 0.f ? sO[x] / lg : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < MAXOUT; ++r) {
+      const int x = tid + r * NTHREADS;
+      if (x < rows * D) {
+        const int i = row0 + x / D;
+        const size_t o = ((size_t)(i / group) * splits + s) * hq + h * group + i % group;
+        const float lg = sL[x / D];
+        out_parts[o * D + x % D] = lg > 0.f ? acc[r] / lg : 0.f;
+      }
     }
   }
   for (int g = tid; g < rows; g += NTHREADS) {
@@ -205,30 +249,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 }
 
 // b rows of q (sequences, or a shared prefix's members); rows of one kv head
-// in groups of at most MAXG: one sequence's G rows in flat mode (G <= MAXG),
-// MAXG rows across members in shared mode.
+// in groups of at most MAXG: one sequence's G rows in flat mode (G <= MAXG;
+// a larger G runs WIDE), MAXG rows across members in shared mode.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt,
                    const void* sl, void* out_parts, void* lse_parts, int b, int hq,
                    int hk, int ps, int mpp, int splits, int shared, float scale,
                    float softcap, cudaStream_t stream) {
   const int group = hq / hk;
-  if (!shared && group > MAXG) return cudaErrorInvalidValue;
+  const bool wide = !shared && group > MAXG;
+  const int slices = wide ? wide_slices(group) : 1;
   const int rows_total = b * group;
-  const int rows_per_block = shared ? min(rows_total, MAXG) : group;
+  const int rows_per_block = shared ? min(rows_total, MAXG)
+                             : wide ? (group + slices - 1) / slices : group;
   const size_t row_bytes = (size_t)(D * sizeof(T) / 4 + 1) * 4;
   const size_t smem = 2 * ps * row_bytes + sizeof(float) * ((size_t)rows_per_block * D +
                                                              (size_t)rows_per_block * ps +
-                                                             3 * rows_per_block);
-  auto kernel = paged_decode_kernel<T, D>;
+                                                             3 * rows_per_block +
+                                                             (wide ? (size_t)rows_per_block * D
+                                                                   : 0));
+  auto kernel = wide ? paged_decode_kernel<T, D, true> : paged_decode_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(hk, splits, (rows_total + rows_per_block - 1) / rows_per_block);
+  const int groups = wide ? b * slices : (rows_total + rows_per_block - 1) / rows_per_block;
+  dim3 grid(hk, splits, groups);
   kernel<<<grid, NTHREADS, smem, stream>>>(
       (const T*)q, (const T*)kp, (const T*)vp, (const int*)bt, (const int*)sl,
       (float*)out_parts, (float*)lse_parts, hq, hk, group, rows_total, rows_per_block,
-      shared, ps, mpp, splits, scale, softcap);
+      shared, ps, mpp, splits, scale, softcap, slices);
   return cudaGetLastError();
 }
 

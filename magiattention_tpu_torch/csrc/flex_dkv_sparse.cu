@@ -31,8 +31,14 @@
 // dk and dv. The partials start from zero at every item. Each item is
 // computed whole by one block in flex_dkv's order: the same bits on every
 // run, and flex_dkv's bits on the same tables.
+//
+// float32 q/k/v (in_f32 = 1) take flex_simt.cuh's CUDA-core walk instead:
+// persistent blocks of 256 threads over the same work list, each item
+// computed as the row-major float32 walk computes it, so the float32
+// results equal its bits too.
 
 #include "flex_bwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -130,7 +136,7 @@ const char* magi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// As magi_flex_dkv, plus work [n_items] int32 (kv head * nk + k block, one
+// As magi_flex_dkv (q/k/v/dout bf16, or float32 with in_f32 = 1), plus work [n_items] int32 (kv head * nk + k block, one
 // item per (kv head, k block), longest k-major walk first) and counter [1]
 // int32 scratch.
 int magi_flex_dkv_sparse(const void* q, const void* k, const void* v, const void* dout,
@@ -139,11 +145,19 @@ int magi_flex_dkv_sparse(const void* q, const void* k, const void* v, const void
                          const void* rs, const void* rc, const void* work, void* counter,
                          void* dk, void* dv, int hq, int hk, int tqp, int tkp,
                          int head_dim, int nk, int block_q, int block_k, int n_items,
-                         float scale, float softcap, void* stream) {
+                         float scale, float softcap, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 ||
       tkp != nk * BK || tqp % BQ != 0 || n_items != hk * nk)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)  // the CUDA-core walk (flex_simt.cuh): flex_dkv's float32 bits
+    return simt::bwd_sparse<false>(
+        simt::BwdArgs{(const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                      (const float*)lse, (const float*)delta, (const int*)qblk, (const int*)sid,
+                      (const int*)runs, (const int*)bounds, (const int*)rs, (const int*)rc,
+                      nullptr, nullptr, (float*)dk, (float*)dv, hq / hk, tqp, tkp, scale,
+                      softcap},
+        work, counter, nk, n_items, 1, head_dim, st);
   switch (head_dim) {
     case 32:
       return launch<32>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, work,

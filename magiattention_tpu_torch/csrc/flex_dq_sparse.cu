@@ -34,8 +34,14 @@
 // hand their partials over through the item's second resident buffer. Each
 // item is computed whole by one block in flex_dq's order, with no atomics:
 // the same bits on every run, and flex_dq's bits on the same tables.
+//
+// float32 q/k/v (in_f32 = 1) take flex_simt.cuh's CUDA-core walk instead:
+// persistent blocks of 256 threads over the same work list, each item
+// computed as the row-major float32 walk computes it, so the float32
+// results equal its bits too.
 
 #include "flex_bwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -144,7 +150,8 @@ const char* magi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// As magi_flex_dq, plus work [n_items] int32 and counter [1] int32 scratch.
+// As magi_flex_dq (q/k/v/dout bf16, or float32 with in_f32 = 1), plus
+// work [n_items] int32 and counter [1] int32 scratch.
 // An item is (head pair of one kv head, q block) where G = hq / hk is even,
 // else (q head, q block), encoded as pair (or head) * nq + q block, longest
 // walk first (ops/flex_attn.py::sparse_work); n_items = hq / 2 * nq or
@@ -155,13 +162,20 @@ int magi_flex_dq_sparse(const void* q, const void* k, const void* v, const void*
                         const void* rs, const void* rc, const void* work, void* counter,
                         void* dq, int hq, int hk, int tqp, int tkp, int head_dim, int nq,
                         int block_q, int block_k, int n_items, float scale,
-                        float softcap, void* stream) {
+                        float softcap, int in_f32, void* stream) {
   if (block_q != BQ || block_k != BK || hk <= 0 || hq % hk != 0 || tqp != nq * BQ ||
       tkp % BK != 0)
     return cudaErrorInvalidValue;
   const int heads_per_item = (hq / hk) % 2 == 0 ? 2 : 1;
   if (n_items != hq / heads_per_item * nq) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)  // the CUDA-core walk (flex_simt.cuh): flex_dq's float32 bits
+    return simt::bwd_sparse<true>(
+        simt::BwdArgs{(const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                      (const float*)lse, (const float*)delta, (const int*)kblk, (const int*)sid,
+                      (const int*)runs, (const int*)bounds, (const int*)rs, (const int*)rc,
+                      nullptr, (float*)dq, nullptr, nullptr, hq / hk, tqp, tkp, scale, softcap},
+        work, counter, nq, n_items, heads_per_item, head_dim, st);
   switch (head_dim) {
     case 32:
       return dispatch<32>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,

@@ -27,8 +27,13 @@
 // run at once, with no split and no merge of partials. Each item is
 // computed whole by one warpgroup, without atomics on data: the same bits
 // on every run.
+//
+// float32 q/k/v (in_f32 = 1) take flex_simt.cuh's CUDA-core walk instead:
+// persistent blocks of 256 threads over the same work list, each item's
+// heads one after another in the AMLA softmax (fwd_item's AMLA mode).
 
 #include "flex_fwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -68,11 +73,21 @@ int magi_flex_fwd_sparse(const void* q, const void* k, const void* v, const void
                          void* rowmax, int hq, int hk, int tqp, int tkp, int head_dim,
                          int nq, int block_q, int block_k, int n_items,
                          int heads_per_item, float scale, float softcap, int has_sink,
-                         int out_f32, void* stream) {
+                         int out_f32, int in_f32, void* stream) {
   if (heads_per_item != 1 ||
       !fwd_sparse_args_ok(hq, hk, tqp, tkp, nq, block_q, block_k, n_items, heads_per_item, 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)  // the CUDA-core walk (flex_simt.cuh), float32 q/k/v and out
+    return out_f32 ? simt::fwd_sparse(
+                         simt::FwdArgs{(const float*)q, (const float*)k, (const float*)v,
+                                       (const float*)sink, (const int*)kblk, (const int*)sid,
+                                       (const int*)runs, (const int*)bounds, (const int*)rs,
+                                       (const int*)rc, nullptr, (float*)out, (float*)lse,
+                                       (float*)rowmax, hq / hk, tqp, tkp, scale, softcap,
+                                       has_sink},
+                         work, counter, nq, n_items, heads_per_item, head_dim, st)
+                   : cudaErrorInvalidValue;
 #define MAGI_FWD_SPARSE_LAUNCH(D, T)                                                          \
   return launch_fwd_persistent<D, 1>(                                                       \
       flex_fwd_sparse_kernel<D, T>, q, k, v,                                                \

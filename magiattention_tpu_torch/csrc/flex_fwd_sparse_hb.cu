@@ -18,8 +18,13 @@
 // warpgroup takes items of its own, one head at a time, on a stream of its
 // own (as flex_fwd_sparse). The producer streams the next step's (and the
 // next item's) Q and K/V tiles while the current step finishes.
+//
+// float32 q/k/v (in_f32 = 1) take flex_simt.cuh's CUDA-core walk instead:
+// persistent blocks of 256 threads over the same work list, each item's
+// heads one after another in the AMLA softmax (fwd_item's AMLA mode).
 
 #include "flex_fwd_sm90.cuh"
+#include "flex_simt.cuh"
 
 namespace {
 
@@ -69,13 +74,23 @@ int magi_flex_fwd_sparse_hb(const void* q, const void* k, const void* v,
                             void* lse, void* rowmax, int hq, int hk, int tqp, int tkp,
                             int head_dim, int nq, int block_q, int block_k, int n_items,
                             int heads_per_item, float scale, float softcap, int has_sink,
-                            int out_f32, void* stream) {
+                            int out_f32, int in_f32, void* stream) {
   if (hk <= 0 || hq % hk != 0) return cudaErrorInvalidValue;
   const int nh = (hq / hk) % 2 == 0 ? 2 : 1;
   if (heads_per_item % (hq / hk) != 0 ||
       !fwd_sparse_args_ok(hq, hk, tqp, tkp, nq, block_q, block_k, n_items, heads_per_item, nh))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_f32)  // the CUDA-core walk (flex_simt.cuh), float32 q/k/v and out
+    return out_f32 ? simt::fwd_sparse(
+                         simt::FwdArgs{(const float*)q, (const float*)k, (const float*)v,
+                                       (const float*)sink, (const int*)kblk, (const int*)sid,
+                                       (const int*)runs, (const int*)bounds, (const int*)rs,
+                                       (const int*)rc, nullptr, (float*)out, (float*)lse,
+                                       (float*)rowmax, hq / hk, tqp, tkp, scale, softcap,
+                                       has_sink},
+                         work, counter, nq, n_items, heads_per_item, head_dim, st)
+                   : cudaErrorInvalidValue;
 #define MAGI_FWD_SPARSE_HB_LAUNCH(D, T)                                                        \
   return launch<D>(q, k, v,                                                                  \
                    fwd_args<T>(sink, kblk, sid, runs, bounds, rs, rc, nullptr, out, lse,      \

@@ -1,17 +1,26 @@
-// The float32 walks of the row-major flex-attention kernels on the CUDA
-// cores (FFMA in full f32): the forward that flex_fwd.cu and flex_fwd_hb.cu
-// share, flex_dq.cu's dq and flex_dkv.cu's dk, dv, over the same entry
-// tables, with the same outputs and the same per-logit core (flex_tile.cuh)
-// as their bf16 warp-specialised walks.
+// The float32 walks of the flex-attention kernels on the CUDA cores (FFMA
+// in full f32): the row-major forward that flex_fwd.cu and flex_fwd_hb.cu
+// share, flex_dq.cu's dq and flex_dkv.cu's dk, dv, and their sparse-grid
+// twins behind flex_fwd_sparse(_hb).cu, flex_dq_sparse.cu and
+// flex_dkv_sparse.cu, over the same entry tables, with the same outputs and
+// the same per-logit core (flex_tile.cuh) as the bf16 warp-specialised
+// walks. A work item (fwd_item, dq_item, dkv_item) is one function that both
+// grids call: a row-major block computes one, a persistent sparse-grid block
+// takes item after item from the longest-walk-first work list.
 //
 // Replaces, for float32 q/k/v, the TPU kernels magiattention_tpu/ops/
 // flex_attn.py::_fwd_pallas, _fwd_pallas_hb (kernel bodies _fwd_kernel,
-// _fwd_kernel_hb), _dq_pallas (_dq_kernel) and _dkv_pallas (_dkv_kernel),
-// which run float32 on the TPU's matrix unit. On the card a float32 product
-// runs in full f32 by default; the tensor cores' TF32 keeps about three
-// digits, outside the float32 error budget (telemetry/numerics.py:
-// max_abs 1e-4, max_rel 1e-3), so these walks use the CUDA cores, as
-// decode_simt.cuh does for the float32 paged decode.
+// _fwd_kernel_hb), _dq_pallas (_dq_kernel), _dkv_pallas (_dkv_kernel) and
+// the sparse grid's _fwd_pallas_sparse, _fwd_pallas_hb_sparse,
+// _dq_pallas_sparse and _dkv_pallas_sparse, which run float32 on the TPU's
+// matrix unit. On the card a float32 product runs in full f32 by default;
+// the tensor cores' TF32 keeps about three digits, outside the float32 error
+// budget (telemetry/numerics.py: max_abs 1e-4, max_rel 1e-3), so these walks
+// use the CUDA cores, as decode_simt.cuh does for the float32 paged decode.
+// The sparse forwards run the TPU sparse kernels' AMLA softmax (an integer
+// base-2 reference, exponent-add rescales: fwd_item's AMLA mode); the
+// sparse dq and dk/dv compute each item as the row-major walks do, so they
+// give flex_dq's and flex_dkv's bits on the same tables.
 //
 // What bounds them on the card: ~4 d FLOPs per unmasked (q, k) pair and q
 // head for the forward (S, P V), 6 d for dq (S, dP, dQ), 8 d for dk/dv,
@@ -29,10 +38,11 @@
 // its output tile. A simple walk, right first: no TMA, no ring, a
 // __syncthreads between the phases of an entry.
 //
-// Determinism: no atomics; each block owns its output rows and sums in the
-// walk's fixed order, so the same inputs give the same bits on every run,
-// and flex_fwd and flex_fwd_hb (whose work item only batches heads) the
-// same bits as each other.
+// Determinism: no atomics on data; each item is computed whole by one block,
+// which owns its output rows and sums in the walk's fixed order, so the same
+// inputs give the same bits on every run whichever block takes an item, and
+// flex_fwd and flex_fwd_hb (whose work item only batches heads) the same
+// bits as each other.
 #pragma once
 
 #include "flex_tile.cuh"
@@ -146,33 +156,37 @@ constexpr int fwd_smem_bytes() {
   return (3 * tile_floats<D>() + BQ * PLDS) * 4;  // Q, K, V, P
 }
 
-// One block: q block order[blockIdx.y] of the head_block q heads from
-// blockIdx.x * head_block, one head after the other. Per entry of the
-// head's walk: S = Q K^T, the scale and softcap, the entry's interval mask,
-// the natural-exp online softmax (the reference moves with every new row
-// max), O += P V; then the sink, lse, rowmax and out = O / l as the bf16
-// walk's epilogue (flex_fwd_sm90.cuh::fwd_store).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const FwdArgs a, int head_block) {
+// One work item of the forward: q block ib of the nheads q heads from h0,
+// one head after the other. Per entry of the head's walk: S = Q K^T, the
+// scale and softcap, the entry's interval mask, the online softmax, O += P
+// V; then the sink, lse, rowmax and out = O / l as the bf16 walk's epilogue
+// (flex_fwd_sm90.cuh::fwd_store). The row-major grid (AMLA = false) runs the
+// natural-exp softmax whose reference moves with every new row max; the
+// sparse grid (AMLA = true) the TPU sparse kernels' AMLA softmax, as the
+// plain ops/flex_attn.py::_amla_update computes it: an integer reference in
+// base 2, ceil(max z log2 e), moved on every rise, P = exp2(z log2 e - ref),
+// l and O rescaled by 2^(ref_old - ref_new) as exponent adds
+// (flex_tile.cuh's amla_rescale), the epilogue against ref ln 2; m is the
+// exact natural max either way (rowmax).
+template <int D, bool AMLA>
+__device__ __forceinline__ void fwd_item(const FwdArgs& a, float* smem, int h0, int nheads,
+                                         int ib) {
   constexpr int CJ = D / GRID;
-  extern __shared__ float smem[];
   float* sq = smem;
   float* sk = sq + tile_floats<D>();
   float* sv = sk + tile_floats<D>();
   float* sp = sv + tile_floats<D>();
   const int tr = threadIdx.x / GRID, tc = threadIdx.x % GRID;
-  const int ib = a.order[blockIdx.y];  // q block
   const int e_begin = a.rs[ib], e_end = a.rs[ib] + a.rc[ib];
-  for (int hh = 0; hh < head_block; ++hh) {
-    const int h = blockIdx.x * head_block + hh;
+  for (int hh = 0; hh < nheads; ++hh) {
+    const int h = h0 + hh;
     const int kvh = h / a.group;
-    __syncthreads();  // the previous head's readers are done with Q
+    __syncthreads();  // the previous head's (or item's) readers are done with Q
     load_tile_f32<D>(sq, a.q + ((size_t)h * a.tqp + ib * BQ) * D);
-    float m[RPT], l[RPT], o[RPT][CJ];
+    float m[RPT], ref[RPT], l[RPT], o[RPT][CJ];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      m[i] = -INFINITY;
+      m[i] = ref[i] = -INFINITY;
       l[i] = 0.f;
 #pragma unroll
       for (int jj = 0; jj < CJ; ++jj) o[i][jj] = 0.f;
@@ -203,39 +217,60 @@ fwd_kernel(const FwdArgs a, int head_block) {
           s[i][j] = (col >= lo && col < hi) ? z : -INFINITY;
           mx = fmaxf(mx, s[i][j]);
         }
-        const float m_new = fmaxf(m[i], group_max(mx));
-        // a row that meets no live key yet keeps zero state
-        const float alpha = m_new == -INFINITY ? 1.f : m[i] == -INFINITY ? 0.f
-                                                                          : expf(m[i] - m_new);
-        float sum = 0.f;
+        if constexpr (AMLA) {
+          const float tile_max = group_max(mx);
+          m[i] = fmaxf(m[i], tile_max);
+          const float ref_new = fmaxf(ref[i], ceilf(tile_max * LOG2E_F));
+          const float ref_safe = ref_new == -INFINITY ? 0.f : ref_new;
+          // a row that meets its first live key carries zero state: 2^0
+          const int delta = ref[i] == -INFINITY ? 0 : (int)(ref[i] - ref_safe);
+          ref[i] = ref_new;
+          float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float p = m_new == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-          sp[(tr + GRID * i) * PLDS + tc + GRID * j] = p;
-          sum += p;
+          for (int j = 0; j < CPT; ++j) {
+            const float p = exp2f(s[i][j] * LOG2E_F - ref_safe);
+            sp[(tr + GRID * i) * PLDS + tc + GRID * j] = p;
+            sum += p;
+          }
+          l[i] = amla_rescale(l[i], delta) + group_sum(sum);
+#pragma unroll
+          for (int jj = 0; jj < CJ; ++jj) o[i][jj] = amla_rescale(o[i][jj], delta);
+        } else {
+          const float m_new = fmaxf(m[i], group_max(mx));
+          // a row that meets no live key yet keeps zero state
+          const float alpha = m_new == -INFINITY ? 1.f : m[i] == -INFINITY ? 0.f
+                                                                            : expf(m[i] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            const float p = m_new == -INFINITY ? 0.f : expf(s[i][j] - m_new);
+            sp[(tr + GRID * i) * PLDS + tc + GRID * j] = p;
+            sum += p;
+          }
+          l[i] = l[i] * alpha + group_sum(sum);
+          m[i] = m_new;
+#pragma unroll
+          for (int jj = 0; jj < CJ; ++jj) o[i][jj] *= alpha;
         }
-        l[i] = l[i] * alpha + group_sum(sum);
-        m[i] = m_new;
-#pragma unroll
-        for (int jj = 0; jj < CJ; ++jj) o[i][jj] *= alpha;
       }
       __syncthreads();
       accumulate<D>(o, sp, sv, tr, tc);
     }
-    // the epilogue of this thread's rows (m is the exact max and the
-    // reference that l and O are against)
+    // the epilogue of this thread's rows: l and O are against the reference
+    // mu (the exact max m on the row-major grid, ref ln 2 under AMLA)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = ib * BQ + tr + GRID * i;
+      const float mu = AMLA ? ref[i] * LN2_F : m[i];  // -inf stays -inf
       float mt_safe, ltot, resc = 1.f;
       if (a.has_sink) {
         const float sk0 = a.sink[h];
-        const float mtot = fmaxf(m[i], sk0);
+        const float mtot = fmaxf(mu, sk0);
         mt_safe = mtot == -INFINITY ? 0.f : mtot;
-        resc = m[i] == -INFINITY ? 0.f : expf(m[i] - mt_safe);
+        resc = mu == -INFINITY ? 0.f : expf(mu - mt_safe);
         ltot = l[i] * resc + expf(sk0 - mt_safe);
       } else {
-        mt_safe = m[i] == -INFINITY ? 0.f : m[i];
+        mt_safe = mu == -INFINITY ? 0.f : mu;
         ltot = l[i];
       }
       const bool covered = ltot > 0.f;
@@ -248,6 +283,32 @@ fwd_kernel(const FwdArgs a, int head_block) {
 #pragma unroll
       for (int jj = 0; jj < CJ; ++jj) a.out[idx * D + tc + GRID * jj] = o[i][jj] * osc;
     }
+  }
+}
+
+// The row-major forward: one block per (group of head_block q heads
+// blockIdx.x, q block order[blockIdx.y]).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const FwdArgs a, int head_block) {
+  extern __shared__ float smem[];
+  fwd_item<D, false>(a, smem, blockIdx.x * head_block, head_block, a.order[blockIdx.y]);
+}
+
+// The sparse-grid forward: persistent blocks take the items of the
+// longest-walk-first work list (group of heads_per_item q heads * nq + q
+// block) through the launch's counter (flex_tile.cuh's next_item).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fwd_sparse_kernel(const FwdArgs a, const int* __restrict__ work, int* __restrict__ counter,
+                  int nq, int n_items, int heads_per_item) {
+  extern __shared__ float smem[];
+  __shared__ int s_item;
+  for (;;) {
+    const int n = next_item(counter, &s_item);
+    if (n >= n_items) return;
+    const int item = work[n];
+    fwd_item<D, true>(a, smem, item / nq * heads_per_item, heads_per_item, item % nq);
   }
 }
 
@@ -274,6 +335,32 @@ inline cudaError_t fwd(const FwdArgs& a, int hq, int nq, int head_dim, int head_
   }
 }
 
+template <int D>
+inline cudaError_t launch_fwd_sparse(const FwdArgs& a, const int* work, int* counter, int nq,
+                                     int n_items, int heads_per_item, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = persistent_launch_dims(fwd_sparse_kernel<D>, THREADS, fwd_smem_bytes<D>(),
+                                           n_items, counter, stream, grid);
+  if (err != cudaSuccess) return err;
+  fwd_sparse_kernel<D><<<grid, THREADS, fwd_smem_bytes<D>(), stream>>>(a, work, counter, nq,
+                                                                       n_items, heads_per_item);
+  return cudaGetLastError();
+}
+
+// A sparse-grid forward entry point's launch at head_dim d (32, 64 or 128).
+inline cudaError_t fwd_sparse(const FwdArgs& a, const void* work, void* counter, int nq,
+                              int n_items, int heads_per_item, int head_dim,
+                              cudaStream_t stream) {
+  const int* w = static_cast<const int*>(work);
+  int* c = static_cast<int*>(counter);
+  switch (head_dim) {
+    case 32: return launch_fwd_sparse<32>(a, w, c, nq, n_items, heads_per_item, stream);
+    case 64: return launch_fwd_sparse<64>(a, w, c, nq, n_items, heads_per_item, stream);
+    case 128: return launch_fwd_sparse<128>(a, w, c, nq, n_items, heads_per_item, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // -- backward ---------------------------------------------------------------------------
 
 struct BwdArgs {
@@ -289,24 +376,22 @@ constexpr int dq_smem_bytes() {
   return (4 * tile_floats<D>() + BQ * PLDS) * 4;  // Q, dO, K, V, dS
 }
 
-// dq: one block per (q head blockIdx.x, q block order[blockIdx.y]). Per
-// entry: S = Q K^T, dP = dO V^T, P = exp(S - lse) on the entry's mask, dS =
-// P (dP - delta_eff) (flex_tile.cuh's p_ds), dQ += dS K; dq = scale dQ.
+// dq of q head h over q block ib. Per entry: S = Q K^T, dP = dO V^T, P =
+// exp(S - lse) on the entry's mask, dS = P (dP - delta_eff) (flex_tile.cuh's
+// p_ds), dQ += dS K; dq = scale dQ.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const BwdArgs a) {
+__device__ __forceinline__ void dq_item(const BwdArgs& a, float* smem, int h, int ib) {
   constexpr int CJ = D / GRID;
-  extern __shared__ float smem[];
   float* sq = smem;
   float* sdo = sq + tile_floats<D>();
   float* sk = sdo + tile_floats<D>();
   float* sv = sk + tile_floats<D>();
   float* sds = sv + tile_floats<D>();
   const int tr = threadIdx.x / GRID, tc = threadIdx.x % GRID;
-  const int h = blockIdx.x, kvh = h / a.group;
-  const int ib = a.order[blockIdx.y];
+  const int kvh = h / a.group;
   const int e_begin = a.rs[ib], e_end = a.rs[ib] + a.rc[ib];
   const size_t q0 = (size_t)h * a.tqp + ib * BQ;
+  __syncthreads();  // the previous item's readers are done with the tiles
   load_tile_f32<D>(sq, a.q + q0 * D);
   load_tile_f32<D>(sdo, a.dout + q0 * D);
   float lse_safe[RPT], dlt[RPT], acc[RPT][CJ];
@@ -356,21 +441,45 @@ dq_kernel(const BwdArgs a) {
       a.dq[(q0 + tr + GRID * i) * D + tc + GRID * jj] = acc[i][jj] * a.scale;
 }
 
+// The row-major dq: one block per (q head blockIdx.x, q block
+// order[blockIdx.y]).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dq_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  dq_item<D>(a, smem, blockIdx.x, a.order[blockIdx.y]);
+}
+
+// The sparse-grid dq: persistent blocks over the work list's (group of
+// heads_per_item q heads * nq + q block) items, each head of an item
+// computed as dq_kernel computes it: dq_kernel's bits.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dq_sparse_kernel(const BwdArgs a, const int* __restrict__ work, int* __restrict__ counter,
+                 int nq, int n_items, int heads_per_item) {
+  extern __shared__ float smem[];
+  __shared__ int s_item;
+  for (;;) {
+    const int n = next_item(counter, &s_item);
+    if (n >= n_items) return;
+    const int item = work[n];
+    for (int hh = 0; hh < heads_per_item; ++hh)
+      dq_item<D>(a, smem, item / nq * heads_per_item + hh, item % nq);
+  }
+}
+
 template <int D>
 constexpr int dkv_smem_bytes() {
   // K, V, Q, dO, P^T, dS^T, then the q rows' lse, delta_eff and k-intervals
   return (4 * tile_floats<D>() + 2 * BK * PLDS + 2 * BQ) * 4 + 2 * BQ * 4;
 }
 
-// dk, dv: one block per (kv head blockIdx.x, k block order[blockIdx.y]).
-// Per entry of the k-major walk, and inside it the G q heads of the kv head
+// dk, dv of kv head hk over k block ib. Per entry of the k-major walk, and inside it the G q heads of the kv head
 // in order (the bf16 walk's order): S^T = K Q^T, dP^T = V dO^T, P^T and
 // dS^T on the entry's mask, dV += P^T dO, dK += dS^T Q; dk = scale dK.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const BwdArgs a) {
+__device__ __forceinline__ void dkv_item(const BwdArgs& a, float* smem, int hk, int ib) {
   constexpr int CJ = D / GRID;
-  extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + tile_floats<D>();
   float* sq = sv + tile_floats<D>();
@@ -382,10 +491,9 @@ dkv_kernel(const BwdArgs a) {
   int* slo = reinterpret_cast<int*>(sdelta + BQ);
   int* shi = slo + BQ;
   const int tr = threadIdx.x / GRID, tc = threadIdx.x % GRID;
-  const int hk = blockIdx.x;
-  const int ib = a.order[blockIdx.y];  // k block
   const int e_begin = a.rs[ib], e_end = a.rs[ib] + a.rc[ib];
   const size_t k0 = (size_t)hk * a.tkp + ib * BK;
+  __syncthreads();  // the previous item's readers are done with the tiles
   load_tile_f32<D>(sk, a.k + k0 * D);
   load_tile_f32<D>(sv, a.v + k0 * D);
   float dka[RPT][CJ], dva[RPT][CJ];
@@ -440,6 +548,31 @@ dkv_kernel(const BwdArgs a) {
     }
 }
 
+// The row-major dk, dv: one block per (kv head blockIdx.x, k block
+// order[blockIdx.y]).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dkv_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  dkv_item<D>(a, smem, blockIdx.x, a.order[blockIdx.y]);
+}
+
+// The sparse-grid dk, dv: persistent blocks over the work list's (kv head
+// * nk + k block) items: dkv_kernel's bits.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dkv_sparse_kernel(const BwdArgs a, const int* __restrict__ work, int* __restrict__ counter,
+                  int nk, int n_items) {
+  extern __shared__ float smem[];
+  __shared__ int s_item;
+  for (;;) {
+    const int n = next_item(counter, &s_item);
+    if (n >= n_items) return;
+    const int item = work[n];
+    dkv_item<D>(a, smem, item / nk, item % nk);
+  }
+}
+
 template <int D, bool DQ>
 inline cudaError_t launch_bwd(const BwdArgs& a, int heads, int blocks, cudaStream_t stream) {
   void (*kernel)(const BwdArgs);
@@ -467,6 +600,48 @@ inline cudaError_t bwd(const BwdArgs& a, int heads, int blocks, int head_dim,
     case 32: return launch_bwd<32, DQ>(a, heads, blocks, stream);
     case 64: return launch_bwd<64, DQ>(a, heads, blocks, stream);
     case 128: return launch_bwd<128, DQ>(a, heads, blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D, bool DQ>
+inline cudaError_t launch_bwd_sparse(const BwdArgs& a, const int* work, int* counter,
+                                     int blocks, int n_items, int heads_per_item,
+                                     cudaStream_t stream) {
+  constexpr int smem = DQ ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  int grid = 0;
+  cudaError_t err;
+  if constexpr (DQ) {
+    err = persistent_launch_dims(dq_sparse_kernel<D>, THREADS, smem, n_items, counter, stream,
+                                 grid);
+    if (err != cudaSuccess) return err;
+    dq_sparse_kernel<D><<<grid, THREADS, smem, stream>>>(a, work, counter, blocks, n_items,
+                                                         heads_per_item);
+  } else {
+    err = persistent_launch_dims(dkv_sparse_kernel<D>, THREADS, smem, n_items, counter, stream,
+                                 grid);
+    if (err != cudaSuccess) return err;
+    dkv_sparse_kernel<D><<<grid, THREADS, smem, stream>>>(a, work, counter, blocks, n_items);
+  }
+  return cudaGetLastError();
+}
+
+// The sparse-grid dq (items of heads_per_item q heads and a q block, over
+// nq blocks) or dk/dv (items of a kv head and a k block, over nk blocks) at
+// head_dim d (32, 64 or 128).
+template <bool DQ>
+inline cudaError_t bwd_sparse(const BwdArgs& a, const void* work, void* counter, int blocks,
+                              int n_items, int heads_per_item, int head_dim,
+                              cudaStream_t stream) {
+  const int* w = static_cast<const int*>(work);
+  int* c = static_cast<int*>(counter);
+  switch (head_dim) {
+    case 32:
+      return launch_bwd_sparse<32, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
+    case 64:
+      return launch_bwd_sparse<64, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
+    case 128:
+      return launch_bwd_sparse<128, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -81,8 +81,36 @@ def telemetry_ring_size() -> int:
 
 
 def trace_dir() -> str:
-    """Where the flight recorder writes its dumps (``telemetry/trace.py``)."""
+    """Where the flight recorder writes its dumps (``telemetry/trace.py``)
+    and ``utils/instrument.py::switch_profile`` its Chrome traces when
+    profile mode is on and no directory is passed."""
     return _env_str("MAGI_ATTENTION_TRACE_DIR", "./magi_attention_trace")
+
+
+def compile_cache_dir() -> str | None:
+    """Where ``benchmarking.bench.enable_compile_cache`` puts the kernel
+    builds (``MAGI_TPU_COMPILE_CACHE``, the JAX package's name for its XLA
+    cache directory); None: the caller's choice, else ``csrc/build/``."""
+    return _get("MAGI_TPU_COMPILE_CACHE")
+
+
+def is_profile_mode() -> bool:
+    """Default-on switch of the profiler helpers
+    (``MAGI_ATTENTION_PROFILE_MODE``, off by default, as JAX's env.py):
+    ``switch_profile()`` with no ``trace_dir`` records a ``torch.profiler``
+    session into :func:`trace_dir`, and ``named_scope`` /
+    ``instrument_trace`` / ``add_trace_event`` mark their ranges (each is a
+    no-op while this, telemetry and any session are off)."""
+    return _env_bool("MAGI_ATTENTION_PROFILE_MODE", False)
+
+
+def perf_gate_tolerance() -> float:
+    """Fractional regression the perf gate tolerates before failing
+    (``MAGI_ATTENTION_PERF_GATE_TOLERANCE``, default 0.10, as JAX's env.py):
+    a value below ``expectation_low * (1 - tolerance)`` fails
+    ``telemetry/baseline.py::check_gate``, which reads the variable itself
+    (it imports nothing of the package) and agrees with this."""
+    return _env_float("MAGI_ATTENTION_PERF_GATE_TOLERANCE", 0.10)
 
 
 def metrics_port() -> int:

@@ -311,12 +311,14 @@ class MagiDiT(nn.Module):
         all streams), over their count times ``in_dim``. Under dp or cp this
         rank's share: its squared-error sum over the count of every dp x cp
         rank's valid tokens, so that the shares sum to the global loss."""
+        from ..utils.instrument import named_scope
         from .llama import _sum_over
 
         pred = self.forward(noised, t_chunk, pos, text)
         valid = (t_chunk >= 0.0)[..., None]
         err = torch.where(valid, pred - target_v.to(pred.device), 0.0)
-        count = _sum_over(valid.sum().to(torch.float32).detach(), self.sum_groups)
+        with named_scope("magi_dit_loss_psum"):
+            count = _sum_over(valid.sum().to(torch.float32).detach(), self.sum_groups)
         return (err.float() ** 2).sum() / torch.clamp(count * self.cfg.in_dim, min=1.0)
 
     def make_train_step(self, optimizer: torch.optim.Optimizer):

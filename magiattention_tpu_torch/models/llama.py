@@ -177,6 +177,7 @@ class LlamaLayer(nn.Module):
         ``tp_group`` the weights are this rank's shards and the head counts
         are read off their shapes."""
         from ..comm.primitives import reduce_over_group, replicated
+        from ..utils.instrument import named_scope
 
         dt = cfg.torch_dtype
         t = x.shape[0]
@@ -184,8 +185,11 @@ class LlamaLayer(nn.Module):
         def column_input(h):
             return h if tp_group is None else replicated(h, tp_group)
 
-        def row_output(y):
-            return y if tp_group is None else reduce_over_group(y, tp_group)
+        def row_output(y, label):
+            if tp_group is None:
+                return y
+            with named_scope(label):
+                return reduce_over_group(y, tp_group)
 
         h = column_input(_rms_norm(x, self.attn_norm))
         q = (h @ self.wq.to(dt)).view(t, -1, cfg.head_dim)
@@ -194,12 +198,12 @@ class LlamaLayer(nn.Module):
         q = _rope(q, pos, cfg.rope_theta, cfg.head_dim)
         k = _rope(k, pos, cfg.rope_theta, cfg.head_dim)
         out = attention(q, k, v)
-        x = x + row_output(out.reshape(t, -1) @ self.wo.to(dt))
+        x = x + row_output(out.reshape(t, -1) @ self.wo.to(dt), "magi_llama_attn_tp_psum")
 
         h = column_input(_rms_norm(x, self.mlp_norm))
         gate = nn.functional.silu(h @ self.w_gate.to(dt))
         up = h @ self.w_up.to(dt)
-        return x + row_output((gate * up) @ self.w_down.to(dt))
+        return x + row_output((gate * up) @ self.w_down.to(dt), "magi_llama_mlp_tp_psum")
 
 
 class MagiLlama(nn.Module):
@@ -327,7 +331,11 @@ class MagiLlama(nn.Module):
         of a cell hold the same share)."""
         logits = self.forward(tokens, pos)
         loss_sum, count = masked_ce_sums(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
-        return loss_sum / torch.clamp(_sum_over(count.detach(), self.sum_groups), min=1.0)
+        from ..utils.instrument import named_scope
+
+        with named_scope("magi_llama_loss_psum"):
+            count = _sum_over(count.detach(), self.sum_groups)
+        return loss_sum / torch.clamp(count, min=1.0)
 
 
 def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:

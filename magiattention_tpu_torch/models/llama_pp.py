@@ -112,6 +112,7 @@ class MagiLlamaPP(MagiLlama):
         summed over pp x dp x cp are ``MagiLlama.loss`` of the whole
         batch."""
         from ..comm.primitives import ring_shift
+        from ..utils.instrument import named_scope
 
         if tokens.dim() != 2:
             raise ValueError("MagiLlamaPP.loss takes [microbatches, tokens] rows")
@@ -135,8 +136,14 @@ class MagiLlamaPP(MagiLlama):
                     loss_sum, count = loss_sum + ls, count + cnt
             else:  # a bubble: nothing to compute
                 y = _Tie.apply(torch.zeros_like(x_in), x_in)
-            x_in = y if self.pp_group is None else ring_shift(y, self.pp_group)
-        share = loss_sum / torch.clamp(_sum_over(count, self.sum_groups), min=1.0)
+            if self.pp_group is None:
+                x_in = y
+            else:
+                with named_scope("magi_pp_boundary_ppermute"):
+                    x_in = ring_shift(y, self.pp_group)
+        with named_scope("magi_pp_loss_psum"):
+            count = _sum_over(count, self.sum_groups)
+        share = loss_sum / torch.clamp(count, min=1.0)
         return _Tie.apply(share, x_in)
 
 

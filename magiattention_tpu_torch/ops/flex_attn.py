@@ -69,11 +69,10 @@ LN2 = math.log(2.0)
 # rows are 64 bytes: a 64-byte TMA swizzle, csrc/flex_sm90.cuh).
 HOPPER_TILES: dict[int, tuple[int, int]] = {32: (64, 64), 64: (64, 64), 128: (64, 64)}
 # The q/k/v dtypes each grid's kernels take: bf16 on the wgmma walks, and
-# float32 on the row-major grid's CUDA-core walks (csrc/flex_simt.cuh); the
-# sparse grid has no float32 walk yet.
+# float32 on the CUDA-core walks (csrc/flex_simt.cuh), on either grid.
 KERNEL_DTYPES: dict[str, tuple[torch.dtype, ...]] = {
     "row_major": (torch.bfloat16, torch.float32),
-    "sparse": (torch.bfloat16,),
+    "sparse": (torch.bfloat16, torch.float32),
 }
 
 @dataclasses.dataclass(frozen=True)
@@ -539,7 +538,7 @@ def _launch_fwd_sparse(name, q, k, v, sink, tables, items, heads_per_item,
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, items.numel(), heads_per_item, float(params.scale),
         float(params.softcap), int(params.has_sink),
-        int(params.out_dtype == torch.float32),
+        int(params.out_dtype == torch.float32), int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse, rowmax
@@ -718,7 +717,7 @@ def _dq_sparse_kernel(q, k, v, do, lse, delta, ftab, work: SparseWork,
         dq.data_ptr(),
         hq, hk, tqp, tkp, d, tqp // params.block_q, params.block_q,
         params.block_k, work.dq.numel(), float(params.scale), float(params.softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq
 
@@ -748,7 +747,7 @@ def _dkv_sparse_kernel(q, k, v, do, lse, delta, btab, work: SparseWork,
         dk.data_ptr(), dv.data_ptr(),
         hq, hk, tqp, tkp, d, tkp // params.block_k, params.block_q,
         params.block_k, work.dkv.numel(), float(params.scale), float(params.softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dk, dv
 

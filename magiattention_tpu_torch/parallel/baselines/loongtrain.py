@@ -26,6 +26,7 @@ import torch
 
 from ...comm.group_collective import group_rank
 from ...comm.primitives import ring_shift
+from ...utils.instrument import named_scope
 from ...ops.block_meta import Run, build_block_meta_general
 from ...ops.correction import correct_attn_out_lse
 from ...ops.flex_attn import FlexAttnParams, flex_attn_headmajor
@@ -94,10 +95,12 @@ def double_ring_attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     step = 0
     for so in range(plan.ring_outer):
         if so > 0:  # once per inner cycle: the inner ring is back where it started
-            kv = ring_shift(kv, groups.inter)
+            with named_scope("magi_loongtrain_outer_ppermute"):
+                kv = ring_shift(kv, groups.inter)
         for si in range(plan.ring_inner):
             if si > 0:
-                kv = ring_shift(kv, groups.intra)
+                with named_scope("magi_loongtrain_inner_ppermute"):
+                    kv = ring_shift(kv, groups.intra)
             ftab, btab, kv_pad = tabs[step]
             buf = _kv_buffer((kv,), kv_pad, k)
             out_h, lse_h, _ = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, fp32)

@@ -25,6 +25,7 @@ import torch
 
 from ...comm.group_collective import group_rank, group_size
 from ...comm.primitives import ring_shift
+from ...utils.instrument import named_scope
 from ...ops.block_meta import Run, build_block_meta_general
 from ...ops.correction import correct_attn_out_lse
 from ...ops.flex_attn import FlexAttnParams, flex_attn_headmajor, resolve_tile
@@ -108,7 +109,8 @@ def ring_attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: Rin
     out = lse = None
     for s, (ftab, btab, kv_pad) in enumerate(tabs):
         if s > 0:
-            kv = ring_shift(kv, group)
+            with named_scope("magi_ring_kv_ppermute"):
+                kv = ring_shift(kv, group)
         buf = _kv_buffer((kv,), kv_pad, k)
         out_h, lse_h, _ = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, fp32)
         out_i, lse_i = _seq(out_h, lse_h, plan.shard_len)

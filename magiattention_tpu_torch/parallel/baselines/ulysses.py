@@ -17,6 +17,7 @@ import torch
 
 from ...comm.group_collective import group_size
 from ...comm.primitives import heads_to_seq, seq_to_heads
+from ...utils.instrument import named_scope
 from ...ops.block_meta import FlexAttnBlockMeta, build_block_meta
 from ...ops.flex_attn import FlexAttnParams, bwd_tables, flex_attn_headmajor, fwd_tables
 from ..dist_attn import _hm, _seq
@@ -55,7 +56,8 @@ def ulysses_attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: 
         raise ValueError(f"{t_loc} rows a rank over cp={cp} is not the plan's "
                          f"{plan.total_seqlen} tokens")
     check_heads(q.shape[1], k.shape[1], cp)
-    qg, kg, vg = (seq_to_heads(x, group) for x in (q, k, v))  # [total, h / cp, d]
+    with named_scope("magi_ulysses_seq_to_heads_a2a"):
+        qg, kg, vg = (seq_to_heads(x, group) for x in (q, k, v))  # [total, h / cp, d]
     meta = plan.meta
     tqp, tkp = meta.num_q_blocks * meta.block_q, meta.num_k_blocks * meta.block_k
     dev = str(q.device)
@@ -63,8 +65,9 @@ def ulysses_attn_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: 
         _hm(qg, tqp), _hm(kg, tkp), _hm(vg, tkp), fwd_tables(meta, dev), bwd_tables(meta, dev),
         dataclasses.replace(params, out_dtype=torch.float32))
     out_g, lse_g = _seq(out_h, lse_h, plan.total_seqlen)
-    out = heads_to_seq(out_g, group).to(params.out_dtype)
-    lse = heads_to_seq(lse_g[..., None], group)[..., 0]
+    with named_scope("magi_ulysses_heads_to_seq_a2a"):
+        out = heads_to_seq(out_g, group).to(params.out_dtype)
+        lse = heads_to_seq(lse_g[..., None], group)[..., 0]
     return out, lse
 
 

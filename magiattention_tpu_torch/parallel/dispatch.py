@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..comm.group_collective import GroupCast, GroupCollectiveMeta, rank_routing
+from ..utils.instrument import named_scope
 from ..comm.primitives import all_gather_v
 from ..meta.dispatch_meta import DispatchMeta
 
@@ -273,7 +274,8 @@ def roll(x: torch.Tensor, meta: DispatchMeta, shift: int, group, axis: int = 0) 
     out = xm.index_select(0, torch.from_numpy(local_src[rank]).to(dev))
     if sum(comm.send_total):  # the same on every rank: all join the cast or none
         rt = rank_routing(comm, rank, meta.shard_seqlen, str(dev))
-        recv = GroupCast.apply(xm.contiguous(), rt, group)
+        with named_scope("magi_roll_a2a"):
+            recv = GroupCast.apply(xm.contiguous(), rt, group)
         n = len(recv_slots[rank])
         if n:
             out = out.index_copy(0, torch.from_numpy(recv_slots[rank]).to(dev), recv[:n])

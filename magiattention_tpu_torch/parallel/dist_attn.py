@@ -84,6 +84,7 @@ from ..ops.block_meta import (
     runs_from_position_ids,
 )
 from ..ops.correction import correct_attn_out_lse
+from ..utils.instrument import named_scope
 from ..ops.flex_attn import FlexAttnParams, _device_tables, flex_attn_headmajor
 
 
@@ -961,10 +962,12 @@ def dist_attn_local(
 
     if plan.overlap_degree == 0:
         ftab, btab, kv_pad = tabs.kernel[0]
-        recv = stream.cast(kv, tabs.casts[0], group)
+        with named_scope("magi_merged_cast"):
+            recv = stream.cast(kv, tabs.casts[0], group)
         buf = _kv_buffer((kv, recv), kv_pad, k)
-        out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, params,
-                                                   sink=sink)
+        with named_scope("magi_merged_kernel"):
+            out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, params,
+                                                       sink=sink)
         out, lse = resilient(*_seq(out_h, lse_h, n), "merged", 0, rowmax)
         return result(out, lse, rowmax.amax(dim=1))
 
@@ -974,18 +977,23 @@ def dist_attn_local(
     acc_dtype = torch.float32 if env.is_forward_high_precision_reduce() else params.out_dtype
     ftab, btab, kv_pad = tabs.kernel[0]
     buf = _kv_buffer((kv,), kv_pad, k)
-    out_h, lse_h, rowmax = flex_attn_headmajor(
-        qh, buf[0], buf[1], ftab, btab, dataclasses.replace(params, out_dtype=acc_dtype),
-        sink=sink,
-    )
+    with named_scope("magi_host_stage_kernel"):
+        out_h, lse_h, rowmax = flex_attn_headmajor(
+            qh, buf[0], buf[1], ftab, btab, dataclasses.replace(params, out_dtype=acc_dtype),
+            sink=sink,
+        )
     out, lse = resilient(*_seq(out_h, lse_h, n), "host", 0, rowmax)
     mx = rowmax.amax(dim=1)
     stage_params = dataclasses.replace(params, has_sink=False, out_dtype=acc_dtype)
     for i, ((ftab, btab, kv_pad), rt) in enumerate(zip(tabs.kernel[1:], tabs.casts)):
-        recv = stream.cast(kv, rt, group)
+        with named_scope(f"magi_stage{i}_cast"):
+            recv = stream.cast(kv, rt, group)
         buf = _kv_buffer((recv,), kv_pad, k)
-        out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab, stage_params)
+        with named_scope(f"magi_stage{i}_kernel"):
+            out_h, lse_h, rowmax = flex_attn_headmajor(qh, buf[0], buf[1], ftab, btab,
+                                                       stage_params)
         out_i, lse_i = resilient(*_seq(out_h, lse_h, n), f"stage{i}", 1 + i, rowmax)
-        out, lse = correct_attn_out_lse(out, lse, out_i, lse_i)
+        with named_scope(f"magi_stage{i}_lse_merge"):
+            out, lse = correct_attn_out_lse(out, lse, out_i, lse_i)
         mx = torch.maximum(mx, rowmax.amax(dim=1))
     return result(out.to(params.out_dtype), lse, mx)

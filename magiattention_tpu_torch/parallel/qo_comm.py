@@ -138,6 +138,30 @@ def _runs_from_segments(
     return runs
 
 
+def _debug_plot(sol, sl: np.ndarray, cp_size: int, total_seqlen: int) -> None:
+    """At ``DEBUG`` logging, draw the dynamic solver's partition to
+    ``./dyn_solver_buckets_cp<cp>_<mask hash>.png`` (the reference's
+    bucket plot, one file per mask); a drawing or I/O failure never stops
+    planning."""
+    import logging
+
+    logger = logging.getLogger("magiattention_tpu_torch")
+    if not logger.isEnabledFor(logging.DEBUG):
+        return
+    try:
+        import hashlib
+
+        from ..utils.vis import plot_dynamic_solution
+
+        tag = hashlib.sha1(sl.tobytes()).hexdigest()[:8]
+        path = plot_dynamic_solution(sol, total_seqlen, total_seqlen,
+                                     f"./dyn_solver_buckets_cp{cp_size}_{tag}.png")
+        if path:
+            logger.debug("dynamic-solver bucket plot saved to %s", path)
+    except Exception as exc:  # the plot is a debugging aid, never a planning fault
+        logger.debug("dynamic-solver bucket plot failed: %r", exc)
+
+
 def build_qo_comm_plan(
     slices: np.ndarray,  # [S, 5] global (qs, qe, ks, ke, type)
     total_seqlen: int,
@@ -188,6 +212,7 @@ def build_qo_comm_plan(
     from .. import telemetry
 
     telemetry.record_dynamic_solution(type(solver).__name__, sol.balance_ratio)
+    _debug_plot(sol, sl, cp_size, total_seqlen)
 
     q_need: list[AttnRanges] = []
     k_need: list[AttnRanges] = []

@@ -23,6 +23,7 @@ import torch
 
 from ..comm.primitives import all_gather_v
 from ..ops.correction import merge_partials
+from ..utils.instrument import named_scope
 from .decode_attn import decode_attn_paged
 from .kv_cache import PagedKVCache
 
@@ -39,11 +40,13 @@ def cp_merge_partials(
     if cp_size == 1:
         return out, lse
     b = out.shape[0]
-    flat_o = all_gather_v(out, [b] * cp_size, group)
-    flat_l = all_gather_v(lse, [b] * cp_size, group)
+    with named_scope("magi_cp_decode_gather"):
+        flat_o = all_gather_v(out, [b] * cp_size, group)
+        flat_l = all_gather_v(lse, [b] * cp_size, group)
     outs = [flat_o[r * b:(r + 1) * b] for r in range(cp_size)]
     lses = [flat_l[r * b:(r + 1) * b] for r in range(cp_size)]
-    return merge_partials(outs, lses)
+    with named_scope("magi_cp_decode_merge"):
+        return merge_partials(outs, lses)
 
 
 def cp_decode_attn(

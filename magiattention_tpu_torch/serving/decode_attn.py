@@ -41,30 +41,42 @@ import torch
 from .. import csrc
 from ..ops.correction import merge_partials
 from ..ops.flex_attn import on_card
+from ..utils.instrument import named_scope
 from .kv_cache import PagedKVCache
 
 NEG_INF = float("-inf")
 
-# the kernel's build and limits (csrc/decode.cu): q heads per kv head at
-# most one m16 tile on the tensor-core walk (bf16), 8 on the f32 walk
-KERNEL_HEAD_DIMS = (64, 128)
+# the kernel's build (csrc/decode.cu): head_dim 32, 64 or 128 (the flex
+# kernels' widths) and any number of q heads per kv head
+KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_MAX_GROUP = {torch.bfloat16: 16, torch.float32: 8}
 # q rows one block serves in the shared mode (decode_sm90.cuh MAX_ROWS,
 # decode_simt.cuh MAXG); the row groups go on gridDim.z, at most 65535 a
 # launch, so a larger batch launches in row blocks (kernel_row_blocks)
 KERNEL_SHARED_ROWS = {torch.bfloat16: 32, torch.float32: 8}
+# flat mode: a sequence's group of q heads past what one walk holds
+# (decode_sm90.cuh's wide walk past 32 rows, decode_simt.cuh's WIDE mode
+# past 8) runs in row slices of at most these rows, each a row group
+KERNEL_WIDE_ROWS = {torch.bfloat16: (32, 128), torch.float32: (8, 64)}
 KERNEL_MAX_ROW_GROUPS = 65535
+
+
+def kernel_row_slices(group: int, dtype: torch.dtype) -> int:
+    """The row groups of one sequence's ``group`` q heads in the flat mode:
+    1, or for a group past one walk's rows, its slices of at most
+    ``KERNEL_WIDE_ROWS[dtype][1]`` rows (``wide_slices`` of the kernels)."""
+    walk_rows, slice_rows = KERNEL_WIDE_ROWS[dtype]
+    return 1 if group <= walk_rows else -(-int(group) // slice_rows)
 
 
 def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool) -> list[tuple[int, int]]:
     """The query ranges ``[lo, hi)`` that ``paged_decode`` launches one at a
-    time, each of at most :data:`KERNEL_MAX_ROW_GROUPS` row groups: one row
-    group per query in the flat mode, ``KERNEL_SHARED_ROWS`` q rows (a
-    query's ``group`` heads each) per row group in the shared mode. Every
-    row's walk is the same in any block, so the blocks give the bits of one
-    launch."""
-    per = KERNEL_MAX_ROW_GROUPS
+    time, each of at most :data:`KERNEL_MAX_ROW_GROUPS` row groups:
+    :func:`kernel_row_slices` row groups per query in the flat mode,
+    ``KERNEL_SHARED_ROWS`` q rows (a query's ``group`` heads each) per row
+    group in the shared mode. Every row's walk is the same in any block, so
+    the blocks give the bits of one launch."""
+    per = KERNEL_MAX_ROW_GROUPS // kernel_row_slices(group, dtype)
     if shared:
         per = KERNEL_MAX_ROW_GROUPS * KERNEL_SHARED_ROWS[dtype] // max(int(group), 1)
     if b <= per:
@@ -166,12 +178,10 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
             f"paged_decode takes q and pages of one dtype in {KERNEL_DTYPES}; "
             f"got q {q.dtype}, pages {cache.k_pages.dtype}"
         )
-    max_group = KERNEL_MAX_GROUP[q.dtype]
-    if d not in KERNEL_HEAD_DIMS or hq // hk > max_group:
+    if d not in KERNEL_HEAD_DIMS or hq % hk:
         raise ValueError(
-            f"paged_decode is built for head_dim in {KERNEL_HEAD_DIMS} and at "
-            f"most {max_group} q heads per kv head at {q.dtype}; got head_dim "
-            f"{d}, {hq // hk}"
+            f"paged_decode is built for head_dim in {KERNEL_HEAD_DIMS} and a whole number of "
+            f"q heads per kv head; got head_dim {d}, {hq} q / {hk} kv heads"
         )
     rows = 1 if shared else b
     if bt.shape[0] != rows or seq_lens.shape[0] != rows:
@@ -472,6 +482,7 @@ def decode_attn_paged(
     slots = slots.to(device=cache.device, dtype=torch.long)
     bt = cache.block_tables[slots]  # [b, MPP]
     seq_lens = cache.seq_lens[slots]  # [b]
-    out, lse, code, census = _decode(q, cache, bt, seq_lens, params)
+    with named_scope("magi_decode_attn"):
+        out, lse, code, census = _decode(q, cache, bt, seq_lens, params)
     _consume(code, census, params.num_splits)
     return out.to(params.out_dtype), lse

@@ -56,6 +56,7 @@ import torch
 from .. import telemetry
 from ..resilience import chaos
 from ..telemetry import trace as reqtrace
+from ..utils.instrument import named_scope
 from .decode_attn import decode_attn_paged, resolve_num_splits
 from .engine import AdmissionResult, ServingEngine
 from .kv_cache import (
@@ -122,13 +123,14 @@ def tp_decode_attn(
     # histories where the single-device call would
     num_splits = resolve_num_splits(num_splits, cache.shards[0], b, hq)
     outs, lses = [], []
-    for i, shard in enumerate(cache.shards):
-        h = slice(i * hq // tp, (i + 1) * hq // tp)
-        o, l = decode_attn_paged(q[:, h].to(shard.device), shard, slots, num_splits=num_splits,
-                                 cluster_heads=hk, **kw)
-        outs.append(o.to(devices[0]))
-        lses.append(l.to(devices[0]))
-    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+    with named_scope("magi_tp_decode_attn"):
+        for i, shard in enumerate(cache.shards):
+            h = slice(i * hq // tp, (i + 1) * hq // tp)
+            o, l = decode_attn_paged(q[:, h].to(shard.device), shard, slots,
+                                     num_splits=num_splits, cluster_heads=hk, **kw)
+            outs.append(o.to(devices[0]))
+            lses.append(l.to(devices[0]))
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
 def _resolve_device(d) -> torch.device:
@@ -503,12 +505,13 @@ class TieredEngine:
         gathered (K, V) payload."""
         src = self._prefill.cache
         idx = torch.as_tensor(src_pages, dtype=torch.long, device=src.device)
-        pk, pv = src.k_pages.index_select(0, idx), src.v_pages.index_select(0, idx)
-        for i, c in enumerate(shards_of(rep.engine.cache)):
-            didx = torch.as_tensor(dst_pages, dtype=torch.long, device=c.device)
-            h = slice(i * c.num_kv_heads, (i + 1) * c.num_kv_heads)
-            c.k_pages[didx] = pk[:, :, h].to(c.device, copy=True)
-            c.v_pages[didx] = pv[:, :, h].to(c.device, copy=True)
+        with named_scope("magi_page_stream"):
+            pk, pv = src.k_pages.index_select(0, idx), src.v_pages.index_select(0, idx)
+            for i, c in enumerate(shards_of(rep.engine.cache)):
+                didx = torch.as_tensor(dst_pages, dtype=torch.long, device=c.device)
+                h = slice(i * c.num_kv_heads, (i + 1) * c.num_kv_heads)
+                c.k_pages[didx] = pk[:, :, h].to(c.device, copy=True)
+                c.v_pages[didx] = pv[:, :, h].to(c.device, copy=True)
         return pk, pv
 
     # -- decode tier --

@@ -38,6 +38,7 @@ from ..ops.flex_attn import flex_flash_attn_func
 from ..resilience import chaos
 from ..resilience.chaos import ChaosInjectedError
 from ..telemetry import exposition, numerics, trace
+from ..utils.instrument import named_scope
 from .decode_attn import decode_attn_paged, decode_reference, resolve_num_splits
 from .kv_cache import (
     PageAllocator,
@@ -142,18 +143,20 @@ def prefill_into_cache(
     (rows at or past ``length`` are garbage the caller discards) and only
     the cache write is cut to ``length``."""
     t = q.shape[0]
-    out, lse = flex_flash_attn_func(
-        q,
-        k,
-        v,
-        [(0, t)],
-        [(0, t)],
-        [int(AttnMaskType.CAUSAL)],
-        scale=scale,
-        softcap=softcap,
-        out_dtype=out_dtype,
-    )
-    write_prefill_kv(cache, slot, k, v, length=length)
+    with named_scope("magi_prefill_attn"):
+        out, lse = flex_flash_attn_func(
+            q,
+            k,
+            v,
+            [(0, t)],
+            [(0, t)],
+            [int(AttnMaskType.CAUSAL)],
+            scale=scale,
+            softcap=softcap,
+            out_dtype=out_dtype,
+        )
+    with named_scope("magi_kvcache_prefill_write"):
+        write_prefill_kv(cache, slot, k, v, length=length)
     return out, lse
 
 
@@ -177,19 +180,21 @@ def continue_prefill_into_cache(
     sees. ``start`` must equal ``seq_lens[slot]``."""
     t = q.shape[0]
     start = int(start)
-    write_prefill_kv(cache, slot, k, v)
+    with named_scope("magi_kvcache_prefill_write"):
+        write_prefill_kv(cache, slot, k, v)
     kc, vc = gather_kv(cache, slot, max_len=start + t)
-    return flex_flash_attn_func(
-        q,
-        kc,
-        vc,
-        [(0, t)],
-        [(0, start + t)],
-        [int(AttnMaskType.CAUSAL)],
-        scale=scale,
-        softcap=softcap,
-        out_dtype=out_dtype,
-    )
+    with named_scope("magi_prefill_attn"):
+        return flex_flash_attn_func(
+            q,
+            kc,
+            vc,
+            [(0, t)],
+            [(0, start + t)],
+            [int(AttnMaskType.CAUSAL)],
+            scale=scale,
+            softcap=softcap,
+            out_dtype=out_dtype,
+        )
 
 
 class ServingEngine:
@@ -471,8 +476,9 @@ class ServingEngine:
         if idx >= len(pages) or self.allocator.page_ref(pages[idx]) <= 1:
             return  # not reserved yet (growth installs a fresh page), or private
         old, new = self.allocator.cow_page(slot, idx)
-        copy_page(self.cache, old, new)
-        swap_block_table_page(self.cache, slot, idx, new)
+        with named_scope("magi_kvcache_cow"):
+            copy_page(self.cache, old, new)
+            swap_block_table_page(self.cache, slot, idx, new)
         telemetry.record_prefix_cow()
 
     # -- device steps --
@@ -610,7 +616,8 @@ class ServingEngine:
         batch = DecodeBatch.of(slot_list, self.device)
         label = telemetry.decode_program_label(batch.batch_size)
         with telemetry.program(label):
-            append_kv(self.cache, batch.slots, k_new, v_new)
+            with named_scope("magi_kvcache_append"):
+                append_kv(self.cache, batch.slots, k_new, v_new)
             for s in slot_list:
                 self._lengths[s] = self._lengths.get(s, 0) + 1
             if groups:
@@ -852,12 +859,14 @@ class ServingEngine:
                     batch = DecodeBatch.of(decode_slots, self.device)
                     k_new = torch.stack([it[2] for it in decode_items])
                     v_new = torch.stack([it[3] for it in decode_items])
-                    append_kv(self.cache, batch.slots, k_new, v_new)
+                    with named_scope("magi_kvcache_append"):
+                        append_kv(self.cache, batch.slots, k_new, v_new)
                     for s in decode_slots:
                         self._lengths[s] = self._lengths.get(s, 0) + 1
                 for j, (slot, _q, k, v) in enumerate(prefill_items):
                     if prefill_meta[j][2]:
-                        write_prefill_kv(self.cache, int(slot), k, v)
+                        with named_scope("magi_kvcache_prefill_write"):
+                            write_prefill_kv(self.cache, int(slot), k, v)
                 pad = rows - sum(int(p.shape[0]) for p in q_parts)
                 if pad:
                     q_parts.append(q_parts[0].new_zeros((pad, hq, head_dim)))

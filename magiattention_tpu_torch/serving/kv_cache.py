@@ -188,9 +188,12 @@ def shard_kv_cache(cache: PagedKVCache, devices) -> PagedKVCache | ShardedPagedK
         return PagedKVCache(copy(cache.k_pages[:, :, h], dev), copy(cache.v_pages[:, :, h], dev),
                             copy(cache.block_tables, dev), copy(cache.seq_lens, dev))
 
-    if tp == 1:
-        return shard(0, devices[0])
-    return ShardedPagedKVCache(tuple(shard(i, d) for i, d in enumerate(devices)))
+    from ..utils.instrument import named_scope
+
+    with named_scope("magi_kvcache_shard"):
+        if tp == 1:
+            return shard(0, devices[0])
+        return ShardedPagedKVCache(tuple(shard(i, d) for i, d in enumerate(devices)))
 
 
 def shards_of(cache) -> tuple[PagedKVCache, ...]:

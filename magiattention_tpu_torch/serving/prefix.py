@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.correction import correct_attn_out_lse
+from ..utils.instrument import named_scope
 from .decode_attn import (
     _decode_shared_prefix, decode_partials_for_tables, resolve_num_splits,
 )
@@ -302,41 +303,44 @@ def cascade_decode_attn(
     lse = torch.empty((b, hq), dtype=torch.float32, device=dev)
     kw = dict(scale=scale, softcap=softcap)
 
-    for g in groups:
-        idx = list(g.members)
-        n_shared = len(g.shared_pages)
-        if n_shared == 0 or g.prefix_len != n_shared * cache.page_size:
-            raise ValueError(
-                f"misaligned cascade group (members {idx}): prefix_len {g.prefix_len} "
-                f"must equal len(shared_pages) ({n_shared}) * page_size "
-                f"({cache.page_size}) = {n_shared * cache.page_size} and cover at "
-                "least one page — the level-1 partial reads whole shared pages only"
-            )
-        idx_dev = _device_index(idx, torch.long, dev)
-        qg = q[idx_dev]
-        # level 1: the shared prefix, once per group, fully covered; the
-        # kernel reads each shared page once for the group's q rows
-        shared = _device_index(g.shared_pages, torch.int32, dev)
-        s_prefix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=n_shared,
-                                      prefix_groups=max(len(groups), 1))
-        o_g, l_g = _decode_shared_prefix(qg, cache, shared, g.prefix_len,
-                                         num_splits=s_prefix, **kw)
-        # level 2: each member's own pages past the prefix (table-relative lengths)
-        suffix_w = mpp - n_shared
-        if suffix_w > 0:
-            bt_suffix = bt_all[idx_dev][:, n_shared:]
-            sl_suffix = (sl_all[idx_dev] - g.prefix_len).clamp_min(0)
-            s_suffix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=suffix_w)
-            o_s, l_s = decode_partials_for_tables(qg, cache, bt_suffix, sl_suffix,
-                                                  num_splits=s_suffix, **kw)
-            o_g, l_g = correct_attn_out_lse(o_g, l_g, o_s, l_s)
-        out[idx_dev], lse[idx_dev] = o_g, l_g
+    with named_scope("magi_cascade_decode"):
+        for g in groups:
+            idx = list(g.members)
+            n_shared = len(g.shared_pages)
+            if n_shared == 0 or g.prefix_len != n_shared * cache.page_size:
+                raise ValueError(
+                    f"misaligned cascade group (members {idx}): prefix_len {g.prefix_len} "
+                    f"must equal len(shared_pages) ({n_shared}) * page_size "
+                    f"({cache.page_size}) = {n_shared * cache.page_size} and cover at "
+                    "least one page — the level-1 partial reads whole shared pages only"
+                )
+            idx_dev = _device_index(idx, torch.long, dev)
+            qg = q[idx_dev]
+            # level 1: the shared prefix, once per group, fully covered; the
+            # kernel reads each shared page once for the group's q rows
+            shared = _device_index(g.shared_pages, torch.int32, dev)
+            s_prefix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=n_shared,
+                                          prefix_groups=max(len(groups), 1))
+            with named_scope("magi_cascade_prefix"):
+                o_g, l_g = _decode_shared_prefix(qg, cache, shared, g.prefix_len,
+                                                 num_splits=s_prefix, **kw)
+            # level 2: each member's own pages past the prefix (table-relative lengths)
+            suffix_w = mpp - n_shared
+            if suffix_w > 0:
+                bt_suffix = bt_all[idx_dev][:, n_shared:]
+                sl_suffix = (sl_all[idx_dev] - g.prefix_len).clamp_min(0)
+                s_suffix = resolve_num_splits(num_splits, cache, len(idx), hq, mpp=suffix_w)
+                with named_scope("magi_cascade_suffix"):
+                    o_s, l_s = decode_partials_for_tables(qg, cache, bt_suffix, sl_suffix,
+                                                          num_splits=s_suffix, **kw)
+                o_g, l_g = correct_attn_out_lse(o_g, l_g, o_s, l_s)
+            out[idx_dev], lse[idx_dev] = o_g, l_g
 
-    if rest:
-        idx_dev = _device_index(rest, torch.long, dev)
-        s_flat = resolve_num_splits(num_splits, cache, len(rest), hq)
-        out[idx_dev], lse[idx_dev] = decode_partials_for_tables(
-            q[idx_dev], cache, bt_all[idx_dev], sl_all[idx_dev], num_splits=s_flat, **kw)
+        if rest:
+            idx_dev = _device_index(rest, torch.long, dev)
+            s_flat = resolve_num_splits(num_splits, cache, len(rest), hq)
+            out[idx_dev], lse[idx_dev] = decode_partials_for_tables(
+                q[idx_dev], cache, bt_all[idx_dev], sl_all[idx_dev], num_splits=s_flat, **kw)
     return out.to(out_dtype), lse
 
 

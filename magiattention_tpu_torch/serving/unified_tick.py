@@ -18,6 +18,7 @@ import torch
 
 from ..ops.block_sparse import TickEnumeration
 from ..ops.correction import correct_attn_out_lse
+from ..utils.instrument import named_scope
 from .decode_attn import _clamp_splits, decode_partials_for_tables
 from .kv_cache import PagedKVCache
 
@@ -71,8 +72,9 @@ def unified_tick_attn(
     dev = q_rows.device
     bt = torch.from_numpy(tick.block_tables()).to(dev)
     valid = torch.from_numpy(tick.valid_lens()).to(dev)
-    out, lse = decode_partials_for_tables(q_rows, cache, bt, valid, num_splits=num_splits,
-                                          scale=scale, softcap=softcap)
+    with named_scope("magi_tick_attn"):
+        out, lse = decode_partials_for_tables(q_rows, cache, bt, valid, num_splits=num_splits,
+                                              scale=scale, softcap=softcap)
     n = tick.num_pairs
     if n:
         # only the real pairs: each main row is written once, so the result

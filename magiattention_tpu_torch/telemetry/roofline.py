@@ -31,8 +31,6 @@ the ``magi_roofline_*`` gauges.
 from __future__ import annotations
 
 import dataclasses
-import statistics
-import time
 
 import numpy as np
 
@@ -395,50 +393,19 @@ def profile_roofline(
 
 def device_ms(fn, *, reps: int, warmup: int, inner: int = 1, cuda: bool, group=None) -> float:
     """The median over ``reps`` of ``fn``'s ms per call, ``inner`` calls a
-    rep, after ``warmup`` calls. ``cuda``: each rep is timed by CUDA events
-    on the current stream, else by the host clock. Without ``group``, a
-    spin kernel holds the stream while the host enqueues the rep's calls,
-    so a wrapper's host work does not time as launch gaps. With a
-    ``torch.distributed`` ``group``, every rank of it calls together: each
-    rep starts after a barrier (no spin: the pieces it times wait on the
-    other ranks), and the slowest rank's median is returned to all."""
-    import torch
+    rep, after ``warmup`` calls: ``benchmarking.bench.do_bench``, the port's
+    one timer. ``cuda``: each rep is timed by CUDA events on the current
+    stream, else by the host clock. Without ``group``, a spin kernel holds
+    the stream while the host enqueues the rep's calls, so a wrapper's host
+    work does not time as launch gaps. With a ``torch.distributed``
+    ``group``, every rank of it calls together: each rep starts after a
+    barrier (no spin: the pieces it times wait on the other ranks), and the
+    slowest rank's median is returned to all."""
+    from ..benchmarking.bench import do_bench
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    spin_s = None
-    if cuda and group is None:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        spin_s = 2 * (time.perf_counter() - t0) * inner + 2e-3
-    for _ in range(reps):
-        if group is not None:
-            import torch.distributed as dist
-
-            if cuda:
-                torch.cuda.synchronize()
-            dist.barrier(group=group)
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if spin_s is not None:
-                torch.cuda._sleep(int(2e9 * spin_s))  # cycles, at most ~2 GHz
-            start.record()
-            for _ in range(inner):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / inner)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(inner):
-                fn()
-            times.append((time.perf_counter() - t0) * 1e3 / inner)
-    ms = statistics.median(times)
+    ms = do_bench(fn, warmup=warmup, rep=reps, inner=inner, mesh=group, cuda=cuda).median_ms
     if group is not None:
+        import torch
         import torch.distributed as dist
 
         worst = torch.tensor([ms], dtype=torch.float64)

@@ -274,3 +274,82 @@ def test_paged_decode_launcher_passes_what_the_entry_point_takes(cluster_heads, 
     assert all(type(x) is python_kind[kind] for x, kind in zip(a, kinds))
     ints = a[kinds.index("int"):kinds.index("float")]  # b hq hk d ps mpp splits shared f32 heads
     assert ints == (2, 16, 4, 64, 16, 4, 2, 0, 0, cluster_heads or 4)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hq,hk", [(8, 4), (6, 2)], ids=["g2", "g3"])
+def test_sparse_launchers_pass_in_f32(dtype, hq, hk, monkeypatch):
+    """All four sparse-grid launchers on q/k/v of ``dtype``: the arguments
+    their entry points declare, ``in_f32`` (the one before the stream) 1
+    for float32 q/k/v and 0 for bf16, the outputs float32 either way."""
+    import dataclasses
+    import types
+
+    import torch
+
+    fa, args, ftab, btab, work, params = _sparse_backward_problem(hq, hk)
+    dt = getattr(torch, dtype)
+    args = tuple(x.to(dt) if i < 4 else x for i, x in enumerate(args))
+    params = dataclasses.replace(params, out_dtype=dt)
+    calls = []
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v = args[:3]
+    fwd_work = fa.sparse_work(_plan(hq, hk), "cpu", hq, hk, 1)
+    outs = [fa._fwd_sparse_kernel(q, k, v, torch.zeros(hq), ftab, fwd_work,
+                                  dataclasses.replace(params, head_block=1))[0],
+            fa._fwd_sparse_hb_kernel(q, k, v, torch.zeros(hq), ftab, work, params)[0],
+            fa._dq_sparse_kernel(*args, ftab, work, params),
+            *fa._dkv_sparse_kernel(*args, btab, work, params)]
+    assert [n for n, _ in calls] == ["flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_dq_sparse",
+                                     "flex_dkv_sparse"]
+    python_kind = {"pointer": int, "int": int, "float": float}
+    for name, a in calls:
+        kinds = [KINDS[t] for t in csrc.KERNELS[name].argtypes]
+        assert len(a) == len(kinds) and all(type(x) is python_kind[kd] for x, kd in zip(a, kinds))
+        assert a[-2] == int(dtype == "float32")  # in_f32
+    assert [o.dtype for o in outs] == [dt, dt, torch.float32, torch.float32, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("d,hq,hk", [(32, 8, 4), (128, 48, 1), (32, 200, 1)],
+                         ids=["d32_g2", "d128_g48", "d32_g200"])
+def test_decode_launcher_passes_what_the_entry_point_takes(d, hq, hk, shared, dtype,
+                                                           monkeypatch):
+    """``_decode_partials_kernel`` at head_dim 32 and at groups past one
+    walk's rows (48: StarCoder-15B's layout; 200: a group the wide walks cut
+    into row slices), launch recorded: the entry point's arguments, the
+    head dim and head counts as given, ``is_f32``, one launch (the batch
+    fits the grid's row groups) and no refusal."""
+    import types
+
+    import torch
+
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import make_paged_kv_cache
+
+    dt = getattr(torch, dtype)
+    cache = make_paged_kv_cache(9, 16, hk, d, max_seqs=4, max_pages_per_seq=2, dtype=dt,
+                                device="cpu")
+    b = 3
+    rows = 1 if shared else b
+    bt = torch.zeros((rows, 2), dtype=torch.int32)
+    sl = torch.full((rows,), 20, dtype=torch.int32)
+    calls = []
+    monkeypatch.setattr(da.csrc, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    prm = da.DecodeParams(d ** -0.5, 0.0, 1, torch.float32)
+    out, lse = da._decode_partials_kernel(torch.zeros((b, hq, d), dtype=dt), cache, bt, sl, prm,
+                                          shared=shared)
+    [(name, a)] = calls
+    kinds = [KINDS[t] for t in csrc.KERNELS[name].argtypes]
+    python_kind = {"pointer": int, "int": int, "float": float}
+    assert name == "paged_decode" and len(a) == len(kinds)
+    assert all(type(x) is python_kind[kd] for x, kd in zip(a, kinds))
+    ints = a[kinds.index("int"):kinds.index("float")]
+    # b hq hk head_dim page_size mpp num_splits shared is_f32 cluster_heads
+    assert list(ints) == [b, hq, hk, d, 16, 2, 1, int(shared), int(dtype == "float32"), hk]
+    assert out.shape == (b, 1, hq, d) and lse.shape == (b, 1, hq)

@@ -44,20 +44,20 @@ LENGTHS = [0, 1, PS, 37, 100, MPP * PS]  # zero, one, a page boundary, ragged, f
 BUDGET = DEFAULT_BUDGETS["float32"]
 
 
-def _state(seed=0, lengths=LENGTHS):
+def _state(seed=0, lengths=LENGTHS, hq=HQ, hk=HK, d=D):
     """The same cache in both packages; page 0 left unreferenced, v positive
     (outputs stay away from zero, where ulp bounds measure summation order)."""
     rng = np.random.default_rng(seed)
-    cache = jax_make_cache(len(lengths) * MPP + 1, PS, HK, D, max_seqs=len(lengths),
+    cache = jax_make_cache(len(lengths) * MPP + 1, PS, hk, d, max_seqs=len(lengths),
                            max_pages_per_seq=MPP, dtype=jnp.float32)
     for slot, t in enumerate(lengths):
         cache = jax_assign(cache, slot, list(range(1 + slot * MPP, 1 + (slot + 1) * MPP)))
-        k = rng.standard_normal((t, HK, D)).astype(np.float32)
-        v = rng.uniform(0.5, 1.5, (t, HK, D)).astype(np.float32)
+        k = rng.standard_normal((t, hk, d)).astype(np.float32)
+        v = rng.uniform(0.5, 1.5, (t, hk, d)).astype(np.float32)
         cache = jax_write(cache, slot, jnp.asarray(k), jnp.asarray(v))
     port = cache_from_numpy(*(np.asarray(x) for x in (
         cache.k_pages, cache.v_pages, cache.block_tables, cache.seq_lens)))
-    q = rng.standard_normal((len(lengths), HQ, D)).astype(np.float32)
+    q = rng.standard_normal((len(lengths), hq, d)).astype(np.float32)
     return cache, port, q
 
 
@@ -77,6 +77,28 @@ def test_decode_matches_jax_pallas_interpret(splits):
     _check(jo, jl, out, lse)
     # the zero-length slot decodes to (0, -inf), NaN-free
     assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("hq,hk,d", [(48, 1, 128), (48, 1, 32), (24, 2, 32)],
+                         ids=["g48_d128", "g48_d32", "g12_d32"])
+def test_wide_groups_and_head_dim_32_match_jax_pallas_interpret(hq, hk, d):
+    """The widths ``paged_decode`` took last: a multi-query group of 48 q
+    heads (StarCoder-15B's layout) and head_dim 32, against JAX
+    ``_decode_pallas`` in interpret mode, which has neither limit. out
+    within the whole float32 row; lse within its absolute bound (1e-4): the
+    one-token slot's lse is a single logit, which can sit near 0, where a
+    few float32 rounding steps of two summation orders are thousands of
+    ulps of the value."""
+    jcache, cache, q = _state(seed=3, hq=hq, hk=hk, d=d)
+    slots = np.arange(len(LENGTHS))
+    budget = dataclasses.replace(BUDGET, lse_max_ulp=float("inf"))
+    for splits in (1, 2):
+        jo, jl = jax_decode(jnp.asarray(q), jcache, jnp.asarray(slots), num_splits=splits,
+                            interpret=True)
+        out, lse = decode_attn_paged(torch.from_numpy(q), cache, torch.from_numpy(slots),
+                                     num_splits=splits)
+        assert_within_budget(divergence_report(
+            np.asarray(jo), out.numpy(), ref_lse=np.asarray(jl), test_lse=lse.numpy()), budget)
 
 
 @pytest.mark.parametrize("softcap", [0.0, 4.0])

@@ -166,10 +166,11 @@ _ROW_MAJOR = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv")
 _SPARSE = ("flex_fwd_sparse", "flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")
 
 
-def _launch_recorded(kernel, d, dtype, monkeypatch):
+def _launch_recorded(kernel, d, dtype, monkeypatch, kv_dtype=None):
     """Call ``kernel``'s wrapper on CPU tensors of head_dim ``d`` and
-    ``dtype`` (a causal 256-token mask, 4 q / 2 kv heads, the 64 x 64 tile)
-    with ``csrc.launch`` recorded; returns the recorded (name, args)."""
+    ``dtype`` (k and v of ``kv_dtype``, default ``dtype``; a causal 256-token
+    mask, 4 q / 2 kv heads, the 64 x 64 tile) with ``csrc.launch`` recorded;
+    returns the recorded (name, args)."""
     import dataclasses
     import types as pytypes
 
@@ -178,7 +179,7 @@ def _launch_recorded(kernel, d, dtype, monkeypatch):
     t, hq, hk = 256, 4, 2
     meta = fa.build_block_meta([(0, t)], [(0, t)], [C], t, t, block_q=64, block_k=64)
     q, do = (torch.zeros((hq, t, d), dtype=dtype) for _ in range(2))
-    k, v = (torch.zeros((hk, t, d), dtype=dtype) for _ in range(2))
+    k, v = (torch.zeros((hk, t, d), dtype=kv_dtype or dtype) for _ in range(2))
     lse, delta, sink = torch.zeros((hq, t)), torch.zeros((hq, t)), torch.zeros(hq)
     grid = "sparse" if kernel in _SPARSE else "row_major"
     hb = 2 if kernel.endswith("_hb") else 1
@@ -213,8 +214,7 @@ def test_every_flex_kernel_takes_bf16_at_head_dims_32_64_128(kernel, d, monkeypa
     assert [name for name, _ in calls] == [kernel]
     args = calls[0][1]
     assert d in args  # the head_dim argument the entry point switches on
-    if kernel in _ROW_MAJOR:
-        assert args[-2] == 0  # in_f32: the wgmma walk
+    assert args[-2] == 0  # in_f32: the wgmma walk
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -224,10 +224,22 @@ def test_row_major_kernels_take_float32(kernel, d, monkeypatch):
     assert [name for name, _ in calls] == [kernel] and calls[0][1][-2] == 1  # in_f32
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("kernel", _SPARSE)
+def test_sparse_kernels_take_float32(kernel, d, monkeypatch):
+    """The sparse grid's CUDA-core walks: float32 q/k/v launch with
+    ``in_f32`` = 1, as the row-major kernels do."""
+    calls = _launch_recorded(kernel, d, torch.float32, monkeypatch)
+    assert [name for name, _ in calls] == [kernel] and calls[0][1][-2] == 1  # in_f32
+
+
 @pytest.mark.parametrize("kernel", _SPARSE)
 def test_sparse_kernels_refuse_float32_naming_the_grid(kernel, monkeypatch):
+    """The sparse grid takes float32 q/k/v since its CUDA-core walks; a
+    float32 q against bf16 k/v (no kernel's walk) is still refused, naming
+    the grid."""
     with pytest.raises(TypeError, match="the sparse grid"):
-        _launch_recorded(kernel, 32, torch.float32, monkeypatch)
+        _launch_recorded(kernel, 32, torch.float32, monkeypatch, kv_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("kernel", _ROW_MAJOR + _SPARSE)

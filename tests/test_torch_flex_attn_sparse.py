@@ -401,6 +401,43 @@ def test_auto_kernel_config_grid_matches_jax(mask, heads, monkeypatch):
     assert hb == hq // hk  # G on either grid: one kv head's q heads an item
 
 
+@pytest.mark.parametrize("d", [32, 128])
+def test_float32_takes_the_sparse_grid_as_jax_does(d, monkeypatch):
+    """float32 q/k/v on a heterogeneous mask: ``auto_kernel_config`` picks
+    the grid JAX's picks for float32 (the sparse grid), and the attention at
+    that choice, forward and backward, launches the sparse grid's kernels
+    with ``in_f32`` = 1 instead of refusing float32 (CPU tensors with the
+    card's path forced and every launch recorded)."""
+    import types
+
+    for name in ("MAGI_ATTENTION_GRID", "MAGI_ATTENTION_HEAD_BLOCK", "MAGI_ATTENTION_BLOCK_Q",
+                 "MAGI_ATTENTION_BLOCK_K", "MAGI_ATTENTION_AUTOTUNE"):
+        monkeypatch.delenv(name, raising=False)
+    t, hq, hk = 4096, 8, 4
+    qr, kr, ty = split(workloads.varlen_block_causal(t))
+    *_, jax_grid = jax_auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, head_dim=d,
+                                          dtype="float32")
+    bq, bk, hb, grid = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ty, head_dim=d,
+                                             dtype="float32")
+    assert grid == jax_grid == "sparse" and hb == hq // hk
+    calls = []
+    monkeypatch.setattr(fa, "on_card", lambda *ts: True)
+    monkeypatch.setattr(fa.csrc, "launch", lambda name, *a: calls.append((name, a[-2])))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    meta = build_block_meta(qr, kr, ty, t, t, block_q=bq, block_k=bk)
+    params = fa.FlexAttnParams(bq, bk, d ** -0.5, 0.0, False, torch.float32, hb, grid)
+    tqp, tkp = meta.num_q_blocks * bq, meta.num_k_blocks * bk
+    q = torch.zeros((hq, tqp, d), requires_grad=True)
+    k, v = (torch.zeros((hk, tkp, d), requires_grad=True) for _ in range(2))
+    out, lse, _ = fa.flex_attn_headmajor(q, k, v, fa.fwd_tables(meta, "cpu"),
+                                         fa.bwd_tables(meta, "cpu"), params,
+                                         work=fa.sparse_work(meta, "cpu", hq, hk, hb))
+    out.sum().backward()
+    assert out.dtype == torch.float32
+    assert calls == [("flex_fwd_sparse_hb", 1), ("flex_dq_sparse", 1), ("flex_dkv_sparse", 1)]
+
+
 def _windows(total, window, rows=256):
     """Causal sliding windows in ``rows``-row chunks: each chunk of queries
     sees the ``window`` keys that end at its last row."""

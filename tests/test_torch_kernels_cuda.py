@@ -300,12 +300,13 @@ def test_flex_fwd_refuses_what_it_does_not_implement(card):
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     with pytest.raises(ValueError, match="head_block 3"):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], grid="row_major", head_block=3)
-    # float32 runs the row-major grid's CUDA-core walks; the sparse grid has none
+    # float32 runs the CUDA-core walks, on either grid; a mixed-dtype call is refused
     q32, k32 = q.float(), k.float()
-    out, lse = flex_flash_attn_func(q32, k32, k32, [(0, 64)], [(0, 64)], [C], grid="row_major")
-    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    for grid in ("row_major", "sparse"):
+        out, lse = flex_flash_attn_func(q32, k32, k32, [(0, 64)], [(0, 64)], [C], grid=grid)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
     with pytest.raises(TypeError, match="sparse grid"):
-        flex_flash_attn_func(q32, k32, k32, [(0, 64)], [(0, 64)], [C], grid="sparse")
+        flex_flash_attn_func(q32, k, k, [(0, 64)], [(0, 64)], [C], grid="sparse")
     with pytest.raises(ValueError, match="tile"):
         flex_flash_attn_func(q, k, k, [(0, 64)], [(0, 64)], [C], block_q=32)
 

@@ -254,16 +254,20 @@ def test_decode_kernel_row_groups_bounded(shared, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shared", [False, True])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 8, 24, 48, 200])
 @pytest.mark.parametrize("b", [0, 1, 65535, 65536, 70000, 8 * 65535 + 9, 600000])
 def test_kernel_row_blocks(b, group, shared, dtype):
     """``kernel_row_blocks``: contiguous query ranges covering [0, b), one
-    range when the batch fits, each range at most 65535 row groups (one per
-    query flat; KERNEL_SHARED_ROWS q rows, ``group`` a query, shared), every
-    range but the last full."""
+    range when the batch fits, each range at most 65535 row groups
+    (``kernel_row_slices`` per query flat: 1 up to one walk's rows, a wide
+    group's row slices past them; KERNEL_SHARED_ROWS q rows, ``group`` a
+    query, shared), every range but the last full."""
     blocks = decode_attn.kernel_row_blocks(b, group, dtype, shared)
     rows = decode_attn.KERNEL_SHARED_ROWS[dtype]
-    groups = (lambda n: -(-n * group // rows)) if shared else (lambda n: n)
+    slices = decode_attn.kernel_row_slices(group, dtype)
+    assert slices == (1 if group <= {torch.bfloat16: 32, torch.float32: 64}[dtype]
+                      else -(-group // {torch.bfloat16: 128, torch.float32: 64}[dtype]))
+    groups = (lambda n: -(-n * group // rows)) if shared else (lambda n: n * slices)
     assert blocks[0][0] == 0 and blocks[-1][1] == b
     assert all(hi == lo2 for (_, hi), (lo2, _) in zip(blocks, blocks[1:]))
     assert all(groups(hi - lo) <= decode_attn.KERNEL_MAX_ROW_GROUPS for lo, hi in blocks)

@@ -23,7 +23,12 @@ other, this), and the two are compared within this one call:
   stream of six requests that resolves through every tier: cold (the
   solver), bucket (a fingerprint hit) and exact (a cached key). The
   stream runs ``--reps`` times from cleared caches (the runtime's and, where
-  the checkout has one, the tuning cache); the first pass is a warm-up.
+  the checkout has one, the tuning cache); the first pass is a warm-up;
+- ``serving``: the host milliseconds of one ``ServingEngine.decode_step``
+  of 8 sequences and of one 1024-token ``ServingEngine.prefill`` at the
+  serving widths (32 q / 8 kv heads, d 128, bf16, pages of 128), the card
+  synchronised before each call, outside the timed span: the host cost of
+  the serving path's wrappers, its instrumentation's off path included.
 
 Prints the card's name and power limit as ``nvidia-smi`` gives them, one
 JSON line per process, and last one JSON line of medians by checkout."""
@@ -84,6 +89,56 @@ def measure_flex(calls: int) -> dict:
         out[name] = row
         del q, k, v
     return out
+
+
+SERVING_LENGTHS = (1000, 1733, 2048, 2900, 1500, 1200, 800, 2600)
+SERVING_PREFILL = 1024
+
+
+def measure_serving(calls: int) -> dict:
+    import torch
+    from magiattention_tpu_torch.serving import ServingEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    b = len(SERVING_LENGTHS)
+    mpp = -(-(max(SERVING_LENGTHS) + calls + 5) // 128)  # the longest history's pages
+    engine = ServingEngine(num_pages=(b + 1) * mpp + 1, num_kv_heads=8, head_dim=HEAD_DIM,
+                           page_size=128, max_seqs=b + 1, max_pages_per_seq=mpp,
+                           dtype=torch.bfloat16)
+    slots = []
+    for n in SERVING_LENGTHS:
+        slot = engine.admit(n).slot
+        engine.prefill(rand(n, 32, HEAD_DIM), rand(n, 8, HEAD_DIM), rand(n, 8, HEAD_DIM), slot)
+        slots.append(slot)
+    steps = [(rand(b, 32, HEAD_DIM), rand(b, 8, HEAD_DIM), rand(b, 8, HEAD_DIM))
+             for _ in range(calls + 5)]
+    decode = []
+    for i, (q, k, v) in enumerate(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_step(q, k, v, slots)
+        if i >= 5:
+            decode.append((time.perf_counter() - t0) * 1e3)
+    n = SERVING_PREFILL
+    qkv = (rand(n, 32, HEAD_DIM), rand(n, 8, HEAD_DIM), rand(n, 8, HEAD_DIM))
+    prefill = []
+    for i in range(calls // 4 + 3):
+        slot = engine.admit(n).slot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(*qkv, slot)
+        if i >= 3:
+            prefill.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        engine.free(slot)
+    return {"decode_step_host_ms": statistics.median(decode),
+            "decode_step_host_ms_p10_p90": [sorted(decode)[len(decode) // 10],
+                                            sorted(decode)[len(decode) * 9 // 10]],
+            "prefill_host_ms": statistics.median(prefill)}
 
 
 def _takes_device() -> bool:
@@ -147,6 +202,8 @@ def child(args) -> int:
     sys.path.insert(0, args.root)
     if args.measure == "flex":
         res = measure_flex(args.calls)
+    elif args.measure == "serving":
+        res = measure_serving(args.calls)
     else:
         res = measure_keys(args.rank, args.world, args.port, args.reps)
     print(json.dumps(res))
@@ -176,7 +233,8 @@ def prebuild(roots: list) -> None:
     built side by side before any timing."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from magiattention_tpu_torch import csrc; "
-            "csrc.build(['flex_fwd_hb', 'flex_fwd_sparse_hb', 'flex_fwd_sparse', 'flex_fwd']); "
+            "csrc.build(['flex_fwd_hb', 'flex_fwd_sparse_hb', 'flex_fwd_sparse', 'flex_fwd', "
+            "'paged_decode']); "
             "csrc.build_host()")
     procs = [(_run([sys.executable, "-c", code, r]), r) for r in roots]
     for p, r in procs:
@@ -190,7 +248,7 @@ def main() -> int:
     ap.add_argument("--other")
     ap.add_argument("--reps", type=int, default=8)
     ap.add_argument("--calls", type=int, default=200)
-    ap.add_argument("--measure", choices=("flex", "keys"))
+    ap.add_argument("--measure", choices=("flex", "keys", "serving"))
     ap.add_argument("--root")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=2)
@@ -212,12 +270,14 @@ def main() -> int:
         root = other if label == "other" else HERE
         flex = _result(_run([*me, "--measure", "flex", "--root", root,
                              "--calls", str(args.calls)], env), f"flex on {root}")
+        serving = _result(_run([*me, "--measure", "serving", "--root", root,
+                                "--calls", str(args.calls)], env), f"serving on {root}")
         port = _free_port()
         ranks = [_run([*me, "--measure", "keys", "--root", root, "--rank", str(r),
                        "--world", "2", "--port", str(port), "--reps", str(args.reps)], env)
                  for r in range(2)]
         keys = [_result(p, f"keys rank {r} on {root}") for r, p in enumerate(ranks)]
-        line = {"checkout": label, "root": root, "flex": flex, "keys": keys}
+        line = {"checkout": label, "root": root, "flex": flex, "serving": serving, "keys": keys}
         print(json.dumps(line), flush=True)
         runs[label].append(line)
     summary = {}
@@ -228,7 +288,13 @@ def main() -> int:
         keys = {tier: [statistics.median(v for ln in lines for v in ln["keys"][r]["ms"][tier])
                        for r in range(2)]
                 for tier in lines[0]["keys"][0]["ms"]}
-        summary[label] = {"flex": flex, "key_host_ms_by_tier_per_rank": keys,
+        serving = {m: statistics.median(ln["serving"][m] for ln in lines)
+                   for m in ("decode_step_host_ms", "prefill_host_ms")}
+        serving["spread"] = {m: [min(ln["serving"][m] for ln in lines),
+                                 max(ln["serving"][m] for ln in lines)]
+                             for m in ("decode_step_host_ms", "prefill_host_ms")}
+        summary[label] = {"flex": flex, "serving": serving,
+                          "key_host_ms_by_tier_per_rank": keys,
                           "tiers_ok": all(k["tiers"] == k["expected"]
                                           for ln in lines for k in ln["keys"])}
     print(json.dumps(summary))
