@@ -76,9 +76,23 @@ Phases, each printing one JSON line:
    and its shared mode (the cascade's level 1) at 1, 3 and 8 members, with
    two planted faults (each split's last chunk dropped; every member on
    member 0's q); and at d 32 and 24 and 48 q heads per kv head (the wide
-   walks) in the flat, shared, tick and TP-slice modes, with a plant in
-   each wide walk (every row tile reading the first tile's q), timed at
-   DiTConfig's and StarCoder-15B's attention (``wide_decode_timing``);
+   walks) in the flat, shared, tick and TP-slice modes; the bf16 wide walk
+   (``decode_wide_sm90.cuh``) at 33, 48, 64, 71, 128 and 200 q heads a kv
+   head (and 48 x 2) x d 32 / 64 / 128 x pages of 16 / 64 / 128, NaN past
+   every length, 1 / 2 / 4 splits, softcap, two runs bit for bit, TP slices
+   bit for bit the one launch and a batch past one launch's walks in row
+   blocks (``wide_walk_cases``), with three plants (the bf16 walk keeping
+   V's rows past the live tokens, its merge nodes taking their first child
+   alone; the float32 WIDE mode's tiles reading the first tile's q), timed
+   at DiTConfig's, StarCoder-15B's (d 128 and 32) and Falcon-7B's attention
+   on the serving prompts' 8 lengths and on 32 sequences, the wide rows in
+   turns with the previous wide walk (``wide_decode_timing``); then the
+   ``wide_serving`` path: an engine at StarCoder-15B's (48 / 1, d 128) and
+   at Falcon-7B's (71 / 1, d 64) attention prefilling the 8 serving prompts
+   and decoding 64 greedy steps through ``paged_decode`` (one launch a
+   step), each step held against the plain decode within the kernel bounds
+   and its tokens equal to the plain decode's but at counted near ties,
+   device and host ms a step;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -444,7 +458,8 @@ The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``training_remat``,
 ``block_sparse``, ``sink``, ``cp_decode``, ``scheduler``, ``tiered``,
 ``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis``,
-``fleet`` and ``instrument`` among them; every path's launches must be in it), errors and times; the
+``fleet``, ``instrument`` and ``wide_serving`` among them; every path's launches must be in
+it), errors and times; the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -1059,14 +1074,19 @@ PLANT_MEMBER0_Q = [
      "      const int qm = shared ? 0 : i / group;\n"),
 ]
 
-# The wide decode walks (a group past one walk's rows) with every row tile
-# reading the first tile's q: in decode_sm90.cuh's wide walk each warp's
-# fragments from the first m16 tile, in decode_simt.cuh's WIDE mode each
+# The wide decode walks (a group past one walk's rows) with a fault each:
+# decode_wide_sm90.cuh's V rows past a walk's live tokens left as the page
+# holds them (caught only where NaN sits there), its merge nodes taking
+# their first child alone, and decode_simt.cuh's WIDE mode reading each
 # tile's scores from the first tile's rows. The checks of
-# ``wide_decode_planted_faults`` must catch both at G 48.
-PLANT_WIDE_FIRST_TILE = [
-    ("    ldmatrix_x4(qreg[kk], sQ + (warp * 16 + (lane & 15)) * RE + kk * 16 + (lane >> 4) * 8);\n",
-     "    ldmatrix_x4(qreg[kk], sQ + (lane & 15) * RE + kk * 16 + (lane >> 4) * 8);\n"),
+# ``wide_decode_planted_faults`` must catch each at G 48.
+PLANT_WIDE_TAIL_KEPT = [
+    ("        if (live < CH) {  // V's rows past the live tokens: zeros, whatever the page held\n",
+     "        if (live < 0) {  // planted: V's rows past the live tokens kept\n"),
+]
+PLANT_WIDE_FIRST_CHILD = [
+    ("      merge_slots<D>(a, walk0 + (size_t)left * slot_floats, span * slot_floats, nc, rows,\n",
+     "      merge_slots<D>(a, walk0 + (size_t)left * slot_floats, span * slot_floats, 1, rows,\n"),
 ]
 PLANT_SIMT_FIRST_TILE = [
     ("      const float* tq = sQ + t0 * D;\n", "      const float* tq = sQ;\n"),
@@ -1094,7 +1114,9 @@ PLANTED = {
     "flex_dq_sparse_f32_first_head": ("flex_dq_sparse.cu", "flex_simt.cuh", PLANT_F32_FIRST_HEAD),
     "flex_dkv_sparse_f32_paired_items": ("flex_dkv_sparse.cu", "flex_simt.cuh",
                                          PLANT_F32_PAIRED_ITEMS),
-    "paged_decode_wide_first_tile": ("decode.cu", "decode_sm90.cuh", PLANT_WIDE_FIRST_TILE),
+    "paged_decode_wide_tail_kept": ("decode.cu", "decode_wide_sm90.cuh", PLANT_WIDE_TAIL_KEPT),
+    "paged_decode_wide_first_child": ("decode.cu", "decode_wide_sm90.cuh",
+                                      PLANT_WIDE_FIRST_CHILD),
     "paged_decode_simt_first_tile": ("decode.cu", "decode_simt.cuh", PLANT_SIMT_FIRST_TILE),
 }
 
@@ -1262,6 +1284,34 @@ int simt_paged_decode(const void *q, const void *kp, const void *vp, const void 
 """
 
 
+# The previous wide decode walk (decode_wide_mma.cuh: mma.sync, one warp an
+# m16 row tile over a block-wide cp.async ring, clusters taking a walk's
+# chunks in turn), built beside the kernels as the yardstick of
+# ``wide_decode_timing``. Never launched on a main path.
+DECODE_WIDE_MMA_SOURCE = r"""
+#include "decode_wide_mma.cuh"
+extern "C" {
+const char *magi_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+int mma_wide_paged_decode(const void *q, const void *kp, const void *vp, const void *bt,
+                          const void *sl, void *out, void *lse, int b, int hq, int hk, int d,
+                          int ps, int mpp, int splits, int cluster_heads, float scale,
+                          float softcap, cudaStream_t st) {
+  using namespace decode_sm90;
+#define MAGI_WIDE_MMA(D)                                                                    \
+  return launch_wide<D>((const bf16 *)q, (const bf16 *)kp, (const bf16 *)vp, (const int *)bt, \
+                        (const int *)sl, (float *)out, (float *)lse, b, hq, hk, ps, mpp,      \
+                        splits, cluster_heads, scale, softcap, st)
+  switch (d) {
+    case 32: MAGI_WIDE_MMA(32);
+    case 64: MAGI_WIDE_MMA(64);
+    case 128: MAGI_WIDE_MMA(128);
+    default: return cudaErrorInvalidValue;
+  }
+}
+}
+"""
+
+
 # The sparse-grid backward before TMA and wgmma (flex_bwd.cuh's per-item
 # bodies, mma.sync, one warpgroup, in persistent blocks that take one (q
 # head, q block) or (kv head, k block) item after another from a work list
@@ -1355,7 +1405,7 @@ int mma_sync_flex_fwd_sparse(const void *q, const void *k, const void *v, const 
 YARDSTICKS = {"mma_sync_walk": MMA_SYNC_WALK_SOURCE, "mma_sync_fwd": MMA_SYNC_FWD_SOURCE,
               "mma_sync_sparse": MMA_SYNC_SPARSE_SOURCE,
               "mma_sync_fwd_sparse": MMA_SYNC_FWD_SPARSE_SOURCE,
-              "decode_simt": DECODE_SIMT_SOURCE}
+              "decode_simt": DECODE_SIMT_SOURCE, "decode_wide_mma": DECODE_WIDE_MMA_SOURCE}
 
 
 def start_planted_build(names=None):
@@ -1421,6 +1471,10 @@ def planted_libraries(procs) -> dict:
             # q k v bt sl | out lse | b hq hk d ps mpp splits | scale softcap stream
             fn = lib.simt_paged_decode
             fn.argtypes, fn.restype = [P] * 7 + [I] * 7 + [F, F, P], ctypes.c_int
+        elif name == "decode_wide_mma":
+            # q k v bt sl | out lse | b hq hk d ps mpp splits cluster_heads | scale softcap stream
+            fn = lib.mma_wide_paged_decode
+            fn.argtypes, fn.restype = [P] * 7 + [I] * 8 + [F, F, P], ctypes.c_int
         elif name == "mma_sync_fwd_sparse":  # the sparse forwards' C signature less in_f32
             fn = lib.mma_sync_flex_fwd_sparse
             args = csrc.KERNELS["flex_fwd_sparse"].argtypes
@@ -2600,27 +2654,111 @@ def wide_decode_cases(gen) -> dict:
 
 def wide_decode_planted_faults(gen, planted) -> dict:
     """The checks on the faults planted in the wide decode walks at G 48 (48
-    q heads over 1 kv head, d 128): every row tile reading the first tile's
-    q, in the bf16 wide walk and in the float32 WIDE mode. Returns which
-    checks catch each; a fault that passes them fails the smoke."""
+    q heads over 1 kv head, d 128), NaN past every length: the bf16 walk
+    keeping V's rows past a walk's live tokens, its merge nodes taking their
+    first child alone, and the float32 WIDE mode's tiles reading the first
+    tile's q. Returns which checks catch each; a fault that passes them
+    fails the smoke."""
     import torch
     from magiattention_tpu_torch.serving import decode_attn as da
     from magiattention_tpu_torch.serving import decode_reference
 
     caught = {}
     lens = [1, 100, PAGE + 1, 1000, 3000, 6000]
-    for name, dtype in (("paged_decode_wide_first_tile", torch.bfloat16),
+    for name, dtype in (("paged_decode_wide_tail_kept", torch.bfloat16),
+                        ("paged_decode_wide_first_child", torch.bfloat16),
                         ("paged_decode_simt_first_tile", torch.float32)):
         cache, q = decode_problem(gen, D, dtype, 48, 1, PAGE, lens)
         bt, sl = cache.block_tables, cache.seq_lens
         ref_out, ref_lse = decode_reference(q, cache, bt, sl)
+        dirty = nan_past_lengths(cache, lens)
         out, lse = da._merge_splits(*with_library(
-            "paged_decode", planted[name], lambda: decode_parts(q, cache, bt, sl, 1))())
+            "paged_decode", planted[name], lambda: decode_parts(q, dirty, bt, sl, 1))())
         torch.cuda.synchronize()
         errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
         caught[name] = {"failed_checks": failed, **errs}
         check(bool(failed), f"planted fault {name} passes the decode checks: {errs}")
     return caught
+
+
+# the new wide walk's card cases (decode_wide_sm90.cuh): (q heads per kv
+# head, kv heads); each at head_dim 32, 64 and 128 on pages of 16, 64 and 128
+WIDE_WALK = ((33, 1), (48, 1), (64, 1), (71, 1), (128, 1), (200, 1), (48, 2))
+
+
+def wide_walk_cases(gen) -> dict:
+    """The bf16 wide walk against its plain version (``decode_reference``
+    on the clean cache) at every group of :data:`WIDE_WALK` x head_dim 32 /
+    64 / 128 x pages of 16 / 64 / 128: ragged tails not a multiple of 64
+    (and zero, one and full lengths) with NaN planted past every length in
+    the cache the kernel reads; 1, 2 and 4 splits in turn, softcap on at
+    pages of 64; each launch twice for the same bits. Then 96 q / 2 kv heads
+    (G 48) under ``tp_decode_attn`` at tp 2, bit for bit the one launch, and
+    a batch past one launch's walks (``WIDE_MAX_WALKS``) in row blocks.
+    Returns the summary line."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import (
+        decode_attn_paged, decode_reference, shard_kv_cache, tp_decode_attn,
+    )
+
+    worst = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+    cases = 0
+    for d in (32, 64, 128):
+        for g, hk in WIDE_WALK:
+            for i, ps in enumerate((16, 64, 128)):
+                mpp = max(24, -(-(700 // ps + 1) // 4) * 4)  # every length below; 4 splits
+                lens = [0, 1, 63, ps + 3, 300, 2 * 64 * 5 + 17, mpp * ps]
+                cache, q = decode_problem(gen, d, torch.bfloat16, g * hk, hk, ps, lens, mpp=mpp)
+                bt, sl = cache.block_tables, cache.seq_lens
+                softcap = 30.0 if ps == 64 else 0.0
+                splits = (1, 2, 4)[(i + g) % 3]
+                ref = decode_reference(q, cache, bt, sl, softcap=softcap)
+                dirty = nan_past_lengths(cache, lens)
+                name = f"wide_walk_d{d}_g{g}_hk{hk}_ps{ps}_splits{splits}"
+                first = decode_parts(q, dirty, bt, sl, splits, softcap)
+                check(bitwise(first, decode_parts(q, dirty, bt, sl, splits, softcap)),
+                      f"{name}: two runs of paged_decode differ")
+                out, lse = da._merge_splits(*first)
+                errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+                check(not failed, f"{name}: paged_decode fails the {failed} check(s): {errs}")
+                for k in worst:
+                    worst[k] = max(worst[k], errs.get(k, 0.0))
+                MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+                cases += 1
+                del cache, dirty
+    # TP: 96 q heads over 2 kv heads, two slices each launched for the pool's 2
+    lens = [5, 700, 1500, 3001]
+    cache, q = decode_problem(gen, D, torch.bfloat16, 96, 2, PAGE, lens, mpp=32)
+    slots = torch.arange(len(lens), device="cuda")
+    tp_bitwise = 0
+    for splits in (1, 2):
+        one = decode_attn_paged(q, cache, slots, num_splits=splits, out_dtype=torch.float32)
+        sc = shard_kv_cache(cache, ["cuda:0", "cuda:0"])
+        tp = tp_decode_attn(q, sc, slots, devices=["cuda:0", "cuda:0"], num_splits=splits,
+                            out_dtype=torch.float32)
+        check(bitwise(one, tp), f"wide walk, G 48 x 2 kv heads, {splits} split(s): the TP "
+              "head slices differ from the one launch")
+        tp_bitwise += 1
+    # a batch past one launch's walks, in row blocks
+    b = da.WIDE_MAX_WALKS + 7
+    lens = [1 + (i * 37) % PAGE for i in range(b)]
+    cache, q = decode_problem(gen, 64, torch.bfloat16, 48, 1, PAGE, lens, mpp=1)
+    bt, sl = cache.block_tables, cache.seq_lens
+    launched = csrc.launches["paged_decode"]
+    out, lse = da._merge_splits(*decode_parts(q, cache, bt, sl, 1))
+    row_blocks = csrc.launches["paged_decode"] - launched
+    check(row_blocks == len(da.kernel_row_blocks(b, 48, torch.bfloat16, False)) == 2,
+          f"wide walk row blocks: {row_blocks} launches for {b} walks")
+    ref = decode_reference(q, cache, bt, sl)
+    errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+    check(not failed, f"wide walk row blocks: paged_decode fails the {failed} check(s): {errs}")
+    return {"phase": "kernels", "kernel": "paged_decode", "walk": "wide (decode_wide_sm90.cuh)",
+            "groups": [list(x) for x in WIDE_WALK], "head_dims": [32, 64, 128],
+            "page_sizes": [16, 64, 128], "cases": cases, "nan_past_lengths": True,
+            "two_runs_bitwise_equal": True, "tp2_bitwise_equal": tp_bitwise,
+            "row_block_launches": row_blocks, **worst}
 
 
 def simt_decode(lib, q, cache, bt, sl, splits):
@@ -2699,18 +2837,58 @@ def decode_bound(tokens: int, b: int, splits: int, table_entries: int, hq: int =
     return bound(flops, nbytes)
 
 
-# the widths of the new decode rows: DiTConfig's attention (8 q / 4 kv heads
-# of d 32) and StarCoder-15B's (48 q heads over 1 kv head of d 128)
-WIDE_DECODE_TIMED = {"d32_bf16": (8, 4, 32), "g48_bf16": (48, 1, 128)}
+def wide_mma_decode(lib, q, cache, bt, sl, splits):
+    """A launcher of the previous wide walk (the ``decode_wide_mma`` side
+    library, PR 25's) on these inputs, checked once against the plain
+    version. A yardstick only: nothing here is counted as a launch."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    b, hq, d = q.shape
+    out = torch.empty((b, splits, hq, d), device="cuda")
+    lse = torch.empty((b, splits, hq), device="cuda")
+    bt, sl = bt.int().contiguous(), sl.int().contiguous()
+    hk = cache.num_kv_heads
+
+    def run():
+        code = lib.mma_wide_paged_decode(
+            q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(), bt.data_ptr(),
+            sl.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq, hk, d, cache.page_size,
+            bt.shape[1], splits, hk, 1.0 / math.sqrt(d), 0.0,
+            torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"the previous wide walk: CUDA error {code}")
+
+    run()
+    torch.cuda.synchronize()
+    ref_out, ref_lse = decode_reference(q, cache, bt, sl)
+    got_out, got_lse = da._merge_splits(out, lse)
+    _, failed = out_errors(got_out, ref_out, [("lse", got_lse, ref_lse)])
+    check(not failed, f"the previous wide walk fails the {failed} check(s)")
+    return run
+
+
+# the widths of the decode rows timed at this width: DiTConfig's attention
+# (8 q / 4 kv heads of d 32, the cluster walk), and the wide walk at
+# StarCoder-15B's 48 q heads over 1 kv head (d 128, and d 32) and Falcon-7B's
+# 71 over 1 (d 64), each on the serving prompts' 8 lengths and on those
+# lengths four times (32 sequences, where bytes rather than launch latency
+# set the bound); the G-48 d-128 row of 8 keeps its name of PR 25
+WIDE_DECODE_TIMED = {"d32_bf16": (8, 4, 32, 1), "g48_bf16": (48, 1, 128, 1),
+                     "g48_d128_b32": (48, 1, 128, 4), "g48_d32_b8": (48, 1, 32, 1),
+                     "g48_d32_b32": (48, 1, 32, 4), "g71_d64_b8": (71, 1, 64, 1),
+                     "g71_d64_b32": (71, 1, 64, 4)}
 WIDE_DECODE_LENS = (1000, 1733, 2048, 2900, 4096, 5120, 6500, 8000)  # the serving prompts
 
 
-def wide_decode_timing(gen) -> tuple[dict, dict]:
-    """``paged_decode`` at the new widths (:data:`WIDE_DECODE_TIMED`) on a
-    batch of the serving prompts' lengths, bf16, pages of 128, one split:
-    the kernel's time (CUDA events), the plain version's, SDPA over the
-    gathered KV and the card's bound; each first held against its plain
-    version. Returns (the line, {"paged_decode": {width: record}})."""
+def wide_decode_timing(gen, planted) -> tuple[dict, dict]:
+    """``paged_decode`` at the widths of :data:`WIDE_DECODE_TIMED`, bf16,
+    pages of 128, one split: the kernel's time (CUDA events, the stream
+    held), where the group takes the wide walk in turns with the previous
+    wide walk (``decode_wide_mma``, PR 25's: new, previous, new, previous);
+    the plain version's, SDPA over the gathered KV and the card's bound;
+    each first held against its plain version. Returns (the line,
+    {"paged_decode": {width: record}})."""
     import torch
     import torch.nn.functional as Fn
     from magiattention_tpu_torch.serving import decode_attn as da
@@ -2718,18 +2896,29 @@ def wide_decode_timing(gen) -> tuple[dict, dict]:
 
     line, recs = {"phase": "wide_decode_timing", "card": nvidia_smi_line(),
                   "lengths": list(WIDE_DECODE_LENS)}, {}
-    for width, (hq, hk, d) in WIDE_DECODE_TIMED.items():
-        cache, q = decode_problem(gen, d, torch.bfloat16, hq, hk, PAGE, WIDE_DECODE_LENS, mpp=64)
-        b = len(WIDE_DECODE_LENS)
+    for width, (hq, hk, d, rep) in WIDE_DECODE_TIMED.items():
+        lens = WIDE_DECODE_LENS * rep
+        cache, q = decode_problem(gen, d, torch.bfloat16, hq, hk, PAGE, lens, mpp=64)
+        b = len(lens)
         bt, sl = cache.block_tables, cache.seq_lens
         prm = da.DecodeParams(1.0 / math.sqrt(d), 0.0, 1, torch.bfloat16)
         out, lse = da._merge_splits(*decode_parts(q, cache, bt, sl, 1))
         ref_out, ref_lse = decode_reference(q, cache, bt, sl)
         errs, failed = out_errors(out, ref_out, [("lse", lse, ref_lse)])
         check(not failed, f"wide_decode_timing {width}: paged_decode fails {failed}: {errs}")
-        ms = cuda_ms(lambda: da._decode_partials_kernel(q, cache, bt, sl, prm), reps=50)
+        kernel = lambda: da._decode_partials_kernel(q, cache, bt, sl, prm)
+        wide = da.takes_wide_walk(hq // hk, torch.bfloat16, False)
+        prev = {}
+        if wide:
+            old = wide_mma_decode(planted["decode_wide_mma"], q, cache, bt, sl, 1)
+            turns = [cuda_ms(f, reps=50) for f in (kernel, old, kernel, old)]
+            ms = (turns[0] + turns[2]) / 2
+            prev = {"previous_walk_ms": (turns[1] + turns[3]) / 2, "turns_ms": turns}
+            prev["speedup_over_previous_walk"] = prev["previous_walk_ms"] / ms
+        else:
+            ms = cuda_ms(kernel, reps=50)
         plain_ms = cuda_ms(lambda: da._decode_torch(q, cache, bt, sl, prm), reps=5, warmup=1)
-        lmax = max(WIDE_DECODE_LENS)
+        lmax = max(lens)
         kv = [gather_kv(cache, s, max_len=lmax) for s in range(b)]
         k = torch.stack([x[0] for x in kv]).transpose(1, 2)  # [b, hk, L, d]
         v = torch.stack([x[1] for x in kv]).transpose(1, 2)
@@ -2738,15 +2927,130 @@ def wide_decode_timing(gen) -> tuple[dict, dict]:
         lib_ms = cuda_ms(
             lambda: Fn.scaled_dot_product_attention(qs, k, v, attn_mask=mask, enable_gqa=True),
             reps=50)
-        bound_ms, bound_by = decode_bound(sum(WIDE_DECODE_LENS), b, 1, bt.numel(), hq, hk, d)
+        bound_ms, bound_by = decode_bound(sum(lens), b, 1, bt.numel(), hq, hk, d)
         recs[width] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms}
-        line[width] = {"hq": hq, "hk": hk, "head_dim": d, **recs[width], **errs,
-                       "share_of_bound": bound_ms / ms,
+        line[width] = {"hq": hq, "hk": hk, "head_dim": d, "batch": b, "walk": "wide" if wide
+                       else "cluster", **recs[width], **prev, **errs,
+                       "share_of_bound": bound_ms / ms, "vs_library": ms / lib_ms,
                        "library": "scaled_dot_product_attention(enable_gqa, gathered KV)"}
         del cache, k, v, kv
         torch.cuda.empty_cache()
     return line, {"paged_decode": recs}
+
+
+# the wide walk's main path: a ServingEngine at two multi-query attention
+# layouts (q heads, kv heads, head_dim): StarCoder-15B's and Falcon-7B's
+WIDE_SERVING = {"starcoder15b": (48, 1, 128), "falcon7b": (71, 1, 64)}
+WIDE_SERVING_STEPS = 64  # decode steps of the serving prompts (WIDE_DECODE_LENS)
+WIDE_SERVING_VOCAB = 4096  # the greedy loop's toy vocabulary
+# a greedy token may differ from the plain decode's only where the plain
+# logits' top two lie within this share of their spread (a near tie that the
+# kernel's bf16 P, within its bounds, can flip)
+WIDE_SERVING_TIE = 1e-2
+
+
+def wide_serving_layout(seed: int, hq: int, hk: int, d: int) -> dict:
+    """One layout of :data:`WIDE_SERVING`: the 8 serving prompts prefilled,
+    then :data:`WIDE_SERVING_STEPS` greedy decode steps of all 8, each
+    step's next token the argmax of a seeded projection of the decode output
+    and its next q / k / v a seeded embedding of that token (the weights
+    are random, from ``seed``). Each step's tokens from the kernel's output
+    must equal the plain decode's (``decode_reference`` over the same
+    cache); ``paged_decode`` must launch once a step. The device ms of a
+    step (CUDA events, synchronised) and its host ms (the call's wall
+    time, the stream not synchronised), medians over the steps. Every
+    step's output is held against the plain decode's within the kernel's
+    bounds; the tokens equal the plain decode's but at near ties
+    (:data:`WIDE_SERVING_TIE`), which are counted: over 512 greedy choices
+    a tie close enough for bf16 P to flip occurs."""
+    import torch
+    from magiattention_tpu_torch.serving import ServingEngine, decode_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    embed = torch.randn((WIDE_SERVING_VOCAB, (hq + 2 * hk) * d), generator=gen, device="cuda")
+    proj = torch.randn((hq * d, WIDE_SERVING_VOCAB), generator=gen, device="cuda") / (hq * d) ** 0.5
+
+    def qkv(tokens):
+        x = embed[tokens].to(torch.bfloat16).view(len(tokens), hq + 2 * hk, d)
+        return (x[:, :hq].contiguous(), x[:, hq:hq + hk].contiguous(),
+                x[:, hq + hk:].contiguous())
+
+    pages = sum(-(-(n + WIDE_SERVING_STEPS) // PAGE) for n in WIDE_DECODE_LENS) + 8
+    engine = ServingEngine(num_pages=pages, num_kv_heads=hk, head_dim=d, page_size=PAGE,
+                           max_seqs=len(WIDE_DECODE_LENS),
+                           max_pages_per_seq=-(-(max(WIDE_DECODE_LENS) + WIDE_SERVING_STEPS)
+                                               // PAGE), dtype=torch.bfloat16)
+    launches, prefill_launches, slots, last = {}, {}, [], []
+    worst, near_ties = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}, []
+    for n in WIDE_DECODE_LENS:
+        prompt = torch.randint(0, WIDE_SERVING_VOCAB, (n,), generator=gen, device="cuda")
+        res = engine.admit(n)
+        check(res.admitted, f"wide serving: admission {res}")
+        out, _ = counted(prefill_launches, lambda: engine.prefill(*qkv(prompt), res.slot))
+        last.append(int((out[-1].float().flatten() @ proj).argmax()))
+        slots.append(res.slot)
+    idx = torch.as_tensor(slots, device="cuda")
+    tokens, device_ms, host_ms = [last], [], []
+    for _ in range(WIDE_SERVING_STEPS):
+        q, k, v = qkv(torch.as_tensor(tokens[-1], device="cuda"))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out, lse = counted(launches, lambda: engine.decode_step(q, k, v, slots))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        ref, ref_lse = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
+                                        engine.cache.seq_lens[idx])
+        errs, failed = out_errors(out, ref, [("lse", lse, ref_lse)])
+        check(not failed, f"wide serving {hq}/{hk} step {len(tokens)}: paged_decode fails the "
+              f"{failed} check(s): {errs}")
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+        logits, ref_logits = (x.float().flatten(1) @ proj for x in (out, ref))
+        got, want = logits.argmax(1).tolist(), ref_logits.argmax(1).tolist()
+        for i, (a, w) in enumerate(zip(got, want)):
+            if a == w:
+                continue
+            # bf16 P moves a logit by about 1e-3 of its spread: a token may
+            # flip only where the plain decode's top two nearly tie
+            margin = float(ref_logits[i, w] - ref_logits[i, a])
+            spread = float(ref_logits[i].std())
+            check(margin <= WIDE_SERVING_TIE * spread,
+                  f"wide serving {hq}/{hk} step {len(tokens)}: kernel token {a} != plain token "
+                  f"{w} at a plain margin of {margin / spread:.3g} of the logits' spread")
+            near_ties.append({"step": len(tokens), "sequence": i, "margin_over_spread":
+                              margin / spread})
+        tokens.append(got)
+    check(launches.get("paged_decode", 0) == WIDE_SERVING_STEPS,
+          f"wide serving {hq}/{hk}: decode launches {launches}")
+    del engine
+    torch.cuda.empty_cache()
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    return {"layout": {"hq": hq, "hk": hk, "head_dim": d, "page_size": PAGE},
+            "prompts": list(WIDE_DECODE_LENS), "steps": WIDE_SERVING_STEPS,
+            "tokens": len(WIDE_DECODE_LENS) * WIDE_SERVING_STEPS,
+            "tokens_equal_plain": len(WIDE_DECODE_LENS) * WIDE_SERVING_STEPS - len(near_ties),
+            "near_ties": near_ties, "last_tokens": tokens[-1], **worst,
+            "decode_device_ms_per_step": med(device_ms), "decode_host_ms_per_step": med(host_ms),
+            "decode_launches": launches, "prefill_launches": prefill_launches}
+
+
+def wide_serving(seed: int) -> dict:
+    """The wide walk's main path at each layout of :data:`WIDE_SERVING`;
+    its launches are the two layouts' prefills' and decode steps'."""
+    line = {"phase": "wide_serving", "card": nvidia_smi_line()}
+    launches = {}
+    for name, (hq, hk, d) in WIDE_SERVING.items():
+        line[name] = wide_serving_layout(seed, hq, hk, d)
+        for part in ("decode_launches", "prefill_launches"):
+            for n, c in line[name][part].items():
+                launches[n] = launches.get(n, 0) + c
+    line["launches"] = launches
+    return line
 
 
 def split_sweep(q, cache, bt, seq_lens) -> dict:
@@ -9882,11 +10186,14 @@ def main(argv=None) -> int:
     emit({"phase": "planted_faults", "case": "paged_decode",
           "caught": decode_planted_faults(gen, planted)})
     emit(wide_decode_cases(gen_new))
+    emit(wide_walk_cases(gen_new))
     emit({"phase": "planted_faults", "case": "paged_decode_wide",
           "caught": wide_decode_planted_faults(gen_new, planted)})
-    wide_line, wide_t = wide_decode_timing(gen_new)
+    wide_line, wide_t = wide_decode_timing(gen_new, planted)
     emit(wide_line)
     narrow_t.update(wide_t)
+    wide_serving_line = wide_serving(args.seed)
+    emit(wide_serving_line)
 
     summary, engine, slots = serving(gen)
     emit(summary)
@@ -10026,7 +10333,8 @@ def main(argv=None) -> int:
                "tiered": tiered_line["launches"], "resilience": resilience_line["launches"],
                "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
                "tuning": tuning_line["launches"], "analysis": analysis_line["launches"],
-               "fleet": fleet_line["launches"], "instrument": instrument_line["launches"]}
+               "fleet": fleet_line["launches"], "instrument": instrument_line["launches"],
+               "wide_serving": wide_serving_line["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),

@@ -14,12 +14,14 @@ row-major ``flex_dq``, ``flex_dkv`` and the persistent sparse-grid
 ``flex_bwd_sm90.cuh``, all eight at head_dim 32, 64 and 128 in bf16. All
 eight take float32 q/k/v too (their ``in_f32`` argument), on the CUDA-core
 walks of ``flex_simt.cuh``. ``paged_decode`` (``decode.cu``) takes the
-tensor-core walk of ``decode_sm90.cuh`` for bf16 caches and the CUDA-core
-walk of ``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``,
-``flex_fwd_sparse.cuh`` and ``flex_bwd.cuh``, the previous forward and
-backward walks, are no kernel's: they are the sources of ``chip_smoke.py``'s
-yardsticks (``decode_simt.cuh`` at bf16, the previous decode walk, is
-another).
+tensor-core walk of ``decode_sm90.cuh`` for bf16 caches, in the flat mode
+past 32 q heads a kv head the TMA and wgmma walk of ``decode_wide_sm90.cuh``
+(which shares ``flex_sm90.cuh``'s primitives), and the CUDA-core walk of
+``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``,
+``flex_fwd_sparse.cuh``, ``flex_bwd.cuh`` and ``decode_wide_mma.cuh``, the
+previous forward, backward and wide decode walks, are no kernel's: they
+are the sources of ``chip_smoke.py``'s yardsticks (``decode_simt.cuh`` at
+bf16, the previous decode walk, is another).
 On first use :func:`build`
 compiles the sources for ``sm_90a``, all at once (one nvcc process per
 source), into ``build/`` beside this file; the library name carries a hash
@@ -164,10 +166,12 @@ KERNELS: dict[str, Kernel] = {
         # q k_pages v_pages block_table seq_lens | out_parts lse_parts
         [_P] * 5 + [_P] * 2
         # b hq hk head_dim page_size mpp num_splits shared is_f32 cluster_heads
-        + [_I] * 10
-        # scale softcap stream
-        + [_F, _F, _P],
-        ("decode_simt.cuh", "decode_sm90.cuh"),
+        # num_pages seg_chunks blocks
+        + [_I] * 13
+        # scale softcap | scratch counters | stream
+        + [_F, _F, _P, _P, _P],
+        ("decode_simt.cuh", "decode_sm90.cuh", "decode_wide_sm90.cuh", "flex_sm90.cuh",
+         "flex_tile.cuh"),
     ),
 }
 

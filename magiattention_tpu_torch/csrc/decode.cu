@@ -12,8 +12,12 @@
 // Bound by bytes (each cached K/V byte feeds one multiply-add per q head of
 // its group). bf16 caches take the tensor-core walk of decode_sm90.cuh
 // (per-warp cp.async rings, mma.sync; its note says how it meets that
-// bound), float32 caches the CUDA-core walk of decode_simt.cuh, which keeps
-// the f32 arithmetic of the plain version.
+// bound), and in the flat mode a group of more than 32 q heads the TMA and
+// wgmma walk of decode_wide_sm90.cuh (persistent blocks over segments of
+// each walk, merged in a tree through ``scratch`` and ``counters``, cut by
+// ``seg_chunks`` and launched as ``blocks`` blocks: the host's
+// serving/decode_attn.py::wide_schedule); float32 caches the CUDA-core walk
+// of decode_simt.cuh, which keeps the f32 arithmetic of the plain version.
 //
 // shared = 0: row b of q reads table row b and length b (flat decode).
 // shared = 1: every row reads table row 0 and length 0, the cascade's shared
@@ -21,18 +25,21 @@
 // cluster_heads: the kv-head count the tensor-core walk sizes its clusters
 // for, hk for a launch of its own; a tensor-parallel head slice passes the
 // whole pool's, so that its walks merge as the full launch's do and give
-// the same bits (the CUDA-core walk has no clusters and ignores it).
+// the same bits (the CUDA-core walk has no clusters and ignores it; the
+// wide walk's host schedule takes it the same way, into seg_chunks).
+// num_pages: the cache's pages (the wide walk's tensor maps span them).
 //
 // head_dim 32, 64 or 128 (the flex kernels' widths), any number of q heads
 // per kv head: a group past what one walk keeps in registers runs as row
-// tiles of one walk over each K/V chunk it loads (decode_sm90.cuh's wide
-// walk, decode_simt.cuh's WIDE mode).
+// tiles of one walk over each K/V chunk it loads (decode_wide_sm90.cuh,
+// decode_simt.cuh's WIDE mode).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "decode_simt.cuh"
 #include "decode_sm90.cuh"
+#include "decode_wide_sm90.cuh"
 
 extern "C" {
 
@@ -44,21 +51,27 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                       const void* block_table, const void* seq_lens,
                       void* out_parts, void* lse_parts, int b, int hq, int hk,
                       int head_dim, int page_size, int mpp, int num_splits,
-                      int shared, int is_f32, int cluster_heads, float scale, float softcap,
+                      int shared, int is_f32, int cluster_heads, int num_pages, int seg_chunks,
+                      int blocks, float scale, float softcap, void* scratch, void* counters,
                       void* stream) {
   if (b <= 0 || hk <= 0 || hq % hk != 0 || num_splits <= 0 || mpp % num_splits != 0 ||
       page_size <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MAGI_DECODE_LAUNCH(D)                                                              \
-  return is_f32 ? decode_simt::launch<float, D>(q, k_pages, v_pages, block_table,          \
-                                                seq_lens, out_parts, lse_parts, b, hq, hk,  \
-                                                page_size, mpp, num_splits, shared, scale,  \
-                                                softcap, st)                                \
-                : decode_sm90::launch<D>(q, k_pages, v_pages, block_table, seq_lens,        \
-                                         out_parts, lse_parts, b, hq, hk, page_size, mpp,   \
-                                         num_splits, shared, cluster_heads, scale, softcap, \
-                                         st)
+  const bool wide = !is_f32 && !shared && hq / hk > decode_sm90::MAX_ROWS;
+#define MAGI_DECODE_LAUNCH(D)                                                                \
+  if (is_f32)                                                                                \
+    return decode_simt::launch<float, D>(q, k_pages, v_pages, block_table, seq_lens,         \
+                                         out_parts, lse_parts, b, hq, hk, page_size, mpp,    \
+                                         num_splits, shared, scale, softcap, st);            \
+  if (wide)                                                                                  \
+    return decode_wide::launch<D>(q, k_pages, v_pages, block_table, seq_lens, out_parts,     \
+                                  lse_parts, scratch, counters, b, hq, hk, page_size,        \
+                                  num_pages, mpp, num_splits, seg_chunks, blocks, scale,     \
+                                  softcap, st);                                              \
+  return decode_sm90::launch<D>(q, k_pages, v_pages, block_table, seq_lens, out_parts,       \
+                                lse_parts, b, hq, hk, page_size, mpp, num_splits, shared,    \
+                                cluster_heads, scale, softcap, st)
   switch (head_dim) {
     case 32: MAGI_DECODE_LAUNCH(32);
     case 64: MAGI_DECODE_LAUNCH(64);

@@ -34,6 +34,7 @@ outside every hook. Off, no hook runs a tensor op.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -55,33 +56,141 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # launch, so a larger batch launches in row blocks (kernel_row_blocks)
 KERNEL_SHARED_ROWS = {torch.bfloat16: 32, torch.float32: 8}
 # flat mode: a sequence's group of q heads past what one walk holds
-# (decode_sm90.cuh's wide walk past 32 rows, decode_simt.cuh's WIDE mode
+# (decode_wide_sm90.cuh's walk past 32 rows, decode_simt.cuh's WIDE mode
 # past 8) runs in row slices of at most these rows, each a row group
 KERNEL_WIDE_ROWS = {torch.bfloat16: (32, 128), torch.float32: (8, 64)}
 KERNEL_MAX_ROW_GROUPS = 65535
+# the bf16 wide walk (decode_wide_sm90.cuh): tokens a chunk (one TMA box of
+# K and of V), the segments a card's SMs should take at the table's full
+# width, a segment's least chunks, and the walks one launch numbers
+WIDE_CHUNK = 64
+WIDE_SEGMENTS_PER_SM = 2
+WIDE_MIN_SEGMENT = 2
+WIDE_MAX_WALKS = 2048
+HOPPER_SMS = 132  # an H100 SXM's SMs, where no card is at hand (and the split tuner's)
 
 
 def kernel_row_slices(group: int, dtype: torch.dtype) -> int:
     """The row groups of one sequence's ``group`` q heads in the flat mode:
     1, or for a group past one walk's rows, its slices of at most
-    ``KERNEL_WIDE_ROWS[dtype][1]`` rows (``wide_slices`` of the kernels)."""
+    ``KERNEL_WIDE_ROWS[dtype][1]`` rows (``slices_of`` / ``wide_slices`` of
+    the kernels)."""
     walk_rows, slice_rows = KERNEL_WIDE_ROWS[dtype]
     return 1 if group <= walk_rows else -(-int(group) // slice_rows)
 
 
-def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool) -> list[tuple[int, int]]:
+def takes_wide_walk(group: int, dtype: torch.dtype, shared: bool) -> bool:
+    """Whether ``paged_decode`` runs decode_wide_sm90.cuh's walk: a bf16
+    flat-mode group past one walk's rows."""
+    return dtype == torch.bfloat16 and not shared and group > KERNEL_WIDE_ROWS[dtype][0]
+
+
+def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool, *, hk: int = 1,
+                      splits: int = 1) -> list[tuple[int, int]]:
     """The query ranges ``[lo, hi)`` that ``paged_decode`` launches one at a
     time, each of at most :data:`KERNEL_MAX_ROW_GROUPS` row groups:
     :func:`kernel_row_slices` row groups per query in the flat mode,
     ``KERNEL_SHARED_ROWS`` q rows (a query's ``group`` heads each) per row
-    group in the shared mode. Every row's walk is the same in any block, so
-    the blocks give the bits of one launch."""
+    group in the shared mode; on the bf16 wide walk (:func:`takes_wide_walk`)
+    at most :data:`WIDE_MAX_WALKS` walks, a query's ``hk * splits *
+    slices``. Every row's walk is the same in any block (the wide walk's
+    segments come from :func:`wide_schedule` of the whole batch), so the
+    blocks give the bits of one launch."""
     per = KERNEL_MAX_ROW_GROUPS // kernel_row_slices(group, dtype)
     if shared:
         per = KERNEL_MAX_ROW_GROUPS * KERNEL_SHARED_ROWS[dtype] // max(int(group), 1)
+    elif takes_wide_walk(group, dtype, shared):
+        per = WIDE_MAX_WALKS // (int(hk) * int(splits) * kernel_row_slices(group, dtype))
+        if per < 1:
+            raise ValueError(f"paged_decode's wide walk numbers at most {WIDE_MAX_WALKS} walks a "
+                             f"launch; one query of {hk} kv heads x {splits} splits x "
+                             f"{kernel_row_slices(group, dtype)} row slices has more")
     if b <= per:
         return [(0, b)]
     return [(lo, min(lo + per, b)) for lo in range(0, b, per)]
+
+
+@dataclasses.dataclass(frozen=True)
+class WideSchedule:
+    """How the bf16 wide walk cuts a launch (``csrc/decode_wide_sm90.cuh``):
+    ``seg_chunks`` 64-token chunks a segment, ``max_segments`` a walk's
+    segments at the split's full length, ``slice_rows`` q rows a row slice,
+    ``slot_floats`` the f32 of a segment's scratch slot, and the card's
+    ``sms``."""
+
+    seg_chunks: int
+    max_segments: int
+    slice_rows: int
+    slot_floats: int
+    sms: int
+
+    def blocks(self, walks: int) -> int:
+        """Persistent blocks of a launch of ``walks`` walks: one per SM, or
+        one per segment if fewer."""
+        return max(1, min(self.sms, walks * self.max_segments))
+
+    def scratch_floats(self, walks: int) -> int:
+        """The f32 scratch of a launch of ``walks`` walks (none where every
+        walk is one segment, which merges nothing)."""
+        return walks * self.max_segments * self.slot_floats if self.max_segments > 1 else 0
+
+
+def wide_schedule(batch: int, cluster_heads: int, width: int, page_size: int, num_splits: int,
+                  group: int, head_dim: int, sms: int) -> WideSchedule:
+    """The wide walk's cut of a ``batch``-query decode over tables of
+    ``width`` pages: segments of ``seg_chunks`` chunks, as long as give the
+    card's ``sms`` SMs :data:`WIDE_SEGMENTS_PER_SM` segments each when every
+    walk runs the split's full length (at least :data:`WIDE_MIN_SEGMENT`
+    chunks). It reads only what a tensor-parallel head slice shares with
+    the full launch (the kv heads the launch stands for, ``cluster_heads``,
+    the batch, table width, page size, splits and group): the slice cuts its
+    walks as the full launch does, and gives its bits. The wrapper and the
+    split tuner both take it."""
+    slices = kernel_row_slices(group, torch.bfloat16)
+    slice_rows = -(-int(group) // slices)
+    chunks = -(-(int(width) // int(num_splits) * int(page_size)) // WIDE_CHUNK)
+    walks = int(cluster_heads) * int(batch) * int(num_splits) * slices
+    want = -(-walks * chunks // (WIDE_SEGMENTS_PER_SM * int(sms)))
+    seg = max(1, min(max(WIDE_MIN_SEGMENT, want), chunks))
+    max_segments = -(-chunks // seg) if chunks else 1
+    slot_rows = -(-slice_rows // 4) * 4  # the slot's max and sum rows, padded for 16-byte rows
+    return WideSchedule(seg, max_segments, slice_rows, 2 * slot_rows + slice_rows * int(head_dim),
+                        int(sms))
+
+
+def wide_segments(seq_lens, schedule: WideSchedule, width: int, page_size: int, num_splits: int,
+                  hk: int, slices: int) -> list[tuple[int, int, int, int]]:
+    """The segments of a wide launch in the kernel's order (walk by walk;
+    a walk is (query, kv head, split, row slice)): ``(walk, segment, first
+    chunk, end chunk)``; a walk with no live token is one empty segment.
+    The host's model of ``decode_wide_sm90.cuh``'s numbering."""
+    span = int(width) // int(num_splits) * int(page_size)
+    out = []
+    for m, n_seq in enumerate(int(x) for x in seq_lens):
+        for h in range(int(hk)):
+            for s in range(int(num_splits)):
+                n = max(0, min(span, n_seq - s * span))
+                chunks = -(-n // WIDE_CHUNK)
+                for z in range(int(slices)):
+                    walk = ((m * int(hk) + h) * int(num_splits) + s) * int(slices) + z
+                    nseg = max(1, -(-chunks // schedule.seg_chunks))
+                    for k in range(nseg):
+                        lo = k * schedule.seg_chunks
+                        out.append((walk, k, lo, min(lo + schedule.seg_chunks, chunks)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_sms(device) -> int:
+    """The SMs of ``device``'s card (:data:`HOPPER_SMS` off the card)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return HOPPER_SMS
+    return _sms_of(torch.cuda.current_device() if device.index is None else device.index)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,25 +301,59 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
         )
     s = params.num_splits
     mpp = bt.shape[1]
+    group = hq // hk
+    heads = int(params.cluster_heads or hk)
     q = q.contiguous()
     bt = bt.to(torch.int32).contiguous()
     seq_lens = seq_lens.to(torch.int32).contiguous()
     out_parts = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
     lse_parts = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
-    # past the grid's row groups (gridDim.z), one launch per block of rows
-    for lo, hi in kernel_row_blocks(b, hq // hk, q.dtype, shared):
+    row_blocks = kernel_row_blocks(b, group, q.dtype, shared, hk=hk, splits=s)
+    walks_per_query = hk * s * kernel_row_slices(group, q.dtype)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sched = scratch = counters = None
+    if takes_wide_walk(group, q.dtype, shared):  # one cut for the batch, one scratch for its blocks
+        sched = wide_schedule(b, heads, mpp, cache.page_size, s, group, d, card_sms(q.device))
+        walks = max(hi - lo for lo, hi in row_blocks) * walks_per_query
+        if sched.max_segments > 1:
+            scratch = torch.empty(sched.scratch_floats(walks), dtype=torch.float32,
+                                  device=q.device)
+            counters = _wide_counters(q.device, stream, walks * sched.max_segments)
+    # past the grid's row groups (gridDim.z; the wide walk's walks), one launch per block of rows
+    for lo, hi in row_blocks:
         rows_bt, rows_sl = (bt, seq_lens) if shared else (bt[lo:hi], seq_lens[lo:hi])
+        seg, n_blocks = (0, 0) if sched is None else (
+            sched.seg_chunks, sched.blocks((hi - lo) * walks_per_query))
         csrc.launch(
             "paged_decode",
             q[lo:hi].data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
             rows_bt.data_ptr(), rows_sl.data_ptr(),
             out_parts[lo:hi].data_ptr(), lse_parts[lo:hi].data_ptr(),
             hi - lo, hq, hk, d, cache.page_size, mpp, s, int(shared),
-            int(q.dtype == torch.float32), int(params.cluster_heads or hk),
+            int(q.dtype == torch.float32), heads, cache.num_pages, seg, n_blocks,
             float(params.scale), float(params.softcap),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            0 if scratch is None else scratch.data_ptr(),
+            0 if counters is None else counters.data_ptr(),
+            stream,
         )
     return out_parts, lse_parts
+
+
+# the wide walk's merge counts, by (device, stream): the kernel leaves every
+# count it takes back at 0, so a buffer is zeroed once, when it is made
+_WIDE_COUNTERS: dict = {}
+
+
+def _wide_counters(device, stream: int, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` counts for the wide walk's
+    merge nodes, kept for launches on this device and stream (the kernel
+    hands it back zeroed; launches on one stream run in turn)."""
+    key = (str(device), int(stream))
+    buf = _WIDE_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(int(n), 1024), dtype=torch.int32, device=device)
+        _WIDE_COUNTERS[key] = buf
+    return buf
 
 
 def _apply_split_resilience(outs, lses):

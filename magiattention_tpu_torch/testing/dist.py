@@ -35,8 +35,22 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+def _init_cpu_math() -> None:
+    """Take MKL's one-time set-up on this thread, before any op runs on the
+    intra-op pool. A rank's first parallel call could otherwise reach MKL
+    (a batched matmul, then ``torch.exp``) on two threads at once while it
+    initialises, and under CPU load that left the worker thread's first
+    exp less exact: a keyed forward's first run in a fresh rank then
+    differed from its second in every row of the worker's heads
+    (``tools/first_call_race.py``). The tensors are small enough that each
+    op runs on this thread alone."""
+    x = torch.full((8, 8), 0.5)
+    torch.exp(x @ x).log().tanh()
+
+
 def _rank_main(rank, world, init_method, backend, timeout_s, threads, tasks, results):
     torch.set_num_threads(threads)
+    _init_cpu_math()
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group(
         backend, init_method=init_method, world_size=world, rank=rank,

@@ -38,10 +38,11 @@ MEASURE_TOP_K = 3
 # ``paged_decode``'s launch (``csrc/decode_sm90.cuh``): each (kv head,
 # split, query) walk spreads over a cluster of up to DECODE_MAX_CLUSTER
 # blocks, the fewest that give every SM a block, as long as each of its 6
-# warps keeps two 16-token chunks of the split.
+# warps keeps two 16-token chunks of the split. A bf16 flat group past 32 q
+# heads takes the wide walk (``csrc/decode_wide_sm90.cuh``) instead, priced
+# with the blocks of its own cut (``serving.decode_attn.wide_schedule``).
 DECODE_MAX_CLUSTER = 8
 DECODE_CLUSTER_TOKENS = 2 * 16 * 6
-HOPPER_SMS = 132  # the fitted card's SMs (H100 SXM5), where no card is at hand
 # One ``merge_partials`` round: ``s`` splits merge in ``s - 1`` pairwise
 # ``correct_attn_out_lse`` rounds of small kernels (the reference prices
 # log2(s) fused tree levels). Fitted from ``chip_smoke.py``'s
@@ -256,11 +257,9 @@ _MEMO_FLAGS = tuple(f"MAGI_ATTENTION_{n}" for n in (
 
 
 def _card_sms(device) -> int:
-    import torch
+    from ..serving.decode_attn import card_sms
 
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return HOPPER_SMS
+    return card_sms(device)
 
 
 def _decode_blocks(walks: int, split_tokens: int, sms: int) -> int:
@@ -274,29 +273,48 @@ def _decode_blocks(walks: int, split_tokens: int, sms: int) -> int:
     return walks * c
 
 
+def _wide_decode_blocks(rows: int, width: int, page_size: int, hk: int, splits: int,
+                        group: int, head_dim: int, sms: int) -> int:
+    """Thread blocks of a wide-walk launch of ``rows`` queries (their
+    segments over the card's SMs), from the cut the wrapper passes the
+    kernel (``serving.decode_attn.wide_schedule``)."""
+    from ..serving import decode_attn as da
+
+    import torch
+
+    sched = da.wide_schedule(rows, hk, width, page_size, splits, group, head_dim, sms)
+    return sched.blocks(rows * hk * splits * da.kernel_row_slices(group, torch.bfloat16))
+
+
 def _price_splits(rows: int, width: int, page_size: int, hk: int, head_dim: int, dtype: str,
-                  sms: int) -> list[tuple[float, int]]:
+                  sms: int, group: int = 1) -> list[tuple[float, int]]:
     """(seconds, splits) of each split count dividing the table ``width``
     (up to :data:`DECODE_MAX_SPLITS`), cheapest first: the table's KV read
     at the card's memory rate over the share of the SMs the launch's
-    blocks fill, plus a merge round for each split past the first."""
+    blocks fill, plus a merge round for each split past the first. A bf16
+    group of more than 32 q heads (``group``) counts the wide walk's
+    blocks, which fill the card at any split count."""
     from ..utils.cost import card_spec
 
     rate = card_spec(FITTED_CARD).hbm_gbps * 1e9
     elt = 2 if "16" in str(dtype) else 4
+    wide = "bfloat16" in str(dtype) and group > 32
     kv_bytes = 2.0 * rows * width * page_size * hk * head_dim * elt
     scored = []
     for s in range(1, min(width, DECODE_MAX_SPLITS) + 1):
         if width % s:
             continue
-        blocks = _decode_blocks(hk * s * rows, width // s * page_size, sms)
+        if wide:
+            blocks = _wide_decode_blocks(rows, width, page_size, hk, s, group, head_dim, sms)
+        else:
+            blocks = _decode_blocks(hk * s * rows, width // s * page_size, sms)
         read_s = kv_bytes / (rate * min(blocks, sms) / sms)
         scored.append((read_s + (s - 1) * MERGE_ROUND_S, s))
     return sorted(scored)
 
 
 def _select_splits(kind: str, fp, rows: int, width: int, page_size: int, hk: int,
-                   head_dim: int, dtype: str, dev, what: str) -> TuningDecision:
+                   head_dim: int, dtype: str, dev, what: str, group: int = 1) -> TuningDecision:
     from .. import telemetry
 
     cache = get_tuning_cache()
@@ -309,7 +327,7 @@ def _select_splits(kind: str, fp, rows: int, width: int, page_size: int, hk: int
         return decision
     telemetry.record_autotune_cache(hit=False, layer="miss")
     sms = _card_sms(dev)
-    scored = _price_splits(rows, width, page_size, hk, head_dim, dtype, sms)
+    scored = _price_splits(rows, width, page_size, hk, head_dim, dtype, sms, group)
     best_cost, best_s = scored[0]
     rec = TuningRecord(
         block_q=1, block_k=width // best_s, head_block=best_s,  # the split count
@@ -355,7 +373,9 @@ def select_decode_splits(
 
     Decode reads every cached K/V byte once a step, so a split pays only
     while the launch's thread blocks (batch x kv heads x splits walks, each
-    over a cluster of up to 8: :func:`_decode_blocks`) leave SMs idle, and
+    over a cluster of up to 8: :func:`_decode_blocks`; a bf16 group past 32
+    q heads: the wide walk's segments, :func:`_wide_decode_blocks`) leave
+    SMs idle, and
     each split past the first costs a ``merge_partials`` round
     (:data:`MERGE_ROUND_S`). The record keeps the reference's convention:
     ``head_block`` holds the split count, and the caller clamps it to a
@@ -370,7 +390,7 @@ def select_decode_splits(
         fp = make_decode_fingerprint(batch, mpp, page_size, hq, hk, head_dim=head_dim,
                                      dtype=name, prefix_groups=prefix_groups, device=dev)
         return _select_splits("decode", fp, max(int(batch), 1), mpp, page_size, hk, head_dim,
-                              name, dev, f"batch {batch}")
+                              name, dev, f"batch {batch}", group=max(int(hq) // int(hk), 1))
 
     return memoised(("decode", batch, max_pages_per_seq, page_size, hq, hk, head_dim, dtype,
                       prefix_groups, device), resolve)
@@ -400,7 +420,7 @@ def select_tick_splits(
         fp = make_tick_fingerprint(rows, width, page_size, hq, hk, head_dim=head_dim,
                                    dtype=name, prefill_rows=prefill_rows, device=dev)
         return _select_splits("tick", fp, rows, width, page_size, hk, head_dim, name, dev,
-                              f"{rows} tick rows")
+                              f"{rows} tick rows", group=max(int(hq) // int(hk), 1))
 
     return memoised(("tick", row_capacity, entry_capacity, page_size, hq, hk, head_dim, dtype,
                       prefill_rows, device), resolve)

@@ -251,7 +251,8 @@ def test_paged_decode_launcher_passes_what_the_entry_point_takes(cluster_heads, 
     as many arguments as ``magi_paged_decode``'s argtypes, each of the kind
     declared, and the kv-head count the clusters are sized for after
     ``is_f32``: the cache's own (4 here) by default, the whole pool's for a
-    tensor-parallel head slice."""
+    tensor-parallel head slice; then the cache's pages, and no wide-walk cut
+    (segment chunks, blocks, scratch and counters 0) at G 4."""
     import types
 
     import torch
@@ -272,8 +273,10 @@ def test_paged_decode_launcher_passes_what_the_entry_point_takes(cluster_heads, 
     python_kind = {"pointer": int, "int": int, "float": float}
     assert name == "paged_decode" and len(a) == len(kinds)
     assert all(type(x) is python_kind[kind] for x, kind in zip(a, kinds))
-    ints = a[kinds.index("int"):kinds.index("float")]  # b hq hk d ps mpp splits shared f32 heads
-    assert ints == (2, 16, 4, 64, 16, 4, 2, 0, 0, cluster_heads or 4)
+    # b hq hk d ps mpp splits shared f32 heads | pages seg blocks
+    ints = a[kinds.index("int"):kinds.index("float")]
+    assert ints == (2, 16, 4, 64, 16, 4, 2, 0, 0, cluster_heads or 4, 9, 0, 0)
+    assert a[-3:-1] == (0, 0)  # scratch, counters
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -322,7 +325,10 @@ def test_decode_launcher_passes_what_the_entry_point_takes(d, hq, hk, shared, dt
     walk's rows (48: StarCoder-15B's layout; 200: a group the wide walks cut
     into row slices), launch recorded: the entry point's arguments, the
     head dim and head counts as given, ``is_f32``, one launch (the batch
-    fits the grid's row groups) and no refusal."""
+    fits the grid's row groups) and no refusal. A bf16 flat group past 32
+    rows (the wide walk) also gets its cut (``wide_schedule``: segment
+    chunks and blocks) and, where a walk can span segments, scratch and
+    counters; every other launch gets none."""
     import types
 
     import torch
@@ -350,6 +356,14 @@ def test_decode_launcher_passes_what_the_entry_point_takes(d, hq, hk, shared, dt
     assert name == "paged_decode" and len(a) == len(kinds)
     assert all(type(x) is python_kind[kd] for x, kd in zip(a, kinds))
     ints = a[kinds.index("int"):kinds.index("float")]
-    # b hq hk head_dim page_size mpp num_splits shared is_f32 cluster_heads
-    assert list(ints) == [b, hq, hk, d, 16, 2, 1, int(shared), int(dtype == "float32"), hk]
+    # b hq hk head_dim page_size mpp num_splits shared is_f32 cluster_heads | pages seg blocks
+    cut = [0, 0]
+    if da.takes_wide_walk(hq // hk, dt, shared):
+        sched = da.wide_schedule(b, hk, 2, 16, 1, hq // hk, d, da.HOPPER_SMS)
+        cut = [sched.seg_chunks, sched.blocks(b * hk * da.kernel_row_slices(hq // hk, dt))]
+        assert all(cut)
+    assert list(ints) == [b, hq, hk, d, 16, 2, 1, int(shared), int(dtype == "float32"), hk, 9,
+                          *cut]
+    scratch, counters = a[-3:-1]
+    assert (scratch != 0) == (counters != 0) == (cut[0] > 0 and sched.max_segments > 1)
     assert out.shape == (b, 1, hq, d) and lse.shape == (b, 1, hq)

@@ -804,9 +804,98 @@ def test_paged_decode_refuses_what_it_does_not_implement(card):
 
     cache = make_paged_kv_cache(5, 16, 1, 64, max_seqs=1, max_pages_per_seq=4,
                                 dtype=torch.float32)
-    with pytest.raises(ValueError, match="at most 8"):  # the f32 walk takes G <= 8
-        decode_attn_paged(torch.zeros((1, 16, 64), device="cuda"), cache,
-                          torch.zeros(1, dtype=torch.long, device="cuda"))
+    # any group is taken (the float32 walk's WIDE mode past 8 rows)
+    out, _ = decode_attn_paged(torch.zeros((1, 16, 64), device="cuda"), cache,
+                               torch.zeros(1, dtype=torch.long, device="cuda"))
+    assert out.shape == (1, 16, 64)
     with pytest.raises(NotImplementedError):
         decode_attn_paged(torch.zeros((1, 4, 64), device="cuda", requires_grad=True), cache,
                           torch.zeros(1, dtype=torch.long, device="cuda"))
+
+
+# -- the bf16 wide walk (decode_wide_sm90.cuh): flat groups past 32 q heads ------------
+
+_WIDE_CASES = [(d, g, hk, ps) for d in (32, 64, 128)
+               for g, hk in ((33, 1), (48, 1), (64, 1), (71, 1), (128, 1), (200, 1), (48, 2))
+               for ps in (16, 64, 128)]
+
+
+def _nan_past(cache, lens):
+    """A copy of ``cache`` with NaN in K and V at every position past each
+    slot's length in its own pages (the rest of the last page and the pages
+    after it)."""
+    import dataclasses
+
+    dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                v_pages=cache.v_pages.clone())
+    ps = cache.page_size
+    for slot, n in enumerate(lens):
+        pos = torch.arange(n, cache.max_pages_per_seq * ps, device="cuda")
+        page = cache.block_tables[slot].long()[pos // ps]
+        dirty.k_pages[page, pos % ps] = float("nan")
+        dirty.v_pages[page, pos % ps] = float("nan")
+    return dirty
+
+
+@pytest.mark.parametrize("d,group,hk,ps", _WIDE_CASES,
+                         ids=[f"d{d}-g{g}-hk{hk}-ps{ps}" for d, g, hk, ps in _WIDE_CASES])
+def test_paged_decode_wide_walk_matches_plain(card, d, group, hk, ps):
+    """The wide walk: ragged tails not a multiple of 64 (and zero, one and
+    full lengths) on shuffled pages, splits 1, 2 and 4, softcap on at one
+    page size; against the plain version on the clean cache; two runs give
+    the same bits, and NaN planted past every length (in the last page and
+    the pages after it) changes no bit."""
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    mpp = max(24, -(-(700 // ps + 1) // 4) * 4)  # room for every length below; 4 splits
+    lens = [0, 1, 63, ps + 3, 300, 2 * 64 * 5 + 17, mpp * ps]
+    cache, q = _decode_problem(card, d, torch.bfloat16, group * hk, hk, ps, lens, mpp)
+    bt, sl = cache.block_tables, cache.seq_lens
+    softcap = 30.0 if ps == 64 else 0.0
+    ref, ref_lse = decode_reference(q, cache, bt, sl, softcap=softcap)
+    dirty = _nan_past(cache, lens)
+    for splits in (1, 2, 4):
+        parts = _decode_parts(q, cache, bt, sl, splits, softcap)
+        assert _same_bits(parts, _decode_parts(q, cache, bt, sl, splits, softcap))
+        assert _same_bits(parts, _decode_parts(q, dirty, bt, sl, splits, softcap))
+        out, lse = da._merge_splits(*parts)
+        _close(out, ref, lse, ref_lse)
+        assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+def test_paged_decode_wide_walk_tp_slices_give_the_one_launch_bits(card, splits):
+    """96 q heads over 2 kv heads (G 48) under ``tp_decode_attn`` at tp 2:
+    each slice's launch passes the pool's kv heads, cuts its walks as the
+    one launch does and gives its bits."""
+    from magiattention_tpu_torch.serving import decode_attn_paged, shard_kv_cache, tp_decode_attn
+
+    lens = [5, 700, 1500, 3001]
+    cache, q = _decode_problem(card, 128, torch.bfloat16, 96, 2, 128, lens, 32)
+    slots = torch.arange(len(lens), device="cuda")
+    one = decode_attn_paged(q, cache, slots, num_splits=splits, out_dtype=torch.float32)
+    sc = shard_kv_cache(cache, ["cuda:0", "cuda:0"])
+    tp = tp_decode_attn(q, sc, slots, devices=["cuda:0", "cuda:0"], num_splits=splits,
+                        out_dtype=torch.float32)
+    assert _same_bits(one, tp)
+
+
+def test_paged_decode_wide_walk_launches_row_blocks_past_its_walks(card):
+    """A batch of more walks than one launch numbers (WIDE_MAX_WALKS)
+    launches in row blocks, each cut by the whole batch's schedule: held
+    against the plain version, and the launch count is the blocks'."""
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    b = da.WIDE_MAX_WALKS + 7
+    lens = [1 + (i * 37) % 128 for i in range(b)]
+    cache, q = _decode_problem(card, 64, torch.bfloat16, 48, 1, 128, lens, 1)
+    bt, sl = cache.block_tables, cache.seq_lens
+    csrc.reset_launch_counts()
+    out, lse = da._merge_splits(*_decode_parts(q, cache, bt, sl, 1))
+    assert csrc.launches["paged_decode"] == len(
+        da.kernel_row_blocks(b, 48, torch.bfloat16, False)) == 2
+    ref, ref_lse = decode_reference(q, cache, bt, sl)
+    _close(out, ref, lse, ref_lse)

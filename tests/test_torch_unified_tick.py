@@ -261,18 +261,25 @@ def test_kernel_row_blocks(b, group, shared, dtype):
     range when the batch fits, each range at most 65535 row groups
     (``kernel_row_slices`` per query flat: 1 up to one walk's rows, a wide
     group's row slices past them; KERNEL_SHARED_ROWS q rows, ``group`` a
-    query, shared), every range but the last full."""
+    query, shared), every range but the last full. The bf16 flat groups
+    past 32 rows (the wide walk) count walks instead, at most
+    WIDE_MAX_WALKS a range (a query's row slices, at 1 kv head and 1
+    split)."""
     blocks = decode_attn.kernel_row_blocks(b, group, dtype, shared)
     rows = decode_attn.KERNEL_SHARED_ROWS[dtype]
     slices = decode_attn.kernel_row_slices(group, dtype)
     assert slices == (1 if group <= {torch.bfloat16: 32, torch.float32: 64}[dtype]
                       else -(-group // {torch.bfloat16: 128, torch.float32: 64}[dtype]))
     groups = (lambda n: -(-n * group // rows)) if shared else (lambda n: n * slices)
+    cap = decode_attn.KERNEL_MAX_ROW_GROUPS
+    if dtype == torch.bfloat16 and not shared and group > 32:
+        cap = decode_attn.WIDE_MAX_WALKS
+    assert decode_attn.takes_wide_walk(group, dtype, shared) == (cap != decode_attn.KERNEL_MAX_ROW_GROUPS)
     assert blocks[0][0] == 0 and blocks[-1][1] == b
     assert all(hi == lo2 for (_, hi), (lo2, _) in zip(blocks, blocks[1:]))
-    assert all(groups(hi - lo) <= decode_attn.KERNEL_MAX_ROW_GROUPS for lo, hi in blocks)
-    assert (len(blocks) == 1) == (groups(b) <= decode_attn.KERNEL_MAX_ROW_GROUPS)
-    assert all(groups(hi - lo + 1) > decode_attn.KERNEL_MAX_ROW_GROUPS for lo, hi in blocks[:-1])
+    assert all(groups(hi - lo) <= cap for lo, hi in blocks)
+    assert (len(blocks) == 1) == (groups(b) <= cap)
+    assert all(groups(hi - lo + 1) > cap for lo, hi in blocks[:-1])
 
 
 # -- the fault paths ------------------------------------------------------------------
