@@ -92,7 +92,26 @@ Phases, each printing one JSON line:
    and decoding 64 greedy steps through ``paged_decode`` (one launch a
    step), each step held against the plain decode within the kernel bounds
    and its tokens equal to the plain decode's but at counted near ties,
-   device and host ms a step;
+   device and host ms a step; then head_dim 256, Gemma-2-9B's attention
+   width: all eight flex kernels in bf16 at G 1, 2 and 3 on causal, causal
+   with Gemma's softcap 50 and a sink, the 16,384-token varlen block-causal
+   mask and Gemma's 4096-key sliding window (``d256_cases``: head_block 1,
+   G and 2G, both grids, the sparse backward bit for bit the row-major
+   one), ``paged_decode`` at G 1-32, pages of 16 / 64 / 128, 1 / 2 / 4
+   splits, NaN tails and the shared mode (``d256_decode_cases``), a fault
+   planted in each of the three widened walks (``d256_planted_faults``),
+   the ``serving_d256`` path (an engine at Gemma-2-9B's 16 / 8 heads of
+   d 256 with softcap 50 through one seeded attention layer of dim 3584:
+   the 8 serving prompts, one chunked, through ``flex_fwd_hb``, 64 greedy
+   steps through ``paged_decode``, each step held against the plain
+   decode), each kernel's time at d 256 beside its bound, its plain
+   version and SDPA (``d256_timing``), and the ``attention_d256`` path:
+   Gemma's attention layers through ``flex_flash_attn_func`` under the
+   autotuner, forward and backward (a Gemma-2-9B local layer on two
+   8,192-token sequences under the 4096-key window: the sparse grid at
+   head_block 2; Gemma-7B's 16 / 16 heads on the training documents: the
+   sparse grid at head_block 1, and on one causal 8,192-token sequence:
+   ``flex_fwd``), each held against the plain attention;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -128,7 +147,13 @@ Phases, each printing one JSON line:
    ``cfg.remat`` (each decoder layer under ``torch.utils.checkpoint``): its
    six losses bit for bit the plain run's, its step ms and peak memory
    beside the plain run's, and one more ``flex_fwd_hb`` a layer and step,
-   the recompute (``training_remat`` in the kernels line);
+   the recompute (``training_remat`` in the kernels line); then
+   ``training_d256``: the trainer at Gemma-2-9B's widths (dim 3584, 16 / 8
+   heads of d 256, ffn 14336), cut to 2 layers and a 32,000-token
+   vocabulary, 3 AdamW steps on the same stream through ``flex_fwd_hb``,
+   ``flex_dq`` and ``flex_dkv`` at d 256, the first step's loss and
+   gradients against the same weights on the dense plain versions, step ms,
+   tokens/s and peak memory;
 6. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
    backward, on the 16384-token varlen block-causal mask (12 documents),
    once at the ``LlamaConfig`` attention widths (16 q / 8 kv heads) and
@@ -458,8 +483,10 @@ The line before the last lists the nine kernels with their launches on the
 main paths (and which paths launched them: ``training_remat``,
 ``block_sparse``, ``sink``, ``cp_decode``, ``scheduler``, ``tiered``,
 ``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis``,
-``fleet``, ``instrument`` and ``wide_serving`` among them; every path's launches must be in
-it), errors and times; the
+``fleet``, ``instrument``, ``wide_serving``, ``serving_d256``,
+``attention_d256`` and ``training_d256`` among them; every path's
+launches must be in
+it), errors and times (``at_d256``: each kernel's at head_dim 256); the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -1092,6 +1119,25 @@ PLANT_SIMT_FIRST_TILE = [
     ("      const float* tq = sQ + t0 * D;\n", "      const float* tq = sQ;\n"),
 ]
 
+# The three walks widened to head_dim 256, with a fault each: the forward's
+# odd-G hand-over with warpgroup 1's second round of columns not taken (its
+# last quarter of O keeps its own partial), built as flex_fwd; the dk/dv
+# halves walk with each warpgroup's dV half taken from dO's first columns,
+# built as flex_dkv; and the decode walk's flat row tiles all reading the
+# sequence's first 16 q rows, built as paged_decode. The checks of
+# ``d256_planted_faults`` must catch each.
+PLANT_D256_SECOND_ROUND = [
+    ("      take_cols<HALF + PART, PART>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);\n",
+     "      {}  // planted: warpgroup 1's second round not taken\n"),
+]
+PLANT_D256_DV_HALF = [
+    ("    acc_product(dva, ap, sdo + half);\n", "    acc_product(dva, ap, sdo);\n"),
+]
+PLANT_D256_FIRST_ROW_TILE = [
+    ("  const int row0 = shared ? z * rows_per_block : tb * group + (z % gps) * rows_per_block;\n",
+     "  const int row0 = shared ? z * rows_per_block : tb * group;\n"),
+]
+
 
 # Each mutated build: (the kernel source compiled, the source mutated, its
 # plants), in a directory of its own beside the kernels.
@@ -1118,6 +1164,10 @@ PLANTED = {
     "paged_decode_wide_first_child": ("decode.cu", "decode_wide_sm90.cuh",
                                       PLANT_WIDE_FIRST_CHILD),
     "paged_decode_simt_first_tile": ("decode.cu", "decode_simt.cuh", PLANT_SIMT_FIRST_TILE),
+    "flex_fwd_d256_second_round": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_D256_SECOND_ROUND),
+    "flex_dkv_d256_dv_half": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_D256_DV_HALF),
+    "paged_decode_d256_first_row_tile": ("decode.cu", "decode_sm90.cuh",
+                                         PLANT_D256_FIRST_ROW_TILE),
 }
 
 # Variants of the kernels, timed beside them and never launched on a main
@@ -2115,6 +2165,50 @@ def sparse_fwd_cases(gen) -> dict:
             "twice_bitwise_equal": n}
 
 
+REPEAT_RUNS = 1000  # runs in a row of each multi-step forward in repeat_cases
+REPEAT_CASES_SEED = 29  # the seed offset of repeat_cases' generator
+
+
+def repeat_cases(seed) -> dict:
+    """The four forwards at d 128, where the walk holds Q in registers, on
+    the rising-logits causal 2048 at G 8 (16 / 2 heads; head_block 8: four
+    head pairs a work item, the work list's last items walks of one and two
+    k tiles), each run many times in a row, a 4096 x 4096 float32 product
+    queued on a second stream before every other run (which keeps that
+    stream busy through the runs), and every run's bits held against the
+    first run's. A shared-memory buffer handed back to the producer before
+    all its reads are done (as the Q buffer once was, right after its
+    ldmatrix reads) shows as a few rows that differ on some runs only, which
+    two runs of a case seldom catch. Returns the line."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + REPEAT_CASES_SEED)
+    p = Flex(gen, 2048, 2048, 16, 2, [(0, 2048)], [(0, 2048)], [1], d=128, k_ramp=RISING_K)
+    a = torch.randn((4096, 4096), generator=gen, device="cuda")
+    side = torch.cuda.Stream()
+    runs = {}
+    for name, fn, hb, n in (("flex_fwd_hb", lambda: p.hb_kernel(8), 8, REPEAT_RUNS),
+                            ("flex_fwd_sparse_hb", p.sparse_kernel, 8, REPEAT_RUNS),
+                            ("flex_fwd", p.kernel, 8, REPEAT_RUNS // 4),
+                            ("flex_fwd_sparse", p.sparse_kernel, 1, REPEAT_RUNS // 4)):
+        p.set_head_block(hb)  # the sparse grid's work items
+        first = fn()
+        differing = 0
+        for r in range(n):
+            if r % 2:
+                with torch.cuda.stream(side):
+                    torch.mm(a, a)
+            differing += not all(torch.equal(x, y) for x, y in zip(first, fn()))
+        torch.cuda.synchronize()
+        check(differing == 0, f"rising_logits_causal_g8_d128: {name} differs from its first run "
+                              f"in {differing} of {n} runs")
+        runs[name] = n
+    return {"phase": "kernels", "kernel": "flex_fwd+flex_fwd_hb+flex_fwd_sparse+flex_fwd_sparse_hb",
+            "case": "rising_logits_causal_g8_d128_repeated", "runs": runs,
+            "all_bitwise_equal_to_the_first": True}
+
+
 def mma_sync_fwd(lib, p, head_block=None):
     """A launcher of the previous forward walk (the ``mma_sync_fwd`` side
     library) on ``p``'s inputs, in ``flex_fwd``'s launch shape or, with a
@@ -2749,7 +2843,7 @@ def wide_walk_cases(gen) -> dict:
     launched = csrc.launches["paged_decode"]
     out, lse = da._merge_splits(*decode_parts(q, cache, bt, sl, 1))
     row_blocks = csrc.launches["paged_decode"] - launched
-    check(row_blocks == len(da.kernel_row_blocks(b, 48, torch.bfloat16, False)) == 2,
+    check(row_blocks == len(da.kernel_row_blocks(b, 48, torch.bfloat16, False, head_dim=64)) == 2,
           f"wide walk row blocks: {row_blocks} launches for {b} walks")
     ref = decode_reference(q, cache, bt, sl)
     errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
@@ -4543,14 +4637,15 @@ SL_RANGES, SL_KEYS = 8, 4096  # (d): disjoint selected key ranges, keys in all
 BS_KERNELS = ("flex_fwd", "flex_dq", "flex_dkv")  # head_block 1, the row-major grid
 
 
-def plain_attention(q, k, v, mask, dout, dlse, sink=None) -> dict:
+def plain_attention(q, k, v, mask, dout, dlse, sink=None, softcap=0.0) -> dict:
     """The plain version of an attention entry point: dense masked attention
     in f32 on the card over an independently built [tq, tk] bool ``mask``,
     one kv head's q heads at a time (their [G, tq, tk] scores fit), forward
     and backward by autograd. q [tq, hq, d], k/v [tk, hk, d]; ``sink`` [hq]
-    logits or None. Returns token-major f32 out, lse, dq, dk, dv (and dsink);
-    the lse cotangent is dropped on rows without a key, as the kernels'
-    backward drops it there."""
+    logits or None; ``softcap`` caps the scaled scores at ``softcap *
+    tanh(s / softcap)`` (0: none). Returns token-major f32 out, lse, dq,
+    dk, dv (and dsink); the lse cotangent is dropped on rows without a key,
+    as the kernels' backward drops it there."""
     import torch
 
     tq, hq, d = q.shape
@@ -4562,7 +4657,10 @@ def plain_attention(q, k, v, mask, dout, dlse, sink=None) -> dict:
         qj = q[:, h].float().transpose(0, 1).contiguous().requires_grad_()  # [g, tq, d]
         kj, vj = (x[:, j].float().contiguous().requires_grad_() for x in (k, v))  # [tk, d]
         leaves = [qj, kj, vj]
-        s = torch.matmul(qj, kj.T).mul_(1.0 / math.sqrt(d)).masked_fill_(~mask, float("-inf"))
+        s = torch.matmul(qj, kj.T).mul_(1.0 / math.sqrt(d))
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        s = s.masked_fill_(~mask, float("-inf"))
         m = s.amax(-1).detach()
         if sink is not None:
             sj = sink[h].float().detach().clone().requires_grad_()
@@ -9771,6 +9869,7 @@ def fleet_phase(seed: int) -> dict:
 # -- the instrument phase: profiling, checkpoints, the bench harness, the gate --
 
 NEW_CASES_SEED = 25  # the seed offset of the generator the newer cases draw from
+D256_CASES_SEED = 27  # the seed offset of the head_dim 256 cases' generator
 INSTR_PROMPTS = (1000, 2048, 3000)  # the serving part's requests
 INSTR_STEPS = 4  # decode steps of each
 INSTR_SERVING_RANGES = ("magi_prefill_attn", "magi_decode_attn", "magi_kvcache_append")
@@ -10105,6 +10204,652 @@ def instrument_phase(seed: int, gen, cp_part: dict, scratch: str, t0: float) -> 
             "launches": launches, "wall_s": time.perf_counter() - t0}
 
 
+# -- head_dim 256: Gemma-2-9B's attention -------------------------------------
+
+# google/gemma-2-9b config.json: num_attention_heads, num_key_value_heads,
+# head_dim, hidden_size, intermediate_size, attn_logit_softcapping
+# (query_pre_attn_scalar 256: the scale 256^-0.5), sliding_window
+GEMMA_HQ, GEMMA_HK, D256 = 16, 8, 256
+GEMMA_DIM, GEMMA_FFN = 3584, 14336
+GEMMA_SOFTCAP = 50.0
+GEMMA_WINDOW = 4096
+GEMMA_LAYERS = 42  # num_hidden_layers, cut below
+D256_T = 16384  # the varlen and sliding-window kernel cases' tokens
+D256_GROUPS = (1, 2, 3)  # q heads per kv head of the flex kernel cases
+D256_DECODE_GROUPS = (1, 2, 8, 16, 32)
+D256_SPLITS = (1, 2, 4)
+D256_TRAIN_LAYERS = 2  # cut from 42 to keep the smoke within its time
+D256_TRAIN_VOCAB = 32000  # the training path's vocabulary, cut from Gemma's 256,000
+D256_TRAIN_STEPS = 3
+D256_SERVING_CHUNK = 2048  # the chunked prompt's prefill chunks
+D256_SERVING_CHUNKED = 6  # the 6500-token prompt (WIDE_DECODE_LENS) is prefilled in chunks
+GEMMA_CONTEXT = 8192  # gemma-2-9b max_position_embeddings: one training sequence
+# google/gemma-7b config.json: num_attention_heads = num_key_value_heads = 16,
+# head_dim 256, no logit softcap (multi-head attention: head_block 1)
+GEMMA7B_HEADS = 16
+
+
+def d256_cases(gen) -> dict:
+    """All eight flex kernels at head_dim 256 in bf16 against their plain
+    versions under the kernels phase's bounds, each twice for the same
+    bits: ``flex_fwd``, ``flex_fwd_hb`` (head_block G and 2G) and the
+    row-major backward at G 1, 2 and 3 (two kv heads) on causal 2048, causal
+    2048 with Gemma's softcap and a sink, the 16,384-token varlen
+    block-causal mask and Gemma's 4096-key sliding window over 16,384 tokens
+    with its softcap; the sparse grid at head_block 1 and G on the same
+    problems, its backward bit for bit ``flex_dq`` / ``flex_dkv``'s.
+    Returns the line."""
+    import torch
+    from magiattention_tpu_torch.api import infer_attn_mask_from_sliding_window
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    wq, wk, wt = infer_attn_mask_from_sliding_window(D256_T, GEMMA_WINDOW)
+    causal = ([(0, 2048)], [(0, 2048)], [1])
+    rows = [
+        ("causal", 2048, causal, {}),
+        ("causal_softcap_sink", 2048, causal, {"softcap": GEMMA_SOFTCAP, "sink": True}),
+        ("varlen_block_causal", D256_T, split_slices(varlen_block_causal(D256_T)), {}),
+        ("sliding_window_softcap", D256_T,
+         (wq.to_naive_ranges(), wk.to_naive_ranges(), [int(x) for x in wt]),
+         {"softcap": GEMMA_SOFTCAP}),
+    ]
+    n_row = n_sparse = 0
+    for name, t, (qr, kr, ty), kw in rows:
+        for g in D256_GROUPS:
+            hq, hk = 2 * g, 2
+            sink = torch.randn((hq,), generator=gen, device="cuda").tolist() if kw.get("sink") \
+                else None
+            p = Flex(gen, t, t, hq, hk, qr, kr, ty, d=D256, softcap=kw.get("softcap", 0.0),
+                     sink=sink)
+            case = f"d256_{name}_g{g}"
+            p.check(case)
+            for hb in ((2,) if g == 1 else (g, 2 * g)):
+                p.check_hb(case, hb)
+            p.check_bwd(f"{case}_bwd")
+            n_row += 1
+            rm_dq, (rm_dk, rm_dv) = p.dq_kernel(), p.dkv_kernel()
+            for hb in (1, max(g, 2)):
+                p.set_head_block(hb)
+                p.check_sparse(f"d256_sparse_{name}_g{g}_hb{hb}")
+                dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+                check(torch.equal(dq, rm_dq) and torch.equal(dk, rm_dk) and torch.equal(dv, rm_dv),
+                      f"d256_sparse_{name}_g{g}_hb{hb}: the sparse backward differs from "
+                      "flex_dq / flex_dkv")
+                n_sparse += 1
+            del p, rm_dq, rm_dk, rm_dv
+            torch.cuda.empty_cache()
+    return {"phase": "kernels", "kernel": "all eight flex kernels", "head_dim": D256,
+            "dtype": "bfloat16", "row_major_problems": n_row, "sparse_problems": n_sparse,
+            "twice_bitwise_equal": n_row + n_sparse,
+            "sparse_backward_bitwise_row_major": n_sparse}
+
+
+def d256_decode_cases(gen) -> dict:
+    """``paged_decode`` at head_dim 256 in bf16 against its plain version,
+    each launch twice for the same bits: G 1, 2, 8, 16 and 32 (two kv
+    heads), pages of 16, 64 and 128 tokens, 1, 2 and 4 splits, Gemma's
+    softcap but on pages of 16, ragged and zero lengths on shuffled pages;
+    NaN past every length (the same bits as the clean cache) at G 2 and 32;
+    and the shared mode at 1, 3 and 8 members and G 1, 2, 8 and 32 against
+    the plain version, the flat mode over the broadcast table, and
+    ``_decode_shared_prefix``. Returns the line."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    bf16, hk = torch.bfloat16, 2
+    worst = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+    counts = {"flat": 0, "shared": 0, "nan_tail": 0}
+
+    def held(name, parts, ref):
+        out, lse = da._merge_splits(*parts)
+        errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+        check(not failed, f"{name}: paged_decode fails the {failed} check(s): {errs}")
+        for k in worst:
+            worst[k] = max(worst[k], errs.get(k, 0.0))
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+
+    def twice(name, *args, **kw):
+        first, again = decode_parts(*args, **kw), decode_parts(*args, **kw)
+        torch.cuda.synchronize()
+        check(bitwise(first, again), f"{name}: two runs of paged_decode differ")
+        return first
+
+    for g in D256_DECODE_GROUPS:
+        for ps in (16, 64, 128):
+            full = DECODE_MPP * ps
+            lens = [0, 1, ps - 1, ps + 1, 5 * ps + 3, full // 2 + 7, full - 1, full]
+            cache, q = decode_problem(gen, D256, bf16, g * hk, hk, ps, lens)
+            bt, sl = cache.block_tables, cache.seq_lens
+            softcap = 0.0 if ps == 16 else GEMMA_SOFTCAP
+            ref = decode_reference(q, cache, bt, sl, softcap=softcap)
+            tag = f"d256_g{g}_ps{ps}" + ("_softcap" if softcap else "")
+            for splits in D256_SPLITS:
+                held(f"{tag}_splits{splits}",
+                     twice(f"{tag}_splits{splits}", q, cache, bt, sl, splits, softcap), ref)
+                counts["flat"] += 1
+            if g in (2, 32) and ps == 64:
+                dirty = nan_past_lengths(cache, lens)
+                for splits in (1, 4):
+                    check(bitwise(decode_parts(q, cache, bt, sl, splits, softcap),
+                                  decode_parts(q, dirty, bt, sl, splits, softcap)),
+                          f"{tag}_splits{splits}: NaN past the lengths changes the output")
+                    counts["nan_tail"] += 1
+            del cache
+    w = DECODE_SHARED_PAGES
+    for ps in (16, 128):
+        cache = da.PagedKVCache(
+            *(torch.randn((4 * w + 1, ps, hk, D256), generator=gen, device="cuda").to(bf16)
+              for _ in range(2)),
+            torch.zeros((1, w), dtype=torch.int32, device="cuda"),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"))
+        pages = (torch.randperm(4 * w, generator=gen, device="cuda")[:w] + 1).int()
+        for g in (1, 2, 8, 32):
+            for members in (1, 3, 8):
+                plen = w * ps - (5 if members == 3 else 0)
+                q = torch.randn((members, g * hk, D256), generator=gen, device="cuda").to(bf16)
+                bt_b = pages[None].expand(members, w).contiguous()
+                sl_b = torch.full((members,), plen, dtype=torch.int32, device="cuda")
+                ref = decode_reference(q, cache, bt_b, sl_b, softcap=GEMMA_SOFTCAP)
+                tag = f"shared_d256_ps{ps}_g{g}_m{members}"
+                for splits in (1, 3, 4):
+                    parts = twice(f"{tag}_splits{splits}", q, cache, pages[None], sl_b[:1],
+                                  splits, GEMMA_SOFTCAP, shared=True)
+                    held(f"{tag}_splits{splits}", parts, ref)
+                    flat = da._merge_splits(*decode_parts(q, cache, bt_b, sl_b, splits,
+                                                          GEMMA_SOFTCAP))
+                    out, lse = da._merge_splits(*parts)
+                    errs, failed = out_errors(out, flat[0], [("lse", lse, flat[1])])
+                    check(not failed, f"{tag}_splits{splits}: the shared mode fails the "
+                          f"{failed} check(s) against the flat mode: {errs}")
+                    entry = da._decode_shared_prefix(q, cache, pages, plen, num_splits=splits,
+                                                     softcap=GEMMA_SOFTCAP)
+                    check(bitwise(entry, (out, lse)), f"{tag}_splits{splits}: "
+                          "_decode_shared_prefix differs from its kernel's merged partials")
+                    counts["shared"] += 1
+                if members == 3:
+                    dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                                v_pages=cache.v_pages.clone())
+                    last = pages[-1].long()
+                    dirty.k_pages[last, ps - 5:] = float("nan")
+                    dirty.v_pages[last, ps - 5:] = float("nan")
+                    check(bitwise(decode_parts(q, cache, pages[None], sl_b[:1], 4,
+                                               GEMMA_SOFTCAP, shared=True),
+                                  decode_parts(q, dirty, pages[None], sl_b[:1], 4,
+                                               GEMMA_SOFTCAP, shared=True)),
+                          f"{tag}: NaN past the prefix length changes the output")
+                    counts["nan_tail"] += 1
+    return {"phase": "kernels", "kernel": "paged_decode", "head_dim": D256, "dtype": "bfloat16",
+            "cases": counts, "two_runs_bitwise_equal": True, **worst}
+
+
+def d256_planted_faults(gen, planted) -> dict:
+    """The checks on one fault planted in each walk widened to head_dim 256
+    (``PLANT_D256_*``): the forward's second hand-over round dropped by
+    warpgroup 1 (``flex_fwd`` at G 1, causal 2048), the dk/dv halves walk's
+    dV taken from dO's first half (``flex_dkv``, causal 2048 at G 2), and
+    the decode walk's row tiles all on a sequence's first 16 q rows
+    (``paged_decode`` at G 32). Returns which checks catch each; a fault
+    that passes them fails the smoke."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    caught = {}
+    causal = ([(0, 2048)], [(0, 2048)], [1])
+    p = Flex(gen, 2048, 2048, 2, 2, *causal, d=D256)
+    got = with_library("flex_fwd", planted["flex_fwd_d256_second_round"], p.kernel)()
+    torch.cuda.synchronize()
+    errs, failed = p.hb_errors(got)
+    caught["second_round_not_taken:flex_fwd:d256"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-256 hand-over fault passes the forward checks: {errs}")
+    p = Flex(gen, 2048, 2048, 4, 2, *causal, d=D256)
+    _, dv = with_library("flex_dkv", planted["flex_dkv_d256_dv_half"], p.dkv_kernel)()
+    torch.cuda.synchronize()
+    errs, failed = grad_errors(dv[:, :2048], p.dkv_plain()[1][:, :2048])
+    caught["dv_from_first_half:flex_dkv:d256"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-256 dV fault passes the gradient checks: {errs}")
+    lens = [1, 63, 64 * 20 + 5, DECODE_MPP * 64]
+    cache, q = decode_problem(gen, D256, torch.bfloat16, 64, 2, 64, lens)
+    bt, sl = cache.block_tables, cache.seq_lens
+    ref = decode_reference(q, cache, bt, sl)
+    parts = with_library("paged_decode", planted["paged_decode_d256_first_row_tile"],
+                         lambda: decode_parts(q, cache, bt, sl, 1))()
+    torch.cuda.synchronize()
+    out, lse = da._merge_splits(*parts)
+    errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+    caught["first_row_tile_only:paged_decode:d256_g32"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-256 row-tile fault passes the decode checks: {errs}")
+    return caught
+
+
+def d256_timing(gen, serving_line) -> tuple[dict, dict]:
+    """The nine kernels at head_dim 256 in device time, each checked first
+    at its timed shape against its plain version (run head by head): rows 1,
+    2, 5 and 7 on the causal 4096 prefill at Gemma-2-9B's 16 / 8 heads
+    (the FLOPs of the d-128 rows' prefill at 32 / 8), rows 3, 4, 6 and 8 on
+    the 16,384-token varlen block-causal mask at 16 / 8 heads, and
+    ``paged_decode`` on ``serving_d256``'s final batch at G 2 (from its
+    line). Each beside the plain version's ms, the card's bound
+    (:func:`flex_bounds`, :func:`decode_bound`) and a PyTorch yardstick:
+    causal SDPA (its backward for dq), ``library_attention`` for the sparse
+    grid, SDPA over the gathered cache for the decode. Returns (the line,
+    {kernel: record})."""
+    import torch
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    hq, hk, d, g = GEMMA_HQ, GEMMA_HK, D256, GEMMA_HQ // GEMMA_HK
+    recs, line = {}, {"phase": "d256_timing", "card": nvidia_smi_line(), "hq": hq, "hk": hk,
+                      "head_dim": d}
+    t = 4096
+    p = Flex(gen, t, t, hq, hk, [(0, t)], [(0, t)], [1], d=d)
+    plain = held_by_head(p, "d256_prefill_4096")
+    ms = {"flex_fwd": cuda_ms(p.kernel, 20), "flex_fwd_hb": cuda_ms(lambda: p.hb_kernel(g), 20),
+          "flex_dq": cuda_ms(p.dq_kernel, 20), "flex_dkv": cuda_ms(p.dkv_kernel, 20)}
+
+    def causal_sdpa(a, b_, c):
+        def fn():
+            return Fn.scaled_dot_product_attention(a[:, :t].unsqueeze(0), b_[:, :t].unsqueeze(0),
+                                                   c[:, :t].unsqueeze(0), is_causal=True,
+                                                   enable_gqa=True)
+        return fn
+
+    lib_fwd, lib_bwd, why = library_fwd_bwd(causal_sdpa, p.q, p.k, p.v,
+                                            p.do[:, :t].unsqueeze(0))
+    b = flex_bounds(p.meta.total_area, t, hq, hk, d, False)
+    for name, kind, lib in (("flex_fwd", "fwd", lib_fwd), ("flex_fwd_hb", "fwd", lib_fwd),
+                            ("flex_dq", "dq", lib_bwd), ("flex_dkv", "dkv", None)):
+        recs[name] = {"ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                      "bound_by": b[kind][1], "library_ms": lib}
+    line["prefill_4096"] = {"ms": ms, "plain_ms_by_head": plain, "area": p.meta.total_area,
+                            "library": "scaled_dot_product_attention(is_causal, enable_gqa)",
+                            "library_fwd_ms": lib_fwd, "library_bwd_ms_for_dq_dk_dv": lib_bwd,
+                            "library_note": why}
+    del p
+    torch.cuda.empty_cache()
+    t = D256_T
+    hqr, hkr, hty = split_slices(varlen_block_causal(t))
+    docs = sorted({a for a, _ in hqr} | {b_ for _, b_ in hqr})
+    cu = torch.tensor(docs, dtype=torch.int32, device="cuda")
+    max_len = int(torch.diff(cu).max())
+    p = Flex(gen, t, t, hq, hk, hqr, hkr, hty, d=d, head_block=1)
+    plain = held_by_head(p, "d256_hetero_hb1", sparse=True)
+    ms = {"flex_fwd_sparse": cuda_ms(p.sparse_kernel, 20)}
+    p.set_head_block(g)
+    held_by_head(p, f"d256_hetero_hb{g}", sparse=True)
+    ms.update({"flex_fwd_sparse_hb": cuda_ms(p.sparse_kernel, 20),
+               "flex_dq_sparse": cuda_ms(p.dq_sparse_kernel, 20),
+               "flex_dkv_sparse": cuda_ms(p.dkv_sparse_kernel, 20)})
+    lib_name = None
+
+    def lib_of(a, b_, c):
+        nonlocal lib_name
+        fn, lib_name = library_attention(*(x[:, :t].transpose(0, 1).contiguous()
+                                           for x in (a, b_, c)), cu, max_len)
+        return fn
+
+    lib_fwd, lib_bwd, why = library_fwd_bwd(lib_of, p.q, p.k, p.v, p.do[:, :t].transpose(0, 1))
+    b = flex_bounds(p.meta.total_area, t, hq, hk, d, False)
+    for name, kind, lib in (("flex_fwd_sparse", "fwd", lib_fwd),
+                            ("flex_fwd_sparse_hb", "fwd", lib_fwd),
+                            ("flex_dq_sparse", "dq", lib_bwd), ("flex_dkv_sparse", "dkv", None)):
+        recs[name] = {"ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                      "bound_by": b[kind][1], "library_ms": lib}
+    line["hetero_16384"] = {"ms": ms, "plain_ms_by_head": plain, "area": p.meta.total_area,
+                            "library": lib_name, "library_fwd_ms": lib_fwd,
+                            "library_bwd_ms_for_dq_dk_dv": lib_bwd, "library_note": why}
+    del p
+    torch.cuda.empty_cache()
+    recs["paged_decode"] = serving_line["decode_timing"]
+    line["serving_decode"] = serving_line["decode_timing"]
+    line["share_of_bound"] = {n: r["bound_ms"] / r["ms"] for n, r in recs.items()}
+    return line, recs
+
+
+def gemma_layer(seed: int) -> dict:
+    """One attention layer at Gemma-2-9B's widths with seeded bf16 weights:
+    a token embedding [vocab, 3584], the q / k / v projection [3584,
+    (16 + 2 x 8) x 256], the output projection [16 x 256, 3584] and a head
+    [3584, vocab] over the greedy loop's toy vocabulary."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    width = (GEMMA_HQ + 2 * GEMMA_HK) * D256
+
+    def dense(rows, cols):
+        return (torch.randn((rows, cols), generator=gen, device="cuda") / rows ** 0.5).to(
+            torch.bfloat16)
+
+    return {"embed": torch.randn((WIDE_SERVING_VOCAB, GEMMA_DIM), generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+            "wqkv": dense(GEMMA_DIM, width), "wo": dense(GEMMA_HQ * D256, GEMMA_DIM),
+            "head": dense(GEMMA_DIM, WIDE_SERVING_VOCAB), "gen": gen}
+
+
+def serving_d256(seed: int) -> dict:
+    """``ServingEngine`` at Gemma-2-9B's attention (16 q / 8 kv heads of
+    d 256, softcap 50, scale 256^-0.5, bf16, pages of 128) through one
+    attention layer of seeded weights (:func:`gemma_layer`): the 8 serving
+    prompts (1,000-8,000 tokens, the 6,500-token one prefilled in chunks of
+    :data:`D256_SERVING_CHUNK`), then :data:`WIDE_SERVING_STEPS` greedy
+    decode steps of all 8, each step's token the argmax of the layer's
+    output through the head and its next q / k / v the projection of that
+    token's embedding. Every prefill goes through ``flex_fwd_hb`` and every
+    step through one ``paged_decode`` at G 2; each step's output is held
+    against the plain decode's (``decode_reference``) within the kernel's
+    bounds, and the greedy tokens must equal the plain decode's but at
+    counted near ties (:data:`WIDE_SERVING_TIE`). Then ``paged_decode``
+    alone on the final batch: its device ms beside the plain version's,
+    SDPA's over the gathered cache and the card's bound."""
+    import torch
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.serving import ServingEngine, decode_reference, gather_kv
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    hq, hk, d = GEMMA_HQ, GEMMA_HK, D256
+    layer = gemma_layer(seed)
+    gen = layer["gen"]
+    scale = D256 ** -0.5  # query_pre_attn_scalar 256
+    kw = dict(scale=scale, softcap=GEMMA_SOFTCAP)
+
+    def qkv(tokens):
+        x = (layer["embed"][tokens] @ layer["wqkv"]).view(len(tokens), hq + 2 * hk, d)
+        return (x[:, :hq].contiguous(), x[:, hq:hq + hk].contiguous(),
+                x[:, hq + hk:].contiguous())
+
+    def logits(out):
+        return (out.flatten(1).to(torch.bfloat16) @ layer["wo"]).float() @ \
+            layer["head"].float()
+
+    lens = WIDE_DECODE_LENS
+    pages = sum(-(-(n + WIDE_SERVING_STEPS) // PAGE) for n in lens) + 8
+    engine = ServingEngine(num_pages=pages, num_kv_heads=hk, head_dim=d, page_size=PAGE,
+                           max_seqs=len(lens),
+                           max_pages_per_seq=-(-(max(lens) + WIDE_SERVING_STEPS) // PAGE),
+                           dtype=torch.bfloat16)
+    csrc.reset_launch_counts()
+    slots, last, prefill_ms = [], [], []
+    for i, n in enumerate(lens):
+        prompt = torch.randint(0, WIDE_SERVING_VOCAB, (n,), generator=gen, device="cuda")
+        res = engine.admit(n)
+        check(res.admitted, f"serving_d256: admission {res}")
+        chunked = i == D256_SERVING_CHUNKED
+        with magi_flags(PREFILL_CHUNK=D256_SERVING_CHUNK if chunked else None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = engine.prefill(*qkv(prompt), res.slot, **kw)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        last.append(int(logits(out[-1:]).argmax()))
+        slots.append(res.slot)
+    prefill_launches = {n: c for n, c in csrc.launches.items() if c}
+    check(set(prefill_launches) == {"flex_fwd_hb"},
+          f"serving_d256: the prefills launched {prefill_launches}, not flex_fwd_hb alone")
+    idx = torch.as_tensor(slots, device="cuda")
+    tokens, device_ms, host_ms = [last], [], []
+    worst, near_ties = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}, []
+    csrc.reset_launch_counts()
+    for _ in range(WIDE_SERVING_STEPS):
+        q, k, v = qkv(torch.as_tensor(tokens[-1], device="cuda"))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out, lse = engine.decode_step(q, k, v, slots, **kw)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        ref, ref_lse = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
+                                        engine.cache.seq_lens[idx], **kw)
+        errs, failed = out_errors(out, ref, [("lse", lse, ref_lse)])
+        check(not failed, f"serving_d256 step {len(tokens)}: paged_decode fails the {failed} "
+              f"check(s): {errs}")
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+        got_l, ref_l = logits(out), logits(ref)
+        got, want = got_l.argmax(1).tolist(), ref_l.argmax(1).tolist()
+        for i, (a, w) in enumerate(zip(got, want)):
+            if a == w:
+                continue
+            margin, spread = float(ref_l[i, w] - ref_l[i, a]), float(ref_l[i].std())
+            check(margin <= WIDE_SERVING_TIE * spread,
+                  f"serving_d256 step {len(tokens)}: kernel token {a} != plain token {w} at a "
+                  f"plain margin of {margin / spread:.3g} of the logits' spread")
+            near_ties.append({"step": len(tokens), "sequence": i, "margin_over_spread":
+                              margin / spread})
+        tokens.append(got)
+    decode_launches = {n: c for n, c in csrc.launches.items() if c}
+    check(decode_launches == {"paged_decode": WIDE_SERVING_STEPS},
+          f"serving_d256: decode launches {decode_launches}")
+    # paged_decode alone on the final batch, beside its plain version, SDPA and the bound
+    cache, b = engine.cache, len(slots)
+    bt, seq_lens = cache.block_tables[idx], cache.seq_lens[idx]
+    splits = da.resolve_num_splits(None, cache, b, hq)
+    prm = da.DecodeParams(scale, GEMMA_SOFTCAP, splits, torch.bfloat16)
+    qd = q.contiguous()
+    kernel_ms = uncounted(lambda: cuda_ms(
+        lambda: da._decode_partials_kernel(qd, cache, bt, seq_lens, prm), reps=50))
+    plain_ms = cuda_ms(lambda: da._decode_torch(qd, cache, bt, seq_lens, prm), reps=5, warmup=1)
+    lmax = max(engine.length(s) for s in slots)
+    kv = [gather_kv(cache, s, max_len=lmax) for s in slots]
+    kk = torch.stack([x[0] for x in kv]).transpose(1, 2)
+    vv = torch.stack([x[1] for x in kv]).transpose(1, 2)
+    mask = (torch.arange(lmax, device="cuda")[None] < seq_lens[:, None].long())[:, None, None, :]
+    lib_ms = cuda_ms(lambda: Fn.scaled_dot_product_attention(
+        qd[:, :, None, :], kk, vv, attn_mask=mask, scale=scale, enable_gqa=True), reps=50)
+    cached = int(seq_lens.sum())
+    bound_ms, bound_by = decode_bound(cached, b, splits, bt.numel(), hq, hk, d)
+    del engine, kk, vv, kv
+    torch.cuda.empty_cache()
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    launches = {**prefill_launches}
+    for n, c in decode_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    return {"phase": "serving_d256", "card": nvidia_smi_line(),
+            "layout": {"hq": hq, "hk": hk, "head_dim": d, "page_size": PAGE, "dim": GEMMA_DIM,
+                       "softcap": GEMMA_SOFTCAP, "scale": scale, "dtype": "bfloat16"},
+            "source": "google/gemma-2-9b config.json (attention widths; one layer, seeded "
+                      "weights, a 4096-token toy vocabulary)",
+            "prompts": list(lens), "chunked_prompt": {"tokens": lens[D256_SERVING_CHUNKED],
+                                                      "chunk": D256_SERVING_CHUNK},
+            "prefill_ms": prefill_ms, "steps": WIDE_SERVING_STEPS,
+            "tokens": len(lens) * WIDE_SERVING_STEPS,
+            "tokens_equal_plain": len(lens) * WIDE_SERVING_STEPS - len(near_ties),
+            "near_ties": near_ties, **worst,
+            "decode_device_ms_per_step": med(device_ms), "decode_host_ms_per_step": med(host_ms),
+            "decode_timing": {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": lib_ms, "splits": splits,
+                              "cached_tokens": cached, "batch": b},
+            "launches": launches}
+
+
+def attention_d256(gen) -> dict:
+    """Gemma's attention layers at head_dim 256 through
+    ``flex_flash_attn_func``, bf16, forward and backward, the blocking and
+    grid left to the autotuner: (a) a Gemma-2-9B local layer (16 / 8 heads,
+    softcap 50, scale 256^-0.5) on two 8,192-token sequences packed into one
+    call, each under its 4,096-key sliding window (the sparse grid at
+    head_block 2: ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
+    ``flex_dkv_sparse``); (b) a Gemma-7B layer (16 / 16 heads) on the
+    training path's three documents, each causal over itself (the sparse
+    grid at head_block 1: ``flex_fwd_sparse``); (c) the same layer on one
+    causal 8,192-token sequence (row-major at head_block 1: ``flex_fwd``,
+    ``flex_dq``, ``flex_dkv``). Each call is one launch of each kernel,
+    held against :func:`plain_attention` over a mask built on the card
+    from the sequence bounds."""
+    import torch
+    from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    def mask_of(cu, window=None):
+        pos = torch.arange(cu[-1], device="cuda")
+        doc = torch.bucketize(pos, torch.as_tensor(cu[1:], device="cuda"), right=True)
+        mask = (doc[:, None] == doc[None]) & (pos[None] <= pos[:, None])
+        if window is not None:
+            mask &= pos[:, None] - pos[None] < window
+        return mask
+
+    two = [0, GEMMA_CONTEXT, 2 * GEMMA_CONTEXT]
+    docs = [0]
+    for n in TRAIN_DOCS:
+        docs.append(docs[-1] + n)
+    layers = {
+        "gemma2_9b_local": (GEMMA_HQ, GEMMA_HK, GEMMA_SOFTCAP, two, GEMMA_WINDOW, "sparse",
+                            ("flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")),
+        "gemma_7b_packed": (GEMMA7B_HEADS, GEMMA7B_HEADS, 0.0, docs, None, "sparse",
+                            ("flex_fwd_sparse", "flex_dq_sparse", "flex_dkv_sparse")),
+        "gemma_7b_causal": (GEMMA7B_HEADS, GEMMA7B_HEADS, 0.0, [0, GEMMA_CONTEXT], None,
+                            "row_major", ("flex_fwd", "flex_dq", "flex_dkv")),
+    }
+    runs, launches = {}, {}
+    for name, (hq, hk, softcap, cu, window, grid, kernels) in layers.items():
+        t = cu[-1]
+        wsize = (-1, -1) if window is None else (window - 1, 0)
+        qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu, window is None, window_size=wsize)
+        qr, kr, ts = qr.to_naive_ranges(), kr.to_naive_ranges(), [int(x) for x in ts]
+        g = hq // hk
+        choice = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=D256)
+        check(choice == (64, 64, g, grid), f"attention_d256 {name}: the choice is {choice}, "
+              f"not (64, 64, {g}, {grid!r})")
+
+        def rand(h):
+            return torch.randn((t, h, D256), generator=gen, device="cuda").to(torch.bfloat16)
+
+        q, k, v, dout = rand(hq), rand(hk), rand(hk), rand(hq)
+        dlse = torch.randn((t, hq), generator=gen, device="cuda")
+        got = entry_fwd_bwd(lambda q, k, v: fa.flex_flash_attn_func(
+            q, k, v, qr, kr, ts, scale=D256 ** -0.5, softcap=softcap), q, k, v, dout, dlse)
+        want = {n: 1 for n in kernels}
+        check(got["launches"] == want,
+              f"attention_d256 {name}: launches {got['launches']}, expected {want}")
+        for n in kernels:
+            launches[n] = launches.get(n, 0) + 1
+        mask = mask_of(cu, window)
+        ref = plain_attention(q, k, v, mask, dout, dlse, softcap=softcap)
+        check_against_plain(f"attention_d256_{name}", got, ref, *kernels)
+        runs[name] = {"hq": hq, "hk": hk, "softcap": softcap, "sequences": [y - x for x, y in zip(cu, cu[1:])],
+                      "window": window, "pairs": int(mask.sum()),
+                      "choice": dict(zip(("block_q", "block_k", "head_block", "grid"), choice)),
+                      "fwd_bwd_wall_ms": got["wall_ms"]}
+        del q, k, v, dout, dlse, got, ref, mask
+        torch.cuda.empty_cache()
+    return {"phase": "attention_d256", "card": nvidia_smi_line(), "head_dim": D256,
+            "dtype": "bfloat16",
+            "source": "google/gemma-2-9b config.json (16 / 8 heads, softcap 50, sliding_window "
+                      "4096, 8192-token context); google/gemma-7b config.json (16 / 16 heads)",
+            "runs": runs, "launches": launches}
+
+
+def training_d256(seed: int) -> dict:
+    """``MagiLlama`` at Gemma-2-9B's widths (dim 3584, 16 / 8 heads of d
+    256, ffn 14336; SwiGLU and Llama's norms, not Gemma's GeGLU and extra
+    norms), cut to :data:`D256_TRAIN_LAYERS` layers and a
+    :data:`D256_TRAIN_VOCAB` vocabulary, on the training path's 8192-token
+    stream of three documents: :data:`D256_TRAIN_STEPS` AdamW steps on the
+    kernels (``flex_fwd_hb``, ``flex_dq``, ``flex_dkv``), the first step's
+    loss and every parameter gradient held against the same model (the same
+    seeded weights) on the dense plain versions
+    (``MAGI_ATTENTION_KERNEL_BACKEND=torch``) within the training phases'
+    tolerances (``CP_LOSS_ATOL``, ``CP_GRAD_REL_L2``), and the first
+    layer's attention call against the plain forward and backward under the
+    kernels phase's bounds. Step ms, tokens/s and peak memory."""
+    import torch
+    from magiattention_tpu_torch import csrc
+    from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
+    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+    from magiattention_tpu_torch.ops import flex_attn_with_meta
+
+    cfg = LlamaConfig(vocab_size=D256_TRAIN_VOCAB, dim=GEMMA_DIM, n_layers=D256_TRAIN_LAYERS,
+                      n_heads=GEMMA_HQ, n_kv_heads=GEMMA_HK, head_dim=D256, ffn_hidden=GEMMA_FFN,
+                      rope_theta=10000.0)
+    total = sum(TRAIN_DOCS)
+    qr, kr, ts = infer_varlen_mask_from_batch(TRAIN_DOCS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (total,), generator=gen, device="cuda")
+    labels, pos = torch.roll(tokens, -1), torch.arange(total, device="cuda")
+    torch.cuda.empty_cache()
+    # the plain run first: the same seeded weights, the dense plain attention
+    with magi_flags(KERNEL_BACKEND="torch"):
+        plain = build_magi_llama(cfg, total, qr, kr, ts, seed=seed)
+        csrc.reset_launch_counts()
+        plain_loss = plain.loss(tokens, labels, pos)
+        plain_loss.backward()
+        check(not any(csrc.launches.values()), f"the plain run launched {csrc.launches}")
+    plain_grads = [p.grad.detach().clone() for p in plain.parameters()]
+    plain_loss = float(plain_loss.detach())
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed)
+    choice = (model.meta.block_q, model.meta.block_k, model.head_block)
+    check(choice == (64, 64, 2), f"training_d256: the harness's blocking is {choice}")
+    step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
+    cap = {}
+
+    def capture(q, k, v):
+        out, lse = flex_attn_with_meta(q, k, v, model.meta, out_dtype=cfg.torch_dtype,
+                                       head_block=model.head_block)
+        if not cap:
+            cap.update(q=q.detach(), k=k.detach(), v=v.detach(), out=out.detach(), lse=lse.detach())
+            for name, x in (("dq", q), ("dk", k), ("dv", v), ("dout", out)):
+                x.register_hook(lambda g, name=name: cap.__setitem__(name, g))
+        return out
+
+    losses, step_ms, grad_rel = [], [], {}
+    csrc.reset_launch_counts()
+    for i in range(D256_TRAIN_STEPS):
+        if i == 0:
+            model.attention = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens, labels, pos)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            del model.attention
+            for (name, p), ref in zip(model.named_parameters(), plain_grads):
+                grad_rel[name] = float((p.grad.float() - ref.float()).norm() /
+                                       ref.float().norm().clamp_min(1e-30))
+    launches = {n: c for n, c in csrc.launches.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    expected = D256_TRAIN_LAYERS * D256_TRAIN_STEPS
+    check(launches == {n: expected for n in TRAINING_KERNELS},
+          f"training_d256 launches {launches}, expected {expected} of each of "
+          f"{TRAINING_KERNELS}")
+    check(all(math.isfinite(x) for x in losses), f"training_d256: non-finite loss {losses}")
+    check(abs(losses[0] - plain_loss) <= CP_LOSS_ATOL,
+          f"training_d256: the first loss {losses[0]} vs the plain run's {plain_loss}")
+    worst = max(grad_rel, key=grad_rel.get)
+    check(grad_rel[worst] <= CP_GRAD_REL_L2,
+          f"training_d256: {worst}'s first-step gradient is {grad_rel[worst]:.3g} relative L2 "
+          "off the plain run's")
+    check(set(cap) == {"q", "k", "v", "out", "lse", "dq", "dk", "dv", "dout"},
+          f"training_d256: the first attention call captured only {sorted(cap)}")
+    attention_check(model, cap)
+    del cap, step, model, plain_grads
+    torch.cuda.empty_cache()
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    return {
+        "phase": "training_d256", "card": nvidia_smi_line(),
+        "config": dataclasses.asdict(cfg),
+        "source": "google/gemma-2-9b config.json widths (hidden 3584, 16 / 8 heads, head_dim "
+                  "256, intermediate 14336); MagiLlama's SwiGLU and norms, not Gemma's",
+        "cut": f"n_layers {GEMMA_LAYERS} -> {D256_TRAIN_LAYERS}, vocab 256000 -> "
+               f"{D256_TRAIN_VOCAB} (the training path's)",
+        "docs": TRAIN_DOCS, "tokens_per_step": total,
+        "losses": losses, "plain_first_loss": plain_loss,
+        "first_loss_abs_diff": abs(losses[0] - plain_loss),
+        "grad_rel_l2_worst": {"param": worst, "rel_l2": grad_rel[worst]},
+        "tolerance": {"loss_abs": CP_LOSS_ATOL, "grad_rel_l2": CP_GRAD_REL_L2},
+        "step_ms": step_ms, "median_step_ms_steps_2_to_3": med,
+        "tokens_per_s": total / (med / 1e3), "max_memory_allocated_bytes": peak,
+        "launches": launches,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10162,6 +10907,8 @@ def main(argv=None) -> int:
     # phase keeps the inputs it drew before they were added
     gen_new = torch.Generator(device="cuda")
     gen_new.manual_seed(args.seed + NEW_CASES_SEED)
+    gen_d256 = torch.Generator(device="cuda")  # the head_dim 256 cases', likewise
+    gen_d256.manual_seed(args.seed + D256_CASES_SEED)
     flex_cases(gen)
     hb_line = hb_cases(gen)
     emit({"phase": "kernels", "kernel": "flex_fwd_hb", **hb_line})
@@ -10169,6 +10916,7 @@ def main(argv=None) -> int:
           "caught": fwd_planted_faults(gen, planted)})
     sparse_cases(gen)
     emit(sparse_fwd_cases(gen))
+    emit(repeat_cases(args.seed))
     emit(sparse_bwd_cases(gen))
     emit(narrow_cases(gen))
     emit(f32_cases(gen))
@@ -10194,6 +10942,20 @@ def main(argv=None) -> int:
     narrow_t.update(wide_t)
     wide_serving_line = wide_serving(args.seed)
     emit(wide_serving_line)
+    torch.cuda.empty_cache()
+    # head_dim 256 (Gemma-2-9B's attention): the kernel cases, the planted
+    # faults, the serving path, the kernels' times
+    emit(d256_cases(gen_d256))
+    emit(d256_decode_cases(gen_d256))
+    emit({"phase": "planted_faults", "case": "d256_walks",
+          "caught": d256_planted_faults(gen_d256, planted)})
+    serving_d256_line = serving_d256(args.seed)
+    emit(serving_d256_line)
+    d256_line, d256_t = d256_timing(gen_d256, serving_d256_line)
+    emit(d256_line)
+    attn_d256_line = attention_d256(gen_d256)
+    emit(attn_d256_line)
+    torch.cuda.empty_cache()
 
     summary, engine, slots = serving(gen)
     emit(summary)
@@ -10231,6 +10993,9 @@ def main(argv=None) -> int:
     grads_path = os.path.join(scratch, "cp1_grads.pt")
     train = training(args.seed, grads_path)
     emit(train)
+    torch.cuda.empty_cache()
+    train_d256 = training_d256(args.seed)
+    emit(train_d256)
     torch.cuda.empty_cache()
 
     hetero_line, hetero_t = hetero(gen, planted)
@@ -10334,7 +11099,10 @@ def main(argv=None) -> int:
                "telemetry": telemetry_line["launches"], "profiling": profiling_line["launches"],
                "tuning": tuning_line["launches"], "analysis": analysis_line["launches"],
                "fleet": fleet_line["launches"], "instrument": instrument_line["launches"],
-               "wide_serving": wide_serving_line["launches"]}
+               "wide_serving": wide_serving_line["launches"],
+               "serving_d256": serving_d256_line["launches"],
+               "attention_d256": attn_d256_line["launches"],
+               "training_d256": train_d256["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),
@@ -10357,8 +11125,10 @@ def main(argv=None) -> int:
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": MAX_ERR[name],
             **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            # the same keys at this slice's new widths (narrow_timing): d 32 bf16, d 32 f32
+            # the same keys at the newer widths (narrow_timing): d 32 bf16, d 32 f32
             **({"at_new_widths": narrow_t[name]} if name in narrow_t else {}),
+            # and at head_dim 256 (d256_timing)
+            "at_d256": d256_t[name],
         })
     # every path's launches are in the line: a phase cannot launch unseen
     launched = {(p, n) for p, counts in by_path.items() for n, c in counts.items() if c}

@@ -32,7 +32,9 @@
 // head_dim 32, 64 or 128 (the flex kernels' widths), any number of q heads
 // per kv head: a group past what one walk keeps in registers runs as row
 // tiles of one walk over each K/V chunk it loads (decode_wide_sm90.cuh,
-// decode_simt.cuh's WIDE mode).
+// decode_simt.cuh's WIDE mode). head_dim 256 in bf16 on decode_sm90.cuh's
+// walk, up to 32 q heads a kv head in the flat mode and any number in the
+// shared mode; float32 and the wide walk are not built at 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +78,11 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
     case 32: MAGI_DECODE_LAUNCH(32);
     case 64: MAGI_DECODE_LAUNCH(64);
     case 128: MAGI_DECODE_LAUNCH(128);
+    case 256:
+      if (is_f32 || wide) return cudaErrorInvalidValue;
+      return decode_sm90::launch<256>(q, k_pages, v_pages, block_table, seq_lens, out_parts,
+                                      lse_parts, b, hq, hk, page_size, mpp, num_splits, shared,
+                                      cluster_heads, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 #undef MAGI_DECODE_LAUNCH

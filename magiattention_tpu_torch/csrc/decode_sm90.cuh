@@ -61,9 +61,18 @@
 // Grid: (kv heads x cluster blocks, splits, row groups), clusters along x;
 // NWARPS * 32 threads. Row i of a launch is q head h * G + i % G of member
 // i / G; a row group is one sequence's G rows (flat mode) or up to 32 rows
-// across members (shared). Head dims 32, 64 and 128: a d-32 row is 64
+// across members (shared). Head dims 32, 64, 128 and 256: a d-32 row is 64
 // bytes, four 16-byte cp.async copies, and its 80-byte padded shared row
 // keeps an ldmatrix phase's 8 rows on distinct banks as the wider ones do.
+//
+// d = 256 (Gemma's width): a chunk's K and V take 16.5 KB, so each warp's
+// ring has two stages (one chunk in flight while it computes one: 198 KB
+// for the six warps), q is read from shared memory at every chunk, and a
+// walk holds one m16 tile of rows (its accumulator alone is 128 registers a
+// thread; two tiles would pass the 255 a thread can have): a flat-mode
+// group past 16 q heads is cut into row tiles of at most 16 rows, each a
+// walk of its own over the sequence's pages (the group's K/V read once per
+// tile), and the shared mode serves 16 rows a walk.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -86,6 +95,13 @@ constexpr int CH = 16;        // tokens a chunk: the k depth of one P.V product
 constexpr int STAGES = 4;     // each warp's ring of chunk buffers
 constexpr int MAX_ROWS = 32;  // shared mode: two m16 tiles across members
 constexpr int MAX_CLUSTER = 8;  // blocks sharing one walk (the portable cluster limit)
+constexpr int WIDE_D_ROWS = 16;  // d = 256: the rows of a walk (one m16 tile)
+
+// Each warp's ring of chunk buffers: STAGES, two at d = 256 (see the top).
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 128 ? 2 : STAGES;
+}
 
 // Shared-memory rows of D bf16 padded by 16 bytes: the 8 rows an ldmatrix
 // phase reads fall on distinct banks.
@@ -99,7 +115,8 @@ __host__ __device__ constexpr int stage_elems() {  // one chunk's K and V
 }
 template <int D, int MT>
 constexpr size_t fixed_smem() {  // the rings and the q rows
-  return sizeof(bf16) * ((size_t)NWARPS * STAGES * stage_elems<D>() + MT * 16 * row_elems<D>());
+  return sizeof(bf16) *
+         ((size_t)NWARPS * stages<D>() * stage_elems<D>() + MT * 16 * row_elems<D>());
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -163,6 +180,8 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   constexpr int RE = row_elems<D>();
   constexpr int ROWS = MT * 16;
   constexpr int DN = D / 8;  // n8 tiles of the accumulator
+  constexpr int STAGES = stages<D>();  // this width's ring depth
+  static_assert(D <= 128 || MT == 1, "d = 256 walks hold one m16 tile of rows");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* sQ = ring + NWARPS * STAGES * stage_elems<D>();  // [ROWS][RE]
@@ -171,9 +190,12 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int nblk = cluster.num_blocks(), rank = cluster.block_rank();
   const int h = blockIdx.x / nblk, s = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tb = shared ? 0 : z;  // the block-table row this group reads
-  const int row0 = z * rows_per_block;
-  const int rows = min(rows_per_block, rows_total - row0);
+  // flat mode: a sequence's group in row tiles of rows_per_block rows, gps
+  // of them a sequence (the last may be shorter; gps is 1 but at d = 256)
+  const int gps = shared ? 1 : (group + rows_per_block - 1) / rows_per_block;
+  const int tb = shared ? 0 : z / gps;  // the block-table row this group reads
+  const int row0 = shared ? z * rows_per_block : tb * group + (z % gps) * rows_per_block;
+  const int rows = min(rows_per_block, (shared ? rows_total : (tb + 1) * group) - row0);
   const int pps = mpp / splits;
   const int* bt_split = bt + (size_t)tb * mpp + s * pps;  // the split's page ids
   // the split's live tokens: positions s * pps * ps + [0, n)
@@ -240,9 +262,11 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int dn = 0; dn < DN; ++dn)
       acc[mt][dn][0] = acc[mt][dn][1] = acc[mt][dn][2] = acc[mt][dn][3] = 0.f;
   }
-  // one m16 tile: its q fragments stay in registers for the walk
-  uint32_t qreg[MT == 1 ? D / 16 : 1][4];
-  if constexpr (MT == 1) {
+  // one m16 tile: its q fragments stay in registers for the walk (not at d
+  // = 256, where they would take 64 registers beside the accumulator's 128)
+  constexpr bool Q_REGS = MT == 1 && D <= 128;
+  uint32_t qreg[Q_REGS ? D / 16 : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       ldmatrix_x4(qreg[kk], sQ + (lane & 15) * RE + kk * 16 + (lane >> 4) * 8);
@@ -279,7 +303,7 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t qa[4];
-        if constexpr (MT == 1) {
+        if constexpr (Q_REGS) {
 #pragma unroll
           for (int x = 0; x < 4; ++x) qa[x] = qreg[kk][x];
         } else {
@@ -486,13 +510,18 @@ cudaError_t launch_mt(const bf16* q, const bf16* kp, const bf16* vp, const int* 
   constexpr int ROWS = MT * 16;
   const size_t smem = fixed_smem<D, MT>();
   static_assert((NWARPS * (2 * ROWS + ROWS * D) + 2 * ROWS + ROWS * D) * sizeof(float) <=
-                    NWARPS * STAGES * stage_elems<D>() * sizeof(bf16),
+                    NWARPS * stages<D>() * stage_elems<D>() * sizeof(bf16),
                 "the merge buffers fit in the rings");
+  static_assert(fixed_smem<D, MT>() <= 232448, "a block's shared memory fits an SM");
   auto kernel = paged_decode_mma<D, MT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int groups = (rows_total + rows_per_block - 1) / rows_per_block;
+  // row groups: rows_per_block rows each, in the flat mode a sequence's
+  // row tiles
+  const int group = hq / hk;
+  const int groups = shared ? (rows_total + rows_per_block - 1) / rows_per_block
+                            : rows_total / group * ((group + rows_per_block - 1) / rows_per_block);
   const int c = cluster_blocks(cluster_heads * splits * groups, mpp / splits * ps);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(hk * c, splits, groups);
@@ -526,13 +555,17 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const void* bt
   const int group = hq / hk;
   if (cluster_heads < hk || (!shared && group > MAX_ROWS)) return cudaErrorInvalidValue;
   const int rows_total = b * group;
-  const int rows_per_block = shared ? min(rows_total, MAX_ROWS) : group;
+  // one m16 tile a walk at d = 256 (see the top), up to two below
+  const int rows_per_block = min(shared ? rows_total : group, D > 128 ? WIDE_D_ROWS : MAX_ROWS);
 #define MAGI_DECODE_MT(MT)                                                                   \
   launch_mt<D, MT>((const bf16*)q, (const bf16*)kp, (const bf16*)vp, (const int*)bt,          \
                    (const int*)sl, (float*)out_parts, (float*)lse_parts, hq, hk, rows_total,  \
                    rows_per_block, shared, ps, mpp, splits, cluster_heads, scale, softcap,   \
                    stream)
-  return rows_per_block > 16 ? MAGI_DECODE_MT(2) : MAGI_DECODE_MT(1);
+  if constexpr (D <= 128) {
+    if (rows_per_block > 16) return MAGI_DECODE_MT(2);
+  }
+  return MAGI_DECODE_MT(1);
 #undef MAGI_DECODE_MT
 }
 

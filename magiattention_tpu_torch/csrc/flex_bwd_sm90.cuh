@@ -58,6 +58,18 @@
 //   block, whose one item leaves the ring free, hands both partials over at
 //   once through the ring.)
 //
+// d = 256 (Gemma's width): a 64-row tile is 32 KB. The layouts keep what
+// fits an SM's 227 KB: dq one or two ring stages beside its resident Q and
+// dO (DqLayout::STG), dk/dv two stages beside one resident K/V buffer or one
+// beside two. dK and dV of a 64-key tile at d = 256 would take 256
+// registers a thread in one warpgroup, past the 255 a thread can have, so
+// the dk/dv walk changes shape (dkv_consumer_halves): both warpgroups take
+// every (entry, q head) step, each computes S^T and dP^T over the whole d
+// and accumulates dK and dV over its own half of the columns (128 + 128
+// registers' worth split as 64 + 64 a thread), and nothing is handed over at
+// the end. The score products are computed twice (1.5x the tensor-core work
+// of a step), and no register holds more than a warpgroup's half.
+//
 // Determinism: no atomics on data. Each item is computed whole by one block
 // and writes its own output rows; where the two warpgroups split a walk, the
 // split is fixed by the walk's order and their two partial sums are added
@@ -100,33 +112,51 @@ struct Bars {
 };
 
 // dq's shared memory, from a 1024-byte aligned base: RES resident buffers of
-// the Q and dO tiles of NH q heads, then K and V per ring stage, then the
-// barriers and item slots.
+// the Q and dO tiles of NH q heads, then K and V per ring stage (STG of
+// them: STAGES, or at d = 256 what fits beside the resident buffers), then
+// the barriers and item slots.
 template <int D, int NH, int RES>
 struct DqLayout {
   static constexpr int TB = tile_bytes<D>();
   static constexpr int RESIDENT = 2 * NH * TB;  // one resident buffer
   static constexpr int RING = RES * RESIDENT;
-  static constexpr int BARS = RING + STAGES * 2 * TB;
+  static constexpr int STG = D <= 128 ? STAGES : RES * NH == 1 ? 2 : 1;
+  static constexpr int BARS = RING + STG * 2 * TB;
   static constexpr int BYTES = BARS + SCHED_BYTES;
   static constexpr int ALLOC = BYTES + 1024;  // the dynamic allocation, with room to align
+  static_assert(ALLOC <= 232448, "a block's shared memory fits an SM");
+  // NH = 1: the warpgroups take every other fill, each from stages of its
+  // own; on one stage a warpgroup's wait would pass on a phase two behind
+  static_assert(NH == 2 || STG >= 2, "a split walk needs two ring stages");
 };
 
 // dk/dv's: RES resident buffers of the K and V tiles, then Q and dO per
-// ring stage, then each stage's 64 lse and 64 delta_eff values, then each
-// consumer warpgroup's two buffers of per-row k-intervals [lo | hi], then
-// the barriers and item slots.
+// ring stage (STG of them, as dq's), then each stage's 64 lse and 64
+// delta_eff values, then each consumer warpgroup's two buffers of per-row
+// k-intervals [lo | hi], then the barriers and item slots.
 template <int D, int RES>
 struct DkvLayout {
   static constexpr int TB = tile_bytes<D>();
   static constexpr int RESIDENT = 2 * TB;
   static constexpr int RING = RES * RESIDENT;
-  static constexpr int VEC = RING + STAGES * 2 * TB;
-  static constexpr int IV = VEC + STAGES * 2 * BQ * 4;
+  static constexpr int STG = D <= 128 ? STAGES : RES == 1 ? 2 : 1;
+  static constexpr int VEC = RING + STG * 2 * TB;
+  static constexpr int IV = VEC + STG * 2 * BQ * 4;
   static constexpr int BARS = IV + CONSUMERS * 2 * 2 * BQ * 4;
   static constexpr int BYTES = BARS + SCHED_BYTES;
   static constexpr int ALLOC = BYTES + 1024;
+  static_assert(ALLOC <= 232448, "a block's shared memory fits an SM");
 };
+
+// The dK and dV columns (in 8s) a consumer warpgroup of a dk/dv item
+// accumulates: all d of them, or at d = 256 its half (dkv_consumer_halves).
+template <int D>
+constexpr int DKV_J = D <= 128 ? D / 8 : D / 16;
+
+// The warps that read a dk/dv ring stage: one warpgroup's, or at d = 256
+// both warpgroups' (each takes every step).
+template <int D>
+constexpr int DKV_STAGE_READERS = D <= 128 ? WG_THREADS / 32 : CONSUMER_WARPS;
 
 // By one thread, before the roles split. A full barrier completes on the
 // producer's one arrival and its bytes; a ring stage's empty one on one
@@ -261,8 +291,8 @@ __device__ __forceinline__ int dq_producer(const CUtensorMap* tm_q, const CUtens
     if (kb == loaded) continue;
     loaded = kb;
     const int f = ring + fills;
-    const int st = f % STAGES;
-    mbar_wait(bars.empty(st), ((f / STAGES) & 1) ^ 1);
+    const int st = f % L::STG;
+    mbar_wait(bars.empty(st), ((f / L::STG) & 1) ^ 1);
     mbar_expect_tx(bars.full(st), 2 * L::TB);
     const uint32_t dst = base + L::RING + st * 2 * L::TB;
     const int row = kvh * tkp + kb * BK;
@@ -316,11 +346,11 @@ __device__ __forceinline__ int dq_consumer(
   int e = e_begin - 1, step = -1, kb = -1, held = -1;
   while (next_entry<NH == 1>(kblk, e, e_end, step, kb, wg)) {
     const int f = ring + step;
-    const uint32_t sk = base + L::RING + (f % STAGES) * 2 * L::TB, sv = sk + L::TB;
+    const uint32_t sk = base + L::RING + (f % L::STG) * 2 * L::TB, sv = sk + L::TB;
     if (step != held) {  // a new k block: done with the last one's K and V
-      if (held >= 0) release_stage(bars.empty((ring + held) % STAGES));
+      if (held >= 0) release_stage(bars.empty((ring + held) % L::STG));
       held = step;
-      mbar_wait(bars.full(f % STAGES), (f / STAGES) & 1);
+      mbar_wait(bars.full(f % L::STG), (f / L::STG) & 1);
     }
 
     // S = Q K^T and dP = dO V^T, 64 rows x 64 keys; the entry's mask
@@ -362,7 +392,7 @@ __device__ __forceinline__ int dq_consumer(
     fence_regs(acc);
     fence_regs(a);
   }
-  if (held >= 0) release_stage(bars.empty((ring + held) % STAGES));  // the last K and V
+  if (held >= 0) release_stage(bars.empty((ring + held) % L::STG));  // the last K and V
 
   float* out = dq + (size_t)h * tqp * D;
   const int row0 = i * BQ + r0;
@@ -422,8 +452,8 @@ __device__ __forceinline__ int dkv_producer(
   for (int e = e_begin; e < e_end; ++e) {
     const int qb = qblk[e];
     for (int gi = 0; gi < group; ++gi, ++f) {
-      const int st = f % STAGES;
-      mbar_wait(bars.empty(st), ((f / STAGES) & 1) ^ 1);
+      const int st = f % L::STG;
+      mbar_wait(bars.empty(st), ((f / L::STG) & 1) ^ 1);
       mbar_expect_tx(bars.full(st), 2 * L::TB + 2 * BQ * 4);
       const int q0 = (hk * group + gi) * tqp + qb * BQ;
       const uint32_t dst = base + L::RING + st * 2 * L::TB;
@@ -474,9 +504,9 @@ __device__ __forceinline__ int dkv_consumer(
   for (int m = wg; m < steps; m += CONSUMERS) {
     const int e = e_begin + m / group;
     const int f = ring + m;
-    const int stage = f % STAGES;
+    const int stage = f % L::STG;
     const uint32_t sq = base + L::RING + stage * 2 * L::TB, sdo = sq + L::TB;
-    mbar_wait(bars.full(stage), (f / STAGES) & 1);
+    mbar_wait(bars.full(stage), (f / L::STG) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 query rows
     float st[BQ / 8][4], dpt[BQ / 8][4];
@@ -584,6 +614,144 @@ __device__ __forceinline__ int dkv_consumer(
     }
   }
   return ring + steps;
+}
+
+// Columns c0 .. c0 + 8 N - 1 of this thread's two rows, row and row + 8, of
+// a [rows, W] f32 array, from acc's N column groups, times scale.
+template <int W, int N>
+__device__ __forceinline__ void store_cols_at(float* out, const float (&acc)[N][4], int row,
+                                              int c0, int t4, float scale) {
+  float* p0 = out + (size_t)row * W + c0 + 2 * t4;
+  float* p1 = p0 + 8 * W;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    store2(p0 + 8 * j, acc[j][0] * scale, acc[j][1] * scale);
+    store2(p1 + 8 * j, acc[j][2] * scale, acc[j][3] * scale);
+  }
+}
+
+// A consumer warpgroup of a dk/dv item at d = 256: every (entry, q head)
+// step of the walk in order, the two warpgroups each computing S^T and dP^T
+// over the whole d and accumulating dK and dV over its own half of the
+// columns (warpgroup wg: columns 128 wg ..), each held in registers alone
+// (dka, dva: zero on entry) and stored by it; nothing is handed over.
+// Returns the running fill count after the item.
+template <int D, int RES>
+__device__ __forceinline__ int dkv_consumer_halves(
+    int wg, unsigned char* smem, uint32_t base, const int* __restrict__ qblk,
+    const int* __restrict__ sid, const int* __restrict__ runs, const int* __restrict__ bounds,
+    int e_begin, int e_end, float* __restrict__ dk, float* __restrict__ dv, int group, int hk,
+    int i, int tkp, float scale, float softcap, int n, int ring, float (&dka)[D / 16][4],
+    float (&dva)[D / 16][4]) {
+  using L = DkvLayout<D, RES>;
+  static_assert(D == 256, "the halves walk is d = 256's: two halves of two chunks each");
+  const Bars bars{base + L::BARS};
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's key rows of the tile: r0 and r0 + 8
+  const int key[2] = {i * BK + r0, i * BK + r0 + 8};
+  const float* vec = reinterpret_cast<const float*>(smem + L::VEC);
+  int* iv = reinterpret_cast<int*>(smem + L::IV) + wg * 2 * 2 * BQ;  // [buffer][lo | hi][row]
+  const int r = n % RES;  // the resident buffer
+  const uint32_t sk = base + r * L::RESIDENT, sv = sk + L::TB;
+  const uint32_t half = wg * 2 * CHUNK_BYTES;  // this warpgroup's columns within a tile
+
+  mbar_wait(bars.res_full(r), (n / RES) & 1);
+  // step m = (entry e_begin + m / group, q head m % group) in ring fill ring + m
+  const int steps = (e_end - e_begin) * group;
+  int buf = 0, last = -1;
+  for (int m = 0; m < steps; ++m) {
+    const int e = e_begin + m / group;
+    const int f = ring + m;
+    const int stage = f % L::STG;
+    const uint32_t sq = base + L::RING + stage * 2 * L::TB, sdo = sq + L::TB;
+    mbar_wait(bars.full(stage), (f / L::STG) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 query rows, over all of d
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    wgmma_fence();
+    two_scores<D>(st, dpt, sk, sq, sv, sdo);
+    wgmma_commit();
+    if (e != last) {
+      // the entry's k-interval per query row, worked out while the products
+      // run, into the buffer not read since this warpgroup's last barrier
+      last = e;
+      buf ^= 1;
+      if (tid < BQ)
+        entry_interval(runs, bounds, sid[e], e, qblk[e] * BQ + tid, iv[buf * 2 * BQ + tid],
+                       iv[buf * 2 * BQ + BQ + tid]);
+      named_sync(BAR_WG + wg, WG_THREADS);
+    }
+    const int* lo = iv + buf * 2 * BQ;
+    const int* hi = lo + BQ;
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const float* s_lse = vec + stage * 2 * BQ;
+    const float* s_delta = s_lse + BQ;
+
+    // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int t = j * 8 + 2 * t4;  // query rows t and t + 1 of the tile
+      const float2 lse2 = *reinterpret_cast<const float2*>(s_lse + t);
+      const float2 dlt2 = *reinterpret_cast<const float2*>(s_delta + t);
+      const int2 lo2 = *reinterpret_cast<const int2*>(lo + t);
+      const int2 hi2 = *reinterpret_cast<const int2*>(hi + t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool odd = c & 1;
+        const float x = odd ? lse2.y : lse2.x;
+        const int k = key[c >> 1];
+        const bool on = k >= (odd ? lo2.y : lo2.x) && k < (odd ? hi2.y : hi2.x);
+        float p, ds;
+        p_ds(logit(st[j][c], scale, softcap), on, x == -INFINITY ? 0.f : x, dpt[j][c],
+             odd ? dlt2.y : dlt2.x, softcap, p, ds);
+        st[j][c] = p;
+        dpt[j][c] = ds;
+      }
+    }
+
+    // this warpgroup's half of dV += P^T dO (P rounded to bf16, dO's type)
+    // and of dK += dS^T Q (dS rounded to bf16, Q's type)
+    uint32_t ap[4][4], ads[4][4];
+    to_a_frags(ap, st);
+    to_a_frags(ads, dpt);
+    wgmma_fence();
+    acc_product(dva, ap, sdo + half);
+    acc_product(dka, ads, sq + half);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(ap);
+    fence_regs(ads);
+    release_stage(bars.empty(stage));
+  }
+  release_stage(bars.res_empty(r));  // every product that read K and V is done
+  const size_t k0 = (size_t)hk * tkp;
+  store_cols_at<D>(dk + k0 * D, dka, i * BK + r0, wg * (D / 2), t4, scale);
+  store_cols_at<D>(dv + k0 * D, dva, i * BK + r0, wg * (D / 2), t4, 1.f);
+  return ring + steps;
+}
+
+// A consumer warpgroup's dk/dv item at any d: dkv_consumer's split walk, or
+// at d = 256 dkv_consumer_halves. dka, dva hold DKV_J<D> column groups.
+template <int D, int RES>
+__device__ __forceinline__ int dkv_item(
+    int wg, unsigned char* smem, uint32_t base, const int* __restrict__ qblk,
+    const int* __restrict__ sid, const int* __restrict__ runs, const int* __restrict__ bounds,
+    int e_begin, int e_end, float* __restrict__ dk, float* __restrict__ dv, int group, int hk,
+    int i, int tkp, float scale, float softcap, int n, int ring, float (&dka)[DKV_J<D>][4],
+    float (&dva)[DKV_J<D>][4]) {
+  if constexpr (D <= 128)
+    return dkv_consumer<D, RES>(wg, smem, base, qblk, sid, runs, bounds, e_begin, e_end, dk, dv,
+                                group, hk, i, tkp, scale, softcap, n, ring, dka, dva);
+  else
+    return dkv_consumer_halves<D, RES>(wg, smem, base, qblk, sid, runs, bounds, e_begin, e_end,
+                                       dk, dv, group, hk, i, tkp, scale, softcap, n, ring, dka,
+                                       dva);
 }
 
 }  // namespace sm90

@@ -31,7 +31,9 @@
 // thread at d = 128, of the 240 the producer's setmaxnreg leaves them). The
 // partials are added once, through shared memory, at the end: a fixed split
 // and no atomics, so the result is the same bits on every run (the
-// reference's deterministic mode).
+// reference's deterministic mode). At d = 256 the partials would not fit a
+// thread's registers: both warpgroups take every step, each over half of
+// dK's and dV's columns (flex_bwd_sm90.cuh's dkv_consumer_halves).
 //
 // Grid: (kv heads, k blocks), the k blocks in the host's launch order
 // (longest walk first, ops/flex_attn.py::walk_order). A k block with no
@@ -64,7 +66,7 @@ flex_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   const int i = order[blockIdx.y];  // k block
   const int hk = blockIdx.x;
   const int e_begin = rs[i], e_end = rs[i] + rc[i];
-  if (threadIdx.x == 0) init_bars(Bars{base + DkvLayout<D, 1>::BARS}, WG_THREADS / 32);
+  if (threadIdx.x == 0) init_bars(Bars{base + DkvLayout<D, 1>::BARS}, DKV_STAGE_READERS<D>);
   __syncthreads();
   // the block's one item: n = 0, the ring from fill 0
   if (threadIdx.x >= CONSUMERS * WG_THREADS) {
@@ -74,11 +76,11 @@ flex_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                          hk, i, tqp, tkp, base, 0, 0);
   } else {
     reg_alloc<CONSUMER_REGS>();
-    float dka[D / 8][4], dva[D / 8][4];
+    float dka[DKV_J<D>][4], dva[DKV_J<D>][4];
     zero(dka);
     zero(dva);
-    dkv_consumer<D, 1>(threadIdx.x / WG_THREADS, smem, base, qblk, sid, runs, bounds, e_begin,
-                       e_end, dk, dv, group, hk, i, tkp, scale, softcap, 0, 0, dka, dva);
+    dkv_item<D, 1>(threadIdx.x / WG_THREADS, smem, base, qblk, sid, runs, bounds, e_begin, e_end,
+                   dk, dv, group, hk, i, tkp, scale, softcap, 0, 0, dka, dva);
   }
 }
 
@@ -148,6 +150,9 @@ int magi_flex_dkv(const void* q, const void* k, const void* v, const void* dout,
                         dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
+                         dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
+    case 256:
+      return launch<256>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
                          dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;

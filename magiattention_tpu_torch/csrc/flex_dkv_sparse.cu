@@ -66,7 +66,7 @@ flex_dkv_sparse_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = smem_u32(smem);
   const Bars bars{base + L::BARS};
   int* slots = reinterpret_cast<int*>(smem + L::BARS + BAR_BYTES);
-  if (threadIdx.x == 0) init_bars(bars, WG_THREADS / 32);
+  if (threadIdx.x == 0) init_bars(bars, DKV_STAGE_READERS<D>);
   __syncthreads();
   if (threadIdx.x >= CONSUMERS * WG_THREADS) {
     reg_dealloc<PRODUCER_REGS>();
@@ -86,16 +86,16 @@ flex_dkv_sparse_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     reg_alloc<CONSUMER_REGS>();
     const int wg = threadIdx.x / WG_THREADS;
-    float dka[D / 8][4], dva[D / 8][4];
+    float dka[DKV_J<D>][4], dva[DKV_J<D>][4];
     int ring = 0;
     for (int n = 0;; ++n) {
       const Item it = take_item(bars, slots, n);
       if (it.idx >= n_items) return;
       zero(dka);
       zero(dva);
-      ring = dkv_consumer<D, RES>(wg, smem, base, qblk, sid, runs, bounds, it.e_begin,
-                                  it.e_end, dk, dv, group, it.head, it.i, tkp, scale, softcap,
-                                  n, ring, dka, dva);
+      ring = dkv_item<D, RES>(wg, smem, base, qblk, sid, runs, bounds, it.e_begin, it.e_end,
+                              dk, dv, group, it.head, it.i, tkp, scale, softcap, n, ring, dka,
+                              dva);
     }
   }
 }
@@ -167,6 +167,10 @@ int magi_flex_dkv_sparse(const void* q, const void* k, const void* v, const void
                         counter, dk, dv, hq, hk, tqp, tkp, nk, n_items, scale, softcap, st);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, work,
+                         counter, dk, dv, hq, hk, tqp, tkp, nk, n_items, scale, softcap,
+                         st);
+    case 256:
+      return launch<256>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, work,
                          counter, dk, dv, hq, hk, tqp, tkp, nk, n_items, scale, softcap,
                          st);
     default:

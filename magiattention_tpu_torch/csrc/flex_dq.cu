@@ -155,6 +155,9 @@ int magi_flex_dq(const void* q, const void* k, const void* v, const void* dout,
     case 128:
       return dispatch<128>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, order,
                            dq, hq, hk, tqp, tkp, nq, scale, softcap, st);
+    case 256:
+      return dispatch<256>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, order,
+                           dq, hq, hk, tqp, tkp, nq, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }

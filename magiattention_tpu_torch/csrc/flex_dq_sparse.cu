@@ -49,9 +49,10 @@ using namespace flex;
 using namespace flex::sm90;
 
 // Resident Q/dO buffers: one at a head pair (64 KB at d = 128 beside the
-// 128 KB ring), two at one head.
-template <int NH>
-constexpr int RESIDENT_BUFFERS = NH == 2 ? 1 : 2;
+// 128 KB ring), two at one head; one at d = 256, where a head's split walk
+// needs its two ring stages (flex_bwd_sm90.cuh's DqLayout).
+template <int D, int NH>
+constexpr int RESIDENT_BUFFERS = NH == 2 || D > 128 ? 1 : 2;
 
 template <int D, int NH>
 __global__ void __launch_bounds__(WS_THREADS, 1)
@@ -65,7 +66,7 @@ flex_dq_sparse_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const int* __restrict__ rc, const int* __restrict__ work,
                       int* __restrict__ counter, float* __restrict__ dq, int group, int tqp,
                       int tkp, int nq, int n_items, float scale, float softcap) {
-  constexpr int RES = RESIDENT_BUFFERS<NH>;
+  constexpr int RES = RESIDENT_BUFFERS<D, NH>;
   using L = DqLayout<D, NH, RES>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -115,7 +116,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (err == cudaSuccess) err = encode_tile_map(&tm_v, v, hk * tkp, D);
   if (err == cudaSuccess) err = encode_tile_map(&tm_do, dout, hq * tqp, D);
   if (err != cudaSuccess) return err;
-  constexpr int smem = DqLayout<D, NH, RESIDENT_BUFFERS<NH>>::ALLOC;
+  constexpr int smem = DqLayout<D, NH, RESIDENT_BUFFERS<D, NH>>::ALLOC;
   auto kernel = flex_dq_sparse_kernel<D, NH>;
   int grid = 0;
   err = persistent_launch_dims(kernel, WS_THREADS, smem, n_items, (int*)counter, stream, grid);
@@ -185,6 +186,9 @@ int magi_flex_dq_sparse(const void* q, const void* k, const void* v, const void*
                           counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
     case 128:
       return dispatch<128>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
+                           counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
+    case 256:
+      return dispatch<256>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
                            counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
     default:
       return cudaErrorInvalidValue;

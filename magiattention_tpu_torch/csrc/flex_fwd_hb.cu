@@ -95,6 +95,7 @@ int magi_flex_fwd_hb(const void* q, const void* k, const void* v, const void* si
     case 32: MAGI_FLEX_HB_LAUNCH(32);
     case 64: MAGI_FLEX_HB_LAUNCH(64);
     case 128: MAGI_FLEX_HB_LAUNCH(128);
+    case 256: MAGI_FLEX_HB_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef MAGI_FLEX_HB_LAUNCH

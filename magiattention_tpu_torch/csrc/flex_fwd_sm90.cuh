@@ -14,6 +14,18 @@
 // (lse -inf on an uncovered row, or the sink if one is set; rowmax without
 // the sink).
 //
+// d = 256 (Gemma's width): a 64-row tile is 32 KB, so the d <= 128 layout
+// (two Q buffers of a head pair, four K/V stages: 384 KB) does not fit an
+// SM's 227 KB. FwdLayout keeps one Q buffer and two ring stages a block
+// (one for each stream of its own on the sparse grid), and each consumer
+// warpgroup holds one stage at a time: an entry's S = Q K^T, softmax and
+// P V run one after the other (PIPELINE off), and the stage goes back to
+// the producer when the walk moves to the next k block, so the producer
+// loads the next k block while the consumers compute this one. O (64 x 256
+// f32) takes 128 of a consumer thread's registers, S 32 and P 16; Q stays
+// in shared memory. The SPLIT hand-over of partials (odd G) goes in two
+// rounds of a quarter of O's columns each.
+//
 // What bounds it on the card: ~4 d FLOPs per unmasked (q, k) pair and q
 // head (S = Q K^T and O += P V) against 2 bytes of K/V per key that a q
 // block re-reads from L2, so a causal prefill is bound by tensor-core
@@ -135,28 +147,39 @@ struct FwdBars {
 
 // The shared memory of a stream, the tiles and slots that one producer
 // thread and one entry warp fill for the WGS consumer warpgroups that read
-// them, from a 1024-byte aligned base: two Q buffers of NH tiles, K and V
+// them, from a 1024-byte aligned base: QBUF Q buffers of NH tiles, K and V
 // per ring stage, the entry slots, where the two warpgroups split a
 // head's walk (SPLIT) their hand-over of partials (each: ref, l and m of
-// its two rows, and the half of its O columns the other keeps), then the
-// barriers and the item slots of a persistent block. A block holds one
-// stream (WGS = 2) or one per consumer warpgroup (WGS = 1, each with half
-// the ring and half the entry slots).
+// its two rows, and the part of its O columns the other keeps that one
+// round hands over), then the barriers and the item slots of a persistent
+// block. A block holds one stream (WGS = 2) or one per consumer warpgroup
+// (WGS = 1, each with half the ring and half the entry slots). d = 256
+// (WIDE, see the top): one Q buffer, two ring stages a block, the walk
+// unpipelined, the hand-over in two rounds.
 template <int D, int NH, int WGS = CONSUMERS>
 struct FwdLayout {
-  static constexpr int STG = STAGES * WGS / CONSUMERS;
+  static constexpr bool WIDE = D > 128;
+  static constexpr bool PIPELINE = !WIDE;  // an entry's S = Q K^T beside the last one's P V
+  static constexpr int QBUF = WIDE ? 1 : 2;
+  static constexpr int STG = (WIDE ? 2 : STAGES) * WGS / CONSUMERS;
   static constexpr int SLOTS = META_SLOTS * WGS / CONSUMERS;
   static constexpr bool SPLIT = NH == 1 && WGS == CONSUMERS;
   static constexpr int TB = tile_bytes<D>();
-  static constexpr int RING = 2 * NH * TB;
+  static constexpr int RING = QBUF * NH * TB;
   static constexpr int META = RING + STG * 2 * TB;
   static constexpr int STASH = META + SLOTS * SLOT_INTS * 4;
-  static constexpr int STASH_WG = (6 + D / 4) * WG_THREADS;  // floats one warpgroup hands over
+  static constexpr int ROUNDS = WIDE ? 2 : 1;  // the hand-over's rounds
+  static constexpr int STASH_WG = (6 + D / 4 / ROUNDS) * WG_THREADS;  // floats a round hands over
   static constexpr int BARS = STASH + (SPLIT ? CONSUMERS * STASH_WG * 4 : 0);
   static constexpr int ITEMS = BARS + 8 * (4 + 2 * STG + 2 * SLOTS + 2 * ITEM_SLOTS);
   static constexpr int BYTES = ITEMS + ITEM_SLOTS * ITEM_INTS * 4;
   static constexpr int STREAM = (BYTES + 1023) / 1024 * 1024;
   static constexpr int ALLOC = CONSUMERS / WGS * STREAM + 1024;
+  static_assert(ALLOC <= 232448, "a block's shared memory fits an SM");
+  // SPLIT: the warpgroups take every other k block, each from stages of its
+  // own, and hold two of them at once where the walk is pipelined; with
+  // fewer a warpgroup's wait could pass on a phase two behind
+  static_assert(!SPLIT || STG >= (PIPELINE ? 4 : 2), "a split walk's ring stages");
   using Bars = FwdBars<STG, SLOTS>;
 };
 
@@ -170,7 +193,7 @@ using SparseLayout = FwdLayout<D, NH, NH == 2 ? CONSUMERS : 1>;
 struct FwdPos {
   int ring;   // K/V ring fills: fill f is stage f % STG at parity (f / STG) & 1
   int slot;   // entry slots: slot j is j % SLOTS at parity (j / SLOTS) & 1
-  int qstep;  // steps begun: step s reads Q buffer s & 1 at parity (s >> 1) & 1
+  int qstep;  // steps begun: step s reads Q buffer s % QBUF at parity (s / QBUF) & 1
 };
 
 // The pointers and sizes of one launch.
@@ -200,8 +223,8 @@ __device__ __forceinline__ void fwd_producer(const CUtensorMap* tm_q, const CUte
     const int h0 = h_item + s * NH;  // the step's first q head
     const int kvh = h0 / group;
     const int qs = pos.qstep + s;
-    const int b = qs & 1;  // its Q buffer
-    mbar_wait(bars.q_empty(b), ((qs >> 1) & 1) ^ 1);
+    const int b = qs % L::QBUF;  // its Q buffer
+    mbar_wait(bars.q_empty(b), ((qs / L::QBUF) & 1) ^ 1);
     mbar_expect_tx(bars.q_full(b), NH * L::TB);
     for (int hh = 0; hh < NH; ++hh)
       tma_load_tile<D>(base + (b * NH + hh) * L::TB, tm_q, bars.q_full(b),
@@ -421,13 +444,16 @@ __device__ __forceinline__ void take_cols(float (&o)[J][4], const float* buf,
 // rows merged once, through shared memory, with their exact maxima m: each
 // hands over ref, l, m and the O columns the other keeps (warpgroup 0 keeps
 // the first half), then both form the same merged ref, l and m, and each
-// its half of O, in a fixed order.
-template <int J>
+// its half of O, in a fixed order. ROUNDS = 2 (d = 256): the columns go
+// over in two rounds through a buffer half the size.
+template <int J, int ROUNDS>
 __device__ __forceinline__ void merge_partials(float (&o)[J][4], float (&m)[2], float (&ref)[2],
                                                float (&l)[2], float* handover, int wg,
                                                int tid) {
+  static_assert(ROUNDS == 1 || ROUNDS == 2, "one or two rounds");
   constexpr int HALF = J / 2;
-  constexpr int PER_WG = (6 + 4 * HALF) * WG_THREADS;
+  constexpr int PART = HALF / ROUNDS;  // the columns (in 8s) a round hands over
+  constexpr int PER_WG = (6 + 4 * PART) * WG_THREADS;
   float* mine = handover + wg * PER_WG;
   const float* theirs = handover + (wg ^ 1) * PER_WG;
   named_sync(BAR_CONSUMERS, CONSUMERS * WG_THREADS);  // both walks done
@@ -438,9 +464,9 @@ __device__ __forceinline__ void merge_partials(float (&o)[J][4], float (&m)[2], 
     mine[(4 + rr) * WG_THREADS + tid] = m[rr];
   }
   if (wg == 0)
-    stash<HALF, HALF>(mine + 6 * WG_THREADS, o, tid);
+    stash<HALF, PART>(mine + 6 * WG_THREADS, o, tid);
   else
-    stash<0, HALF>(mine + 6 * WG_THREADS, o, tid);
+    stash<0, PART>(mine + 6 * WG_THREADS, o, tid);
   named_sync(BAR_CONSUMERS, CONSUMERS * WG_THREADS);
   float w_mine[2], w_theirs[2];
 #pragma unroll
@@ -460,9 +486,21 @@ __device__ __forceinline__ void merge_partials(float (&o)[J][4], float (&m)[2], 
     w_theirs[rr] = wg == 0 ? w1 : w0;
   }
   if (wg == 0)
-    take_cols<0, HALF>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
+    take_cols<0, PART>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
   else
-    take_cols<HALF, HALF>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
+    take_cols<HALF, PART>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
+  if constexpr (ROUNDS == 2) {  // the second part of the columns, through the same places
+    named_sync(BAR_CONSUMERS, CONSUMERS * WG_THREADS);  // the first part read
+    if (wg == 0)
+      stash<HALF + PART, PART>(mine + 6 * WG_THREADS, o, tid);
+    else
+      stash<PART, PART>(mine + 6 * WG_THREADS, o, tid);
+    named_sync(BAR_CONSUMERS, CONSUMERS * WG_THREADS);
+    if (wg == 0)
+      take_cols<PART, PART>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
+    else
+      take_cols<HALF + PART, PART>(o, theirs + 6 * WG_THREADS, w_mine, w_theirs, tid);
+  }
 }
 
 // A consumer warpgroup: per step of the item, its q head's walk (NH = 2:
@@ -494,18 +532,17 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
   int j = pos.slot;   // the entry-slot position
   for (int s = 0; s < steps; ++s) {
     const int qs = pos.qstep + s;
-    const int b = qs & 1;
+    const int b = qs % L::QBUF;
     const int h = h_item + s * NH + slot;
     const uint32_t sq = base + (b * NH + slot) * L::TB;
     float o[J][4];
     zero(o);
     float m[2] = {-INFINITY, -INFINITY}, ref[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    mbar_wait(bars.q_full(b), (qs >> 1) & 1);
+    mbar_wait(bars.q_full(b), (qs / L::QBUF) & 1);
     uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
     if constexpr (Q_IN_REGS) {  // Q into registers once: the A operand of S = Q K^T
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) load_a_frag(qf[kk], sq, kk, warp, lane);
-      release_stage(bars.q_empty(b));
     }
     // The walk's entries, this warpgroup's in turn: entry e of k block kb,
     // the step-th distinct k block, at ring position n; its slot em stays
@@ -529,6 +566,9 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
         }
         n = n0 + step;
         if (n != cur) {  // a new k block
+          // unpipelined: done with the last one's K and V, which the next
+          // fill may take (a stream of one stage waits on that)
+          if (!L::PIPELINE && cur >= 0) release_stage(bars.empty(cur % L::STG));
           cur = n;
           mbar_wait(bars.full(n % L::STG), (n / L::STG) & 1);
         }
@@ -603,7 +643,21 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
       wgmma_commit();
     };
 
-    if (next()) {
+    if constexpr (!L::PIPELINE) {
+      // one entry after the other: S, softmax, P V, each waited for
+      while (next()) {
+        issue_scores();
+        read_intervals();
+        wgmma_wait<0>();
+        fence_regs(x);
+        softmax_and_pack(false, n);
+        issue_pv(n);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pp);
+      }
+      if (cur >= 0) release_stage(bars.empty(cur % L::STG));  // the last K and V
+    } else if (next()) {
       issue_scores();
       read_intervals();
       wgmma_wait<0>();
@@ -627,7 +681,12 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
       fence_regs(pp);
       release_stage(bars.empty(pend % L::STG));
     }
-    if constexpr (!Q_IN_REGS) release_stage(bars.q_empty(b));  // every product that read Q is done
+    // every product that read Q is done, and at d = 128 the ldmatrix reads of
+    // it too, which the proxy fence orders before the producer's next TMA
+    // load into the buffer (released right after those reads, with no fence,
+    // the buffer was now and then refilled under them)
+    if constexpr (Q_IN_REGS) fence_proxy_async();
+    release_stage(bars.q_empty(b));
     n0 += step + 1;
 
 #pragma unroll
@@ -636,7 +695,8 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
       l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     }
     if constexpr (L::SPLIT) {
-      merge_partials(o, m, ref, l, reinterpret_cast<float*>(smem + L::STASH), wg, tid);
+      merge_partials<J, L::ROUNDS>(o, m, ref, l, reinterpret_cast<float*>(smem + L::STASH), wg,
+                                   tid);
       if (wg == 0)
         fwd_store<AMLA, 0, J / 2>(o, m, ref, l, a, h, row0, t4, true);
       else

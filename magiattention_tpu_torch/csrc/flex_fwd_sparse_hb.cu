@@ -106,6 +106,9 @@ int magi_flex_fwd_sparse_hb(const void* q, const void* k, const void* v,
     case 128:
       if (out_f32) MAGI_FWD_SPARSE_HB_LAUNCH(128, float);
       MAGI_FWD_SPARSE_HB_LAUNCH(128, bf16);
+    case 256:
+      if (out_f32) MAGI_FWD_SPARSE_HB_LAUNCH(256, float);
+      MAGI_FWD_SPARSE_HB_LAUNCH(256, bf16);
     default:
       return cudaErrorInvalidValue;
   }

@@ -8,9 +8,9 @@
 // consumers share, and the host-side tensor-map encoding.
 //
 // Tiles are 64 rows of a head-major [rows, d] bf16 array, d in {32, 64,
-// 128}. At d = 64 and 128 TMA loads a tile with 128-byte swizzle as d / 64
-// "chunks" of 64 rows x 128 bytes (64 bf16), one 8 KB box each, every chunk
-// 1024-byte aligned. A d = 32 row is 64 bytes: the tile is one 64 x 32 box
+// 128, 256}. At d = 64, 128 and 256 TMA loads a tile with 128-byte swizzle
+// as d / 64 "chunks" of 64 rows x 128 bytes (64 bf16), one 8 KB box each,
+// every chunk 1024-byte aligned. A d = 32 row is 64 bytes: the tile is one 64 x 32 box
 // (4 KB) with 64-byte swizzle, whose pattern repeats every 8 rows (512
 // bytes). wgmma reads a tile through a shared-memory descriptor (layout type
 // B128, or B64 at d = 32) in one of two orientations:
@@ -22,7 +22,8 @@
 //   the B operand of dQ += dS K-type products, N = d. The 16-row k slice kk
 //   starts 16 rows into the tile, 2048 (1024) bytes; 8-row groups are 1024
 //   (512) bytes apart (SBO), and the second 64-column chunk (d = 128) 8192
-//   bytes (LBO; d <= 64 has one chunk across N).
+//   bytes (LBO; d <= 64 has one chunk across N). At d = 256 N is taken as
+//   two products of N = 128, the second from the tile's third chunk.
 //
 // The accumulator of wgmma m64nNk16 (f32) gives thread (warp w of the
 // warpgroup, lane 4 g + t4) rows 16 w + g and 16 w + g + 8 of the tile and
@@ -42,13 +43,14 @@ namespace flex {
 namespace sm90 {
 
 constexpr int WG_THREADS = 128;  // a warpgroup: the unit that issues wgmma
-constexpr int CHUNK_BYTES = 64 * 128;  // one TMA box at d = 64, 128: 64 rows x 64 bf16
+constexpr int CHUNK_BYTES = 64 * 128;  // one TMA box at d >= 64: 64 rows x 64 bf16
 
-// A tile's swizzled row: 128 bytes at d = 64 and 128 (a chunk's 64 bf16),
-// the whole 64-byte row at d = 32; its columns and its TMA box's bytes.
+// A tile's swizzled row: 128 bytes at d = 64, 128 and 256 (a chunk's 64
+// bf16), the whole 64-byte row at d = 32; its columns and its TMA box's bytes.
 template <int D>
 __host__ __device__ constexpr int row_bytes() {
-  static_assert(D == 32 || D == 64 || D == 128, "the flex kernels take d in {32, 64, 128}");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "the flex kernels take d in {32, 64, 128, 256}");
   return D == 32 ? 64 : 128;
 }
 template <int D>
@@ -320,10 +322,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the A fragment),
-// B from shared memory, MN-major (transposed; 128-byte swizzle).
-__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
+// D[64 x 128] += A[64 x 16] B[16 x 128] into accumulator columns 8 J0 ..
+// 8 J0 + 127, A from registers (the A fragment), B from shared memory,
+// MN-major (transposed; 128-byte swizzle).
+template <int J0, int J>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[J][4], const uint32_t (&a)[4],
                                               uint64_t desc_b) {
+  static_assert(J0 >= 0 && J0 + 16 <= J, "128 columns of the accumulator");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -332,23 +337,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "+f"(d[J0 + 0][0]), "+f"(d[J0 + 0][1]), "+f"(d[J0 + 0][2]), "+f"(d[J0 + 0][3]),
+        "+f"(d[J0 + 1][0]), "+f"(d[J0 + 1][1]), "+f"(d[J0 + 1][2]), "+f"(d[J0 + 1][3]),
+        "+f"(d[J0 + 2][0]), "+f"(d[J0 + 2][1]), "+f"(d[J0 + 2][2]), "+f"(d[J0 + 2][3]),
+        "+f"(d[J0 + 3][0]), "+f"(d[J0 + 3][1]), "+f"(d[J0 + 3][2]), "+f"(d[J0 + 3][3]),
+        "+f"(d[J0 + 4][0]), "+f"(d[J0 + 4][1]), "+f"(d[J0 + 4][2]), "+f"(d[J0 + 4][3]),
+        "+f"(d[J0 + 5][0]), "+f"(d[J0 + 5][1]), "+f"(d[J0 + 5][2]), "+f"(d[J0 + 5][3]),
+        "+f"(d[J0 + 6][0]), "+f"(d[J0 + 6][1]), "+f"(d[J0 + 6][2]), "+f"(d[J0 + 6][3]),
+        "+f"(d[J0 + 7][0]), "+f"(d[J0 + 7][1]), "+f"(d[J0 + 7][2]), "+f"(d[J0 + 7][3]),
+        "+f"(d[J0 + 8][0]), "+f"(d[J0 + 8][1]), "+f"(d[J0 + 8][2]), "+f"(d[J0 + 8][3]),
+        "+f"(d[J0 + 9][0]), "+f"(d[J0 + 9][1]), "+f"(d[J0 + 9][2]), "+f"(d[J0 + 9][3]),
+        "+f"(d[J0 + 10][0]), "+f"(d[J0 + 10][1]), "+f"(d[J0 + 10][2]), "+f"(d[J0 + 10][3]),
+        "+f"(d[J0 + 11][0]), "+f"(d[J0 + 11][1]), "+f"(d[J0 + 11][2]), "+f"(d[J0 + 11][3]),
+        "+f"(d[J0 + 12][0]), "+f"(d[J0 + 12][1]), "+f"(d[J0 + 12][2]), "+f"(d[J0 + 12][3]),
+        "+f"(d[J0 + 13][0]), "+f"(d[J0 + 13][1]), "+f"(d[J0 + 13][2]), "+f"(d[J0 + 13][3]),
+        "+f"(d[J0 + 14][0]), "+f"(d[J0 + 14][1]), "+f"(d[J0 + 14][2]), "+f"(d[J0 + 14][3]),
+        "+f"(d[J0 + 15][0]), "+f"(d[J0 + 15][1]), "+f"(d[J0 + 15][2]), "+f"(d[J0 + 15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  wgmma_rs_n128<0>(d, a, desc_b);
 }
 
 // -- warp-specialised blocks ---------------------------------------------------------
@@ -400,12 +410,21 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)
 }
 
 // acc[64 x D] += A[64 x 64] tile[64 rows x D] (D = 8 J): A from registers,
-// the tile as an MN-major B operand. Issued, not waited for.
+// the tile as an MN-major B operand. Issued, not waited for. D = 256: two
+// products of 128 columns a k slice, the second from the tile's third
+// chunk (wgmma's N stops at 256, and one 128-register asm is kept).
 template <int J>
 __device__ __forceinline__ void acc_product(float (&acc)[J][4], const uint32_t (&a)[4][4],
                                             uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn_major<8 * J>(tile, kk));
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (J == 32) {
+      wgmma_rs_n128<0>(acc, a[kk], desc_mn_major<256>(tile, kk));
+      wgmma_rs_n128<16>(acc, a[kk], desc_mn_major<256>(tile + 2 * CHUNK_BYTES, kk));
+    } else {
+      wgmma_rs(acc, a[kk], desc_mn_major<8 * J>(tile, kk));
+    }
+  }
 }
 
 // Accumulator columns J0 .. J0+N-1 into a thread-major shared-memory
@@ -483,7 +502,7 @@ __device__ __forceinline__ Item take_item(uint32_t full0, uint32_t empty0, const
 // -- host ---------------------------------------------------------------------------
 
 // A 2-D tensor map over a head-major [rows, d] bf16 array (d in {32, 64,
-// 128}, row stride d) with 64 x 64 boxes and 128-byte swizzle (d = 32: 64
+// 128, 256}, row stride d) with 64 x 64 boxes and 128-byte swizzle (d = 32: 64
 // x 32 boxes and 64-byte swizzle; see the top). The driver's
 // encoder is reached through the runtime's entry-point query, so the library
 // does not link libcuda. The base must be 16-byte aligned.
@@ -505,7 +524,7 @@ inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int rows,
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};  // bytes, rows
-  if (d != 32 && d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (d != 32 && d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
   const bool narrow = d == 32;  // one 64-byte box a row
   const cuuint32_t box[2] = {narrow ? 32u : 64u, 64};
   const cuuint32_t elem_strides[2] = {1, 1};

@@ -64,16 +64,23 @@ LN2 = math.log(2.0)
 # Hopper tile table: head_dim -> (block_q, block_k). A first guess, not a
 # tuned table: 64 query rows are the M of one wgmma (a consumer
 # warpgroup's rows), and a 64-key K/V tile keeps a ring stage of K and V at
-# 32 KB for d=128, so four stages and the resident tiles fit one SM. The
-# kernels are compiled for these head dims and this one tile only (d = 32
-# rows are 64 bytes: a 64-byte TMA swizzle, csrc/flex_sm90.cuh).
-HOPPER_TILES: dict[int, tuple[int, int]] = {32: (64, 64), 64: (64, 64), 128: (64, 64)}
+# 32 KB for d=128, so four stages and the resident tiles fit one SM (at d =
+# 256 a stage is 64 KB, and the walks keep one or two: csrc/flex_fwd_sm90.cuh,
+# flex_bwd_sm90.cuh). The kernels are compiled for these head dims and this
+# one tile only (d = 32 rows are 64 bytes: a 64-byte TMA swizzle,
+# csrc/flex_sm90.cuh).
+HOPPER_TILES: dict[int, tuple[int, int]] = {
+    32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 64),
+}
 # The q/k/v dtypes each grid's kernels take: bf16 on the wgmma walks, and
 # float32 on the CUDA-core walks (csrc/flex_simt.cuh), on either grid.
 KERNEL_DTYPES: dict[str, tuple[torch.dtype, ...]] = {
     "row_major": (torch.bfloat16, torch.float32),
     "sparse": (torch.bfloat16, torch.float32),
 }
+# The head dims the float32 walks are built for: head_dim 256 runs in bf16
+# only, float32 there is ROADMAP.md B.10.
+KERNEL_F32_HEAD_DIMS = (32, 64, 128)
 
 @dataclasses.dataclass(frozen=True)
 class FlexAttnParams:
@@ -446,7 +453,13 @@ def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams,
         raise ValueError(
             f"{name} is built for head_dim in {sorted(HOPPER_TILES)} with the "
             f"tile {HOPPER_TILES.get(d)}; got head_dim {d}, tile "
-            f"({params.block_q}, {params.block_k})"
+            f"({params.block_q}, {params.block_k}) (head dims 80 and 96: "
+            f"ROADMAP.md B.12)"
+        )
+    if q.dtype == torch.float32 and d not in KERNEL_F32_HEAD_DIMS:
+        raise TypeError(
+            f"{name} takes float32 q/k/v at head_dim in {KERNEL_F32_HEAD_DIMS} only; "
+            f"head_dim {d} runs in bfloat16 (float32 at head_dim 256: ROADMAP.md B.10)"
         )
     if hq % hk:
         raise ValueError(f"{name}: hq {hq} is not a multiple of hk {hk}")

@@ -47,10 +47,18 @@ from .kv_cache import PagedKVCache
 
 NEG_INF = float("-inf")
 
-# the kernel's build (csrc/decode.cu): head_dim 32, 64 or 128 (the flex
-# kernels' widths) and any number of q heads per kv head
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the kernel's build (csrc/decode.cu): head_dim 32, 64, 128 or 256 (the flex
+# kernels' widths) and any number of q heads per kv head, but at head_dim 256
+# bf16 only (float32 there: ROADMAP.md B.10) and in the flat mode up to 32 q
+# heads a kv head (the wide walk there: ROADMAP.md B.11)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+KERNEL_F32_HEAD_DIMS = (32, 64, 128)
+KERNEL_WIDE_HEAD_DIMS = (32, 64, 128)
+# head dims whose bf16 walk holds one m16 tile of rows (decode_sm90.cuh
+# WIDE_D_ROWS): a walk's rows in the shared mode, and a flat group past them
+# runs in row tiles of these rows, each a row group
+KERNEL_TILE_ROWS = {256: 16}
 # q rows one block serves in the shared mode (decode_sm90.cuh MAX_ROWS,
 # decode_simt.cuh MAXG); the row groups go on gridDim.z, at most 65535 a
 # launch, so a larger batch launches in row blocks (kernel_row_blocks)
@@ -85,20 +93,36 @@ def takes_wide_walk(group: int, dtype: torch.dtype, shared: bool) -> bool:
     return dtype == torch.bfloat16 and not shared and group > KERNEL_WIDE_ROWS[dtype][0]
 
 
-def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool, *, hk: int = 1,
-                      splits: int = 1) -> list[tuple[int, int]]:
+def kernel_tile_rows(dtype: torch.dtype, head_dim: int) -> int | None:
+    """The rows of one walk at ``head_dim`` where its bf16 walk holds one
+    m16 tile (:data:`KERNEL_TILE_ROWS`), else None."""
+    return KERNEL_TILE_ROWS.get(int(head_dim)) if dtype == torch.bfloat16 else None
+
+
+def kernel_row_groups(group: int, dtype: torch.dtype, head_dim: int) -> int:
+    """The row groups of one sequence's ``group`` q heads in the flat mode:
+    :func:`kernel_row_slices`, or where a walk holds one tile of rows
+    (:func:`kernel_tile_rows`) one per row tile."""
+    tile = kernel_tile_rows(dtype, head_dim)
+    return kernel_row_slices(group, dtype) if tile is None else -(-int(group) // tile)
+
+
+def kernel_row_blocks(b: int, group: int, dtype: torch.dtype, shared: bool, *, head_dim: int,
+                      hk: int = 1, splits: int = 1) -> list[tuple[int, int]]:
     """The query ranges ``[lo, hi)`` that ``paged_decode`` launches one at a
     time, each of at most :data:`KERNEL_MAX_ROW_GROUPS` row groups:
-    :func:`kernel_row_slices` row groups per query in the flat mode,
-    ``KERNEL_SHARED_ROWS`` q rows (a query's ``group`` heads each) per row
-    group in the shared mode; on the bf16 wide walk (:func:`takes_wide_walk`)
-    at most :data:`WIDE_MAX_WALKS` walks, a query's ``hk * splits *
-    slices``. Every row's walk is the same in any block (the wide walk's
-    segments come from :func:`wide_schedule` of the whole batch), so the
-    blocks give the bits of one launch."""
-    per = KERNEL_MAX_ROW_GROUPS // kernel_row_slices(group, dtype)
+    :func:`kernel_row_groups` row groups per query in the flat mode,
+    ``KERNEL_SHARED_ROWS`` q rows (:func:`kernel_tile_rows` where a walk
+    holds one tile; a query's ``group`` heads each) per row group in the
+    shared mode; on the bf16 wide walk (:func:`takes_wide_walk`) at most
+    :data:`WIDE_MAX_WALKS` walks, a query's ``hk * splits * slices``. Every
+    row's walk is the same in any block (the wide walk's segments come from
+    :func:`wide_schedule` of the whole batch), so the blocks give the bits of
+    one launch."""
+    per = KERNEL_MAX_ROW_GROUPS // kernel_row_groups(group, dtype, head_dim)
     if shared:
-        per = KERNEL_MAX_ROW_GROUPS * KERNEL_SHARED_ROWS[dtype] // max(int(group), 1)
+        rows = kernel_tile_rows(dtype, head_dim) or KERNEL_SHARED_ROWS[dtype]
+        per = KERNEL_MAX_ROW_GROUPS * rows // max(int(group), 1)
     elif takes_wide_walk(group, dtype, shared):
         per = WIDE_MAX_WALKS // (int(hk) * int(splits) * kernel_row_slices(group, dtype))
         if per < 1:
@@ -290,7 +314,20 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     if d not in KERNEL_HEAD_DIMS or hq % hk:
         raise ValueError(
             f"paged_decode is built for head_dim in {KERNEL_HEAD_DIMS} and a whole number of "
-            f"q heads per kv head; got head_dim {d}, {hq} q / {hk} kv heads"
+            f"q heads per kv head; got head_dim {d}, {hq} q / {hk} kv heads (head dims 80 and "
+            f"96: ROADMAP.md B.12)"
+        )
+    if q.dtype == torch.float32 and d not in KERNEL_F32_HEAD_DIMS:
+        raise TypeError(
+            f"paged_decode takes float32 at head_dim in {KERNEL_F32_HEAD_DIMS} only; head_dim "
+            f"{d} runs in bfloat16 (float32 at head_dim 256: ROADMAP.md B.10)"
+        )
+    if takes_wide_walk(hq // hk, q.dtype, shared) and d not in KERNEL_WIDE_HEAD_DIMS:
+        raise ValueError(
+            f"paged_decode's wide walk (more than {KERNEL_WIDE_ROWS[q.dtype][0]} q heads a kv "
+            f"head, flat mode) is built for head_dim in {KERNEL_WIDE_HEAD_DIMS}; got "
+            f"{hq // hk} q heads a kv head at head_dim {d} (the wide walk at head_dim 256: "
+            f"ROADMAP.md B.11)"
         )
     rows = 1 if shared else b
     if bt.shape[0] != rows or seq_lens.shape[0] != rows:
@@ -308,7 +345,7 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     seq_lens = seq_lens.to(torch.int32).contiguous()
     out_parts = torch.empty((b, s, hq, d), dtype=torch.float32, device=q.device)
     lse_parts = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
-    row_blocks = kernel_row_blocks(b, group, q.dtype, shared, hk=hk, splits=s)
+    row_blocks = kernel_row_blocks(b, group, q.dtype, shared, head_dim=d, hk=hk, splits=s)
     walks_per_query = hk * s * kernel_row_slices(group, q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sched = scratch = counters = None

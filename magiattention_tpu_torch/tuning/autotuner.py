@@ -293,12 +293,19 @@ def _price_splits(rows: int, width: int, page_size: int, hk: int, head_dim: int,
     at the card's memory rate over the share of the SMs the launch's
     blocks fill, plus a merge round for each split past the first. A bf16
     group of more than 32 q heads (``group``) counts the wide walk's
-    blocks, which fill the card at any split count."""
+    blocks, which fill the card at any split count; any other group its
+    row groups (``kernel_row_groups``: the row tiles where a walk holds
+    one tile of rows)."""
+    import torch
+
+    from ..serving import decode_attn as da
     from ..utils.cost import card_spec
 
     rate = card_spec(FITTED_CARD).hbm_gbps * 1e9
     elt = 2 if "16" in str(dtype) else 4
     wide = "bfloat16" in str(dtype) and group > 32
+    row_groups = da.kernel_row_groups(
+        group, torch.bfloat16 if "bfloat16" in str(dtype) else torch.float32, head_dim)
     kv_bytes = 2.0 * rows * width * page_size * hk * head_dim * elt
     scored = []
     for s in range(1, min(width, DECODE_MAX_SPLITS) + 1):
@@ -307,7 +314,7 @@ def _price_splits(rows: int, width: int, page_size: int, hk: int, head_dim: int,
         if wide:
             blocks = _wide_decode_blocks(rows, width, page_size, hk, s, group, head_dim, sms)
         else:
-            blocks = _decode_blocks(hk * s * rows, width // s * page_size, sms)
+            blocks = _decode_blocks(hk * s * rows * row_groups, width // s * page_size, sms)
         read_s = kv_bytes / (rate * min(blocks, sms) / sms)
         scored.append((read_s + (s - 1) * MERGE_ROUND_S, s))
     return sorted(scored)

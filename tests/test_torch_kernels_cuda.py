@@ -896,6 +896,6 @@ def test_paged_decode_wide_walk_launches_row_blocks_past_its_walks(card):
     csrc.reset_launch_counts()
     out, lse = da._merge_splits(*_decode_parts(q, cache, bt, sl, 1))
     assert csrc.launches["paged_decode"] == len(
-        da.kernel_row_blocks(b, 48, torch.bfloat16, False)) == 2
+        da.kernel_row_blocks(b, 48, torch.bfloat16, False, head_dim=64)) == 2
     ref, ref_lse = decode_reference(q, cache, bt, sl)
     _close(out, ref, lse, ref_lse)

@@ -265,7 +265,7 @@ def test_kernel_row_blocks(b, group, shared, dtype):
     past 32 rows (the wide walk) count walks instead, at most
     WIDE_MAX_WALKS a range (a query's row slices, at 1 kv head and 1
     split)."""
-    blocks = decode_attn.kernel_row_blocks(b, group, dtype, shared)
+    blocks = decode_attn.kernel_row_blocks(b, group, dtype, shared, head_dim=128)
     rows = decode_attn.KERNEL_SHARED_ROWS[dtype]
     slices = decode_attn.kernel_row_slices(group, dtype)
     assert slices == (1 if group <= {torch.bfloat16: 32, torch.float32: 64}[dtype]

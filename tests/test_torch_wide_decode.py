@@ -114,12 +114,13 @@ def test_row_blocks_of_the_wide_walk_count_walks(hk, splits):
     for group in (48, 200):
         per_query = hk * splits * da.kernel_row_slices(group, torch.bfloat16)
         b = 3 * da.WIDE_MAX_WALKS // per_query + 5
-        blocks = da.kernel_row_blocks(b, group, torch.bfloat16, False, hk=hk, splits=splits)
+        blocks = da.kernel_row_blocks(b, group, torch.bfloat16, False, head_dim=128, hk=hk,
+                                      splits=splits)
         assert blocks[0][0] == 0 and blocks[-1][1] == b
         assert all((hi - lo) * per_query <= da.WIDE_MAX_WALKS for lo, hi in blocks)
         assert all((hi - lo + 1) * per_query > da.WIDE_MAX_WALKS for lo, hi in blocks[:-1])
     with pytest.raises(ValueError, match="walks a launch"):
-        da.kernel_row_blocks(1, 48, torch.bfloat16, False, hk=2049)
+        da.kernel_row_blocks(1, 48, torch.bfloat16, False, head_dim=128, hk=2049)
 
 
 def test_the_split_tuner_prices_the_wide_walk(monkeypatch):

@@ -5,21 +5,25 @@
 
 DIR is the root of another checkout of the repository (an unpacked ``git
 archive`` of the parent commit, say, in a git-ignored directory). Both
-checkouts' ``flex_fwd``, ``flex_fwd_hb``, ``flex_dq``, ``flex_dkv``,
-``flex_dq_sparse`` and ``flex_dkv_sparse`` are built with nvcc for sm_90a
-(the other's into its own ``csrc/build/``) and called through this
-checkout's wrappers, whose C signatures they must share. Prints one JSON
-line per case: whether the two builds give the same bits, and, for the
-forwards on the serving prefill (causal 4096, 32 q / 8 kv heads, d 128),
-their CUDA-event times in turns (other, this, this, other). The card's name
-and power limit come first, as ``nvidia-smi`` prints them.
+checkouts' eight flex kernels are built with nvcc for sm_90a (the other's
+into its own ``csrc/build/``) and called through this checkout's wrappers,
+whose C signatures they must share. Prints one JSON line per case: whether
+the two builds give the same bits, and their CUDA-event times in turns
+(other, this, this, other): the row-major four on the serving prefill
+(causal 4096, 32 q / 8 kv heads, d 128), the sparse-grid four on the
+16,384-token varlen block-causal mask at 16 / 8 heads (head_block 1 and G).
+The card's name and power limit come first, as ``nvidia-smi`` prints them.
 
 ``paged_decode`` is built too and called with the other checkout's own C
 signature (read from its ``decode.cu``): its walks that both checkouts
 share (bf16 groups of up to 32 q heads a kv head, the shared mode, the
 one-launch tick's per-row tables, the float32 walks) give the same bits or
 the run fails; then its time on the serving batch (``chip_smoke.py``'s
-decode batch at the serving widths, one split) in turns."""
+decode batch at the serving widths, one split) in turns. The wide walk's
+arguments (``num_pages``, ``seg_chunks``, ``blocks`` after
+``cluster_heads``, ``scratch`` and ``counters`` before the stream) are
+passed as the pool's pages, 0, 0 and null, which the walks both share do
+not read."""
 
 from __future__ import annotations
 
@@ -32,19 +36,20 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-NAMES = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv", "flex_dq_sparse", "flex_dkv_sparse")
+NAMES = ("flex_fwd", "flex_fwd_hb", "flex_dq", "flex_dkv", "flex_fwd_sparse",
+         "flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")
 
 
-def build_other(root: str) -> dict:
-    """The other checkout's kernels, built in parallel and loaded with this
-    checkout's argtypes."""
+def build_other(root: str, names=NAMES) -> dict:
+    """The other checkout's kernels (default: the eight flex kernels), built
+    in parallel and loaded with this checkout's argtypes."""
     from magiattention_tpu_torch import csrc
 
     src = os.path.join(root, "magiattention_tpu_torch", "csrc")
     out = os.path.join(src, "build")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name in NAMES:
+    for name in names:
         lib = os.path.join(out, f"lib{name}_other.so")
         cmd = [csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", lib,
                os.path.join(src, csrc.KERNELS[name].source)]
@@ -94,6 +99,13 @@ def build_other_decode(root: str):
     return fn
 
 
+def call_other_decode(fn, ptrs, ints, floats, num_pages, stream) -> int:
+    """The other entry point on (q, k, v, bt, sl, out, lse), (b hq hk d ps
+    mpp splits shared is_f32 cluster_heads), (scale, softcap), with the wide
+    walk's arguments set to what the shared walks do not read."""
+    return fn(*ptrs, *ints, num_pages, 0, 0, *floats, None, None, stream)
+
+
 def decode_cases(other_fn, gen) -> bool:
     """This checkout's ``paged_decode`` (through its wrapper) against the
     other's entry point on the walks both share; one JSON line a case."""
@@ -109,11 +121,12 @@ def decode_cases(other_fn, gen) -> bool:
         lse = torch.empty((b, splits, hq), device="cuda")
         bt, sl = bt.int().contiguous(), sl.int().contiguous()
         hk = cache.num_kv_heads
-        code = other_fn(q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-                        bt.data_ptr(), sl.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq, hk,
-                        d, cache.page_size, bt.shape[1], splits, int(shared),
-                        int(q.dtype == torch.float32), hk, 1.0 / math.sqrt(d), 0.0,
-                        torch.cuda.current_stream().cuda_stream)
+        code = call_other_decode(
+            other_fn, (q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+                       bt.data_ptr(), sl.data_ptr(), out.data_ptr(), lse.data_ptr()),
+            (b, hq, hk, d, cache.page_size, bt.shape[1], splits, int(shared),
+             int(q.dtype == torch.float32), hk), (1.0 / math.sqrt(d), 0.0),
+            cache.k_pages.shape[0], torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"the other paged_decode: CUDA error {code}")
         return out, lse
@@ -180,10 +193,11 @@ def main() -> int:
     bti, sli = bt.int().contiguous(), sl.int().contiguous()
 
     def other_serving():
-        code = other_decode(q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
-                            bti.data_ptr(), sli.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                            len(cs.WIDE_DECODE_LENS), cs.HQ, cs.HK, cs.D, cs.PAGE, 64, 1, 0, 0,
-                            cs.HK, cs.D ** -0.5, 0.0, torch.cuda.current_stream().cuda_stream)
+        code = call_other_decode(
+            other_decode, (q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
+                           bti.data_ptr(), sli.data_ptr(), out[0].data_ptr(), out[1].data_ptr()),
+            (len(cs.WIDE_DECODE_LENS), cs.HQ, cs.HK, cs.D, cs.PAGE, 64, 1, 0, 0, cs.HK),
+            (cs.D ** -0.5, 0.0), cache.k_pages.shape[0], torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"the other paged_decode: CUDA error {code}")
 
@@ -224,23 +238,46 @@ def main() -> int:
                        "flex_dkv": same("flex_dkv", p.dkv_kernel),
                        "flex_dq_sparse": same("flex_dq_sparse", p.dq_sparse_kernel),
                        "flex_dkv_sparse": same("flex_dkv_sparse", p.dkv_sparse_kernel)}
+                for hb in (1, max(g, 2)):
+                    p.set_head_block(hb)
+                    rec[p.fwd_sparse_name] = same(p.fwd_sparse_name, p.sparse_kernel)
                 print(json.dumps({"bitwise_equal": rec}), flush=True)
                 if not all(v for k, v in rec.items() if k != "case"):
                     return 1
+    def in_turns(runs, reps=20) -> dict:
+        samples = {}
+        for key, (name, fn) in runs.items():
+            for which, f in (("other", cs.with_library(name, other[name], fn)), ("this", fn),
+                             ("this", fn), ("other", cs.with_library(name, other[name], fn))):
+                samples.setdefault(f"{which}:{key}", []).append(cs.cuda_ms(f, reps=reps))
+        ms = {k: sum(v) / len(v) for k, v in samples.items()}
+        return {"ms_in_turns": samples, "ms": ms,
+                "this_over_other": {key: ms[f"this:{key}"] / ms[f"other:{key}"] for key in runs}}
+
     p = cs.Flex(gen, 4096, 4096, cs.HQ, cs.HK, [(0, 4096)], [(0, 4096)], [C])
     g = cs.HQ // cs.HK
-    runs = {"flex_fwd": ("flex_fwd", p.kernel), "flex_fwd_hb": ("flex_fwd_hb",
-                                                                lambda: p.hb_kernel(g))}
-    samples = {}
-    for key, (name, fn) in runs.items():
-        for which, f in (("other", cs.with_library(name, other[name], fn)), ("this", fn), ("this", fn),
-                         ("other", cs.with_library(name, other[name], fn))):
-            samples.setdefault(f"{which}:{key}", []).append(cs.cuda_ms(f, reps=20))
+    runs = {"flex_fwd": ("flex_fwd", p.kernel),
+            "flex_fwd_hb": ("flex_fwd_hb", lambda: p.hb_kernel(g)),
+            "flex_dq": ("flex_dq", p.dq_kernel), "flex_dkv": ("flex_dkv", p.dkv_kernel)}
     print(json.dumps({"serving_prefill_causal_4096": {"hq": cs.HQ, "hk": cs.HK,
-                                                      "head_block_hb": g, "ms_in_turns": samples,
-                                                      "ms": {k: sum(v) / len(v)
-                                                             for k, v in samples.items()}}}),
+                                                      "head_block_hb": g, **in_turns(runs)}}),
           flush=True)
+    del p
+    torch.cuda.empty_cache()
+    t = cs.HETERO_T
+    qr, kr, ty = split_slices(varlen_block_causal(t))
+    hq, hk = cs.TRAIN_HQ, cs.TRAIN_HK
+    p = cs.Flex(gen, t, t, hq, hk, qr, kr, ty, head_block=1)
+    runs = {"flex_fwd_sparse": ("flex_fwd_sparse", p.sparse_kernel)}
+    line = in_turns(runs)
+    p.set_head_block(hq // hk)
+    runs = {"flex_fwd_sparse_hb": ("flex_fwd_sparse_hb", p.sparse_kernel),
+            "flex_dq_sparse": ("flex_dq_sparse", p.dq_sparse_kernel),
+            "flex_dkv_sparse": ("flex_dkv_sparse", p.dkv_sparse_kernel)}
+    more = in_turns(runs)
+    for k in line:
+        line[k].update(more[k])
+    print(json.dumps({"hetero_varlen_16384": {"hq": hq, "hk": hk, **line}}), flush=True)
     return 0
 
 
