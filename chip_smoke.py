@@ -111,7 +111,22 @@ Phases, each printing one JSON line:
    8,192-token sequences under the 4096-key window: the sparse grid at
    head_block 2; Gemma-7B's 16 / 16 heads on the training documents: the
    sparse grid at head_block 1, and on one causal 8,192-token sequence:
-   ``flex_fwd``), each held against the plain attention;
+   ``flex_fwd``), each held against the plain attention; then head dims 80
+   and 96, Phi-2's and Phi-3-mini's attention widths: all eight flex
+   kernels in bf16 on the same four masks (Phi-3-mini's 2047-key window
+   for Gemma's) and in float32 (``d80_96_cases``), ``paged_decode`` at G
+   1-32 and 48 (the wide walk), bf16 and float32, NaN tails and the shared
+   mode (``d80_96_decode_cases``), a fault planted in each widened walk
+   (``d80_96_planted_faults``), the ``serving_phi`` path (an engine at
+   Phi-3-mini's 32 / 32 heads of d 96, one seeded layer of dim 3072, then
+   at Phi-2's 32 / 32 of d 80, dim 2560: the 8 serving prompts through
+   ``flex_fwd``, 64 greedy steps through ``paged_decode``), each kernel's
+   time at d 80, 96 and 128 beside its bound, its plain version and SDPA
+   (``d80_96_timing``), and the ``attention_phi`` path (Phi-3-mini's layer
+   on two 8,192-token sequences under its window and Phi-2's on the
+   ``hetero`` documents, the sparse grid at head_block 1; Phi-3-mini's on
+   one causal 8,192-token sequence, ``flex_fwd``), its gradients held
+   against the plain backward on the forward kernel's own out and lse;
 3. serving — the port's serving path at Llama-3.1-8B attention widths
    (32 q heads, 8 kv heads, head_dim 128, bf16, page size 128): admit 8
    requests, prefill them (one chunked, so the continuation path runs) with
@@ -153,7 +168,9 @@ Phases, each printing one JSON line:
    vocabulary, 3 AdamW steps on the same stream through ``flex_fwd_hb``,
    ``flex_dq`` and ``flex_dkv`` at d 256, the first step's loss and
    gradients against the same weights on the dense plain versions, step ms,
-   tokens/s and peak memory;
+   tokens/s and peak memory; then ``training_phi3``, the same at
+   Phi-3-mini's widths (dim 3072, 32 / 32 heads of d 96, ffn 8192, vocab
+   32064), cut from 32 to 2 layers, through ``flex_fwd``;
 6. hetero — ``flex_flash_attn_func`` with its default arguments, forward and
    backward, on the 16384-token varlen block-causal mask (12 documents),
    once at the ``LlamaConfig`` attention widths (16 q / 8 kv heads) and
@@ -484,9 +501,12 @@ main paths (and which paths launched them: ``training_remat``,
 ``block_sparse``, ``sink``, ``cp_decode``, ``scheduler``, ``tiered``,
 ``resilience``, ``telemetry``, ``profiling``, ``tuning``, ``analysis``,
 ``fleet``, ``instrument``, ``wide_serving``, ``serving_d256``,
-``attention_d256`` and ``training_d256`` among them; every path's
+``attention_d256``, ``training_d256``, ``serving_phi``, ``attention_phi``
+and ``training_phi3`` among them; every path's
 launches must be in
-it), errors and times (``at_d256``: each kernel's at head_dim 256); the
+it), errors and times (``at_d256``: each kernel's at head_dim 256;
+``at_d80``, ``at_d96`` and ``at_d128_beside_d80_96`` at 80, 96 and 128
+on the same shapes); the
 last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line; nothing falls back to a plain version. Needs one card and no network.
@@ -1138,6 +1158,32 @@ PLANT_D256_FIRST_ROW_TILE = [
      "  const int row0 = shared ? z * rows_per_block : tb * group;\n"),
 ]
 
+# The walks widened to head_dims 80 and 96, with a fault each: the forward's
+# S = Q K^T one 16-wide k slice short (the last columns of d, which d 80 and
+# 96 take from the second, zero-filled box), built as flex_fwd; the dk/dv
+# walk storing d - 16 columns of dK (a store at the padded or a wrong width
+# leaves some out), built as flex_dkv; and the decode walk's K rows read
+# with the last 16 bytes of each from the row after it (a row stride off by
+# one row at the end of d), built as paged_decode. The checks of
+# ``d80_96_planted_faults`` must catch each.
+PLANT_D80_96_SHORT_K = [
+    ("      for (int kk = 0; kk < D / 16; ++kk) {\n        if constexpr (Q_IN_REGS)\n",
+     "      for (int kk = 0; kk < D / 16 - 1; ++kk) {  // planted: the last k slice dropped\n"
+     "        if constexpr (Q_IN_REGS)\n"),
+]
+PLANT_D80_96_SHORT_STORE = [
+    ("      add_stashed<0, J>(dka, sib_k, tid);\n"
+     "      store_cols<0, J>(dk + k0 * D, dka, i * BK + r0, t4, scale);\n",
+     "      add_stashed<0, J>(dka, sib_k, tid);\n"
+     "      store_cols<0, J - 2>(dk + k0 * D, dka, i * BK + r0, t4, scale);  // planted\n"),
+]
+PLANT_D80_96_NEXT_ROW = [
+    ("      ldmatrix_x4(kb, sk + ((lane & 7) + (lane >> 4) * 8) * RE + kk * 16 + "
+     "((lane >> 3) & 1) * 8);\n",
+     "      ldmatrix_x4(kb, sk + ((lane & 7) + (lane >> 4) * 8 + "
+     "(kk == D / 16 - 1 && ((lane >> 3) & 1))) * RE + kk * 16 + ((lane >> 3) & 1) * 8);\n"),
+]
+
 
 # Each mutated build: (the kernel source compiled, the source mutated, its
 # plants), in a directory of its own beside the kernels.
@@ -1168,6 +1214,10 @@ PLANTED = {
     "flex_dkv_d256_dv_half": ("flex_dkv.cu", "flex_bwd_sm90.cuh", PLANT_D256_DV_HALF),
     "paged_decode_d256_first_row_tile": ("decode.cu", "decode_sm90.cuh",
                                          PLANT_D256_FIRST_ROW_TILE),
+    "flex_fwd_d80_96_short_k": ("flex_fwd.cu", "flex_fwd_sm90.cuh", PLANT_D80_96_SHORT_K),
+    "flex_dkv_d80_96_short_store": ("flex_dkv.cu", "flex_bwd_sm90.cuh",
+                                    PLANT_D80_96_SHORT_STORE),
+    "paged_decode_d80_96_next_row": ("decode.cu", "decode_sm90.cuh", PLANT_D80_96_NEXT_ROW),
 }
 
 # Variants of the kernels, timed beside them and never launched on a main
@@ -3581,10 +3631,11 @@ TRAIN_STEPS = 6
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)  # optax.adamw's
 
 
-def attention_check(model, cap) -> None:
+def attention_check(model, cap, fwd="flex_fwd_hb") -> None:
     """One layer's attention call from the first step against the plain
-    forward and backward on the card: its q, k, v, the forward's out and lse,
-    the dout that reached it and the dq, dk, dv it gave back."""
+    forward and backward on the card: its q, k, v, the forward's out and lse
+    (from ``fwd``), the dout that reached it and the dq, dk, dv it gave
+    back."""
     import torch
     from magiattention_tpu_torch.ops import flex_attn as fa
 
@@ -3602,7 +3653,7 @@ def attention_check(model, cap) -> None:
     ftab, btab = fa.fwd_tables(meta, "cuda:0"), fa.bwd_tables(meta, "cuda:0")
     sink = torch.zeros((q.shape[0],), device="cuda")
     ref_out, ref_lse, _ = fa._fwd_torch(q, k, v, sink, ftab, params)
-    compare("flex_fwd_hb", "training_layer0_step0", cap["out"], ref_out[:, :t].transpose(0, 1),
+    compare(fwd, "training_layer0_step0", cap["out"], ref_out[:, :t].transpose(0, 1),
             cap["lse"], ref_lse[:, :t].transpose(0, 1))
     # the model does not use lse: its cotangent is 0, delta_eff = sum dout * out
     lse = head_major(cap["lse"], tqp)
@@ -10507,52 +10558,49 @@ def d256_timing(gen, serving_line) -> tuple[dict, dict]:
     return line, recs
 
 
-def gemma_layer(seed: int) -> dict:
-    """One attention layer at Gemma-2-9B's widths with seeded bf16 weights:
-    a token embedding [vocab, 3584], the q / k / v projection [3584,
-    (16 + 2 x 8) x 256], the output projection [16 x 256, 3584] and a head
-    [3584, vocab] over the greedy loop's toy vocabulary."""
+def seeded_layer(seed: int, hq: int, hk: int, d: int, dim: int) -> dict:
+    """One attention layer of model width ``dim`` and hq / hk heads of d
+    with seeded bf16 weights: a token embedding [vocab, dim], the q / k / v
+    projection [dim, (hq + 2 hk) x d], the output projection [hq x d, dim]
+    and a head [dim, vocab] over the greedy loop's toy vocabulary."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    width = (GEMMA_HQ + 2 * GEMMA_HK) * D256
+    width = (hq + 2 * hk) * d
 
     def dense(rows, cols):
         return (torch.randn((rows, cols), generator=gen, device="cuda") / rows ** 0.5).to(
             torch.bfloat16)
 
-    return {"embed": torch.randn((WIDE_SERVING_VOCAB, GEMMA_DIM), generator=gen,
+    return {"embed": torch.randn((WIDE_SERVING_VOCAB, dim), generator=gen,
                                  device="cuda").to(torch.bfloat16),
-            "wqkv": dense(GEMMA_DIM, width), "wo": dense(GEMMA_HQ * D256, GEMMA_DIM),
-            "head": dense(GEMMA_DIM, WIDE_SERVING_VOCAB), "gen": gen}
+            "wqkv": dense(dim, width), "wo": dense(hq * d, dim),
+            "head": dense(dim, WIDE_SERVING_VOCAB), "gen": gen}
 
 
-def serving_d256(seed: int) -> dict:
-    """``ServingEngine`` at Gemma-2-9B's attention (16 q / 8 kv heads of
-    d 256, softcap 50, scale 256^-0.5, bf16, pages of 128) through one
-    attention layer of seeded weights (:func:`gemma_layer`): the 8 serving
-    prompts (1,000-8,000 tokens, the 6,500-token one prefilled in chunks of
-    :data:`D256_SERVING_CHUNK`), then :data:`WIDE_SERVING_STEPS` greedy
-    decode steps of all 8, each step's token the argmax of the layer's
-    output through the head and its next q / k / v the projection of that
-    token's embedding. Every prefill goes through ``flex_fwd_hb`` and every
-    step through one ``paged_decode`` at G 2; each step's output is held
-    against the plain decode's (``decode_reference``) within the kernel's
-    bounds, and the greedy tokens must equal the plain decode's but at
-    counted near ties (:data:`WIDE_SERVING_TIE`). Then ``paged_decode``
-    alone on the final batch: its device ms beside the plain version's,
-    SDPA's over the gathered cache and the card's bound."""
+def serving_layer(seed: int, phase: str, hq: int, hk: int, d: int, dim: int, *, scale: float,
+                  softcap: float, prefill: str, source: str) -> dict:
+    """``ServingEngine`` at hq q / hk kv heads of d (bf16, pages of 128)
+    through one attention layer of width ``dim`` with seeded weights
+    (:func:`seeded_layer`): the 8 serving prompts (1,000-8,000 tokens, the
+    6,500-token one prefilled in chunks of :data:`D256_SERVING_CHUNK`), then
+    :data:`WIDE_SERVING_STEPS` greedy decode steps of all 8, each step's
+    token the argmax of the layer's output through the head and its next q
+    / k / v the projection of that token's embedding. Every prefill must go
+    through the forward ``prefill`` (the automatic choice's) and every step
+    through one ``paged_decode``; each step's output is held against the
+    plain decode's (``decode_reference``) within the kernel's bounds, and
+    the greedy tokens must equal the plain decode's but at counted near
+    ties (:data:`WIDE_SERVING_TIE`). Then ``paged_decode`` alone on the
+    final batch: its device ms beside the plain version's, SDPA's over the
+    gathered cache and the card's bound."""
     import torch
-    import torch.nn.functional as Fn
     from magiattention_tpu_torch import csrc
-    from magiattention_tpu_torch.serving import ServingEngine, decode_reference, gather_kv
-    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import ServingEngine, decode_reference
 
-    hq, hk, d = GEMMA_HQ, GEMMA_HK, D256
-    layer = gemma_layer(seed)
+    layer = seeded_layer(seed, hq, hk, d, dim)
     gen = layer["gen"]
-    scale = D256 ** -0.5  # query_pre_attn_scalar 256
-    kw = dict(scale=scale, softcap=GEMMA_SOFTCAP)
+    kw = dict(scale=scale, softcap=softcap)
 
     def qkv(tokens):
         x = (layer["embed"][tokens] @ layer["wqkv"]).view(len(tokens), hq + 2 * hk, d)
@@ -10574,7 +10622,7 @@ def serving_d256(seed: int) -> dict:
     for i, n in enumerate(lens):
         prompt = torch.randint(0, WIDE_SERVING_VOCAB, (n,), generator=gen, device="cuda")
         res = engine.admit(n)
-        check(res.admitted, f"serving_d256: admission {res}")
+        check(res.admitted, f"{phase}: admission {res}")
         chunked = i == D256_SERVING_CHUNKED
         with magi_flags(PREFILL_CHUNK=D256_SERVING_CHUNK if chunked else None):
             torch.cuda.synchronize()
@@ -10585,8 +10633,8 @@ def serving_d256(seed: int) -> dict:
         last.append(int(logits(out[-1:]).argmax()))
         slots.append(res.slot)
     prefill_launches = {n: c for n, c in csrc.launches.items() if c}
-    check(set(prefill_launches) == {"flex_fwd_hb"},
-          f"serving_d256: the prefills launched {prefill_launches}, not flex_fwd_hb alone")
+    check(set(prefill_launches) == {prefill},
+          f"{phase}: the prefills launched {prefill_launches}, not {prefill} alone")
     idx = torch.as_tensor(slots, device="cuda")
     tokens, device_ms, host_ms = [last], [], []
     worst, near_ties = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}, []
@@ -10605,7 +10653,7 @@ def serving_d256(seed: int) -> dict:
         ref, ref_lse = decode_reference(q, engine.cache, engine.cache.block_tables[idx],
                                         engine.cache.seq_lens[idx], **kw)
         errs, failed = out_errors(out, ref, [("lse", lse, ref_lse)])
-        check(not failed, f"serving_d256 step {len(tokens)}: paged_decode fails the {failed} "
+        check(not failed, f"{phase} step {len(tokens)}: paged_decode fails the {failed} "
               f"check(s): {errs}")
         for key in worst:
             worst[key] = max(worst[key], errs[key])
@@ -10616,25 +10664,58 @@ def serving_d256(seed: int) -> dict:
                 continue
             margin, spread = float(ref_l[i, w] - ref_l[i, a]), float(ref_l[i].std())
             check(margin <= WIDE_SERVING_TIE * spread,
-                  f"serving_d256 step {len(tokens)}: kernel token {a} != plain token {w} at a "
+                  f"{phase} step {len(tokens)}: kernel token {a} != plain token {w} at a "
                   f"plain margin of {margin / spread:.3g} of the logits' spread")
             near_ties.append({"step": len(tokens), "sequence": i, "margin_over_spread":
                               margin / spread})
         tokens.append(got)
     decode_launches = {n: c for n, c in csrc.launches.items() if c}
     check(decode_launches == {"paged_decode": WIDE_SERVING_STEPS},
-          f"serving_d256: decode launches {decode_launches}")
+          f"{phase}: decode launches {decode_launches}")
     # paged_decode alone on the final batch, beside its plain version, SDPA and the bound
-    cache, b = engine.cache, len(slots)
+    timing = decode_batch_timing(q, engine.cache, slots, scale, softcap)
+    del engine
+    torch.cuda.empty_cache()
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    launches = {**prefill_launches}
+    for n, c in decode_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    return {"phase": phase, "card": nvidia_smi_line(),
+            "layout": {"hq": hq, "hk": hk, "head_dim": d, "page_size": PAGE, "dim": dim,
+                       "softcap": softcap, "scale": scale, "dtype": "bfloat16"},
+            "source": source,
+            "prompts": list(lens), "chunked_prompt": {"tokens": lens[D256_SERVING_CHUNKED],
+                                                      "chunk": D256_SERVING_CHUNK},
+            "prefill_ms": prefill_ms, "prefill_kernel": prefill, "steps": WIDE_SERVING_STEPS,
+            "tokens": len(lens) * WIDE_SERVING_STEPS,
+            "tokens_equal_plain": len(lens) * WIDE_SERVING_STEPS - len(near_ties),
+            "near_ties": near_ties, **worst,
+            "decode_device_ms_per_step": med(device_ms), "decode_host_ms_per_step": med(host_ms),
+            "decode_timing": timing, "launches": launches}
+
+
+def decode_batch_timing(q, cache, slots, scale: float, softcap: float) -> dict:
+    """``paged_decode`` alone on a bf16 batch (q [b, hq, d], the cache's
+    ``slots``), the split count its entry point resolves: its device ms
+    beside the plain version's, SDPA's over the gathered cache (a
+    yardstick) and the card's bound."""
+    import torch
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch.serving import gather_kv
+    from magiattention_tpu_torch.serving import decode_attn as da
+
+    b, hq, d = q.shape
+    hk = cache.num_kv_heads
+    idx = torch.as_tensor(slots, device="cuda")
     bt, seq_lens = cache.block_tables[idx], cache.seq_lens[idx]
     splits = da.resolve_num_splits(None, cache, b, hq)
-    prm = da.DecodeParams(scale, GEMMA_SOFTCAP, splits, torch.bfloat16)
+    prm = da.DecodeParams(scale, softcap, splits, torch.bfloat16)
     qd = q.contiguous()
     kernel_ms = uncounted(lambda: cuda_ms(
         lambda: da._decode_partials_kernel(qd, cache, bt, seq_lens, prm), reps=50))
     plain_ms = cuda_ms(lambda: da._decode_torch(qd, cache, bt, seq_lens, prm), reps=5, warmup=1)
-    lmax = max(engine.length(s) for s in slots)
-    kv = [gather_kv(cache, s, max_len=lmax) for s in slots]
+    lmax = int(seq_lens.max())
+    kv = [gather_kv(cache, int(s), max_len=lmax) for s in slots]
     kk = torch.stack([x[0] for x in kv]).transpose(1, 2)
     vv = torch.stack([x[1] for x in kv]).transpose(1, 2)
     mask = (torch.arange(lmax, device="cuda")[None] < seq_lens[:, None].long())[:, None, None, :]
@@ -10642,44 +10723,112 @@ def serving_d256(seed: int) -> dict:
         qd[:, :, None, :], kk, vv, attn_mask=mask, scale=scale, enable_gqa=True), reps=50)
     cached = int(seq_lens.sum())
     bound_ms, bound_by = decode_bound(cached, b, splits, bt.numel(), hq, hk, d)
-    del engine, kk, vv, kv
+    del kk, vv, kv
     torch.cuda.empty_cache()
-    med = lambda xs: sorted(xs)[len(xs) // 2]
-    launches = {**prefill_launches}
-    for n, c in decode_launches.items():
-        launches[n] = launches.get(n, 0) + c
-    return {"phase": "serving_d256", "card": nvidia_smi_line(),
-            "layout": {"hq": hq, "hk": hk, "head_dim": d, "page_size": PAGE, "dim": GEMMA_DIM,
-                       "softcap": GEMMA_SOFTCAP, "scale": scale, "dtype": "bfloat16"},
-            "source": "google/gemma-2-9b config.json (attention widths; one layer, seeded "
-                      "weights, a 4096-token toy vocabulary)",
-            "prompts": list(lens), "chunked_prompt": {"tokens": lens[D256_SERVING_CHUNKED],
-                                                      "chunk": D256_SERVING_CHUNK},
-            "prefill_ms": prefill_ms, "steps": WIDE_SERVING_STEPS,
-            "tokens": len(lens) * WIDE_SERVING_STEPS,
-            "tokens_equal_plain": len(lens) * WIDE_SERVING_STEPS - len(near_ties),
-            "near_ties": near_ties, **worst,
-            "decode_device_ms_per_step": med(device_ms), "decode_host_ms_per_step": med(host_ms),
-            "decode_timing": {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": lib_ms, "splits": splits,
-                              "cached_tokens": cached, "batch": b},
-            "launches": launches}
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "splits": splits, "cached_tokens": cached, "batch": b}
 
 
-def attention_d256(gen) -> dict:
-    """Gemma's attention layers at head_dim 256 through
-    ``flex_flash_attn_func``, bf16, forward and backward, the blocking and
-    grid left to the autotuner: (a) a Gemma-2-9B local layer (16 / 8 heads,
-    softcap 50, scale 256^-0.5) on two 8,192-token sequences packed into one
-    call, each under its 4,096-key sliding window (the sparse grid at
-    head_block 2: ``flex_fwd_sparse_hb``, ``flex_dq_sparse``,
-    ``flex_dkv_sparse``); (b) a Gemma-7B layer (16 / 16 heads) on the
-    training path's three documents, each causal over itself (the sparse
-    grid at head_block 1: ``flex_fwd_sparse``); (c) the same layer on one
-    causal 8,192-token sequence (row-major at head_block 1: ``flex_fwd``,
-    ``flex_dq``, ``flex_dkv``). Each call is one launch of each kernel,
-    held against :func:`plain_attention` over a mask built on the card
-    from the sequence bounds."""
+def serving_d256(seed: int) -> dict:
+    """:func:`serving_layer` at Gemma-2-9B's attention: 16 q / 8 kv heads of
+    d 256, softcap 50, scale 256^-0.5, one layer of dim 3584; every
+    prefill through ``flex_fwd_hb``, every step through one ``paged_decode``
+    at G 2."""
+    return serving_layer(seed, "serving_d256", GEMMA_HQ, GEMMA_HK, D256, GEMMA_DIM,
+                         scale=D256 ** -0.5,  # query_pre_attn_scalar 256
+                         softcap=GEMMA_SOFTCAP, prefill="flex_fwd_hb",
+                         source="google/gemma-2-9b config.json (attention widths; one layer, "
+                                "seeded weights, a 4096-token toy vocabulary)")
+
+
+def chained_grads(inputs, mask_ranges, softcap, got) -> tuple:
+    """dq, dk, dv (token-major f32) of the plain backward (``_dq_torch``,
+    ``_dkv_torch``, head by head) on the entry point's bf16 inputs and its
+    forward kernel's own out and lse: what the backward kernels compute from
+    what they are handed, as the kernels phase and the training path's
+    :func:`attention_check` hold them."""
+    import torch
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    q, k, v, dout, dlse = inputs
+    t, d = q.shape[0], q.shape[2]
+    meta = fa.build_block_meta(*mask_ranges, t, t, block_q=BLOCK, block_k=BLOCK)
+    tqp, tkp = meta.num_q_blocks * BLOCK, meta.num_k_blocks * BLOCK
+
+    def hm(x, tp):  # token-major [t, h, ...] -> head-major, padded to tp tokens
+        return fa._pad_tokens(x.transpose(0, 1), tp)
+
+    qh, do, out = hm(q, tqp), hm(dout, tqp), hm(got["out"], tqp)
+    kh, vh = hm(k, tkp), hm(v, tkp)
+    lse = hm(got["lse"].unsqueeze(-1), tqp).squeeze(-1)
+    dl = hm(dlse.unsqueeze(-1), tqp).squeeze(-1)
+    delta = (do.float() * out.float()).sum(-1) - torch.where(torch.isfinite(lse), dl, 0.0)
+    params = fa.FlexAttnParams(BLOCK, BLOCK, d ** -0.5, softcap, False, q.dtype)
+    kw = dict(tables=fa.fwd_tables(meta, "cuda:0"), params=params)
+    dq = by_head(fa._dq_torch, qh, kh, vh, do, lse, delta, **kw)
+    kw["tables"] = fa.bwd_tables(meta, "cuda:0")
+    dk, dv = by_head(fa._dkv_torch, qh, kh, vh, do, lse, delta, **kw)
+    return tuple(x[:, :t].transpose(0, 1) for x in (dq, dk, dv))
+
+
+def hold_chained(name, got, ref, kernels, inputs, mask_ranges, softcap) -> dict:
+    """The forward kernel's out and lse against :func:`plain_attention`'s
+    (the smoke's forward bounds); dq, dk, dv by the three gradient checks
+    against :func:`chained_grads`, and against :func:`plain_attention`'s
+    by the largest-error and relative-L2 checks. The per-block check
+    against the f32 chain is recorded, not held: a document's first rows
+    (and keys) have one or a few keys, and there the sparse grid's
+    forward, as its TPU twin (``_amla_update``), rounds P = 2^(s - m) with
+    an integer m, not 1, to bf16 before P V, so out is a bf16 step off v
+    and delta = dout . out moves dS by up to a tenth of such a row's own
+    size (where its block's other rows, deep in a long document, are small,
+    the block exceeds 2e-2 of its own largest entry). Below d 128 the same
+    inputs zero-padded to d 128 go through the d-128 walks too (not
+    counted), their gradients' distance from these and their own errors
+    against the f32 chain recorded beside. Returns the ratios and errors."""
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch.ops import flex_attn as fa
+
+    fwd, dq_name, dkv_name = kernels
+    compare(fwd, name, got["out"], ref["out"], got["lse"], ref["lse"])
+    chain = chained_grads(inputs, mask_ranges, softcap, got)
+    q, k, v, dout, dlse = inputs
+    d = q.shape[2]
+    wide = None
+    if d < D:
+        wide = uncounted(lambda: entry_fwd_bwd(
+            lambda q, k, v: fa.flex_flash_attn_func(q, k, v, *mask_ranges, scale=d ** -0.5,
+                                                    softcap=softcap),
+            *(Fn.pad(x, (0, D - d)) for x in (q, k, v, dout)), dlse))
+    rec = {}
+    for kernel, what, i in ((dq_name, "dq", 0), (dkv_name, "dk", 1), (dkv_name, "dv", 2)):
+        g = got["grads"][i].transpose(0, 1)
+        compare_grads(kernel, f"{name}_chained", [(what, g, chain[i].transpose(0, 1))])
+        errs, failed = grad_errors(g, ref[what].transpose(0, 1))
+        check(not set(failed) - {"blocks"},
+              f"{name}: {what} fails the {failed} check(s) against the f32 chain: {errs}")
+        rec[f"{what}_vs_f32"] = errs
+        if wide is not None:
+            w = wide["grads"][i][..., :d].transpose(0, 1)
+            rec[f"{what}_d128_padded"] = {
+                "max_abs_diff": float((w.float() - g.float()).abs().max()),
+                "vs_f32": grad_errors(w, ref[what].transpose(0, 1))[0]}
+    return rec
+
+
+def attention_layers(gen, phase: str, layers: dict, source: str, chained: bool = False) -> dict:
+    """Attention layers through ``flex_flash_attn_func``, bf16, forward and
+    backward, the blocking and grid left to the autotuner: each of
+    ``layers`` (name -> (hq, hk, d, softcap, document bounds, window or
+    None, the grid expected, the kernels expected)) on its documents, each
+    causal over itself (and within its window), scale d^-0.5. The choice
+    must be (64, 64, G, grid); each call is one launch of each kernel, held
+    against :func:`plain_attention` over a mask built on the card from the
+    sequence bounds. ``chained``: the gradients are held by the three
+    checks against the plain backward on the forward kernel's own out and
+    lse instead (:func:`chained_grads`), and against
+    :func:`plain_attention`'s by the largest-error and relative-L2 checks,
+    their per-block ratio recorded (:func:`hold_chained`)."""
     import torch
     from magiattention_tpu_torch.api import infer_attn_mask_from_cu_seqlens
     from magiattention_tpu_torch.ops import flex_attn as fa
@@ -10692,79 +10841,95 @@ def attention_d256(gen) -> dict:
             mask &= pos[:, None] - pos[None] < window
         return mask
 
-    two = [0, GEMMA_CONTEXT, 2 * GEMMA_CONTEXT]
-    docs = [0]
-    for n in TRAIN_DOCS:
-        docs.append(docs[-1] + n)
-    layers = {
-        "gemma2_9b_local": (GEMMA_HQ, GEMMA_HK, GEMMA_SOFTCAP, two, GEMMA_WINDOW, "sparse",
-                            ("flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")),
-        "gemma_7b_packed": (GEMMA7B_HEADS, GEMMA7B_HEADS, 0.0, docs, None, "sparse",
-                            ("flex_fwd_sparse", "flex_dq_sparse", "flex_dkv_sparse")),
-        "gemma_7b_causal": (GEMMA7B_HEADS, GEMMA7B_HEADS, 0.0, [0, GEMMA_CONTEXT], None,
-                            "row_major", ("flex_fwd", "flex_dq", "flex_dkv")),
-    }
     runs, launches = {}, {}
-    for name, (hq, hk, softcap, cu, window, grid, kernels) in layers.items():
+    for name, (hq, hk, d, softcap, cu, window, grid, kernels) in layers.items():
         t = cu[-1]
         wsize = (-1, -1) if window is None else (window - 1, 0)
         qr, kr, ts = infer_attn_mask_from_cu_seqlens(cu, window is None, window_size=wsize)
         qr, kr, ts = qr.to_naive_ranges(), kr.to_naive_ranges(), [int(x) for x in ts]
         g = hq // hk
-        choice = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=D256)
-        check(choice == (64, 64, g, grid), f"attention_d256 {name}: the choice is {choice}, "
+        choice = fa.auto_kernel_config(qr, kr, hq, hk, attn_type_map=ts, head_dim=d)
+        check(choice == (64, 64, g, grid), f"{phase} {name}: the choice is {choice}, "
               f"not (64, 64, {g}, {grid!r})")
 
         def rand(h):
-            return torch.randn((t, h, D256), generator=gen, device="cuda").to(torch.bfloat16)
+            return torch.randn((t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
 
         q, k, v, dout = rand(hq), rand(hk), rand(hk), rand(hq)
         dlse = torch.randn((t, hq), generator=gen, device="cuda")
         got = entry_fwd_bwd(lambda q, k, v: fa.flex_flash_attn_func(
-            q, k, v, qr, kr, ts, scale=D256 ** -0.5, softcap=softcap), q, k, v, dout, dlse)
+            q, k, v, qr, kr, ts, scale=d ** -0.5, softcap=softcap), q, k, v, dout, dlse)
         want = {n: 1 for n in kernels}
         check(got["launches"] == want,
-              f"attention_d256 {name}: launches {got['launches']}, expected {want}")
+              f"{phase} {name}: launches {got['launches']}, expected {want}")
         for n in kernels:
             launches[n] = launches.get(n, 0) + 1
         mask = mask_of(cu, window)
         ref = plain_attention(q, k, v, mask, dout, dlse, softcap=softcap)
-        check_against_plain(f"attention_d256_{name}", got, ref, *kernels)
-        runs[name] = {"hq": hq, "hk": hk, "softcap": softcap, "sequences": [y - x for x, y in zip(cu, cu[1:])],
+        extra = {}
+        if chained:
+            extra = hold_chained(f"{phase}_{name}", got, ref, kernels, (q, k, v, dout, dlse),
+                                 (qr, kr, ts), softcap)
+        else:
+            check_against_plain(f"{phase}_{name}", got, ref, *kernels)
+        runs[name] = {"hq": hq, "hk": hk, "head_dim": d, "softcap": softcap,
+                      "sequences": [y - x for x, y in zip(cu, cu[1:])],
                       "window": window, "pairs": int(mask.sum()),
                       "choice": dict(zip(("block_q", "block_k", "head_block", "grid"), choice)),
-                      "fwd_bwd_wall_ms": got["wall_ms"]}
+                      "fwd_bwd_wall_ms": got["wall_ms"], **extra}
         del q, k, v, dout, dlse, got, ref, mask
         torch.cuda.empty_cache()
-    return {"phase": "attention_d256", "card": nvidia_smi_line(), "head_dim": D256,
-            "dtype": "bfloat16",
-            "source": "google/gemma-2-9b config.json (16 / 8 heads, softcap 50, sliding_window "
-                      "4096, 8192-token context); google/gemma-7b config.json (16 / 16 heads)",
+    return {"phase": phase, "card": nvidia_smi_line(), "dtype": "bfloat16", "source": source,
             "runs": runs, "launches": launches}
 
 
-def training_d256(seed: int) -> dict:
-    """``MagiLlama`` at Gemma-2-9B's widths (dim 3584, 16 / 8 heads of d
-    256, ffn 14336; SwiGLU and Llama's norms, not Gemma's GeGLU and extra
-    norms), cut to :data:`D256_TRAIN_LAYERS` layers and a
-    :data:`D256_TRAIN_VOCAB` vocabulary, on the training path's 8192-token
-    stream of three documents: :data:`D256_TRAIN_STEPS` AdamW steps on the
-    kernels (``flex_fwd_hb``, ``flex_dq``, ``flex_dkv``), the first step's
-    loss and every parameter gradient held against the same model (the same
-    seeded weights) on the dense plain versions
-    (``MAGI_ATTENTION_KERNEL_BACKEND=torch``) within the training phases'
-    tolerances (``CP_LOSS_ATOL``, ``CP_GRAD_REL_L2``), and the first
-    layer's attention call against the plain forward and backward under the
-    kernels phase's bounds. Step ms, tokens/s and peak memory."""
+def attention_d256(gen) -> dict:
+    """Gemma's attention layers at head_dim 256 (:func:`attention_layers`):
+    (a) a Gemma-2-9B local layer (16 / 8 heads, softcap 50, scale
+    256^-0.5) on two 8,192-token sequences packed into one call, each under
+    its 4,096-key sliding window (the sparse grid at head_block 2:
+    ``flex_fwd_sparse_hb``, ``flex_dq_sparse``, ``flex_dkv_sparse``); (b) a
+    Gemma-7B layer (16 / 16 heads) on the training path's three documents,
+    each causal over itself (the sparse grid at head_block 1:
+    ``flex_fwd_sparse``); (c) the same layer on one causal 8,192-token
+    sequence (row-major at head_block 1: ``flex_fwd``, ``flex_dq``,
+    ``flex_dkv``)."""
+    two = [0, GEMMA_CONTEXT, 2 * GEMMA_CONTEXT]
+    docs = [0]
+    for n in TRAIN_DOCS:
+        docs.append(docs[-1] + n)
+    layers = {
+        "gemma2_9b_local": (GEMMA_HQ, GEMMA_HK, D256, GEMMA_SOFTCAP, two, GEMMA_WINDOW, "sparse",
+                            ("flex_fwd_sparse_hb", "flex_dq_sparse", "flex_dkv_sparse")),
+        "gemma_7b_packed": (GEMMA7B_HEADS, GEMMA7B_HEADS, D256, 0.0, docs, None, "sparse",
+                            ("flex_fwd_sparse", "flex_dq_sparse", "flex_dkv_sparse")),
+        "gemma_7b_causal": (GEMMA7B_HEADS, GEMMA7B_HEADS, D256, 0.0, [0, GEMMA_CONTEXT], None,
+                            "row_major", ("flex_fwd", "flex_dq", "flex_dkv")),
+    }
+    return {**attention_layers(
+        gen, "attention_d256", layers,
+        "google/gemma-2-9b config.json (16 / 8 heads, softcap 50, sliding_window 4096, "
+        "8192-token context); google/gemma-7b config.json (16 / 16 heads)"), "head_dim": D256}
+
+
+def train_llama(seed: int, phase: str, cfg, *, head_block: int, fwd: str, source: str,
+                cut: str) -> dict:
+    """``MagiLlama`` at ``cfg`` on the training path's 8192-token stream of
+    three documents: :data:`D256_TRAIN_STEPS` AdamW steps on the kernels
+    (``fwd``, ``flex_dq``, ``flex_dkv``; the harness's blocking must be 64 x
+    64 at ``head_block``), the first step's loss and every parameter
+    gradient held against the same model (the same seeded weights) on the
+    dense plain versions (``MAGI_ATTENTION_KERNEL_BACKEND=torch``) within
+    the training phases' tolerances (``CP_LOSS_ATOL``, ``CP_GRAD_REL_L2``),
+    and the first layer's attention call against the plain forward and
+    backward under the kernels phase's bounds. Step ms, tokens/s and peak
+    memory."""
     import torch
     from magiattention_tpu_torch import csrc
     from magiattention_tpu_torch.api import infer_varlen_mask_from_batch
-    from magiattention_tpu_torch.models import LlamaConfig, build_magi_llama, make_model_train_step
+    from magiattention_tpu_torch.models import build_magi_llama, make_model_train_step
     from magiattention_tpu_torch.ops import flex_attn_with_meta
 
-    cfg = LlamaConfig(vocab_size=D256_TRAIN_VOCAB, dim=GEMMA_DIM, n_layers=D256_TRAIN_LAYERS,
-                      n_heads=GEMMA_HQ, n_kv_heads=GEMMA_HK, head_dim=D256, ffn_hidden=GEMMA_FFN,
-                      rope_theta=10000.0)
     total = sum(TRAIN_DOCS)
     qr, kr, ts = infer_varlen_mask_from_batch(TRAIN_DOCS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -10785,7 +10950,7 @@ def training_d256(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     model = build_magi_llama(cfg, total, qr, kr, ts, seed=seed)
     choice = (model.meta.block_q, model.meta.block_k, model.head_block)
-    check(choice == (64, 64, 2), f"training_d256: the harness's blocking is {choice}")
+    check(choice == (64, 64, head_block), f"{phase}: the harness's blocking is {choice}")
     step = make_model_train_step(model, torch.optim.AdamW(model.parameters(), **ADAMW))
     cap = {}
 
@@ -10815,30 +10980,26 @@ def training_d256(seed: int) -> dict:
                                        ref.float().norm().clamp_min(1e-30))
     launches = {n: c for n, c in csrc.launches.items() if c}
     peak = torch.cuda.max_memory_allocated()
-    expected = D256_TRAIN_LAYERS * D256_TRAIN_STEPS
-    check(launches == {n: expected for n in TRAINING_KERNELS},
-          f"training_d256 launches {launches}, expected {expected} of each of "
-          f"{TRAINING_KERNELS}")
-    check(all(math.isfinite(x) for x in losses), f"training_d256: non-finite loss {losses}")
+    expected = cfg.n_layers * D256_TRAIN_STEPS
+    kernels = (fwd, "flex_dq", "flex_dkv")
+    check(launches == {n: expected for n in kernels},
+          f"{phase} launches {launches}, expected {expected} of each of {kernels}")
+    check(all(math.isfinite(x) for x in losses), f"{phase}: non-finite loss {losses}")
     check(abs(losses[0] - plain_loss) <= CP_LOSS_ATOL,
-          f"training_d256: the first loss {losses[0]} vs the plain run's {plain_loss}")
+          f"{phase}: the first loss {losses[0]} vs the plain run's {plain_loss}")
     worst = max(grad_rel, key=grad_rel.get)
     check(grad_rel[worst] <= CP_GRAD_REL_L2,
-          f"training_d256: {worst}'s first-step gradient is {grad_rel[worst]:.3g} relative L2 "
+          f"{phase}: {worst}'s first-step gradient is {grad_rel[worst]:.3g} relative L2 "
           "off the plain run's")
     check(set(cap) == {"q", "k", "v", "out", "lse", "dq", "dk", "dv", "dout"},
-          f"training_d256: the first attention call captured only {sorted(cap)}")
-    attention_check(model, cap)
+          f"{phase}: the first attention call captured only {sorted(cap)}")
+    attention_check(model, cap, fwd)
     del cap, step, model, plain_grads
     torch.cuda.empty_cache()
     med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     return {
-        "phase": "training_d256", "card": nvidia_smi_line(),
-        "config": dataclasses.asdict(cfg),
-        "source": "google/gemma-2-9b config.json widths (hidden 3584, 16 / 8 heads, head_dim "
-                  "256, intermediate 14336); MagiLlama's SwiGLU and norms, not Gemma's",
-        "cut": f"n_layers {GEMMA_LAYERS} -> {D256_TRAIN_LAYERS}, vocab 256000 -> "
-               f"{D256_TRAIN_VOCAB} (the training path's)",
+        "phase": phase, "card": nvidia_smi_line(),
+        "config": dataclasses.asdict(cfg), "source": source, "cut": cut,
         "docs": TRAIN_DOCS, "tokens_per_step": total,
         "losses": losses, "plain_first_loss": plain_loss,
         "first_loss_abs_diff": abs(losses[0] - plain_loss),
@@ -10848,6 +11009,480 @@ def training_d256(seed: int) -> dict:
         "tokens_per_s": total / (med / 1e3), "max_memory_allocated_bytes": peak,
         "launches": launches,
     }
+
+
+def training_d256(seed: int) -> dict:
+    """:func:`train_llama` at Gemma-2-9B's widths (dim 3584, 16 / 8 heads of
+    d 256, ffn 14336; SwiGLU and Llama's norms, not Gemma's GeGLU and extra
+    norms), cut to :data:`D256_TRAIN_LAYERS` layers and a
+    :data:`D256_TRAIN_VOCAB` vocabulary: ``flex_fwd_hb`` at head_block 2,
+    ``flex_dq``, ``flex_dkv``."""
+    from magiattention_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=D256_TRAIN_VOCAB, dim=GEMMA_DIM, n_layers=D256_TRAIN_LAYERS,
+                      n_heads=GEMMA_HQ, n_kv_heads=GEMMA_HK, head_dim=D256, ffn_hidden=GEMMA_FFN,
+                      rope_theta=10000.0)
+    return train_llama(
+        seed, "training_d256", cfg, head_block=2, fwd="flex_fwd_hb",
+        source="google/gemma-2-9b config.json widths (hidden 3584, 16 / 8 heads, head_dim 256, "
+               "intermediate 14336); MagiLlama's SwiGLU and norms, not Gemma's",
+        cut=f"n_layers {GEMMA_LAYERS} -> {D256_TRAIN_LAYERS}, vocab 256000 -> "
+            f"{D256_TRAIN_VOCAB} (the training path's)")
+
+
+# -- head dims 80 and 96: Phi-2's and Phi-3-mini's attention -----------------------
+
+# microsoft/Phi-3-mini-4k-instruct config.json: hidden_size 3072,
+# num_attention_heads = num_key_value_heads = 32 (head_dim 96),
+# intermediate_size 8192, vocab_size 32064, rope_theta 10000, sliding_window
+# 2047, num_hidden_layers 32; microsoft/phi-2 config.json: hidden_size 2560,
+# num_attention_heads 32 (head_dim 80, multi-head attention)
+PHI_HEADS = 32
+PHI3_DIM, PHI3_D, PHI3_FFN, PHI3_VOCAB = 3072, 96, 8192, 32064
+PHI3_WINDOW, PHI3_LAYERS = 2047, 32
+PHI2_DIM, PHI2_D = 2560, 80
+D80_96 = (PHI2_D, PHI3_D)
+D80_96_CASES_SEED = 28  # the seed offset of the head dims 80 / 96 cases' generator
+D80_96_T = 8192  # the varlen and sliding-window kernel cases' tokens
+D80_96_GROUPS = (1, 2, 3)  # q heads per kv head of the flex kernel cases
+D80_96_DECODE_GROUPS = (1, 2, 4, 8, 16, 32, 48)
+D80_96_SPLITS = (1, 2, 4)
+PHI3_TRAIN_LAYERS = 2  # cut from 32 to keep the smoke within its time
+PHI_CONTEXT = 8192  # attention_phi's sequences
+D80_96_TIMING_T = 4096  # d80_96_timing's causal prefill
+
+
+def d80_96_cases(gen) -> dict:
+    """All eight flex kernels at head_dim 80 and 96 against their plain
+    versions, each twice for the same bits. bf16 under the kernels phase's
+    bounds: ``flex_fwd``, ``flex_fwd_hb`` (head_block G and 2G; 2 at G 1)
+    and the row-major backward at G 1, 2 and 3 (two kv heads) on causal
+    2048, causal 2048 with a softcap and a sink, the 8,192-token varlen
+    block-causal mask and Phi-3-mini's 2047-key sliding window over 8,192
+    tokens; the sparse grid at head_block 1 and G on the same problems, its
+    backward bit for bit ``flex_dq`` / ``flex_dkv``'s. float32 within the
+    float32 row of ``DEFAULT_BUDGETS``: the row-major four at G 1, 2 and 3
+    on causal 2048 with a softcap and a sink (:func:`f32_problem_check`),
+    the sparse four at G 1, 2 and 3 (head_block 1 and G) on the 4,096-token
+    varlen mask, their backward bit for bit the row-major float32 pair's.
+    Returns the line."""
+    import torch
+    from magiattention_tpu_torch.api import infer_attn_mask_from_sliding_window
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    wq, wk, wt = infer_attn_mask_from_sliding_window(D80_96_T, PHI3_WINDOW)
+    causal = ([(0, 2048)], [(0, 2048)], [1])
+    rows = [
+        ("causal", 2048, causal, {}),
+        ("causal_softcap_sink", 2048, causal, {"softcap": 30.0, "sink": True}),
+        ("varlen_block_causal", D80_96_T, split_slices(varlen_block_causal(D80_96_T)), {}),
+        ("sliding_window", D80_96_T,
+         (wq.to_naive_ranges(), wk.to_naive_ranges(), [int(x) for x in wt]), {}),
+    ]
+    n_row = n_sparse = 0
+    for d in D80_96:
+        for name, t, (qr, kr, ty), kw in rows:
+            for g in D80_96_GROUPS:
+                hq, hk = 2 * g, 2
+                sink = torch.randn((hq,), generator=gen, device="cuda").tolist() \
+                    if kw.get("sink") else None
+                p = Flex(gen, t, t, hq, hk, qr, kr, ty, d=d, softcap=kw.get("softcap", 0.0),
+                         sink=sink)
+                case = f"d{d}_{name}_g{g}"
+                p.check(case)
+                for hb in ((2,) if g == 1 else (g, 2 * g)):
+                    p.check_hb(case, hb)
+                p.check_bwd(f"{case}_bwd")
+                n_row += 1
+                rm_dq, (rm_dk, rm_dv) = p.dq_kernel(), p.dkv_kernel()
+                for hb in (1, max(g, 2)):
+                    p.set_head_block(hb)
+                    p.check_sparse(f"d{d}_sparse_{name}_g{g}_hb{hb}")
+                    dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+                    check(bitwise((dq, dk, dv), (rm_dq, rm_dk, rm_dv)),
+                          f"d{d}_sparse_{name}_g{g}_hb{hb}: the sparse backward differs from "
+                          "flex_dq / flex_dkv")
+                    n_sparse += 1
+                del p, rm_dq, rm_dk, rm_dv
+                torch.cuda.empty_cache()
+    f32, line_f32, worst = torch.float32, {}, {}
+    hetero = split_slices(varlen_block_causal(4096))
+    for d in D80_96:
+        for g in D80_96_GROUPS:
+            hq, hk = 2 * g, 2
+            sink = torch.randn((hq,), generator=gen, device="cuda").tolist()
+            name = f"f32_d{d}_causal_softcap_sink_g{g}"
+            line_f32[name] = f32_problem_check(
+                Flex(gen, 2048, 2048, hq, hk, *causal, d=d, softcap=30.0, sink=sink, dtype=f32),
+                name)
+            name = f"f32_d{d}_sparse_varlen_block_causal_g{g}"
+            p = Flex(gen, 4096, 4096, hq, hk, *hetero, d=d, dtype=f32)
+            for hb in (1, max(g, 2)):
+                p.set_head_block(hb)
+                got = p.sparse_kernel()
+                torch.cuda.synchronize()
+                check(bitwise(got, p.sparse_kernel()),
+                      f"{name}: {p.fwd_sparse_name} differs between two runs")
+                out, ref_out, pairs = p.sparse_fwd_pairs(got)
+                (_, lse, ref_lse), (_, mx, ref_mx) = pairs
+                stats = hold_fwd(p.fwd_sparse_name, f"{name}_hb{hb}", True, out, ref_out, lse,
+                                 ref_lse, mx, ref_mx)
+                worst[p.fwd_sparse_name] = max(worst.get(p.fwd_sparse_name, 0.0),
+                                               stats["max_abs"])
+            dq, (dk, dv) = p.dq_sparse_kernel(), p.dkv_sparse_kernel()
+            torch.cuda.synchronize()
+            check(bitwise((dq, dk, dv), (p.dq_sparse_kernel(), *p.dkv_sparse_kernel())),
+                  f"{name}: the float32 sparse backward differs between two runs")
+            check(bitwise((dq, dk, dv), (p.dq_kernel(), *p.dkv_kernel())),
+                  f"{name}: the float32 sparse backward differs from flex_dq / flex_dkv")
+            ref_dk, ref_dv = p.dkv_plain()
+            for kernel, what, x, ref in (
+                    ("flex_dq_sparse", "dq", dq[:, :4096], p.dq_plain()[:, :4096]),
+                    ("flex_dkv_sparse", "dk", dk[:, :4096], ref_dk[:, :4096]),
+                    ("flex_dkv_sparse", "dv", dv[:, :4096], ref_dv[:, :4096])):
+                stats = hold_grad(kernel, name, True, what, x, ref)
+                worst[kernel] = max(worst.get(kernel, 0.0), stats["max_abs"])
+            del p
+            torch.cuda.empty_cache()
+    return {"phase": "kernels", "kernel": "all eight flex kernels", "head_dims": list(D80_96),
+            "bfloat16": {"row_major_problems": n_row, "sparse_problems": n_sparse,
+                         "twice_bitwise_equal": n_row + n_sparse,
+                         "sparse_backward_bitwise_row_major": n_sparse},
+            "float32": {"row_major": line_f32, "sparse_max_abs_err": worst}}
+
+
+def d80_96_decode_cases(gen) -> dict:
+    """``paged_decode`` at head_dim 80 and 96 against its plain version
+    (``decode_reference``), each launch twice for the same bits: bf16 at G
+    1, 2, 4, 8, 16 and 32 (two kv heads; the tensor-core walk) and 48 (one
+    kv head; the wide walk), pages of 16, 64 and 128 tokens, 1, 2 and 4
+    splits, a softcap but on pages of 16, ragged and zero lengths on
+    shuffled pages; NaN past every length (the same bits as the clean cache)
+    at G 2 and 48; float32 at G 1, 2, 8 and 48 on pages of 16 and 128; and
+    the shared mode at 1, 3 and 8 members (bf16 at G 1, 2, 8 and 32, float32
+    at G 1 and 4) against the plain version, the flat mode over the
+    broadcast table and ``_decode_shared_prefix``, NaN past the prefix.
+    Returns the line."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {"out_max_abs_err": 0.0, "lse_max_abs_err": 0.0}
+    counts = {"flat": 0, "shared": 0, "nan_tail": 0}
+
+    def held(name, parts, ref):
+        out, lse = da._merge_splits(*parts)
+        errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+        check(not failed, f"{name}: paged_decode fails the {failed} check(s): {errs}")
+        for k in worst:
+            worst[k] = max(worst[k], errs.get(k, 0.0))
+        MAX_ERR["paged_decode"] = max(MAX_ERR["paged_decode"], errs["out_max_abs_err"])
+
+    def twice(name, *args, **kw):
+        first, again = decode_parts(*args, **kw), decode_parts(*args, **kw)
+        torch.cuda.synchronize()
+        check(bitwise(first, again), f"{name}: two runs of paged_decode differ")
+        return first
+
+    flat = [(bf16, g, ps, D80_96_SPLITS) for g in D80_96_DECODE_GROUPS for ps in (16, 64, 128)]
+    flat += [(f32, g, ps, (1, 3)) for g in (1, 2, 8, 48) for ps in (16, 128)]
+    for d in D80_96:
+        for dtype, g, ps, splits_of in flat:
+            hk = 1 if g > 32 else 2
+            full = DECODE_MPP * ps
+            lens = [0, 1, ps - 1, ps + 1, 5 * ps + 3, full // 2 + 7, full - 1, full]
+            cache, q = decode_problem(gen, d, dtype, g * hk, hk, ps, lens)
+            bt, sl = cache.block_tables, cache.seq_lens
+            softcap = 0.0 if ps == 16 else 30.0
+            ref = decode_reference(q, cache, bt, sl, softcap=softcap)
+            tag = f"d{d}_{str(dtype)[6:]}_g{g}_ps{ps}" + ("_softcap" if softcap else "")
+            for splits in splits_of:
+                held(f"{tag}_splits{splits}",
+                     twice(f"{tag}_splits{splits}", q, cache, bt, sl, splits, softcap), ref)
+                counts["flat"] += 1
+            if dtype == bf16 and g in (2, 48) and ps == 64:
+                dirty = nan_past_lengths(cache, lens)
+                for splits in (1, 4):
+                    check(bitwise(decode_parts(q, cache, bt, sl, splits, softcap),
+                                  decode_parts(q, dirty, bt, sl, splits, softcap)),
+                          f"{tag}_splits{splits}: NaN past the lengths changes the output")
+                    counts["nan_tail"] += 1
+            del cache
+    w, hk = DECODE_SHARED_PAGES, 2
+    for d in D80_96:
+        for dtype, groups in ((bf16, (1, 2, 8, 32)), (f32, (1, 4))):
+            for ps in (16, 128):
+                cache = da.PagedKVCache(
+                    *(torch.randn((4 * w + 1, ps, hk, d), generator=gen, device="cuda").to(dtype)
+                      for _ in range(2)),
+                    torch.zeros((1, w), dtype=torch.int32, device="cuda"),
+                    torch.zeros((1,), dtype=torch.int32, device="cuda"))
+                pages = (torch.randperm(4 * w, generator=gen, device="cuda")[:w] + 1).int()
+                for g in groups:
+                    for members in (1, 3, 8):
+                        plen = w * ps - (5 if members == 3 else 0)
+                        q = torch.randn((members, g * hk, d), generator=gen,
+                                        device="cuda").to(dtype)
+                        bt_b = pages[None].expand(members, w).contiguous()
+                        sl_b = torch.full((members,), plen, dtype=torch.int32, device="cuda")
+                        ref = decode_reference(q, cache, bt_b, sl_b)
+                        tag = f"shared_d{d}_{str(dtype)[6:]}_ps{ps}_g{g}_m{members}"
+                        for splits in (1, 3, 4):
+                            parts = twice(f"{tag}_splits{splits}", q, cache, pages[None],
+                                          sl_b[:1], splits, shared=True)
+                            held(f"{tag}_splits{splits}", parts, ref)
+                            flat_out = da._merge_splits(*decode_parts(q, cache, bt_b, sl_b,
+                                                                      splits))
+                            out, lse = da._merge_splits(*parts)
+                            errs, failed = out_errors(out, flat_out[0],
+                                                      [("lse", lse, flat_out[1])])
+                            check(not failed, f"{tag}_splits{splits}: the shared mode fails the "
+                                  f"{failed} check(s) against the flat mode: {errs}")
+                            entry = da._decode_shared_prefix(q, cache, pages, plen,
+                                                             num_splits=splits)
+                            check(bitwise(entry, (out, lse)), f"{tag}_splits{splits}: "
+                                  "_decode_shared_prefix differs from its kernel's merged "
+                                  "partials")
+                            counts["shared"] += 1
+                        if members == 3:
+                            dirty = dataclasses.replace(cache, k_pages=cache.k_pages.clone(),
+                                                        v_pages=cache.v_pages.clone())
+                            last = pages[-1].long()
+                            dirty.k_pages[last, ps - 5:] = float("nan")
+                            dirty.v_pages[last, ps - 5:] = float("nan")
+                            check(bitwise(decode_parts(q, cache, pages[None], sl_b[:1], 4,
+                                                       shared=True),
+                                          decode_parts(q, dirty, pages[None], sl_b[:1], 4,
+                                                       shared=True)),
+                                  f"{tag}: NaN past the prefix length changes the output")
+                            counts["nan_tail"] += 1
+                del cache
+    return {"phase": "kernels", "kernel": "paged_decode", "head_dims": list(D80_96),
+            "dtypes": ["bfloat16", "float32"], "cases": counts, "two_runs_bitwise_equal": True,
+            **worst}
+
+
+def d80_96_planted_faults(gen, planted) -> dict:
+    """The checks on one fault planted in each walk widened to head_dim 80
+    and 96 (``PLANT_D80_96_*``): the forward's S = Q K^T one k slice short
+    (``flex_fwd`` at G 1, causal 2048, d 80), ``flex_dkv`` storing d - 16
+    columns of dK (causal 2048 at G 2, d 96; the blocks the allocator hands
+    dK next hold NaN, so a column never written cannot pass for a right
+    one), and the decode walk reading the last 16 bytes of each K row from
+    the next row (``paged_decode`` at G 4, d 80). Returns which checks
+    catch each; a fault that passes them fails the smoke."""
+    import torch
+    from magiattention_tpu_torch.serving import decode_attn as da
+    from magiattention_tpu_torch.serving import decode_reference
+
+    caught = {}
+    causal = ([(0, 2048)], [(0, 2048)], [1])
+    p = Flex(gen, 2048, 2048, 2, 2, *causal, d=80)
+    got = with_library("flex_fwd", planted["flex_fwd_d80_96_short_k"], p.kernel)()
+    torch.cuda.synchronize()
+    errs, failed = p.hb_errors(got)
+    caught["s_one_k_slice_short:flex_fwd:d80"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-80 k-slice fault passes the forward checks: {errs}")
+    p = Flex(gen, 2048, 2048, 4, 2, *causal, d=96)
+    p.bwd_inputs()
+    # NaN in the two blocks of dK's and dV's size that the caching allocator
+    # hands the launch next
+    poison = [torch.full_like(p.k, float("nan"), dtype=torch.float32) for _ in range(2)]
+    del poison
+    dk, _ = with_library("flex_dkv", planted["flex_dkv_d80_96_short_store"], p.dkv_kernel)()
+    torch.cuda.synchronize()
+    errs, failed = grad_errors(dk[:, :2048], p.dkv_plain()[0][:, :2048])
+    caught["dk_d_less_16_columns:flex_dkv:d96"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-96 dK store fault passes the gradient checks: {errs}")
+    lens = [1, 63, 64 * 20 + 5, DECODE_MPP * 64]
+    cache, q = decode_problem(gen, 80, torch.bfloat16, 8, 2, 64, lens)
+    bt, sl = cache.block_tables, cache.seq_lens
+    ref = decode_reference(q, cache, bt, sl)
+    parts = with_library("paged_decode", planted["paged_decode_d80_96_next_row"],
+                         lambda: decode_parts(q, cache, bt, sl, 1))()
+    torch.cuda.synchronize()
+    out, lse = da._merge_splits(*parts)
+    errs, failed = out_errors(out, ref[0], [("lse", lse, ref[1])])
+    caught["row_tail_from_next_row:paged_decode:d80_g4"] = {"failed_checks": failed, **errs}
+    check(bool(failed), f"the planted d-80 row-tail fault passes the decode checks: {errs}")
+    return caught
+
+
+def d80_96_timing(gen) -> tuple[dict, dict]:
+    """The nine kernels at head_dim 80, 96 and (in the same call) 128 in
+    device time, each checked first at its timed shape against its plain
+    version (run head by head): rows 1, 2, 5 and 7 on the causal 4096
+    prefill at Phi's 32 q / 32 kv heads (``flex_fwd_hb`` at head_block 2),
+    rows 3, 4, 6 and 8 on the 16,384-token varlen block-causal mask at 16 /
+    16 heads (head_block 1, then 2), and ``paged_decode`` on the serving
+    prompts' lengths after 64 steps at 32 / 32. Each beside the plain
+    version's ms, the card's bound at the true d (:func:`flex_bounds`,
+    :func:`decode_bound`) and a PyTorch yardstick: causal SDPA (its backward
+    for dq), ``library_attention`` for the sparse grid, SDPA over the
+    gathered cache for the decode. Returns (the line, {d: {kernel:
+    record}})."""
+    import torch
+    import torch.nn.functional as Fn
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    line = {"phase": "d80_96_timing", "card": nvidia_smi_line(), "hq": PHI_HEADS,
+            "hk": PHI_HEADS, "hetero_heads": PHI_HEADS // 2}
+    recs = {}
+    hqr, hkr, hty = split_slices(varlen_block_causal(HETERO_T))
+    docs = sorted({a for a, _ in hqr} | {b_ for _, b_ in hqr})
+    cu = torch.tensor(docs, dtype=torch.int32, device="cuda")
+    max_len = int(torch.diff(cu).max())
+    lens = [n + WIDE_SERVING_STEPS for n in WIDE_DECODE_LENS]
+    for d in (*D80_96, D):
+        rec, at = {}, {}
+        t, h = D80_96_TIMING_T, PHI_HEADS
+        p = Flex(gen, t, t, h, h, [(0, t)], [(0, t)], [1], d=d)
+        plain = held_by_head(p, f"d{d}_prefill_{t}")
+        ms = {"flex_fwd": cuda_ms(p.kernel, 20), "flex_fwd_hb": cuda_ms(lambda: p.hb_kernel(2), 20),
+              "flex_dq": cuda_ms(p.dq_kernel, 20), "flex_dkv": cuda_ms(p.dkv_kernel, 20)}
+
+        def causal_sdpa(a, b_, c):
+            def fn():
+                return Fn.scaled_dot_product_attention(
+                    a[:, :t].unsqueeze(0), b_[:, :t].unsqueeze(0), c[:, :t].unsqueeze(0),
+                    is_causal=True)
+            return fn
+
+        lib_fwd, lib_bwd, why = library_fwd_bwd(causal_sdpa, p.q, p.k, p.v,
+                                                p.do[:, :t].unsqueeze(0))
+        b = flex_bounds(p.meta.total_area, t, h, h, d, False)
+        for name, kind, lib in (("flex_fwd", "fwd", lib_fwd), ("flex_fwd_hb", "fwd", lib_fwd),
+                                ("flex_dq", "dq", lib_bwd), ("flex_dkv", "dkv", None)):
+            rec[name] = {"ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                         "bound_by": b[kind][1], "library_ms": lib}
+        at[f"prefill_{t}"] = {"ms": ms, "plain_ms_by_head": plain, "area": p.meta.total_area,
+                              "library_fwd_ms": lib_fwd, "library_bwd_ms_for_dq_dk_dv": lib_bwd,
+                              "library_note": why}
+        del p
+        torch.cuda.empty_cache()
+        h = PHI_HEADS // 2
+        p = Flex(gen, HETERO_T, HETERO_T, h, h, hqr, hkr, hty, d=d, head_block=1)
+        plain = held_by_head(p, f"d{d}_hetero_hb1", sparse=True)
+        ms = {"flex_fwd_sparse": cuda_ms(p.sparse_kernel, 20)}
+        p.set_head_block(2)
+        held_by_head(p, f"d{d}_hetero_hb2", sparse=True)
+        ms.update({"flex_fwd_sparse_hb": cuda_ms(p.sparse_kernel, 20),
+                   "flex_dq_sparse": cuda_ms(p.dq_sparse_kernel, 20),
+                   "flex_dkv_sparse": cuda_ms(p.dkv_sparse_kernel, 20)})
+        lib_name = None
+
+        def lib_of(a, b_, c):
+            nonlocal lib_name
+            fn, lib_name = library_attention(*(x[:, :HETERO_T].transpose(0, 1).contiguous()
+                                               for x in (a, b_, c)), cu, max_len)
+            return fn
+
+        lib_fwd, lib_bwd, why = library_fwd_bwd(lib_of, p.q, p.k, p.v,
+                                                p.do[:, :HETERO_T].transpose(0, 1))
+        b = flex_bounds(p.meta.total_area, HETERO_T, h, h, d, False)
+        for name, kind, lib in (("flex_fwd_sparse", "fwd", lib_fwd),
+                                ("flex_fwd_sparse_hb", "fwd", lib_fwd),
+                                ("flex_dq_sparse", "dq", lib_bwd),
+                                ("flex_dkv_sparse", "dkv", None)):
+            rec[name] = {"ms": ms[name], "plain_ms": plain[kind], "bound_ms": b[kind][0],
+                         "bound_by": b[kind][1], "library_ms": lib}
+        at[f"hetero_{HETERO_T}"] = {"ms": ms, "plain_ms_by_head": plain,
+                                    "area": p.meta.total_area, "library": lib_name,
+                                    "library_fwd_ms": lib_fwd,
+                                    "library_bwd_ms_for_dq_dk_dv": lib_bwd, "library_note": why}
+        del p
+        torch.cuda.empty_cache()
+        cache, q = decode_problem(gen, d, torch.bfloat16, PHI_HEADS, PHI_HEADS, PAGE, lens,
+                                  mpp=-(-max(lens) // PAGE))
+        rec["paged_decode"] = decode_batch_timing(q, cache, list(range(len(lens))), d ** -0.5,
+                                                  0.0)
+        at["serving_batch"] = rec["paged_decode"]
+        del cache, q
+        torch.cuda.empty_cache()
+        at["share_of_bound"] = {n: r["bound_ms"] / r["ms"] for n, r in rec.items()}
+        line[f"d{d}"] = at
+        recs[d] = rec
+    return line, recs
+
+
+def serving_phi(seed: int) -> dict:
+    """:func:`serving_layer` at Phi-3-mini's attention (32 / 32 heads of d
+    96, one layer of dim 3072), then at Phi-2's (32 / 32 of d 80, dim 2560):
+    scale d^-0.5, no softcap; every prefill through ``flex_fwd`` (the
+    automatic choice at G 1: the row-major grid, head_block 1), every step
+    through one ``paged_decode`` at G 1. The prompts are the serving path's
+    (past Phi-2's 2,048-token and Phi-3-mini-4k's 4,096-token contexts: the
+    path takes the widths from them, not the lengths), and the decode
+    attends each whole history (Phi-3-mini's 2047-key window is not applied:
+    the engine has none). Returns the line, a run per model."""
+    runs = {}
+    for name, d, dim, seed_off, source in (
+            ("phi3_mini", PHI3_D, PHI3_DIM, 0,
+             "microsoft/Phi-3-mini-4k-instruct config.json (hidden 3072, 32 / 32 heads)"),
+            ("phi2", PHI2_D, PHI2_DIM, 1, "microsoft/phi-2 config.json (hidden 2560, 32 heads)")):
+        runs[name] = serving_layer(seed + seed_off, f"serving_phi_{name}", PHI_HEADS, PHI_HEADS, d,
+                                   dim, scale=d ** -0.5, softcap=0.0, prefill="flex_fwd",
+                                   source=f"{source}; one layer, seeded weights, a 4096-token "
+                                          "toy vocabulary")
+    launches = {}
+    for r in runs.values():
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    return {"phase": "serving_phi", "card": nvidia_smi_line(), "runs": runs,
+            "launches": launches}
+
+
+def attention_phi(gen) -> dict:
+    """Phi's attention layers through ``flex_flash_attn_func``
+    (:func:`attention_layers`): (a) a Phi-3-mini layer (32 / 32 heads of d
+    96) on two 8,192-token sequences packed into one call, each under its
+    2,047-key sliding window (the sparse grid at head_block 1:
+    ``flex_fwd_sparse``, ``flex_dq_sparse``, ``flex_dkv_sparse``); (b) a
+    Phi-2 layer (32 / 32 of d 80) on the 16,384-token varlen block-causal
+    ``hetero`` mask (the sparse grid at head_block 1); (c) the Phi-3-mini
+    layer on one causal 8,192-token sequence (row-major at head_block 1:
+    ``flex_fwd``, ``flex_dq``, ``flex_dkv``). The gradients are held
+    ``chained`` (:func:`hold_chained`): ``hetero``'s documents start a row
+    or a few before a q block's end, after rows deep in a long document,
+    where the sparse forward's bf16 P makes a block's gradient miss the
+    per-block bound against the f32 chain at d 128 as at d 80."""
+    from magiattention_tpu_torch.testing.workloads import split_slices, varlen_block_causal
+
+    hqr, _, _ = split_slices(varlen_block_causal(HETERO_T))
+    hetero = sorted({a for a, _ in hqr} | {b for _, b in hqr})
+    sparse = ("flex_fwd_sparse", "flex_dq_sparse", "flex_dkv_sparse")
+    layers = {
+        "phi3_mini_window": (PHI_HEADS, PHI_HEADS, PHI3_D, 0.0,
+                             [0, PHI_CONTEXT, 2 * PHI_CONTEXT], PHI3_WINDOW, "sparse", sparse),
+        "phi2_hetero": (PHI_HEADS, PHI_HEADS, PHI2_D, 0.0, hetero, None, "sparse", sparse),
+        "phi3_mini_causal": (PHI_HEADS, PHI_HEADS, PHI3_D, 0.0, [0, PHI_CONTEXT], None,
+                             "row_major", ("flex_fwd", "flex_dq", "flex_dkv")),
+    }
+    return attention_layers(
+        gen, "attention_phi", layers,
+        "microsoft/Phi-3-mini-4k-instruct config.json (32 / 32 heads, head_dim 96, "
+        "sliding_window 2047); microsoft/phi-2 config.json (32 heads, head_dim 80)",
+        chained=True)
+
+
+def training_phi3(seed: int) -> dict:
+    """:func:`train_llama` at Phi-3-mini's widths (dim 3072, 32 / 32 heads of
+    d 96, ffn 8192, vocab 32064, rope theta 10000; MagiLlama's SwiGLU and
+    norms, Phi-3-mini's own shape), cut to :data:`PHI3_TRAIN_LAYERS` layers:
+    ``flex_fwd`` at head_block 1 (G 1), ``flex_dq``, ``flex_dkv``, without
+    the 2047-key window (the training stream's documents are causal over
+    themselves, as the training path's)."""
+    from magiattention_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=PHI3_VOCAB, dim=PHI3_DIM, n_layers=PHI3_TRAIN_LAYERS,
+                      n_heads=PHI_HEADS, n_kv_heads=PHI_HEADS, head_dim=PHI3_D,
+                      ffn_hidden=PHI3_FFN, rope_theta=10000.0)
+    return train_llama(
+        seed, "training_phi3", cfg, head_block=1, fwd="flex_fwd",
+        source="microsoft/Phi-3-mini-4k-instruct config.json widths (hidden 3072, 32 / 32 "
+               "heads, head_dim 96, intermediate 8192, vocab 32064, rope_theta 10000)",
+        cut=f"n_layers {PHI3_LAYERS} -> {PHI3_TRAIN_LAYERS}")
 
 
 def main(argv=None) -> int:
@@ -10909,6 +11544,8 @@ def main(argv=None) -> int:
     gen_new.manual_seed(args.seed + NEW_CASES_SEED)
     gen_d256 = torch.Generator(device="cuda")  # the head_dim 256 cases', likewise
     gen_d256.manual_seed(args.seed + D256_CASES_SEED)
+    gen_d80_96 = torch.Generator(device="cuda")  # the head dims 80 / 96 cases', likewise
+    gen_d80_96.manual_seed(args.seed + D80_96_CASES_SEED)
     flex_cases(gen)
     hb_line = hb_cases(gen)
     emit({"phase": "kernels", "kernel": "flex_fwd_hb", **hb_line})
@@ -10956,6 +11593,20 @@ def main(argv=None) -> int:
     attn_d256_line = attention_d256(gen_d256)
     emit(attn_d256_line)
     torch.cuda.empty_cache()
+    # head dims 80 and 96 (Phi-2's and Phi-3-mini's attention): the kernel
+    # cases, the planted faults, the serving path, the kernels' times, the
+    # attention layers
+    emit(d80_96_cases(gen_d80_96))
+    emit(d80_96_decode_cases(gen_d80_96))
+    emit({"phase": "planted_faults", "case": "d80_96_walks",
+          "caught": d80_96_planted_faults(gen_d80_96, planted)})
+    serving_phi_line = serving_phi(args.seed)
+    emit(serving_phi_line)
+    d80_96_line, d80_96_t = d80_96_timing(gen_d80_96)
+    emit(d80_96_line)
+    attn_phi_line = attention_phi(gen_d80_96)
+    emit(attn_phi_line)
+    torch.cuda.empty_cache()
 
     summary, engine, slots = serving(gen)
     emit(summary)
@@ -10996,6 +11647,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_d256 = training_d256(args.seed)
     emit(train_d256)
+    torch.cuda.empty_cache()
+    train_phi3 = training_phi3(args.seed)
+    emit(train_phi3)
     torch.cuda.empty_cache()
 
     hetero_line, hetero_t = hetero(gen, planted)
@@ -11102,7 +11756,10 @@ def main(argv=None) -> int:
                "wide_serving": wide_serving_line["launches"],
                "serving_d256": serving_d256_line["launches"],
                "attention_d256": attn_d256_line["launches"],
-               "training_d256": train_d256["launches"]}
+               "training_d256": train_d256["launches"],
+               "serving_phi": serving_phi_line["launches"],
+               "attention_phi": attn_phi_line["launches"],
+               "training_phi3": train_phi3["launches"]}
     sources = {
         "flex_fwd": ("flex_fwd.cu", "magiattention_tpu/ops/flex_attn.py:543"),
         "flex_fwd_hb": ("flex_fwd_hb.cu", "magiattention_tpu/ops/flex_attn.py:388"),
@@ -11129,6 +11786,9 @@ def main(argv=None) -> int:
             **({"at_new_widths": narrow_t[name]} if name in narrow_t else {}),
             # and at head_dim 256 (d256_timing)
             "at_d256": d256_t[name],
+            # and at head_dims 80 and 96, with d 128 at the same shapes (d80_96_timing)
+            "at_d80": d80_96_t[80][name], "at_d96": d80_96_t[96][name],
+            "at_d128_beside_d80_96": d80_96_t[D][name],
         })
     # every path's launches are in the line: a phase cannot launch unseen
     launched = {(p, n) for p, counts in by_path.items() for n, c in counts.items() if c}

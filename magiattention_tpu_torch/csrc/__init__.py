@@ -11,11 +11,13 @@ persistent sparse-grid ``flex_fwd_sparse``, ``flex_fwd_sparse_hb``) the
 TMA + wgmma walk of ``flex_fwd_sm90.cuh``, the four backward kernels (the
 row-major ``flex_dq``, ``flex_dkv`` and the persistent sparse-grid
 ``flex_dq_sparse``, ``flex_dkv_sparse``) the per-item walks of
-``flex_bwd_sm90.cuh``, all eight at head_dim 32, 64, 128 and 256 in bf16.
-All eight take float32 q/k/v too (their ``in_f32`` argument), on the
-CUDA-core walks of ``flex_simt.cuh``, at head_dim 32, 64 and 128.
+``flex_bwd_sm90.cuh``, all eight at head_dim 32, 64, 80, 96, 128 and 256 in
+bf16 (80 and 96 in d 128's shared tiles, zeros past d, the products at the
+true d). All eight take float32 q/k/v too (their ``in_f32`` argument), on
+the CUDA-core walks of ``flex_simt.cuh``, at head_dim 32, 64, 80, 96 and
+128.
 ``paged_decode`` (``decode.cu``) takes the tensor-core walk of
-``decode_sm90.cuh`` for bf16 caches (head_dim 256 too), in the flat mode
+``decode_sm90.cuh`` for bf16 caches (head_dims 80, 96 and 256 too), in the flat mode
 past 32 q heads a kv head the TMA and wgmma walk of ``decode_wide_sm90.cuh``
 (which shares ``flex_sm90.cuh``'s primitives), and the CUDA-core walk of
 ``decode_simt.cuh`` for float32 ones. ``flex_fwd.cuh``,

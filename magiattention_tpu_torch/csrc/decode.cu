@@ -29,7 +29,7 @@
 // wide walk's host schedule takes it the same way, into seg_chunks).
 // num_pages: the cache's pages (the wide walk's tensor maps span them).
 //
-// head_dim 32, 64 or 128 (the flex kernels' widths), any number of q heads
+// head_dim 32, 64, 80, 96 or 128 (the flex kernels' widths), any number of q heads
 // per kv head: a group past what one walk keeps in registers runs as row
 // tiles of one walk over each K/V chunk it loads (decode_wide_sm90.cuh,
 // decode_simt.cuh's WIDE mode). head_dim 256 in bf16 on decode_sm90.cuh's
@@ -77,6 +77,8 @@ int magi_paged_decode(const void* q, const void* k_pages, const void* v_pages,
   switch (head_dim) {
     case 32: MAGI_DECODE_LAUNCH(32);
     case 64: MAGI_DECODE_LAUNCH(64);
+    case 80: MAGI_DECODE_LAUNCH(80);
+    case 96: MAGI_DECODE_LAUNCH(96);
     case 128: MAGI_DECODE_LAUNCH(128);
     case 256:
       if (is_f32 || wide) return cudaErrorInvalidValue;

@@ -61,9 +61,13 @@
 // Grid: (kv heads x cluster blocks, splits, row groups), clusters along x;
 // NWARPS * 32 threads. Row i of a launch is q head h * G + i % G of member
 // i / G; a row group is one sequence's G rows (flat mode) or up to 32 rows
-// across members (shared). Head dims 32, 64, 128 and 256: a d-32 row is 64
-// bytes, four 16-byte cp.async copies, and its 80-byte padded shared row
-// keeps an ldmatrix phase's 8 rows on distinct banks as the wider ones do.
+// across members (shared). Head dims 32, 64, 80, 96, 128 and 256: a d-32 row
+// is 64 bytes, four 16-byte cp.async copies, and its 80-byte padded shared
+// row keeps an ldmatrix phase's 8 rows on distinct banks as the wider ones
+// do; d = 80 and 96 (Phi-2's and Phi-3-mini's widths) are 10 and 12 copies a
+// row, their padded rows 176 and 208 bytes (11 and 13 units of 16: odd, so
+// an ldmatrix phase's 8 rows again fall on distinct banks), their products 5
+// and 6 k slices and 10 and 12 n8 tiles of the accumulator.
 //
 // d = 256 (Gemma's width): a chunk's K and V take 16.5 KB, so each warp's
 // ring has two stages (one chunk in flight while it computes one: 198 KB
@@ -182,6 +186,8 @@ paged_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   constexpr int DN = D / 8;  // n8 tiles of the accumulator
   constexpr int STAGES = stages<D>();  // this width's ring depth
   static_assert(D <= 128 || MT == 1, "d = 256 walks hold one m16 tile of rows");
+  static_assert(D % 16 == 0 && CH * (D / 8) % 32 == 0 && DN % 2 == 0,
+                "whole k slices, copies a lane and pairs of n8 tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* sQ = ring + NWARPS * STAGES * stage_elems<D>();  // [ROWS][RE]

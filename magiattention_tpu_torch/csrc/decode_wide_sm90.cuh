@@ -27,10 +27,11 @@
 //   registers given to the consumers by setmaxnreg) and two consumer
 //   warpgroups. One producer thread fills a ring of STG stages by TMA, each
 //   stage one 64-token box of K and one of V from the cache's 3-D tensor map
-//   [pages * page_size, kv heads, D] (128-byte swizzle at d 64 / 128,
-//   64-byte at d 32, as flex_sm90.cuh's tiles), and each walk's q rows (its
-//   Q tile, two buffers so that the next segment's Q lands while this one
-//   runs). A consumer warpgroup computes S = Q K^T for 64 q rows by wgmma
+//   [pages * page_size, kv heads, D] (128-byte swizzle at d 64 / 80 / 96 /
+//   128, 64-byte at d 32, as flex_sm90.cuh's tiles: at d 80 and 96 d 128's
+//   two boxes across, zeros past d, the products at the true d), and each
+//   walk's q rows (its Q tile, two buffers so that the next segment's Q
+//   lands while this one runs). A consumer warpgroup computes S = Q K^T for 64 q rows by wgmma
 //   m64n64k16 with Q and K from shared memory, the online softmax in
 //   registers, and O += P V by wgmma with P from registers and V as the
 //   MN-major B operand (flex_fwd_sm90.cuh's products). Up to 64 rows a
@@ -102,6 +103,7 @@ using flex::sm90::desc_k_major;
 using flex::sm90::fence_barrier_init;
 using flex::sm90::fence_proxy_async;
 using flex::sm90::fence_regs;
+using flex::sm90::padded_d;
 using flex::sm90::mbar_expect_tx;
 using flex::sm90::mbar_init;
 using flex::sm90::mbar_wait;
@@ -136,9 +138,9 @@ constexpr unsigned FULL = 0xffffffffu;
 // segment of each walk, and the total) and the scan's warp sums.
 template <int D, bool SPLIT>
 struct Layout {
-  static constexpr int TB = CH * D * 2;  // a 64-row tile of D bf16
+  static constexpr int TB = flex::sm90::tile_bytes<D>();  // a 64-row tile of D bf16
   static constexpr int QT = SPLIT ? 1 : 2;  // Q tiles a buffer
-  static constexpr int STG = D == 128 ? 4 : 8;
+  static constexpr int STG = TB == 16384 ? 4 : 8;  // d 80 / 96 / 128: 16 KB tiles
   static constexpr int RING = 2 * QT * TB;
   static constexpr int STASH = RING + STG * 2 * TB;
   static constexpr int STASH_FLOATS = (4 + D / 2) * WG;  // m[2], l[2], o[D / 8][4] a thread
@@ -271,7 +273,7 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 // matter.
 template <int D>
 __device__ __forceinline__ void zero_rows(unsigned char* tile, int r_begin, int t, int nt) {
-  constexpr int RB = row_bytes<D>(), UNITS = RB / 16, CHUNKS = 2 * D / RB;
+  constexpr int RB = row_bytes<D>(), UNITS = RB / 16, CHUNKS = 2 * padded_d<D>() / RB;
   const int n = (CH - r_begin) * UNITS * CHUNKS;
   for (int x = t; x < n; x += nt) {
     const int u = x % UNITS, rest = x / UNITS;
@@ -323,13 +325,13 @@ __device__ __forceinline__ void producer(const Args& a, const CUtensorMap* tm_q,
       const uint32_t sk = base + L::RING + st * 2 * L::TB, sv = sk + L::TB;
       if (lane == 0) {
         mbar_wait(bars.empty(st), ((fill / L::STG) & 1) ^ 1);
-        mbar_expect_tx(bars.full(st), 2 * boxes * R * D * 2);
+        mbar_expect_tx(bars.full(st), 2 * boxes * R * padded_d<D>() * 2);
       }
       for (int p = 0; p < boxes; ++p) {
         const int tok = __shfl_sync(FULL, cur, p);
         if (lane == 0) {
 #pragma unroll
-          for (int cc = 0; cc < D / COLS; ++cc) {
+          for (int cc = 0; cc < padded_d<D>() / COLS; ++cc) {
             const uint32_t off = cc * chunk_bytes<D>() + p * R * row_bytes<D>();
             tma_load_3d(sk + off, tm_k, bars.full(st), cc * COLS, wk.h, tok);
             tma_load_3d(sv + off, tm_v, bars.full(st), cc * COLS, wk.h, tok);
@@ -689,8 +691,9 @@ inline int gcd(int x, int y) {
 }
 
 // A 3-D tensor map over a paged cache [pages * page_size, hk, d] bf16: boxes
-// of box_rows tokens of one kv head, d / 64 boxes of 64 columns across (one
-// of 32 at d = 32), swizzled as flex_sm90.cuh's tiles.
+// of box_rows tokens of one kv head, ceil(d / 64) boxes of 64 columns across
+// (one of 32 at d = 32; at d = 80 and 96 the second reads zeros past d),
+// swizzled as flex_sm90.cuh's tiles.
 inline cudaError_t encode_cache_map(CUtensorMap* map, const void* base, long long tokens, int hk,
                                     int d, int box_rows) {
   typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

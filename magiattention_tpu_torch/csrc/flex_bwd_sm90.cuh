@@ -58,6 +58,10 @@
 //   block, whose one item leaves the ring free, hands both partials over at
 //   once through the ring.)
 //
+// d = 80 and 96: the d <= 128 layouts and walks, over d = 128's shared tiles
+// (flex_sm90.cuh's padded_d: zeros past d); the products at the true d, the
+// accumulators d / 8 column groups, the stores d columns.
+//
 // d = 256 (Gemma's width): a 64-row tile is 32 KB. The layouts keep what
 // fits an SM's 227 KB: dq one or two ring stages beside its resident Q and
 // dO (DqLayout::STG), dk/dv two stages beside one resident K/V buffer or one
@@ -398,7 +402,7 @@ __device__ __forceinline__ int dq_consumer(
   const int row0 = i * BQ + r0;
   if constexpr (NH == 1) {
     constexpr int HALF = J / 2;
-    static_assert(CONSUMERS * HALF * 4 * WG_THREADS * 4 == L::RESIDENT, "hand-over size");
+    static_assert(CONSUMERS * HALF * 4 * WG_THREADS * 4 <= L::RESIDENT, "hand-over size");
     named_sync(BAR_CONSUMERS, CONSUMERS * WG_THREADS);  // both walks done: Q and dO are free
     fence_proxy_async();
     float* handoff = reinterpret_cast<float*>(smem + r * L::RESIDENT);  // [wg][HALF * 4][128]
@@ -484,7 +488,10 @@ __device__ __forceinline__ int dkv_consumer(
     float (&dva)[D / 8][4]) {
   using L = DkvLayout<D, RES>;
   constexpr int J = D / 8;
-  static_assert(J * 4 * WG_THREADS * 4 == L::RESIDENT, "hand-over size");
+  // the hand-over of one partial fits the resident buffer (d = 80, 96: with
+  // room to spare, the buffer being d = 128's), and of both the ring
+  static_assert(J * 4 * WG_THREADS * 4 <= L::RESIDENT, "hand-over size");
+  static_assert(2 * J * 4 * WG_THREADS * 4 <= L::STG * 2 * L::TB, "hand-over size");
   const Bars bars{base + L::BARS};
   const int tid = threadIdx.x % WG_THREADS;
   const int warp = tid >> 5, lane = tid & 31;

@@ -148,6 +148,12 @@ int magi_flex_dkv(const void* q, const void* k, const void* v, const void* dout,
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
                         dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
+    case 80:
+      return launch<80>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
+                        dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
+    case 96:
+      return launch<96>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
+                        dv, hq, hk, tqp, tkp, nk, scale, softcap, st);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, qblk, sid, runs, bounds, rs, rc, order, dk,
                          dv, hq, hk, tqp, tkp, nk, scale, softcap, st);

@@ -184,6 +184,12 @@ int magi_flex_dq_sparse(const void* q, const void* k, const void* v, const void*
     case 64:
       return dispatch<64>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
                           counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
+    case 80:
+      return dispatch<80>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
+                          counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
+    case 96:
+      return dispatch<96>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
+                          counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);
     case 128:
       return dispatch<128>(q, k, v, dout, lse, delta, kblk, sid, runs, bounds, rs, rc, work,
                            counter, dq, hq, hk, tqp, tkp, nq, n_items, scale, softcap, st);

@@ -15,8 +15,8 @@
 // entries takes the place of the TPU's sequential grid axis.
 //
 // Float32 q/k/v (in_f32) take the CUDA-core walk of flex_simt.cuh instead,
-// one q head per block, out in f32 (head_dim 32, 64 and 128; bf16 also takes
-// 256).
+// one q head per block, out in f32 (head_dim 32, 64, 80, 96 and 128; bf16
+// also takes 256).
 
 #include "flex_fwd_sm90.cuh"
 #include "flex_simt.cuh"
@@ -89,6 +89,8 @@ int magi_flex_fwd(const void* q, const void* k, const void* v, const void* sink,
   switch (head_dim) {
     case 32: MAGI_FLEX_LAUNCH(32);
     case 64: MAGI_FLEX_LAUNCH(64);
+    case 80: MAGI_FLEX_LAUNCH(80);
+    case 96: MAGI_FLEX_LAUNCH(96);
     case 128: MAGI_FLEX_LAUNCH(128);
     case 256: MAGI_FLEX_LAUNCH(256);
     default: return cudaErrorInvalidValue;

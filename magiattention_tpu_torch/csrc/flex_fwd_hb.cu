@@ -94,6 +94,8 @@ int magi_flex_fwd_hb(const void* q, const void* k, const void* v, const void* si
   switch (head_dim) {
     case 32: MAGI_FLEX_HB_LAUNCH(32);
     case 64: MAGI_FLEX_HB_LAUNCH(64);
+    case 80: MAGI_FLEX_HB_LAUNCH(80);
+    case 96: MAGI_FLEX_HB_LAUNCH(96);
     case 128: MAGI_FLEX_HB_LAUNCH(128);
     case 256: MAGI_FLEX_HB_LAUNCH(256);
     default: return cudaErrorInvalidValue;

@@ -14,6 +14,12 @@
 // (lse -inf on an uncovered row, or the sink if one is set; rowmax without
 // the sink).
 //
+// d = 80 and 96 (Phi-2's and Phi-3-mini's widths) run d = 128's layout:
+// each tile is loaded as d = 128's two boxes, zeros past d (flex_sm90.cuh's
+// padded_d), and the walk's products run at the true d (S = Q K^T over d / 16
+// k slices, P V at N = d), its O accumulator d / 8 column groups; Q stays in
+// shared memory there, as at d = 64.
+//
 // d = 256 (Gemma's width): a 64-row tile is 32 KB, so the d <= 128 layout
 // (two Q buffers of a head pair, four K/V stages: 384 KB) does not fit an
 // SM's 227 KB. FwdLayout keeps one Q buffer and two ring stages a block
@@ -518,7 +524,7 @@ __device__ __forceinline__ void fwd_consumer(int wg, unsigned char* smem, uint32
   // at d = 128 Q lives in registers for the walk; at d = 64 such fragments
   // did not survive the walk on the card, so the product reads Q from
   // shared memory there, as at d = 32 (load_a_frag reads the 128-byte
-  // swizzle only)
+  // swizzle only), 80 and 96 (whose buffer then needs no proxy fence)
   constexpr bool Q_IN_REGS = D == 128;
   const typename L::Bars bars{base + L::BARS};
   const int* meta = reinterpret_cast<const int*>(smem + L::META);

@@ -101,6 +101,12 @@ int magi_flex_fwd_sparse(const void* q, const void* k, const void* v, const void
     case 64:
       if (out_f32) MAGI_FWD_SPARSE_LAUNCH(64, float);
       MAGI_FWD_SPARSE_LAUNCH(64, bf16);
+    case 80:
+      if (out_f32) MAGI_FWD_SPARSE_LAUNCH(80, float);
+      MAGI_FWD_SPARSE_LAUNCH(80, bf16);
+    case 96:
+      if (out_f32) MAGI_FWD_SPARSE_LAUNCH(96, float);
+      MAGI_FWD_SPARSE_LAUNCH(96, bf16);
     case 128:
       if (out_f32) MAGI_FWD_SPARSE_LAUNCH(128, float);
       MAGI_FWD_SPARSE_LAUNCH(128, bf16);

@@ -28,7 +28,9 @@
 //
 // What the design does about it: a block of 256 threads holds 64 x d tiles
 // in shared memory (rows padded by 4 floats, so that 16-byte loads from
-// eight different rows hit different banks) and computes a 64 x 64 score
+// eight different rows hit different banks: rows of 36, 68, 84, 100 and 132
+// floats put eight consecutive rows' 16 bytes on eight distinct 16-byte
+// units of a 128-byte bank line) and computes a 64 x 64 score
 // tile as a 16 x 16 grid of threads, each 4 rows x 4 columns in registers
 // (rows tr + 16 i, columns tc + 16 j): a thread's 16 accumulators take 64
 // FFMAs per 8 shared-memory loads of 16 bytes. The row reductions of the
@@ -324,12 +326,14 @@ inline cudaError_t launch_fwd(const FwdArgs& a, int hq, int nq, int head_block,
   return cudaGetLastError();
 }
 
-// A forward entry point's launch at head_dim d (32, 64 or 128).
+// A forward entry point's launch at head_dim d (32, 64, 80, 96 or 128).
 inline cudaError_t fwd(const FwdArgs& a, int hq, int nq, int head_dim, int head_block,
                        cudaStream_t stream) {
   switch (head_dim) {
     case 32: return launch_fwd<32>(a, hq, nq, head_block, stream);
     case 64: return launch_fwd<64>(a, hq, nq, head_block, stream);
+    case 80: return launch_fwd<80>(a, hq, nq, head_block, stream);
+    case 96: return launch_fwd<96>(a, hq, nq, head_block, stream);
     case 128: return launch_fwd<128>(a, hq, nq, head_block, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -347,7 +351,7 @@ inline cudaError_t launch_fwd_sparse(const FwdArgs& a, const int* work, int* cou
   return cudaGetLastError();
 }
 
-// A sparse-grid forward entry point's launch at head_dim d (32, 64 or 128).
+// A sparse-grid forward entry point's launch at head_dim d (32, 64, 80, 96 or 128).
 inline cudaError_t fwd_sparse(const FwdArgs& a, const void* work, void* counter, int nq,
                               int n_items, int heads_per_item, int head_dim,
                               cudaStream_t stream) {
@@ -356,6 +360,8 @@ inline cudaError_t fwd_sparse(const FwdArgs& a, const void* work, void* counter,
   switch (head_dim) {
     case 32: return launch_fwd_sparse<32>(a, w, c, nq, n_items, heads_per_item, stream);
     case 64: return launch_fwd_sparse<64>(a, w, c, nq, n_items, heads_per_item, stream);
+    case 80: return launch_fwd_sparse<80>(a, w, c, nq, n_items, heads_per_item, stream);
+    case 96: return launch_fwd_sparse<96>(a, w, c, nq, n_items, heads_per_item, stream);
     case 128: return launch_fwd_sparse<128>(a, w, c, nq, n_items, heads_per_item, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -592,13 +598,15 @@ inline cudaError_t launch_bwd(const BwdArgs& a, int heads, int blocks, cudaStrea
 }
 
 // dq (over hq heads and the q blocks) or dk/dv (over hk heads and the k
-// blocks) at head_dim d (32, 64 or 128).
+// blocks) at head_dim d (32, 64, 80, 96 or 128).
 template <bool DQ>
 inline cudaError_t bwd(const BwdArgs& a, int heads, int blocks, int head_dim,
                        cudaStream_t stream) {
   switch (head_dim) {
     case 32: return launch_bwd<32, DQ>(a, heads, blocks, stream);
     case 64: return launch_bwd<64, DQ>(a, heads, blocks, stream);
+    case 80: return launch_bwd<80, DQ>(a, heads, blocks, stream);
+    case 96: return launch_bwd<96, DQ>(a, heads, blocks, stream);
     case 128: return launch_bwd<128, DQ>(a, heads, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -628,7 +636,7 @@ inline cudaError_t launch_bwd_sparse(const BwdArgs& a, const int* work, int* cou
 
 // The sparse-grid dq (items of heads_per_item q heads and a q block, over
 // nq blocks) or dk/dv (items of a kv head and a k block, over nk blocks) at
-// head_dim d (32, 64 or 128).
+// head_dim d (32, 64, 80, 96 or 128).
 template <bool DQ>
 inline cudaError_t bwd_sparse(const BwdArgs& a, const void* work, void* counter, int blocks,
                               int n_items, int heads_per_item, int head_dim,
@@ -640,6 +648,10 @@ inline cudaError_t bwd_sparse(const BwdArgs& a, const void* work, void* counter,
       return launch_bwd_sparse<32, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
     case 64:
       return launch_bwd_sparse<64, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
+    case 80:
+      return launch_bwd_sparse<80, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
+    case 96:
+      return launch_bwd_sparse<96, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
     case 128:
       return launch_bwd_sparse<128, DQ>(a, w, c, blocks, n_items, heads_per_item, stream);
     default: return cudaErrorInvalidValue;

@@ -8,9 +8,16 @@
 // consumers share, and the host-side tensor-map encoding.
 //
 // Tiles are 64 rows of a head-major [rows, d] bf16 array, d in {32, 64,
-// 128, 256}. At d = 64, 128 and 256 TMA loads a tile with 128-byte swizzle
-// as d / 64 "chunks" of 64 rows x 128 bytes (64 bf16), one 8 KB box each,
-// every chunk 1024-byte aligned. A d = 32 row is 64 bytes: the tile is one 64 x 32 box
+// 80, 96, 128, 256}. At d = 64, 128 and 256 TMA loads a tile with 128-byte
+// swizzle as d / 64 "chunks" of 64 rows x 128 bytes (64 bf16), one 8 KB box
+// each, every chunk 1024-byte aligned. d = 80 and 96 (Phi-2's and
+// Phi-3-mini's widths) stay at their own width in device memory and take
+// d = 128's shared tile: two boxes, the second reaching past the row's end,
+// where TMA writes zeros and still counts the whole box on the barrier
+// (padded_d). The products run at the true d: d / 16 k slices for S =
+// Q K^T (5 or 6), and N = d (wgmma m64n80k16, m64n96k16) where the tile is
+// the B operand; columns past d are read by none of them, and the stores
+// write d columns. A d = 32 row is 64 bytes: the tile is one 64 x 32 box
 // (4 KB) with 64-byte swizzle, whose pattern repeats every 8 rows (512
 // bytes). wgmma reads a tile through a shared-memory descriptor (layout type
 // B128, or B64 at d = 32) in one of two orientations:
@@ -21,8 +28,8 @@
 // - MN-major (the tile's rows are the reduction dimension, transposed B):
 //   the B operand of dQ += dS K-type products, N = d. The 16-row k slice kk
 //   starts 16 rows into the tile, 2048 (1024) bytes; 8-row groups are 1024
-//   (512) bytes apart (SBO), and the second 64-column chunk (d = 128) 8192
-//   bytes (LBO; d <= 64 has one chunk across N). At d = 256 N is taken as
+//   (512) bytes apart (SBO), and the second 64-column chunk (d = 80, 96,
+//   128) 8192 bytes (LBO; d <= 64 has one chunk across N). At d = 256 N is taken as
 //   two products of N = 128, the second from the tile's third chunk.
 //
 // The accumulator of wgmma m64nNk16 (f32) gives thread (warp w of the
@@ -45,12 +52,13 @@ namespace sm90 {
 constexpr int WG_THREADS = 128;  // a warpgroup: the unit that issues wgmma
 constexpr int CHUNK_BYTES = 64 * 128;  // one TMA box at d >= 64: 64 rows x 64 bf16
 
-// A tile's swizzled row: 128 bytes at d = 64, 128 and 256 (a chunk's 64
-// bf16), the whole 64-byte row at d = 32; its columns and its TMA box's bytes.
+// A tile's swizzled row: 128 bytes at d = 64, 80, 96, 128 and 256 (a
+// chunk's 64 bf16), the whole 64-byte row at d = 32; its columns and its TMA
+// box's bytes.
 template <int D>
 __host__ __device__ constexpr int row_bytes() {
-  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
-                "the flex kernels take d in {32, 64, 128, 256}");
+  static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "the flex kernels take d in {32, 64, 80, 96, 128, 256}");
   return D == 32 ? 64 : 128;
 }
 template <int D>
@@ -60,6 +68,12 @@ __host__ __device__ constexpr int chunk_cols() {
 template <int D>
 __host__ __device__ constexpr int chunk_bytes() {
   return 64 * row_bytes<D>();
+}
+// The columns of a tile in shared memory: d in whole boxes, so d = 80 and 96
+// take d = 128's two chunks, TMA's zeros past the row's end.
+template <int D>
+__host__ __device__ constexpr int padded_d() {
+  return (D + chunk_cols<D>() - 1) / chunk_cols<D>() * chunk_cols<D>();
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -116,15 +130,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Rows row0 .. row0+63 of a [rows, D] bf16 tensor map: D / 64 boxes (one
-// 64 x 32 box at D = 32), the tile_bytes<D>() that the barrier expects.
+// Rows row0 .. row0+63 of a [rows, D] bf16 tensor map: padded_d<D>() / 64
+// boxes (one 64 x 32 box at D = 32; at D = 80 and 96 the second box's
+// columns past D are zeros), the tile_bytes<D>() that the barrier expects.
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int row0) {
   constexpr int COLS = chunk_cols<D>();
-  static_assert(D % COLS == 0 && D / COLS >= 1, "a tile is a whole number of boxes");
 #pragma unroll
-  for (int c = 0; c < D / COLS; ++c)
+  for (int c = 0; c < padded_d<D>() / COLS; ++c)
     tma_load_2d(dst + c * chunk_bytes<D>(), map, bar, c * COLS, row0);
 }
 
@@ -322,6 +336,58 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 80] += A[64 x 16] B[16 x 80], A from registers (the A fragment),
+// B from shared memory, MN-major (transposed; 128-byte swizzle): d = 80, whose
+// N runs over the tile's first chunk and 16 columns of its second.
+__device__ __forceinline__ void wgmma_rs(float (&d)[10][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 96] += A[64 x 16] B[16 x 96], A from registers (the A fragment),
+// B from shared memory, MN-major (transposed; 128-byte swizzle): d = 96, whose
+// N runs over the tile's first chunk and 32 columns of its second.
+__device__ __forceinline__ void wgmma_rs(float (&d)[12][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128] into accumulator columns 8 J0 ..
 // 8 J0 + 127, A from registers (the A fragment), B from shared memory,
 // MN-major (transposed; 128-byte swizzle).
@@ -377,7 +443,7 @@ constexpr int BAR_CONSUMERS = 1;  // named barrier over both consumer warpgroups
 
 template <int D>
 constexpr int tile_bytes() {
-  return BQ * D * 2;  // 64 rows of D bf16
+  return BQ * padded_d<D>() * 2;  // 64 rows of D bf16, in whole boxes
 }
 
 // A consumer warp is done with a stage: its lanes' reads (and, after a
@@ -502,8 +568,9 @@ __device__ __forceinline__ Item take_item(uint32_t full0, uint32_t empty0, const
 // -- host ---------------------------------------------------------------------------
 
 // A 2-D tensor map over a head-major [rows, d] bf16 array (d in {32, 64,
-// 128, 256}, row stride d) with 64 x 64 boxes and 128-byte swizzle (d = 32: 64
-// x 32 boxes and 64-byte swizzle; see the top). The driver's
+// 80, 96, 128, 256}, row stride d) with 64 x 64 boxes and 128-byte swizzle
+// (d = 32: 64 x 32 boxes and 64-byte swizzle; d = 80, 96: a box past the
+// row's end reads zeros there; see the top). The driver's
 // encoder is reached through the runtime's entry-point query, so the library
 // does not link libcuda. The base must be 16-byte aligned.
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int rows, int d) {
@@ -524,7 +591,8 @@ inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int rows,
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorMisalignedAddress;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};  // bytes, rows
-  if (d != 32 && d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
+  if (d != 32 && d != 64 && d != 80 && d != 96 && d != 128 && d != 256)
+    return cudaErrorInvalidValue;
   const bool narrow = d == 32;  // one 64-byte box a row
   const cuuint32_t box[2] = {narrow ? 32u : 64u, 64};
   const cuuint32_t elem_strides[2] = {1, 1};

@@ -67,10 +67,13 @@ LN2 = math.log(2.0)
 # 32 KB for d=128, so four stages and the resident tiles fit one SM (at d =
 # 256 a stage is 64 KB, and the walks keep one or two: csrc/flex_fwd_sm90.cuh,
 # flex_bwd_sm90.cuh). The kernels are compiled for these head dims and this
-# one tile only (d = 32 rows are 64 bytes: a 64-byte TMA swizzle,
-# csrc/flex_sm90.cuh).
+# one tile only (d = 32 rows are 64 bytes: a 64-byte TMA swizzle; d = 80 and
+# 96, Phi-2's and Phi-3-mini's widths, load into d = 128's shared tile with
+# zeros past d and multiply at the true d: csrc/flex_sm90.cuh). Any other
+# multiple of 16 would take the same mechanism at one template instance each
+# (ROADMAP.md B.13).
 HOPPER_TILES: dict[int, tuple[int, int]] = {
-    32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 64),
+    32: (64, 64), 64: (64, 64), 80: (64, 64), 96: (64, 64), 128: (64, 64), 256: (64, 64),
 }
 # The q/k/v dtypes each grid's kernels take: bf16 on the wgmma walks, and
 # float32 on the CUDA-core walks (csrc/flex_simt.cuh), on either grid.
@@ -80,7 +83,7 @@ KERNEL_DTYPES: dict[str, tuple[torch.dtype, ...]] = {
 }
 # The head dims the float32 walks are built for: head_dim 256 runs in bf16
 # only, float32 there is ROADMAP.md B.10.
-KERNEL_F32_HEAD_DIMS = (32, 64, 128)
+KERNEL_F32_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 @dataclasses.dataclass(frozen=True)
 class FlexAttnParams:
@@ -453,8 +456,7 @@ def _check_kernel_args(name: str, q, k, v, params: FlexAttnParams,
         raise ValueError(
             f"{name} is built for head_dim in {sorted(HOPPER_TILES)} with the "
             f"tile {HOPPER_TILES.get(d)}; got head_dim {d}, tile "
-            f"({params.block_q}, {params.block_k}) (head dims 80 and 96: "
-            f"ROADMAP.md B.12)"
+            f"({params.block_q}, {params.block_k}) (other head dims: ROADMAP.md B.13)"
         )
     if q.dtype == torch.float32 and d not in KERNEL_F32_HEAD_DIMS:
         raise TypeError(

@@ -47,14 +47,15 @@ from .kv_cache import PagedKVCache
 
 NEG_INF = float("-inf")
 
-# the kernel's build (csrc/decode.cu): head_dim 32, 64, 128 or 256 (the flex
-# kernels' widths) and any number of q heads per kv head, but at head_dim 256
-# bf16 only (float32 there: ROADMAP.md B.10) and in the flat mode up to 32 q
-# heads a kv head (the wide walk there: ROADMAP.md B.11)
-KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# the kernel's build (csrc/decode.cu): head_dim 32, 64, 80, 96, 128 or 256
+# (the flex kernels' widths) and any number of q heads per kv head, but at
+# head_dim 256 bf16 only (float32 there: ROADMAP.md B.10) and in the flat mode
+# up to 32 q heads a kv head (the wide walk there: ROADMAP.md B.11); other head
+# dims: ROADMAP.md B.13
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_F32_HEAD_DIMS = (32, 64, 128)
-KERNEL_WIDE_HEAD_DIMS = (32, 64, 128)
+KERNEL_F32_HEAD_DIMS = (32, 64, 80, 96, 128)
+KERNEL_WIDE_HEAD_DIMS = (32, 64, 80, 96, 128)
 # head dims whose bf16 walk holds one m16 tile of rows (decode_sm90.cuh
 # WIDE_D_ROWS): a walk's rows in the shared mode, and a flat group past them
 # runs in row tiles of these rows, each a row group
@@ -314,8 +315,8 @@ def _decode_partials_kernel(q, cache: PagedKVCache, bt, seq_lens, params: Decode
     if d not in KERNEL_HEAD_DIMS or hq % hk:
         raise ValueError(
             f"paged_decode is built for head_dim in {KERNEL_HEAD_DIMS} and a whole number of "
-            f"q heads per kv head; got head_dim {d}, {hq} q / {hk} kv heads (head dims 80 and "
-            f"96: ROADMAP.md B.12)"
+            f"q heads per kv head; got head_dim {d}, {hq} q / {hk} kv heads (other head dims: "
+            f"ROADMAP.md B.13)"
         )
     if q.dtype == torch.float32 and d not in KERNEL_F32_HEAD_DIMS:
         raise TypeError(

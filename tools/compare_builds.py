@@ -12,12 +12,14 @@ the two builds give the same bits, and their CUDA-event times in turns
 (other, this, this, other): the row-major four on the serving prefill
 (causal 4096, 32 q / 8 kv heads, d 128), the sparse-grid four on the
 16,384-token varlen block-causal mask at 16 / 8 heads (head_block 1 and G).
+The bits are compared at head_dim 128, 64, 32 and 256.
 The card's name and power limit come first, as ``nvidia-smi`` prints them.
 
 ``paged_decode`` is built too and called with the other checkout's own C
 signature (read from its ``decode.cu``): its walks that both checkouts
-share (bf16 groups of up to 32 q heads a kv head, the shared mode, the
-one-launch tick's per-row tables, the float32 walks) give the same bits or
+share (bf16 groups of up to 32 q heads a kv head at head_dim 32, 64, 128
+and 256, the shared mode, the one-launch tick's per-row tables, the float32
+walks at 32, 64 and 128) give the same bits or
 the run fails; then its time on the serving batch (``chip_smoke.py``'s
 decode batch at the serving widths, one split) in turns. The wide walk's
 arguments (``num_pages``, ``seg_chunks``, ``blocks`` after
@@ -133,7 +135,7 @@ def decode_cases(other_fn, gen) -> bool:
 
     ok = True
     for dtype, groups in ((torch.bfloat16, (1, 4, 8, 16, 32)), (torch.float32, (1, 4, 8, 48))):
-        for d in (32, 64, 128):
+        for d in ((32, 64, 128, 256) if dtype == torch.bfloat16 else (32, 64, 128)):
             for g in groups:
                 for ps in (16, 128):
                     hk = 2 if g <= 16 else 1
@@ -230,7 +232,7 @@ def main() -> int:
              ("varlen_block_causal", 4096, qr_h, kr_h, ty_h, {})]
     for name, t, qr, kr, ty, kw in cases:
         for g in (1, 2, 4):
-            for d in (128, 64):
+            for d in (128, 64, 32, 256):
                 p = cs.Flex(gen, t, t, 8, 8 // g, qr, kr, ty, d=d, **kw)
                 rec = {"case": f"{name}_g{g}_d{d}", "flex_fwd": same("flex_fwd", p.kernel),
                        "flex_fwd_hb": same("flex_fwd_hb", lambda: p.hb_kernel(max(g, 2))),
